@@ -1,0 +1,291 @@
+"""Two-dimensional preconditioned conjugate-gradient solver
+(mitgcm_tpu/solver/cg2d.py; reference model/src/cg2d.F, ini_cg2d.F).
+
+One PCG iteration is three calls, each a hand-written CUDA kernel
+(kernels/csrc/cg2d.cu, kernel A) for CUDA tensors and its plain PyTorch
+twin for CPU tensors or when `impl="plain"` is asked for:
+  stencil_dot  q = P r with dot(q, r), then q = A s with dot(s, q)
+  s_update     s = q + beta s
+  xr_update    x += alpha s, r -= alpha q, with dot(r, r)
+The scalars (eta, alpha's numerator and denominator, the residual) live in
+0-d device tensors that the calls read and write, so alpha and beta never
+leave the device. The loop itself runs on the host: one host read of the
+residual per iteration decides the exit and the min-residual selection.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch import kernels
+from mitgcm_tpu_torch.core.grid import Grid
+from mitgcm_tpu_torch.ops.stencil import (cyclic_fill_halo, interior_mask,
+                                          shift as sh)
+
+
+@dataclass
+class CG2DOperator:
+    """aW/aS/aC: 5-point operator; pW/pS/pC: preconditioner; cg2dNorm: the
+    normalisation factor (ini_cg2d.F myNorm); both scalars are 0-d."""
+    aW: torch.Tensor
+    aS: torch.Tensor
+    aC: torch.Tensor
+    pW: torch.Tensor
+    pS: torch.Tensor
+    pC: torch.Tensor
+    cg2dNorm: torch.Tensor
+    tolerance_sq: torch.Tensor
+
+
+@dataclass
+class CG2DResult:
+    x: torch.Tensor
+    first_residual: torch.Tensor   # 0-d
+    last_residual: torch.Tensor    # 0-d
+    n_iters: int
+    host_syncs: int                # device-to-host reads the solve made
+
+
+def build_cg2d(cfg: Config, grid: Grid) -> CG2DOperator:
+    """ini_cg2d.F: vertically integrated transmissibilities and the
+    preconditioner, in the JAX package's operation order."""
+    dt, dev = grid.rA.dtype, grid.rA.device
+    oly, olx = cfg.oly, cfg.olx
+    drF = grid.drF[:, None, None]
+    imask = interior_mask(grid.rA.shape, oly, olx, dt, dev)
+
+    fac = cfg.implicSurfPress * cfg.implicDiv2Dflow
+    # level-by-level accumulation in k-ascending order (ini_cg2d.F:88-103)
+    termW = grid.dyG * drF * grid.hFacW * fac * grid.recip_dxC
+    termS = grid.dxG * drF * grid.hFacS * fac * grid.recip_dyC
+    aW = torch.zeros_like(grid.rA)
+    aS = torch.zeros_like(grid.rA)
+    for k in range(cfg.nr):
+        aW = aW + termW[k]
+        aS = aS + termS[k]
+    aW = aW * grid.maskInC * sh(grid.maskInC, di=-1)
+    aS = aS * grid.maskInC * sh(grid.maskInC, dj=-1)
+
+    myNorm = torch.maximum(torch.max(torch.abs(aW) * imask),
+                           torch.max(torch.abs(aS) * imask))
+    myNorm = torch.where(myNorm != 0.0, 1.0 / myNorm,
+                         torch.ones_like(myNorm))
+    aW = cyclic_fill_halo(aW * myNorm, oly, olx)
+    aS = cyclic_fill_halo(aS * myNorm, oly, olx)
+    aC = -(aW + sh(aW, di=1) + aS + sh(aS, dj=1)
+           + cfg.freeSurfFac * myNorm * grid.recip_Bo * grid.rA
+           / cfg.deltaTMom / cfg.deltaTFreeSurf)
+    aC = cyclic_fill_halo(aC, oly, olx)
+
+    aCw = sh(aC, di=-1)
+    aCs = sh(aC, dj=-1)
+    one = torch.ones_like(aC)
+    zero = torch.zeros_like(aC)
+    pC = torch.where(aC == 0.0, one, 1.0 / torch.where(aC == 0.0, one, aC))
+    offFac = cfg.cg2dpcOffDFac
+    dW = offFac * (aCw + aC)
+    dS = offFac * (aCs + aC)
+    pW = torch.where(aC + aCw == 0.0, zero,
+                     -aW / torch.where(aC + aCw == 0.0, one, dW * dW))
+    pS = torch.where(aC + aCs == 0.0, zero,
+                     -aS / torch.where(aC + aCs == 0.0, one, dS * dS))
+    pC = cyclic_fill_halo(pC, oly, olx)
+    pW = cyclic_fill_halo(pW, oly, olx)
+    pS = cyclic_fill_halo(pS, oly, olx)
+
+    # tolerance (ini_cg2d.F:150-162): normalised-RHS mode by default
+    if cfg.cg2dTargetResWunit <= 0.0:
+        tol = torch.tensor(cfg.cg2dTargetResidual, dtype=dt, device=dev)
+    else:
+        tol = (myNorm * cfg.cg2dTargetResWunit * grid.globalArea
+               / cfg.deltaTMom)
+    return CG2DOperator(aW=aW, aS=aS, aC=aC, pW=pW, pS=pS, pC=pC,
+                        cg2dNorm=myNorm, tolerance_sq=tol * tol)
+
+
+def _stencil5(cW, cS, cC, y, center_first: bool):
+    """5-point stencil with zero-fill shifts, summed in the order of the
+    JAX package's _apply_P (center first) or _apply_A (center last)."""
+    terms = [cW * sh(y, di=-1), sh(cW, di=1) * sh(y, di=1),
+             cS * sh(y, dj=-1), sh(cS, dj=1) * sh(y, dj=1)]
+    terms = [cC * y] + terms if center_first else terms + [cC * y]
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+# thread block of the dot-producing kernels (kernels/csrc/common.cuh BX, BY)
+_BX, _BY = 32, 8
+_NT = _BX * _BY
+
+
+def _tree(a):
+    """Pairwise sum over the last axis (length _NT) in the order of the
+    shared-memory tree of common.cuh:grid_sum."""
+    s = _NT // 2
+    while s > 0:
+        a = a[..., :s] + a[..., s:2 * s]
+        s //= 2
+    return a[..., 0]
+
+
+def _grid_sum(v, oly: int, olx: int):
+    """Sum of v's interior in the fixed order of common.cuh:grid_sum (per
+    32x8 block a tree; the block partials strided over 256 lanes, then a
+    tree), so the twin's dot products are bit-equal to the kernels'."""
+    v = v[oly:v.shape[0] - oly, olx:v.shape[1] - olx]
+    ny, nx = v.shape
+    nby, nbx = -(-ny // _BY), -(-nx // _BX)
+    v = F.pad(v, (0, nbx * _BX - nx, 0, nby * _BY - ny))
+    blocks = v.reshape(nby, _BY, nbx, _BX).permute(0, 2, 1, 3)
+    partials = _tree(blocks.reshape(nby * nbx, _NT))
+    lanes = F.pad(partials, (0, -partials.numel() % _NT)).reshape(-1, _NT)
+    acc = torch.zeros_like(lanes[0])
+    for row in lanes:
+        acc = acc + row
+    return _tree(acc)
+
+
+class Workspace:
+    """Scratch of the dot-producing kernels: one partial sum per block and
+    the last-block counter (0 between launches)."""
+
+    def __init__(self, shape, oly: int, olx: int, dtype, device):
+        ny, nx = shape[-2] - 2 * oly, shape[-1] - 2 * olx
+        n = kernels.library().mitgcm_cg2d_num_partials(ny, nx)
+        self.partials = torch.empty(n, dtype=dtype, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _set_interior(a, v, oly, olx):
+    a[..., oly:a.shape[-2] - oly, olx:a.shape[-1] - olx] = \
+        v[..., oly:v.shape[-2] - oly, olx:v.shape[-1] - olx]
+
+
+def _dims(a, oly, olx):
+    return a.shape[-2] - 2 * oly, a.shape[-1] - 2 * olx, oly, olx
+
+
+def _check(dtype, shape, scalars, **fields):
+    kernels.check_tensors(dtype, **fields, **scalars)
+    for name, t in fields.items():
+        kernels.check_shape(name, t, shape)
+    for name, t in scalars.items():
+        kernels.check_shape(name, t, ())
+
+
+def stencil_dot(cW, cS, cC, y, out, dot_out, center_first: bool, oly: int,
+                olx: int, ws: Workspace = None, impl: str = None) -> None:
+    """out[interior] = 5-point stencil of y (P's term order when
+    center_first, else A's) and dot_out (0-d) = dot(out, y) over the
+    interior. Reads y's interior and its cyclic wrap, never y's halo
+    cells; leaves out's halo cells as they are."""
+    if not kernels.use_kernel(y, impl):
+        y = cyclic_fill_halo(y, oly, olx)
+        v = _stencil5(cW, cS, cC, y, center_first)
+        _set_interior(out, v, oly, olx)
+        dot_out.copy_(_grid_sum(v * y, oly, olx))
+        return
+    _check(y.dtype, y.shape, {"dot_out": dot_out}, cW=cW, cS=cS, cC=cC,
+           y=y, out=out)
+    ws = ws or Workspace(y.shape, oly, olx, y.dtype, y.device)
+    kernels.launch("cg2d_stencil_dot", y.dtype, cW.data_ptr(), cS.data_ptr(),
+                   cC.data_ptr(), y.data_ptr(), out.data_ptr(),
+                   dot_out.data_ptr(), ws.partials.data_ptr(),
+                   ws.counter.data_ptr(), *_dims(y, oly, olx),
+                   int(center_first))
+
+
+def s_update(q, s, eta_n, eta_nm1, oly: int, olx: int,
+             impl: str = None) -> None:
+    """s[interior] = q + (eta_n / eta_nm1) * s, in place (0-d eta's)."""
+    if not kernels.use_kernel(s, impl):
+        _set_interior(s, q + eta_n / eta_nm1 * s, oly, olx)
+        return
+    _check(s.dtype, s.shape, {"eta_n": eta_n, "eta_nm1": eta_nm1}, q=q, s=s)
+    kernels.launch("cg2d_s_update", s.dtype, q.data_ptr(), s.data_ptr(),
+                   eta_n.data_ptr(), eta_nm1.data_ptr(), *_dims(s, oly, olx))
+
+
+def xr_update(x, r, s, q, num, den, dot_out, oly: int, olx: int,
+              ws: Workspace = None, impl: str = None) -> None:
+    """In place on the interior: x += alpha s and r -= alpha q with
+    alpha = num / den (0-d); dot_out (0-d) = dot(r, r) over the
+    interior."""
+    if not kernels.use_kernel(x, impl):
+        alpha = num / den
+        _set_interior(x, x + alpha * s, oly, olx)
+        rn = r - alpha * q
+        _set_interior(r, rn, oly, olx)
+        dot_out.copy_(_grid_sum(rn * rn, oly, olx))
+        return
+    _check(x.dtype, x.shape, {"num": num, "den": den, "dot_out": dot_out},
+           x=x, r=r, s=s, q=q)
+    ws = ws or Workspace(x.shape, oly, olx, x.dtype, x.device)
+    kernels.launch("cg2d_xr_update", x.dtype, x.data_ptr(), r.data_ptr(),
+                   s.data_ptr(), q.data_ptr(), num.data_ptr(),
+                   den.data_ptr(), dot_out.data_ptr(),
+                   ws.partials.data_ptr(), ws.counter.data_ptr(),
+                   *_dims(x, oly, olx))
+
+
+def cg2d(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
+         ) -> CG2DResult:
+    """Solve A x = b from first guess x0 (halo-padded 2-D tensors) with
+    interior-only dot products (cg2d.py:_cg2d_raw). Halos of the work
+    fields r, s and q are never filled: every call reads the wrap."""
+    oly, olx = cfg.oly, cfg.olx
+    imask = interior_mask(b.shape, oly, olx, b.dtype, b.device)
+    # normalise the RHS (cg2d.F:105-135)
+    b = b * op.cg2dNorm
+    rhsMax = torch.max(torch.abs(b) * imask)
+    normalise = cfg.cg2dTargetResWunit <= 0.0
+    if normalise:
+        rhsNorm = torch.where(rhsMax != 0.0, 1.0 / rhsMax,
+                              torch.ones_like(rhsMax))
+        b = b * rhsNorm
+        x0 = x0 * rhsNorm
+    use_min = cfg.cg2dUseMinResSol == 1
+    ws = (Workspace(b.shape, oly, olx, b.dtype, b.device)
+          if kernels.use_kernel(b, impl) else None)
+    kw = dict(oly=oly, olx=olx, impl=impl)
+
+    # device scalars: 1, eta (two slots that swap roles), dot(s, q), r.r
+    one, eta_n, eta_nm1, sq, err_sq = torch.ones(
+        5, dtype=b.dtype, device=b.device).unbind()
+    x = x0 * imask
+    r = b.clone()
+    s = torch.zeros_like(b)
+    q = torch.zeros_like(b)
+    # r0 = b - A x0 is one xr step with alpha = 1 along a zero direction
+    stencil_dot(op.aW, op.aS, op.aC, x, q, sq, False, ws=ws, **kw)
+    xr_update(x, r, s, q, one, one, err_sq, ws=ws, **kw)
+    first_res = torch.sqrt(err_sq)
+    err, tol_sq, syncs = err_sq.item(), op.tolerance_sq.item(), 2
+    x_min, min_err = x.clone(), err
+    it = 0
+    while err >= tol_sq and it < cfg.cg2dMaxIters:
+        stencil_dot(op.pW, op.pS, op.pC, r, q, eta_n, True, ws=ws, **kw)
+        s_update(q, s, eta_n, eta_nm1, **kw)
+        stencil_dot(op.aW, op.aS, op.aC, s, q, sq, False, ws=ws, **kw)
+        xr_update(x, r, s, q, eta_n, sq, err_sq, ws=ws, **kw)
+        err = err_sq.item()
+        syncs += 1
+        if use_min and err < min_err:
+            x_min.copy_(x)
+            min_err = err
+        eta_n, eta_nm1 = eta_nm1, eta_n
+        it += 1
+    if use_min and err > min_err:
+        x = x_min
+    if normalise:
+        x = x / rhsNorm
+    return CG2DResult(x=cyclic_fill_halo(x, oly, olx),
+                      first_residual=first_res,
+                      last_residual=torch.sqrt(err_sq), n_iters=it,
+                      host_syncs=syncs)
