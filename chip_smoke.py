@@ -16,7 +16,19 @@ exits nonzero without the final line:
   5. full size : the 1024x1024x32 gyre in float32 (deltaT=600): one warm-up
                  step and 5 timed steps through the kernels, with every
                  kernel's launch count, then 2 steps of the plain path
-The last two lines are the per-kernel JSON summary and the device line.
+  6. adjoint   : the backward kernels B' and C' against autograd through
+                 their plain twins (64x64x4 float64, 1024x1024x32 float32);
+                 grdchk of the 16x16x4 float64 gyre on the kernel path
+                 (the set-up of tests/test_adjoint.py), its gradient against
+                 the plain path's and against a second kernel-path run; then
+                 the gradient of a box cost through 6 checkpointed steps of
+                 the 1024x1024x32 float32 gyre, timed against the forward
+                 steps alone (medians of 3 runs each), with peak memory and
+                 every kernel's launches (those of the first gradient)
+It prints, last, one line of JSON per kernel (the launches are those of
+the main path that runs it: phase 5 for the forward kernels, phase 6's
+full-size gradient for B' and C'), the card's name and power limit, and
+the device line.
 """
 
 import json
@@ -44,11 +56,20 @@ KERNELS = {
                      "mitgcm_tpu/model/mom_fluxform.py:122"),
     "gad_calc_rhs_c2": ("mitgcm_tpu_torch/kernels/csrc/gad_calc_rhs.cu",
                         "mitgcm_tpu/model/gad.py:1038"),
+    # the VJPs that jax.grad took of the two fused computations above
+    "mom_fluxform_adj": ("mitgcm_tpu_torch/kernels/csrc/mom_fluxform_adj.cu",
+                         "mitgcm_tpu/model/mom_fluxform.py:122"),
+    "gad_calc_rhs_c2_adj": (
+        "mitgcm_tpu_torch/kernels/csrc/gad_calc_rhs_adj.cu",
+        "mitgcm_tpu/model/gad.py:1038"),
 }
+CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
+BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
 # largest relative interior error a kernel may show against its twin
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 CG2D_X_TOL_F64 = 1e-10
 PARITY_DIGITS = 10.0
+GRDCHK_TOL = 1e-5
 
 
 def phase(title):
@@ -130,11 +151,16 @@ class Case:
         return f"{c.nx}x{c.ny}x{c.nr} {str(self.dtype).split('.')[-1]}"
 
 
-def compare(name, case, outs_k, outs_p, ms, plain_ms, results):
+def compare(name, case, outs_k, outs_p, ms, plain_ms, results,
+            whole=False):
+    """Hold a kernel's outputs against its twin's: on the interior, or on
+    every cell when whole (a VJP's halo cells carry cotangents too)."""
     from mitgcm_tpu_torch.utils.compare import interior, rel_err
 
     def cells(t):   # interior of a field; a 0-d dot product as it is
-        return interior(t, case.cfg.olx) if t.dim() else t.cpu().numpy()
+        if whole or not t.dim():
+            return t.cpu().numpy()
+        return interior(t, case.cfg.olx)
 
     rel = max(rel_err(cells(k), cells(p)) for k, p in zip(outs_k, outs_p))
     abs_err = max(float(np.max(np.abs(cells(k) - cells(p))))
@@ -293,7 +319,8 @@ def full_phase(kernels):
             raise AssertionError(f"{name} has shape {tuple(field.shape)}")
         if not bool(torch.isfinite(field).all()):
             raise AssertionError(f"{name} is not finite after 6 steps")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in KERNELS if k not in BACKWARD_KERNELS
+               and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -301,6 +328,153 @@ def full_phase(kernels):
     print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
           f"{points * 2 / sec_p:.4e} points*steps/s, cg2d iterations "
           f"{iters_p}", flush=True)
+    return launches
+
+
+def vjp_phase(case, results, reps):
+    """B' and C' against autograd through their plain twins, on the same
+    seeded inputs and cotangents seeded on interior cells only (kernel
+    B's and C's halo outputs are constant zeros); each timed as the
+    backward pass of its module on a retained graph."""
+    from mitgcm_tpu_torch.model import gad
+    from mitgcm_tpu_torch.model import mom_fluxform as mom
+
+    cfg, g = case.cfg, case.grid
+    rng = np.random.default_rng(SEED + 1)
+    shape = tuple(g.hFacC.shape)
+    inner = torch.zeros(shape, dtype=case.dtype, device="cuda")
+    inner[:, cfg.oly:-cfg.oly, cfg.olx:-cfg.olx] = 1.0
+
+    def timed_backward(fwd, ins, bars):
+        """Closures (kernel path, plain path) that return the cotangents
+        of ins from fwd(impl, *ins), on a graph recorded once."""
+        def run(impl):
+            xs = [t.clone().requires_grad_(True) for t in ins]
+            outs = fwd(impl, *xs)
+            return lambda: torch.autograd.grad(outs, xs, bars,
+                                               retain_graph=True)
+        return run(None), run("plain")
+
+    def mom_fwd(impl, u, v, w):
+        return mom.mom_fluxform(cfg, g, u, v, w, case.kappaRU, case.kappaRV,
+                                impl=impl)
+    bars = [case.field(rng, shape, 1.0) * inner for _ in range(4)]
+    k, p = timed_backward(mom_fwd, (case.u, case.v, case.w), bars)
+    compare("mom_fluxform_adj", case, k(), p(), cuda_time_ms(k, reps),
+            cuda_time_ms(p, reps), results, whole=True)
+
+    def rhs_fwd(impl, t, uT, vT, rT):
+        flow = case.flow._replace(uTrans=uT, vTrans=vT, rTrans=rT,
+                                  rTransKp=torch.cat(
+                                      [rT[1:], torch.zeros_like(rT[:1])]))
+        return gad.calc_rhs(cfg, g, flow, t, case.kappaR, cfg.diffKhT,
+                            impl=impl)
+    bar = case.field(rng, shape, 1.0) * inner
+    k, p = timed_backward(rhs_fwd, (case.theta, case.flow.uTrans,
+                                    case.flow.vTrans, case.flow.rTrans), bar)
+    compare("gad_calc_rhs_c2_adj", case, k(), p(), cuda_time_ms(k, reps),
+            cuda_time_ms(p, reps), results, whole=True)
+
+
+def adjoint_objective(n, nr, dtype, n_steps, box, k_range, deltaT=1200.0,
+                      impl=None):
+    """(cfg, control, J) of a box-mean theta cost after n_steps of the
+    gyre on the card, with a 3-D theta control."""
+    from mitgcm_tpu_torch.ad import adjoint
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.gyre_config(nx=n, ny=n, nr=nr, n_steps=n_steps,
+                                deltaT=deltaT)
+    grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=dtype,
+                                                    device="cuda")
+    control = adjoint.Control(cfg, grid, field="theta")
+    cost = adjoint.cost_boxmean_tracer(cfg, grid, "theta", box=box,
+                                       k_range=k_range)
+    return cfg, control, {impl: adjoint.make_objective(
+        cfg, grid, op, forcing, state, control, cost, n_steps, impl=impl)
+        for impl in (None, "plain")}
+
+
+def grdchk_phase():
+    """tests/test_adjoint.py's set-up on the card, on the kernel path."""
+    from mitgcm_tpu_torch.ad import grdchk
+    from mitgcm_tpu_torch.ad.adjoint import adjoint_gradient
+    from mitgcm_tpu_torch.utils.compare import digits
+
+    cfg, control, J = adjoint_objective(16, 4, torch.float64, 6,
+                                        (8, 12, 8, 12), (0, 2))
+    positions = [(1, cfg.oly + 9, cfg.olx + 9), (0, cfg.oly + 10, cfg.olx + 8),
+                 (2, cfg.oly + 6, cfg.olx + 11)]
+    for r in grdchk.grdchk(J[None], control.zero(), positions, eps=1.0e-4):
+        print(f"grdchk {r['pos']}: adjoint {r['adj_grad']:.10e}, finite "
+              f"difference {r['fd_grad']:.10e}, 1 - fd/adj "
+              f"{r['rel_err']:.3e}", flush=True)
+        if r["adj_grad"] == 0.0 or not abs(r["rel_err"]) < GRDCHK_TOL:
+            raise AssertionError(f"grdchk fails at {r['pos']}")
+    _, g1 = adjoint_gradient(J[None], control.zero())
+    _, g2 = adjoint_gradient(J[None], control.zero())
+    _, gp = adjoint_gradient(J["plain"], control.zero())
+    dig = digits(g1.cpu().numpy(), gp.cpu().numpy())
+    same = torch.equal(g1, g2)
+    print(f"gradient: kernel path vs plain path {dig:.2f} digits; two "
+          f"kernel-path runs bit-equal: {same}", flush=True)
+    if not (dig >= PARITY_DIGITS and same):
+        raise AssertionError("the kernel-path gradient disagrees")
+
+
+def adjoint_full_phase(kernels):
+    """Gradient of a box cost through 6 checkpointed steps (2 chunks of 3)
+    of the 1024x1024x32 float32 gyre."""
+    from mitgcm_tpu_torch.ad.adjoint import adjoint_gradient
+
+    n, nr, n_steps = 1024, 32, 6
+    box, k_range = (512, 768, 512, 768), (0, 2)
+    cfg, control, J = adjoint_objective(n, nr, torch.float32, n_steps, box,
+                                        k_range, deltaT=600.0)
+    xx = control.zero()
+
+    def ms_per_step(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3 / n_steps
+
+    # three runs of each, the host's load moves single readings a lot
+    with torch.no_grad():
+        fwd = [ms_per_step(lambda: J[None](xx))[1] for _ in range(3)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    (fc, grad), ms = ms_per_step(lambda: adjoint_gradient(J[None], xx))
+    launches = dict(kernels.launches)
+    adj = [ms] + [ms_per_step(lambda: adjoint_gradient(J[None], xx))[1]
+                  for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_ms, adj_ms = float(np.median(fwd)), float(np.median(adj))
+    print(f"forward only: {fwd_ms:.2f} ms/step (runs "
+          f"{', '.join(f'{x:.2f}' for x in fwd)}); value_and_grad: "
+          f"{adj_ms:.2f} ms/step (runs {', '.join(f'{x:.2f}' for x in adj)});"
+          f" ratio of the medians {adj_ms / fwd_ms:.2f}; peak device memory "
+          f"{peak:.2f} GiB; cost {float(fc):.6e}", flush=True)
+    for name in CG2D_KERNELS:
+        n_adj = launches.get(f"{name}:adjoint", 0)
+        print(f"{name}: {launches.get(name, 0) - n_adj} forward launches "
+              f"(recomputation included), {n_adj} in the adjoint solves")
+    print(f"launches {launches}", flush=True)
+    inner = grad[:, cfg.oly:-cfg.oly, cfg.olx:-cfg.olx]
+    nonzero = int((inner != 0).sum())
+    in_box = (box[1] - box[0]) * (box[3] - box[2]) * (k_range[1] - k_range[0])
+    print(f"gradient: {nonzero} nonzero interior cells (the box holds "
+          f"{in_box}), max |grad| {float(grad.abs().max()):.6e}", flush=True)
+    if not bool(torch.isfinite(grad).all()):
+        raise AssertionError("the full-size gradient is not finite")
+    if not nonzero > in_box:
+        raise AssertionError("the sensitivity did not leave the cost box")
+    missing = [k for k in BACKWARD_KERNELS + tuple(
+        f"{c}:adjoint" for c in CG2D_KERNELS) if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"never launched in the adjoint: {missing}")
     return launches
 
 
@@ -318,6 +492,15 @@ def main():
     torch.cuda.empty_cache()
     parity_phase()
     launches = full_phase(kernels)
+    torch.cuda.empty_cache()
+    phase("6 adjoint")
+    vjp_phase(Case(64, 4, torch.float64), results, reps=20)
+    vjp_phase(Case(1024, 32, torch.float32), results, reps=10)
+    torch.cuda.empty_cache()
+    grdchk_phase()
+    adj_launches = adjoint_full_phase(kernels)
+    for name in BACKWARD_KERNELS:
+        launches[name] = adj_launches[name]
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-All sources under `csrc/` are compiled by nvcc for sm_90a into one shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers,
-so a build takes seconds). The build happens at first use, keyed by a hash
+All sources under `csrc/` are compiled by nvcc for sm_90a (one nvcc per
+source, in parallel) and linked into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds). The build happens at first use, keyed by a hash
 of the sources and flags, into `build/` beside this file; nothing is built
 or imported when the module is imported.
 
@@ -10,11 +11,14 @@ Each exported function is `mitgcm_<kernel>_f32` / `_f64`; it launches on the
 stream it is given, allocates nothing and returns cudaGetLastError().
 `launch` raises if that is not 0 and otherwise adds one to the kernel's
 count in `launches`, which a run reads to prove that the main path went
-through the kernels.
+through the kernels; inside `counting_as(label)` the launch is also
+counted under "<kernel>:<label>" (the adjoint cg2d solves are counted
+apart from the forward ones so).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -30,9 +34,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
 # like its plain PyTorch twin (the stencils are memory-bound; FMA buys
 # nothing measurable there)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
+                     "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,10 +59,14 @@ SIGNATURES = {
     # pointer table, its length; nr, ny, nx, oly, olx; diffKh, rkSign;
     # stream
     "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_P],
+    # the backward kernels take the arguments of their forward kernels
+    "mom_fluxform_adj": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
+    "gad_calc_rhs_c2_adj": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 launches: Counter = Counter()
+_labels: list = []
 _lib = None
 
 
@@ -71,7 +79,8 @@ def nvcc_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into one .so (once per content hash); return its
-    path. verbose prints nvcc's output (ptxas register/spill report)."""
+    path. One nvcc per source, all started together, then one link.
+    verbose prints nvcc's output (ptxas register/spill report)."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -83,12 +92,27 @@ def build(verbose: bool = False) -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources],
+    nvcc = nvcc_path()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [os.path.basename(src) for src, proc in zip(sources, procs)
+              if proc.returncode != 0]
+    if verbose or failed:
+        print("".join(logs), flush=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
+    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
                           capture_output=True, text=True)
-    if verbose or proc.returncode != 0:
-        print(proc.stdout + proc.stderr, flush=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}")
+        print(proc.stdout + proc.stderr, flush=True)
+        raise RuntimeError(f"nvcc link failed with exit code "
+                           f"{proc.returncode}")
     os.replace(tmp, so)
     return so
 
@@ -147,6 +171,17 @@ def pointer_table(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+@contextlib.contextmanager
+def counting_as(label: str):
+    """Count the launches made inside the block also under
+    "<kernel>:<label>"."""
+    _labels.append(label)
+    try:
+        yield
+    finally:
+        _labels.pop()
+
+
 def launch(kernel: str, dtype: torch.dtype, *args) -> None:
     """Call mitgcm_<kernel>_<f32|f64> on the current stream; raise on a
     CUDA error, count the launch otherwise."""
@@ -157,3 +192,5 @@ def launch(kernel: str, dtype: torch.dtype, *args) -> None:
         msg = lib.mitgcm_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err}: {msg}")
     launches[kernel] += 1
+    if _labels:
+        launches[f"{kernel}:{_labels[-1]}"] += 1

@@ -2,10 +2,11 @@
 2nd-order advection (scheme 2) with Laplacian horizontal and explicit
 vertical diffusion.
 
-`calc_rhs` runs kernel C (kernels/csrc/gad_calc_rhs.cu) for CUDA tensors
-and the plain PyTorch twin `_calc_rhs_plain` for CPU tensors or when
-impl="plain" is asked for. The kernel writes zero halo cells; both agree
-on the interior.
+`calc_rhs` runs kernel C (kernels/csrc/gad_calc_rhs.cu) for CUDA tensors,
+with kernel C' (gad_calc_rhs_adj.cu) as its backward, and the plain
+PyTorch twin `_calc_rhs_plain`, differentiated by autograd, for CPU
+tensors or when impl="plain" is asked for. The kernel writes zero halo
+cells; both agree on the interior.
 """
 
 from __future__ import annotations
@@ -72,36 +73,99 @@ def diff_flux_r(cfg: Config, grid: Grid, kappaR, maskUp, tracer):
     return flx
 
 
+# grid fields kernels C and C' read, in the order of GadArgs
+_GRID3 = ("maskC", "recip_hFacC")
+_GRID2 = ("rA", "recip_dxC", "recip_dyC", "cosFacU", "recip_rA", "maskInC")
+_GRID1 = ("recip_drF", "recip_drC")
+# the inputs that get a gradient; the others are constants
+_DIFFERENTIABLE = ("tracer", "uTrans", "vTrans", "rTrans")
+
+
+def _kernel_inputs(grid: Grid, tracer, uTrans, vTrans, rTrans, xA, yA,
+                   maskUp, kappaR) -> dict:
+    """Kernel C's inputs by name, in the order of
+    kernels/csrc/gad_calc_rhs.cuh:GadArgs."""
+    return dict(uTrans=uTrans, vTrans=vTrans, rTrans=rTrans, xA=xA, yA=yA,
+                maskUp=maskUp, tracer=tracer, kappaR=kappaR,
+                **{n: getattr(grid, n) for n in _GRID3 + _GRID2 + _GRID1})
+
+
+def _launch(kernel: str, cfg: Config, ins: dict, last, outs: dict,
+            diffKh: float) -> None:
+    """Check and launch kernel C (last = gTr) or C' (last = the
+    cotangent of gTr, outs = the four input cotangents)."""
+    tracer = ins["tracer"]
+    nr, nyp, nxp = tracer.shape
+    kernels.check_tensors(tracer.dtype, **ins, last=last, **outs)
+    for name, t in {**ins, "last": last, **outs}.items():
+        if name not in _GRID2 + _GRID1:
+            kernels.check_shape(name, t, tracer.shape)
+    for name in _GRID2:
+        kernels.check_shape(name, ins[name], (nyp, nxp))
+    kernels.check_shape("recip_drF", ins["recip_drF"], (nr,))
+    kernels.check_shape("recip_drC", ins["recip_drC"], (nr + 1,))
+    table = [*ins.values(), last, *outs.values()]
+    kernels.launch(kernel, tracer.dtype, kernels.pointer_table(table),
+                   len(table), nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx,
+                   cfg.oly, cfg.olx, diffKh, cfg.rkSign)
+
+
+class CalcRhsFn(torch.autograd.Function):
+    """Kernel C forward, kernel C' (kernels/csrc/gad_calc_rhs_adj.cu)
+    backward: the cotangents of tracer, uTrans, vTrans and rTrans (which
+    also carries rTransKp's, as the kernel derives rTransKp from it)."""
+
+    @staticmethod
+    def forward(ctx, tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR,
+                cfg: Config, grid: Grid, diffKh: float):
+        args = (tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR)
+        gTr = torch.empty_like(tracer)
+        _launch("gad_calc_rhs_c2", cfg, _kernel_inputs(grid, *args), gTr, {},
+                diffKh)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(*args)
+            ctx.cfg, ctx.grid, ctx.diffKh = cfg, grid, diffKh
+        return gTr
+
+    @staticmethod
+    def backward(ctx, gTr_bar):
+        ins = _kernel_inputs(ctx.grid, *ctx.saved_tensors)
+        outs = {n + "_bar": torch.empty_like(ins[n]) for n in _DIFFERENTIABLE}
+        _launch("gad_calc_rhs_c2_adj", ctx.cfg, ins, gTr_bar.contiguous(),
+                outs, ctx.diffKh)
+        return (*outs.values(),) + (None,) * 7
+
+
 def calc_rhs(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
              diffKh: float, impl: str = None) -> torch.Tensor:
     """gad_calc_rhs.F: explicit tendency of one tracer at all levels.
-    kappaR: [nr, nyp, nxp] interface diffusivities."""
+    kappaR: [nr, nyp, nxp] interface diffusivities. Differentiable in the
+    tracer and in flow's transports; raises if a constant (xA, yA, maskUp,
+    kappaR, the grid) requires grad, since the kernel gives it none."""
+    args = (tracer, flow.uTrans, flow.vTrans, flow.rTrans, flow.xA, flow.yA,
+            flow.maskUp, kappaR)
+    const = [n for n, t in _kernel_inputs(grid, *args).items()
+             if t.requires_grad and n not in _DIFFERENTIABLE]
+    if const:
+        raise ValueError(f"calc_rhs: constants {const} require grad")
     if not kernels.use_kernel(tracer, impl):
         return _calc_rhs_plain(cfg, grid, flow, tracer, kappaR, diffKh)
-    nr, nyp, nxp = tracer.shape
-    fields3 = dict(uTrans=flow.uTrans, vTrans=flow.vTrans,
-                   rTrans=flow.rTrans, xA=flow.xA, yA=flow.yA,
-                   maskUp=flow.maskUp, tracer=tracer, kappaR=kappaR,
-                   maskC=grid.maskC, recip_hFacC=grid.recip_hFacC)
-    fields2 = {n: getattr(grid, n) for n in (
-        "rA", "recip_dxC", "recip_dyC", "cosFacU", "recip_rA", "maskInC")}
-    fields1 = dict(recip_drF=grid.recip_drF, recip_drC=grid.recip_drC)
-    gTr = torch.empty_like(tracer)
-    kernels.check_tensors(tracer.dtype, **fields3, **fields2, **fields1,
-                          gTr=gTr)
-    for name, t in fields3.items():
-        kernels.check_shape(name, t, tracer.shape)
-    for name, t in fields2.items():
-        kernels.check_shape(name, t, (nyp, nxp))
-    kernels.check_shape("recip_drF", grid.recip_drF, (nr,))
-    kernels.check_shape("recip_drC", grid.recip_drC, (nr + 1,))
-    # the order of kernels/csrc/gad_calc_rhs.cu:GadArgs
-    table = [*fields3.values(), *fields2.values(), *fields1.values(), gTr]
-    kernels.launch("gad_calc_rhs_c2", tracer.dtype,
-                   kernels.pointer_table(table), len(table), nr,
-                   nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly, cfg.olx,
-                   diffKh, cfg.rkSign)
-    return gTr
+    return CalcRhsFn.apply(*args, cfg, grid, diffKh)
+
+
+def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
+                       kappaR, diffKh: float, gTr_bar):
+    """Kernel C''s plain twin: (tracer_bar, uTrans_bar, vTrans_bar,
+    rTrans_bar) by autograd through `_calc_rhs_plain`, with rTransKp
+    rebuilt from rTrans as the kernel derives it."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (tracer, flow.uTrans, flow.vTrans, flow.rTrans)]
+        t, uT, vT, rT = ins
+        f = flow._replace(uTrans=uT, vTrans=vT, rTrans=rT, rTransKp=torch.cat(
+            [rT[1:], torch.zeros_like(rT[:1])]))
+        out = _calc_rhs_plain(cfg, grid, f, t, kappaR, diffKh)
+        return torch.autograd.grad(out, ins, gTr_bar)
 
 
 def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,

@@ -4,10 +4,11 @@ centred advection, constant harmonic viscosity with the explicit vertical
 viscous flux, no-slip side and bottom drag, and Coriolis scheme 0.
 
 `mom_fluxform` runs kernel B (kernels/csrc/mom_fluxform.cu) for CUDA
-tensors and the plain PyTorch twin `_mom_fluxform_plain` for CPU tensors
-or when impl="plain" is asked for. The kernel writes zero halo cells; the
-twin's halo cells are the JAX code's garbage-by-design values. Both agree
-on the interior.
+tensors, with kernel B' (mom_fluxform_adj.cu) as its backward, and the
+plain PyTorch twin `_mom_fluxform_plain`, differentiated by autograd, for
+CPU tensors or when impl="plain" is asked for. The kernel writes zero
+halo cells; the twin's halo cells are the JAX code's garbage-by-design
+values. Both agree on the interior.
 """
 
 from __future__ import annotations
@@ -79,46 +80,101 @@ def check_branches(cfg: Config) -> None:
             f"mom_fluxform: branches not ported: {', '.join(bad)}")
 
 
+# grid fields kernels B and B' read, in the order of MomArgs
+_GRID3 = ("hFacC", "hFacW", "hFacS", "maskC", "maskW", "maskS",
+          "recip_hFacW", "recip_hFacS")
+_GRID2 = ("dxF", "dyF", "dxG", "dyG", "dxV", "dyU", "rA", "rAw", "rAs",
+          "recip_dxF", "recip_dyF", "recip_dxV", "recip_dyU", "recip_rAw",
+          "recip_rAs", "cosFacU", "cosFacV", "fCori")
+_GRID1 = ("drF", "recip_drF", "recip_drC")
+
+
+def _kernel_inputs(grid: Grid, u, v, w, kappaRU, kappaRV) -> dict:
+    """Kernel B's inputs by name, in the order of
+    kernels/csrc/mom_fluxform.cuh:MomArgs."""
+    return dict(u=u, v=v, w=w, **{n: getattr(grid, n) for n in _GRID3},
+                kappaRU=kappaRU, kappaRV=kappaRV,
+                **{n: getattr(grid, n) for n in _GRID2 + _GRID1})
+
+
+def _launch(kernel: str, cfg: Config, ins: dict, outs: dict) -> None:
+    """Check and launch kernel B (outs = the four tendencies) or B'
+    (outs = the four cotangents, in the tendencies' slots, then u_bar,
+    v_bar and w_bar)."""
+    u = ins["u"]
+    nr, nyp, nxp = u.shape
+    kernels.check_tensors(u.dtype, **ins, **outs)
+    for name in ("u", "v", "w") + _GRID3 + tuple(outs):
+        kernels.check_shape(name, {**ins, **outs}[name], u.shape)
+    for name in ("kappaRU", "kappaRV"):
+        kernels.check_shape(name, ins[name], (nr + 1, nyp, nxp))
+    for name in _GRID2:
+        kernels.check_shape(name, ins[name], (nyp, nxp))
+    kernels.check_shape("drF", ins["drF"], (nr,))
+    kernels.check_shape("recip_drF", ins["recip_drF"], (nr,))
+    kernels.check_shape("recip_drC", ins["recip_drC"], (nr + 1,))
+    table = [*ins.values(), *outs.values()]
+    kernels.launch(kernel, u.dtype, kernels.pointer_table(table), len(table),
+                   nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly,
+                   cfg.olx, cfg.viscAhD, cfg.viscAhZ, cfg.sideDragFactor,
+                   cfg.rkSign)
+
+
+class MomFluxformFn(torch.autograd.Function):
+    """Kernel B forward, kernel B' (kernels/csrc/mom_fluxform_adj.cu)
+    backward: u_bar, v_bar, w_bar from the cotangents of the four
+    tendencies. The advection terms are quadratic, so u, v and w are saved;
+    B' recomputes every intermediate from them."""
+
+    @staticmethod
+    def forward(ctx, u, v, w, kappaRU, kappaRV, cfg: Config, grid: Grid):
+        out = MomTend(*(torch.empty_like(u) for _ in range(4)))
+        _launch("mom_fluxform", cfg,
+                _kernel_inputs(grid, u, v, w, kappaRU, kappaRV),
+                dict(zip(MomTend._fields, out)))
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(u, v, w, kappaRU, kappaRV)
+            ctx.cfg, ctx.grid = cfg, grid
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *tend_bar):
+        ins = _kernel_inputs(ctx.grid, *ctx.saved_tensors)
+        bars = {n + "_bar": t.contiguous()
+                for n, t in zip(MomTend._fields, tend_bar)}
+        outs = {n: torch.empty_like(ins["u"])
+                for n in ("u_bar", "v_bar", "w_bar")}
+        _launch("mom_fluxform_adj", ctx.cfg, ins, {**bars, **outs})
+        return (*outs.values(), None, None, None, None)
+
+
 def mom_fluxform(cfg: Config, grid: Grid, u, v, w, kappaRU, kappaRV,
                  impl: str = None) -> MomTend:
     """gU/gV (advection + Coriolis) and guDiss/gvDiss (viscosity + drag),
-    masked; kappaRU/kappaRV: [nr+1, nyp, nxp] interface viscosities."""
+    masked; kappaRU/kappaRV: [nr+1, nyp, nxp] interface viscosities.
+    Differentiable in u, v and w; raises if a constant (the kappas, the
+    grid) requires grad, since the kernel gives it none."""
     check_branches(cfg)
+    const = [n for n, t in _kernel_inputs(grid, u, v, w, kappaRU,
+                                          kappaRV).items()
+             if t.requires_grad and n not in ("u", "v", "w")]
+    if const:
+        raise ValueError(f"mom_fluxform: constants {const} require grad")
     if not kernels.use_kernel(u, impl):
         return _mom_fluxform_plain(cfg, grid, u, v, w, kappaRU, kappaRV)
-    nr, nyp, nxp = u.shape
-    fields3 = dict(u=u, v=v, w=w, hFacC=grid.hFacC, hFacW=grid.hFacW,
-                   hFacS=grid.hFacS, maskC=grid.maskC, maskW=grid.maskW,
-                   maskS=grid.maskS, recip_hFacW=grid.recip_hFacW,
-                   recip_hFacS=grid.recip_hFacS)
-    kappas = dict(kappaRU=kappaRU, kappaRV=kappaRV)
-    fields2 = {n: getattr(grid, n) for n in (
-        "dxF", "dyF", "dxG", "dyG", "dxV", "dyU", "rA", "rAw", "rAs",
-        "recip_dxF", "recip_dyF", "recip_dxV", "recip_dyU", "recip_rAw",
-        "recip_rAs", "cosFacU", "cosFacV", "fCori")}
-    fields1 = dict(drF=grid.drF, recip_drF=grid.recip_drF,
-                   recip_drC=grid.recip_drC)
-    out = MomTend(*(torch.empty_like(u) for _ in range(4)))
-    outs = dict(zip(MomTend._fields, out))
-    kernels.check_tensors(u.dtype, **fields3, **kappas, **fields2, **fields1,
-                          **outs)
-    for name, t in {**fields3, **outs}.items():
-        kernels.check_shape(name, t, u.shape)
-    for name, t in kappas.items():
-        kernels.check_shape(name, t, (nr + 1, nyp, nxp))
-    for name, t in fields2.items():
-        kernels.check_shape(name, t, (nyp, nxp))
-    kernels.check_shape("drF", grid.drF, (nr,))
-    kernels.check_shape("recip_drF", grid.recip_drF, (nr,))
-    kernels.check_shape("recip_drC", grid.recip_drC, (nr + 1,))
-    # the order of kernels/csrc/mom_fluxform.cu:MomArgs
-    table = [*fields3.values(), *kappas.values(), *fields2.values(),
-             *fields1.values(), *out]
-    kernels.launch("mom_fluxform", u.dtype, kernels.pointer_table(table),
-                   len(table), nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx,
-                   cfg.oly, cfg.olx, cfg.viscAhD, cfg.viscAhZ,
-                   cfg.sideDragFactor, cfg.rkSign)
-    return out
+    return MomTend(*MomFluxformFn.apply(u, v, w, kappaRU, kappaRV, cfg,
+                                        grid))
+
+
+def mom_fluxform_vjp_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
+                           kappaRV, tend_bar):
+    """Kernel B''s plain twin: (u_bar, v_bar, w_bar) by autograd through
+    `_mom_fluxform_plain`, given the cotangents of (gU, gV, guDiss,
+    gvDiss)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (u, v, w)]
+        out = _mom_fluxform_plain(cfg, grid, *ins, kappaRU, kappaRV)
+        return torch.autograd.grad(out, ins, tuple(tend_bar))
 
 
 def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,

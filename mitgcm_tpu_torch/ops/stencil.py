@@ -36,16 +36,51 @@ def shift_k(a: torch.Tensor, dk: int) -> torch.Tensor:
     return a
 
 
+def _fold(g: torch.Tensor, dim: int, ol: int) -> torch.Tensor:
+    """Transpose of the cyclic gather along `dim`: the padded cotangent g
+    (length n + 2*ol) summed onto the n interior cells it was read from,
+    block by block in index order (no scatter, so the same bits on every
+    run and device)."""
+    n = g.shape[dim] - 2 * ol
+    # zeros in front so that padded index p lands on (p - ol) mod n
+    lead = -(-ol // n) * n - ol
+    g = g.movedim(dim, -1)
+    g = F.pad(g, (lead, -(lead + g.shape[-1]) % n))
+    blocks = g.unflatten(-1, (-1, n)).unbind(-2)
+    acc = blocks[0]
+    for b in blocks[1:]:
+        acc = acc + b
+    return acc.movedim(-1, dim)
+
+
+class _CyclicFill(torch.autograd.Function):
+    """The fill as a gather; its backward folds the halo cotangents into
+    the interior in a fixed order (index_select's own backward is an
+    index_add, whose atomics on CUDA change the last bit from run to
+    run). The input's halo cells get a zero gradient: they are not read."""
+
+    @staticmethod
+    def forward(ctx, a, oly: int, olx: int):
+        ctx.ol = (oly, olx)
+        ny = a.shape[-2] - 2 * oly
+        nx = a.shape[-1] - 2 * olx
+        inner = a[..., oly:oly + ny, olx:olx + nx]
+        jj = torch.arange(-oly, ny + oly, device=a.device) % ny
+        ii = torch.arange(-olx, nx + olx, device=a.device) % nx
+        return inner.index_select(-2, jj).index_select(-1, ii)
+
+    @staticmethod
+    def backward(ctx, g):
+        oly, olx = ctx.ol
+        inner = _fold(_fold(g, -1, olx), -2, oly)
+        return F.pad(inner, (olx, olx, oly, oly)), None, None
+
+
 def cyclic_fill_halo(a: torch.Tensor, oly: int, olx: int) -> torch.Tensor:
     """Single-device halo exchange: cyclic wrap of the interior into the
     halos, as a modular gather (exact also when a halo is wider than the
-    interior)."""
-    ny = a.shape[-2] - 2 * oly
-    nx = a.shape[-1] - 2 * olx
-    inner = a[..., oly:oly + ny, olx:olx + nx]
-    jj = torch.arange(-oly, ny + oly, device=a.device) % ny
-    ii = torch.arange(-olx, nx + olx, device=a.device) % nx
-    return inner.index_select(-2, jj).index_select(-1, ii)
+    interior), with a deterministic backward."""
+    return _CyclicFill.apply(a, oly, olx)
 
 
 def interior(a: torch.Tensor, oly: int, olx: int) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Two-dimensional preconditioned conjugate-gradient solver
 (mitgcm_tpu/solver/cg2d.py; reference model/src/cg2d.F, ini_cg2d.F).
 
-One PCG iteration is three calls, each a hand-written CUDA kernel
+`cg2d` is differentiable in its right-hand side (CG2DSolve: the backward
+pass is a second solve). One PCG iteration is three calls, each a
+hand-written CUDA kernel
 (kernels/csrc/cg2d.cu, kernel A) for CUDA tensors and its plain PyTorch
 twin for CPU tensors or when `impl="plain"` is asked for:
   stencil_dot  q = P r with dot(q, r), then q = A s with dot(s, q)
@@ -234,11 +236,44 @@ def xr_update(x, r, s, q, num, den, dot_out, oly: int, olx: int,
                    *_dims(x, oly, olx))
 
 
+class CG2DSolve(torch.autograd.Function):
+    """x = A^-1 b through the PCG loop, with the JAX package's custom VJP
+    (cg2d.py:185-200): the solve is linear in b and A is symmetric, so
+    b_bar = A^-1 x_bar, one more solve through the same loop (kernel A on
+    the card) from a zero first guess. x0 gets a zero gradient; the
+    residuals, iteration count and host-sync count are not
+    differentiable. As in JAX, the adjoint solve reads only x_bar's
+    interior: the cotangent on x's halo cells is dropped."""
+
+    @staticmethod
+    def forward(ctx, b, x0, cfg: Config, op: CG2DOperator, impl):
+        res = _solve(cfg, op, b, x0, impl)
+        ctx.cfg, ctx.op, ctx.impl = cfg, op, impl
+        ctx.mark_non_differentiable(res.first_residual, res.last_residual)
+        return (res.x, res.first_residual, res.last_residual, res.n_iters,
+                res.host_syncs)
+
+    @staticmethod
+    def backward(ctx, x_bar, *_):
+        with kernels.counting_as("adjoint"):
+            adj = _solve(ctx.cfg, ctx.op, x_bar.contiguous(),
+                         torch.zeros_like(x_bar), ctx.impl)
+        return adj.x, torch.zeros_like(adj.x), None, None, None
+
+
 def cg2d(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
          ) -> CG2DResult:
-    """Solve A x = b from first guess x0 (halo-padded 2-D tensors) with
-    interior-only dot products (cg2d.py:_cg2d_raw). Halos of the work
-    fields r, s and q are never filled: every call reads the wrap."""
+    """Solve A x = b from first guess x0 (halo-padded 2-D tensors),
+    differentiable in b (CG2DSolve)."""
+    return CG2DResult(*CG2DSolve.apply(b, x0, cfg, op, impl))
+
+
+def _solve(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
+           ) -> CG2DResult:
+    """The PCG loop (cg2d.py:_cg2d_raw) with interior-only dot products;
+    it writes its work fields in place, so autograd must never trace it.
+    Halos of the work fields r, s and q are never filled: every call reads
+    the wrap."""
     oly, olx = cfg.oly, cfg.olx
     imask = interior_mask(b.shape, oly, olx, b.dtype, b.device)
     # normalise the RHS (cg2d.F:105-135)

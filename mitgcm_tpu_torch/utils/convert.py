@@ -2,7 +2,8 @@
 CG2DOperator of mitgcm_tpu, given as dicts of numpy arrays (one entry per
 field, `np.asarray(leaf)`), become the port's objects on a given device and
 dtype. Fields the port does not hold are ignored, so both packages can step
-from identical inputs."""
+from identical inputs. A control vector or a gradient crosses as one array
+(`to_tensor`, `to_numpy`)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,18 @@ def arrays_of(obj) -> dict:
             if hasattr(leaf, "shape") and hasattr(leaf, "dtype")}
 
 
+def to_tensor(a, dtype=torch.float64, device="cpu") -> torch.Tensor:
+    """A numpy (or JAX) array as a C-contiguous tensor of dtype on
+    device."""
+    return torch.as_tensor(np.array(a, order="C"), dtype=dtype,
+                           device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor (a control, a gradient) as a numpy array on the host."""
+    return t.detach().cpu().numpy()
+
+
 def from_arrays(cls, arrays: Mapping[str, np.ndarray],
                 dtype=torch.float64, device="cpu"):
     """The port's `cls` (Grid, State, Forcing or CG2DOperator) from a dict
@@ -32,6 +45,5 @@ def from_arrays(cls, arrays: Mapping[str, np.ndarray],
                if f.name not in arrays]
     if missing:
         raise KeyError(f"{cls.__name__}: missing fields {missing}")
-    return cls(**{f.name: torch.as_tensor(
-        np.array(arrays[f.name], order="C"), dtype=dtype, device=device)
+    return cls(**{f.name: to_tensor(arrays[f.name], dtype, device)
                   for f in dataclasses.fields(cls)})

@@ -1,6 +1,9 @@
 """PyTorch port: guards. The port never imports jax, has no CPU fallback
-for its GPU run, and refuses configurations off its ported main path."""
+for its GPU run, refuses configurations off its ported main path, and its
+kernel wrappers refuse to differentiate what their kernels treat as
+constants."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -10,6 +13,7 @@ import pytest
 import torch
 
 from mitgcm_tpu_torch import kernels
+from mitgcm_tpu_torch.model import gad, mom_fluxform
 from mitgcm_tpu_torch.model.step import check_supported
 from mitgcm_tpu_torch.solver import cg2d
 from mitgcm_tpu_torch.utils import synthetic
@@ -32,6 +36,70 @@ assert "jax" not in sys.modules, "the port imported jax"
 assert kernels._lib is None, "a CPU step touched the CUDA library"
 print("one step ok")
 """
+
+
+ADJOINT = """
+import sys
+import torch
+from mitgcm_tpu_torch import kernels
+from mitgcm_tpu_torch.ad import adjoint, grdchk
+from mitgcm_tpu_torch.utils import synthetic
+cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
+grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64)
+control = adjoint.Control(cfg, grid)
+cost = adjoint.cost_boxmean_tracer(cfg, grid, box=(2, 6, 2, 6))
+J = adjoint.make_objective(cfg, grid, op, forcing, state, control, cost, 5)
+r, = grdchk.grdchk(J, control.zero(), [(0, 5, 5)])
+assert r["adj_grad"] != 0.0 and abs(r["rel_err"]) < 1e-5, r
+assert "jax" not in sys.modules, "the port's adjoint imported jax"
+assert kernels._lib is None, "a CPU adjoint touched the CUDA library"
+print("adjoint ok")
+"""
+
+
+def test_port_adjoint_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    proc = subprocess.run([sys.executable, "-c", ADJOINT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "adjoint ok" in proc.stdout
+
+
+@pytest.mark.parametrize("name", ["kappaRU", "kappaRV", "hFacW"])
+def test_mom_fluxform_refuses_constant_grad(name):
+    cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
+    grid = synthetic.gyre_setup(cfg, dtype=torch.float64)[0]
+    u = torch.zeros_like(grid.hFacC)
+    kshape = (cfg.nr + 1,) + tuple(u.shape[1:])
+    args = dict(kappaRU=torch.zeros(kshape, dtype=u.dtype),
+                kappaRV=torch.zeros(kshape, dtype=u.dtype))
+    if name in args:
+        args[name].requires_grad_(True)
+    else:
+        grid = dataclasses.replace(grid, **{
+            name: getattr(grid, name).clone().requires_grad_(True)})
+    with pytest.raises(ValueError, match=name):
+        mom_fluxform.mom_fluxform(cfg, grid, u, u, u, **args)
+
+
+@pytest.mark.parametrize("name", ["xA", "yA", "maskUp", "kappaR", "rA"])
+def test_calc_rhs_refuses_constant_grad(name):
+    cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
+    grid = synthetic.gyre_setup(cfg, dtype=torch.float64)[0]
+    u = torch.zeros_like(grid.hFacC)
+    kappaR = torch.zeros_like(u)
+    if name == "rA":
+        grid = dataclasses.replace(grid,
+                                   rA=grid.rA.clone().requires_grad_(True))
+    flow = gad.calc_adv_flow(grid, u, u, u)
+    if name == "kappaR":
+        kappaR.requires_grad_(True)
+    elif name != "rA":
+        flow = flow._replace(
+            **{name: getattr(flow, name).clone().requires_grad_(True)})
+    with pytest.raises(ValueError, match=name):
+        gad.calc_rhs(cfg, grid, flow, u, kappaR, cfg.diffKhT)
 
 
 def test_port_imports_no_jax():
