@@ -25,10 +25,19 @@ exits nonzero without the final line:
                  the 1024x1024x32 float32 gyre, timed against the forward
                  steps alone (medians of 3 runs each), with peak memory and
                  every kernel's launches (those of the first gradient)
+  7. vi-gyre   : the vi-gyre (vector-invariant momentum, implicit vertical
+                 viscosity and diffusion, JMD95Z EOS with salt, AB-3):
+                 kernels V, T and R against their twins at 64x64x4 float64
+                 and 1024x1024x32 float32; 10 float64 steps at 64x64x4,
+                 kernel path against plain path; a 2+2 restart through a
+                 pickup on the kernel path, bit-equal to 4 straight steps;
+                 then the 1024x1024x32 float32 vi-gyre (deltaT=600): one
+                 warm-up step and 5 timed steps with the launch counts of V
+                 (5), T (20), R (5) and B (0), then 2 plain steps
 It prints, last, one line of JSON per kernel (the launches are those of
-the main path that runs it: phase 5 for the forward kernels, phase 6's
-full-size gradient for B' and C'), the card's name and power limit, and
-the device line.
+the main path that runs it: phase 5 for the gyre's forward kernels, phase
+6's full-size gradient for B' and C', phase 7's full-size run for V, T
+and R), the card's name and power limit, and the device line.
 """
 
 import json
@@ -62,9 +71,20 @@ KERNELS = {
     "gad_calc_rhs_c2_adj": (
         "mitgcm_tpu_torch/kernels/csrc/gad_calc_rhs_adj.cu",
         "mitgcm_tpu/model/gad.py:1038"),
+    # the vi-gyre's kernels
+    "mom_vecinv": ("mitgcm_tpu_torch/kernels/csrc/mom_vecinv.cu",
+                   "mitgcm_tpu/model/mom_vecinv.py:210"),
+    "impldiff": ("mitgcm_tpu_torch/kernels/csrc/impldiff.cu",
+                 "mitgcm_tpu/model/thermodynamics.py:24"),
+    "eos_find_rho": ("mitgcm_tpu_torch/kernels/csrc/eos.cu",
+                     "mitgcm_tpu/ops/eos.py:218"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
+VI_KERNELS = ("mom_vecinv", "impldiff", "eos_find_rho")
+# launches of each kernel in phase 7's 5 timed full-size vi-gyre steps
+VI_LAUNCHES = {"mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
+               "mom_fluxform": 0}
 # largest relative interior error a kernel may show against its twin
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 CG2D_X_TOL_F64 = 1e-10
@@ -116,14 +136,16 @@ def build_phase(kernels):
 
 
 class Case:
-    """A gyre grid plus seeded random fields on the card."""
+    """A gyre grid plus seeded random fields on the card (the vi-gyre's
+    configuration when vi)."""
 
-    def __init__(self, n, nr, dtype):
+    def __init__(self, n, nr, dtype, vi=False):
         from mitgcm_tpu_torch.model import gad
         from mitgcm_tpu_torch.utils import synthetic
 
         self.dtype = dtype
-        self.cfg = synthetic.gyre_config(nx=n, ny=n, nr=nr)
+        config = synthetic.vi_gyre_config if vi else synthetic.gyre_config
+        self.cfg = config(nx=n, ny=n, nr=nr)
         self.grid, _, _, self.op = synthetic.gyre_setup(
             self.cfg, dtype=dtype, device="cuda")
         rng = np.random.default_rng(SEED)
@@ -133,6 +155,8 @@ class Case:
         self.v = self.field(rng, shape, 0.1) * g.maskS
         self.w = self.field(rng, shape, 1e-4) * g.maskC
         self.theta = (15.0 + self.field(rng, shape, 2.0)) * g.maskC
+        self.salt = (35.0 + self.field(rng, shape, 0.5)) * g.maskC
+        self.phi = self.field(rng, shape, 10.0)     # a totPhiHyd
         kshape = (nr + 1,) + shape[1:]
         self.kappaRU = self.field(rng, kshape, 1e-3).abs()
         self.kappaRV = self.field(rng, kshape, 1e-3).abs()
@@ -319,7 +343,7 @@ def full_phase(kernels):
             raise AssertionError(f"{name} has shape {tuple(field.shape)}")
         if not bool(torch.isfinite(field).all()):
             raise AssertionError(f"{name} is not finite after 6 steps")
-    missing = [k for k in KERNELS if k not in BACKWARD_KERNELS
+    missing = [k for k in KERNELS if k not in BACKWARD_KERNELS + VI_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -478,6 +502,167 @@ def adjoint_full_phase(kernels):
     return launches
 
 
+def vi_kernel_phase(case, results, reps):
+    """Kernels V, T and R against their twins on the same seeded inputs: V
+    on the interior (its halo outputs are zeros), T and R on whole arrays
+    (a column solve and a pointwise pass compute their halos as the twins
+    do). R on the vi-gyre's JMD95Z (the main path's, in the summary) and
+    on MDJWF with the pressure from totPhiHyd."""
+    import dataclasses
+
+    from mitgcm_tpu_torch.model.mom_vecinv import mom_vecinv
+    from mitgcm_tpu_torch.model.thermodynamics import impldiff
+    from mitgcm_tpu_torch.ops.eos import find_rho
+
+    cfg, g = case.cfg, case.grid
+
+    def mom(impl):
+        return mom_vecinv(cfg, g, case.u, case.v, case.w, case.kappaRU,
+                          case.kappaRV, impl=impl)
+
+    compare("mom_vecinv", case, mom(None), mom("plain"),
+            cuda_time_ms(lambda: mom(None), reps),
+            cuda_time_ms(lambda: mom("plain"), reps), results)
+
+    # T as the step runs it: a tracer at C points with its [nr] kappa, and
+    # uStar at W points with kappaRU [nr+1]; the times are the tracer's
+    def solve(impl, field, kappa, recip_hFac):
+        return impldiff(cfg, g, field, kappa, recip_hFac, cfg.deltaTTracer,
+                        impl=impl)
+
+    for name, args in (("impldiff", (case.theta, case.kappaR,
+                                     g.recip_hFacC)),
+                       ("impldiff(W)", (case.u, case.kappaRU,
+                                        g.recip_hFacW))):
+        compare(name, case, [solve(None, *args)], [solve("plain", *args)],
+                cuda_time_ms(lambda: solve(None, *args), reps),
+                cuda_time_ms(lambda: solve("plain", *args), reps), results,
+                whole=True)
+
+    mdjwf = dataclasses.replace(cfg, eosType="MDJWF", selectP_inEOS_Zc=2)
+    for name, c in (("eos_find_rho", cfg), ("eos_find_rho(MDJWF)", mdjwf)):
+        def rho(impl):
+            return find_rho(c, g, case.theta, case.salt, totPhiHyd=case.phi,
+                            impl=impl)
+        compare(name, case, [rho(None)], [rho("plain")],
+                cuda_time_ms(lambda: rho(None), reps),
+                cuda_time_ms(lambda: rho("plain"), reps), results,
+                whole=True)
+
+
+def vi_experiment(n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.vi_gyre_config(nx=n, ny=n, nr=nr, **kw)
+    return Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=dtype,
+                                                 device="cuda"), impl=impl)
+
+
+def vi_parity_phase():
+    from mitgcm_tpu_torch.utils.compare import record_digits
+
+    runs = {impl: vi_experiment(64, 4, torch.float64, impl).run(n_steps=10)
+            for impl in (None, "plain")}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        key = min(dig, key=dig.get)
+        worst = min(worst, dig[key])
+        print(f"vi step {rk['iter']:2d}: cg2d iters {rk['cg2d_iters']} / "
+              f"{rp['cg2d_iters']}, init res {rk['cg2d_init_res']:.10e}, "
+              f"fewest digits {dig[key]:.2f} ({key})", flush=True)
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError("vi-gyre cg2d iteration counts differ")
+    if not worst >= PARITY_DIGITS:
+        raise AssertionError(f"vi-gyre parity {worst:.2f} < {PARITY_DIGITS} "
+                             "digits")
+    print(f"vi-gyre parity: fewest matching digits {worst:.2f}")
+
+
+def vi_restart_phase():
+    """tools/do_tst_2+2 on the card: 4 steps against 2 + pickup + 2."""
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import read_pickup, write_pickup
+
+    e4 = vi_experiment(64, 4, torch.float64)
+    e4.run(n_steps=4, collect_monitor=False)
+    e2 = vi_experiment(64, 4, torch.float64)
+    e2.run(n_steps=2, collect_monitor=False)
+    e22 = vi_experiment(64, 4, torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_pickup(e2, tmp, 2)
+        read_pickup(e22, tmp, 2)
+    e22.run(n_steps=2, collect_monitor=False)
+    ol = e4.cfg.olx
+    names = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1",
+             "guNm2", "gtNm1", "gtNm2", "gsNm2")
+    differ = [n for n in names
+              if not torch.equal(getattr(e4.state, n)[..., ol:-ol, ol:-ol],
+                                 getattr(e22.state, n)[..., ol:-ol, ol:-ol])]
+    print(f"2+2 restart on the kernel path, 64x64x4 float64: "
+          f"{len(names) - len(differ)} of {len(names)} fields bit-equal",
+          flush=True)
+    if differ:
+        raise AssertionError(f"restart differs in {differ}")
+
+
+def vi_full_phase(kernels):
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = vi_experiment(n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    state0 = exp.state
+    points = n * n * nr
+
+    def run(state, it0, steps, impl):
+        exp.state, exp.cur_iter, exp.impl = state, it0, impl
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, [r["cg2d_iters"] for r in recs], \
+            time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, iters_w, sec_w = run(state0, 0, 1, None)
+    kernels.launches.clear()
+    state, iters, sec = run(state1, 1, 5, None)
+    launches = dict(kernels.launches)
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"kernel path: 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
+          f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches {launches}", flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"vi-gyre {name} is not finite")
+    wrong = {k: launches.get(k, 0) for k, want in VI_LAUNCHES.items()
+             if launches.get(k, 0) != want}
+    if wrong:
+        raise AssertionError(f"vi-gyre launch counts {wrong}, want "
+                             f"{VI_LAUNCHES}")
+    _, iters_p, sec_p = run(state1, 1, 2, "plain")
+    print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
+          f"{points * 2 / sec_p:.4e} points*steps/s, cg2d iterations "
+          f"{iters_p}", flush=True)
+    return launches
+
+
+def vi_phase(kernels, results):
+    phase("7 vi-gyre")
+    vi_kernel_phase(Case(64, 4, torch.float64, vi=True), results, reps=20)
+    vi_kernel_phase(Case(1024, 32, torch.float32, vi=True), results, reps=10)
+    torch.cuda.empty_cache()
+    vi_parity_phase()
+    vi_restart_phase()
+    launches = vi_full_phase(kernels)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, ROOT)
@@ -501,6 +686,9 @@ def main():
     adj_launches = adjoint_full_phase(kernels)
     for name in BACKWARD_KERNELS:
         launches[name] = adj_launches[name]
+    vi_launches = vi_phase(kernels, results)
+    for name in VI_KERNELS:
+        launches[name] = vi_launches[name]
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

@@ -24,6 +24,25 @@ from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import step as step_mod
 
 
+def check_adjoint_supported(cfg: Config) -> None:
+    """Raise NotImplementedError for the options whose kernels have no
+    backward kernel yet (V: vector-invariant momentum, T: implicit
+    vertical mixing, R: the nonlinear EOS), and for AB-3, whose gradient
+    is not yet held against the JAX adjoint: the adjoint runs the gyre of
+    the forward path's first slice only."""
+    off = {
+        "vectorInvariantMomentum": cfg.vectorInvariantMomentum,
+        "implicitDiffusion": cfg.implicitDiffusion,
+        "implicitViscosity": cfg.implicitViscosity,
+        f"eosType={cfg.eosType}": cfg.eosType.upper() != "LINEAR",
+        "useAB3": cfg.useAB3,
+    }
+    bad = [name for name, is_off in off.items() if is_off]
+    if bad:
+        raise NotImplementedError(
+            f"the adjoint is not ported for: {', '.join(bad)}")
+
+
 def run_steps(cfg: Config, grid: Grid, op, state: State, forcing: Forcing,
               n_steps: int, checkpoint_chunks: Optional[int] = None,
               step_cost: Optional[Callable] = None, impl: str = None):
@@ -41,6 +60,8 @@ def run_steps(cfg: Config, grid: Grid, op, state: State, forcing: Forcing,
     over the steps (forward_step.F's COST_TILE hook); when given, returns
     (final_state, cost_sum), else the final state.
     """
+    check_adjoint_supported(cfg)
+
     def step(s: State, acc, my_iter: int):
         s = step_mod.forward_step(cfg, grid, op, s, forcing, my_iter,
                                   impl=impl)[0]

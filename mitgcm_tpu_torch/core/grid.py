@@ -44,6 +44,8 @@ class Grid:
     rAs: torch.Tensor
     recip_dxF: torch.Tensor
     recip_dyF: torch.Tensor
+    recip_dxG: torch.Tensor
+    recip_dyG: torch.Tensor
     recip_dxC: torch.Tensor
     recip_dyC: torch.Tensor
     recip_dxV: torch.Tensor
@@ -51,9 +53,11 @@ class Grid:
     recip_rA: torch.Tensor
     recip_rAw: torch.Tensor
     recip_rAs: torch.Tensor
+    recip_rAz: torch.Tensor   # vorticity (corner) point area
     cosFacU: torch.Tensor
     cosFacV: torch.Tensor
     fCori: torch.Tensor
+    fCoriG: torch.Tensor      # at vorticity points
     # partial cells and masks (3-D, except the maskIn* column masks)
     hFacC: torch.Tensor
     hFacW: torch.Tensor
@@ -158,6 +162,7 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
         yg1[j - 1] = yg1[j] - delY[j - 1]
     yG2 = np.broadcast_to(yg1[:, None], (ny + 2 * oly + 1, nx + 2 * olx + 1))
     yC = 0.25 * (yG2[:-1, :-1] + yG2[:-1, 1:] + yG2[1:, :-1] + yG2[1:, 1:])
+    yG = yG2[:-1, :-1]
 
     dX2 = np.broadcast_to(delX[None, :], pshape).copy()
     dY2 = np.broadcast_to(delY[:, None], pshape).copy()
@@ -177,12 +182,15 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
     dyU[:, 0] = dyU[:, 1]; dyU[0, :] = dyU[1, :]
     rAw = dxC * dyG
     rAs = dxG * dyC
+    rAz = dxV * dyU
 
     # ---- Coriolis (ini_cori.F, Cartesian: f-plane or beta-plane) ----
     if cfg.beta != 0.0:
         fCori = cfg.f0 + cfg.beta * yC
+        fCoriG = cfg.f0 + cfg.beta * yG
     else:
         fCori = np.full(pshape, cfg.f0)
+        fCoriG = np.full(pshape, cfg.f0)
 
     # ---- bathymetry & partial cells (ini_depths.F, ini_masks_etc.F) ----
     if bathy is None:
@@ -250,11 +258,13 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
         dxC=T(dxC), dyC=T(dyC), dxV=T(dxV), dyU=T(dyU),
         rA=T(rA), rAw=T(rAw), rAs=T(rAs),
         recip_dxF=T(_safe_recip(dxF)), recip_dyF=T(_safe_recip(dyF)),
+        recip_dxG=T(_safe_recip(dxG)), recip_dyG=T(_safe_recip(dyG)),
         recip_dxC=T(_safe_recip(dxC)), recip_dyC=T(_safe_recip(dyC)),
         recip_dxV=T(_safe_recip(dxV)), recip_dyU=T(_safe_recip(dyU)),
         recip_rA=T(_safe_recip(rA)), recip_rAw=T(_safe_recip(rAw)),
-        recip_rAs=T(_safe_recip(rAs)),
+        recip_rAs=T(_safe_recip(rAs)), recip_rAz=T(_safe_recip(rAz)),
         cosFacU=T(cosU), cosFacV=T(cosV), fCori=T(fCori),
+        fCoriG=T(fCoriG),
         hFacC=T(hFacC), hFacW=T(hFacW), hFacS=T(hFacS),
         recip_hFacC=T(_safe_recip(hFacC)), recip_hFacW=T(_safe_recip(hFacW)),
         recip_hFacS=T(_safe_recip(hFacS)),

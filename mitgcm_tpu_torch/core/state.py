@@ -1,6 +1,6 @@
 """Prognostic state and surface forcing (mitgcm_tpu/core/state.py), holding
 the fields of the main path: the DYNVARS.h velocities, tracers and free
-surface, the AB-2 tendency history, and FFIELDS.h's simple forcing."""
+surface, the AB-2/AB-3 tendency history, and FFIELDS.h's simple forcing."""
 
 from __future__ import annotations
 
@@ -22,10 +22,14 @@ class State:
     etaN: torch.Tensor       # [nyp, nxp]
     etaH: torch.Tensor
     dEtaHdt: torch.Tensor
-    guNm1: torch.Tensor      # AB-2 tendency history
+    guNm1: torch.Tensor      # tendency history: the last raw tendency
     gvNm1: torch.Tensor
     gtNm1: torch.Tensor
     gsNm1: torch.Tensor
+    guNm2: torch.Tensor      # the one before it (AB-3 only; zeros on AB-2)
+    gvNm2: torch.Tensor
+    gtNm2: torch.Tensor
+    gsNm2: torch.Tensor
     totPhiHyd: torch.Tensor  # hydrostatic potential anomaly of the last step
     PmEpR: torch.Tensor      # P-E+R seen by the next tracer forcing
 
@@ -64,6 +68,7 @@ def init_state(cfg: Config, grid: Grid) -> State:
         salt=sref * torch.ones_like(grid.maskC) * grid.maskC,
         etaN=z2(), etaH=z2(), dEtaHdt=z2(),
         guNm1=z3(), gvNm1=z3(), gtNm1=z3(), gsNm1=z3(),
+        guNm2=z3(), gvNm2=z3(), gtNm2=z3(), gsNm2=z3(),
         totPhiHyd=z3(), PmEpR=z2())
 
 

@@ -57,11 +57,22 @@ SIGNATURES = {
     # sideDragFactor, rkSign; stream
     "mom_fluxform": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx; diffKh, rkSign;
-    # stream
-    "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_P],
+    # implicit_diffusion; stream
+    "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _P],
     # the backward kernels take the arguments of their forward kernels
+    # (C' without the implicit_diffusion flag)
     "mom_fluxform_adj": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
     "gad_calc_rhs_c2_adj": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_P],
+    # pointer table, its length; nr, ny, nx, oly, olx; selectVortScheme,
+    # selectCoriScheme, implicitViscosity, no_slip_bottom; viscAh,
+    # sideDragFactor, bottomDragLinear, rkSign; stream
+    "mom_vecinv": [_PP, _I] + [_I] * 5 + [_I] * 4 + [_D] * 4 + [_P],
+    # field, kappaR, recip_hFac, recip_drF, recip_drC, gam, out; nr,
+    # nyp * nxp; deltaT; stream
+    "impldiff": [_P] * 7 + [_I] * 2 + [_D, _P],
+    # theta, salt, totPhiHyd, profile, rho; nr, nyp * nxp, eos kind,
+    # use totPhiHyd; rhoConst, dp0, pressure scale; stream
+    "eos_find_rho": [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

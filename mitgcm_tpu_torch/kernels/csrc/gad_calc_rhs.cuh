@@ -25,6 +25,9 @@ struct GadCell {
   const GadArgs<T>& a;
   int nr, nyp, nxp;
   T diffKh, rkSign;
+  // implicitDiffusion: the implicit solve (impldiff.cu) takes the place of
+  // the explicit vertical diffusive flux, which is left out
+  bool implicitDiffusion;
 
   __device__ size_t i3(int k, int j, int i) const {
     return (static_cast<size_t>(k) * nyp + j) * nxp + i;
@@ -56,6 +59,7 @@ struct GadCell {
     const T t = a.tracer[p], tkm1 = a.tracer[pm];
     const T adv = a.maskC[pm] * a.rTrans[p] * T(0.5) * (t + tkm1) *
                   a.maskInC[i2(j, i)];
+    if (implicitDiffusion) return adv;
     const T dif = -a.kappaR[p] * a.maskUp[p] * a.rA[i2(j, i)] *
                   a.recip_drC[k] * (t - tkm1) * rkSign;
     return adv + dif;

@@ -1,17 +1,26 @@
 """A small runner for synthetic experiments (mitgcm_tpu/model/
 experiment.py:Experiment.run): steps the model and records, per step, the
-cg2d diagnostics and the monitor statistics under the JAX runner's keys."""
+cg2d diagnostics and the monitor statistics under the JAX runner's keys;
+and the restart files (`write_pickup`, `read_pickup`) in the JAX
+package's format, so that either package reads the other's pickups."""
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
 from mitgcm_tpu.core.config import Config
+from mitgcm_tpu.io import mds
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.diag import monitor
 from mitgcm_tpu_torch.model import step as step_mod
+from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
 
 
@@ -53,3 +62,105 @@ class Experiment:
                 rec.update(self.monitor_stats())
             records.append(rec)
         return records
+
+
+# ----------------------------------------------------------------------
+# pickup (checkpoint) I/O: mitgcm_tpu/model/experiment.py:write_pickup /
+# read_pickup (:1038-1238), reference write_pickup.F / read_pickup.F. One
+# MDS multi-record float64 file with a .meta fldList; the JAX package's
+# extra Wvel and PmEpR records make a restart bit-exact without
+# recomputing w. No companion pickup is written or read: every package
+# that has one is refused by step.check_supported.
+# ----------------------------------------------------------------------
+
+_PICKUP_3D = ["Uvel", "Vvel", "Theta", "Salt",
+              "GuNm1", "GvNm1", "GtNm1", "GsNm1"]
+_PICKUP_AB3 = ["GuNm2", "GvNm2", "GtNm2", "GsNm2"]
+_PICKUP_2D = ["EtaN", "dEtaHdt", "EtaH"]
+_TWO_D = {"EtaN", "dEtaHdt", "EtaH", "EtaHnm1", "PmEpR", "Phi_rLow"}
+# record name -> State field. 'EtaH' is etaHnm1 in the reference
+# (write_pickup.F:360); on the ported paths (linear free surface, no
+# exactConserv, no r*) neither etaH nor etaHnm1 ever changes, so the port
+# keeps the one field etaH for both.
+_FIELD = {"Uvel": "uVel", "Vvel": "vVel", "Theta": "theta", "Salt": "salt",
+          "GuNm1": "guNm1", "GvNm1": "gvNm1", "GtNm1": "gtNm1",
+          "GsNm1": "gsNm1", "GuNm2": "guNm2", "GvNm2": "gvNm2",
+          "GtNm2": "gtNm2", "GsNm2": "gsNm2", "Wvel": "wVel",
+          "EtaN": "etaN", "dEtaHdt": "dEtaHdt", "EtaH": "etaH",
+          "PmEpR": "PmEpR", "PhiHyd": "totPhiHyd"}
+
+
+def _interior(cfg: Config, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy().astype(np.float64)
+    return a[..., cfg.oly:-cfg.oly, cfg.olx:-cfg.olx]
+
+
+def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
+    """Write pickup.<iter10>.data/.meta with the JAX package's field set
+    and order (float64 at any working precision, so a float32 round trip
+    is exact); returns the file root."""
+    cfg, st = exp.cfg, exp.state
+    step_mod.check_supported(cfg)
+    flds3d = _PICKUP_3D + (_PICKUP_AB3 if cfg.useAB3 else []) + ["Wvel"]
+    flds2d = _PICKUP_2D + ["PmEpR"]
+    recs = [_interior(cfg, getattr(st, _FIELD[n])) for n in flds3d]
+    recs.append(np.stack([_interior(cfg, getattr(st, _FIELD[n]))
+                          for n in flds2d]))
+    stack = np.concatenate(recs, axis=0)
+    froot = os.path.join(out_dir, "pickup")
+    mds.wrmds(froot, stack, itr=myIter, dataprec="float64",
+              nrecords=stack.shape[0], fldlist=flds3d + flds2d,
+              timestep_number=myIter)
+    return froot
+
+
+def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
+    """Restore the state from pickup.<iter10> (read_pickup.F), in the
+    experiment's dtype and device, and set startFromPickup, nIter0 and
+    startTime as the JAX package does. A pickup without Wvel (the
+    reference's own) gets w recomputed from the restored velocities
+    (initialise_varia.F); one without the *Nm2 records leaves them zero,
+    as the reference does after its warning."""
+    cfg = exp.cfg
+    step_mod.check_supported(cfg)
+    fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
+                                  itr=myIter)
+    stack = fields["__records__"]
+    like = exp.state.etaN
+
+    def pad(a):
+        out = np.zeros(a.shape[:-2] + (cfg.ny + 2 * cfg.oly,
+                                       cfg.nx + 2 * cfg.olx))
+        out[..., cfg.oly:cfg.oly + cfg.ny, cfg.olx:cfg.olx + cfg.nx] = a
+        return cyclic_fill_halo(torch.as_tensor(out, dtype=like.dtype,
+                                                device=like.device),
+                                cfg.oly, cfg.olx)
+
+    vals, off = {}, 0
+    for name in meta.get("fldList", _PICKUP_3D + _PICKUP_2D):
+        name = name.strip()
+        if not name:
+            continue
+        n = 1 if name in _TWO_D else cfg.nr
+        vals[name] = pad(stack[off] if n == 1 else stack[off:off + n])
+        off += n
+    updates = {_FIELD[n]: vals[n] for n in _PICKUP_3D + ["EtaN"]}
+    updates["etaH"] = vals.get("EtaH", vals["EtaN"])
+    for name in _PICKUP_AB3 + ["dEtaHdt", "PhiHyd"]:
+        if name in vals:
+            updates[_FIELD[name]] = vals[name]
+    if "Wvel" in vals:
+        # the JAX package's own pickups: w and PmEpR as they were
+        updates["wVel"] = vals["Wvel"]
+        if "PmEpR" in vals:
+            updates["PmEpR"] = vals["PmEpR"]
+    else:
+        w, _ = step_mod.integr_continuity(
+            cfg, exp.grid, updates["uVel"], updates["vVel"],
+            torch.zeros_like(like))
+        updates["wVel"] = cyclic_fill_halo(w, cfg.oly, cfg.olx)
+    exp.state = dataclasses.replace(exp.state, **updates)
+    cfg.startFromPickup = True
+    cfg.startTime = cfg.baseTime + myIter * cfg.deltaTClock
+    cfg.nIter0 = myIter
+    exp.cur_iter = None

@@ -6,7 +6,10 @@ vertical diffusion.
 with kernel C' (gad_calc_rhs_adj.cu) as its backward, and the plain
 PyTorch twin `_calc_rhs_plain`, differentiated by autograd, for CPU
 tensors or when impl="plain" is asked for. The kernel writes zero halo
-cells; both agree on the interior.
+cells; both agree on the interior. With implicit_diffusion the explicit
+vertical diffusive flux is left out (the implicit solve,
+thermodynamics.impldiff, takes its place); kernel C' has no such branch,
+so that variant refuses gradients.
 """
 
 from __future__ import annotations
@@ -91,9 +94,10 @@ def _kernel_inputs(grid: Grid, tracer, uTrans, vTrans, rTrans, xA, yA,
 
 
 def _launch(kernel: str, cfg: Config, ins: dict, last, outs: dict,
-            diffKh: float) -> None:
-    """Check and launch kernel C (last = gTr) or C' (last = the
-    cotangent of gTr, outs = the four input cotangents)."""
+            diffKh: float, *flags: int) -> None:
+    """Check and launch kernel C (last = gTr, flags = (implicit_diffusion,))
+    or C' (last = the cotangent of gTr, outs = the four input
+    cotangents)."""
     tracer = ins["tracer"]
     nr, nyp, nxp = tracer.shape
     kernels.check_tensors(tracer.dtype, **ins, last=last, **outs)
@@ -107,7 +111,7 @@ def _launch(kernel: str, cfg: Config, ins: dict, last, outs: dict,
     table = [*ins.values(), last, *outs.values()]
     kernels.launch(kernel, tracer.dtype, kernels.pointer_table(table),
                    len(table), nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx,
-                   cfg.oly, cfg.olx, diffKh, cfg.rkSign)
+                   cfg.oly, cfg.olx, diffKh, cfg.rkSign, *flags)
 
 
 class CalcRhsFn(torch.autograd.Function):
@@ -117,11 +121,12 @@ class CalcRhsFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR,
-                cfg: Config, grid: Grid, diffKh: float):
+                cfg: Config, grid: Grid, diffKh: float,
+                implicit_diffusion: bool):
         args = (tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR)
         gTr = torch.empty_like(tracer)
         _launch("gad_calc_rhs_c2", cfg, _kernel_inputs(grid, *args), gTr, {},
-                diffKh)
+                diffKh, int(implicit_diffusion))
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(*args)
             ctx.cfg, ctx.grid, ctx.diffKh = cfg, grid, diffKh
@@ -133,24 +138,31 @@ class CalcRhsFn(torch.autograd.Function):
         outs = {n + "_bar": torch.empty_like(ins[n]) for n in _DIFFERENTIABLE}
         _launch("gad_calc_rhs_c2_adj", ctx.cfg, ins, gTr_bar.contiguous(),
                 outs, ctx.diffKh)
-        return (*outs.values(),) + (None,) * 7
+        return (*outs.values(),) + (None,) * 8
 
 
 def calc_rhs(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
-             diffKh: float, impl: str = None) -> torch.Tensor:
+             diffKh: float, implicit_diffusion: bool = False,
+             impl: str = None) -> torch.Tensor:
     """gad_calc_rhs.F: explicit tendency of one tracer at all levels.
     kappaR: [nr, nyp, nxp] interface diffusivities. Differentiable in the
     tracer and in flow's transports; raises if a constant (xA, yA, maskUp,
-    kappaR, the grid) requires grad, since the kernel gives it none."""
+    kappaR, the grid) requires grad, since the kernel gives it none, and
+    with implicit_diffusion if anything does."""
     args = (tracer, flow.uTrans, flow.vTrans, flow.rTrans, flow.xA, flow.yA,
             flow.maskUp, kappaR)
-    const = [n for n, t in _kernel_inputs(grid, *args).items()
-             if t.requires_grad and n not in _DIFFERENTIABLE]
+    grads = [n for n, t in _kernel_inputs(grid, *args).items()
+             if t.requires_grad]
+    const = [n for n in grads if n not in _DIFFERENTIABLE]
     if const:
         raise ValueError(f"calc_rhs: constants {const} require grad")
+    if grads and implicit_diffusion:
+        raise ValueError(f"calc_rhs: {grads} require grad; kernel C' has no "
+                         "implicit_diffusion branch")
     if not kernels.use_kernel(tracer, impl):
-        return _calc_rhs_plain(cfg, grid, flow, tracer, kappaR, diffKh)
-    return CalcRhsFn.apply(*args, cfg, grid, diffKh)
+        return _calc_rhs_plain(cfg, grid, flow, tracer, kappaR, diffKh,
+                               implicit_diffusion)
+    return CalcRhsFn.apply(*args, cfg, grid, diffKh, implicit_diffusion)
 
 
 def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
@@ -169,7 +181,8 @@ def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
 
 
 def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
-                    diffKh: float) -> torch.Tensor:
+                    diffKh: float, implicit_diffusion: bool = False
+                    ) -> torch.Tensor:
     """gad.py:calc_rhs (:1038-1117) without GM, KPP or biharmonic terms,
     in its operation order."""
     fZon = adv_flux_x(flow.uTrans, tracer)
@@ -178,8 +191,9 @@ def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
                    * (tracer - sh(tracer, di=-1)) * grid.cosFacU)
     fMer = fMer - (diffKh * flow.yA * grid.recip_dyC
                    * (tracer - sh(tracer, dj=-1)))
-    fVer = (adv_flux_r(grid, flow.rTrans, tracer) * grid.maskInC
-            + diff_flux_r(cfg, grid, kappaR, flow.maskUp, tracer))
+    fVer = adv_flux_r(grid, flow.rTrans, tracer) * grid.maskInC
+    if not implicit_diffusion:
+        fVer = fVer + diff_flux_r(cfg, grid, kappaR, flow.maskUp, tracer)
     fVerKp = torch.cat([fVer[1:], torch.zeros_like(fVer[:1])])
     divTrans = ((sh(flow.uTrans, di=1) - flow.uTrans)
                 + (sh(flow.vTrans, dj=1) - flow.vTrans)

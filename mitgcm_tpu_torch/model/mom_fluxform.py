@@ -46,6 +46,16 @@ def calc_ke(u, v) -> torch.Tensor:
     return 0.25 * ((u2 + sh(u2, di=1)) + (v2 + sh(v2, dj=1)))
 
 
+def variable_viscosity(cfg: Config) -> bool:
+    """Whether cfg asks for mom_visc.py's grid-, Smagorinsky- or
+    Leith-scaled viscosity (no form of momentum ports it yet)."""
+    return (cfg.viscAhGrid != 0.0 or cfg.viscA4Grid != 0.0
+            or cfg.viscC2smag != 0.0 or cfg.viscC4smag != 0.0
+            or cfg.viscC2leith != 0.0 or cfg.viscC2leithD != 0.0
+            or cfg.viscC2LeithQG != 0.0 or cfg.viscC4leith != 0.0
+            or cfg.viscC4leithD != 0.0)
+
+
 def check_branches(cfg: Config) -> None:
     """Raise unless cfg selects exactly the branches ported here."""
     off = {
@@ -57,14 +67,7 @@ def check_branches(cfg: Config) -> None:
         "select3dCoriScheme": cfg.select3dCoriScheme != 0,
         "biharmonic viscosity": (cfg.viscA4 != 0.0 or cfg.viscA4D != 0.0
                                  or cfg.viscA4Z != 0.0),
-        "variable viscosity": (cfg.viscAhGrid != 0.0 or cfg.viscA4Grid != 0.0
-                               or cfg.viscC2smag != 0.0
-                               or cfg.viscC4smag != 0.0
-                               or cfg.viscC2leith != 0.0
-                               or cfg.viscC2leithD != 0.0
-                               or cfg.viscC2LeithQG != 0.0
-                               or cfg.viscC4leith != 0.0
-                               or cfg.viscC4leithD != 0.0),
+        "variable viscosity": variable_viscosity(cfg),
         "implicitViscosity": cfg.implicitViscosity,
         "bottom drag beyond no-slip": (cfg.bottomDragLinear != 0.0
                                        or cfg.selectBotDragQuadr >= 0),

@@ -1,14 +1,18 @@
 """The forward timestep (mitgcm_tpu/model/step.py:forward_step), reduced to
-the main path of the wind-driven gyre:
+the ported paths of the wind-driven gyre:
 
   find_rho -> THERMODYNAMICS -> DYNAMICS -> fill u*,v* ->
   SOLVE_FOR_PRESSURE (cg2d) -> MOMENTUM_CORRECTION_STEP -> fill u,v ->
   INTEGR_CONTINUITY -> fill
 
-`check_supported` raises for every configuration flag off that path, so
-nothing the JAX step would do is silently skipped. `impl` is passed to the
-three kernel wrappers: None runs the CUDA kernels on CUDA tensors and the
-plain PyTorch twins on CPU tensors; "plain" runs the twins on any device.
+Two paths go through it: the gyre (flux-form momentum, linear EOS, AB-2,
+explicit vertical mixing) and the vi-gyre (vector-invariant momentum, a
+JMD95 or MDJWF EOS, AB-3, implicit vertical viscosity and diffusion),
+and any mix of those options. `check_supported` raises for every
+configuration flag off them, so nothing the JAX step would do is silently
+skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
+kernels on CUDA tensors and the plain PyTorch twins on CPU tensors;
+"plain" runs the twins on any device.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import thermodynamics as thermo_mod
 from mitgcm_tpu_torch.model.mom_fluxform import check_branches, mom_fluxform
+from mitgcm_tpu_torch.model.mom_vecinv import check_branches_vecinv, mom_vecinv
 from mitgcm_tpu_torch.model.phihyd import calc_phi_hyd
 from mitgcm_tpu_torch.ops import eos
 from mitgcm_tpu_torch.ops.stencil import (cyclic_fill_halo, interior_mask,
@@ -45,18 +50,17 @@ _PACKAGES = ("useKPP", "useGGL90", "usePP81", "useMY82", "useOPPS",
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError unless cfg stays on the ported main path
-    (Cartesian z-coordinates, linear EOS, flux-form momentum, AB-2,
-    linear implicit free surface solved by cg2d, scheme-2 tracers)."""
+    """Raise NotImplementedError unless cfg stays on the ported paths
+    (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
+    flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
+    free surface solved by cg2d, scheme-2 tracers, explicit or implicit
+    vertical diffusion)."""
     off = {
-        "vectorInvariantMomentum": cfg.vectorInvariantMomentum,
-        "useAB3": cfg.useAB3,
         "staggerTimeStep": cfg.staggerTimeStep,
         "nonlinFreeSurf>0": cfg.nonlinFreeSurf > 0,
         "exactConserv": cfg.exactConserv,
         "useRealFreshWaterFlux": cfg.useRealFreshWaterFlux,
         "convertFW2Salt=-1": cfg.convertFW2Salt == -1.0,
-        "implicitDiffusion": cfg.implicitDiffusion,
         "implicitFreeSurface=F": not cfg.implicitFreeSurface,
         "implicSurfPress!=1": cfg.implicSurfPress != 1.0,
         "implicDiv2Dflow!=1": cfg.implicDiv2Dflow != 1.0,
@@ -68,7 +72,9 @@ def check_supported(cfg: Config) -> None:
                                or cfg.usingSphericalPolarGrid
                                or cfg.usingCurvilinearGrid
                                or cfg.nFaces != 1),
-        "eosType": cfg.eosType.upper() != "LINEAR",
+        f"eosType={cfg.eosType}": (cfg.eosType.upper() != "LINEAR"
+                                   and cfg.eosType.upper()
+                                   not in eos.NONLINEAR),
         "momStepping=F": not cfg.momStepping,
         "momPressureForcing=F": not cfg.momPressureForcing,
         "momForcing=F": not cfg.momForcing,
@@ -98,8 +104,11 @@ def check_supported(cfg: Config) -> None:
     bad = [name for name, is_off in off.items() if is_off]
     if bad:
         raise NotImplementedError(
-            f"not on the ported main path: {', '.join(bad)}")
-    check_branches(cfg)
+            f"not on the ported paths: {', '.join(bad)}")
+    if cfg.vectorInvariantMomentum:
+        check_branches_vecinv(cfg)
+    else:
+        check_branches(cfg)
 
 
 def adams_bashforth2(cfg: Config, g, gNm1, myIter: int):
@@ -108,6 +117,33 @@ def adams_bashforth2(cfg: Config, g, gNm1, myIter: int):
     startAB = 1 if cfg.startFromPickup else 0
     abFac = 0.0 if (myIter == cfg.nIter0 and startAB == 0) else 0.5 + cfg.abEps
     return g + abFac * (g - gNm1), g
+
+
+def adams_bashforth3(cfg: Config, g, gNm1, gNm2, myIter: int):
+    """AB-3 extrapolation (adams_bashforth3.F): (g_extrap, gNm1', gNm2').
+    gNm1 holds the last raw tendency, gNm2 the one before. Forward Euler on
+    the cold-start step, AB-2-like (alph only) on the next, full AB-3
+    after; a restart from a pickup holds both levels (startAB = 2) and
+    starts with full AB-3. `levels` is the JAX package's count of the
+    levels available, which a straight run and its restart reach by the
+    same arithmetic."""
+    startAB = 2 if cfg.startFromPickup else 0
+    alph, beta = cfg.alph_AB, cfg.beta_AB
+    levels = myIter - (cfg.nIter0 - startAB)
+    first, second = levels == 0, levels == 1
+    ab0 = 0.0 if first else alph + (0.0 if second else beta)
+    ab1 = 0.0 if first else -alph - (0.0 if second else 2.0 * beta)
+    ab2 = 0.0 if (first or second) else beta
+    return g + (ab0 * g + ab1 * gNm1 + ab2 * gNm2), g, gNm1
+
+
+def adams_bashforth(cfg: Config, g, gNm1, gNm2, myIter: int):
+    """AB-3 when cfg.useAB3 (alph_AB set), else AB-2 with gNm2 passed
+    through: (g_extrap, gNm1', gNm2')."""
+    if cfg.useAB3:
+        return adams_bashforth3(cfg, g, gNm1, gNm2, myIter)
+    g_ext, gNm1_new = adams_bashforth2(cfg, g, gNm1, myIter)
+    return g_ext, gNm1_new, gNm2
 
 
 def load_fields(forcing: Forcing) -> Forcing:
@@ -129,21 +165,32 @@ def apply_forcing_uv(cfg: Config, grid: Grid, forcing: Forcing):
 
 def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
              rhoInSitu, myIter: int, impl: str = None):
-    """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', totPhiHyd)."""
+    """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', guNm2',
+    gvNm2', totPhiHyd)."""
     u, v, w = state.uVel, state.vVel, state.wVel
     kshape = (cfg.nr + 1,) + tuple(u.shape[1:])
     kappaRU = torch.full(kshape, cfg.viscAr, dtype=u.dtype, device=u.device)
     kappaRV = torch.full(kshape, cfg.viscAr, dtype=u.dtype, device=u.device)
     _, dPhiHydX, dPhiHydY, totPhiHyd = calc_phi_hyd(cfg, grid, rhoInSitu)
-    tend = mom_fluxform(cfg, grid, u, v, w, kappaRU, kappaRV, impl=impl)
+    momentum = mom_vecinv if cfg.vectorInvariantMomentum else mom_fluxform
+    tend = momentum(cfg, grid, u, v, w, kappaRU, kappaRV, impl=impl)
     guExt, gvExt = apply_forcing_uv(cfg, grid, forcing)
     gU = tend.gU - dPhiHydX + tend.guDiss + guExt
     gV = tend.gV - dPhiHydY + tend.gvDiss + gvExt
-    gU_ab, guNm1 = adams_bashforth2(cfg, gU, state.guNm1, myIter)
-    gV_ab, gvNm1 = adams_bashforth2(cfg, gV, state.gvNm1, myIter)
+    gU_ab, guNm1, guNm2 = adams_bashforth(cfg, gU, state.guNm1, state.guNm2,
+                                          myIter)
+    gV_ab, gvNm1, gvNm2 = adams_bashforth(cfg, gV, state.gvNm1, state.gvNm2,
+                                          myIter)
     uStar = u + cfg.deltaTMom * gU_ab * grid.maskW
     vStar = v + cfg.deltaTMom * gV_ab * grid.maskS
-    return uStar, vStar, guNm1, gvNm1, totPhiHyd
+    if cfg.implicitViscosity:
+        uStar = thermo_mod.impldiff(cfg, grid, uStar, kappaRU,
+                                    grid.recip_hFacW, cfg.deltaTMom,
+                                    impl=impl)
+        vStar = thermo_mod.impldiff(cfg, grid, vStar, kappaRV,
+                                    grid.recip_hFacS, cfg.deltaTMom,
+                                    impl=impl)
+    return uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd
 
 
 def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
@@ -215,10 +262,12 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
 
     forc = load_fields(forcing)
     # in-situ density from the start-of-step tracers (do_oceanic_phys.F)
-    rhoInSitu = eos.find_rho(cfg, state.theta, state.salt) * grid.maskC
-    theta, salt, gtNm1, gsNm1 = thermo_mod.thermodynamics(
+    rhoInSitu = eos.find_rho(cfg, grid, state.theta, state.salt,
+                             totPhiHyd=state.totPhiHyd,
+                             impl=impl) * grid.maskC
+    theta, salt, gtNm1, gsNm1, gtNm2, gsNm2 = thermo_mod.thermodynamics(
         cfg, grid, state, forc, myIter, impl=impl)
-    uStar, vStar, guNm1, gvNm1, totPhiHyd = dynamics(
+    uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd = dynamics(
         cfg, grid, state, forc, rhoInSitu, myIter, impl=impl)
     uStar, vStar = fill(uStar), fill(vStar)
     etaN, diag = solve_for_pressure(cfg, grid, op, state, uStar, vStar,
@@ -231,5 +280,6 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         etaN=fill(etaN), etaH=fill(state.etaH),
         dEtaHdt=fill(state.dEtaHdt), PmEpR=fill(PmEpR),
         guNm1=guNm1, gvNm1=gvNm1, gtNm1=gtNm1, gsNm1=gsNm1,
+        guNm2=guNm2, gvNm2=gvNm2, gtNm2=gtNm2, gsNm2=gsNm2,
         totPhiHyd=totPhiHyd)
     return new_state, diag

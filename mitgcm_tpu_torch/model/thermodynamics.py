@@ -1,15 +1,94 @@
 """Tracer thermodynamics (mitgcm_tpu/model/thermodynamics.py): explicit
-advection-diffusion step of theta (and salt when stepped) with AB-2 on the
-tendency and the surface forcing inside the AB extrapolation."""
+advection-diffusion step of theta (and salt when stepped) with AB-2 or
+AB-3 on the tendency and the surface forcing inside the AB extrapolation,
+then, with implicitDiffusion, the implicit vertical diffusion.
+
+`impldiff` (the tridiagonal column solve, also used for implicit vertical
+viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for
+CUDA tensors and the plain PyTorch twin `_impldiff_plain` for CPU tensors
+or when impl="plain" is asked for. Kernel T has no backward kernel: its
+wrapper raises if an input requires grad.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import gad
+
+
+def _impldiff_plain(cfg: Config, grid: Grid, field, kappaR, recip_hFac,
+                    deltaT: float):
+    """Kernel T's twin: thermodynamics.py:impldiff (:24-73), the Thomas
+    elimination of impldiff.F, with the JAX code's coefficients, guards
+    and operation order. A column whose diagonal or pivot is 0 (land)
+    keeps the guard's value 1 for its reciprocal."""
+    nr = cfg.nr
+    rdrF = grid.recip_drF[:, None, None]
+    rdrC = grid.recip_drC[:, None, None]
+    a = torch.zeros_like(field)
+    c = torch.zeros_like(field)
+    a[1:] = -deltaT * recip_hFac[1:] * rdrF[1:] * kappaR[1:nr] * rdrC[1:nr]
+    a[1:] = torch.where(recip_hFac[:-1] == 0.0, 0.0, a[1:])
+    c[:-1] = (-deltaT * recip_hFac[:-1] * rdrF[:-1] * kappaR[1:nr]
+              * rdrC[1:nr])
+    c[:-1] = torch.where(recip_hFac[1:] == 0.0, 0.0, c[:-1])
+    b = 1.0 - (a + c)
+
+    def recip(d):
+        return torch.where(d != 0.0,
+                           1.0 / torch.where(d != 0.0, d, 1.0), 1.0)
+
+    bet = recip(b[0])
+    y = [field[0] * bet]
+    gam = [torch.zeros_like(bet)]
+    for k in range(1, nr):
+        gam.append(c[k - 1] * bet)
+        bet = recip(b[k] - a[k] * gam[k])
+        y.append(bet * (field[k] - a[k] * y[k - 1]))
+    x = [y[nr - 1]]
+    for k in range(nr - 2, -1, -1):
+        x.append(y[k] - gam[k + 1] * x[-1])
+    return torch.stack(x[::-1])
+
+
+def impldiff(cfg: Config, grid: Grid, field, kappaR, recip_hFac,
+             deltaT: float, impl: str = None):
+    """Implicit vertical diffusion of `field` [nr, nyp, nxp] over deltaT
+    (impldiff.F): kappaR [>= nr, nyp, nxp] interface diffusivities (index
+    k = the interface above cell k; row 0 unused), recip_hFac the open
+    fraction's reciprocal at the field's C, W or S points."""
+    nr = cfg.nr
+    if nr == 1:
+        return field
+    ins = dict(field=field, kappaR=kappaR, recip_hFac=recip_hFac,
+               recip_drF=grid.recip_drF, recip_drC=grid.recip_drC)
+    grads = [n for n, t in ins.items() if t.requires_grad]
+    if grads:
+        raise ValueError(f"impldiff: {grads} require grad; kernel T has no "
+                         "backward kernel yet")
+    if not kernels.use_kernel(field, impl):
+        return _impldiff_plain(cfg, grid, field, kappaR, recip_hFac, deltaT)
+    _, nyp, nxp = field.shape
+    out = torch.empty_like(field)
+    gam = torch.empty_like(field)    # the sweep's multipliers, per column
+    kernels.check_tensors(field.dtype, **ins, out=out, gam=gam)
+    kernels.check_shape("recip_hFac", recip_hFac, field.shape)
+    if kappaR.shape[0] < nr or tuple(kappaR.shape[1:]) != (nyp, nxp):
+        raise ValueError(f"kappaR: shape {tuple(kappaR.shape)}, need "
+                         f"[>= {nr}, {nyp}, {nxp}]")
+    kernels.check_shape("recip_drF", grid.recip_drF, (nr,))
+    kernels.check_shape("recip_drC", grid.recip_drC, (nr + 1,))
+    kernels.launch("impldiff", field.dtype, field.data_ptr(),
+                   kappaR.data_ptr(), recip_hFac.data_ptr(),
+                   grid.recip_drF.data_ptr(), grid.recip_drC.data_ptr(),
+                   gam.data_ptr(), out.data_ptr(), nr, nyp * nxp,
+                   float(deltaT))
+    return out
 
 
 def surface_forcing_ts(cfg: Config, grid: Grid, state: State,
@@ -47,37 +126,45 @@ def tracer_kappa(cfg: Config, grid: Grid, diffKr: float) -> torch.Tensor:
 
 
 def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
-                     gNm1, kappaR, sfc_forc, diffKh: float, myIter: int,
-                     impl: str = None):
-    """temp_integrate.F for one tracer: (tracer', gNm1')."""
-    from mitgcm_tpu_torch.model.step import adams_bashforth2
+                     gNm1, gNm2, kappaR, sfc_forc, diffKh: float,
+                     myIter: int, impl: str = None):
+    """temp_integrate.F for one tracer: (tracer', gNm1', gNm2')."""
+    from mitgcm_tpu_torch.model.step import adams_bashforth
 
-    gTr = gad.calc_rhs(cfg, grid, flow, tracer, kappaR, diffKh, impl=impl)
+    gTr = gad.calc_rhs(cfg, grid, flow, tracer, kappaR, diffKh,
+                       implicit_diffusion=cfg.implicitDiffusion, impl=impl)
     ks = cfg.ksurf0
     gForc = torch.zeros_like(tracer)
     gForc[ks] = sfc_forc * grid.recip_drF[ks] * grid.recip_hFacC[ks]
     gTr = gTr + gForc
-    gTr_ab, gNm1_new = adams_bashforth2(cfg, gTr, gNm1, myIter)
-    return tracer + cfg.deltaTTracer * gTr_ab, gNm1_new
+    gTr_ab, gNm1_new, gNm2_new = adams_bashforth(cfg, gTr, gNm1, gNm2,
+                                                 myIter)
+    tr_new = tracer + cfg.deltaTTracer * gTr_ab
+    if cfg.implicitDiffusion:
+        tr_new = impldiff(cfg, grid, tr_new, kappaR, grid.recip_hFacC,
+                          cfg.deltaTTracer, impl=impl)
+    return tr_new, gNm1_new, gNm2_new
 
 
 def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                    myIter: int, impl: str = None):
-    """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1)."""
+    """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2,
+    gsNm2)."""
     theta, salt = state.theta, state.salt
     gtNm1, gsNm1 = state.gtNm1, state.gsNm1
+    gtNm2, gsNm2 = state.gtNm2, state.gsNm2
     if not (cfg.tempStepping or cfg.saltStepping):
-        return theta, salt, gtNm1, gsNm1
+        return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2
     flow = gad.calc_adv_flow(grid, state.uVel, state.vVel, state.wVel)
     sfT, sfS = surface_forcing_ts(cfg, grid, state, forcing)
     if cfg.tempStepping:
-        theta, gtNm1 = tracer_integrate(
-            cfg, grid, flow, theta, gtNm1, tracer_kappa(cfg, grid,
-                                                        cfg.diffKrT),
-            sfT, cfg.diffKhT, myIter, impl=impl)
+        theta, gtNm1, gtNm2 = tracer_integrate(
+            cfg, grid, flow, theta, gtNm1, gtNm2,
+            tracer_kappa(cfg, grid, cfg.diffKrT), sfT, cfg.diffKhT, myIter,
+            impl=impl)
     if cfg.saltStepping:
-        salt, gsNm1 = tracer_integrate(
-            cfg, grid, flow, salt, gsNm1, tracer_kappa(cfg, grid,
-                                                       cfg.diffKrS),
-            sfS, cfg.diffKhS, myIter, impl=impl)
-    return theta, salt, gtNm1, gsNm1
+        salt, gsNm1, gsNm2 = tracer_integrate(
+            cfg, grid, flow, salt, gsNm1, gsNm2,
+            tracer_kappa(cfg, grid, cfg.diffKrS), sfS, cfg.diffKhS, myIter,
+            impl=impl)
+    return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2

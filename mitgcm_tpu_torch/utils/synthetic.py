@@ -15,10 +15,11 @@ from mitgcm_tpu_torch.solver.cg2d import build_cg2d
 
 
 def gyre_config(nx=64, ny=64, nr=4, dx=20.0e3, depth=5000.0,
-                deltaT=1200.0, n_steps=10, olx=2, oly=2) -> Config:
+                deltaT=1200.0, n_steps=10, olx=2, oly=2, **extra) -> Config:
     """A wind-driven beta-plane gyre (tutorial_barotropic_gyre-like) of
-    any size, with stratified T when nr > 1."""
-    cfg = Config(
+    any size, with stratified T when nr > 1. `extra` sets further Config
+    fields before finalize()."""
+    kwargs = dict(
         nx=nx, ny=ny, nr=nr, olx=olx, oly=oly,
         viscAh=4.0e2, f0=1.0e-4, beta=1.0e-11,
         rhoConst=1000.0, gBaro=9.81,
@@ -34,7 +35,23 @@ def gyre_config(nx=64, ny=64, nr=4, dx=20.0e3, depth=5000.0,
         diffKhT=1.0e3, diffKrT=1.0e-5,
         tRef=tuple(np.linspace(24.0, 10.0, nr)),
     )
-    return cfg.finalize()
+    return Config(**{**kwargs, **extra}).finalize()
+
+
+def vi_gyre_config(nx=64, ny=64, nr=4, deltaT=1200.0, n_steps=10,
+                   eosType="JMD95Z", **kw) -> Config:
+    """The gyre as a realistic ocean run sets it up (the "vi-gyre"):
+    vector-invariant momentum, implicit vertical viscosity (viscAr 1e-3)
+    and diffusion, a nonlinear EOS with salt stepped from a sRef profile
+    of 35 to 34.5, and AB-3 (alph_AB 0.5, beta_AB 5/12). finalize()
+    derives useAB3 and selectP_inEOS_Zc (2 for MDJWF, 0 for JMD95Z)."""
+    vi = dict(vectorInvariantMomentum=True, implicitViscosity=True,
+              implicitDiffusion=True, viscAr=1.0e-3, eosType=eosType,
+              saltStepping=True, sRef=tuple(np.linspace(35.0, 34.5, nr)),
+              diffKhS=1.0e3, diffKrS=1.0e-5, alph_AB=0.5,
+              beta_AB=5.0 / 12.0)
+    return gyre_config(nx=nx, ny=ny, nr=nr, deltaT=deltaT, n_steps=n_steps,
+                       **{**vi, **kw})
 
 
 def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,

@@ -1,7 +1,8 @@
 """PyTorch port: guards. The port never imports jax, has no CPU fallback
-for its GPU run, refuses configurations off its ported main path, and its
-kernel wrappers refuse to differentiate what their kernels treat as
-constants."""
+for its GPU run, refuses configurations off its ported paths, its kernel
+wrappers refuse to differentiate what their kernels treat as constants
+(and V, T and R, which have no backward kernels yet, anything), and its
+adjoint refuses the vi-gyre."""
 
 import dataclasses
 import os
@@ -13,8 +14,11 @@ import pytest
 import torch
 
 from mitgcm_tpu_torch import kernels
-from mitgcm_tpu_torch.model import gad, mom_fluxform
+from mitgcm_tpu_torch.ad import adjoint
+from mitgcm_tpu_torch.model import gad, mom_fluxform, mom_vecinv
 from mitgcm_tpu_torch.model.step import check_supported
+from mitgcm_tpu_torch.model.thermodynamics import impldiff
+from mitgcm_tpu_torch.ops.eos import find_rho
 from mitgcm_tpu_torch.solver import cg2d
 from mitgcm_tpu_torch.utils import synthetic
 
@@ -24,14 +28,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ONE_STEP = """
 import sys
+import tempfile
 import torch
 from mitgcm_tpu_torch import kernels
+from mitgcm_tpu_torch.model.experiment import (Experiment, read_pickup,
+                                               write_pickup)
 from mitgcm_tpu_torch.model.step import forward_step
 from mitgcm_tpu_torch.utils import synthetic
 cfg = synthetic.gyre_config(nx=12, ny=10, nr=3)
 grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64)
 state, diag = forward_step(cfg, grid, op, state, forcing, 0)
 assert diag.cg2d_iters > 0 and bool(torch.isfinite(state.uVel).all())
+cfg = synthetic.vi_gyre_config(nx=12, ny=10, nr=3)
+exp = Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=torch.float64))
+rec, = exp.run(n_steps=1, collect_monitor=False)
+assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.salt).all())
+with tempfile.TemporaryDirectory() as tmp:
+    write_pickup(exp, tmp, 1)
+    back = Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=torch.float64))
+    read_pickup(back, tmp, 1)
+assert torch.equal(back.state.guNm1[:, 2:-2, 2:-2],
+                   exp.state.guNm1[:, 2:-2, 2:-2])
 assert "jax" not in sys.modules, "the port imported jax"
 assert kernels._lib is None, "a CPU step touched the CUDA library"
 print("one step ok")
@@ -126,17 +143,51 @@ def test_chip_smoke_refuses_without_gpu(where, tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("useAB3", True), ("vectorInvariantMomentum", True),
-    ("nonlinFreeSurf", 4), ("implicitDiffusion", True), ("useKPP", True),
-    ("eosType", "JMD95Z"), ("viscA4", 1.0e9), ("tempAdvScheme", 33),
-    ("usingSphericalPolarGrid", True)])
-def test_check_supported_raises(flag, value):
+@pytest.mark.parametrize("settings", [
+    dict(eosType="TEOS10"), dict(vectorInvariantMomentum=True, viscAhZ=1e2),
+    dict(nonlinFreeSurf=4), dict(implicitViscosity=True), dict(useKPP=True),
+    dict(vectorInvariantMomentum=True, viscC2smag=2.0), dict(viscA4=1.0e9),
+    dict(tempAdvScheme=33), dict(usingSphericalPolarGrid=True)])
+def test_check_supported_raises(settings):
+    """implicitViscosity is ported under vector-invariant momentum only."""
     cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
     check_supported(cfg)
-    setattr(cfg, flag, value)
+    for flag, value in settings.items():
+        setattr(cfg, flag, value)
     with pytest.raises(NotImplementedError):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("eos", ["JMD95Z", "JMD95P", "UNESCO", "MDJWF"])
+def test_check_supported_vi_gyre(eos):
+    check_supported(synthetic.vi_gyre_config(nx=8, ny=8, nr=2, eosType=eos))
+
+
+@pytest.mark.parametrize("kernel", ["V", "T", "R"])
+def test_vi_kernels_refuse_grad(kernel):
+    """V, T and R have no backward kernels: any input that requires grad
+    is refused, on every device."""
+    cfg = synthetic.vi_gyre_config(nx=8, ny=8, nr=2)
+    grid = synthetic.gyre_setup(cfg, dtype=torch.float64)[0]
+    x = torch.zeros_like(grid.hFacC).requires_grad_(True)
+    k = torch.zeros((cfg.nr + 1,) + tuple(x.shape[1:]), dtype=x.dtype)
+    calls = {
+        "V": lambda: mom_vecinv.mom_vecinv(cfg, grid, x, x, x, k, k),
+        "T": lambda: impldiff(cfg, grid, x, k, grid.recip_hFacC, 600.0),
+        "R": lambda: find_rho(cfg, grid, x + 10.0, x + 35.0),
+    }
+    with pytest.raises(ValueError, match=f"kernel {kernel}"):
+        calls[kernel]()
+
+
+@pytest.mark.parametrize("flag", ["vectorInvariantMomentum",
+                                  "implicitDiffusion", "implicitViscosity",
+                                  "eosType", "useAB3"])
+def test_adjoint_refuses_vi_gyre(flag):
+    cfg = synthetic.vi_gyre_config(nx=8, ny=8, nr=2)
+    grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match=flag):
+        adjoint.run_steps(cfg, grid, op, state, forcing, 1)
 
 
 def test_no_silent_fallback():

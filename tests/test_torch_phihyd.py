@@ -29,10 +29,10 @@ def _setup(seed):
 
 
 def test_find_rho():
-    cfg, jgrid, _, theta, salt = _setup(0)
+    cfg, jgrid, tgrid, theta, salt = _setup(0)
     want = np.asarray(jeos.find_rho(cfg, jgrid, jnp.asarray(theta),
                                     jnp.asarray(salt)))
-    got = teos.find_rho(cfg, torch.from_numpy(theta),
+    got = teos.find_rho(cfg, tgrid, torch.from_numpy(theta),
                         torch.from_numpy(salt)).numpy()
     assert digits(got, want) >= 12
 

@@ -1,0 +1,130 @@
+"""PyTorch port: checkpoint/restart, the twin of tests/test_restart.py.
+
+4 steps == 2 + pickup + 2 bit for bit, for the gyre (AB-2) and the vi-gyre
+(AB-3, whose pickup carries the *Nm2 records); the pickup round trip, in
+float64 and float32 (pickups are float64); and pickups crossing between
+the packages: a pickup written by the JAX package after 2 steps, read by
+the port and stepped 2 more, matches JAX's 4 straight steps to 10 digits,
+and so does the other way round. The vi-gyre's JAX runs are evaluated op
+by op (jax.disable_jit), as in tests/test_torch_vi_gyre.py, which says
+why.
+"""
+
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mitgcm_tpu.model import experiment as jexp
+from mitgcm_tpu.utils import synthetic as jsyn
+from mitgcm_tpu_torch.model.experiment import (Experiment, read_pickup,
+                                               write_pickup)
+from mitgcm_tpu_torch.utils import synthetic as tsyn
+from mitgcm_tpu_torch.utils.compare import digits, interior
+
+torch.set_num_threads(1)
+
+SIZE = dict(nx=16, ny=16, nr=3)
+CONFIGS = {"gyre": tsyn.gyre_config, "vi-gyre": tsyn.vi_gyre_config}
+FIELDS = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1", "gvNm1",
+          "gtNm1", "gsNm1", "guNm2", "gvNm2", "gtNm2", "gsNm2", "PmEpR",
+          "etaH", "dEtaHdt")
+
+
+def _port(kind, dtype=torch.float64):
+    cfg = CONFIGS[kind](**SIZE)
+    return Experiment(cfg, *tsyn.gyre_setup(cfg, dtype=dtype))
+
+
+def _jax(kind):
+    cfg = CONFIGS[kind](**SIZE)
+    grid, state, forcing, op = jsyn.gyre_setup(cfg, dtype=jnp.float64)
+    return jexp.Experiment(cfg=cfg, grid=grid, state=state, forcing=forcing,
+                           op=op)
+
+
+def _jax_mode(kind):
+    return jax.disable_jit() if kind == "vi-gyre" else contextlib.nullcontext()
+
+
+def _same(a, b, names, ol=2):
+    differ = [n for n in names
+              if not torch.equal(getattr(a, n)[..., ol:-ol, ol:-ol],
+                                 getattr(b, n)[..., ol:-ol, ol:-ol])]
+    assert not differ, f"differ after restart: {differ}"
+
+
+@pytest.mark.parametrize("kind", ["gyre", "vi-gyre"])
+def test_2plus2(kind, tmp_path):
+    e4 = _port(kind)
+    e4.run(n_steps=4, collect_monitor=False)
+    e2 = _port(kind)
+    e2.run(n_steps=2, collect_monitor=False)
+    write_pickup(e2, str(tmp_path), myIter=2)
+    e22 = _port(kind)
+    read_pickup(e22, str(tmp_path), myIter=2)
+    assert e22.cfg.startFromPickup and e22.cfg.nIter0 == 2
+    recs = e22.run(n_steps=2, collect_monitor=False)
+    assert [r["iter"] for r in recs] == [3, 4]
+    _same(e4.state, e22.state, FIELDS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pickup_roundtrip(dtype, tmp_path):
+    e = _port("vi-gyre", dtype)
+    e.run(n_steps=3, collect_monitor=False)
+    froot = write_pickup(e, str(tmp_path), myIter=3)
+    with open(f"{froot}.0000000003.meta") as f:
+        meta = f.read()
+    assert "'float64'" in meta and "GuNm2" in meta and "Wvel" in meta
+    e2 = _port("vi-gyre", dtype)
+    read_pickup(e2, str(tmp_path), myIter=3)
+    _same(e.state, e2.state, FIELDS)
+
+
+@pytest.fixture(scope="module", params=["gyre", "vi-gyre"])
+def jax_reference(request, tmp_path_factory):
+    """JAX's 4 straight steps, with its pickup written after step 2."""
+    kind = request.param
+    pickup_dir = str(tmp_path_factory.mktemp(f"jax_pickup_{kind}"))
+    e = _jax(kind)
+    with _jax_mode(kind):
+        e.run(n_steps=2, collect_monitor=False)
+        jexp.write_pickup(e, pickup_dir, myIter=2)
+        e.run(n_steps=2, collect_monitor=False)
+    return kind, pickup_dir, e.state
+
+
+def _close(got_state, want_state, to_numpy):
+    for name in ("uVel", "vVel", "theta", "salt", "etaN"):
+        d = digits(interior(to_numpy(getattr(got_state, name)), 2),
+                   interior(np.asarray(getattr(want_state, name)), 2))
+        assert d >= 10, (name, d)
+
+
+def test_jax_pickup_read_by_port(jax_reference):
+    kind, pickup_dir, want = jax_reference
+    e = _port(kind)
+    read_pickup(e, pickup_dir, myIter=2)
+    e.run(n_steps=2, collect_monitor=False)
+    _close(e.state, want, lambda t: t.numpy())
+
+
+def test_port_pickup_read_by_jax(jax_reference, tmp_path):
+    kind, _, want = jax_reference
+    e = _port(kind)
+    e.run(n_steps=2, collect_monitor=False)
+    write_pickup(e, str(tmp_path), myIter=2)
+    j = _jax(kind)
+    jexp.read_pickup(j, str(tmp_path), myIter=2)
+    # the JAX reader takes every record as the port wrote it
+    for name in FIELDS:
+        assert np.array_equal(
+            np.asarray(getattr(j.state, name))[..., 2:-2, 2:-2],
+            getattr(e.state, name)[..., 2:-2, 2:-2].numpy()), name
+    with _jax_mode(kind):
+        j.run(n_steps=2, collect_monitor=False)
+    _close(j.state, want, np.asarray)
