@@ -34,10 +34,24 @@ exits nonzero without the final line:
                  then the 1024x1024x32 float32 vi-gyre (deltaT=600): one
                  warm-up step and 5 timed steps with the launch counts of V
                  (5), T (20), R (5) and B (0), then 2 plain steps
+  8. kpp-gyre  : the vi-gyre with KPP boundary-layer mixing, stretched
+                 levels, a mixed layer and a north-south heat flux: kernel
+                 K (kpp_pre, kpp_smooth, kpp_col) against its twins at
+                 64x64x12 float64 and 1024x1024x32 float32, with kbl
+                 identical, and C with KPP's nonlocal flux df; 10 float64
+                 steps at 64x64x12, kernel path against plain path; a 2+2
+                 restart on the kernel path; then the 1024x1024x32 float32
+                 kpp-gyre (deltaT=600): one warm-up step and 5 timed steps
+                 with every kernel's launch count (K each step, the plain
+                 KPP never), then 2 plain steps
 It prints, last, one line of JSON per kernel (the launches are those of
 the main path that runs it: phase 5 for the gyre's forward kernels, phase
 6's full-size gradient for B' and C', phase 7's full-size run for V, T
-and R), the card's name and power limit, and the device line.
+and R, phase 8's for K), with the kernel's time, its plain twin's, and its
+bound (the larger of the bytes it must move over 3.35 TB/s and its
+estimated operations over 67 TFLOP/s, the H100's float32 peaks) at the
+1024x1024x32 float32 shapes, the card's name and power limit, and the
+device line.
 """
 
 import json
@@ -78,6 +92,13 @@ KERNELS = {
                  "mitgcm_tpu/model/thermodynamics.py:24"),
     "eos_find_rho": ("mitgcm_tpu_torch/kernels/csrc/eos.cu",
                      "mitgcm_tpu/ops/eos.py:218"),
+    # the kpp-gyre's kernel K
+    "kpp_pre": ("mitgcm_tpu_torch/kernels/csrc/kpp.cu",
+                "mitgcm_tpu/model/kpp.py:654"),
+    "kpp_smooth": ("mitgcm_tpu_torch/kernels/csrc/kpp.cu",
+                   "mitgcm_tpu/model/kpp.py:636"),
+    "kpp_col": ("mitgcm_tpu_torch/kernels/csrc/kpp.cu",
+                "mitgcm_tpu/model/kpp.py:555"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
@@ -85,8 +106,29 @@ VI_KERNELS = ("mom_vecinv", "impldiff", "eos_find_rho")
 # launches of each kernel in phase 7's 5 timed full-size vi-gyre steps
 VI_LAUNCHES = {"mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
                "mom_fluxform": 0}
+KPP_KERNELS = ("kpp_pre", "kpp_smooth", "kpp_col")
+# launches in phase 8's 5 timed full-size kpp-gyre steps
+KPP_LAUNCHES = {"kpp_pre": 5, "kpp_smooth": 5, "kpp_col": 5,
+                "mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
+                "gad_calc_rhs_c2": 10, "mom_fluxform": 0}
 # largest relative interior error a kernel may show against its twin
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the H100 SXM's published peaks (NVIDIA's datasheet): HBM bytes/s
+# and float32 operations/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
+# estimated operations per cell of each kernel's largest field (its source
+# notes), for the operations side of the bound; every kernel here is
+# bounded by bytes by a wide margin
+OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
+                "cg2d_xr_update": 6, "mom_fluxform": 300,
+                "gad_calc_rhs_c2": 60, "mom_fluxform_adj": 600,
+                "gad_calc_rhs_c2_adj": 120, "mom_vecinv": 300,
+                "impldiff": 15, "eos_find_rho": 60, "kpp_pre": 400,
+                "kpp_smooth": 40, "kpp_col": 250}
+# tensors that a wrapper checks but that are its kernel's scratch, and
+# those it updates in place (read and written)
+SCRATCH = ("gam",)
+IN_PLACE = {"cg2d_s_update": ("s",), "cg2d_xr_update": ("x", "r")}
 CG2D_X_TOL_F64 = 1e-10
 PARITY_DIGITS = 10.0
 GRDCHK_TOL = 1e-5
@@ -175,10 +217,52 @@ class Case:
         return f"{c.nx}x{c.ny}x{c.nr} {str(self.dtype).split('.')[-1]}"
 
 
+def moved_bytes(name, call):
+    """(bytes, cells): the bytes of the distinct tensors that the kernel's
+    wrapper checks in one call (each input read once, each output written
+    once, an in-place one both), and the cell count of the largest."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model import kpp as kpp_mod
+
+    seen = {}
+
+    def spy(check):
+        def wrapped(first, *args, **tensors):
+            if isinstance(first, str):     # kpp._check_int(name, t, shape)
+                tensors = {first: args[0]}
+            for n, t in tensors.items():
+                if n not in SCRATCH:
+                    times = 2 if n in IN_PLACE.get(name, ()) else 1
+                    seen[t.data_ptr()] = (
+                        times * t.numel() * t.element_size(), t.numel())
+            return check(first, *args, **({} if isinstance(first, str)
+                                           else tensors))
+        return wrapped
+
+    saved = kernels.check_tensors, kpp_mod._check_int
+    kernels.check_tensors = spy(saved[0])
+    kpp_mod._check_int = spy(saved[1])
+    try:
+        call()
+    finally:
+        kernels.check_tensors, kpp_mod._check_int = saved
+    return (sum(b for b, _ in seen.values()),
+            max(n for _, n in seen.values()))
+
+
+def bound(name, call):
+    """(bound_ms, bound_by) of one call of the kernel at these shapes."""
+    nbytes, cells = moved_bytes(name, call)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = OPS_PER_CELL[name] * cells / PEAK_F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare(name, case, outs_k, outs_p, ms, plain_ms, results,
-            whole=False):
+            whole=False, call=None):
     """Hold a kernel's outputs against its twin's: on the interior, or on
-    every cell when whole (a VJP's halo cells carry cotangents too)."""
+    every cell when whole (a VJP's halo cells carry cotangents too). call
+    (the kernel path once) gives the kernel's bound."""
     from mitgcm_tpu_torch.utils.compare import interior, rel_err
 
     def cells(t):   # interior of a field; a 0-d dot product as it is
@@ -196,7 +280,13 @@ def compare(name, case, outs_k, outs_p, ms, plain_ms, results,
     if not rel <= tol:
         raise AssertionError(f"{name} disagrees with its plain twin at "
                              f"{case.label}: {rel:.3e} > {tol:g}")
-    results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None}
+    if call is not None:
+        results[name]["bound_ms"], results[name]["bound_by"] = bound(
+            name.split("(")[0], call)
+        print(f"{'':18s} bound {results[name]['bound_ms']:.4f} ms "
+              f"({results[name]['bound_by']})", flush=True)
 
 
 def kernel_phase(case, results, reps):
@@ -214,7 +304,8 @@ def kernel_phase(case, results, reps):
 
     compare("mom_fluxform", case, mom(None), mom("plain"),
             cuda_time_ms(lambda: mom(None), reps),
-            cuda_time_ms(lambda: mom("plain"), reps), results)
+            cuda_time_ms(lambda: mom("plain"), reps), results,
+            call=lambda: mom(None))
 
     def rhs(impl):
         return calc_rhs(cfg, g, case.flow, case.theta, case.kappaR,
@@ -222,7 +313,8 @@ def kernel_phase(case, results, reps):
 
     compare("gad_calc_rhs_c2", case, [rhs(None)], [rhs("plain")],
             cuda_time_ms(lambda: rhs(None), reps),
-            cuda_time_ms(lambda: rhs("plain"), reps), results)
+            cuda_time_ms(lambda: rhs("plain"), reps), results,
+            call=lambda: rhs(None))
 
     # kernel A, one call at a time, on the same inputs for both paths:
     # (make the output buffers, make one call on them)
@@ -252,7 +344,7 @@ def kernel_phase(case, results, reps):
             outs[impl] = [t.clone() for t in bufs]
             ms[impl] = cuda_time_ms(lambda: call(bufs, impl), reps * 5)
         compare(name, case, outs[None], outs["plain"], ms[None],
-                ms["plain"], results)
+                ms["plain"], results, call=lambda: call(make(), None))
 
     # the whole solve, kernel path against plain path
     b = case.y2 * g.maskInC
@@ -343,7 +435,8 @@ def full_phase(kernels):
             raise AssertionError(f"{name} has shape {tuple(field.shape)}")
         if not bool(torch.isfinite(field).all()):
             raise AssertionError(f"{name} is not finite after 6 steps")
-    missing = [k for k in KERNELS if k not in BACKWARD_KERNELS + VI_KERNELS
+    missing = [k for k in KERNELS
+               if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -385,7 +478,7 @@ def vjp_phase(case, results, reps):
     bars = [case.field(rng, shape, 1.0) * inner for _ in range(4)]
     k, p = timed_backward(mom_fwd, (case.u, case.v, case.w), bars)
     compare("mom_fluxform_adj", case, k(), p(), cuda_time_ms(k, reps),
-            cuda_time_ms(p, reps), results, whole=True)
+            cuda_time_ms(p, reps), results, whole=True, call=k)
 
     def rhs_fwd(impl, t, uT, vT, rT):
         flow = case.flow._replace(uTrans=uT, vTrans=vT, rTrans=rT,
@@ -397,7 +490,7 @@ def vjp_phase(case, results, reps):
     k, p = timed_backward(rhs_fwd, (case.theta, case.flow.uTrans,
                                     case.flow.vTrans, case.flow.rTrans), bar)
     compare("gad_calc_rhs_c2_adj", case, k(), p(), cuda_time_ms(k, reps),
-            cuda_time_ms(p, reps), results, whole=True)
+            cuda_time_ms(p, reps), results, whole=True, call=k)
 
 
 def adjoint_objective(n, nr, dtype, n_steps, box, k_range, deltaT=1200.0,
@@ -522,7 +615,8 @@ def vi_kernel_phase(case, results, reps):
 
     compare("mom_vecinv", case, mom(None), mom("plain"),
             cuda_time_ms(lambda: mom(None), reps),
-            cuda_time_ms(lambda: mom("plain"), reps), results)
+            cuda_time_ms(lambda: mom("plain"), reps), results,
+            call=lambda: mom(None))
 
     # T as the step runs it: a tracer at C points with its [nr] kappa, and
     # uStar at W points with kappaRU [nr+1]; the times are the tracer's
@@ -537,7 +631,7 @@ def vi_kernel_phase(case, results, reps):
         compare(name, case, [solve(None, *args)], [solve("plain", *args)],
                 cuda_time_ms(lambda: solve(None, *args), reps),
                 cuda_time_ms(lambda: solve("plain", *args), reps), results,
-                whole=True)
+                whole=True, call=lambda: solve(None, *args))
 
     mdjwf = dataclasses.replace(cfg, eosType="MDJWF", selectP_inEOS_Zc=2)
     for name, c in (("eos_find_rho", cfg), ("eos_find_rho(MDJWF)", mdjwf)):
@@ -547,7 +641,7 @@ def vi_kernel_phase(case, results, reps):
         compare(name, case, [rho(None)], [rho("plain")],
                 cuda_time_ms(lambda: rho(None), reps),
                 cuda_time_ms(lambda: rho("plain"), reps), results,
-                whole=True)
+                whole=True, call=lambda: rho(None))
 
 
 def vi_experiment(n, nr, dtype, impl=None, **kw):
@@ -663,6 +757,262 @@ def vi_phase(kernels, results):
     return launches
 
 
+class KppCase:
+    """The kpp-gyre's grid and KPP on the card, with seeded KPP.calc
+    arguments: its profiles with noise, random shear and totPhiHyd, the
+    wind stress and the heat fluxes of kpp_gyre_setup."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.model import thermodynamics as th
+        from mitgcm_tpu_torch.model.step import load_fields
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.kpp_gyre_config(nx=n, ny=n, nr=nr,
+                                             deltaT=600.0)
+        (self.grid, state, forcing, _,
+         self.kpp) = synthetic.kpp_gyre_setup(self.cfg, dtype=dtype,
+                                              device="cuda")
+        cfg, g = self.cfg, self.grid
+        rng = np.random.default_rng(SEED + 2)
+        shape = tuple(g.hFacC.shape)
+        prof = dict(dtype=dtype, device="cuda")
+        tref = torch.tensor(cfg.tRef, **prof)[:, None, None]
+        sref = torch.tensor(cfg.sRef, **prof)[:, None, None]
+        forc = load_fields(forcing)
+        sfT, sfS = th.surface_forcing_ts(cfg, g, state, forc)
+        self.args = (
+            self.field(rng, shape, 0.1) * g.maskW,
+            self.field(rng, shape, 0.1) * g.maskS,
+            (tref + self.field(rng, shape, 0.3)) * g.maskC,
+            (sref + self.field(rng, shape, 0.02)) * g.maskC,
+            self.field(rng, shape, 2.0),
+            forc.fu * cfg.mass2rUnit + self.field(rng, shape[1:], 1e-5),
+            self.field(rng, shape[1:], 1e-5), sfT, sfS, forc.Qsw)
+        self.kappa = th.tracer_kappa(cfg, g, cfg.diffKrT)
+        self.w = self.field(rng, shape, 1e-4) * g.maskC
+        self.df = self.field(rng, shape, 1e-3) * g.maskC
+
+    field = Case.field
+    label = Case.label
+
+
+def kpp_kernel_phase(case, results, reps):
+    """K-pre (kpp_pre, kpp_smooth) and K-col against their twins on whole
+    arrays (K computes its halo cells as the twins do), kbl identical; and
+    C with the nonlocal flux df, as the kpp-gyre runs it (implicit
+    vertical diffusion)."""
+    from mitgcm_tpu_torch.model import gad
+    from mitgcm_tpu_torch.model import kpp as kpp_mod
+
+    kpp, args = case.kpp, case.args
+    pre_names = ("dbraw", "dbloc", "ritop", "shsq", "dvsq", "ustar", "bo",
+                 "bosol")
+    col_names = ("viscAz", "diffKzT", "diffKzS", "ghat", "hbl", "frac")
+
+    def pre(kernel):
+        f = kpp_mod.kpp_pre if kernel else kpp_mod._kpp_pre_plain
+        return f(kpp, *args)
+
+    pk, pp = pre(True), pre(False)
+    compare("kpp_pre", case, [pk[n] for n in pre_names],
+            [pp[n] for n in pre_names],
+            cuda_time_ms(lambda: pre(True), reps),
+            cuda_time_ms(lambda: pre(False), reps), results, whole=True,
+            call=lambda: pre(True))
+
+    def smooth(kernel):
+        f = kpp_mod.kpp_smooth if kernel else kpp_mod._kpp_smooth_plain
+        return f(kpp, pp["dbraw"])
+
+    compare("kpp_smooth", case, [smooth(True)], [smooth(False)],
+            cuda_time_ms(lambda: smooth(True), reps),
+            cuda_time_ms(lambda: smooth(False), reps), results, whole=True,
+            call=lambda: smooth(True))
+    pp["dblocSm"] = smooth(False)
+
+    def col(kernel):
+        f = kpp_mod.kpp_col if kernel else kpp_mod._kpp_col_plain
+        return f(kpp, pp, case.kappa, case.kappa)
+
+    ck, cp = col(True), col(False)
+    compare("kpp_col", case, [ck[n] for n in col_names],
+            [cp[n] for n in col_names],
+            cuda_time_ms(lambda: col(True), reps),
+            cuda_time_ms(lambda: col(False), reps), results, whole=True,
+            call=lambda: col(True))
+    wet = case.grid.maskC[0] > 0
+    hbl = cp["hbl"][wet]
+    print(f"{'kpp_col':18s} {case.label:18s} kbl identical in "
+          f"{int((ck['kbl'] == cp['kbl']).sum())} of {ck['kbl'].numel()} "
+          f"columns; hbl {float(hbl.min()):.2f}-{float(hbl.max()):.2f} m, "
+          f"nonlocal flux in {int((cp['ghat'].abs().sum(0) > 0).sum())} "
+          f"columns", flush=True)
+    if not torch.equal(ck["kbl"], cp["kbl"]):
+        raise AssertionError("kpp_col: kbl differs from its twin's")
+
+    cfg, g = case.cfg, case.grid
+    flow = gad.calc_adv_flow(g, args[0], args[1], case.w)
+
+    def rhs(impl):
+        return gad.calc_rhs(cfg, g, flow, args[2], case.kappa, cfg.diffKhT,
+                            implicit_diffusion=True, impl=impl, df=case.df)
+
+    compare("gad_calc_rhs_c2(df)", case, [rhs(None)], [rhs("plain")],
+            cuda_time_ms(lambda: rhs(None), reps),
+            cuda_time_ms(lambda: rhs("plain"), reps), results)
+
+
+def kpp_experiment(n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.kpp_gyre_config(nx=n, ny=n, nr=nr, **kw)
+    return Experiment(cfg, *synthetic.kpp_gyre_setup(cfg, dtype=dtype,
+                                                     device="cuda"),
+                      impl=impl)
+
+
+def kpp_parity_phase():
+    from mitgcm_tpu_torch.utils.compare import record_digits
+
+    runs = {impl: kpp_experiment(64, 12, torch.float64, impl).run(
+        n_steps=10) for impl in (None, "plain")}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        key = min(dig, key=dig.get)
+        worst = min(worst, dig[key])
+        print(f"kpp step {rk['iter']:2d}: cg2d iters {rk['cg2d_iters']} / "
+              f"{rp['cg2d_iters']}, init res {rk['cg2d_init_res']:.10e}, "
+              f"fewest digits {dig[key]:.2f} ({key})", flush=True)
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError("kpp-gyre cg2d iteration counts differ")
+    if not worst >= PARITY_DIGITS:
+        raise AssertionError(f"kpp-gyre parity {worst:.2f} < "
+                             f"{PARITY_DIGITS} digits")
+    print(f"kpp-gyre parity: fewest matching digits {worst:.2f}")
+
+
+def kpp_restart_phase():
+    """tools/do_tst_2+2 on the card: 4 steps against 2 + pickup + 2."""
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import read_pickup, write_pickup
+
+    e4 = kpp_experiment(64, 12, torch.float64)
+    e4.run(n_steps=4, collect_monitor=False)
+    e2 = kpp_experiment(64, 12, torch.float64)
+    e2.run(n_steps=2, collect_monitor=False)
+    e22 = kpp_experiment(64, 12, torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_pickup(e2, tmp, 2)
+        read_pickup(e22, tmp, 2)
+    e22.run(n_steps=2, collect_monitor=False)
+    ol = e4.cfg.olx
+    names = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1",
+             "guNm2", "gtNm1", "gtNm2", "gsNm2")
+    differ = [n for n in names
+              if not torch.equal(getattr(e4.state, n)[..., ol:-ol, ol:-ol],
+                                 getattr(e22.state, n)[..., ol:-ol, ol:-ol])]
+    print(f"2+2 restart of the kpp-gyre on the kernel path, 64x64x12 "
+          f"float64: {len(names) - len(differ)} of {len(names)} fields "
+          f"bit-equal", flush=True)
+    if differ:
+        raise AssertionError(f"kpp-gyre restart differs in {differ}")
+
+
+def kpp_full_phase(kernels, smi):
+    from mitgcm_tpu_torch.model import kpp as kpp_mod
+
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = kpp_experiment(n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    state0 = exp.state
+    points = n * n * nr
+
+    def run(state, it0, steps, impl):
+        exp.state, exp.cur_iter, exp.impl = state, it0, impl
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, [r["cg2d_iters"] for r in recs], \
+            time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, iters_w, sec_w = run(state0, 0, 1, None)
+    kernels.launches.clear()
+    plain0 = kpp_mod.plain_calls
+    state, iters, sec = run(state1, 1, 5, None)
+    launches = dict(kernels.launches)
+    plain = kpp_mod.plain_calls - plain0
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
+          f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; plain KPP calls {plain}; launches {launches}", flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"kpp-gyre {name} is not finite")
+    wrong = {k: launches.get(k, 0) for k, want in KPP_LAUNCHES.items()
+             if launches.get(k, 0) != want}
+    if wrong or plain:
+        raise AssertionError(f"kpp-gyre launch counts {wrong} (want "
+                             f"{KPP_LAUNCHES}), plain KPP calls {plain}")
+    profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
+    _, iters_p, sec_p = run(state1, 1, 2, "plain")
+    print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
+          f"{points * 2 / sec_p:.4e} points*steps/s, cg2d iterations "
+          f"{iters_p}", flush=True)
+    return launches
+
+
+def profile_steps(exp, state, it0, steps, wall_ms):
+    """Where the kernel path's device time goes: torch.profiler over
+    `steps` steps, the device time of each kernel per step (largest
+    first), the device's busy time per step, and its idle share against
+    wall_ms, the unprofiled ms/step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    exp.state, exp.cur_iter, exp.impl = state, it0, None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():   # the kernels, not the ops launching them
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / steps
+        if ms > 0.0:
+            rows.append((ms, e.count / steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profile, {steps} steps: device busy {busy:.2f} ms/step; idle "
+          f"share {1.0 - busy / wall_ms:.3f} of the unprofiled "
+          f"{wall_ms:.2f} ms/step", flush=True)
+    for ms, count, key in rows[:16]:
+        print(f"  {ms:8.3f} ms/step {count:6.1f} calls/step  {key[:70]}")
+
+
+def kpp_phase(kernels, results, smi):
+    phase("8 kpp-gyre")
+    kpp_kernel_phase(KppCase(64, 12, torch.float64), results, reps=20)
+    kpp_kernel_phase(KppCase(1024, 32, torch.float32), results, reps=10)
+    torch.cuda.empty_cache()
+    kpp_parity_phase()
+    kpp_restart_phase()
+    launches = kpp_full_phase(kernels, smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, ROOT)
@@ -689,12 +1039,19 @@ def main():
     vi_launches = vi_phase(kernels, results)
     for name in VI_KERNELS:
         launches[name] = vi_launches[name]
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    kpp_launches = kpp_phase(kernels, results, smi)
+    for name in KPP_KERNELS:
+        launches[name] = kpp_launches[name]
+    jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
+    if jax_pkg:
+        raise AssertionError(f"the port imported {jax_pkg}")
 
     summary = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
-                **results[name]}
+                **{k: results[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}}
                for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -14,9 +14,11 @@ hand-written CUDA kernels under `kernels/csrc/`, each with a plain
 PyTorch twin beside its wrapper. A wrapper runs the twin for CPU tensors
 and the kernel for CUDA tensors; it never falls back.
 
-The only things taken from the JAX package are its JAX-free host config
-(`mitgcm_tpu.core.config.Config`) and MDS file I/O (`mitgcm_tpu.io.mds`,
-numpy only) for pickups. This package never imports jax.
+The package imports neither jax nor anything of the JAX package: it keeps
+its own copies of the JAX-free host modules it needs (`core/config.py`,
+`core/nml.py`, `io/mds.py`). Its entry points (`utils/synthetic.py`'s
+set-ups, `core/grid.py:build_grid`, `utils/convert.py`) put their tensors on
+the CUDA device unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

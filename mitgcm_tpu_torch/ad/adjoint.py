@@ -18,7 +18,7 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import step as step_mod
@@ -27,15 +27,16 @@ from mitgcm_tpu_torch.model import step as step_mod
 def check_adjoint_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the options whose kernels have no
     backward kernel yet (V: vector-invariant momentum, T: implicit
-    vertical mixing, R: the nonlinear EOS), and for AB-3, whose gradient
-    is not yet held against the JAX adjoint: the adjoint runs the gyre of
-    the forward path's first slice only."""
+    vertical mixing, R: the nonlinear EOS, K: KPP), and for AB-3, whose
+    gradient is not yet held against the JAX adjoint: the adjoint runs the
+    gyre of the forward path's first slice only."""
     off = {
         "vectorInvariantMomentum": cfg.vectorInvariantMomentum,
         "implicitDiffusion": cfg.implicitDiffusion,
         "implicitViscosity": cfg.implicitViscosity,
         f"eosType={cfg.eosType}": cfg.eosType.upper() != "LINEAR",
         "useAB3": cfg.useAB3,
+        "useKPP": cfg.useKPP,
     }
     bad = [name for name, is_off in off.items() if is_off]
     if bad:

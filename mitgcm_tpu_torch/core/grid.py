@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 
 
 @dataclass(frozen=True)
@@ -116,7 +116,7 @@ def _hfac_column(rlow, rsurf, rF, drF, recip_drF, hFacMin, hFacMinDr):
 
 def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
                dtype: torch.dtype = torch.float64,
-               device="cpu") -> Grid:
+               device="cuda") -> Grid:
     """Cartesian z-coordinate grid. bathy: [ny, nx] bottom depths (negative
     r); a flat bottom at rF[nr] when None."""
     if not cfg.usingCartesianGrid or cfg.usingPCoords:

@@ -7,7 +7,7 @@ from typing import Dict
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import State
 from mitgcm_tpu_torch.ops.stencil import interior_mask, shift as sh

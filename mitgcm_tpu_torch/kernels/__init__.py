@@ -42,6 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_PD = ctypes.POINTER(ctypes.c_double)
 
 # argument types of each kernel's C entry point (the stream comes last)
 SIGNATURES = {
@@ -57,8 +58,8 @@ SIGNATURES = {
     # sideDragFactor, rkSign; stream
     "mom_fluxform": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx; diffKh, rkSign;
-    # implicit_diffusion; stream
-    "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # implicit_diffusion; df (the extra vertical flux, or null); stream
+    "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _P, _P],
     # the backward kernels take the arguments of their forward kernels
     # (C' without the implicit_diffusion flag)
     "mom_fluxform_adj": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
@@ -73,6 +74,14 @@ SIGNATURES = {
     # theta, salt, totPhiHyd, profile, rho; nr, nyp * nxp, eos kind,
     # use totPhiHyd; rhoConst, dp0, pressure scale; stream
     "eos_find_rho": [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P],
+    # pointer table, its length; parameter array, its length; nr, nyp, nxp,
+    # eos kind, use totPhiHyd, KPP_SMOOTH_SHSQ; stream
+    "kpp_pre": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
+    # dbraw, maskC, kmtj, out; nr, nyp, nxp; stream
+    "kpp_smooth": [_P] * 4 + [_I] * 3 + [_P],
+    # pointer table, its length; parameter array, its length; nr, nyp, nxp,
+    # LimitHblStable; stream
+    "kpp_col": [_PP, _I, _PD, _I] + [_I] * 4 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -4,7 +4,8 @@
 // Replaces: mitgcm_tpu/model/gad.py:calc_rhs (:1038-1117) with the
 // scheme-2 fluxes adv_flux_x/y/r (:846-847, :881-882, :932-933 and the
 // surface zero at :1021) and diff_flux_r (:1025-1031), the latter left out
-// under implicit_diffusion (:1093-1094): the flux divergence minus
+// under implicit_diffusion (:1093-1094), plus an optional extra vertical
+// flux df (the KPP nonlocal flux, :1099-1101): the flux divergence minus
 // tracer * divTrans. XLA fused it into a few sweeps on the TPU.
 //
 // Bound: bytes. Per cell it reads 10 3-D fields (the transports and areas
@@ -28,13 +29,15 @@ namespace mitgcm {
 template <typename T>
 __global__ void calc_rhs_c2_kernel(const GadArgs<T> a, int nr, int ny,
                                    int nx, int oly, int olx, T diffKh,
-                                   T rkSign, bool implicitDiffusion) {
+                                   T rkSign, bool implicitDiffusion,
+                                   const T* df) {
   const int nyp = ny + 2 * oly, nxp = nx + 2 * olx;
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   const int k = blockIdx.z;
   if (i >= nxp || j >= nyp) return;
-  const GadCell<T> c{a, nr, nyp, nxp, diffKh, rkSign, implicitDiffusion};
+  const GadCell<T> c{a,      nr,     nyp, nxp, diffKh,
+                     rkSign, implicitDiffusion, df};
   const size_t p = c.i3(k, j, i);
   if (i < olx || i >= olx + nx || j < oly || j >= oly + ny) {
     a.gTr[p] = T(0);
@@ -57,7 +60,7 @@ __global__ void calc_rhs_c2_kernel(const GadArgs<T> a, int nr, int ny,
 template <typename T>
 int launch_calc_rhs(const void* const* table, int n, int nr, int ny, int nx,
                     int oly, int olx, double diffKh, double rkSign,
-                    int implicitDiffusion, void* stream) {
+                    int implicitDiffusion, const void* df, void* stream) {
   static_assert(sizeof(GadArgs<T>) == kGadNumPointers * sizeof(void*),
                 "GadArgs must be a plain table of pointers");
   if (n != kGadNumPointers) return (int)cudaErrorInvalidValue;
@@ -66,7 +69,8 @@ int launch_calc_rhs(const void* const* table, int n, int nr, int ny, int nx,
   const dim3 g((nx + 2 * olx + BX - 1) / BX, (ny + 2 * oly + BY - 1) / BY,
                nr);
   calc_rhs_c2_kernel<T><<<g, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      a, nr, ny, nx, oly, olx, T(diffKh), T(rkSign), implicitDiffusion != 0);
+      a, nr, ny, nx, oly, olx, T(diffKh), T(rkSign), implicitDiffusion != 0,
+      (const T*)df);
   return (int)cudaGetLastError();
 }
 
@@ -77,10 +81,10 @@ extern "C" int mitgcm_gad_calc_rhs_c2_f32(const void* const* table, int n,
                                           int olx, double diffKh,
                                           double rkSign,
                                           int implicitDiffusion,
-                                          void* stream) {
+                                          const void* df, void* stream) {
   return mitgcm::launch_calc_rhs<float>(table, n, nr, ny, nx, oly, olx,
                                         diffKh, rkSign, implicitDiffusion,
-                                        stream);
+                                        df, stream);
 }
 
 extern "C" int mitgcm_gad_calc_rhs_c2_f64(const void* const* table, int n,
@@ -88,8 +92,8 @@ extern "C" int mitgcm_gad_calc_rhs_c2_f64(const void* const* table, int n,
                                           int olx, double diffKh,
                                           double rkSign,
                                           int implicitDiffusion,
-                                          void* stream) {
+                                          const void* df, void* stream) {
   return mitgcm::launch_calc_rhs<double>(table, n, nr, ny, nx, oly, olx,
                                          diffKh, rkSign, implicitDiffusion,
-                                         stream);
+                                         df, stream);
 }

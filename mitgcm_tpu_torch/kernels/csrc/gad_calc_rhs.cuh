@@ -28,6 +28,9 @@ struct GadCell {
   // implicitDiffusion: the implicit solve (impldiff.cu) takes the place of
   // the explicit vertical diffusive flux, which is left out
   bool implicitDiffusion;
+  // an extra vertical flux added at every interface (the KPP nonlocal
+  // flux, gad.py:1099-1101), or null
+  const T* df;
 
   __device__ size_t i3(int k, int j, int i) const {
     return (static_cast<size_t>(k) * nyp + j) * nxp + i;
@@ -50,19 +53,21 @@ struct GadCell {
     return a.vTrans[p] * T(0.5) * (t + tm1) -
            diffKh * a.yA[p] * a.recip_dyC[i2(j, i)] * (t - tm1);
   }
-  // vertical flux at the upper face (interface k); zero at the surface
-  // and below the bottom
+  // vertical flux at the upper face (interface k); zero below the bottom,
+  // and at the surface but for df
   __device__ T fVer(int k, int j, int i) const {
-    if (k <= 0 || k >= nr) return T(0);
+    if (k >= nr) return T(0);
     const size_t p = i3(k, j, i);
+    if (k == 0) return df ? df[p] : T(0);
     const size_t pm = p - static_cast<size_t>(nyp) * nxp;
     const T t = a.tracer[p], tkm1 = a.tracer[pm];
     const T adv = a.maskC[pm] * a.rTrans[p] * T(0.5) * (t + tkm1) *
                   a.maskInC[i2(j, i)];
-    if (implicitDiffusion) return adv;
-    const T dif = -a.kappaR[p] * a.maskUp[p] * a.rA[i2(j, i)] *
-                  a.recip_drC[k] * (t - tkm1) * rkSign;
-    return adv + dif;
+    T f = adv;
+    if (!implicitDiffusion)
+      f = f + -a.kappaR[p] * a.maskUp[p] * a.rA[i2(j, i)] * a.recip_drC[k] *
+                  (t - tkm1) * rkSign;
+    return df ? f + df[p] : f;
   }
 };
 

@@ -14,12 +14,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mitgcm_tpu.core.config import Config
-from mitgcm_tpu.io import mds
+from mitgcm_tpu_torch.core.config import Config
+from mitgcm_tpu_torch.io import mds
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.diag import monitor
 from mitgcm_tpu_torch.model import step as step_mod
+from mitgcm_tpu_torch.model.kpp import KPP
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
 
@@ -31,6 +32,7 @@ class Experiment:
     state: State
     forcing: Forcing
     op: CG2DOperator
+    kpp: Optional[KPP] = None      # model/kpp.py:KPP when useKPP
     impl: Optional[str] = None     # "plain": kernel twins on any device
     cur_iter: Optional[int] = None
 
@@ -52,7 +54,7 @@ class Experiment:
         for _ in range(n):
             self.state, diag = step_mod.forward_step(
                 cfg, self.grid, self.op, self.state, self.forcing,
-                self.cur_iter, impl=self.impl)
+                self.cur_iter, impl=self.impl, kpp=self.kpp)
             self.cur_iter += 1
             rec = {"iter": self.cur_iter,
                    "cg2d_init_res": float(diag.cg2d_init_res),
@@ -70,7 +72,8 @@ class Experiment:
 # MDS multi-record float64 file with a .meta fldList; the JAX package's
 # extra Wvel and PmEpR records make a restart bit-exact without
 # recomputing w. No companion pickup is written or read: every package
-# that has one is refused by step.check_supported.
+# that has one is refused by step.check_supported (KPP keeps no state from
+# step to step, so it has none).
 # ----------------------------------------------------------------------
 
 _PICKUP_3D = ["Uvel", "Vvel", "Theta", "Salt",
@@ -100,7 +103,7 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
     and order (float64 at any working precision, so a float32 round trip
     is exact); returns the file root."""
     cfg, st = exp.cfg, exp.state
-    step_mod.check_supported(cfg)
+    step_mod.check_supported(cfg, exp.kpp)
     flds3d = _PICKUP_3D + (_PICKUP_AB3 if cfg.useAB3 else []) + ["Wvel"]
     flds2d = _PICKUP_2D + ["PmEpR"]
     recs = [_interior(cfg, getattr(st, _FIELD[n])) for n in flds3d]
@@ -122,7 +125,7 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     (initialise_varia.F); one without the *Nm2 records leaves them zero,
     as the reference does after its warning."""
     cfg = exp.cfg
-    step_mod.check_supported(cfg)
+    step_mod.check_supported(cfg, exp.kpp)
     fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
                                   itr=myIter)
     stack = fields["__records__"]

@@ -8,8 +8,9 @@ PyTorch twin `_calc_rhs_plain`, differentiated by autograd, for CPU
 tensors or when impl="plain" is asked for. The kernel writes zero halo
 cells; both agree on the interior. With implicit_diffusion the explicit
 vertical diffusive flux is left out (the implicit solve,
-thermodynamics.impldiff, takes its place); kernel C' has no such branch,
-so that variant refuses gradients.
+thermodynamics.impldiff, takes its place). An extra vertical flux `df`
+(KPP's nonlocal flux) is added to fVer before the divergence. Kernel C' has
+neither branch, so those variants refuse gradients.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.ops.stencil import shift as sh
@@ -95,9 +96,9 @@ def _kernel_inputs(grid: Grid, tracer, uTrans, vTrans, rTrans, xA, yA,
 
 def _launch(kernel: str, cfg: Config, ins: dict, last, outs: dict,
             diffKh: float, *flags: int) -> None:
-    """Check and launch kernel C (last = gTr, flags = (implicit_diffusion,))
-    or C' (last = the cotangent of gTr, outs = the four input
-    cotangents)."""
+    """Check and launch kernel C (last = gTr, flags = (implicit_diffusion,
+    the pointer of df or 0)) or C' (last = the cotangent of gTr, outs = the
+    four input cotangents)."""
     tracer = ins["tracer"]
     nr, nyp, nxp = tracer.shape
     kernels.check_tensors(tracer.dtype, **ins, last=last, **outs)
@@ -122,11 +123,15 @@ class CalcRhsFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR,
                 cfg: Config, grid: Grid, diffKh: float,
-                implicit_diffusion: bool):
+                implicit_diffusion: bool, df=None):
         args = (tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR)
         gTr = torch.empty_like(tracer)
-        _launch("gad_calc_rhs_c2", cfg, _kernel_inputs(grid, *args), gTr, {},
-                diffKh, int(implicit_diffusion))
+        if df is not None:
+            kernels.check_tensors(tracer.dtype, df=df)
+            kernels.check_shape("df", df, tracer.shape)
+        _launch("gad_calc_rhs_c2", cfg, _kernel_inputs(grid, *args), gTr,
+                {}, diffKh, int(implicit_diffusion),
+                df.data_ptr() if df is not None else 0)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(*args)
             ctx.cfg, ctx.grid, ctx.diffKh = cfg, grid, diffKh
@@ -138,31 +143,35 @@ class CalcRhsFn(torch.autograd.Function):
         outs = {n + "_bar": torch.empty_like(ins[n]) for n in _DIFFERENTIABLE}
         _launch("gad_calc_rhs_c2_adj", ctx.cfg, ins, gTr_bar.contiguous(),
                 outs, ctx.diffKh)
-        return (*outs.values(),) + (None,) * 8
+        return (*outs.values(),) + (None,) * 9
 
 
 def calc_rhs(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
              diffKh: float, implicit_diffusion: bool = False,
-             impl: str = None) -> torch.Tensor:
+             impl: str = None, df=None) -> torch.Tensor:
     """gad_calc_rhs.F: explicit tendency of one tracer at all levels.
-    kappaR: [nr, nyp, nxp] interface diffusivities. Differentiable in the
-    tracer and in flow's transports; raises if a constant (xA, yA, maskUp,
-    kappaR, the grid) requires grad, since the kernel gives it none, and
-    with implicit_diffusion if anything does."""
+    kappaR: [nr, nyp, nxp] interface diffusivities; df: an extra vertical
+    flux [nr, nyp, nxp] at the interfaces (KPP's nonlocal flux) or None.
+    Differentiable in the tracer and in flow's transports; raises if a
+    constant (xA, yA, maskUp, kappaR, df, the grid) requires grad, since
+    the kernel gives it none, and with implicit_diffusion or df if anything
+    does."""
     args = (tracer, flow.uTrans, flow.vTrans, flow.rTrans, flow.xA, flow.yA,
             flow.maskUp, kappaR)
-    grads = [n for n, t in _kernel_inputs(grid, *args).items()
-             if t.requires_grad]
+    ins = _kernel_inputs(grid, *args)
+    if df is not None:
+        ins["df"] = df
+    grads = [n for n, t in ins.items() if t.requires_grad]
     const = [n for n in grads if n not in _DIFFERENTIABLE]
     if const:
         raise ValueError(f"calc_rhs: constants {const} require grad")
-    if grads and implicit_diffusion:
+    if grads and (implicit_diffusion or df is not None):
         raise ValueError(f"calc_rhs: {grads} require grad; kernel C' has no "
-                         "implicit_diffusion branch")
+                         "implicit_diffusion or df branch")
     if not kernels.use_kernel(tracer, impl):
         return _calc_rhs_plain(cfg, grid, flow, tracer, kappaR, diffKh,
-                               implicit_diffusion)
-    return CalcRhsFn.apply(*args, cfg, grid, diffKh, implicit_diffusion)
+                               implicit_diffusion, df)
+    return CalcRhsFn.apply(*args, cfg, grid, diffKh, implicit_diffusion, df)
 
 
 def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
@@ -181,10 +190,10 @@ def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
 
 
 def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
-                    diffKh: float, implicit_diffusion: bool = False
-                    ) -> torch.Tensor:
-    """gad.py:calc_rhs (:1038-1117) without GM, KPP or biharmonic terms,
-    in its operation order."""
+                    diffKh: float, implicit_diffusion: bool = False,
+                    df=None) -> torch.Tensor:
+    """gad.py:calc_rhs (:1038-1117) without GM or biharmonic terms, in its
+    operation order."""
     fZon = adv_flux_x(flow.uTrans, tracer)
     fMer = adv_flux_y(flow.vTrans, tracer)
     fZon = fZon - (diffKh * flow.xA * grid.recip_dxC
@@ -194,6 +203,8 @@ def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
     fVer = adv_flux_r(grid, flow.rTrans, tracer) * grid.maskInC
     if not implicit_diffusion:
         fVer = fVer + diff_flux_r(cfg, grid, kappaR, flow.maskUp, tracer)
+    if df is not None:
+        fVer = fVer + df
     fVerKp = torch.cat([fVer[1:], torch.zeros_like(fVer[:1])])
     divTrans = ((sh(flow.uTrans, di=1) - flow.uTrans)
                 + (sh(flow.vTrans, dj=1) - flow.vTrans)

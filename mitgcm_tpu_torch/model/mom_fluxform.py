@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.ops.stencil import shift as sh

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.model.mom_fluxform import (MomTend, calc_hfacz, calc_ke,

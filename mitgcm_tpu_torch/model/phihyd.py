@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.ops.stencil import shift as sh
 

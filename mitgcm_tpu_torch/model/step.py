@@ -5,10 +5,12 @@ the ported paths of the wind-driven gyre:
   SOLVE_FOR_PRESSURE (cg2d) -> MOMENTUM_CORRECTION_STEP -> fill u,v ->
   INTEGR_CONTINUITY -> fill
 
-Two paths go through it: the gyre (flux-form momentum, linear EOS, AB-2,
-explicit vertical mixing) and the vi-gyre (vector-invariant momentum, a
-JMD95 or MDJWF EOS, AB-3, implicit vertical viscosity and diffusion),
-and any mix of those options. `check_supported` raises for every
+Three paths go through it: the gyre (flux-form momentum, linear EOS, AB-2,
+explicit vertical mixing), the vi-gyre (vector-invariant momentum, a
+JMD95 or MDJWF EOS, AB-3, implicit vertical viscosity and diffusion) and
+the kpp-gyre (the vi-gyre with KPP boundary-layer mixing, run on the
+start-of-step state before THERMODYNAMICS), and any mix of those options.
+`check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
 kernels on CUDA tensors and the plain PyTorch twins on CPU tensors;
@@ -22,9 +24,10 @@ from typing import Tuple
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
+from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model import thermodynamics as thermo_mod
 from mitgcm_tpu_torch.model.mom_fluxform import check_branches, mom_fluxform
 from mitgcm_tpu_torch.model.mom_vecinv import check_branches_vecinv, mom_vecinv
@@ -43,19 +46,21 @@ class StepDiag:
     cg2d_host_syncs: int
 
 
-_PACKAGES = ("useKPP", "useGGL90", "usePP81", "useMY82", "useOPPS",
+_PACKAGES = ("useGGL90", "usePP81", "useMY82", "useOPPS",
              "useSEAICE", "useEXF", "useOBCS", "usePTRACERS", "useRBCS",
              "useAIM", "useLand", "useThSIce", "useZONAL_FILT", "useOffLine",
              "useGCHEM", "useGMRedi", "useSHAP_FILT")
 
 
-def check_supported(cfg: Config) -> None:
+def check_supported(cfg: Config, kpp=None) -> None:
     """Raise NotImplementedError unless cfg stays on the ported paths
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
     free surface solved by cg2d, scheme-2 tracers, explicit or implicit
-    vertical diffusion)."""
+    vertical diffusion, KPP given as a model/kpp.py:KPP object without the
+    options that check_kpp refuses)."""
     off = {
+        "useKPP without a KPP object": cfg.useKPP and kpp is None,
         "staggerTimeStep": cfg.staggerTimeStep,
         "nonlinFreeSurf>0": cfg.nonlinFreeSurf > 0,
         "exactConserv": cfg.exactConserv,
@@ -105,6 +110,8 @@ def check_supported(cfg: Config) -> None:
     if bad:
         raise NotImplementedError(
             f"not on the ported paths: {', '.join(bad)}")
+    if kpp is not None:
+        kpp_mod.check_kpp(kpp)
     if cfg.vectorInvariantMomentum:
         check_branches_vecinv(cfg)
     else:
@@ -164,13 +171,18 @@ def apply_forcing_uv(cfg: Config, grid: Grid, forcing: Forcing):
 
 
 def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
-             rhoInSitu, myIter: int, impl: str = None):
+             rhoInSitu, myIter: int, impl: str = None, kpp_fields=None):
     """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', guNm2',
-    gvNm2', totPhiHyd)."""
+    gvNm2', totPhiHyd). kpp_fields: KPP.calc's output, whose viscosity is
+    blended into kappaRU/RV (calc_viscosity.F), or None."""
     u, v, w = state.uVel, state.vVel, state.wVel
-    kshape = (cfg.nr + 1,) + tuple(u.shape[1:])
+    nr = cfg.nr
+    kshape = (nr + 1,) + tuple(u.shape[1:])
     kappaRU = torch.full(kshape, cfg.viscAr, dtype=u.dtype, device=u.device)
     kappaRV = torch.full(kshape, cfg.viscAr, dtype=u.dtype, device=u.device)
+    if kpp_fields is not None:
+        kappaRU[:nr], kappaRV[:nr] = kpp_mod.visc_uv(
+            cfg, grid, kpp_fields, kappaRU[:nr], kappaRV[:nr])
     _, dPhiHydX, dPhiHydY, totPhiHyd = calc_phi_hyd(cfg, grid, rhoInSitu)
     momentum = mom_vecinv if cfg.vectorInvariantMomentum else mom_fluxform
     tend = momentum(cfg, grid, u, v, w, kappaRU, kappaRV, impl=impl)
@@ -252,10 +264,11 @@ def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR):
 
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,
-                 forcing: Forcing, myIter: int, impl: str = None
+                 forcing: Forcing, myIter: int, impl: str = None, kpp=None
                  ) -> Tuple[State, StepDiag]:
-    """One timestep; myIter is the start-of-step iteration number."""
-    check_supported(cfg)
+    """One timestep; myIter is the start-of-step iteration number; kpp: a
+    model/kpp.py:KPP object when useKPP."""
+    check_supported(cfg, kpp)
 
     def fill(a):
         return cyclic_fill_halo(a, cfg.oly, cfg.olx)
@@ -265,10 +278,22 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     rhoInSitu = eos.find_rho(cfg, grid, state.theta, state.salt,
                              totPhiHyd=state.totPhiHyd,
                              impl=impl) * grid.maskC
+    # KPP on the start-of-step state with this step's surface forcing
+    # (do_oceanic_phys.F KPP_CALC; step.py:940-955 of the JAX package)
+    kpp_fields = None
+    if kpp is not None:
+        sfT, sfS = thermo_mod.surface_forcing_ts(cfg, grid, state, forc)
+        kpp_fields = kpp.calc(
+            state.uVel, state.vVel, state.theta, state.salt,
+            state.totPhiHyd, forc.fu * cfg.mass2rUnit,
+            forc.fv * cfg.mass2rUnit, sfT, sfS, forc.Qsw,
+            thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrT),
+            thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrS), impl=impl)
     theta, salt, gtNm1, gsNm1, gtNm2, gsNm2 = thermo_mod.thermodynamics(
-        cfg, grid, state, forc, myIter, impl=impl)
+        cfg, grid, state, forc, myIter, impl=impl, kpp_fields=kpp_fields)
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd = dynamics(
-        cfg, grid, state, forc, rhoInSitu, myIter, impl=impl)
+        cfg, grid, state, forc, rhoInSitu, myIter, impl=impl,
+        kpp_fields=kpp_fields)
     uStar, vStar = fill(uStar), fill(vStar)
     etaN, diag = solve_for_pressure(cfg, grid, op, state, uStar, vStar,
                                     impl=impl)

@@ -1,7 +1,9 @@
 """Tracer thermodynamics (mitgcm_tpu/model/thermodynamics.py): explicit
 advection-diffusion step of theta (and salt when stepped) with AB-2 or
 AB-3 on the tendency and the surface forcing inside the AB extrapolation,
-then, with implicitDiffusion, the implicit vertical diffusion.
+then, with implicitDiffusion, the implicit vertical diffusion. With KPP
+(model/kpp.py) its diffusivities take the place of the background profile
+and its nonlocal flux joins the vertical flux.
 
 `impldiff` (the tridiagonal column solve, also used for implicit vertical
 viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for
@@ -14,11 +16,12 @@ from __future__ import annotations
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import gad
+from mitgcm_tpu_torch.model.kpp import ghat_flux
 
 
 def _impldiff_plain(cfg: Config, grid: Grid, field, kappaR, recip_hFac,
@@ -127,12 +130,14 @@ def tracer_kappa(cfg: Config, grid: Grid, diffKr: float) -> torch.Tensor:
 
 def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
                      gNm1, gNm2, kappaR, sfc_forc, diffKh: float,
-                     myIter: int, impl: str = None):
-    """temp_integrate.F for one tracer: (tracer', gNm1', gNm2')."""
+                     myIter: int, impl: str = None, df=None):
+    """temp_integrate.F for one tracer: (tracer', gNm1', gNm2'); df: an
+    extra vertical flux for gad.calc_rhs (KPP's nonlocal flux) or None."""
     from mitgcm_tpu_torch.model.step import adams_bashforth
 
     gTr = gad.calc_rhs(cfg, grid, flow, tracer, kappaR, diffKh,
-                       implicit_diffusion=cfg.implicitDiffusion, impl=impl)
+                       implicit_diffusion=cfg.implicitDiffusion, impl=impl,
+                       df=df)
     ks = cfg.ksurf0
     gForc = torch.zeros_like(tracer)
     gForc[ks] = sfc_forc * grid.recip_drF[ks] * grid.recip_hFacC[ks]
@@ -147,9 +152,10 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
 
 
 def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
-                   myIter: int, impl: str = None):
+                   myIter: int, impl: str = None, kpp_fields=None):
     """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2,
-    gsNm2)."""
+    gsNm2). kpp_fields: KPP.calc's output, or None without KPP
+    (thermodynamics.py:470-496, 524-533 of the JAX package)."""
     theta, salt = state.theta, state.salt
     gtNm1, gsNm1 = state.gtNm1, state.gsNm1
     gtNm2, gsNm2 = state.gtNm2, state.gsNm2
@@ -157,14 +163,26 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
         return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2
     flow = gad.calc_adv_flow(grid, state.uVel, state.vVel, state.wVel)
     sfT, sfS = surface_forcing_ts(cfg, grid, state, forcing)
+    dfT = dfS = None
+    if kpp_fields is None:
+        kapT = tracer_kappa(cfg, grid, cfg.diffKrT)
+        kapS = tracer_kappa(cfg, grid, cfg.diffKrS)
+    else:
+        # KPP's diffusivities (kpp_calc_diff_t/s.F) and nonlocal flux
+        kapT, kapS = kpp_fields["diffKzT"], kpp_fields["diffKzS"]
+        recip_Cp = 1.0 / cfg.HeatCapacity_Cp
+        qswT = (-forcing.Qsw * recip_Cp * (1.0 / cfg.rhoConst)
+                * (1.0 - kpp_fields["frac"]))
+        dfT = ghat_flux(cfg, grid, kapT, kpp_fields["ghat"], sfT, qswT,
+                        flow.maskUp)
+        dfS = ghat_flux(cfg, grid, kapS, kpp_fields["ghat"], sfS, 0.0 * sfS,
+                        flow.maskUp)
     if cfg.tempStepping:
         theta, gtNm1, gtNm2 = tracer_integrate(
-            cfg, grid, flow, theta, gtNm1, gtNm2,
-            tracer_kappa(cfg, grid, cfg.diffKrT), sfT, cfg.diffKhT, myIter,
-            impl=impl)
+            cfg, grid, flow, theta, gtNm1, gtNm2, kapT, sfT, cfg.diffKhT,
+            myIter, impl=impl, df=dfT)
     if cfg.saltStepping:
         salt, gsNm1, gsNm2 = tracer_integrate(
-            cfg, grid, flow, salt, gsNm1, gsNm2,
-            tracer_kappa(cfg, grid, cfg.diffKrS), sfS, cfg.diffKhS, myIter,
-            impl=impl)
+            cfg, grid, flow, salt, gsNm1, gsNm2, kapS, sfS, cfg.diffKhS,
+            myIter, impl=impl, df=dfS)
     return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 
@@ -143,6 +143,109 @@ def _find_rho_nonlinear_plain(cfg: Config, theta, salt, profile,
     s1 = torch.clamp_min(salt, 0.0)
     return (_mdjwf_num(theta, s1, p) * _mdjwf_den(theta, salt, p)
             - cfg.rhoConst)
+
+
+def pressure_for_eos(cfg: Config, grid: Grid, totPhiHyd):
+    """pressure_for_eos.F in z-coordinates, in Pa (ops/eos.py:72-86):
+    from totPhiHyd when selectP_inEOS_Zc = 2, else the static reference
+    profile [nr, 1, 1]."""
+    rc = grid.rC[:, None, None]
+    dp0 = cfg.surf_pRef - cfg.eosRefP0
+    if cfg.selectP_inEOS_Zc == 2 and totPhiHyd is not None:
+        phiRef2k = (rc - grid.rF[0]) * cfg.gravity * cfg.gravitySign
+        return cfg.rhoConst * (totPhiHyd + phiRef2k) + dp0
+    return -cfg.rhoConst * rc * cfg.gravity + dp0
+
+
+def find_alpha(cfg: Config, grid: Grid, theta, salt, totPhiHyd=None):
+    """d(rho)/d(theta) at (k, kRef = k) (find_alpha.F; ops/eos.py:112),
+    plain PyTorch in the JAX code's operation order. Kernel K
+    (kernels/csrc/kpp.cu) evaluates it at the surface through eos.cuh."""
+    check_eos(cfg)
+    eos = cfg.eosType.upper()
+    if eos == "LINEAR":
+        return torch.full_like(theta, -cfg.rhoNil * cfg.tAlpha)
+    p1 = pressure_for_eos(cfg, grid, totPhiHyd) * _pressure_scale(cfg)
+    t1 = theta
+    t2 = t1 * t1
+    s1 = torch.clamp_min(salt, 0.0)
+    if eos == "MDJWF":
+        n, d = _MDJWF_NUM, _MDJWF_DEN
+        sp5 = torch.sqrt(s1)
+        p1t1 = p1 * t1
+        rhoDen = _mdjwf_den(t1, salt, p1)
+        rhoLoc = _mdjwf_num(t1, s1, p1)
+        dnum_dt = (n[1] + t1 * (2.0 * n[2] + 3.0 * n[3] * t1) + n[5] * s1
+                   + p1t1 * (2.0 * n[8] + 2.0 * n[11] * p1))
+        dden_dt = (d[1] + t1 * (2.0 * d[2]
+                                + t1 * (3.0 * d[3] + 4.0 * d[4] * t1))
+                   + s1 * (d[6] + t1 * (3.0 * d[7] * t1
+                                        + 2.0 * d[9] * sp5))
+                   + p1 * p1 * (3.0 * d[11] * t2 + d[12] * p1))
+        return rhoDen * (dnum_dt - (rhoLoc * rhoDen) * dden_dt)
+    t3 = t2 * t1
+    s3o2 = torch.sqrt(s1 * s1 * s1)
+    p2 = p1 * p1
+    cF, cS = _EOS_JMDCFW, _EOS_JMDCSW
+    kF, kS, kP = _EOS_JMDCKFW, _EOS_JMDCKSW, _EOS_JMDCKP
+    drhoP0dt = (cF[1] + 2.0 * cF[2] * t1 + 3.0 * cF[3] * t2
+                + 4.0 * cF[4] * t3 + 5.0 * cF[5] * t3 * t1
+                + s1 * (cS[1] + 2.0 * cS[2] * t1 + 3.0 * cS[3] * t2
+                        + 4.0 * cS[4] * t3)
+                + s3o2 * (cS[6] + 2.0 * cS[7] * t1))
+    dKdt = (kF[1] + 2.0 * kF[2] * t1 + 3.0 * kF[3] * t2
+            + 4.0 * kF[4] * t3
+            + s1 * (kS[1] + 2.0 * kS[2] * t1 + 3.0 * kS[3] * t2)
+            + s3o2 * (kS[5] + 2.0 * kS[6] * t1)
+            + p1 * (kP[1] + 2.0 * kP[2] * t1 + 3.0 * kP[3] * t2)
+            + p1 * s1 * (kP[5] + 2.0 * kP[6] * t1)
+            + p2 * (kP[9] + 2.0 * kP[10] * t1)
+            + p2 * s1 * (kP[12] + 2.0 * kP[13] * t1))
+    K = bulkmod(p1, t1, s1)
+    rp0 = rho_p0(t1, s1)
+    Kp = K - p1
+    return ((K * K * drhoP0dt - K * p1 * drhoP0dt - rp0 * p1 * dKdt)
+            / (Kp * Kp))
+
+
+def find_beta(cfg: Config, grid: Grid, theta, salt, totPhiHyd=None):
+    """d(rho)/d(salt) at (k, kRef = k) (find_alpha.F FIND_BETA;
+    ops/eos.py:175), as find_alpha."""
+    check_eos(cfg)
+    eos = cfg.eosType.upper()
+    if eos == "LINEAR":
+        return torch.full_like(theta, cfg.rhoNil * cfg.sBeta)
+    p1 = pressure_for_eos(cfg, grid, totPhiHyd) * _pressure_scale(cfg)
+    t1 = theta
+    t2 = t1 * t1
+    s1 = torch.clamp_min(salt, 0.0)
+    if eos == "MDJWF":
+        n, d = _MDJWF_NUM, _MDJWF_DEN
+        sp5 = torch.sqrt(s1)
+        rhoDen = _mdjwf_den(t1, salt, p1)
+        rhoLoc = _mdjwf_num(t1, s1, p1)
+        dnum_ds = n[4] + n[5] * t1 + 2.0 * n[6] * s1 + n[9] * p1
+        dden_ds = (d[5] + t1 * (d[6] + d[7] * t2)
+                   + 1.5 * sp5 * (d[8] + d[9] * t2))
+        return rhoDen * (dnum_ds - (rhoLoc * rhoDen) * dden_ds)
+    t3 = t2 * t1
+    s3o2 = 1.5 * torch.sqrt(s1)
+    cS = _EOS_JMDCSW
+    kS, kP = _EOS_JMDCKSW, _EOS_JMDCKP
+    drhoP0dS = (cS[0] + cS[1] * t1 + cS[2] * t2 + cS[3] * t3
+                + cS[4] * t3 * t1
+                + s3o2 * (cS[5] + cS[6] * t1 + cS[7] * t2)
+                + 2.0 * cS[8] * s1)
+    dKdS = (kS[0] + kS[1] * t1 + kS[2] * t2 + kS[3] * t3
+            + s3o2 * (kS[4] + kS[5] * t1 + kS[6] * t2)
+            + p1 * (kP[4] + kP[5] * t1 + kP[6] * t2)
+            + s3o2 * p1 * kP[7]
+            + p1 * p1 * (kP[11] + kP[12] * t1 + kP[13] * t2))
+    K = bulkmod(p1, t1, s1)
+    rp0 = rho_p0(t1, s1)
+    Kp = K - p1
+    return ((K * K * drhoP0dS - K * p1 * drhoP0dS - rp0 * p1 * dKdS)
+            / (Kp * Kp))
 
 
 def check_eos(cfg: Config) -> None:

@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.ops.stencil import (cyclic_fill_halo, interior_mask,

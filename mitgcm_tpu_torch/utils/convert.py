@@ -25,7 +25,7 @@ def arrays_of(obj) -> dict:
             if hasattr(leaf, "shape") and hasattr(leaf, "dtype")}
 
 
-def to_tensor(a, dtype=torch.float64, device="cpu") -> torch.Tensor:
+def to_tensor(a, dtype=torch.float64, device="cuda") -> torch.Tensor:
     """A numpy (or JAX) array as a C-contiguous tensor of dtype on
     device."""
     return torch.as_tensor(np.array(a, order="C"), dtype=dtype,
@@ -38,7 +38,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def from_arrays(cls, arrays: Mapping[str, np.ndarray],
-                dtype=torch.float64, device="cpu"):
+                dtype=torch.float64, device="cuda"):
     """The port's `cls` (Grid, State, Forcing or CG2DOperator) from a dict
     of numpy arrays holding at least its fields."""
     missing = [f.name for f in dataclasses.fields(cls)

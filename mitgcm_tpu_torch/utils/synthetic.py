@@ -1,15 +1,17 @@
-"""Synthetic wind-driven gyre (mitgcm_tpu/utils/synthetic.py): a file-free
-configuration for the entry point, the card smoke run and the tests. The
-JAX module imports jax, so the same Config is built here directly."""
+"""Synthetic wind-driven gyre (mitgcm_tpu/utils/synthetic.py): file-free
+configurations for the entry point, the card smoke run and the tests: the
+gyre, the vi-gyre and the kpp-gyre. The set-ups put their tensors on the
+CUDA device unless device="cpu" is asked for."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from mitgcm_tpu.core.config import Config
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import build_grid
 from mitgcm_tpu_torch.core.state import init_state, zero_forcing
+from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import build_cg2d
 
@@ -54,8 +56,26 @@ def vi_gyre_config(nx=64, ny=64, nr=4, deltaT=1200.0, n_steps=10,
                        **{**vi, **kw})
 
 
+def kpp_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, stretch=1.15,
+                    mld=60.0, **kw) -> Config:
+    """The vi-gyre with KPP boundary-layer mixing (the "kpp-gyre"): levels
+    stretched as delR_k = depth * stretch^k / sum_j stretch^j (a 8.7 m top
+    and a 660 m bottom layer at 32 levels and 5000 m), and a surface mixed
+    layer: tRef 24 degC and sRef 35 at layer centres shallower than mld,
+    falling linearly below it to 10 degC and 34.5 at the bottom layer's
+    centre."""
+    w = stretch ** np.arange(nr)
+    delR = depth * w / w.sum()
+    zc = np.cumsum(delR) - 0.5 * delR
+    frac = np.clip((zc - mld) / (zc[-1] - mld), 0.0, 1.0)
+    kpp = dict(useKPP=True, delR=tuple(delR),
+               tRef=tuple(24.0 + (10.0 - 24.0) * frac),
+               sRef=tuple(35.0 + (34.5 - 35.0) * frac))
+    return vi_gyre_config(nx=nx, ny=ny, nr=nr, **{**kpp, **kw})
+
+
 def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
-               device="cpu"):
+               device="cuda"):
     """(grid, state, forcing, op) with walls and a sinusoidal zonal wind."""
     nx, ny = cfg.nx, cfg.ny
     bathy = np.full((ny, nx), -sum(cfg.delR))
@@ -70,9 +90,31 @@ def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
     y = np.arange(ny) * cfg.delY[0]
     L = ny * cfg.delY[0]
     taux = -0.1 * np.cos(np.pi * (y[:, None] + 0.5 * cfg.delY[0]) / L)
-    fu = np.zeros((ny + 2 * cfg.oly, nx + 2 * cfg.olx))
-    fu[cfg.oly:cfg.oly + ny, cfg.olx:cfg.olx + nx] = taux
-    forcing.fu = cyclic_fill_halo(
-        torch.as_tensor(fu[None], dtype=dtype, device=device),
-        cfg.oly, cfg.olx)
+    forcing.fu = _fill2(cfg, taux, dtype, device)
     return grid, state, forcing, build_cg2d(cfg, grid)
+
+
+def _fill2(cfg: Config, a: np.ndarray, dtype, device) -> torch.Tensor:
+    """An interior [ny, nx] field as a halo-filled [1, nyp, nxp] record."""
+    out = np.zeros((cfg.ny + 2 * cfg.oly, cfg.nx + 2 * cfg.olx))
+    out[cfg.oly:cfg.oly + cfg.ny, cfg.olx:cfg.olx + cfg.nx] = a
+    return cyclic_fill_halo(torch.as_tensor(out[None], dtype=dtype,
+                                            device=device), cfg.oly, cfg.olx)
+
+
+def kpp_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                   device="cuda"):
+    """(grid, state, forcing, op, kpp) of the kpp-gyre: the gyre's wind, a
+    net upward heat flux Qnet = -200 cos(pi (j + 1/2) / ny) W/m2 (heating
+    in the south, cooling in the north) and a shortwave Qsw = -100 W/m2 on
+    wet points, and KPP with the KPP_PARM01 defaults and the default
+    KPP_OPTIONS.h (KPP_GHAT, KPP_SMOOTH_SHSQ, KPP_SMOOTH_DBLOC)."""
+    grid, state, forcing, op = gyre_setup(cfg, dtype=dtype, device=device)
+    ol_y, ol_x = cfg.oly, cfg.olx
+    wet = grid.maskC[0, ol_y:ol_y + cfg.ny, ol_x:ol_x + cfg.nx].cpu().numpy()
+    j = np.arange(cfg.ny)[:, None]
+    forcing.Qnet = _fill2(cfg, -200.0 * np.cos(np.pi * (j + 0.5) / cfg.ny)
+                          * wet, dtype, device)
+    forcing.Qsw = _fill2(cfg, -100.0 * wet, dtype, device)
+    return grid, state, forcing, op, KPP(cfg, grid, {},
+                                         options=DEFAULT_OPTIONS)

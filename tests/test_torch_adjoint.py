@@ -36,7 +36,7 @@ class Port:
     def __init__(self, n_steps):
         self.cfg = tsyn.gyre_config(**SIZE, n_steps=n_steps)
         self.grid, self.state, self.forcing, self.op = tsyn.gyre_setup(
-            self.cfg, dtype=torch.float64)
+            self.cfg, dtype=torch.float64, device="cpu")
         self.control = tadj.Control(self.cfg, self.grid, field="theta")
         self.cost = tadj.cost_boxmean_tracer(self.cfg, self.grid, "theta",
                                              box=BOX, k_range=K_RANGE)
@@ -106,7 +106,7 @@ def test_gradient_vs_jax(port, control_xx):
     chunks of 3 steps) against JAX's adjoint_gradient."""
     want = jadj.adjoint_gradient(_jax_objective(6), jnp.asarray(control_xx))
     got = tadj.adjoint_gradient(port.objective(6),
-                                convert.to_tensor(control_xx))
+                                convert.to_tensor(control_xx, device="cpu"))
     _assert_matches_jax(*got, *want)
 
 
@@ -122,7 +122,7 @@ def test_step_cost_vs_jax(control_xx):
     want = jadj.adjoint_gradient(_jax_objective(5, step_cost=True),
                                  jnp.asarray(control_xx))
     _assert_matches_jax(*tadj.adjoint_gradient(
-        J, convert.to_tensor(control_xx)), *want)
+        J, convert.to_tensor(control_xx, device="cpu")), *want)
 
 
 @pytest.mark.parametrize("chunks", [None, 2])
@@ -135,7 +135,7 @@ def test_checkpointing_is_exact(port, control_xx, chunks):
             s = forward_step(port.cfg, port.grid, port.op, s, port.forcing,
                              port.cfg.nIter0 + it)[0]
         return port.cost(s)
-    xx = convert.to_tensor(control_xx)
+    xx = convert.to_tensor(control_xx, device="cpu")
     fc, grad = tadj.adjoint_gradient(
         port.objective(9, checkpoint_chunks=chunks), xx)
     want_fc, want_grad = tadj.adjoint_gradient(plain, xx)
@@ -148,10 +148,10 @@ def test_control_pack_roundtrip(port, control_xx):
     jcfg = jsyn.gyre_config(**SIZE)
     jgrid = jsyn.gyre_setup(jcfg, dtype=jnp.float64)[0]
     want = np.asarray(jadj.Control(jcfg, jgrid).pack(jnp.asarray(control_xx)))
-    vec = port.control.pack(convert.to_tensor(control_xx))
+    vec = port.control.pack(convert.to_tensor(control_xx, device="cpu"))
     assert np.array_equal(convert.to_numpy(vec), want)
     back = port.control.unpack(vec)
-    assert torch.equal(back, convert.to_tensor(control_xx) * (
+    assert torch.equal(back, convert.to_tensor(control_xx, device="cpu") * (
         port.grid.maskC > 0))
 
 
@@ -163,7 +163,8 @@ def test_gradcheck_plain_path():
     path. The objective is scaled to O(1) so that the finite differences
     are not swamped by rounding."""
     cfg = tsyn.gyre_config(nx=8, ny=8, nr=2)
-    grid, state0, forcing, op = tsyn.gyre_setup(cfg, dtype=torch.float64)
+    grid, state0, forcing, op = tsyn.gyre_setup(cfg, dtype=torch.float64,
+                                                device="cpu")
     rng = np.random.default_rng(3)
     shape = tuple(grid.maskC.shape)
     u0 = torch.from_numpy(0.05 * rng.standard_normal(shape)) * grid.maskW

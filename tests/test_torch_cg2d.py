@@ -39,7 +39,8 @@ def test_cg2d_solve(use_min_res):
     x0 = 0.1 * rng.standard_normal(shape) * mask
 
     want = jcg.cg2d(cfg, grid, op, jnp.asarray(b), jnp.asarray(x0))
-    top = convert.from_arrays(CG2DOperator, convert.arrays_of(op))
+    top = convert.from_arrays(CG2DOperator, convert.arrays_of(op),
+                              device="cpu")
     got = tcg.cg2d(cfg, top, torch.from_numpy(b), torch.from_numpy(x0))
 
     assert got.n_iters == int(want.n_iters)

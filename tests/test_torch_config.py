@@ -1,0 +1,88 @@
+"""PyTorch port: its own copies of the JAX package's JAX-free host modules
+(core/config.py, core/nml.py, io/mds.py) against the originals, and
+`jax_config`, which the other test files use to hand a configuration built
+by the port to the JAX package."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from mitgcm_tpu.core import config as jconfig
+from mitgcm_tpu.core import nml as jnml
+from mitgcm_tpu.io import mds as jmds
+from mitgcm_tpu.utils import synthetic as jsyn
+from mitgcm_tpu_torch.core import config as tconfig
+from mitgcm_tpu_torch.core import nml as tnml
+from mitgcm_tpu_torch.io import mds as tmds
+from mitgcm_tpu_torch.utils import synthetic as tsyn
+
+
+def jax_config(cfg: tconfig.Config) -> jconfig.Config:
+    """The JAX package's Config holding the field values of the port's
+    `cfg` (already finalized, so finalize() is not run again)."""
+    values = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    values["extra"] = dict(cfg.extra)
+    return jconfig.Config(**values)
+
+
+def _values(cfg):
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def test_config_fields_and_defaults_match():
+    want = [(f.name, f.default) for f in dataclasses.fields(jconfig.Config)]
+    got = [(f.name, f.default) for f in dataclasses.fields(tconfig.Config)]
+    assert got == want
+
+
+@pytest.mark.parametrize("extra", [
+    {}, dict(eosType="MDJWF", alph_AB=0.5), dict(eosType="JMD95P"),
+    dict(deltaTClock=600.0, viscAz=1e-3, rigidLid=True)])
+def test_config_finalize_matches(extra):
+    """Each package's finalize() derives the same values from the same
+    settings; jax_config carries them across unchanged."""
+    settings = dict(nx=12, ny=10, nr=3, viscAh=4e2,
+                    delR=(100.0, 200.0, 300.0), tRef=(20.0, 15.0, 10.0),
+                    usingCartesianGrid=True, **extra)
+    settings.setdefault("deltaT", 1200.0)
+    want = jconfig.Config(**settings).finalize()
+    got = tconfig.Config(**settings).finalize()
+    assert _values(got) == _values(want)
+    assert _values(jax_config(tsyn.gyre_config(nx=12, ny=10, nr=3))) == \
+        _values(jsyn.gyre_config(nx=12, ny=10, nr=3))
+
+
+NAMELIST = """
+# a comment
+ &PARM01
+ tRef= 3*20., 2*10.,
+ viscAr=1.E-4, implicitDiffusion=.TRUE.,
+ eosType='JMD95Z',
+ &
+ &KPP_PARM01
+ LimitHblStable=.FALSE.,
+ Ricr = 0.25,
+ /
+"""
+
+
+def test_nml_copy_reads_as_the_original():
+    got = tnml.parse_namelist(NAMELIST)
+    assert got == jnml.parse_namelist(NAMELIST)
+    assert got["KPP_PARM01"]["limithblstable"] is False
+
+
+@pytest.mark.parametrize("writer,reader", [(tmds, jmds), (jmds, tmds)])
+def test_mds_copy_round_trip(writer, reader, tmp_path):
+    """A multi-record file written by one package reads back bit for bit
+    with the other's reader."""
+    rng = np.random.default_rng(3)
+    recs = rng.standard_normal((5, 6, 7))
+    froot = str(tmp_path / "pickup")
+    writer.wrmds(froot, recs, itr=4, dataprec="float64", nrecords=5,
+                 fldlist=["A", "B", "C", "D", "E"], timestep_number=4)
+    fields, meta = reader.read_mflds(froot, itr=4)
+    assert np.array_equal(np.asarray(fields["__records__"]), recs)
+    names = [n.strip() for n in meta["fldList"] if n.strip()]
+    assert names == ["A", "B", "C", "D", "E"]

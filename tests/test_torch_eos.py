@@ -17,6 +17,7 @@ from mitgcm_tpu_torch.ops import eos as teos
 from mitgcm_tpu_torch.utils import convert
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 from mitgcm_tpu_torch.utils.compare import digits
+from test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -26,8 +27,8 @@ DIGITS = 13
 @pytest.fixture(scope="module")
 def setup():
     cfg = tsyn.vi_gyre_config(nx=12, ny=10, nr=6)
-    jgrid = jsyn.gyre_setup(cfg, dtype=jnp.float64)[0]
-    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid))
+    jgrid = jsyn.gyre_setup(jax_config(cfg), dtype=jnp.float64)[0]
+    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid), device="cpu")
     rng = np.random.default_rng(7)
     shape = jgrid.hFacC.shape
     theta = 2.0 + 25.0 * rng.random(shape)
@@ -43,7 +44,7 @@ def setup():
 def test_find_rho(setup, eos, select_p):
     base, jgrid, tgrid, theta, salt, phi = setup
     cfg = dataclasses.replace(base, eosType=eos, selectP_inEOS_Zc=select_p)
-    want = np.asarray(jeos.find_rho(cfg, jgrid, jnp.asarray(theta),
+    want = np.asarray(jeos.find_rho(jax_config(cfg), jgrid, jnp.asarray(theta),
                                     jnp.asarray(salt),
                                     totPhiHyd=jnp.asarray(phi)))
     got = teos.find_rho(cfg, tgrid, torch.from_numpy(theta),
@@ -79,7 +80,8 @@ def test_adams_bashforth3(my_iter, pickup):
         my_iter += 2
     rng = np.random.default_rng(my_iter)
     g, g1, g2 = (rng.standard_normal((2, 12, 12)) for _ in range(3))
-    want = jstep.adams_bashforth(cfg, jnp.asarray(g), jnp.asarray(g1),
+    want = jstep.adams_bashforth(jax_config(cfg), jnp.asarray(g),
+                                 jnp.asarray(g1),
                                  jnp.asarray(g2), my_iter)
     got = tstep.adams_bashforth(cfg, torch.from_numpy(g),
                                 torch.from_numpy(g1), torch.from_numpy(g2),

@@ -26,7 +26,7 @@ def _setups(nx, ny, nr):
     cfg = jsyn.gyre_config(nx=nx, ny=ny, nr=nr)
     jax_objs = jsyn.gyre_setup(cfg, dtype=jnp.float64)
     tcfg = tsyn.gyre_config(nx=nx, ny=ny, nr=nr)
-    return jax_objs, tsyn.gyre_setup(tcfg, dtype=torch.float64)
+    return jax_objs, tsyn.gyre_setup(tcfg, dtype=torch.float64, device="cpu")
 
 
 @pytest.mark.parametrize("nx,ny,nr", SIZES)

@@ -1,8 +1,10 @@
-"""PyTorch port: guards. The port never imports jax, has no CPU fallback
-for its GPU run, refuses configurations off its ported paths, its kernel
-wrappers refuse to differentiate what their kernels treat as constants
-(and V, T and R, which have no backward kernels yet, anything), and its
-adjoint refuses the vi-gyre."""
+"""PyTorch port: guards. The port imports neither jax nor the JAX package
+(mitgcm_tpu), its entry points put their tensors on the card unless asked
+for the CPU, it has no CPU fallback for its GPU run, refuses configurations
+and KPP options off its ported paths, its kernel wrappers refuse to
+differentiate what their kernels treat as constants (and V, T, R and K,
+which have no backward kernels yet, anything), and its adjoint refuses the
+vi-gyre and KPP."""
 
 import dataclasses
 import os
@@ -10,17 +12,20 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.ad import adjoint
+from mitgcm_tpu_torch.core.grid import Grid, build_grid
 from mitgcm_tpu_torch.model import gad, mom_fluxform, mom_vecinv
+from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model.step import check_supported
 from mitgcm_tpu_torch.model.thermodynamics import impldiff
 from mitgcm_tpu_torch.ops.eos import find_rho
 from mitgcm_tpu_torch.solver import cg2d
-from mitgcm_tpu_torch.utils import synthetic
+from mitgcm_tpu_torch.utils import convert, synthetic
 
 torch.set_num_threads(1)
 
@@ -36,20 +41,32 @@ from mitgcm_tpu_torch.model.experiment import (Experiment, read_pickup,
 from mitgcm_tpu_torch.model.step import forward_step
 from mitgcm_tpu_torch.utils import synthetic
 cfg = synthetic.gyre_config(nx=12, ny=10, nr=3)
-grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64)
+grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64,
+                                                device="cpu")
 state, diag = forward_step(cfg, grid, op, state, forcing, 0)
 assert diag.cg2d_iters > 0 and bool(torch.isfinite(state.uVel).all())
 cfg = synthetic.vi_gyre_config(nx=12, ny=10, nr=3)
-exp = Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=torch.float64))
+exp = Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=torch.float64,
+                                            device="cpu"))
 rec, = exp.run(n_steps=1, collect_monitor=False)
 assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.salt).all())
 with tempfile.TemporaryDirectory() as tmp:
     write_pickup(exp, tmp, 1)
-    back = Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=torch.float64))
+    back = Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=torch.float64,
+                                                 device="cpu"))
     read_pickup(back, tmp, 1)
 assert torch.equal(back.state.guNm1[:, 2:-2, 2:-2],
                    exp.state.guNm1[:, 2:-2, 2:-2])
+cfg = synthetic.kpp_gyre_config(nx=12, ny=10, nr=4, depth=300.0)
+exp = Experiment(cfg, *synthetic.kpp_gyre_setup(cfg, dtype=torch.float64,
+                                                device="cpu"))
+rec, = exp.run(n_steps=1, collect_monitor=False)
+assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.theta).all())
+import chip_smoke
 assert "jax" not in sys.modules, "the port imported jax"
+jax_pkg = [m for m in sys.modules
+           if m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
+assert not jax_pkg, f"the port imported the JAX package: {jax_pkg}"
 assert kernels._lib is None, "a CPU step touched the CUDA library"
 print("one step ok")
 """
@@ -62,13 +79,16 @@ from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.ad import adjoint, grdchk
 from mitgcm_tpu_torch.utils import synthetic
 cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
-grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64)
+grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64,
+                                                device="cpu")
 control = adjoint.Control(cfg, grid)
 cost = adjoint.cost_boxmean_tracer(cfg, grid, box=(2, 6, 2, 6))
 J = adjoint.make_objective(cfg, grid, op, forcing, state, control, cost, 5)
 r, = grdchk.grdchk(J, control.zero(), [(0, 5, 5)])
 assert r["adj_grad"] != 0.0 and abs(r["rel_err"]) < 1e-5, r
 assert "jax" not in sys.modules, "the port's adjoint imported jax"
+assert not [m for m in sys.modules
+            if m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
 assert kernels._lib is None, "a CPU adjoint touched the CUDA library"
 print("adjoint ok")
 """
@@ -86,7 +106,7 @@ def test_port_adjoint_imports_no_jax():
 @pytest.mark.parametrize("name", ["kappaRU", "kappaRV", "hFacW"])
 def test_mom_fluxform_refuses_constant_grad(name):
     cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
-    grid = synthetic.gyre_setup(cfg, dtype=torch.float64)[0]
+    grid = synthetic.gyre_setup(cfg, dtype=torch.float64, device="cpu")[0]
     u = torch.zeros_like(grid.hFacC)
     kshape = (cfg.nr + 1,) + tuple(u.shape[1:])
     args = dict(kappaRU=torch.zeros(kshape, dtype=u.dtype),
@@ -103,7 +123,7 @@ def test_mom_fluxform_refuses_constant_grad(name):
 @pytest.mark.parametrize("name", ["xA", "yA", "maskUp", "kappaR", "rA"])
 def test_calc_rhs_refuses_constant_grad(name):
     cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
-    grid = synthetic.gyre_setup(cfg, dtype=torch.float64)[0]
+    grid = synthetic.gyre_setup(cfg, dtype=torch.float64, device="cpu")[0]
     u = torch.zeros_like(grid.hFacC)
     kappaR = torch.zeros_like(u)
     if name == "rA":
@@ -163,18 +183,22 @@ def test_check_supported_vi_gyre(eos):
     check_supported(synthetic.vi_gyre_config(nx=8, ny=8, nr=2, eosType=eos))
 
 
-@pytest.mark.parametrize("kernel", ["V", "T", "R"])
+@pytest.mark.parametrize("kernel", ["V", "T", "R", "K"])
 def test_vi_kernels_refuse_grad(kernel):
-    """V, T and R have no backward kernels: any input that requires grad
-    is refused, on every device."""
-    cfg = synthetic.vi_gyre_config(nx=8, ny=8, nr=2)
-    grid = synthetic.gyre_setup(cfg, dtype=torch.float64)[0]
+    """V, T, R and K have no backward kernels: any input that requires
+    grad is refused, on every device."""
+    cfg = synthetic.kpp_gyre_config(nx=8, ny=8, nr=2)
+    grid, _, _, _, kpp = synthetic.kpp_gyre_setup(cfg, dtype=torch.float64,
+                                                  device="cpu")
     x = torch.zeros_like(grid.hFacC).requires_grad_(True)
     k = torch.zeros((cfg.nr + 1,) + tuple(x.shape[1:]), dtype=x.dtype)
+    x2 = x[0] + 1.0
     calls = {
         "V": lambda: mom_vecinv.mom_vecinv(cfg, grid, x, x, x, k, k),
         "T": lambda: impldiff(cfg, grid, x, k, grid.recip_hFacC, 600.0),
         "R": lambda: find_rho(cfg, grid, x + 10.0, x + 35.0),
+        "K": lambda: kpp.calc(x, x, x + 10.0, x + 35.0, x, x2, x2, x2, x2,
+                              x2, k[:2], k[:2]),
     }
     with pytest.raises(ValueError, match=f"kernel {kernel}"):
         calls[kernel]()
@@ -185,14 +209,15 @@ def test_vi_kernels_refuse_grad(kernel):
                                   "eosType", "useAB3"])
 def test_adjoint_refuses_vi_gyre(flag):
     cfg = synthetic.vi_gyre_config(nx=8, ny=8, nr=2)
-    grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64)
+    grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=torch.float64,
+                                                    device="cpu")
     with pytest.raises(NotImplementedError, match=flag):
         adjoint.run_steps(cfg, grid, op, state, forcing, 1)
 
 
 def test_no_silent_fallback():
     cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
-    _, _, _, op = synthetic.gyre_setup(cfg, dtype=torch.float64)
+    _, _, _, op = synthetic.gyre_setup(cfg, dtype=torch.float64, device="cpu")
     b = torch.zeros_like(op.aW)
     with pytest.raises(ValueError):
         cg2d.cg2d(cfg, op, b, b, impl="cuda")
@@ -202,3 +227,52 @@ def test_no_silent_fallback():
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError):
             kernels.nvcc_path()
+
+
+def test_adjoint_refuses_kpp():
+    cfg = synthetic.kpp_gyre_config(nx=8, ny=8, nr=2)
+    with pytest.raises(NotImplementedError, match="useKPP"):
+        adjoint.check_adjoint_supported(cfg)
+
+
+@pytest.mark.parametrize("name", list(kpp_mod.REFUSED_OPTIONS) + [
+    "KPPuseDoubleDiff", "KPP_ghatUseTotalDiffus"])
+def test_check_supported_refuses_kpp_options(name):
+    """check_supported lets useKPP through only with a KPP object, and
+    refuses, by name, each KPP option and parameter that is not ported."""
+    cfg = synthetic.kpp_gyre_config(nx=8, ny=8, nr=2)
+    grid, _, _, _, kpp = synthetic.kpp_gyre_setup(cfg, dtype=torch.float64,
+                                                  device="cpu")
+    check_supported(cfg, kpp)
+    with pytest.raises(NotImplementedError, match="useKPP"):
+        check_supported(cfg)
+    if name in kpp_mod.REFUSED_OPTIONS:
+        kpp = kpp_mod.KPP(cfg, grid, {}, options={"KPP_GHAT", name})
+    else:
+        kpp = kpp_mod.KPP(cfg, grid, {name: True})
+    with pytest.raises(NotImplementedError, match=name):
+        check_supported(cfg, kpp)
+
+
+@pytest.mark.parametrize("entry", ["gyre_setup", "kpp_gyre_setup",
+                                   "build_grid", "to_tensor", "from_arrays"])
+def test_entry_points_default_to_the_card(entry):
+    """Called without a device, an entry point puts its tensors on the
+    card: here, without CUDA, it raises as torch does, and never falls back
+    to the CPU."""
+    cfg = synthetic.kpp_gyre_config(nx=8, ny=8, nr=2)
+    grid = synthetic.gyre_setup(cfg, dtype=torch.float64, device="cpu")[0]
+    calls = {
+        "gyre_setup": lambda: synthetic.gyre_setup(cfg)[0].rA,
+        "kpp_gyre_setup": lambda: synthetic.kpp_gyre_setup(cfg)[0].rA,
+        "build_grid": lambda: build_grid(cfg).rA,
+        "to_tensor": lambda: convert.to_tensor(np.zeros(3)),
+        "from_arrays": lambda: convert.from_arrays(
+            Grid, convert.arrays_of(grid)).rA,
+    }
+    try:
+        t = calls[entry]()
+    except (AssertionError, RuntimeError) as err:
+        assert not torch.cuda.is_available(), err
+    else:
+        assert t.is_cuda

@@ -15,6 +15,7 @@ from mitgcm_tpu_torch.model import thermodynamics as tth
 from mitgcm_tpu_torch.utils import convert
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 from mitgcm_tpu_torch.utils.compare import digits
+from test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -24,8 +25,9 @@ NX, NY, NR = 12, 10, 5
 @pytest.fixture(scope="module")
 def setup():
     cfg = tsyn.vi_gyre_config(nx=NX, ny=NY, nr=NR)
-    jgrid = jsyn.gyre_setup(cfg, dtype=jnp.float64)[0]
-    return cfg, jgrid, convert.from_arrays(Grid, convert.arrays_of(jgrid))
+    jgrid = jsyn.gyre_setup(jax_config(cfg), dtype=jnp.float64)[0]
+    return cfg, jgrid, convert.from_arrays(Grid, convert.arrays_of(jgrid),
+                                           device="cpu")
 
 
 @pytest.mark.parametrize("point,krows", [("C", NR), ("W", NR + 1),
@@ -41,7 +43,7 @@ def test_impldiff(setup, point, krows):
     recip[0, 6, 7] = 0.0
     field = rng.standard_normal(recip.shape)
     kappa = 1e-2 * np.abs(rng.standard_normal((krows,) + recip.shape[1:]))
-    want = np.asarray(jth.impldiff(cfg, jgrid, jnp.asarray(field),
+    want = np.asarray(jth.impldiff(jax_config(cfg), jgrid, jnp.asarray(field),
                                    jnp.asarray(kappa), jnp.asarray(recip),
                                    1200.0))
     got = tth.impldiff(cfg, tgrid, torch.from_numpy(field),

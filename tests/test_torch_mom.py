@@ -23,7 +23,7 @@ NX, NY, NR = 16, 16, 4
 def setup():
     cfg = jsyn.gyre_config(nx=NX, ny=NY, nr=NR)
     jgrid = jsyn.gyre_setup(cfg, dtype=jnp.float64)[0]
-    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid))
+    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid), device="cpu")
     return cfg, jgrid, tgrid
 
 

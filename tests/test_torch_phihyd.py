@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 def _setup(seed):
     cfg = jsyn.gyre_config(nx=16, ny=16, nr=6)
     jgrid = jsyn.gyre_setup(cfg, dtype=jnp.float64)[0]
-    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid))
+    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid), device="cpu")
     rng = np.random.default_rng(seed)
     shape = jgrid.hFacC.shape
     theta = 15.0 + 3.0 * rng.standard_normal(shape)

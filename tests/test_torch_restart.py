@@ -1,7 +1,9 @@
 """PyTorch port: checkpoint/restart, the twin of tests/test_restart.py.
 
-4 steps == 2 + pickup + 2 bit for bit, for the gyre (AB-2) and the vi-gyre
-(AB-3, whose pickup carries the *Nm2 records); the pickup round trip, in
+4 steps == 2 + pickup + 2 bit for bit, for the gyre (AB-2), the vi-gyre
+(AB-3, whose pickup carries the *Nm2 records) and the kpp-gyre (KPP keeps
+no state from step to step, so its pickup is the vi-gyre's, at 16x16x12);
+the pickup round trip, in
 float64 and float32 (pickups are float64); and pickups crossing between
 the packages: a pickup written by the JAX package after 2 steps, read by
 the port and stepped 2 more, matches JAX's 4 straight steps to 10 digits,
@@ -24,6 +26,7 @@ from mitgcm_tpu_torch.model.experiment import (Experiment, read_pickup,
                                                write_pickup)
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 from mitgcm_tpu_torch.utils.compare import digits, interior
+from test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -35,12 +38,16 @@ FIELDS = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1", "gvNm1",
 
 
 def _port(kind, dtype=torch.float64):
+    if kind == "kpp-gyre":
+        cfg = tsyn.kpp_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
+        return Experiment(cfg, *tsyn.kpp_gyre_setup(cfg, dtype=dtype,
+                                                    device="cpu"))
     cfg = CONFIGS[kind](**SIZE)
-    return Experiment(cfg, *tsyn.gyre_setup(cfg, dtype=dtype))
+    return Experiment(cfg, *tsyn.gyre_setup(cfg, dtype=dtype, device="cpu"))
 
 
 def _jax(kind):
-    cfg = CONFIGS[kind](**SIZE)
+    cfg = jax_config(CONFIGS[kind](**SIZE))
     grid, state, forcing, op = jsyn.gyre_setup(cfg, dtype=jnp.float64)
     return jexp.Experiment(cfg=cfg, grid=grid, state=state, forcing=forcing,
                            op=op)
@@ -57,7 +64,7 @@ def _same(a, b, names, ol=2):
     assert not differ, f"differ after restart: {differ}"
 
 
-@pytest.mark.parametrize("kind", ["gyre", "vi-gyre"])
+@pytest.mark.parametrize("kind", ["gyre", "vi-gyre", "kpp-gyre"])
 def test_2plus2(kind, tmp_path):
     e4 = _port(kind)
     e4.run(n_steps=4, collect_monitor=False)

@@ -43,9 +43,9 @@ def reference():
 def _port_experiment(source, jax_setup):
     cfg = tsyn.gyre_config(**SIZE)
     if source == "port setup":
-        objs = tsyn.gyre_setup(cfg, dtype=torch.float64)
+        objs = tsyn.gyre_setup(cfg, dtype=torch.float64, device="cpu")
     else:   # the JAX package's own objects, carried across
-        objs = [convert.from_arrays(cls, convert.arrays_of(obj))
+        objs = [convert.from_arrays(cls, convert.arrays_of(obj), device="cpu")
                 for cls, obj in zip((Grid, State, Forcing, CG2DOperator),
                                     jax_setup)]
     return Experiment(cfg, *objs)

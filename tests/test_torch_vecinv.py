@@ -18,6 +18,7 @@ from mitgcm_tpu_torch.model import mom_vecinv as tvi
 from mitgcm_tpu_torch.utils import convert
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 from mitgcm_tpu_torch.utils.compare import digits, interior
+from test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -28,8 +29,9 @@ DIGITS = 12
 @pytest.fixture(scope="module")
 def grids():
     cfg = tsyn.vi_gyre_config(nx=NX, ny=NY, nr=NR)
-    jgrid = jsyn.gyre_setup(cfg, dtype=jnp.float64)[0]
-    return jgrid, convert.from_arrays(Grid, convert.arrays_of(jgrid))
+    jgrid = jsyn.gyre_setup(jax_config(cfg), dtype=jnp.float64)[0]
+    return jgrid, convert.from_arrays(Grid, convert.arrays_of(jgrid),
+                                      device="cpu")
 
 
 def _fields(grid, seed):
@@ -47,7 +49,7 @@ def _fields(grid, seed):
 def _check(cfg, grids, seed):
     jgrid, tgrid = grids
     arrays = _fields(jgrid, seed)
-    want = jvi.mom_vecinv(cfg, jgrid, *map(jnp.asarray, arrays))
+    want = jvi.mom_vecinv(jax_config(cfg), jgrid, *map(jnp.asarray, arrays))
     got = tvi.mom_vecinv(cfg, tgrid, *map(torch.from_numpy, arrays))
     for name in ("gU", "gV", "guDiss", "gvDiss"):
         d = digits(interior(getattr(got, name), cfg.olx),
@@ -81,7 +83,8 @@ def test_relvort_and_hdiv(grids):
     u, v = _fields(jgrid, 3)[:2]
     for jfn, tfn in ((jvi.calc_relvort3, tvi.calc_relvort3),
                      (jvi.calc_hdiv, tvi.calc_hdiv)):
-        want = np.asarray(jfn(cfg, jgrid, jnp.asarray(u), jnp.asarray(v)))
+        want = np.asarray(jfn(jax_config(cfg), jgrid, jnp.asarray(u),
+                              jnp.asarray(v)))
         got = tfn(tgrid, torch.from_numpy(u), torch.from_numpy(v))
         assert digits(interior(got, cfg.olx),
                       interior(want, cfg.olx)) >= DIGITS, jfn.__name__

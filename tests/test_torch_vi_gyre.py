@@ -43,6 +43,7 @@ from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
 from mitgcm_tpu_torch.utils import convert
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 from mitgcm_tpu_torch.utils.compare import digits, interior, record_digits
+from test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -52,7 +53,7 @@ SIZE = dict(nx=16, ny=16, nr=4)
 
 @pytest.fixture(scope="module")
 def reference():
-    cfg = tsyn.vi_gyre_config(**SIZE)
+    cfg = jax_config(tsyn.vi_gyre_config(**SIZE))
     setup = jsyn.gyre_setup(cfg, dtype=jnp.float64)
     exp = JaxExperiment(cfg=cfg, grid=setup[0], state=setup[1],
                         forcing=setup[2], op=setup[3])
@@ -64,9 +65,9 @@ def reference():
 def _port_experiment(source, jax_setup):
     cfg = tsyn.vi_gyre_config(**SIZE)
     if source == "port setup":
-        objs = tsyn.gyre_setup(cfg, dtype=torch.float64)
+        objs = tsyn.gyre_setup(cfg, dtype=torch.float64, device="cpu")
     else:   # the JAX package's own objects, carried across
-        objs = [convert.from_arrays(cls, convert.arrays_of(obj))
+        objs = [convert.from_arrays(cls, convert.arrays_of(obj), device="cpu")
                 for cls, obj in zip((Grid, State, Forcing, CG2DOperator),
                                     jax_setup)]
     return Experiment(cfg, *objs)

@@ -40,7 +40,7 @@ NX, NY, NR = 16, 16, 4
 def setup():
     cfg = jsyn.gyre_config(nx=NX, ny=NY, nr=NR)
     jgrid = jsyn.gyre_setup(cfg, dtype=jnp.float64)[0]
-    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid))
+    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid), device="cpu")
     return cfg, jgrid, tgrid
 
 
@@ -92,7 +92,8 @@ def test_cg2d_vjp():
     _, vjp = jax.vjp(lambda b_, x0_: jcg.cg2d(cfg, grid, op, b_, x0_).x,
                      jnp.asarray(b), jnp.asarray(x0))
     want_b, want_x0 = map(np.asarray, vjp(jnp.asarray(x_bar)))
-    top = convert.from_arrays(CG2DOperator, convert.arrays_of(op))
+    top = convert.from_arrays(CG2DOperator, convert.arrays_of(op),
+                              device="cpu")
     got_b, got_x0 = _torch_vjp(lambda b_, x0_: tcg.cg2d(cfg, top, b_, x0_).x,
                                [b, x0], [x_bar])
     assert digits(got_b.numpy(), want_b) >= 10
