@@ -44,14 +44,26 @@ exits nonzero without the final line:
                  kpp-gyre (deltaT=600): one warm-up step and 5 timed steps
                  with every kernel's launch count (K each step, the plain
                  KPP never), then 2 plain steps
+  9. ggl90-gyre: the kpp-gyre's set-up with GGL90 TKE mixing in place of
+                 KPP and DST-3 flux-limited tracers (scheme 33) under the
+                 multi-dimensional advection: kernel G9 (ggl90_col,
+                 ggl90_visc) and kernel M (the X, Y and R sweeps, schemes
+                 30, 33 and 77) against their twins at 64x64x12 float64 and
+                 1024x1024x32 float32, and C without its advective part; 10
+                 float64 steps at 64x64x12, kernel path against plain path;
+                 a 2+2 restart through pickup and pickup_ggl90 on the
+                 kernel path; then the 1024x1024x32 float32 ggl90-gyre
+                 (deltaT=600): one warm-up step and 5 timed steps with every
+                 kernel's launch count (G9 and M each step, the plain GGL90
+                 and multidim twins never), a profile, then 2 plain steps
 It prints, last, one line of JSON per kernel (the launches are those of
 the main path that runs it: phase 5 for the gyre's forward kernels, phase
 6's full-size gradient for B' and C', phase 7's full-size run for V, T
-and R, phase 8's for K), with the kernel's time, its plain twin's, and its
-bound (the larger of the bytes it must move over 3.35 TB/s and its
-estimated operations over 67 TFLOP/s, the H100's float32 peaks) at the
-1024x1024x32 float32 shapes, the card's name and power limit, and the
-device line.
+and R, phase 8's for K, phase 9's for G9 and M), with the kernel's time,
+its plain twin's, and its bound (the larger of the bytes it must move
+over 3.35 TB/s and its estimated operations over 67 TFLOP/s, the H100's
+float32 peaks) at the 1024x1024x32 float32 shapes, the card's name and
+power limit, and the device line.
 """
 
 import json
@@ -99,6 +111,17 @@ KERNELS = {
                    "mitgcm_tpu/model/kpp.py:636"),
     "kpp_col": ("mitgcm_tpu_torch/kernels/csrc/kpp.cu",
                 "mitgcm_tpu/model/kpp.py:555"),
+    # the ggl90-gyre's kernels G9 and M
+    "ggl90_col": ("mitgcm_tpu_torch/kernels/csrc/ggl90.cu",
+                  "mitgcm_tpu/model/ggl90.py:358"),
+    "ggl90_visc": ("mitgcm_tpu_torch/kernels/csrc/ggl90.cu",
+                   "mitgcm_tpu/model/ggl90.py:564"),
+    "gad_multidim_x": ("mitgcm_tpu_torch/kernels/csrc/gad_multidim.cu",
+                       "mitgcm_tpu/model/gad.py:839"),
+    "gad_multidim_y": ("mitgcm_tpu_torch/kernels/csrc/gad_multidim.cu",
+                       "mitgcm_tpu/model/gad.py:877"),
+    "gad_multidim_r": ("mitgcm_tpu_torch/kernels/csrc/gad_multidim.cu",
+                       "mitgcm_tpu/model/gad.py:911"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
@@ -111,6 +134,14 @@ KPP_KERNELS = ("kpp_pre", "kpp_smooth", "kpp_col")
 KPP_LAUNCHES = {"kpp_pre": 5, "kpp_smooth": 5, "kpp_col": 5,
                 "mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
                 "gad_calc_rhs_c2": 10, "mom_fluxform": 0}
+G9_KERNELS = ("ggl90_col", "ggl90_visc")
+MD_KERNELS = ("gad_multidim_x", "gad_multidim_y", "gad_multidim_r")
+# launches in phase 9's 5 timed full-size ggl90-gyre steps: M three per
+# tracer, R for find_rho and calc_sigmaR
+G9_LAUNCHES = {"ggl90_col": 5, "ggl90_visc": 5, "gad_multidim_x": 10,
+               "gad_multidim_y": 10, "gad_multidim_r": 10,
+               "gad_calc_rhs_c2": 10, "impldiff": 20, "eos_find_rho": 10,
+               "mom_vecinv": 5, "kpp_pre": 0, "mom_fluxform": 0}
 # largest relative interior error a kernel may show against its twin
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # the H100 SXM's published peaks (NVIDIA's datasheet): HBM bytes/s
@@ -124,11 +155,32 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 "gad_calc_rhs_c2": 60, "mom_fluxform_adj": 600,
                 "gad_calc_rhs_c2_adj": 120, "mom_vecinv": 300,
                 "impldiff": 15, "eos_find_rho": 60, "kpp_pre": 400,
-                "kpp_smooth": 40, "kpp_col": 250}
+                "kpp_smooth": 40, "kpp_col": 250, "ggl90_col": 120,
+                "ggl90_visc": 10, "gad_multidim_x": 80,
+                "gad_multidim_y": 80, "gad_multidim_r": 80}
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam",)
 IN_PLACE = {"cg2d_s_update": ("s",), "cg2d_xr_update": ("x", "r")}
+# the fused computations of the kernel table that are still plain PyTorch
+# on the ported paths (glue) or off them (row H): the distinct float32
+# fields each must move once per call at 1024x1024x32 (3-D, 2-D), each
+# input read once and each output written once, for their bound
+GLUE_FIELDS = {
+    "D phihyd (rho, hFacC in; phiHyd, dPhiHydX/Y out)": (5, 2),
+    "E cg2d RHS and continuity (u*, v*, u, v, hFacW/S, maskC in; w out)":
+        (10, 8),
+    "F halo wrap, 8 3-D and 4 2-D fills per step (read, write)": (16, 8),
+    "G AB-3 of gU, gV; u*, v*; momentum correction": (22, 3),
+    "KPP glue visc_uv and ghat_flux of theta and salt": (15, 4),
+    "GGL90 glue: kappaRU/RV and kapT/kapS sums, sigmaR": (20, 0),
+    "H cg3d, one 7-point PCG iteration": (12, 0),
+    "H OS7MP or PPM/PQM flux, one direction": (5, 2),
+    "H SOM (schemes 80/81), one tracer's 10 moments in and out": (23, 0),
+    "H seaice LSR tridiagonal sweep (U or V)": (0, 10),
+    "H seaice EVP subcycle": (0, 20),
+    "H GGL90 IDEMIX step": (10, 4),
+}
 CG2D_X_TOL_F64 = 1e-10
 PARITY_DIGITS = 10.0
 GRDCHK_TOL = 1e-5
@@ -222,13 +274,12 @@ def moved_bytes(name, call):
     wrapper checks in one call (each input read once, each output written
     once, an in-place one both), and the cell count of the largest."""
     from mitgcm_tpu_torch import kernels
-    from mitgcm_tpu_torch.model import kpp as kpp_mod
 
     seen = {}
 
     def spy(check):
         def wrapped(first, *args, **tensors):
-            if isinstance(first, str):     # kpp._check_int(name, t, shape)
+            if isinstance(first, str):     # check_int32(name, t, shape)
                 tensors = {first: args[0]}
             for n, t in tensors.items():
                 if n not in SCRATCH:
@@ -239,30 +290,38 @@ def moved_bytes(name, call):
                                            else tensors))
         return wrapped
 
-    saved = kernels.check_tensors, kpp_mod._check_int
+    saved = kernels.check_tensors, kernels.check_int32
     kernels.check_tensors = spy(saved[0])
-    kpp_mod._check_int = spy(saved[1])
+    kernels.check_int32 = spy(saved[1])
     try:
         call()
     finally:
-        kernels.check_tensors, kpp_mod._check_int = saved
+        kernels.check_tensors, kernels.check_int32 = saved
     return (sum(b for b, _ in seen.values()),
             max(n for _, n in seen.values()))
 
 
-def bound(name, call):
-    """(bound_ms, bound_by) of one call of the kernel at these shapes."""
-    nbytes, cells = moved_bytes(name, call)
+def bound(name, call, tensors=None):
+    """(bound_ms, bound_by) of one call of the kernel at these shapes, from
+    the tensors its wrapper checks in the call, or from `tensors` when
+    given (the distinct tensors that the launch reads and writes)."""
+    if tensors is None:
+        nbytes, cells = moved_bytes(name, call)
+    else:
+        distinct = {t.data_ptr(): t for t in tensors}.values()
+        nbytes = sum(t.numel() * t.element_size() for t in distinct)
+        cells = max(t.numel() for t in distinct)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = OPS_PER_CELL[name] * cells / PEAK_F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(name, case, outs_k, outs_p, ms, plain_ms, results,
-            whole=False, call=None):
+            whole=False, call=None, tensors=None):
     """Hold a kernel's outputs against its twin's: on the interior, or on
     every cell when whole (a VJP's halo cells carry cotangents too). call
-    (the kernel path once) gives the kernel's bound."""
+    (the kernel path once) gives the kernel's bound, or tensors (what one
+    launch reads and writes)."""
     from mitgcm_tpu_torch.utils.compare import interior, rel_err
 
     def cells(t):   # interior of a field; a 0-d dot product as it is
@@ -282,9 +341,9 @@ def compare(name, case, outs_k, outs_p, ms, plain_ms, results,
                              f"{case.label}: {rel:.3e} > {tol:g}")
     results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": None}
-    if call is not None:
+    if call is not None or tensors is not None:
         results[name]["bound_ms"], results[name]["bound_by"] = bound(
-            name.split("(")[0], call)
+            name.split("(")[0], call, tensors)
         print(f"{'':18s} bound {results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']})", flush=True)
 
@@ -437,6 +496,7 @@ def full_phase(kernels):
             raise AssertionError(f"{name} is not finite after 6 steps")
     missing = [k for k in KERNELS
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
+               + G9_KERNELS + MD_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -994,9 +1054,12 @@ def profile_steps(exp, state, it0, steps, wall_ms):
             rows.append((ms, e.count / steps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    glue = [r for r in rows if "mitgcm::" not in r[2]]
     print(f"profile, {steps} steps: device busy {busy:.2f} ms/step; idle "
           f"share {1.0 - busy / wall_ms:.3f} of the unprofiled "
-          f"{wall_ms:.2f} ms/step", flush=True)
+          f"{wall_ms:.2f} ms/step; PyTorch's own kernels and copies (the "
+          f"plain glue) {sum(r[0] for r in glue):.2f} ms/step in "
+          f"{sum(r[1] for r in glue):.1f} launches/step", flush=True)
     for ms, count, key in rows[:16]:
         print(f"  {ms:8.3f} ms/step {count:6.1f} calls/step  {key[:70]}")
 
@@ -1011,6 +1074,263 @@ def kpp_phase(kernels, results, smi):
     launches = kpp_full_phase(kernels, smi)
     torch.cuda.empty_cache()
     return launches
+
+
+class G9Case:
+    """The ggl90-gyre's grid and GGL90 on the card, with seeded inputs:
+    velocities with some zero-shear columns, a TKE with noise, the
+    profiles with noise (statically unstable in places) and sigmaR from
+    them, a wind stress, a vertical velocity and a tracer with fronts."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.model import gad
+        from mitgcm_tpu_torch.model import thermodynamics as th
+        from mitgcm_tpu_torch.ops.eos import find_rho
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.ggl90_gyre_config(nx=n, ny=n, nr=nr,
+                                               deltaT=600.0)
+        (self.grid, _, _, _,
+         self.ggl90) = synthetic.ggl90_gyre_setup(self.cfg, dtype=dtype,
+                                                  device="cuda")
+        cfg, g = self.cfg, self.grid
+        rng = np.random.default_rng(SEED + 3)
+        shape = tuple(g.hFacC.shape)
+        prof = dict(dtype=dtype, device="cuda")
+        tref = torch.tensor(cfg.tRef, **prof)[:, None, None]
+        sref = torch.tensor(cfg.sRef, **prof)[:, None, None]
+        self.u = self.field(rng, shape, 0.1)
+        self.v = self.field(rng, shape, 0.1)
+        for a in (self.u, self.v):      # no vertical shear in columns 8, 9
+            a[:, :, 8:10] = a[:1, :, 8:10]
+        self.u, self.v = self.u * g.maskW, self.v * g.maskS
+        self.w = self.field(rng, shape, 1e-3) * g.maskC
+        self.tke = self.field(rng, shape, 1e-4).abs() * g.maskC
+        theta = (tref + self.field(rng, shape, 0.5)) * g.maskC
+        salt = (sref + self.field(rng, shape, 0.05)) * g.maskC
+        rho = find_rho(cfg, g, theta, salt) * g.maskC
+        self.sigmaR = th.calc_sigmaR(cfg, g, rho, theta, salt)
+        self.sfU = self.field(rng, shape[1:], 1e-4)
+        self.sfV = self.field(rng, shape[1:], 1e-4)
+        self.tracer = theta.clone()        # with fronts in x, y and r
+        self.tracer[:, :, 2 * n // 3:] += 3.0
+        self.tracer[nr // 3:, n // 2:, :] -= 2.0
+        self.tracer = self.tracer * g.maskC
+        self.flow = gad.calc_adv_flow(g, self.u, self.v, self.w)
+        self.kappa = self.field(rng, shape, 1e-3).abs()
+
+    field = Case.field
+    label = Case.label
+
+
+def g9_kernel_phase(case, results, reps):
+    """G9 (ggl90_col, then ggl90_visc on its visctmp) and M (each sweep on
+    the previous sweep's output, schemes 30, 33 and 77; 33, the main
+    path's, last) against their twins on whole arrays, halos included;
+    and C without its advective part, as the ggl90-gyre runs it."""
+    from mitgcm_tpu_torch.model import gad
+    from mitgcm_tpu_torch.model import ggl90 as g9
+
+    ggl90, cfg, g = case.ggl90, case.cfg, case.grid
+    args = (case.u, case.v, case.tke, case.sigmaR, case.sfU, case.sfV)
+
+    def col(kernel):
+        f = g9.ggl90_col if kernel else g9._ggl90_col_plain
+        return f(ggl90, *args)
+
+    ck, cp = col(True), col(False)
+    names = ("tke", "diffKr", "visctmp")
+    compare("ggl90_col", case, [ck[n] for n in names],
+            [cp[n] for n in names], cuda_time_ms(lambda: col(True), reps),
+            cuda_time_ms(lambda: col(False), reps), results, whole=True,
+            call=lambda: col(True))
+
+    def visc(kernel):
+        f = g9.ggl90_visc if kernel else g9._ggl90_visc_plain
+        return f(ggl90, cp["visctmp"])
+
+    compare("ggl90_visc", case, visc(True), visc(False),
+            cuda_time_ms(lambda: visc(True), reps),
+            cuda_time_ms(lambda: visc(False), reps), results, whole=True,
+            call=lambda: visc(True))
+    wet = g.maskC > 0
+    tke = ck["tke"][1:][wet[1:]]
+    print(f"{'ggl90_col':18s} {case.label:18s} unstable interfaces "
+          f"{int((case.sigmaR < 0).sum())}, Prandtl number above 1 in "
+          f"{int(cp['prandtl'].sum())} cells, tke' "
+          f"{float(tke.min()):.3e}-{float(tke.max()):.3e}, diffKr max "
+          f"{float(ck['diffKr'].max()):.3e}", flush=True)
+
+    for scheme in (30, 77, 33):
+        sweeps = gad.multidim_sweeps(cfg, g, case.flow, case.u, case.v,
+                                     case.w, case.tracer, scheme, scheme,
+                                     cfg.deltaTTracer)
+        for name, run, src, dst, touched in sweeps:
+            twin = gad.MD_PLAIN[name]
+
+            def plain(twin=twin, src=src):
+                return twin(cfg, g, case.flow, case.u, case.v, case.w,
+                            case.tracer, src, scheme, scheme,
+                            cfg.deltaTTracer)
+            run()
+            label = name if scheme == 33 else f"{name}({scheme})"
+            compare(label, case, [dst], [plain()],
+                    cuda_time_ms(run, reps), cuda_time_ms(plain, reps),
+                    results, whole=True, tensors=touched)
+
+    def rhs(impl):
+        return gad.calc_rhs(cfg, g, case.flow, case.tracer, case.kappa,
+                            cfg.diffKhT, implicit_diffusion=True,
+                            calc_advection=False, impl=impl)
+
+    compare("gad_calc_rhs_c2(noadv)", case, [rhs(None)], [rhs("plain")],
+            cuda_time_ms(lambda: rhs(None), reps),
+            cuda_time_ms(lambda: rhs("plain"), reps), results)
+
+
+def g9_experiment(n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.ggl90_gyre_config(nx=n, ny=n, nr=nr, **kw)
+    grid, state, forcing, op, ggl90 = synthetic.ggl90_gyre_setup(
+        cfg, dtype=dtype, device="cuda")
+    return Experiment(cfg, grid, state, forcing, op, ggl90=ggl90, impl=impl)
+
+
+def g9_parity_phase():
+    from mitgcm_tpu_torch.utils.compare import digits, interior, record_digits
+
+    exps = {impl: g9_experiment(64, 12, torch.float64, impl)
+            for impl in (None, "plain")}
+    runs = {impl: e.run(n_steps=10) for impl, e in exps.items()}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        key = min(dig, key=dig.get)
+        worst = min(worst, dig[key])
+        print(f"ggl90 step {rk['iter']:2d}: cg2d iters {rk['cg2d_iters']} / "
+              f"{rp['cg2d_iters']}, init res {rk['cg2d_init_res']:.10e}, "
+              f"fewest digits {dig[key]:.2f} ({key})", flush=True)
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError("ggl90-gyre cg2d iteration counts differ")
+    ol = exps[None].cfg.olx
+    tke = digits(interior(exps[None].state.GGL90TKE, ol),
+                 interior(exps["plain"].state.GGL90TKE, ol))
+    worst = min(worst, tke)
+    if not worst >= PARITY_DIGITS:
+        raise AssertionError(f"ggl90-gyre parity {worst:.2f} < "
+                             f"{PARITY_DIGITS} digits")
+    print(f"ggl90-gyre parity: fewest matching digits {worst:.2f} "
+          f"(GGL90TKE {tke:.2f})")
+
+
+def g9_restart_phase():
+    """tools/do_tst_2+2 on the card: 4 steps against 2 + pickup and
+    pickup_ggl90 + 2."""
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import read_pickup, write_pickup
+
+    e4 = g9_experiment(64, 12, torch.float64)
+    e4.run(n_steps=4, collect_monitor=False)
+    e2 = g9_experiment(64, 12, torch.float64)
+    e2.run(n_steps=2, collect_monitor=False)
+    e22 = g9_experiment(64, 12, torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_pickup(e2, tmp, 2)
+        read_pickup(e22, tmp, 2)
+    e22.run(n_steps=2, collect_monitor=False)
+    ol = e4.cfg.olx
+    names = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1",
+             "guNm2", "gtNm1", "gsNm2", "GGL90TKE")
+    differ = [n for n in names
+              if not torch.equal(getattr(e4.state, n)[..., ol:-ol, ol:-ol],
+                                 getattr(e22.state, n)[..., ol:-ol, ol:-ol])]
+    print(f"2+2 restart of the ggl90-gyre on the kernel path, 64x64x12 "
+          f"float64: {len(names) - len(differ)} of {len(names)} fields "
+          f"bit-equal", flush=True)
+    if differ:
+        raise AssertionError(f"ggl90-gyre restart differs in {differ}")
+
+
+def g9_full_phase(kernels, smi):
+    from mitgcm_tpu_torch.model import gad
+    from mitgcm_tpu_torch.model import ggl90 as g9
+
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = g9_experiment(n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    state0 = exp.state
+    points = n * n * nr
+
+    def run(state, it0, steps, impl):
+        exp.state, exp.cur_iter, exp.impl = state, it0, impl
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, [r["cg2d_iters"] for r in recs], \
+            time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, iters_w, sec_w = run(state0, 0, 1, None)
+    kernels.launches.clear()
+    plain0 = g9.plain_calls + gad.plain_calls
+    state, iters, sec = run(state1, 1, 5, None)
+    launches = dict(kernels.launches)
+    plain = g9.plain_calls + gad.plain_calls - plain0
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
+          f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; plain GGL90 and multidim calls {plain}; launches "
+          f"{launches}", flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN",
+                 "GGL90TKE"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"ggl90-gyre {name} is not finite")
+    tke = state.GGL90TKE[1:][exp.grid.maskC[1:] > 0]
+    print(f"GGL90TKE after 6 steps: {float(tke.min()):.3e}-"
+          f"{float(tke.max()):.3e}, above 1e-6 in {int((tke > 1e-6).sum())}"
+          f" of {tke.numel()} wet interfaces", flush=True)
+    wrong = {k: launches.get(k, 0) for k, want in G9_LAUNCHES.items()
+             if launches.get(k, 0) != want}
+    if wrong or plain:
+        raise AssertionError(f"ggl90-gyre launch counts {wrong} (want "
+                             f"{G9_LAUNCHES}), plain calls {plain}")
+    profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
+    _, iters_p, sec_p = run(state1, 1, 2, "plain")
+    print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
+          f"{points * 2 / sec_p:.4e} points*steps/s, cg2d iterations "
+          f"{iters_p}", flush=True)
+    return launches
+
+
+def g9_phase(kernels, results, smi):
+    phase("9 ggl90-gyre")
+    g9_kernel_phase(G9Case(64, 12, torch.float64), results, reps=20)
+    g9_kernel_phase(G9Case(1024, 32, torch.float32), results, reps=10)
+    torch.cuda.empty_cache()
+    g9_parity_phase()
+    g9_restart_phase()
+    launches = g9_full_phase(kernels, smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def glue_bounds(smi):
+    """The bytes-over-bandwidth bound of each row of GLUE_FIELDS at
+    1024x1024x32 float32 (padded by 2 halo cells)."""
+    phase("plain glue and row H: bounds at 1024x1024x32 float32")
+    n2 = (1024 + 4) ** 2 * 4
+    for row, (f3, f2) in GLUE_FIELDS.items():
+        nbytes = (f3 * 32 + f2) * n2
+        print(f"{row}: {f3} 3-D + {f2} 2-D fields, {nbytes / 1e9:.3f} GB, "
+              f"bound {nbytes / PEAK_BYTES_S * 1e3:.4f} ms ({smi})")
 
 
 def main():
@@ -1042,6 +1362,10 @@ def main():
     kpp_launches = kpp_phase(kernels, results, smi)
     for name in KPP_KERNELS:
         launches[name] = kpp_launches[name]
+    g9_launches = g9_phase(kernels, results, smi)
+    for name in G9_KERNELS + MD_KERNELS:
+        launches[name] = g9_launches[name]
+    glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
     if jax_pkg:

@@ -27,9 +27,10 @@ from mitgcm_tpu_torch.model import step as step_mod
 def check_adjoint_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the options whose kernels have no
     backward kernel yet (V: vector-invariant momentum, T: implicit
-    vertical mixing, R: the nonlinear EOS, K: KPP), and for AB-3, whose
-    gradient is not yet held against the JAX adjoint: the adjoint runs the
-    gyre of the forward path's first slice only."""
+    vertical mixing, R: the nonlinear EOS, K: KPP, G9: GGL90, M: the
+    multi-dimensional advection of schemes 30, 33 and 77), and for AB-3,
+    whose gradient is not yet held against the JAX adjoint: the adjoint runs
+    the gyre of the forward path's first slice only."""
     off = {
         "vectorInvariantMomentum": cfg.vectorInvariantMomentum,
         "implicitDiffusion": cfg.implicitDiffusion,
@@ -37,7 +38,12 @@ def check_adjoint_supported(cfg: Config) -> None:
         f"eosType={cfg.eosType}": cfg.eosType.upper() != "LINEAR",
         "useAB3": cfg.useAB3,
         "useKPP": cfg.useKPP,
+        "useGGL90": cfg.useGGL90,
     }
+    for tr in ("temp", "salt"):
+        for d in ("", "Vert"):
+            scheme = getattr(cfg, f"{tr}{d}AdvScheme")
+            off[f"{tr}{d}AdvScheme={scheme}"] = scheme not in (None, 2)
     bad = [name for name, is_off in off.items() if is_off]
     if bad:
         raise NotImplementedError(

@@ -71,6 +71,9 @@ class Grid:
     maskInC: torch.Tensor
     maskInW: torch.Tensor
     maskInS: torch.Tensor
+    # the column's bottom and surface r (2-D), GGL90's mixing-length limits
+    R_low: torch.Tensor
+    Ro_surf: torch.Tensor
     # linear free surface factors (ini_linear_phisurf.F)
     Bo_surf: torch.Tensor
     recip_Bo: torch.Tensor
@@ -270,6 +273,7 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
         recip_hFacS=T(_safe_recip(hFacS)),
         maskC=T(hFacC > 0.0), maskW=T(hFacW > 0.0), maskS=T(hFacS > 0.0),
         maskInC=T(maskInC), maskInW=T(kSurfW <= nr), maskInS=T(kSurfS <= nr),
+        R_low=T(R_low), Ro_surf=T(Ro_surf),
         Bo_surf=T(np.full(pshape, cfg.gBaro)),
         recip_Bo=T(np.full(pshape, 1.0 / cfg.gBaro)),
         globalArea=T(globalArea),

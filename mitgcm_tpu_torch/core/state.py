@@ -1,10 +1,12 @@
 """Prognostic state and surface forcing (mitgcm_tpu/core/state.py), holding
 the fields of the main path: the DYNVARS.h velocities, tracers and free
-surface, the AB-2/AB-3 tendency history, and FFIELDS.h's simple forcing."""
+surface, the AB-2/AB-3 tendency history, GGL90's TKE, and FFIELDS.h's
+simple forcing."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -32,6 +34,9 @@ class State:
     gsNm2: torch.Tensor
     totPhiHyd: torch.Tensor  # hydrostatic potential anomaly of the last step
     PmEpR: torch.Tensor      # P-E+R seen by the next tracer forcing
+    # GGL90's prognostic turbulent kinetic energy [nr, nyp, nxp] at the
+    # interface above each cell (pkg/ggl90/GGL90.h); None unless useGGL90
+    GGL90TKE: Optional[torch.Tensor] = None
 
 
 @dataclass

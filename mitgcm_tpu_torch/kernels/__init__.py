@@ -58,8 +58,9 @@ SIGNATURES = {
     # sideDragFactor, rkSign; stream
     "mom_fluxform": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx; diffKh, rkSign;
-    # implicit_diffusion; df (the extra vertical flux, or null); stream
-    "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _P, _P],
+    # implicit_diffusion, calc_advection; df (the extra vertical flux, or
+    # null); stream
+    "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _I, _P, _P],
     # the backward kernels take the arguments of their forward kernels
     # (C' without the implicit_diffusion flag)
     "mom_fluxform_adj": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
@@ -82,6 +83,17 @@ SIGNATURES = {
     # pointer table, its length; parameter array, its length; nr, nyp, nxp,
     # LimitHblStable; stream
     "kpp_col": [_PP, _I, _PD, _I] + [_I] * 4 + [_P],
+    # pointer table, its length; parameter array, its length; nr, nyp, nxp,
+    # mxlMaxFlag, calcMeanVertShear, GGL90_dirichlet; stream
+    "ggl90_col": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
+    # visctmp, maskW, maskS, viscU, viscV; nr, nyp, nxp; viscMax, viscAr;
+    # stream
+    "ggl90_visc": [_P] * 5 + [_I] * 3 + [_D] * 2 + [_P],
+    # pointer table, its length; the sweep's input and output fields; nr,
+    # nyp, nxp, scheme; deltaT, rkSign; stream
+    "gad_multidim_x": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P],
+    "gad_multidim_y": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P],
+    "gad_multidim_r": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -183,6 +195,20 @@ def check_shape(name: str, t: torch.Tensor, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{name}: shape {tuple(t.shape)}, need {tuple(shape)}")
+
+
+def check_int32(name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless t is a contiguous int32 CUDA tensor of `shape` (a
+    per-column level count)."""
+    if not (t.is_cuda and t.dtype == torch.int32 and t.is_contiguous()):
+        raise ValueError(f"{name}: need a contiguous int32 CUDA tensor")
+    check_shape(name, t, shape)
+
+
+def doubles(vals) -> ctypes.Array:
+    """Host array of a kernel's float parameters (read as doubles and cast
+    to the kernel's type on the device, as a Python number is)."""
+    return (ctypes.c_double * len(vals))(*[float(x) for x in vals])
 
 
 def pointer_table(tensors) -> ctypes.Array:

@@ -6,7 +6,10 @@
 // surface zero at :1021) and diff_flux_r (:1025-1031), the latter left out
 // under implicit_diffusion (:1093-1094), plus an optional extra vertical
 // flux df (the KPP nonlocal flux, :1099-1101): the flux divergence minus
-// tracer * divTrans. XLA fused it into a few sweeps on the TPU.
+// tracer * divTrans. Without calcAdvection (calc_rhs(calc_advection=False),
+// the tracers that kernel M advects, gad_multidim.cu) the advective
+// fluxes are 0 and divTrans is multiplied by advFac = 0, as in the JAX code.
+// XLA fused it into a few sweeps on the TPU.
 //
 // Bound: bytes. Per cell it reads 10 3-D fields (the transports and areas
 // of AdvFlow, the tracer, kappaR, maskC and recip_hFacC) and writes one,
@@ -30,14 +33,15 @@ template <typename T>
 __global__ void calc_rhs_c2_kernel(const GadArgs<T> a, int nr, int ny,
                                    int nx, int oly, int olx, T diffKh,
                                    T rkSign, bool implicitDiffusion,
-                                   const T* df) {
+                                   bool calcAdvection, const T* df) {
   const int nyp = ny + 2 * oly, nxp = nx + 2 * olx;
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   const int k = blockIdx.z;
   if (i >= nxp || j >= nyp) return;
-  const GadCell<T> c{a,      nr,     nyp, nxp, diffKh,
-                     rkSign, implicitDiffusion, df};
+  const GadCell<T> c{a,      nr,     nyp,
+                     nxp,    diffKh, rkSign,
+                     implicitDiffusion, calcAdvection, df};
   const size_t p = c.i3(k, j, i);
   if (i < olx || i >= olx + nx || j < oly || j >= oly + ny) {
     a.gTr[p] = T(0);
@@ -46,9 +50,12 @@ __global__ void calc_rhs_c2_kernel(const GadArgs<T> a, int nr, int ny,
   const size_t q = c.i2(j, i);
   const T rTransKp =
       k + 1 < nr ? a.rTrans[p + static_cast<size_t>(nyp) * nxp] : T(0);
-  const T divTrans = (a.uTrans[p + 1] - a.uTrans[p]) +
-                     (a.vTrans[p + nxp] - a.vTrans[p]) +
-                     (rTransKp - a.rTrans[p]) * rkSign;
+  // advFac (gad.py:1104-1109); x * 1 is x, so with advection the sum
+  // rounds as the plain divergence does
+  const T advFac = calcAdvection ? T(1) : T(0);
+  const T divTrans = (a.uTrans[p + 1] - a.uTrans[p]) * advFac +
+                     (a.vTrans[p + nxp] - a.vTrans[p]) * advFac +
+                     (rTransKp - a.rTrans[p]) * (rkSign * advFac);
   const T mIn = a.maskInC[q];
   a.gTr[p] = -(a.recip_hFacC[p] * a.recip_drF[k] * a.recip_rA[q] *
                (((c.fZon(k, j, i + 1) - c.fZon(k, j, i)) +
@@ -60,7 +67,8 @@ __global__ void calc_rhs_c2_kernel(const GadArgs<T> a, int nr, int ny,
 template <typename T>
 int launch_calc_rhs(const void* const* table, int n, int nr, int ny, int nx,
                     int oly, int olx, double diffKh, double rkSign,
-                    int implicitDiffusion, const void* df, void* stream) {
+                    int implicitDiffusion, int calcAdvection, const void* df,
+                    void* stream) {
   static_assert(sizeof(GadArgs<T>) == kGadNumPointers * sizeof(void*),
                 "GadArgs must be a plain table of pointers");
   if (n != kGadNumPointers) return (int)cudaErrorInvalidValue;
@@ -70,7 +78,7 @@ int launch_calc_rhs(const void* const* table, int n, int nr, int ny, int nx,
                nr);
   calc_rhs_c2_kernel<T><<<g, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
       a, nr, ny, nx, oly, olx, T(diffKh), T(rkSign), implicitDiffusion != 0,
-      (const T*)df);
+      calcAdvection != 0, (const T*)df);
   return (int)cudaGetLastError();
 }
 
@@ -81,10 +89,11 @@ extern "C" int mitgcm_gad_calc_rhs_c2_f32(const void* const* table, int n,
                                           int olx, double diffKh,
                                           double rkSign,
                                           int implicitDiffusion,
-                                          const void* df, void* stream) {
+                                          int calcAdvection, const void* df,
+                                          void* stream) {
   return mitgcm::launch_calc_rhs<float>(table, n, nr, ny, nx, oly, olx,
                                         diffKh, rkSign, implicitDiffusion,
-                                        df, stream);
+                                        calcAdvection, df, stream);
 }
 
 extern "C" int mitgcm_gad_calc_rhs_c2_f64(const void* const* table, int n,
@@ -92,8 +101,9 @@ extern "C" int mitgcm_gad_calc_rhs_c2_f64(const void* const* table, int n,
                                           int olx, double diffKh,
                                           double rkSign,
                                           int implicitDiffusion,
-                                          const void* df, void* stream) {
+                                          int calcAdvection, const void* df,
+                                          void* stream) {
   return mitgcm::launch_calc_rhs<double>(table, n, nr, ny, nx, oly, olx,
                                          diffKh, rkSign, implicitDiffusion,
-                                         df, stream);
+                                         calcAdvection, df, stream);
 }

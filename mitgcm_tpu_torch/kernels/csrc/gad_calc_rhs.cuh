@@ -28,6 +28,9 @@ struct GadCell {
   // implicitDiffusion: the implicit solve (impldiff.cu) takes the place of
   // the explicit vertical diffusive flux, which is left out
   bool implicitDiffusion;
+  // calcAdvection false: the advective fluxes are left out (the
+  // multi-dimensional advection, gad_multidim.cu, has advected the tracer)
+  bool calcAdvection;
   // an extra vertical flux added at every interface (the KPP nonlocal
   // flux, gad.py:1099-1101), or null
   const T* df;
@@ -42,16 +45,16 @@ struct GadCell {
   __device__ T fZon(int k, int j, int i) const {
     const size_t p = i3(k, j, i);
     const T t = a.tracer[p], tm1 = a.tracer[p - 1];
-    return a.uTrans[p] * T(0.5) * (t + tm1) -
-           diffKh * a.xA[p] * a.recip_dxC[i2(j, i)] * (t - tm1) *
-               a.cosFacU[i2(j, i)];
+    const T adv = calcAdvection ? a.uTrans[p] * T(0.5) * (t + tm1) : T(0);
+    return adv - diffKh * a.xA[p] * a.recip_dxC[i2(j, i)] * (t - tm1) *
+                     a.cosFacU[i2(j, i)];
   }
   // meridional flux at the south face
   __device__ T fMer(int k, int j, int i) const {
     const size_t p = i3(k, j, i);
     const T t = a.tracer[p], tm1 = a.tracer[p - nxp];
-    return a.vTrans[p] * T(0.5) * (t + tm1) -
-           diffKh * a.yA[p] * a.recip_dyC[i2(j, i)] * (t - tm1);
+    const T adv = calcAdvection ? a.vTrans[p] * T(0.5) * (t + tm1) : T(0);
+    return adv - diffKh * a.yA[p] * a.recip_dyC[i2(j, i)] * (t - tm1);
   }
   // vertical flux at the upper face (interface k); zero below the bottom,
   // and at the surface but for df
@@ -61,9 +64,9 @@ struct GadCell {
     if (k == 0) return df ? df[p] : T(0);
     const size_t pm = p - static_cast<size_t>(nyp) * nxp;
     const T t = a.tracer[p], tkm1 = a.tracer[pm];
-    const T adv = a.maskC[pm] * a.rTrans[p] * T(0.5) * (t + tkm1) *
-                  a.maskInC[i2(j, i)];
-    T f = adv;
+    T f = calcAdvection ? a.maskC[pm] * a.rTrans[p] * T(0.5) * (t + tkm1) *
+                              a.maskInC[i2(j, i)]
+                        : T(0);
     if (!implicitDiffusion)
       f = f + -a.kappaR[p] * a.maskUp[p] * a.rA[i2(j, i)] * a.recip_drC[k] *
                   (t - tkm1) * rkSign;

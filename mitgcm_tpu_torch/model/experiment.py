@@ -20,6 +20,7 @@ from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.diag import monitor
 from mitgcm_tpu_torch.model import step as step_mod
+from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import KPP
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
@@ -33,6 +34,7 @@ class Experiment:
     forcing: Forcing
     op: CG2DOperator
     kpp: Optional[KPP] = None      # model/kpp.py:KPP when useKPP
+    ggl90: Optional[GGL90] = None  # model/ggl90.py:GGL90 when useGGL90
     impl: Optional[str] = None     # "plain": kernel twins on any device
     cur_iter: Optional[int] = None
 
@@ -54,7 +56,8 @@ class Experiment:
         for _ in range(n):
             self.state, diag = step_mod.forward_step(
                 cfg, self.grid, self.op, self.state, self.forcing,
-                self.cur_iter, impl=self.impl, kpp=self.kpp)
+                self.cur_iter, impl=self.impl, kpp=self.kpp,
+                ggl90=self.ggl90)
             self.cur_iter += 1
             rec = {"iter": self.cur_iter,
                    "cg2d_init_res": float(diag.cg2d_init_res),
@@ -71,9 +74,10 @@ class Experiment:
 # read_pickup (:1038-1238), reference write_pickup.F / read_pickup.F. One
 # MDS multi-record float64 file with a .meta fldList; the JAX package's
 # extra Wvel and PmEpR records make a restart bit-exact without
-# recomputing w. No companion pickup is written or read: every package
-# that has one is refused by step.check_supported (KPP keeps no state from
-# step to step, so it has none).
+# recomputing w. GGL90's TKE goes into the companion pickup_ggl90
+# (ggl90_write_pickup.F); every other package that has a companion pickup
+# is refused by step.check_supported (KPP keeps no state from step to step,
+# so it has none).
 # ----------------------------------------------------------------------
 
 _PICKUP_3D = ["Uvel", "Vvel", "Theta", "Salt",
@@ -101,9 +105,10 @@ def _interior(cfg: Config, t: torch.Tensor) -> np.ndarray:
 def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
     """Write pickup.<iter10>.data/.meta with the JAX package's field set
     and order (float64 at any working precision, so a float32 round trip
-    is exact); returns the file root."""
+    is exact), and pickup_ggl90.<iter10> with GGL90TKE when useGGL90;
+    returns the file root."""
     cfg, st = exp.cfg, exp.state
-    step_mod.check_supported(cfg, exp.kpp)
+    step_mod.check_supported(cfg, exp.kpp, exp.ggl90)
     flds3d = _PICKUP_3D + (_PICKUP_AB3 if cfg.useAB3 else []) + ["Wvel"]
     flds2d = _PICKUP_2D + ["PmEpR"]
     recs = [_interior(cfg, getattr(st, _FIELD[n])) for n in flds3d]
@@ -114,6 +119,11 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
     mds.wrmds(froot, stack, itr=myIter, dataprec="float64",
               nrecords=stack.shape[0], fldlist=flds3d + flds2d,
               timestep_number=myIter)
+    if cfg.useGGL90:
+        tke = _interior(cfg, st.GGL90TKE)
+        mds.wrmds(os.path.join(out_dir, "pickup_ggl90"), tke, itr=myIter,
+                  dataprec="float64", nrecords=tke.shape[0],
+                  fldlist=["GGL90TKE"], timestep_number=myIter)
     return froot
 
 
@@ -123,9 +133,10 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     startTime as the JAX package does. A pickup without Wvel (the
     reference's own) gets w recomputed from the restored velocities
     (initialise_varia.F); one without the *Nm2 records leaves them zero,
-    as the reference does after its warning."""
+    as the reference does after its warning. With useGGL90 the TKE comes
+    from pickup_ggl90.<iter10>, which must exist (ggl90_read_pickup.F)."""
     cfg = exp.cfg
-    step_mod.check_supported(cfg, exp.kpp)
+    step_mod.check_supported(cfg, exp.kpp, exp.ggl90)
     fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
                                   itr=myIter)
     stack = fields["__records__"]
@@ -162,6 +173,14 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
             cfg, exp.grid, updates["uVel"], updates["vVel"],
             torch.zeros_like(like))
         updates["wVel"] = cyclic_fill_halo(w, cfg.oly, cfg.olx)
+    if cfg.useGGL90:
+        gg_root = os.path.join(in_dir, "pickup_ggl90")
+        if not os.path.exists(f"{gg_root}.{myIter:010d}.meta"):
+            raise FileNotFoundError(
+                f"useGGL90 restart needs {gg_root}.{myIter:010d} (refusing "
+                "to silently reset GGL90TKE)")
+        gfields, _ = mds.read_mflds(gg_root, itr=myIter)
+        updates["GGL90TKE"] = pad(gfields["__records__"][:cfg.nr])
     exp.state = dataclasses.replace(exp.state, **updates)
     cfg.startFromPickup = True
     cfg.startTime = cfg.baseTime + myIter * cfg.deltaTClock

@@ -1,6 +1,8 @@
-"""Generic advection-diffusion (mitgcm_tpu/model/gad.py) for centred
+"""Generic advection-diffusion (mitgcm_tpu/model/gad.py): centred
 2nd-order advection (scheme 2) with Laplacian horizontal and explicit
-vertical diffusion.
+vertical diffusion, and the direction-split multi-dimensional advection of
+the non-linear schemes 30 (DST-3), 33 (DST-3 flux-limited) and 77 (the
+Superbee flux limiter).
 
 `calc_rhs` runs kernel C (kernels/csrc/gad_calc_rhs.cu) for CUDA tensors,
 with kernel C' (gad_calc_rhs_adj.cu) as its backward, and the plain
@@ -9,8 +11,18 @@ tensors or when impl="plain" is asked for. The kernel writes zero halo
 cells; both agree on the interior. With implicit_diffusion the explicit
 vertical diffusive flux is left out (the implicit solve,
 thermodynamics.impldiff, takes its place). An extra vertical flux `df`
-(KPP's nonlocal flux) is added to fVer before the divergence. Kernel C' has
-neither branch, so those variants refuse gradients.
+(KPP's nonlocal flux) is added to fVer before the divergence. Without
+calc_advection the advective fluxes and the tracer * divergence term are
+left out (the multi-dimensional advection has advected the tracer). Kernel C'
+has none of these branches, so those variants refuse gradients.
+
+`multidim_advection` runs kernel M (kernels/csrc/gad_multidim.cu: the X,
+Y and R sweeps, one launch each) for CUDA tensors and the plain twin
+`_multidim_plain`, built from `adv_flux_x`/`adv_flux_y`/`adv_flux_r`, for
+CPU tensors or with impl="plain". Both compute every cell of the
+padded arrays with the JAX code's zero-filled shifts, so the Y sweep reads
+what the X sweep wrote in the halo rows, as in the JAX code. No gradient:
+the adjoint refuses every scheme but 2.
 """
 
 from __future__ import annotations
@@ -24,6 +36,23 @@ from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.ops.stencil import shift as sh
 from mitgcm_tpu_torch.ops.stencil import shift_k
+
+ENUM_CENTERED_2ND = 2
+ENUM_DST3 = 30
+ENUM_DST3_FLUX_LIMIT = 33
+ENUM_FLUX_LIMIT = 77
+# the schemes the port runs under the multi-dimensional advection (kernel M)
+MULTIDIM_SCHEMES = (ENUM_DST3, ENUM_DST3_FLUX_LIMIT, ENUM_FLUX_LIMIT)
+# the JAX package's multi-dimensional set (gad.py:49-51): upwind-1st, DST-2,
+# OS7MP, PPM and PQM are not ported
+_JAX_MULTIDIM = (77, 33, 20, 30, 1, 7, 40, 41, 42, 50, 51, 52)
+
+# calls of multidim_advection that ran the plain twin (a run on the card
+# reads it to show that its kernel path never did)
+plain_calls = 0
+
+_CR_MAX = 1.0e6       # gad_fluxlimit_adv_x.F:63
+_THETA_MAX = 1.0e20   # gad_dst3fl_adv_x.F:36
 
 
 class AdvFlow(NamedTuple):
@@ -49,21 +78,143 @@ def calc_adv_flow(grid: Grid, u, v, w) -> AdvFlow:
                    rTransKp=rTransKp, maskUp=maskUp, xA=xA, yA=yA)
 
 
-def adv_flux_x(uTrans, tracer):
-    """Scheme-2 zonal advective flux at the west face (gad_c2_adv_x.F)."""
-    return uTrans * 0.5 * (tracer + sh(tracer, di=-1))
+def _div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c as one IEEE division on every device (PyTorch's CUDA kernels
+    multiply by the reciprocal of a Python-number divisor; kernel M and the
+    JAX package divide)."""
+    return a / a.new_tensor(c)
 
 
-def adv_flux_y(vTrans, tracer):
-    return vTrans * 0.5 * (tracer + sh(tracer, dj=-1))
+def _limiter(cr):
+    """Superbee limiter (gad_fluxlimit_adv_x.F Limiter)."""
+    return torch.clamp(torch.maximum(torch.clamp(2.0 * cr, max=1.0),
+                                     torch.clamp(cr, max=2.0)), min=0.0)
 
 
-def adv_flux_r(grid: Grid, rTrans, tracer):
-    """Scheme-2 vertical advective flux at interface k, zero at the surface
-    (gad_c2_adv_r.F); the k-1 neighbours are clamped at the top."""
-    tkm1 = torch.cat([tracer[:1], tracer[:-1]])
-    mkm1 = torch.cat([grid.maskC[:1], grid.maskC[:-1]])
-    flx = mkm1 * rTrans * 0.5 * (tracer + tkm1)
+def _flux_limit_cr(Rj, cr_raw):
+    """The Superbee slope ratio with its overflow guard: +-_CR_MAX with the
+    signs of cr_raw and Rj where |Rj| * _CR_MAX <= |cr_raw|."""
+    big = torch.where(cr_raw >= 0.0, Rj.new_tensor(_CR_MAX),
+                      Rj.new_tensor(-_CR_MAX))
+    sign_rj = torch.where(Rj >= 0.0, Rj.new_tensor(1.0), Rj.new_tensor(-1.0))
+    return torch.where(Rj.abs() * _CR_MAX <= cr_raw.abs(), big * sign_rj,
+                       cr_raw / torch.where(Rj == 0.0, 1.0, Rj))
+
+
+def _dst3fl_psi(Rj, Rother, cfl, d0, d1):
+    """DST-3 flux-limited weight (gad_dst3fl_adv_x.F): theta = Rother/Rj
+    with its overflow guard, psi = d0 + d1 theta clipped to [0, min(1,
+    theta (1-cfl)/cfl)]."""
+    theta = torch.where(
+        Rj.abs() * _THETA_MAX <= Rother.abs(),
+        torch.where(Rother * Rj >= 0.0, Rj.new_tensor(_THETA_MAX),
+                    Rj.new_tensor(-_THETA_MAX)),
+        Rother / torch.where(Rj == 0.0, 1.0, Rj))
+    psi = d0 + d1 * theta
+    return torch.clamp(torch.minimum(torch.clamp(psi, max=1.0),
+                                     theta * (1.0 - cfl) / (cfl + 1.0e-20)),
+                       min=0.0)
+
+
+def _adv_flux_highorder(scheme: int, trans, cfl, t, tm1, Rjp, Rj, Rjm):
+    """gad.py:_adv_flux_highorder (:783-836) for schemes 77, 30 and 33: the
+    horizontal flux at a face, direction-agnostic."""
+    absT = trans.abs()
+    if scheme == ENUM_FLUX_LIMIT:
+        lim = _limiter(_flux_limit_cr(Rj, torch.where(trans > 0.0, Rjm,
+                                                      Rjp)))
+        return (trans * (t + tm1) * 0.5
+                - absT * ((1.0 - lim) + cfl * lim) * Rj * 0.5)
+    d0 = (2.0 - cfl) * (1.0 - cfl) * (1.0 / 6.0)
+    d1 = (1.0 - cfl * cfl) * (1.0 / 6.0)
+    if scheme == ENUM_DST3:
+        return (0.5 * (trans + absT) * (tm1 + (d0 * Rj + d1 * Rjm))
+                + 0.5 * (trans - absT) * (t - (d0 * Rj + d1 * Rjp)))
+    if scheme == ENUM_DST3_FLUX_LIMIT:
+        psiP = _dst3fl_psi(Rj, Rjm, cfl, d0, d1)
+        psiM = _dst3fl_psi(Rj, Rjp, cfl, d0, d1)
+        return (0.5 * (trans + absT) * (tm1 + psiP * Rj)
+                + 0.5 * (trans - absT) * (t - psiM * Rj))
+    raise NotImplementedError(f"advection scheme {scheme}")
+
+
+def adv_flux_x(grid: Grid, scheme: int, uTrans, uFld, tracer, deltaT,
+               maskW):
+    """Zonal advective flux at the west face (gad.py:adv_flux_x, :839-874):
+    scheme 2 (gad_c2_adv_x.F), 30, 33 or 77; maskW is the scheme's face
+    mask (maskW * maskInW under the multi-dimensional advection)."""
+    t = tracer
+    tm1 = sh(t, di=-1)
+    if scheme == ENUM_CENTERED_2ND:
+        return uTrans * 0.5 * (t + tm1)
+    Rjp = (sh(t, di=1) - t) * sh(maskW, di=1)
+    Rj = (t - tm1) * maskW
+    Rjm = (tm1 - sh(t, di=-2)) * sh(maskW, di=-1)
+    return _adv_flux_highorder(scheme, uTrans,
+                               (uFld * deltaT * grid.recip_dxC).abs(),
+                               t, tm1, Rjp, Rj, Rjm)
+
+
+def adv_flux_y(grid: Grid, scheme: int, vTrans, vFld, tracer, deltaT,
+               maskS):
+    """Meridional advective flux at the south face (gad.py:adv_flux_y)."""
+    t = tracer
+    tm1 = sh(t, dj=-1)
+    if scheme == ENUM_CENTERED_2ND:
+        return vTrans * 0.5 * (t + tm1)
+    Rjp = (sh(t, dj=1) - t) * sh(maskS, dj=1)
+    Rj = (t - tm1) * maskS
+    Rjm = (tm1 - sh(t, dj=-2)) * sh(maskS, dj=-1)
+    return _adv_flux_highorder(scheme, vTrans,
+                               (vFld * deltaT * grid.recip_dyC).abs(),
+                               t, tm1, Rjp, Rj, Rjm)
+
+
+def adv_flux_r(grid: Grid, scheme: int, rTrans, wFld, tracer, deltaT):
+    """Vertical advective flux at interface k, zero at the surface
+    (gad.py:adv_flux_r, :911-1022): scheme 2 (gad_c2_adv_r.F), 77
+    (gad_fluxlimit_adv_r.F), 30 (gad_dst3_adv_r.F) or 33
+    (gad_dst3fl_adv_r.F). The vertical neighbours are clamped at the column
+    ends (km1 = max(1, k-1) and so on)."""
+    t = tracer
+    mC = grid.maskC
+    tkm1 = torch.cat([t[:1], t[:-1]])
+    tkm2 = torch.cat([tkm1[:1], tkm1[:-1]])
+    tkp1 = torch.cat([t[1:], t[-1:]])
+    mkm1 = torch.cat([mC[:1], mC[:-1]])
+    mkm2 = torch.cat([mkm1[:1], mkm1[:-1]])
+    mkp1 = torch.cat([mC[1:], mC[-1:]])
+    if scheme == ENUM_CENTERED_2ND:
+        flx = mkm1 * rTrans * 0.5 * (t + tkm1)
+        flx[0] = 0.0
+        return flx
+    absT = rTrans.abs()
+    nr = t.shape[0]
+    wCFL = (wFld * deltaT * grid.recip_drC[:nr, None, None]).abs()
+    if scheme == ENUM_FLUX_LIMIT:
+        Rjp = (tkp1 - t) * mkp1
+        Rj = t - tkm1
+        Rjm = (tkm1 - tkm2) * mkm2
+        lim = _limiter(_flux_limit_cr(Rj, torch.where(rTrans < 0.0, Rjm,
+                                                      Rjp)))
+        flx = mkm1 * (rTrans * (t + tkm1) * 0.5
+                      + absT * ((1.0 - lim) + wCFL * lim) * Rj * 0.5)
+    elif scheme in (ENUM_DST3, ENUM_DST3_FLUX_LIMIT):
+        Rjp = (t - tkp1) * mkp1
+        Rj = (tkm1 - t) * mC * mkm1
+        Rjm = (tkm2 - tkm1) * mkm1
+        d0 = (2.0 - wCFL) * (1.0 - wCFL) * (1.0 / 6.0)
+        d1 = (1.0 - wCFL * wCFL) * (1.0 / 6.0)
+        if scheme == ENUM_DST3:
+            flx = (0.5 * (rTrans + absT) * (t + (d0 * Rj + d1 * Rjp))
+                   + 0.5 * (rTrans - absT) * (tkm1 - (d0 * Rj + d1 * Rjm)))
+        else:
+            psiP = _dst3fl_psi(Rj, Rjm, wCFL, d0, d1)
+            psiM = _dst3fl_psi(Rj, Rjp, wCFL, d0, d1)
+            flx = (0.5 * (rTrans + absT) * (t + psiM * Rj)
+                   + 0.5 * (rTrans - absT) * (tkm1 - psiP * Rj))
+    else:
+        raise NotImplementedError(f"advection scheme {scheme}")
     flx[0] = 0.0
     return flx
 
@@ -97,8 +248,8 @@ def _kernel_inputs(grid: Grid, tracer, uTrans, vTrans, rTrans, xA, yA,
 def _launch(kernel: str, cfg: Config, ins: dict, last, outs: dict,
             diffKh: float, *flags: int) -> None:
     """Check and launch kernel C (last = gTr, flags = (implicit_diffusion,
-    the pointer of df or 0)) or C' (last = the cotangent of gTr, outs = the
-    four input cotangents)."""
+    calc_advection, the pointer of df or 0)) or C' (last = the cotangent of
+    gTr, outs = the four input cotangents)."""
     tracer = ins["tracer"]
     nr, nyp, nxp = tracer.shape
     kernels.check_tensors(tracer.dtype, **ins, last=last, **outs)
@@ -123,14 +274,14 @@ class CalcRhsFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR,
                 cfg: Config, grid: Grid, diffKh: float,
-                implicit_diffusion: bool, df=None):
+                implicit_diffusion: bool, calc_advection: bool, df=None):
         args = (tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR)
         gTr = torch.empty_like(tracer)
         if df is not None:
             kernels.check_tensors(tracer.dtype, df=df)
             kernels.check_shape("df", df, tracer.shape)
         _launch("gad_calc_rhs_c2", cfg, _kernel_inputs(grid, *args), gTr,
-                {}, diffKh, int(implicit_diffusion),
+                {}, diffKh, int(implicit_diffusion), int(calc_advection),
                 df.data_ptr() if df is not None else 0)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(*args)
@@ -143,19 +294,21 @@ class CalcRhsFn(torch.autograd.Function):
         outs = {n + "_bar": torch.empty_like(ins[n]) for n in _DIFFERENTIABLE}
         _launch("gad_calc_rhs_c2_adj", ctx.cfg, ins, gTr_bar.contiguous(),
                 outs, ctx.diffKh)
-        return (*outs.values(),) + (None,) * 9
+        return (*outs.values(),) + (None,) * 10
 
 
 def calc_rhs(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
              diffKh: float, implicit_diffusion: bool = False,
-             impl: str = None, df=None) -> torch.Tensor:
+             impl: str = None, df=None,
+             calc_advection: bool = True) -> torch.Tensor:
     """gad_calc_rhs.F: explicit tendency of one tracer at all levels.
     kappaR: [nr, nyp, nxp] interface diffusivities; df: an extra vertical
-    flux [nr, nyp, nxp] at the interfaces (KPP's nonlocal flux) or None.
-    Differentiable in the tracer and in flow's transports; raises if a
-    constant (xA, yA, maskUp, kappaR, df, the grid) requires grad, since
-    the kernel gives it none, and with implicit_diffusion or df if anything
-    does."""
+    flux [nr, nyp, nxp] at the interfaces (KPP's nonlocal flux) or None;
+    calc_advection=False leaves the advective part out (the
+    multi-dimensional advection's tracers). Differentiable in the tracer and
+    in flow's transports; raises if a constant (xA, yA, maskUp, kappaR, df,
+    the grid) requires grad, since the kernel gives it none, and with
+    implicit_diffusion, df or without calc_advection if anything does."""
     args = (tracer, flow.uTrans, flow.vTrans, flow.rTrans, flow.xA, flow.yA,
             flow.maskUp, kappaR)
     ins = _kernel_inputs(grid, *args)
@@ -165,13 +318,15 @@ def calc_rhs(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
     const = [n for n in grads if n not in _DIFFERENTIABLE]
     if const:
         raise ValueError(f"calc_rhs: constants {const} require grad")
-    if grads and (implicit_diffusion or df is not None):
+    if grads and (implicit_diffusion or df is not None
+                  or not calc_advection):
         raise ValueError(f"calc_rhs: {grads} require grad; kernel C' has no "
-                         "implicit_diffusion or df branch")
+                         "implicit_diffusion, df or no-advection branch")
     if not kernels.use_kernel(tracer, impl):
         return _calc_rhs_plain(cfg, grid, flow, tracer, kappaR, diffKh,
-                               implicit_diffusion, df)
-    return CalcRhsFn.apply(*args, cfg, grid, diffKh, implicit_diffusion, df)
+                               implicit_diffusion, df, calc_advection)
+    return CalcRhsFn.apply(*args, cfg, grid, diffKh, implicit_diffusion,
+                           calc_advection, df)
 
 
 def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
@@ -191,26 +346,173 @@ def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
 
 def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
                     diffKh: float, implicit_diffusion: bool = False,
-                    df=None) -> torch.Tensor:
-    """gad.py:calc_rhs (:1038-1117) without GM or biharmonic terms, in its
-    operation order."""
-    fZon = adv_flux_x(flow.uTrans, tracer)
-    fMer = adv_flux_y(flow.vTrans, tracer)
+                    df=None, calc_advection: bool = True) -> torch.Tensor:
+    """gad.py:calc_rhs (:1038-1117) for scheme 2 without GM or biharmonic
+    terms, in its operation order."""
+    fZon = torch.zeros_like(tracer)
+    fMer = torch.zeros_like(tracer)
+    fVer = torch.zeros_like(tracer)
+    if calc_advection:
+        fZon = adv_flux_x(grid, ENUM_CENTERED_2ND, flow.uTrans, None, tracer,
+                          None, None)
+        fMer = adv_flux_y(grid, ENUM_CENTERED_2ND, flow.vTrans, None, tracer,
+                          None, None)
+        fVer = adv_flux_r(grid, ENUM_CENTERED_2ND, flow.rTrans, None, tracer,
+                          None) * grid.maskInC
     fZon = fZon - (diffKh * flow.xA * grid.recip_dxC
                    * (tracer - sh(tracer, di=-1)) * grid.cosFacU)
     fMer = fMer - (diffKh * flow.yA * grid.recip_dyC
                    * (tracer - sh(tracer, dj=-1)))
-    fVer = adv_flux_r(grid, flow.rTrans, tracer) * grid.maskInC
     if not implicit_diffusion:
         fVer = fVer + diff_flux_r(cfg, grid, kappaR, flow.maskUp, tracer)
     if df is not None:
         fVer = fVer + df
     fVerKp = torch.cat([fVer[1:], torch.zeros_like(fVer[:1])])
-    divTrans = ((sh(flow.uTrans, di=1) - flow.uTrans)
-                + (sh(flow.vTrans, dj=1) - flow.vTrans)
-                + (flow.rTransKp - flow.rTrans) * cfg.rkSign)
+    advFac = 1.0 if calc_advection else 0.0
+    divTrans = ((sh(flow.uTrans, di=1) - flow.uTrans) * advFac
+                + (sh(flow.vTrans, dj=1) - flow.vTrans) * advFac
+                + (flow.rTransKp - flow.rTrans) * (cfg.rkSign * advFac))
     return -(grid.recip_hFacC * grid.recip_drF[:, None, None] * grid.recip_rA
              * (((sh(fZon, di=1) - fZon) + (sh(fMer, dj=1) - fMer))
                 * grid.maskInC
                 + (fVerKp - fVer) * cfg.rkSign
                 - tracer * divTrans * grid.maskInC))
+
+
+# ----------------------------------------------------------------------
+# multi-dimensional advection: kernel M and its plain twin
+# ----------------------------------------------------------------------
+
+def is_multidim(cfg: Config, scheme: int) -> bool:
+    """set_parms.F logic (gad.py:is_multidim): non-linear schemes use the
+    multi-dimensional advection when multiDimAdvection is on."""
+    return bool(cfg.multiDimAdvection) and scheme in _JAX_MULTIDIM
+
+
+def _md_plain_x(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
+                src, scheme: int, vert_scheme: int, deltaT: float):
+    """The X pass of gad.py:multidim_advection (:1138-1142)."""
+    uT = flow.uTrans
+    af = adv_flux_x(grid, scheme, uT, u, src, deltaT,
+                    grid.maskW * grid.maskInW)
+    return src - deltaT * grid.recip_hFacC * grid.recip_drF[:, None, None] \
+        * grid.recip_rA * ((sh(af, di=1) - af)
+                           - tracer * (sh(uT, di=1) - uT)) * grid.maskInC
+
+
+def _md_plain_y(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
+                src, scheme: int, vert_scheme: int, deltaT: float):
+    """The Y pass (:1143-1147), on the X pass's field; the compensation
+    keeps the old tracer."""
+    vT = flow.vTrans
+    af = adv_flux_y(grid, scheme, vT, v, src, deltaT,
+                    grid.maskS * grid.maskInS)
+    return src - deltaT * grid.recip_hFacC * grid.recip_drF[:, None, None] \
+        * grid.recip_rA * ((sh(af, dj=1) - af)
+                           - tracer * (sh(vT, dj=1) - vT)) * grid.maskInC
+
+
+def _md_plain_r(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
+                src, scheme: int, vert_scheme: int, deltaT: float):
+    """The R pass on the post-horizontal field (:1148-1154), and gTracer =
+    (T_advected - T) / deltaT."""
+    fVer = adv_flux_r(grid, vert_scheme, flow.rTrans, w, src, deltaT)
+    fVerKp = torch.cat([fVer[1:], torch.zeros_like(fVer[:1])])
+    localT = src - deltaT * grid.recip_hFacC * grid.recip_drF[:, None, None] \
+        * grid.recip_rA * ((fVerKp - fVer)
+                           - tracer * (flow.rTransKp - flow.rTrans)) \
+        * cfg.rkSign * grid.maskInC
+    return _div(localT - tracer, deltaT)
+
+
+# kernel M's sweeps and their twins, in the order they run
+MD_SWEEPS = ("gad_multidim_x", "gad_multidim_y", "gad_multidim_r")
+MD_PLAIN = dict(zip(MD_SWEEPS, (_md_plain_x, _md_plain_y, _md_plain_r)))
+# the fields each sweep reads besides its input field and the tracer
+_MD_READS = {
+    "gad_multidim_x": ("uTrans", "uVel", "maskW", "recip_hFacC", "recip_dxC",
+                       "recip_rA", "maskInC", "maskInW", "recip_drF"),
+    "gad_multidim_y": ("vTrans", "vVel", "maskS", "recip_hFacC", "recip_dyC",
+                       "recip_rA", "maskInC", "maskInS", "recip_drF"),
+    "gad_multidim_r": ("rTrans", "wVel", "maskC", "recip_hFacC", "recip_rA",
+                       "maskInC", "recip_drF", "recip_drC"),
+}
+# the grid fields of gad_multidim.cu:MdArgs, in its order
+_MD_GRID3 = ("maskW", "maskS", "maskC", "recip_hFacC")
+_MD_GRID2 = ("recip_dxC", "recip_dyC", "recip_rA", "maskInC", "maskInW",
+             "maskInS")
+_MD_GRID1 = ("recip_drF", "recip_drC")
+
+
+def _multidim_plain(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
+                    scheme: int, vert_scheme: int, deltaT: float):
+    """Kernel M's twin: gad.py:multidim_advection (:1120-1154), Cartesian
+    branch, in its operation order, one function per sweep."""
+    global plain_calls
+    plain_calls += 1
+    field = tracer
+    for sweep in MD_SWEEPS:
+        field = MD_PLAIN[sweep](cfg, grid, flow, u, v, w, tracer, field,
+                                scheme, vert_scheme, deltaT)
+    return field
+
+
+def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
+                    scheme: int, vert_scheme: int, deltaT: float):
+    """Kernel M on the card as its three launches: a list of (sweep name,
+    launch, input, output, the tensors the sweep reads and writes), in the
+    order they must run; each launch reads the previous one's output and
+    the last output is gTr."""
+    nr, nyp, nxp = tracer.shape
+    ins3 = dict(uTrans=flow.uTrans, vTrans=flow.vTrans, rTrans=flow.rTrans,
+                uVel=u, vVel=v, wVel=w, tracer=tracer,
+                **{n: getattr(grid, n) for n in _MD_GRID3})
+    ins2 = {n: getattr(grid, n) for n in _MD_GRID2}
+    ins1 = {n: getattr(grid, n) for n in _MD_GRID1}
+    fields = [tracer] + [torch.empty_like(tracer) for _ in MD_SWEEPS]
+    kernels.check_tensors(tracer.dtype, **ins3, **ins2, **ins1,
+                          localX=fields[1], localY=fields[2], gTr=fields[3])
+    for name, t in ins3.items():
+        kernels.check_shape(name, t, (nr, nyp, nxp))
+    for name, t in ins2.items():
+        kernels.check_shape(name, t, (nyp, nxp))
+    kernels.check_shape("recip_drF", ins1["recip_drF"], (nr,))
+    kernels.check_shape("recip_drC", ins1["recip_drC"], (nr + 1,))
+    named = {**ins3, **ins2, **ins1}
+    table = kernels.pointer_table(list(named.values()))
+
+    def sweep(name, src, dst, sch):
+        def run():
+            kernels.launch(name, tracer.dtype, table, len(table),
+                           src.data_ptr(), dst.data_ptr(), nr, nyp, nxp, sch,
+                           float(deltaT), float(cfg.rkSign))
+        touched = [src, tracer, dst] + [named[n] for n in _MD_READS[name]]
+        return name, run, src, dst, touched
+
+    return [sweep(name, fields[n], fields[n + 1], sch)
+            for n, (name, sch) in enumerate(zip(
+                MD_SWEEPS, (scheme, scheme, vert_scheme)))]
+
+
+def multidim_advection(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w,
+                       tracer, scheme: int, vert_scheme: int, deltaT: float,
+                       impl: str = None) -> torch.Tensor:
+    """Direction-split multi-dimensional advection (gad_advection.F, the
+    default non-compressible form, Cartesian pass order X, Y, R) of schemes
+    30, 33 and 77: returns gTracer = (T_advected - T) / deltaT at every
+    cell of the padded array."""
+    for s in (scheme, vert_scheme):
+        if s not in MULTIDIM_SCHEMES:
+            raise NotImplementedError(f"multidim advection scheme {s}")
+    ins = (u, v, w, tracer, flow.uTrans, flow.vTrans, flow.rTrans)
+    if any(t.requires_grad for t in ins):
+        raise ValueError("multidim_advection: an input requires grad; kernel "
+                         "M has no backward kernel")
+    if not kernels.use_kernel(tracer, impl):
+        return _multidim_plain(cfg, grid, flow, u, v, w, tracer, scheme,
+                               vert_scheme, deltaT)
+    sweeps = multidim_sweeps(cfg, grid, flow, u, v, w, tracer, scheme,
+                             vert_scheme, deltaT)
+    for _, run, _, _, _ in sweeps:
+        run()
+    return sweeps[-1][3]

@@ -26,8 +26,6 @@ refuses. No gradient: the adjoint refuses useKPP.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -613,16 +611,6 @@ def _kpp_col_plain(kpp: KPP, pre: dict, difT_prof, difS_prof) -> dict:
 # kernel K
 # ----------------------------------------------------------------------
 
-def _doubles(vals) -> ctypes.Array:
-    return (ctypes.c_double * len(vals))(*[float(x) for x in vals])
-
-
-def _check_int(name, t, shape):
-    if not (t.is_cuda and t.dtype == torch.int32 and t.is_contiguous()):
-        raise ValueError(f"{name}: need a contiguous int32 CUDA tensor")
-    kernels.check_shape(name, t, shape)
-
-
 def _pre_inputs(kpp: KPP, theta, totPhiHyd):
     """EOS settings of K-pre: (kind, use_phi, profile, aprof, tref, sref,
     phi) with the pressures formed exactly as find_rho and find_alpha
@@ -668,9 +656,9 @@ def kpp_pre(kpp: KPP, u, v, theta, salt, totPhiHyd, sfU, sfV, sfT, sfS,
         kernels.check_shape(name, t, (nyp, nxp))
     for name, t in ins1.items():
         kernels.check_shape(name, t, (nr,))
-    _check_int("kmtj", kpp.kmtj, (nyp, nxp))
+    kernels.check_int32("kmtj", kpp.kmtj, (nyp, nxp))
     drF1 = float(cfg.delR[0])
-    params = _doubles([
+    params = kernels.doubles([
         cfg.rhoConst, cfg.surf_pRef - cfg.eosRefP0, eos._pressure_scale(cfg),
         cfg.gravity, cfg.rhoNil, cfg.tAlpha, cfg.sBeta,
         cfg.rhoNil - cfg.rhoConst, -cfg.rhoNil * cfg.tAlpha,
@@ -692,7 +680,7 @@ def kpp_smooth(kpp: KPP, dbraw):
     out = torch.empty_like(dbraw)
     kernels.check_tensors(dbraw.dtype, dbraw=dbraw, maskC=maskC, out=out)
     kernels.check_shape("maskC", maskC, dbraw.shape)
-    _check_int("kmtj", kpp.kmtj, (nyp, nxp))
+    kernels.check_int32("kmtj", kpp.kmtj, (nyp, nxp))
     kernels.launch("kpp_smooth", dbraw.dtype, dbraw.data_ptr(),
                    maskC.data_ptr(), kpp.kmtj.data_ptr(), out.data_ptr(), nr,
                    nyp, nxp)
@@ -726,8 +714,8 @@ def kpp_col(kpp: KPP, pre: dict, difT_prof, difS_prof) -> dict:
         kernels.check_shape(name, consts[name], (n,))
     for name in ("wmt", "wst"):
         kernels.check_shape(name, consts[name], (_NNI + 2, _NNJ + 2))
-    _check_int("kmtj", kpp.kmtj, (nyp, nxp))
-    params = _doubles([
+    kernels.check_int32("kmtj", kpp.kmtj, (nyp, nxp))
+    params = kernels.doubles([
         p["epsilon"], p["vonk"], p["conc1"], p["Ricr"], p["cekman"],
         p["cmonob"], p["phepsi"], p["minKPPhbl"], cfg.viscAr, p["difmcon"],
         p["difscon"], p["diftcon"], p["difm0"], p["difs0"], p["dift0"],

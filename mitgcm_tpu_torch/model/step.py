@@ -5,11 +5,14 @@ the ported paths of the wind-driven gyre:
   SOLVE_FOR_PRESSURE (cg2d) -> MOMENTUM_CORRECTION_STEP -> fill u,v ->
   INTEGR_CONTINUITY -> fill
 
-Three paths go through it: the gyre (flux-form momentum, linear EOS, AB-2,
+Four paths go through it: the gyre (flux-form momentum, linear EOS, AB-2,
 explicit vertical mixing), the vi-gyre (vector-invariant momentum, a
-JMD95 or MDJWF EOS, AB-3, implicit vertical viscosity and diffusion) and
-the kpp-gyre (the vi-gyre with KPP boundary-layer mixing, run on the
-start-of-step state before THERMODYNAMICS), and any mix of those options.
+JMD95 or MDJWF EOS, AB-3, implicit vertical viscosity and diffusion), the
+kpp-gyre (the vi-gyre with KPP boundary-layer mixing, run on the
+start-of-step state before THERMODYNAMICS) and the ggl90-gyre (the
+kpp-gyre's set-up with GGL90 TKE mixing in place of KPP, on the same
+state, and DST-3 flux-limited tracers under the multi-dimensional
+advection), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
@@ -27,6 +30,8 @@ import torch
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
+from mitgcm_tpu_torch.model import gad
+from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model import thermodynamics as thermo_mod
 from mitgcm_tpu_torch.model.mom_fluxform import check_branches, mom_fluxform
@@ -46,21 +51,41 @@ class StepDiag:
     cg2d_host_syncs: int
 
 
-_PACKAGES = ("useGGL90", "usePP81", "useMY82", "useOPPS",
+_PACKAGES = ("usePP81", "useMY82", "useOPPS",
              "useSEAICE", "useEXF", "useOBCS", "usePTRACERS", "useRBCS",
              "useAIM", "useLand", "useThSIce", "useZONAL_FILT", "useOffLine",
              "useGCHEM", "useGMRedi", "useSHAP_FILT")
 
 
-def check_supported(cfg: Config, kpp=None) -> None:
+def _tracer_schemes_off(cfg: Config) -> dict:
+    """The refusals of the tracer advection schemes: scheme 2 in both
+    directions (kernel C), or 30, 33 and 77 under the multi-dimensional
+    advection (kernel M), each named."""
+    off = {}
+    for tr in ("temp", "salt"):
+        h = getattr(cfg, f"{tr}AdvScheme")
+        v = getattr(cfg, f"{tr}VertAdvScheme") or h
+        multidim = (cfg.multiDimAdvection and h in gad.MULTIDIM_SCHEMES
+                    and v in gad.MULTIDIM_SCHEMES)
+        if not ((h, v) == (2, 2) or multidim):
+            off[f"{tr}AdvScheme={h}, {tr}VertAdvScheme={v}, "
+                f"multiDimAdvection={cfg.multiDimAdvection}"] = True
+    return off
+
+
+def check_supported(cfg: Config, kpp=None, ggl90=None) -> None:
     """Raise NotImplementedError unless cfg stays on the ported paths
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
-    free surface solved by cg2d, scheme-2 tracers, explicit or implicit
-    vertical diffusion, KPP given as a model/kpp.py:KPP object without the
-    options that check_kpp refuses)."""
+    free surface solved by cg2d, scheme-2 tracers or schemes 30, 33 and 77
+    under the multi-dimensional advection, explicit or implicit vertical
+    diffusion, KPP given as a model/kpp.py:KPP object without the options
+    that check_kpp refuses, or GGL90 as a model/ggl90.py:GGL90 object
+    without the options that check_ggl90 refuses)."""
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
+        "useGGL90 without a GGL90 object": cfg.useGGL90 and ggl90 is None,
+        "useKPP with useGGL90": cfg.useKPP and cfg.useGGL90,
         "staggerTimeStep": cfg.staggerTimeStep,
         "nonlinFreeSurf>0": cfg.nonlinFreeSurf > 0,
         "exactConserv": cfg.exactConserv,
@@ -97,10 +122,7 @@ def check_supported(cfg: Config, kpp=None) -> None:
         "allow3dDiffKr": cfg.allow3dDiffKr,
         "biharmonic tracer diffusion": (cfg.diffK4T != 0.0
                                         or cfg.diffK4S != 0.0),
-        "tracer advection scheme != 2": (
-            cfg.tempAdvScheme != 2 or cfg.saltAdvScheme != 2
-            or (cfg.tempVertAdvScheme or 2) != 2
-            or (cfg.saltVertAdvScheme or 2) != 2),
+        **_tracer_schemes_off(cfg),
         "cg2dExactSums": cfg.cg2dExactSums,
         "custom forcing hooks": (cfg.custom_forcing_uv is not None
                                  or cfg.custom_forcing_t is not None),
@@ -112,6 +134,8 @@ def check_supported(cfg: Config, kpp=None) -> None:
             f"not on the ported paths: {', '.join(bad)}")
     if kpp is not None:
         kpp_mod.check_kpp(kpp)
+    if ggl90 is not None:
+        ggl90_mod.check_ggl90(ggl90)
     if cfg.vectorInvariantMomentum:
         check_branches_vecinv(cfg)
     else:
@@ -171,10 +195,12 @@ def apply_forcing_uv(cfg: Config, grid: Grid, forcing: Forcing):
 
 
 def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
-             rhoInSitu, myIter: int, impl: str = None, kpp_fields=None):
+             rhoInSitu, myIter: int, impl: str = None, kpp_fields=None,
+             ggl90_fields=None):
     """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', guNm2',
     gvNm2', totPhiHyd). kpp_fields: KPP.calc's output, whose viscosity is
-    blended into kappaRU/RV (calc_viscosity.F), or None."""
+    blended into kappaRU/RV (calc_viscosity.F), or None; ggl90_fields:
+    GGL90.calc's viscArU/viscArV, added to kappaRU/RV, or None."""
     u, v, w = state.uVel, state.vVel, state.wVel
     nr = cfg.nr
     kshape = (nr + 1,) + tuple(u.shape[1:])
@@ -183,6 +209,10 @@ def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
     if kpp_fields is not None:
         kappaRU[:nr], kappaRV[:nr] = kpp_mod.visc_uv(
             cfg, grid, kpp_fields, kappaRU[:nr], kappaRV[:nr])
+    if ggl90_fields is not None:
+        # ggl90_calc_visc.F: KappaRU += GGL90viscArU - viscArNr
+        kappaRU[:nr] += ggl90_fields["viscArU"] - cfg.viscAr
+        kappaRV[:nr] += ggl90_fields["viscArV"] - cfg.viscAr
     _, dPhiHydX, dPhiHydY, totPhiHyd = calc_phi_hyd(cfg, grid, rhoInSitu)
     momentum = mom_vecinv if cfg.vectorInvariantMomentum else mom_fluxform
     tend = momentum(cfg, grid, u, v, w, kappaRU, kappaRV, impl=impl)
@@ -264,11 +294,12 @@ def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR):
 
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,
-                 forcing: Forcing, myIter: int, impl: str = None, kpp=None
-                 ) -> Tuple[State, StepDiag]:
+                 forcing: Forcing, myIter: int, impl: str = None, kpp=None,
+                 ggl90=None) -> Tuple[State, StepDiag]:
     """One timestep; myIter is the start-of-step iteration number; kpp: a
-    model/kpp.py:KPP object when useKPP."""
-    check_supported(cfg, kpp)
+    model/kpp.py:KPP object when useKPP; ggl90: a model/ggl90.py:GGL90
+    object when useGGL90."""
+    check_supported(cfg, kpp, ggl90)
 
     def fill(a):
         return cyclic_fill_halo(a, cfg.oly, cfg.olx)
@@ -289,11 +320,24 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
             forc.fv * cfg.mass2rUnit, sfT, sfS, forc.Qsw,
             thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrT),
             thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrS), impl=impl)
+    # GGL90 on the start-of-step state, with the vertical density gradient
+    # (do_oceanic_phys.F GGL90_CALC; step.py:915-970 of the JAX package)
+    ggl90_fields = None
+    tkeNew = state.GGL90TKE
+    if ggl90 is not None:
+        sigmaR = thermo_mod.calc_sigmaR(cfg, grid, rhoInSitu, state.theta,
+                                        state.salt,
+                                        totPhiHyd=state.totPhiHyd, impl=impl)
+        tkeNew, viscU, viscV, diffKr = ggl90.calc(
+            state.uVel, state.vVel, state.GGL90TKE, sigmaR,
+            forc.fu * cfg.mass2rUnit, forc.fv * cfg.mass2rUnit, impl=impl)
+        ggl90_fields = {"viscArU": viscU, "viscArV": viscV, "diffKr": diffKr}
     theta, salt, gtNm1, gsNm1, gtNm2, gsNm2 = thermo_mod.thermodynamics(
-        cfg, grid, state, forc, myIter, impl=impl, kpp_fields=kpp_fields)
+        cfg, grid, state, forc, myIter, impl=impl, kpp_fields=kpp_fields,
+        ggl90_fields=ggl90_fields)
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd = dynamics(
         cfg, grid, state, forc, rhoInSitu, myIter, impl=impl,
-        kpp_fields=kpp_fields)
+        kpp_fields=kpp_fields, ggl90_fields=ggl90_fields)
     uStar, vStar = fill(uStar), fill(vStar)
     etaN, diag = solve_for_pressure(cfg, grid, op, state, uStar, vStar,
                                     impl=impl)
@@ -306,5 +350,6 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         dEtaHdt=fill(state.dEtaHdt), PmEpR=fill(PmEpR),
         guNm1=guNm1, gvNm1=gvNm1, gtNm1=gtNm1, gsNm1=gsNm1,
         guNm2=guNm2, gvNm2=gvNm2, gtNm2=gtNm2, gsNm2=gsNm2,
-        totPhiHyd=totPhiHyd)
+        totPhiHyd=totPhiHyd,
+        GGL90TKE=fill(tkeNew) if ggl90 is not None else tkeNew)
     return new_state, diag

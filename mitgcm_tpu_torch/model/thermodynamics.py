@@ -3,7 +3,11 @@ advection-diffusion step of theta (and salt when stepped) with AB-2 or
 AB-3 on the tendency and the surface forcing inside the AB extrapolation,
 then, with implicitDiffusion, the implicit vertical diffusion. With KPP
 (model/kpp.py) its diffusivities take the place of the background profile
-and its nonlocal flux joins the vertical flux.
+and its nonlocal flux joins the vertical flux; with GGL90 (model/ggl90.py)
+its diffusivity is added to the profile. A tracer with a non-linear scheme
+(30, 33, 77) under multiDimAdvection is advected by the multi-dimensional
+advection (gad.multidim_advection, kernel M), and its tendency is not
+AB-extrapolated. `calc_sigmaR` gives GGL90 the vertical density gradient.
 
 `impldiff` (the tridiagonal column solve, also used for implicit vertical
 viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for
@@ -22,6 +26,7 @@ from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import gad
 from mitgcm_tpu_torch.model.kpp import ghat_flux
+from mitgcm_tpu_torch.ops import eos
 
 
 def _impldiff_plain(cfg: Config, grid: Grid, field, kappaR, recip_hFac,
@@ -122,6 +127,25 @@ def surface_forcing_ts(cfg: Config, grid: Grid, state: State,
     return sfT, sfS
 
 
+def calc_sigmaR(cfg: Config, grid: Grid, rhoInSitu, theta, salt,
+                totPhiHyd=None, impl: str = None) -> torch.Tensor:
+    """The vertical potential-density gradient at the interfaces
+    (grad_sigma.F:95-107 with do_oceanic_phys.F:807-830), z-coordinates:
+    the density of the k-1 water at level k (find_rho with kRef = k, kernel
+    R on the card) against the in-situ density rhoInSitu; 0 at the
+    surface."""
+    nr = cfg.nr
+    mC = grid.maskC
+    m_km1 = torch.cat([torch.zeros_like(mC[:1]), mC[:-1]])
+    sigKm1 = eos.find_rho(cfg, grid, torch.cat([theta[:1], theta[:-1]]),
+                          torch.cat([salt[:1], salt[:-1]]),
+                          totPhiHyd=totPhiHyd, impl=impl)
+    sigmaR = (mC * m_km1 * grid.recip_drC[:nr, None, None] * cfg.rkSign
+              * (rhoInSitu - sigKm1))
+    sigmaR[0] = 0.0
+    return sigmaR
+
+
 def tracer_kappa(cfg: Config, grid: Grid, diffKr: float) -> torch.Tensor:
     """calc_3d_diffusivity.F: the constant background profile [nr, ...]."""
     return torch.full((cfg.nr,) + tuple(grid.rA.shape), diffKr,
@@ -130,20 +154,35 @@ def tracer_kappa(cfg: Config, grid: Grid, diffKr: float) -> torch.Tensor:
 
 def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
                      gNm1, gNm2, kappaR, sfc_forc, diffKh: float,
-                     myIter: int, impl: str = None, df=None):
+                     myIter: int, impl: str = None, df=None,
+                     schemes=(gad.ENUM_CENTERED_2ND, gad.ENUM_CENTERED_2ND),
+                     uvw=None):
     """temp_integrate.F for one tracer: (tracer', gNm1', gNm2'); df: an
-    extra vertical flux for gad.calc_rhs (KPP's nonlocal flux) or None."""
+    extra vertical flux for gad.calc_rhs (KPP's nonlocal flux) or None;
+    schemes: the (horizontal, vertical) advection schemes; uvw: the
+    velocities that the multi-dimensional advection advects with."""
     from mitgcm_tpu_torch.model.step import adams_bashforth
 
+    scheme, vert_scheme = schemes
+    multidim = gad.is_multidim(cfg, scheme)
     gTr = gad.calc_rhs(cfg, grid, flow, tracer, kappaR, diffKh,
                        implicit_diffusion=cfg.implicitDiffusion, impl=impl,
-                       df=df)
+                       df=df, calc_advection=not multidim)
+    if multidim:
+        gTr = gad.multidim_advection(cfg, grid, flow, *uvw, tracer, scheme,
+                                     vert_scheme, cfg.deltaTTracer,
+                                     impl=impl) + gTr
     ks = cfg.ksurf0
     gForc = torch.zeros_like(tracer)
     gForc[ks] = sfc_forc * grid.recip_drF[ks] * grid.recip_hFacC[ks]
     gTr = gTr + gForc
-    gTr_ab, gNm1_new, gNm2_new = adams_bashforth(cfg, gTr, gNm1, gNm2,
-                                                 myIter)
+    # AB on the tendency only for the linear scheme (gad_init_fixed.F:
+    # AdamsBashforthGt); the history of a non-linear one passes through
+    if scheme == gad.ENUM_CENTERED_2ND:
+        gTr_ab, gNm1_new, gNm2_new = adams_bashforth(cfg, gTr, gNm1, gNm2,
+                                                     myIter)
+    else:
+        gTr_ab, gNm1_new, gNm2_new = gTr, gNm1, gNm2
     tr_new = tracer + cfg.deltaTTracer * gTr_ab
     if cfg.implicitDiffusion:
         tr_new = impldiff(cfg, grid, tr_new, kappaR, grid.recip_hFacC,
@@ -152,10 +191,12 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
 
 
 def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
-                   myIter: int, impl: str = None, kpp_fields=None):
+                   myIter: int, impl: str = None, kpp_fields=None,
+                   ggl90_fields=None):
     """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2,
     gsNm2). kpp_fields: KPP.calc's output, or None without KPP
-    (thermodynamics.py:470-496, 524-533 of the JAX package)."""
+    (thermodynamics.py:470-496, 524-533 of the JAX package); ggl90_fields:
+    GGL90.calc's diffKr under "diffKr", or None (:501-503, :537-538)."""
     theta, salt = state.theta, state.salt
     gtNm1, gsNm1 = state.gtNm1, state.gsNm1
     gtNm2, gsNm2 = state.gtNm2, state.gsNm2
@@ -167,6 +208,10 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
     if kpp_fields is None:
         kapT = tracer_kappa(cfg, grid, cfg.diffKrT)
         kapS = tracer_kappa(cfg, grid, cfg.diffKrS)
+        if ggl90_fields is not None:
+            # ggl90_calc_diff.F: KappaRx += GGL90diffKr - diffKrNrS
+            kapT = kapT + (ggl90_fields["diffKr"] - cfg.diffKrS)
+            kapS = kapS + (ggl90_fields["diffKr"] - cfg.diffKrS)
     else:
         # KPP's diffusivities (kpp_calc_diff_t/s.F) and nonlocal flux
         kapT, kapS = kpp_fields["diffKzT"], kpp_fields["diffKzS"]
@@ -177,12 +222,17 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                         flow.maskUp)
         dfS = ghat_flux(cfg, grid, kapS, kpp_fields["ghat"], sfS, 0.0 * sfS,
                         flow.maskUp)
+    uvw = (state.uVel, state.vVel, state.wVel)
     if cfg.tempStepping:
         theta, gtNm1, gtNm2 = tracer_integrate(
             cfg, grid, flow, theta, gtNm1, gtNm2, kapT, sfT, cfg.diffKhT,
-            myIter, impl=impl, df=dfT)
+            myIter, impl=impl, df=dfT, uvw=uvw, schemes=(
+                cfg.tempAdvScheme,
+                cfg.tempVertAdvScheme or cfg.tempAdvScheme))
     if cfg.saltStepping:
         salt, gsNm1, gsNm2 = tracer_integrate(
             cfg, grid, flow, salt, gsNm1, gsNm2, kapS, sfS, cfg.diffKhS,
-            myIter, impl=impl, df=dfS)
+            myIter, impl=impl, df=dfS, uvw=uvw, schemes=(
+                cfg.saltAdvScheme,
+                cfg.saltVertAdvScheme or cfg.saltAdvScheme))
     return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2

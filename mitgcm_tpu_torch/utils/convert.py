@@ -2,8 +2,9 @@
 CG2DOperator of mitgcm_tpu, given as dicts of numpy arrays (one entry per
 field, `np.asarray(leaf)`), become the port's objects on a given device and
 dtype. Fields the port does not hold are ignored, so both packages can step
-from identical inputs. A control vector or a gradient crosses as one array
-(`to_tensor`, `to_numpy`)."""
+from identical inputs; an optional field of the port (State.GGL90TKE) is
+carried when the arrays hold it and left None otherwise. A control vector
+or a gradient crosses as one array (`to_tensor`, `to_numpy`)."""
 
 from __future__ import annotations
 
@@ -40,10 +41,11 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def from_arrays(cls, arrays: Mapping[str, np.ndarray],
                 dtype=torch.float64, device="cuda"):
     """The port's `cls` (Grid, State, Forcing or CG2DOperator) from a dict
-    of numpy arrays holding at least its fields."""
-    missing = [f.name for f in dataclasses.fields(cls)
-               if f.name not in arrays]
+    of numpy arrays holding at least its required fields."""
+    fields = dataclasses.fields(cls)
+    missing = [f.name for f in fields if f.name not in arrays
+               and f.default is dataclasses.MISSING]
     if missing:
         raise KeyError(f"{cls.__name__}: missing fields {missing}")
     return cls(**{f.name: to_tensor(arrays[f.name], dtype, device)
-                  for f in dataclasses.fields(cls)})
+                  for f in fields if f.name in arrays})

@@ -1,7 +1,7 @@
 """Synthetic wind-driven gyre (mitgcm_tpu/utils/synthetic.py): file-free
 configurations for the entry point, the card smoke run and the tests: the
-gyre, the vi-gyre and the kpp-gyre. The set-ups put their tensors on the
-CUDA device unless device="cpu" is asked for."""
+gyre, the vi-gyre, the kpp-gyre and the ggl90-gyre. The set-ups put their
+tensors on the CUDA device unless device="cpu" is asked for."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import build_grid
 from mitgcm_tpu_torch.core.state import init_state, zero_forcing
+from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import build_cg2d
@@ -74,6 +75,17 @@ def kpp_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, stretch=1.15,
     return vi_gyre_config(nx=nx, ny=ny, nr=nr, **{**kpp, **kw})
 
 
+def ggl90_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, stretch=1.15,
+                      mld=60.0, **kw) -> Config:
+    """The kpp-gyre with GGL90 TKE mixing in place of KPP and DST-3
+    flux-limited tracer advection (scheme 33, the vertical schemes left to
+    default to it) under the multi-dimensional advection (the "ggl90-gyre")."""
+    g9 = dict(useKPP=False, useGGL90=True, tempAdvScheme=33,
+              saltAdvScheme=33, multiDimAdvection=True)
+    return kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                           stretch=stretch, mld=mld, **{**g9, **kw})
+
+
 def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
                device="cuda"):
     """(grid, state, forcing, op) with walls and a sinusoidal zonal wind."""
@@ -102,13 +114,10 @@ def _fill2(cfg: Config, a: np.ndarray, dtype, device) -> torch.Tensor:
                                             device=device), cfg.oly, cfg.olx)
 
 
-def kpp_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
-                   device="cuda"):
-    """(grid, state, forcing, op, kpp) of the kpp-gyre: the gyre's wind, a
-    net upward heat flux Qnet = -200 cos(pi (j + 1/2) / ny) W/m2 (heating
-    in the south, cooling in the north) and a shortwave Qsw = -100 W/m2 on
-    wet points, and KPP with the KPP_PARM01 defaults and the default
-    KPP_OPTIONS.h (KPP_GHAT, KPP_SMOOTH_SHSQ, KPP_SMOOTH_DBLOC)."""
+def _heat_forced_setup(cfg: Config, dtype, device):
+    """gyre_setup with a net upward heat flux Qnet = -200 cos(pi (j + 1/2)
+    / ny) W/m2 (heating in the south, cooling in the north) and a shortwave
+    Qsw = -100 W/m2 on wet points."""
     grid, state, forcing, op = gyre_setup(cfg, dtype=dtype, device=device)
     ol_y, ol_x = cfg.oly, cfg.olx
     wet = grid.maskC[0, ol_y:ol_y + cfg.ny, ol_x:ol_x + cfg.nx].cpu().numpy()
@@ -116,5 +125,26 @@ def kpp_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
     forcing.Qnet = _fill2(cfg, -200.0 * np.cos(np.pi * (j + 0.5) / cfg.ny)
                           * wet, dtype, device)
     forcing.Qsw = _fill2(cfg, -100.0 * wet, dtype, device)
+    return grid, state, forcing, op
+
+
+def kpp_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                   device="cuda"):
+    """(grid, state, forcing, op, kpp) of the kpp-gyre: the gyre's wind,
+    the heat fluxes of `_heat_forced_setup`, and KPP with the KPP_PARM01
+    defaults and the default KPP_OPTIONS.h (KPP_GHAT, KPP_SMOOTH_SHSQ,
+    KPP_SMOOTH_DBLOC)."""
+    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device)
     return grid, state, forcing, op, KPP(cfg, grid, {},
                                          options=DEFAULT_OPTIONS)
+
+
+def ggl90_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                     device="cuda"):
+    """(grid, state, forcing, op, ggl90) of the ggl90-gyre: the kpp-gyre's
+    wind, Qnet and Qsw, GGL90 with mxlMaxFlag = 2 and the other
+    ggl90_readparms.F defaults, and the TKE at GGL90TKEmin."""
+    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device)
+    ggl90 = GGL90(cfg, grid, {"mxlMaxFlag": 2})
+    state.GGL90TKE = ggl90.init_tke(dtype)
+    return grid, state, forcing, op, ggl90

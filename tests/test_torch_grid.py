@@ -46,8 +46,11 @@ def test_state_and_forcing_bit_equal(nx, ny, nr):
     for jobj, tobj in ((jstate, tstate), (jforc, tforc)):
         ref = arrays_of(jobj)
         for f in dataclasses.fields(tobj):
-            assert np.array_equal(getattr(tobj, f.name).numpy(),
-                                  ref[f.name]), f.name
+            got = getattr(tobj, f.name)
+            if got is None:     # GGL90TKE off: the JAX state holds zeros
+                assert not ref[f.name].any(), f.name
+                continue
+            assert np.array_equal(got.numpy(), ref[f.name]), f.name
 
 
 @pytest.mark.parametrize("nx,ny,nr", SIZES)

@@ -1,10 +1,10 @@
 """PyTorch port: guards. The port imports neither jax nor the JAX package
 (mitgcm_tpu), its entry points put their tensors on the card unless asked
 for the CPU, it has no CPU fallback for its GPU run, refuses configurations
-and KPP options off its ported paths, its kernel wrappers refuse to
-differentiate what their kernels treat as constants (and V, T, R and K,
-which have no backward kernels yet, anything), and its adjoint refuses the
-vi-gyre and KPP."""
+and KPP and GGL90 options off its ported paths, its kernel wrappers refuse
+to differentiate what their kernels treat as constants (and V, T, R, K, G9
+and M, which have no backward kernels yet, anything), and its adjoint
+refuses the vi-gyre, KPP, GGL90 and every advection scheme but 2."""
 
 import dataclasses
 import os
@@ -20,6 +20,7 @@ from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.ad import adjoint
 from mitgcm_tpu_torch.core.grid import Grid, build_grid
 from mitgcm_tpu_torch.model import gad, mom_fluxform, mom_vecinv
+from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model.step import check_supported
 from mitgcm_tpu_torch.model.thermodynamics import impldiff
@@ -62,6 +63,12 @@ exp = Experiment(cfg, *synthetic.kpp_gyre_setup(cfg, dtype=torch.float64,
                                                 device="cpu"))
 rec, = exp.run(n_steps=1, collect_monitor=False)
 assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.theta).all())
+cfg = synthetic.ggl90_gyre_config(nx=12, ny=10, nr=4, depth=300.0)
+g, s, f, op, g9 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
+                                             device="cpu")
+exp = Experiment(cfg, g, s, f, op, ggl90=g9)
+rec, = exp.run(n_steps=1, collect_monitor=False)
+assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.GGL90TKE).all())
 import chip_smoke
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
@@ -167,9 +174,11 @@ def test_chip_smoke_refuses_without_gpu(where, tmp_path):
     dict(eosType="TEOS10"), dict(vectorInvariantMomentum=True, viscAhZ=1e2),
     dict(nonlinFreeSurf=4), dict(implicitViscosity=True), dict(useKPP=True),
     dict(vectorInvariantMomentum=True, viscC2smag=2.0), dict(viscA4=1.0e9),
-    dict(tempAdvScheme=33), dict(usingSphericalPolarGrid=True)])
+    dict(tempAdvScheme=33, multiDimAdvection=False),
+    dict(usingSphericalPolarGrid=True)])
 def test_check_supported_raises(settings):
-    """implicitViscosity is ported under vector-invariant momentum only."""
+    """implicitViscosity is ported under vector-invariant momentum only,
+    scheme 33 under the multi-dimensional advection only."""
     cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
     check_supported(cfg)
     for flag, value in settings.items():
@@ -183,10 +192,10 @@ def test_check_supported_vi_gyre(eos):
     check_supported(synthetic.vi_gyre_config(nx=8, ny=8, nr=2, eosType=eos))
 
 
-@pytest.mark.parametrize("kernel", ["V", "T", "R", "K"])
+@pytest.mark.parametrize("kernel", ["V", "T", "R", "K", "G9", "M"])
 def test_vi_kernels_refuse_grad(kernel):
-    """V, T, R and K have no backward kernels: any input that requires
-    grad is refused, on every device."""
+    """V, T, R, K, G9 and M have no backward kernels: any input that
+    requires grad is refused, on every device."""
     cfg = synthetic.kpp_gyre_config(nx=8, ny=8, nr=2)
     grid, _, _, _, kpp = synthetic.kpp_gyre_setup(cfg, dtype=torch.float64,
                                                   device="cpu")
@@ -199,6 +208,11 @@ def test_vi_kernels_refuse_grad(kernel):
         "R": lambda: find_rho(cfg, grid, x + 10.0, x + 35.0),
         "K": lambda: kpp.calc(x, x, x + 10.0, x + 35.0, x, x2, x2, x2, x2,
                               x2, k[:2], k[:2]),
+        "G9": lambda: ggl90_mod.GGL90(cfg, grid).calc(x, x, x.abs(), x, x2,
+                                                      x2),
+        "M": lambda: gad.multidim_advection(
+            cfg, grid, gad.calc_adv_flow(grid, x, x, x), x, x, x, x, 33, 33,
+            600.0),
     }
     with pytest.raises(ValueError, match=f"kernel {kernel}"):
         calls[kernel]()
@@ -235,6 +249,46 @@ def test_adjoint_refuses_kpp():
         adjoint.check_adjoint_supported(cfg)
 
 
+@pytest.mark.parametrize("settings,name", [
+    (dict(useGGL90=True), "useGGL90"),
+    (dict(tempAdvScheme=33), "tempAdvScheme=33"),
+    (dict(saltAdvScheme=77), "saltAdvScheme=77"),
+    (dict(tempVertAdvScheme=30), "tempVertAdvScheme=30"),
+], ids=["useGGL90", "temp33", "salt77", "tempVert30"])
+def test_adjoint_refuses_ggl90_and_schemes(settings, name):
+    """The adjoint runs scheme 2 only, without GGL90."""
+    cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
+    adjoint.check_adjoint_supported(cfg)
+    for flag, value in settings.items():
+        setattr(cfg, flag, value)
+    with pytest.raises(NotImplementedError, match=name):
+        adjoint.check_adjoint_supported(cfg)
+
+
+@pytest.mark.parametrize("group,name", [
+    ({"useIDEMIX": True}, "useIDEMIX"), ({"useLANGMUIR": True}, "useLANGMUIR"),
+    ("p", "p-coordinates")], ids=["idemix", "langmuir", "p-coords"])
+def test_check_supported_refuses_ggl90_options(group, name):
+    """check_supported lets useGGL90 through only with a GGL90 object, and
+    refuses, by name, IDEMIX, the Langmuir parameterization and
+    p-coordinates."""
+    cfg = synthetic.ggl90_gyre_config(nx=8, ny=8, nr=2)
+    grid, _, _, _, ggl90 = synthetic.ggl90_gyre_setup(
+        cfg, dtype=torch.float64, device="cpu")
+    check_supported(cfg, ggl90=ggl90)
+    with pytest.raises(NotImplementedError, match="useGGL90"):
+        check_supported(cfg)
+    if group == "p":
+        ggl90.cfg = dataclasses.replace(cfg, usingPCoords=True,
+                                        usingZCoords=False)
+    else:
+        ggl90 = ggl90_mod.GGL90(cfg, grid, group)
+    with pytest.raises(NotImplementedError, match=name):
+        ggl90_mod.check_ggl90(ggl90)
+    with pytest.raises(NotImplementedError, match=name):
+        check_supported(cfg, ggl90=ggl90)
+
+
 @pytest.mark.parametrize("name", list(kpp_mod.REFUSED_OPTIONS) + [
     "KPPuseDoubleDiff", "KPP_ghatUseTotalDiffus"])
 def test_check_supported_refuses_kpp_options(name):
@@ -255,7 +309,8 @@ def test_check_supported_refuses_kpp_options(name):
 
 
 @pytest.mark.parametrize("entry", ["gyre_setup", "kpp_gyre_setup",
-                                   "build_grid", "to_tensor", "from_arrays"])
+                                   "build_grid", "to_tensor", "from_arrays",
+                                   "ggl90_gyre_setup"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, an entry point puts its tensors on the
     card: here, without CUDA, it raises as torch does, and never falls back
@@ -265,6 +320,7 @@ def test_entry_points_default_to_the_card(entry):
     calls = {
         "gyre_setup": lambda: synthetic.gyre_setup(cfg)[0].rA,
         "kpp_gyre_setup": lambda: synthetic.kpp_gyre_setup(cfg)[0].rA,
+        "ggl90_gyre_setup": lambda: synthetic.ggl90_gyre_setup(cfg)[0].rA,
         "build_grid": lambda: build_grid(cfg).rA,
         "to_tensor": lambda: convert.to_tensor(np.zeros(3)),
         "from_arrays": lambda: convert.from_arrays(

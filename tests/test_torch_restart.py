@@ -1,15 +1,17 @@
 """PyTorch port: checkpoint/restart, the twin of tests/test_restart.py.
 
 4 steps == 2 + pickup + 2 bit for bit, for the gyre (AB-2), the vi-gyre
-(AB-3, whose pickup carries the *Nm2 records) and the kpp-gyre (KPP keeps
-no state from step to step, so its pickup is the vi-gyre's, at 16x16x12);
-the pickup round trip, in
+(AB-3, whose pickup carries the *Nm2 records), the kpp-gyre (KPP keeps
+no state from step to step, so its pickup is the vi-gyre's, at 16x16x12)
+and the ggl90-gyre (whose TKE goes through the companion pickup_ggl90, at
+16x16x12); the pickup round trip, in
 float64 and float32 (pickups are float64); and pickups crossing between
 the packages: a pickup written by the JAX package after 2 steps, read by
 the port and stepped 2 more, matches JAX's 4 straight steps to 10 digits,
-and so does the other way round. The vi-gyre's JAX runs are evaluated op
-by op (jax.disable_jit), as in tests/test_torch_vi_gyre.py, which says
-why.
+and so does the other way round, for the gyre, the vi-gyre and the
+ggl90-gyre (GGL90TKE included). The JAX runs of the vi-gyre and the
+ggl90-gyre are evaluated op by op (jax.disable_jit), as in
+tests/test_torch_vi_gyre.py, which says why.
 """
 
 import contextlib
@@ -27,17 +29,21 @@ from mitgcm_tpu_torch.model.experiment import (Experiment, read_pickup,
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 from mitgcm_tpu_torch.utils.compare import digits, interior
 from test_torch_config import jax_config
+from test_torch_ggl90_gyre import jax_experiment, port_experiment
 
 torch.set_num_threads(1)
 
 SIZE = dict(nx=16, ny=16, nr=3)
 CONFIGS = {"gyre": tsyn.gyre_config, "vi-gyre": tsyn.vi_gyre_config}
+GGL90_SIZE = dict(nx=16, ny=16, nr=12, depth=300.0)
 FIELDS = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1", "gvNm1",
           "gtNm1", "gsNm1", "guNm2", "gvNm2", "gtNm2", "gsNm2", "PmEpR",
           "etaH", "dEtaHdt")
 
 
 def _port(kind, dtype=torch.float64):
+    if kind == "ggl90-gyre":
+        return port_experiment(tsyn.ggl90_gyre_config(**GGL90_SIZE), dtype)
     if kind == "kpp-gyre":
         cfg = tsyn.kpp_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
         return Experiment(cfg, *tsyn.kpp_gyre_setup(cfg, dtype=dtype,
@@ -47,6 +53,10 @@ def _port(kind, dtype=torch.float64):
 
 
 def _jax(kind):
+    if kind == "ggl90-gyre":
+        e = _port(kind)
+        return jax_experiment(e.cfg, (e.grid, e.state, e.forcing, e.op,
+                                      e.ggl90))
     cfg = jax_config(CONFIGS[kind](**SIZE))
     grid, state, forcing, op = jsyn.gyre_setup(cfg, dtype=jnp.float64)
     return jexp.Experiment(cfg=cfg, grid=grid, state=state, forcing=forcing,
@@ -54,7 +64,12 @@ def _jax(kind):
 
 
 def _jax_mode(kind):
-    return jax.disable_jit() if kind == "vi-gyre" else contextlib.nullcontext()
+    return (jax.disable_jit() if kind in ("vi-gyre", "ggl90-gyre")
+            else contextlib.nullcontext())
+
+
+def _fields(kind):
+    return FIELDS + (("GGL90TKE",) if kind == "ggl90-gyre" else ())
 
 
 def _same(a, b, names, ol=2):
@@ -64,7 +79,8 @@ def _same(a, b, names, ol=2):
     assert not differ, f"differ after restart: {differ}"
 
 
-@pytest.mark.parametrize("kind", ["gyre", "vi-gyre", "kpp-gyre"])
+@pytest.mark.parametrize("kind", ["gyre", "vi-gyre", "kpp-gyre",
+                                  "ggl90-gyre"])
 def test_2plus2(kind, tmp_path):
     e4 = _port(kind)
     e4.run(n_steps=4, collect_monitor=False)
@@ -76,7 +92,7 @@ def test_2plus2(kind, tmp_path):
     assert e22.cfg.startFromPickup and e22.cfg.nIter0 == 2
     recs = e22.run(n_steps=2, collect_monitor=False)
     assert [r["iter"] for r in recs] == [3, 4]
-    _same(e4.state, e22.state, FIELDS)
+    _same(e4.state, e22.state, _fields(kind))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -92,7 +108,17 @@ def test_pickup_roundtrip(dtype, tmp_path):
     _same(e.state, e2.state, FIELDS)
 
 
-@pytest.fixture(scope="module", params=["gyre", "vi-gyre"])
+def test_ggl90_restart_needs_its_pickup(tmp_path):
+    """A GGL90 restart without pickup_ggl90 is refused, not reset."""
+    e = _port("ggl90-gyre")
+    e.run(n_steps=1, collect_monitor=False)
+    write_pickup(e, str(tmp_path), myIter=1)
+    (tmp_path / "pickup_ggl90.0000000001.meta").unlink()
+    with pytest.raises(FileNotFoundError, match="pickup_ggl90"):
+        read_pickup(_port("ggl90-gyre"), str(tmp_path), myIter=1)
+
+
+@pytest.fixture(scope="module", params=["gyre", "vi-gyre", "ggl90-gyre"])
 def jax_reference(request, tmp_path_factory):
     """JAX's 4 straight steps, with its pickup written after step 2."""
     kind = request.param
@@ -105,8 +131,9 @@ def jax_reference(request, tmp_path_factory):
     return kind, pickup_dir, e.state
 
 
-def _close(got_state, want_state, to_numpy):
-    for name in ("uVel", "vVel", "theta", "salt", "etaN"):
+def _close(got_state, want_state, to_numpy, kind):
+    names = ("uVel", "vVel", "theta", "salt", "etaN")
+    for name in names + _fields(kind)[len(FIELDS):]:
         d = digits(interior(to_numpy(getattr(got_state, name)), 2),
                    interior(np.asarray(getattr(want_state, name)), 2))
         assert d >= 10, (name, d)
@@ -117,7 +144,7 @@ def test_jax_pickup_read_by_port(jax_reference):
     e = _port(kind)
     read_pickup(e, pickup_dir, myIter=2)
     e.run(n_steps=2, collect_monitor=False)
-    _close(e.state, want, lambda t: t.numpy())
+    _close(e.state, want, lambda t: t.numpy(), kind)
 
 
 def test_port_pickup_read_by_jax(jax_reference, tmp_path):
@@ -128,10 +155,10 @@ def test_port_pickup_read_by_jax(jax_reference, tmp_path):
     j = _jax(kind)
     jexp.read_pickup(j, str(tmp_path), myIter=2)
     # the JAX reader takes every record as the port wrote it
-    for name in FIELDS:
+    for name in _fields(kind):
         assert np.array_equal(
             np.asarray(getattr(j.state, name))[..., 2:-2, 2:-2],
             getattr(e.state, name)[..., 2:-2, 2:-2].numpy()), name
     with _jax_mode(kind):
         j.run(n_steps=2, collect_monitor=False)
-    _close(j.state, want, np.asarray)
+    _close(j.state, want, np.asarray, kind)
