@@ -56,10 +56,26 @@ exits nonzero without the final line:
                  (deltaT=600): one warm-up step and 5 timed steps with every
                  kernel's launch count (G9 and M each step, the plain GGL90
                  and multidim twins never), a profile, then 2 plain steps
+ 10. high-order advection: the ggl90-gyre's set-up on halos of 4 with the
+                 high-order schemes of the multi-dimensional advection:
+                 every sweep of kernel O (OS7MP), kernel P (PPM/PQM with
+                 the null, monotone and WENO limiters) and kernel M's
+                 schemes 1 and 20 and vertical schemes 2, 3 and 4 against
+                 its twin sweep on whole arrays at 64x64x12 float64 and
+                 1024x1024x32 float32 (bit-equal, NaNs of float32 WENO in
+                 the same cells); 10 float64 steps at 64x64x12 of the
+                 os7mp-gyre (scheme 7) and of the pqm-gyre (PPM-mono theta,
+                 PQM-mono salt), kernel path against plain path, and a 2+2
+                 restart of each on the kernel path; then each at
+                 1024x1024x32 float32 (deltaT=600): one warm-up step and 5
+                 timed steps with every kernel's launch count (O or P each
+                 step, M never, the plain twins never), a profile, then 2
+                 plain steps
 It prints, last, one line of JSON per kernel (the launches are those of
 the main path that runs it: phase 5 for the gyre's forward kernels, phase
 6's full-size gradient for B' and C', phase 7's full-size run for V, T
-and R, phase 8's for K, phase 9's for G9 and M), with the kernel's time,
+and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
+O and pqm-gyre for P), with the kernel's time,
 its plain twin's, and its bound (the larger of the bytes it must move
 over 3.35 TB/s and its estimated operations over 67 TFLOP/s, the H100's
 float32 peaks) at the 1024x1024x32 float32 shapes, the card's name and
@@ -122,6 +138,19 @@ KERNELS = {
                        "mitgcm_tpu/model/gad.py:877"),
     "gad_multidim_r": ("mitgcm_tpu_torch/kernels/csrc/gad_multidim.cu",
                        "mitgcm_tpu/model/gad.py:911"),
+    # the high-order advection's kernels O and P
+    "gad_os7mp_x": ("mitgcm_tpu_torch/kernels/csrc/gad_os7mp.cu",
+                    "mitgcm_tpu/model/gad.py:181"),
+    "gad_os7mp_y": ("mitgcm_tpu_torch/kernels/csrc/gad_os7mp.cu",
+                    "mitgcm_tpu/model/gad.py:195"),
+    "gad_os7mp_r": ("mitgcm_tpu_torch/kernels/csrc/gad_os7mp.cu",
+                    "mitgcm_tpu/model/gad.py:221"),
+    "gad_ppm_x": ("mitgcm_tpu_torch/kernels/csrc/gad_ppm.cu",
+                  "mitgcm_tpu/model/gad.py:565"),
+    "gad_ppm_y": ("mitgcm_tpu_torch/kernels/csrc/gad_ppm.cu",
+                  "mitgcm_tpu/model/gad.py:565"),
+    "gad_ppm_r": ("mitgcm_tpu_torch/kernels/csrc/gad_ppm.cu",
+                  "mitgcm_tpu/model/gad.py:630"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
@@ -142,6 +171,23 @@ G9_LAUNCHES = {"ggl90_col": 5, "ggl90_visc": 5, "gad_multidim_x": 10,
                "gad_multidim_y": 10, "gad_multidim_r": 10,
                "gad_calc_rhs_c2": 10, "impldiff": 20, "eos_find_rho": 10,
                "mom_vecinv": 5, "kpp_pre": 0, "mom_fluxform": 0}
+O_KERNELS = ("gad_os7mp_x", "gad_os7mp_y", "gad_os7mp_r")
+P_KERNELS = ("gad_ppm_x", "gad_ppm_y", "gad_ppm_r")
+# launches in phase 10's 5 timed full-size steps: the ggl90-gyre's with the
+# sweeps of O (os7mp-gyre) or P (pqm-gyre) in place of M's
+_HO_LAUNCHES = {k: n for k, n in G9_LAUNCHES.items() if k not in MD_KERNELS}
+HO_LAUNCHES = {
+    "os7mp": {**_HO_LAUNCHES, **{k: 0 for k in MD_KERNELS + P_KERNELS},
+              **{k: 10 for k in O_KERNELS}},
+    "pqm": {**_HO_LAUNCHES, **{k: 0 for k in MD_KERNELS + O_KERNELS},
+            **{k: 10 for k in P_KERNELS}},
+}
+# the (scheme, vertical scheme) pairs whose sweeps phase 10 holds against
+# their twins: every scheme of O and P, and M's schemes 1 and 20 and
+# vertical 2, 3 and 4; the main paths' 7 and 51 (salt) last, so that the
+# JSON line reports them
+HO_PAIRS = ((40, 40), (42, 42), (50, 50), (52, 52), (1, 1), (20, 20),
+            (30, 2), (30, 3), (30, 4), (41, 41), (51, 51), (7, 7))
 # largest relative interior error a kernel may show against its twin
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # the H100 SXM's published peaks (NVIDIA's datasheet): HBM bytes/s
@@ -157,7 +203,9 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 "impldiff": 15, "eos_find_rho": 60, "kpp_pre": 400,
                 "kpp_smooth": 40, "kpp_col": 250, "ggl90_col": 120,
                 "ggl90_visc": 10, "gad_multidim_x": 80,
-                "gad_multidim_y": 80, "gad_multidim_r": 80}
+                "gad_multidim_y": 80, "gad_multidim_r": 80,
+                "gad_os7mp_x": 200, "gad_os7mp_y": 200, "gad_os7mp_r": 200,
+                "gad_ppm_x": 350, "gad_ppm_y": 350, "gad_ppm_r": 350}
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam",)
@@ -175,7 +223,6 @@ GLUE_FIELDS = {
     "KPP glue visc_uv and ghat_flux of theta and salt": (15, 4),
     "GGL90 glue: kappaRU/RV and kapT/kapS sums, sigmaR": (20, 0),
     "H cg3d, one 7-point PCG iteration": (12, 0),
-    "H OS7MP or PPM/PQM flux, one direction": (5, 2),
     "H SOM (schemes 80/81), one tracer's 10 moments in and out": (23, 0),
     "H seaice LSR tridiagonal sweep (U or V)": (0, 10),
     "H seaice EVP subcycle": (0, 20),
@@ -496,7 +543,7 @@ def full_phase(kernels):
             raise AssertionError(f"{name} is not finite after 6 steps")
     missing = [k for k in KERNELS
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
-               + G9_KERNELS + MD_KERNELS
+               + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1077,20 +1124,21 @@ def kpp_phase(kernels, results, smi):
 
 
 class G9Case:
-    """The ggl90-gyre's grid and GGL90 on the card, with seeded inputs:
-    velocities with some zero-shear columns, a TKE with noise, the
-    profiles with noise (statically unstable in places) and sigmaR from
-    them, a wind stress, a vertical velocity and a tracer with fronts."""
+    """The ggl90-gyre's grid and GGL90 on the card (or those of its
+    variant `config`), with seeded inputs: velocities with some zero-shear
+    columns, a TKE with noise, the profiles with noise (statically unstable
+    in places) and sigmaR from them, a wind stress, a vertical velocity and
+    a tracer with fronts."""
 
-    def __init__(self, n, nr, dtype):
+    def __init__(self, n, nr, dtype, config="ggl90"):
         from mitgcm_tpu_torch.model import gad
         from mitgcm_tpu_torch.model import thermodynamics as th
         from mitgcm_tpu_torch.ops.eos import find_rho
         from mitgcm_tpu_torch.utils import synthetic
 
         self.dtype = dtype
-        self.cfg = synthetic.ggl90_gyre_config(nx=n, ny=n, nr=nr,
-                                               deltaT=600.0)
+        self.cfg = getattr(synthetic, f"{config}_gyre_config")(
+            nx=n, ny=n, nr=nr, deltaT=600.0)
         (self.grid, _, _, _,
          self.ggl90) = synthetic.ggl90_gyre_setup(self.cfg, dtype=dtype,
                                                   device="cuda")
@@ -1189,20 +1237,20 @@ def g9_kernel_phase(case, results, reps):
             cuda_time_ms(lambda: rhs("plain"), reps), results)
 
 
-def g9_experiment(n, nr, dtype, impl=None, **kw):
+def g9_experiment(n, nr, dtype, impl=None, config="ggl90", **kw):
     from mitgcm_tpu_torch.model.experiment import Experiment
     from mitgcm_tpu_torch.utils import synthetic
 
-    cfg = synthetic.ggl90_gyre_config(nx=n, ny=n, nr=nr, **kw)
+    cfg = getattr(synthetic, f"{config}_gyre_config")(nx=n, ny=n, nr=nr, **kw)
     grid, state, forcing, op, ggl90 = synthetic.ggl90_gyre_setup(
         cfg, dtype=dtype, device="cuda")
     return Experiment(cfg, grid, state, forcing, op, ggl90=ggl90, impl=impl)
 
 
-def g9_parity_phase():
+def g9_parity_phase(config="ggl90"):
     from mitgcm_tpu_torch.utils.compare import digits, interior, record_digits
 
-    exps = {impl: g9_experiment(64, 12, torch.float64, impl)
+    exps = {impl: g9_experiment(64, 12, torch.float64, impl, config)
             for impl in (None, "plain")}
     runs = {impl: e.run(n_steps=10) for impl, e in exps.items()}
     worst = math.inf
@@ -1210,34 +1258,35 @@ def g9_parity_phase():
         dig = record_digits(rk, rp)
         key = min(dig, key=dig.get)
         worst = min(worst, dig[key])
-        print(f"ggl90 step {rk['iter']:2d}: cg2d iters {rk['cg2d_iters']} / "
+        print(f"{config} step {rk['iter']:2d}: cg2d iters {rk['cg2d_iters']} / "
               f"{rp['cg2d_iters']}, init res {rk['cg2d_init_res']:.10e}, "
               f"fewest digits {dig[key]:.2f} ({key})", flush=True)
         if rk["cg2d_iters"] != rp["cg2d_iters"]:
-            raise AssertionError("ggl90-gyre cg2d iteration counts differ")
+            raise AssertionError(f"{config}-gyre cg2d iteration counts "
+                                 "differ")
     ol = exps[None].cfg.olx
     tke = digits(interior(exps[None].state.GGL90TKE, ol),
                  interior(exps["plain"].state.GGL90TKE, ol))
     worst = min(worst, tke)
     if not worst >= PARITY_DIGITS:
-        raise AssertionError(f"ggl90-gyre parity {worst:.2f} < "
+        raise AssertionError(f"{config}-gyre parity {worst:.2f} < "
                              f"{PARITY_DIGITS} digits")
-    print(f"ggl90-gyre parity: fewest matching digits {worst:.2f} "
+    print(f"{config}-gyre parity: fewest matching digits {worst:.2f} "
           f"(GGL90TKE {tke:.2f})")
 
 
-def g9_restart_phase():
+def g9_restart_phase(config="ggl90"):
     """tools/do_tst_2+2 on the card: 4 steps against 2 + pickup and
     pickup_ggl90 + 2."""
     import tempfile
 
     from mitgcm_tpu_torch.model.experiment import read_pickup, write_pickup
 
-    e4 = g9_experiment(64, 12, torch.float64)
+    e4 = g9_experiment(64, 12, torch.float64, config=config)
     e4.run(n_steps=4, collect_monitor=False)
-    e2 = g9_experiment(64, 12, torch.float64)
+    e2 = g9_experiment(64, 12, torch.float64, config=config)
     e2.run(n_steps=2, collect_monitor=False)
-    e22 = g9_experiment(64, 12, torch.float64)
+    e22 = g9_experiment(64, 12, torch.float64, config=config)
     with tempfile.TemporaryDirectory() as tmp:
         write_pickup(e2, tmp, 2)
         read_pickup(e22, tmp, 2)
@@ -1248,20 +1297,20 @@ def g9_restart_phase():
     differ = [n for n in names
               if not torch.equal(getattr(e4.state, n)[..., ol:-ol, ol:-ol],
                                  getattr(e22.state, n)[..., ol:-ol, ol:-ol])]
-    print(f"2+2 restart of the ggl90-gyre on the kernel path, 64x64x12 "
+    print(f"2+2 restart of the {config}-gyre on the kernel path, 64x64x12 "
           f"float64: {len(names) - len(differ)} of {len(names)} fields "
           f"bit-equal", flush=True)
     if differ:
-        raise AssertionError(f"ggl90-gyre restart differs in {differ}")
+        raise AssertionError(f"{config}-gyre restart differs in {differ}")
 
 
-def g9_full_phase(kernels, smi):
+def g9_full_phase(kernels, smi, config="ggl90", want=G9_LAUNCHES):
     from mitgcm_tpu_torch.model import gad
     from mitgcm_tpu_torch.model import ggl90 as g9
 
     n, nr = 1024, 32
     t0 = time.perf_counter()
-    exp = g9_experiment(n, nr, torch.float32, deltaT=600.0)
+    exp = g9_experiment(n, nr, torch.float32, config=config, deltaT=600.0)
     torch.cuda.synchronize()
     print(f"set-up {time.perf_counter() - t0:.1f} s")
     state0 = exp.state
@@ -1292,16 +1341,16 @@ def g9_full_phase(kernels, smi):
     for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN",
                  "GGL90TKE"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
-            raise AssertionError(f"ggl90-gyre {name} is not finite")
+            raise AssertionError(f"{config}-gyre {name} is not finite")
     tke = state.GGL90TKE[1:][exp.grid.maskC[1:] > 0]
     print(f"GGL90TKE after 6 steps: {float(tke.min()):.3e}-"
           f"{float(tke.max()):.3e}, above 1e-6 in {int((tke > 1e-6).sum())}"
           f" of {tke.numel()} wet interfaces", flush=True)
-    wrong = {k: launches.get(k, 0) for k, want in G9_LAUNCHES.items()
-             if launches.get(k, 0) != want}
+    wrong = {k: launches.get(k, 0) for k, count in want.items()
+             if launches.get(k, 0) != count}
     if wrong or plain:
-        raise AssertionError(f"ggl90-gyre launch counts {wrong} (want "
-                             f"{G9_LAUNCHES}), plain calls {plain}")
+        raise AssertionError(f"{config}-gyre launch counts {wrong} (want "
+                             f"{want}), plain calls {plain}")
     profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
     _, iters_p, sec_p = run(state1, 1, 2, "plain")
     print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
@@ -1319,6 +1368,71 @@ def g9_phase(kernels, results, smi):
     g9_restart_phase()
     launches = g9_full_phase(kernels, smi)
     torch.cuda.empty_cache()
+    return launches
+
+
+def ho_compare(name, case, out, want, ms, plain_ms, results, touched):
+    """Hold a sweep's output against its twin's on whole arrays: equal bits
+    and NaNs (float32 WENO's overflow, a fault of the reference) in the
+    same cells; record its times and bound as compare does."""
+    nan_k, nan_p = torch.isnan(out), torch.isnan(want)
+    same_nan = torch.equal(nan_k, nan_p)
+    diff = (out - want).abs().masked_fill(nan_k | nan_p, 0.0)
+    abs_err = float(diff.max())
+    nans = int(nan_k.sum())
+    print(f"{name:18s} {case.label:18s} max abs err {abs_err:.3e} (tol 0), "
+          f"NaN cells {nans} / {int(nan_p.sum())} (kernel / plain), kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    if not (abs_err == 0.0 and same_nan):
+        raise AssertionError(f"{name} disagrees with its twin at "
+                             f"{case.label}")
+    results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None}
+    results[name]["bound_ms"], results[name]["bound_by"] = bound(
+        name.split("(")[0], None, touched)
+    print(f"{'':18s} bound {results[name]['bound_ms']:.4f} ms "
+          f"({results[name]['bound_by']})", flush=True)
+
+
+def ho_kernel_phase(case, results, reps, plain_reps):
+    """Every sweep of O, P and M's new schemes (HO_PAIRS) against its twin
+    sweep, each on the previous sweep's twin output, bit for bit."""
+    from mitgcm_tpu_torch.model import gad
+
+    cfg, g = case.cfg, case.grid
+    done = set()
+    for scheme, vert in HO_PAIRS:
+        sweeps = gad.multidim_sweeps(cfg, g, case.flow, case.u, case.v,
+                                     case.w, case.tracer, scheme, vert,
+                                     cfg.deltaTTracer)
+        for name, run, src, dst, touched in sweeps:
+            sch = vert if name.endswith("_r") else scheme
+            if (name, sch) in done:
+                continue
+            done.add((name, sch))
+            twin = gad.MD_PLAIN[name]
+
+            def plain(twin=twin, src=src):
+                return twin(cfg, g, case.flow, case.u, case.v, case.w,
+                            case.tracer, src, scheme, vert, cfg.deltaTTracer)
+            run()
+            label = name if sch in (7, 51) else f"{name}({sch})"
+            ho_compare(label, case, dst, plain(), cuda_time_ms(run, reps),
+                       cuda_time_ms(plain, plain_reps), results, touched)
+
+
+def ho_phase(kernels, results, smi):
+    phase("10 high-order advection: os7mp-gyre and pqm-gyre, halos of 4")
+    ho_kernel_phase(G9Case(64, 12, torch.float64, "os7mp"), results, 20, 20)
+    ho_kernel_phase(G9Case(1024, 32, torch.float32, "os7mp"), results, 10, 3)
+    torch.cuda.empty_cache()
+    launches = {}
+    for config, names in (("os7mp", O_KERNELS), ("pqm", P_KERNELS)):
+        g9_parity_phase(config)
+        g9_restart_phase(config)
+        run = g9_full_phase(kernels, smi, config, HO_LAUNCHES[config])
+        launches.update({k: run[k] for k in names})
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1365,6 +1479,7 @@ def main():
     g9_launches = g9_phase(kernels, results, smi)
     for name in G9_KERNELS + MD_KERNELS:
         launches[name] = g9_launches[name]
+    launches.update(ho_phase(kernels, results, smi))
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

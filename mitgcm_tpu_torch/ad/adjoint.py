@@ -27,8 +27,8 @@ from mitgcm_tpu_torch.model import step as step_mod
 def check_adjoint_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the options whose kernels have no
     backward kernel yet (V: vector-invariant momentum, T: implicit
-    vertical mixing, R: the nonlinear EOS, K: KPP, G9: GGL90, M: the
-    multi-dimensional advection of schemes 30, 33 and 77), and for AB-3,
+    vertical mixing, R: the nonlinear EOS, K: KPP, G9: GGL90, M, O and P:
+    the multi-dimensional advection), and for AB-3,
     whose gradient is not yet held against the JAX adjoint: the adjoint runs
     the gyre of the forward path's first slice only."""
     off = {

@@ -89,11 +89,14 @@ SIGNATURES = {
     # visctmp, maskW, maskS, viscU, viscV; nr, nyp, nxp; viscMax, viscAr;
     # stream
     "ggl90_visc": [_P] * 5 + [_I] * 3 + [_D] * 2 + [_P],
-    # pointer table, its length; the sweep's input and output fields; nr,
-    # nyp, nxp, scheme; deltaT, rkSign; stream
-    "gad_multidim_x": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P],
-    "gad_multidim_y": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P],
-    "gad_multidim_r": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P],
+    # the sweeps of kernels M and O: pointer table, its length; the sweep's
+    # input and output fields; nr, nyp, nxp, scheme; deltaT, rkSign; stream
+    **{f"{k}_{d}": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P]
+       for k in ("gad_multidim", "gad_os7mp") for d in "xyr"},
+    # the sweeps of kernel P: the same with its coefficient scratch buffer
+    # after the output field
+    **{f"gad_ppm_{d}": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 2 + [_P]
+       for d in "xyr"},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -7,7 +7,7 @@
 // under implicit_diffusion (:1093-1094), plus an optional extra vertical
 // flux df (the KPP nonlocal flux, :1099-1101): the flux divergence minus
 // tracer * divTrans. Without calcAdvection (calc_rhs(calc_advection=False),
-// the tracers that kernel M advects, gad_multidim.cu) the advective
+// the tracers that kernels M, O and P advect) the advective
 // fluxes are 0 and divTrans is multiplied by advFac = 0, as in the JAX code.
 // XLA fused it into a few sweeps on the TPU.
 //

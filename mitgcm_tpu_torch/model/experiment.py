@@ -108,7 +108,7 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
     is exact), and pickup_ggl90.<iter10> with GGL90TKE when useGGL90;
     returns the file root."""
     cfg, st = exp.cfg, exp.state
-    step_mod.check_supported(cfg, exp.kpp, exp.ggl90)
+    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl)
     flds3d = _PICKUP_3D + (_PICKUP_AB3 if cfg.useAB3 else []) + ["Wvel"]
     flds2d = _PICKUP_2D + ["PmEpR"]
     recs = [_interior(cfg, getattr(st, _FIELD[n])) for n in flds3d]
@@ -136,7 +136,7 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     as the reference does after its warning. With useGGL90 the TKE comes
     from pickup_ggl90.<iter10>, which must exist (ggl90_read_pickup.F)."""
     cfg = exp.cfg
-    step_mod.check_supported(cfg, exp.kpp, exp.ggl90)
+    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl)
     fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
                                   itr=myIter)
     stack = fields["__records__"]

@@ -1,8 +1,10 @@
 """Generic advection-diffusion (mitgcm_tpu/model/gad.py): centred
 2nd-order advection (scheme 2) with Laplacian horizontal and explicit
 vertical diffusion, and the direction-split multi-dimensional advection of
-the non-linear schemes 30 (DST-3), 33 (DST-3 flux-limited) and 77 (the
-Superbee flux limiter).
+every scheme the JAX package runs under it: upwind (1), DST-2 (20), DST-3
+(30), DST-3 flux-limited (33), Superbee (77), OS7MP (7) and PPM/PQM
+(40-42, 50-52, in model/gad_ho.py), with the vertical schemes 1, 2, 3, 4,
+7, 20, 30, 33, 77, 40-42 and 50-52.
 
 `calc_rhs` runs kernel C (kernels/csrc/gad_calc_rhs.cu) for CUDA tensors,
 with kernel C' (gad_calc_rhs_adj.cu) as its backward, and the plain
@@ -16,13 +18,16 @@ calc_advection the advective fluxes and the tracer * divergence term are
 left out (the multi-dimensional advection has advected the tracer). Kernel C'
 has none of these branches, so those variants refuse gradients.
 
-`multidim_advection` runs kernel M (kernels/csrc/gad_multidim.cu: the X,
-Y and R sweeps, one launch each) for CUDA tensors and the plain twin
-`_multidim_plain`, built from `adv_flux_x`/`adv_flux_y`/`adv_flux_r`, for
-CPU tensors or with impl="plain". Both compute every cell of the
+`multidim_advection` runs the X, Y and R sweeps, one launch each, on the
+kernel that owns each sweep's scheme: M (kernels/csrc/gad_multidim.cu:
+schemes 1, 20, 30, 33, 77 and the vertical 1, 2, 3, 4), O (gad_os7mp.cu:
+scheme 7) or P (gad_ppm.cu: 40-42 and 50-52), for CUDA tensors; the plain
+twin `_multidim_plain`, built from `adv_flux_x`/`adv_flux_y`/`adv_flux_r`,
+runs for CPU tensors or with impl="plain". Both compute every cell of the
 padded arrays with the JAX code's zero-filled shifts, so the Y sweep reads
 what the X sweep wrote in the halo rows, as in the JAX code. No gradient:
-the adjoint refuses every scheme but 2.
+the adjoint refuses every scheme but 2. JAX's adv_flux_r runs centred
+2nd order for a vertical scheme it does not know; the port refuses one.
 """
 
 from __future__ import annotations
@@ -31,21 +36,30 @@ from typing import NamedTuple
 
 import torch
 
-from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
+from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
+from mitgcm_tpu_torch.model import gad_ho
 from mitgcm_tpu_torch.ops.stencil import shift as sh
 from mitgcm_tpu_torch.ops.stencil import shift_k
 
+ENUM_UPWIND_1RST = 1
 ENUM_CENTERED_2ND = 2
+ENUM_UPWIND_3RD = 3
+ENUM_CENTERED_4TH = 4
+ENUM_DST2 = 20
 ENUM_DST3 = 30
 ENUM_DST3_FLUX_LIMIT = 33
 ENUM_FLUX_LIMIT = 77
-# the schemes the port runs under the multi-dimensional advection (kernel M)
-MULTIDIM_SCHEMES = (ENUM_DST3, ENUM_DST3_FLUX_LIMIT, ENUM_FLUX_LIMIT)
-# the JAX package's multi-dimensional set (gad.py:49-51): upwind-1st, DST-2,
-# OS7MP, PPM and PQM are not ported
-_JAX_MULTIDIM = (77, 33, 20, 30, 1, 7, 40, 41, 42, 50, 51, 52)
+ENUM_OS7MP = gad_ho.ENUM_OS7MP
+PPM_PQM_SCHEMES = gad_ho.PPM_SCHEMES + gad_ho.PQM_SCHEMES
+# the schemes that run under the multi-dimensional advection (gad.py:49-51)
+MULTIDIM_SCHEMES = (ENUM_FLUX_LIMIT, ENUM_DST3_FLUX_LIMIT, ENUM_DST2,
+                    ENUM_DST3, ENUM_UPWIND_1RST, ENUM_OS7MP) + PPM_PQM_SCHEMES
+# the vertical schemes that adv_flux_r computes (gad.py:932-1017)
+VERT_SCHEMES = (ENUM_UPWIND_1RST, ENUM_CENTERED_2ND, ENUM_UPWIND_3RD,
+                ENUM_CENTERED_4TH, ENUM_OS7MP, ENUM_DST2, ENUM_DST3,
+                ENUM_DST3_FLUX_LIMIT, ENUM_FLUX_LIMIT) + PPM_PQM_SCHEMES
 
 # calls of multidim_advection that ran the plain twin (a run on the card
 # reads it to show that its kernel path never did)
@@ -138,60 +152,103 @@ def _adv_flux_highorder(scheme: int, trans, cfl, t, tm1, Rjp, Rj, Rjm):
     raise NotImplementedError(f"advection scheme {scheme}")
 
 
+def _adv_flux_h(grid: Grid, scheme: int, axis: str, trans, vel, tracer,
+                deltaT, mask):
+    """gad.py:adv_flux_x / adv_flux_y (:839-908) along `axis`: the flux at
+    the west (x) or south (y) face; mask is the scheme's face mask (maskW *
+    maskInW or maskS * maskInS under the multi-dimensional advection)."""
+    if axis == "x":
+        s = lambda a, d: sh(a, di=d)                       # noqa: E731
+        recip_dC = grid.recip_dxC
+    else:
+        s = lambda a, d: sh(a, dj=d)                       # noqa: E731
+        recip_dC = grid.recip_dyC
+    t = tracer
+    tm1 = s(t, -1)
+    if scheme == ENUM_CENTERED_2ND:
+        return trans * 0.5 * (t + tm1)
+    if scheme == ENUM_OS7MP:
+        flux = gad_ho.os7mp_flux_x if axis == "x" else gad_ho.os7mp_flux_y
+        return flux(trans, vel, mask, t, deltaT, recip_dC)
+    if scheme in PPM_PQM_SCHEMES:
+        return gad_ho._ppm_pqm_flux_h(grid, scheme, axis, trans, vel, t,
+                                      deltaT)
+    if scheme in (ENUM_UPWIND_1RST, ENUM_DST2):
+        # gad_dst2u1_adv_x.F: Lax-Wendroff, or upwind with a limit of 1
+        limit = 1.0 if scheme == ENUM_UPWIND_1RST else vel * deltaT * recip_dC
+        return 0.5 * (trans * (t + tm1) - trans.abs() * limit * (t - tm1))
+    Rjp = (s(t, 1) - t) * s(mask, 1)
+    Rj = (t - tm1) * mask
+    Rjm = (tm1 - s(t, -2)) * s(mask, -1)
+    return _adv_flux_highorder(scheme, trans, (vel * deltaT * recip_dC).abs(),
+                               t, tm1, Rjp, Rj, Rjm)
+
+
 def adv_flux_x(grid: Grid, scheme: int, uTrans, uFld, tracer, deltaT,
                maskW):
     """Zonal advective flux at the west face (gad.py:adv_flux_x, :839-874):
-    scheme 2 (gad_c2_adv_x.F), 30, 33 or 77; maskW is the scheme's face
-    mask (maskW * maskInW under the multi-dimensional advection)."""
-    t = tracer
-    tm1 = sh(t, di=-1)
-    if scheme == ENUM_CENTERED_2ND:
-        return uTrans * 0.5 * (t + tm1)
-    Rjp = (sh(t, di=1) - t) * sh(maskW, di=1)
-    Rj = (t - tm1) * maskW
-    Rjm = (tm1 - sh(t, di=-2)) * sh(maskW, di=-1)
-    return _adv_flux_highorder(scheme, uTrans,
-                               (uFld * deltaT * grid.recip_dxC).abs(),
-                               t, tm1, Rjp, Rj, Rjm)
+    scheme 2 (gad_c2_adv_x.F) or any scheme of MULTIDIM_SCHEMES; maskW is
+    the scheme's face mask (maskW * maskInW under the multi-dimensional
+    advection)."""
+    return _adv_flux_h(grid, scheme, "x", uTrans, uFld, tracer, deltaT,
+                       maskW)
 
 
 def adv_flux_y(grid: Grid, scheme: int, vTrans, vFld, tracer, deltaT,
                maskS):
     """Meridional advective flux at the south face (gad.py:adv_flux_y)."""
-    t = tracer
-    tm1 = sh(t, dj=-1)
-    if scheme == ENUM_CENTERED_2ND:
-        return vTrans * 0.5 * (t + tm1)
-    Rjp = (sh(t, dj=1) - t) * sh(maskS, dj=1)
-    Rj = (t - tm1) * maskS
-    Rjm = (tm1 - sh(t, dj=-2)) * sh(maskS, dj=-1)
-    return _adv_flux_highorder(scheme, vTrans,
-                               (vFld * deltaT * grid.recip_dyC).abs(),
-                               t, tm1, Rjp, Rj, Rjm)
+    return _adv_flux_h(grid, scheme, "y", vTrans, vFld, tracer, deltaT,
+                       maskS)
 
 
 def adv_flux_r(grid: Grid, scheme: int, rTrans, wFld, tracer, deltaT):
     """Vertical advective flux at interface k, zero at the surface
-    (gad.py:adv_flux_r, :911-1022): scheme 2 (gad_c2_adv_r.F), 77
-    (gad_fluxlimit_adv_r.F), 30 (gad_dst3_adv_r.F) or 33
-    (gad_dst3fl_adv_r.F). The vertical neighbours are clamped at the column
-    ends (km1 = max(1, k-1) and so on)."""
+    (gad.py:adv_flux_r, :911-1022) of every scheme in VERT_SCHEMES: 2
+    (gad_c2_adv_r.F), 4 (gad_c4_adv_r.F), 1 and 20 (gad_dst2u1_adv_r.F), 77
+    (gad_fluxlimit_adv_r.F), 3 (gad_u3_adv_r.F), 30 (gad_dst3_adv_r.F), 33
+    (gad_dst3fl_adv_r.F), 7 (gad_os7mp_adv_r.F) and PPM/PQM (gad_ppm_adv_r.F,
+    gad_pqm_adv_r.F). The vertical neighbours are clamped at the column ends
+    (km1 = max(1, k-1) and so on)."""
     t = tracer
     mC = grid.maskC
+    nr = t.shape[0]
+    if scheme == ENUM_OS7MP:
+        flx = gad_ho._os7mp_flux_r(mC, grid.recip_drC, rTrans, wFld, t,
+                                   deltaT)
+        flx[0] = 0.0
+        return flx
+    if scheme in PPM_PQM_SCHEMES:
+        return gad_ho._ppm_pqm_flux_r(grid, scheme, rTrans, wFld, t, deltaT)
     tkm1 = torch.cat([t[:1], t[:-1]])
     tkm2 = torch.cat([tkm1[:1], tkm1[:-1]])
     tkp1 = torch.cat([t[1:], t[-1:]])
     mkm1 = torch.cat([mC[:1], mC[:-1]])
     mkm2 = torch.cat([mkm1[:1], mkm1[:-1]])
     mkp1 = torch.cat([mC[1:], mC[-1:]])
+    absT = rTrans.abs()
+    wCFL = (wFld * deltaT * grid.recip_drC[:nr, None, None]).abs() \
+        if wFld is not None else None
     if scheme == ENUM_CENTERED_2ND:
         flx = mkm1 * rTrans * 0.5 * (t + tkm1)
-        flx[0] = 0.0
-        return flx
-    absT = rTrans.abs()
-    nr = t.shape[0]
-    wCFL = (wFld * deltaT * grid.recip_drC[:nr, None, None]).abs()
-    if scheme == ENUM_FLUX_LIMIT:
+    elif scheme == ENUM_CENTERED_4TH:
+        # 4th-order centred; the upwind correction only next to the top and
+        # the bottom (the maskBound wall factor)
+        k1 = torch.arange(1, nr + 1, dtype=t.dtype,
+                          device=t.device)[:, None, None]
+        maskPM = 1.0 - ((k1 <= 2.0) | (k1 >= float(nr))).to(t.dtype)
+        maskBound = maskPM * mkm2 * mkp1
+        Rjp = (tkp1 - t) * mkp1
+        Rj = t - tkm1
+        Rjm = (tkm1 - tkm2) * mkm1
+        Rjjp = Rjp - Rj
+        Rjjm = Rj - Rjm
+        flx = mkm1 * (
+            rTrans * ((t + tkm1) * 0.5 - (Rjjm + Rjjp) * (1.0 / 12.0))
+            + absT * (1.0 / 6.0) * (Rjjm - Rjjp) * 0.5 * (1.0 - maskBound))
+    elif scheme in (ENUM_UPWIND_1RST, ENUM_DST2):
+        limit = 1.0 if scheme == ENUM_UPWIND_1RST else wCFL
+        flx = mkm1 * 0.5 * (rTrans * (t + tkm1) + absT * limit * (t - tkm1))
+    elif scheme == ENUM_FLUX_LIMIT:
         Rjp = (tkp1 - t) * mkp1
         Rj = t - tkm1
         Rjm = (tkm1 - tkm2) * mkm2
@@ -199,6 +256,14 @@ def adv_flux_r(grid: Grid, scheme: int, rTrans, wFld, tracer, deltaT):
                                                       Rjp)))
         flx = mkm1 * (rTrans * (t + tkm1) * 0.5
                       + absT * ((1.0 - lim) + wCFL * lim) * Rj * 0.5)
+    elif scheme == ENUM_UPWIND_3RD:
+        # gad_u3_adv_r.F:36-46: its R's run top-down, Rj unmasked and Rjm
+        # masked with m(k-2)
+        Rjjp = (tkp1 - t) * mkp1 - (t - tkm1)
+        Rjjm = (t - tkm1) - (tkm1 - tkm2) * mkm2
+        flx = mkm1 * (
+            rTrans * ((t + tkm1) * 0.5 - (1.0 / 6.0) * (Rjjm + Rjjp) * 0.5)
+            + absT * (1.0 / 6.0) * (Rjjm - Rjjp) * 0.5)
     elif scheme in (ENUM_DST3, ENUM_DST3_FLUX_LIMIT):
         Rjp = (t - tkp1) * mkp1
         Rj = (tkm1 - t) * mC * mkm1
@@ -214,7 +279,7 @@ def adv_flux_r(grid: Grid, scheme: int, rTrans, wFld, tracer, deltaT):
             flx = (0.5 * (rTrans + absT) * (t + psiM * Rj)
                    + 0.5 * (rTrans - absT) * (tkm1 - psiP * Rj))
     else:
-        raise NotImplementedError(f"advection scheme {scheme}")
+        raise NotImplementedError(f"vertical advection scheme {scheme}")
     flx[0] = 0.0
     return flx
 
@@ -380,13 +445,13 @@ def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
 
 
 # ----------------------------------------------------------------------
-# multi-dimensional advection: kernel M and its plain twin
+# multi-dimensional advection: kernels M, O and P and their plain twins
 # ----------------------------------------------------------------------
 
 def is_multidim(cfg: Config, scheme: int) -> bool:
     """set_parms.F logic (gad.py:is_multidim): non-linear schemes use the
     multi-dimensional advection when multiDimAdvection is on."""
-    return bool(cfg.multiDimAdvection) and scheme in _JAX_MULTIDIM
+    return bool(cfg.multiDimAdvection) and scheme in MULTIDIM_SCHEMES
 
 
 def _md_plain_x(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
@@ -425,89 +490,161 @@ def _md_plain_r(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
     return _div(localT - tracer, deltaT)
 
 
-# kernel M's sweeps and their twins, in the order they run
-MD_SWEEPS = ("gad_multidim_x", "gad_multidim_y", "gad_multidim_r")
-MD_PLAIN = dict(zip(MD_SWEEPS, (_md_plain_x, _md_plain_y, _md_plain_r)))
-# the fields each sweep reads besides its input field and the tracer
-_MD_READS = {
-    "gad_multidim_x": ("uTrans", "uVel", "maskW", "recip_hFacC", "recip_dxC",
-                       "recip_rA", "maskInC", "maskInW", "recip_drF"),
-    "gad_multidim_y": ("vTrans", "vVel", "maskS", "recip_hFacC", "recip_dyC",
-                       "recip_rA", "maskInC", "maskInS", "recip_drF"),
-    "gad_multidim_r": ("rTrans", "wVel", "maskC", "recip_hFacC", "recip_rA",
-                       "maskInC", "recip_drF", "recip_drC"),
+# the kernels of the sweeps: M (gad_multidim.cu), O (gad_os7mp.cu) and P
+# (gad_ppm.cu), each as its X, Y and R launches, with the schemes each owns
+# per direction
+_OWNERS = {
+    "M": ("gad_multidim", (ENUM_UPWIND_1RST, ENUM_DST2, ENUM_DST3,
+                           ENUM_DST3_FLUX_LIMIT, ENUM_FLUX_LIMIT),
+          (ENUM_UPWIND_1RST, ENUM_CENTERED_2ND, ENUM_UPWIND_3RD,
+           ENUM_CENTERED_4TH, ENUM_DST2, ENUM_DST3, ENUM_DST3_FLUX_LIMIT,
+           ENUM_FLUX_LIMIT)),
+    "O": ("gad_os7mp", (ENUM_OS7MP,), (ENUM_OS7MP,)),
+    "P": ("gad_ppm", PPM_PQM_SCHEMES, PPM_PQM_SCHEMES),
 }
-# the grid fields of gad_multidim.cu:MdArgs, in its order
+DIRECTIONS = ("x", "y", "r")
+SWEEPS = tuple(f"{stem}_{d}" for stem, _, _ in _OWNERS.values()
+               for d in DIRECTIONS)
+# each sweep's plain twin
+MD_PLAIN = {name: (_md_plain_x, _md_plain_y, _md_plain_r)[n % 3]
+            for n, name in enumerate(SWEEPS)}
+
+
+def sweep_owner(scheme: int, direction: str) -> str:
+    """The letter of the kernel that runs the X, Y or R sweep of a scheme
+    ("M", "O" or "P")."""
+    for letter, (_, horizontal, vertical) in _OWNERS.items():
+        if scheme in (vertical if direction == "r" else horizontal):
+            return letter
+    raise NotImplementedError(
+        f"{'vertical ' if direction == 'r' else ''}multidim advection "
+        f"scheme {scheme}")
+
+
+def sweep_name(scheme: int, direction: str) -> str:
+    """The kernel name of the X, Y or R sweep of a scheme."""
+    return f"{_OWNERS[sweep_owner(scheme, direction)][0]}_{direction}"
+
+
+# the grid fields of gad_advect.cuh:AdvArgs, in its order
 _MD_GRID3 = ("maskW", "maskS", "maskC", "recip_hFacC")
 _MD_GRID2 = ("recip_dxC", "recip_dyC", "recip_rA", "maskInC", "maskInW",
-             "maskInS")
-_MD_GRID1 = ("recip_drF", "recip_drC")
+             "maskInS", "dxF", "dyF", "recip_dxF", "recip_dyF")
+_MD_GRID1 = ("recip_drF", "recip_drC", "drF")
+# the fields each sweep reads besides its input field and the tracer
+_VOLUME = ("recip_hFacC", "recip_rA", "maskInC", "recip_drF")
+_READS = {
+    ("M", "x"): ("uTrans", "uVel", "maskW", "maskInW", "recip_dxC"),
+    ("M", "y"): ("vTrans", "vVel", "maskS", "maskInS", "recip_dyC"),
+    ("M", "r"): ("rTrans", "wVel", "maskC", "recip_drC"),
+    ("P", "x"): ("uTrans", "uVel", "maskC", "recip_dxF"),
+    ("P", "y"): ("vTrans", "vVel", "maskC", "recip_dyF"),
+    ("P", "r"): ("rTrans", "wVel", "maskC"),
+    # PQM's edge slopes
+    ("PQM", "x"): ("recip_dxC", "dxF"),
+    ("PQM", "y"): ("recip_dyC", "dyF"),
+    ("PQM", "r"): ("recip_drC", "drF"),
+}
+_READS["O", "x"], _READS["O", "y"], _READS["O", "r"] = (
+    _READS["M", d] for d in DIRECTIONS)
+# the polynomial coefficients per cell that P keeps between its two stages
+_NCOEF = {**{s: 3 for s in gad_ho.PPM_SCHEMES},
+          **{s: 5 for s in gad_ho.PQM_SCHEMES}}
+
+
+def _sweep_reads(scheme: int, direction: str):
+    reads = _READS[sweep_owner(scheme, direction), direction] + _VOLUME
+    if scheme in gad_ho.PQM_SCHEMES:
+        reads += _READS["PQM", direction]
+    if direction != "r" and scheme in (ENUM_UPWIND_1RST, ENUM_DST2):
+        reads = tuple(n for n in reads if not n.startswith("mask")
+                      or n == "maskInC")
+    if direction == "r" and scheme in (ENUM_CENTERED_2ND, ENUM_UPWIND_3RD,
+                                       ENUM_CENTERED_4TH):
+        reads = tuple(n for n in reads if n not in ("wVel", "recip_drC"))
+    return reads
 
 
 def _multidim_plain(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
                     scheme: int, vert_scheme: int, deltaT: float):
-    """Kernel M's twin: gad.py:multidim_advection (:1120-1154), Cartesian
+    """The kernels' twin: gad.py:multidim_advection (:1120-1154), Cartesian
     branch, in its operation order, one function per sweep."""
     global plain_calls
     plain_calls += 1
     field = tracer
-    for sweep in MD_SWEEPS:
-        field = MD_PLAIN[sweep](cfg, grid, flow, u, v, w, tracer, field,
-                                scheme, vert_scheme, deltaT)
+    for twin in (_md_plain_x, _md_plain_y, _md_plain_r):
+        field = twin(cfg, grid, flow, u, v, w, tracer, field, scheme,
+                     vert_scheme, deltaT)
     return field
 
 
 def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
                     scheme: int, vert_scheme: int, deltaT: float):
-    """Kernel M on the card as its three launches: a list of (sweep name,
-    launch, input, output, the tensors the sweep reads and writes), in the
-    order they must run; each launch reads the previous one's output and
-    the last output is gTr."""
+    """The three sweeps on the card, each a launch of the kernel that owns
+    its scheme: a list of (sweep name, launch, input, output, the tensors
+    the sweep reads and writes), in the order they must run; each launch
+    reads the previous one's output and the last output is gTr. Kernel P
+    keeps its cell polynomials in a scratch buffer between its two
+    stages."""
     nr, nyp, nxp = tracer.shape
+    schemes = (scheme, scheme, vert_scheme)
+    names = [sweep_name(s, d) for s, d in zip(schemes, DIRECTIONS)]
     ins3 = dict(uTrans=flow.uTrans, vTrans=flow.vTrans, rTrans=flow.rTrans,
                 uVel=u, vVel=v, wVel=w, tracer=tracer,
                 **{n: getattr(grid, n) for n in _MD_GRID3})
     ins2 = {n: getattr(grid, n) for n in _MD_GRID2}
     ins1 = {n: getattr(grid, n) for n in _MD_GRID1}
-    fields = [tracer] + [torch.empty_like(tracer) for _ in MD_SWEEPS]
+    fields = [tracer] + [torch.empty_like(tracer) for _ in DIRECTIONS]
+    ncoef = max(_NCOEF.get(s, 0) for s in schemes)
+    scratch = ({"scratch": tracer.new_empty((ncoef,) + tuple(tracer.shape))}
+               if ncoef else {})
     kernels.check_tensors(tracer.dtype, **ins3, **ins2, **ins1,
-                          localX=fields[1], localY=fields[2], gTr=fields[3])
+                          localX=fields[1], localY=fields[2], gTr=fields[3],
+                          **scratch)
     for name, t in ins3.items():
         kernels.check_shape(name, t, (nr, nyp, nxp))
     for name, t in ins2.items():
         kernels.check_shape(name, t, (nyp, nxp))
     kernels.check_shape("recip_drF", ins1["recip_drF"], (nr,))
     kernels.check_shape("recip_drC", ins1["recip_drC"], (nr + 1,))
+    kernels.check_shape("drF", ins1["drF"], (nr,))
     named = {**ins3, **ins2, **ins1}
     table = kernels.pointer_table(list(named.values()))
 
-    def sweep(name, src, dst, sch):
+    def sweep(name, direction, src, dst, sch):
+        # the launch holds the scratch buffer, which must outlive it
+        extra = list(scratch.values()) if name.startswith("gad_ppm") else []
+
         def run():
             kernels.launch(name, tracer.dtype, table, len(table),
-                           src.data_ptr(), dst.data_ptr(), nr, nyp, nxp, sch,
+                           src.data_ptr(), dst.data_ptr(),
+                           *[t.data_ptr() for t in extra], nr, nyp, nxp, sch,
                            float(deltaT), float(cfg.rkSign))
-        touched = [src, tracer, dst] + [named[n] for n in _MD_READS[name]]
+        touched = [src, tracer, dst] + [named[n] for n in
+                                        _sweep_reads(sch, direction)]
         return name, run, src, dst, touched
 
-    return [sweep(name, fields[n], fields[n + 1], sch)
-            for n, (name, sch) in enumerate(zip(
-                MD_SWEEPS, (scheme, scheme, vert_scheme)))]
+    return [sweep(name, d, fields[n], fields[n + 1], sch)
+            for n, (name, d, sch) in enumerate(zip(names, DIRECTIONS,
+                                                   schemes))]
 
 
 def multidim_advection(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w,
                        tracer, scheme: int, vert_scheme: int, deltaT: float,
                        impl: str = None) -> torch.Tensor:
     """Direction-split multi-dimensional advection (gad_advection.F, the
-    default non-compressible form, Cartesian pass order X, Y, R) of schemes
-    30, 33 and 77: returns gTracer = (T_advected - T) / deltaT at every
-    cell of the padded array."""
-    for s in (scheme, vert_scheme):
-        if s not in MULTIDIM_SCHEMES:
-            raise NotImplementedError(f"multidim advection scheme {s}")
+    default non-compressible form, Cartesian pass order X, Y, R) of a
+    scheme of MULTIDIM_SCHEMES with a vertical scheme of VERT_SCHEMES:
+    returns gTracer = (T_advected - T) / deltaT at every cell of the padded
+    array."""
+    owners = sorted({sweep_owner(s, d) for s, d in zip(
+        (scheme, scheme, vert_scheme), DIRECTIONS)})
     ins = (u, v, w, tracer, flow.uTrans, flow.vTrans, flow.rTrans)
     if any(t.requires_grad for t in ins):
-        raise ValueError("multidim_advection: an input requires grad; kernel "
-                         "M has no backward kernel")
+        raise ValueError(
+            "multidim_advection: an input requires grad; "
+            f"{' and '.join(f'kernel {k}' for k in owners)} "
+            f"{'has' if len(owners) == 1 else 'have'} no backward kernel")
     if not kernels.use_kernel(tracer, impl):
         return _multidim_plain(cfg, grid, flow, u, v, w, tracer, scheme,
                                vert_scheme, deltaT)

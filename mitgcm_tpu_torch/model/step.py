@@ -5,14 +5,15 @@ the ported paths of the wind-driven gyre:
   SOLVE_FOR_PRESSURE (cg2d) -> MOMENTUM_CORRECTION_STEP -> fill u,v ->
   INTEGR_CONTINUITY -> fill
 
-Four paths go through it: the gyre (flux-form momentum, linear EOS, AB-2,
-explicit vertical mixing), the vi-gyre (vector-invariant momentum, a
+The paths that go through it: the gyre (flux-form momentum, linear EOS,
+AB-2, explicit vertical mixing), the vi-gyre (vector-invariant momentum, a
 JMD95 or MDJWF EOS, AB-3, implicit vertical viscosity and diffusion), the
 kpp-gyre (the vi-gyre with KPP boundary-layer mixing, run on the
-start-of-step state before THERMODYNAMICS) and the ggl90-gyre (the
+start-of-step state before THERMODYNAMICS), the ggl90-gyre (the
 kpp-gyre's set-up with GGL90 TKE mixing in place of KPP, on the same
 state, and DST-3 flux-limited tracers under the multi-dimensional
-advection), and any mix of those options.
+advection) and its os7mp- and pqm-gyre variants (OS7MP, or monotone PPM
+and PQM tracers, on halos of 4), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
@@ -27,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
@@ -59,33 +61,39 @@ _PACKAGES = ("usePP81", "useMY82", "useOPPS",
 
 def _tracer_schemes_off(cfg: Config) -> dict:
     """The refusals of the tracer advection schemes: scheme 2 in both
-    directions (kernel C), or 30, 33 and 77 under the multi-dimensional
-    advection (kernel M), each named."""
+    directions (kernel C), or under the multi-dimensional advection a
+    horizontal scheme of gad.MULTIDIM_SCHEMES with a vertical scheme of
+    gad.VERT_SCHEMES (kernels M, O and P), each other pair named."""
     off = {}
     for tr in ("temp", "salt"):
         h = getattr(cfg, f"{tr}AdvScheme")
         v = getattr(cfg, f"{tr}VertAdvScheme") or h
-        multidim = (cfg.multiDimAdvection and h in gad.MULTIDIM_SCHEMES
-                    and v in gad.MULTIDIM_SCHEMES)
+        multidim = (gad.is_multidim(cfg, h) and v in gad.VERT_SCHEMES)
         if not ((h, v) == (2, 2) or multidim):
             off[f"{tr}AdvScheme={h}, {tr}VertAdvScheme={v}, "
                 f"multiDimAdvection={cfg.multiDimAdvection}"] = True
     return off
 
 
-def check_supported(cfg: Config, kpp=None, ggl90=None) -> None:
+def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None
+                    ) -> None:
     """Raise NotImplementedError unless cfg stays on the ported paths
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
-    free surface solved by cg2d, scheme-2 tracers or schemes 30, 33 and 77
-    under the multi-dimensional advection, explicit or implicit vertical
-    diffusion, KPP given as a model/kpp.py:KPP object without the options
-    that check_kpp refuses, or GGL90 as a model/ggl90.py:GGL90 object
-    without the options that check_ggl90 refuses)."""
+    free surface solved by cg2d, scheme-2 tracers or the schemes of the
+    multi-dimensional advection, explicit or implicit vertical diffusion,
+    KPP given as a model/kpp.py:KPP object without the options that
+    check_kpp refuses, or GGL90 as a model/ggl90.py:GGL90 object without the
+    options that check_ggl90 refuses, and with at most ggl90.MAX_NR levels
+    when its tensors are on the card and impl does not ask for the plain
+    path)."""
+    g9_kernel = ggl90 is not None and kernels.use_kernel(ggl90.klowC, impl)
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
         "useGGL90 without a GGL90 object": cfg.useGGL90 and ggl90 is None,
         "useKPP with useGGL90": cfg.useKPP and cfg.useGGL90,
+        f"GGL90 with nr > {ggl90_mod.MAX_NR} on the kernel path":
+            g9_kernel and cfg.nr > ggl90_mod.MAX_NR,
         "staggerTimeStep": cfg.staggerTimeStep,
         "nonlinFreeSurf>0": cfg.nonlinFreeSurf > 0,
         "exactConserv": cfg.exactConserv,
@@ -299,7 +307,7 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     """One timestep; myIter is the start-of-step iteration number; kpp: a
     model/kpp.py:KPP object when useKPP; ggl90: a model/ggl90.py:GGL90
     object when useGGL90."""
-    check_supported(cfg, kpp, ggl90)
+    check_supported(cfg, kpp, ggl90, impl)
 
     def fill(a):
         return cyclic_fill_halo(a, cfg.oly, cfg.olx)

@@ -4,10 +4,10 @@ AB-3 on the tendency and the surface forcing inside the AB extrapolation,
 then, with implicitDiffusion, the implicit vertical diffusion. With KPP
 (model/kpp.py) its diffusivities take the place of the background profile
 and its nonlocal flux joins the vertical flux; with GGL90 (model/ggl90.py)
-its diffusivity is added to the profile. A tracer with a non-linear scheme
-(30, 33, 77) under multiDimAdvection is advected by the multi-dimensional
-advection (gad.multidim_advection, kernel M), and its tendency is not
-AB-extrapolated. `calc_sigmaR` gives GGL90 the vertical density gradient.
+its diffusivity is added to the profile. A tracer with a scheme of
+gad.MULTIDIM_SCHEMES under multiDimAdvection is advected by the
+multi-dimensional advection (gad.multidim_advection, kernels M, O and P),
+and its tendency is not AB-extrapolated. `calc_sigmaR` gives GGL90 the vertical density gradient.
 
 `impldiff` (the tridiagonal column solve, also used for implicit vertical
 viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for

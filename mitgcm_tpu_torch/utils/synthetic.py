@@ -1,6 +1,7 @@
 """Synthetic wind-driven gyre (mitgcm_tpu/utils/synthetic.py): file-free
 configurations for the entry point, the card smoke run and the tests: the
-gyre, the vi-gyre, the kpp-gyre and the ggl90-gyre. The set-ups put their
+gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its high-order
+advection variants, the os7mp-gyre and the pqm-gyre. The set-ups put their
 tensors on the CUDA device unless device="cpu" is asked for."""
 
 from __future__ import annotations
@@ -84,6 +85,26 @@ def ggl90_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, stretch=1.15,
               saltAdvScheme=33, multiDimAdvection=True)
     return kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
                            stretch=stretch, mld=mld, **{**g9, **kw})
+
+
+def os7mp_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The ggl90-gyre with OS7MP tracers (scheme 7, the vertical schemes
+    left to default to it) on halos of 4 (the "os7mp-gyre"): OS7MP's
+    stencil reaches four cells upwind, and its flux kernels write the
+    columns [4, nxp - 3) only. Set up by ggl90_gyre_setup."""
+    o7 = dict(olx=4, oly=4, tempAdvScheme=7, saltAdvScheme=7)
+    return ggl90_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                             **{**o7, **kw})
+
+
+def pqm_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The ggl90-gyre with theta advected by monotone PPM (scheme 41) and
+    salt by monotone PQM (scheme 51), the vertical schemes left to default
+    to them, on halos of 4 (the "pqm-gyre"): PQM's flux band has a margin
+    of 4. Set up by ggl90_gyre_setup."""
+    pq = dict(olx=4, oly=4, tempAdvScheme=41, saltAdvScheme=51)
+    return ggl90_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                             **{**pq, **kw})
 
 
 def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,

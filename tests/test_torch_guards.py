@@ -1,10 +1,11 @@
 """PyTorch port: guards. The port imports neither jax nor the JAX package
 (mitgcm_tpu), its entry points put their tensors on the card unless asked
 for the CPU, it has no CPU fallback for its GPU run, refuses configurations
-and KPP and GGL90 options off its ported paths, its kernel wrappers refuse
-to differentiate what their kernels treat as constants (and V, T, R, K, G9
-and M, which have no backward kernels yet, anything), and its adjoint
-refuses the vi-gyre, KPP, GGL90 and every advection scheme but 2."""
+and KPP and GGL90 options off its ported paths (GGL90 with more levels
+than kernel G9 takes on the card among them), its kernel wrappers refuse
+to differentiate what their kernels treat as constants (and V, T, R, K,
+G9, M, O and P, which have no backward kernels yet, anything), and its
+adjoint refuses the vi-gyre, KPP, GGL90 and every advection scheme but 2."""
 
 import dataclasses
 import os
@@ -69,6 +70,13 @@ g, s, f, op, g9 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
 exp = Experiment(cfg, g, s, f, op, ggl90=g9)
 rec, = exp.run(n_steps=1, collect_monitor=False)
 assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.GGL90TKE).all())
+for config in (synthetic.os7mp_gyre_config, synthetic.pqm_gyre_config):
+    cfg = config(nx=12, ny=10, nr=4, depth=300.0)
+    g, s, f, op, g9 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
+                                                 device="cpu")
+    exp = Experiment(cfg, g, s, f, op, ggl90=g9)
+    rec, = exp.run(n_steps=1, collect_monitor=False)
+    assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.salt).all())
 import chip_smoke
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
@@ -192,9 +200,9 @@ def test_check_supported_vi_gyre(eos):
     check_supported(synthetic.vi_gyre_config(nx=8, ny=8, nr=2, eosType=eos))
 
 
-@pytest.mark.parametrize("kernel", ["V", "T", "R", "K", "G9", "M"])
+@pytest.mark.parametrize("kernel", ["V", "T", "R", "K", "G9", "M", "O", "P"])
 def test_vi_kernels_refuse_grad(kernel):
-    """V, T, R, K, G9 and M have no backward kernels: any input that
+    """V, T, R, K, G9, M, O and P have no backward kernels: any input that
     requires grad is refused, on every device."""
     cfg = synthetic.kpp_gyre_config(nx=8, ny=8, nr=2)
     grid, _, _, _, kpp = synthetic.kpp_gyre_setup(cfg, dtype=torch.float64,
@@ -210,9 +218,9 @@ def test_vi_kernels_refuse_grad(kernel):
                               x2, k[:2], k[:2]),
         "G9": lambda: ggl90_mod.GGL90(cfg, grid).calc(x, x, x.abs(), x, x2,
                                                       x2),
-        "M": lambda: gad.multidim_advection(
-            cfg, grid, gad.calc_adv_flow(grid, x, x, x), x, x, x, x, 33, 33,
-            600.0),
+        **{k: (lambda s=s: gad.multidim_advection(
+            cfg, grid, gad.calc_adv_flow(grid, x, x, x), x, x, x, x, s, s,
+            600.0)) for k, s in (("M", 33), ("O", 7), ("P", 51))},
     }
     with pytest.raises(ValueError, match=f"kernel {kernel}"):
         calls[kernel]()
@@ -287,6 +295,30 @@ def test_check_supported_refuses_ggl90_options(group, name):
         ggl90_mod.check_ggl90(ggl90)
     with pytest.raises(NotImplementedError, match=name):
         check_supported(cfg, ggl90=ggl90)
+
+
+class _OnTheCard:
+    """A stand-in for a tensor on a CUDA device."""
+    is_cuda = True
+
+
+def test_check_supported_refuses_ggl90_above_kernel_cap():
+    """Kernel G9 keeps at most ggl90.MAX_NR levels per column: with its
+    tensors on the card check_supported names the refusal up front, on the
+    plain path (CPU tensors, or impl="plain") any nr runs, as in JAX."""
+    nr = ggl90_mod.MAX_NR + 1
+    cfg = synthetic.ggl90_gyre_config(nx=4, ny=4, nr=nr, depth=300.0)
+    ggl90 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
+                                       device="cpu")[4]
+    check_supported(cfg, ggl90=ggl90)
+    ggl90.klowC = _OnTheCard()
+    with pytest.raises(NotImplementedError,
+                       match=f"GGL90 with nr > {ggl90_mod.MAX_NR} on the "
+                             "kernel path"):
+        check_supported(cfg, ggl90=ggl90)
+    check_supported(cfg, ggl90=ggl90, impl="plain")
+    check_supported(dataclasses.replace(cfg, nr=ggl90_mod.MAX_NR),
+                    ggl90=ggl90)
 
 
 @pytest.mark.parametrize("name", list(kpp_mod.REFUSED_OPTIONS) + [

@@ -4,7 +4,8 @@
 (AB-3, whose pickup carries the *Nm2 records), the kpp-gyre (KPP keeps
 no state from step to step, so its pickup is the vi-gyre's, at 16x16x12)
 and the ggl90-gyre (whose TKE goes through the companion pickup_ggl90, at
-16x16x12); the pickup round trip, in
+16x16x12) and the os7mp-gyre (the ggl90-gyre with OS7MP tracers on halos
+of 4, through pickup and pickup_ggl90); the pickup round trip, in
 float64 and float32 (pickups are float64); and pickups crossing between
 the packages: a pickup written by the JAX package after 2 steps, read by
 the port and stepped 2 more, matches JAX's 4 straight steps to 10 digits,
@@ -44,6 +45,8 @@ FIELDS = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1", "gvNm1",
 def _port(kind, dtype=torch.float64):
     if kind == "ggl90-gyre":
         return port_experiment(tsyn.ggl90_gyre_config(**GGL90_SIZE), dtype)
+    if kind == "os7mp-gyre":
+        return port_experiment(tsyn.os7mp_gyre_config(**GGL90_SIZE), dtype)
     if kind == "kpp-gyre":
         cfg = tsyn.kpp_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
         return Experiment(cfg, *tsyn.kpp_gyre_setup(cfg, dtype=dtype,
@@ -69,7 +72,8 @@ def _jax_mode(kind):
 
 
 def _fields(kind):
-    return FIELDS + (("GGL90TKE",) if kind == "ggl90-gyre" else ())
+    return FIELDS + (("GGL90TKE",) if kind in ("ggl90-gyre", "os7mp-gyre")
+                     else ())
 
 
 def _same(a, b, names, ol=2):
@@ -80,7 +84,7 @@ def _same(a, b, names, ol=2):
 
 
 @pytest.mark.parametrize("kind", ["gyre", "vi-gyre", "kpp-gyre",
-                                  "ggl90-gyre"])
+                                  "ggl90-gyre", "os7mp-gyre"])
 def test_2plus2(kind, tmp_path):
     e4 = _port(kind)
     e4.run(n_steps=4, collect_monitor=False)
@@ -92,7 +96,7 @@ def test_2plus2(kind, tmp_path):
     assert e22.cfg.startFromPickup and e22.cfg.nIter0 == 2
     recs = e22.run(n_steps=2, collect_monitor=False)
     assert [r["iter"] for r in recs] == [3, 4]
-    _same(e4.state, e22.state, _fields(kind))
+    _same(e4.state, e22.state, _fields(kind), ol=e4.cfg.olx)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
