@@ -71,11 +71,26 @@ exits nonzero without the final line:
                  timed steps with every kernel's launch count (O or P each
                  step, M never, the plain twins never), a profile, then 2
                  plain steps
+ 11. IDEMIX, Langmuir and SOM: kernel H-IDEMIX (idemix_prep, idemix_hdiff,
+                 idemix_col), G9's ggl90_col with the IDEMIX and Langmuir
+                 flags, and kernel H-SOM (som_x, som_y, som_r, schemes 80
+                 and 81) against their twins on whole arrays at 64x64x12
+                 float64 with a shelf, a bank and a partial cell, and at
+                 1024x1024x32 float32 (bit-equal, SOM's non-finite first
+                 padded row and column in the same cells); 10 float64 steps
+                 at 64x64x12 of the idemix-gyre (IDEMIX and Langmuir) and of
+                 the som-gyre (theta 81, salt 80), kernel path against plain
+                 path, and the refusal of their pickups; then each at
+                 1024x1024x32 float32 (deltaT=600): one warm-up step and 5
+                 timed steps with every kernel's launch count (H-IDEMIX or
+                 H-SOM each step, the plain twins never), a profile, then 2
+                 plain steps
 It prints, last, one line of JSON per kernel (the launches are those of
 the main path that runs it: phase 5 for the gyre's forward kernels, phase
 6's full-size gradient for B' and C', phase 7's full-size run for V, T
 and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
-O and pqm-gyre for P), with the kernel's time,
+O and pqm-gyre for P, phase 11's idemix-gyre for H-IDEMIX and som-gyre for
+H-SOM), with the kernel's time,
 its plain twin's, and its bound (the larger of the bytes it must move
 over 3.35 TB/s and its estimated operations over 67 TFLOP/s, the H100's
 float32 peaks) at the 1024x1024x32 float32 shapes, the card's name and
@@ -151,6 +166,19 @@ KERNELS = {
                   "mitgcm_tpu/model/gad.py:565"),
     "gad_ppm_r": ("mitgcm_tpu_torch/kernels/csrc/gad_ppm.cu",
                   "mitgcm_tpu/model/gad.py:630"),
+    # the idemix-gyre's kernel H-IDEMIX and the som-gyre's H-SOM
+    "idemix_prep": ("mitgcm_tpu_torch/kernels/csrc/idemix.cu",
+                    "mitgcm_tpu/model/ggl90.py:224"),
+    "idemix_hdiff": ("mitgcm_tpu_torch/kernels/csrc/idemix.cu",
+                     "mitgcm_tpu/model/ggl90.py:253"),
+    "idemix_col": ("mitgcm_tpu_torch/kernels/csrc/idemix.cu",
+                   "mitgcm_tpu/model/ggl90.py:287"),
+    "som_x": ("mitgcm_tpu_torch/kernels/csrc/som.cu",
+              "mitgcm_tpu/model/som.py:214"),
+    "som_y": ("mitgcm_tpu_torch/kernels/csrc/som.cu",
+              "mitgcm_tpu/model/som.py:216"),
+    "som_r": ("mitgcm_tpu_torch/kernels/csrc/som.cu",
+              "mitgcm_tpu/model/som.py:222"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
@@ -182,6 +210,17 @@ HO_LAUNCHES = {
     "pqm": {**_HO_LAUNCHES, **{k: 0 for k in MD_KERNELS + O_KERNELS},
             **{k: 10 for k in P_KERNELS}},
 }
+IDEMIX_KERNELS = ("idemix_prep", "idemix_hdiff", "idemix_col")
+SOM_KERNELS = ("som_x", "som_y", "som_r")
+# launches in phase 11's 5 timed full-size steps: the ggl90-gyre's with
+# H-IDEMIX's three (idemix-gyre), or H-SOM's three per tracer in place of
+# M's (som-gyre)
+ISM_LAUNCHES = {
+    "idemix": {**G9_LAUNCHES, **{k: 5 for k in IDEMIX_KERNELS},
+               **{k: 0 for k in SOM_KERNELS}},
+    "som": {**G9_LAUNCHES, **{k: 0 for k in MD_KERNELS + IDEMIX_KERNELS},
+            **{k: 10 for k in SOM_KERNELS}},
+}
 # the (scheme, vertical scheme) pairs whose sweeps phase 10 holds against
 # their twins: every scheme of O and P, and M's schemes 1 and 20 and
 # vertical 2, 3 and 4; the main paths' 7 and 51 (salt) last, so that the
@@ -205,7 +244,9 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 "ggl90_visc": 10, "gad_multidim_x": 80,
                 "gad_multidim_y": 80, "gad_multidim_r": 80,
                 "gad_os7mp_x": 200, "gad_os7mp_y": 200, "gad_os7mp_r": 200,
-                "gad_ppm_x": 350, "gad_ppm_y": 350, "gad_ppm_r": 350}
+                "gad_ppm_x": 350, "gad_ppm_y": 350, "gad_ppm_r": 350,
+                "idemix_prep": 150, "idemix_hdiff": 60, "idemix_col": 40,
+                "som_x": 400, "som_y": 400, "som_r": 400}
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam",)
@@ -223,11 +264,11 @@ GLUE_FIELDS = {
     "KPP glue visc_uv and ghat_flux of theta and salt": (15, 4),
     "GGL90 glue: kappaRU/RV and kapT/kapS sums, sigmaR": (20, 0),
     "H cg3d, one 7-point PCG iteration": (12, 0),
-    "H SOM (schemes 80/81), one tracer's 10 moments in and out": (23, 0),
     "H seaice LSR tridiagonal sweep (U or V)": (0, 10),
     "H seaice EVP subcycle": (0, 20),
-    "H GGL90 IDEMIX step": (10, 4),
 }
+# the prognostic fields of GGL90, IDEMIX and SOM that a gyre may carry
+PROGNOSTIC_EXTRA = ("GGL90TKE", "IDEMIX_E", "somT", "somS")
 CG2D_X_TOL_F64 = 1e-10
 PARITY_DIGITS = 10.0
 GRDCHK_TOL = 1e-5
@@ -316,10 +357,16 @@ class Case:
         return f"{c.nx}x{c.ny}x{c.nr} {str(self.dtype).split('.')[-1]}"
 
 
+def cells_of(t):
+    """The grid cells a tensor covers: its last three dimensions (a stack of
+    fields, as SOM's nine moments, counts each cell once)."""
+    return math.prod(t.shape[-3:])
+
+
 def moved_bytes(name, call):
     """(bytes, cells): the bytes of the distinct tensors that the kernel's
     wrapper checks in one call (each input read once, each output written
-    once, an in-place one both), and the cell count of the largest."""
+    once, an in-place one both), and the most cells any of them covers."""
     from mitgcm_tpu_torch import kernels
 
     seen = {}
@@ -332,7 +379,7 @@ def moved_bytes(name, call):
                 if n not in SCRATCH:
                     times = 2 if n in IN_PLACE.get(name, ()) else 1
                     seen[t.data_ptr()] = (
-                        times * t.numel() * t.element_size(), t.numel())
+                        times * t.numel() * t.element_size(), cells_of(t))
             return check(first, *args, **({} if isinstance(first, str)
                                            else tensors))
         return wrapped
@@ -357,7 +404,7 @@ def bound(name, call, tensors=None):
     else:
         distinct = {t.data_ptr(): t for t in tensors}.values()
         nbytes = sum(t.numel() * t.element_size() for t in distinct)
-        cells = max(t.numel() for t in distinct)
+        cells = max(cells_of(t) for t in distinct)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = OPS_PER_CELL[name] * cells / PEAK_F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -544,6 +591,7 @@ def full_phase(kernels):
     missing = [k for k in KERNELS
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
+               + IDEMIX_KERNELS + SOM_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1139,9 +1187,7 @@ class G9Case:
         self.dtype = dtype
         self.cfg = getattr(synthetic, f"{config}_gyre_config")(
             nx=n, ny=n, nr=nr, deltaT=600.0)
-        (self.grid, _, _, _,
-         self.ggl90) = synthetic.ggl90_gyre_setup(self.cfg, dtype=dtype,
-                                                  device="cuda")
+        self.grid, self.ggl90 = self.setup()
         cfg, g = self.cfg, self.grid
         rng = np.random.default_rng(SEED + 3)
         shape = tuple(g.hFacC.shape)
@@ -1167,6 +1213,14 @@ class G9Case:
         self.tracer = self.tracer * g.maskC
         self.flow = gad.calc_adv_flow(g, self.u, self.v, self.w)
         self.kappa = self.field(rng, shape, 1e-3).abs()
+
+    def setup(self):
+        """(grid, GGL90) of the configuration on the card."""
+        from mitgcm_tpu_torch.utils import synthetic
+
+        objs = synthetic.ggl90_gyre_setup(self.cfg, dtype=self.dtype,
+                                          device="cuda")
+        return objs[0], objs[4]
 
     field = Case.field
     label = Case.label
@@ -1265,14 +1319,18 @@ def g9_parity_phase(config="ggl90"):
             raise AssertionError(f"{config}-gyre cg2d iteration counts "
                                  "differ")
     ol = exps[None].cfg.olx
-    tke = digits(interior(exps[None].state.GGL90TKE, ol),
-                 interior(exps["plain"].state.GGL90TKE, ol))
-    worst = min(worst, tke)
+    fields = {}
+    for name in PROGNOSTIC_EXTRA:
+        field = getattr(exps[None].state, name)
+        if field is not None and field.numel():
+            fields[name] = digits(interior(field, ol), interior(
+                getattr(exps["plain"].state, name), ol))
+    worst = min(worst, *fields.values())
     if not worst >= PARITY_DIGITS:
         raise AssertionError(f"{config}-gyre parity {worst:.2f} < "
                              f"{PARITY_DIGITS} digits")
-    print(f"{config}-gyre parity: fewest matching digits {worst:.2f} "
-          f"(GGL90TKE {tke:.2f})")
+    print(f"{config}-gyre parity: fewest matching digits {worst:.2f} ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in fields.items()) + ")")
 
 
 def g9_restart_phase(config="ggl90"):
@@ -1305,7 +1363,7 @@ def g9_restart_phase(config="ggl90"):
 
 
 def g9_full_phase(kernels, smi, config="ggl90", want=G9_LAUNCHES):
-    from mitgcm_tpu_torch.model import gad
+    from mitgcm_tpu_torch.model import gad, som
     from mitgcm_tpu_torch.model import ggl90 as g9
 
     n, nr = 1024, 32
@@ -1328,24 +1386,30 @@ def g9_full_phase(kernels, smi, config="ggl90", want=G9_LAUNCHES):
     torch.cuda.reset_peak_memory_stats()
     state1, iters_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = g9.plain_calls + gad.plain_calls
+    plain0 = g9.plain_calls + gad.plain_calls + som.plain_calls
     state, iters, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = g9.plain_calls + gad.plain_calls - plain0
+    plain = g9.plain_calls + gad.plain_calls + som.plain_calls - plain0
     print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
     print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
           f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain GGL90 and multidim calls {plain}; launches "
+          f" GiB; plain GGL90, multidim and SOM calls {plain}; launches "
           f"{launches}", flush=True)
-    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN",
-                 "GGL90TKE"):
-        if not bool(torch.isfinite(getattr(state, name)).all()):
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"
+                 ) + PROGNOSTIC_EXTRA:
+        field = getattr(state, name)
+        if field is not None and not bool(torch.isfinite(field).all()):
             raise AssertionError(f"{config}-gyre {name} is not finite")
     tke = state.GGL90TKE[1:][exp.grid.maskC[1:] > 0]
     print(f"GGL90TKE after 6 steps: {float(tke.min()):.3e}-"
           f"{float(tke.max()):.3e}, above 1e-6 in {int((tke > 1e-6).sum())}"
           f" of {tke.numel()} wet interfaces", flush=True)
+    if state.IDEMIX_E is not None:
+        E = state.IDEMIX_E[1:][exp.grid.maskC[1:] > 0]
+        print(f"IDEMIX_E after 6 steps: max {float(E.max()):.3e}, above 0 "
+              f"in {int((E > 0).sum())} of {E.numel()} wet interfaces",
+              flush=True)
     wrong = {k: launches.get(k, 0) for k, count in want.items()
              if launches.get(k, 0) != count}
     if wrong or plain:
@@ -1371,25 +1435,31 @@ def g9_phase(kernels, results, smi):
     return launches
 
 
-def ho_compare(name, case, out, want, ms, plain_ms, results, touched):
-    """Hold a sweep's output against its twin's on whole arrays: equal bits
-    and NaNs (float32 WENO's overflow, a fault of the reference) in the
-    same cells; record its times and bound as compare does."""
-    nan_k, nan_p = torch.isnan(out), torch.isnan(want)
-    same_nan = torch.equal(nan_k, nan_p)
-    diff = (out - want).abs().masked_fill(nan_k | nan_p, 0.0)
-    abs_err = float(diff.max())
-    nans = int(nan_k.sum())
+def exact_compare(name, case, outs, wants, ms, plain_ms, results, call=None,
+                  touched=None):
+    """Hold a kernel's outputs against its twin's on whole arrays: equal
+    bits, and non-finite values (float32 WENO's overflow and SOM's first
+    padded row and column, faults of the reference) in the same cells;
+    record the times and the bound as compare does, from the tensors the
+    wrapper checks in `call` or from `touched`."""
+    abs_err, same, bad = 0.0, True, [0, 0]
+    for out, want in zip(outs, wants):
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            same = same and torch.equal(test(out), test(want))
+        bad_k, bad_p = ~torch.isfinite(out), ~torch.isfinite(want)
+        diff = (out - want).abs().masked_fill(bad_k | bad_p, 0.0)
+        abs_err = max(abs_err, float(diff.max()))
+        bad = [bad[0] + int(bad_k.sum()), bad[1] + int(bad_p.sum())]
     print(f"{name:18s} {case.label:18s} max abs err {abs_err:.3e} (tol 0), "
-          f"NaN cells {nans} / {int(nan_p.sum())} (kernel / plain), kernel "
+          f"non-finite cells {bad[0]} / {bad[1]} (kernel / plain), kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    if not (abs_err == 0.0 and same_nan):
+    if not (abs_err == 0.0 and same):
         raise AssertionError(f"{name} disagrees with its twin at "
                              f"{case.label}")
     results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": None}
     results[name]["bound_ms"], results[name]["bound_by"] = bound(
-        name.split("(")[0], None, touched)
+        name.split("(")[0], call, touched)
     print(f"{'':18s} bound {results[name]['bound_ms']:.4f} ms "
           f"({results[name]['bound_by']})", flush=True)
 
@@ -1417,8 +1487,10 @@ def ho_kernel_phase(case, results, reps, plain_reps):
                             case.tracer, src, scheme, vert, cfg.deltaTTracer)
             run()
             label = name if sch in (7, 51) else f"{name}({sch})"
-            ho_compare(label, case, dst, plain(), cuda_time_ms(run, reps),
-                       cuda_time_ms(plain, plain_reps), results, touched)
+            exact_compare(label, case, [dst], [plain()],
+                          cuda_time_ms(run, reps),
+                          cuda_time_ms(plain, plain_reps), results,
+                          touched=touched)
 
 
 def ho_phase(kernels, results, smi):
@@ -1431,6 +1503,172 @@ def ho_phase(kernels, results, smi):
         g9_parity_phase(config)
         g9_restart_phase(config)
         run = g9_full_phase(kernels, smi, config, HO_LAUNCHES[config])
+        launches.update({k: run[k] for k in names})
+        torch.cuda.empty_cache()
+    return launches
+
+
+class IsmCase(G9Case):
+    """G9Case of the idemix-gyre on a grid with a shelf, a bank and a
+    partial bottom cell (so that klowC and hFacI take several values), with
+    its GGL90's IDEMIX and Langmuir and flux maps, and besides G9Case's
+    inputs the buoyancy frequency, a random internal-wave energy, and SOM
+    moments of up to about twice a cell's content (so that the limiter
+    clips)."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.model import ggl90 as g9
+
+        super().__init__(n, nr, dtype, config="idemix")
+        g = self.grid
+        rng = np.random.default_rng(SEED + 4)
+        shape = tuple(g.hFacC.shape)
+        self.Nsq = g9.nsq(self.cfg, self.sigmaR.clone())
+        self.E = self.field(rng, shape, 1e-4).abs() * g.maskC
+        vol = g.rA * g.drF[:, None, None] * g.hFacC
+        self.sm = (self.field(rng, (9,) + shape, 2.0)
+                   * (self.tracer * vol)[None])
+
+    def setup(self):
+        from mitgcm_tpu_torch.core.grid import build_grid
+        from mitgcm_tpu_torch.model import ggl90 as g9
+        from mitgcm_tpu_torch.utils import synthetic
+
+        cfg, n = self.cfg, self.cfg.nx
+        depth = sum(cfg.delR)
+        bathy = np.full((n, n), -depth)
+        bathy[:, :5 * n // 16] = -0.4 * depth                 # a shelf
+        bathy[3 * n // 16:7 * n // 16, 10 * n // 16:14 * n // 16] = (
+            -2.0 / 3.0 * depth)                                # a bank
+        bathy[9 * n // 16, 6 * n // 16:12 * n // 16] = (
+            -depth + 0.4 * cfg.delR[-1])                       # partial cells
+        bathy[0, :] = bathy[-1, :] = bathy[:, 0] = bathy[:, -1] = 0.0
+        g = build_grid(cfg, bathy=bathy, dtype=self.dtype, device="cuda")
+        ggl90 = g9.GGL90(cfg, g, {"mxlMaxFlag": 2, **cfg.extra["ggl90"]})
+        ol = cfg.olx
+        wet = g.maskC[0, ol:-ol, ol:-ol].cpu().numpy()
+        ggl90.init_idemix_forc(synthetic.idemix_maps(
+            cfg, wet, self.dtype, "cuda").__getitem__)
+        return g, ggl90
+
+
+def ism_kernel_phase(case, results, reps, plain_reps):
+    """H-IDEMIX's three launches, each on its predecessor's twin output,
+    G9's ggl90_col with IDEMIX's source and Langmuir, and H-SOM's three
+    passes of schemes 80 and 81 (81, theta's on the main path, last), each
+    on the kernel's previous pass, against their twins on whole arrays."""
+    from mitgcm_tpu_torch.model import ggl90 as g9
+    from mitgcm_tpu_torch.model import som
+
+    gg, cfg, g = case.ggl90, case.cfg, case.grid
+    dt = cfg.deltaTTracer
+
+    def prep(kernel):
+        f = g9.idemix_prep if kernel else g9._idemix_prep_plain
+        return f(gg, case.Nsq)
+
+    pk, pp = prep(True), g9._idemix_prep_plain(gg, case.Nsq, branches=True)
+    names = ("c0", "v0", "tau_d")
+    exact_compare("idemix_prep", case, [pk[n] for n in names],
+                  [pp[n] for n in names],
+                  cuda_time_ms(lambda: prep(True), reps),
+                  cuda_time_ms(lambda: prep(False), plain_reps), results,
+                  call=lambda: prep(True))
+
+    def hdiff(kernel):
+        f = g9.idemix_hdiff if kernel else g9._idemix_hdiff_plain
+        return f(gg, case.E, pp["v0"])
+
+    E_d = hdiff(False)
+    exact_compare("idemix_hdiff", case, [hdiff(True)], [E_d],
+                  cuda_time_ms(lambda: hdiff(True), reps),
+                  cuda_time_ms(lambda: hdiff(False), plain_reps), results,
+                  call=lambda: hdiff(True))
+
+    def col(kernel):
+        f = g9.idemix_col if kernel else g9._idemix_col_plain
+        return f(gg, E_d, pp["c0"], pp["tau_d"])
+
+    ck, cp = col(True), col(False)
+    exact_compare("idemix_col", case, list(ck), list(cp),
+                  cuda_time_ms(lambda: col(True), reps),
+                  cuda_time_ms(lambda: col(False), plain_reps), results,
+                  call=lambda: col(True))
+    wet = g.maskC[1:] > 0
+    print(f"{'idemix_col':18s} {case.label:18s} E' > 0 in "
+          f"{int((cp[0][1:][wet] > 0).sum())} of {int(wet.sum())} wet "
+          f"interfaces; cells with hofx1 < 0 "
+          f"{int(pp['hofx1_neg'][wet].sum())}, v0 capped "
+          f"{int(pp['cfl_cap'][wet].sum())}, tau_d floored "
+          f"{int(pp['tau_floor'][wet].sum())}; columns with cstar floored "
+          f"{int(pp['cstar_floor'][g.maskC[0] > 0].sum())}", flush=True)
+
+    args = (case.u, case.v, case.tke, case.sigmaR, case.sfU, case.sfV, cp[1])
+
+    def g9col(kernel):
+        f = g9.ggl90_col if kernel else g9._ggl90_col_plain
+        return f(gg, *args)
+
+    a, b = g9col(True), g9col(False)
+    names = ("tke", "diffKr", "visctmp")
+    exact_compare("ggl90_col(idemix)", case, [a[n] for n in names],
+                  [b[n] for n in names],
+                  cuda_time_ms(lambda: g9col(True), reps),
+                  cuda_time_ms(lambda: g9col(False), plain_reps), results,
+                  call=lambda: g9col(True))
+    pr = b["prandtl"][1:][wet]
+    print(f"{'ggl90_col(idemix)':18s} {case.label:18s} IDEMIX Prandtl "
+          f"number below 1 in {int((pr < 1).sum())}, above 10 in "
+          f"{int((pr > 10).sum())} wet interfaces", flush=True)
+
+    for scheme in (80, 81):
+        sweeps = som.som_sweeps(cfg, g, case.u, case.v, case.w, case.tracer,
+                                case.sm, scheme, dt)
+        xk, yk, _ = (sw[2] for sw in sweeps)
+        twins = (
+            lambda: som._som_x_plain(cfg, g, case.u, case.tracer, case.sm,
+                                     scheme, dt),
+            lambda: som._som_y_plain(cfg, g, case.v, *xk, scheme, dt),
+            lambda: som._som_r_plain(cfg, g, case.w, case.tracer, *yk,
+                                     scheme, dt))
+        for (name, run, outs, touched), twin in zip(sweeps, twins):
+            run()
+            label = name if scheme == 81 else f"{name}({scheme})"
+            exact_compare(label, case, list(outs), list(twin()),
+                          cuda_time_ms(run, reps),
+                          cuda_time_ms(twin, plain_reps), results,
+                          touched=touched)
+            torch.cuda.empty_cache()
+
+
+def ism_pickup_refusal(config):
+    """write_pickup refuses the idemix- and som-gyre by name (the JAX
+    package's format has no record for IDEMIX_E or the SOM moments)."""
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import write_pickup
+
+    exp = g9_experiment(16, 12, torch.float64, config=config)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            write_pickup(exp, tmp, 0)
+        except NotImplementedError as err:
+            print(f"write_pickup of the {config}-gyre refused: {err}",
+                  flush=True)
+        else:
+            raise AssertionError(f"write_pickup wrote the {config}-gyre")
+
+
+def ism_phase(kernels, results, smi):
+    phase("11 IDEMIX, Langmuir and SOM: idemix-gyre and som-gyre")
+    ism_kernel_phase(IsmCase(64, 12, torch.float64), results, 20, 20)
+    ism_kernel_phase(IsmCase(1024, 32, torch.float32), results, 10, 3)
+    torch.cuda.empty_cache()
+    launches = {}
+    for config, names in (("idemix", IDEMIX_KERNELS), ("som", SOM_KERNELS)):
+        g9_parity_phase(config)
+        ism_pickup_refusal(config)
+        run = g9_full_phase(kernels, smi, config, ISM_LAUNCHES[config])
         launches.update({k: run[k] for k in names})
         torch.cuda.empty_cache()
     return launches
@@ -1480,6 +1718,7 @@ def main():
     for name in G9_KERNELS + MD_KERNELS:
         launches[name] = g9_launches[name]
     launches.update(ho_phase(kernels, results, smi))
+    launches.update(ism_phase(kernels, results, smi))
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

@@ -1,7 +1,8 @@
 """Prognostic state and surface forcing (mitgcm_tpu/core/state.py), holding
-the fields of the main path: the DYNVARS.h velocities, tracers and free
-surface, the AB-2/AB-3 tendency history, GGL90's TKE, and FFIELDS.h's
-simple forcing."""
+the fields of the ported paths: the DYNVARS.h velocities, tracers and free
+surface, the AB-2/AB-3 tendency history, GGL90's TKE and IDEMIX's
+internal-wave energy, the second-order moments of SOM tracers, and
+FFIELDS.h's simple forcing."""
 
 from __future__ import annotations
 
@@ -37,6 +38,14 @@ class State:
     # GGL90's prognostic turbulent kinetic energy [nr, nyp, nxp] at the
     # interface above each cell (pkg/ggl90/GGL90.h); None unless useGGL90
     GGL90TKE: Optional[torch.Tensor] = None
+    # IDEMIX's internal-wave energy [nr, nyp, nxp] at the interfaces
+    # (ggl90_idemix.F); None unless GGL90 runs with useIDEMIX
+    IDEMIX_E: Optional[torch.Tensor] = None
+    # the SOM (Prather) sub-grid moments of theta and salt [9, nr, nyp, nxp]
+    # (GAD_SOM_VARS.h som_T/som_S); zero-size unless the tracer's scheme is
+    # 80 or 81
+    somT: Optional[torch.Tensor] = None
+    somS: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -55,7 +64,7 @@ class Forcing:
 
 def init_state(cfg: Config, grid: Grid) -> State:
     """Cold start (ini_dynvars.F + ini_fields.F): rest, theta/salt at the
-    reference profiles (masked), eta = 0."""
+    reference profiles (masked), eta = 0, SOM moments 0."""
     dtype, device = grid.rA.dtype, grid.rA.device
     nyp, nxp = grid.rA.shape
 
@@ -64,6 +73,10 @@ def init_state(cfg: Config, grid: Grid) -> State:
 
     def z2():
         return torch.zeros((nyp, nxp), dtype=dtype, device=device)
+
+    def som(scheme):
+        shape = (9, cfg.nr, nyp, nxp) if scheme in (80, 81) else (0,)
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     tref = torch.tensor(cfg.tRef, dtype=dtype, device=device)[:, None, None]
     sref = torch.tensor(cfg.sRef, dtype=dtype, device=device)[:, None, None]
@@ -74,7 +87,8 @@ def init_state(cfg: Config, grid: Grid) -> State:
         etaN=z2(), etaH=z2(), dEtaHdt=z2(),
         guNm1=z3(), gvNm1=z3(), gtNm1=z3(), gsNm1=z3(),
         guNm2=z3(), gvNm2=z3(), gtNm2=z3(), gsNm2=z3(),
-        totPhiHyd=z3(), PmEpR=z2())
+        totPhiHyd=z3(), PmEpR=z2(), somT=som(cfg.tempAdvScheme),
+        somS=som(cfg.saltAdvScheme))
 
 
 def zero_forcing(cfg: Config, dtype: torch.dtype, device) -> Forcing:

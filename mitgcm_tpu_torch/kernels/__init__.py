@@ -84,8 +84,18 @@ SIGNATURES = {
     # LimitHblStable; stream
     "kpp_col": [_PP, _I, _PD, _I] + [_I] * 4 + [_P],
     # pointer table, its length; parameter array, its length; nr, nyp, nxp,
-    # mxlMaxFlag, calcMeanVertShear, GGL90_dirichlet; stream
-    "ggl90_col": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
+    # mxlMaxFlag, calcMeanVertShear, GGL90_dirichlet, useIDEMIX,
+    # useLANGMUIR; stream
+    "ggl90_col": [_PP, _I, _PD, _I] + [_I] * 8 + [_P],
+    # kernel H-IDEMIX: pointer table, its length; parameter array, its
+    # length; nr, nyp, nxp; stream
+    **{f"idemix_{stage}": [_PP, _I, _PD, _I] + [_I] * 3 + [_P]
+       for stage in ("prep", "hdiff", "col")},
+    # kernel H-SOM: pointer table, its length; the pass's input volume,
+    # content and moments, its output volume, content and moments, gTracer;
+    # nr, nyp, nxp, limiter; deltaT; stream
+    **{f"som_{d}": [_PP, _I] + [_P] * 7 + [_I] * 4 + [_D, _P]
+       for d in "xyr"},
     # visctmp, maskW, maskS, viscU, viscV; nr, nyp, nxp; viscMax, viscAr;
     # stream
     "ggl90_visc": [_P] * 5 + [_I] * 3 + [_D] * 2 + [_P],

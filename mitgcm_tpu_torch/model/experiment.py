@@ -19,6 +19,7 @@ from mitgcm_tpu_torch.io import mds
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.diag import monitor
+from mitgcm_tpu_torch.model import som
 from mitgcm_tpu_torch.model import step as step_mod
 from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import KPP
@@ -77,7 +78,9 @@ class Experiment:
 # recomputing w. GGL90's TKE goes into the companion pickup_ggl90
 # (ggl90_write_pickup.F); every other package that has a companion pickup
 # is refused by step.check_supported (KPP keeps no state from step to step,
-# so it has none).
+# so it has none). The JAX package's pickups hold neither IDEMIX's energy
+# nor the SOM moments, so a restart there resets them to zero; the port
+# refuses pickups of those runs instead (`_check_pickup`).
 # ----------------------------------------------------------------------
 
 _PICKUP_3D = ["Uvel", "Vvel", "Theta", "Salt",
@@ -97,6 +100,23 @@ _FIELD = {"Uvel": "uVel", "Vvel": "vVel", "Theta": "theta", "Salt": "salt",
           "PmEpR": "PmEpR", "PhiHyd": "totPhiHyd"}
 
 
+def _check_pickup(exp: Experiment) -> None:
+    """Raise NotImplementedError, naming each, for the state a pickup in
+    the JAX package's format would drop: IDEMIX_E and the SOM moments."""
+    cfg = exp.cfg
+    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl)
+    bad = [f"{tr}AdvScheme={s} (the SOM moments)"
+           for tr, s in (("temp", cfg.tempAdvScheme),
+                         ("salt", cfg.saltAdvScheme))
+           if s in som.SOM_SCHEMES]
+    if exp.ggl90 is not None and exp.ggl90.p["useIDEMIX"]:
+        bad.insert(0, "useIDEMIX (IDEMIX_E)")
+    if bad:
+        raise NotImplementedError(
+            f"pickups: not written or read for {', '.join(bad)}: the JAX "
+            "package's pickup format holds no record for them")
+
+
 def _interior(cfg: Config, t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu().numpy().astype(np.float64)
     return a[..., cfg.oly:-cfg.oly, cfg.olx:-cfg.olx]
@@ -108,7 +128,7 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
     is exact), and pickup_ggl90.<iter10> with GGL90TKE when useGGL90;
     returns the file root."""
     cfg, st = exp.cfg, exp.state
-    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl)
+    _check_pickup(exp)
     flds3d = _PICKUP_3D + (_PICKUP_AB3 if cfg.useAB3 else []) + ["Wvel"]
     flds2d = _PICKUP_2D + ["PmEpR"]
     recs = [_interior(cfg, getattr(st, _FIELD[n])) for n in flds3d]
@@ -136,7 +156,7 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     as the reference does after its warning. With useGGL90 the TKE comes
     from pickup_ggl90.<iter10>, which must exist (ggl90_read_pickup.F)."""
     cfg = exp.cfg
-    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl)
+    _check_pickup(exp)
     fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
                                   itr=myIter)
     stack = fields["__records__"]

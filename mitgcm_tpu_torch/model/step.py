@@ -12,8 +12,10 @@ kpp-gyre (the vi-gyre with KPP boundary-layer mixing, run on the
 start-of-step state before THERMODYNAMICS), the ggl90-gyre (the
 kpp-gyre's set-up with GGL90 TKE mixing in place of KPP, on the same
 state, and DST-3 flux-limited tracers under the multi-dimensional
-advection) and its os7mp- and pqm-gyre variants (OS7MP, or monotone PPM
-and PQM tracers, on halos of 4), and any mix of those options.
+advection) and its variants: the os7mp- and pqm-gyre (OS7MP, or monotone
+PPM and PQM tracers, on halos of 4), the idemix-gyre (GGL90 with IDEMIX and
+the Langmuir parameterization) and the som-gyre (second-order-moment
+tracers), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
@@ -35,6 +37,7 @@ from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import gad
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
+from mitgcm_tpu_torch.model import som as som_mod
 from mitgcm_tpu_torch.model import thermodynamics as thermo_mod
 from mitgcm_tpu_torch.model.mom_fluxform import check_branches, mom_fluxform
 from mitgcm_tpu_torch.model.mom_vecinv import check_branches_vecinv, mom_vecinv
@@ -61,15 +64,19 @@ _PACKAGES = ("usePP81", "useMY82", "useOPPS",
 
 def _tracer_schemes_off(cfg: Config) -> dict:
     """The refusals of the tracer advection schemes: scheme 2 in both
-    directions (kernel C), or under the multi-dimensional advection a
+    directions (kernel C), SOM (80 or 81, kernel H-SOM) with its vertical
+    scheme unset or equal, with or without the multi-dimensional advection
+    (SOM comes first in JAX), or under the multi-dimensional advection a
     horizontal scheme of gad.MULTIDIM_SCHEMES with a vertical scheme of
-    gad.VERT_SCHEMES (kernels M, O and P), each other pair named."""
+    gad.VERT_SCHEMES (kernels M, O and P), each other pair named (JAX runs
+    SOM whatever the vertical scheme says; the port refuses that)."""
     off = {}
     for tr in ("temp", "salt"):
         h = getattr(cfg, f"{tr}AdvScheme")
         v = getattr(cfg, f"{tr}VertAdvScheme") or h
         multidim = (gad.is_multidim(cfg, h) and v in gad.VERT_SCHEMES)
-        if not ((h, v) == (2, 2) or multidim):
+        som = h in som_mod.SOM_SCHEMES and v == h
+        if not ((h, v) == (2, 2) or multidim or som):
             off[f"{tr}AdvScheme={h}, {tr}VertAdvScheme={v}, "
                 f"multiDimAdvection={cfg.multiDimAdvection}"] = True
     return off
@@ -81,12 +88,13 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
     free surface solved by cg2d, scheme-2 tracers or the schemes of the
-    multi-dimensional advection, explicit or implicit vertical diffusion,
-    KPP given as a model/kpp.py:KPP object without the options that
-    check_kpp refuses, or GGL90 as a model/ggl90.py:GGL90 object without the
-    options that check_ggl90 refuses, and with at most ggl90.MAX_NR levels
-    when its tensors are on the card and impl does not ask for the plain
-    path)."""
+    multi-dimensional advection or SOM, explicit or implicit vertical
+    diffusion, KPP given as a model/kpp.py:KPP object without the options
+    that check_kpp refuses, or GGL90 as a model/ggl90.py:GGL90 object without
+    the options that check_ggl90 refuses, with Langmuir only under
+    vector-invariant momentum, and with at most ggl90.MAX_NR levels, IDEMIX
+    included, when its tensors are on the card and impl does not ask for
+    the plain path)."""
     g9_kernel = ggl90 is not None and kernels.use_kernel(ggl90.klowC, impl)
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
@@ -94,6 +102,11 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None
         "useKPP with useGGL90": cfg.useKPP and cfg.useGGL90,
         f"GGL90 with nr > {ggl90_mod.MAX_NR} on the kernel path":
             g9_kernel and cfg.nr > ggl90_mod.MAX_NR,
+        # the Coriolis-Stokes force is a term of flux-form momentum (JAX
+        # mom_fluxform.py:422-426), which kernel B does not have
+        "useLANGMUIR under flux-form momentum": (
+            ggl90 is not None and ggl90.p["useLANGMUIR"]
+            and not cfg.vectorInvariantMomentum),
         "staggerTimeStep": cfg.staggerTimeStep,
         "nonlinFreeSurf>0": cfg.nonlinFreeSurf > 0,
         "exactConserv": cfg.exactConserv,
@@ -330,17 +343,21 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
             thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrS), impl=impl)
     # GGL90 on the start-of-step state, with the vertical density gradient
     # (do_oceanic_phys.F GGL90_CALC; step.py:915-970 of the JAX package)
+    # (with useLANGMUIR the JAX step also computes the Stokes drift, which
+    # only flux-form momentum reads: check_supported refuses that pair)
     ggl90_fields = None
-    tkeNew = state.GGL90TKE
+    tkeNew, idemixE = state.GGL90TKE, state.IDEMIX_E
     if ggl90 is not None:
         sigmaR = thermo_mod.calc_sigmaR(cfg, grid, rhoInSitu, state.theta,
                                         state.salt,
                                         totPhiHyd=state.totPhiHyd, impl=impl)
-        tkeNew, viscU, viscV, diffKr = ggl90.calc(
+        tkeNew, viscU, viscV, diffKr, idemixE = ggl90.calc(
             state.uVel, state.vVel, state.GGL90TKE, sigmaR,
-            forc.fu * cfg.mass2rUnit, forc.fv * cfg.mass2rUnit, impl=impl)
+            forc.fu * cfg.mass2rUnit, forc.fv * cfg.mass2rUnit,
+            idemix_E=state.IDEMIX_E, impl=impl)
         ggl90_fields = {"viscArU": viscU, "viscArV": viscV, "diffKr": diffKr}
-    theta, salt, gtNm1, gsNm1, gtNm2, gsNm2 = thermo_mod.thermodynamics(
+    (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT,
+     somS) = thermo_mod.thermodynamics(
         cfg, grid, state, forc, myIter, impl=impl, kpp_fields=kpp_fields,
         ggl90_fields=ggl90_fields)
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd = dynamics(
@@ -352,6 +369,10 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     u, v = momentum_correction_step(cfg, grid, etaN, uStar, vStar)
     u, v = fill(u), fill(v)
     w, PmEpR = integr_continuity(cfg, grid, u, v, forc.EmPmR)
+
+    def fill_if(a, used):
+        return fill(a) if used else a
+
     new_state = State(
         uVel=u, vVel=v, wVel=fill(w), theta=fill(theta), salt=fill(salt),
         etaN=fill(etaN), etaH=fill(state.etaH),
@@ -359,5 +380,11 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         guNm1=guNm1, gvNm1=gvNm1, gtNm1=gtNm1, gsNm1=gsNm1,
         guNm2=guNm2, gvNm2=gvNm2, gtNm2=gtNm2, gsNm2=gsNm2,
         totPhiHyd=totPhiHyd,
-        GGL90TKE=fill(tkeNew) if ggl90 is not None else tkeNew)
+        GGL90TKE=fill_if(tkeNew, ggl90 is not None),
+        IDEMIX_E=fill_if(idemixE, ggl90 is not None
+                         and ggl90.p["useIDEMIX"]),
+        # the SOM moments' exchange (do_fields_blocking_exchanges.F:79);
+        # it also overwrites the non-finite first padded row and column
+        somT=fill_if(somT, somT is not None and somT.numel() > 0),
+        somS=fill_if(somS, somS is not None and somS.numel() > 0))
     return new_state, diag

@@ -7,7 +7,10 @@ and its nonlocal flux joins the vertical flux; with GGL90 (model/ggl90.py)
 its diffusivity is added to the profile. A tracer with a scheme of
 gad.MULTIDIM_SCHEMES under multiDimAdvection is advected by the
 multi-dimensional advection (gad.multidim_advection, kernels M, O and P),
-and its tendency is not AB-extrapolated. `calc_sigmaR` gives GGL90 the vertical density gradient.
+one with scheme 80 or 81 by second-order moments (som.som_advect, kernel
+H-SOM, which comes first, with or without multiDimAdvection, as in JAX),
+and neither tendency is AB-extrapolated. `calc_sigmaR` gives GGL90 the
+vertical density gradient.
 
 `impldiff` (the tridiagonal column solve, also used for implicit vertical
 viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for
@@ -24,7 +27,7 @@ from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
-from mitgcm_tpu_torch.model import gad
+from mitgcm_tpu_torch.model import gad, som
 from mitgcm_tpu_torch.model.kpp import ghat_flux
 from mitgcm_tpu_torch.ops import eos
 
@@ -156,19 +159,27 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
                      gNm1, gNm2, kappaR, sfc_forc, diffKh: float,
                      myIter: int, impl: str = None, df=None,
                      schemes=(gad.ENUM_CENTERED_2ND, gad.ENUM_CENTERED_2ND),
-                     uvw=None):
-    """temp_integrate.F for one tracer: (tracer', gNm1', gNm2'); df: an
-    extra vertical flux for gad.calc_rhs (KPP's nonlocal flux) or None;
+                     uvw=None, som_state=None):
+    """temp_integrate.F for one tracer: (tracer', gNm1', gNm2', som'); df:
+    an extra vertical flux for gad.calc_rhs (KPP's nonlocal flux) or None;
     schemes: the (horizontal, vertical) advection schemes; uvw: the
-    velocities that the multi-dimensional advection advects with."""
+    velocities that the multi-dimensional and SOM advection advect with;
+    som_state: the tracer's moments with scheme 80 or 81 (som' their update,
+    else som_state passed through)."""
     from mitgcm_tpu_torch.model.step import adams_bashforth
 
     scheme, vert_scheme = schemes
+    is_som = scheme in som.SOM_SCHEMES
     multidim = gad.is_multidim(cfg, scheme)
     gTr = gad.calc_rhs(cfg, grid, flow, tracer, kappaR, diffKh,
                        implicit_diffusion=cfg.implicitDiffusion, impl=impl,
-                       df=df, calc_advection=not multidim)
-    if multidim:
+                       df=df, calc_advection=not (multidim or is_som))
+    som_new = som_state
+    if is_som:
+        gSom, som_new = som.som_advect(cfg, grid, *uvw, tracer, som_state,
+                                       scheme, cfg.deltaTTracer, impl=impl)
+        gTr = gSom + gTr
+    elif multidim:
         gTr = gad.multidim_advection(cfg, grid, flow, *uvw, tracer, scheme,
                                      vert_scheme, cfg.deltaTTracer,
                                      impl=impl) + gTr
@@ -187,21 +198,22 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
     if cfg.implicitDiffusion:
         tr_new = impldiff(cfg, grid, tr_new, kappaR, grid.recip_hFacC,
                           cfg.deltaTTracer, impl=impl)
-    return tr_new, gNm1_new, gNm2_new
+    return tr_new, gNm1_new, gNm2_new, som_new
 
 
 def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                    myIter: int, impl: str = None, kpp_fields=None,
                    ggl90_fields=None):
-    """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2,
-    gsNm2). kpp_fields: KPP.calc's output, or None without KPP
+    """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2,
+    somT, somS). kpp_fields: KPP.calc's output, or None without KPP
     (thermodynamics.py:470-496, 524-533 of the JAX package); ggl90_fields:
     GGL90.calc's diffKr under "diffKr", or None (:501-503, :537-538)."""
     theta, salt = state.theta, state.salt
     gtNm1, gsNm1 = state.gtNm1, state.gsNm1
     gtNm2, gsNm2 = state.gtNm2, state.gsNm2
+    somT, somS = state.somT, state.somS
     if not (cfg.tempStepping or cfg.saltStepping):
-        return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2
+        return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT, somS
     flow = gad.calc_adv_flow(grid, state.uVel, state.vVel, state.wVel)
     sfT, sfS = surface_forcing_ts(cfg, grid, state, forcing)
     dfT = dfS = None
@@ -224,15 +236,15 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                         flow.maskUp)
     uvw = (state.uVel, state.vVel, state.wVel)
     if cfg.tempStepping:
-        theta, gtNm1, gtNm2 = tracer_integrate(
+        theta, gtNm1, gtNm2, somT = tracer_integrate(
             cfg, grid, flow, theta, gtNm1, gtNm2, kapT, sfT, cfg.diffKhT,
             myIter, impl=impl, df=dfT, uvw=uvw, schemes=(
                 cfg.tempAdvScheme,
-                cfg.tempVertAdvScheme or cfg.tempAdvScheme))
+                cfg.tempVertAdvScheme or cfg.tempAdvScheme), som_state=somT)
     if cfg.saltStepping:
-        salt, gsNm1, gsNm2 = tracer_integrate(
+        salt, gsNm1, gsNm2, somS = tracer_integrate(
             cfg, grid, flow, salt, gsNm1, gsNm2, kapS, sfS, cfg.diffKhS,
             myIter, impl=impl, df=dfS, uvw=uvw, schemes=(
                 cfg.saltAdvScheme,
-                cfg.saltVertAdvScheme or cfg.saltAdvScheme))
-    return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2
+                cfg.saltVertAdvScheme or cfg.saltAdvScheme), som_state=somS)
+    return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT, somS

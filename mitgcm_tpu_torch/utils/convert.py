@@ -2,8 +2,9 @@
 CG2DOperator of mitgcm_tpu, given as dicts of numpy arrays (one entry per
 field, `np.asarray(leaf)`), become the port's objects on a given device and
 dtype. Fields the port does not hold are ignored, so both packages can step
-from identical inputs; an optional field of the port (State.GGL90TKE) is
-carried when the arrays hold it and left None otherwise. A control vector
+from identical inputs; an optional field of the port (State.GGL90TKE,
+IDEMIX_E, somT, somS) is carried when the arrays hold it and left None
+otherwise. A control vector
 or a gradient crosses as one array (`to_tensor`, `to_numpy`)."""
 
 from __future__ import annotations

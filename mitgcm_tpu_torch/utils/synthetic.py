@@ -1,8 +1,10 @@
 """Synthetic wind-driven gyre (mitgcm_tpu/utils/synthetic.py): file-free
 configurations for the entry point, the card smoke run and the tests: the
-gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its high-order
-advection variants, the os7mp-gyre and the pqm-gyre. The set-ups put their
-tensors on the CUDA device unless device="cpu" is asked for."""
+gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its variants, the
+os7mp-gyre and the pqm-gyre (high-order advection), the idemix-gyre (IDEMIX
+and Langmuir in GGL90) and the som-gyre (second-order-moment tracers). The
+set-ups put their tensors on the CUDA device unless device="cpu" is asked
+for."""
 
 from __future__ import annotations
 
@@ -107,6 +109,43 @@ def pqm_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
                              **{**pq, **kw})
 
 
+def idemix_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The ggl90-gyre with GGL90's IDEMIX internal-wave energy and the
+    Langmuir parameterization (the "idemix-gyre"): the GGL90 namelist
+    settings ride in cfg.extra["ggl90"], which ggl90_gyre_setup reads, with
+    the tidal (bottom) and wind (surface) energy-flux maps named after
+    IDEMIX_MAPS."""
+    g9 = {"useIDEMIX": True, "useLANGMUIR": True,
+          "IDEMIX_tidal_file": "idemix_tidal",
+          "IDEMIX_wind_file": "idemix_wind"}
+    return ggl90_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                             **{"extra": {"ggl90": g9}, **kw})
+
+
+def som_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The ggl90-gyre with second-order-moment tracers (the "som-gyre"):
+    theta by Prather's limited scheme 81, salt by the unlimited 80, the
+    vertical schemes left unset, as advect_xz and advect_xy run them. Set
+    up by ggl90_gyre_setup."""
+    sm = dict(tempAdvScheme=81, saltAdvScheme=80)
+    return ggl90_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                             **{**sm, **kw})
+
+
+def idemix_maps(cfg: Config, wet: np.ndarray, dtype, device) -> dict:
+    """IDEMIX's energy-flux maps for the idemix-gyre, by file name, as
+    halo-filled [nyp, nxp] fields in W/m2 (before init_idemix_forc's clip to
+    [0, 1] and scaling): a tidal flux of 2.5-7.5 mW/m2 varying as
+    cos(2 pi x / Lx) sin(pi y / Ly), and a wind flux of 1-3 mW/m2 falling
+    from the south to the north, on the wet columns `wet` [ny, nx]."""
+    x = (np.arange(cfg.nx) + 0.5) / cfg.nx
+    y = (np.arange(cfg.ny)[:, None] + 0.5) / cfg.ny
+    tidal = 5e-3 * (1.0 + 0.5 * np.cos(2.0 * np.pi * x) * np.sin(np.pi * y))
+    wind = 2e-3 * (1.0 + 0.5 * np.cos(np.pi * y)) * np.ones_like(x)
+    return {"idemix_tidal": _fill2(cfg, tidal * wet, dtype, device)[0],
+            "idemix_wind": _fill2(cfg, wind * wet, dtype, device)[0]}
+
+
 def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
                device="cuda"):
     """(grid, state, forcing, op) with walls and a sinusoidal zonal wind."""
@@ -162,10 +201,18 @@ def kpp_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
 
 def ggl90_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
                      device="cuda"):
-    """(grid, state, forcing, op, ggl90) of the ggl90-gyre: the kpp-gyre's
-    wind, Qnet and Qsw, GGL90 with mxlMaxFlag = 2 and the other
-    ggl90_readparms.F defaults, and the TKE at GGL90TKEmin."""
+    """(grid, state, forcing, op, ggl90) of the ggl90-gyre and its variants:
+    the kpp-gyre's wind, Qnet and Qsw, GGL90 with mxlMaxFlag = 2, the
+    settings of cfg.extra["ggl90"] and the other ggl90_readparms.F
+    defaults, and the TKE at GGL90TKEmin; with useIDEMIX the energy fluxes
+    of idemix_maps and IDEMIX_E = 0 (ggl90_init_varia.F)."""
     grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device)
-    ggl90 = GGL90(cfg, grid, {"mxlMaxFlag": 2})
+    ggl90 = GGL90(cfg, grid, {"mxlMaxFlag": 2, **cfg.extra.get("ggl90", {})})
     state.GGL90TKE = ggl90.init_tke(dtype)
+    if ggl90.p["useIDEMIX"]:
+        ol_y, ol_x = cfg.oly, cfg.olx
+        wet = grid.maskC[0, ol_y:ol_y + cfg.ny, ol_x:ol_x + cfg.nx]
+        maps = idemix_maps(cfg, wet.cpu().numpy(), dtype, device)
+        ggl90.init_idemix_forc(maps.__getitem__)
+        state.IDEMIX_E = torch.zeros_like(state.GGL90TKE)
     return grid, state, forcing, op, ggl90

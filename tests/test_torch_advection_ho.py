@@ -173,7 +173,7 @@ def test_no_multidim_scheme_is_extrapolated(case):
     gNm1 = torch.full_like(tr, 1e-3)
     gNm2 = torch.full_like(tr, 2e-3)
     for scheme in (7, 41, 51, 1, 20):
-        _, g1, g2 = tth.tracer_integrate(
+        _, g1, g2, _ = tth.tracer_integrate(
             cfg, tgrid, tflow, tr, gNm1, gNm2, torch.zeros_like(tr),
             torch.zeros_like(tr[0]), 0.0, 3, schemes=(scheme, scheme),
             uvw=(u, v, w))

@@ -2,10 +2,12 @@
 (mitgcm_tpu), its entry points put their tensors on the card unless asked
 for the CPU, it has no CPU fallback for its GPU run, refuses configurations
 and KPP and GGL90 options off its ported paths (GGL90 with more levels
-than kernel G9 takes on the card among them), its kernel wrappers refuse
-to differentiate what their kernels treat as constants (and V, T, R, K,
-G9, M, O and P, which have no backward kernels yet, anything), and its
-adjoint refuses the vi-gyre, KPP, GGL90 and every advection scheme but 2."""
+than kernel G9 takes on the card among them, Langmuir under flux-form
+momentum, and pickups that would drop IDEMIX's energy or the SOM moments),
+its kernel wrappers refuse to differentiate what their kernels treat as
+constants (and V, T, R, K, G9, M, O, P, H-IDEMIX and H-SOM, which have no
+backward kernels yet, anything), and its adjoint refuses the vi-gyre, KPP,
+GGL90 and every advection scheme but 2."""
 
 import dataclasses
 import os
@@ -23,6 +25,9 @@ from mitgcm_tpu_torch.core.grid import Grid, build_grid
 from mitgcm_tpu_torch.model import gad, mom_fluxform, mom_vecinv
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
+from mitgcm_tpu_torch.model import som as som_mod
+from mitgcm_tpu_torch.model.experiment import (Experiment, read_pickup,
+                                               write_pickup)
 from mitgcm_tpu_torch.model.step import check_supported
 from mitgcm_tpu_torch.model.thermodynamics import impldiff
 from mitgcm_tpu_torch.ops.eos import find_rho
@@ -70,7 +75,8 @@ g, s, f, op, g9 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
 exp = Experiment(cfg, g, s, f, op, ggl90=g9)
 rec, = exp.run(n_steps=1, collect_monitor=False)
 assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.GGL90TKE).all())
-for config in (synthetic.os7mp_gyre_config, synthetic.pqm_gyre_config):
+for config in (synthetic.os7mp_gyre_config, synthetic.pqm_gyre_config,
+               synthetic.idemix_gyre_config, synthetic.som_gyre_config):
     cfg = config(nx=12, ny=10, nr=4, depth=300.0)
     g, s, f, op, g9 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
                                                  device="cpu")
@@ -200,10 +206,11 @@ def test_check_supported_vi_gyre(eos):
     check_supported(synthetic.vi_gyre_config(nx=8, ny=8, nr=2, eosType=eos))
 
 
-@pytest.mark.parametrize("kernel", ["V", "T", "R", "K", "G9", "M", "O", "P"])
+@pytest.mark.parametrize("kernel", ["V", "T", "R", "K", "G9", "M", "O", "P",
+                                    "H-IDEMIX", "H-SOM"])
 def test_vi_kernels_refuse_grad(kernel):
-    """V, T, R, K, G9, M, O and P have no backward kernels: any input that
-    requires grad is refused, on every device."""
+    """V, T, R, K, G9, M, O, P, H-IDEMIX and H-SOM have no backward kernels:
+    any input that requires grad is refused, on every device."""
     cfg = synthetic.kpp_gyre_config(nx=8, ny=8, nr=2)
     grid, _, _, _, kpp = synthetic.kpp_gyre_setup(cfg, dtype=torch.float64,
                                                   device="cpu")
@@ -221,6 +228,12 @@ def test_vi_kernels_refuse_grad(kernel):
         **{k: (lambda s=s: gad.multidim_advection(
             cfg, grid, gad.calc_adv_flow(grid, x, x, x), x, x, x, x, s, s,
             600.0)) for k, s in (("M", 33), ("O", 7), ("P", 51))},
+        "H-IDEMIX": lambda: ggl90_mod.GGL90(cfg, grid, {
+            "useIDEMIX": True}).idemix(x.abs(), x),
+        "H-SOM": lambda: som_mod.som_advect(
+            cfg, grid, x, x, x, x + 10.0,
+            torch.zeros((som_mod.NSOM,) + tuple(x.shape), dtype=x.dtype),
+            81, 600.0),
     }
     with pytest.raises(ValueError, match=f"kernel {kernel}"):
         calls[kernel]()
@@ -262,9 +275,12 @@ def test_adjoint_refuses_kpp():
     (dict(tempAdvScheme=33), "tempAdvScheme=33"),
     (dict(saltAdvScheme=77), "saltAdvScheme=77"),
     (dict(tempVertAdvScheme=30), "tempVertAdvScheme=30"),
-], ids=["useGGL90", "temp33", "salt77", "tempVert30"])
+    (dict(tempAdvScheme=81), "tempAdvScheme=81"),
+    (dict(saltAdvScheme=80), "saltAdvScheme=80"),
+], ids=["useGGL90", "temp33", "salt77", "tempVert30", "som81", "som80"])
 def test_adjoint_refuses_ggl90_and_schemes(settings, name):
-    """The adjoint runs scheme 2 only, without GGL90."""
+    """The adjoint runs scheme 2 only, without GGL90 (so without IDEMIX and
+    Langmuir) and without SOM."""
     cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
     adjoint.check_adjoint_supported(cfg)
     for flag, value in settings.items():
@@ -274,12 +290,17 @@ def test_adjoint_refuses_ggl90_and_schemes(settings, name):
 
 
 @pytest.mark.parametrize("group,name", [
-    ({"useIDEMIX": True}, "useIDEMIX"), ({"useLANGMUIR": True}, "useLANGMUIR"),
-    ("p", "p-coordinates")], ids=["idemix", "langmuir", "p-coords"])
+    ({"useIDEMIX": True, "IDEMIX_include_GM": True}, "IDEMIX_include_GM"),
+    ({"useLANGMUIR": True, "mxlMaxFlag": 0}, "useLANGMUIR with mxlMaxFlag=0"),
+    ("p", "p-coordinates"),
+    ({"useIDEMIX": True, "IDEMIX_include_GM_bottom": True},
+     "IDEMIX_include_GM_bottom")],
+    ids=["idemix", "langmuir", "p-coords", "idemix-gm-bottom"])
 def test_check_supported_refuses_ggl90_options(group, name):
     """check_supported lets useGGL90 through only with a GGL90 object, and
-    refuses, by name, IDEMIX, the Langmuir parameterization and
-    p-coordinates."""
+    refuses, by name, IDEMIX's GM options (they need GM-Redi; JAX accepts
+    them and never reads them), Langmuir with mxlMaxFlag 0 (JAX raises too)
+    and p-coordinates."""
     cfg = synthetic.ggl90_gyre_config(nx=8, ny=8, nr=2)
     grid, _, _, _, ggl90 = synthetic.ggl90_gyre_setup(
         cfg, dtype=torch.float64, device="cpu")
@@ -295,6 +316,55 @@ def test_check_supported_refuses_ggl90_options(group, name):
         ggl90_mod.check_ggl90(ggl90)
     with pytest.raises(NotImplementedError, match=name):
         check_supported(cfg, ggl90=ggl90)
+
+
+@pytest.mark.parametrize("group", [
+    {"useIDEMIX": True}, {"useLANGMUIR": True},
+    {"useIDEMIX": True, "useLANGMUIR": True, "mxlMaxFlag": 3}],
+    ids=["idemix", "langmuir", "both"])
+def test_check_supported_passes_ggl90_options(group):
+    """IDEMIX and Langmuir pass under vector-invariant momentum (the
+    ggl90-gyre's), Langmuir with the ggl90-gyre's mxlMaxFlag 2 or any
+    other flag but 0."""
+    cfg = synthetic.ggl90_gyre_config(nx=8, ny=8, nr=2)
+    grid = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
+                                      device="cpu")[0]
+    ggl90 = ggl90_mod.GGL90(cfg, grid, {"mxlMaxFlag": 2, **group})
+    ggl90_mod.check_ggl90(ggl90)
+    check_supported(cfg, ggl90=ggl90)
+
+
+def test_check_supported_refuses_langmuir_under_flux_form():
+    """The Coriolis-Stokes force that Langmuir adds is a term of flux-form
+    momentum, which kernel B does not have: refused by name."""
+    cfg = synthetic.ggl90_gyre_config(nx=8, ny=8, nr=2,
+                                      vectorInvariantMomentum=False,
+                                      implicitViscosity=False)
+    grid = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
+                                      device="cpu")[0]
+    check_supported(cfg, ggl90=ggl90_mod.GGL90(cfg, grid, {"mxlMaxFlag": 2}))
+    ggl90 = ggl90_mod.GGL90(cfg, grid, {"mxlMaxFlag": 2, "useLANGMUIR": True})
+    with pytest.raises(NotImplementedError,
+                       match="useLANGMUIR under flux-form momentum"):
+        check_supported(cfg, ggl90=ggl90)
+
+
+@pytest.mark.parametrize("config,name", [
+    ("idemix", "useIDEMIX"), ("som", "tempAdvScheme=81")])
+@pytest.mark.parametrize("io", ["write", "read"])
+def test_pickups_refuse_idemix_and_som(config, name, io, tmp_path):
+    """The JAX package's pickups hold neither IDEMIX_E nor the SOM moments
+    (a restart there resets them to zero): the port refuses both pickups of
+    such a run by name."""
+    cfg = getattr(synthetic, f"{config}_gyre_config")(nx=8, ny=8, nr=4,
+                                                      depth=300.0)
+    g, s, f, op, g9 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
+                                                 device="cpu")
+    exp = Experiment(cfg, g, s, f, op, ggl90=g9)
+    call = write_pickup if io == "write" else read_pickup
+    with pytest.raises(NotImplementedError, match=name):
+        call(exp, str(tmp_path), 0)
+    assert not list(tmp_path.iterdir())
 
 
 class _OnTheCard:

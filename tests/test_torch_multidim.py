@@ -155,7 +155,7 @@ def test_is_multidim_matches(scheme):
 @pytest.mark.parametrize("settings,name", [
     (dict(tempAdvScheme=3), "tempAdvScheme=3"),
     (dict(saltAdvScheme=4), "saltAdvScheme=4"),
-    (dict(saltAdvScheme=80), "saltAdvScheme=80"),
+    (dict(saltAdvScheme=80, saltVertAdvScheme=2), "saltAdvScheme=80"),
     (dict(multiDimAdvection=False), "multiDimAdvection=False"),
     (dict(tempAdvScheme=2, tempVertAdvScheme=33), "tempVertAdvScheme=33"),
     (dict(tempAdvScheme=7, multiDimAdvection=False), "tempAdvScheme=7"),
@@ -163,16 +163,17 @@ def test_is_multidim_matches(scheme):
     (dict(tempVertAdvScheme=80), "tempVertAdvScheme=80"),
     (dict(saltVertAdvScheme=81), "saltVertAdvScheme=81"),
     (dict(tempAdvScheme=2, tempVertAdvScheme=7), "tempVertAdvScheme=7"),
-    (dict(tempAdvScheme=81), "tempAdvScheme=81"),
+    (dict(tempAdvScheme=81, tempVertAdvScheme=33), "tempAdvScheme=81"),
 ], ids=lambda x: x if isinstance(x, str) else None)
 def test_check_supported_refuses_schemes(settings, name):
     """Under the multi-dimensional advection every horizontal scheme of
     JAX's MULTIDIM_SCHEMES passes with every vertical scheme that JAX's
-    adv_flux_r computes; scheme 2 passes in both directions only. Every
-    other pair is refused by name: the multi-dimensional schemes without it,
-    SOM (80/81), a vertical scheme adv_flux_r does not know (JAX runs
-    centred 2nd order for it), and a non-2 vertical scheme under scheme
-    2."""
+    adv_flux_r computes; scheme 2 passes in both directions only, SOM (80,
+    81) with its vertical scheme unset or equal. Every other pair is refused
+    by name: the multi-dimensional schemes without it, SOM with another
+    vertical scheme (JAX ignores the vertical scheme there), a vertical
+    scheme adv_flux_r does not know (JAX runs centred 2nd order for it), and
+    a non-2 vertical scheme under scheme 2."""
     cfg = tsyn.ggl90_gyre_config(nx=8, ny=8, nr=2, useGGL90=False)
     check_supported(cfg)
     for flag, value in settings.items():
@@ -189,4 +190,17 @@ def test_check_supported_passes_schemes(schemes):
     cfg = tsyn.ggl90_gyre_config(nx=8, ny=8, nr=2, useGGL90=False,
                                  tempAdvScheme=schemes[0],
                                  tempVertAdvScheme=schemes[1])
+    check_supported(cfg)
+
+
+@pytest.mark.parametrize("multidim", [True, False])
+@pytest.mark.parametrize("vertical", ["unset", "equal"])
+def test_check_supported_passes_som(multidim, vertical):
+    """SOM (theta 81, salt 80) passes with its vertical scheme unset or
+    equal, with the multi-dimensional advection on or off: JAX runs SOM
+    before it looks at multiDimAdvection (thermodynamics.py:304-311)."""
+    vert = {} if vertical == "unset" else dict(tempVertAdvScheme=81,
+                                              saltVertAdvScheme=80)
+    cfg = tsyn.som_gyre_config(nx=8, ny=8, nr=2, useGGL90=False,
+                               multiDimAdvection=multidim, **vert)
     check_supported(cfg)
