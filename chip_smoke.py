@@ -85,16 +85,36 @@ exits nonzero without the final line:
                  timed steps with every kernel's launch count (H-IDEMIX or
                  H-SOM each step, the plain twins never), a profile, then 2
                  plain steps
+ 12. non-hydrostatic: the nh-convection box (flux-form momentum with
+                 free-slip sides and the 3-D Coriolis term, calc_gw and the
+                 cg3d solve): kernel W (calc_gw), B's flagged variant and
+                 H-cg3d's three launches (cg3d_precond_dot,
+                 cg3d_s_stencil_dot, cg3d_xr_update, each with its `done`
+                 word, frozen launches included) against their twins bit
+                 for bit at 64x64x12 float64 on a grid with walls, a bank
+                 and partial cells and at 1024x1024x50 float32, and the
+                 whole cg3d solve kernel path against plain path; 10
+                 float64 steps of the 64x64x12 box, kernel path against
+                 plain path (16 digits, equal cg2d and cg3d iterations);
+                 the refusal of its pickup; then the 1024x1024x50 float32
+                 box (deltaT=60): one warm-up step and 5 timed steps with
+                 every kernel's launch count (W and B each step, H-cg3d 8
+                 per batch of iterations, the plain twins never) and the
+                 cg3d host syncs per solve, a profile, then 2 plain steps
+The full-size grids are built once per distinct geometry and shared by
+the phases that run it (`shared_grid`); each build and each set-up
+prints its seconds.
 It prints, last, one line of JSON per kernel (the launches are those of
 the main path that runs it: phase 5 for the gyre's forward kernels, phase
 6's full-size gradient for B' and C', phase 7's full-size run for V, T
 and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
 O and pqm-gyre for P, phase 11's idemix-gyre for H-IDEMIX and som-gyre for
-H-SOM), with the kernel's time,
-its plain twin's, and its bound (the larger of the bytes it must move
-over 3.35 TB/s and its estimated operations over 67 TFLOP/s, the H100's
-float32 peaks) at the 1024x1024x32 float32 shapes, the card's name and
-power limit, and the device line.
+H-SOM, phase 12's box for W and H-cg3d), with the kernel's time, its plain
+twin's, and its bound (the larger of the bytes it must move over 3.35
+TB/s and its estimated operations over 67 TFLOP/s, the H100's float32
+peaks) at the full-size float32 shapes of its path (1024x1024x32, the
+box's 1024x1024x50), the card's name and power limit, and the device
+line.
 """
 
 import json
@@ -179,6 +199,15 @@ KERNELS = {
               "mitgcm_tpu/model/som.py:216"),
     "som_r": ("mitgcm_tpu_torch/kernels/csrc/som.cu",
               "mitgcm_tpu/model/som.py:222"),
+    # the nh-convection box's kernels H-cg3d and W
+    "cg3d_precond_dot": ("mitgcm_tpu_torch/kernels/csrc/cg3d.cu",
+                         "mitgcm_tpu/solver/cg3d.py:228"),
+    "cg3d_s_stencil_dot": ("mitgcm_tpu_torch/kernels/csrc/cg3d.cu",
+                           "mitgcm_tpu/solver/cg3d.py:231"),
+    "cg3d_xr_update": ("mitgcm_tpu_torch/kernels/csrc/cg3d.cu",
+                       "mitgcm_tpu/solver/cg3d.py:234"),
+    "calc_gw": ("mitgcm_tpu_torch/kernels/csrc/calc_gw.cu",
+                "mitgcm_tpu/model/calc_gw.py:29"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
@@ -221,6 +250,14 @@ ISM_LAUNCHES = {
     "som": {**G9_LAUNCHES, **{k: 0 for k in MD_KERNELS + IDEMIX_KERNELS},
             **{k: 10 for k in SOM_KERNELS}},
 }
+CG3D_KERNELS = ("cg3d_precond_dot", "cg3d_s_stencil_dot", "cg3d_xr_update")
+NH_KERNELS = CG3D_KERNELS + ("calc_gw",)
+# launches in phase 12's 5 timed full-size steps besides H-cg3d's (whose
+# count follows from each solve's batches, nh_full_phase): W and B once a
+# step, C for theta alone, and no other kernel of the gyres
+NH_LAUNCHES = {"calc_gw": 5, "mom_fluxform": 5, "gad_calc_rhs_c2": 5,
+               "mom_vecinv": 0, "impldiff": 0, "eos_find_rho": 0,
+               "kpp_pre": 0, "ggl90_col": 0, "gad_multidim_x": 0}
 # the (scheme, vertical scheme) pairs whose sweeps phase 10 holds against
 # their twins: every scheme of O and P, and M's schemes 1 and 20 and
 # vertical 2, 3 and 4; the main paths' 7 and 51 (salt) last, so that the
@@ -246,11 +283,14 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 "gad_os7mp_x": 200, "gad_os7mp_y": 200, "gad_os7mp_r": 200,
                 "gad_ppm_x": 350, "gad_ppm_y": 350, "gad_ppm_r": 350,
                 "idemix_prep": 150, "idemix_hdiff": 60, "idemix_col": 40,
-                "som_x": 400, "som_y": 400, "som_r": 400}
+                "som_x": 400, "som_y": 400, "som_r": 400,
+                "cg3d_precond_dot": 10, "cg3d_s_stencil_dot": 40,
+                "cg3d_xr_update": 8, "calc_gw": 200}
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam",)
-IN_PLACE = {"cg2d_s_update": ("s",), "cg2d_xr_update": ("x", "r")}
+IN_PLACE = {"cg2d_s_update": ("s",), "cg2d_xr_update": ("x", "r"),
+            "cg3d_xr_update": ("x", "r")}
 # the fused computations of the kernel table that are still plain PyTorch
 # on the ported paths (glue) or off them (row H): the distinct float32
 # fields each must move once per call at 1024x1024x32 (3-D, 2-D), each
@@ -263,7 +303,6 @@ GLUE_FIELDS = {
     "G AB-3 of gU, gV; u*, v*; momentum correction": (22, 3),
     "KPP glue visc_uv and ghat_flux of theta and salt": (15, 4),
     "GGL90 glue: kappaRU/RV and kapT/kapS sums, sigmaR": (20, 0),
-    "H cg3d, one 7-point PCG iteration": (12, 0),
     "H seaice LSR tridiagonal sweep (U or V)": (0, 10),
     "H seaice EVP subcycle": (0, 20),
 }
@@ -276,6 +315,38 @@ GRDCHK_TOL = 1e-5
 
 def phase(title):
     print(f"== {title}", flush=True)
+
+
+# the full-size grids, one per distinct geometry, built once and shared by
+# every phase that runs it (the gyre and vi-gyre; the kpp-, ggl90-,
+# idemix- and som-gyre; the os7mp- and pqm-gyre on halos of 4)
+GRIDS = {}
+
+
+def shared_grid(cfg, dtype, flat=False):
+    """The gyres' walled grid of cfg on the card (with flat, the
+    nh-convection box's, flat-bottomed and without walls), from GRIDS at
+    full size (built there on first use, with its seconds printed); None
+    below full size, where each set-up builds its own."""
+    from mitgcm_tpu_torch.core.grid import build_grid
+    from mitgcm_tpu_torch.utils import synthetic
+
+    if cfg.nx < 1024:
+        return None
+    key = (cfg.nx, cfg.ny, cfg.nr, cfg.olx, cfg.oly, tuple(cfg.delX),
+           tuple(cfg.delY), tuple(cfg.delR), cfg.hFacMin, cfg.hFacMinDr,
+           cfg.seaLev_Z, cfg.ygOrigin, cfg.f0, cfg.beta, cfg.fPrime,
+           cfg.gBaro, dtype, flat)
+    if key not in GRIDS:
+        t0 = time.perf_counter()
+        build = build_grid if flat else synthetic.gyre_grid
+        GRIDS[key] = build(cfg, dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        print(f"grid {cfg.nx}x{cfg.ny}x{cfg.nr}, halos of {cfg.olx}, "
+              f"{len(set(cfg.delR))} distinct level thicknesses: built in "
+              f"{time.perf_counter() - t0:.1f} s (shared by the later "
+              f"set-ups of the same geometry)", flush=True)
+    return GRIDS[key]
 
 
 def cuda_time_ms(fn, reps):
@@ -329,7 +400,8 @@ class Case:
         config = synthetic.vi_gyre_config if vi else synthetic.gyre_config
         self.cfg = config(nx=n, ny=n, nr=nr)
         self.grid, _, _, self.op = synthetic.gyre_setup(
-            self.cfg, dtype=dtype, device="cuda")
+            self.cfg, dtype=dtype, device="cuda",
+            grid=shared_grid(self.cfg, dtype))
         rng = np.random.default_rng(SEED)
         g = self.grid
         shape = tuple(g.hFacC.shape)
@@ -553,7 +625,8 @@ def full_phase(kernels):
     cfg = synthetic.gyre_config(nx=1024, ny=1024, nr=32, deltaT=600.0)
     t0 = time.perf_counter()
     grid, state0, forcing, op = synthetic.gyre_setup(
-        cfg, dtype=torch.float32, device="cuda")
+        cfg, dtype=torch.float32, device="cuda",
+        grid=shared_grid(cfg, torch.float32))
     torch.cuda.synchronize()
     print(f"set-up {time.perf_counter() - t0:.1f} s")
     points = cfg.nx * cfg.ny * cfg.nr
@@ -591,7 +664,7 @@ def full_phase(kernels):
     missing = [k for k in KERNELS
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
-               + IDEMIX_KERNELS + SOM_KERNELS
+               + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -657,8 +730,8 @@ def adjoint_objective(n, nr, dtype, n_steps, box, k_range, deltaT=1200.0,
 
     cfg = synthetic.gyre_config(nx=n, ny=n, nr=nr, n_steps=n_steps,
                                 deltaT=deltaT)
-    grid, state, forcing, op = synthetic.gyre_setup(cfg, dtype=dtype,
-                                                    device="cuda")
+    grid, state, forcing, op = synthetic.gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype))
     control = adjoint.Control(cfg, grid, field="theta")
     cost = adjoint.cost_boxmean_tracer(cfg, grid, "theta", box=box,
                                        k_range=k_range)
@@ -804,8 +877,9 @@ def vi_experiment(n, nr, dtype, impl=None, **kw):
     from mitgcm_tpu_torch.utils import synthetic
 
     cfg = synthetic.vi_gyre_config(nx=n, ny=n, nr=nr, **kw)
-    return Experiment(cfg, *synthetic.gyre_setup(cfg, dtype=dtype,
-                                                 device="cuda"), impl=impl)
+    return Experiment(cfg, *synthetic.gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype)),
+        impl=impl)
 
 
 def vi_parity_phase():
@@ -926,8 +1000,9 @@ class KppCase:
         self.cfg = synthetic.kpp_gyre_config(nx=n, ny=n, nr=nr,
                                              deltaT=600.0)
         (self.grid, state, forcing, _,
-         self.kpp) = synthetic.kpp_gyre_setup(self.cfg, dtype=dtype,
-                                              device="cuda")
+         self.kpp) = synthetic.kpp_gyre_setup(
+            self.cfg, dtype=dtype, device="cuda",
+            grid=shared_grid(self.cfg, dtype))
         cfg, g = self.cfg, self.grid
         rng = np.random.default_rng(SEED + 2)
         shape = tuple(g.hFacC.shape)
@@ -1023,9 +1098,9 @@ def kpp_experiment(n, nr, dtype, impl=None, **kw):
     from mitgcm_tpu_torch.utils import synthetic
 
     cfg = synthetic.kpp_gyre_config(nx=n, ny=n, nr=nr, **kw)
-    return Experiment(cfg, *synthetic.kpp_gyre_setup(cfg, dtype=dtype,
-                                                     device="cuda"),
-                      impl=impl)
+    return Experiment(cfg, *synthetic.kpp_gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype)),
+        impl=impl)
 
 
 def kpp_parity_phase():
@@ -1218,8 +1293,9 @@ class G9Case:
         """(grid, GGL90) of the configuration on the card."""
         from mitgcm_tpu_torch.utils import synthetic
 
-        objs = synthetic.ggl90_gyre_setup(self.cfg, dtype=self.dtype,
-                                          device="cuda")
+        objs = synthetic.ggl90_gyre_setup(
+            self.cfg, dtype=self.dtype, device="cuda",
+            grid=shared_grid(self.cfg, self.dtype))
         return objs[0], objs[4]
 
     field = Case.field
@@ -1297,7 +1373,7 @@ def g9_experiment(n, nr, dtype, impl=None, config="ggl90", **kw):
 
     cfg = getattr(synthetic, f"{config}_gyre_config")(nx=n, ny=n, nr=nr, **kw)
     grid, state, forcing, op, ggl90 = synthetic.ggl90_gyre_setup(
-        cfg, dtype=dtype, device="cuda")
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype))
     return Experiment(cfg, grid, state, forcing, op, ggl90=ggl90, impl=impl)
 
 
@@ -1674,6 +1750,313 @@ def ism_phase(kernels, results, smi):
     return launches
 
 
+class NhCase:
+    """The nh-convection box's grid and cg3d operator on the card, with
+    seeded inputs: velocities on wet faces, random interface viscosities,
+    and the cg3d work fields on the wet interior. Below full size the grid
+    has walls, a bank and a row of partial bottom cells (hFacMin 0.2), so
+    that W's free-slip walls and the preconditioner's dry pivots are
+    exercised; at full size it is the box's own (shared with the run)."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.core.grid import build_grid
+        from mitgcm_tpu_torch.ops.stencil import interior_mask
+        from mitgcm_tpu_torch.solver import cg3d
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.nh_convection_config(
+            nx=n, ny=n, nr=nr, **({} if n >= 1024 else {"hFacMin": 0.2}))
+        cfg = self.cfg
+        self.grid = shared_grid(cfg, dtype, flat=True)
+        if self.grid is None:
+            depth, dz = sum(cfg.delR), cfg.delR[-1]
+            bathy = np.full((n, n), -depth)
+            bathy[3 * n // 16:7 * n // 16, 10 * n // 16:14 * n // 16] = (
+                -0.5 * depth - 0.5 * dz)                       # a bank
+            bathy[9 * n // 16, 6 * n // 16:12 * n // 16] = (
+                -depth + 0.4 * dz)                             # partial cells
+            bathy[0, :] = bathy[-1, :] = bathy[:, 0] = bathy[:, -1] = 0.0
+            self.grid = build_grid(cfg, bathy=bathy, dtype=dtype,
+                                   device="cuda")
+        g = self.grid
+        self.op3 = cg3d.build_cg3d(cfg, g)
+        rng = np.random.default_rng(SEED + 5)
+        shape = tuple(g.hFacC.shape)
+        self.u = self.field(rng, shape, 0.1) * g.maskW
+        self.v = self.field(rng, shape, 0.1) * g.maskS
+        self.w = self.field(rng, shape, 1e-2) * g.maskC
+        kshape = (nr + 1,) + shape[1:]
+        self.kappaRU = self.field(rng, kshape, 0.1).abs()
+        self.kappaRV = self.field(rng, kshape, 0.1).abs()
+        imask = interior_mask(shape, cfg.oly, cfg.olx, dtype, "cuda") * g.maskC
+        self.r, self.x, self.s, self.q = (self.field(rng, shape, 1.0) * imask
+                                          for _ in range(4))
+        self.b = self.field(rng, shape, 1.0) * imask
+        self.ws = cg3d.Workspace(shape, cfg.oly, cfg.olx, dtype, "cuda")
+
+    field = Case.field
+    label = Case.label
+
+
+def nh_kernel_phase(case, results, reps, plain_reps):
+    """W and B's flagged variant (free-slip sides, the 3-D Coriolis term)
+    against their twins, W on whole arrays, B on the interior (its halo
+    outputs are zeros by design, as in phase 3); H-cg3d's three launches,
+    one call each on the same inputs, on whole arrays with their dot
+    products and `ctrl`, their frozen launches, and the whole solve kernel
+    path against plain path. Every comparison is bit for bit."""
+    from mitgcm_tpu_torch.model.calc_gw import calc_gw
+    from mitgcm_tpu_torch.model.mom_fluxform import mom_fluxform
+    from mitgcm_tpu_torch.solver import cg3d
+
+    cfg, g, op3, ws = case.cfg, case.grid, case.op3, case.ws
+    ol = cfg.olx
+
+    def gw(impl):
+        return calc_gw(cfg, g, case.u, case.v, case.w, case.kappaRU,
+                       case.kappaRV, impl=impl)
+
+    exact_compare("calc_gw", case, list(gw(None)), list(gw("plain")),
+                  cuda_time_ms(lambda: gw(None), reps),
+                  cuda_time_ms(lambda: gw("plain"), plain_reps), results,
+                  call=lambda: gw(None))
+
+    def mom(impl):
+        t = mom_fluxform(cfg, g, case.u, case.v, case.w, case.kappaRU,
+                         case.kappaRV, impl=impl)
+        return [f[:, ol:-ol, ol:-ol] for f in t]
+
+    exact_compare("mom_fluxform(nh)", case, mom(None), mom("plain"),
+                  cuda_time_ms(lambda: mom(None), reps),
+                  cuda_time_ms(lambda: mom("plain"), plain_reps), results,
+                  call=lambda: mom(None))
+
+    dt = case.dtype
+    eta_n, eta_nm1, den = (case.r.new_tensor(v) for v in (0.7, 1.3, 1.1))
+    never = case.r.new_tensor(0.0)       # a tolerance no residual is under
+
+    def ctrl_of(done, it):
+        return torch.tensor([done, it], dtype=torch.int32, device="cuda")
+
+    def pre(impl, ctrl):
+        q, dot = torch.zeros_like(case.r), case.r.new_zeros(())
+        cg3d.precond_dot(op3, g.maskC, case.r, q, dot, ctrl, ol, ol, ws=ws,
+                         impl=impl)
+        return [q, dot]
+
+    def sst(impl, ctrl):
+        s_out, qa = torch.zeros_like(case.r), torch.zeros_like(case.r)
+        dot = case.r.new_zeros(())
+        cg3d.s_stencil_dot(op3, g.maskC, case.q, case.s, s_out, qa, eta_n,
+                           eta_nm1, dot, ctrl, ol, ol, ws=ws, impl=impl)
+        return [s_out, qa, dot]
+
+    def xr(impl, ctrl, tol=never, max_iters=2 ** 30):
+        x, r, dot = case.x.clone(), case.r.clone(), case.r.new_zeros(())
+        cg3d.xr_update(x, r, case.s, case.q, eta_n, den, g.maskC, dot, ctrl,
+                       tol, max_iters, True, ol, ol, ws=ws, impl=impl)
+        return [x, r, dot] + ([ctrl.to(dt)] if ctrl is not None else [])
+
+    go = ctrl_of(0, 0)     # never done in the timed calls
+    for name, call in (("cg3d_precond_dot", pre), ("cg3d_s_stencil_dot", sst),
+                       ("cg3d_xr_update", xr)):
+        exact_compare(name, case, call(None, ctrl_of(0, 5)),
+                      call("plain", ctrl_of(0, 5)),
+                      cuda_time_ms(lambda: call(None, go), reps),
+                      cuda_time_ms(lambda: call("plain", None), plain_reps),
+                      results, call=lambda: call(None, ctrl_of(0, 5)))
+    for label, ctrl, kw in (("stops at the cap", ctrl_of(0, 6),
+                             dict(max_iters=7)),
+                            ("stops at the tolerance", ctrl_of(0, 2),
+                             dict(tol=case.r.new_tensor(1e30)))):
+        k = xr(None, ctrl.clone(), **kw)
+        p = xr("plain", ctrl.clone(), **kw)
+        done = [int(v) for v in k[-1].tolist()]
+        print(f"{'cg3d_xr_update':18s} {case.label:18s} {label}: ctrl "
+              f"{done} / {[int(v) for v in p[-1].tolist()]} (kernel / plain)",
+              flush=True)
+        if not (done[0] == 1 and all(torch.equal(a, b) for a, b in zip(k, p))):
+            raise AssertionError(f"cg3d_xr_update: {label} differs")
+    # frozen launches: with `done` set every launch returns at once
+    frozen = ctrl_of(1, 3)
+    before = [case.x.clone(), case.r.clone()]
+    outs = pre(None, frozen) + sst(None, frozen) + xr(None, frozen)
+    untouched = (all(float(t.abs().max()) == 0.0 for t in outs[:5])
+                 and torch.equal(outs[5], before[0])
+                 and torch.equal(outs[6], before[1])
+                 and float(outs[7]) == 0.0
+                 and frozen.tolist() == [1, 3])
+    print(f"{'cg3d (frozen)':18s} {case.label:18s} launches with done set "
+          f"leave every output as it was: {untouched}", flush=True)
+    if not untouched:
+        raise AssertionError("a frozen cg3d launch wrote its outputs")
+
+    # the whole solve, kernel path against plain path
+    x0 = 0.01 * case.x
+    res = {impl: cg3d.cg3d(cfg, g, op3, case.b, x0, impl=impl)
+           for impl in (None, "plain")}
+    k, p = res[None], res["plain"]
+    same = torch.equal(k.x, p.x)
+    cap = math.ceil(k.n_iters / cg3d.BATCH) + 2
+    print(f"cg3d solve          {case.label:18s} x bit-equal {same}, "
+          f"iterations {k.n_iters} / {p.n_iters} (kernel / plain), residual "
+          f"{float(k.first_residual):.6e} -> {float(k.last_residual):.6e}, "
+          f"host syncs {k.host_syncs} (at most {cap}) / {p.host_syncs}",
+          flush=True)
+    if not (same and k.n_iters == p.n_iters and k.host_syncs <= cap):
+        raise AssertionError("the cg3d kernel path disagrees with the plain "
+                             "path")
+    per_it = sum(results[n]["ms"] for n in CG3D_KERNELS)
+    bound_it = sum(results[n]["bound_ms"] for n in CG3D_KERNELS)
+    print(f"cg3d per iteration  {case.label:18s} {per_it:.4f} ms, bound "
+          f"{bound_it:.4f} ms", flush=True)
+
+
+def nh_experiment(n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.nh_convection_config(nx=n, ny=n, nr=nr, **kw)
+    grid, state, forcing, op, op3 = synthetic.nh_convection_setup(
+        cfg, dtype=dtype, device="cuda", seed=SEED,
+        grid=shared_grid(cfg, dtype, flat=True))
+    return Experiment(cfg, grid, state, forcing, op, impl=impl, op3=op3)
+
+
+def nh_parity_phase():
+    """10 float64 steps of the 64x64x12 box, kernel path against plain
+    path: every record and phi_nh, w, u and theta bit for bit, equal cg2d
+    and cg3d iterations."""
+    from mitgcm_tpu_torch.utils.compare import EQUAL_DIGITS, record_digits
+
+    exps = {impl: nh_experiment(64, 12, torch.float64, impl)
+            for impl in (None, "plain")}
+    runs = {impl: e.run(n_steps=10) for impl, e in exps.items()}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        # the plain path reads its residual every iteration, the kernel
+        # path once a batch: their host syncs differ by design
+        dig = record_digits({k: v for k, v in rk.items()
+                             if k != "cg3d_host_syncs"}, rp)
+        key = min(dig, key=dig.get)
+        worst = min(worst, dig[key])
+        print(f"nh step {rk['iter']:2d}: cg2d iters {rk['cg2d_iters']} / "
+              f"{rp['cg2d_iters']}, cg3d iters {rk['cg3d_iters']} / "
+              f"{rp['cg3d_iters']}, cg3d host syncs {rk['cg3d_host_syncs']},"
+              f" cg3d init res {rk['cg3d_init_res']:.10e}, fewest digits "
+              f"{dig[key]:.2f} ({key})", flush=True)
+        if (rk["cg2d_iters"], rk["cg3d_iters"]) != (rp["cg2d_iters"],
+                                                   rp["cg3d_iters"]):
+            raise AssertionError("nh-convection iteration counts differ")
+    same = [n for n in ("phi_nh", "wVel", "uVel", "theta", "gwNm1")
+            if torch.equal(getattr(exps[None].state, n),
+                           getattr(exps["plain"].state, n))]
+    print(f"nh-convection parity: fewest matching digits {worst:.2f}; "
+          f"bit-equal fields {same}", flush=True)
+    if not (worst >= EQUAL_DIGITS and len(same) == 5):
+        raise AssertionError("nh-convection kernel path differs from the "
+                             "plain path")
+
+
+def nh_pickup_refusal():
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import write_pickup
+
+    exp = nh_experiment(16, 12, torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            write_pickup(exp, tmp, 0)
+        except NotImplementedError as err:
+            print(f"write_pickup of the nh-convection box refused: {err}",
+                  flush=True)
+        else:
+            raise AssertionError("write_pickup wrote the nh-convection box")
+
+
+def nh_full_phase(kernels, smi):
+    """The 1024x1024x50 float32 box (deltaT = 60): a warm-up step, 5 timed
+    steps with every launch count, a profile and 2 plain steps."""
+    from mitgcm_tpu_torch.model import calc_gw, gad
+    from mitgcm_tpu_torch.solver import cg3d
+
+    n, nr = 1024, 50
+    t0 = time.perf_counter()
+    exp = nh_experiment(n, nr, torch.float32, deltaT=60.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    state0 = exp.state
+    points = n * n * nr
+
+    def run(state, it0, steps, impl):
+        exp.state, exp.cur_iter, exp.impl = state, it0, impl
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, recs, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, recs_w, sec_w = run(state0, 0, 1, None)
+    kernels.launches.clear()
+    plain0 = calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls
+    state, recs, sec = run(state1, 1, 5, None)
+    launches = dict(kernels.launches)
+    plain = calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls - plain0
+    it2 = [r["cg2d_iters"] for r in recs]
+    it3 = [r["cg3d_iters"] for r in recs]
+    syncs = [r["cg3d_host_syncs"] for r in recs]
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations "
+          f"{recs_w[0]['cg2d_iters']}, cg3d iterations "
+          f"{recs_w[0]['cg3d_iters']}")
+    print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
+          f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {it2}, "
+          f"cg3d iterations {it3}, cg3d host syncs per solve {syncs}, "
+          f"cg3d residual {recs[-1]['cg3d_init_res']:.4e} -> "
+          f"{recs[-1]['cg3d_last_res']:.4e}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; plain W, H-cg3d and C calls {plain}; launches {launches}",
+          flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "etaN", "phi_nh"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"nh-convection {name} is not finite")
+    w = state.wVel[:, 2:-2, 2:-2]
+    print(f"after 6 steps: |w| max {float(w.abs().max()):.4e} m/s, |phi_nh| "
+          f"max {float(state.phi_nh.abs().max()):.4e}, theta "
+          f"{float(state.theta.min()):.5f}-{float(state.theta.max()):.5f}",
+          flush=True)
+    batches = sum(syncs) * cg3d.BATCH
+    want = {**NH_LAUNCHES, "cg3d_precond_dot": batches,
+            "cg3d_s_stencil_dot": batches + 5, "cg3d_xr_update": batches + 5}
+    wrong = {k: launches.get(k, 0) for k, count in want.items()
+             if launches.get(k, 0) != count}
+    late = [(i, s) for i, s in zip(it3, syncs)
+            if s > math.ceil(i / cg3d.BATCH) + 2]
+    if wrong or plain or late:
+        raise AssertionError(f"nh-convection launch counts {wrong} (want "
+                             f"{want}), plain calls {plain}, host syncs "
+                             f"over ceil(iters/8)+2 {late}")
+    profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
+    _, recs_p, sec_p = run(state1, 1, 2, "plain")
+    print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
+          f"{points * 2 / sec_p:.4e} points*steps/s, cg3d iterations "
+          f"{[r['cg3d_iters'] for r in recs_p]}", flush=True)
+    return launches
+
+
+def nh_phase(kernels, results, smi):
+    phase("12 non-hydrostatic: the nh-convection box")
+    nh_kernel_phase(NhCase(64, 12, torch.float64), results, 20, 20)
+    nh_kernel_phase(NhCase(1024, 50, torch.float32), results, 10, 3)
+    torch.cuda.empty_cache()
+    nh_parity_phase()
+    nh_pickup_refusal()
+    run = nh_full_phase(kernels, smi)
+    torch.cuda.empty_cache()
+    return {k: run[k] for k in NH_KERNELS}
+
+
 def glue_bounds(smi):
     """The bytes-over-bandwidth bound of each row of GLUE_FIELDS at
     1024x1024x32 float32 (padded by 2 halo cells)."""
@@ -1711,6 +2094,9 @@ def main():
     vi_launches = vi_phase(kernels, results)
     for name in VI_KERNELS:
         launches[name] = vi_launches[name]
+    # no later phase runs the uniform levels: free their grid, so that
+    # each phase's peak memory holds no other configuration's grid
+    GRIDS.clear()
     kpp_launches = kpp_phase(kernels, results, smi)
     for name in KPP_KERNELS:
         launches[name] = kpp_launches[name]
@@ -1719,6 +2105,8 @@ def main():
         launches[name] = g9_launches[name]
     launches.update(ho_phase(kernels, results, smi))
     launches.update(ism_phase(kernels, results, smi))
+    GRIDS.clear()
+    launches.update(nh_phase(kernels, results, smi))
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

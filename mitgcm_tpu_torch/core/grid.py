@@ -74,6 +74,21 @@ class Grid:
     # the column's bottom and surface r (2-D), GGL90's mixing-length limits
     R_low: torch.Tensor
     Ro_surf: torch.Tensor
+    # the same at U and V points (ini_masks_etc.F:330-360), calc_gw's
+    # interface-centred face areas
+    rLowW: torch.Tensor
+    rSurfW: torch.Tensor
+    rLowS: torch.Tensor
+    rSurfS: torch.Tensor
+    # the 1-based level of the column's top wet cell, nr + 1 in dry columns
+    # (the JAX package's int array, held in the grid's float dtype)
+    kSurfC: torch.Tensor
+    # the horizontal component of the rotation vector (ini_cori.F: fPrime
+    # on a Cartesian grid) and the grid's rotation (1 and 0 here): the 3-D
+    # Coriolis terms of the non-hydrostatic path
+    fCoriCos: torch.Tensor
+    angleCosC: torch.Tensor
+    angleSinC: torch.Tensor
     # linear free surface factors (ini_linear_phisurf.F)
     Bo_surf: torch.Tensor
     recip_Bo: torch.Tensor
@@ -85,20 +100,18 @@ def _extend_spacing(vals: np.ndarray, ol: int) -> np.ndarray:
 
 
 def _safe_recip(a: np.ndarray) -> np.ndarray:
-    out = np.zeros_like(a)
-    nz = a != 0.0
-    out[nz] = 1.0 / a[nz]
-    return out
+    """1/a where a != 0, else 0."""
+    return np.divide(1.0, a, out=np.zeros_like(a), where=a != 0.0)
 
 
 def _cyc(a: np.ndarray, oly: int, olx: int) -> np.ndarray:
-    """Host-side cyclic halo fill (numpy twin of stencil.cyclic_fill_halo)."""
+    """Host-side cyclic halo fill (numpy twin of stencil.cyclic_fill_halo):
+    the interior padded by wrapping, one copy."""
     ny = a.shape[-2] - 2 * oly
     nx = a.shape[-1] - 2 * olx
     inner = a[..., oly:oly + ny, olx:olx + nx]
-    jj = np.arange(-oly, ny + oly) % ny
-    ii = np.arange(-olx, nx + olx) % nx
-    return inner[..., jj, :][..., :, ii]
+    pad = [(0, 0)] * (a.ndim - 2) + [(oly, oly), (olx, olx)]
+    return np.pad(inner, pad, mode="wrap")
 
 
 def _hfac_column(rlow, rsurf, rF, drF, recip_drF, hFacMin, hFacMinDr):
@@ -194,6 +207,7 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
     else:
         fCori = np.full(pshape, cfg.f0)
         fCoriG = np.full(pshape, cfg.f0)
+    fCoriCos = np.full(pshape, cfg.fPrime)
 
     # ---- bathymetry & partial cells (ini_depths.F, ini_masks_etc.F) ----
     if bathy is None:
@@ -216,30 +230,44 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
     rSurfW = np.maximum(rSurfW, rLowW)
     rSurfS = np.maximum(rSurfS, rLowS)
 
-    # stage 1 clips against the lower boundary, stage 2 against Ro_surf
-    # (ini_masks_etc.F:104-195)
+    # stage 1 clips against the lower boundary; R_low is regularised from
+    # the stage-1 thickness, stage 2 clips against Ro_surf and Ro_surf is
+    # re-derived (ini_masks_etc.F:104-195)
     hFacC = np.zeros((nr,) + pshape)
     for k in range(nr):
         hFacMnSz = max(cfg.hFacMin, min(cfg.hFacMinDr * recip_drF[k], 1.0))
         h1 = np.clip((rF[k] - R_low) * recip_drF[k], 0.0, 1.0)
         hFacC[k] = np.where((h1 < hFacMnSz * 0.5) | (R_low >= Ro_surf),
                             0.0, np.maximum(h1, hFacMnSz))
+    R_low = rF[0] - np.tensordot(drF, hFacC, axes=(0, 0))
     for k in range(nr):
         hFacMnSz = max(cfg.hFacMin, min(cfg.hFacMinDr * recip_drF[k], 1.0))
         h2 = (rF[k] - Ro_surf) * recip_drF[k]
         h = np.maximum(hFacC[k] - np.maximum(h2, 0.0), 0.0)
         hFacC[k] = np.where(h < hFacMnSz * 0.5, 0.0, np.maximum(h, hFacMnSz))
+    Ro_surf = R_low + np.tensordot(drF, hFacC, axes=(0, 0))
 
     kSurfC = np.full(pshape, nr + 1, dtype=np.int32)
     for k in range(nr - 1, -1, -1):
         kSurfC = np.where(hFacC[k] != 0.0, k + 1, kSurfC)
     maskInC = _cyc((kSurfC <= nr).astype(np.float64), oly, olx)
+    kSurfC = _cyc(kSurfC, oly, olx)
 
     hFacW = _cyc(_hfac_column(rLowW, rSurfW, rF, drF, recip_drF,
                               cfg.hFacMin, cfg.hFacMinDr), oly, olx)
     hFacS = _cyc(_hfac_column(rLowS, rSurfS, rF, drF, recip_drF,
                               cfg.hFacMin, cfg.hFacMinDr), oly, olx)
     hFacC = _cyc(hFacC, oly, olx)
+    R_low = _cyc(R_low, oly, olx)
+    Ro_surf = _cyc(Ro_surf, oly, olx)
+    # the face envelopes again, from the regularised columns
+    # (ini_masks_etc.F:330-360)
+    rLowW[:, 1:] = np.maximum(R_low[:, 1:], R_low[:, :-1])
+    rSurfW[:, 1:] = np.minimum(Ro_surf[:, 1:], Ro_surf[:, :-1])
+    rLowS[1:, :] = np.maximum(R_low[1:, :], R_low[:-1, :])
+    rSurfS[1:, :] = np.minimum(Ro_surf[1:, :], Ro_surf[:-1, :])
+    rSurfW = np.maximum(rSurfW, rLowW)
+    rSurfS = np.maximum(rSurfS, rLowS)
     kSurfW = np.full(pshape, nr + 1, dtype=np.int32)
     kSurfS = np.full(pshape, nr + 1, dtype=np.int32)
     for k in range(nr - 1, -1, -1):
@@ -251,8 +279,8 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
     globalArea = float(np.sum(rA * maskInC * inmask))
 
     def T(a):   # C order: the kernels take contiguous tensors only
-        return torch.as_tensor(np.array(a, dtype=np.float64, order="C"),
-                               dtype=dtype, device=device)
+        a = torch.from_numpy(np.asarray(a, dtype=np.float64, order="C"))
+        return a.to(device=device).to(dtype=dtype)
 
     return Grid(
         rF=T(rF), rC=T(rC), drF=T(drF), drC=T(drC),
@@ -274,6 +302,9 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
         maskC=T(hFacC > 0.0), maskW=T(hFacW > 0.0), maskS=T(hFacS > 0.0),
         maskInC=T(maskInC), maskInW=T(kSurfW <= nr), maskInS=T(kSurfS <= nr),
         R_low=T(R_low), Ro_surf=T(Ro_surf),
+        rLowW=T(rLowW), rSurfW=T(rSurfW), rLowS=T(rLowS), rSurfS=T(rSurfS),
+        kSurfC=T(kSurfC), fCoriCos=T(fCoriCos),
+        angleCosC=T(np.ones(pshape)), angleSinC=T(np.zeros(pshape)),
         Bo_surf=T(np.full(pshape, cfg.gBaro)),
         recip_Bo=T(np.full(pshape, 1.0 / cfg.gBaro)),
         globalArea=T(globalArea),

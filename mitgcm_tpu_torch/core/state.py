@@ -1,8 +1,9 @@
 """Prognostic state and surface forcing (mitgcm_tpu/core/state.py), holding
 the fields of the ported paths: the DYNVARS.h velocities, tracers and free
 surface, the AB-2/AB-3 tendency history, GGL90's TKE and IDEMIX's
-internal-wave energy, the second-order moments of SOM tracers, and
-FFIELDS.h's simple forcing."""
+internal-wave energy, the second-order moments of SOM tracers, the
+non-hydrostatic pressure and w-tendency history, and FFIELDS.h's simple
+forcing."""
 
 from __future__ import annotations
 
@@ -46,6 +47,12 @@ class State:
     # 80 or 81
     somT: Optional[torch.Tensor] = None
     somS: Optional[torch.Tensor] = None
+    # the non-hydrostatic pressure and the raw w tendencies of the last two
+    # steps [nr, nyp, nxp] (NH_VARS.h phi_nh, gwNm1, gwNm2); None unless
+    # nonHydrostatic (gwNm2 also unless AB-3)
+    phi_nh: Optional[torch.Tensor] = None
+    gwNm1: Optional[torch.Tensor] = None
+    gwNm2: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -64,7 +71,8 @@ class Forcing:
 
 def init_state(cfg: Config, grid: Grid) -> State:
     """Cold start (ini_dynvars.F + ini_fields.F): rest, theta/salt at the
-    reference profiles (masked), eta = 0, SOM moments 0."""
+    reference profiles (masked), eta = 0, SOM moments 0, and with
+    nonHydrostatic phi_nh and the w-tendency history 0."""
     dtype, device = grid.rA.dtype, grid.rA.device
     nyp, nxp = grid.rA.shape
 
@@ -88,7 +96,10 @@ def init_state(cfg: Config, grid: Grid) -> State:
         guNm1=z3(), gvNm1=z3(), gtNm1=z3(), gsNm1=z3(),
         guNm2=z3(), gvNm2=z3(), gtNm2=z3(), gsNm2=z3(),
         totPhiHyd=z3(), PmEpR=z2(), somT=som(cfg.tempAdvScheme),
-        somS=som(cfg.saltAdvScheme))
+        somS=som(cfg.saltAdvScheme),
+        phi_nh=z3() if cfg.nonHydrostatic else None,
+        gwNm1=z3() if cfg.nonHydrostatic else None,
+        gwNm2=z3() if cfg.nonHydrostatic and cfg.useAB3 else None)
 
 
 def zero_forcing(cfg: Config, dtype: torch.dtype, device) -> Forcing:

@@ -95,12 +95,27 @@ def dynstat(cfg: Config, grid: Grid, state: State
     v2w = state.vVel * state.vVel * grid.dxG * grid.dyC * grid.hFacS
     tmp = 0.25 * ((u2w + sh(u2w, di=1)) + (v2w + sh(v2w, dj=1))
                   ) * grid.maskInC * imask
+    ke_pt = tmp * grid.recip_hFacC * grid.recip_rA
+    tmpA = tmp
+    if cfg.nonHydrostatic:
+        # the w^2 term (mon_ke.F:106-119); w at k = 0 is left out when
+        # selectNHfreeSurf <= 0
+        w = state.wVel
+        k3 = torch.arange(cfg.nr, device=w.device)[:, None, None]
+        msk1 = torch.where((k3 == 0) & (cfg.selectNHfreeSurf <= 0), 0.0, 1.0
+                           ).to(w.dtype)
+        w2 = w ** 2
+        wkp1 = torch.cat([w2[1:], torch.zeros_like(w2[:1])])
+        wke = (0.25 * (w2 * msk1 + wkp1) * grid.maskC * grid.maskInC
+               * imask)
+        tmpA = tmp + wke * grid.rA * grid.hFacC
+        ke_pt = ke_pt + wke
     keVol = (grid.rA * grid.hFacC * drF[:, None, None] * grid.maskInC
              * imask)
     volSum = torch.sum(keVol)
-    out["ke_max"] = torch.max(tmp * grid.recip_hFacC * grid.recip_rA)
+    out["ke_max"] = torch.max(ke_pt)
     out["ke_mean"] = torch.where(
-        volSum > 0, torch.sum(tmp * drF[:, None, None]) / volSum, 0.0)
+        volSum > 0, torch.sum(tmpA * drF[:, None, None]) / volSum, 0.0)
     out["ke_vol"] = volSum
     # surface potential energy (mon_ke.F:133-142)
     pe = (0.5 * grid.Bo_surf * (state.etaN * state.etaN) * grid.rA

@@ -54,15 +54,29 @@ SIGNATURES = {
     # x, r, s, q, num, den, dot_out, partials, counter; ny, nx, oly, olx;
     # stream
     "cg2d_xr_update": [_P] * 9 + [_I] * 4 + [_P],
-    # pointer table, its length; nr, ny, nx, oly, olx; viscAhD, viscAhZ,
-    # sideDragFactor, rkSign; stream
-    "mom_fluxform": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
+    # pointer table, its length; nr, ny, nx, oly, olx, no_slip_sides,
+    # coriolis_3d; viscAhD, viscAhZ, sideDragFactor, rkSign, gravitySign;
+    # stream
+    "mom_fluxform": [_PP, _I] + [_I] * 7 + [_D] * 5 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx; diffKh, rkSign;
     # implicit_diffusion, calc_advection; df (the extra vertical flux, or
     # null); stream
     "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _I, _P, _P],
+    # kernel W: pointer table, its length; nr, nyp, nxp, coriolis_3d;
+    # viscAhW, rkSign, gravitySign; stream
+    "calc_gw": [_PP, _I] + [_I] * 4 + [_D] * 3 + [_P],
+    # kernel H-cg3d: zMC, zML, zMU, maskC, r, q, dot_out, partials, counter,
+    # ctrl; nr, ny, nx, oly, olx; stream
+    "cg3d_precond_dot": [_P] * 10 + [_I] * 5 + [_P],
+    # aW, aS, aV, aC, maskC, q, s_in, s_out, qa, eta_n, eta_nm1, dot_out,
+    # partials, counter, ctrl; nr, ny, nx, oly, olx; stream
+    "cg3d_s_stencil_dot": [_P] * 15 + [_I] * 5 + [_P],
+    # x, r, s, q, num, den, maskC, dot_out, partials, counter, ctrl,
+    # tol_sq; nr, ny, nx, oly, olx, max_iters, count_iter; stream
+    "cg3d_xr_update": [_P] * 12 + [_I] * 7 + [_P],
     # the backward kernels take the arguments of their forward kernels
-    # (C' without the implicit_diffusion flag)
+    # (B' without the flags and gravitySign, C' without the
+    # implicit_diffusion flag)
     "mom_fluxform_adj": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
     "gad_calc_rhs_c2_adj": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx; selectVortScheme,

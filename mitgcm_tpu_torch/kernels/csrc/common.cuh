@@ -28,9 +28,11 @@ __device__ __forceinline__ int wrap(int p, int ol, int n) {
 // order: a shared-memory tree inside each block, one partial per block, and
 // the last block to finish adds the partials (strided, then a tree) in
 // index order. The result is the same from run to run. `counter` must be 0
-// before the launch; the last block resets it.
+// before the launch; the last block resets it. Returns true in thread 0 of
+// the last block, after *out is written (a caller may act on the sum
+// there), false elsewhere.
 template <typename T>
-__device__ void grid_sum(T v, T* sh, T* partials, unsigned int* counter,
+__device__ bool grid_sum(T v, T* sh, T* partials, unsigned int* counter,
                          T* out) {
   __shared__ bool last;
   const int t = threadIdx.y * blockDim.x + threadIdx.x;
@@ -47,7 +49,7 @@ __device__ void grid_sum(T v, T* sh, T* partials, unsigned int* counter,
     last = (atomicAdd(counter, 1u) == static_cast<unsigned int>(nb - 1));
   }
   __syncthreads();
-  if (!last) return;
+  if (!last) return false;
   __threadfence();
   const volatile T* vp = partials;
   T acc = T(0);
@@ -61,7 +63,9 @@ __device__ void grid_sum(T v, T* sh, T* partials, unsigned int* counter,
   if (t == 0) {
     *out = sh[0];
     *counter = 0u;
+    return true;
   }
+  return false;
 }
 
 }  // namespace mitgcm

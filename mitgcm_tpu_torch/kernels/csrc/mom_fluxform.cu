@@ -1,11 +1,14 @@
 // Kernel B: flux-form momentum tendencies gU, gV, guDiss, gvDiss.
 //
-// Replaces: mitgcm_tpu/model/mom_fluxform.py:mom_fluxform (:122-451) on the
-// branches the wind-driven gyre runs: centred advection with the free-
-// surface dmask correction (:155-230), constant harmonic viscosity and the
-// explicit vertical viscous flux (:233-307), no-slip side drag (:312-340),
-// no-slip bottom drag (:343-381) and Coriolis scheme 0 (:420-445). XLA
-// fused this chain of shifted products into a few sweeps on the TPU.
+// Replaces: mitgcm_tpu/model/mom_fluxform.py:mom_fluxform (:122-469) on the
+// branches the ported paths run: centred advection with the free-surface
+// dmask correction (:155-230), constant harmonic viscosity and the explicit
+// vertical viscous flux (:233-307), no-slip bottom drag (:343-381) and
+// Coriolis scheme 0 (:420-445); two template flags pick the side condition
+// (the no-slip side drag of :312-340, or free slip without it) and the 3-D
+// Coriolis term of the non-hydrostatic path (_coriolis_3d_u, :454-469), so
+// the gyres compile to the code they had before. XLA fused this chain of
+// shifted products into a few sweeps on the TPU.
 //
 // Bound: bytes. Per cell it reads 11 3-D fields (u, v, w, the hFac and
 // masks, two kappa levels) and writes 4, ~60 B/cell in float32, for a few
@@ -27,10 +30,11 @@
 
 namespace mitgcm {
 
-template <typename T>
+template <typename T, bool NoSlipSides, bool Coriolis3d>
 __global__ void mom_fluxform_kernel(const MomArgs<T> a, int nr, int ny,
                                     int nx, int oly, int olx, T viscAhD,
-                                    T viscAhZ, T sideDragFactor, T rkSign) {
+                                    T viscAhZ, T sideDragFactor, T rkSign,
+                                    T gravitySign) {
   const int nyp = ny + 2 * oly, nxp = nx + 2 * olx;
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
@@ -75,24 +79,26 @@ __global__ void mom_fluxform_kernel(const MomArgs<T> a, int nr, int ny,
                 (c.vMerV(k, j, i, nAhD) - c.vMerV(k, j - 1, i, nAhD)) +
                 dVrV));
 
-  // no-slip side drag (mom_u_sidedrag.F)
-  const T hZ = c.hFacZ(k, j, i);
-  const T Ahu = viscAhZ * u;
-  const T uDrag =
-      -(rhW * rdrF * a.recip_rAw[q] *
-        ((a.hFacW[p] - hZ) * a.dxV[q] * a.recip_dyU[q] * Ahu +
-         (a.hFacW[p] - c.hFacZ(k, j + 1, i)) * a.dxV[q + nxp] *
-             a.recip_dyU[q + nxp] * Ahu) *
-        drF * sideDragFactor);
-  const T Ahv = viscAhZ * v * a.cosFacV[q];
-  const T vDrag =
-      -(rhS * rdrF * a.recip_rAs[q] *
-        ((a.hFacS[p] - hZ) * a.dyU[q] * a.recip_dxV[q] * Ahv +
-         (a.hFacS[p] - c.hFacZ(k, j, i + 1)) * a.dyU[q + 1] *
-             a.recip_dxV[q + 1] * Ahv) *
-        drF * sideDragFactor);
-  guDiss = guDiss + uDrag;
-  gvDiss = gvDiss + vDrag;
+  // no-slip side drag (mom_u_sidedrag.F); none under free slip
+  if (NoSlipSides) {
+    const T hZ = c.hFacZ(k, j, i);
+    const T Ahu = viscAhZ * u;
+    const T uDrag =
+        -(rhW * rdrF * a.recip_rAw[q] *
+          ((a.hFacW[p] - hZ) * a.dxV[q] * a.recip_dyU[q] * Ahu +
+           (a.hFacW[p] - c.hFacZ(k, j + 1, i)) * a.dxV[q + nxp] *
+               a.recip_dyU[q + nxp] * Ahu) *
+          drF * sideDragFactor);
+    const T Ahv = viscAhZ * v * a.cosFacV[q];
+    const T vDrag =
+        -(rhS * rdrF * a.recip_rAs[q] *
+          ((a.hFacS[p] - hZ) * a.dyU[q] * a.recip_dxV[q] * Ahv +
+           (a.hFacS[p] - c.hFacZ(k, j, i + 1)) * a.dyU[q + 1] *
+               a.recip_dxV[q + 1] * Ahv) *
+          drF * sideDragFactor);
+    guDiss = guDiss + uDrag;
+    gvDiss = gvDiss + vDrag;
+  }
 
   // no-slip bottom drag (mom_u_botdrag_coeff.F): only where the cell
   // below is dry, or at k = Nr
@@ -115,6 +121,19 @@ __global__ void mom_fluxform_kernel(const MomArgs<T> a, int nr, int ny,
   gU = gU + uCf;
   gV = gV + vCf;
 
+  // 3-D Coriolis (mom_u_coriolis_nh.F): fPrime times w averaged to the
+  // cell centre (zero below the bottom level), then to the U point
+  if (Coriolis3d) {
+    const size_t down = static_cast<size_t>(nyp) * nxp;
+    const bool deep = (k == nr - 1);
+    const T wbar = T(0.5) * (a.w[p] + (deep ? T(0) : a.w[p + down]));
+    const T wbarW =
+        T(0.5) * (a.w[p - 1] + (deep ? T(0) : a.w[p - 1 + down]));
+    const T fcw = a.fCoriCos[q] * a.angleCosC[q] * wbar;
+    const T fcwW = a.fCoriCos[q - 1] * a.angleCosC[q - 1] * wbarW;
+    gU = gU + T(0.5) * (fcw + fcwW) * gravitySign;
+  }
+
   const T mW = a.maskW[p], mS = a.maskS[p];
   a.gU[p] = gU * mW;
   a.gV[p] = gV * mS;
@@ -122,39 +141,62 @@ __global__ void mom_fluxform_kernel(const MomArgs<T> a, int nr, int ny,
   a.gvDiss[p] = gvDiss * mS;
 }
 
+template <typename T, bool NoSlipSides, bool Coriolis3d>
+void launch_mom_variant(const MomArgs<T>& a, int nr, int ny, int nx,
+                        int oly, int olx, double viscAhD, double viscAhZ,
+                        double sideDragFactor, double rkSign,
+                        double gravitySign, cudaStream_t stream) {
+  const dim3 g((nx + 2 * olx + BX - 1) / BX, (ny + 2 * oly + BY - 1) / BY,
+               nr);
+  mom_fluxform_kernel<T, NoSlipSides, Coriolis3d>
+      <<<g, dim3(BX, BY), 0, stream>>>(a, nr, ny, nx, oly, olx, T(viscAhD),
+                                       T(viscAhZ), T(sideDragFactor),
+                                       T(rkSign), T(gravitySign));
+}
+
 template <typename T>
 int launch_mom(const void* const* table, int n, int nr, int ny, int nx,
-               int oly, int olx, double viscAhD, double viscAhZ,
-               double sideDragFactor, double rkSign, void* stream) {
+               int oly, int olx, int no_slip_sides, int coriolis_3d,
+               double viscAhD, double viscAhZ, double sideDragFactor,
+               double rkSign, double gravitySign, void* stream) {
   static_assert(sizeof(MomArgs<T>) == kMomNumPointers * sizeof(void*),
                 "MomArgs must be a plain table of pointers");
   if (n != kMomNumPointers) return (int)cudaErrorInvalidValue;
   MomArgs<T> a;
   std::memcpy(&a, table, sizeof(a));
-  const dim3 g((nx + 2 * olx + BX - 1) / BX, (ny + 2 * oly + BY - 1) / BY,
-               nr);
-  mom_fluxform_kernel<T><<<g, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      a, nr, ny, nx, oly, olx, T(viscAhD), T(viscAhZ), T(sideDragFactor),
-      T(rkSign));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (no_slip_sides && !coriolis_3d)
+    launch_mom_variant<T, true, false>(a, nr, ny, nx, oly, olx, viscAhD,
+                                       viscAhZ, sideDragFactor, rkSign,
+                                       gravitySign, s);
+  else if (no_slip_sides)
+    launch_mom_variant<T, true, true>(a, nr, ny, nx, oly, olx, viscAhD,
+                                      viscAhZ, sideDragFactor, rkSign,
+                                      gravitySign, s);
+  else if (!coriolis_3d)
+    launch_mom_variant<T, false, false>(a, nr, ny, nx, oly, olx, viscAhD,
+                                        viscAhZ, sideDragFactor, rkSign,
+                                        gravitySign, s);
+  else
+    launch_mom_variant<T, false, true>(a, nr, ny, nx, oly, olx, viscAhD,
+                                       viscAhZ, sideDragFactor, rkSign,
+                                       gravitySign, s);
   return (int)cudaGetLastError();
 }
 
 }  // namespace mitgcm
 
-extern "C" int mitgcm_mom_fluxform_f32(const void* const* table, int n,
-                                       int nr, int ny, int nx, int oly,
-                                       int olx, double viscAhD,
-                                       double viscAhZ, double sideDragFactor,
-                                       double rkSign, void* stream) {
-  return mitgcm::launch_mom<float>(table, n, nr, ny, nx, oly, olx, viscAhD,
-                                   viscAhZ, sideDragFactor, rkSign, stream);
-}
+#define MITGCM_MOM_ENTRY_POINT(T, SUF)                                        \
+  extern "C" int mitgcm_mom_fluxform_##SUF(                                   \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,       \
+      int olx, int no_slip_sides, int coriolis_3d, double viscAhD,            \
+      double viscAhZ, double sideDragFactor, double rkSign,                   \
+      double gravitySign, void* stream) {                                     \
+    return mitgcm::launch_mom<T>(table, n, nr, ny, nx, oly, olx,              \
+                                 no_slip_sides, coriolis_3d, viscAhD,         \
+                                 viscAhZ, sideDragFactor, rkSign,             \
+                                 gravitySign, stream);                        \
+  }
 
-extern "C" int mitgcm_mom_fluxform_f64(const void* const* table, int n,
-                                       int nr, int ny, int nx, int oly,
-                                       int olx, double viscAhD,
-                                       double viscAhZ, double sideDragFactor,
-                                       double rkSign, void* stream) {
-  return mitgcm::launch_mom<double>(table, n, nr, ny, nx, oly, olx, viscAhD,
-                                    viscAhZ, sideDragFactor, rkSign, stream);
-}
+MITGCM_MOM_ENTRY_POINT(float, f32)
+MITGCM_MOM_ENTRY_POINT(double, f64)

@@ -16,13 +16,13 @@ struct MomArgs {
   // [nyp, nxp]
   const T *dxF, *dyF, *dxG, *dyG, *dxV, *dyU, *rA, *rAw, *rAs, *recip_dxF,
       *recip_dyF, *recip_dxV, *recip_dyU, *recip_rAw, *recip_rAs, *cosFacU,
-      *cosFacV, *fCori;
+      *cosFacV, *fCori, *fCoriCos, *angleCosC;
   // [nr] and [nr+1]
   const T *drF, *recip_drF, *recip_drC;
   // outputs [nr, nyp, nxp]
   T *gU, *gV, *guDiss, *gvDiss;
 };
-constexpr int kMomNumPointers = 38;
+constexpr int kMomNumPointers = 40;
 
 template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }

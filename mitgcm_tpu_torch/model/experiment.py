@@ -25,6 +25,7 @@ from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import KPP
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
+from mitgcm_tpu_torch.solver.cg3d import CG3DOperator
 
 
 @dataclass
@@ -38,6 +39,7 @@ class Experiment:
     ggl90: Optional[GGL90] = None  # model/ggl90.py:GGL90 when useGGL90
     impl: Optional[str] = None     # "plain": kernel twins on any device
     cur_iter: Optional[int] = None
+    op3: Optional[CG3DOperator] = None   # when nonHydrostatic
 
     def monitor_stats(self) -> Dict[str, float]:
         stats = monitor.dynstat(self.cfg, self.grid, self.state)
@@ -46,7 +48,8 @@ class Experiment:
     def run(self, n_steps: Optional[int] = None,
             collect_monitor: bool = True) -> List[Dict[str, float]]:
         """Python-loop runner; one record per step, plus iteration 0 when
-        collecting monitor statistics."""
+        collecting monitor statistics; with nonHydrostatic each step's
+        record holds the cg3d solve's residuals and iterations too."""
         cfg = self.cfg
         n = cfg.nTimeSteps if n_steps is None else n_steps
         if self.cur_iter is None:
@@ -58,12 +61,17 @@ class Experiment:
             self.state, diag = step_mod.forward_step(
                 cfg, self.grid, self.op, self.state, self.forcing,
                 self.cur_iter, impl=self.impl, kpp=self.kpp,
-                ggl90=self.ggl90)
+                ggl90=self.ggl90, op3=self.op3)
             self.cur_iter += 1
             rec = {"iter": self.cur_iter,
                    "cg2d_init_res": float(diag.cg2d_init_res),
                    "cg2d_iters": diag.cg2d_iters,
                    "cg2d_last_res": float(diag.cg2d_last_res)}
+            if diag.cg3d_iters is not None:
+                rec.update(cg3d_init_res=float(diag.cg3d_init_res),
+                           cg3d_iters=diag.cg3d_iters,
+                           cg3d_last_res=float(diag.cg3d_last_res),
+                           cg3d_host_syncs=diag.cg3d_host_syncs)
             if collect_monitor:
                 rec.update(self.monitor_stats())
             records.append(rec)
@@ -78,9 +86,10 @@ class Experiment:
 # recomputing w. GGL90's TKE goes into the companion pickup_ggl90
 # (ggl90_write_pickup.F); every other package that has a companion pickup
 # is refused by step.check_supported (KPP keeps no state from step to step,
-# so it has none). The JAX package's pickups hold neither IDEMIX's energy
-# nor the SOM moments, so a restart there resets them to zero; the port
-# refuses pickups of those runs instead (`_check_pickup`).
+# so it has none). The JAX package's pickups hold neither IDEMIX's energy,
+# nor the SOM moments, nor the non-hydrostatic phi_nh and w-tendency
+# history, so a restart there resets them to zero; the port refuses
+# pickups of those runs instead (`_check_pickup`).
 # ----------------------------------------------------------------------
 
 _PICKUP_3D = ["Uvel", "Vvel", "Theta", "Salt",
@@ -102,15 +111,18 @@ _FIELD = {"Uvel": "uVel", "Vvel": "vVel", "Theta": "theta", "Salt": "salt",
 
 def _check_pickup(exp: Experiment) -> None:
     """Raise NotImplementedError, naming each, for the state a pickup in
-    the JAX package's format would drop: IDEMIX_E and the SOM moments."""
+    the JAX package's format would drop: IDEMIX_E, the SOM moments and the
+    non-hydrostatic phi_nh, gwNm1 and gwNm2."""
     cfg = exp.cfg
-    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl)
+    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl, exp.op3)
     bad = [f"{tr}AdvScheme={s} (the SOM moments)"
            for tr, s in (("temp", cfg.tempAdvScheme),
                          ("salt", cfg.saltAdvScheme))
            if s in som.SOM_SCHEMES]
     if exp.ggl90 is not None and exp.ggl90.p["useIDEMIX"]:
         bad.insert(0, "useIDEMIX (IDEMIX_E)")
+    if cfg.nonHydrostatic:
+        bad.append("nonHydrostatic (phi_nh, gwNm1, gwNm2)")
     if bad:
         raise NotImplementedError(
             f"pickups: not written or read for {', '.join(bad)}: the JAX "

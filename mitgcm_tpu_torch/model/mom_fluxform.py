@@ -1,7 +1,11 @@
 """Flux-form momentum tendencies (mitgcm_tpu/model/mom_fluxform.py;
 reference pkg/mom_fluxform/mom_fluxform.F) on the branches of the gyre:
 centred advection, constant harmonic viscosity with the explicit vertical
-viscous flux, no-slip side and bottom drag, and Coriolis scheme 0.
+viscous flux, no-slip bottom drag, and Coriolis scheme 0; with no-slip or
+free-slip sides (the side drag only under no-slip), and with or without
+the 3-D Coriolis term -fPrime w of the non-hydrostatic path
+(select3dCoriScheme >= 1). Kernel B takes the last two as template flags;
+its backward B' refuses them, so the adjoint stays on the gyre's branches.
 
 `mom_fluxform` runs kernel B (kernels/csrc/mom_fluxform.cu) for CUDA
 tensors, with kernel B' (mom_fluxform_adj.cu) as its backward, and the
@@ -61,10 +65,8 @@ def check_branches(cfg: Config) -> None:
     off = {
         "momAdvection": not cfg.momAdvection,
         "momViscosity": not cfg.momViscosity,
-        "no_slip_sides": not cfg.no_slip_sides,
         "no_slip_bottom": not cfg.no_slip_bottom,
         "selectCoriScheme": cfg.selectCoriScheme != 0,
-        "select3dCoriScheme": cfg.select3dCoriScheme != 0,
         "biharmonic viscosity": (cfg.viscA4 != 0.0 or cfg.viscA4D != 0.0
                                  or cfg.viscA4Z != 0.0),
         "variable viscosity": variable_viscosity(cfg),
@@ -88,7 +90,8 @@ _GRID3 = ("hFacC", "hFacW", "hFacS", "maskC", "maskW", "maskS",
           "recip_hFacW", "recip_hFacS")
 _GRID2 = ("dxF", "dyF", "dxG", "dyG", "dxV", "dyU", "rA", "rAw", "rAs",
           "recip_dxF", "recip_dyF", "recip_dxV", "recip_dyU", "recip_rAw",
-          "recip_rAs", "cosFacU", "cosFacV", "fCori")
+          "recip_rAs", "cosFacU", "cosFacV", "fCori", "fCoriCos",
+          "angleCosC")
 _GRID1 = ("drF", "recip_drF", "recip_drC")
 
 
@@ -100,10 +103,16 @@ def _kernel_inputs(grid: Grid, u, v, w, kappaRU, kappaRV) -> dict:
                 **{n: getattr(grid, n) for n in _GRID2 + _GRID1})
 
 
+def flags(cfg: Config) -> tuple:
+    """Kernel B's template flags: (no-slip sides, the 3-D Coriolis
+    term)."""
+    return bool(cfg.no_slip_sides), cfg.select3dCoriScheme >= 1
+
+
 def _launch(kernel: str, cfg: Config, ins: dict, outs: dict) -> None:
     """Check and launch kernel B (outs = the four tendencies) or B'
     (outs = the four cotangents, in the tendencies' slots, then u_bar,
-    v_bar and w_bar)."""
+    v_bar and w_bar; the gyre's flags only)."""
     u = ins["u"]
     nr, nyp, nxp = u.shape
     kernels.check_tensors(u.dtype, **ins, **outs)
@@ -117,10 +126,18 @@ def _launch(kernel: str, cfg: Config, ins: dict, outs: dict) -> None:
     kernels.check_shape("recip_drF", ins["recip_drF"], (nr,))
     kernels.check_shape("recip_drC", ins["recip_drC"], (nr + 1,))
     table = [*ins.values(), *outs.values()]
+    args = (nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly, cfg.olx)
+    params = (cfg.viscAhD, cfg.viscAhZ, cfg.sideDragFactor, cfg.rkSign)
+    if kernel == "mom_fluxform":
+        no_slip, cori3d = flags(cfg)
+        args += (int(no_slip), int(cori3d))
+        params += (cfg.gravitySign,)
+    elif flags(cfg) != (True, False):
+        raise NotImplementedError(
+            "mom_fluxform_adj (kernel B'): free-slip sides and the 3-D "
+            "Coriolis term have no backward kernel")
     kernels.launch(kernel, u.dtype, kernels.pointer_table(table), len(table),
-                   nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly,
-                   cfg.olx, cfg.viscAhD, cfg.viscAhZ, cfg.sideDragFactor,
-                   cfg.rkSign)
+                   *args, *params)
 
 
 class MomFluxformFn(torch.autograd.Function):
@@ -182,9 +199,10 @@ def mom_fluxform_vjp_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
 
 def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
                         kappaRV) -> MomTend:
-    """mom_fluxform.py:122-451 on the gyre's branches, in its operation
+    """mom_fluxform.py:122-469 on the ported branches, in its operation
     order. The biharmonic terms of the JAX code add exact zeros here and
-    are left out."""
+    are left out, as are its products with rVel2wUnit, exactly 1 in
+    z-coordinates."""
     nr = cfg.nr
     drF = grid.drF[:, None, None]
     recip_drF = grid.recip_drF[:, None, None]
@@ -251,20 +269,8 @@ def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
                   + dVrV))
 
     # ---------------- no-slip side drag (:312-340) ----------------
-    Ahu = AhZ * u
-    uDrag = -(grid.recip_hFacW * recip_drF * grid.recip_rAw
-              * ((grid.hFacW - hFacZ) * grid.dxV * grid.recip_dyU * Ahu
-                 + (grid.hFacW - sh(hFacZ, dj=1)) * sh(grid.dxV, dj=1)
-                 * sh(grid.recip_dyU, dj=1) * Ahu)
-              * drF * cfg.sideDragFactor)
-    Ahv = AhZ * v * grid.cosFacV
-    vDrag = -(grid.recip_hFacS * recip_drF * grid.recip_rAs
-              * ((grid.hFacS - hFacZ) * grid.dyU * grid.recip_dxV * Ahv
-                 + (grid.hFacS - sh(hFacZ, di=1)) * sh(grid.dyU, di=1)
-                 * sh(grid.recip_dxV, di=1) * Ahv)
-              * drF * cfg.sideDragFactor)
-    guDiss = guDiss + uDrag
-    gvDiss = gvDiss + vDrag
+    if cfg.no_slip_sides:
+        guDiss, gvDiss = _side_drag(cfg, grid, u, v, hFacZ, guDiss, gvDiss)
 
     # ---- no-slip bottom drag (:343-381): where the cell below is dry ----
     recDr = torch.cat([grid.recip_drC[1:nr],
@@ -284,5 +290,37 @@ def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
            * 0.25 * (u + sh(u, di=1) + sh(u, dj=-1) + sh(u, di=1, dj=-1)))
     gU = gU + uCf
     gV = gV + vCf
+    if cfg.select3dCoriScheme >= 1:
+        gU = gU + coriolis_3d_u(cfg, grid, w)
     return MomTend(gU=gU * grid.maskW, gV=gV * grid.maskS,
                    guDiss=guDiss * grid.maskW, gvDiss=gvDiss * grid.maskS)
+
+
+def coriolis_3d_u(cfg: Config, grid: Grid, w):
+    """The 3-D Coriolis term of the u equation, fPrime times the vertical
+    velocity averaged to U points (mom_fluxform.py:454-469,
+    mom_u_coriolis_nh.F); the v equation has none on a Cartesian grid."""
+    wbar = 0.5 * (w + shift_k(w, 1))    # zero below the bottom level
+    fcw = grid.fCoriCos * grid.angleCosC * wbar
+    return 0.5 * (fcw + sh(fcw, di=-1)) * cfg.gravitySign
+
+
+def _side_drag(cfg: Config, grid: Grid, u, v, hFacZ, guDiss, gvDiss):
+    """No-slip side drag (mom_fluxform.py:312-340, mom_u_sidedrag.F)
+    added to guDiss and gvDiss."""
+    recip_drF = grid.recip_drF[:, None, None]
+    drF = grid.drF[:, None, None]
+    AhZ = cfg.viscAhZ
+    Ahu = AhZ * u
+    uDrag = -(grid.recip_hFacW * recip_drF * grid.recip_rAw
+              * ((grid.hFacW - hFacZ) * grid.dxV * grid.recip_dyU * Ahu
+                 + (grid.hFacW - sh(hFacZ, dj=1)) * sh(grid.dxV, dj=1)
+                 * sh(grid.recip_dyU, dj=1) * Ahu)
+              * drF * cfg.sideDragFactor)
+    Ahv = AhZ * v * grid.cosFacV
+    vDrag = -(grid.recip_hFacS * recip_drF * grid.recip_rAs
+              * ((grid.hFacS - hFacZ) * grid.dyU * grid.recip_dxV * Ahv
+                 + (grid.hFacS - sh(hFacZ, di=1)) * sh(grid.dyU, di=1)
+                 * sh(grid.recip_dxV, di=1) * Ahv)
+              * drF * cfg.sideDragFactor)
+    return guDiss + uDrag, gvDiss + vDrag

@@ -14,8 +14,11 @@ kpp-gyre's set-up with GGL90 TKE mixing in place of KPP, on the same
 state, and DST-3 flux-limited tracers under the multi-dimensional
 advection) and its variants: the os7mp- and pqm-gyre (OS7MP, or monotone
 PPM and PQM tracers, on halos of 4), the idemix-gyre (GGL90 with IDEMIX and
-the Langmuir parameterization) and the som-gyre (second-order-moment
-tracers), and any mix of those options.
+the Langmuir parameterization), the som-gyre (second-order-moment
+tracers) and the nh-convection box (the non-hydrostatic path under
+flux-form momentum: calc_gw and the AB step of w in DYNAMICS, the cg3d
+solve for phi_nh after cg2d, and its gradient in the correction), and any
+mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
@@ -34,6 +37,7 @@ from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
+from mitgcm_tpu_torch.model import calc_gw as calc_gw_mod
 from mitgcm_tpu_torch.model import gad
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
@@ -46,6 +50,7 @@ from mitgcm_tpu_torch.ops import eos
 from mitgcm_tpu_torch.ops.stencil import (cyclic_fill_halo, interior_mask,
                                           shift as sh)
 from mitgcm_tpu_torch.solver import cg2d as cg2d_mod
+from mitgcm_tpu_torch.solver import cg3d as cg3d_mod
 
 
 @dataclass
@@ -54,6 +59,12 @@ class StepDiag:
     cg2d_last_res: torch.Tensor
     cg2d_iters: int
     cg2d_host_syncs: int
+    # the non-hydrostatic 3-D solve's (solve_for_pressure.F:340-355); None
+    # on the hydrostatic paths
+    cg3d_init_res: torch.Tensor = None
+    cg3d_last_res: torch.Tensor = None
+    cg3d_iters: int = None
+    cg3d_host_syncs: int = None
 
 
 _PACKAGES = ("usePP81", "useMY82", "useOPPS",
@@ -82,8 +93,8 @@ def _tracer_schemes_off(cfg: Config) -> dict:
     return off
 
 
-def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None
-                    ) -> None:
+def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
+                    op3=None) -> None:
     """Raise NotImplementedError unless cfg stays on the ported paths
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
@@ -94,7 +105,9 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None
     the options that check_ggl90 refuses, with Langmuir only under
     vector-invariant momentum, and with at most ggl90.MAX_NR levels, IDEMIX
     included, when its tensors are on the card and impl does not ask for
-    the plain path)."""
+    the plain path; nonHydrostatic under flux-form momentum with op3, a
+    solver/cg3d.py:CG3DOperator, and without the options that
+    calc_gw.check_nh refuses)."""
     g9_kernel = ggl90 is not None and kernels.use_kernel(ggl90.klowC, impl)
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
@@ -115,7 +128,8 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None
         "implicitFreeSurface=F": not cfg.implicitFreeSurface,
         "implicSurfPress!=1": cfg.implicSurfPress != 1.0,
         "implicDiv2Dflow!=1": cfg.implicDiv2Dflow != 1.0,
-        "nonHydrostatic": cfg.nonHydrostatic,
+        "nonHydrostatic without a CG3DOperator": (cfg.nonHydrostatic
+                                                  and op3 is None),
         "quasiHydrostatic": cfg.quasiHydrostatic,
         "p-coordinates": cfg.usingPCoords or not cfg.usingZCoords,
         "fluidIsAir": cfg.fluidIsAir,
@@ -157,6 +171,8 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None
         kpp_mod.check_kpp(kpp)
     if ggl90 is not None:
         ggl90_mod.check_ggl90(ggl90)
+    if cfg.nonHydrostatic:
+        calc_gw_mod.check_nh(cfg)
     if cfg.vectorInvariantMomentum:
         check_branches_vecinv(cfg)
     else:
@@ -219,9 +235,12 @@ def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
              rhoInSitu, myIter: int, impl: str = None, kpp_fields=None,
              ggl90_fields=None):
     """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', guNm2',
-    gvNm2', totPhiHyd). kpp_fields: KPP.calc's output, whose viscosity is
-    blended into kappaRU/RV (calc_viscosity.F), or None; ggl90_fields:
-    GGL90.calc's viscArU/viscArV, added to kappaRU/RV, or None."""
+    gvNm2', totPhiHyd, nh). kpp_fields: KPP.calc's output, whose viscosity
+    is blended into kappaRU/RV (calc_viscosity.F), or None; ggl90_fields:
+    GGL90.calc's viscArU/viscArV, added to kappaRU/RV, or None. nh: with
+    nonHydrostatic, w* and the w-tendency history (dynamics.F:642-652,
+    CALC_GW + TIMESTEP_WVEL; step.py:341-357 of the JAX package), else
+    None."""
     u, v, w = state.uVel, state.vVel, state.wVel
     nr = cfg.nr
     kshape = (nr + 1,) + tuple(u.shape[1:])
@@ -253,13 +272,23 @@ def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
         vStar = thermo_mod.impldiff(cfg, grid, vStar, kappaRV,
                                     grid.recip_hFacS, cfg.deltaTMom,
                                     impl=impl)
-    return uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd
+    nh = None
+    if cfg.nonHydrostatic:
+        gW, gwDiss = calc_gw_mod.calc_gw(cfg, grid, u, v, w, kappaRU,
+                                         kappaRV, impl=impl)
+        gw_ab, gwNm1, gwNm2 = adams_bashforth(cfg, gW + gwDiss, state.gwNm1,
+                                              state.gwNm2, myIter)
+        nh = {"wStar": calc_gw_mod.timestep_wvel(cfg, grid, w, gw_ab),
+              "gwNm1": gwNm1, "gwNm2": gwNm2}
+    return uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh
 
 
 def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
-                       vStar, impl: str = None):
-    """solve_for_pressure.F, 2-D: cg2d for the new free surface.
-    Returns (etaN, StepDiag)."""
+                       vStar, impl: str = None, nh=None, op3=None):
+    """solve_for_pressure.F: cg2d for the new free surface, and with nh
+    (dynamics' non-hydrostatic output) the cg3d solve for phi_nh
+    (pre_cg3d.F, step.py:418-506 of the JAX package). Returns (etaN,
+    phi_nh or None, StepDiag)."""
     imask = interior_mask(state.etaN.shape, cfg.oly, cfg.olx,
                           uStar.dtype, uStar.device)
     drF = grid.drF[:, None, None]
@@ -277,24 +306,76 @@ def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
     for k in range(cfg.nr - 1, -1, -1):
         cg2d_b = cg2d_b + dbx[k]
         cg2d_b = cg2d_b + dby[k]
-    cg2d_b = cg2d_b - (cfg.freeSurfFac * grid.rA
-                       / cfg.deltaTMom / cfg.deltaTFreeSurf) * state.etaN
+    surfC = (cfg.freeSurfFac * grid.rA / cfg.deltaTMom / cfg.deltaTFreeSurf)
+    if nh is None:
+        cg2d_b = cg2d_b - surfC * state.etaN
+    else:
+        # oldFreeSurfTerm (solve_for_pressure.F:195-210): the surface term
+        # carries etaN + phi_nh(ks)/Bo, added to both right sides
+        k3 = torch.arange(cfg.nr, device=uStar.device)[:, None, None]
+        selS = (k3 == grid.kSurfC[None] - 1) & (grid.kSurfC[None] <= cfg.nr)
+        zero = torch.zeros((), dtype=uStar.dtype, device=uStar.device)
+        surfT = -surfC * (state.etaN + torch.sum(
+            torch.where(selS, state.phi_nh, zero), dim=0) * grid.recip_Bo)
+        cg2d_b = cg2d_b + surfT
+        cg3d_b = dbx + dby + torch.where(selS, surfT[None], zero)
     cg2d_b = cg2d_b * imask
     res = cg2d_mod.cg2d(cfg, op, cg2d_b, cg2d_x, impl=impl)
-    return grid.recip_Bo * res.x, StepDiag(
+    etaN = grid.recip_Bo * res.x
+    diag = StepDiag(
         cg2d_init_res=res.first_residual, cg2d_last_res=res.last_residual,
         cg2d_iters=res.n_iters, cg2d_host_syncs=res.host_syncs)
+    if nh is None:
+        return etaN, None, diag
+
+    # pre_cg3d.F, oldFreeSurfTerm: the surface-pressure correction flow of
+    # the new cg2d solution and the vertical transport of w*
+    cg2dx = res.x
+    psFac = cfg.implicSurfPress * cfg.implicDiv2Dflow
+    uf = -grid.recip_dxC * psFac * (cg2dx - sh(cg2dx, di=-1))
+    vf = -grid.recip_dyC * psFac * (cg2dx - sh(cg2dx, dj=-1))
+    fx = drF * grid.dyG[None] * grid.hFacW * uf[None]
+    fy = drF * grid.dxG[None] * grid.hFacS * vf[None]
+    wk = nh["wStar"]
+    wkp1 = torch.cat([wk[1:], torch.zeros_like(wk[:1])])
+    maskC_km1 = torch.cat([torch.ones_like(grid.maskC[:1]),
+                           grid.maskC[:-1]])
+    wterm = torch.where(
+        k3 == 0, cfg.freeSurfFac * etaN[None] / cfg.deltaTFreeSurf - wkp1,
+        wk * maskC_km1 - wkp1) * grid.rA[None] / cfg.deltaTMom
+    cg3d_b = cg3d_b + (sh(fx, di=1) - fx)
+    cg3d_b = cg3d_b + (sh(fy, dj=1) - fy)
+    cg3d_b = cg3d_b + wterm
+    res3 = cg3d_mod.cg3d(cfg, grid, op3, cg3d_b, state.phi_nh, impl=impl)
+    diag.cg3d_init_res = res3.first_residual
+    diag.cg3d_last_res = res3.last_residual
+    diag.cg3d_iters = res3.n_iters
+    diag.cg3d_host_syncs = res3.host_syncs
+    return etaN, res3.x, diag
 
 
-def momentum_correction_step(cfg: Config, grid: Grid, etaN, uStar, vStar):
+def momentum_correction_step(cfg: Config, grid: Grid, etaN, uStar, vStar,
+                             phi_nh=None):
     """momentum_correction_step.F: subtract the new surface-pressure
-    gradient."""
+    gradient, and with phi_nh the non-hydrostatic one
+    (correction_step.F:137-160)."""
     BoEta = grid.Bo_surf * etaN
     phiSurfX = grid.recip_dxC * (BoEta - sh(BoEta, di=-1))
     phiSurfY = grid.recip_dyC * (BoEta - sh(BoEta, dj=-1))
     psFac = cfg.implicSurfPress
-    u = (uStar - cfg.deltaTMom * psFac * phiSurfX * grid.maskW) * grid.maskW
-    v = (vStar - cfg.deltaTMom * psFac * phiSurfY * grid.maskS) * grid.maskS
+    if phi_nh is None:
+        u = (uStar - cfg.deltaTMom * psFac * phiSurfX * grid.maskW) \
+            * grid.maskW
+        v = (vStar - cfg.deltaTMom * psFac * phiSurfY * grid.maskS) \
+            * grid.maskS
+        return u, v
+    nhFac = cfg.implicitNHPress
+    dpx = (psFac * phiSurfX[None] + nhFac * grid.recip_dxC[None]
+           * (phi_nh - sh(phi_nh, di=-1)))
+    dpy = (psFac * phiSurfY[None] + nhFac * grid.recip_dyC[None]
+           * (phi_nh - sh(phi_nh, dj=-1)))
+    u = (uStar - cfg.deltaTMom * dpx * grid.maskW) * grid.maskW
+    v = (vStar - cfg.deltaTMom * dpy * grid.maskS) * grid.maskS
     return u, v
 
 
@@ -316,11 +397,12 @@ def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR):
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,
                  forcing: Forcing, myIter: int, impl: str = None, kpp=None,
-                 ggl90=None) -> Tuple[State, StepDiag]:
+                 ggl90=None, op3=None) -> Tuple[State, StepDiag]:
     """One timestep; myIter is the start-of-step iteration number; kpp: a
     model/kpp.py:KPP object when useKPP; ggl90: a model/ggl90.py:GGL90
-    object when useGGL90."""
-    check_supported(cfg, kpp, ggl90, impl)
+    object when useGGL90; op3: a solver/cg3d.py:CG3DOperator when
+    nonHydrostatic."""
+    check_supported(cfg, kpp, ggl90, impl, op3)
 
     def fill(a):
         return cyclic_fill_halo(a, cfg.oly, cfg.olx)
@@ -360,13 +442,13 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
      somS) = thermo_mod.thermodynamics(
         cfg, grid, state, forc, myIter, impl=impl, kpp_fields=kpp_fields,
         ggl90_fields=ggl90_fields)
-    uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd = dynamics(
+    uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh = dynamics(
         cfg, grid, state, forc, rhoInSitu, myIter, impl=impl,
         kpp_fields=kpp_fields, ggl90_fields=ggl90_fields)
     uStar, vStar = fill(uStar), fill(vStar)
-    etaN, diag = solve_for_pressure(cfg, grid, op, state, uStar, vStar,
-                                    impl=impl)
-    u, v = momentum_correction_step(cfg, grid, etaN, uStar, vStar)
+    etaN, phi_nh, diag = solve_for_pressure(cfg, grid, op, state, uStar,
+                                            vStar, impl=impl, nh=nh, op3=op3)
+    u, v = momentum_correction_step(cfg, grid, etaN, uStar, vStar, phi_nh)
     u, v = fill(u), fill(v)
     w, PmEpR = integr_continuity(cfg, grid, u, v, forc.EmPmR)
 
@@ -386,5 +468,9 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         # the SOM moments' exchange (do_fields_blocking_exchanges.F:79);
         # it also overwrites the non-finite first padded row and column
         somT=fill_if(somT, somT is not None and somT.numel() > 0),
-        somS=fill_if(somS, somS is not None and somS.numel() > 0))
+        somS=fill_if(somS, somS is not None and somS.numel() > 0),
+        # the non-hydrostatic pressure and w-tendency history (NH_VARS.h)
+        phi_nh=state.phi_nh if nh is None else fill(phi_nh),
+        gwNm1=state.gwNm1 if nh is None else nh["gwNm1"],
+        gwNm2=state.gwNm2 if nh is None else nh["gwNm2"])
     return new_state, diag

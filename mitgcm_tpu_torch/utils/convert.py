@@ -3,8 +3,11 @@ CG2DOperator of mitgcm_tpu, given as dicts of numpy arrays (one entry per
 field, `np.asarray(leaf)`), become the port's objects on a given device and
 dtype. Fields the port does not hold are ignored, so both packages can step
 from identical inputs; an optional field of the port (State.GGL90TKE,
-IDEMIX_E, somT, somS) is carried when the arrays hold it and left None
-otherwise. A control vector
+IDEMIX_E, somT, somS, and the non-hydrostatic phi_nh, gwNm1 and gwNm2) is
+carried when the arrays hold it and left None otherwise. `arrays_of` takes
+the port's objects too, so the same fields cross back to the JAX package
+(a State's None fields are left out, a zero-size one crosses as it is). A
+control vector
 or a gradient crosses as one array (`to_tensor`, `to_numpy`)."""
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ import torch
 
 def arrays_of(obj) -> dict:
     """Dict of numpy arrays from a dataclass or NamedTuple of array leaves
-    (the JAX package's Grid, State, Forcing, CG2DOperator); leaves that
-    are None or not arrays are left out."""
+    (the JAX package's Grid, State, Forcing, CG2DOperator, or the port's);
+    leaves that are None or not arrays are left out."""
     items = (obj._asdict().items() if hasattr(obj, "_asdict")
              else ((f.name, getattr(obj, f.name))
                    for f in dataclasses.fields(obj)))
-    return {name: np.asarray(leaf) for name, leaf in items
+    return {name: (to_numpy(leaf) if isinstance(leaf, torch.Tensor)
+                   else np.asarray(leaf))
+            for name, leaf in items
             if hasattr(leaf, "shape") and hasattr(leaf, "dtype")}
 
 

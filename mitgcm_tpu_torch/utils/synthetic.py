@@ -2,9 +2,11 @@
 configurations for the entry point, the card smoke run and the tests: the
 gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its variants, the
 os7mp-gyre and the pqm-gyre (high-order advection), the idemix-gyre (IDEMIX
-and Langmuir in GGL90) and the som-gyre (second-order-moment tracers). The
-set-ups put their tensors on the CUDA device unless device="cpu" is asked
-for."""
+and Langmuir in GGL90) and the som-gyre (second-order-moment tracers); and
+the nh-convection box, a rotating, surface-cooled non-hydrostatic
+convection box. The set-ups put their tensors on the CUDA device unless
+device="cpu" is asked for, and take an already built grid of the same
+configuration (`grid=`) to skip building it again."""
 
 from __future__ import annotations
 
@@ -12,12 +14,14 @@ import numpy as np
 import torch
 
 from mitgcm_tpu_torch.core.config import Config
-from mitgcm_tpu_torch.core.grid import build_grid
+from mitgcm_tpu_torch.core.grid import Grid, build_grid
 from mitgcm_tpu_torch.core.state import init_state, zero_forcing
 from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
+from mitgcm_tpu_torch.model.step import integr_continuity
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import build_cg2d
+from mitgcm_tpu_torch.solver.cg3d import build_cg3d
 
 
 def gyre_config(nx=64, ny=64, nr=4, dx=20.0e3, depth=5000.0,
@@ -146,16 +150,24 @@ def idemix_maps(cfg: Config, wet: np.ndarray, dtype, device) -> dict:
             "idemix_wind": _fill2(cfg, wind * wet, dtype, device)[0]}
 
 
-def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
-               device="cuda"):
-    """(grid, state, forcing, op) with walls and a sinusoidal zonal wind."""
+def gyre_grid(cfg: Config, dtype: torch.dtype = torch.float32,
+              device="cuda") -> Grid:
+    """The gyres' grid: a flat bottom with walls on the edges."""
     nx, ny = cfg.nx, cfg.ny
     bathy = np.full((ny, nx), -sum(cfg.delR))
     bathy[0, :] = 0.0
     bathy[:, 0] = 0.0
     bathy[-1, :] = 0.0
     bathy[:, -1] = 0.0
-    grid = build_grid(cfg, bathy=bathy, dtype=dtype, device=device)
+    return build_grid(cfg, bathy=bathy, dtype=dtype, device=device)
+
+
+def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+               device="cuda", grid: Grid = None):
+    """(grid, state, forcing, op) with walls and a sinusoidal zonal wind."""
+    nx, ny = cfg.nx, cfg.ny
+    if grid is None:
+        grid = gyre_grid(cfg, dtype=dtype, device=device)
     state = init_state(cfg, grid)
     forcing = zero_forcing(cfg, dtype, device)
     # zonal wind: tau = -0.1 cos(pi y / L)  (gendata.m of the reference deck)
@@ -167,18 +179,21 @@ def gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
 
 
 def _fill2(cfg: Config, a: np.ndarray, dtype, device) -> torch.Tensor:
-    """An interior [ny, nx] field as a halo-filled [1, nyp, nxp] record."""
-    out = np.zeros((cfg.ny + 2 * cfg.oly, cfg.nx + 2 * cfg.olx))
-    out[cfg.oly:cfg.oly + cfg.ny, cfg.olx:cfg.olx + cfg.nx] = a
-    return cyclic_fill_halo(torch.as_tensor(out[None], dtype=dtype,
-                                            device=device), cfg.oly, cfg.olx)
+    """An interior [ny, nx] field as a halo-filled [1, nyp, nxp] record (an
+    interior [nr, ny, nx] field as a halo-filled [nr, nyp, nxp] one)."""
+    a = a if a.ndim == 3 else a[None]
+    out = np.zeros(a.shape[:1] + (cfg.ny + 2 * cfg.oly, cfg.nx + 2 * cfg.olx))
+    out[:, cfg.oly:cfg.oly + cfg.ny, cfg.olx:cfg.olx + cfg.nx] = a
+    return cyclic_fill_halo(torch.as_tensor(out, dtype=dtype, device=device),
+                            cfg.oly, cfg.olx)
 
 
-def _heat_forced_setup(cfg: Config, dtype, device):
+def _heat_forced_setup(cfg: Config, dtype, device, grid=None):
     """gyre_setup with a net upward heat flux Qnet = -200 cos(pi (j + 1/2)
     / ny) W/m2 (heating in the south, cooling in the north) and a shortwave
     Qsw = -100 W/m2 on wet points."""
-    grid, state, forcing, op = gyre_setup(cfg, dtype=dtype, device=device)
+    grid, state, forcing, op = gyre_setup(cfg, dtype=dtype, device=device,
+                                          grid=grid)
     ol_y, ol_x = cfg.oly, cfg.olx
     wet = grid.maskC[0, ol_y:ol_y + cfg.ny, ol_x:ol_x + cfg.nx].cpu().numpy()
     j = np.arange(cfg.ny)[:, None]
@@ -189,24 +204,24 @@ def _heat_forced_setup(cfg: Config, dtype, device):
 
 
 def kpp_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
-                   device="cuda"):
+                   device="cuda", grid: Grid = None):
     """(grid, state, forcing, op, kpp) of the kpp-gyre: the gyre's wind,
     the heat fluxes of `_heat_forced_setup`, and KPP with the KPP_PARM01
     defaults and the default KPP_OPTIONS.h (KPP_GHAT, KPP_SMOOTH_SHSQ,
     KPP_SMOOTH_DBLOC)."""
-    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device)
+    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device, grid)
     return grid, state, forcing, op, KPP(cfg, grid, {},
                                          options=DEFAULT_OPTIONS)
 
 
 def ggl90_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
-                     device="cuda"):
+                     device="cuda", grid: Grid = None):
     """(grid, state, forcing, op, ggl90) of the ggl90-gyre and its variants:
     the kpp-gyre's wind, Qnet and Qsw, GGL90 with mxlMaxFlag = 2, the
     settings of cfg.extra["ggl90"] and the other ggl90_readparms.F
     defaults, and the TKE at GGL90TKEmin; with useIDEMIX the energy fluxes
     of idemix_maps and IDEMIX_E = 0 (ggl90_init_varia.F)."""
-    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device)
+    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device, grid)
     ggl90 = GGL90(cfg, grid, {"mxlMaxFlag": 2, **cfg.extra.get("ggl90", {})})
     state.GGL90TKE = ggl90.init_tke(dtype)
     if ggl90.p["useIDEMIX"]:
@@ -216,3 +231,63 @@ def ggl90_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
         ggl90.init_idemix_forc(maps.__getitem__)
         state.IDEMIX_E = torch.zeros_like(state.GGL90TKE)
     return grid, state, forcing, op, ggl90
+
+
+def nh_convection_config(nx=1024, ny=1024, nr=50, dx=20.0, dz=20.0,
+                         deltaT=60.0, n_steps=10, **extra) -> Config:
+    """The nh-convection box: a rotating, surface-cooled, non-hydrostatic
+    convection box of the tutorial_deep_convection kind (20 m cells), at
+    any size; full size is 1024x1024x50, a 20 km box 1000 m deep. Periodic
+    in x and y with a flat bottom; a LINEAR EOS (tAlpha 2e-4, sBeta 0) with
+    theta alone stepped by scheme 2; flux-form momentum with free-slip
+    sides and a no-slip bottom, AB-2; f0 = fPrime = 1e-4 (the rotation
+    vector near 45 N, so that the 3-D Coriolis terms are not zero), beta
+    = 0; isotropic explicit harmonic mixing viscAh = viscAr = diffKhT =
+    diffKrT = 0.1 m2/s; cg3d to 1e-9 in at most 100 iterations, cg2d as
+    the gyre's. `extra` sets further Config fields before finalize()."""
+    kwargs = dict(
+        viscAh=0.1, viscAr=0.1, diffKhT=0.1, diffKrT=0.1,
+        f0=1.0e-4, beta=0.0, fPrime=1.0e-4,
+        eosType="LINEAR", tAlpha=2.0e-4, sBeta=0.0, saltStepping=False,
+        no_slip_sides=False, no_slip_bottom=True,
+        nonHydrostatic=True, cg3dMaxIters=100, cg3dTargetResidual=1.0e-9,
+        delR=tuple([dz] * nr), tRef=tuple([20.0] * nr),
+        xgOrigin=0.0, ygOrigin=0.0,
+    )
+    return gyre_config(nx=nx, ny=ny, nr=nr, dx=dx, deltaT=deltaT,
+                       n_steps=n_steps, **{**kwargs, **extra})
+
+
+def nh_convection_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                        device="cuda", seed: int = 0, grid: Grid = None):
+    """(grid, state, forcing, op, op3) of the nh-convection box: Qnet =
+    +800 W/m2 (cooling) inside a centred disc whose radius is a quarter of
+    the domain's width, 0 outside, no wind; theta = 20 degC plus noise of
+    amplitude 0.01 K, u and v noise of amplitude 0.01 m/s on wet faces
+    (uniform, from numpy.random.default_rng(seed)), and w from continuity
+    (initialise_varia.F)."""
+    if grid is None:
+        grid = build_grid(cfg, dtype=dtype, device=device)
+    state = init_state(cfg, grid)
+    rng = np.random.default_rng(seed)
+    shape = (cfg.nr, cfg.ny, cfg.nx)
+
+    def noise(amp):
+        return _fill2(cfg, amp * rng.uniform(-1.0, 1.0, shape), dtype,
+                      device)
+
+    state.theta = (state.theta + noise(0.01)) * grid.maskC
+    state.uVel = noise(0.01) * grid.maskW
+    state.vVel = noise(0.01) * grid.maskS
+    w, _ = integr_continuity(cfg, grid, state.uVel, state.vVel,
+                             torch.zeros_like(state.etaN))
+    state.wVel = cyclic_fill_halo(w, cfg.oly, cfg.olx)
+    forcing = zero_forcing(cfg, dtype, device)
+    x = (np.arange(cfg.nx) + 0.5) * cfg.delX[0]
+    y = (np.arange(cfg.ny) + 0.5) * cfg.delY[0]
+    L = cfg.nx * cfg.delX[0]
+    r2 = (x[None, :] - 0.5 * L) ** 2 + (y[:, None] - 0.5 * cfg.ny
+                                        * cfg.delY[0]) ** 2
+    forcing.Qnet = _fill2(cfg, np.where(r2 <= (0.25 * L) ** 2, 800.0, 0.0),
+                          dtype, device)
+    return grid, state, forcing, build_cg2d(cfg, grid), build_cg3d(cfg, grid)

@@ -5,9 +5,12 @@ and KPP and GGL90 options off its ported paths (GGL90 with more levels
 than kernel G9 takes on the card among them, Langmuir under flux-form
 momentum, and pickups that would drop IDEMIX's energy or the SOM moments),
 its kernel wrappers refuse to differentiate what their kernels treat as
-constants (and V, T, R, K, G9, M, O, P, H-IDEMIX and H-SOM, which have no
-backward kernels yet, anything), and its adjoint refuses the vi-gyre, KPP,
-GGL90 and every advection scheme but 2."""
+constants (and V, T, R, K, G9, M, O, P, H-IDEMIX, H-SOM and W, which have
+no backward kernels yet, anything), its adjoint refuses the vi-gyre, KPP,
+GGL90, every advection scheme but 2 and the non-hydrostatic path, and the
+non-hydrostatic path runs under flux-form momentum only, without the NH
+options it does not port, and writes no pickups (JAX's format drops
+phi_nh and the w-tendency history)."""
 
 import dataclasses
 import os
@@ -83,6 +86,12 @@ for config in (synthetic.os7mp_gyre_config, synthetic.pqm_gyre_config,
     exp = Experiment(cfg, g, s, f, op, ggl90=g9)
     rec, = exp.run(n_steps=1, collect_monitor=False)
     assert rec["cg2d_iters"] > 0 and bool(torch.isfinite(exp.state.salt).all())
+cfg = synthetic.nh_convection_config(nx=8, ny=8, nr=4)
+g, s, f, op, op3 = synthetic.nh_convection_setup(cfg, dtype=torch.float64,
+                                                 device="cpu")
+exp = Experiment(cfg, g, s, f, op, op3=op3)
+rec, = exp.run(n_steps=1, collect_monitor=False)
+assert rec["cg3d_iters"] > 0 and bool(torch.isfinite(exp.state.phi_nh).all())
 import chip_smoke
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
@@ -412,7 +421,7 @@ def test_check_supported_refuses_kpp_options(name):
 
 @pytest.mark.parametrize("entry", ["gyre_setup", "kpp_gyre_setup",
                                    "build_grid", "to_tensor", "from_arrays",
-                                   "ggl90_gyre_setup"])
+                                   "ggl90_gyre_setup", "nh_convection_setup"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, an entry point puts its tensors on the
     card: here, without CUDA, it raises as torch does, and never falls back
@@ -423,6 +432,8 @@ def test_entry_points_default_to_the_card(entry):
         "gyre_setup": lambda: synthetic.gyre_setup(cfg)[0].rA,
         "kpp_gyre_setup": lambda: synthetic.kpp_gyre_setup(cfg)[0].rA,
         "ggl90_gyre_setup": lambda: synthetic.ggl90_gyre_setup(cfg)[0].rA,
+        "nh_convection_setup": lambda: synthetic.nh_convection_setup(
+            synthetic.nh_convection_config(nx=8, ny=8, nr=2))[0].rA,
         "build_grid": lambda: build_grid(cfg).rA,
         "to_tensor": lambda: convert.to_tensor(np.zeros(3)),
         "from_arrays": lambda: convert.from_arrays(
@@ -434,3 +445,68 @@ def test_entry_points_default_to_the_card(entry):
         assert not torch.cuda.is_available(), err
     else:
         assert t.is_cuda
+
+
+def _nh_box(nr=4):
+    cfg = synthetic.nh_convection_config(nx=8, ny=8, nr=nr)
+    return cfg, synthetic.nh_convection_setup(cfg, dtype=torch.float64,
+                                              device="cpu")
+
+
+@pytest.mark.parametrize("settings,name", [
+    (dict(vectorInvariantMomentum=True),
+     "nonHydrostatic under vectorInvariantMomentum"),
+    (dict(no_slip_sides=True), "no_slip_sides under nonHydrostatic"),
+    (dict(selectNHfreeSurf=1), "selectNHfreeSurf=1"),
+    (dict(useNHMTerms=True), "useNHMTerms"),
+    (dict(viscA4W=1.0e3), "viscA4W"),
+    (dict(implicitNHPress=0.5), "implicitNHPress=0.5"),
+    (dict(implicitIntGravWave=True), "implicitIntGravWave"),
+    (dict(deepAtmosphere=True), "deepAtmosphere")],
+    ids=["vecinv", "no-slip", "nh-free-surf", "nhm-terms", "viscA4W",
+         "implicitNHPress", "igw", "deep"])
+def test_check_supported_refuses_nh_options(settings, name):
+    """nonHydrostatic passes under flux-form momentum with a CG3DOperator;
+    each NH option the port does not run is refused by name (under
+    vector-invariant momentum: JAX's mom_vecinv has no 3-D Coriolis
+    term)."""
+    cfg, (_, _, _, _, op3) = _nh_box()
+    check_supported(cfg, op3=op3)
+    with pytest.raises(NotImplementedError,
+                       match="nonHydrostatic without a CG3DOperator"):
+        check_supported(cfg)
+    cfg = dataclasses.replace(cfg, **settings)
+    with pytest.raises(NotImplementedError, match=name):
+        check_supported(cfg, op3=op3)
+
+
+@pytest.mark.parametrize("io", ["write", "read"])
+def test_pickups_refuse_nh(io, tmp_path):
+    """JAX's pickups hold neither phi_nh nor gwNm1/2 (a restart there
+    resets them): the port refuses both pickups of an NH run by name."""
+    cfg, objs = _nh_box()
+    exp = Experiment(cfg, *objs[:4], op3=objs[4])
+    call = write_pickup if io == "write" else read_pickup
+    with pytest.raises(NotImplementedError, match="nonHydrostatic"):
+        call(exp, str(tmp_path), 0)
+    assert not list(tmp_path.iterdir())
+
+
+def test_nh_kernels_refuse_grad_and_the_adjoint():
+    """W has no backward kernel (any input that requires grad is refused),
+    B' refuses B's new flags, and the adjoint refuses the NH path."""
+    from mitgcm_tpu_torch.model import calc_gw
+    cfg, (grid, state, _, _, _) = _nh_box()
+    k = torch.zeros((cfg.nr + 1,) + tuple(state.uVel.shape[1:]),
+                    dtype=state.uVel.dtype)
+    u = state.uVel.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="kernel W"):
+        calc_gw.calc_gw(cfg, grid, u, state.vVel, state.wVel, k, k)
+    for name in ("nonHydrostatic", "no_slip_sides=F", "select3dCoriScheme"):
+        with pytest.raises(NotImplementedError, match=name):
+            adjoint.check_adjoint_supported(cfg)
+        cfg = dataclasses.replace(
+            cfg, **{"nonHydrostatic": dict(nonHydrostatic=False),
+                    "no_slip_sides=F": dict(no_slip_sides=True),
+                    "select3dCoriScheme": dict(select3dCoriScheme=0)}[name])
+    adjoint.check_adjoint_supported(cfg)

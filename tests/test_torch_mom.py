@@ -1,6 +1,8 @@
 """PyTorch port: the flux-form momentum tendency (plain twin of kernel B)
 against the JAX package on seeded random velocities and viscosities, 12
-digits on the interior of every output."""
+digits on the interior of every output on the gyre's grid, and 13 for B's
+free-slip and 3-D Coriolis branches on the walled non-hydrostatic grid
+with a bank and partial cells (tests/test_torch_grid.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -62,3 +64,40 @@ def test_hfacz_and_ke(setup):
                                    jnp.asarray(v)))
     got = tmom.calc_ke(torch.from_numpy(u), torch.from_numpy(v)).numpy()
     assert digits(interior(got, cfg.olx), interior(want, cfg.olx)) >= 12
+
+
+@pytest.fixture(scope="module")
+def walled():
+    from test_torch_config import jax_config
+    from test_torch_grid import nh_walled_config, nh_walled_grid
+    cfg = nh_walled_config()
+    return cfg, jax_config, *nh_walled_grid(cfg)
+
+
+# kernel B's two flags: the nh-convection box runs free slip with the 3-D
+# Coriolis term; the other pairs keep each branch under test on its own
+@pytest.mark.parametrize("no_slip,cori3d", [(False, 1), (False, 0),
+                                            (True, 1)],
+                         ids=["free-slip+3d", "free-slip", "no-slip+3d"])
+def test_mom_fluxform_flags(walled, no_slip, cori3d):
+    """B's free-slip and 3-D Coriolis branches against JAX on the walled
+    grid with a bank and partial cells (fPrime = 1e-4): 13 digits on the
+    interior of every output."""
+    import dataclasses
+
+    cfg, jax_config, jgrid, tgrid = walled
+    cfg = dataclasses.replace(cfg, no_slip_sides=no_slip,
+                              select3dCoriScheme=cori3d)
+    jcfg = jax_config(cfg)
+    arrays = _fields(tgrid, 5, 1e-3)
+    want = jmom.mom_fluxform(jcfg, jgrid, *map(jnp.asarray, arrays))
+    got = tmom.mom_fluxform(cfg, tgrid, *map(torch.from_numpy, arrays))
+    for name in ("gU", "gV", "guDiss", "gvDiss"):
+        d = digits(interior(getattr(got, name), cfg.olx),
+                   interior(np.asarray(getattr(want, name)), cfg.olx))
+        assert d >= 13, f"{name}: {d:.2f} digits"
+    if cori3d:
+        base = tmom.mom_fluxform(
+            dataclasses.replace(cfg, select3dCoriScheme=0), tgrid,
+            *map(torch.from_numpy, arrays))
+        assert float((got.gU - base.gU).abs().max()) > 0.0
