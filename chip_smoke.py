@@ -101,6 +101,24 @@ exits nonzero without the final line:
                  every kernel's launch count (W and B each step, H-cg3d 8
                  per batch of iterations, the plain twins never) and the
                  cg3d host syncs per solve, a profile, then 2 plain steps
+ 13. sea ice: the ice-gyre (the kpp-gyre made polar under a cold
+                 atmosphere with a dynamic-thermodynamic ice cover): each
+                 launch of the four sea-ice kernels (seaice_lsr_visc and
+                 seaice_lsr_coeffs, the LSR pass's assembly; the half-sweeps
+                 of seaice_lsr_tridiag_u/_v and seaice_lsr_check, with their
+                 control words, frozen launches included;
+                 seaice_advect_x/_y; seaice_thermo) against its twin on
+                 whole arrays at 64x64 float64 on 2 x 2 tiles and at
+                 1024x1024 float32 on 64 x 64 tiles (bit-equal), a whole LSR
+                 loop kernel path against plain path (equal ICOUNTs); 10
+                 float64 steps of the 64x64x12 ice-gyre, kernel path against
+                 plain path (16 digits, equal cg2d and LSR iterations), a
+                 2+2 restart through pickup and pickup_seaice; then the
+                 1024x1024x32 float32 ice-gyre (deltaT=600): one warm-up
+                 step and 5 timed steps with every kernel's launch count,
+                 the LSR iterations and host syncs per Picard pass, the
+                 peak memory and the mean AREA after the run, a profile,
+                 then 1 plain step
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -109,7 +127,8 @@ the main path that runs it: phase 5 for the gyre's forward kernels, phase
 6's full-size gradient for B' and C', phase 7's full-size run for V, T
 and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
 O and pqm-gyre for P, phase 11's idemix-gyre for H-IDEMIX and som-gyre for
-H-SOM, phase 12's box for W and H-cg3d), with the kernel's time, its plain
+H-SOM, phase 12's box for W and H-cg3d, phase 13's ice-gyre for the sea
+ice's), with the kernel's time, its plain
 twin's, and its bound (the larger of the bytes it must move over 3.35
 TB/s and its estimated operations over 67 TFLOP/s, the H100's float32
 peaks) at the full-size float32 shapes of its path (1024x1024x32, the
@@ -123,6 +142,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -208,6 +228,25 @@ KERNELS = {
                        "mitgcm_tpu/solver/cg3d.py:234"),
     "calc_gw": ("mitgcm_tpu_torch/kernels/csrc/calc_gw.cu",
                 "mitgcm_tpu/model/calc_gw.py:29"),
+    # the ice-gyre's sea-ice kernels: seaice_lsr_prep (two launches),
+    # seaice_lsr_tridiag (the half-sweeps and the loop's check),
+    # seaice_advect and seaice_thermo
+    "seaice_lsr_visc": ("mitgcm_tpu_torch/kernels/csrc/seaice_lsr.cu",
+                        "mitgcm_tpu/model/seaice.py:912"),
+    "seaice_lsr_coeffs": ("mitgcm_tpu_torch/kernels/csrc/seaice_lsr.cu",
+                          "mitgcm_tpu/model/seaice.py:915"),
+    "seaice_lsr_tridiag_u": ("mitgcm_tpu_torch/kernels/csrc/seaice_lsr.cu",
+                             "mitgcm_tpu/model/seaice.py:806"),
+    "seaice_lsr_tridiag_v": ("mitgcm_tpu_torch/kernels/csrc/seaice_lsr.cu",
+                             "mitgcm_tpu/model/seaice.py:843"),
+    "seaice_lsr_check": ("mitgcm_tpu_torch/kernels/csrc/seaice_lsr.cu",
+                         "mitgcm_tpu/model/seaice.py:1020"),
+    "seaice_advect_x": ("mitgcm_tpu_torch/kernels/csrc/seaice_advect.cu",
+                        "mitgcm_tpu/model/seaice.py:1341"),
+    "seaice_advect_y": ("mitgcm_tpu_torch/kernels/csrc/seaice_advect.cu",
+                        "mitgcm_tpu/model/seaice.py:1345"),
+    "seaice_thermo": ("mitgcm_tpu_torch/kernels/csrc/seaice_thermo.cu",
+                      "mitgcm_tpu/model/seaice.py:1681"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
@@ -252,6 +291,9 @@ ISM_LAUNCHES = {
 }
 CG3D_KERNELS = ("cg3d_precond_dot", "cg3d_s_stencil_dot", "cg3d_xr_update")
 NH_KERNELS = CG3D_KERNELS + ("calc_gw",)
+ICE_KERNELS = ("seaice_lsr_visc", "seaice_lsr_coeffs", "seaice_lsr_tridiag_u",
+               "seaice_lsr_tridiag_v", "seaice_lsr_check", "seaice_advect_x",
+               "seaice_advect_y", "seaice_thermo")
 # launches in phase 12's 5 timed full-size steps besides H-cg3d's (whose
 # count follows from each solve's batches, nh_full_phase): W and B once a
 # step, C for theta alone, and no other kernel of the gyres
@@ -285,12 +327,23 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 "idemix_prep": 150, "idemix_hdiff": 60, "idemix_col": 40,
                 "som_x": 400, "som_y": 400, "som_r": 400,
                 "cg3d_precond_dot": 10, "cg3d_s_stencil_dot": 40,
-                "cg3d_xr_update": 8, "calc_gw": 200}
+                "cg3d_xr_update": 8, "calc_gw": 200,
+                # the sea ice's, per 2-D cell (seaice_thermo's per cell of
+                # its largest field, TICES, one category of one column: 11
+                # flux evaluations of ~30 flops and 2 exp, counted as 20
+                # flops each, and the category's share of the budget); a
+                # half-sweep's line solve is ~12 a cell on half the cells
+                "seaice_lsr_visc": 60, "seaice_lsr_coeffs": 200,
+                "seaice_lsr_tridiag_u": 6, "seaice_lsr_tridiag_v": 6,
+                "seaice_lsr_check": 4, "seaice_advect_x": 120,
+                "seaice_advect_y": 150, "seaice_thermo": 800}
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
-SCRATCH = ("gam",)
+SCRATCH = ("gam", "cuu")
 IN_PLACE = {"cg2d_s_update": ("s",), "cg2d_xr_update": ("x", "r"),
-            "cg3d_xr_update": ("x", "r")}
+            "cg3d_xr_update": ("x", "r"), "seaice_lsr_tridiag_u": ("u",),
+            "seaice_lsr_tridiag_v": ("u",),
+            "seaice_lsr_check": ("uTmp", "vTmp")}
 # the fused computations of the kernel table that are still plain PyTorch
 # on the ported paths (glue) or off them (row H): the distinct float32
 # fields each must move once per call at 1024x1024x32 (3-D, 2-D), each
@@ -303,7 +356,10 @@ GLUE_FIELDS = {
     "G AB-3 of gU, gV; u*, v*; momentum correction": (22, 3),
     "KPP glue visc_uv and ghat_flux of theta and salt": (15, 4),
     "GGL90 glue: kappaRU/RV and kapT/kapS sums, sigmaR": (20, 0),
-    "H seaice LSR tridiagonal sweep (U or V)": (0, 10),
+    "seaice glue get_dynforcing (fu, fv, yC, SIMaskU/V in; taux, tauy out)":
+        (0, 7),
+    "seaice glue ocean_stress (uIce, vIce, uVel0, vVel0, dwatn, fCori, AREA,"
+    " fu, fv in; fu, fv out)": (0, 11),
     "H seaice EVP subcycle": (0, 20),
 }
 # the prognostic fields of GGL90, IDEMIX and SOM that a gyre may carry
@@ -664,7 +720,7 @@ def full_phase(kernels):
     missing = [k for k in KERNELS
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
-               + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS
+               + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -2057,6 +2113,393 @@ def nh_phase(kernels, results, smi):
     return {k: run[k] for k in NH_KERNELS}
 
 
+class IceCase:
+    """The ice-gyre's grid and SeaIce (2 x 2 tiles at 64x64, 64 x 64 tiles
+    at full size) with seeded ice, ocean and atmosphere on the card."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.ice_gyre_config(nx=n, ny=n, nr=nr,
+                                             deltaT=600.0)
+        (self.grid, _, _, _, _, self.si) = synthetic.ice_gyre_setup(
+            self.cfg, dtype=dtype, device="cuda",
+            grid=shared_grid(self.cfg, dtype))
+        si = self.si
+        rng = np.random.default_rng(SEED + 13)
+        shape = tuple(self.grid.rA.shape)
+
+        def fld(lo, hi, mask=None):
+            a = torch.as_tensor(rng.uniform(lo, hi, shape), dtype=dtype,
+                                device="cuda")
+            return a * mask if mask is not None else a
+
+        mU, mV, hm = si.seaiceMaskU, si.seaiceMaskV, si.HEFFM
+        self.prep = dict(
+            uIce=si.fill(fld(-0.2, 0.2, mU)), vIce=si.fill(fld(-0.2, 0.2, mV)),
+            uVel0=fld(-0.3, 0.3), vVel0=fld(-0.3, 0.3),
+            press0=fld(0.0, 4e4, hm), fxTmp=fld(-1.0, 1.0),
+            fyTmp=fld(-1.0, 1.0), areaW=fld(0.5, 1.0), areaS=fld(0.5, 1.0),
+            massC=fld(1e3, 3e3), massU=fld(1e3, 3e3), massV=fld(1e3, 3e3))
+        self.prep["uIceC"] = self.prep["uIce"]
+        self.prep["vIceC"] = self.prep["vIce"]
+        self.prep["zMax"] = si.p.zetaMaxFac * self.prep["press0"]
+        self.ice = si.init_state()._replace(
+            uIce=self.prep["uIce"], vIce=self.prep["vIce"],
+            AREA=fld(0.0, 1.0, hm), HEFF=fld(0.0, 3.0, hm),
+            HSNOW=fld(0.0, 0.5, hm))
+        heff = fld(-0.2, 3.0, hm)
+        heff[::3, ::2] = 0.0
+        heff[1::4, ::3] = 5e-6
+        hsnow = fld(-0.05, 0.4, hm)
+        hsnow[::2, 1::3] = 0.0
+        self.ice2 = self.ice._replace(
+            HEFF=heff, HSNOW=hsnow, AREA=fld(-0.1, 1.1, hm),
+            TICES=torch.stack([fld(240.0, 274.0)
+                               for _ in range(si.p.multDim)]))
+        self.forc = types.SimpleNamespace(
+            atemp=fld(240.0, 275.0), aqh=fld(1e-4, 3e-3),
+            precip=fld(0.0, 1e-7), swdown=fld(0.0, 300.0),
+            lwdown=fld(150.0, 320.0), runoff=fld(0.0, 1e-8),
+            wspeed=fld(0.0, 12.0), evap=fld(-1e-8, 1e-8),
+            Qnet=fld(-200.0, 300.0) * hm, Qsw=fld(-200.0, 0.0) * hm,
+            EmPmR=fld(-1e-5, 1e-5), saltFlux=fld(-1e-3, 1e-3))
+        self.theta0, self.salt0 = fld(-2.2, 1.0), fld(30.0, 35.0)
+
+    label = Case.label
+
+
+def ice_kernel_phase(case, results, reps, plain_reps, whole_loop):
+    """Each launch of the four sea-ice kernels against its twin, one call
+    each on the same inputs, on whole arrays, bit for bit: seaice_lsr_visc
+    and _coeffs, each half-sweep of seaice_lsr_tridiag_u/_v and
+    seaice_lsr_check (with their control words, and frozen), seaice_advect_x
+    and _y, seaice_thermo; then a whole LSR loop kernel path against plain
+    path (equal ICOUNTs, u and v bit-equal) when whole_loop (at 64x64: the
+    full-size loop is held against the plain path in ice_full_phase's plain
+    step)."""
+    from mitgcm_tpu_torch.model import seaice_kernels as sk
+
+    si, dtype = case.si, case.dtype
+    pr = case.prep
+    vin = (pr["uIceC"], pr["vIceC"], pr["press0"], pr["zMax"])
+    exact_compare("seaice_lsr_visc", case, list(sk.lsr_visc(si, *vin)),
+                  list(si._visc_plain(*vin)),
+                  cuda_time_ms(lambda: sk.lsr_visc(si, *vin), reps),
+                  cuda_time_ms(lambda: si._visc_plain(*vin), plain_reps),
+                  results, call=lambda: sk.lsr_visc(si, *vin))
+    visc = si._visc_plain(*vin)
+    rest = [pr[k] for k in ("uIce", "vIce", "uIceC", "vIceC", "uVel0",
+                            "vVel0", "fxTmp", "fyTmp", "areaW", "areaS",
+                            "massC", "massU", "massV")]
+    ck = sk.lsr_coeffs(si, *visc, *rest)
+    c = si._coeffs_plain(*visc, *rest)
+    exact_compare("seaice_lsr_coeffs", case, list(ck.values()),
+                  [c[k] for k in ck],
+                  cuda_time_ms(lambda: sk.lsr_coeffs(si, *visc, *rest), reps),
+                  cuda_time_ms(lambda: si._coeffs_plain(*visc, *rest),
+                               plain_reps),
+                  results, call=lambda: sk.lsr_coeffs(si, *visc, *rest))
+    ws = sk.Workspace(si, pr["uIce"])
+    p = si.p
+
+    def ctrl_of(done=0, m=0, it4u=1, it4v=1):
+        return (torch.tensor([done, m, it4u, it4v, p.linearIterMax,
+                              p.linearIterMax], dtype=torch.int32,
+                             device="cuda"),
+                torch.tensor([p.LSRrelaxU, p.LSRrelaxV, 0.8, 0.8],
+                             dtype=dtype, device="cuda"))
+
+    # the half-sweeps, k = 0 on the entry values and k = 1 after it
+    uTmp = {True: pr["uIce"], False: pr["vIce"]}
+    after = {}
+    for along_x, name in ((True, "seaice_lsr_tridiag_u"),
+                          (False, "seaice_lsr_tridiag_v")):
+        outs, wants, ms, plain_ms = [], [], [], []
+        u_k, u_p = uTmp[along_x].clone(), uTmp[along_x].clone()
+        for k in (0, 1):
+            ctrl, wf = ctrl_of()
+            si.lsr_sweep(along_x, k, c, u_k, uTmp[along_x], ctrl, wf, ws)
+            si.lsr_sweep(along_x, k, c, u_p, uTmp[along_x], ctrl, wf, None,
+                         impl="plain")
+            outs.append(u_k.clone())
+            wants.append(u_p.clone())
+            scratch = u_k.clone()
+            ms.append(cuda_time_ms(lambda: si.lsr_sweep(
+                along_x, k, c, scratch, uTmp[along_x], ctrl, wf, ws), reps))
+            plain_ms.append(cuda_time_ms(lambda: si.lsr_sweep(
+                along_x, k, c, scratch, uTmp[along_x], ctrl, wf, None,
+                impl="plain"), plain_reps))
+        after[along_x] = outs[-1]
+        exact_compare(name, case, outs, wants, float(np.mean(ms)),
+                      float(np.mean(plain_ms)), results,
+                      call=lambda: si.lsr_sweep(along_x, 0, c, u_k.clone(),
+                                                uTmp[along_x], ctrl, wf, ws))
+        # a half-sweep solves the lines of one parity: half the cells of
+        # the six coefficient fields and the mask, u written, uTmp and the
+        # lines beside it read
+        half = pr["uIce"].numel() // 2 * pr["uIce"].element_size()
+        results[name]["bound_ms"] = 10 * half / PEAK_BYTES_S * 1e3
+        results[name]["bound_by"] = "bytes"
+        print(f"{'':18s} bound per half-sweep (half the cells) "
+              f"{results[name]['bound_ms']:.4f} ms", flush=True)
+    # the check, at a plain iteration (m = 0 -> 1) and at a check one
+    # (m = 1 -> 2), on the half-sweeps' output against the entry values
+    for m in (0, 1):
+        res = {}
+        for impl in (None, "plain"):
+            bufs = [after[True].clone(), after[False].clone(),
+                    pr["uIce"].clone(), pr["vIce"].clone()]
+            ctrl, wf = ctrl_of(m=m)
+            si.lsr_check(*bufs, ctrl, wf, ws, impl=impl)
+            res[impl] = bufs + [wf, ctrl.to(dtype)]
+        ctrl0, wf0 = ctrl_of(m=m)
+        ctrl, wf = ctrl0.clone(), wf0.clone()
+
+        def check(impl):
+            ctrl.copy_(ctrl0)
+            wf.copy_(wf0)
+            si.lsr_check(*bufs, ctrl, wf, ws, impl=impl)
+
+        exact_compare("seaice_lsr_check", case, res[None], res["plain"],
+                      cuda_time_ms(lambda: check(None), reps),
+                      cuda_time_ms(lambda: check("plain"), plain_reps),
+                      results, call=lambda: check(None))
+        print(f"{'':18s} m {m} -> ctrl {res[None][-1].tolist()} / "
+              f"{res['plain'][-1].tolist()}, WFAU, WFAV, S1A, S2A "
+              f"{res[None][4].tolist()}", flush=True)
+    # frozen launches leave everything as it was
+    u, v = pr["uIce"].clone(), pr["vIce"].clone()
+    ut, vt = u.clone(), v.clone()
+    ctrl, wf = ctrl_of(done=1, m=3)
+    for along_x, x, xt in ((True, u, ut), (False, v, vt)):
+        si.lsr_sweep(along_x, 0, c, x, xt, ctrl, wf, ws)
+    si.lsr_check(u, v, ut, vt, ctrl, wf, ws)
+    ctrl2, wf2 = ctrl_of(it4u=0)
+    si.lsr_sweep(True, 1, c, u, ut, ctrl2, wf2, ws)
+    untouched = (torch.equal(u, pr["uIce"]) and torch.equal(v, pr["vIce"])
+                 and ctrl.tolist()[:2] == [1, 3])
+    print(f"{'seaice_lsr (frozen)':18s} {case.label:18s} launches with done "
+          f"set or the component stopped leave u, v as they were: "
+          f"{untouched}", flush=True)
+    if not untouched:
+        raise AssertionError("a frozen sea-ice LSR launch wrote its outputs")
+    # the whole linear loop
+    if whole_loop:
+        rk = si.lsr_iterate(c, pr["uIce"], pr["vIce"])
+        rp = si.lsr_iterate(c, pr["uIce"], pr["vIce"], impl="plain")
+        same = torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])
+        print(f"LSR loop            {case.label:18s} u, v bit-equal {same}, "
+              f"ICOUNT1/2 {rk[2]} / {rp[2]} (kernel / plain), host syncs "
+              f"{rk[3]} / {rp[3]}", flush=True)
+        if not (same and rk[2] == rp[2]
+                and rk[3] <= math.ceil(max(rk[2]) / 8) + 1):
+            raise AssertionError("the LSR loop's kernel path disagrees with "
+                                 "the plain path")
+    # seaice_advect: the X launch, then the Y launch on the twin's X output
+    ice = case.ice
+    flds = torch.stack([ice.HEFF, ice.AREA, ice.HSNOW])
+    lt_p = torch.stack(si._advect_x_plain(ice, flds.unbind(0)))
+    lt_k = torch.empty_like(flds)
+    sk.advect_x(si, ice, flds, lt_k)
+    exact_compare("seaice_advect_x", case, [lt_k], [lt_p],
+                  cuda_time_ms(lambda: sk.advect_x(si, ice, flds, lt_k),
+                               reps),
+                  cuda_time_ms(lambda: si._advect_x_plain(
+                      ice, flds.unbind(0)), plain_reps), results,
+                  call=lambda: sk.advect_x(si, ice, flds, lt_k))
+    out_k = torch.empty_like(flds)
+    sk.advect_y(si, ice, flds, lt_p, out_k)
+    out_p = torch.stack(si._advect_y_plain(ice, flds.unbind(0),
+                                           lt_p.unbind(0)))
+    exact_compare("seaice_advect_y", case, [out_k], [out_p],
+                  cuda_time_ms(lambda: sk.advect_y(si, ice, flds, lt_p,
+                                                   out_k), reps),
+                  cuda_time_ms(lambda: si._advect_y_plain(
+                      ice, flds.unbind(0), lt_p.unbind(0)), plain_reps),
+                  results,
+                  call=lambda: sk.advect_y(si, ice, flds, lt_p, out_k))
+
+    def thermo(impl):
+        ice2, f = si.thermo(case.ice2, case.forc, case.theta0, case.salt0,
+                            impl=impl)
+        return [ice2.HEFF, ice2.HSNOW, ice2.AREA, ice2.TICES] + list(
+            f.values())
+
+    exact_compare("seaice_thermo", case, thermo(None), thermo("plain"),
+                  cuda_time_ms(lambda: thermo(None), reps),
+                  cuda_time_ms(lambda: thermo("plain"), plain_reps), results,
+                  call=lambda: thermo(None))
+
+
+def ice_experiment(n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.ice_gyre_config(nx=n, ny=n, nr=nr, **kw)
+    grid, state, forcing, op, kpp, si = synthetic.ice_gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype))
+    return Experiment(cfg, grid, state, forcing, op, kpp=kpp, impl=impl,
+                      seaice=si)
+
+
+ICE_STATE = ("uIce", "vIce", "siAREA", "siHEFF", "siHSNOW", "siTICES")
+
+
+def ice_parity_phase():
+    """10 float64 steps of the 64x64x12 ice-gyre, kernel path against plain
+    path: every record to 16 digits, equal cg2d and LSR iteration counts,
+    the ice and ocean fields bit for bit."""
+    from mitgcm_tpu_torch.utils.compare import EQUAL_DIGITS, record_digits
+
+    exps = {impl: ice_experiment(64, 12, torch.float64, impl)
+            for impl in (None, "plain")}
+    runs = {impl: e.run(n_steps=10) for impl, e in exps.items()}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        key = min(dig, key=dig.get)
+        worst = min(worst, dig[key])
+        print(f"ice step {rk['iter']:2d}: cg2d iters {rk['cg2d_iters']} / "
+              f"{rp['cg2d_iters']}, LSR ICOUNTs {rk['lsr_iters']} / "
+              f"{rp['lsr_iters']}, host syncs {rk['lsr_host_syncs']}, mean "
+              f"AREA {rk['seaice_area_mean']:.10f}, fewest digits "
+              f"{dig[key]:.2f} ({key})", flush=True)
+        if (rk["cg2d_iters"], rk["lsr_iters"]) != (rp["cg2d_iters"],
+                                                  rp["lsr_iters"]):
+            raise AssertionError("ice-gyre iteration counts differ")
+    names = ICE_STATE + ("uVel", "theta", "salt", "etaN")
+    same = [n for n in names if torch.equal(getattr(exps[None].state, n),
+                                            getattr(exps["plain"].state, n))]
+    print(f"ice-gyre parity: fewest matching digits {worst:.2f}; bit-equal "
+          f"fields {len(same)} of {len(names)}", flush=True)
+    if not (worst >= EQUAL_DIGITS and len(same) == len(names)):
+        raise AssertionError("ice-gyre kernel path differs from the plain "
+                             "path")
+
+
+def ice_restart_phase():
+    """A 2+2 restart of the 64x64x12 float64 ice-gyre through pickup and
+    pickup_seaice on the kernel path, against 4 straight steps."""
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import read_pickup, write_pickup
+
+    e4 = ice_experiment(64, 12, torch.float64)
+    e4.run(n_steps=4, collect_monitor=False)
+    e2 = ice_experiment(64, 12, torch.float64)
+    e2.run(n_steps=2, collect_monitor=False)
+    e22 = ice_experiment(64, 12, torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_pickup(e2, tmp, 2)
+        read_pickup(e22, tmp, 2)
+    e22.run(n_steps=2, collect_monitor=False)
+    ol = e4.cfg.olx
+    names = ("uVel", "vVel", "theta", "salt", "etaN", "guNm1", "gtNm2") \
+        + ICE_STATE
+    differ = [n for n in names
+              if not torch.equal(getattr(e4.state, n)[..., ol:-ol, ol:-ol],
+                                 getattr(e22.state, n)[..., ol:-ol, ol:-ol])]
+    print(f"2+2 restart of the ice-gyre on the kernel path, 64x64x12 "
+          f"float64: {len(names) - len(differ)} of {len(names)} fields "
+          f"bit-equal", flush=True)
+    if differ:
+        raise AssertionError(f"ice-gyre restart differs in {differ}")
+
+
+def ice_full_phase(kernels, smi):
+    """The 1024x1024x32 float32 ice-gyre (deltaT = 600): a warm-up step, 5
+    timed steps with every launch count and the LSR's iterations and host
+    syncs per Picard pass, a profile and 1 plain step."""
+    from mitgcm_tpu_torch.model import kpp as kpp_mod
+    from mitgcm_tpu_torch.model import seaice as seaice_mod
+
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = ice_experiment(n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    state0 = exp.state
+    points = n * n * nr
+
+    def run(state, it0, steps, impl):
+        exp.state, exp.cur_iter, exp.impl = state, it0, impl
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, recs, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, recs_w, sec_w = run(state0, 0, 1, None)
+    kernels.launches.clear()
+    plain0 = kpp_mod.plain_calls + seaice_mod.plain_calls
+    state, recs, sec = run(state1, 1, 5, None)
+    launches = dict(kernels.launches)
+    plain = kpp_mod.plain_calls + seaice_mod.plain_calls - plain0
+    icounts = [r["lsr_iters"] for r in recs]
+    syncs = [r["lsr_host_syncs"] for r in recs]
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations "
+          f"{recs_w[0]['cg2d_iters']}, LSR ICOUNT1/2 per pass "
+          f"{recs_w[0]['lsr_iters']}")
+    print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
+          f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations "
+          f"{[r['cg2d_iters'] for r in recs]}, LSR ICOUNT1/2 per Picard "
+          f"pass {icounts}, LSR host syncs per pass {syncs}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; plain KPP and sea-ice calls {plain}; launches {launches}",
+          flush=True)
+    for name in ("uVel", "vVel", "theta", "salt", "etaN") + ICE_STATE:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"ice-gyre {name} is not finite")
+    ol = exp.cfg.olx
+    area = state.siAREA[ol:-ol, ol:-ol]
+    wet = exp.grid.maskC[0, ol:-ol, ol:-ol] > 0
+    heff = state.siHEFF[ol:-ol, ol:-ol]
+    mean_area = float(area[wet].mean())
+    print(f"after 6 steps: mean AREA {mean_area:.6f} over the wet cells "
+          f"(ice-covered cells {int((area[wet] > 0).sum())} of "
+          f"{int(wet.sum())}), mean HEFF {float(heff[wet].mean()):.6f} m, "
+          f"|uIce| max {float(state.uIce.abs().max()):.4e} m/s", flush=True)
+    batches = seaice_mod.BATCH * sum(s for per_step in syncs
+                                     for s in per_step)
+    want = {**KPP_LAUNCHES, "seaice_lsr_visc": 10, "seaice_lsr_coeffs": 10,
+            "seaice_lsr_tridiag_u": 2 * batches,
+            "seaice_lsr_tridiag_v": 2 * batches, "seaice_lsr_check": batches,
+            "seaice_advect_x": 5, "seaice_advect_y": 5, "seaice_thermo": 5}
+    wrong = {k: launches.get(k, 0) for k, count in want.items()
+             if launches.get(k, 0) != count}
+    late = [(c, s) for cs, ss in zip(icounts, syncs) for c, s in zip(cs, ss)
+            if s > math.ceil(max(c) / seaice_mod.BATCH) + 1]
+    if wrong or plain or late or not mean_area > 0.0:
+        raise AssertionError(f"ice-gyre launch counts {wrong} (want {want}),"
+                             f" plain calls {plain}, host syncs over "
+                             f"ceil(iters/{seaice_mod.BATCH})+1 {late}, "
+                             f"mean AREA {mean_area}")
+    profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
+    _, recs_p, sec_p = run(state1, 1, 1, "plain")
+    print(f"plain path: 1 step, {sec_p * 1e3:.2f} ms/step, "
+          f"{points / sec_p:.4e} points*steps/s, LSR ICOUNT1/2 "
+          f"{recs_p[0]['lsr_iters']} (kernel path's first timed step "
+          f"{icounts[0]})", flush=True)
+    if recs_p[0]["lsr_iters"] != icounts[0]:
+        raise AssertionError("the plain path's LSR iterations differ")
+    return launches
+
+
+def ice_phase(kernels, results, smi):
+    phase("13 sea ice: the ice-gyre")
+    ice_kernel_phase(IceCase(64, 12, torch.float64), results, 20, 20, True)
+    ice_kernel_phase(IceCase(1024, 32, torch.float32), results, 10, 3, False)
+    torch.cuda.empty_cache()
+    ice_parity_phase()
+    ice_restart_phase()
+    run = ice_full_phase(kernels, smi)
+    torch.cuda.empty_cache()
+    return {k: run[k] for k in ICE_KERNELS}
+
+
 def glue_bounds(smi):
     """The bytes-over-bandwidth bound of each row of GLUE_FIELDS at
     1024x1024x32 float32 (padded by 2 halo cells)."""
@@ -2107,6 +2550,7 @@ def main():
     launches.update(ism_phase(kernels, results, smi))
     GRIDS.clear()
     launches.update(nh_phase(kernels, results, smi))
+    launches.update(ice_phase(kernels, results, smi))
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

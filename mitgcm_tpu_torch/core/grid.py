@@ -42,6 +42,8 @@ class Grid:
     rA: torch.Tensor
     rAw: torch.Tensor
     rAs: torch.Tensor
+    rAz: torch.Tensor         # vorticity (corner) point area
+    yC: torch.Tensor          # cell-centre y [m] (the sea ice's south test)
     recip_dxF: torch.Tensor
     recip_dyF: torch.Tensor
     recip_dxG: torch.Tensor
@@ -287,7 +289,7 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
         recip_drF=T(recip_drF), recip_drC=T(recip_drC),
         dxF=T(dxF), dyF=T(dyF), dxG=T(dxG), dyG=T(dyG),
         dxC=T(dxC), dyC=T(dyC), dxV=T(dxV), dyU=T(dyU),
-        rA=T(rA), rAw=T(rAw), rAs=T(rAs),
+        rA=T(rA), rAw=T(rAw), rAs=T(rAs), rAz=T(rAz), yC=T(yC),
         recip_dxF=T(_safe_recip(dxF)), recip_dyF=T(_safe_recip(dyF)),
         recip_dxG=T(_safe_recip(dxG)), recip_dyG=T(_safe_recip(dyG)),
         recip_dxC=T(_safe_recip(dxC)), recip_dyC=T(_safe_recip(dyC)),

@@ -2,8 +2,9 @@
 the fields of the ported paths: the DYNVARS.h velocities, tracers and free
 surface, the AB-2/AB-3 tendency history, GGL90's TKE and IDEMIX's
 internal-wave energy, the second-order moments of SOM tracers, the
-non-hydrostatic pressure and w-tendency history, and FFIELDS.h's simple
-forcing."""
+non-hydrostatic pressure and w-tendency history, the sea-ice state, and
+FFIELDS.h's simple forcing with the atmospheric state the sea ice's
+growth reads."""
 
 from __future__ import annotations
 
@@ -53,6 +54,19 @@ class State:
     phi_nh: Optional[torch.Tensor] = None
     gwNm1: Optional[torch.Tensor] = None
     gwNm2: Optional[torch.Tensor] = None
+    # the sea ice (SEAICE.h): velocities at U/V points, concentration,
+    # effective ice and snow thickness, ice salt [nyp, nxp], the surface
+    # temperature of each thickness category [multDim, nyp, nxp], the ice
+    # tracers and the EVP stresses (zero-size here); None unless useSEAICE
+    uIce: Optional[torch.Tensor] = None
+    vIce: Optional[torch.Tensor] = None
+    siAREA: Optional[torch.Tensor] = None
+    siHEFF: Optional[torch.Tensor] = None
+    siHSNOW: Optional[torch.Tensor] = None
+    siHSALT: Optional[torch.Tensor] = None
+    siTICES: Optional[torch.Tensor] = None
+    SItracer: Optional[torch.Tensor] = None
+    siSigma: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -67,6 +81,16 @@ class Forcing:
     saltFlux: torch.Tensor
     SST: torch.Tensor        # climatological relaxation targets
     SSS: torch.Tensor
+    # the atmospheric state the sea ice's growth reads (pkg/exf's fields,
+    # given directly: exf is not ported); None unless useSEAICE
+    atemp: Optional[torch.Tensor] = None    # air temperature [K]
+    aqh: Optional[torch.Tensor] = None      # specific humidity [kg/kg]
+    precip: Optional[torch.Tensor] = None   # precipitation [m/s]
+    swdown: Optional[torch.Tensor] = None   # downward shortwave [W/m2]
+    lwdown: Optional[torch.Tensor] = None   # downward longwave [W/m2]
+    runoff: Optional[torch.Tensor] = None   # runoff [m/s]
+    wspeed: Optional[torch.Tensor] = None   # wind speed [m/s]
+    evap: Optional[torch.Tensor] = None     # evaporation [m/s]
 
 
 def init_state(cfg: Config, grid: Grid) -> State:

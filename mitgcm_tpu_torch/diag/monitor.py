@@ -122,3 +122,21 @@ def dynstat(cfg: Config, grid: Grid, state: State
           * grid.maskInC * imask)
     out["pe_b_mean"] = torch.where(volSum > 0, torch.sum(pe) / volSum, 0.0)
     return out
+
+
+def seaice_stats(cfg: Config, grid: Grid, state: State
+                 ) -> Dict[str, torch.Tensor]:
+    """The seaice_* statistics (seaice_monitor.F; experiment.py:865-881 of
+    the JAX package): uIce and vIce at U and V points, AREA, HEFF and
+    HSNOW at C points, each over the surface layer's wet interior."""
+    out: Dict[str, torch.Tensor] = {}
+    drn = grid.drF[:1]
+    rows = (("uice", state.uIce, grid.maskInW, grid.rAw),
+            ("vice", state.vIce, grid.maskInS, grid.rAs),
+            ("area", state.siAREA, grid.maskInC, grid.rA),
+            ("heff", state.siHEFF, grid.maskInC, grid.rA),
+            ("hsnow", state.siHSNOW, grid.maskInC, grid.rA))
+    for name, fld, mk, ar in rows:
+        for k, v in calc_stats(cfg, fld[None], mk[None], mk, ar, drn).items():
+            out[f"seaice_{name}_{k}"] = v
+    return out

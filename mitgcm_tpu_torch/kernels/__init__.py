@@ -121,6 +121,25 @@ SIGNATURES = {
     # after the output field
     **{f"gad_ppm_{d}": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 2 + [_P]
        for d in "xyr"},
+    # the sea ice's seaice_lsr_prep (two launches) and seaice_thermo:
+    # pointer table, its length; parameter array, its length; nyp, nxp
+    # (seaice_thermo: and ol, multDim, IMAX_TICE); stream
+    **{f"seaice_lsr_{s}": [_PP, _I, _PD, _I] + [_I] * 2 + [_P]
+       for s in ("visc", "coeffs")},
+    "seaice_thermo": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
+    # seaice_lsr_tridiag's half-sweeps: the table A, B, C, Rt1, Rt2, rhs,
+    # mask, its length; u, uTmp, cuu, ctrl, wf; nxp, ol, sNy, sNx, nSy,
+    # nSx, k; stream
+    **{f"seaice_lsr_tridiag_{d}": [_PP, _I] + [_P] * 5 + [_I] * 7 + [_P]
+       for d in "uv"},
+    # u, v, uTmp, vTmp, maskU, maskV, ctrl, wf, partials, counter; ny, nx,
+    # ol, SOLV_NCHECK, linearIterMax; LSR_ERROR; stream
+    "seaice_lsr_check": [_P] * 10 + [_I] * 5 + [_D, _P],
+    # seaice_advect: pointer table, its length; the stacked fields (x: src,
+    # dst; y: fld, localT, dst); nyp, nxp, ol, scheme; deltaT (y: and the
+    # three diffKh); stream
+    "seaice_advect_x": [_PP, _I, _P, _P] + [_I] * 4 + [_D, _P],
+    "seaice_advect_y": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 4 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

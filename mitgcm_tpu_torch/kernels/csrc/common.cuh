@@ -1,5 +1,5 @@
 // Shared helpers for the port's kernels: launch shape, halo wrap and a
-// deterministic two-stage sum.
+// deterministic two-stage reduction.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,27 +24,36 @@ __device__ __forceinline__ int wrap(int p, int ol, int n) {
   return (q < 0 ? q + n : q) + ol;
 }
 
-// Sum v over all threads of all blocks of a 2-D grid into *out, in a fixed
-// order: a shared-memory tree inside each block, one partial per block, and
-// the last block to finish adds the partials (strided, then a tree) in
-// index order. The result is the same from run to run. `counter` must be 0
-// before the launch; the last block resets it. Returns true in thread 0 of
-// the last block, after *out is written (a caller may act on the sum
-// there), false elsewhere.
-template <typename T>
-__device__ bool grid_sum(T v, T* sh, T* partials, unsigned int* counter,
-                         T* out) {
+struct Add {
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return a + b; }
+};
+
+// Combine K values per thread over all threads of all blocks of a 2-D grid
+// with op, into out[0..K), in a fixed order: a shared-memory tree inside
+// each block, K partials per block, and the last block to finish combines
+// the partials (strided from 0, then a tree) in index order. The result is
+// the same from run to run. sh holds K * NT values, partials K per block.
+// `counter` must be 0 before the launch; the last block resets it. Returns
+// true in thread 0 of the last block, after out is written (a caller may
+// act on the result there), false elsewhere.
+template <typename T, int K, typename Op>
+__device__ bool grid_reduce(const T (&v)[K], Op op, T* sh, T* partials,
+                            unsigned int* counter, T* out) {
   __shared__ bool last;
   const int t = threadIdx.y * blockDim.x + threadIdx.x;
   const int nb = gridDim.x * gridDim.y;
-  sh[t] = v;
+  for (int c = 0; c < K; ++c) sh[c * NT + t] = v[c];
   __syncthreads();
   for (int s = NT / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] += sh[t + s];
+    if (t < s)
+      for (int c = 0; c < K; ++c)
+        sh[c * NT + t] = op(sh[c * NT + t], sh[c * NT + t + s]);
     __syncthreads();
   }
   if (t == 0) {
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = sh[0];
+    const int b = blockIdx.y * gridDim.x + blockIdx.x;
+    for (int c = 0; c < K; ++c) partials[K * b + c] = sh[c * NT];
     __threadfence();
     last = (atomicAdd(counter, 1u) == static_cast<unsigned int>(nb - 1));
   }
@@ -52,20 +61,33 @@ __device__ bool grid_sum(T v, T* sh, T* partials, unsigned int* counter,
   if (!last) return false;
   __threadfence();
   const volatile T* vp = partials;
-  T acc = T(0);
-  for (int b = t; b < nb; b += NT) acc += vp[b];
-  sh[t] = acc;
+  for (int c = 0; c < K; ++c) {
+    T acc = T(0);
+    for (int b = t; b < nb; b += NT) acc = op(acc, vp[K * b + c]);
+    sh[c * NT + t] = acc;
+  }
   __syncthreads();
   for (int s = NT / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] += sh[t + s];
+    if (t < s)
+      for (int c = 0; c < K; ++c)
+        sh[c * NT + t] = op(sh[c * NT + t], sh[c * NT + t + s]);
     __syncthreads();
   }
   if (t == 0) {
-    *out = sh[0];
+    for (int c = 0; c < K; ++c) out[c] = sh[c * NT];
     *counter = 0u;
     return true;
   }
   return false;
+}
+
+// The sum of v over the grid into *out (grid_reduce with K = 1); sh holds
+// NT values.
+template <typename T>
+__device__ bool grid_sum(T v, T* sh, T* partials, unsigned int* counter,
+                         T* out) {
+  const T vs[1] = {v};
+  return grid_reduce(vs, Add(), sh, partials, counter, out);
 }
 
 }  // namespace mitgcm

@@ -37,68 +37,6 @@
 
 namespace mitgcm {
 
-constexpr int kUpwind1 = 1, kCentered2 = 2, kUpwind3 = 3, kCentered4 = 4,
-              kDst2 = 20, kDst3 = 30, kDst3FluxLimit = 33, kFluxLimit = 77;
-
-// the Superbee limiter of the slope ratio, with its overflow guard
-// (gad.py:791-797)
-template <typename T>
-__device__ __forceinline__ T superbee(T Rj, T crRaw) {
-  const T crMax = T(1.0e6);
-  T cr;
-  if (fabs(Rj) * crMax <= fabs(crRaw)) {
-    cr = (crRaw >= T(0) ? crMax : -crMax) * (Rj >= T(0) ? T(1) : T(-1));
-  } else {
-    cr = crRaw / (Rj == T(0) ? T(1) : Rj);
-  }
-  return nmax(nmax(nmin(T(2.0) * cr, T(1)), nmin(cr, T(2.0))), T(0));
-}
-
-// DST-3 flux-limited weight psi for the ratio theta = R / Rj (gad.py:818-833)
-template <typename T>
-__device__ __forceinline__ T dst3fl_psi(T Rj, T R, T cfl, T d0, T d1) {
-  const T thetaMax = T(1.0e20);
-  T theta;
-  if (fabs(Rj) * thetaMax <= fabs(R)) {
-    theta = R * Rj >= T(0) ? thetaMax : -thetaMax;
-  } else {
-    theta = R / (Rj == T(0) ? T(1) : Rj);
-  }
-  const T psi = d0 + d1 * theta;
-  return nmax(nmin(nmin(psi, T(1)), theta * (T(1) - cfl) / (cfl + T(1.0e-20))),
-              T(0));
-}
-
-// the horizontal flux at a face (gad.py:adv_flux_x, _adv_flux_highorder):
-// trans the transport, vdt the velocity times deltaT over the spacing, t
-// and tm1 the tracer on either side, Rjp / Rj / Rjm the masked differences
-// across the faces up to one cell away
-template <typename T, int S>
-__device__ T flux_h(T trans, T vdt, T t, T tm1, T Rjp, T Rj, T Rjm) {
-  const T absT = fabs(trans);
-  if (S == kUpwind1 || S == kDst2) {
-    // gad_dst2u1_adv_x.F: Lax-Wendroff, or upwind with a limit of 1
-    const T limit = S == kUpwind1 ? T(1) : vdt;
-    return T(0.5) * (trans * (t + tm1) - absT * limit * (t - tm1));
-  }
-  const T cfl = fabs(vdt);
-  if (S == kFluxLimit) {
-    const T lim = superbee(Rj, trans > T(0) ? Rjm : Rjp);
-    return trans * (t + tm1) * T(0.5) -
-           absT * ((T(1) - lim) + cfl * lim) * Rj * T(0.5);
-  }
-  const T sixth = T(1.0 / 6.0);
-  const T d0 = (T(2.0) - cfl) * (T(1) - cfl) * sixth;
-  const T d1 = (T(1) - cfl * cfl) * sixth;
-  if (S == kDst3)
-    return T(0.5) * (trans + absT) * (tm1 + (d0 * Rj + d1 * Rjm)) +
-           T(0.5) * (trans - absT) * (t - (d0 * Rj + d1 * Rjp));
-  const T psiP = dst3fl_psi(Rj, Rjm, cfl, d0, d1);
-  const T psiM = dst3fl_psi(Rj, Rjp, cfl, d0, d1);
-  return T(0.5) * (trans + absT) * (tm1 + psiP * Rj) +
-         T(0.5) * (trans - absT) * (t - psiM * Rj);
-}
-
 // the zonal flux at the west face of (k, j, i) (gad.py:adv_flux_x); 0 for a
 // face outside the array
 template <typename T, int S>

@@ -23,6 +23,7 @@ from mitgcm_tpu_torch.model import som
 from mitgcm_tpu_torch.model import step as step_mod
 from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import KPP
+from mitgcm_tpu_torch.model.seaice import SeaIce
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
 from mitgcm_tpu_torch.solver.cg3d import CG3DOperator
@@ -40,16 +41,22 @@ class Experiment:
     impl: Optional[str] = None     # "plain": kernel twins on any device
     cur_iter: Optional[int] = None
     op3: Optional[CG3DOperator] = None   # when nonHydrostatic
+    seaice: Optional[SeaIce] = None      # model/seaice.py when useSEAICE
 
     def monitor_stats(self) -> Dict[str, float]:
         stats = monitor.dynstat(self.cfg, self.grid, self.state)
+        if self.seaice is not None:
+            stats.update(monitor.seaice_stats(self.cfg, self.grid,
+                                              self.state))
         return {k: float(v) for k, v in stats.items()}
 
     def run(self, n_steps: Optional[int] = None,
             collect_monitor: bool = True) -> List[Dict[str, float]]:
         """Python-loop runner; one record per step, plus iteration 0 when
         collecting monitor statistics; with nonHydrostatic each step's
-        record holds the cg3d solve's residuals and iterations too."""
+        record holds the cg3d solve's residuals and iterations too, with
+        sea ice the LSR's (ICOUNT1, ICOUNT2) and host reads per Picard
+        pass."""
         cfg = self.cfg
         n = cfg.nTimeSteps if n_steps is None else n_steps
         if self.cur_iter is None:
@@ -61,7 +68,7 @@ class Experiment:
             self.state, diag = step_mod.forward_step(
                 cfg, self.grid, self.op, self.state, self.forcing,
                 self.cur_iter, impl=self.impl, kpp=self.kpp,
-                ggl90=self.ggl90, op3=self.op3)
+                ggl90=self.ggl90, op3=self.op3, seaice=self.seaice)
             self.cur_iter += 1
             rec = {"iter": self.cur_iter,
                    "cg2d_init_res": float(diag.cg2d_init_res),
@@ -72,6 +79,9 @@ class Experiment:
                            cg3d_iters=diag.cg3d_iters,
                            cg3d_last_res=float(diag.cg3d_last_res),
                            cg3d_host_syncs=diag.cg3d_host_syncs)
+            if diag.lsr_iters is not None:
+                rec.update(lsr_iters=diag.lsr_iters,
+                           lsr_host_syncs=diag.lsr_host_syncs)
             if collect_monitor:
                 rec.update(self.monitor_stats())
             records.append(rec)
@@ -84,7 +94,9 @@ class Experiment:
 # MDS multi-record float64 file with a .meta fldList; the JAX package's
 # extra Wvel and PmEpR records make a restart bit-exact without
 # recomputing w. GGL90's TKE goes into the companion pickup_ggl90
-# (ggl90_write_pickup.F); every other package that has a companion pickup
+# (ggl90_write_pickup.F), the sea ice into pickup_seaice
+# (seaice_write_pickup.F's per-field format, as the JAX package writes it:
+# experiment.py:1096-1123, read back as :1314-1360); every other package that has a companion pickup
 # is refused by step.check_supported (KPP keeps no state from step to step,
 # so it has none). The JAX package's pickups hold neither IDEMIX's energy,
 # nor the SOM moments, nor the non-hydrostatic phi_nh and w-tendency
@@ -114,7 +126,8 @@ def _check_pickup(exp: Experiment) -> None:
     the JAX package's format would drop: IDEMIX_E, the SOM moments and the
     non-hydrostatic phi_nh, gwNm1 and gwNm2."""
     cfg = exp.cfg
-    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl, exp.op3)
+    step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl, exp.op3,
+                             exp.seaice)
     bad = [f"{tr}AdvScheme={s} (the SOM moments)"
            for tr, s in (("temp", cfg.tempAdvScheme),
                          ("salt", cfg.saltAdvScheme))
@@ -137,8 +150,8 @@ def _interior(cfg: Config, t: torch.Tensor) -> np.ndarray:
 def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
     """Write pickup.<iter10>.data/.meta with the JAX package's field set
     and order (float64 at any working precision, so a float32 round trip
-    is exact), and pickup_ggl90.<iter10> with GGL90TKE when useGGL90;
-    returns the file root."""
+    is exact), pickup_ggl90.<iter10> with GGL90TKE when useGGL90 and
+    pickup_seaice.<iter10> when useSEAICE; returns the file root."""
     cfg, st = exp.cfg, exp.state
     _check_pickup(exp)
     flds3d = _PICKUP_3D + (_PICKUP_AB3 if cfg.useAB3 else []) + ["Wvel"]
@@ -156,7 +169,28 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
         mds.wrmds(os.path.join(out_dir, "pickup_ggl90"), tke, itr=myIter,
                   dataprec="float64", nrecords=tke.shape[0],
                   fldlist=["GGL90TKE"], timestep_number=myIter)
+    if cfg.useSEAICE:
+        _write_pickup_seaice(cfg, st, out_dir, myIter)
     return froot
+
+
+def _write_pickup_seaice(cfg: Config, st: State, out_dir: str,
+                         myIter: int) -> None:
+    """pickup_seaice.<iter10>: siTICES (one record per category; siTICE
+    with one), siAREA, siHEFF, siHSNOW, siUICE and siVICE, in the JAX
+    package's order (the port holds no ice tracers and no EVP stresses)."""
+    md = st.siTICES.shape[0]
+    names = ["siTICES"] if md > 1 else ["siTICE"]
+    recs = [_interior(cfg, st.siTICES[i]) for i in range(md)]
+    for name, fld in (("siAREA", st.siAREA), ("siHEFF", st.siHEFF),
+                      ("siHSNOW", st.siHSNOW), ("siUICE", st.uIce),
+                      ("siVICE", st.vIce)):
+        names.append(name)
+        recs.append(_interior(cfg, fld))
+    stack = np.stack(recs, axis=0)
+    mds.wrmds(os.path.join(out_dir, "pickup_seaice"), stack, itr=myIter,
+              dataprec="float64", nrecords=stack.shape[0], fldlist=names,
+              timestep_number=myIter)
 
 
 def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
@@ -166,7 +200,10 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     reference's own) gets w recomputed from the restored velocities
     (initialise_varia.F); one without the *Nm2 records leaves them zero,
     as the reference does after its warning. With useGGL90 the TKE comes
-    from pickup_ggl90.<iter10>, which must exist (ggl90_read_pickup.F)."""
+    from pickup_ggl90.<iter10>, which must exist (ggl90_read_pickup.F);
+    with useSEAICE the ice from pickup_seaice.<iter10> when it exists
+    (seaice_read_pickup.F: siTICE is broadcast to every category), as the
+    JAX package reads it."""
     cfg = exp.cfg
     _check_pickup(exp)
     fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
@@ -213,6 +250,29 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
                 "to silently reset GGL90TKE)")
         gfields, _ = mds.read_mflds(gg_root, itr=myIter)
         updates["GGL90TKE"] = pad(gfields["__records__"][:cfg.nr])
+    si_root = os.path.join(in_dir, "pickup_seaice")
+    if cfg.useSEAICE and os.path.exists(f"{si_root}.{myIter:010d}.meta"):
+        sfields, smeta = mds.read_mflds(si_root, itr=myIter)
+        sstack = sfields["__records__"]
+        md = exp.state.siTICES.shape[0]
+        svals, rec = {}, 0
+        for name in (n.strip() for n in smeta.get("fldList", [])):
+            if not name:
+                continue
+            n = md if name == "siTICES" else 1
+            svals[name] = pad(sstack[rec] if n == 1
+                              else sstack[rec:rec + n])
+            rec += n
+        if "siTICE" in svals:
+            updates["siTICES"] = svals["siTICE"].expand(
+                (md,) + tuple(svals["siTICE"].shape)).contiguous()
+        if "siTICES" in svals:
+            updates["siTICES"] = svals["siTICES"]
+        for pk, sk in (("siAREA", "siAREA"), ("siHEFF", "siHEFF"),
+                       ("siHSNOW", "siHSNOW"), ("siHSALT", "siHSALT"),
+                       ("siUICE", "uIce"), ("siVICE", "vIce")):
+            if pk in svals:
+                updates[sk] = svals[pk]
     exp.state = dataclasses.replace(exp.state, **updates)
     cfg.startFromPickup = True
     cfg.startTime = cfg.baseTime + myIter * cfg.deltaTClock

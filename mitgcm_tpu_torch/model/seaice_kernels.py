@@ -1,0 +1,269 @@
+"""The card side of model/seaice.py: the wrappers that check their inputs
+and launch the sea ice's CUDA kernels (kernels/csrc/seaice_lsr.cu,
+seaice_advect.cu, seaice_thermo.cu). model/seaice.py calls them for CUDA
+tensors; each mirrors a plain twin there, bit for bit."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mitgcm_tpu_torch import kernels
+
+# the coefficient fields of a pass, in the order of the U and V sweeps'
+# tables (A, B, C, Rt1, Rt2, rhs; the mask is added by the sweep)
+_SWEEP = {True: ("AU", "BU", "CU", "uRt1", "uRt2", "rhsU"),
+          False: ("AV", "BV", "CV", "vRt1", "vRt2", "rhsV")}
+_PREP_OUT = ("AU", "BU", "CU", "AV", "BV", "CV", "uRt1", "uRt2", "vRt1",
+             "vRt2", "rhsU", "rhsV", "dwatn")
+
+
+def _fields(dtype, shape, **tensors):
+    kernels.check_tensors(dtype, **tensors)
+    for name, t in tensors.items():
+        kernels.check_shape(name, t, shape)
+
+
+def lsr_prep(si, uIce, vIce, uIceC, vIceC, uVel0, vVel0, press0, zMax,
+             fxTmp, fyTmp, areaW, areaS, massC, massU, massV) -> dict:
+    """seaice_lsr_visc, then seaice_lsr_coeffs (model/seaice.py:lsr_prep)."""
+    eta, zeta, press = lsr_visc(si, uIceC, vIceC, press0, zMax)
+    return lsr_coeffs(si, eta, zeta, press, uIce, vIce, uIceC, vIceC, uVel0,
+                      vVel0, fxTmp, fyTmp, areaW, areaS, massC, massU, massV)
+
+
+def lsr_visc(si, uIceC, vIceC, press0, zMax):
+    """seaice_lsr_visc (model/seaice.py:_visc_plain): (eta, zeta, press)."""
+    p, g = si.p, si.grid
+    dtype, shape = uIceC.dtype, tuple(uIceC.shape)
+    nyp, nxp = shape
+    eta, zeta, press = (torch.empty_like(uIceC) for _ in range(3))
+    visc_in = dict(uC=uIceC, vC=vIceC, press0=press0, zMax=zMax,
+                   heffm=si.HEFFM, recip_dxF=g.recip_dxF,
+                   recip_dyF=g.recip_dyF, recip_dyU=g.recip_dyU,
+                   recip_dxV=g.recip_dxV, rAz=g.rAz, recip_rA=g.recip_rA)
+    visc_out = dict(eta=eta, zeta=zeta, press=press)
+    _fields(dtype, shape, **visc_in, **visc_out)
+    table = kernels.pointer_table(list(visc_in.values())
+                                  + list(visc_out.values()))
+    recip_e2 = 1.0 / (p.eccen * p.eccen)
+    params = kernels.doubles([p.zetaMin, p.deltaMin, recip_e2,
+                              p.pressReplFac, 0.0])
+    kernels.launch("seaice_lsr_visc", dtype, table, len(table), params,
+                   len(params), nyp, nxp)
+    return eta, zeta, press
+
+
+def lsr_coeffs(si, eta, zeta, press, uIce, vIce, uIceC, vIceC, uVel0, vVel0,
+               fxTmp, fyTmp, areaW, areaS, massC, massU, massV) -> dict:
+    """seaice_lsr_coeffs (model/seaice.py:_coeffs_plain): the dict of the
+    ten coefficient fields, rhsU, rhsV and dwatn."""
+    p, g = si.p, si.grid
+    dtype, shape = uIce.dtype, tuple(uIce.shape)
+    nyp, nxp = shape
+
+    out = {k: torch.empty_like(uIce) for k in _PREP_OUT}
+    co_in = dict(eta=eta, zeta=zeta, press=press, uIce=uIce, vIce=vIce,
+                 uC=uIceC, vC=vIceC, uVel0=uVel0, vVel0=vVel0, fxTmp=fxTmp,
+                 fyTmp=fyTmp, areaW=areaW, areaS=areaS, massC=massC,
+                 massU=massU, massV=massV, fCori=g.fCori, yC=g.yC,
+                 heffm=si.HEFFM, maskInC=g.maskInC, maskInW=g.maskInW,
+                 maskInS=g.maskInS, maskU=si.seaiceMaskU,
+                 maskV=si.seaiceMaskV, recip_dxF=g.recip_dxF,
+                 recip_dyF=g.recip_dyF, recip_dxV=g.recip_dxV,
+                 recip_dyU=g.recip_dyU, dxF=g.dxF, dyF=g.dyF, dxV=g.dxV,
+                 dyU=g.dyU, recip_rAw=g.recip_rAw, recip_rAs=g.recip_rAs)
+    _fields(dtype, shape, **co_in, **out)
+    table = kernels.pointer_table(list(co_in.values()) + list(out.values()))
+    rho = si.cfg.rhoConst
+    params = kernels.doubles([
+        math.cos(math.radians(p.waterTurnAngle)),
+        math.sin(math.radians(p.waterTurnAngle)), 1.0 / p.deltaTdyn,
+        p.waterDrag * rho, p.waterDrag_south * rho, p.dWatMin,
+        p.dWatMin * p.dWatMin, 1.0 if p.scaleSurfStress else 0.0])
+    kernels.launch("seaice_lsr_coeffs", dtype, table, len(table), params,
+                   len(params), nyp, nxp)
+    return out
+
+
+def _check_ctrl(ctrl, wf, dtype):
+    if not (ctrl.is_cuda and ctrl.dtype == torch.int32
+            and ctrl.is_contiguous() and tuple(ctrl.shape) == (6,)):
+        raise ValueError("ctrl: need a contiguous int32 CUDA tensor of "
+                         "shape (6,)")
+    kernels.check_tensors(dtype, wf=wf)
+    kernels.check_shape("wf", wf, (4,))
+
+
+def lsr_sweep(si, along_x: bool, k: int, c: dict, u, uTmp, ctrl, wf,
+              cuu) -> None:
+    """seaice_lsr_tridiag_u (along_x) or _v, half-sweep k, in place on u
+    (model/seaice.py:lsr_sweep); cuu: the recursion's scratch [nyp, nxp]."""
+    cfg = si.cfg
+    dtype, shape = u.dtype, tuple(u.shape)
+    mask = si.seaiceMaskU if along_x else si.seaiceMaskV
+    ins = {n: c[n] for n in _SWEEP[along_x]}
+    _fields(dtype, shape, **ins, mask=mask, u=u, uTmp=uTmp, cuu=cuu)
+    _check_ctrl(ctrl, wf, dtype)
+    table = kernels.pointer_table(list(ins.values()) + [mask])
+    kernels.launch(f"seaice_lsr_tridiag_{'u' if along_x else 'v'}", dtype,
+                   table, len(table), u.data_ptr(), uTmp.data_ptr(),
+                   cuu.data_ptr(), ctrl.data_ptr(), wf.data_ptr(),
+                   shape[1], cfg.olx, cfg.sNy, cfg.sNx, cfg.nSy, cfg.nSx,
+                   int(k))
+
+
+class Workspace:
+    """The LSR loop's scratch on the card: the sweeps' recursion field and
+    the check's two partial maxima per block with its last-block
+    counter."""
+
+    def __init__(self, si, like):
+        nyp, nxp = like.shape
+        blocks = -(-nxp // 32) * -(-nyp // 8)
+        self.cuu = torch.empty_like(like)
+        self.partials = torch.empty(2 * blocks, dtype=like.dtype,
+                                    device=like.device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=like.device)
+
+
+def lsr_check(si, u, v, uTmp, vTmp, ctrl, wf, ws: Workspace) -> None:
+    """seaice_lsr_check (model/seaice.py:lsr_check), in place."""
+    cfg, p = si.cfg, si.p
+    dtype, shape = u.dtype, tuple(u.shape)
+    _fields(dtype, shape, u=u, v=v, uTmp=uTmp, vTmp=vTmp,
+            maskU=si.seaiceMaskU, maskV=si.seaiceMaskV)
+    _check_ctrl(ctrl, wf, dtype)
+    kernels.launch("seaice_lsr_check", dtype, u.data_ptr(), v.data_ptr(),
+                   uTmp.data_ptr(), vTmp.data_ptr(),
+                   si.seaiceMaskU.data_ptr(), si.seaiceMaskV.data_ptr(),
+                   ctrl.data_ptr(), wf.data_ptr(), ws.partials.data_ptr(),
+                   ws.counter.data_ptr(), cfg.ny, cfg.nx, cfg.olx,
+                   int(p.SOLV_NCHECK), int(p.linearIterMax),
+                   float(p.LSR_ERROR))
+
+
+def _adv_table(si, ice):
+    g = si.grid
+    return dict(uIce=ice.uIce, vIce=ice.vIce, maskW=si.SIMaskU,
+                maskS=si.SIMaskV, maskInC=si.maskInCx, recip_rA=g.recip_rA,
+                recip_dxC=g.recip_dxC, recip_dyC=g.recip_dyC, dxG=g.dxG,
+                dyG=g.dyG, heffm=si.HEFFM)
+
+
+def advect_x(si, ice, src, dst) -> None:
+    """seaice_advect_x: dst = the X-updated HEFF, AREA, HSNOW ([3, nyp,
+    nxp] each)."""
+    p = si.p
+    ins = _adv_table(si, ice)
+    dtype, shape = src.dtype, tuple(ice.HEFF.shape)
+    _fields(dtype, shape, **ins)
+    _fields(dtype, (3,) + shape, src=src, dst=dst)
+    table = kernels.pointer_table(list(ins.values()))
+    kernels.launch("seaice_advect_x", dtype, table, len(table),
+                   src.data_ptr(), dst.data_ptr(), shape[0], shape[1],
+                   si.cfg.olx, int(p.advSchHeff), float(p.deltaTtherm))
+
+
+def advect_y(si, ice, fld, localT, dst) -> None:
+    """seaice_advect_y: dst = HEFFM (fld + dt g) on the interior, fld on
+    the halo."""
+    p = si.p
+    ins = _adv_table(si, ice)
+    dtype, shape = fld.dtype, tuple(ice.HEFF.shape)
+    _fields(dtype, shape, **ins)
+    _fields(dtype, (3,) + shape, fld=fld, localT=localT, dst=dst)
+    table = kernels.pointer_table(list(ins.values()))
+    kernels.launch("seaice_advect_y", dtype, table, len(table),
+                   fld.data_ptr(), localT.data_ptr(), dst.data_ptr(),
+                   shape[0], shape[1], si.cfg.olx, int(p.advSchHeff),
+                   float(p.deltaTtherm), float(p.diffKhHeff),
+                   float(p.diffKhArea), float(p.diffKhSnow))
+
+
+def advect(si, ice):
+    """seaice_advect's two launches (model/seaice.py:advdiff): (HEFF, AREA,
+    HSNOW)."""
+    fld = torch.stack([ice.HEFF, ice.AREA, ice.HSNOW])
+    localT = torch.empty_like(fld)
+    out = torch.empty_like(fld)
+    advect_x(si, ice, fld, localT)
+    advect_y(si, ice, fld, localT, out)
+    return out.unbind(0)
+
+
+def thermo_params(si) -> list:
+    """seaice_thermo.cu:ThermoParams, folded in double as the JAX code
+    folds its Python constants."""
+    p, cfg = si.p, si.cfg
+    c2k = cfg.celsius2K
+    lnTEN = math.log(10.0)
+    aa1, aa2, bb1, Ppascals = 2663.5, 12.537, 0.622, 100000.0
+    cc0 = math.exp(aa2 * lnTEN)
+    QI = p.rhoIce * p.lhFusion
+    convertQ2HI = p.deltaTtherm / QI
+    convertPRECIP2HI = p.deltaTtherm * cfg.rhoConstFresh / p.rhoIce
+    ICE2SNOW = p.rhoIce / p.rhoSnow
+    denom = 2.0 * sum((it + 1) * p.pdf[it] for it in range(p.multDim)) - 1.0
+    lhSublim = p.lhEvap + p.lhFusion
+    pdf = list(p.pdf) + [0.0] * (16 - p.multDim)
+    vals = [
+        c2k, p.MIN_LWDOWN, p.MIN_ATEMP, p.dTempFrz_dS, p.tempFrz0,
+        p.snow_emiss, p.ice_emiss, p.boltzmann, c2k + p.wetAlbTemp,
+        p.wetIceAlb_south, p.dryIceAlb_south, p.wetIceAlb, p.dryIceAlb,
+        p.wetSnowAlb_south, p.drySnowAlb_south, p.wetSnowAlb, p.drySnowAlb,
+        1.0 / p.snowThick, p.snowThick, p.shortwave,
+        p.iceConduct * p.snowConduct, p.snowConduct, p.iceConduct, -aa1,
+        aa2, lnTEN, bb1, Ppascals, 1.0 - bb1, aa1,
+        cc0 * aa1 * bb1 * Ppascals * lnTEN, cc0 * (1.0 - bb1),
+        p.dalton * lhSublim * p.rhoAir, p.dalton * p.cpAir * p.rhoAir, c2k,
+        lhSublim, p.EPS, p.area_reg ** 2, p.hice_reg ** 2, 1.0 / denom,
+        convertQ2HI, p.deltaTtherm / p.rhoIce, p.mcPheePiston,
+        p.frazilFrac * float(cfg.delR[0]) / p.deltaTtherm, p.mcPheeTaper,
+        1.0 if p.mcPheeStepFunc else 0.0,
+        -(cfg.HeatCapacity_Cp * cfg.rhoConst * (1.0 / QI)), p.deltaTtherm,
+        1.0 / ICE2SNOW, ICE2SNOW, convertPRECIP2HI, -convertPRECIP2HI,
+        1.0 if p.doOpenWaterGrowth else 0.0,
+        1.0 if p.doOpenWaterMelt else 0.0, si.SWFrac, p.rhoSnow, p.rhoIce,
+        cfg.rhoConst, 1.0 if p.useFlooding else 0.0, 1.0 / p.HO_south,
+        1.0 / p.HO, float(p.areaGainFormula), float(p.areaLossFormula),
+        p.area_max, denom / p.multDim, p.salt0, 1.0 / p.deltaTtherm,
+        1.0 / convertQ2HI, 1.0 / convertPRECIP2HI, cfg.rhoConstFresh,
+        p.area_floor, 1.0 if p.useMultDimSnow else 0.0] + pdf
+    return vals
+
+
+def thermo(si, ice, forc, theta0, salt0):
+    """seaice_thermo (model/seaice.py:thermo): (ice', {Qnet, Qsw, EmPmR,
+    saltFlux})."""
+    p, g = si.p, si.grid
+    dtype, shape = ice.HEFF.dtype, tuple(ice.HEFF.shape)
+    ins = dict(heff=ice.HEFF, hsnow=ice.HSNOW, area=ice.AREA,
+               tices=ice.TICES, atemp=forc.atemp, aqh=forc.aqh,
+               precip=forc.precip, swdown=forc.swdown, lwdown=forc.lwdown,
+               runoff=forc.runoff, wspeed=forc.wspeed, evap=forc.evap,
+               qnet=forc.Qnet, qsw=forc.Qsw, empmr=forc.EmPmR,
+               saltflux=forc.saltFlux, theta0=theta0, salt0=salt0,
+               heffm=si.HEFFM, yC=g.yC)
+    outs = dict(heff_o=torch.empty_like(ice.HEFF),
+                hsnow_o=torch.empty_like(ice.HEFF),
+                area_o=torch.empty_like(ice.HEFF),
+                tices_o=torch.empty_like(ice.TICES),
+                qnet_o=torch.empty_like(ice.HEFF),
+                qsw_o=torch.empty_like(ice.HEFF),
+                empmr_o=torch.empty_like(ice.HEFF),
+                saltflux_o=torch.empty_like(ice.HEFF))
+    kernels.check_tensors(dtype, **ins, **outs)
+    for name, t in {**ins, **outs}.items():
+        want = (p.multDim,) + shape if name.startswith("tices") else shape
+        kernels.check_shape(name, t, want)
+    table = kernels.pointer_table(list(ins.values()) + list(outs.values()))
+    params = kernels.doubles(thermo_params(si))
+    kernels.launch("seaice_thermo", dtype, table, len(table), params,
+                   len(params), shape[0], shape[1], si.cfg.olx,
+                   int(p.multDim), int(p.IMAX_TICE))
+    ice = ice._replace(HEFF=outs["heff_o"], HSNOW=outs["hsnow_o"],
+                       AREA=outs["area_o"], TICES=outs["tices_o"])
+    return ice, {"Qnet": outs["qnet_o"], "Qsw": outs["qsw_o"],
+                 "EmPmR": outs["empmr_o"], "saltFlux": outs["saltflux_o"]}

@@ -15,10 +15,12 @@ state, and DST-3 flux-limited tracers under the multi-dimensional
 advection) and its variants: the os7mp- and pqm-gyre (OS7MP, or monotone
 PPM and PQM tracers, on halos of 4), the idemix-gyre (GGL90 with IDEMIX and
 the Langmuir parameterization), the som-gyre (second-order-moment
-tracers) and the nh-convection box (the non-hydrostatic path under
+tracers), the nh-convection box (the non-hydrostatic path under
 flux-form momentum: calc_gw and the AB step of w in DYNAMICS, the cg3d
-solve for phi_nh after cg2d, and its gradient in the correction), and any
-mix of those options.
+solve for phi_nh after cg2d, and its gradient in the correction) and the
+ice-gyre (the kpp-gyre under a sea-ice cover: model/seaice.py's step runs
+after the forcing is loaded and before DO_OCEANIC_PHYS, and overwrites
+fu, fv, Qnet, Qsw, EmPmR and saltFlux), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
@@ -28,6 +30,7 @@ kernels on CUDA tensors and the plain PyTorch twins on CPU tensors;
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -41,6 +44,7 @@ from mitgcm_tpu_torch.model import calc_gw as calc_gw_mod
 from mitgcm_tpu_torch.model import gad
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
+from mitgcm_tpu_torch.model import seaice as seaice_mod
 from mitgcm_tpu_torch.model import som as som_mod
 from mitgcm_tpu_torch.model import thermodynamics as thermo_mod
 from mitgcm_tpu_torch.model.mom_fluxform import check_branches, mom_fluxform
@@ -65,10 +69,14 @@ class StepDiag:
     cg3d_last_res: torch.Tensor = None
     cg3d_iters: int = None
     cg3d_host_syncs: int = None
+    # the sea ice's LSR: (ICOUNT1, ICOUNT2) and the host reads of each
+    # Picard pass (seaice.py:1053-1055); None without sea ice
+    lsr_iters: list = None
+    lsr_host_syncs: list = None
 
 
-_PACKAGES = ("usePP81", "useMY82", "useOPPS",
-             "useSEAICE", "useEXF", "useOBCS", "usePTRACERS", "useRBCS",
+_PACKAGES = ("usePP81", "useMY82", "useOPPS", "useEXF", "useOBCS",
+             "usePTRACERS", "useRBCS",
              "useAIM", "useLand", "useThSIce", "useZONAL_FILT", "useOffLine",
              "useGCHEM", "useGMRedi", "useSHAP_FILT")
 
@@ -94,7 +102,7 @@ def _tracer_schemes_off(cfg: Config) -> dict:
 
 
 def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
-                    op3=None) -> None:
+                    op3=None, seaice=None) -> None:
     """Raise NotImplementedError unless cfg stays on the ported paths
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
@@ -107,11 +115,15 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
     included, when its tensors are on the card and impl does not ask for
     the plain path; nonHydrostatic under flux-form momentum with op3, a
     solver/cg3d.py:CG3DOperator, and without the options that
-    calc_gw.check_nh refuses)."""
+    calc_gw.check_nh refuses; useSEAICE with seaice, a model/seaice.py:
+    SeaIce object, without the options that seaice.check_seaice refuses)."""
     g9_kernel = ggl90 is not None and kernels.use_kernel(ggl90.klowC, impl)
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
         "useGGL90 without a GGL90 object": cfg.useGGL90 and ggl90 is None,
+        "useSEAICE without a SeaIce object": cfg.useSEAICE and seaice is None,
+        "a SeaIce object without useSEAICE": (seaice is not None
+                                              and not cfg.useSEAICE),
         "useKPP with useGGL90": cfg.useKPP and cfg.useGGL90,
         f"GGL90 with nr > {ggl90_mod.MAX_NR} on the kernel path":
             g9_kernel and cfg.nr > ggl90_mod.MAX_NR,
@@ -173,6 +185,8 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
         ggl90_mod.check_ggl90(ggl90)
     if cfg.nonHydrostatic:
         calc_gw_mod.check_nh(cfg)
+    if seaice is not None:
+        seaice_mod.check_seaice(cfg, seaice)
     if cfg.vectorInvariantMomentum:
         check_branches_vecinv(cfg)
     else:
@@ -216,7 +230,8 @@ def adams_bashforth(cfg: Config, g, gNm1, gNm2, myIter: int):
 
 def load_fields(forcing: Forcing) -> Forcing:
     """The (single, constant) forcing record as 2-D fields."""
-    return Forcing(**{k: v[0] for k, v in forcing.__dict__.items()})
+    return Forcing(**{k: None if v is None else v[0]
+                      for k, v in forcing.__dict__.items()})
 
 
 def apply_forcing_uv(cfg: Config, grid: Grid, forcing: Forcing):
@@ -397,17 +412,37 @@ def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR):
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,
                  forcing: Forcing, myIter: int, impl: str = None, kpp=None,
-                 ggl90=None, op3=None) -> Tuple[State, StepDiag]:
+                 ggl90=None, op3=None, seaice=None
+                 ) -> Tuple[State, StepDiag]:
     """One timestep; myIter is the start-of-step iteration number; kpp: a
     model/kpp.py:KPP object when useKPP; ggl90: a model/ggl90.py:GGL90
     object when useGGL90; op3: a solver/cg3d.py:CG3DOperator when
-    nonHydrostatic."""
-    check_supported(cfg, kpp, ggl90, impl, op3)
+    nonHydrostatic; seaice: a model/seaice.py:SeaIce when useSEAICE."""
+    check_supported(cfg, kpp, ggl90, impl, op3, seaice)
 
     def fill(a):
         return cyclic_fill_halo(a, cfg.oly, cfg.olx)
 
     forc = load_fields(forcing)
+    # the sea ice (do_oceanic_phys.F:448 SEAICE_MODEL; step.py:783-822 of
+    # the JAX package): the ice state steps on the surface level's
+    # start-of-step ocean, and the ocean then sees its fluxes
+    ice_diag = None
+    if seaice is not None:
+        ice = seaice_mod.IceState(
+            uIce=state.uIce, vIce=state.vIce, AREA=state.siAREA,
+            HEFF=state.siHEFF, HSNOW=state.siHSNOW, HSALT=state.siHSALT,
+            TICES=state.siTICES, SItracer=state.SItracer,
+            sigma=state.siSigma)
+        ks = cfg.ksurf0
+        ice, upd, ice_diag = seaice.step(
+            ice, forc, state.uVel[ks], state.vVel[ks], state.etaN,
+            state.theta[ks], state.salt[ks], forc.fu, forc.fv, impl=impl)
+        forc = dataclasses.replace(forc, **upd)
+        state = dataclasses.replace(
+            state, uIce=ice.uIce, vIce=ice.vIce, siAREA=ice.AREA,
+            siHEFF=ice.HEFF, siHSNOW=ice.HSNOW, siHSALT=ice.HSALT,
+            siTICES=ice.TICES)
     # in-situ density from the start-of-step tracers (do_oceanic_phys.F)
     rhoInSitu = eos.find_rho(cfg, grid, state.theta, state.salt,
                              totPhiHyd=state.totPhiHyd,
@@ -472,5 +507,12 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         # the non-hydrostatic pressure and w-tendency history (NH_VARS.h)
         phi_nh=state.phi_nh if nh is None else fill(phi_nh),
         gwNm1=state.gwNm1 if nh is None else nh["gwNm1"],
-        gwNm2=state.gwNm2 if nh is None else nh["gwNm2"])
+        gwNm2=state.gwNm2 if nh is None else nh["gwNm2"],
+        uIce=state.uIce, vIce=state.vIce, siAREA=state.siAREA,
+        siHEFF=state.siHEFF, siHSNOW=state.siHSNOW, siHSALT=state.siHSALT,
+        siTICES=state.siTICES, SItracer=state.SItracer,
+        siSigma=state.siSigma)
+    if ice_diag is not None:
+        diag.lsr_iters = ice_diag["lsr_iters"]
+        diag.lsr_host_syncs = ice_diag["lsr_host_syncs"]
     return new_state, diag

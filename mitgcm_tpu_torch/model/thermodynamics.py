@@ -105,17 +105,25 @@ def impldiff(cfg: Config, grid: Grid, field, kappaR, recip_hFac,
 def surface_forcing_ts(cfg: Config, grid: Grid, state: State,
                        forcing: Forcing):
     """external_forcing_surf.F + forcing_surf_relax.F: surfaceForcingT/S
-    (linear free surface, no sea ice, no shortwave penetration)."""
+    (linear free surface, no shortwave penetration). Under sea ice without
+    SEAICErestoreUnderIce the relaxation is scaled by the open-water
+    fraction 1 - AREA of the post-seaice state (forcing_surf_relax.F:75-90;
+    thermodynamics.py:84-95 of the JAX package)."""
     sfT = torch.zeros_like(state.etaN)
     sfS = torch.zeros_like(state.etaN)
     ks = cfg.ksurf0
+    openFrac = 1.0
+    if (cfg.useSEAICE and cfg.seaice is not None
+            and not cfg.seaice.restoreUnderIce
+            and state.siAREA is not None and state.siAREA.dim() == 2):
+        openFrac = 1.0 - state.siAREA
     if cfg.tauThetaClimRelax > 0.0:
         lam = 1.0 / cfg.tauThetaClimRelax
-        sfT = sfT - lam * (state.theta[ks] - forcing.SST) \
+        sfT = sfT - lam * openFrac * (state.theta[ks] - forcing.SST) \
             * grid.drF[ks] * grid.hFacC[ks]
     if cfg.tauSaltClimRelax > 0.0:
         lam = 1.0 / cfg.tauSaltClimRelax
-        sfS = sfS - lam * (state.salt[ks] - forcing.SSS) \
+        sfS = sfS - lam * openFrac * (state.salt[ks] - forcing.SSS) \
             * grid.drF[ks] * grid.hFacC[ks]
     recip_Cp = 1.0 / cfg.HeatCapacity_Cp
     sfT = sfT - forcing.Qnet * recip_Cp * cfg.mass2rUnit

@@ -46,13 +46,15 @@ def record_digits(rec: Mapping[str, float], ref: Mapping[str, float]
                   ) -> Dict[str, float]:
     """Matching digits of every float entry of a monitor record against the
     reference record (cg2d_iters and iter are compared for equality by
-    the caller)."""
+    the caller, and so are lists such as the LSR's iteration counts); a
+    monitor statistic is scaled by its field's largest |max| and |min|."""
     out = {}
     for key, want in ref.items():
-        if key in ("iter", "cg2d_iters") or key not in rec:
+        if (key in ("iter", "cg2d_iters") or key not in rec
+                or isinstance(want, (list, tuple))):
             continue
         scale = abs(want)
-        if key.startswith("dynstat_"):
+        if key.startswith(("dynstat_", "seaice_")):
             field = key.rsplit("_", 1)[0]
             for ext in ("max", "min"):
                 scale = max(scale, abs(ref.get(f"{field}_{ext}", 0.0)))

@@ -3,8 +3,11 @@ CG2DOperator of mitgcm_tpu, given as dicts of numpy arrays (one entry per
 field, `np.asarray(leaf)`), become the port's objects on a given device and
 dtype. Fields the port does not hold are ignored, so both packages can step
 from identical inputs; an optional field of the port (State.GGL90TKE,
-IDEMIX_E, somT, somS, and the non-hydrostatic phi_nh, gwNm1 and gwNm2) is
-carried when the arrays hold it and left None otherwise. `arrays_of` takes
+IDEMIX_E, somT, somS, the non-hydrostatic phi_nh, gwNm1 and gwNm2, the
+sea ice's uIce, vIce, siAREA, siHEFF, siHSNOW, siHSALT, siTICES, SItracer
+and siSigma, and Forcing's atmospheric state atemp, aqh, precip, swdown,
+lwdown, runoff, wspeed and evap) is carried when the arrays hold it and
+left None otherwise. `arrays_of` takes
 the port's objects too, so the same fields cross back to the JAX package
 (a State's None fields are left out, a zero-size one crosses as it is). A
 control vector

@@ -2,11 +2,12 @@
 configurations for the entry point, the card smoke run and the tests: the
 gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its variants, the
 os7mp-gyre and the pqm-gyre (high-order advection), the idemix-gyre (IDEMIX
-and Langmuir in GGL90) and the som-gyre (second-order-moment tracers); and
-the nh-convection box, a rotating, surface-cooled non-hydrostatic
-convection box. The set-ups put their tensors on the CUDA device unless
-device="cpu" is asked for, and take an already built grid of the same
-configuration (`grid=`) to skip building it again."""
+and Langmuir in GGL90), the som-gyre (second-order-moment tracers) and the
+ice-gyre (the kpp-gyre under a sea-ice cover); and the nh-convection box, a
+rotating, surface-cooled non-hydrostatic convection box. The set-ups put
+their tensors on the CUDA device unless device="cpu" is asked for, and take
+an already built grid of the same configuration (`grid=`) to skip building
+it again."""
 
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from mitgcm_tpu_torch.core.grid import Grid, build_grid
 from mitgcm_tpu_torch.core.state import init_state, zero_forcing
 from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
+from mitgcm_tpu_torch.model.seaice import SeaIce, params_from_namelists
 from mitgcm_tpu_torch.model.step import integr_continuity
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import build_cg2d
@@ -291,3 +293,72 @@ def nh_convection_setup(cfg: Config, dtype: torch.dtype = torch.float32,
     forcing.Qnet = _fill2(cfg, np.where(r2 <= (0.25 * L) ** 2, 800.0, 0.0),
                           dtype, device)
     return grid, state, forcing, build_cg2d(cfg, grid), build_cg3d(cfg, grid)
+
+
+# the sea-ice settings of the ice-gyre beyond seaice_readparms.F's
+# defaults, as lab_sea sets them (SEAICE_PARM01 keys)
+ICE_GYRE_SEAICE = {"LSR_ERROR": 1.0e-4, "SEAICE_multDim": 7}
+
+
+def ice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The kpp-gyre made polar and covered by sea ice (the "ice-gyre"):
+    tRef -1.8 degC in the 60 m mixed layer rising to +1.0 degC at the
+    bottom, sRef 32.5 rising to 34.9 (stable under JMD95Z), and useSEAICE
+    with the seaice_readparms.F defaults plus lab_sea's LSR_ERROR = 1e-4
+    and SEAICE_multDim = 7 (ICE_GYRE_SEAICE; cfg.seaice holds the
+    parameters). The LSR solves its lines per tile of tile x tile cells
+    (SIZE.h sNx = sNy; 64 when nx is a multiple of 64 and at least 128,
+    else half the width: 2 x 2 tiles), which is part of the answer: the
+    zebra solve is tile-local."""
+    tile = 64 if (nx % 64 == 0 and nx >= 128) else nx // 2
+    w = 1.15 ** np.arange(nr)
+    delR = depth * w / w.sum()
+    zc = np.cumsum(delR) - 0.5 * delR
+    frac = np.clip((zc - 60.0) / (zc[-1] - 60.0), 0.0, 1.0)
+    ice = dict(useSEAICE=True, sNx=tile, sNy=tile, nSx=nx // tile,
+               nSy=ny // tile, tRef=tuple(-1.8 + 2.8 * frac),
+               sRef=tuple(32.5 + 2.4 * frac))
+    cfg = kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth, **{**ice, **kw})
+    cfg.seaice = params_from_namelists(cfg, ICE_GYRE_SEAICE)
+    return cfg
+
+
+def ice_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                   device="cuda", grid: Grid = None):
+    """(grid, state, forcing, op, kpp, seaice) of the ice-gyre: the
+    kpp-gyre's wind and KPP; over open water Qnet = +150 W/m2 (cooling) and
+    Qsw = -50 W/m2 on wet points; an atmosphere of atemp 253 K in the north
+    rising linearly to 271 K in the south, aqh 5e-4 kg/kg, lwdown 220 and
+    swdown 50 W/m2, precip 3e-9 m/s, runoff and evap 0, wspeed 6 m/s; and
+    ice of AREA 0.95, HEFF 2 m and HSNOW 0.2 m on the wet cells of the
+    northern two thirds, open water to the south, at rest, TICES 273 K."""
+    grid, state, forcing, op, kpp = kpp_gyre_setup(cfg, dtype=dtype,
+                                                   device=device, grid=grid)
+    ol_y, ol_x = cfg.oly, cfg.olx
+    wet = grid.maskC[0, ol_y:ol_y + cfg.ny, ol_x:ol_x + cfg.nx].cpu().numpy()
+    j = np.arange(cfg.ny)[:, None]
+    ones = np.ones((cfg.ny, cfg.nx))
+
+    def rec(a):
+        return _fill2(cfg, a * ones, dtype, device)
+
+    forcing.Qnet = rec(150.0 * wet)
+    forcing.Qsw = rec(-50.0 * wet)
+    forcing.atemp = rec(271.0 + (253.0 - 271.0) * (j + 0.5) / cfg.ny)
+    forcing.aqh = rec(5.0e-4)
+    forcing.lwdown = rec(220.0)
+    forcing.swdown = rec(50.0)
+    forcing.precip = rec(3.0e-9)
+    forcing.runoff = rec(0.0)
+    forcing.evap = rec(0.0)
+    forcing.wspeed = rec(6.0)
+    seaice = SeaIce(cfg, grid, cfg.seaice)
+    ice = seaice.init_state()
+    north = (j >= cfg.ny // 3) * wet
+    state.uIce, state.vIce = ice.uIce, ice.vIce
+    state.siAREA = rec(0.95 * north)[0]
+    state.siHEFF = rec(2.0 * north)[0]
+    state.siHSNOW = rec(0.2 * north)[0]
+    state.siHSALT, state.siTICES = ice.HSALT, ice.TICES
+    state.SItracer, state.siSigma = ice.SItracer, ice.sigma
+    return grid, state, forcing, op, kpp, seaice

@@ -10,7 +10,9 @@ no backward kernels yet, anything), its adjoint refuses the vi-gyre, KPP,
 GGL90, every advection scheme but 2 and the non-hydrostatic path, and the
 non-hydrostatic path runs under flux-form momentum only, without the NH
 options it does not port, and writes no pickups (JAX's format drops
-phi_nh and the w-tendency history)."""
+phi_nh and the w-tendency history); the sea ice runs with a SeaIce object
+only, and check_seaice refuses by name each sea-ice option it does not
+carry."""
 
 import dataclasses
 import os
@@ -92,6 +94,13 @@ g, s, f, op, op3 = synthetic.nh_convection_setup(cfg, dtype=torch.float64,
 exp = Experiment(cfg, g, s, f, op, op3=op3)
 rec, = exp.run(n_steps=1, collect_monitor=False)
 assert rec["cg3d_iters"] > 0 and bool(torch.isfinite(exp.state.phi_nh).all())
+cfg = synthetic.ice_gyre_config(nx=8, ny=8, nr=4, depth=300.0)
+g, s, f, op, kpp, ice = synthetic.ice_gyre_setup(cfg, dtype=torch.float64,
+                                                 device="cpu")
+exp = Experiment(cfg, g, s, f, op, kpp=kpp, seaice=ice)
+rec, = exp.run(n_steps=1, collect_monitor=False)
+assert rec["lsr_iters"][0][0] > 0
+assert bool(torch.isfinite(exp.state.siHEFF).all())
 import chip_smoke
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
@@ -421,7 +430,8 @@ def test_check_supported_refuses_kpp_options(name):
 
 @pytest.mark.parametrize("entry", ["gyre_setup", "kpp_gyre_setup",
                                    "build_grid", "to_tensor", "from_arrays",
-                                   "ggl90_gyre_setup", "nh_convection_setup"])
+                                   "ggl90_gyre_setup", "nh_convection_setup",
+                                   "ice_gyre_setup"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, an entry point puts its tensors on the
     card: here, without CUDA, it raises as torch does, and never falls back
@@ -434,6 +444,8 @@ def test_entry_points_default_to_the_card(entry):
         "ggl90_gyre_setup": lambda: synthetic.ggl90_gyre_setup(cfg)[0].rA,
         "nh_convection_setup": lambda: synthetic.nh_convection_setup(
             synthetic.nh_convection_config(nx=8, ny=8, nr=2))[0].rA,
+        "ice_gyre_setup": lambda: synthetic.ice_gyre_setup(
+            synthetic.ice_gyre_config(nx=8, ny=8, nr=2))[0].rA,
         "build_grid": lambda: build_grid(cfg).rA,
         "to_tensor": lambda: convert.to_tensor(np.zeros(3)),
         "from_arrays": lambda: convert.from_arrays(
@@ -510,3 +522,78 @@ def test_nh_kernels_refuse_grad_and_the_adjoint():
                     "no_slip_sides=F": dict(no_slip_sides=True),
                     "select3dCoriScheme": dict(select3dCoriScheme=0)}[name])
     adjoint.check_adjoint_supported(cfg)
+
+
+# each sea-ice option check_seaice refuses: (SEAICE_PARM01 settings, or
+# parameters set after them, or Config fields; the name it gives)
+SEAICE_REFUSALS = [
+    ({"SEAICE_deltaTevp": 60.0}, "useEVP"),
+    ({"SEAICEuseFREEDRIFT": True}, "useFreeDrift"),
+    ({"SEAICEuseDYNAMICS": False}, "useDYNAMICS=F"),
+    ({"p.SItrNumInUse": 1}, "SItrNumInUse>0"),
+    ({"SEAICEadvScheme": 7}, "SEAICEadvScheme=(7, 7, 7)"),
+    ({"SEAICEadvScheme": 2}, "SEAICEadvScheme=(2, 2, 2)"),
+    ({"SEAICEadvScheme": 3}, "SEAICEadvScheme=(3, 3, 3)"),
+    ({"SEAICEadvScheme": 4}, "SEAICEadvScheme=(4, 4, 4)"),
+    ({"SEAICEadvSchSnow": 30}, "SEAICEadvScheme=(77, 77, 30)"),
+    ({"useHB87stressCoupling": True}, "useHB87stressCoupling"),
+    ({"SEAICEuseStrImpCpl": True}, "useStrImpCpl"),
+    ({"LSR_mixIniGuess": 1}, "LSR_mixIniGuess"),
+    ({"SEAICE_clipVelocities": True}, "clipVelocities"),
+    ({"SEAICE_no_slip": True}, "SEAICE_no_slip"),
+    ({"SEAICEetaZmethod": 0}, "etaZmethod=0"),
+    ({"p.tensilFac": 0.05}, "tensilFac"),
+    ({"p.basalDragK2": 8.0}, "basalDragK2"),
+    ({"SEAICEheatConsFix": True}, "SEAICEheatConsFix"),
+    ({"p.growMeltByConv": True}, "growMeltByConv"),
+    ({"p.useMaykutSatVapPoly": True}, "useMaykutSatVapPoly"),
+    ({"p.postSolvTempIter": 0}, "postSolvTempIter!=2"),
+    ({"SEAICE_saltFrac": 0.3}, "SEAICE_saltFrac"),
+    ({"p.snowThick": 0.0}, "SEAICE_snowThick<=0"),
+    ({"SEAICE_multDim": 17}, "SEAICE_multDim>16"),
+    ({"cfg.usingPCoords": True}, "p-coordinates"),
+    ({"cfg.usingSphericalPolarGrid": True},
+     "non-Cartesian grid or cubed sphere"),
+    ({"cfg.sNx": 5}, "tiles that do not cover the grid"),
+]
+
+
+@pytest.mark.parametrize("settings,name", SEAICE_REFUSALS,
+                         ids=[n for _, n in SEAICE_REFUSALS])
+def test_check_seaice_refuses(settings, name):
+    import types
+
+    from mitgcm_tpu_torch.model import seaice as seaice_mod
+
+    cfg = synthetic.ice_gyre_config(nx=16, ny=16, nr=2, depth=300.0)
+    seaice_mod.check_seaice(cfg, types.SimpleNamespace(p=cfg.seaice))
+    nml = {k: v for k, v in settings.items() if "." not in k}
+    p = seaice_mod.params_from_namelists(
+        cfg, {**synthetic.ICE_GYRE_SEAICE, **nml})
+    for key, value in settings.items():
+        if key.startswith("p."):
+            setattr(p, key[2:], value)
+        elif key.startswith("cfg."):
+            setattr(cfg, key[4:], value)
+    with pytest.raises(NotImplementedError, match=name.replace(
+            "(", r"\(").replace(")", r"\)")):
+        seaice_mod.check_seaice(cfg, types.SimpleNamespace(p=p))
+
+
+def test_check_supported_needs_the_seaice_object():
+    """useSEAICE without a SeaIce object is refused, and so is a SeaIce
+    object without useSEAICE; useEXF stays refused."""
+    cfg = synthetic.ice_gyre_config(nx=8, ny=8, nr=2, depth=300.0)
+    grid, _, _, _, kpp, ice = synthetic.ice_gyre_setup(
+        cfg, dtype=torch.float64, device="cpu")
+    check_supported(cfg, kpp=kpp, seaice=ice)
+    with pytest.raises(NotImplementedError,
+                       match="useSEAICE without a SeaIce object"):
+        check_supported(cfg, kpp=kpp)
+    cfg.useEXF = True
+    with pytest.raises(NotImplementedError, match="packages"):
+        check_supported(cfg, kpp=kpp, seaice=ice)
+    cfg.useEXF, cfg.useSEAICE = False, False
+    with pytest.raises(NotImplementedError,
+                       match="a SeaIce object without useSEAICE"):
+        check_supported(cfg, kpp=kpp, seaice=ice)

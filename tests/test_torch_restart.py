@@ -1,17 +1,18 @@
-"""PyTorch port: checkpoint/restart, the twin of tests/test_restart.py.
-
-4 steps == 2 + pickup + 2 bit for bit, for the gyre (AB-2), the vi-gyre
-(AB-3, whose pickup carries the *Nm2 records), the kpp-gyre (KPP keeps
-no state from step to step, so its pickup is the vi-gyre's, at 16x16x12)
-and the ggl90-gyre (whose TKE goes through the companion pickup_ggl90, at
+"""PyTorch port: checkpoint/restart, the twin of tests/test_restart.py. 4
+steps == 2 + pickup + 2 bit for bit, for the gyre (AB-2), the vi-gyre
+(AB-3, whose pickup carries the *Nm2 records), the kpp-gyre (KPP keeps no
+state from step to step, so its pickup is the vi-gyre's, at 16x16x12) and
+the ggl90-gyre (whose TKE goes through the companion pickup_ggl90, at
 16x16x12) and the os7mp-gyre (the ggl90-gyre with OS7MP tracers on halos
-of 4, through pickup and pickup_ggl90); the pickup round trip, in
-float64 and float32 (pickups are float64); and pickups crossing between
+of 4, through pickup and pickup_ggl90) and the ice-gyre (the sea ice
+through the companion pickup_seaice, at 16x16x12); the pickup round trip,
+in float64 and float32 (pickups are float64); and pickups crossing between
 the packages: a pickup written by the JAX package after 2 steps, read by
 the port and stepped 2 more, matches JAX's 4 straight steps to 10 digits,
 and so does the other way round, for the gyre, the vi-gyre and the
-ggl90-gyre (GGL90TKE included). The JAX runs of the vi-gyre and the
-ggl90-gyre are evaluated op by op (jax.disable_jit), as in
+ggl90-gyre (GGL90TKE included); the JAX package's read_pickup takes every
+record of the port's pickup_seaice as written. The JAX runs of the vi-gyre
+and the ggl90-gyre are evaluated op by op (jax.disable_jit), as in
 tests/test_torch_vi_gyre.py, which says why.
 """
 
@@ -47,6 +48,12 @@ def _port(kind, dtype=torch.float64):
         return port_experiment(tsyn.ggl90_gyre_config(**GGL90_SIZE), dtype)
     if kind == "os7mp-gyre":
         return port_experiment(tsyn.os7mp_gyre_config(**GGL90_SIZE), dtype)
+    if kind == "ice-gyre":
+        cfg = tsyn.ice_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
+        grid, state, forcing, op, kpp, seaice = tsyn.ice_gyre_setup(
+            cfg, dtype=dtype, device="cpu")
+        return Experiment(cfg, grid, state, forcing, op, kpp=kpp,
+                          seaice=seaice)
     if kind == "kpp-gyre":
         cfg = tsyn.kpp_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
         return Experiment(cfg, *tsyn.kpp_gyre_setup(cfg, dtype=dtype,
@@ -71,7 +78,12 @@ def _jax_mode(kind):
             else contextlib.nullcontext())
 
 
+ICE_FIELDS = ("uIce", "vIce", "siAREA", "siHEFF", "siHSNOW", "siTICES")
+
+
 def _fields(kind):
+    if kind == "ice-gyre":
+        return FIELDS + ICE_FIELDS
     return FIELDS + (("GGL90TKE",) if kind in ("ggl90-gyre", "os7mp-gyre")
                      else ())
 
@@ -84,7 +96,7 @@ def _same(a, b, names, ol=2):
 
 
 @pytest.mark.parametrize("kind", ["gyre", "vi-gyre", "kpp-gyre",
-                                  "ggl90-gyre", "os7mp-gyre"])
+                                  "ggl90-gyre", "os7mp-gyre", "ice-gyre"])
 def test_2plus2(kind, tmp_path):
     e4 = _port(kind)
     e4.run(n_steps=4, collect_monitor=False)
@@ -166,3 +178,22 @@ def test_port_pickup_read_by_jax(jax_reference, tmp_path):
     with _jax_mode(kind):
         j.run(n_steps=2, collect_monitor=False)
     _close(j.state, want, np.asarray, kind)
+
+
+def test_port_seaice_pickup_read_by_jax(tmp_path):
+    """The JAX package's read_pickup takes the port's pickup_seaice: every
+    ice field (the 7 categories' TICES included) as the port wrote it."""
+    from test_torch_ice_gyre import jax_objects
+
+    e = _port("ice-gyre")
+    e.run(n_steps=2, collect_monitor=False)
+    write_pickup(e, str(tmp_path), myIter=2)
+    cfg = tsyn.ice_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
+    j = jax_objects(cfg, tsyn.ice_gyre_setup(cfg, dtype=torch.float64,
+                                             device="cpu"))
+    jexp.read_pickup(j, str(tmp_path), myIter=2)
+    assert e.state.siTICES.shape[0] == 7
+    for name in _fields("ice-gyre"):
+        assert np.array_equal(
+            np.asarray(getattr(j.state, name))[..., 2:-2, 2:-2],
+            getattr(e.state, name)[..., 2:-2, 2:-2].numpy()), name
