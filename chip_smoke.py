@@ -119,6 +119,18 @@ exits nonzero without the final line:
                  the LSR iterations and host syncs per Picard pass, the
                  peak memory and the mean AREA after the run, a profile,
                  then 1 plain step
+ 14. step glue: kernels D (phihyd), E (cg2d_rhs, continuity), F
+                 (halo_fill) and G (mom_ab_step, mom_correction,
+                 tracer_step) against their twins on whole padded arrays,
+                 bit for bit, at 64x64x4 float64 (with AB-2 and AB-3 on the
+                 cold-start, second and later steps, and the
+                 non-hydrostatic flags on a 64x64x12 box; F also on a halo
+                 wider than the interior) and at 1024x1024x32 float32 (the
+                 box's E and G at x50), with each kernel's time, its
+                 twin's and its bound, and for F the time of
+                 F.pad(mode="circular"), which computes the same fill.
+                 Every full-size phase (5, 6, 7-13) asserts the launches of
+                 D-G on its path and that no twin of theirs ran
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -128,8 +140,8 @@ the main path that runs it: phase 5 for the gyre's forward kernels, phase
 and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
 O and pqm-gyre for P, phase 11's idemix-gyre for H-IDEMIX and som-gyre for
 H-SOM, phase 12's box for W and H-cg3d, phase 13's ice-gyre for the sea
-ice's), with the kernel's time, its plain
-twin's, and its bound (the larger of the bytes it must move over 3.35
+ice's, phase 5's gyre for D-G), with the kernel's time (D-G's from phase
+14), its plain twin's, and its bound (the larger of the bytes it must move over 3.35
 TB/s and its estimated operations over 67 TFLOP/s, the H100's float32
 peaks) at the full-size float32 shapes of its path (1024x1024x32, the
 box's 1024x1024x50), the card's name and power limit, and the device
@@ -247,18 +259,59 @@ KERNELS = {
                         "mitgcm_tpu/model/seaice.py:1345"),
     "seaice_thermo": ("mitgcm_tpu_torch/kernels/csrc/seaice_thermo.cu",
                       "mitgcm_tpu/model/seaice.py:1681"),
+    # the step's glue on every path: F, D, E (two scans) and G (three
+    # passes)
+    "halo_fill": ("mitgcm_tpu_torch/kernels/csrc/halo.cu",
+                  "mitgcm_tpu/ops/stencil.py:54"),
+    "phihyd": ("mitgcm_tpu_torch/kernels/csrc/phihyd.cu",
+               "mitgcm_tpu/model/phihyd.py:211"),
+    "cg2d_rhs": ("mitgcm_tpu_torch/kernels/csrc/step_scans.cu",
+                 "mitgcm_tpu/model/step.py:400"),
+    "continuity": ("mitgcm_tpu_torch/kernels/csrc/step_scans.cu",
+                   "mitgcm_tpu/model/step.py:633"),
+    "mom_ab_step": ("mitgcm_tpu_torch/kernels/csrc/step_glue.cu",
+                    "mitgcm_tpu/model/step.py:54"),
+    "mom_correction": ("mitgcm_tpu_torch/kernels/csrc/step_glue.cu",
+                       "mitgcm_tpu/model/step.py:509"),
+    "tracer_step": ("mitgcm_tpu_torch/kernels/csrc/step_glue.cu",
+                    "mitgcm_tpu/model/thermodynamics.py:329"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
+GLUE_KERNELS = ("halo_fill", "phihyd", "cg2d_rhs", "continuity",
+                "mom_ab_step", "mom_correction", "tracer_step")
+
+
+def glue_launches(tracers, fills, steps=5):
+    """The launches of D-G in `steps` steps of a path that steps `tracers`
+    tracers and makes `fills` halo fills a step (u*, v*, the cg2d and cg3d
+    results, u, v and the new state's fields, the sea ice's)."""
+    return {"phihyd": steps, "cg2d_rhs": steps, "continuity": steps,
+            "mom_ab_step": steps, "mom_correction": steps,
+            "tracer_step": tracers * steps, "halo_fill": fills * steps}
+
+
+# launches in phase 5's 5 timed full-size gyre steps (A's follow its
+# iterations)
+GYRE_LAUNCHES = {"mom_fluxform": 5, "gad_calc_rhs_c2": 5,
+                 **glue_launches(1, 12)}
+# launches in phase 6's first full-size gradient (6 steps in 2
+# checkpointed chunks of 3): the forward kernels of 6 steps and of their
+# recomputation (16 step bodies a gradient, of which the recomputation's
+# last fills are cut short: 150 fills in all), and the fill of each of the
+# 5 adjoint cg2d solves (the last step's eta does not reach the cost)
+ADJ_LAUNCHES = {**glue_launches(1, 0, 16), "halo_fill": 155,
+                "halo_fill:adjoint": 5}
 VI_KERNELS = ("mom_vecinv", "impldiff", "eos_find_rho")
 # launches of each kernel in phase 7's 5 timed full-size vi-gyre steps
 VI_LAUNCHES = {"mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
-               "mom_fluxform": 0}
+               "mom_fluxform": 0, **glue_launches(2, 12)}
 KPP_KERNELS = ("kpp_pre", "kpp_smooth", "kpp_col")
 # launches in phase 8's 5 timed full-size kpp-gyre steps
 KPP_LAUNCHES = {"kpp_pre": 5, "kpp_smooth": 5, "kpp_col": 5,
                 "mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
-                "gad_calc_rhs_c2": 10, "mom_fluxform": 0}
+                "gad_calc_rhs_c2": 10, "mom_fluxform": 0,
+                **glue_launches(2, 12)}
 G9_KERNELS = ("ggl90_col", "ggl90_visc")
 MD_KERNELS = ("gad_multidim_x", "gad_multidim_y", "gad_multidim_r")
 # launches in phase 9's 5 timed full-size ggl90-gyre steps: M three per
@@ -266,7 +319,8 @@ MD_KERNELS = ("gad_multidim_x", "gad_multidim_y", "gad_multidim_r")
 G9_LAUNCHES = {"ggl90_col": 5, "ggl90_visc": 5, "gad_multidim_x": 10,
                "gad_multidim_y": 10, "gad_multidim_r": 10,
                "gad_calc_rhs_c2": 10, "impldiff": 20, "eos_find_rho": 10,
-               "mom_vecinv": 5, "kpp_pre": 0, "mom_fluxform": 0}
+               "mom_vecinv": 5, "kpp_pre": 0, "mom_fluxform": 0,
+               **glue_launches(2, 13)}
 O_KERNELS = ("gad_os7mp_x", "gad_os7mp_y", "gad_os7mp_r")
 P_KERNELS = ("gad_ppm_x", "gad_ppm_y", "gad_ppm_r")
 # launches in phase 10's 5 timed full-size steps: the ggl90-gyre's with the
@@ -282,12 +336,12 @@ IDEMIX_KERNELS = ("idemix_prep", "idemix_hdiff", "idemix_col")
 SOM_KERNELS = ("som_x", "som_y", "som_r")
 # launches in phase 11's 5 timed full-size steps: the ggl90-gyre's with
 # H-IDEMIX's three (idemix-gyre), or H-SOM's three per tracer in place of
-# M's (som-gyre)
+# M's (som-gyre), and the fills of IDEMIX_E or of the two tracers' moments
 ISM_LAUNCHES = {
     "idemix": {**G9_LAUNCHES, **{k: 5 for k in IDEMIX_KERNELS},
-               **{k: 0 for k in SOM_KERNELS}},
+               **{k: 0 for k in SOM_KERNELS}, "halo_fill": 70},
     "som": {**G9_LAUNCHES, **{k: 0 for k in MD_KERNELS + IDEMIX_KERNELS},
-            **{k: 10 for k in SOM_KERNELS}},
+            **{k: 10 for k in SOM_KERNELS}, "halo_fill": 75},
 }
 CG3D_KERNELS = ("cg3d_precond_dot", "cg3d_s_stencil_dot", "cg3d_xr_update")
 NH_KERNELS = CG3D_KERNELS + ("calc_gw",)
@@ -296,10 +350,12 @@ ICE_KERNELS = ("seaice_lsr_visc", "seaice_lsr_coeffs", "seaice_lsr_tridiag_u",
                "seaice_advect_y", "seaice_thermo")
 # launches in phase 12's 5 timed full-size steps besides H-cg3d's (whose
 # count follows from each solve's batches, nh_full_phase): W and B once a
-# step, C for theta alone, and no other kernel of the gyres
+# step, C for theta alone, no other kernel of the gyres, and D-G with the
+# fills of phi_nh and of the cg3d result
 NH_LAUNCHES = {"calc_gw": 5, "mom_fluxform": 5, "gad_calc_rhs_c2": 5,
                "mom_vecinv": 0, "impldiff": 0, "eos_find_rho": 0,
-               "kpp_pre": 0, "ggl90_col": 0, "gad_multidim_x": 0}
+               "kpp_pre": 0, "ggl90_col": 0, "gad_multidim_x": 0,
+               **glue_launches(1, 14)}
 # the (scheme, vertical scheme) pairs whose sweeps phase 10 holds against
 # their twins: every scheme of O and P, and M's schemes 1 and 20 and
 # vertical 2, 3 and 4; the main paths' 7 and 51 (salt) last, so that the
@@ -336,7 +392,13 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 "seaice_lsr_visc": 60, "seaice_lsr_coeffs": 200,
                 "seaice_lsr_tridiag_u": 6, "seaice_lsr_tridiag_v": 6,
                 "seaice_lsr_check": 4, "seaice_advect_x": 120,
-                "seaice_advect_y": 150, "seaice_thermo": 800}
+                "seaice_advect_y": 150, "seaice_thermo": 800,
+                # the step's glue, per cell of its largest field (D and E
+                # recompute the west/south or east/north neighbour
+                # column; mom_ab_step's two components)
+                "halo_fill": 0, "phihyd": 20, "cg2d_rhs": 20,
+                "continuity": 16, "mom_ab_step": 20, "mom_correction": 12,
+                "tracer_step": 8}
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam", "cuu")
@@ -344,16 +406,11 @@ IN_PLACE = {"cg2d_s_update": ("s",), "cg2d_xr_update": ("x", "r"),
             "cg3d_xr_update": ("x", "r"), "seaice_lsr_tridiag_u": ("u",),
             "seaice_lsr_tridiag_v": ("u",),
             "seaice_lsr_check": ("uTmp", "vTmp")}
-# the fused computations of the kernel table that are still plain PyTorch
-# on the ported paths (glue) or off them (row H): the distinct float32
-# fields each must move once per call at 1024x1024x32 (3-D, 2-D), each
-# input read once and each output written once, for their bound
+# the plain glue that is not a row of the kernel table, and row H, still
+# to port: the distinct float32 fields each must move once per call at
+# 1024x1024x32 (3-D, 2-D), each input read once and each output written
+# once, for their bound
 GLUE_FIELDS = {
-    "D phihyd (rho, hFacC in; phiHyd, dPhiHydX/Y out)": (5, 2),
-    "E cg2d RHS and continuity (u*, v*, u, v, hFacW/S, maskC in; w out)":
-        (10, 8),
-    "F halo wrap, 8 3-D and 4 2-D fills per step (read, write)": (16, 8),
-    "G AB-3 of gU, gV; u*, v*; momentum correction": (22, 3),
     "KPP glue visc_uv and ghat_flux of theta and salt": (15, 4),
     "GGL90 glue: kappaRU/RV and kapT/kapS sums, sigmaR": (20, 0),
     "seaice glue get_dynforcing (fu, fv, yC, SIMaskU/V in; taux, tauy out)":
@@ -419,6 +476,26 @@ def cuda_time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def glue_plain_calls():
+    """Calls so far of the twins of D-G (ops/stencil.py, model/phihyd.py,
+    model/step.py, model/thermodynamics.py); a kernel-path run adds none."""
+    from mitgcm_tpu_torch.model import phihyd, step, thermodynamics
+    from mitgcm_tpu_torch.ops import stencil
+
+    return (stencil.plain_calls + phihyd.plain_calls + step.plain_calls
+            + thermodynamics.plain_calls)
+
+
+def check_launches(label, launches, want, plain=0):
+    """Raise unless every kernel of `want` was launched exactly as often as
+    it says and no plain twin ran (plain: the twins' calls in the run)."""
+    wrong = {k: launches.get(k, 0) for k, count in want.items()
+             if launches.get(k, 0) != count}
+    if wrong or plain:
+        raise AssertionError(f"{label} launch counts {wrong} (want {want}),"
+                             f" plain twin calls {plain}")
 
 
 def device_phase():
@@ -701,8 +778,11 @@ def full_phase(kernels):
     torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()
     state1, iters_w, sec_w, _ = run(state0, 0, 1, None)
+    kernels.launches.clear()
+    plain0 = glue_plain_calls()
     state, iters, sec, diag = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
+    plain = glue_plain_calls() - plain0
     print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
     print(f"kernel path: 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
           f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations "
@@ -725,6 +805,7 @@ def full_phase(kernels):
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    check_launches("gyre", launches, GYRE_LAUNCHES, plain)
     _, iters_p, sec_p, _ = run(state1, 1, 2, "plain")
     print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
           f"{points * 2 / sec_p:.4e} points*steps/s, cg2d iterations "
@@ -847,7 +928,9 @@ def adjoint_full_phase(kernels):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()
+    plain0 = glue_plain_calls()
     (fc, grad), ms = ms_per_step(lambda: adjoint_gradient(J[None], xx))
+    plain = glue_plain_calls() - plain0
     launches = dict(kernels.launches)
     adj = [ms] + [ms_per_step(lambda: adjoint_gradient(J[None], xx))[1]
                   for _ in range(2)]
@@ -876,6 +959,9 @@ def adjoint_full_phase(kernels):
         f"{c}:adjoint" for c in CG2D_KERNELS) if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"never launched in the adjoint: {missing}")
+    print(f"forward step bodies run (B's launches): "
+          f"{launches.get('mom_fluxform', 0)}", flush=True)
+    check_launches("adjoint", launches, ADJ_LAUNCHES, plain)
     return launches
 
 
@@ -1008,8 +1094,10 @@ def vi_full_phase(kernels):
     torch.cuda.reset_peak_memory_stats()
     state1, iters_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
+    plain0 = glue_plain_calls()
     state, iters, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
+    plain = glue_plain_calls() - plain0
     print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
     print(f"kernel path: 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
           f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters}")
@@ -1018,11 +1106,7 @@ def vi_full_phase(kernels):
     for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
             raise AssertionError(f"vi-gyre {name} is not finite")
-    wrong = {k: launches.get(k, 0) for k, want in VI_LAUNCHES.items()
-             if launches.get(k, 0) != want}
-    if wrong:
-        raise AssertionError(f"vi-gyre launch counts {wrong}, want "
-                             f"{VI_LAUNCHES}")
+    check_launches("vi-gyre", launches, VI_LAUNCHES, plain)
     _, iters_p, sec_p = run(state1, 1, 2, "plain")
     print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
           f"{points * 2 / sec_p:.4e} points*steps/s, cg2d iterations "
@@ -1231,23 +1315,20 @@ def kpp_full_phase(kernels, smi):
     torch.cuda.reset_peak_memory_stats()
     state1, iters_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = kpp_mod.plain_calls
+    plain0 = kpp_mod.plain_calls + glue_plain_calls()
     state, iters, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = kpp_mod.plain_calls - plain0
+    plain = kpp_mod.plain_calls + glue_plain_calls() - plain0
     print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
     print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
           f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain KPP calls {plain}; launches {launches}", flush=True)
+          f" GiB; plain KPP and D-G calls {plain}; launches {launches}",
+          flush=True)
     for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
             raise AssertionError(f"kpp-gyre {name} is not finite")
-    wrong = {k: launches.get(k, 0) for k, want in KPP_LAUNCHES.items()
-             if launches.get(k, 0) != want}
-    if wrong or plain:
-        raise AssertionError(f"kpp-gyre launch counts {wrong} (want "
-                             f"{KPP_LAUNCHES}), plain KPP calls {plain}")
+    check_launches("kpp-gyre", launches, KPP_LAUNCHES, plain)
     profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
     _, iters_p, sec_p = run(state1, 1, 2, "plain")
     print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
@@ -1260,7 +1341,9 @@ def profile_steps(exp, state, it0, steps, wall_ms):
     """Where the kernel path's device time goes: torch.profiler over
     `steps` steps, the device time of each kernel per step (largest
     first), the device's busy time per step, and its idle share against
-    wall_ms, the unprofiled ms/step."""
+    wall_ms, the unprofiled ms/step. Returns those figures a step: busy
+    ms, idle share, and the ms and launches of the plain glue (PyTorch's
+    own kernels and copies) and of the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1288,6 +1371,12 @@ def profile_steps(exp, state, it0, steps, wall_ms):
           f"{sum(r[1] for r in glue):.1f} launches/step", flush=True)
     for ms, count, key in rows[:16]:
         print(f"  {ms:8.3f} ms/step {count:6.1f} calls/step  {key[:70]}")
+    return {"device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "glue_ms": sum(r[0] for r in glue),
+            "glue_launches_per_step": sum(r[1] for r in glue),
+            "kernel_ms": busy - sum(r[0] for r in glue),
+            "kernel_launches_per_step": sum(r[1] for r in rows) - sum(
+                r[1] for r in glue)}
 
 
 def kpp_phase(kernels, results, smi):
@@ -1518,15 +1607,17 @@ def g9_full_phase(kernels, smi, config="ggl90", want=G9_LAUNCHES):
     torch.cuda.reset_peak_memory_stats()
     state1, iters_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = g9.plain_calls + gad.plain_calls + som.plain_calls
+    plain0 = (g9.plain_calls + gad.plain_calls + som.plain_calls
+              + glue_plain_calls())
     state, iters, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = g9.plain_calls + gad.plain_calls + som.plain_calls - plain0
+    plain = (g9.plain_calls + gad.plain_calls + som.plain_calls
+             + glue_plain_calls() - plain0)
     print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
     print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
           f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain GGL90, multidim and SOM calls {plain}; launches "
+          f" GiB; plain GGL90, multidim, SOM and D-G calls {plain}; launches "
           f"{launches}", flush=True)
     for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"
                  ) + PROGNOSTIC_EXTRA:
@@ -1542,11 +1633,7 @@ def g9_full_phase(kernels, smi, config="ggl90", want=G9_LAUNCHES):
         print(f"IDEMIX_E after 6 steps: max {float(E.max()):.3e}, above 0 "
               f"in {int((E > 0).sum())} of {E.numel()} wet interfaces",
               flush=True)
-    wrong = {k: launches.get(k, 0) for k, count in want.items()
-             if launches.get(k, 0) != count}
-    if wrong or plain:
-        raise AssertionError(f"{config}-gyre launch counts {wrong} (want "
-                             f"{want}), plain calls {plain}")
+    check_launches(f"{config}-gyre", launches, want, plain)
     profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
     _, iters_p, sec_p = run(state1, 1, 2, "plain")
     print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
@@ -2056,10 +2143,12 @@ def nh_full_phase(kernels, smi):
     torch.cuda.reset_peak_memory_stats()
     state1, recs_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls
+    plain0 = (calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls
+              + glue_plain_calls())
     state, recs, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls - plain0
+    plain = (calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls
+             + glue_plain_calls() - plain0)
     it2 = [r["cg2d_iters"] for r in recs]
     it3 = [r["cg3d_iters"] for r in recs]
     syncs = [r["cg3d_host_syncs"] for r in recs]
@@ -2072,7 +2161,8 @@ def nh_full_phase(kernels, smi):
           f"cg3d residual {recs[-1]['cg3d_init_res']:.4e} -> "
           f"{recs[-1]['cg3d_last_res']:.4e}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain W, H-cg3d and C calls {plain}; launches {launches}",
+          f" GiB; plain W, H-cg3d, C and D-G calls {plain}; launches "
+          f"{launches}",
           flush=True)
     for name in ("uVel", "vVel", "wVel", "theta", "etaN", "phi_nh"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -2434,10 +2524,12 @@ def ice_full_phase(kernels, smi):
     torch.cuda.reset_peak_memory_stats()
     state1, recs_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = kpp_mod.plain_calls + seaice_mod.plain_calls
+    plain0 = (kpp_mod.plain_calls + seaice_mod.plain_calls
+              + glue_plain_calls())
     state, recs, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = kpp_mod.plain_calls + seaice_mod.plain_calls - plain0
+    plain = (kpp_mod.plain_calls + seaice_mod.plain_calls
+             + glue_plain_calls() - plain0)
     icounts = [r["lsr_iters"] for r in recs]
     syncs = [r["lsr_host_syncs"] for r in recs]
     print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations "
@@ -2448,7 +2540,8 @@ def ice_full_phase(kernels, smi):
           f"{[r['cg2d_iters'] for r in recs]}, LSR ICOUNT1/2 per Picard "
           f"pass {icounts}, LSR host syncs per pass {syncs}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain KPP and sea-ice calls {plain}; launches {launches}",
+          f" GiB; plain KPP, sea-ice and D-G calls {plain}; launches "
+          f"{launches}",
           flush=True)
     for name in ("uVel", "vVel", "theta", "salt", "etaN") + ICE_STATE:
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -2467,7 +2560,10 @@ def ice_full_phase(kernels, smi):
     want = {**KPP_LAUNCHES, "seaice_lsr_visc": 10, "seaice_lsr_coeffs": 10,
             "seaice_lsr_tridiag_u": 2 * batches,
             "seaice_lsr_tridiag_v": 2 * batches, "seaice_lsr_check": batches,
-            "seaice_advect_x": 5, "seaice_advect_y": 5, "seaice_thermo": 5}
+            "seaice_advect_x": 5, "seaice_advect_y": 5, "seaice_thermo": 5,
+            # the sea ice's fills: the ocean stress, the ice velocity after
+            # the LSR, the four ice fields and the updated forcing
+            "halo_fill": 120}
     wrong = {k: launches.get(k, 0) for k, count in want.items()
              if launches.get(k, 0) != count}
     late = [(c, s) for cs, ss in zip(icounts, syncs) for c, s in zip(cs, ss)
@@ -2498,6 +2594,182 @@ def ice_phase(kernels, results, smi):
     run = ice_full_phase(kernels, smi)
     torch.cuda.empty_cache()
     return {k: run[k] for k in ICE_KERNELS}
+
+
+class GlueCase:
+    """Seeded inputs of the step's glue kernels D-G on the gyre's grid (the
+    vi-gyre's options with vi, for AB-3) or, with nh, on the nh-convection
+    box's (the box shared with phase 12 at full size)."""
+
+    def __init__(self, n, nr, dtype, vi=False, nh=False):
+        from mitgcm_tpu_torch.core.grid import build_grid
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        if nh:
+            self.cfg = synthetic.nh_convection_config(nx=n, ny=n, nr=nr)
+            self.grid = (shared_grid(self.cfg, dtype, flat=True)
+                         or build_grid(self.cfg, dtype=dtype, device="cuda"))
+        else:
+            config = synthetic.vi_gyre_config if vi else synthetic.gyre_config
+            self.cfg = config(nx=n, ny=n, nr=nr)
+            self.grid = (shared_grid(self.cfg, dtype)
+                         or synthetic.gyre_grid(self.cfg, dtype=dtype,
+                                                device="cuda"))
+        g = self.grid
+        rng = np.random.default_rng(SEED + 7)
+        shape = tuple(g.hFacC.shape)
+        self.rho = self.field(rng, shape, 0.5) * g.maskC
+        self.u = self.field(rng, shape, 0.1) * g.maskW
+        self.v = self.field(rng, shape, 0.1) * g.maskS
+        self.w = self.field(rng, shape, 1e-3) * g.maskC
+        self.eta = self.field(rng, shape[1:], 0.1)
+        self.emp = self.field(rng, shape[1:], 1e-6)
+        self.sfc = self.field(rng, shape[1:], 1e-3)
+        self.theta = 15.0 + self.field(rng, shape, 2.0)
+        self.phi_nh = self.field(rng, shape, 1.0)
+        self.t3 = {k: self.field(rng, shape, 1e-4) for k in (
+            "gU", "gV", "guDiss", "gvDiss", "guExt", "gvExt", "dPhiHydX",
+            "dPhiHydY", "guNm1", "gvNm1", "guNm2", "gvNm2", "gW", "gwDiss",
+            "gwNm1", "gwNm2", "gTr", "gtNm1", "gtNm2")}
+
+    field = Case.field
+    label = Case.label
+
+    def state(self):
+        t = self.t3
+        return types.SimpleNamespace(
+            uVel=self.u, vVel=self.v, wVel=self.w, guNm1=t["guNm1"],
+            gvNm1=t["gvNm1"], guNm2=t["guNm2"], gvNm2=t["gvNm2"],
+            gwNm1=t["gwNm1"], gwNm2=t["gwNm2"])
+
+
+def halo_bound(a, oly, olx):
+    """F's bound: each interior cell read once, each padded cell written
+    once, over the H100's bytes/s."""
+    nyp, nxp = a.shape[-2:]
+    planes = a.numel() // (nyp * nxp)
+    cells = planes * ((nyp - 2 * oly) * (nxp - 2 * olx) + nyp * nxp)
+    return cells * a.element_size() / PEAK_BYTES_S * 1e3
+
+
+def glue_kernel_phase(case, results, reps, kernels_only=None):
+    """Each launch of D, E, F and G against its twin on whole padded
+    arrays, bit for bit (tol 0), with times and bounds; every variant of
+    the main paths (AB-2 cold start and later, AB-3, with and without the
+    tracer's AB, the non-hydrostatic flags on the box). kernels_only: the
+    kernels to hold (the box runs E and G alone)."""
+    import torch.nn.functional as F
+
+    from mitgcm_tpu_torch.model import step, thermodynamics as th
+    from mitgcm_tpu_torch.model.mom_fluxform import MomTend
+    from mitgcm_tpu_torch.model.phihyd import calc_phi_hyd
+    from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
+
+    cfg, g, t = case.cfg, case.grid, case.t3
+    want = set(kernels_only or GLUE_KERNELS)
+    nh = cfg.nonHydrostatic
+
+    def hold(name, fn, call=True):
+        outs, wants = fn(None), fn("plain")
+        exact_compare(name, case, outs, wants,
+                      cuda_time_ms(lambda: fn(None), reps),
+                      cuda_time_ms(lambda: fn("plain"), reps), results,
+                      call=(lambda: fn(None)) if call else None,
+                      touched=None if call else outs)
+
+    if "halo_fill" in want:
+        ol = cfg.olx
+        for label, a in (("halo_fill", case.theta),
+                         ("halo_fill(2-D)", case.eta)):
+            hold(label, lambda impl, a=a: [cyclic_fill_halo(a, ol, ol,
+                                                            impl=impl)])
+            results[label]["bound_ms"] = halo_bound(a, ol, ol)
+            # circular padding takes a 3-D or 4-D input for two dimensions
+            inner = a[None, ..., ol:-ol, ol:-ol] if a.dim() == 2 else \
+                a[..., ol:-ol, ol:-ol]
+            lib = F.pad(inner, (ol, ol, ol, ol), mode="circular")
+            if not torch.equal(lib.reshape(a.shape),
+                               cyclic_fill_halo(a, ol, ol)):
+                raise AssertionError("F.pad(mode='circular') differs")
+            results[label]["library_ms"] = cuda_time_ms(
+                lambda: F.pad(inner, (ol, ol, ol, ol), mode="circular"),
+                reps)
+            print(f"{'':18s} exact bound {results[label]['bound_ms']:.4f} ms"
+                  f" (bytes); F.pad(mode='circular') "
+                  f"{results[label]['library_ms']:.4f} ms (same bits)",
+                  flush=True)
+        # halos of 4 around a 3 x 5 interior: wider than the interior
+        rng = np.random.default_rng(SEED + 8)
+        a = case.field(rng, (2, 3 + 8, 5 + 8), 1.0)
+        k, p = (cyclic_fill_halo(a, 4, 4, impl=i) for i in (None, "plain"))
+        print(f"halo_fill, halo 4 around 3 x 5: bit-equal "
+              f"{torch.equal(k, p)}", flush=True)
+        if not torch.equal(k, p):
+            raise AssertionError("halo_fill disagrees on a wide halo")
+    if "phihyd" in want:
+        hold("phihyd", lambda impl: calc_phi_hyd(cfg, g, case.rho,
+                                                 impl=impl)[:3])
+    if "cg2d_rhs" in want:
+        hold("cg2d_rhs" + ("(non-hydrostatic)" if nh else ""),
+             lambda impl: list(step.cg2d_rhs(cfg, g, case.u, case.v,
+                                             case.eta, hydrostatic=not nh,
+                                             impl=impl)))
+    if "continuity" in want:
+        hold("continuity", lambda impl: step.integr_continuity(
+            cfg, g, case.u, case.v, case.emp, impl=impl))
+    if "mom_ab_step" in want:
+        tend = MomTend(t["gU"], t["gV"], t["guDiss"], t["gvDiss"])
+        gw = (t["gW"], t["gwDiss"]) if nh else None
+        # the cold start, the second step and a later one
+        for it in (2, 1, 0) if cfg.useAB3 else (1, 0):
+            def ab(impl, it=it):
+                out = step.mom_ab_step(cfg, g, case.state(), tend,
+                                       t["dPhiHydX"], t["dPhiHydY"],
+                                       t["guExt"], t["gvExt"], it, impl=impl,
+                                       gw=gw)
+                return list(out[:4]) + (
+                    [out[6]["wStar"], out[6]["gwNm1"]] if nh else [])
+            order = "AB-3" if cfg.useAB3 else "AB-2"
+            hold("mom_ab_step" + ("" if it == 1 and not cfg.useAB3
+                                  and not nh else f"({order}, step {it})"),
+                 ab)
+    if "mom_correction" in want:
+        hold("mom_correction" + ("(non-hydrostatic)" if nh else ""),
+             lambda impl: step.momentum_correction_step(
+                 cfg, g, case.eta, case.u, case.v,
+                 case.phi_nh if nh else None, impl=impl))
+    if "tracer_step" in want:
+        for use_ab in (True, False):
+            for it in (2, 1, 0) if use_ab else (1,):
+                label = ("tracer_step" if use_ab and it == 1
+                         and not cfg.useAB3 else
+                         f"tracer_step(AB {use_ab}, step {it})")
+                hold(label, lambda impl, it=it, use_ab=use_ab: list(
+                    th.tracer_step(cfg, g, t["gTr"], case.theta, t["gtNm1"],
+                                   t["gtNm2"], case.sfc, it, use_ab,
+                                   impl=impl)[:2]))
+
+
+def glue_phase(results):
+    phase("14 step glue kernels D-G")
+    glue_kernel_phase(GlueCase(64, 4, torch.float64), results, 20)
+    glue_kernel_phase(GlueCase(64, 4, torch.float64, vi=True), results, 20,
+                      ("mom_ab_step", "tracer_step"))
+    glue_kernel_phase(GlueCase(64, 12, torch.float64, nh=True), results, 20,
+                      ("cg2d_rhs", "mom_ab_step", "mom_correction"))
+    # the box's E and G at 1024x1024x50 (its grid is phase 12's), then the
+    # gyre's at the main path's shapes, last, for the JSON line
+    glue_kernel_phase(GlueCase(1024, 50, torch.float32, nh=True), results,
+                      10, ("cg2d_rhs", "continuity", "mom_ab_step",
+                           "mom_correction"))
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+    glue_kernel_phase(GlueCase(1024, 32, torch.float32, vi=True), results,
+                      10, ("mom_ab_step", "tracer_step"))
+    glue_kernel_phase(GlueCase(1024, 32, torch.float32), results, 10)
+    GRIDS.clear()
+    torch.cuda.empty_cache()
 
 
 def glue_bounds(smi):
@@ -2551,6 +2823,7 @@ def main():
     GRIDS.clear()
     launches.update(nh_phase(kernels, results, smi))
     launches.update(ice_phase(kernels, results, smi))
+    glue_phase(results)
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

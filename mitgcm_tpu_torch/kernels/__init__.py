@@ -13,7 +13,8 @@ stream it is given, allocates nothing and returns cudaGetLastError().
 count in `launches`, which a run reads to prove that the main path went
 through the kernels; inside `counting_as(label)` the launch is also
 counted under "<kernel>:<label>" (the adjoint cg2d solves are counted
-apart from the forward ones so).
+apart from the forward ones so). `TwinVJP` differentiates a kernel that
+has no backward kernel through its plain twin.
 """
 
 from __future__ import annotations
@@ -140,6 +141,35 @@ SIGNATURES = {
     # three diffKh); stream
     "seaice_advect_x": [_PP, _I, _P, _P] + [_I] * 4 + [_D, _P],
     "seaice_advect_y": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 4 + [_P],
+    # kernel F: src, dst; planes, ny, nx, oly, olx; stream
+    "halo_fill": [_P] * 2 + [_I] * 5 + [_P],
+    # kernel D: rho, drC, rF, rC, recip_dxC, recip_dyC, phiHydC, dPhiHydX,
+    # dPhiHydY; nr, nyp, nxp; gravity, 1/rhoConst; stream
+    "phihyd": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_P],
+    # kernel E's cg2d right-hand side: pointer table (uStar, vStar, hFacW,
+    # hFacS, dyG, dxG, rA, etaN, drF, out, the non-hydrostatic 3-D div),
+    # its length; nr, nyp, nxp, oly, olx, hydrostatic; implicDiv2Dflow,
+    # deltaTMom, freeSurfFac, deltaTFreeSurf; stream
+    "cg2d_rhs": [_PP, _I] + [_I] * 6 + [_D] * 4 + [_P],
+    # kernel E's continuity: pointer table (u, v, hFacW, hFacS, maskC, dyG,
+    # dxG, recip_rA, EmPmR, drF, w, PmEpR), its length; nr, nyp, nxp;
+    # stream
+    "continuity": [_PP, _I] + [_I] * 3 + [_P],
+    # kernel G's mom_ab_step: pointer table (u's, v's and w's terms, see
+    # step_glue.cu:MomAbArgs), its length; nr, nyp, nxp, AB order (2, 3),
+    # non-hydrostatic; abFac, ab0, ab1, ab2, deltaTMom, deltaTMom/nh_Am2;
+    # stream
+    "mom_ab_step": [_PP, _I] + [_I] * 5 + [_D] * 6 + [_P],
+    # kernel G's mom_correction: pointer table (uStar, vStar, maskW, maskS,
+    # phi_nh, etaN, Bo_surf, recip_dxC, recip_dyC, u, v), its length; nr,
+    # nyp, nxp, non-hydrostatic; deltaTMom*psFac, psFac, nhFac, deltaTMom;
+    # stream
+    "mom_correction": [_PP, _I] + [_I] * 4 + [_D] * 4 + [_P],
+    # kernel G's tracer_step: pointer table (gTr, tracer, gNm1, gNm2, the
+    # surface forcing, recip_hFacC[ksurf0], recip_drF, tracer', gNm1'), its
+    # length; nr, nyp, nxp, ksurf0, AB order (0: none, 2, 3); abFac, ab0,
+    # ab1, ab2, deltaTTracer; stream
+    "tracer_step": [_PP, _I] + [_I] * 5 + [_D] * 5 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -243,6 +273,13 @@ def check_shape(name: str, t: torch.Tensor, shape) -> None:
             f"{name}: shape {tuple(t.shape)}, need {tuple(shape)}")
 
 
+def check_fields(dtype: torch.dtype, shape, **tensors: torch.Tensor) -> None:
+    """check_tensors, and every tensor of `shape`."""
+    check_tensors(dtype, **tensors)
+    for name, t in tensors.items():
+        check_shape(name, t, shape)
+
+
 def check_int32(name: str, t: torch.Tensor, shape) -> None:
     """Raise unless t is a contiguous int32 CUDA tensor of `shape` (a
     per-column level count)."""
@@ -272,6 +309,37 @@ def counting_as(label: str):
         yield
     finally:
         _labels.pop()
+
+
+class TwinVJP(torch.autograd.Function):
+    """A kernel without a backward kernel, made differentiable: forward
+    runs `launch(*tensors)` (the kernel's wrapper, a tuple of fresh
+    outputs); backward re-runs `twin(*tensors)`, the kernel's plain PyTorch
+    twin, under autograd and returns its VJP for the tensors that need one,
+    so the gradient is the plain path's bit for bit. Only the inputs are
+    saved (None entries allowed)."""
+
+    @staticmethod
+    def forward(ctx, launch, twin, *tensors):
+        outs = launch(*tensors)
+        if any(ctx.needs_input_grad[2:]):
+            ctx.twin = twin
+            ctx.save_for_backward(*tensors)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *bars):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+            outs = ctx.twin(*xs)
+            pairs = [(o, b) for o, b in zip(outs, bars) if o.requires_grad]
+            wrt = [x for x, n in zip(xs, need) if n]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [b for _, b in pairs],
+                allow_unused=True) if pairs else [None] * len(wrt))
+        return (None, None, *[next(grads) if n else None for n in need])
 
 
 def launch(kernel: str, dtype: torch.dtype, *args) -> None:

@@ -1,21 +1,29 @@
 """Hydrostatic pressure (mitgcm_tpu/model/phihyd.py:calc_phi_hyd), the
-oceanic z-coordinate branch without r* or quasi-hydrostatic terms."""
+oceanic z-coordinate branch without r* or quasi-hydrostatic terms.
+
+`calc_phi_hyd` runs kernel D (kernels/csrc/phihyd.cu) on CUDA tensors and
+its plain PyTorch twin `_phi_hyd_plain` on CPU tensors or with
+impl="plain"; kernel D has no backward kernel yet, so its gradient is
+autograd through the twin (kernels.TwinVJP)."""
 
 from __future__ import annotations
 
 import torch
 
+from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.ops.stencil import shift as sh
 
+# calls of kernel D's twin, for the card's runs to show that the main path
+# never ran it
+plain_calls = 0
 
-def calc_phi_hyd(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor):
-    """Return (phiHydC, dPhiHydX, dPhiHydY, totPhiHyd).
 
-    The buoyancy b' = g rho'/rhoConst is integrated down each column with
-    the half-cell weights dRlocM/dRlocP (calc_phi_hyd.F integr_GeoPot=2):
-    phiHydC(k) = sum_{m<k} (dRlocM+dRlocP)(m) b(m) + dRlocM(k) b(k)."""
+def _phi_hyd_plain(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor):
+    """Kernel D's twin: (phiHydC, dPhiHydX, dPhiHydY). The running sum
+    adds level by level in k order, as kernel D does (JAX's cumsum - incr
+    form, phihyd.py:225-227)."""
     nr = cfg.nr
     buoy = cfg.gravity * rhoInSitu * (1.0 / cfg.rhoConst)
     drC, rF, rC = grid.drC, grid.rF, grid.rC
@@ -24,10 +32,50 @@ def calc_phi_hyd(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor):
     dRlocP = 0.5 * drC[1:nr + 1]
     dRlocP[nr - 1] = rC[nr - 1] - rF[nr]
     incr = (dRlocM + dRlocP)[:, None, None] * buoy
-    # cumsum - incr as the JAX code writes it (an exclusive scan would move
-    # the last digits)
-    phiF = torch.cumsum(incr, dim=0) - incr
-    phiC = phiF + dRlocM[:, None, None] * buoy
+    acc = torch.zeros_like(incr[0])
+    phiF = []
+    for k in range(nr):
+        acc = acc + incr[k]
+        phiF.append(acc - incr[k])
+    phiC = torch.stack(phiF) + dRlocM[:, None, None] * buoy
     dX = grid.recip_dxC * (phiC - sh(phiC, di=-1))
     dY = grid.recip_dyC * (phiC - sh(phiC, dj=-1))
+    return phiC, dX, dY
+
+
+def _phi_hyd_kernel(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor):
+    """Kernel D on the card: (phiHydC, dPhiHydX, dPhiHydY)."""
+    nr, nyp, nxp = cfg.nr, *rhoInSitu.shape[1:]
+    dtype = rhoInSitu.dtype
+    outs = tuple(torch.empty_like(rhoInSitu) for _ in range(3))
+    kernels.check_fields(dtype, (nr, nyp, nxp), rho=rhoInSitu,
+                         **dict(zip(("phiHydC", "dPhiHydX", "dPhiHydY"),
+                                    outs)))
+    kernels.check_fields(dtype, (nr + 1,), drC=grid.drC, rF=grid.rF)
+    kernels.check_fields(dtype, (nr,), rC=grid.rC)
+    kernels.check_fields(dtype, (nyp, nxp), recip_dxC=grid.recip_dxC,
+                         recip_dyC=grid.recip_dyC)
+    ins = (rhoInSitu, grid.drC, grid.rF, grid.rC, grid.recip_dxC,
+           grid.recip_dyC)
+    kernels.launch("phihyd", dtype,
+                   *(t.data_ptr() for t in (*ins, *outs)),
+                   nr, nyp, nxp, cfg.gravity, 1.0 / cfg.rhoConst)
+    return outs
+
+
+def calc_phi_hyd(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor,
+                 impl: str = None):
+    """Return (phiHydC, dPhiHydX, dPhiHydY, totPhiHyd).
+
+    The buoyancy b' = g rho'/rhoConst is integrated down each column with
+    the half-cell weights dRlocM/dRlocP (calc_phi_hyd.F integr_GeoPot=2):
+    phiHydC(k) = sum_{m<k} (dRlocM+dRlocP)(m) b(m) + dRlocM(k) b(k)."""
+    if not kernels.use_kernel(rhoInSitu, impl):
+        global plain_calls
+        plain_calls += 1
+        phiC, dX, dY = _phi_hyd_plain(cfg, grid, rhoInSitu)
+    else:
+        phiC, dX, dY = kernels.TwinVJP.apply(
+            lambda rho: _phi_hyd_kernel(cfg, grid, rho),
+            lambda rho: _phi_hyd_plain(cfg, grid, rho), rhoInSitu)
     return phiC, dX, dY, phiC

@@ -523,11 +523,11 @@ class SeaIce:
         self._tcols = (tx[:, None] * cfg.sNx
                        + torch.arange(cfg.sNx + 2 * ol, device=dev)[None])
 
-    def fill(self, a):
-        return cyclic_fill_halo(a, self.cfg.oly, self.cfg.olx)
+    def fill(self, a, impl: str = None):
+        return cyclic_fill_halo(a, self.cfg.oly, self.cfg.olx, impl=impl)
 
-    def fill_uv(self, u, v):
-        return self.fill(u), self.fill(v)
+    def fill_uv(self, u, v, impl: str = None):
+        return self.fill(u, impl), self.fill(v, impl)
 
     def init_state(self, dtype=None) -> IceState:
         """Ice-free start (seaice_init_varia.F): TICES at 273 K."""
@@ -551,7 +551,8 @@ class SeaIce:
                        p.drag / p.OCEAN_drag, like=g.yC)
         return cdair * forc.fu * self.SIMaskU, cdair * forc.fv * self.SIMaskV
 
-    def ocean_stress(self, ice: IceState, dwatn, uVel0, vVel0, fu, fv):
+    def ocean_stress(self, ice: IceState, dwatn, uVel0, vVel0, fu, fv,
+                     impl: str = None):
         """seaice_ocean_stress.F (without HB87): the ice-ocean drag blended
         into the ocean's surface stress by the ice fraction."""
         p, g = self.p, self.grid
@@ -574,7 +575,7 @@ class SeaIce:
         areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1)) * p.stressFactor
         fu_new = (1.0 - areaW) * fu + areaW * fuIce
         fv_new = (1.0 - areaS) * fv + areaS * fvIce
-        return self.fill_uv(fu_new, fv_new)
+        return self.fill_uv(fu_new, fv_new, impl)
 
     # ------------------------------------------------------------------
     # kernel seaice_lsr_prep's twin: one Picard pass's assembly
@@ -875,8 +876,8 @@ class SeaIce:
         ctrl[1] = m
         ctrl[0] = int(not (m < p.linearIterMax
                            and (bool(ctrl[2]) or bool(ctrl[3]))))
-        u.copy_(self.fill(u))
-        v.copy_(self.fill(v))
+        u.copy_(self.fill(u, "plain"))
+        v.copy_(self.fill(v, "plain"))
         uTmp.copy_(u)
         vTmp.copy_(v)
 
@@ -967,7 +968,7 @@ class SeaIce:
             counts.append(icount)
             syncs.append(n)
         uIce, vIce = self.fill_uv(uIce * self.seaiceMaskU,
-                                  vIce * self.seaiceMaskV)
+                                  vIce * self.seaiceMaskV, impl)
         return uIce, vIce, c["dwatn"], counts, syncs
 
     # ------------------------------------------------------------------
@@ -1355,13 +1356,14 @@ class SeaIce:
         upd = {}
         if p.updateOceanStress:
             upd["fu"], upd["fv"] = self.ocean_stress(ice, dwatn, uVel0,
-                                                     vVel0, fu, fv)
+                                                     vVel0, fu, fv, impl)
         ice = self.advdiff(ice, impl=impl)
         ice, forc_upd = self.thermo(ice, forc, theta0, salt0, impl=impl)
         # the end-of-step exchanges (seaice_model.F:1411-1420)
-        ice = ice._replace(HEFF=self.fill(ice.HEFF), AREA=self.fill(ice.AREA),
-                           HSNOW=self.fill(ice.HSNOW),
-                           TICES=self.fill(ice.TICES))
+        ice = ice._replace(HEFF=self.fill(ice.HEFF, impl),
+                           AREA=self.fill(ice.AREA, impl),
+                           HSNOW=self.fill(ice.HSNOW, impl),
+                           TICES=self.fill(ice.TICES, impl))
         for k, v in forc_upd.items():
-            upd[k] = self.fill(v)
+            upd[k] = self.fill(v, impl)
         return ice, upd, {"lsr_iters": counts, "lsr_host_syncs": syncs}

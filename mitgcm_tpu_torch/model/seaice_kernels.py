@@ -19,12 +19,6 @@ _PREP_OUT = ("AU", "BU", "CU", "AV", "BV", "CV", "uRt1", "uRt2", "vRt1",
              "vRt2", "rhsU", "rhsV", "dwatn")
 
 
-def _fields(dtype, shape, **tensors):
-    kernels.check_tensors(dtype, **tensors)
-    for name, t in tensors.items():
-        kernels.check_shape(name, t, shape)
-
-
 def lsr_prep(si, uIce, vIce, uIceC, vIceC, uVel0, vVel0, press0, zMax,
              fxTmp, fyTmp, areaW, areaS, massC, massU, massV) -> dict:
     """seaice_lsr_visc, then seaice_lsr_coeffs (model/seaice.py:lsr_prep)."""
@@ -44,7 +38,7 @@ def lsr_visc(si, uIceC, vIceC, press0, zMax):
                    recip_dyF=g.recip_dyF, recip_dyU=g.recip_dyU,
                    recip_dxV=g.recip_dxV, rAz=g.rAz, recip_rA=g.recip_rA)
     visc_out = dict(eta=eta, zeta=zeta, press=press)
-    _fields(dtype, shape, **visc_in, **visc_out)
+    kernels.check_fields(dtype, shape, **visc_in, **visc_out)
     table = kernels.pointer_table(list(visc_in.values())
                                   + list(visc_out.values()))
     recip_e2 = 1.0 / (p.eccen * p.eccen)
@@ -74,7 +68,7 @@ def lsr_coeffs(si, eta, zeta, press, uIce, vIce, uIceC, vIceC, uVel0, vVel0,
                  recip_dyF=g.recip_dyF, recip_dxV=g.recip_dxV,
                  recip_dyU=g.recip_dyU, dxF=g.dxF, dyF=g.dyF, dxV=g.dxV,
                  dyU=g.dyU, recip_rAw=g.recip_rAw, recip_rAs=g.recip_rAs)
-    _fields(dtype, shape, **co_in, **out)
+    kernels.check_fields(dtype, shape, **co_in, **out)
     table = kernels.pointer_table(list(co_in.values()) + list(out.values()))
     rho = si.cfg.rhoConst
     params = kernels.doubles([
@@ -104,7 +98,8 @@ def lsr_sweep(si, along_x: bool, k: int, c: dict, u, uTmp, ctrl, wf,
     dtype, shape = u.dtype, tuple(u.shape)
     mask = si.seaiceMaskU if along_x else si.seaiceMaskV
     ins = {n: c[n] for n in _SWEEP[along_x]}
-    _fields(dtype, shape, **ins, mask=mask, u=u, uTmp=uTmp, cuu=cuu)
+    kernels.check_fields(dtype, shape, **ins, mask=mask, u=u, uTmp=uTmp,
+                         cuu=cuu)
     _check_ctrl(ctrl, wf, dtype)
     table = kernels.pointer_table(list(ins.values()) + [mask])
     kernels.launch(f"seaice_lsr_tridiag_{'u' if along_x else 'v'}", dtype,
@@ -132,8 +127,8 @@ def lsr_check(si, u, v, uTmp, vTmp, ctrl, wf, ws: Workspace) -> None:
     """seaice_lsr_check (model/seaice.py:lsr_check), in place."""
     cfg, p = si.cfg, si.p
     dtype, shape = u.dtype, tuple(u.shape)
-    _fields(dtype, shape, u=u, v=v, uTmp=uTmp, vTmp=vTmp,
-            maskU=si.seaiceMaskU, maskV=si.seaiceMaskV)
+    kernels.check_fields(dtype, shape, u=u, v=v, uTmp=uTmp, vTmp=vTmp,
+                         maskU=si.seaiceMaskU, maskV=si.seaiceMaskV)
     _check_ctrl(ctrl, wf, dtype)
     kernels.launch("seaice_lsr_check", dtype, u.data_ptr(), v.data_ptr(),
                    uTmp.data_ptr(), vTmp.data_ptr(),
@@ -158,8 +153,8 @@ def advect_x(si, ice, src, dst) -> None:
     p = si.p
     ins = _adv_table(si, ice)
     dtype, shape = src.dtype, tuple(ice.HEFF.shape)
-    _fields(dtype, shape, **ins)
-    _fields(dtype, (3,) + shape, src=src, dst=dst)
+    kernels.check_fields(dtype, shape, **ins)
+    kernels.check_fields(dtype, (3,) + shape, src=src, dst=dst)
     table = kernels.pointer_table(list(ins.values()))
     kernels.launch("seaice_advect_x", dtype, table, len(table),
                    src.data_ptr(), dst.data_ptr(), shape[0], shape[1],
@@ -172,8 +167,8 @@ def advect_y(si, ice, fld, localT, dst) -> None:
     p = si.p
     ins = _adv_table(si, ice)
     dtype, shape = fld.dtype, tuple(ice.HEFF.shape)
-    _fields(dtype, shape, **ins)
-    _fields(dtype, (3,) + shape, fld=fld, localT=localT, dst=dst)
+    kernels.check_fields(dtype, shape, **ins)
+    kernels.check_fields(dtype, (3,) + shape, fld=fld, localT=localT, dst=dst)
     table = kernels.pointer_table(list(ins.values()))
     kernels.launch("seaice_advect_y", dtype, table, len(table),
                    fld.data_ptr(), localT.data_ptr(), dst.data_ptr(),

@@ -42,6 +42,7 @@ from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import calc_gw as calc_gw_mod
 from mitgcm_tpu_torch.model import gad
+from mitgcm_tpu_torch.model.gad import _div
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model import seaice as seaice_mod
@@ -55,6 +56,12 @@ from mitgcm_tpu_torch.ops.stencil import (cyclic_fill_halo, interior_mask,
                                           shift as sh)
 from mitgcm_tpu_torch.solver import cg2d as cg2d_mod
 from mitgcm_tpu_torch.solver import cg3d as cg3d_mod
+
+
+# calls of the twins of kernels E and G in this module (cg2d_rhs,
+# continuity, mom_ab_step, mom_correction), for the card's runs to show
+# that the main path never ran them
+plain_calls = 0
 
 
 @dataclass
@@ -193,22 +200,18 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
         check_branches(cfg)
 
 
-def adams_bashforth2(cfg: Config, g, gNm1, myIter: int):
-    """AB-2 extrapolation (adams_bashforth2.F): (g_extrap, gNm1'), with
-    abFac = 0 on the cold-start first step."""
+def _ab2_fac(cfg: Config, myIter: int) -> float:
+    """AB-2's abFac: 0 on the cold-start first step."""
     startAB = 1 if cfg.startFromPickup else 0
-    abFac = 0.0 if (myIter == cfg.nIter0 and startAB == 0) else 0.5 + cfg.abEps
-    return g + abFac * (g - gNm1), g
+    return 0.0 if (myIter == cfg.nIter0 and startAB == 0) else 0.5 + cfg.abEps
 
 
-def adams_bashforth3(cfg: Config, g, gNm1, gNm2, myIter: int):
-    """AB-3 extrapolation (adams_bashforth3.F): (g_extrap, gNm1', gNm2').
-    gNm1 holds the last raw tendency, gNm2 the one before. Forward Euler on
-    the cold-start step, AB-2-like (alph only) on the next, full AB-3
-    after; a restart from a pickup holds both levels (startAB = 2) and
-    starts with full AB-3. `levels` is the JAX package's count of the
-    levels available, which a straight run and its restart reach by the
-    same arithmetic."""
+def _ab3_coeffs(cfg: Config, myIter: int):
+    """AB-3's (ab0, ab1, ab2). Forward Euler on the cold-start step,
+    AB-2-like (alph only) on the next, full AB-3 after; a restart from a
+    pickup holds both levels (startAB = 2) and starts with full AB-3.
+    `levels` is the JAX package's count of the levels available, which a
+    straight run and its restart reach by the same arithmetic."""
     startAB = 2 if cfg.startFromPickup else 0
     alph, beta = cfg.alph_AB, cfg.beta_AB
     levels = myIter - (cfg.nIter0 - startAB)
@@ -216,6 +219,30 @@ def adams_bashforth3(cfg: Config, g, gNm1, gNm2, myIter: int):
     ab0 = 0.0 if first else alph + (0.0 if second else beta)
     ab1 = 0.0 if first else -alph - (0.0 if second else 2.0 * beta)
     ab2 = 0.0 if (first or second) else beta
+    return ab0, ab1, ab2
+
+
+def ab_params(cfg: Config, myIter: int, use_ab: bool = True) -> tuple:
+    """The host numbers that kernel G takes for the extrapolation: (order,
+    abFac, ab0, ab1, ab2), order 2 or 3, or 0 without AB (use_ab False)."""
+    if not use_ab:
+        return 0, 0.0, 0.0, 0.0, 0.0
+    if cfg.useAB3:
+        return (3, 0.0) + _ab3_coeffs(cfg, myIter)
+    return 2, _ab2_fac(cfg, myIter), 0.0, 0.0, 0.0
+
+
+def adams_bashforth2(cfg: Config, g, gNm1, myIter: int):
+    """AB-2 extrapolation (adams_bashforth2.F): (g_extrap, gNm1'), with
+    abFac = 0 on the cold-start first step (computed, not skipped, as JAX
+    does)."""
+    return g + _ab2_fac(cfg, myIter) * (g - gNm1), g
+
+
+def adams_bashforth3(cfg: Config, g, gNm1, gNm2, myIter: int):
+    """AB-3 extrapolation (adams_bashforth3.F): (g_extrap, gNm1', gNm2').
+    gNm1 holds the last raw tendency, gNm2 the one before."""
+    ab0, ab1, ab2 = _ab3_coeffs(cfg, myIter)
     return g + (ab0 * g + ab1 * gNm1 + ab2 * gNm2), g, gNm1
 
 
@@ -246,6 +273,98 @@ def apply_forcing_uv(cfg: Config, grid: Grid, forcing: Forcing):
     return guExt, gvExt
 
 
+def _mom_ab_step_plain(cfg: Config, grid: Grid, myIter: int, gU, dPhiX,
+                       guDiss, guExt, guNm1, guNm2, u, gV, dPhiY, gvDiss,
+                       gvExt, gvNm1, gvNm2, v, gW=None, gwDiss=None,
+                       gwNm1=None, gwNm2=None, w=None):
+    """Kernel G's mom_ab_step twin (step.py:dynamics of the JAX package,
+    :300-357): (gU, uStar, gV, vStar[, gW, wStar]), the raw tendencies
+    (the next step's gNm1) and the predictors; w's with gW."""
+    out = []
+    for terms, gNm1, gNm2, x, mask in (
+            ((gU, dPhiX, guDiss, guExt), guNm1, guNm2, u, grid.maskW),
+            ((gV, dPhiY, gvDiss, gvExt), gvNm1, gvNm2, v, grid.maskS)):
+        tend, dPhi, diss, ext = terms
+        g = tend - dPhi + diss + ext
+        g_ab = adams_bashforth(cfg, g, gNm1, gNm2, myIter)[0]
+        out += [g, x + cfg.deltaTMom * g_ab * mask]
+    if gW is not None:
+        g = gW + gwDiss
+        g_ab = adams_bashforth(cfg, g, gwNm1, gwNm2, myIter)[0]
+        out += [g, calc_gw_mod.timestep_wvel(cfg, grid, w, g_ab)]
+    return tuple(out)
+
+
+# the inputs of mom_ab_step in its table's order, each component's mask
+# after its velocity (step_glue.cu:MomAbArgs)
+_MOM_AB_IN = ("gU", "dPhiHydX", "guDiss", "guExt", "guNm1", "guNm2", "u",
+              "gV", "dPhiHydY", "gvDiss", "gvExt", "gvNm1", "gvNm2", "v",
+              "gW", "gwDiss", "gwNm1", "gwNm2", "w")
+
+
+def _mom_ab_step_kernel(cfg: Config, grid: Grid, myIter: int, *tensors):
+    """Kernel G's mom_ab_step on the card (step_glue.cu)."""
+    u = tensors[6]
+    nh = len(tensors) > 14
+    order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter)
+    outs = tuple(torch.empty_like(u) for _ in range(6 if nh else 4))
+    # the slots that the launch does not read (gNm2 under AB-2, w's on a
+    # hydrostatic step) hold u
+    ins = dict.fromkeys(_MOM_AB_IN, u)
+    ins.update((n, t) for n, t in zip(_MOM_AB_IN, tensors) if t is not None)
+    if order == 2:
+        ins.update(guNm2=u, gvNm2=u, gwNm2=u)
+    masks = dict(maskW=grid.maskW, maskS=grid.maskS,
+                 **({"maskC": grid.maskC} if nh else {}))
+    kernels.check_fields(u.dtype, u.shape, **ins, **masks,
+                         **{f"out{k}": t for k, t in enumerate(outs)})
+    vals = list(ins.values())
+    table = (vals[:7] + [grid.maskW] + vals[7:14] + [grid.maskS]
+             + vals[14:] + [grid.maskC] + list(outs) + [u] * (6 - len(outs)))
+    nh_fac = 1.0 / cfg.nh_Am2 if cfg.nh_Am2 != 0.0 else 0.0
+    kernels.launch("mom_ab_step", u.dtype, kernels.pointer_table(table),
+                   len(table), *u.shape, order, int(nh), abFac, ab0, ab1,
+                   ab2, cfg.deltaTMom, cfg.deltaTMom * nh_fac)
+    return outs
+
+
+def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
+                dPhiHydY, guExt, gvExt, myIter: int, impl: str = None,
+                gw=None):
+    """The total momentum tendencies, their AB extrapolation and the
+    predictors (dynamics.F + timestep.F): (uStar, vStar, guNm1', gvNm1',
+    guNm2', gvNm2', nh). gw: with nonHydrostatic, calc_gw's (gW, gwDiss),
+    and nh holds w* and the w-tendency history (dynamics.F:642-652,
+    TIMESTEP_WVEL), else None. Kernel G's mom_ab_step on CUDA tensors, its
+    twin on CPU tensors or with impl="plain"."""
+    tensors = [tend.gU, dPhiHydX, tend.guDiss, guExt, state.guNm1,
+               state.guNm2, state.uVel, tend.gV, dPhiHydY, tend.gvDiss,
+               gvExt, state.gvNm1, state.gvNm2, state.vVel]
+    if gw is not None:
+        tensors += [*gw, state.gwNm1, state.gwNm2, state.wVel]
+
+    def twin(*ts):
+        return _mom_ab_step_plain(cfg, grid, myIter, *ts)
+
+    if kernels.use_kernel(state.uVel, impl):
+        outs = kernels.TwinVJP.apply(
+            lambda *ts: _mom_ab_step_kernel(cfg, grid, myIter, *ts), twin,
+            *tensors)
+    else:
+        global plain_calls
+        plain_calls += 1
+        outs = twin(*tensors)
+    guNm1, uStar, gvNm1, vStar = outs[:4]
+    # the level before: AB-3 shifts the raw history down, AB-2 keeps gNm2
+    guNm2, gvNm2, gwNm2 = ((state.guNm1, state.gvNm1, state.gwNm1)
+                           if cfg.useAB3 else
+                           (state.guNm2, state.gvNm2, state.gwNm2))
+    nh = None
+    if gw is not None:
+        nh = {"wStar": outs[5], "gwNm1": outs[4], "gwNm2": gwNm2}
+    return uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, nh
+
+
 def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
              rhoInSitu, myIter: int, impl: str = None, kpp_fields=None,
              ggl90_fields=None):
@@ -268,18 +387,18 @@ def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
         # ggl90_calc_visc.F: KappaRU += GGL90viscArU - viscArNr
         kappaRU[:nr] += ggl90_fields["viscArU"] - cfg.viscAr
         kappaRV[:nr] += ggl90_fields["viscArV"] - cfg.viscAr
-    _, dPhiHydX, dPhiHydY, totPhiHyd = calc_phi_hyd(cfg, grid, rhoInSitu)
+    _, dPhiHydX, dPhiHydY, totPhiHyd = calc_phi_hyd(cfg, grid, rhoInSitu,
+                                                    impl=impl)
     momentum = mom_vecinv if cfg.vectorInvariantMomentum else mom_fluxform
     tend = momentum(cfg, grid, u, v, w, kappaRU, kappaRV, impl=impl)
     guExt, gvExt = apply_forcing_uv(cfg, grid, forcing)
-    gU = tend.gU - dPhiHydX + tend.guDiss + guExt
-    gV = tend.gV - dPhiHydY + tend.gvDiss + gvExt
-    gU_ab, guNm1, guNm2 = adams_bashforth(cfg, gU, state.guNm1, state.guNm2,
-                                          myIter)
-    gV_ab, gvNm1, gvNm2 = adams_bashforth(cfg, gV, state.gvNm1, state.gvNm2,
-                                          myIter)
-    uStar = u + cfg.deltaTMom * gU_ab * grid.maskW
-    vStar = v + cfg.deltaTMom * gV_ab * grid.maskS
+    gw = None
+    if cfg.nonHydrostatic:
+        gw = calc_gw_mod.calc_gw(cfg, grid, u, v, w, kappaRU, kappaRV,
+                                 impl=impl)
+    uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, nh = mom_ab_step(
+        cfg, grid, state, tend, dPhiHydX, dPhiHydY, guExt, gvExt, myIter,
+        impl=impl, gw=gw)
     if cfg.implicitViscosity:
         uStar = thermo_mod.impldiff(cfg, grid, uStar, kappaRU,
                                     grid.recip_hFacW, cfg.deltaTMom,
@@ -287,15 +406,89 @@ def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
         vStar = thermo_mod.impldiff(cfg, grid, vStar, kappaRV,
                                     grid.recip_hFacS, cfg.deltaTMom,
                                     impl=impl)
-    nh = None
-    if cfg.nonHydrostatic:
-        gW, gwDiss = calc_gw_mod.calc_gw(cfg, grid, u, v, w, kappaRU,
-                                         kappaRV, impl=impl)
-        gw_ab, gwNm1, gwNm2 = adams_bashforth(cfg, gW + gwDiss, state.gwNm1,
-                                              state.gwNm2, myIter)
-        nh = {"wStar": calc_gw_mod.timestep_wvel(cfg, grid, w, gw_ab),
-              "gwNm1": gwNm1, "gwNm2": gwNm2}
     return uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh
+
+
+def _predicted_transport(cfg: Config, grid: Grid, uStar, vStar):
+    """(pfx, pfy): the predicted transports over deltaTMom
+    (calc_div_ghat.F), divided as tensors (model/gad.py:_div): one IEEE
+    division on every device, as kernel E divides."""
+    drF = grid.drF[:, None, None]
+    xA = grid.dyG * drF * grid.hFacW
+    yA = grid.dxG * drF * grid.hFacS
+    pfx = _div(cfg.implicDiv2Dflow * xA * uStar, cfg.deltaTMom)
+    pfy = _div(cfg.implicDiv2Dflow * yA * vStar, cfg.deltaTMom)
+    return pfx, pfy
+
+
+def _surf_c(cfg: Config, grid: Grid):
+    """freeSurfFac * rA / deltaTMom / deltaTFreeSurf, divided as tensors."""
+    return _div(_div(cfg.freeSurfFac * grid.rA, cfg.deltaTMom),
+                cfg.deltaTFreeSurf)
+
+
+def _cg2d_rhs_plain(cfg: Config, grid: Grid, uStar, vStar, etaN,
+                    hydrostatic: bool):
+    """Kernel E's cg2d_rhs twin: the divergence of the predicted transport
+    summed level by level in the order k = Nr..1 (solve_for_pressure.F:
+    146-152; a torch.sum over k would change the digits of this
+    cancellation-prone sum). hydrostatic: (cg2d_b,), minus the surface
+    term, masked to the interior; else (cg2d_b, div), div the divergence
+    of each level, the first term of the cg3d right-hand side
+    (step.py:421 of the JAX package)."""
+    pfx, pfy = _predicted_transport(cfg, grid, uStar, vStar)
+    dbx = sh(pfx, di=1) - pfx
+    dby = sh(pfy, dj=1) - pfy
+    cg2d_b = torch.zeros_like(etaN)
+    for k in range(cfg.nr - 1, -1, -1):
+        cg2d_b = cg2d_b + dbx[k]
+        cg2d_b = cg2d_b + dby[k]
+    if not hydrostatic:
+        return cg2d_b, dbx + dby
+    imask = interior_mask(etaN.shape, cfg.oly, cfg.olx, etaN.dtype,
+                          etaN.device)
+    return ((cg2d_b - _surf_c(cfg, grid) * etaN) * imask,)
+
+
+def _cg2d_rhs_kernel(cfg: Config, grid: Grid, uStar, vStar, etaN,
+                     hydrostatic: bool):
+    """Kernel E's cg2d_rhs on the card (step_scans.cu), the twin's
+    outputs."""
+    out = torch.empty_like(etaN)
+    # the hydrostatic launch writes no div: its slot holds out
+    outs = (out,) if hydrostatic else (out, torch.empty_like(uStar))
+    dtype = uStar.dtype
+    kernels.check_fields(dtype, uStar.shape, uStar=uStar, vStar=vStar,
+                         hFacW=grid.hFacW, hFacS=grid.hFacS, **(
+                             {} if hydrostatic else {"div": outs[1]}))
+    kernels.check_fields(dtype, etaN.shape, dyG=grid.dyG, dxG=grid.dxG,
+                         rA=grid.rA, etaN=etaN, out=out)
+    kernels.check_fields(dtype, (cfg.nr,), drF=grid.drF)
+    table = [uStar, vStar, grid.hFacW, grid.hFacS, grid.dyG, grid.dxG,
+             grid.rA, etaN, grid.drF, out, outs[-1]]
+    kernels.launch("cg2d_rhs", dtype, kernels.pointer_table(table),
+                   len(table), *uStar.shape, cfg.oly, cfg.olx,
+                   int(hydrostatic), cfg.implicDiv2Dflow, cfg.deltaTMom,
+                   cfg.freeSurfFac, cfg.deltaTFreeSurf)
+    return outs
+
+
+def cg2d_rhs(cfg: Config, grid: Grid, uStar, vStar, etaN,
+             hydrostatic: bool = True, impl: str = None):
+    """The cg2d right-hand side (solve_for_pressure.F:146-152): with
+    hydrostatic (cg2d_b,), the whole of it; else (the transport divergence
+    summed, each level's divergence): the non-hydrostatic caller adds
+    pre_cg3d's surface term and the mask to the first and builds the cg3d
+    right-hand side on the second. Kernel E's cg2d_rhs on CUDA tensors,
+    its twin on CPU tensors or with impl="plain"."""
+    if not kernels.use_kernel(uStar, impl):
+        global plain_calls
+        plain_calls += 1
+        return _cg2d_rhs_plain(cfg, grid, uStar, vStar, etaN, hydrostatic)
+    return kernels.TwinVJP.apply(
+        lambda *ts: _cg2d_rhs_kernel(cfg, grid, *ts, hydrostatic),
+        lambda *ts: _cg2d_rhs_plain(cfg, grid, *ts, hydrostatic),
+        uStar, vStar, etaN)
 
 
 def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
@@ -304,37 +497,22 @@ def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
     (dynamics' non-hydrostatic output) the cg3d solve for phi_nh
     (pre_cg3d.F, step.py:418-506 of the JAX package). Returns (etaN,
     phi_nh or None, StepDiag)."""
-    imask = interior_mask(state.etaN.shape, cfg.oly, cfg.olx,
-                          uStar.dtype, uStar.device)
-    drF = grid.drF[:, None, None]
     cg2d_x = grid.Bo_surf * state.etaN
-    # divergence of the predicted transport, summed level by level in the
-    # order k = Nr..1 (solve_for_pressure.F:146-152): a torch.sum over k
-    # would change the digits of this cancellation-prone sum
-    xA = grid.dyG * drF * grid.hFacW
-    yA = grid.dxG * drF * grid.hFacS
-    pfx = cfg.implicDiv2Dflow * xA * uStar / cfg.deltaTMom
-    pfy = cfg.implicDiv2Dflow * yA * vStar / cfg.deltaTMom
-    dbx = sh(pfx, di=1) - pfx
-    dby = sh(pfy, dj=1) - pfy
-    cg2d_b = torch.zeros_like(state.etaN)
-    for k in range(cfg.nr - 1, -1, -1):
-        cg2d_b = cg2d_b + dbx[k]
-        cg2d_b = cg2d_b + dby[k]
-    surfC = (cfg.freeSurfFac * grid.rA / cfg.deltaTMom / cfg.deltaTFreeSurf)
-    if nh is None:
-        cg2d_b = cg2d_b - surfC * state.etaN
-    else:
+    cg2d_b, *div = cg2d_rhs(cfg, grid, uStar, vStar, state.etaN,
+                            hydrostatic=nh is None, impl=impl)
+    if nh is not None:
         # oldFreeSurfTerm (solve_for_pressure.F:195-210): the surface term
         # carries etaN + phi_nh(ks)/Bo, added to both right sides
+        drF = grid.drF[:, None, None]
         k3 = torch.arange(cfg.nr, device=uStar.device)[:, None, None]
         selS = (k3 == grid.kSurfC[None] - 1) & (grid.kSurfC[None] <= cfg.nr)
         zero = torch.zeros((), dtype=uStar.dtype, device=uStar.device)
-        surfT = -surfC * (state.etaN + torch.sum(
+        surfT = -_surf_c(cfg, grid) * (state.etaN + torch.sum(
             torch.where(selS, state.phi_nh, zero), dim=0) * grid.recip_Bo)
-        cg2d_b = cg2d_b + surfT
-        cg3d_b = dbx + dby + torch.where(selS, surfT[None], zero)
-    cg2d_b = cg2d_b * imask
+        imask = interior_mask(state.etaN.shape, cfg.oly, cfg.olx,
+                              uStar.dtype, uStar.device)
+        cg2d_b = (cg2d_b + surfT) * imask
+        cg3d_b = div[0] + torch.where(selS, surfT[None], zero)
     res = cg2d_mod.cg2d(cfg, op, cg2d_b, cg2d_x, impl=impl)
     etaN = grid.recip_Bo * res.x
     diag = StepDiag(
@@ -369,10 +547,10 @@ def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
     return etaN, res3.x, diag
 
 
-def momentum_correction_step(cfg: Config, grid: Grid, etaN, uStar, vStar,
-                             phi_nh=None):
-    """momentum_correction_step.F: subtract the new surface-pressure
-    gradient, and with phi_nh the non-hydrostatic one
+def _mom_correction_plain(cfg: Config, grid: Grid, etaN, uStar, vStar,
+                          phi_nh=None):
+    """Kernel G's mom_correction twin: (u, v), momentum_correction_step.F
+    with, given phi_nh, the non-hydrostatic gradient
     (correction_step.F:137-160)."""
     BoEta = grid.Bo_surf * etaN
     phiSurfX = grid.recip_dxC * (BoEta - sh(BoEta, di=-1))
@@ -394,20 +572,86 @@ def momentum_correction_step(cfg: Config, grid: Grid, etaN, uStar, vStar,
     return u, v
 
 
-def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR):
-    """integr_continuity.F + integrate_for_w.F for the linear free surface:
-    returns (wVel, PmEpR'). w is integrated bottom-up level by level."""
+def _mom_correction_kernel(cfg: Config, grid: Grid, etaN, uStar, vStar,
+                           phi_nh=None):
+    """Kernel G's mom_correction on the card (step_glue.cu)."""
+    u, v = torch.empty_like(uStar), torch.empty_like(vStar)
+    nh = phi_nh is not None
+    ph = phi_nh if nh else uStar    # not read without the flag
+    dtype = uStar.dtype
+    kernels.check_fields(dtype, uStar.shape, uStar=uStar, vStar=vStar,
+                         maskW=grid.maskW, maskS=grid.maskS, phi_nh=ph, u=u,
+                         v=v)
+    kernels.check_fields(dtype, etaN.shape, etaN=etaN, Bo_surf=grid.Bo_surf,
+                         recip_dxC=grid.recip_dxC, recip_dyC=grid.recip_dyC)
+    table = [uStar, vStar, grid.maskW, grid.maskS, ph, etaN, grid.Bo_surf,
+             grid.recip_dxC, grid.recip_dyC, u, v]
+    psFac = cfg.implicSurfPress
+    kernels.launch("mom_correction", dtype, kernels.pointer_table(table),
+                   len(table), *uStar.shape, int(nh), cfg.deltaTMom * psFac,
+                   psFac, cfg.implicitNHPress, cfg.deltaTMom)
+    return u, v
+
+
+def momentum_correction_step(cfg: Config, grid: Grid, etaN, uStar, vStar,
+                             phi_nh=None, impl: str = None):
+    """momentum_correction_step.F: subtract the new surface-pressure
+    gradient, and with phi_nh the non-hydrostatic one
+    (correction_step.F:137-160). Kernel G's mom_correction on CUDA
+    tensors, its twin on CPU tensors or with impl="plain"."""
+    if not kernels.use_kernel(uStar, impl):
+        global plain_calls
+        plain_calls += 1
+        return _mom_correction_plain(cfg, grid, etaN, uStar, vStar, phi_nh)
+    return kernels.TwinVJP.apply(
+        lambda *ts: _mom_correction_kernel(cfg, grid, *ts),
+        lambda *ts: _mom_correction_plain(cfg, grid, *ts),
+        etaN, uStar, vStar, phi_nh)
+
+
+def _continuity_plain(cfg: Config, grid: Grid, u, v, EmPmR):
+    """Kernel E's continuity twin: (wVel, PmEpR'), w integrated bottom-up
+    level by level (integrate_for_w.F)."""
     drF = grid.drF[:, None, None]
     uTrans = u * grid.dyG * drF * grid.hFacW
     vTrans = v * grid.dxG * drF * grid.hFacS
     div2d = (sh(uTrans, di=1) - uTrans) + (sh(vTrans, dj=1) - vTrans)
     cr = -div2d * grid.recip_rA
-    w = torch.empty_like(cr)
+    w = []
     w_below = torch.zeros_like(cr[0])
     for k in range(cfg.nr - 1, -1, -1):
         w_below = (w_below + cr[k]) * grid.maskC[k]
-        w[k] = w_below
-    return w, -EmPmR
+        w.append(w_below)
+    return torch.stack(w[::-1]), -EmPmR
+
+
+def _continuity_kernel(cfg: Config, grid: Grid, u, v, EmPmR):
+    """Kernel E's continuity on the card (step_scans.cu)."""
+    w, PmEpR = torch.empty_like(u), torch.empty_like(EmPmR)
+    kernels.check_fields(u.dtype, u.shape, u=u, v=v, hFacW=grid.hFacW,
+                         hFacS=grid.hFacS, maskC=grid.maskC, w=w)
+    kernels.check_fields(u.dtype, EmPmR.shape, dyG=grid.dyG, dxG=grid.dxG,
+                         recip_rA=grid.recip_rA, EmPmR=EmPmR, PmEpR=PmEpR)
+    kernels.check_fields(u.dtype, (cfg.nr,), drF=grid.drF)
+    table = [u, v, grid.hFacW, grid.hFacS, grid.maskC, grid.dyG, grid.dxG,
+             grid.recip_rA, EmPmR, grid.drF, w, PmEpR]
+    kernels.launch("continuity", u.dtype, kernels.pointer_table(table),
+                   len(table), *u.shape)
+    return w, PmEpR
+
+
+def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR,
+                      impl: str = None):
+    """integr_continuity.F + integrate_for_w.F for the linear free surface:
+    returns (wVel, PmEpR'). Kernel E's continuity on CUDA tensors, its twin
+    on CPU tensors or with impl="plain"."""
+    if not kernels.use_kernel(u, impl):
+        global plain_calls
+        plain_calls += 1
+        return _continuity_plain(cfg, grid, u, v, EmPmR)
+    return kernels.TwinVJP.apply(
+        lambda *ts: _continuity_kernel(cfg, grid, *ts),
+        lambda *ts: _continuity_plain(cfg, grid, *ts), u, v, EmPmR)
 
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,
@@ -421,7 +665,7 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     check_supported(cfg, kpp, ggl90, impl, op3, seaice)
 
     def fill(a):
-        return cyclic_fill_halo(a, cfg.oly, cfg.olx)
+        return cyclic_fill_halo(a, cfg.oly, cfg.olx, impl=impl)
 
     forc = load_fields(forcing)
     # the sea ice (do_oceanic_phys.F:448 SEAICE_MODEL; step.py:783-822 of
@@ -483,9 +727,10 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     uStar, vStar = fill(uStar), fill(vStar)
     etaN, phi_nh, diag = solve_for_pressure(cfg, grid, op, state, uStar,
                                             vStar, impl=impl, nh=nh, op3=op3)
-    u, v = momentum_correction_step(cfg, grid, etaN, uStar, vStar, phi_nh)
+    u, v = momentum_correction_step(cfg, grid, etaN, uStar, vStar, phi_nh,
+                                    impl=impl)
     u, v = fill(u), fill(v)
-    w, PmEpR = integr_continuity(cfg, grid, u, v, forc.EmPmR)
+    w, PmEpR = integr_continuity(cfg, grid, u, v, forc.EmPmR, impl=impl)
 
     def fill_if(a, used):
         return fill(a) if used else a

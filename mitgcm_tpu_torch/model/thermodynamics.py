@@ -31,6 +31,10 @@ from mitgcm_tpu_torch.model import gad, som
 from mitgcm_tpu_torch.model.kpp import ghat_flux
 from mitgcm_tpu_torch.ops import eos
 
+# calls of kernel G's tracer_step twin, for the card's runs to show that
+# the main path never ran it
+plain_calls = 0
+
 
 def _impldiff_plain(cfg: Config, grid: Grid, field, kappaR, recip_hFac,
                     deltaT: float):
@@ -100,6 +104,76 @@ def impldiff(cfg: Config, grid: Grid, field, kappaR, recip_hFac,
                    gam.data_ptr(), out.data_ptr(), nr, nyp * nxp,
                    float(deltaT))
     return out
+
+
+def _tracer_step_plain(cfg: Config, grid: Grid, myIter: int, use_ab: bool,
+                       gTr, tracer, gNm1, gNm2, sfc_forc):
+    """Kernel G's tracer_step twin (thermodynamics.py:329-358 of the JAX
+    package): the surface forcing into level ksurf0, the AB extrapolation
+    when use_ab, and the explicit step. (tracer', gTr + gForc) with AB,
+    (tracer',) without (the history passes through)."""
+    from mitgcm_tpu_torch.model.step import adams_bashforth
+
+    ks = cfg.ksurf0
+    gForc = torch.zeros_like(tracer)
+    gForc[ks] = sfc_forc * grid.recip_drF[ks] * grid.recip_hFacC[ks]
+    gTr = gTr + gForc
+    if not use_ab:
+        return (tracer + cfg.deltaTTracer * gTr,)
+    gTr_ab = adams_bashforth(cfg, gTr, gNm1, gNm2, myIter)[0]
+    return tracer + cfg.deltaTTracer * gTr_ab, gTr
+
+
+def _tracer_step_kernel(cfg: Config, grid: Grid, myIter: int, use_ab: bool,
+                        gTr, tracer, gNm1, gNm2, sfc_forc):
+    """Kernel G's tracer_step on the card (kernels/csrc/step_glue.cu):
+    (tracer', g) with AB, (tracer',) without, as the twin."""
+    from mitgcm_tpu_torch.model.step import ab_params
+
+    order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter, use_ab)
+    tr_new = torch.empty_like(tracer)
+    outs = (tr_new, torch.empty_like(tracer)) if order else (tr_new,)
+    # the slots that the launch does not touch (the history without AB or
+    # under AB-2's gNm2, the raw tendency without AB) hold the tracer
+    hist = {"gNm1": gNm1} if order else {}
+    if order == 3:
+        hist["gNm2"] = gNm2
+    ksurf = grid.recip_hFacC[cfg.ksurf0]
+    dtype = tracer.dtype
+    kernels.check_fields(dtype, tracer.shape, gTr=gTr, tracer=tracer,
+                         **hist, **{f"out{k}": t for k, t in enumerate(outs)})
+    kernels.check_fields(dtype, tracer.shape[1:], sfc_forc=sfc_forc,
+                         recip_hFacC_ks=ksurf)
+    kernels.check_fields(dtype, (cfg.nr,), recip_drF=grid.recip_drF)
+    table = [gTr, tracer, hist.get("gNm1", tracer), hist.get("gNm2", tracer),
+             sfc_forc, ksurf, grid.recip_drF, tr_new, outs[-1]]
+    kernels.launch("tracer_step", tracer.dtype, kernels.pointer_table(table),
+                   len(table), *tracer.shape, cfg.ksurf0, order, abFac, ab0,
+                   ab1, ab2, cfg.deltaTTracer)
+    return outs
+
+
+def tracer_step(cfg: Config, grid: Grid, gTr, tracer, gNm1, gNm2, sfc_forc,
+                myIter: int, use_ab: bool, impl: str = None):
+    """The tracer's explicit step (temp_integrate.F, timestep_tracer.F):
+    (tracer', gNm1', gNm2'): the surface forcing sfc_forc into level
+    ksurf0, with use_ab the AB extrapolation of the tendency (whose raw
+    value is the next gNm1; without AB the history passes through), and
+    tracer + deltaTTracer * gTr_ab. Kernel G's tracer_step on CUDA
+    tensors, its twin on CPU tensors or with impl="plain"."""
+    if kernels.use_kernel(tracer, impl):
+        outs = kernels.TwinVJP.apply(
+            lambda *ts: _tracer_step_kernel(cfg, grid, myIter, use_ab, *ts),
+            lambda *ts: _tracer_step_plain(cfg, grid, myIter, use_ab, *ts),
+            gTr, tracer, gNm1, gNm2, sfc_forc)
+    else:
+        global plain_calls
+        plain_calls += 1
+        outs = _tracer_step_plain(cfg, grid, myIter, use_ab, gTr, tracer,
+                                  gNm1, gNm2, sfc_forc)
+    if not use_ab:
+        return outs[0], gNm1, gNm2
+    return outs[0], outs[1], (gNm1 if cfg.useAB3 else gNm2)
 
 
 def surface_forcing_ts(cfg: Config, grid: Grid, state: State,
@@ -174,8 +248,6 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
     velocities that the multi-dimensional and SOM advection advect with;
     som_state: the tracer's moments with scheme 80 or 81 (som' their update,
     else som_state passed through)."""
-    from mitgcm_tpu_torch.model.step import adams_bashforth
-
     scheme, vert_scheme = schemes
     is_som = scheme in som.SOM_SCHEMES
     multidim = gad.is_multidim(cfg, scheme)
@@ -191,18 +263,11 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
         gTr = gad.multidim_advection(cfg, grid, flow, *uvw, tracer, scheme,
                                      vert_scheme, cfg.deltaTTracer,
                                      impl=impl) + gTr
-    ks = cfg.ksurf0
-    gForc = torch.zeros_like(tracer)
-    gForc[ks] = sfc_forc * grid.recip_drF[ks] * grid.recip_hFacC[ks]
-    gTr = gTr + gForc
     # AB on the tendency only for the linear scheme (gad_init_fixed.F:
     # AdamsBashforthGt); the history of a non-linear one passes through
-    if scheme == gad.ENUM_CENTERED_2ND:
-        gTr_ab, gNm1_new, gNm2_new = adams_bashforth(cfg, gTr, gNm1, gNm2,
-                                                     myIter)
-    else:
-        gTr_ab, gNm1_new, gNm2_new = gTr, gNm1, gNm2
-    tr_new = tracer + cfg.deltaTTracer * gTr_ab
+    tr_new, gNm1_new, gNm2_new = tracer_step(
+        cfg, grid, gTr, tracer, gNm1, gNm2, sfc_forc, myIter,
+        use_ab=scheme == gad.ENUM_CENTERED_2ND, impl=impl)
     if cfg.implicitDiffusion:
         tr_new = impldiff(cfg, grid, tr_new, kappaR, grid.recip_hFacC,
                           cfg.deltaTTracer, impl=impl)

@@ -5,12 +5,22 @@ All model fields live on tensors shaped [..., ny + 2*oly, nx + 2*olx].
 at the array edge (not torch.roll, which would wrap). Cells whose stencil
 reaches outside the padded array are garbage by design; consumers only
 trust interior +/- (OL-1) cells between halo fills.
+
+`cyclic_fill_halo`, the single-device halo exchange, runs kernel F
+(kernels/csrc/halo.cu) on CUDA tensors and its twin, the gather, on CPU
+tensors or with impl="plain".
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from mitgcm_tpu_torch import kernels
+
+# calls of kernel F's twin (the gather), for the card's runs to show that
+# the main path never ran it
+plain_calls = 0
 
 
 def shift(a: torch.Tensor, dj: int = 0, di: int = 0) -> torch.Tensor:
@@ -53,34 +63,61 @@ def _fold(g: torch.Tensor, dim: int, ol: int) -> torch.Tensor:
     return acc.movedim(-1, dim)
 
 
+def _gather(a: torch.Tensor, oly: int, olx: int) -> torch.Tensor:
+    """Kernel F's twin: the modular gather of the JAX package's
+    ops/stencil.py:54-69."""
+    ny = a.shape[-2] - 2 * oly
+    nx = a.shape[-1] - 2 * olx
+    inner = a[..., oly:oly + ny, olx:olx + nx]
+    jj = torch.arange(-oly, ny + oly, device=a.device) % ny
+    ii = torch.arange(-olx, nx + olx, device=a.device) % nx
+    return inner.index_select(-2, jj).index_select(-1, ii)
+
+
+def _halo_fill(a: torch.Tensor, oly: int, olx: int) -> torch.Tensor:
+    """Kernel F (kernels/csrc/halo.cu): the wrap into a fresh tensor (of a
+    contiguous copy of `a`, where `a` is a view)."""
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    kernels.check_tensors(a.dtype, a=a, out=out)
+    ny = a.shape[-2] - 2 * oly
+    nx = a.shape[-1] - 2 * olx
+    planes = a.numel() // (a.shape[-2] * a.shape[-1])
+    kernels.launch("halo_fill", a.dtype, a.data_ptr(), out.data_ptr(),
+                   planes, ny, nx, oly, olx)
+    return out
+
+
 class _CyclicFill(torch.autograd.Function):
-    """The fill as a gather; its backward folds the halo cotangents into
-    the interior in a fixed order (index_select's own backward is an
-    index_add, whose atomics on CUDA change the last bit from run to
-    run). The input's halo cells get a zero gradient: they are not read."""
+    """The fill as kernel F on the card (its twin, the gather, on the
+    CPU); its backward folds the halo cotangents into the interior in a
+    fixed order (index_select's own backward is an index_add, whose
+    atomics on CUDA change the last bit from run to run). The input's halo
+    cells get a zero gradient: they are not read."""
 
     @staticmethod
-    def forward(ctx, a, oly: int, olx: int):
+    def forward(ctx, a, oly: int, olx: int, kernel: bool):
         ctx.ol = (oly, olx)
-        ny = a.shape[-2] - 2 * oly
-        nx = a.shape[-1] - 2 * olx
-        inner = a[..., oly:oly + ny, olx:olx + nx]
-        jj = torch.arange(-oly, ny + oly, device=a.device) % ny
-        ii = torch.arange(-olx, nx + olx, device=a.device) % nx
-        return inner.index_select(-2, jj).index_select(-1, ii)
+        return _halo_fill(a, oly, olx) if kernel else _gather(a, oly, olx)
 
     @staticmethod
     def backward(ctx, g):
         oly, olx = ctx.ol
         inner = _fold(_fold(g, -1, olx), -2, oly)
-        return F.pad(inner, (olx, olx, oly, oly)), None, None
+        return F.pad(inner, (olx, olx, oly, oly)), None, None, None
 
 
-def cyclic_fill_halo(a: torch.Tensor, oly: int, olx: int) -> torch.Tensor:
+def cyclic_fill_halo(a: torch.Tensor, oly: int, olx: int,
+                     impl: str = None) -> torch.Tensor:
     """Single-device halo exchange: cyclic wrap of the interior into the
     halos, as a modular gather (exact also when a halo is wider than the
-    interior), with a deterministic backward."""
-    return _CyclicFill.apply(a, oly, olx)
+    interior), with a deterministic backward. Kernel F on CUDA tensors,
+    its twin on CPU tensors or with impl="plain"."""
+    kernel = kernels.use_kernel(a, impl)
+    if not kernel:
+        global plain_calls
+        plain_calls += 1
+    return _CyclicFill.apply(a, oly, olx, kernel)
 
 
 def interior(a: torch.Tensor, oly: int, olx: int) -> torch.Tensor:

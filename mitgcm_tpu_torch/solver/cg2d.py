@@ -188,7 +188,7 @@ def stencil_dot(cW, cS, cC, y, out, dot_out, center_first: bool, oly: int,
     interior. Reads y's interior and its cyclic wrap, never y's halo
     cells; leaves out's halo cells as they are."""
     if not kernels.use_kernel(y, impl):
-        y = cyclic_fill_halo(y, oly, olx)
+        y = cyclic_fill_halo(y, oly, olx, impl="plain")
         v = _stencil5(cW, cS, cC, y, center_first)
         _set_interior(out, v, oly, olx)
         dot_out.copy_(_grid_sum(v * y, oly, olx))
@@ -320,7 +320,7 @@ def _solve(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
         x = x_min
     if normalise:
         x = x / rhsNorm
-    return CG2DResult(x=cyclic_fill_halo(x, oly, olx),
+    return CG2DResult(x=cyclic_fill_halo(x, oly, olx, impl=impl),
                       first_residual=first_res,
                       last_residual=torch.sqrt(err_sq), n_iters=it,
                       host_syncs=syncs)

@@ -241,7 +241,7 @@ def s_stencil_dot(op: CG3DOperator, maskC, q, s_in, s_out, qa, eta_n,
         imask = interior_mask(q.shape, oly, olx, q.dtype, q.device) * maskC
         s = (q + eta_n / eta_nm1 * s_in) * imask
         _set_interior(s_out, s, oly, olx)
-        a = apply_A(op, cyclic_fill_halo(s, oly, olx)) * imask
+        a = apply_A(op, cyclic_fill_halo(s, oly, olx, impl="plain")) * imask
         _set_interior(qa, a, oly, olx)
         dot_out.copy_(_grid_sum(_col_sum(s, a, maskC, range(s.shape[0])),
                                 oly, olx))
@@ -399,7 +399,7 @@ def _solve(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
             it += 1
     if normalise:
         x = x / rhsNorm
-    return CG3DResult(x=cyclic_fill_halo(x, oly, olx),
+    return CG3DResult(x=cyclic_fill_halo(x, oly, olx, impl=impl),
                       first_residual=first_res,
                       last_residual=torch.sqrt(err_sq), n_iters=it,
                       host_syncs=syncs)
