@@ -129,8 +129,28 @@ exits nonzero without the final line:
                  box's E and G at x50), with each kernel's time, its
                  twin's and its bound, and for F the time of
                  F.pad(mode="circular"), which computes the same fill.
-                 Every full-size phase (5, 6, 7-13) asserts the launches of
-                 D-G on its path and that no twin of theirs ran
+                 Every full-size phase (5, 6, 7-13, 15) asserts the launches
+                 of D-G on its path and that no twin of theirs ran
+ 15. sea ice EVP: the evp-ice-gyre (the ice-gyre under lab_sea/input.hb87's
+                 dynamics: adaptive EVP with 500 subcycles, Hibler-Bryan
+                 stress coupling): H-seaice EVP's loop (evp_loop: its
+                 launches seaice_evp_stress and seaice_evp_uv, the last
+                 with the drag and divergence) for the adaptive, revised
+                 (alpha = beta = 500), classic and EVP* variants, one
+                 subcycle and the whole loop, and seaice_freedrift,
+                 against their twins on whole arrays at 64x64 float64 and
+                 1024x1024 float32 (bit-equal); 3 float64 steps of the
+                 64x64x12 evp-ice-gyre kernel path against plain path
+                 (every field bit-equal), a 2+2 restart through
+                 pickup_seaice with the EVP stresses, 2 steps of the
+                 free-drift ice-gyre kernel path against plain path (every
+                 field bit-equal); then the 1024x1024x32
+                 float32 evp-ice-gyre (deltaT=600): one warm-up step and 5
+                 timed steps with every launch count (500 of each EVP
+                 launch a step, no LSR launch, no twin, no host read in
+                 the loop), |uIce| and the mean AREA, a profile, then 1
+                 plain step held against 1 kernel step from the same state
+                 (every ice field, uVel and theta bit-equal)
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -140,8 +160,9 @@ the main path that runs it: phase 5 for the gyre's forward kernels, phase
 and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
 O and pqm-gyre for P, phase 11's idemix-gyre for H-IDEMIX and som-gyre for
 H-SOM, phase 12's box for W and H-cg3d, phase 13's ice-gyre for the sea
-ice's, phase 5's gyre for D-G), with the kernel's time (D-G's from phase
-14), its plain twin's, and its bound (the larger of the bytes it must move over 3.35
+ice's, phase 15's evp-ice-gyre for EVP's and its free-drift run for
+seaice_freedrift, phase 5's gyre for D-G), with the kernel's time (D-G's
+from phase 14), its plain twin's, and its bound (the larger of the bytes it must move over 3.35
 TB/s and its estimated operations over 67 TFLOP/s, the H100's float32
 peaks) at the full-size float32 shapes of its path (1024x1024x32, the
 box's 1024x1024x50), the card's name and power limit, and the device
@@ -259,6 +280,14 @@ KERNELS = {
                         "mitgcm_tpu/model/seaice.py:1345"),
     "seaice_thermo": ("mitgcm_tpu_torch/kernels/csrc/seaice_thermo.cu",
                       "mitgcm_tpu/model/seaice.py:1681"),
+    # the evp-ice-gyre's H-seaice EVP (two launches a subcycle) and the
+    # free-drift path's kernel
+    "seaice_evp_stress": ("mitgcm_tpu_torch/kernels/csrc/seaice_evp.cu",
+                          "mitgcm_tpu/model/seaice.py:1116"),
+    "seaice_evp_uv": ("mitgcm_tpu_torch/kernels/csrc/seaice_evp.cu",
+                      "mitgcm_tpu/model/seaice.py:1160"),
+    "seaice_freedrift": ("mitgcm_tpu_torch/kernels/csrc/seaice_freedrift.cu",
+                         "mitgcm_tpu/model/seaice.py:1246"),
     # the step's glue on every path: F, D, E (two scans) and G (three
     # passes)
     "halo_fill": ("mitgcm_tpu_torch/kernels/csrc/halo.cu",
@@ -348,6 +377,17 @@ NH_KERNELS = CG3D_KERNELS + ("calc_gw",)
 ICE_KERNELS = ("seaice_lsr_visc", "seaice_lsr_coeffs", "seaice_lsr_tridiag_u",
                "seaice_lsr_tridiag_v", "seaice_lsr_check", "seaice_advect_x",
                "seaice_advect_y", "seaice_thermo")
+EVP_KERNELS = ("seaice_evp_stress", "seaice_evp_uv", "seaice_freedrift")
+# the EVP variants phase 15 holds against the twins: SEAICE_PARM01 settings
+# on top of the ice-gyre's; the evp-ice-gyre's adaptive EVP (its JSON row)
+# last
+EVP_VARIANTS = {
+    "revised": {"SEAICE_evpAlpha": 500.0, "SEAICEnEVPstarSteps": 500},
+    "classic": {"SEAICEuseEVPrev": False, "SEAICEuseEVPstar": False,
+                "SEAICE_deltaTevp": 60.0},
+    "EVP*": {"SEAICEuseEVPrev": False, "SEAICE_deltaTevp": 60.0},
+    "aEVP": {"SEAICEaEVPcoeff": 0.5, "SEAICEnEVPstarSteps": 500},
+}
 # launches in phase 12's 5 timed full-size steps besides H-cg3d's (whose
 # count follows from each solve's batches, nh_full_phase): W and B once a
 # step, C for theta alone, no other kernel of the gyres, and D-G with the
@@ -393,6 +433,12 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 "seaice_lsr_tridiag_u": 6, "seaice_lsr_tridiag_v": 6,
                 "seaice_lsr_check": 4, "seaice_advect_x": 120,
                 "seaice_advect_y": 150, "seaice_thermo": 800,
+                # EVP's launches (sigma12 recomputed at 3 Z points and the
+                # drag at 3 C points a thread in seaice_evp_uv) and free
+                # drift's (3 C-point solves a thread, atan2, sin, cos and
+                # sqrt counted as 20 flops each)
+                "seaice_evp_stress": 120, "seaice_evp_uv": 250,
+                "seaice_freedrift": 450,
                 # the step's glue, per cell of its largest field (D and E
                 # recompute the west/south or east/north neighbour
                 # column; mom_ab_step's two components)
@@ -417,7 +463,13 @@ GLUE_FIELDS = {
         (0, 7),
     "seaice glue ocean_stress (uIce, vIce, uVel0, vVel0, dwatn, fCori, AREA,"
     " fu, fv in; fu, fv out)": (0, 11),
-    "H seaice EVP subcycle": (0, 20),
+    "seaice glue ocean_stress_hb87 (AREA, windTauX/Y, stressDivX/Y, fu, fv "
+    "in; fu, fv out)": (0, 9),
+    "seaice glue clipVelocities (uIce, vIce in and out)": (0, 4),
+    "seaice glue no-dynamics oceandrag (uIce, vIce, uVel0, vVel0, maskInW/S,"
+    " yC, HEFFM in; dwatn out)": (0, 9),
+    "seaice glue EVP set-up (HEFFM, AREA, massU, massV in; sumNorm, areaW, "
+    "areaS, locMaskU/V out)": (0, 9),
 }
 # the prognostic fields of GGL90, IDEMIX and SOM that a gyre may carry
 PROGNOSTIC_EXTRA = ("GGL90TKE", "IDEMIX_E", "somT", "somS")
@@ -476,6 +528,39 @@ def cuda_time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def launch_ms(call, name, reps, batch=20):
+    """Device ms of one launch of kernel `name`: the first launch of it
+    that `call` (a wrapper call) makes is captured and replayed `batch`
+    times back to back between two CUDA events, the median over reps
+    divided by batch, as a loop that enqueues its launches ahead of the
+    card runs them (the wrapper's host work, which a single call's events
+    hold, left out)."""
+    from mitgcm_tpu_torch import kernels
+
+    captured = []
+    saved = kernels.launch
+
+    def capture(*args):
+        if args[0] == name and not captured:
+            captured.append(args)
+        saved(*args)
+
+    kernels.launch = capture
+    try:
+        outs = call()
+    finally:
+        kernels.launch = saved
+    (args,) = captured
+
+    def replay():
+        for _ in range(batch):
+            saved(*args)
+
+    ms = cuda_time_ms(replay, reps) / batch
+    del outs
+    return ms
 
 
 def glue_plain_calls():
@@ -801,7 +886,7 @@ def full_phase(kernels):
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
-               and launches.get(k, 0) == 0]
+               + EVP_KERNELS and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -2561,6 +2646,7 @@ def ice_full_phase(kernels, smi):
             "seaice_lsr_tridiag_u": 2 * batches,
             "seaice_lsr_tridiag_v": 2 * batches, "seaice_lsr_check": batches,
             "seaice_advect_x": 5, "seaice_advect_y": 5, "seaice_thermo": 5,
+            **{k: 0 for k in EVP_KERNELS},
             # the sea ice's fills: the ocean stress, the ice velocity after
             # the LSR, the four ice fields and the updated forcing
             "halo_fill": 120}
@@ -2594,6 +2680,311 @@ def ice_phase(kernels, results, smi):
     run = ice_full_phase(kernels, smi)
     torch.cuda.empty_cache()
     return {k: run[k] for k in ICE_KERNELS}
+
+
+class EvpCase:
+    """The evp-ice-gyre's grid with seeded ice, EVP stresses, ocean and
+    forcing on the card, and a SeaIce for each of EVP_VARIANTS."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.model.seaice import (SeaIce,
+                                                   params_from_namelists)
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.evp_ice_gyre_config(nx=n, ny=n, nr=nr,
+                                                 deltaT=600.0)
+        self.grid = (shared_grid(self.cfg, dtype)
+                     or synthetic.gyre_grid(self.cfg, dtype=dtype,
+                                            device="cuda"))
+        self.si = {name: SeaIce(self.cfg, self.grid, params_from_namelists(
+            self.cfg, {**synthetic.ICE_GYRE_SEAICE, **nml}))
+            for name, nml in EVP_VARIANTS.items()}
+        si = self.si["aEVP"]
+        rng = np.random.default_rng(SEED + 15)
+        shape = tuple(self.grid.rA.shape)
+
+        def fld(lo, hi, mask=None):
+            a = torch.as_tensor(rng.uniform(lo, hi, shape), dtype=dtype,
+                                device="cuda")
+            return a * mask if mask is not None else a
+
+        mU, mV, hm = si.seaiceMaskU, si.seaiceMaskV, si.HEFFM
+        self.ice = si.init_state()._replace(
+            uIce=si.fill(fld(-0.2, 0.2, mU)), vIce=si.fill(fld(-0.2, 0.2, mV)),
+            AREA=fld(0.0, 1.0, hm), HEFF=fld(0.0, 3.0, hm),
+            HSNOW=fld(0.0, 0.5, hm),
+            sigma=torch.stack([fld(-1e3, 1e3, hm), fld(-1e3, 1e3, hm),
+                               fld(-1e3, 1e3)]))
+        massU = fld(0.0, 3e3, mU)
+        massU[::3, ::2] = 0.0        # cells without ice mass
+        self.dyn = dict(uVel0=fld(-0.3, 0.3), vVel0=fld(-0.3, 0.3),
+                        press0=fld(0.0, 4e4, hm), massC=fld(1e3, 3e3, hm),
+                        massU=massU, massV=fld(0.0, 3e3, mV),
+                        forcex0=fld(-1.0, 1.0), forcey0=fld(-1.0, 1.0))
+        # the step's initial ice velocity, seeded apart from the
+        # subcycle's u and v (a later subcycle's, as they differ there)
+        self.uvNm1 = (si.fill(fld(-0.2, 0.2, mU)),
+                      si.fill(fld(-0.2, 0.2, mV)))
+
+    label = Case.label
+
+
+def evp_kernel_phase(case, results, reps, plain_reps):
+    """For each EVP variant, the main path's loop seaice_kernels.evp_loop
+    against its twin SeaIce._evp_loop_plain on the same inputs, on whole
+    arrays, bit for bit: one subcycle, whose sigma1 and sigma2 are
+    seaice_evp_stress's and whose u, v, sigma12, dwatn and divergence are
+    seaice_evp_uv's (last launch), with the step's initial velocity seeded
+    apart from u and v; then the variant's whole loop through SeaIce.evp,
+    kernel path against plain path. Each kernel is timed a launch back to
+    back (launch_ms, the first launch of each in a 2-subcycle loop: the
+    loop enqueues its 1000 launches a step so) and each twin a call; then
+    seaice_freedrift against its twin."""
+    from mitgcm_tpu_torch.model import seaice_kernels as sk
+
+    ice, d = case.ice, case.dyn
+    dyn = [d[k] for k in ("uVel0", "vVel0", "press0", "massC", "massU",
+                          "massV", "forcex0", "forcey0")]
+    fixed = dict(uNm1=case.uvNm1[0], vNm1=case.uvNm1[1],
+                 **{k: d[k] for k in ("uVel0", "vVel0", "forcex0", "forcey0",
+                                      "massC", "massU", "massV")})
+    u, v, (s1, s2, s12) = ice.uIce, ice.vIce, ice.sigma
+    for name, si in case.si.items():
+        label = "" if name == "aEVP" else f"({name})"
+        setup = si.evp_setup(ice, d["massU"], d["massV"])
+        args = (u, v, s1, s2, s12, d["press0"], fixed, setup)
+        uk, vk, dwk, sigk, dxk, dyk = sk.evp_loop(si, *args, 1)
+        up, vp, dwp, sigp, dxp, dyp = si._evp_loop_plain(*args, 1)
+        sa = (u, v, s1, s2, d["press0"], d["massC"])
+        st = si._evp_stress_plain(*sa)
+        ub = (u, v, s12, *st, *fixed.values())
+        # what one launch reads (each input once) and writes: stress 13
+        # fields and sigma1, sigma2, zeta, alpha; uv 36 fields and u, v,
+        # sigma12 (the last launch also dwatn and the divergence)
+        touched_a = (list(sk._stress_ins(si, *sa).values())
+                     + [torch.empty_like(u) for _ in range(4)])
+        touched_b = (list(sk._uv_ins(si, u, v, s12, *st, fixed,
+                                     setup).values())
+                     + [torch.empty_like(u) for _ in range(3)])
+
+        def loop2():
+            return sk.evp_loop(si, *args, 2)
+        exact_compare(
+            "seaice_evp_stress" + label, case, [sigk[0], sigk[1]],
+            [sigp[0], sigp[1]], launch_ms(loop2, "seaice_evp_stress", reps),
+            cuda_time_ms(lambda: si._evp_stress_plain(*sa), plain_reps),
+            results, touched=touched_a)
+        exact_compare(
+            "seaice_evp_uv" + label, case, [uk, vk, sigk[2], dwk, dxk, dyk],
+            [up, vp, sigp[2], dwp, dxp, dyp],
+            launch_ms(loop2, "seaice_evp_uv", reps),
+            cuda_time_ms(lambda: si._evp_uv_plain(*ub, setup), plain_reps),
+            results, touched=touched_b)
+        rk = si.evp(ice, *dyn)
+        rp = si.evp(ice, *dyn, impl="plain")
+        same = all(torch.equal(a, b) for a, b in zip(rk, rp))
+        print(f"EVP loop {name:10s} {case.label:18s} "
+              f"{si.p.nEVPstarSteps} subcycles: u, v, dwatn, sigma, "
+              f"divX, divY bit-equal {same}, |uIce| max "
+              f"{float(rk[0].abs().max()):.4e}", flush=True)
+        if not same:
+            raise AssertionError(f"the EVP loop ({name}) disagrees with its "
+                                 f"twins at {case.label}")
+    si = case.si["aEVP"]
+    fd = (ice.HEFF, d["uVel0"], d["vVel0"], d["forcex0"], d["forcey0"])
+    exact_compare("seaice_freedrift", case, list(sk.freedrift(si, *fd)),
+                  list(si._freedrift_plain(*fd)),
+                  launch_ms(lambda: sk.freedrift(si, *fd),
+                            "seaice_freedrift", reps),
+                  cuda_time_ms(lambda: si._freedrift_plain(*fd), plain_reps),
+                  results, call=lambda: sk.freedrift(si, *fd))
+
+
+def evp_experiment(n, nr, dtype, impl=None, free_drift=False, **kw):
+    """The evp-ice-gyre (or, with free_drift, the ice-gyre under free
+    drift) on the card."""
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    if free_drift:
+        cfg = synthetic.ice_gyre_config(nx=n, ny=n, nr=nr, **kw)
+        cfg.seaice.useFreeDrift = True
+    else:
+        cfg = synthetic.evp_ice_gyre_config(nx=n, ny=n, nr=nr, **kw)
+    grid, state, forcing, op, kpp, si = synthetic.ice_gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype))
+    return Experiment(cfg, grid, state, forcing, op, kpp=kpp, impl=impl,
+                      seaice=si)
+
+
+EVP_STATE = ICE_STATE + ("siSigma",)
+
+
+def evp_parity_phase(free_drift=False, steps=3):
+    """Float64 steps of the 64x64x12 evp-ice-gyre (or free-drift ice-gyre),
+    kernel path against plain path: every record to PARITY_DIGITS, equal
+    cg2d iterations, and the ice and ocean fields, sigma included, bit for
+    bit; returns the kernel path's launches."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.utils.compare import record_digits
+
+    exps = {impl: evp_experiment(64, 12, torch.float64, impl, free_drift)
+            for impl in (None, "plain")}
+    kernels.launches.clear()
+    runs = {None: exps[None].run(n_steps=steps)}
+    launches = dict(kernels.launches)
+    runs["plain"] = exps["plain"].run(n_steps=steps)
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        key = min(dig, key=dig.get)
+        worst = min(worst, dig[key])
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError("evp-ice-gyre cg2d iterations differ")
+    names = (ICE_STATE if free_drift else EVP_STATE) + (
+        "uVel", "theta", "salt", "etaN")
+    same = [n for n in names if torch.equal(getattr(exps[None].state, n),
+                                            getattr(exps["plain"].state, n))]
+    label = "free-drift ice-gyre" if free_drift else "evp-ice-gyre"
+    print(f"{label} parity, 64x64x12 float64, {steps} steps: fewest "
+          f"matching digits {worst:.2f} ({key}); bit-equal fields "
+          f"{len(same)} of {len(names)}; mean AREA "
+          f"{runs[None][-1]['seaice_area_mean']:.10f}, |uIce| max "
+          f"{float(exps[None].state.uIce.abs().max()):.4e}; launches "
+          f"{ {k: launches.get(k, 0) for k in EVP_KERNELS} }", flush=True)
+    if not worst >= PARITY_DIGITS or len(same) != len(names):
+        raise AssertionError(f"{label} kernel path differs from the plain "
+                             f"path (bit-equal: {same} of {names})")
+    return launches
+
+
+def evp_restart_phase():
+    """A 2+2 restart of the 64x64x12 float64 evp-ice-gyre through pickup
+    and pickup_seaice (the EVP stresses included) on the kernel path,
+    against 4 straight steps."""
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import read_pickup, write_pickup
+
+    e4 = evp_experiment(64, 12, torch.float64)
+    e4.run(n_steps=4, collect_monitor=False)
+    e2 = evp_experiment(64, 12, torch.float64)
+    e2.run(n_steps=2, collect_monitor=False)
+    e22 = evp_experiment(64, 12, torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_pickup(e2, tmp, 2)
+        read_pickup(e22, tmp, 2)
+    e22.run(n_steps=2, collect_monitor=False)
+    ol = e4.cfg.olx
+    names = ("uVel", "vVel", "theta", "salt", "etaN", "guNm1") + EVP_STATE
+    differ = [n for n in names
+              if not torch.equal(getattr(e4.state, n)[..., ol:-ol, ol:-ol],
+                                 getattr(e22.state, n)[..., ol:-ol, ol:-ol])]
+    print(f"2+2 restart of the evp-ice-gyre on the kernel path, 64x64x12 "
+          f"float64: {len(names) - len(differ)} of {len(names)} fields "
+          f"bit-equal (sigma through siSigm1/2/12)", flush=True)
+    if differ:
+        raise AssertionError(f"evp-ice-gyre restart differs in {differ}")
+
+
+def evp_full_phase(kernels, smi):
+    """The 1024x1024x32 float32 evp-ice-gyre (deltaT = 600): a warm-up
+    step, 5 timed steps with every launch count (500 subcycles a step, two
+    launches each, no LSR launch, no twin), the peak memory, |uIce| and the
+    mean AREA, a profile, then 1 plain step, held against 1 kernel step
+    from the same state (the ice fields, uVel and theta bit-equal)."""
+    from mitgcm_tpu_torch.model import kpp as kpp_mod
+    from mitgcm_tpu_torch.model import seaice as seaice_mod
+
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = evp_experiment(n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    state0 = exp.state
+    points = n * n * nr
+    nsub = exp.seaice.p.nEVPstarSteps
+
+    def run(state, it0, steps, impl):
+        exp.state, exp.cur_iter, exp.impl = state, it0, impl
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, sec_w = run(state0, 0, 1, None)
+    kernels.launches.clear()
+    plain0 = (kpp_mod.plain_calls + seaice_mod.plain_calls
+              + glue_plain_calls())
+    state, sec = run(state1, 1, 5, None)
+    launches = dict(kernels.launches)
+    plain = (kpp_mod.plain_calls + seaice_mod.plain_calls
+             + glue_plain_calls() - plain0)
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms")
+    print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
+          f"{points * 5 / sec:.4e} points*steps/s, {nsub} EVP subcycles "
+          f"a step, no host read inside the loop")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; plain KPP, sea-ice and D-G calls {plain}; launches "
+          f"{launches}", flush=True)
+    for name in ("uVel", "vVel", "theta", "salt", "etaN") + EVP_STATE:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"evp-ice-gyre {name} is not finite")
+    ol = exp.cfg.olx
+    area = state.siAREA[ol:-ol, ol:-ol]
+    wet = exp.grid.maskC[0, ol:-ol, ol:-ol] > 0
+    mean_area = float(area[wet].mean())
+    umax = float(state.uIce.abs().max())
+    print(f"after 6 steps: mean AREA {mean_area:.6f} over the wet cells, "
+          f"|uIce| max {umax:.4e} m/s, |vIce| max "
+          f"{float(state.vIce.abs().max()):.4e} m/s, |sigma| max "
+          f"{float(state.siSigma.abs().max()):.4e}", flush=True)
+    want = {**KPP_LAUNCHES, "seaice_evp_stress": 5 * nsub,
+            "seaice_evp_uv": 5 * nsub, "seaice_freedrift": 0,
+            **{k: 0 for k in ICE_KERNELS[:5]},
+            "seaice_advect_x": 5, "seaice_advect_y": 5, "seaice_thermo": 5,
+            # the sea ice's fills: the ocean stress, the four ice fields and
+            # the updated forcing (EVP fills u and v inside seaice_evp_uv)
+            "halo_fill": 110}
+    check_launches("evp-ice-gyre", launches, want, plain)
+    clip = exp.seaice.p.clipVelocities
+    if not mean_area > 0.0 or (clip and umax > 0.40):
+        raise AssertionError(f"evp-ice-gyre mean AREA {mean_area}, |uIce| "
+                             f"max {umax} (clipVelocities {clip})")
+    profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
+    state_k, _ = run(state1, 1, 1, None)
+    state_p, sec_p = run(state1, 1, 1, "plain")
+    names = EVP_STATE + ("uVel", "theta")
+    same = [k for k in names
+            if torch.equal(getattr(state_k, k), getattr(state_p, k))]
+    print(f"plain path: 1 step, {sec_p * 1e3:.2f} ms/step, "
+          f"{points / sec_p:.4e} points*steps/s; against the kernel path's "
+          f"step from the same state, bit-equal fields {same}", flush=True)
+    if len(same) != len(names):
+        raise AssertionError(f"evp-ice-gyre plain step differs from the "
+                             f"kernel step: bit-equal {same} of {names}")
+    return launches
+
+
+def evp_phase(kernels, results, smi):
+    phase("15 sea ice EVP: the evp-ice-gyre")
+    evp_kernel_phase(EvpCase(64, 12, torch.float64), results, 20, 5)
+    evp_kernel_phase(EvpCase(1024, 32, torch.float32), results, 10, 2)
+    torch.cuda.empty_cache()
+    evp_parity_phase()
+    evp_restart_phase()
+    fd = evp_parity_phase(free_drift=True, steps=2)
+    if fd.get("seaice_freedrift", 0) != 2 or fd.get("seaice_evp_uv", 0):
+        raise AssertionError(f"free-drift launches {fd}")
+    run = evp_full_phase(kernels, smi)
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+    return {"seaice_evp_stress": run["seaice_evp_stress"],
+            "seaice_evp_uv": run["seaice_evp_uv"],
+            "seaice_freedrift": fd["seaice_freedrift"]}
 
 
 class GlueCase:
@@ -2824,6 +3215,7 @@ def main():
     launches.update(nh_phase(kernels, results, smi))
     launches.update(ice_phase(kernels, results, smi))
     glue_phase(results)
+    launches.update(evp_phase(kernels, results, smi))
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

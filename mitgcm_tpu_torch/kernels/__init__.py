@@ -141,6 +141,15 @@ SIGNATURES = {
     # three diffKh); stream
     "seaice_advect_x": [_PP, _I, _P, _P] + [_I] * 4 + [_D, _P],
     "seaice_advect_y": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 4 + [_P],
+    # kernel H-seaice EVP: pointer table, its length; parameter array, its
+    # length; seaice_evp_stress: nyp, nxp, adaptive, revised-or-adaptive
+    # denominators; seaice_evp_uv: ny, nx, ol, the same two flags, last;
+    # stream
+    "seaice_evp_stress": [_PP, _I, _PD, _I] + [_I] * 4 + [_P],
+    "seaice_evp_uv": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
+    # seaice_freedrift: pointer table, its length; parameter array, its
+    # length; ny, nx, ol; stream
+    "seaice_freedrift": [_PP, _I, _PD, _I] + [_I] * 3 + [_P],
     # kernel F: src, dst; planes, ny, nx, oly, olx; stream
     "halo_fill": [_P] * 2 + [_I] * 5 + [_P],
     # kernel D: rho, drC, rF, rC, recip_dxC, recip_dyC, phiHydC, dPhiHydX,

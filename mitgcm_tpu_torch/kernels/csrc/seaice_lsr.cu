@@ -39,25 +39,9 @@
 // sequence, two divisions a cell, and a half-sweep has only nTiles * sNy / 2
 // threads (8192 at 1024 x 1024 with 64 x 64 tiles).
 
-#include <cstring>
-
-#include "gad_advect.cuh"
+#include "seaice.cuh"
 
 namespace mitgcm {
-
-template <typename T>
-struct Fld {   // a [nyp, nxp] field read with the JAX code's zero fill
-  const T* f;
-  int nyp, nxp;
-  __device__ T operator()(int j, int i) const {
-    return (i < 0 || i >= nxp || j < 0 || j >= nyp)
-               ? T(0) : f[static_cast<size_t>(j) * nxp + i];
-  }
-};
-
-__device__ __forceinline__ bool in2(int j, int i, int nyp, int nxp) {
-  return i >= 0 && i < nxp && j >= 0 && j < nyp;
-}
 
 // ---------------------------------------------------------------------
 // seaice_lsr_visc
@@ -73,11 +57,6 @@ constexpr int kViscPointers = 14;
 struct ViscParams {
   double zetaMin, deltaMin, recip_e2, pressReplFac, tns;
 };
-
-template <typename T>
-__device__ T hm4_at(const Fld<T>& hm, int j, int i) {
-  return hm(j, i) * hm(j, i - 1) * hm(j - 1, i) * hm(j - 1, i - 1);
-}
 
 template <typename T>
 __global__ void seaice_lsr_visc_kernel(const ViscArgs<T> a,
@@ -434,15 +413,6 @@ __global__ void seaice_lsr_check_kernel(
   }
   ctrl[1] = m;
   ctrl[0] = (m < maxIter && (ctrl[2] || ctrl[3])) ? 0 : 1;
-}
-
-template <typename T, typename Args, int N>
-bool table_of(const void* const* table, int n, Args* a) {
-  static_assert(sizeof(Args) == N * sizeof(void*),
-                "the argument struct must be a plain table of pointers");
-  if (n != N) return false;
-  std::memcpy(a, table, sizeof(*a));
-  return true;
 }
 
 template <typename T>

@@ -121,6 +121,10 @@ _FIELD = {"Uvel": "uVel", "Vvel": "vVel", "Theta": "theta", "Salt": "salt",
           "PmEpR": "PmEpR", "PhiHyd": "totPhiHyd"}
 
 
+# the EVP stresses' records of pickup_seaice (State.siSigma[0..2])
+_SIGMA = ("siSigm1", "siSigm2", "siSigm12")
+
+
 def _check_pickup(exp: Experiment) -> None:
     """Raise NotImplementedError, naming each, for the state a pickup in
     the JAX package's format would drop: IDEMIX_E, the SOM moments and the
@@ -177,14 +181,18 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
 def _write_pickup_seaice(cfg: Config, st: State, out_dir: str,
                          myIter: int) -> None:
     """pickup_seaice.<iter10>: siTICES (one record per category; siTICE
-    with one), siAREA, siHEFF, siHSNOW, siUICE and siVICE, in the JAX
-    package's order (the port holds no ice tracers and no EVP stresses)."""
+    with one), siAREA, siHEFF, siHSNOW, siUICE and siVICE, then under EVP
+    siSigm1, siSigm2 and siSigm12, in the JAX package's order
+    (experiment.py:1096-1123; the port holds no ice tracers)."""
     md = st.siTICES.shape[0]
     names = ["siTICES"] if md > 1 else ["siTICE"]
     recs = [_interior(cfg, st.siTICES[i]) for i in range(md)]
-    for name, fld in (("siAREA", st.siAREA), ("siHEFF", st.siHEFF),
-                      ("siHSNOW", st.siHSNOW), ("siUICE", st.uIce),
-                      ("siVICE", st.vIce)):
+    flds = [("siAREA", st.siAREA), ("siHEFF", st.siHEFF),
+            ("siHSNOW", st.siHSNOW), ("siUICE", st.uIce),
+            ("siVICE", st.vIce)]
+    if st.siSigma is not None and st.siSigma.shape[0] == 3:
+        flds += list(zip(_SIGMA, st.siSigma))
+    for name, fld in flds:
         names.append(name)
         recs.append(_interior(cfg, fld))
     stack = np.stack(recs, axis=0)
@@ -202,8 +210,9 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     as the reference does after its warning. With useGGL90 the TKE comes
     from pickup_ggl90.<iter10>, which must exist (ggl90_read_pickup.F);
     with useSEAICE the ice from pickup_seaice.<iter10> when it exists
-    (seaice_read_pickup.F: siTICE is broadcast to every category), as the
-    JAX package reads it."""
+    (seaice_read_pickup.F: siTICE is broadcast to every category; the EVP
+    stresses when siSigm1, siSigm2 and siSigm12 are all there), as the JAX
+    package reads it."""
     cfg = exp.cfg
     _check_pickup(exp)
     fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
@@ -273,6 +282,8 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
                        ("siUICE", "uIce"), ("siVICE", "vIce")):
             if pk in svals:
                 updates[sk] = svals[pk]
+        if all(k in svals for k in _SIGMA):
+            updates["siSigma"] = torch.stack([svals[k] for k in _SIGMA])
     exp.state = dataclasses.replace(exp.state, **updates)
     cfg.startFromPickup = True
     cfg.startTime = cfg.baseTime + myIter * cfg.deltaTClock

@@ -1,14 +1,16 @@
 """Dynamic-thermodynamic sea ice (mitgcm_tpu/model/seaice.py; reference
-pkg/seaice, C-grid, the LSR solver): one step of SEAICE_MODEL with the
-viscous-plastic LSR dynamics (Picard passes around a zebra line-SOR on
-per-tile tridiagonal lines), the ice-ocean stress, the multi-dimensional
-advection of HEFF, AREA and HSNOW, and the 0-layer multi-category
-thermodynamics (reg_ridge, growth with solve4temp per category).
+pkg/seaice, C-grid): one step of SEAICE_MODEL with its dynamics (the
+viscous-plastic LSR, Picard passes around a zebra line-SOR on per-tile
+tridiagonal lines; or the elastic-viscous-plastic EVP subcycles, EVP*,
+revised, adaptive or classic; or free drift; or none), the ice-ocean
+stress (or Hibler and Bryan's under EVP), the multi-dimensional advection
+of HEFF, AREA and HSNOW, and the 0-layer multi-category thermodynamics
+(reg_ridge, growth with solve4temp per category).
 
-Four hand-written CUDA kernels carry the step on the card
-(kernels/csrc/seaice_lsr.cu, seaice_advect.cu, seaice_thermo.cu), each
-beside its plain PyTorch twin here, which runs for CPU tensors or with
-impl="plain":
+Six hand-written CUDA kernels carry the step on the card
+(kernels/csrc/seaice_lsr.cu, seaice_evp.cu, seaice_freedrift.cu,
+seaice_advect.cu, seaice_thermo.cu), each beside its plain PyTorch twin
+here, which runs for CPU tensors or with impl="plain":
   lsr_prep       seaice_lsr_visc + seaice_lsr_coeffs: one Picard pass's
                  strain rates, viscosities, ocean drag, right-hand sides
                  and tridiagonal coefficients (two launches, because the
@@ -18,19 +20,24 @@ impl="plain":
                  freeze, the stops and the halo fill): the linear loop stays
                  on the device and the host reads its control words once
                  per BATCH iterations
+  evp            seaice_evp_stress + seaice_evp_uv: one EVP subcycle in two
+                 launches (sigma12 at a Z point reads zeta and alpha at four
+                 C points), the whole loop enqueued with no host read
+  freedrift      seaice_freedrift: one launch, both halo fills included
   advdiff        seaice_advect_x/_y: HEFF, AREA and HSNOW together
   thermo         seaice_thermo: reg_ridge, growth and solve4temp fused, one
                  thread per column
-get_dynforcing, ocean_stress, the strength and masses and the end-of-step
-fills stay plain glue. `check_seaice` refuses by name every option this
-port does not carry (EVP, free drift, SItracers, HB87 coupling, the
-legacy and OS7MP ice advection, ...). Parameters come as dicts (the
-namelists' keys); the deck reader is not ported.
+get_dynforcing, ocean_stress(_hb87), the clip, the no-dynamics drag, EVP's
+per-step set-up, the strength and masses and the end-of-step fills stay
+plain glue. `check_seaice` refuses by name every option this port does not
+carry (SItracers, HB87 coupling without EVP, the legacy and OS7MP ice
+advection, ...). Parameters come as dicts (the namelists' keys); the deck
+reader is not ported.
 """
-
 from __future__ import annotations
 
 import math
+import types
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -369,7 +376,9 @@ def params_from_namelists(cfg: Config, nml01: dict, nml03: dict = None
 
 class IceState(NamedTuple):
     """The prognostic sea-ice state (SEAICE.h), [nyp, nxp] fields and
-    TICES [multDim, nyp, nxp]; SItracer and sigma are zero-size here."""
+    TICES [multDim, nyp, nxp]; SItracer is zero-size here, and sigma
+    (the EVP stresses sigma1, sigma2, sigma12) is [3, nyp, nxp] under EVP
+    and zero-size otherwise."""
     uIce: torch.Tensor
     vIce: torch.Tensor
     AREA: torch.Tensor
@@ -399,27 +408,30 @@ plain_calls = 0
 
 def check_seaice(cfg: Config, seaice: "SeaIce") -> None:
     """Raise NotImplementedError, naming each, for the sea-ice options
-    this port does not carry: EVP, free drift, no dynamics, SItracers, ice
-    advection schemes outside ADV_SCHEMES (OS7MP 7 and the legacy 2/3/4
-    included) or different per field, HB87 stress coupling, the implicit
-    stress coupling, LSR_mixIniGuess, velocity clipping, no-slip ice,
-    etaZmethod other than 3, tensile strength, basal drag, the growth
-    branches the kernel does not take, p-coordinates, a non-Cartesian grid
-    or the cubed sphere, and tiles that do not cover the grid."""
+    this port does not carry: SItracers, ice advection schemes outside
+    ADV_SCHEMES (OS7MP 7 and the legacy 2/3/4 included) or different per
+    field, HB87 stress coupling without EVP (the JAX package raises there
+    too: only EVP gives the stress divergence), EVP with no subcycle, the
+    implicit stress coupling, LSR_mixIniGuess, no-slip ice, etaZmethod
+    other than 3 (under LSR and EVP), tensile strength, basal drag, the
+    growth branches the kernel does not take, p-coordinates, a
+    non-Cartesian grid or the cubed sphere, and tiles that do not cover the
+    grid. The dynamics run as LSR, EVP (EVP*, revised, adaptive or
+    classic), free drift or not at all (useDYNAMICS=F), with or without
+    clipVelocities."""
     p = seaice.p
     schemes = (p.advSchHeff, p.advSchArea, p.advSchSnow)
+    evp = p.useDYNAMICS and p.useEVP and not p.useFreeDrift
     off = {
-        "useEVP": p.useEVP,
-        "useFreeDrift": p.useFreeDrift,
-        "useDYNAMICS=F": not p.useDYNAMICS,
         "SItrNumInUse>0": p.SItrNumInUse > 0,
         f"SEAICEadvScheme={schemes}": (
             any(s not in ADV_SCHEMES for s in schemes)
             or len(set(schemes)) > 1),
-        "useHB87stressCoupling": p.useHB87stressCoupling,
+        "useHB87stressCoupling without EVP": (p.useHB87stressCoupling
+                                              and not evp),
+        "SEAICEnEVPstarSteps<1": evp and p.nEVPstarSteps < 1,
         "useStrImpCpl": p.useStrImpCpl,
         "LSR_mixIniGuess": p.LSR_mixIniGuess >= 0,
-        "clipVelocities": p.clipVelocities,
         "SEAICE_no_slip": p.no_slip,
         f"etaZmethod={p.etaZmethod}": p.etaZmethod != 3,
         "tensilFac": p.tensilFac != 0.0,
@@ -446,6 +458,9 @@ def check_seaice(cfg: Config, seaice: "SeaIce") -> None:
 
 
 _div = gad._div
+# the atmospheric and surface forcing that seaice_thermo reads
+_THERMO_FORCING = ("atemp", "aqh", "precip", "swdown", "lwdown", "runoff",
+                   "wspeed", "evap", "Qnet", "Qsw", "EmPmR", "saltFlux")
 
 
 def _rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
@@ -530,15 +545,18 @@ class SeaIce:
         return self.fill(u, impl), self.fill(v, impl)
 
     def init_state(self, dtype=None) -> IceState:
-        """Ice-free start (seaice_init_varia.F): TICES at 273 K."""
+        """Ice-free start (seaice_init_varia.F): TICES at 273 K; sigma
+        [3, nyp, nxp] zeros under EVP, zero-size otherwise."""
         like = self.HEFFM if dtype is None else self.HEFFM.to(dtype)
         z2 = torch.zeros_like(like)
         tice = torch.full((self.p.multDim,) + tuple(z2.shape), 273.0,
                           dtype=z2.dtype, device=z2.device)
         empty = z2.new_zeros((0,) + tuple(z2.shape))
+        # the EVP stresses sigma1, sigma2, sigma12 (seaice.py:init_state)
+        sigma = z2.new_zeros((3 if self.p.useEVP else 0,) + tuple(z2.shape))
         return IceState(uIce=z2, vIce=z2.clone(), AREA=z2.clone(),
                         HEFF=z2.clone(), HSNOW=z2.clone(), HSALT=z2.clone(),
-                        TICES=tice, SItracer=empty, sigma=empty.clone())
+                        TICES=tice, SItracer=empty, sigma=sigma)
 
     # ------------------------------------------------------------------
     # plain glue
@@ -575,6 +593,21 @@ class SeaIce:
         areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1)) * p.stressFactor
         fu_new = (1.0 - areaW) * fu + areaW * fuIce
         fv_new = (1.0 - areaS) * fv + areaS * fvIce
+        return self.fill_uv(fu_new, fv_new, impl)
+
+    def ocean_stress_hb87(self, ice: IceState, windTauX, windTauY,
+                          stressDivX, stressDivY, fu, fv, impl: str = None):
+        """seaice_ocean_stress.F:66-100 under useHB87stressCoupling
+        (seaice.py:ocean_stress_hb87): the ocean's surface stress is the
+        wind's over the ice fraction plus the divergence of the EVP
+        stresses (Hibler and Bryan 1987)."""
+        p = self.p
+        areaW = 0.5 * (ice.AREA + sh(ice.AREA, di=-1)) * p.stressFactor
+        areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1)) * p.stressFactor
+        fu_new = ((1.0 - areaW) * fu + areaW * windTauX
+                  + stressDivX * p.stressFactor)
+        fv_new = ((1.0 - areaS) * fv + areaS * windTauY
+                  + stressDivY * p.stressFactor)
         return self.fill_uv(fu_new, fv_new, impl)
 
     # ------------------------------------------------------------------
@@ -751,6 +784,11 @@ class SeaIce:
         BU, CU, AV, BV, CV, uRt1, uRt2, vRt1, vRt2, rhsU, rhsV and dwatn;
         kernel seaice_lsr_prep (seaice_lsr_visc, then seaice_lsr_coeffs)
         on CUDA tensors, its twin on CPU tensors or with impl="plain"."""
+        seaice_kernels.refuse_grad(
+            "seaice_lsr_prep", uIce=uIce, vIce=vIce, uIceC=uIceC,
+            vIceC=vIceC, uVel0=uVel0, vVel0=vVel0, press0=press0, zMax=zMax,
+            fxTmp=fxTmp, fyTmp=fyTmp, areaW=areaW, areaS=areaS, massC=massC,
+            massU=massU, massV=massV)
         if not kernels.use_kernel(uIce, impl):
             global plain_calls
             plain_calls += 1
@@ -843,6 +881,8 @@ class SeaIce:
         stopped (ctrl[2] for U, ctrl[3] for V). ctrl: int32 [done, m, it4u,
         it4v, ICOUNT1, ICOUNT2]; wf: [WFAU, WFAV, S1A, S2A]; ws: the loop's
         seaice_kernels.Workspace on the card (None on the plain path)."""
+        seaice_kernels.refuse_grad("seaice_lsr_tridiag", **c, u=u, uTmp=uTmp,
+                                   wf=wf)
         if not kernels.use_kernel(u, impl):
             global plain_calls
             plain_calls += 1
@@ -889,6 +929,8 @@ class SeaIce:
         iterating, the WFAU/WFAV freeze when it grew, the stop under
         LSR_ERROR with ICOUNT1/2; done when m reaches linearIterMax or both
         stopped; then the halo fill of u and v, and uTmp, vTmp := u, v."""
+        seaice_kernels.refuse_grad("seaice_lsr_check", u=u, v=v, uTmp=uTmp,
+                                   vTmp=vTmp, wf=wf)
         if not kernels.use_kernel(u, impl):
             global plain_calls
             plain_calls += 1
@@ -967,9 +1009,271 @@ class SeaIce:
             uIce, vIce, icount, n = self.lsr_iterate(c, uIce, vIce, impl)
             counts.append(icount)
             syncs.append(n)
-        uIce, vIce = self.fill_uv(uIce * self.seaiceMaskU,
-                                  vIce * self.seaiceMaskV, impl)
+        uIce, vIce = uIce * self.seaiceMaskU, vIce * self.seaiceMaskV
+        if p.clipVelocities:
+            uIce, vIce = self.clip(uIce, vIce)
+        uIce, vIce = self.fill_uv(uIce, vIce, impl)
         return uIce, vIce, c["dwatn"], counts, syncs
+
+    @staticmethod
+    def clip(uIce, vIce):
+        """SEAICE_clipVelocities (seaice_dynsolver.F:387-405): the ice
+        velocity capped at 0.40 m/s against the CFL violations of thin
+        drifting ice."""
+        return uIce.clamp(-0.40, 0.40), vIce.clamp(-0.40, 0.40)
+
+    # ------------------------------------------------------------------
+    # kernel seaice_evp's twins: one EVP subcycle (seaice.py:1114-1227) in
+    # two launches, because the Z-point stress sigma12 reads zeta and alpha
+    # at four C points that one launch would be computing at the same time.
+    # Every shifted read is the JAX code's zero-filled shift over the whole
+    # padded array, and every division is tensor by tensor, so the kernels
+    # can equal the twins bit for bit. On the Cartesian grid the metric
+    # factors are 0 and no-slip is refused, so the strain rates' metric and
+    # no-slip terms are left out (each added 0).
+    # ------------------------------------------------------------------
+    def _evp_factors(self):
+        """The EVP variant's constants (seaice.py:1078-1093)."""
+        p = self.p
+        adaptive = p.aEVPcoeff > 0.0
+        ecc2 = p.eccen * p.eccen
+        recip_ecc2 = 1.0 / ecc2
+        if p.useEVPrev:
+            rev, star, recip_rev = 1.0, 1.0, recip_ecc2
+        else:
+            rev, recip_rev = 0.0, 1.0
+            star = 1.0 if p.useEVPstar else 0.0
+        cfac = (p.deltaTdyn * p.aEVPcStar * (p.aEVPcoeff * math.pi) ** 2
+                if adaptive else 0.0)
+        return types.SimpleNamespace(
+            adaptive=adaptive, ecc2=ecc2, recip_ecc2=recip_ecc2, rev=rev,
+            star=star, recip_rev=recip_rev, cfac=cfac,
+            # the denominators alpha (revised or adaptive) or alpha + 1,
+            # alpha + e^2 (seaice.py:1151-1164)
+            rev_den=p.useEVPrev or adaptive)
+
+    def evp_setup(self, ice: IceState, massU, massV) -> dict:
+        """The per-step set-up of SeaIce.evp (seaice.py:1094-1112), plain
+        glue: sumNorm at Z points, areaW/areaS and the masks of the cells
+        that carry ice mass."""
+        p, hm = self.p, self.HEFFM
+        sumNorm = hm + sh(hm, di=-1) + sh(hm, dj=-1) + sh(sh(hm, di=-1),
+                                                          dj=-1)
+        sumNorm = _where(sumNorm > 0.0,
+                         _rdiv(1.0, _where(sumNorm > 0.0, sumNorm, 1.0)), 0.0)
+        if p.scaleSurfStress:
+            areaW = 0.5 * (ice.AREA + sh(ice.AREA, di=-1))
+            areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1))
+        else:
+            areaW = torch.ones_like(ice.uIce)
+            areaS = torch.ones_like(ice.uIce)
+        return {"sumNorm": sumNorm, "areaW": areaW, "areaS": areaS,
+                "locMaskU": _where(massU != 0.0, 1.0, 0.0, like=massU),
+                "locMaskV": _where(massV != 0.0, 1.0, 0.0, like=massV)}
+
+    def _e12(self, u, v):
+        """The shear strain rate at Z points (seaice.py:strainrates)."""
+        g, hm = self.grid, self.HEFFM
+        dudy = (u - sh(u, dj=-1)) * g.recip_dyU
+        dvdx = (v - sh(v, di=-1)) * g.recip_dxV
+        hm4 = hm * sh(hm, di=-1) * sh(hm, dj=-1) * sh(sh(hm, di=-1), dj=-1)
+        return 0.5 * (dudy + dvdx) * hm4
+
+    def _evp_stress_plain(self, u, v, s1, s2, press0, massC):
+        """Launch (a): zeta, alpha and the new sigma1, sigma2 at C points
+        (seaice.py:1116-1157): (s1, s2, zetaC, alphaC)."""
+        p, g, hm = self.p, self.grid, self.HEFFM
+        k = self._evp_factors()
+        e11 = g.recip_dxF * (sh(u, di=1) - u)
+        e22 = g.recip_dyF * (sh(v, dj=1) - v)
+        e12 = self._e12(u, v)
+        ep = e11 + e22
+        em = e11 - e22
+        rze = g.rAz * e12 * e12
+        e12Csq = 0.25 * g.recip_rA * (rze + sh(rze, di=1) + sh(rze, dj=1)
+                                      + sh(sh(rze, di=1), dj=1))
+        deltaSq = ep * ep + k.recip_ecc2 * (em * em + 4.0 * e12Csq)
+        deltaC = torch.sqrt(deltaSq)
+        zetaC = 0.5 * press0 / _max(deltaC, p.deltaMin)
+        if k.adaptive:
+            alphaC = torch.sqrt(zetaC * k.cfac / _max(massC, 1.0e-4)
+                                * g.recip_rA) * hm
+            alphaC = _max(alphaC, p.aEVPalphaMin)
+        else:
+            alphaC = torch.full_like(press0, p.evpAlpha)
+        pressC = (press0 * (1.0 - p.pressReplFac)
+                  + 2.0 * zetaC * deltaC * p.pressReplFac)
+        seaice_div = (2.0 * zetaC * ep - pressC) * hm
+        seaice_tension = 2.0 * zetaC * em * hm
+        den1 = alphaC if k.rev_den else alphaC + 1.0
+        den2 = alphaC if k.rev_den else alphaC + k.ecc2
+        s1 = (s1 * (alphaC - k.rev) + seaice_div) / den1 * hm
+        s2 = (s2 * (alphaC - k.rev) + seaice_tension * k.recip_rev) / den2 * hm
+        return s1, s2, zetaC, alphaC
+
+    def _evp_uv_plain(self, u, v, s12, s1, s2, zetaC, alphaC, uNm1, vNm1,
+                      uVel0, vVel0, forcex0, forcey0, massC, massU, massV,
+                      setup: dict):
+        """Launch (b): sigma12 at Z points, the stress divergence, the ocean
+        drag, the forcing and the implicit velocity update with its halo
+        fill (seaice.py:1158-1227): (u, v, s12, dwatn, divX, divY); divX
+        and divY are the post-loop divergence (:1235-1242) when these are
+        the last subcycle's stresses."""
+        p, g, hm = self.p, self.grid, self.HEFFM
+        k = self._evp_factors()
+        recip_dt = 1.0 / p.deltaTdyn
+        sinwat = math.sin(math.radians(p.waterTurnAngle))
+        coswat = math.cos(math.radians(p.waterTurnAngle))
+        areaW, areaS = setup["areaW"], setup["areaS"]
+        zetaZ = setup["sumNorm"] * (zetaC + sh(zetaC, di=-1)
+                                    + sh(zetaC, dj=-1)
+                                    + sh(sh(zetaC, di=-1), dj=-1))
+        seaice_shear = 2.0 * zetaZ * self._e12(u, v)
+        alphaZ = 0.25 * (alphaC + sh(alphaC, di=-1) + sh(alphaC, dj=-1)
+                         + sh(sh(alphaC, di=-1), dj=-1))
+        den12 = alphaZ if k.rev_den else alphaZ + k.ecc2
+        s12 = (s12 * (alphaZ - k.rev) + seaice_shear * k.recip_rev) / den12
+        t11 = 0.5 * (s1 + s2) * g.dyF
+        t12x = s12 * g.dxV
+        divX = (t11 - sh(t11, di=-1) + sh(t12x, dj=1) - t12x) * g.recip_rAw
+        t22 = 0.5 * (s1 - s2) * g.dxF
+        t12y = s12 * g.dyU
+        divY = (t22 - sh(t22, dj=-1) + sh(t12y, di=1) - t12y) * g.recip_rAs
+        dwatn = self.oceandrag(u, v, uVel0, vVel0)
+        dwU = 0.5 * (dwatn + sh(dwatn, di=-1))
+        dwV = 0.5 * (dwatn + sh(dwatn, dj=-1))
+        sgn = _sgn(g.fCori)
+        dv = vVel0 - v
+        frcU = forcex0 + (
+            dwU * coswat * uVel0
+            - sgn * sinwat * 0.5
+            * (dwatn * 0.5 * (dv + sh(dv, dj=1))
+               + sh(dwatn, di=-1) * 0.5
+               * (sh(dv, di=-1) + sh(sh(dv, dj=1), di=-1)))
+            * setup["locMaskU"]) * areaW
+        du = uVel0 - u
+        frcV = forcey0 + (
+            dwV * coswat * vVel0
+            + sgn * sinwat * 0.5
+            * (dwatn * 0.5 * (du + sh(du, di=1))
+               + sh(dwatn, dj=-1) * 0.5
+               * (sh(du, dj=-1) + sh(sh(du, di=1), dj=-1)))
+            * setup["locMaskV"]) * areaS
+        mfv = massC * g.fCori * 0.5 * (v + sh(v, dj=1))
+        frcU = frcU + 0.5 * (mfv + sh(mfv, di=-1))
+        mfu = massC * g.fCori * 0.5 * (u + sh(u, di=1))
+        frcV = frcV - 0.5 * (mfu + sh(mfu, dj=-1))
+        if k.adaptive:
+            betaU = 0.5 * (alphaC + sh(alphaC, di=-1))
+            betaV = 0.5 * (alphaC + sh(alphaC, dj=-1))
+        else:
+            betaU = betaV = torch.full_like(alphaC, p.evpBeta)
+        betaFacU = betaU * recip_dt
+        betaFacV = betaV * recip_dt
+        denomU = massU * (betaFacU + k.star * recip_dt) + dwU * coswat * areaW
+        denomV = massV * (betaFacV + k.star * recip_dt) + dwV * coswat * areaS
+        denomU = _where(denomU == 0.0, 1.0, denomU)
+        denomV = _where(denomV == 0.0, 1.0, denomV)
+        u_new = self.seaiceMaskU * (
+            massU * betaFacU * u + massU * recip_dt * k.star * uNm1
+            + frcU + divX) / denomU
+        v_new = self.seaiceMaskV * (
+            massV * betaFacV * v + massV * recip_dt * k.star * vNm1
+            + frcV + divY) / denomV
+        u_new, v_new = self.fill_uv(u_new, v_new, "plain")
+        return u_new, v_new, s12, dwatn, divX, divY
+
+    def evp(self, ice: IceState, uVel0, vVel0, press0, massC, massU, massV,
+            forcex0, forcey0, impl: str = None):
+        """SEAICE_EVP (seaice.py:evp, :1059): nEVPstarSteps subcycles of
+        the (adaptive) elastic-viscous-plastic stresses and the explicit
+        velocity update, from ice.sigma. Returns (uIce, vIce, dwatn, sigma
+        [3, nyp, nxp], stressDivX, stressDivY). On the card the whole loop
+        is enqueued at once, kernel seaice_evp's two launches a subcycle,
+        with no host read (seaice_kernels.evp_loop); for CPU tensors or
+        with impl="plain" the twins of the two launches run the loop."""
+        setup = self.evp_setup(ice, massU, massV)
+        sig = ice.sigma
+        if sig.shape[0] != 3:
+            sig = ice.uIce.new_zeros((3,) + tuple(ice.uIce.shape))
+        u, v, s1, s2, s12 = ice.uIce, ice.vIce, sig[0], sig[1], sig[2]
+        fixed = dict(uNm1=ice.uIce, vNm1=ice.vIce, uVel0=uVel0, vVel0=vVel0,
+                     forcex0=forcex0, forcey0=forcey0, massC=massC,
+                     massU=massU, massV=massV)
+        seaice_kernels.refuse_grad("seaice_evp", **fixed, press0=press0,
+                                   sigma=sig, **setup)
+        args = (u, v, s1, s2, s12, press0, fixed, setup,
+                self.p.nEVPstarSteps)
+        if kernels.use_kernel(u, impl):
+            return seaice_kernels.evp_loop(self, *args)
+        return self._evp_loop_plain(*args)
+
+    def _evp_loop_plain(self, u, v, s1, s2, s12, press0, fixed: dict,
+                        setup: dict, n: int):
+        """The twin of seaice_kernels.evp_loop (its arguments but the
+        SeaIce): n subcycles of the two launches' twins."""
+        global plain_calls
+        plain_calls += 1
+        for _ in range(n):
+            s1, s2, zetaC, alphaC = self._evp_stress_plain(
+                u, v, s1, s2, press0, fixed["massC"])
+            u, v, s12, dwatn, divX, divY = self._evp_uv_plain(
+                u, v, s12, s1, s2, zetaC, alphaC, *fixed.values(), setup)
+        return u, v, dwatn, torch.stack([s1, s2, s12]), divX, divY
+
+    # ------------------------------------------------------------------
+    # kernel seaice_freedrift's twin (seaice.py:1246-1286)
+    # ------------------------------------------------------------------
+    def _freedrift_plain(self, heff, uVel0, vVel0, forcex0, forcey0):
+        p, g = self.p, self.grid
+        taux_c = 0.5 * (forcex0 + sh(forcex0, di=1))
+        tauy_c = 0.5 * (forcey0 + sh(forcey0, dj=1))
+        mIceCor = p.rhoIce * heff * g.fCori
+        u_c = 0.5 * (uVel0 + sh(uVel0, di=1))
+        v_c = 0.5 * (vVel0 + sh(vVel0, dj=1))
+        rhs_x = -taux_c - mIceCor * v_c
+        rhs_y = -tauy_c + mIceCor * u_c
+        nsq = rhs_x * rhs_x + rhs_y * rhs_y
+        pos = nsq > 0.0
+        rhs_n = _where(pos, torch.sqrt(_where(pos, nsq, 1.0)), 0.0)
+        rhs_a = _where(pos, torch.atan2(rhs_y, rhs_x), 0.0)
+        rhoConst = self.cfg.rhoConst
+        wDrag = _where(g.yC < 0.0, p.waterDrag_south, p.waterDrag, like=heff)
+        inv = _rdiv(1.0, rhoConst * wDrag)
+        t2 = (inv * inv) * mIceCor * mIceCor
+        t3 = (inv * inv) * rhs_n * rhs_n
+        t4 = t2 * t2 + 4.0 * t3
+        pos3 = t3 > 0.0
+        sol_n = _where(pos3, torch.sqrt(
+            0.5 * (torch.sqrt(_where(pos3, t4, 1.0)) - t2)), 0.0)
+        c1 = wDrag * rhoConst
+        s2 = c1 * sol_n * sol_n
+        s3 = mIceCor * sol_n
+        s4 = s2 * s2 + s3 * s3
+        sol_a = _where(s4 > 0.0, rhs_a - torch.atan2(s3, s2), 0.0)
+        uic = u_c - sol_n * torch.cos(sol_a)
+        vic = v_c - sol_n * torch.sin(sol_a)
+        uic, vic = self.fill_uv(uic, vic, "plain")
+        uFD = 0.5 * (sh(uic, di=-1) + uic) * self.SIMaskU
+        vFD = 0.5 * (sh(vic, dj=-1) + vic) * self.SIMaskV
+        return self.fill_uv(uFD, vFD, "plain")
+
+    def freedrift(self, ice: IceState, uVel0, vVel0, forcex0, forcey0,
+                  impl: str = None):
+        """seaice_freedrift.F (seaice.py:freedrift): the free-drift ice
+        velocity (uIce, vIce), surface stress and Coriolis against the
+        quadratic ocean drag, solved at C points and averaged to the
+        velocity points, both fills included; kernel seaice_freedrift (one
+        launch) on CUDA tensors, its twin on CPU tensors or with
+        impl="plain"."""
+        ins = dict(heff=ice.HEFF, uVel0=uVel0, vVel0=vVel0, forcex0=forcex0,
+                   forcey0=forcey0)
+        seaice_kernels.refuse_grad("seaice_freedrift", **ins)
+        if not kernels.use_kernel(ice.HEFF, impl):
+            global plain_calls
+            plain_calls += 1
+            return self._freedrift_plain(*ins.values())
+        return seaice_kernels.freedrift(self, *ins.values())
 
     # ------------------------------------------------------------------
     # kernel seaice_advect's twin, its X and its Y launch: seaice_advdiff.F,
@@ -1017,6 +1321,9 @@ class SeaIce:
         """HEFF, AREA and HSNOW advected (and diffused where diffKh > 0) by
         the ice velocity, interior cells only; kernel seaice_advect (an X
         and a Y launch, the three fields together) on CUDA tensors."""
+        seaice_kernels.refuse_grad("seaice_advect", uIce=ice.uIce,
+                                   vIce=ice.vIce, HEFF=ice.HEFF,
+                                   AREA=ice.AREA, HSNOW=ice.HSNOW)
         if not kernels.use_kernel(ice.HEFF, impl):
             global plain_calls
             plain_calls += 1
@@ -1310,6 +1617,11 @@ class SeaIce:
         """reg_ridge then growth: (ice', {Qnet, Qsw, EmPmR, saltFlux});
         kernel seaice_thermo (one launch, one thread per column) on CUDA
         tensors, the twin on CPU tensors or with impl="plain"."""
+        seaice_kernels.refuse_grad(
+            "seaice_thermo", theta0=theta0, salt0=salt0,
+            **{k: getattr(ice, k) for k in ("HEFF", "HSNOW", "AREA",
+                                            "TICES")},
+            **{k: getattr(forc, k) for k in _THERMO_FORCING})
         if not kernels.use_kernel(ice.HEFF, impl):
             global plain_calls
             plain_calls += 1
@@ -1323,7 +1635,8 @@ class SeaIce:
         """SEAICE_MODEL (seaice.py:step, :1983): one sea-ice step. Returns
         (ice', forcing updates fu, fv, Qnet, Qsw, EmPmR, saltFlux,
         {"lsr_iters": [(ICOUNT1, ICOUNT2) per Picard pass],
-        "lsr_host_syncs": [per pass]})."""
+        "lsr_host_syncs": [per pass]}); the lists are empty unless the
+        dynamics run the LSR."""
         p, g = self.p, self.grid
         press0 = (p.strength * ice.HEFF
                   * torch.exp(-p.cStar * (1.0 - ice.AREA))) * self.HEFFM
@@ -1349,14 +1662,43 @@ class SeaIce:
                 phiSurf - sh(phiSurf, di=-1))
             forcey0 = forcey0 - massV * g.recip_dyC * (
                 phiSurf - sh(phiSurf, dj=-1))
-        uIce, vIce, dwatn, counts, syncs = self.lsr(
-            ice, uVel0, vVel0, press0, zMax, massC, massU, massV, forcex0,
-            forcey0, impl=impl)
-        ice = ice._replace(uIce=uIce, vIce=vIce)
+        # the dynamics (seaice.py:2027-2047): free drift, EVP, LSR or none
+        counts, syncs = [], []
+        evp = p.useDYNAMICS and p.useEVP and not p.useFreeDrift
+        if p.useDYNAMICS and p.useFreeDrift:
+            uIce, vIce = self.freedrift(ice, uVel0, vVel0, forcex0, forcey0,
+                                        impl)
+            ice = ice._replace(uIce=uIce, vIce=vIce)
+            # nothing on the free-drift path updates DWATN: the ocean
+            # stress sees the initial zeros (a fault of the reference,
+            # copied: seaice.py:2029-2035)
+            dwatn = torch.zeros_like(press0)
+        elif evp:
+            (uIce, vIce, dwatn, sigma, stressDivX,
+             stressDivY) = self.evp(ice, uVel0, vVel0, press0, massC, massU,
+                                    massV, forcex0, forcey0, impl=impl)
+            ice = ice._replace(uIce=uIce, vIce=vIce, sigma=sigma)
+        elif p.useDYNAMICS:
+            uIce, vIce, dwatn, counts, syncs = self.lsr(
+                ice, uVel0, vVel0, press0, zMax, massC, massU, massV,
+                forcex0, forcey0, impl=impl)
+            ice = ice._replace(uIce=uIce, vIce=vIce)
+        else:
+            dwatn = self.oceandrag(ice.uIce, ice.vIce, uVel0, vVel0)
         upd = {}
         if p.updateOceanStress:
-            upd["fu"], upd["fv"] = self.ocean_stress(ice, dwatn, uVel0,
-                                                     vVel0, fu, fv, impl)
+            if p.useHB87stressCoupling:     # EVP only (check_seaice)
+                upd["fu"], upd["fv"] = self.ocean_stress_hb87(
+                    ice, taux, tauy, stressDivX, stressDivY, fu, fv, impl)
+            else:
+                upd["fu"], upd["fv"] = self.ocean_stress(ice, dwatn, uVel0,
+                                                         vVel0, fu, fv, impl)
+        if p.useDYNAMICS and p.useEVP and p.clipVelocities:
+            # after the ocean stress whenever EVP is set, under free drift
+            # too (seaice.py:2063-2066); the LSR clips before its fill
+            # (SeaIce.lsr)
+            uIce, vIce = self.clip(ice.uIce, ice.vIce)
+            ice = ice._replace(uIce=uIce, vIce=vIce)
         ice = self.advdiff(ice, impl=impl)
         ice, forc_upd = self.thermo(ice, forc, theta0, salt0, impl=impl)
         # the end-of-step exchanges (seaice_model.F:1411-1420)

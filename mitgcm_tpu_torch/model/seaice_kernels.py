@@ -1,7 +1,11 @@
 """The card side of model/seaice.py: the wrappers that check their inputs
 and launch the sea ice's CUDA kernels (kernels/csrc/seaice_lsr.cu,
-seaice_advect.cu, seaice_thermo.cu). model/seaice.py calls them for CUDA
-tensors; each mirrors a plain twin there, bit for bit."""
+seaice_advect.cu, seaice_thermo.cu, seaice_evp.cu, seaice_freedrift.cu).
+model/seaice.py calls them for CUDA tensors; each mirrors a plain twin
+there, bit for bit. None of these kernels has a backward kernel: every
+wrapper, and every dispatcher in model/seaice.py that would run a twin,
+refuses an input that requires grad (`refuse_grad`), so a gradient never
+silently drops the ice."""
 
 from __future__ import annotations
 
@@ -17,6 +21,17 @@ _SWEEP = {True: ("AU", "BU", "CU", "uRt1", "uRt2", "rhsU"),
           False: ("AV", "BV", "CV", "vRt1", "vRt2", "rhsV")}
 _PREP_OUT = ("AU", "BU", "CU", "AV", "BV", "CV", "uRt1", "uRt2", "vRt1",
              "vRt2", "rhsU", "rhsV", "dwatn")
+
+
+def refuse_grad(kernel: str, **tensors) -> None:
+    """Raise ValueError naming the inputs of `kernel` that require grad:
+    the sea ice's kernels write through ctypes into fresh outputs and have
+    no backward kernel."""
+    grads = [n for n, t in tensors.items()
+             if isinstance(t, torch.Tensor) and t.requires_grad]
+    if grads:
+        raise ValueError(f"{kernel}: {grads} require grad; kernel H-seaice "
+                         "has no backward kernel yet")
 
 
 def lsr_prep(si, uIce, vIce, uIceC, vIceC, uVel0, vVel0, press0, zMax,
@@ -37,6 +52,7 @@ def lsr_visc(si, uIceC, vIceC, press0, zMax):
                    heffm=si.HEFFM, recip_dxF=g.recip_dxF,
                    recip_dyF=g.recip_dyF, recip_dyU=g.recip_dyU,
                    recip_dxV=g.recip_dxV, rAz=g.rAz, recip_rA=g.recip_rA)
+    refuse_grad("seaice_lsr_visc", **visc_in)
     visc_out = dict(eta=eta, zeta=zeta, press=press)
     kernels.check_fields(dtype, shape, **visc_in, **visc_out)
     table = kernels.pointer_table(list(visc_in.values())
@@ -68,6 +84,7 @@ def lsr_coeffs(si, eta, zeta, press, uIce, vIce, uIceC, vIceC, uVel0, vVel0,
                  recip_dyF=g.recip_dyF, recip_dxV=g.recip_dxV,
                  recip_dyU=g.recip_dyU, dxF=g.dxF, dyF=g.dyF, dxV=g.dxV,
                  dyU=g.dyU, recip_rAw=g.recip_rAw, recip_rAs=g.recip_rAs)
+    refuse_grad("seaice_lsr_coeffs", **co_in)
     kernels.check_fields(dtype, shape, **co_in, **out)
     table = kernels.pointer_table(list(co_in.values()) + list(out.values()))
     rho = si.cfg.rhoConst
@@ -98,6 +115,7 @@ def lsr_sweep(si, along_x: bool, k: int, c: dict, u, uTmp, ctrl, wf,
     dtype, shape = u.dtype, tuple(u.shape)
     mask = si.seaiceMaskU if along_x else si.seaiceMaskV
     ins = {n: c[n] for n in _SWEEP[along_x]}
+    refuse_grad("seaice_lsr_tridiag", **ins, u=u, uTmp=uTmp, wf=wf)
     kernels.check_fields(dtype, shape, **ins, mask=mask, u=u, uTmp=uTmp,
                          cuu=cuu)
     _check_ctrl(ctrl, wf, dtype)
@@ -127,6 +145,7 @@ def lsr_check(si, u, v, uTmp, vTmp, ctrl, wf, ws: Workspace) -> None:
     """seaice_lsr_check (model/seaice.py:lsr_check), in place."""
     cfg, p = si.cfg, si.p
     dtype, shape = u.dtype, tuple(u.shape)
+    refuse_grad("seaice_lsr_check", u=u, v=v, uTmp=uTmp, vTmp=vTmp, wf=wf)
     kernels.check_fields(dtype, shape, u=u, v=v, uTmp=uTmp, vTmp=vTmp,
                          maskU=si.seaiceMaskU, maskV=si.seaiceMaskV)
     _check_ctrl(ctrl, wf, dtype)
@@ -153,6 +172,7 @@ def advect_x(si, ice, src, dst) -> None:
     p = si.p
     ins = _adv_table(si, ice)
     dtype, shape = src.dtype, tuple(ice.HEFF.shape)
+    refuse_grad("seaice_advect_x", **ins, src=src)
     kernels.check_fields(dtype, shape, **ins)
     kernels.check_fields(dtype, (3,) + shape, src=src, dst=dst)
     table = kernels.pointer_table(list(ins.values()))
@@ -167,6 +187,7 @@ def advect_y(si, ice, fld, localT, dst) -> None:
     p = si.p
     ins = _adv_table(si, ice)
     dtype, shape = fld.dtype, tuple(ice.HEFF.shape)
+    refuse_grad("seaice_advect_y", **ins, fld=fld, localT=localT)
     kernels.check_fields(dtype, shape, **ins)
     kernels.check_fields(dtype, (3,) + shape, fld=fld, localT=localT, dst=dst)
     table = kernels.pointer_table(list(ins.values()))
@@ -249,6 +270,7 @@ def thermo(si, ice, forc, theta0, salt0):
                 qsw_o=torch.empty_like(ice.HEFF),
                 empmr_o=torch.empty_like(ice.HEFF),
                 saltflux_o=torch.empty_like(ice.HEFF))
+    refuse_grad("seaice_thermo", **ins)
     kernels.check_tensors(dtype, **ins, **outs)
     for name, t in {**ins, **outs}.items():
         want = (p.multDim,) + shape if name.startswith("tices") else shape
@@ -262,3 +284,122 @@ def thermo(si, ice, forc, theta0, salt0):
                        AREA=outs["area_o"], TICES=outs["tices_o"])
     return ice, {"Qnet": outs["qnet_o"], "Qsw": outs["qsw_o"],
                  "EmPmR": outs["empmr_o"], "saltFlux": outs["saltflux_o"]}
+
+
+# ---------------------------------------------------------------------
+# seaice_evp_stress, seaice_evp_uv: an EVP subcycle in two launches,
+# the whole loop enqueued by evp_loop
+# ---------------------------------------------------------------------
+def _evp_variant(si):
+    """The template flags (adaptive, revised-or-adaptive denominators) and
+    the parameter arrays of the two launches (seaice_evp.cu:
+    EvpStressParams, EvpUvParams)."""
+    p, k = si.p, si._evp_factors()
+    rho = si.cfg.rhoConst
+    stress = kernels.doubles([
+        k.recip_ecc2, p.deltaMin, p.pressReplFac, 1.0 - p.pressReplFac,
+        k.cfac, p.aEVPalphaMin, p.evpAlpha, k.rev, k.recip_rev, k.ecc2])
+    recip_dt = 1.0 / p.deltaTdyn
+    uv = kernels.doubles([
+        k.rev, k.recip_rev, k.ecc2, p.evpBeta, recip_dt, k.star,
+        k.star * recip_dt, math.cos(math.radians(p.waterTurnAngle)),
+        math.sin(math.radians(p.waterTurnAngle)), p.waterDrag * rho,
+        p.waterDrag_south * rho, p.dWatMin, p.dWatMin * p.dWatMin])
+    return int(k.adaptive), int(k.rev_den), stress, uv
+
+
+def _stress_ins(si, u, v, s1, s2, press0, massC) -> dict:
+    g = si.grid
+    return dict(u=u, v=v, s1=s1, s2=s2, press0=press0, massC=massC,
+                heffm=si.HEFFM, recip_dxF=g.recip_dxF, recip_dyF=g.recip_dyF,
+                recip_dyU=g.recip_dyU, recip_dxV=g.recip_dxV, rAz=g.rAz,
+                recip_rA=g.recip_rA)
+
+
+def _uv_ins(si, u, v, s12, s1, s2, zetaC, alphaC, fixed: dict,
+            setup: dict) -> dict:
+    g = si.grid
+    return dict(u=u, v=v, uNm1=fixed["uNm1"], vNm1=fixed["vNm1"], s12=s12,
+                s1=s1, s2=s2, zeta=zetaC, alpha=alphaC,
+                **{k: fixed[k] for k in ("uVel0", "vVel0", "forcex0",
+                                         "forcey0", "massC", "massU",
+                                         "massV")},
+                **{k: setup[k] for k in ("areaW", "areaS", "locMaskU",
+                                         "locMaskV", "sumNorm")},
+                fCori=g.fCori, yC=g.yC, maskInW=g.maskInW, maskInS=g.maskInS,
+                heffm=si.HEFFM, maskU=si.seaiceMaskU, maskV=si.seaiceMaskV,
+                recip_dyU=g.recip_dyU, recip_dxV=g.recip_dxV, dxV=g.dxV,
+                dyU=g.dyU, dyF=g.dyF, dxF=g.dxF, recip_rAw=g.recip_rAw,
+                recip_rAs=g.recip_rAs)
+
+
+def evp_loop(si, u, v, s1, s2, s12, press0, fixed: dict, setup: dict,
+             n: int):
+    """SeaIce.evp's n subcycles on the card (model/seaice.py:evp; twin
+    SeaIce._evp_loop_plain, with the same arguments but `si`): the
+    inputs are checked and both launches' pointer tables built once, then
+    all 2 n launches are enqueued with no host read, the stresses and
+    velocities ping-ponging between two sets of buffers; the last launch
+    writes dwatn and the divergence. Returns (uIce, vIce, dwatn, sigma
+    [3, nyp, nxp], stressDivX, stressDivY)."""
+    dtype, shape = u.dtype, tuple(u.shape)
+    ins_a = _stress_ins(si, u, v, s1, s2, press0, fixed["massC"])
+    ins_b = _uv_ins(si, u, v, s12, s1, s2, u, u, fixed, setup)
+    refuse_grad("seaice_evp", **{**ins_a, **ins_b})
+    kernels.check_fields(dtype, shape, **{**ins_a, **ins_b})
+    adaptive, rev_den, params_a, params_b = _evp_variant(si)
+    uv = torch.empty((2, 2) + shape, dtype=dtype, device=u.device)
+    sig = torch.empty((2, 3) + shape, dtype=dtype, device=u.device)
+    zeta, alpha, dwatn, divX, divY = torch.empty((5,) + shape, dtype=dtype,
+                                                 device=u.device).unbind(0)
+    kernels.check_fields(dtype, (2, 2) + shape, uv=uv)
+    kernels.check_fields(dtype, (2, 3) + shape, sig=sig)
+
+    def tables(src, dst):
+        """The two launches' tables from the state `src` (u, v, s1, s2,
+        s12) into the buffers of set `dst`."""
+        a = {**ins_a, "u": src[0], "v": src[1], "s1": src[2], "s2": src[3]}
+        out_a = [sig[dst, 0], sig[dst, 1], zeta, alpha]
+        b = {**ins_b, "u": src[0], "v": src[1], "s12": src[4],
+             "s1": sig[dst, 0], "s2": sig[dst, 1], "zeta": zeta,
+             "alpha": alpha}
+        out_b = [uv[dst, 0], uv[dst, 1], sig[dst, 2], dwatn, divX, divY]
+        return (kernels.pointer_table(list(a.values()) + out_a),
+                kernels.pointer_table(list(b.values()) + out_b))
+
+    def state(k):
+        return (uv[k, 0], uv[k, 1], sig[k, 0], sig[k, 1], sig[k, 2])
+
+    # subcycle 0 reads the inputs into set 0; then set 0 -> 1, 1 -> 0, ...
+    plan = [tables((u, v, s1, s2, s12), 0), tables(state(0), 1),
+            tables(state(1), 0)]
+    cfg = si.cfg
+    nyp, nxp = shape
+    for it in range(n):
+        ta, tb = plan[0 if it == 0 else 1 + (it - 1) % 2]
+        kernels.launch("seaice_evp_stress", dtype, ta, len(ta), params_a,
+                       len(params_a), nyp, nxp, adaptive, rev_den)
+        kernels.launch("seaice_evp_uv", dtype, tb, len(tb), params_b,
+                       len(params_b), cfg.ny, cfg.nx, cfg.olx, adaptive,
+                       rev_den, int(it == n - 1))
+    k = (n - 1) % 2
+    return uv[k, 0], uv[k, 1], dwatn, sig[k], divX, divY
+
+
+def freedrift(si, heff, uVel0, vVel0, forcex0, forcey0):
+    """seaice_freedrift (model/seaice.py:_freedrift_plain): (uIce, vIce)
+    with both halo fills."""
+    g, p, cfg = si.grid, si.p, si.cfg
+    ins = dict(heff=heff, uVel0=uVel0, vVel0=vVel0, forcex0=forcex0,
+               forcey0=forcey0, fCori=g.fCori, yC=g.yC, maskU=si.SIMaskU,
+               maskV=si.SIMaskV)
+    refuse_grad("seaice_freedrift", **ins)
+    outs = [torch.empty_like(heff) for _ in range(2)]
+    kernels.check_fields(heff.dtype, tuple(heff.shape), **ins, uo=outs[0],
+                         vo=outs[1])
+    params = kernels.doubles([p.rhoIce, cfg.rhoConst, p.waterDrag,
+                              p.waterDrag_south])
+    table = kernels.pointer_table(list(ins.values()) + outs)
+    kernels.launch("seaice_freedrift", heff.dtype, table, len(table), params,
+                   len(params), cfg.ny, cfg.nx, cfg.olx)
+    return tuple(outs)

@@ -686,7 +686,7 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         state = dataclasses.replace(
             state, uIce=ice.uIce, vIce=ice.vIce, siAREA=ice.AREA,
             siHEFF=ice.HEFF, siHSNOW=ice.HSNOW, siHSALT=ice.HSALT,
-            siTICES=ice.TICES)
+            siTICES=ice.TICES, siSigma=ice.sigma)
     # in-situ density from the start-of-step tracers (do_oceanic_phys.F)
     rhoInSitu = eos.find_rho(cfg, grid, state.theta, state.salt,
                              totPhiHyd=state.totPhiHyd,

@@ -323,10 +323,29 @@ def ice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
     return cfg
 
 
+# the evp-ice-gyre's sea-ice settings: lab_sea/input.hb87's dynamics
+# (tests/test_lab_sea_hb87.py:82-83), adaptive EVP with 500 subcycles, EVP*
+# and revised EVP (the defaults) and Hibler-Bryan stress coupling, on top of
+# the ice-gyre's (its scheme-77 advection and 7 categories stay)
+EVP_ICE_GYRE_SEAICE = {**ICE_GYRE_SEAICE, "SEAICEaEVPcoeff": 0.5,
+                       "SEAICEnEVPstarSteps": 500,
+                       "useHB87stressCoupling": True}
+
+
+def evp_ice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The ice-gyre (ice_gyre_config) with the adaptive-EVP dynamics and
+    Hibler-Bryan stress coupling of EVP_ICE_GYRE_SEAICE in place of the
+    LSR (the "evp-ice-gyre")."""
+    cfg = ice_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth, **kw)
+    cfg.seaice = params_from_namelists(cfg, EVP_ICE_GYRE_SEAICE)
+    return cfg
+
+
 def ice_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
                    device="cuda", grid: Grid = None):
-    """(grid, state, forcing, op, kpp, seaice) of the ice-gyre: the
-    kpp-gyre's wind and KPP; over open water Qnet = +150 W/m2 (cooling) and
+    """(grid, state, forcing, op, kpp, seaice) of the ice-gyre, or of the
+    evp-ice-gyre (whose SeaIce carries cfg.seaice's EVP dynamics, the EVP
+    stresses starting at zero) on its config: the kpp-gyre's wind and KPP; over open water Qnet = +150 W/m2 (cooling) and
     Qsw = -50 W/m2 on wet points; an atmosphere of atemp 253 K in the north
     rising linearly to 271 K in the south, aqh 5e-4 kg/kg, lwdown 220 and
     swdown 50 W/m2, precip 3e-9 m/s, runoff and evap 0, wspeed 6 m/s; and
@@ -362,3 +381,4 @@ def ice_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
     state.siHSALT, state.siTICES = ice.HSALT, ice.TICES
     state.SItracer, state.siSigma = ice.SItracer, ice.sigma
     return grid, state, forcing, op, kpp, seaice
+

@@ -5,20 +5,24 @@ and KPP and GGL90 options off its ported paths (GGL90 with more levels
 than kernel G9 takes on the card among them, Langmuir under flux-form
 momentum, and pickups that would drop IDEMIX's energy or the SOM moments),
 its kernel wrappers refuse to differentiate what their kernels treat as
-constants (and V, T, R, K, G9, M, O, P, H-IDEMIX, H-SOM and W, which have
-no backward kernels yet, anything), its adjoint refuses the vi-gyre, KPP,
-GGL90, every advection scheme but 2 and the non-hydrostatic path, and the
-non-hydrostatic path runs under flux-form momentum only, without the NH
-options it does not port, and writes no pickups (JAX's format drops
-phi_nh and the w-tendency history); the sea ice runs with a SeaIce object
-only, and check_seaice refuses by name each sea-ice option it does not
-carry."""
+constants (and V, T, R, K, G9, M, O, P, H-IDEMIX, H-SOM, W and the sea
+ice's H-seaice kernels, which have no backward kernels yet, anything: the
+sea ice's wrappers and the dispatchers of their twins alike), its adjoint
+refuses the vi-gyre, KPP, GGL90, every advection scheme but 2, the
+non-hydrostatic path and the sea ice, and the non-hydrostatic path runs
+under flux-form momentum only, without the NH options it does not port,
+and writes no pickups (JAX's format drops phi_nh and the w-tendency
+history); the sea ice runs with a SeaIce object only, check_seaice refuses
+by name each sea-ice option it does not carry and lets through the
+dynamics it does (LSR, the EVP variants, free drift, none, the clip), and
+a step without dynamics matches the JAX package's."""
 
 import dataclasses
 import os
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -101,6 +105,22 @@ exp = Experiment(cfg, g, s, f, op, kpp=kpp, seaice=ice)
 rec, = exp.run(n_steps=1, collect_monitor=False)
 assert rec["lsr_iters"][0][0] > 0
 assert bool(torch.isfinite(exp.state.siHEFF).all())
+cfg = synthetic.evp_ice_gyre_config(nx=8, ny=8, nr=4, depth=300.0)
+g, s, f, op, kpp, ice = synthetic.ice_gyre_setup(cfg, dtype=torch.float64,
+                                                 device="cpu")
+exp = Experiment(cfg, g, s, f, op, kpp=kpp, seaice=ice)
+rec, = exp.run(n_steps=1, collect_monitor=False)
+assert rec["lsr_iters"] == [] and float(exp.state.siSigma.abs().max()) > 0.0
+with tempfile.TemporaryDirectory() as tmp:
+    write_pickup(exp, tmp, 1)
+    read_pickup(exp, tmp, 1)
+cfg = synthetic.ice_gyre_config(nx=8, ny=8, nr=4, depth=300.0)
+cfg.seaice.useFreeDrift = True
+g, s, f, op, kpp, ice = synthetic.ice_gyre_setup(cfg, dtype=torch.float64,
+                                                 device="cpu")
+exp = Experiment(cfg, g, s, f, op, kpp=kpp, seaice=ice)
+rec, = exp.run(n_steps=1, collect_monitor=False)
+assert float(exp.state.uIce.abs().max()) > 0.0
 import chip_smoke
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
@@ -526,20 +546,24 @@ def test_nh_kernels_refuse_grad_and_the_adjoint():
 
 # each sea-ice option check_seaice refuses: (SEAICE_PARM01 settings, or
 # parameters set after them, or Config fields; the name it gives)
+# adaptive EVP with few subcycles (the evp-ice-gyre's dynamics)
+AEVP = {"SEAICEaEVPcoeff": 0.5, "SEAICEnEVPstarSteps": 10}
 SEAICE_REFUSALS = [
-    ({"SEAICE_deltaTevp": 60.0}, "useEVP"),
-    ({"SEAICEuseFREEDRIFT": True}, "useFreeDrift"),
-    ({"SEAICEuseDYNAMICS": False}, "useDYNAMICS=F"),
+    ({"useHB87stressCoupling": True}, "useHB87stressCoupling without EVP"),
+    ({**AEVP, "useHB87stressCoupling": True, "SEAICEuseFREEDRIFT": True},
+     "useHB87stressCoupling without EVP"),
+    ({**AEVP, "useHB87stressCoupling": True, "SEAICEuseDYNAMICS": False},
+     "useHB87stressCoupling without EVP"),
+    ({**AEVP, "SEAICEetaZmethod": 0}, "etaZmethod=0"),
+    ({**AEVP, "SEAICEnEVPstarSteps": 0}, "SEAICEnEVPstarSteps<1"),
     ({"p.SItrNumInUse": 1}, "SItrNumInUse>0"),
     ({"SEAICEadvScheme": 7}, "SEAICEadvScheme=(7, 7, 7)"),
     ({"SEAICEadvScheme": 2}, "SEAICEadvScheme=(2, 2, 2)"),
     ({"SEAICEadvScheme": 3}, "SEAICEadvScheme=(3, 3, 3)"),
     ({"SEAICEadvScheme": 4}, "SEAICEadvScheme=(4, 4, 4)"),
     ({"SEAICEadvSchSnow": 30}, "SEAICEadvScheme=(77, 77, 30)"),
-    ({"useHB87stressCoupling": True}, "useHB87stressCoupling"),
     ({"SEAICEuseStrImpCpl": True}, "useStrImpCpl"),
     ({"LSR_mixIniGuess": 1}, "LSR_mixIniGuess"),
-    ({"SEAICE_clipVelocities": True}, "clipVelocities"),
     ({"SEAICE_no_slip": True}, "SEAICE_no_slip"),
     ({"SEAICEetaZmethod": 0}, "etaZmethod=0"),
     ({"p.tensilFac": 0.05}, "tensilFac"),
@@ -558,11 +582,14 @@ SEAICE_REFUSALS = [
 ]
 
 
-@pytest.mark.parametrize("settings,name", SEAICE_REFUSALS,
-                         ids=[n for _, n in SEAICE_REFUSALS])
-def test_check_seaice_refuses(settings, name):
-    import types
+SEAICE_REFUSAL_IDS = ["HB87-LSR", "HB87-freedrift", "HB87-no-dynamics",
+                      "EVP-etaZmethod=0", "EVP-no-subcycle"] + [
+    n for _, n in SEAICE_REFUSALS[5:]]
 
+
+@pytest.mark.parametrize("settings,name", SEAICE_REFUSALS,
+                         ids=SEAICE_REFUSAL_IDS)
+def test_check_seaice_refuses(settings, name):
     from mitgcm_tpu_torch.model import seaice as seaice_mod
 
     cfg = synthetic.ice_gyre_config(nx=16, ny=16, nr=2, depth=300.0)
@@ -597,3 +624,179 @@ def test_check_supported_needs_the_seaice_object():
     with pytest.raises(NotImplementedError,
                        match="a SeaIce object without useSEAICE"):
         check_supported(cfg, kpp=kpp, seaice=ice)
+
+
+# the sea-ice dynamics check_seaice lets through:
+# (SEAICE_PARM01 settings on top of the ice-gyre's)
+SEAICE_ACCEPTS = {
+    "aEVP": AEVP,
+    "revised-EVP": {"SEAICE_evpAlpha": 500.0, "SEAICEnEVPstarSteps": 10},
+    "classic-EVP": {"SEAICEuseEVPrev": False, "SEAICEuseEVPstar": False,
+                    "SEAICE_deltaTevp": 60.0},
+    "EVP*": {"SEAICEuseEVPrev": False, "SEAICE_deltaTevp": 60.0},
+    "HB87-aEVP": {**AEVP, "useHB87stressCoupling": True},
+    "freedrift": {"SEAICEuseFREEDRIFT": True},
+    "no-dynamics": {"SEAICEuseDYNAMICS": False},
+    "clip-LSR": {"SEAICE_clipVelocities": True},
+    "clip-aEVP": {**AEVP, "SEAICE_clipVelocities": True},
+}
+
+
+@pytest.mark.parametrize("name", list(SEAICE_ACCEPTS))
+def test_check_seaice_accepts(name):
+    """EVP (adaptive, revised, classic, EVP*), HB87 coupling with EVP, free
+    drift, no dynamics and the velocity clip run on the port: check_seaice
+    passes them, and SeaIce starts the EVP stresses when EVP runs."""
+    from mitgcm_tpu_torch.model import seaice as seaice_mod
+
+    cfg = synthetic.ice_gyre_config(nx=8, ny=8, nr=2, depth=300.0)
+    p = seaice_mod.params_from_namelists(
+        cfg, {**synthetic.ICE_GYRE_SEAICE, **SEAICE_ACCEPTS[name]})
+    cfg.seaice = p
+    grid = synthetic.gyre_grid(cfg, dtype=torch.float64, device="cpu")
+    si = seaice_mod.SeaIce(cfg, grid, p)
+    evp = "EVP" in name
+    assert p.useEVP == evp
+    assert si.init_state().sigma.shape[0] == (3 if evp else 0)
+
+
+def _seaice_grad_calls():
+    """A call of each sea-ice kernel wrapper (model/seaice_kernels.py) and
+    of each dispatcher that runs a twin (model/seaice.py), on CPU inputs of
+    which one requires grad."""
+    from mitgcm_tpu_torch.model import seaice as seaice_mod
+    from mitgcm_tpu_torch.model import seaice_kernels as sk
+
+    cfg = synthetic.ice_gyre_config(nx=8, ny=8, nr=2, depth=300.0)
+    cfg.seaice = seaice_mod.params_from_namelists(
+        cfg, {**synthetic.ICE_GYRE_SEAICE, **AEVP})
+    grid = synthetic.gyre_grid(cfg, dtype=torch.float64, device="cpu")
+    si = seaice_mod.SeaIce(cfg, grid, cfg.seaice)
+    z = torch.zeros_like(grid.rA)
+    x = z.clone().requires_grad_(True)
+    ice = si.init_state()._replace(uIce=x)
+    c = {k: z for k in ("AU", "BU", "CU", "AV", "BV", "CV", "uRt1", "uRt2",
+                        "vRt1", "vRt2", "rhsU", "rhsV", "dwatn")}
+    ctrl = torch.zeros(6, dtype=torch.int32)
+    wf = torch.zeros(4, dtype=z.dtype)
+    setup = si.evp_setup(ice, z, z)
+    forc = types.SimpleNamespace(**{k: z for k in (
+        "atemp", "aqh", "precip", "swdown", "lwdown", "runoff", "wspeed",
+        "evap", "Qnet", "Qsw", "EmPmR", "saltFlux")})
+    f3 = torch.stack([z, z, z])
+    prep = [x] + [z] * 14
+    fixed = {k: z for k in ("uNm1", "vNm1", "uVel0", "vVel0", "forcex0",
+                            "forcey0", "massC", "massU", "massV")}
+    return {
+        "lsr_prep": lambda: si.lsr_prep(*prep),
+        "lsr_sweep": lambda: si.lsr_sweep(True, 0, c, x, z, ctrl, wf, None),
+        "lsr_check": lambda: si.lsr_check(x, z, z, z, ctrl, wf, None),
+        "advdiff": lambda: si.advdiff(ice),
+        "thermo": lambda: si.thermo(ice._replace(uIce=z, HEFF=x), forc, z,
+                                    z),
+        "evp": lambda: si.evp(ice, *[z] * 8),
+        "freedrift": lambda: si.freedrift(ice._replace(HEFF=x), z, z, z, z),
+        "sk.lsr_visc": lambda: sk.lsr_visc(si, x, z, z, z),
+        "sk.lsr_coeffs": lambda: sk.lsr_coeffs(si, *[x] + [z] * 15),
+        "sk.lsr_sweep": lambda: sk.lsr_sweep(si, True, 0, c, x, z, ctrl, wf,
+                                             z),
+        "sk.lsr_check": lambda: sk.lsr_check(si, x, z, z, z, ctrl, wf, None),
+        "sk.advect_x": lambda: sk.advect_x(si, ice, f3, f3),
+        "sk.advect_y": lambda: sk.advect_y(si, ice, f3, f3, f3),
+        "sk.thermo": lambda: sk.thermo(si, ice._replace(HEFF=x), forc, z, z),
+        "sk.evp_loop": lambda: sk.evp_loop(si, x, z, z, z, z, z, fixed,
+                                           setup, 2),
+        "sk.evp_loop(sigma12)": lambda: sk.evp_loop(si, z, z, z, z, x, z,
+                                                    fixed, setup, 2),
+        "sk.evp_loop(uNm1)": lambda: sk.evp_loop(
+            si, z, z, z, z, z, z, {**fixed, "uNm1": x}, setup, 2),
+        "sk.freedrift": lambda: sk.freedrift(si, x, z, z, z, z),
+    }
+
+
+SEAICE_GRAD_CALLS = ("lsr_prep", "lsr_sweep", "lsr_check", "advdiff",
+                     "thermo", "evp", "freedrift",
+                     "sk.lsr_visc", "sk.lsr_coeffs", "sk.lsr_sweep",
+                     "sk.lsr_check", "sk.advect_x", "sk.advect_y",
+                     "sk.thermo", "sk.evp_loop", "sk.evp_loop(sigma12)",
+                     "sk.evp_loop(uNm1)", "sk.freedrift")
+
+
+@pytest.mark.parametrize("call", SEAICE_GRAD_CALLS)
+def test_seaice_kernels_refuse_grad(call):
+    """The sea ice's kernels (LSR, advection, growth, EVP, free drift) have
+    no backward kernel: each wrapper, and each dispatcher that would run a
+    twin, refuses an input that requires grad on every device, before it
+    looks at the device (here the CPU)."""
+    with pytest.raises(ValueError, match="kernel H-seaice"):
+        _seaice_grad_calls()[call]()
+
+
+def test_adjoint_refuses_seaice():
+    for config in (synthetic.ice_gyre_config, synthetic.evp_ice_gyre_config):
+        cfg = config(nx=8, ny=8, nr=2, depth=300.0)
+        with pytest.raises(NotImplementedError, match="useSEAICE"):
+            adjoint.check_adjoint_supported(cfg)
+
+
+def _ice_step_against_jax(settings, wind=1.0, after=None):
+    """One forward_step of the 16x16x12 ice-gyre with these sea-ice
+    settings (then the parameters of `after` set on both packages'), the
+    wind scaled by `wind` and a drifting initial ice, against the JAX
+    package's step run op by op: every ice field, uVel and theta to 12
+    digits. Returns the initial and the new state."""
+    import jax
+
+    from mitgcm_tpu_torch.model.seaice import params_from_namelists
+    from mitgcm_tpu_torch.model.step import forward_step
+    from mitgcm_tpu_torch.utils.compare import digits
+    from test_torch_evp_gyre import jax_objects
+
+    cfg = synthetic.ice_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
+    cfg.seaice = params_from_namelists(cfg, settings)
+    after = after or {}
+    for k, v in after.items():
+        setattr(cfg.seaice, k, v)
+    objs = synthetic.ice_gyre_setup(cfg, dtype=torch.float64, device="cpu")
+    grid, state, forcing, op, kpp, si = objs
+    state.uIce = 0.1 * si.seaiceMaskU
+    state.vIce = -0.05 * si.seaiceMaskV
+    forcing.fu, forcing.fv = forcing.fu * wind, forcing.fv * wind
+    jx = jax_objects(cfg, objs, settings)
+    for k, v in after.items():
+        setattr(jx.seaice.p, k, v)
+    new, _ = forward_step(cfg, grid, op, state, forcing, 0, kpp=kpp,
+                          seaice=si)
+    with jax.disable_jit():
+        jx.run(n_steps=1, collect_monitor=False)
+    want = jx.state
+    for name in ("uIce", "vIce", "siAREA", "siHEFF", "siHSNOW", "uVel",
+                 "theta"):
+        d = digits(getattr(new, name)[..., 2:-2, 2:-2].numpy(),
+                   np.asarray(getattr(want, name))[..., 2:-2, 2:-2])
+        assert d >= 12, (name, d)
+    return state, new
+
+
+def test_no_dynamics_step_against_jax():
+    """forward_step with SEAICEuseDYNAMICS = F (the ice drag from the
+    standing ice velocity, no solver) against the JAX package's step, op by
+    op: one step of the 16x16x12 ice-gyre with a drifting initial ice, every
+    ice field and the ocean's surface stress to 12 digits."""
+    state, new = _ice_step_against_jax(
+        {**synthetic.ICE_GYRE_SEAICE, "SEAICEuseDYNAMICS": False})
+    assert torch.equal(new.uIce, state.uIce)
+
+
+def test_free_drift_evp_clip_step_against_jax():
+    """Free drift set on EVP parameters (params_from_namelists clears
+    useEVP under free drift, so it is set afterwards) with
+    SEAICE_clipVelocities: the free-drift velocity is capped at 0.40 m/s
+    after the ocean stress, as the JAX package caps it whenever EVP is set
+    (its seaice.py:2063), under a tenfold wind where the cap binds; one
+    step against JAX, op by op, 12 digits."""
+    _, new = _ice_step_against_jax(
+        {**synthetic.ICE_GYRE_SEAICE, **AEVP,
+         "SEAICE_clipVelocities": True}, wind=10.0,
+        after={"useFreeDrift": True})
+    assert float(new.uIce.abs().max()) == 0.40

@@ -4,8 +4,9 @@ steps == 2 + pickup + 2 bit for bit, for the gyre (AB-2), the vi-gyre
 state from step to step, so its pickup is the vi-gyre's, at 16x16x12) and
 the ggl90-gyre (whose TKE goes through the companion pickup_ggl90, at
 16x16x12) and the os7mp-gyre (the ggl90-gyre with OS7MP tracers on halos
-of 4, through pickup and pickup_ggl90) and the ice-gyre (the sea ice
-through the companion pickup_seaice, at 16x16x12); the pickup round trip,
+of 4, through pickup and pickup_ggl90), the ice-gyre (the sea ice
+through the companion pickup_seaice, at 16x16x12) and the evp-ice-gyre
+(pickup_seaice with the EVP stresses siSigm1/2/12); the pickup round trip,
 in float64 and float32 (pickups are float64); and pickups crossing between
 the packages: a pickup written by the JAX package after 2 steps, read by
 the port and stepped 2 more, matches JAX's 4 straight steps to 10 digits,
@@ -48,8 +49,10 @@ def _port(kind, dtype=torch.float64):
         return port_experiment(tsyn.ggl90_gyre_config(**GGL90_SIZE), dtype)
     if kind == "os7mp-gyre":
         return port_experiment(tsyn.os7mp_gyre_config(**GGL90_SIZE), dtype)
-    if kind == "ice-gyre":
-        cfg = tsyn.ice_gyre_config(nx=16, ny=16, nr=12, depth=300.0)
+    if kind in ("ice-gyre", "evp-ice-gyre"):
+        config = (tsyn.ice_gyre_config if kind == "ice-gyre"
+                  else tsyn.evp_ice_gyre_config)
+        cfg = config(nx=16, ny=16, nr=12, depth=300.0)
         grid, state, forcing, op, kpp, seaice = tsyn.ice_gyre_setup(
             cfg, dtype=dtype, device="cpu")
         return Experiment(cfg, grid, state, forcing, op, kpp=kpp,
@@ -84,6 +87,8 @@ ICE_FIELDS = ("uIce", "vIce", "siAREA", "siHEFF", "siHSNOW", "siTICES")
 def _fields(kind):
     if kind == "ice-gyre":
         return FIELDS + ICE_FIELDS
+    if kind == "evp-ice-gyre":    # the EVP stresses ride in pickup_seaice
+        return FIELDS + ICE_FIELDS + ("siSigma",)
     return FIELDS + (("GGL90TKE",) if kind in ("ggl90-gyre", "os7mp-gyre")
                      else ())
 
@@ -96,7 +101,8 @@ def _same(a, b, names, ol=2):
 
 
 @pytest.mark.parametrize("kind", ["gyre", "vi-gyre", "kpp-gyre",
-                                  "ggl90-gyre", "os7mp-gyre", "ice-gyre"])
+                                  "ggl90-gyre", "os7mp-gyre", "ice-gyre",
+                                  "evp-ice-gyre"])
 def test_2plus2(kind, tmp_path):
     e4 = _port(kind)
     e4.run(n_steps=4, collect_monitor=False)
