@@ -129,8 +129,8 @@ exits nonzero without the final line:
                  box's E and G at x50), with each kernel's time, its
                  twin's and its bound, and for F the time of
                  F.pad(mode="circular"), which computes the same fill.
-                 Every full-size phase (5, 6, 7-13, 15) asserts the launches
-                 of D-G on its path and that no twin of theirs ran
+                 Every full-size phase (5, 6, 7-13, 15, 16) asserts the
+                 launches of D-G on its path and that no twin of theirs ran
  15. sea ice EVP: the evp-ice-gyre (the ice-gyre under lab_sea/input.hb87's
                  dynamics: adaptive EVP with 500 subcycles, Hibler-Bryan
                  stress coupling): H-seaice EVP's loop (evp_loop: its
@@ -151,6 +151,22 @@ exits nonzero without the final line:
                  the loop), |uIce| and the mean AREA, a profile, then 1
                  plain step held against 1 kernel step from the same state
                  (every ice field, uVel and theta bit-equal)
+ 16. GM-Redi: the gm-gyre (the kpp-gyre with GM-Redi's skew-flux form,
+                 gkw91, GM_NON_UNITY_DIAGONAL, and a temperature front) and
+                 the gm-bolus-gyre (the advective form, dm95, GM_ExtraDiag):
+                 gm_tensor for every taper, form and nonUnityDiagonal,
+                 gm_psi_b for every taper of the bolus form,
+                 gm_residual_flow and kernel C's GM branch (scheme 2 and no
+                 advection, with and without df, a 3-D and a constant
+                 Kux/Kvy, with and without Kuz/Kvz) against their twins at
+                 64x64x12 float64 and 1024x1024x32 float32 (bit-equal); 3
+                 float64 steps of each 64x64x12 gyre kernel path against
+                 plain path (every field bit-equal on the interior), a 2+2
+                 restart of the gm-gyre; then each at 1024x1024x32 float32
+                 (deltaT=600): one warm-up step and 5 timed steps with
+                 every launch count and no twin, the cg2d host syncs, a
+                 profile, then 1 plain step held against 1 kernel step
+                 from the same state (bit-equal)
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -161,7 +177,9 @@ and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
 O and pqm-gyre for P, phase 11's idemix-gyre for H-IDEMIX and som-gyre for
 H-SOM, phase 12's box for W and H-cg3d, phase 13's ice-gyre for the sea
 ice's, phase 15's evp-ice-gyre for EVP's and its free-drift run for
-seaice_freedrift, phase 5's gyre for D-G), with the kernel's time (D-G's
+seaice_freedrift, phase 16's gm-gyre for gm_tensor and C's GM branch and
+its gm-bolus-gyre for gm_psi_b and gm_residual_flow, phase 5's gyre for
+D-G), with the kernel's time (D-G's
 from phase 14), its plain twin's, and its bound (the larger of the bytes it must move over 3.35
 TB/s and its estimated operations over 67 TFLOP/s, the H100's float32
 peaks) at the full-size float32 shapes of its path (1024x1024x32, the
@@ -304,6 +322,15 @@ KERNELS = {
                        "mitgcm_tpu/model/step.py:509"),
     "tracer_step": ("mitgcm_tpu_torch/kernels/csrc/step_glue.cu",
                     "mitgcm_tpu/model/thermodynamics.py:329"),
+    # the gm-gyres' GM-Redi kernels and kernel C's GM branch
+    "gm_tensor": ("mitgcm_tpu_torch/kernels/csrc/gmredi.cu",
+                  "mitgcm_tpu/model/gmredi.py:192"),
+    "gm_psi_b": ("mitgcm_tpu_torch/kernels/csrc/gmredi.cu",
+                 "mitgcm_tpu/model/gmredi.py:396"),
+    "gm_residual_flow": ("mitgcm_tpu_torch/kernels/csrc/gmredi.cu",
+                         "mitgcm_tpu/model/gmredi.py:424"),
+    "gad_calc_rhs_c2_gm": ("mitgcm_tpu_torch/kernels/csrc/gad_calc_rhs.cu",
+                           "mitgcm_tpu/model/gmredi.py:288"),
 }
 CG2D_KERNELS = ("cg2d_stencil_dot", "cg2d_s_update", "cg2d_xr_update")
 BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
@@ -372,6 +399,17 @@ ISM_LAUNCHES = {
     "som": {**G9_LAUNCHES, **{k: 0 for k in MD_KERNELS + IDEMIX_KERNELS},
             **{k: 10 for k in SOM_KERNELS}, "halo_fill": 75},
 }
+GM_KERNELS = ("gm_tensor", "gm_psi_b", "gm_residual_flow",
+              "gad_calc_rhs_c2_gm")
+# launches in phase 16's 5 timed full-size steps: the kpp-gyre's with C's
+# GM branch in place of C, gm_tensor once a step and R also for sigmaR;
+# on the gm-bolus-gyre gm_psi_b and gm_residual_flow once a step and the
+# fills of psiX and psiY
+GM_LAUNCHES = {**KPP_LAUNCHES, "gad_calc_rhs_c2": 0, "gad_calc_rhs_c2_gm": 10,
+               "eos_find_rho": 10, "gm_tensor": 5, "gm_psi_b": 0,
+               "gm_residual_flow": 0}
+GM_BOLUS_LAUNCHES = {**GM_LAUNCHES, "gm_psi_b": 5, "gm_residual_flow": 5,
+                     "halo_fill": 70}
 CG3D_KERNELS = ("cg3d_precond_dot", "cg3d_s_stencil_dot", "cg3d_xr_update")
 NH_KERNELS = CG3D_KERNELS + ("calc_gw",)
 ICE_KERNELS = ("seaice_lsr_visc", "seaice_lsr_coeffs", "seaice_lsr_tridiag_u",
@@ -444,7 +482,13 @@ OPS_PER_CELL = {"cg2d_stencil_dot": 11, "cg2d_s_update": 2,
                 # column; mom_ab_step's two components)
                 "halo_fill": 0, "phihyd": 20, "cg2d_rhs": 20,
                 "continuity": 16, "mom_ab_step": 20, "mom_correction": 12,
-                "tracer_step": 8}
+                "tracer_step": 8,
+                # GM-Redi's: three slope limits a cell of ~40 flops with
+                # two sqrt and, for dm95/ldd97, tanh and sin (20 each), and
+                # the recomputed density gradients; C's GM branch adds the
+                # xy and r fluxes to C's 60
+                "gm_tensor": 250, "gm_psi_b": 60, "gm_residual_flow": 20,
+                "gad_calc_rhs_c2_gm": 130}
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam", "cuu")
@@ -886,7 +930,7 @@ def full_phase(kernels):
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
-               + EVP_KERNELS and launches.get(k, 0) == 0]
+               + EVP_KERNELS + GM_KERNELS and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -1744,8 +1788,9 @@ def exact_compare(name, case, outs, wants, ms, plain_ms, results, call=None,
     """Hold a kernel's outputs against its twin's on whole arrays: equal
     bits, and non-finite values (float32 WENO's overflow and SOM's first
     padded row and column, faults of the reference) in the same cells;
-    record the times and the bound as compare does, from the tensors the
-    wrapper checks in `call` or from `touched`."""
+    record the times (ms None: a variant not timed) and the bound as
+    compare does, from the tensors the wrapper checks in `call` or from
+    `touched`."""
     abs_err, same, bad = 0.0, True, [0, 0]
     for out, want in zip(outs, wants):
         for test in (torch.isnan, torch.isposinf, torch.isneginf):
@@ -1754,9 +1799,11 @@ def exact_compare(name, case, outs, wants, ms, plain_ms, results, call=None,
         diff = (out - want).abs().masked_fill(bad_k | bad_p, 0.0)
         abs_err = max(abs_err, float(diff.max()))
         bad = [bad[0] + int(bad_k.sum()), bad[1] + int(bad_p.sum())]
+    times = ("not timed" if ms is None else
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     print(f"{name:18s} {case.label:18s} max abs err {abs_err:.3e} (tol 0), "
-          f"non-finite cells {bad[0]} / {bad[1]} (kernel / plain), kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"non-finite cells {bad[0]} / {bad[1]} (kernel / plain), {times}",
+          flush=True)
     if not (abs_err == 0.0 and same):
         raise AssertionError(f"{name} disagrees with its twin at "
                              f"{case.label}")
@@ -2987,6 +3034,316 @@ def evp_phase(kernels, results, smi):
             "seaice_freedrift": fd["seaice_freedrift"]}
 
 
+# the GM-Redi tapers phase 16 holds gm_tensor against its twin with, in
+# both forms and with and without GM_NON_UNITY_DIAGONAL (ldd97 in the
+# skew-flux form only, as check_gmredi allows), and gm_psi_b's; the main
+# paths' (the gm-gyre's gkw91 and the gm-bolus-gyre's dm95) report the
+# JSON rows
+GM_TAPERS = ("", "linear", "ldd97", "ac02", "dm95", "gkw91")
+GM_PSI_TAPERS = ("", "gkw91", "ac02", "linear", "dm95")
+
+
+class GmCase:
+    """The gm-gyre's grid on the card with a seeded state: the front of
+    gm_gyre_setup with noise on theta and salt (statically unstable in
+    places), its density and sigmaR, random velocities, diffusivities and
+    a KPP-like nonlocal flux."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.model import thermodynamics as th
+        from mitgcm_tpu_torch.model import gad
+        from mitgcm_tpu_torch.ops import eos
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.gm_gyre_config(nx=n, ny=n, nr=nr, deltaT=600.0)
+        (self.grid, state, _, _, _) = synthetic.gm_gyre_setup(
+            self.cfg, dtype=dtype, device="cuda",
+            grid=shared_grid(self.cfg, dtype))
+        cfg, g = self.cfg, self.grid
+        rng = np.random.default_rng(SEED + 16)
+        shape = tuple(g.hFacC.shape)
+        theta = (state.theta + self.field(rng, shape, 0.05)) * g.maskC
+        salt = (state.salt + self.field(rng, shape, 0.01)) * g.maskC
+        self.rho = eos.find_rho(cfg, g, theta, salt,
+                                totPhiHyd=state.totPhiHyd) * g.maskC
+        self.sigmaR = th.calc_sigmaR(cfg, g, self.rho, theta, salt,
+                                     totPhiHyd=state.totPhiHyd)
+        self.theta = theta
+        self.u = self.field(rng, shape, 0.1) * g.maskW
+        self.v = self.field(rng, shape, 0.1) * g.maskS
+        self.w = self.field(rng, shape, 1e-4) * g.maskC
+        self.flow = gad.calc_adv_flow(g, self.u, self.v, self.w)
+        self.kappaR = self.field(rng, shape, 1e-4).abs()
+        self.df = self.field(rng, shape, 1e-3) * g.maskC
+
+    def gm(self, **settings):
+        import dataclasses
+
+        return dataclasses.replace(self.cfg.gmredi, **settings)
+
+    field = Case.field
+    label = Case.label
+
+
+def gm_kernel_phase(case, results, reps, plain_reps):
+    """gm_tensor for every taper, form and nonUnityDiagonal, gm_psi_b for
+    every taper of the bolus form and gm_residual_flow against their twins
+    on whole arrays; C's GM branch (scheme 2 and no advection, with and
+    without df, a 3-D and a constant Kux/Kvy, with and without Kuz/Kvz)
+    against its twin on the interior (C writes zero halos): all bit for
+    bit. Each main-path kernel is timed a launch back to back."""
+    from mitgcm_tpu_torch.model import gad, gmredi
+    from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
+
+    cfg, g = case.cfg, case.grid
+    rho, sigmaR = case.rho, case.sigmaR
+    fields = ("Kwx", "Kwy", "Kwz", "Kux", "Kvy", "Kuz", "Kvz")
+    tensors = {}
+    for taper in GM_TAPERS:
+        for adv in (False, True):
+            if adv and taper == "ldd97":
+                continue
+            for nu in (False, True):
+                gm = case.gm(taper_scheme=taper, advForm=adv,
+                             nonUnityDiagonal=nu)
+
+                def call(gm=gm, impl=None):
+                    return gmredi.gm_tensor(cfg, g, gm, rho, sigmaR,
+                                            impl=impl)
+                k, p = call(), call(impl="plain")
+                outs = [getattr(k, f) for f in fields
+                        if getattr(p, f) is not None]
+                wants = [getattr(p, f) for f in fields
+                         if getattr(p, f) is not None]
+                main = (taper, adv, nu) in (("gkw91", False, True),
+                                            ("dm95", True, True))
+                name = "gm_tensor" if main and not adv else (
+                    f"gm_tensor({taper or 'clip'}"
+                    f"{',bolus' if adv else ''}{'' if nu else ',unity'})")
+                exact_compare(
+                    name, case, outs, wants,
+                    launch_ms(call, "gm_tensor", reps) if main else None,
+                    cuda_time_ms(lambda: call(impl="plain"), plain_reps)
+                    if main else None, results, call=call)
+                if (taper, adv, nu) in (("gkw91", False, True),
+                                        ("dm95", True, True),
+                                        ("gkw91", False, False)):
+                    tensors[taper, adv, nu] = p
+    psi = None
+    for taper in GM_PSI_TAPERS:
+        gm = case.gm(taper_scheme=taper, advForm=True)
+
+        def call(gm=gm, impl=None):
+            return gmredi.gm_psi_b(cfg, g, gm, rho, sigmaR, impl=impl)
+        main = taper == "dm95"
+        psi = call(impl="plain")
+        exact_compare(
+            "gm_psi_b" if main else f"gm_psi_b({taper or 'clip'})", case,
+            list(call()), list(psi),
+            launch_ms(call, "gm_psi_b", reps) if main else None,
+            cuda_time_ms(lambda: call(impl="plain"), plain_reps)
+            if main else None, results, call=call)
+    filled = [cyclic_fill_halo(p, cfg.oly, cfg.olx) for p in psi]
+
+    def flow(impl=None):
+        return gmredi.gm_residual_flow(cfg, g, *filled, case.u, case.v,
+                                       case.w, impl=impl)
+    exact_compare("gm_residual_flow", case, list(flow()),
+                  list(flow("plain")),
+                  launch_ms(flow, "gm_residual_flow", reps),
+                  cuda_time_ms(lambda: flow("plain"), plain_reps), results,
+                  call=flow)
+    # C's GM branch; the gm-gyre's (scheme 2, implicit diffusion, KPP's df,
+    # a 3-D Kux/Kvy, no Kuz/Kvz) reports the JSON row
+    variants = {"": (tensors["gkw91", False, True], True, case.df),
+                "no df": (tensors["gkw91", False, True], True, None),
+                "no adv": (tensors["gkw91", False, True], False, case.df),
+                "no adv, no df": (tensors["gkw91", False, True], False, None),
+                "bolus": (tensors["dm95", True, True], True, case.df),
+                "bolus, no adv": (tensors["dm95", True, True], False, None),
+                "unity": (tensors["gkw91", False, False], True, case.df),
+                "unity, no adv": (tensors["gkw91", False, False], False,
+                                  None)}
+    ol = cfg.olx
+    for label, (ten, adv, df) in variants.items():
+        def rhs(impl=None, ten=ten, adv=adv, df=df):
+            return gad.calc_rhs(cfg, g, case.flow, case.theta, case.kappaR,
+                                cfg.diffKhT, implicit_diffusion=True,
+                                impl=impl, df=df, calc_advection=adv, gm=ten)
+        name = "gad_calc_rhs_c2_gm" + (f"({label})" if label else "")
+        exact_compare(name, case, [rhs()[..., ol:-ol, ol:-ol]],
+                      [rhs("plain")[..., ol:-ol, ol:-ol]],
+                      launch_ms(rhs, "gad_calc_rhs_c2_gm", reps)
+                      if not label else None,
+                      cuda_time_ms(lambda: rhs("plain"), plain_reps)
+                      if not label else None, results, call=rhs)
+
+
+def gm_experiment(kind, n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    config = {"gm": synthetic.gm_gyre_config,
+              "gm-bolus": synthetic.gm_bolus_gyre_config}[kind]
+    cfg = config(nx=n, ny=n, nr=nr, **kw)
+    return Experiment(cfg, *synthetic.gm_gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype)),
+        impl=impl)
+
+
+GM_FIELDS = ("uVel", "vVel", "wVel", "theta", "salt", "etaN", "guNm1",
+             "gvNm1", "guNm2", "gvNm2", "gtNm1", "gsNm1", "gtNm2", "gsNm2",
+             "totPhiHyd", "PmEpR")
+
+
+def interior_equal(a, b, names, ol):
+    """The names of `names` whose interior cells are bit-equal in states a
+    and b."""
+    return [n for n in names
+            if torch.equal(getattr(a, n)[..., ol:-ol, ol:-ol],
+                           getattr(b, n)[..., ol:-ol, ol:-ol])]
+
+
+def gm_parity_phase(kind, steps=3):
+    """Float64 steps of the 64x64x12 gm- or gm-bolus-gyre, kernel path
+    against plain path: equal cg2d iterations and every field of GM_FIELDS
+    bit-equal on the interior; returns the kernel path's launches."""
+    from mitgcm_tpu_torch import kernels
+
+    exps = {impl: gm_experiment(kind, 64, 12, torch.float64, impl)
+            for impl in (None, "plain")}
+    kernels.launches.clear()
+    runs = {None: exps[None].run(n_steps=steps, collect_monitor=False)}
+    launches = dict(kernels.launches)
+    runs["plain"] = exps["plain"].run(n_steps=steps, collect_monitor=False)
+    iters = [[r["cg2d_iters"] for r in runs[i]] for i in (None, "plain")]
+    same = interior_equal(exps[None].state, exps["plain"].state, GM_FIELDS,
+                          exps[None].cfg.olx)
+    print(f"{kind}-gyre parity, 64x64x12 float64, {steps} steps: cg2d "
+          f"iterations {iters[0]} / {iters[1]}; bit-equal fields "
+          f"{len(same)} of {len(GM_FIELDS)} (interior); launches "
+          f"{ {k: launches.get(k, 0) for k in GM_KERNELS} }", flush=True)
+    if iters[0] != iters[1] or len(same) != len(GM_FIELDS):
+        raise AssertionError(f"{kind}-gyre kernel path differs from the "
+                             f"plain path (bit-equal: {same})")
+    return launches
+
+
+def gm_restart_phase():
+    """A 2+2 restart of the 64x64x12 float64 gm-gyre on the kernel path
+    against 4 straight steps: GM-Redi carries no state, so the pickup is
+    the kpp-gyre's."""
+    import tempfile
+
+    from mitgcm_tpu_torch.model.experiment import read_pickup, write_pickup
+
+    e4 = gm_experiment("gm", 64, 12, torch.float64)
+    e4.run(n_steps=4, collect_monitor=False)
+    e2 = gm_experiment("gm", 64, 12, torch.float64)
+    e2.run(n_steps=2, collect_monitor=False)
+    e22 = gm_experiment("gm", 64, 12, torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_pickup(e2, tmp, 2)
+        read_pickup(e22, tmp, 2)
+    e22.run(n_steps=2, collect_monitor=False)
+    names = GM_FIELDS[:11]
+    same = interior_equal(e4.state, e22.state, names, e4.cfg.olx)
+    print(f"2+2 restart of the gm-gyre on the kernel path, 64x64x12 "
+          f"float64: {len(same)} of {len(names)} fields bit-equal",
+          flush=True)
+    if len(same) != len(names):
+        raise AssertionError(f"gm-gyre restart differs (bit-equal {same})")
+
+
+def gm_full_phase(kind, kernels, smi, want):
+    """The 1024x1024x32 float32 gm- or gm-bolus-gyre (deltaT = 600): a
+    warm-up step, 5 timed steps with every launch count (`want`) and no
+    twin, the cg2d host syncs, peak memory, a profile, then 1 plain step
+    held against 1 kernel step from the same state (GM_FIELDS bit-equal on
+    the interior)."""
+    from mitgcm_tpu_torch.model import gmredi
+    from mitgcm_tpu_torch.model import kpp as kpp_mod
+    from mitgcm_tpu_torch.model.step import forward_step
+
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = gm_experiment(kind, n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    cfg, points = exp.cfg, n * n * nr
+
+    def run(state, it0, steps, impl):
+        iters, syncs = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for it in range(it0, it0 + steps):
+            state, diag = forward_step(cfg, exp.grid, exp.op, state,
+                                       exp.forcing, it, impl=impl,
+                                       kpp=exp.kpp)
+            iters.append(diag.cg2d_iters)
+            syncs.append(diag.cg2d_host_syncs)
+        torch.cuda.synchronize()
+        return state, iters, syncs, time.perf_counter() - t
+
+    def plain_calls():
+        return gmredi.plain_calls + kpp_mod.plain_calls + glue_plain_calls()
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, iters_w, _, sec_w = run(exp.state, 0, 1, None)
+    kernels.launches.clear()
+    plain0 = plain_calls()
+    state, iters, syncs, sec = run(state1, 1, 5, None)
+    launches = dict(kernels.launches)
+    plain = plain_calls() - plain0
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
+          f"{points * 5 / sec:.4e} points*steps/s, cg2d iterations {iters},"
+          f" host syncs {syncs}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; plain GM, KPP and D-G calls {plain}; launches {launches}",
+          flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{kind}-gyre {name} is not finite")
+    check_launches(f"{kind}-gyre", launches, want, plain)
+    profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
+    state_k = run(state1, 1, 1, None)[0]
+    state_p, _, _, sec_p = run(state1, 1, 1, "plain")
+    same = interior_equal(state_k, state_p, GM_FIELDS, cfg.olx)
+    print(f"plain path: 1 step, {sec_p * 1e3:.2f} ms/step, "
+          f"{points / sec_p:.4e} points*steps/s; against the kernel path's "
+          f"step from the same state, bit-equal fields (interior) "
+          f"{len(same)} of {len(GM_FIELDS)}", flush=True)
+    if len(same) != len(GM_FIELDS):
+        raise AssertionError(f"{kind}-gyre plain step differs from the "
+                             f"kernel step: bit-equal {same}")
+    return launches
+
+
+def gm_phase(kernels, results, smi):
+    phase("16 GM-Redi: the gm-gyre and the gm-bolus-gyre")
+    gm_kernel_phase(GmCase(64, 12, torch.float64), results, 20, 5)
+    gm_kernel_phase(GmCase(1024, 32, torch.float32), results, 10, 2)
+    torch.cuda.empty_cache()
+    for kind in ("gm", "gm-bolus"):
+        got = gm_parity_phase(kind)
+        want = {"gm_tensor": 3, "gad_calc_rhs_c2_gm": 6,
+                "gad_calc_rhs_c2": 0,
+                "gm_psi_b": 3 if kind == "gm-bolus" else 0,
+                "gm_residual_flow": 3 if kind == "gm-bolus" else 0}
+        check_launches(f"{kind}-gyre parity", got, want)
+    gm_restart_phase()
+    run = gm_full_phase("gm", kernels, smi, GM_LAUNCHES)
+    run_b = gm_full_phase("gm-bolus", kernels, smi, GM_BOLUS_LAUNCHES)
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+    return {"gm_tensor": run["gm_tensor"],
+            "gad_calc_rhs_c2_gm": run["gad_calc_rhs_c2_gm"],
+            "gm_psi_b": run_b["gm_psi_b"],
+            "gm_residual_flow": run_b["gm_residual_flow"]}
+
+
 class GlueCase:
     """Seeded inputs of the step's glue kernels D-G on the gyre's grid (the
     vi-gyre's options with vi, for AB-3) or, with nh, on the nh-convection
@@ -3216,6 +3573,7 @@ def main():
     launches.update(ice_phase(kernels, results, smi))
     glue_phase(results)
     launches.update(evp_phase(kernels, results, smi))
+    launches.update(gm_phase(kernels, results, smi))
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

@@ -29,7 +29,8 @@ def check_adjoint_supported(cfg: Config) -> None:
     backward kernel yet (V: vector-invariant momentum, T: implicit
     vertical mixing, R: the nonlinear EOS, K: KPP, G9: GGL90, M, O and P:
     the multi-dimensional advection, W and H-cg3d: the non-hydrostatic
-    path, B's free-slip and 3-D Coriolis flags, H-seaice: the sea ice),
+    path, B's free-slip and 3-D Coriolis flags, H-seaice: the sea ice,
+    gm_tensor, gm_psi_b, gm_residual_flow and C's GM branch: GM-Redi),
     and for AB-3,
     whose gradient is not yet held against the JAX adjoint: the adjoint runs
     the gyre of the forward path's first slice only."""
@@ -42,6 +43,7 @@ def check_adjoint_supported(cfg: Config) -> None:
         "useKPP": cfg.useKPP,
         "useGGL90": cfg.useGGL90,
         "useSEAICE": cfg.useSEAICE,
+        "useGMRedi": cfg.useGMRedi,
         "nonHydrostatic": cfg.nonHydrostatic,
         "no_slip_sides=F": not cfg.no_slip_sides,
         f"select3dCoriScheme={cfg.select3dCoriScheme}":

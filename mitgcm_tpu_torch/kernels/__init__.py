@@ -63,6 +63,18 @@ SIGNATURES = {
     # implicit_diffusion, calc_advection; df (the extra vertical flux, or
     # null); stream
     "gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _I, _P, _P],
+    # its GM branch: the same, then the GM pointer table (Kux, Kvy, Kwx,
+    # Kwy, Kuz, Kvz, maskW, maskS), its length, and the scalar Kux and Kvy;
+    # stream
+    "gad_calc_rhs_c2_gm": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_I, _I, _P]
+    + [_PP, _I, _D, _D, _P],
+    # GM-Redi's kernels (gmredi.cu): pointer table, its length; parameter
+    # array, its length; nr, nyp, nxp, taper scheme (gm_tensor: and
+    # nonUnityDiagonal); stream
+    "gm_tensor": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
+    "gm_psi_b": [_PP, _I, _PD, _I] + [_I] * 4 + [_P],
+    # pointer table, its length; nr, nyp, nxp; -gravitySign; stream
+    "gm_residual_flow": [_PP, _I] + [_I] * 3 + [_D, _P],
     # kernel W: pointer table, its length; nr, nyp, nxp, coriolis_3d;
     # viscAhW, rkSign, gravitySign; stream
     "calc_gw": [_PP, _I] + [_I] * 4 + [_D] * 3 + [_P],
@@ -305,8 +317,10 @@ def doubles(vals) -> ctypes.Array:
 
 def pointer_table(tensors) -> ctypes.Array:
     """Host array of device pointers, in the order of the C struct it
-    fills (the caller keeps the tensors alive across the launch)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    fills, a null pointer for None (the caller keeps the tensors alive
+    across the launch)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 @contextlib.contextmanager

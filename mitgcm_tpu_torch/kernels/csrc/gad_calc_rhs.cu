@@ -9,11 +9,17 @@
 // tracer * divTrans. Without calcAdvection (calc_rhs(calc_advection=False),
 // the tracers that kernels M, O and P advect) the advective
 // fluxes are 0 and divTrans is multiplied by advFac = 0, as in the JAX code.
+// The GM branch (entry point gad_calc_rhs_c2_gm, the template flag GM) adds
+// GM-Redi's fluxes (gad.py:1075-1098 with gmredi.py:xy_flux and r_flux):
+// after the diffusive term in fZon and fMer (with GM_ExtraDiag's Kuz/Kvz
+// dT/dz terms), and after the explicit diffusion and before df in fVer.
 // XLA fused it into a few sweeps on the TPU.
 //
 // Bound: bytes. Per cell it reads 10 3-D fields (the transports and areas
 // of AdvFlow, the tracer, kappaR, maskC and recip_hFacC) and writes one,
-// ~44 B/cell in float32, for about 60 flops.
+// ~44 B/cell in float32, for about 60 flops; the GM branch reads 4 more
+// (Kwx, Kwy, maskW, maskS), 6 with a 3-D Kux and Kvy, 8 with Kuz and Kvz,
+// for about 60 flops more.
 // Design: one thread per (k, j, i), i fastest. The fluxes at the cell's
 // east, north and lower faces are recomputed by the thread (their loads hit
 // L1/L2) instead of being stored, so DRAM traffic is one read of each input
@@ -29,19 +35,21 @@
 
 namespace mitgcm {
 
-template <typename T>
+template <typename T, bool GM>
 __global__ void calc_rhs_c2_kernel(const GadArgs<T> a, int nr, int ny,
                                    int nx, int oly, int olx, T diffKh,
                                    T rkSign, bool implicitDiffusion,
-                                   bool calcAdvection, const T* df) {
+                                   bool calcAdvection, const T* df,
+                                   const GmArgs<T> g, T KuxVal, T KvyVal) {
   const int nyp = ny + 2 * oly, nxp = nx + 2 * olx;
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   const int k = blockIdx.z;
   if (i >= nxp || j >= nyp) return;
-  const GadCell<T> c{a,      nr,     nyp,
-                     nxp,    diffKh, rkSign,
-                     implicitDiffusion, calcAdvection, df};
+  const GmFlux<T> gm{a, g, KuxVal, KvyVal, nr, nyp, nxp};
+  const GadCell<T, GM> c{a,      nr,     nyp,
+                         nxp,    diffKh, rkSign,
+                         implicitDiffusion, calcAdvection, df, &gm};
   const size_t p = c.i3(k, j, i);
   if (i < olx || i >= olx + nx || j < oly || j >= oly + ny) {
     a.gTr[p] = T(0);
@@ -64,46 +72,67 @@ __global__ void calc_rhs_c2_kernel(const GadArgs<T> a, int nr, int ny,
                 a.tracer[p] * divTrans * mIn));
 }
 
+// gm_table null: kernel C; else its GM branch, gm_table the n_gm pointers
+// of GmArgs and KuxVal/KvyVal the constant Kux and Kvy where those are null
 template <typename T>
 int launch_calc_rhs(const void* const* table, int n, int nr, int ny, int nx,
                     int oly, int olx, double diffKh, double rkSign,
                     int implicitDiffusion, int calcAdvection, const void* df,
-                    void* stream) {
+                    const void* const* gm_table, int n_gm, double KuxVal,
+                    double KvyVal, void* stream) {
   static_assert(sizeof(GadArgs<T>) == kGadNumPointers * sizeof(void*),
                 "GadArgs must be a plain table of pointers");
-  if (n != kGadNumPointers) return (int)cudaErrorInvalidValue;
+  static_assert(sizeof(GmArgs<T>) == kGmNumPointers * sizeof(void*),
+                "GmArgs must be a plain table of pointers");
+  if (n != kGadNumPointers || (gm_table && n_gm != kGmNumPointers))
+    return (int)cudaErrorInvalidValue;
   GadArgs<T> a;
   std::memcpy(&a, table, sizeof(a));
+  GmArgs<T> gm{};
+  if (gm_table) {
+    std::memcpy(&gm, gm_table, sizeof(gm));
+    if (!gm.Kwx || !gm.Kwy || !gm.maskW || !gm.maskS ||
+        (gm.Kux == nullptr) != (gm.Kvy == nullptr) ||
+        (gm.Kuz == nullptr) != (gm.Kvz == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
   const dim3 g((nx + 2 * olx + BX - 1) / BX, (ny + 2 * oly + BY - 1) / BY,
                nr);
-  calc_rhs_c2_kernel<T><<<g, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      a, nr, ny, nx, oly, olx, T(diffKh), T(rkSign), implicitDiffusion != 0,
-      calcAdvection != 0, (const T*)df);
+  if (gm_table)
+    calc_rhs_c2_kernel<T, true><<<g, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+        a, nr, ny, nx, oly, olx, T(diffKh), T(rkSign), implicitDiffusion != 0,
+        calcAdvection != 0, (const T*)df, gm, T(KuxVal), T(KvyVal));
+  else
+    calc_rhs_c2_kernel<T, false><<<g, dim3(BX, BY), 0,
+                                   (cudaStream_t)stream>>>(
+        a, nr, ny, nx, oly, olx, T(diffKh), T(rkSign), implicitDiffusion != 0,
+        calcAdvection != 0, (const T*)df, gm, T(0), T(0));
   return (int)cudaGetLastError();
 }
 
 }  // namespace mitgcm
 
-extern "C" int mitgcm_gad_calc_rhs_c2_f32(const void* const* table, int n,
-                                          int nr, int ny, int nx, int oly,
-                                          int olx, double diffKh,
-                                          double rkSign,
-                                          int implicitDiffusion,
-                                          int calcAdvection, const void* df,
-                                          void* stream) {
-  return mitgcm::launch_calc_rhs<float>(table, n, nr, ny, nx, oly, olx,
-                                        diffKh, rkSign, implicitDiffusion,
-                                        calcAdvection, df, stream);
-}
+#define MITGCM_CALC_RHS_ENTRY_POINTS(T, SUF)                                  \
+  extern "C" int mitgcm_gad_calc_rhs_c2_##SUF(                                \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,       \
+      int olx, double diffKh, double rkSign, int implicitDiffusion,           \
+      int calcAdvection, const void* df, void* stream) {                      \
+    return mitgcm::launch_calc_rhs<T>(table, n, nr, ny, nx, oly, olx, diffKh, \
+                                      rkSign, implicitDiffusion,              \
+                                      calcAdvection, df, nullptr, 0, 0.0,     \
+                                      0.0, stream);                           \
+  }                                                                           \
+  extern "C" int mitgcm_gad_calc_rhs_c2_gm_##SUF(                             \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,       \
+      int olx, double diffKh, double rkSign, int implicitDiffusion,           \
+      int calcAdvection, const void* df, const void* const* gm_table,         \
+      int n_gm, double KuxVal, double KvyVal, void* stream) {                 \
+    if (!gm_table) return (int)cudaErrorInvalidValue;                         \
+    return mitgcm::launch_calc_rhs<T>(table, n, nr, ny, nx, oly, olx, diffKh, \
+                                      rkSign, implicitDiffusion,              \
+                                      calcAdvection, df, gm_table, n_gm,      \
+                                      KuxVal, KvyVal, stream);                \
+  }
 
-extern "C" int mitgcm_gad_calc_rhs_c2_f64(const void* const* table, int n,
-                                          int nr, int ny, int nx, int oly,
-                                          int olx, double diffKh,
-                                          double rkSign,
-                                          int implicitDiffusion,
-                                          int calcAdvection, const void* df,
-                                          void* stream) {
-  return mitgcm::launch_calc_rhs<double>(table, n, nr, ny, nx, oly, olx,
-                                         diffKh, rkSign, implicitDiffusion,
-                                         calcAdvection, df, stream);
-}
+MITGCM_CALC_RHS_ENTRY_POINTS(float, f32)
+MITGCM_CALC_RHS_ENTRY_POINTS(double, f64)

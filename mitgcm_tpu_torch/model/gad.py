@@ -15,8 +15,11 @@ vertical diffusive flux is left out (the implicit solve,
 thermodynamics.impldiff, takes its place). An extra vertical flux `df`
 (KPP's nonlocal flux) is added to fVer before the divergence. Without
 calc_advection the advective fluxes and the tracer * divergence term are
-left out (the multi-dimensional advection has advected the tracer). Kernel C'
-has none of these branches, so those variants refuse gradients.
+left out (the multi-dimensional advection has advected the tracer). With a
+GM-Redi tensor `gm` (model/gmredi.py) GM's fluxes join after the
+diffusive ones (xy_flux, r_flux), as the launch gad_calc_rhs_c2_gm on the
+card. Kernel C' has none of these branches, so those variants refuse
+gradients.
 
 `multidim_advection` runs the X, Y and R sweeps, one launch each, on the
 kernel that owns each sweep's scheme: M (kernels/csrc/gad_multidim.cu:
@@ -39,7 +42,7 @@ import torch
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
-from mitgcm_tpu_torch.model import gad_ho
+from mitgcm_tpu_torch.model import gad_ho, gmredi
 from mitgcm_tpu_torch.ops.stencil import shift as sh
 from mitgcm_tpu_torch.ops.stencil import shift_k
 
@@ -311,10 +314,11 @@ def _kernel_inputs(grid: Grid, tracer, uTrans, vTrans, rTrans, xA, yA,
 
 
 def _launch(kernel: str, cfg: Config, ins: dict, last, outs: dict,
-            diffKh: float, *flags: int) -> None:
+            diffKh: float, *flags) -> None:
     """Check and launch kernel C (last = gTr, flags = (implicit_diffusion,
-    calc_advection, the pointer of df or 0)) or C' (last = the cotangent of
-    gTr, outs = the four input cotangents)."""
+    calc_advection, the pointer of df or 0), and for gad_calc_rhs_c2_gm the
+    GM table, its length and the scalar Kux and Kvy) or C' (last = the
+    cotangent of gTr, outs = the four input cotangents)."""
     tracer = ins["tracer"]
     nr, nyp, nxp = tracer.shape
     kernels.check_tensors(tracer.dtype, **ins, last=last, **outs)
@@ -339,15 +343,21 @@ class CalcRhsFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR,
                 cfg: Config, grid: Grid, diffKh: float,
-                implicit_diffusion: bool, calc_advection: bool, df=None):
+                implicit_diffusion: bool, calc_advection: bool, df=None,
+                gm=None):
         args = (tracer, uTrans, vTrans, rTrans, xA, yA, maskUp, kappaR)
         gTr = torch.empty_like(tracer)
         if df is not None:
             kernels.check_tensors(tracer.dtype, df=df)
             kernels.check_shape("df", df, tracer.shape)
-        _launch("gad_calc_rhs_c2", cfg, _kernel_inputs(grid, *args), gTr,
-                {}, diffKh, int(implicit_diffusion), int(calc_advection),
-                df.data_ptr() if df is not None else 0)
+        flags = [int(implicit_diffusion), int(calc_advection),
+                 df.data_ptr() if df is not None else 0]
+        kernel = "gad_calc_rhs_c2"
+        if gm is not None:
+            kernel = "gad_calc_rhs_c2_gm"
+            flags += _gm_table(grid, gm, tracer)
+        _launch(kernel, cfg, _kernel_inputs(grid, *args), gTr, {}, diffKh,
+                *flags)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(*args)
             ctx.cfg, ctx.grid, ctx.diffKh = cfg, grid, diffKh
@@ -359,39 +369,63 @@ class CalcRhsFn(torch.autograd.Function):
         outs = {n + "_bar": torch.empty_like(ins[n]) for n in _DIFFERENTIABLE}
         _launch("gad_calc_rhs_c2_adj", ctx.cfg, ins, gTr_bar.contiguous(),
                 outs, ctx.diffKh)
-        return (*outs.values(),) + (None,) * 10
+        return (*outs.values(),) + (None,) * 11
+
+
+def _gm_table(grid: Grid, gm, tracer) -> list:
+    """The GM launch's arguments: the table of gad_calc_rhs.cuh:GmArgs (Kux
+    and Kvy null when they are 0-d, Kuz and Kvz null without
+    GM_ExtraDiag), its length, and the scalar Kux and Kvy."""
+    scalar = gm.Kux.dim() == 0
+    fields = dict(Kwx=gm.Kwx, Kwy=gm.Kwy, maskW=grid.maskW, maskS=grid.maskS)
+    if not scalar:
+        fields.update(Kux=gm.Kux, Kvy=gm.Kvy)
+    if gm.Kuz is not None:
+        fields.update(Kuz=gm.Kuz, Kvz=gm.Kvz)
+    kernels.check_fields(tracer.dtype, tracer.shape, **fields)
+    table = kernels.pointer_table([fields.get(n) for n in (
+        "Kux", "Kvy", "Kwx", "Kwy", "Kuz", "Kvz", "maskW", "maskS")])
+    return [table, len(table), float(gm.Kux) if scalar else 0.0,
+            float(gm.Kvy) if scalar else 0.0]
 
 
 def calc_rhs(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
              diffKh: float, implicit_diffusion: bool = False,
-             impl: str = None, df=None,
-             calc_advection: bool = True) -> torch.Tensor:
+             impl: str = None, df=None, calc_advection: bool = True,
+             gm=None) -> torch.Tensor:
     """gad_calc_rhs.F: explicit tendency of one tracer at all levels.
     kappaR: [nr, nyp, nxp] interface diffusivities; df: an extra vertical
     flux [nr, nyp, nxp] at the interfaces (KPP's nonlocal flux) or None;
     calc_advection=False leaves the advective part out (the
-    multi-dimensional advection's tracers). Differentiable in the tracer and
-    in flow's transports; raises if a constant (xA, yA, maskUp, kappaR, df,
+    multi-dimensional advection's tracers); gm: a gmredi.GMTensor whose
+    fluxes join the tracer's, or None. Differentiable in the tracer and in
+    flow's transports; raises if a constant (xA, yA, maskUp, kappaR, df,
     the grid) requires grad, since the kernel gives it none, and with
-    implicit_diffusion, df or without calc_advection if anything does."""
+    implicit_diffusion, df, gm or without calc_advection if anything
+    does."""
     args = (tracer, flow.uTrans, flow.vTrans, flow.rTrans, flow.xA, flow.yA,
             flow.maskUp, kappaR)
     ins = _kernel_inputs(grid, *args)
     if df is not None:
         ins["df"] = df
+    if gm is not None:
+        ins.update((f"gm.{n}", t) for n, t in gm._asdict().items()
+                   if t is not None)
     grads = [n for n, t in ins.items() if t.requires_grad]
     const = [n for n in grads if n not in _DIFFERENTIABLE]
     if const:
         raise ValueError(f"calc_rhs: constants {const} require grad")
-    if grads and (implicit_diffusion or df is not None
+    if grads and (implicit_diffusion or df is not None or gm is not None
                   or not calc_advection):
         raise ValueError(f"calc_rhs: {grads} require grad; kernel C' has no "
-                         "implicit_diffusion, df or no-advection branch")
+                         "implicit_diffusion, df, GM or no-advection branch")
     if not kernels.use_kernel(tracer, impl):
+        if gm is not None:
+            gmredi.plain_calls += 1
         return _calc_rhs_plain(cfg, grid, flow, tracer, kappaR, diffKh,
-                               implicit_diffusion, df, calc_advection)
+                               implicit_diffusion, df, calc_advection, gm)
     return CalcRhsFn.apply(*args, cfg, grid, diffKh, implicit_diffusion,
-                           calc_advection, df)
+                           calc_advection, df, gm)
 
 
 def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
@@ -411,9 +445,11 @@ def calc_rhs_vjp_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer,
 
 def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
                     diffKh: float, implicit_diffusion: bool = False,
-                    df=None, calc_advection: bool = True) -> torch.Tensor:
-    """gad.py:calc_rhs (:1038-1117) for scheme 2 without GM or biharmonic
-    terms, in its operation order."""
+                    df=None, calc_advection: bool = True,
+                    gm=None) -> torch.Tensor:
+    """gad.py:calc_rhs (:1038-1117) for scheme 2 without biharmonic terms,
+    in its operation order: the fluxes sum as advection, diffusion, GM
+    (gmredi.xy_flux, r_flux), then df."""
     fZon = torch.zeros_like(tracer)
     fMer = torch.zeros_like(tracer)
     fVer = torch.zeros_like(tracer)
@@ -428,8 +464,14 @@ def _calc_rhs_plain(cfg: Config, grid: Grid, flow: AdvFlow, tracer, kappaR,
                    * (tracer - sh(tracer, di=-1)) * grid.cosFacU)
     fMer = fMer - (diffKh * flow.yA * grid.recip_dyC
                    * (tracer - sh(tracer, dj=-1)))
+    if gm is not None:
+        gx, gy = gmredi.xy_flux(cfg, grid, gm, flow.xA, flow.yA, tracer)
+        fZon = fZon + gx
+        fMer = fMer + gy
     if not implicit_diffusion:
         fVer = fVer + diff_flux_r(cfg, grid, kappaR, flow.maskUp, tracer)
+    if gm is not None:
+        fVer = fVer + gmredi.r_flux(cfg, grid, gm, flow.maskUp, tracer)
     if df is not None:
         fVer = fVer + df
     fVerKp = torch.cat([fVer[1:], torch.zeros_like(fVer[:1])])

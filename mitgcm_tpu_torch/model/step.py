@@ -20,7 +20,10 @@ flux-form momentum: calc_gw and the AB step of w in DYNAMICS, the cg3d
 solve for phi_nh after cg2d, and its gradient in the correction) and the
 ice-gyre (the kpp-gyre under a sea-ice cover: model/seaice.py's step runs
 after the forcing is loaded and before DO_OCEANIC_PHYS, and overwrites
-fu, fv, Qnet, Qsw, EmPmR and saltFlux), and any mix of those options.
+fu, fv, Qnet, Qsw, EmPmR and saltFlux), the gm- and gm-bolus-gyre (the
+kpp-gyre with GM-Redi in its skew-flux or advective form: model/gmredi.py's
+tensor and bolus streamfunction from the start-of-step density, before
+THERMODYNAMICS), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
@@ -44,6 +47,7 @@ from mitgcm_tpu_torch.model import calc_gw as calc_gw_mod
 from mitgcm_tpu_torch.model import gad
 from mitgcm_tpu_torch.model.gad import _div
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
+from mitgcm_tpu_torch.model import gmredi
 from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model import seaice as seaice_mod
 from mitgcm_tpu_torch.model import som as som_mod
@@ -85,7 +89,7 @@ class StepDiag:
 _PACKAGES = ("usePP81", "useMY82", "useOPPS", "useEXF", "useOBCS",
              "usePTRACERS", "useRBCS",
              "useAIM", "useLand", "useThSIce", "useZONAL_FILT", "useOffLine",
-             "useGCHEM", "useGMRedi", "useSHAP_FILT")
+             "useGCHEM", "useSHAP_FILT")
 
 
 def _tracer_schemes_off(cfg: Config) -> dict:
@@ -123,7 +127,8 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
     the plain path; nonHydrostatic under flux-form momentum with op3, a
     solver/cg3d.py:CG3DOperator, and without the options that
     calc_gw.check_nh refuses; useSEAICE with seaice, a model/seaice.py:
-    SeaIce object, without the options that seaice.check_seaice refuses)."""
+    SeaIce object, without the options that seaice.check_seaice refuses;
+    useGMRedi without the settings that gmredi.check_gmredi refuses)."""
     g9_kernel = ggl90 is not None and kernels.use_kernel(ggl90.klowC, impl)
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
@@ -194,6 +199,8 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
         calc_gw_mod.check_nh(cfg)
     if seaice is not None:
         seaice_mod.check_seaice(cfg, seaice)
+    if cfg.useGMRedi:
+        gmredi.check_gmredi(cfg)
     if cfg.vectorInvariantMomentum:
         check_branches_vecinv(cfg)
     else:
@@ -702,6 +709,24 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
             forc.fv * cfg.mass2rUnit, sfT, sfS, forc.Qsw,
             thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrT),
             thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrS), impl=impl)
+    # the vertical density gradient that GM-Redi and GGL90 share
+    # (do_oceanic_phys.F:803-830; step.py:917-925 of the JAX package)
+    sigmaR = None
+    if cfg.useGMRedi or ggl90 is not None:
+        sigmaR = thermo_mod.calc_sigmaR(cfg, grid, rhoInSitu, state.theta,
+                                        state.salt,
+                                        totPhiHyd=state.totPhiHyd, impl=impl)
+    # the GM-Redi tensor and, in the advective form, the bolus
+    # streamfunction with its halos filled (do_oceanic_phys.F:1039,
+    # gmredi_do_exch.F; step.py:926-939 of the JAX package)
+    gm = gm_psi = None
+    if cfg.useGMRedi:
+        gm = gmredi.gm_tensor(cfg, grid, cfg.gmredi, rhoInSitu, sigmaR,
+                              impl=impl)
+        if cfg.gmredi.advForm:
+            psiX, psiY = gmredi.gm_psi_b(cfg, grid, cfg.gmredi, rhoInSitu,
+                                         sigmaR, impl=impl)
+            gm_psi = (fill(psiX), fill(psiY))
     # GGL90 on the start-of-step state, with the vertical density gradient
     # (do_oceanic_phys.F GGL90_CALC; step.py:915-970 of the JAX package)
     # (with useLANGMUIR the JAX step also computes the Stokes drift, which
@@ -709,9 +734,6 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     ggl90_fields = None
     tkeNew, idemixE = state.GGL90TKE, state.IDEMIX_E
     if ggl90 is not None:
-        sigmaR = thermo_mod.calc_sigmaR(cfg, grid, rhoInSitu, state.theta,
-                                        state.salt,
-                                        totPhiHyd=state.totPhiHyd, impl=impl)
         tkeNew, viscU, viscV, diffKr, idemixE = ggl90.calc(
             state.uVel, state.vVel, state.GGL90TKE, sigmaR,
             forc.fu * cfg.mass2rUnit, forc.fv * cfg.mass2rUnit,
@@ -720,7 +742,7 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT,
      somS) = thermo_mod.thermodynamics(
         cfg, grid, state, forc, myIter, impl=impl, kpp_fields=kpp_fields,
-        ggl90_fields=ggl90_fields)
+        ggl90_fields=ggl90_fields, gm=gm, gm_psi=gm_psi)
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh = dynamics(
         cfg, grid, state, forc, rhoInSitu, myIter, impl=impl,
         kpp_fields=kpp_fields, ggl90_fields=ggl90_fields)

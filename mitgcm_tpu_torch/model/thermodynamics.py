@@ -9,8 +9,10 @@ gad.MULTIDIM_SCHEMES under multiDimAdvection is advected by the
 multi-dimensional advection (gad.multidim_advection, kernels M, O and P),
 one with scheme 80 or 81 by second-order moments (som.som_advect, kernel
 H-SOM, which comes first, with or without multiDimAdvection, as in JAX),
-and neither tendency is AB-extrapolated. `calc_sigmaR` gives GGL90 the
-vertical density gradient.
+and neither tendency is AB-extrapolated. With GM-Redi (model/gmredi.py)
+its Kwz joins the interface diffusivities and its fluxes each tracer's,
+and in the advective form the residual flow advects the tracers.
+`calc_sigmaR` gives GGL90 and GM-Redi the vertical density gradient.
 
 `impldiff` (the tridiagonal column solve, also used for implicit vertical
 viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for
@@ -27,7 +29,7 @@ from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
-from mitgcm_tpu_torch.model import gad, som
+from mitgcm_tpu_torch.model import gad, gmredi, som
 from mitgcm_tpu_torch.model.kpp import ghat_flux
 from mitgcm_tpu_torch.ops import eos
 
@@ -241,19 +243,20 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
                      gNm1, gNm2, kappaR, sfc_forc, diffKh: float,
                      myIter: int, impl: str = None, df=None,
                      schemes=(gad.ENUM_CENTERED_2ND, gad.ENUM_CENTERED_2ND),
-                     uvw=None, som_state=None):
+                     uvw=None, som_state=None, gm=None):
     """temp_integrate.F for one tracer: (tracer', gNm1', gNm2', som'); df:
     an extra vertical flux for gad.calc_rhs (KPP's nonlocal flux) or None;
     schemes: the (horizontal, vertical) advection schemes; uvw: the
     velocities that the multi-dimensional and SOM advection advect with;
     som_state: the tracer's moments with scheme 80 or 81 (som' their update,
-    else som_state passed through)."""
+    else som_state passed through); gm: the GM-Redi tensor for calc_rhs, or
+    None."""
     scheme, vert_scheme = schemes
     is_som = scheme in som.SOM_SCHEMES
     multidim = gad.is_multidim(cfg, scheme)
     gTr = gad.calc_rhs(cfg, grid, flow, tracer, kappaR, diffKh,
                        implicit_diffusion=cfg.implicitDiffusion, impl=impl,
-                       df=df, calc_advection=not (multidim or is_som))
+                       df=df, calc_advection=not (multidim or is_som), gm=gm)
     som_new = som_state
     if is_som:
         gSom, som_new = som.som_advect(cfg, grid, *uvw, tracer, som_state,
@@ -276,29 +279,42 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
 
 def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                    myIter: int, impl: str = None, kpp_fields=None,
-                   ggl90_fields=None):
+                   ggl90_fields=None, gm=None, gm_psi=None):
     """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2,
     somT, somS). kpp_fields: KPP.calc's output, or None without KPP
     (thermodynamics.py:470-496, 524-533 of the JAX package); ggl90_fields:
-    GGL90.calc's diffKr under "diffKr", or None (:501-503, :537-538)."""
+    GGL90.calc's diffKr under "diffKr", or None (:501-503, :537-538); gm:
+    the GM-Redi tensor (model/gmredi.py), whose Kwz joins the interface
+    diffusivities and whose fluxes join each tracer's (:282-283, :490-495,
+    :530-533), or None; gm_psi: the filled bolus streamfunction (psiX,
+    psiY) of the advective form, whose residual flow advects the tracers
+    (:443-453), or None."""
     theta, salt = state.theta, state.salt
     gtNm1, gsNm1 = state.gtNm1, state.gsNm1
     gtNm2, gsNm2 = state.gtNm2, state.gsNm2
     somT, somS = state.somT, state.somS
     if not (cfg.tempStepping or cfg.saltStepping):
         return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT, somS
-    flow = gad.calc_adv_flow(grid, state.uVel, state.vVel, state.wVel)
+    uvw = (state.uVel, state.vVel, state.wVel)
+    if gm_psi is not None:
+        uvw = gmredi.gm_residual_flow(cfg, grid, *gm_psi, *uvw, impl=impl)
+    flow = gad.calc_adv_flow(grid, *uvw)
     sfT, sfS = surface_forcing_ts(cfg, grid, state, forcing)
     dfT = dfS = None
     if kpp_fields is None:
         kapT = tracer_kappa(cfg, grid, cfg.diffKrT)
         kapS = tracer_kappa(cfg, grid, cfg.diffKrS)
+        if gm is not None:
+            # gmredi_calc_diff.F: Kwz into the implicit solve
+            kapT = kapT + gm.Kwz * grid.maskInC
+            kapS = kapS + gm.Kwz * grid.maskInC
         if ggl90_fields is not None:
             # ggl90_calc_diff.F: KappaRx += GGL90diffKr - diffKrNrS
             kapT = kapT + (ggl90_fields["diffKr"] - cfg.diffKrS)
             kapS = kapS + (ggl90_fields["diffKr"] - cfg.diffKrS)
     else:
-        # KPP's diffusivities (kpp_calc_diff_t/s.F) and nonlocal flux
+        # KPP's diffusivities (kpp_calc_diff_t/s.F) and nonlocal flux, the
+        # latter on KPP's own diffusivities; GM's Kwz joins after
         kapT, kapS = kpp_fields["diffKzT"], kpp_fields["diffKzS"]
         recip_Cp = 1.0 / cfg.HeatCapacity_Cp
         qswT = (-forcing.Qsw * recip_Cp * (1.0 / cfg.rhoConst)
@@ -307,17 +323,21 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                         flow.maskUp)
         dfS = ghat_flux(cfg, grid, kapS, kpp_fields["ghat"], sfS, 0.0 * sfS,
                         flow.maskUp)
-    uvw = (state.uVel, state.vVel, state.wVel)
+        if gm is not None:
+            kapT = kapT + gm.Kwz * grid.maskInC
+            kapS = kapS + gm.Kwz * grid.maskInC
     if cfg.tempStepping:
         theta, gtNm1, gtNm2, somT = tracer_integrate(
             cfg, grid, flow, theta, gtNm1, gtNm2, kapT, sfT, cfg.diffKhT,
             myIter, impl=impl, df=dfT, uvw=uvw, schemes=(
                 cfg.tempAdvScheme,
-                cfg.tempVertAdvScheme or cfg.tempAdvScheme), som_state=somT)
+                cfg.tempVertAdvScheme or cfg.tempAdvScheme), som_state=somT,
+            gm=gm)
     if cfg.saltStepping:
         salt, gsNm1, gsNm2, somS = tracer_integrate(
             cfg, grid, flow, salt, gsNm1, gsNm2, kapS, sfS, cfg.diffKhS,
             myIter, impl=impl, df=dfS, uvw=uvw, schemes=(
                 cfg.saltAdvScheme,
-                cfg.saltVertAdvScheme or cfg.saltAdvScheme), som_state=somS)
+                cfg.saltVertAdvScheme or cfg.saltAdvScheme), som_state=somS,
+            gm=gm)
     return theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT, somS

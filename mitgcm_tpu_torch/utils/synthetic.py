@@ -2,14 +2,18 @@
 configurations for the entry point, the card smoke run and the tests: the
 gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its variants, the
 os7mp-gyre and the pqm-gyre (high-order advection), the idemix-gyre (IDEMIX
-and Langmuir in GGL90), the som-gyre (second-order-moment tracers) and the
-ice-gyre (the kpp-gyre under a sea-ice cover); and the nh-convection box, a
+and Langmuir in GGL90), the som-gyre (second-order-moment tracers), the
+ice-gyre (the kpp-gyre under a sea-ice cover) and the gm- and
+gm-bolus-gyre (the kpp-gyre with GM-Redi and a temperature front); and
+the nh-convection box, a
 rotating, surface-cooled non-hydrostatic convection box. The set-ups put
 their tensors on the CUDA device unless device="cpu" is asked for, and take
 an already built grid of the same configuration (`grid=`) to skip building
 it again."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -18,6 +22,7 @@ from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid, build_grid
 from mitgcm_tpu_torch.core.state import init_state, zero_forcing
 from mitgcm_tpu_torch.model.ggl90 import GGL90
+from mitgcm_tpu_torch.model.gmredi import GMParams
 from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
 from mitgcm_tpu_torch.model.seaice import SeaIce, params_from_namelists
 from mitgcm_tpu_torch.model.step import integr_continuity
@@ -233,6 +238,65 @@ def ggl90_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
         ggl90.init_idemix_forc(maps.__getitem__)
         state.IDEMIX_E = torch.zeros_like(state.GGL90TKE)
     return grid, state, forcing, op, ggl90
+
+
+# the gm-gyre's GM-Redi settings: tutorial_global_oce_latlon's and
+# global_ocean.90x40x15's kind (GM_background_K 1000 m2/s, isopycK left to
+# default to it, the gkw91 taper with GM_maxSlope 1e-2), with GM_Kmin_horiz
+# 100 m2/s, this configuration's own choice, so that the tapered Kux/Kvy
+# reach their floor where the taper bites
+GM_GYRE = GMParams(background_K=1000.0, taper_scheme="gkw91", maxSlope=1.0e-2,
+                   Kmin_horiz=100.0)
+
+
+def gm_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The kpp-gyre with GM-Redi in its skew-flux form (GM_AdvForm=F) and
+    GM_NON_UNITY_DIAGONAL, the settings of GM_GYRE (the "gm-gyre"): KPP
+    with GM, and Kwz in the implicit vertical solve, as lab_sea and
+    global_ocean run them. Set up by gm_gyre_setup."""
+    return kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                           **{"useGMRedi": True, "gmredi": GM_GYRE, **kw})
+
+
+def gm_bolus_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The gm-gyre in GM-Redi's advective (bolus) form with the dm95 taper
+    (Scrit and Sd at their defaults), as tutorial_reentrant_channel runs
+    them; isopycK stays at GM_background_K, so GM_ExtraDiag's Kuz and Kvz
+    are on (the "gm-bolus-gyre"). Set up by gm_gyre_setup."""
+    gm = dataclasses.replace(GM_GYRE, advForm=True, taper_scheme="dm95")
+    return gm_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                          **{"gmredi": gm, **kw})
+
+
+def front_theta(cfg: Config, dtype, device) -> torch.Tensor:
+    """The gm-gyres' temperature front [nr, nyp, nxp] (halos filled): 2 degC
+    warmer to the south of a line that meanders about the basin's middle
+    latitude with an amplitude of a tenth of the basin's width and 4
+    wavelengths across it, 2 (1 - tanh((y - y_front(x)) / 100 km)) / 2,
+    decaying with depth as exp(z / 1000 m) at the layer centres."""
+    Lx, Ly = cfg.nx * cfg.delX[0], cfg.ny * cfg.delY[0]
+    x = (np.arange(cfg.nx) + 0.5) * cfg.delX[0]
+    y = (np.arange(cfg.ny)[:, None] + 0.5) * cfg.delY[0]
+    y_front = 0.5 * Ly + 0.1 * Lx * np.sin(2.0 * np.pi * 4.0 * x / Lx)
+    delR = np.asarray(cfg.delR)
+    zc = -(np.cumsum(delR) - 0.5 * delR)
+    front = 0.5 * 2.0 * (1.0 - np.tanh((y - y_front) / 100.0e3))
+    return _fill2(cfg, front[None] * np.exp(zc / 1000.0)[:, None, None],
+                  dtype, device)
+
+
+def gm_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                  device="cuda", grid: Grid = None):
+    """(grid, state, forcing, op, kpp) of the gm-gyre or the gm-bolus-gyre:
+    the kpp-gyre's (kpp_gyre_setup) with front_theta added to theta on the
+    wet cells, so that the isopycnals slope from the first step (salt stays
+    at sRef): gentler than GM_maxSlope in the thermocline, far steeper in
+    the mixed layer, so every branch of the taper is live."""
+    grid, state, forcing, op, kpp = kpp_gyre_setup(cfg, dtype=dtype,
+                                                   device=device, grid=grid)
+    state.theta = (state.theta + front_theta(cfg, dtype, device)) \
+        * grid.maskC
+    return grid, state, forcing, op, kpp
 
 
 def nh_convection_config(nx=1024, ny=1024, nr=50, dx=20.0, dz=20.0,

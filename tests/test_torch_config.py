@@ -11,18 +11,23 @@ import pytest
 from mitgcm_tpu.core import config as jconfig
 from mitgcm_tpu.core import nml as jnml
 from mitgcm_tpu.io import mds as jmds
+from mitgcm_tpu.model import gmredi as jgmredi
 from mitgcm_tpu.utils import synthetic as jsyn
 from mitgcm_tpu_torch.core import config as tconfig
 from mitgcm_tpu_torch.core import nml as tnml
 from mitgcm_tpu_torch.io import mds as tmds
+from mitgcm_tpu_torch.model import gmredi as tgmredi
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 
 
 def jax_config(cfg: tconfig.Config) -> jconfig.Config:
     """The JAX package's Config holding the field values of the port's
-    `cfg` (already finalized, so finalize() is not run again)."""
+    `cfg` (already finalized, so finalize() is not run again); the port's
+    GMParams becomes the JAX package's, field by field."""
     values = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     values["extra"] = dict(cfg.extra)
+    if isinstance(cfg.gmredi, tgmredi.GMParams):
+        values["gmredi"] = jgmredi.GMParams(**_values(cfg.gmredi))
     return jconfig.Config(**values)
 
 
@@ -65,6 +70,29 @@ NAMELIST = """
  Ricr = 0.25,
  /
 """
+
+
+GM_PARM01 = {"GM_background_K": 1000.0, "GM_taper_scheme": "dm95",
+             "GM_maxSlope": 4e-3, "GM_Kmin_horiz": 100.0, "GM_Scrit": 5e-3,
+             "GM_Sd": 5e-4, "GM_AdvForm": True, "GM_isopycK": 500.0}
+
+
+@pytest.mark.parametrize("group", [GM_PARM01, {}, {"gm_taper_scheme": "ac02"}])
+def test_gm_from_namelist_matches(group):
+    """Both packages' from_namelist give equal GMParams fields, and
+    jax_config hands JAX its own GMParams with them."""
+    got = tgmredi.from_namelist(group)
+    assert _values(got) == _values(jgmredi.from_namelist(group))
+    cfg = tsyn.gyre_config(nx=12, ny=10, nr=3, useGMRedi=True, gmredi=got)
+    jgm = jax_config(cfg).gmredi
+    assert isinstance(jgm, jgmredi.GMParams)
+    assert _values(jgm) == _values(got)
+    assert jgm.resolved_isopycK() == got.resolved_isopycK()
+
+
+def test_gm_from_namelist_refuses_visbeck():
+    with pytest.raises(NotImplementedError, match="GM_Visbeck_alpha"):
+        tgmredi.from_namelist({"GM_Visbeck_alpha": 0.015})
 
 
 def test_nml_copy_reads_as_the_original():

@@ -15,7 +15,11 @@ and writes no pickups (JAX's format drops phi_nh and the w-tendency
 history); the sea ice runs with a SeaIce object only, check_seaice refuses
 by name each sea-ice option it does not carry and lets through the
 dynamics it does (LSR, the EVP variants, free drift, none, the clip), and
-a step without dynamics matches the JAX package's."""
+a step without dynamics matches the JAX package's; GM-Redi runs with a
+GMParams only, check_gmredi refuses by name what it does not port (ldd97
+in the bolus form, an unknown taper, variable K, p-coordinates), calc_rhs
+with a GM tensor and GM's wrappers refuse gradients, and the adjoint
+refuses useGMRedi."""
 
 import dataclasses
 import os
@@ -33,6 +37,7 @@ from mitgcm_tpu_torch.ad import adjoint
 from mitgcm_tpu_torch.core.grid import Grid, build_grid
 from mitgcm_tpu_torch.model import gad, mom_fluxform, mom_vecinv
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
+from mitgcm_tpu_torch.model import gmredi as gmredi_mod
 from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model import som as som_mod
 from mitgcm_tpu_torch.model.experiment import (Experiment, read_pickup,
@@ -121,6 +126,12 @@ g, s, f, op, kpp, ice = synthetic.ice_gyre_setup(cfg, dtype=torch.float64,
 exp = Experiment(cfg, g, s, f, op, kpp=kpp, seaice=ice)
 rec, = exp.run(n_steps=1, collect_monitor=False)
 assert float(exp.state.uIce.abs().max()) > 0.0
+for config in (synthetic.gm_gyre_config, synthetic.gm_bolus_gyre_config):
+    cfg = config(nx=8, ny=8, nr=4, depth=300.0)
+    exp = Experiment(cfg, *synthetic.gm_gyre_setup(cfg, dtype=torch.float64,
+                                                   device="cpu"))
+    rec, = exp.run(n_steps=1, collect_monitor=False)
+    assert bool(torch.isfinite(exp.state.theta).all())
 import chip_smoke
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
@@ -451,7 +462,7 @@ def test_check_supported_refuses_kpp_options(name):
 @pytest.mark.parametrize("entry", ["gyre_setup", "kpp_gyre_setup",
                                    "build_grid", "to_tensor", "from_arrays",
                                    "ggl90_gyre_setup", "nh_convection_setup",
-                                   "ice_gyre_setup"])
+                                   "ice_gyre_setup", "gm_gyre_setup"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, an entry point puts its tensors on the
     card: here, without CUDA, it raises as torch does, and never falls back
@@ -466,6 +477,8 @@ def test_entry_points_default_to_the_card(entry):
             synthetic.nh_convection_config(nx=8, ny=8, nr=2))[0].rA,
         "ice_gyre_setup": lambda: synthetic.ice_gyre_setup(
             synthetic.ice_gyre_config(nx=8, ny=8, nr=2))[0].rA,
+        "gm_gyre_setup": lambda: synthetic.gm_gyre_setup(
+            synthetic.gm_bolus_gyre_config(nx=8, ny=8, nr=2))[0].rA,
         "build_grid": lambda: build_grid(cfg).rA,
         "to_tensor": lambda: convert.to_tensor(np.zeros(3)),
         "from_arrays": lambda: convert.from_arrays(
@@ -730,6 +743,99 @@ def test_seaice_kernels_refuse_grad(call):
     looks at the device (here the CPU)."""
     with pytest.raises(ValueError, match="kernel H-seaice"):
         _seaice_grad_calls()[call]()
+
+
+def test_adjoint_refuses_gmredi():
+    for config in (synthetic.gm_gyre_config, synthetic.gm_bolus_gyre_config):
+        cfg = config(nx=8, ny=8, nr=2, depth=300.0)
+        with pytest.raises(NotImplementedError, match="useGMRedi"):
+            adjoint.check_adjoint_supported(cfg)
+
+
+def _gm_case(**gm):
+    cfg = synthetic.gm_gyre_config(nx=8, ny=8, nr=4, depth=300.0)
+    cfg.gmredi = dataclasses.replace(cfg.gmredi, **gm)
+    grid = synthetic.gyre_setup(cfg, dtype=torch.float64, device="cpu")[0]
+    rho = (1027.0 + 0.01 * torch.arange(grid.maskC.numel(),
+                                        dtype=torch.float64)
+           .reshape(grid.maskC.shape) % 1.0) * grid.maskC
+    sigmaR = -1e-3 * grid.maskC
+    return cfg, grid, rho, sigmaR
+
+
+@pytest.mark.parametrize("field", ["tracer", "uTrans", "Kwx", "Kux"])
+def test_calc_rhs_refuses_grad_with_gm(field):
+    """Kernel C' has no GM branch: calc_rhs with a GM-Redi tensor refuses
+    any input that requires grad (a GM component as a constant), on every
+    device; and GM's wrappers refuse inputs that require grad."""
+    cfg, grid, rho, sigmaR = _gm_case()
+    gm = gmredi_mod.gm_tensor(cfg, grid, cfg.gmredi, rho, sigmaR)
+    u = rho.clone()
+    flow = gad.calc_adv_flow(grid, 0.0 * u, 0.0 * u, 0.0 * u)
+    kappaR = 1e-4 * torch.ones_like(u)
+    if field == "tracer":
+        u.requires_grad_(True)
+    elif field == "uTrans":
+        flow = flow._replace(uTrans=flow.uTrans.clone().requires_grad_(True))
+    else:
+        gm = gm._replace(**{field: getattr(gm, field).clone()
+                            .requires_grad_(True)})
+    with pytest.raises(ValueError, match="require grad"):
+        gad.calc_rhs(cfg, grid, flow, u, kappaR, cfg.diffKhT, gm=gm)
+    gad.calc_rhs(cfg, grid, gad.calc_adv_flow(grid, 0.0 * rho, 0.0 * rho,
+                                              0.0 * rho),
+                 rho, kappaR, cfg.diffKhT,
+                 gm=gm._replace(**{f: t.detach() for f, t in
+                                   gm._asdict().items() if t is not None}))
+    with pytest.raises(ValueError, match="gm_tensor"):
+        gmredi_mod.gm_tensor(cfg, grid, cfg.gmredi,
+                             rho.clone().requires_grad_(True), sigmaR)
+    with pytest.raises(ValueError, match="gm_psi_b"):
+        gmredi_mod.gm_psi_b(cfg, grid, cfg.gmredi, rho,
+                            sigmaR.clone().requires_grad_(True))
+
+
+@pytest.mark.parametrize("gm,extra,name", [
+    (dict(taper_scheme="ldd97", advForm=True), {},
+     "GM_taper_scheme='ldd97' with GM_AdvForm"),
+    (dict(taper_scheme="fm07"), {}, "GM_taper_scheme='fm07'"),
+    ({}, {"GM_Visbeck_alpha": 0.015}, "GM_Visbeck_alpha"),
+    ({}, {"usingPCoords": True}, "p-coordinates")],
+    ids=["ldd97-bolus", "unknown-taper", "visbeck", "p-coords"])
+def test_check_gmredi_refuses(gm, extra, name):
+    """check_supported lets useGMRedi through with the ported settings and
+    refuses, by name, the taper that the bolus form's _slope_psi rejects,
+    an unknown taper, variable K and p-coordinates."""
+    cfg = synthetic.gm_gyre_config(nx=8, ny=8, nr=2, depth=300.0)
+    kpp = synthetic.kpp_gyre_setup(cfg, dtype=torch.float64, device="cpu")[4]
+    check_supported(cfg, kpp)
+    cfg.gmredi = dataclasses.replace(cfg.gmredi, **gm)
+    if "usingPCoords" in extra:
+        cfg.usingPCoords = True
+    else:
+        cfg.extra.update(extra)
+    with pytest.raises(NotImplementedError, match=name):
+        check_supported(cfg, kpp)
+    cfg.usingPCoords = False
+    cfg.gmredi = None
+    with pytest.raises(NotImplementedError, match="GMParams"):
+        check_supported(cfg, kpp)
+
+
+@pytest.mark.parametrize("taper", ["", "clipping", "orig", "gkw91", "linear",
+                                   "dm95", "ldd97", "ac02"])
+def test_check_gmredi_accepts(taper):
+    """Every taper in the skew-flux form, every one but ldd97 in the bolus
+    form, with and without GM_NON_UNITY_DIAGONAL."""
+    cfg = synthetic.gm_gyre_config(nx=8, ny=8, nr=2, depth=300.0)
+    kpp = synthetic.kpp_gyre_setup(cfg, dtype=torch.float64, device="cpu")[4]
+    for adv in (False, True):
+        for nu in (False, True):
+            cfg.gmredi = dataclasses.replace(cfg.gmredi, taper_scheme=taper,
+                                             advForm=adv, nonUnityDiagonal=nu)
+            if adv and taper == "ldd97":
+                continue
+            check_supported(cfg, kpp)
 
 
 def test_adjoint_refuses_seaice():
