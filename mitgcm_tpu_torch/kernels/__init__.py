@@ -47,14 +47,10 @@ _PD = ctypes.POINTER(ctypes.c_double)
 
 # argument types of each kernel's C entry point (the stream comes last)
 SIGNATURES = {
-    # cW, cS, cC, y, out, dot_out, partials, counter; ny, nx, oly, olx,
-    # center_first; stream
-    "cg2d_stencil_dot": [_P] * 8 + [_I] * 5 + [_P],
-    # q, s, eta_n, eta_nm1; ny, nx, oly, olx; stream
-    "cg2d_s_update": [_P] * 4 + [_I] * 4 + [_P],
-    # x, r, s, q, num, den, dot_out, partials, counter; ny, nx, oly, olx;
-    # stream
-    "cg2d_xr_update": [_P] * 9 + [_I] * 4 + [_P],
+    # kernel A, one cooperative launch a solve: aW, aS, aC, pW, pS, pC, b,
+    # tol_sq, x, work, partials, scalars, ctrl; ny, nx, oly, olx,
+    # max_iters, use_min; stream
+    "cg2d_solve": [_P] * 13 + [_I] * 6 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx, no_slip_sides,
     # coriolis_3d; viscAhD, viscAhZ, sideDragFactor, rkSign, gravitySign;
     # stream

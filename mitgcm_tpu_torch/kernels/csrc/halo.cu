@@ -8,38 +8,119 @@
 //
 // Bound: bytes. A fill reads each interior cell once and writes every
 // padded cell once (8 B/cell in float32); it does no arithmetic.
-// Design: an out-of-place copy, one thread per padded cell (j, i) and per
-// group of planes (i fastest, so a warp writes 32 neighbouring cells of one
-// row and reads 32 neighbouring cells of the interior row it wraps to).
-// The source index is wrapped once with a true modulo (common.cuh:wrap), so
-// a halo wider than the interior repeats it as the gather does, and then
-// serves up to kPlanesPerThread planes of a stacked field, whose loads are
-// independent and stay in flight together. The output is a fresh tensor:
-// the input's halo cells are never written, so autograd's saved input
-// stays as it was.
+// Design: a row copy. Padded row j of a plane is interior row
+// (j - oly) mod ny of the same plane, its columns wrapped, so the row wrap
+// is taken once a row. The row's interior columns are the source row's
+// same columns: where the two rows share their alignment (always for the
+// interior rows of a fresh tensor; for the halo rows when a plane is a
+// multiple of 16 bytes, as 1028 x 1028 floats are), they move in 16-byte
+// vectors (float4 / double2), with scalar cells only at the unaligned
+// ends; the 2 olx halo columns take their wrapped cells by scalar loads
+// from the same source row (a true modulo, so a halo wider than the
+// interior repeats it). A warp copies a chunk of a row, 4 vectors a lane
+// loaded before any is stored (a 1028-float row is 2 chunks), so that a
+// 2-D field has enough loads in flight too; warps walk the chunks of all
+// rows of all planes (grid-stride), so one launch covers a stacked field.
+// Rows that do not share their alignment (an input view whose offset is
+// not a multiple of 16 bytes, or the halo rows of a plane that is not)
+// copy the whole padded row in scalar cells, split evenly over the row's
+// chunks, 4 loads a lane in flight. The output is a fresh tensor: the
+// input's halo cells are never written, so autograd's saved input stays
+// as it was.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace mitgcm {
 
-constexpr int kPlanesPerThread = 4;
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
+constexpr int kHaloWarps = 8;   // warps a block
+constexpr int kHaloUnroll = 4;  // 16-byte loads in flight a lane
 
 template <typename T>
-__global__ void halo_fill_kernel(const T* __restrict__ src,
-                                 T* __restrict__ dst, int planes, int ny,
-                                 int nx, int oly, int olx) {
+__global__ void __launch_bounds__(32 * kHaloWarps)
+    halo_fill_kernel(const T* __restrict__ src, T* __restrict__ dst,
+                     long long rows, int chunks, int ny, int nx, int oly,
+                     int olx) {
+  using V = typename Vec16<T>::type;
+  constexpr int kPer = sizeof(V) / sizeof(T);
+  constexpr int kChunk = 32 * kHaloUnroll;   // vectors a warp's chunk
   const int nyp = ny + 2 * oly;
   const int nxp = nx + 2 * olx;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nxp || j >= nyp) return;
-  const size_t plane = static_cast<size_t>(nyp) * nxp;
-  const size_t from = static_cast<size_t>(wrap(j, oly, ny)) * nxp +
-                      wrap(i, olx, nx);
-  const size_t to = static_cast<size_t>(j) * nxp + i;
-#pragma unroll 4
-  for (int p = blockIdx.z; p < planes; p += gridDim.z)
-    dst[p * plane + to] = src[p * plane + from];
+  const int lane = threadIdx.x & 31;
+  const long long units = rows * chunks;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long unit = blockIdx.x * (long long)(blockDim.x >> 5) +
+                        (threadIdx.x >> 5);
+       unit < units; unit += warps) {
+    const long long row = unit / chunks;
+    const int chunk = static_cast<int>(unit - row * chunks);
+    const long long plane = row / nyp;
+    const int j = static_cast<int>(row - plane * nyp);
+    const T* s = src + (plane * nyp + wrap(j, oly, ny)) * nxp;
+    T* d = dst + row * nxp;
+    const uintptr_t sa = reinterpret_cast<uintptr_t>(s + olx);
+    const uintptr_t da = reinterpret_cast<uintptr_t>(d + olx);
+    if ((sa - da) % sizeof(V) != 0) {
+      // rows that do not share their alignment: the padded row in scalar
+      // cells, this chunk's share of its columns
+      const int width = (nxp + chunks - 1) / chunks;
+      const int end = min(chunk * width + width, nxp);
+      for (int i0 = chunk * width + lane; i0 < end;
+           i0 += 32 * kHaloUnroll) {
+        T buf[kHaloUnroll];
+#pragma unroll
+        for (int u = 0; u < kHaloUnroll; ++u) {
+          const int i = i0 + 32 * u;
+          if (i < end)
+            buf[u] = __ldg(s + (i >= olx && i < olx + nx ? i
+                                                         : wrap(i, olx, nx)));
+        }
+#pragma unroll
+        for (int u = 0; u < kHaloUnroll; ++u)
+          if (i0 + 32 * u < end) d[i0 + 32 * u] = buf[u];
+      }
+      continue;
+    }
+    // the interior columns [olx, olx + nx): the same columns of the source
+    // row, in 16-byte vectors after an unaligned head
+    int head = static_cast<int>(
+        ((sizeof(V) - da % sizeof(V)) % sizeof(V)) / sizeof(T));
+    if (head > nx) head = nx;
+    const int nvec = (nx - head) / kPer;
+    const V* sv = reinterpret_cast<const V*>(s + olx + head);
+    V* dv = reinterpret_cast<V*>(d + olx + head);
+    V buf[kHaloUnroll];
+    const int k0 = chunk * kChunk + lane;
+#pragma unroll
+    for (int u = 0; u < kHaloUnroll; ++u)
+      if (k0 + 32 * u < nvec) buf[u] = __ldg(sv + k0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < kHaloUnroll; ++u)
+      if (k0 + 32 * u < nvec) dv[k0 + 32 * u] = buf[u];
+    if (chunk != 0) continue;
+    // chunk 0's scalar cells: the unaligned head, the tail and the halo
+    // columns
+    const int tail = head + nvec * kPer;
+    const int scalars = head + (nx - tail) + 2 * olx;
+    for (int k = lane; k < scalars; k += 32) {
+      int i;
+      if (k < head)
+        i = olx + k;
+      else if (k < head + (nx - tail))
+        i = olx + tail + (k - head);
+      else if (k < head + (nx - tail) + olx)
+        i = k - head - (nx - tail);
+      else
+        i = nx + k - head - (nx - tail);
+      d[i] = __ldg(s + wrap(i, olx, nx));
+    }
+  }
 }
 
 template <typename T>
@@ -47,11 +128,14 @@ int launch_halo_fill(const void* src, void* dst, int planes, int ny, int nx,
                      int oly, int olx, void* stream) {
   if (planes < 1 || ny < 1 || nx < 1 || oly < 0 || olx < 0)
     return (int)cudaErrorInvalidValue;
-  dim3 g = grid2d(ny + 2 * oly, nx + 2 * olx);
-  const int groups = (planes + kPlanesPerThread - 1) / kPlanesPerThread;
-  g.z = groups < 65535 ? groups : 65535;
-  halo_fill_kernel<T><<<g, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      (const T*)src, (T*)dst, planes, ny, nx, oly, olx);
+  // a warp a chunk of 32 x kHaloUnroll vectors of an output row
+  const long long rows = static_cast<long long>(planes) * (ny + 2 * oly);
+  const int per = static_cast<int>(16 / sizeof(T)) * 32 * kHaloUnroll;
+  const int chunks = (nx + per - 1) / per;
+  const long long blocks = (rows * chunks + kHaloWarps - 1) / kHaloWarps;
+  const int grid = blocks < (1 << 30) ? (int)blocks : (1 << 30);
+  halo_fill_kernel<T><<<grid, 32 * kHaloWarps, 0, (cudaStream_t)stream>>>(
+      (const T*)src, (T*)dst, rows, chunks, ny, nx, oly, olx);
   return (int)cudaGetLastError();
 }
 

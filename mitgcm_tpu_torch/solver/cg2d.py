@@ -2,17 +2,20 @@
 (mitgcm_tpu/solver/cg2d.py; reference model/src/cg2d.F, ini_cg2d.F).
 
 `cg2d` is differentiable in its right-hand side (CG2DSolve: the backward
-pass is a second solve). One PCG iteration is three calls, each a
-hand-written CUDA kernel
-(kernels/csrc/cg2d.cu, kernel A) for CUDA tensors and its plain PyTorch
-twin for CPU tensors or when `impl="plain"` is asked for:
+pass is a second solve). On CUDA tensors the whole PCG loop is kernel A
+(kernels/csrc/cg2d.cu, `cg2d_solve`): one persistent cooperative launch a
+solve, whose blocks iterate together between grid-wide barriers and keep
+the stop test, the iteration count and the min-residual selection on the
+device; the host reads the iteration count once, after the launch. On CPU
+tensors, or when `impl="plain"` is asked for, the loop runs on the host
+through the kernel's plain twins, one host read of the residual an
+iteration:
   stencil_dot  q = P r with dot(q, r), then q = A s with dot(s, q)
   s_update     s = q + beta s
   xr_update    x += alpha s, r -= alpha q, with dot(r, r)
-The scalars (eta, alpha's numerator and denominator, the residual) live in
-0-d device tensors that the calls read and write, so alpha and beta never
-leave the device. The loop itself runs on the host: one host read of the
-residual per iteration decides the exit and the min-residual selection.
+Both paths make the same operations in the same order, dot products
+included (common.cuh:grid_reduce's fixed order, `_grid_sum`), so on the
+card they agree bit for bit, iterations included.
 """
 
 from __future__ import annotations
@@ -154,8 +157,8 @@ def _grid_sum(v, oly: int, olx: int):
 
 
 class Workspace:
-    """Scratch of the dot-producing kernels: one partial sum per block and
-    the last-block counter (0 between launches)."""
+    """Scratch of cg3d's dot-producing kernels: one partial sum per 32 x 8
+    tile and the last-block counter (0 between launches)."""
 
     def __init__(self, shape, oly: int, olx: int, dtype, device):
         ny, nx = shape[-2] - 2 * oly, shape[-1] - 2 * olx
@@ -169,10 +172,6 @@ def _set_interior(a, v, oly, olx):
         v[..., oly:v.shape[-2] - oly, olx:v.shape[-1] - olx]
 
 
-def _dims(a, oly, olx):
-    return a.shape[-2] - 2 * oly, a.shape[-1] - 2 * olx, oly, olx
-
-
 def _check(dtype, shape, scalars, **fields):
     kernels.check_tensors(dtype, **fields, **scalars)
     for name, t in fields.items():
@@ -182,58 +181,61 @@ def _check(dtype, shape, scalars, **fields):
 
 
 def stencil_dot(cW, cS, cC, y, out, dot_out, center_first: bool, oly: int,
-                olx: int, ws: Workspace = None, impl: str = None) -> None:
-    """out[interior] = 5-point stencil of y (P's term order when
+                olx: int) -> None:
+    """Twin: out[interior] = 5-point stencil of y (P's term order when
     center_first, else A's) and dot_out (0-d) = dot(out, y) over the
     interior. Reads y's interior and its cyclic wrap, never y's halo
     cells; leaves out's halo cells as they are."""
-    if not kernels.use_kernel(y, impl):
-        y = cyclic_fill_halo(y, oly, olx, impl="plain")
-        v = _stencil5(cW, cS, cC, y, center_first)
-        _set_interior(out, v, oly, olx)
-        dot_out.copy_(_grid_sum(v * y, oly, olx))
-        return
-    _check(y.dtype, y.shape, {"dot_out": dot_out}, cW=cW, cS=cS, cC=cC,
-           y=y, out=out)
-    ws = ws or Workspace(y.shape, oly, olx, y.dtype, y.device)
-    kernels.launch("cg2d_stencil_dot", y.dtype, cW.data_ptr(), cS.data_ptr(),
-                   cC.data_ptr(), y.data_ptr(), out.data_ptr(),
-                   dot_out.data_ptr(), ws.partials.data_ptr(),
-                   ws.counter.data_ptr(), *_dims(y, oly, olx),
-                   int(center_first))
+    y = cyclic_fill_halo(y, oly, olx, impl="plain")
+    v = _stencil5(cW, cS, cC, y, center_first)
+    _set_interior(out, v, oly, olx)
+    dot_out.copy_(_grid_sum(v * y, oly, olx))
 
 
-def s_update(q, s, eta_n, eta_nm1, oly: int, olx: int,
-             impl: str = None) -> None:
-    """s[interior] = q + (eta_n / eta_nm1) * s, in place (0-d eta's)."""
-    if not kernels.use_kernel(s, impl):
-        _set_interior(s, q + eta_n / eta_nm1 * s, oly, olx)
-        return
-    _check(s.dtype, s.shape, {"eta_n": eta_n, "eta_nm1": eta_nm1}, q=q, s=s)
-    kernels.launch("cg2d_s_update", s.dtype, q.data_ptr(), s.data_ptr(),
-                   eta_n.data_ptr(), eta_nm1.data_ptr(), *_dims(s, oly, olx))
+def s_update(q, s, eta_n, eta_nm1, oly: int, olx: int) -> None:
+    """Twin: s[interior] = q + (eta_n / eta_nm1) * s, in place (0-d
+    eta's)."""
+    _set_interior(s, q + eta_n / eta_nm1 * s, oly, olx)
 
 
-def xr_update(x, r, s, q, num, den, dot_out, oly: int, olx: int,
-              ws: Workspace = None, impl: str = None) -> None:
-    """In place on the interior: x += alpha s and r -= alpha q with
+def xr_update(x, r, s, q, num, den, dot_out, oly: int, olx: int) -> None:
+    """Twin, in place on the interior: x += alpha s and r -= alpha q with
     alpha = num / den (0-d); dot_out (0-d) = dot(r, r) over the
     interior."""
-    if not kernels.use_kernel(x, impl):
-        alpha = num / den
-        _set_interior(x, x + alpha * s, oly, olx)
-        rn = r - alpha * q
-        _set_interior(r, rn, oly, olx)
-        dot_out.copy_(_grid_sum(rn * rn, oly, olx))
-        return
-    _check(x.dtype, x.shape, {"num": num, "den": den, "dot_out": dot_out},
-           x=x, r=r, s=s, q=q)
-    ws = ws or Workspace(x.shape, oly, olx, x.dtype, x.device)
-    kernels.launch("cg2d_xr_update", x.dtype, x.data_ptr(), r.data_ptr(),
-                   s.data_ptr(), q.data_ptr(), num.data_ptr(),
-                   den.data_ptr(), dot_out.data_ptr(),
-                   ws.partials.data_ptr(), ws.counter.data_ptr(),
-                   *_dims(x, oly, olx))
+    alpha = num / den
+    _set_interior(x, x + alpha * s, oly, olx)
+    rn = r - alpha * q
+    _set_interior(r, rn, oly, olx)
+    dot_out.copy_(_grid_sum(rn * rn, oly, olx))
+
+
+def cg2d_solve(op: CG2DOperator, b, x, max_iters: int, use_min: bool,
+               oly: int, olx: int):
+    """Kernel A: the PCG loop of `_pcg_plain` in one cooperative launch,
+    from the normalised right-hand side b and the first guess x (its
+    interior; the solution is written there). Returns (scalars, ctrl),
+    device tensors: scalars[2] and [3] the first and last squared
+    residual, ctrl[2] the iteration count. Raises if the card refuses the
+    launch (a grid too large to be co-resident); nothing falls back."""
+    _check(b.dtype, b.shape, {"tol_sq": op.tolerance_sq}, aW=op.aW,
+           aS=op.aS, aC=op.aC, pW=op.pW, pS=op.pS, pC=op.pC, b=b, x=x)
+    ny, nx = b.shape[-2] - 2 * oly, b.shape[-1] - 2 * olx
+    tiles = kernels.library().mitgcm_cg2d_num_partials(ny, nx)
+    # r, r', s, s', z = P r, q = A s and x_min; two partials per tile; the
+    # barriers' sums and the residuals; the barrier's counters and the
+    # iteration count (the arrival count must start at 0)
+    work = b.new_empty((7,) + tuple(b.shape))
+    partials = b.new_empty(2 * tiles)
+    scalars = b.new_empty(4)
+    ctrl = torch.zeros(3, dtype=torch.int32, device=b.device)
+    kernels.launch("cg2d_solve", b.dtype, op.aW.data_ptr(),
+                   op.aS.data_ptr(), op.aC.data_ptr(), op.pW.data_ptr(),
+                   op.pS.data_ptr(), op.pC.data_ptr(), b.data_ptr(),
+                   op.tolerance_sq.data_ptr(), x.data_ptr(),
+                   work.data_ptr(), partials.data_ptr(), scalars.data_ptr(),
+                   ctrl.data_ptr(), ny, nx, oly, olx, max_iters,
+                   int(use_min))
+    return scalars, ctrl
 
 
 class CG2DSolve(torch.autograd.Function):
@@ -270,10 +272,11 @@ def cg2d(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
 
 def _solve(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
            ) -> CG2DResult:
-    """The PCG loop (cg2d.py:_cg2d_raw) with interior-only dot products;
-    it writes its work fields in place, so autograd must never trace it.
-    Halos of the work fields r, s and q are never filled: every call reads
-    the wrap."""
+    """The solve (cg2d.py:_cg2d_raw) with interior-only dot products: RHS
+    normalisation, then the PCG loop as kernel A on CUDA tensors
+    (`cg2d_solve`, one host read) or as the twins' host loop
+    (`_pcg_plain`); both write their work fields in place, so autograd
+    must never trace them."""
     oly, olx = cfg.oly, cfg.olx
     imask = interior_mask(b.shape, oly, olx, b.dtype, b.device)
     # normalise the RHS (cg2d.F:105-135)
@@ -286,29 +289,54 @@ def _solve(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
         b = b * rhsNorm
         x0 = x0 * rhsNorm
     use_min = cfg.cg2dUseMinResSol == 1
-    ws = (Workspace(b.shape, oly, olx, b.dtype, b.device)
-          if kernels.use_kernel(b, impl) else None)
-    kw = dict(oly=oly, olx=olx, impl=impl)
+    x = x0 * imask
+    if kernels.use_kernel(b, impl):
+        scalars, ctrl = cg2d_solve(op, b, x, cfg.cg2dMaxIters, use_min,
+                                   oly, olx)
+        first_res, err_sq = torch.sqrt(scalars[2]), scalars[3]
+        it, syncs = _iterations(ctrl), 1
+    else:
+        x, first_res, err_sq, it, syncs = _pcg_plain(
+            op, b, x, cfg.cg2dMaxIters, use_min, oly, olx)
+    if normalise:
+        x = x / rhsNorm
+    return CG2DResult(x=cyclic_fill_halo(x, oly, olx, impl=impl),
+                      first_residual=first_res,
+                      last_residual=torch.sqrt(err_sq), n_iters=it,
+                      host_syncs=syncs)
 
+
+def _iterations(ctrl) -> int:
+    """The kernel path's one host read: the iteration count that
+    cg2d_solve leaves in ctrl[2] (it waits for the launch to end)."""
+    return int(ctrl[2].item())
+
+
+def _pcg_plain(op: CG2DOperator, b, x, max_iters: int, use_min: bool,
+               oly: int, olx: int):
+    """Kernel A's twin: the PCG loop on the host through the twins, one
+    host read of the residual an iteration. Halos of the work fields r, s
+    and q are never filled: every twin reads the wrap. Returns (x, first
+    residual, last squared residual, iterations, host reads)."""
     # device scalars: 1, eta (two slots that swap roles), dot(s, q), r.r
     one, eta_n, eta_nm1, sq, err_sq = torch.ones(
         5, dtype=b.dtype, device=b.device).unbind()
-    x = x0 * imask
     r = b.clone()
     s = torch.zeros_like(b)
     q = torch.zeros_like(b)
+    kw = dict(oly=oly, olx=olx)
     # r0 = b - A x0 is one xr step with alpha = 1 along a zero direction
-    stencil_dot(op.aW, op.aS, op.aC, x, q, sq, False, ws=ws, **kw)
-    xr_update(x, r, s, q, one, one, err_sq, ws=ws, **kw)
+    stencil_dot(op.aW, op.aS, op.aC, x, q, sq, False, **kw)
+    xr_update(x, r, s, q, one, one, err_sq, **kw)
     first_res = torch.sqrt(err_sq)
     err, tol_sq, syncs = err_sq.item(), op.tolerance_sq.item(), 2
     x_min, min_err = x.clone(), err
     it = 0
-    while err >= tol_sq and it < cfg.cg2dMaxIters:
-        stencil_dot(op.pW, op.pS, op.pC, r, q, eta_n, True, ws=ws, **kw)
+    while err >= tol_sq and it < max_iters:
+        stencil_dot(op.pW, op.pS, op.pC, r, q, eta_n, True, **kw)
         s_update(q, s, eta_n, eta_nm1, **kw)
-        stencil_dot(op.aW, op.aS, op.aC, s, q, sq, False, ws=ws, **kw)
-        xr_update(x, r, s, q, eta_n, sq, err_sq, ws=ws, **kw)
+        stencil_dot(op.aW, op.aS, op.aC, s, q, sq, False, **kw)
+        xr_update(x, r, s, q, eta_n, sq, err_sq, **kw)
         err = err_sq.item()
         syncs += 1
         if use_min and err < min_err:
@@ -318,9 +346,4 @@ def _solve(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
         it += 1
     if use_min and err > min_err:
         x = x_min
-    if normalise:
-        x = x / rhsNorm
-    return CG2DResult(x=cyclic_fill_halo(x, oly, olx, impl=impl),
-                      first_residual=first_res,
-                      last_residual=torch.sqrt(err_sq), n_iters=it,
-                      host_syncs=syncs)
+    return x, first_res, err_sq, it, syncs
