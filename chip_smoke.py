@@ -607,6 +607,23 @@ def launch_ms(call, name, reps, batch=20):
     hold, left out)."""
     from mitgcm_tpu_torch import kernels
 
+    args, outs = captured_launch(call, name)
+
+    def replay():
+        for _ in range(batch):
+            kernels.launch(*args)
+
+    ms = cuda_time_ms(replay, reps) / batch
+    del outs
+    return ms
+
+
+def captured_launch(call, name):
+    """(the arguments of the first launch of kernel `name` that `call`
+    makes, call's result, which keeps that launch's tensors alive): a
+    launch to replay through kernels.launch."""
+    from mitgcm_tpu_torch import kernels
+
     captured = []
     saved = kernels.launch
 
@@ -621,14 +638,7 @@ def launch_ms(call, name, reps, batch=20):
     finally:
         kernels.launch = saved
     (args,) = captured
-
-    def replay():
-        for _ in range(batch):
-            saved(*args)
-
-    ms = cuda_time_ms(replay, reps) / batch
-    del outs
-    return ms
+    return args, outs
 
 
 def batch_ms(fn, reps, batch=20):
@@ -768,6 +778,7 @@ class Case:
         self.flow = gad.calc_adv_flow(g, self.u, self.v, self.w)
         self.y2 = self.field(rng, shape[1:], 1.0)   # 2-D cg2d fields
         self.z2 = self.field(rng, shape[1:], 1.0)
+        self.df = self.field(rng, shape, 1e-3) * g.maskC   # C's df
 
     def field(self, rng, shape, scale):
         a = rng.standard_normal(shape) * scale
@@ -785,34 +796,142 @@ def cells_of(t):
     return math.prod(t.shape[-3:])
 
 
+# Kernels B and C: the cells of each input that the function reads beyond
+# the interior, as the one-cell ring sides (south, north, west, east) that
+# its stencils reach (an input not named: the interior only); a ring side
+# counts whole, so at most 3 corner cells a plane are counted that the
+# stencils skip.
+RING4, SW, S, N, W, E = (1, 1, 1, 1), (1, 0, 1, 0), (1, 0, 0, 0), \
+    (0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, 1)
+MOM_RINGS = {
+    "u": RING4, "v": RING4, "hFacW": RING4, "hFacS": RING4,
+    "maskW": (1, 1, 0, 1), "maskS": (0, 1, 1, 1), "w": SW, "maskC": SW,
+    "hFacC": SW, "rA": SW, "fCori": SW, "fCoriCos": W, "angleCosC": W,
+    "dyG": (1, 0, 1, 1), "dxG": (1, 1, 1, 0), "dxF": S, "recip_dyF": S,
+    "dyF": W, "recip_dxF": W, "cosFacU": W, "dxV": N, "recip_dyU": N,
+    "dyU": E, "recip_dxV": E, "cosFacV": E}
+GAD_RINGS = {
+    "tracer": RING4, "uTrans": E, "xA": E, "recip_dxC": E, "cosFacU": E,
+    "vTrans": N, "yA": N, "recip_dyC": N, "Kux": E, "Kuz": E, "maskW": E,
+    "Kvy": N, "Kvz": N, "maskS": N}
+
+
+def mom_footprint(named, args):
+    """Kernel B's inputs as the views that its launch reads (args: the
+    launch's arguments after the pointer table and its length): the
+    kappas below the surface interface, recip_drC between the levels, the
+    3-D Coriolis term's two fields only under its flag."""
+    nr, _, _, oly, olx, _, cori3d = args[:7]
+    levels = {"kappaRU": slice(1, None), "kappaRV": slice(1, None),
+              "recip_drC": slice(1, nr)}
+    skip = () if cori3d else ("fCoriCos", "angleCosC")
+    return {n: footprint_view(t, oly, olx, MOM_RINGS.get(n),
+                              levels.get(n))
+            for n, t in named.items() if n not in skip}
+
+
+def gad_footprint(named, args):
+    """Kernel C's inputs (and its GM branch's: Kwx, Kwy, maskW, maskS and
+    the 3-D Kux ... Kvz) as the views that its launch reads: the
+    interfaces' fields below the surface, kappaR and recip_drC only with
+    explicit diffusion (recip_drC whole and maskC on the ring under
+    GM_ExtraDiag's dT/dz), maskUp and rA only where a vertical flux reads
+    them, maskC above the bottom level and only with advection otherwise.
+    Without advection the transports still count: the function multiplies
+    them by 0, which keeps a NaN."""
+    nr, _, _, oly, olx, _, _, implicit, advection = args[:9]
+    gm, extra = "Kwx" in named, "Kuz" in named
+    below = slice(1, None)
+    levels = {"kappaR": below, "maskUp": below, "Kwx": below, "Kwy": below,
+              "recip_drC": slice(None) if extra else slice(1, nr),
+              "maskC": slice(None) if extra else slice(0, nr - 1)}
+    rings = dict(GAD_RINGS, maskC=RING4 if extra else None)
+    skip = []
+    if implicit:
+        skip.append("kappaR")
+        if not extra:
+            skip.append("recip_drC")
+        if not gm:
+            skip += ["maskUp", "rA"]
+    if not (advection or extra):
+        skip.append("maskC")
+    return {n: footprint_view(t, oly, olx, rings.get(n), levels.get(n))
+            for n, t in named.items() if n not in skip}
+
+
+def footprint_view(t, oly, olx, ring, levels):
+    """The cells of t that a kernel reads: for a field of the padded grid
+    its interior and the ring sides named (ring None: the interior only),
+    at the levels given (None: all); a 1-D field's levels."""
+    if t.dim() == 1:
+        return t if levels is None else t[levels]
+    s, n, w, e = ring or (0, 0, 0, 0)
+    ny, nx = t.shape[-2] - 2 * oly, t.shape[-1] - 2 * olx
+    view = t[..., oly - s:oly + ny + n, olx - w:olx + nx + e]
+    if levels is not None and t.dim() == 3:
+        view = view[levels]
+    return view
+
+
+FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
+                                               "gvDiss")),
+              "gad_calc_rhs_c2": (gad_footprint, ("last",)),
+              "gad_calc_rhs_c2_gm": (gad_footprint, ("last",))}
+
+
 def moved_bytes(name, call):
     """(bytes, cells): the bytes of the distinct tensors that the kernel's
     wrapper checks in one call (each input read once, each output written
-    once, an in-place one both), and the most cells any of them covers."""
+    once, an in-place one both), and the most cells any of them covers.
+    For a kernel of FOOTPRINTS, each input counts only the cells and levels
+    that its launch reads (its flags taken from the launch), each output
+    whole."""
     from mitgcm_tpu_torch import kernels
 
-    seen = {}
+    named, args = {}, []
 
     def spy(check):
-        def wrapped(first, *args, **tensors):
+        def wrapped(first, *rest, **tensors):
             if isinstance(first, str):     # check_int32(name, t, shape)
-                tensors = {first: args[0]}
+                tensors = {first: rest[0]}
             for n, t in tensors.items():
                 if n not in SCRATCH:
-                    times = 2 if n in IN_PLACE.get(name, ()) else 1
-                    seen[t.data_ptr()] = (
-                        times * t.numel() * t.element_size(), cells_of(t))
-            return check(first, *args, **({} if isinstance(first, str)
+                    named[n] = t
+            return check(first, *rest, **({} if isinstance(first, str)
                                            else tensors))
         return wrapped
 
-    saved = kernels.check_tensors, kernels.check_int32
+    def spy_launch(kernel, dtype, *rest):
+        if kernel == name:
+            args.append(rest[2:])
+        return saved[2](kernel, dtype, *rest)
+
+    saved = kernels.check_tensors, kernels.check_int32, kernels.launch
     kernels.check_tensors = spy(saved[0])
     kernels.check_int32 = spy(saved[1])
+    kernels.launch = spy_launch
     try:
         call()
     finally:
-        kernels.check_tensors, kernels.check_int32 = saved
+        kernels.check_tensors, kernels.check_int32, kernels.launch = saved
+    if name in FOOTPRINTS:
+        footprint, outs = FOOTPRINTS[name]
+        if len(args) != 1:
+            raise AssertionError(f"{name}: {len(args)} launches in a call")
+        ins = {n: t for n, t in named.items() if n not in outs}
+        views = {**footprint(ins, args[0]), **{n: named[n] for n in outs}}
+        seen = {}
+        for n, v in views.items():   # a tensor passed twice counts once
+            key = named[n].data_ptr()
+            nbytes = max(v.numel() * v.element_size(),
+                         seen.get(key, (0,))[0])
+            seen[key] = (nbytes, cells_of(v))
+    else:
+        seen = {}
+        for n, t in named.items():
+            times = 2 if n in IN_PLACE.get(name, ()) else 1
+            seen[t.data_ptr()] = (times * t.numel() * t.element_size(),
+                                  cells_of(t))
     return (sum(b for b, _ in seen.values()),
             max(n for _, n in seen.values()))
 
@@ -864,29 +983,60 @@ def compare(name, case, outs_k, outs_p, ms, plain_ms, results,
               f"({results[name]['bound_by']})", flush=True)
 
 
+# B's template flags (no-slip sides, the 3-D Coriolis term): the gyres run
+# the first pair, the nh-convection box the last
+MOM_VARIANTS = ((True, False), (True, True), (False, False), (False, True))
+# C's flags (implicit diffusion, advection, df): the gyre runs the first
+CALC_RHS_VARIANTS = tuple((imp, adv, df) for imp in (False, True)
+                          for adv in (True, False) for df in (False, True))
+
+
 def kernel_phase(case, results, reps):
+    """B in each of its four flag variants and C with each combination of
+    its flags against their twins on the interior (their halo outputs are
+    zeros by design), bit for bit; the gyre's variants are timed and give
+    the JSON rows. Then kernel A."""
+    import dataclasses
+
     from mitgcm_tpu_torch.model.gad import calc_rhs
     from mitgcm_tpu_torch.model.mom_fluxform import mom_fluxform
 
     cfg, g = case.cfg, case.grid
+    ol = cfg.olx
 
-    def mom(impl):
-        return mom_fluxform(cfg, g, case.u, case.v, case.w, case.kappaRU,
-                            case.kappaRV, impl=impl)
+    for no_slip, cori3d in MOM_VARIANTS:
+        vcfg = dataclasses.replace(cfg, no_slip_sides=no_slip,
+                                   select3dCoriScheme=int(cori3d))
 
-    compare("mom_fluxform", case, mom(None), mom("plain"),
-            cuda_time_ms(lambda: mom(None), reps),
-            cuda_time_ms(lambda: mom("plain"), reps), results,
-            call=lambda: mom(None))
+        def mom(impl, vcfg=vcfg):
+            t = mom_fluxform(vcfg, g, case.u, case.v, case.w, case.kappaRU,
+                             case.kappaRV, impl=impl)
+            return [f[:, ol:-ol, ol:-ol] for f in t]
 
-    def rhs(impl):
-        return calc_rhs(cfg, g, case.flow, case.theta, case.kappaR,
-                        cfg.diffKhT, impl=impl)
+        main = (no_slip, cori3d) == MOM_VARIANTS[0]
+        name = "mom_fluxform" + ("" if main else (
+            f"({'no-slip' if no_slip else 'free-slip'}"
+            f"{', 3-D Coriolis' if cori3d else ''})"))
+        exact_compare(name, case, mom(None), mom("plain"),
+                      cuda_time_ms(lambda: mom(None), reps) if main else None,
+                      cuda_time_ms(lambda: mom("plain"), reps)
+                      if main else None, results, call=lambda: mom(None))
 
-    compare("gad_calc_rhs_c2", case, [rhs(None)], [rhs("plain")],
-            cuda_time_ms(lambda: rhs(None), reps),
-            cuda_time_ms(lambda: rhs("plain"), reps), results,
-            call=lambda: rhs(None))
+    for implicit, adv, with_df in CALC_RHS_VARIANTS:
+        def rhs(impl, implicit=implicit, adv=adv, with_df=with_df):
+            return calc_rhs(cfg, g, case.flow, case.theta, case.kappaR,
+                            cfg.diffKhT, implicit_diffusion=implicit,
+                            impl=impl, df=case.df if with_df else None,
+                            calc_advection=adv)[:, ol:-ol, ol:-ol]
+
+        main = (implicit, adv, with_df) == CALC_RHS_VARIANTS[0]
+        flags = [f for f, on in (("implicit", implicit), ("no adv", not adv),
+                                 ("df", with_df)) if on]
+        name = "gad_calc_rhs_c2" + ("" if main else f"({', '.join(flags)})")
+        exact_compare(name, case, [rhs(None)], [rhs("plain")],
+                      cuda_time_ms(lambda: rhs(None), reps) if main else None,
+                      cuda_time_ms(lambda: rhs("plain"), reps)
+                      if main else None, results, call=lambda: rhs(None))
 
     cg2d_phase(case, results, reps)
 
@@ -1516,15 +1666,18 @@ def kpp_kernel_phase(case, results, reps):
         raise AssertionError("kpp_col: kbl differs from its twin's")
 
     cfg, g = case.cfg, case.grid
+    ol = cfg.olx
     flow = gad.calc_adv_flow(g, args[0], args[1], case.w)
 
     def rhs(impl):
         return gad.calc_rhs(cfg, g, flow, args[2], case.kappa, cfg.diffKhT,
-                            implicit_diffusion=True, impl=impl, df=case.df)
+                            implicit_diffusion=True, impl=impl,
+                            df=case.df)[:, ol:-ol, ol:-ol]
 
-    compare("gad_calc_rhs_c2(df)", case, [rhs(None)], [rhs("plain")],
-            cuda_time_ms(lambda: rhs(None), reps),
-            cuda_time_ms(lambda: rhs("plain"), reps), results)
+    exact_compare("gad_calc_rhs_c2(df)", case, [rhs(None)], [rhs("plain")],
+                  cuda_time_ms(lambda: rhs(None), reps),
+                  cuda_time_ms(lambda: rhs("plain"), reps), results,
+                  call=lambda: rhs(None))
 
 
 def kpp_experiment(n, nr, dtype, impl=None, **kw):
@@ -1798,14 +1951,18 @@ def g9_kernel_phase(case, results, reps):
                     cuda_time_ms(run, reps), cuda_time_ms(plain, reps),
                     results, whole=True, tensors=touched)
 
+    ol = cfg.olx
+
     def rhs(impl):
         return gad.calc_rhs(cfg, g, case.flow, case.tracer, case.kappa,
                             cfg.diffKhT, implicit_diffusion=True,
-                            calc_advection=False, impl=impl)
+                            calc_advection=False,
+                            impl=impl)[:, ol:-ol, ol:-ol]
 
-    compare("gad_calc_rhs_c2(noadv)", case, [rhs(None)], [rhs("plain")],
-            cuda_time_ms(lambda: rhs(None), reps),
-            cuda_time_ms(lambda: rhs("plain"), reps), results)
+    exact_compare("gad_calc_rhs_c2(noadv)", case, [rhs(None)], [rhs("plain")],
+                  cuda_time_ms(lambda: rhs(None), reps),
+                  cuda_time_ms(lambda: rhs("plain"), reps), results,
+                  call=lambda: rhs(None))
 
 
 def g9_experiment(n, nr, dtype, impl=None, config="ggl90", **kw):

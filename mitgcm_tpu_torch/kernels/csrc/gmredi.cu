@@ -4,7 +4,7 @@
 // sigmaX and sigmaY of step.py:927-930 and _slope_limit (:90-189);
 // calc_psi_b (:396-421) with _slope_psi (:347-393); residual_flow
 // (:424-438). XLA fused each into a few elementwise sweeps over [nr, nyp,
-// nxp] on the TPU. Kernel C's GM branch (gad_calc_rhs.cuh:GmFlux) takes
+// nxp] on the TPU. Kernel C's GM branch (gad_calc_rhs_tile.cuh) takes
 // xy_flux and r_flux.
 //
 // Bound: bytes. gm_tensor reads 5 3-D fields (rhoInSitu, sigmaR, maskC,

@@ -1,5 +1,6 @@
-// Kernel B's argument table and its per-cell helpers, shared by the
-// forward kernel (mom_fluxform.cu) and its VJP (mom_fluxform_adj.cu).
+// Kernel B's argument table, shared by the forward kernel
+// (mom_fluxform.cu, mom_fluxform_tile.cuh) and its VJP
+// (mom_fluxform_adj.cu), and the VJP's per-cell helpers.
 #pragma once
 
 #include "common.cuh"
@@ -65,85 +66,6 @@ struct MomCell {
     const T openI =
         tmin(a.hFacS[i3(k, j, i)], a.hFacS[i3(k, j, i - 1)]) * mS * mSw;
     return tmin(openI, openJ) * mW * mWs;
-  }
-
-  // ---- advective fluxes ----
-  __device__ T fZonU(int k, int j, int i) const {
-    return T(0.25) * (uTrans(k, j, i) + uTrans(k, j, i + 1)) *
-           (a.u[i3(k, j, i)] + a.u[i3(k, j, i + 1)]);
-  }
-  __device__ T fMerU(int k, int j, int i) const {
-    return T(0.25) * (vTrans(k, j, i) + vTrans(k, j, i - 1)) *
-           (a.u[i3(k, j, i)] + a.u[i3(k, j - 1, i)]);
-  }
-  __device__ T fZonV(int k, int j, int i) const {
-    return T(0.25) * (uTrans(k, j, i) + uTrans(k, j - 1, i)) *
-           (a.v[i3(k, j, i)] + a.v[i3(k, j, i - 1)]);
-  }
-  __device__ T fMerV(int k, int j, int i) const {
-    return T(0.25) * (vTrans(k, j, i) + vTrans(k, j + 1, i)) *
-           (a.v[i3(k, j, i)] + a.v[i3(k, j + 1, i)]);
-  }
-  // vertical advective flux of u at interface k (mom_u_adv_wu.F)
-  __device__ T fVerU(int k, int j, int i) const {
-    if (k >= nr) return T(0);
-    const T rTrans = T(0.5) * (wrA(k, j, i) + wrA(k, j, i - 1));
-    const T uk = a.u[i3(k, j, i)];
-    if (k == 0) return rTrans * uk;
-    const T mid = rTrans * T(0.5) * (uk + a.u[i3(k - 1, j, i)]);
-    const T corr = T(0.25) *
-                   (wrA(k, j, i) * dmask(k, j, i) +
-                    wrA(k, j, i - 1) * dmask(k, j, i - 1)) * uk;
-    return mid + corr;
-  }
-  __device__ T fVerV(int k, int j, int i) const {
-    if (k >= nr) return T(0);
-    const T rTrans = T(0.5) * (wrA(k, j, i) + wrA(k, j - 1, i));
-    const T vk = a.v[i3(k, j, i)];
-    if (k == 0) return rTrans * vk;
-    const T mid = rTrans * T(0.5) * (vk + a.v[i3(k - 1, j, i)]);
-    const T corr = T(0.25) *
-                   (wrA(k, j, i) * dmask(k, j, i) +
-                    wrA(k, j - 1, i) * dmask(k, j - 1, i)) * vk;
-    return mid + corr;
-  }
-
-  // ---- harmonic viscous fluxes (mom_u_xviscflux.F etc.) ----
-  __device__ T vZonU(int k, int j, int i, T nAhD) const {
-    return a.dyF[i2(j, i)] * a.drF[k] * a.hFacC[i3(k, j, i)] *
-           a.recip_dxF[i2(j, i)] *
-           (nAhD * (a.u[i3(k, j, i + 1)] - a.u[i3(k, j, i)]) *
-            a.cosFacU[i2(j, i)]);
-  }
-  __device__ T vMerU(int k, int j, int i, T nAhZ) const {
-    return a.dxV[i2(j, i)] * a.drF[k] * hFacZ(k, j, i) *
-           a.recip_dyU[i2(j, i)] *
-           (nAhZ * (a.u[i3(k, j, i)] - a.u[i3(k, j - 1, i)]));
-  }
-  __device__ T vZonV(int k, int j, int i, T nAhZ) const {
-    return a.dyU[i2(j, i)] * a.drF[k] * hFacZ(k, j, i) *
-           a.recip_dxV[i2(j, i)] *
-           (nAhZ * (a.v[i3(k, j, i)] - a.v[i3(k, j, i - 1)]) *
-            a.cosFacV[i2(j, i)]);
-  }
-  __device__ T vMerV(int k, int j, int i, T nAhD) const {
-    return a.dxF[i2(j, i)] * a.drF[k] * a.hFacC[i3(k, j, i)] *
-           a.recip_dyF[i2(j, i)] *
-           (nAhD * (a.v[i3(k, j + 1, i)] - a.v[i3(k, j, i)]));
-  }
-  // explicit vertical viscous flux at interface k (mom_u_rviscflux.F):
-  // zero at the surface and below the bottom
-  __device__ T rViscU(int k, int j, int i, T rkSign) const {
-    if (k <= 0 || k >= nr) return T(0);
-    return -a.kappaRU[i3(k, j, i)] * a.rAw[i2(j, i)] *
-           (a.u[i3(k, j, i)] - a.u[i3(k - 1, j, i)]) * rkSign *
-           a.recip_drC[k] * a.maskW[i3(k, j, i)] * a.maskW[i3(k - 1, j, i)];
-  }
-  __device__ T rViscV(int k, int j, int i, T rkSign) const {
-    if (k <= 0 || k >= nr) return T(0);
-    return -a.kappaRV[i3(k, j, i)] * a.rAs[i2(j, i)] *
-           (a.v[i3(k, j, i)] - a.v[i3(k - 1, j, i)]) * rkSign *
-           a.recip_drC[k] * a.maskS[i3(k, j, i)] * a.maskS[i3(k - 1, j, i)];
   }
 };
 
