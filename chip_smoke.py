@@ -137,10 +137,12 @@ exits nonzero without the final line:
                  non-hydrostatic flags on a 64x64x12 box; F also on a halo
                  wider than the interior) and at 1024x1024x32 float32 (the
                  box's E and G at x50), with each kernel's time, its
-                 twin's and its bound; F's time is its device time, 20
-                 calls captured in a CUDA graph and replayed, beside
-                 F.pad(mode="circular"), which computes the same fill,
-                 timed the same way, and beside both as CUDA-event times
+                 twin's and its bound; a kernel's time is its launch's
+                 device time, 20 launches captured in a CUDA graph and
+                 replayed, beside a wrapper call's CUDA-event time; F's
+                 beside F.pad(mode="circular"), which computes the same
+                 fill, timed the same way, and beside both as CUDA-event
+                 times
                  (F a launch replayed back to back, F.pad a batch of 20
                  calls); F's device time must not be below its bound, nor
                  slower than F.pad's in 3-D at full size by either
@@ -200,7 +202,8 @@ ice's, phase 15's evp-ice-gyre for EVP's and its free-drift run for
 seaice_freedrift, phase 16's gm-gyre for gm_tensor and C's GM branch and
 its gm-bolus-gyre for gm_psi_b and gm_residual_flow, phase 5's gyre for
 A and D-G), with the kernel's time (D-G's
-from phase 14, F's its device time in a CUDA graph beside F.pad's;
+from phase 14: a launch's device time, 20 launches in a CUDA graph, with
+the wrapper call's time beside it, and F.pad's beside F's;
 A's the launch of a whole solve, with its iterations and its time and
 bound an iteration), its plain twin's, and its
 bound (the larger of the bytes it must move over 3.35 TB/s and its
@@ -859,6 +862,24 @@ def gad_footprint(named, args):
             for n, t in named.items() if n not in skip}
 
 
+def phihyd_footprint(named, args):
+    """Kernel D's inputs as the views that its launch reads: every padded
+    cell of rho and of the metrics (D writes every padded cell), drC
+    between the surface and the bottom, rF and rC at the two ends."""
+    nr = named["rC"].numel()
+    levels = {"drC": slice(1, nr), "rF": slice(0, nr + 1, nr),
+              "rC": slice(0, nr, max(nr - 1, 1))}
+    return {n: footprint_view(t, 0, 0, None, levels.get(n))
+            for n, t in named.items()}
+
+
+def mom_correction_footprint(named, args):
+    """G's mom_correction's inputs as the views that its launch reads:
+    every padded cell (it writes every padded cell), phi_nh only under its
+    flag (args: nr, nyp, nxp, nh, ...)."""
+    return {n: t for n, t in named.items() if args[3] or n != "phi_nh"}
+
+
 def footprint_view(t, oly, olx, ring, levels):
     """The cells of t that a kernel reads: for a field of the padded grid
     its interior and the ring sides named (ring None: the interior only),
@@ -876,7 +897,10 @@ def footprint_view(t, oly, olx, ring, levels):
 FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
                                                "gvDiss")),
               "gad_calc_rhs_c2": (gad_footprint, ("last",)),
-              "gad_calc_rhs_c2_gm": (gad_footprint, ("last",))}
+              "gad_calc_rhs_c2_gm": (gad_footprint, ("last",)),
+              "phihyd": (phihyd_footprint, ("phiHydC", "dPhiHydX",
+                                            "dPhiHydY")),
+              "mom_correction": (mom_correction_footprint, ("u", "v"))}
 
 
 def moved_bytes(name, call):
@@ -3733,6 +3757,7 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
     kernels to hold (the box runs E and G alone)."""
     import torch.nn.functional as F
 
+    from mitgcm_tpu_torch import kernels
     from mitgcm_tpu_torch.model import step, thermodynamics as th
     from mitgcm_tpu_torch.model.mom_fluxform import MomTend
     from mitgcm_tpu_torch.model.phihyd import calc_phi_hyd
@@ -3749,6 +3774,18 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
                       cuda_time_ms(lambda: fn("plain"), reps), results,
                       call=(lambda: fn(None)) if call else None,
                       touched=None if call else outs)
+        # the line's time is the launch's device time: 20 launches in a
+        # CUDA graph, replayed (graph_ms); the wrapper call's events,
+        # which hold the host's work before the launch, stay beside it
+        r = results[name]
+        args, keep = captured_launch(lambda: fn(None), name.split("(")[0])
+        r["extra"] = {"wrapper_ms": r["ms"]}
+        r["ms"] = graph_ms(lambda: kernels.launch(*args), reps)
+        del keep
+        print(f"{'':18s} device time (20 launches in a CUDA graph) "
+              f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the "
+              f"bound; a wrapper call {r['extra']['wrapper_ms']:.4f} ms",
+              flush=True)
 
     if "halo_fill" in want:
         ol = cfg.olx
@@ -3774,16 +3811,14 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
             if not torch.equal(pad().reshape(a.shape),
                                cyclic_fill_halo(a, ol, ol)):
                 raise AssertionError("F.pad(mode='circular') differs")
-            # hold timed a wrapper call. F and F.pad on the device: 20
-            # calls in a CUDA graph, replayed (the JSON line's), and CUDA
-            # events around F's launch replayed back to back and around a
-            # batch of F.pad calls, which hold the host's enqueue where the
-            # card is the faster (a 2-D fill)
+            # F.pad on the device as F (20 calls in a CUDA graph, the JSON
+            # line's), and CUDA events around F's launch replayed back to
+            # back and around a batch of F.pad calls, which hold the host's
+            # enqueue where the card is the faster (a 2-D fill)
             r = results[label]
-            wrapper_ms = r["ms"]
+            wrapper_ms = r["extra"]["wrapper_ms"]
             events_ms = launch_ms(lambda: fill(None), "halo_fill", reps)
             pad_events_ms = batch_ms(pad, reps)
-            r["ms"] = graph_ms(lambda: fill(None), reps)
             r["library_ms"] = graph_ms(pad, reps)
             r["bound_ms"] = halo_bound(a, ol, ol)
             print(f"{'':18s} device time (a CUDA graph of 20 calls) "

@@ -1,8 +1,11 @@
-// Shared helpers for the port's kernels: launch shape, halo wrap and a
-// deterministic two-stage reduction.
+// Shared helpers for the port's kernels: launch shape, pointer tables,
+// halo wrap, a deterministic two-stage reduction and the start of a launch.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
 
 namespace mitgcm {
 
@@ -14,6 +17,44 @@ constexpr int NT = BX * BY;
 
 inline dim3 grid2d(int ny, int nx) {
   return dim3((nx + BX - 1) / BX, (ny + BY - 1) / BY, 1);
+}
+
+// Copy a launch's table of n pointers into Args, a struct of `want`
+// pointers; false if n is not want.
+template <typename Args>
+bool unpack(Args* a, const void* const* table, int n, int want) {
+  if (n != want) return false;
+  std::memcpy(a, table, sizeof(Args));
+  return true;
+}
+
+// V values of T at neighbouring addresses, moved as one access of
+// V * sizeof(T) bytes (V = 16 / sizeof(T): float4, double2)
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T x[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> load_pack(const T* a, size_t p) {
+  return *reinterpret_cast<const Pack<T, V>*>(a + p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_pack(T* a, size_t p,
+                                           const Pack<T, V>& v) {
+  *reinterpret_cast<Pack<T, V>*>(a + p) = v;
+}
+
+// Whether fields of rows of nxp values of T, at these n addresses, can all
+// be moved in 16-byte Packs: nxp a multiple of a Pack and every address
+// 16-byte aligned (a fresh tensor of 1028-float rows is).
+template <typename T>
+bool rows_of_packs(const void* const* ptrs, int n, int nxp) {
+  bool ok = nxp % (16 / sizeof(T)) == 0;
+  for (int t = 0; t < n; ++t)
+    ok = ok && reinterpret_cast<uintptr_t>(ptrs[t]) % 16 == 0;
+  return ok;
 }
 
 // Padded index p of an interior cell's neighbour, wrapped back into the
@@ -89,5 +130,17 @@ __device__ bool grid_sum(T v, T* sh, T* partials, unsigned int* counter,
   const T vs[1] = {v};
   return grid_reduce(vs, Add(), sh, partials, counter, out);
 }
+
+#ifdef __CUDACC__
+// Starts a kernel on a stream: the `start` that the entry points give the
+// launches kept in headers (the tests' host check gives its own).
+struct OnStream {
+  cudaStream_t stream;
+  template <typename Kernel, typename... Args>
+  void operator()(Kernel kernel, dim3 grid, dim3 block, Args... args) const {
+    kernel<<<grid, block, 0, stream>>>(args...);
+  }
+};
+#endif
 
 }  // namespace mitgcm

@@ -10,10 +10,8 @@
 //     timestep_wvel's w* = w + (deltaTMom / nh_Am2) * gW_ab * maskC *
 //     maskC[k-1] (calc_gw.py:169-176);
 //   - mom_correction: momentum_correction_step (:509-539), the new
-//     surface-pressure gradient of Bo_surf * etaN and
-//     u = (uStar - deltaTMom * psFac * phiSurfX * maskW) * maskW, with the
-//     non-hydrostatic flag the gradient of phi_nh added as
-//     dpx = psFac * phiSurfX + (nhFac * recip_dxC) * (phi_nh - phi_nh[i-1]);
+//     surface-pressure gradient and u = uStar - its step (mom_correction.cuh,
+//     a header of its own for the tests' host check);
 //   - tracer_step: the surface forcing into level ksurf0, the tracer's AB
 //     (linear scheme only) and tr + deltaTTracer * gTr_ab
 //     (mitgcm_tpu/model/thermodynamics.py:329-358).
@@ -22,21 +20,17 @@
 // skipped, as JAX does); AB-3 is g + ((ab0 g + ab1 gNm1) + ab2 gNm2).
 //
 // Bound: bytes. mom_ab_step reads 8 fields and writes 2 per component (40
-// B/cell in float32 for u and v), mom_correction reads 4 and writes 2 3-D
-// fields plus four 2-D ones, tracer_step reads 3 (AB-2; 4 under AB-3, 2
-// without AB) and writes 2 (1 without AB) plus the surface level's 2-D
+// B/cell in float32 for u and v), tracer_step reads 3 (AB-2; 4 under AB-3,
+// 2 without AB) and writes 2 (1 without AB) plus the surface level's 2-D
 // forcing and recip_hFacC; a few flops per cell.
 // Design: one thread per padded cell (k, j, i), i fastest; every output is
-// a fresh field (never one that autograd saved). The only neighbours read
-// are the west and south surface-pressure cells (zero outside the array,
-// as the shifts' zero fill) and the level above for w's mask. Each
-// expression keeps the twins' operation order (model/step.py:
-// _mom_ab_step_plain, _mom_correction_plain; model/thermodynamics.py:
+// a fresh field (never one that autograd saved). The only neighbour read is
+// the level above for w's mask. Each expression keeps the twins' operation
+// order (model/step.py:_mom_ab_step_plain; model/thermodynamics.py:
 // _tracer_step_plain), so with --fmad=false the outputs are bit-equal.
 
-#include <cstring>
-
 #include "common.cuh"
+#include "mom_correction.cuh"
 
 namespace mitgcm {
 
@@ -89,48 +83,6 @@ __global__ void mom_ab_step_kernel(MomAbArgs<T> a, int nr, int nyp, int nxp,
 }
 
 template <typename T>
-struct MomCorrArgs {
-  // [nr, nyp, nxp]
-  const T *uStar, *vStar, *maskW, *maskS, *phi_nh;
-  // [nyp, nxp]
-  const T *etaN, *Bo_surf, *recip_dxC, *recip_dyC;
-  // outputs [nr, nyp, nxp]
-  T *u, *v;
-};
-constexpr int kMomCorrNumPointers = 11;
-
-template <typename T>
-__global__ void mom_correction_kernel(MomCorrArgs<T> a, int nr, int nyp,
-                                      int nxp, int nh, T dtPsFac, T psFac,
-                                      T nhFac, T deltaTMom) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int k = blockIdx.z;
-  if (i >= nxp || j >= nyp) return;
-  const size_t P = static_cast<size_t>(nyp) * nxp;
-  const size_t q = static_cast<size_t>(j) * nxp + i;
-  const size_t p = k * P + q;
-  const T bo = a.Bo_surf[q] * a.etaN[q];
-  const T boW = i > 0 ? a.Bo_surf[q - 1] * a.etaN[q - 1] : T(0);
-  const T boS = j > 0 ? a.Bo_surf[q - nxp] * a.etaN[q - nxp] : T(0);
-  const T phiSurfX = a.recip_dxC[q] * (bo - boW);
-  const T phiSurfY = a.recip_dyC[q] * (bo - boS);
-  const T mW = a.maskW[p], mS = a.maskS[p];
-  if (!nh) {
-    a.u[p] = (a.uStar[p] - (dtPsFac * phiSurfX) * mW) * mW;
-    a.v[p] = (a.vStar[p] - (dtPsFac * phiSurfY) * mS) * mS;
-    return;
-  }
-  const T ph = a.phi_nh[p];
-  const T phW = i > 0 ? a.phi_nh[p - 1] : T(0);
-  const T phS = j > 0 ? a.phi_nh[p - nxp] : T(0);
-  const T dpx = psFac * phiSurfX + (nhFac * a.recip_dxC[q]) * (ph - phW);
-  const T dpy = psFac * phiSurfY + (nhFac * a.recip_dyC[q]) * (ph - phS);
-  a.u[p] = (a.uStar[p] - (deltaTMom * dpx) * mW) * mW;
-  a.v[p] = (a.vStar[p] - (deltaTMom * dpy) * mS) * mS;
-}
-
-template <typename T>
 struct TracerArgs {
   // [nr, nyp, nxp]: the tendency, the tracer, its history
   const T *gTr, *tracer, *gNm1, *gNm2;
@@ -159,13 +111,6 @@ __global__ void tracer_step_kernel(TracerArgs<T> a, int nr, int nyp, int nxp,
   a.trNew[p] = a.tracer[p] + deltaT * ab(g, a.gNm1, a.gNm2, p);
 }
 
-template <typename Args>
-bool unpack(Args* a, const void* const* table, int n, int want) {
-  if (n != want) return false;
-  std::memcpy(a, table, sizeof(Args));
-  return true;
-}
-
 inline dim3 grid3d(int nr, int nyp, int nxp) {
   dim3 g = grid2d(nyp, nxp);
   g.z = nr;
@@ -187,21 +132,6 @@ int launch_mom_ab_step(const void* const* table, int n, int nr, int nyp,
   mom_ab_step_kernel<T><<<grid3d(nr, nyp, nxp), dim3(BX, BY), 0,
                           (cudaStream_t)stream>>>(a, nr, nyp, nxp, nh, c,
                                                   T(deltaTMom), T(wFac));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_mom_correction(const void* const* table, int n, int nr, int nyp,
-                          int nxp, int nh, double dtPsFac, double psFac,
-                          double nhFac, double deltaTMom, void* stream) {
-  static_assert(sizeof(MomCorrArgs<T>) == kMomCorrNumPointers * sizeof(void*),
-                "MomCorrArgs must be a plain table of pointers");
-  MomCorrArgs<T> a;
-  if (!unpack(&a, table, n, kMomCorrNumPointers) || nr < 1 || nr > 65535)
-    return (int)cudaErrorInvalidValue;
-  mom_correction_kernel<T><<<grid3d(nr, nyp, nxp), dim3(BX, BY), 0,
-                             (cudaStream_t)stream>>>(
-      a, nr, nyp, nxp, nh, T(dtPsFac), T(psFac), T(nhFac), T(deltaTMom));
   return (int)cudaGetLastError();
 }
 
@@ -237,9 +167,9 @@ int launch_tracer_step(const void* const* table, int n, int nr, int nyp,
       const void* const* table, int n, int nr, int nyp, int nxp, int nh,      \
       double dtPsFac, double psFac, double nhFac, double deltaTMom,           \
       void* stream) {                                                         \
-    return mitgcm::launch_mom_correction<T>(table, n, nr, nyp, nxp, nh,       \
-                                            dtPsFac, psFac, nhFac, deltaTMom, \
-                                            stream);                          \
+    return mitgcm::launch_mom_correction<T>(                                  \
+        table, n, nr, nyp, nxp, nh, dtPsFac, psFac, nhFac, deltaTMom,         \
+        mitgcm::kCorrMinBlocks, mitgcm::OnStream{(cudaStream_t)stream});      \
   }                                                                           \
   extern "C" int mitgcm_tracer_step_##SUF(                                    \
       const void* const* table, int n, int nr, int nyp, int nxp, int ks,      \

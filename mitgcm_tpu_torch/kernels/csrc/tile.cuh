@@ -109,16 +109,4 @@ __device__ void zero_halo(T* const (&outs)[N], int nr, int ny, int nx,
   }
 }
 
-#ifdef __CUDACC__
-// Starts a tile kernel on a stream: the `start` that the entry points give
-// launch_mom and launch_calc_rhs (the tests' host check gives its own).
-struct OnStream {
-  cudaStream_t stream;
-  template <typename Kernel, typename... Args>
-  void operator()(Kernel kernel, dim3 grid, dim3 block, Args... args) const {
-    kernel<<<grid, block, 0, stream>>>(args...);
-  }
-};
-#endif
-
 }  // namespace mitgcm

@@ -1,5 +1,6 @@
 """Host check of the forward kernels of B and C (kernels/csrc/
-mom_fluxform_tile.cuh, gad_calc_rhs_tile.cuh): their sources built by g++
+mom_fluxform_tile.cuh, gad_calc_rhs_tile.cuh), of D (phihyd_tile.cuh) and
+of G's mom_correction (mom_correction.cuh): their sources built by g++
 against the mock CUDA runtime of tests/host_cuda, each launch run with one
 thread per CUDA thread and a barrier for __syncthreads, and held bit for
 bit against the plain twins on the CPU. The grid is random, 20 x 12 x 4 in
@@ -7,8 +8,11 @@ float64 (and float32) with halos of 2, with land, partial cells and every
 metric distinct, so that a wrong neighbour or a wrong order of operations
 shows; its tiles of 32 x 4 columns are ragged in x, so a grid of 40 x 10
 runs too, whose first tile has an eastern neighbour and whose last row of
-tiles is ragged in y. Every interior output must equal the twin's, every
-halo output must be 0."""
+tiles is ragged in y. Every interior output of B and C must equal the
+twin's, every halo output must be 0; D and mom_correction write every
+padded cell, each equal to the twin's, also on grids whose padded rows are
+not a multiple of 16 bytes (mom_correction's scalar path) and whose levels
+are not a multiple of mom_correction's chunk."""
 
 import ctypes
 import importlib.util
@@ -21,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from mitgcm_tpu_torch.model import gad, gmredi
+from mitgcm_tpu_torch.model import gad, gmredi, phihyd, step
 from mitgcm_tpu_torch.model import mom_fluxform as mom
 
 NR, OL = 4, 2
@@ -30,6 +34,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MOCK = os.path.join(HERE, "host_cuda")
 CSRC = os.path.join(HERE, os.pardir, "mitgcm_tpu_torch", "kernels", "csrc")
 DTYPES = {"f64": torch.float64, "f32": torch.float32}
+SUFFIX = {t: s for s, t in DTYPES.items()}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PP = ctypes.POINTER(ctypes.c_void_p)
@@ -37,6 +42,8 @@ SIGNATURES = {
     "host_mom_fluxform": [_PP, _I] + [_I] * 7 + [_D] * 5,
     "host_gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2
     + [_I, _I, _P, _PP, _I, _D, _D],
+    "host_phihyd": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_I],
+    "host_mom_correction": [_PP, _I] + [_I] * 4 + [_D] * 4 + [_I],
 }
 
 
@@ -68,10 +75,10 @@ def table(tensors):
 class Fields:
     """A random padded grid and random inputs, numpy-seeded."""
 
-    def __init__(self, dtype, seed, ny, nx):
+    def __init__(self, dtype, seed, ny, nx, nr=NR):
         self.rng = np.random.default_rng(seed)
         self.dtype = dtype
-        s3 = (NR, ny + 2 * OL, nx + 2 * OL)
+        s3 = (nr, ny + 2 * OL, nx + 2 * OL)
         s2 = s3[1:]
         self.s3 = s3
         g = {}
@@ -90,9 +97,10 @@ class Fields:
         g["fCori"] = self.uniform(s2, -1.5, 1.5)
         g["fCoriCos"] = self.uniform(s2, -1.5, 1.5)
         g["maskInC"] = self.mask(s2, 0.9)
-        g["drF"] = self.uniform((NR,), 5.0, 50.0)
+        g["drF"] = self.uniform((nr,), 5.0, 50.0)
         g["recip_drF"] = 1.0 / g["drF"]
-        g["recip_drC"] = 1.0 / self.uniform((NR + 1,), 5.0, 50.0)
+        g["drC"] = self.uniform((nr + 1,), 5.0, 50.0)
+        g["recip_drC"] = 1.0 / g["drC"]
         self.grid = SimpleNamespace(**g)
 
     def tensor(self, a):
@@ -267,16 +275,6 @@ def chip_smoke():
     return module
 
 
-def poisoned(named, footprint, args):
-    """Copies of the inputs, NaN but on the cells that `footprint` (of
-    chip_smoke.py's bound) says the launch reads."""
-    nan = {n: torch.full_like(t, float("nan")) for n, t in named.items()}
-    want = footprint(named, args)
-    for n, view in footprint(nan, args).items():
-        view.copy_(want[n])
-    return nan
-
-
 # The footprints that chip_smoke.py's bounds of B and C count: they hold
 # every cell that the kernels read (with every other input cell NaN, the
 # outputs still equal the twin's on the whole inputs), and no more than
@@ -400,10 +398,10 @@ def parts(view, ring):
     return out
 
 
-def check_footprint(lib, case, footprint, rings):
+def check_footprint(lib, case, footprint, rings, same_as=check):
     want, named, args, run = case
     for got, wanted in zip(run(lib, poisoned(named, footprint, args)), want):
-        check(got, wanted, "an output, the inputs NaN off the footprint")
+        same_as(got, wanted, "an output, the inputs NaN off the footprint")
     base = run(lib, named)
     unread = []
     for name in footprint(named, args):
@@ -447,3 +445,146 @@ def test_calc_rhs_footprint(lib, gm, implicit, advection, with_df):
         rings["maskC"] = smoke.RING4
     check_footprint(lib, gad_case(f, gm, implicit, advection, with_df),
                     smoke.gad_footprint, rings)
+
+
+# Kernel D and G's mom_correction, which write every padded cell: (nr, ny,
+# nx). Padded rows of 25 cells are no multiple of 16 bytes, so
+# mom_correction runs its scalar path there (its 16-byte path elsewhere);
+# 11 levels are no multiple of its chunk of 8; the tiles of D are ragged.
+GLUE_SHAPES = ((4, 12, 20), (4, 10, 40), (11, 9, 21), (11, 12, 20))
+
+
+def check_whole(got, want, label):
+    """Equal on every padded cell."""
+    assert torch.equal(got, want), (
+        f"{label}: max abs diff {float((got - want).abs().max()):.3e}")
+
+
+def glue_fields(dtype, seed, nr, ny, nx):
+    """Fields with the surface and level fields that D and mom_correction
+    read too."""
+    f = Fields(dtype, seed, ny, nx, nr)
+    g = f.grid
+    g.Bo_surf = f.uniform(f.s3[1:], 9.0, 10.0)
+    g.rF = -f.uniform((nr + 1,), 0.0, 500.0)
+    g.rC = -f.uniform((nr,), 0.0, 500.0)
+    return f
+
+
+def phihyd_case(f, min_blocks=0):
+    """As mom_case, for kernel D."""
+    nr, nyp, nxp = f.s3
+    cfg = SimpleNamespace(nr=nr, gravity=9.81, rhoConst=1035.0)
+    g = f.grid
+    rho = f.normal(f.s3, 0.5) * g.maskC
+    want = list(phihyd._phi_hyd_plain(cfg, g, rho))
+    named = dict(rho=rho, drC=g.drC, rF=g.rF, rC=g.rC,
+                 recip_dxC=g.recip_dxC, recip_dyC=g.recip_dyC)
+    args = (nr, nyp, nxp)
+
+    def run(lib, ins):
+        outs = [torch.full(f.s3, float("nan"), dtype=f.dtype)
+                for _ in range(3)]
+        assert getattr(lib, f"host_phihyd_{SUFFIX[f.dtype]}")(
+            *[t.data_ptr() for t in (*ins.values(), *outs)], *args,
+            cfg.gravity, 1.0 / cfg.rhoConst, min_blocks) == 0
+        return outs
+
+    return want, named, args, run
+
+
+# mom_correction's launch halves its chunk of levels while it would launch
+# fewer blocks than it asks for: 0 gives the longest chunks (8 levels), a
+# huge count one level a thread, as on every grid of these tests on the card
+MIN_BLOCKS = {"chunks of 8": 0, "a level": 1 << 30}
+# D's launch takes 16-byte columns where the rows allow them and the tiles
+# would be at least as many as it asks for, else one column a thread
+PHIHYD_MIN_BLOCKS = {"16-byte columns": 0, "a column": 1 << 30}
+
+
+def mom_correction_case(f, nh, min_blocks=0):
+    """As mom_case, for G's mom_correction (nh: with phi_nh)."""
+    nr, nyp, nxp = f.s3
+    cfg = SimpleNamespace(deltaTMom=600.0, implicSurfPress=0.7,
+                          implicitNHPress=0.9)
+    g = f.grid
+    eta = f.normal(f.s3[1:], 0.1)
+    uStar = f.normal(f.s3, 0.1)
+    vStar = f.normal(f.s3, 0.1)
+    phi_nh = f.normal(f.s3, 1.0) if nh else None
+    want = list(step._mom_correction_plain(cfg, g, eta, uStar, vStar,
+                                           phi_nh))
+    named = dict(uStar=uStar, vStar=vStar, maskW=g.maskW, maskS=g.maskS,
+                 **({"phi_nh": phi_nh} if nh else {}), etaN=eta,
+                 Bo_surf=g.Bo_surf, recip_dxC=g.recip_dxC,
+                 recip_dyC=g.recip_dyC)
+    args = (nr, nyp, nxp, int(nh))
+    psFac = cfg.implicSurfPress
+
+    def run(lib, ins):
+        outs = [torch.full(f.s3, float("nan"), dtype=f.dtype)
+                for _ in range(2)]
+        # the wrapper's table: phi_nh's slot holds uStar without the flag
+        tab = table([ins[n] for n in ("uStar", "vStar", "maskW", "maskS")]
+                    + [ins.get("phi_nh", ins["uStar"])]
+                    + [ins[n] for n in ("etaN", "Bo_surf", "recip_dxC",
+                                        "recip_dyC")] + outs)
+        assert getattr(lib, f"host_mom_correction_{SUFFIX[f.dtype]}")(
+            tab, len(tab), *args, cfg.deltaTMom * psFac, psFac,
+            cfg.implicitNHPress, cfg.deltaTMom, min_blocks) == 0
+        return outs
+
+    return want, named, args, run
+
+
+@pytest.mark.parametrize("nr,ny,nx", GLUE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("columns", PHIHYD_MIN_BLOCKS)
+def test_phihyd_tile(lib, nr, ny, nx, dtype, columns):
+    f = glue_fields(DTYPES[dtype], 100 + nr + nx, nr, ny, nx)
+    want, named, _, run = phihyd_case(f, PHIHYD_MIN_BLOCKS[columns])
+    for name, got, wanted in zip(("phiHydC", "dPhiHydX", "dPhiHydY"),
+                                 run(lib, named), want):
+        check_whole(got, wanted, name)
+
+
+@pytest.mark.parametrize("nr,ny,nx", GLUE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nh", (False, True))
+@pytest.mark.parametrize("chunks", MIN_BLOCKS)
+def test_mom_correction(lib, nr, ny, nx, dtype, nh, chunks):
+    f = glue_fields(DTYPES[dtype], 120 + nr + nx + nh, nr, ny, nx)
+    want, named, _, run = mom_correction_case(f, nh, MIN_BLOCKS[chunks])
+    for name, got, wanted in zip("uv", run(lib, named), want):
+        check_whole(got, wanted, name)
+
+
+def test_glue_launch_refuses(lib):
+    """mom_correction's table of the wrong length and D without levels
+    (cudaErrorInvalidValue, 1)."""
+    f = glue_fields(torch.float64, 140, *GLUE_SHAPES[0])
+    _, named, args, _ = mom_correction_case(f, False)
+    tab = table(list(named.values()) + [None] * 3)
+    assert lib.host_mom_correction_f64(tab, len(tab) - 1, *args, 1.0, 1.0,
+                                       1.0, 1.0, 0) == 1
+    _, named, (nr, nyp, nxp), _ = phihyd_case(f)
+    out = torch.empty(f.s3, dtype=f.dtype)
+    assert lib.host_phihyd_f64(
+        *[t.data_ptr() for t in (*named.values(), out, out, out)], 0, nyp,
+        nxp, 9.81, 1.0 / 1035.0, 0) == 1
+
+
+# chip_smoke.py's footprints of D and mom_correction (every padded cell of
+# their 3-D and 2-D inputs, drC between the ends, rF and rC at them,
+# phi_nh under its flag) hold every cell read and no cell unread
+@pytest.mark.parametrize("kernel", ("phihyd", "mom_correction",
+                                    "mom_correction(non-hydrostatic)"))
+def test_glue_footprint(lib, kernel):
+    f = glue_fields(torch.float64, 150, *GLUE_SHAPES[0])
+    smoke = chip_smoke()
+    if kernel == "phihyd":
+        case, footprint = phihyd_case(f), smoke.phihyd_footprint
+    else:
+        case = mom_correction_case(f, kernel.endswith(")"))
+        footprint = smoke.mom_correction_footprint
+    check_footprint(lib, case, footprint, {}, same_as=check_whole)
