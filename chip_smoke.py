@@ -98,9 +98,9 @@ exits nonzero without the final line:
  12. non-hydrostatic: the nh-convection box (flux-form momentum with
                  free-slip sides and the 3-D Coriolis term, calc_gw and the
                  cg3d solve): kernel W (calc_gw), B's flagged variant and
-                 H-cg3d's three launches (cg3d_precond_dot,
-                 cg3d_s_stencil_dot, cg3d_xr_update, each with its `done`
-                 word, frozen launches included) against their twins bit
+                 H-cg3d's two passes (cg3d_s_stencil_dot and
+                 cg3d_xr_precond, with its `done` word, frozen launches
+                 included) against their twins bit
                  for bit at 64x64x12 float64 on a grid with walls, a bank
                  and partial cells and at 1024x1024x50 float32, and the
                  whole cg3d solve kernel path against plain path; 10
@@ -108,8 +108,9 @@ exits nonzero without the final line:
                  plain path (16 digits, equal cg2d and cg3d iterations);
                  the refusal of its pickup; then the 1024x1024x50 float32
                  box (deltaT=60): one warm-up step and 5 timed steps with
-                 every kernel's launch count (W and B each step, H-cg3d 8
-                 per batch of iterations, the plain twins never) and the
+                 every kernel's launch count (W and B each step, each pass
+                 of H-cg3d 8 per batch of iterations and once for the first
+                 residual, the plain twins never) and the
                  cg3d host syncs per solve, a profile, then 2 plain steps
  13. sea ice: the ice-gyre (the kpp-gyre made polar under a cold
                  atmosphere with a dynamic-thermodynamic ice cover): each
@@ -292,13 +293,12 @@ KERNELS = {
               "mitgcm_tpu/model/som.py:216"),
     "som_r": ("mitgcm_tpu_torch/kernels/csrc/som.cu",
               "mitgcm_tpu/model/som.py:222"),
-    # the nh-convection box's kernels H-cg3d and W
-    "cg3d_precond_dot": ("mitgcm_tpu_torch/kernels/csrc/cg3d.cu",
-                         "mitgcm_tpu/solver/cg3d.py:228"),
+    # the nh-convection box's kernels H-cg3d (two passes an iteration) and
+    # W
     "cg3d_s_stencil_dot": ("mitgcm_tpu_torch/kernels/csrc/cg3d.cu",
                            "mitgcm_tpu/solver/cg3d.py:231"),
-    "cg3d_xr_update": ("mitgcm_tpu_torch/kernels/csrc/cg3d.cu",
-                       "mitgcm_tpu/solver/cg3d.py:234"),
+    "cg3d_xr_precond": ("mitgcm_tpu_torch/kernels/csrc/cg3d.cu",
+                        "mitgcm_tpu/solver/cg3d.py:234"),
     "calc_gw": ("mitgcm_tpu_torch/kernels/csrc/calc_gw.cu",
                 "mitgcm_tpu/model/calc_gw.py:29"),
     # the ice-gyre's sea-ice kernels: seaice_lsr_prep (two launches),
@@ -439,7 +439,7 @@ GM_LAUNCHES = {**KPP_LAUNCHES, "gad_calc_rhs_c2": 0, "gad_calc_rhs_c2_gm": 10,
                "gm_residual_flow": 0}
 GM_BOLUS_LAUNCHES = {**GM_LAUNCHES, "gm_psi_b": 5, "gm_residual_flow": 5,
                      "halo_fill": 70}
-CG3D_KERNELS = ("cg3d_precond_dot", "cg3d_s_stencil_dot", "cg3d_xr_update")
+CG3D_KERNELS = ("cg3d_s_stencil_dot", "cg3d_xr_precond")
 NH_KERNELS = CG3D_KERNELS + ("calc_gw",)
 ICE_KERNELS = ("seaice_lsr_visc", "seaice_lsr_coeffs", "seaice_lsr_tridiag_u",
                "seaice_lsr_tridiag_v", "seaice_lsr_check", "seaice_advect_x",
@@ -489,8 +489,10 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 "gad_ppm_x": 350, "gad_ppm_y": 350, "gad_ppm_r": 350,
                 "idemix_prep": 150, "idemix_hdiff": 60, "idemix_col": 40,
                 "som_x": 400, "som_y": 400, "som_r": 400,
-                "cg3d_precond_dot": 10, "cg3d_s_stencil_dot": 40,
-                "cg3d_xr_update": 8, "calc_gw": 200,
+                # H-cg3d's passes: s' and the 7-point product; the x and r
+                # updates with P's two column sweeps and two dot products
+                "cg3d_s_stencil_dot": 40, "cg3d_xr_precond": 18,
+                "calc_gw": 200,
                 # the sea ice's, per 2-D cell (seaice_thermo's per cell of
                 # its largest field, TICES, one category of one column: 11
                 # flux evaluations of ~30 flops and 2 exp, counted as 20
@@ -500,11 +502,12 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 "seaice_lsr_tridiag_u": 6, "seaice_lsr_tridiag_v": 6,
                 "seaice_lsr_check": 4, "seaice_advect_x": 120,
                 "seaice_advect_y": 150, "seaice_thermo": 800,
-                # EVP's launches (sigma12 recomputed at 3 Z points and the
-                # drag at 3 C points a thread in seaice_evp_uv) and free
-                # drift's (3 C-point solves a thread, atan2, sin, cos and
-                # sqrt counted as 20 flops each)
-                "seaice_evp_stress": 120, "seaice_evp_uv": 250,
+                # EVP's launches (seaice_evp_uv's tile forms sigma12 and
+                # the drag once a cell and a ring of 16 %, then the
+                # divergence, forcing and update) and free drift's (3
+                # C-point solves a thread, atan2, sin, cos and sqrt counted
+                # as 20 flops each)
+                "seaice_evp_stress": 120, "seaice_evp_uv": 150,
                 "seaice_freedrift": 450,
                 # the step's glue, per cell of its largest field (D and E
                 # recompute the west/south or east/north neighbour
@@ -521,7 +524,7 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam", "cuu")
-IN_PLACE = {"cg3d_xr_update": ("x", "r"), "seaice_lsr_tridiag_u": ("u",),
+IN_PLACE = {"cg3d_xr_precond": ("x", "r"), "seaice_lsr_tridiag_u": ("u",),
             "seaice_lsr_tridiag_v": ("u",),
             "seaice_lsr_check": ("uTmp", "vTmp")}
 # the plain glue that is not a row of the kernel table, and row H, still
@@ -880,10 +883,28 @@ def mom_correction_footprint(named, args):
     return {n: t for n, t in named.items() if args[3] or n != "phi_nh"}
 
 
+# H-cg3d's passes read the interior of each field (s' on the ring wraps
+# into it), the operator's aW with its eastern and aS with its northern
+# ring side (pass A's A s' takes its neighbours' coefficients)
+CG3D_RINGS = {"aW": E, "aS": N}
+
+
+def cg3d_footprint(named, ints):
+    """H-cg3d's inputs as the views that a pass reads (ints: its launch's
+    nr, ny, nx, oly, olx): every level of the interior, aW and aS with
+    their rings; the 0-d scalars whole."""
+    _, _, _, oly, olx = ints
+    return {n: footprint_view(t, oly, olx, CG3D_RINGS.get(n), None)
+            for n, t in named.items()}
+
+
 def footprint_view(t, oly, olx, ring, levels):
     """The cells of t that a kernel reads: for a field of the padded grid
     its interior and the ring sides named (ring None: the interior only),
-    at the levels given (None: all); a 1-D field's levels."""
+    at the levels given (None: all); a 1-D field's levels; a 0-d tensor
+    whole."""
+    if t.dim() == 0:
+        return t
     if t.dim() == 1:
         return t if levels is None else t[levels]
     s, n, w, e = ring or (0, 0, 0, 0)
@@ -900,7 +921,14 @@ FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
               "gad_calc_rhs_c2_gm": (gad_footprint, ("last",)),
               "phihyd": (phihyd_footprint, ("phiHydC", "dPhiHydX",
                                             "dPhiHydY")),
-              "mom_correction": (mom_correction_footprint, ("u", "v"))}
+              "mom_correction": (mom_correction_footprint, ("u", "v")),
+              # the launches' integers follow their pointers
+              "cg3d_s_stencil_dot": (
+                  lambda named, args: cg3d_footprint(named, args[-5:]),
+                  ("s_out", "qa", "dot_out")),
+              "cg3d_xr_precond": (
+                  lambda named, args: cg3d_footprint(named, args[-7:-2]),
+                  ("x", "r", "q", "err_out", "eta_out"))}
 
 
 def moved_bytes(name, call):
@@ -909,7 +937,7 @@ def moved_bytes(name, call):
     once, an in-place one both), and the most cells any of them covers.
     For a kernel of FOOTPRINTS, each input counts only the cells and levels
     that its launch reads (its flags taken from the launch), each output
-    whole."""
+    whole, an in-place one both."""
     from mitgcm_tpu_torch import kernels
 
     named, args = {}, []
@@ -942,14 +970,16 @@ def moved_bytes(name, call):
         footprint, outs = FOOTPRINTS[name]
         if len(args) != 1:
             raise AssertionError(f"{name}: {len(args)} launches in a call")
-        ins = {n: t for n, t in named.items() if n not in outs}
-        views = {**footprint(ins, args[0]), **{n: named[n] for n in outs}}
+        both = IN_PLACE.get(name, ())
+        ins = {n: t for n, t in named.items() if n not in outs or n in both}
         seen = {}
-        for n, v in views.items():   # a tensor passed twice counts once
-            key = named[n].data_ptr()
-            nbytes = max(v.numel() * v.element_size(),
-                         seen.get(key, (0,))[0])
-            seen[key] = (nbytes, cells_of(v))
+        for side, views in (("read", footprint(ins, args[0])),
+                            ("written", {n: named[n] for n in outs})):
+            for n, v in views.items():   # a tensor passed twice counts once
+                key = (named[n].data_ptr(), side)
+                nbytes = max(v.numel() * v.element_size(),
+                             seen.get(key, (0,))[0])
+                seen[key] = (nbytes, cells_of(v))
     else:
         seen = {}
         for n, t in named.items():
@@ -2425,10 +2455,11 @@ class NhCase:
 def nh_kernel_phase(case, results, reps, plain_reps):
     """W and B's flagged variant (free-slip sides, the 3-D Coriolis term)
     against their twins, W on whole arrays, B on the interior (its halo
-    outputs are zeros by design, as in phase 3); H-cg3d's three launches,
-    one call each on the same inputs, on whole arrays with their dot
-    products and `ctrl`, their frozen launches, and the whole solve kernel
-    path against plain path. Every comparison is bit for bit."""
+    outputs are zeros by design, as in phase 3); H-cg3d's two passes, one
+    call each on the same inputs, on whole arrays with their dot products
+    and `ctrl` (the stops at the cap and at the tolerance too), their
+    frozen launches, and the whole solve kernel path against plain path.
+    Every comparison is bit for bit."""
     from mitgcm_tpu_torch.model.calc_gw import calc_gw
     from mitgcm_tpu_torch.model.mom_fluxform import mom_fluxform
     from mitgcm_tpu_torch.solver import cg3d
@@ -2462,12 +2493,6 @@ def nh_kernel_phase(case, results, reps, plain_reps):
     def ctrl_of(done, it):
         return torch.tensor([done, it], dtype=torch.int32, device="cuda")
 
-    def pre(impl, ctrl):
-        q, dot = torch.zeros_like(case.r), case.r.new_zeros(())
-        cg3d.precond_dot(op3, g.maskC, case.r, q, dot, ctrl, ol, ol, ws=ws,
-                         impl=impl)
-        return [q, dot]
-
     def sst(impl, ctrl):
         s_out, qa = torch.zeros_like(case.r), torch.zeros_like(case.r)
         dot = case.r.new_zeros(())
@@ -2475,15 +2500,17 @@ def nh_kernel_phase(case, results, reps, plain_reps):
                            eta_nm1, dot, ctrl, ol, ol, ws=ws, impl=impl)
         return [s_out, qa, dot]
 
-    def xr(impl, ctrl, tol=never, max_iters=2 ** 30):
-        x, r, dot = case.x.clone(), case.r.clone(), case.r.new_zeros(())
-        cg3d.xr_update(x, r, case.s, case.q, eta_n, den, g.maskC, dot, ctrl,
-                       tol, max_iters, True, ol, ol, ws=ws, impl=impl)
-        return [x, r, dot] + ([ctrl.to(dt)] if ctrl is not None else [])
+    def xrp(impl, ctrl, tol=never, max_iters=2 ** 30):
+        x, r, q = case.x.clone(), case.r.clone(), torch.zeros_like(case.r)
+        err, eta = case.r.new_zeros(()), case.r.new_zeros(())
+        cg3d.xr_precond(op3, g.maskC, x, r, case.s, case.q, q, eta_n, den,
+                        err, eta, ctrl, tol, max_iters, True, ol, ol, ws=ws,
+                        impl=impl)
+        return [x, r, q, err, eta] + ([ctrl.to(dt)] if ctrl is not None
+                                      else [])
 
     go = ctrl_of(0, 0)     # never done in the timed calls
-    for name, call in (("cg3d_precond_dot", pre), ("cg3d_s_stencil_dot", sst),
-                       ("cg3d_xr_update", xr)):
+    for name, call in (("cg3d_s_stencil_dot", sst), ("cg3d_xr_precond", xrp)):
         exact_compare(name, case, call(None, ctrl_of(0, 5)),
                       call("plain", ctrl_of(0, 5)),
                       cuda_time_ms(lambda: call(None, go), reps),
@@ -2493,22 +2520,21 @@ def nh_kernel_phase(case, results, reps, plain_reps):
                              dict(max_iters=7)),
                             ("stops at the tolerance", ctrl_of(0, 2),
                              dict(tol=case.r.new_tensor(1e30)))):
-        k = xr(None, ctrl.clone(), **kw)
-        p = xr("plain", ctrl.clone(), **kw)
+        k = xrp(None, ctrl.clone(), **kw)
+        p = xrp("plain", ctrl.clone(), **kw)
         done = [int(v) for v in k[-1].tolist()]
-        print(f"{'cg3d_xr_update':18s} {case.label:18s} {label}: ctrl "
+        print(f"{'cg3d_xr_precond':18s} {case.label:18s} {label}: ctrl "
               f"{done} / {[int(v) for v in p[-1].tolist()]} (kernel / plain)",
               flush=True)
         if not (done[0] == 1 and all(torch.equal(a, b) for a, b in zip(k, p))):
-            raise AssertionError(f"cg3d_xr_update: {label} differs")
+            raise AssertionError(f"cg3d_xr_precond: {label} differs")
     # frozen launches: with `done` set every launch returns at once
     frozen = ctrl_of(1, 3)
-    before = [case.x.clone(), case.r.clone()]
-    outs = pre(None, frozen) + sst(None, frozen) + xr(None, frozen)
-    untouched = (all(float(t.abs().max()) == 0.0 for t in outs[:5])
-                 and torch.equal(outs[5], before[0])
-                 and torch.equal(outs[6], before[1])
-                 and float(outs[7]) == 0.0
+    outs = sst(None, frozen) + xrp(None, frozen)
+    untouched = (all(float(t.abs().max()) == 0.0 for t in outs[:3])
+                 and torch.equal(outs[3], case.x)
+                 and torch.equal(outs[4], case.r)
+                 and all(float(t.abs().max()) == 0.0 for t in outs[5:8])
                  and frozen.tolist() == [1, 3])
     print(f"{'cg3d (frozen)':18s} {case.label:18s} launches with done set "
           f"leave every output as it was: {untouched}", flush=True)
@@ -2653,8 +2679,8 @@ def nh_full_phase(kernels, smi):
           f"{float(state.theta.min()):.5f}-{float(state.theta.max()):.5f}",
           flush=True)
     batches = sum(syncs) * cg3d.BATCH
-    want = {**NH_LAUNCHES, "cg3d_precond_dot": batches,
-            "cg3d_s_stencil_dot": batches + 5, "cg3d_xr_update": batches + 5}
+    want = {**NH_LAUNCHES, "cg3d_s_stencil_dot": batches + 5,
+            "cg3d_xr_precond": batches + 5}
     wrong = {k: launches.get(k, 0) for k, count in want.items()
              if launches.get(k, 0) != count}
     late = [(i, s) for i, s in zip(it3, syncs)

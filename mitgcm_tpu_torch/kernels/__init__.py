@@ -74,15 +74,14 @@ SIGNATURES = {
     # kernel W: pointer table, its length; nr, nyp, nxp, coriolis_3d;
     # viscAhW, rkSign, gravitySign; stream
     "calc_gw": [_PP, _I] + [_I] * 4 + [_D] * 3 + [_P],
-    # kernel H-cg3d: zMC, zML, zMU, maskC, r, q, dot_out, partials, counter,
-    # ctrl; nr, ny, nx, oly, olx; stream
-    "cg3d_precond_dot": [_P] * 10 + [_I] * 5 + [_P],
-    # aW, aS, aV, aC, maskC, q, s_in, s_out, qa, eta_n, eta_nm1, dot_out,
-    # partials, counter, ctrl; nr, ny, nx, oly, olx; stream
+    # kernel H-cg3d: aW, aS, aV, aC, maskC, q, s_in, s_out, qa, eta_n,
+    # eta_nm1, dot_out, partials, counter, ctrl; nr, ny, nx, oly, olx;
+    # stream
     "cg3d_s_stencil_dot": [_P] * 15 + [_I] * 5 + [_P],
-    # x, r, s, q, num, den, maskC, dot_out, partials, counter, ctrl,
-    # tol_sq; nr, ny, nx, oly, olx, max_iters, count_iter; stream
-    "cg3d_xr_update": [_P] * 12 + [_I] * 7 + [_P],
+    # x, r, s, qa, maskC, zMC, zML, zMU, q, num, den, err_out, eta_out,
+    # partials, counter, pair, ctrl, tol_sq; nr, ny, nx, oly, olx,
+    # max_iters, count_iter; stream
+    "cg3d_xr_precond": [_P] * 18 + [_I] * 7 + [_P],
     # the backward kernels take the arguments of their forward kernels
     # (B' without the flags and gravitySign, C' without the
     # implicit_diffusion flag)

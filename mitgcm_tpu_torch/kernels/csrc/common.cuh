@@ -132,6 +132,14 @@ __device__ bool grid_sum(T v, T* sh, T* partials, unsigned int* counter,
 }
 
 #ifdef __CUDACC__
+// The block's dynamic shared memory, as T (the tests' mock runtime gives
+// its own).
+template <typename T>
+__device__ __forceinline__ T* dynamic_shared() {
+  extern __shared__ __align__(16) unsigned char dynamic_shared_bytes[];
+  return reinterpret_cast<T*>(dynamic_shared_bytes);
+}
+
 // Starts a kernel on a stream: the `start` that the entry points give the
 // launches kept in headers (the tests' host check gives its own).
 struct OnStream {
@@ -139,6 +147,23 @@ struct OnStream {
   template <typename Kernel, typename... Args>
   void operator()(Kernel kernel, dim3 grid, dim3 block, Args... args) const {
     kernel<<<grid, block, 0, stream>>>(args...);
+  }
+  // the same with `bytes` of dynamic shared memory, the kernel's limit
+  // set to them first (the default, 48 KB, holds the static memory too)
+  template <typename Kernel, typename... Args>
+  void shared(Kernel kernel, size_t bytes, dim3 grid, dim3 block,
+              Args... args) const {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(bytes));
+    kernel<<<grid, block, bytes, stream>>>(args...);
+  }
+  // the most shared memory, static and dynamic, that a block may use
+  size_t max_shared() const {
+    int dev = 0, bytes = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    return static_cast<size_t>(bytes);
   }
 };
 #endif

@@ -106,6 +106,7 @@ __global__ void adv_sweep(const AdvArgs<T> a, const Flux flux,
   }
 }
 
+#ifdef __CUDACC__
 // Launch one sweep on the stream; the caller returns cudaGetLastError().
 template <typename T, int DIR, typename Flux>
 void launch_sweep(const AdvArgs<T>& a, const Flux& flux, const void* src,
@@ -115,6 +116,7 @@ void launch_sweep(const AdvArgs<T>& a, const Flux& flux, const void* src,
   adv_sweep<T, DIR, Flux><<<g, dim3(BX, BY), 0, stream>>>(
       a, flux, (const T*)src, (T*)dst, nr, nyp, nxp, T(deltaT), T(rkSign));
 }
+#endif
 
 // The pointer table as the struct (the wrapper's table is in its order).
 template <typename T>

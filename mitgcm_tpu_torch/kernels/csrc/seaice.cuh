@@ -1,7 +1,7 @@
 // Shared helpers of the sea ice's kernels (seaice_lsr.cu, seaice_evp.cu,
 // seaice_freedrift.cu): zero-filled reads of a padded 2-D field, the four
-// HEFFM product at a Z point, and the pointer-table copy of a launch's
-// argument struct.
+// HEFFM product at a Z point, the shear strain rate, and the pointer-table
+// copy of a launch's argument struct.
 #pragma once
 
 #include <cstring>
@@ -28,6 +28,18 @@ __device__ __forceinline__ bool in2(int j, int i, int nyp, int nxp) {
 template <typename T>
 __device__ T hm4_at(const Fld<T>& hm, int j, int i) {
   return hm(j, i) * hm(j, i - 1) * hm(j - 1, i) * hm(j - 1, i - 1);
+}
+
+// the shear strain rate e12 at Z point (jj, ii) (seaice.py:strainrates on
+// the Cartesian grid, free slip), 0 outside the array
+template <typename T>
+__device__ T e12_at(const Fld<T>& u, const Fld<T>& v, const Fld<T>& hm,
+                    const T* recip_dyU, const T* recip_dxV, int jj, int ii) {
+  if (!in2(jj, ii, u.nyp, u.nxp)) return T(0);
+  const size_t r = static_cast<size_t>(jj) * u.nxp + ii;
+  const T dudy = (u(jj, ii) - u(jj - 1, ii)) * recip_dyU[r];
+  const T dvdx = (v(jj, ii) - v(jj, ii - 1)) * recip_dxV[r];
+  return T(0.5) * (dudy + dvdx) * hm4_at(hm, jj, ii);
 }
 
 // the launch's argument struct from a table of n device pointers, if n is

@@ -12,11 +12,11 @@
 //   seaice_evp_stress  one thread per padded C cell: the strain rates, zeta,
 //                      alpha (adaptive: from zeta and the ice mass; else
 //                      SEAICE_evpAlpha) and the new sigma1, sigma2
-//   seaice_evp_uv      one thread per padded cell: the new sigma12 at its Z
-//                      point, and the new u and v at its velocity points
-//                      (sigma12 at the two Z points each divergence reads,
-//                      recomputed in the thread, the divergence, the ocean
-//                      drag dwatn, the forcing with Coriolis, the update)
+//   seaice_evp_uv      a tile of padded cells that forms each new sigma12
+//                      and each ocean drag dwatn once, in shared memory,
+//                      then the divergence, the forcing with Coriolis and
+//                      the update of u and v (seaice_evp_uv.cuh, a header
+//                      of its own for the tests' host check)
 // Two launches, because sigma12 at a Z point reads zeta and alpha at its
 // four C points (:1143, :1160), which one launch would be computing at the
 // same time; every stress is written out of place (the caller ping-pongs
@@ -26,8 +26,9 @@
 // per cell) and REV_DEN (useEVPrev or adaptive: the stresses divide by
 // alpha; otherwise by alpha + 1 and alpha + e^2, :1151-1165); the
 // relaxation factors of useEVPrev and useEVPstar are parameters.
-// No fill launch: a thread in the halo computes u and v at the interior
-// cell it wraps to (common.cuh:wrap), which is what fill_uv stores there.
+// No fill launch: the thread of an interior cell also writes its u and v
+// to each halo cell that wraps to it (common.cuh:wrap), which is what
+// fill_uv stores there.
 // sigma, dwatn and the divergence are the JAX code's whole padded arrays,
 // with every shifted read zero-filled at the outer edge (seaice.cuh:Fld).
 // With `last` set (the last subcycle) the launch also writes dwatn and the
@@ -37,7 +38,7 @@
 // Bound: bytes. Launch (a) reads 13 2-D fields and writes 4; launch (b)
 // reads 36 and writes 3 (6 on the last subcycle).
 
-#include "seaice.cuh"
+#include "seaice_evp_uv.cuh"
 
 namespace mitgcm {
 
@@ -56,18 +57,6 @@ struct EvpStressParams {
   double recip_ecc2, deltaMin, pressReplFac, oneMinusPressReplFac, cFac,
       alphaMin, evpAlpha, revFac, recip_revFac, ecc2;
 };
-
-// the shear strain rate e12 at Z point (jj, ii) (seaice.py:strainrates on
-// the Cartesian grid, free slip), 0 outside the array
-template <typename T>
-__device__ T e12_at(const Fld<T>& u, const Fld<T>& v, const Fld<T>& hm,
-                    const T* recip_dyU, const T* recip_dxV, int jj, int ii) {
-  if (!in2(jj, ii, u.nyp, u.nxp)) return T(0);
-  const size_t r = static_cast<size_t>(jj) * u.nxp + ii;
-  const T dudy = (u(jj, ii) - u(jj - 1, ii)) * recip_dyU[r];
-  const T dvdx = (v(jj, ii) - v(jj, ii - 1)) * recip_dxV[r];
-  return T(0.5) * (dudy + dvdx) * hm4_at(hm, jj, ii);
-}
 
 template <typename T, bool ADAPTIVE, bool REV_DEN>
 __global__ void seaice_evp_stress_kernel(const EvpStressArgs<T> a,
@@ -117,162 +106,6 @@ __global__ void seaice_evp_stress_kernel(const EvpStressArgs<T> a,
   a.alpha[p] = alphaC;
 }
 
-// ---------------------------------------------------------------------
-// seaice_evp_uv
-// ---------------------------------------------------------------------
-template <typename T>
-struct EvpUvArgs {
-  const T *u, *v, *uNm1, *vNm1, *s12, *s1, *s2, *zeta, *alpha, *uVel0,
-      *vVel0, *forcex0, *forcey0, *massC, *massU, *massV, *areaW, *areaS,
-      *locMaskU, *locMaskV, *sumNorm, *fCori, *yC, *maskInW, *maskInS,
-      *heffm, *maskU, *maskV, *recip_dyU, *recip_dxV, *dxV, *dyU, *dyF, *dxF,
-      *recip_rAw, *recip_rAs;
-  T *uo, *vo, *s12o, *dwatn, *divX, *divY;
-};
-constexpr int kEvpUvPointers = 42;
-
-struct EvpUvParams {
-  double revFac, recip_revFac, ecc2, evpBeta, recip_dt, starFac,
-      starFacRecipDt, coswat, sinwat, dragNorth, dragSouth, dWatMin,
-      dWatMinSq;
-};
-
-template <typename T, bool ADAPTIVE, bool REV_DEN>
-__global__ void seaice_evp_uv_kernel(const EvpUvArgs<T> a,
-                                     const EvpUvParams q, int nyp, int nxp,
-                                     int ny, int nx, int ol, int last) {
-  const int i = blockIdx.x * BX + threadIdx.x;
-  const int j = blockIdx.y * BY + threadIdx.y;
-  if (i >= nxp || j >= nyp) return;
-  const size_t p = static_cast<size_t>(j) * nxp + i;
-  const Fld<T> u{a.u, nyp, nxp}, v{a.v, nyp, nxp}, hm{a.heffm, nyp, nxp},
-      Z{a.zeta, nyp, nxp}, A{a.alpha, nyp, nxp}, S1{a.s1, nyp, nxp},
-      S2{a.s2, nyp, nxp}, u0{a.uVel0, nyp, nxp}, v0{a.vVel0, nyp, nxp};
-  auto at = [&](const T* f, int jj, int ii) -> T {
-    return f[static_cast<size_t>(jj) * nxp + ii];
-  };
-  // the new sigma12 at Z point (jj, ii) (:1142-1165), 0 outside the array
-  auto s12n = [&](int jj, int ii) -> T {
-    if (!in2(jj, ii, nyp, nxp)) return T(0);
-    const T zetaZ = at(a.sumNorm, jj, ii) *
-                    (Z(jj, ii) + Z(jj, ii - 1) + Z(jj - 1, ii) +
-                     Z(jj - 1, ii - 1));
-    const T shear = T(2.0) * zetaZ *
-                    e12_at(u, v, hm, a.recip_dyU, a.recip_dxV, jj, ii);
-    const T alphaZ = T(0.25) * (A(jj, ii) + A(jj, ii - 1) + A(jj - 1, ii) +
-                                A(jj - 1, ii - 1));
-    const T den12 = REV_DEN ? alphaZ : alphaZ + T(q.ecc2);
-    return (at(a.s12, jj, ii) * (alphaZ - T(q.revFac)) +
-            shear * T(q.recip_revFac)) / den12;
-  };
-  // the terms of the stress divergence (:1166-1174), 0 outside the array
-  auto t11 = [&](int jj, int ii) -> T {
-    if (!in2(jj, ii, nyp, nxp)) return T(0);
-    return T(0.5) * (S1(jj, ii) + S2(jj, ii)) * at(a.dyF, jj, ii);
-  };
-  auto t22 = [&](int jj, int ii) -> T {
-    if (!in2(jj, ii, nyp, nxp)) return T(0);
-    return T(0.5) * (S1(jj, ii) - S2(jj, ii)) * at(a.dxF, jj, ii);
-  };
-  auto t12x = [&](int jj, int ii) -> T {
-    if (!in2(jj, ii, nyp, nxp)) return T(0);
-    return s12n(jj, ii) * at(a.dxV, jj, ii);
-  };
-  auto t12y = [&](int jj, int ii) -> T {
-    if (!in2(jj, ii, nyp, nxp)) return T(0);
-    return s12n(jj, ii) * at(a.dyU, jj, ii);
-  };
-  auto divX = [&](int jj, int ii) -> T {
-    return (t11(jj, ii) - t11(jj, ii - 1) + t12x(jj + 1, ii) -
-            t12x(jj, ii)) * at(a.recip_rAw, jj, ii);
-  };
-  auto divY = [&](int jj, int ii) -> T {
-    return (t22(jj, ii) - t22(jj - 1, ii) + t12y(jj, ii + 1) -
-            t12y(jj, ii)) * at(a.recip_rAs, jj, ii);
-  };
-  // oceandrag (seaice.py:593) of this subcycle's u, v, 0 outside the array
-  auto dwatn = [&](int jj, int ii) -> T {
-    if (!in2(jj, ii, nyp, nxp)) return T(0);
-    auto du = [&](int y, int x) -> T {
-      if (!in2(y, x, nyp, nxp)) return T(0);
-      return (at(a.u, y, x) - at(a.uVel0, y, x)) * at(a.maskInW, y, x);
-    };
-    auto dv = [&](int y, int x) -> T {
-      if (!in2(y, x, nyp, nxp)) return T(0);
-      return (at(a.v, y, x) - at(a.vVel0, y, x)) * at(a.maskInS, y, x);
-    };
-    const T sa = du(jj, ii) + du(jj, ii + 1);
-    const T sb = dv(jj, ii) + dv(jj + 1, ii);
-    const T tempVar = T(0.25) * (sa * sa + sb * sb);
-    const T dc = at(a.yC, jj, ii) < T(0) ? T(q.dragSouth) : T(q.dragNorth);
-    const T cw = dc * dc * tempVar > T(q.dWatMinSq) ? dc * sqrt(tempVar)
-                                                   : T(q.dWatMin);
-    return cw * hm(jj, ii);
-  };
-  auto dvC = [&](int y, int x) -> T { return v0(y, x) - v(y, x); };
-  auto duC = [&](int y, int x) -> T { return u0(y, x) - u(y, x); };
-  auto mfv = [&](int y, int x) -> T {
-    if (!in2(y, x, nyp, nxp)) return T(0);
-    return at(a.massC, y, x) * at(a.fCori, y, x) * T(0.5) *
-           (v(y, x) + v(y + 1, x));
-  };
-  auto mfu = [&](int y, int x) -> T {
-    if (!in2(y, x, nyp, nxp)) return T(0);
-    return at(a.massC, y, x) * at(a.fCori, y, x) * T(0.5) *
-           (u(y, x) + u(y, x + 1));
-  };
-
-  a.s12o[p] = s12n(j, i);
-  if (last) {
-    a.dwatn[p] = dwatn(j, i);
-    a.divX[p] = divX(j, i);
-    a.divY[p] = divY(j, i);
-  }
-  // the new u and v at the interior cell this one wraps to (fill_uv)
-  const int jw = wrap(j, ol, ny), iw = wrap(i, ol, nx);
-  const size_t w = static_cast<size_t>(jw) * nxp + iw;
-  const T coswat = T(q.coswat);
-  const T sgn = a.fCori[w] < T(0) ? T(-1) : T(1);
-  const T sgs = sgn * T(q.sinwat) * T(0.5);
-  const T dw = dwatn(jw, iw), dw_im = dwatn(jw, iw - 1),
-          dw_jm = dwatn(jw - 1, iw);
-  const T dwU = T(0.5) * (dw + dw_im);
-  const T dwV = T(0.5) * (dw + dw_jm);
-  T frcU = a.forcex0[w] +
-           (dwU * coswat * a.uVel0[w] -
-            sgs * (dw * T(0.5) * (dvC(jw, iw) + dvC(jw + 1, iw)) +
-                   dw_im * T(0.5) * (dvC(jw, iw - 1) + dvC(jw + 1, iw - 1))) *
-                a.locMaskU[w]) * a.areaW[w];
-  T frcV = a.forcey0[w] +
-           (dwV * coswat * a.vVel0[w] +
-            sgs * (dw * T(0.5) * (duC(jw, iw) + duC(jw, iw + 1)) +
-                   dw_jm * T(0.5) * (duC(jw - 1, iw) + duC(jw - 1, iw + 1))) *
-                a.locMaskV[w]) * a.areaS[w];
-  frcU = frcU + T(0.5) * (mfv(jw, iw) + mfv(jw, iw - 1));
-  frcV = frcV - T(0.5) * (mfu(jw, iw) + mfu(jw - 1, iw));
-  T betaU, betaV;
-  if (ADAPTIVE) {
-    betaU = T(0.5) * (A(jw, iw) + A(jw, iw - 1));
-    betaV = T(0.5) * (A(jw, iw) + A(jw - 1, iw));
-  } else {
-    betaU = betaV = T(q.evpBeta);
-  }
-  const T recip_dt = T(q.recip_dt);
-  const T betaFacU = betaU * recip_dt;
-  const T betaFacV = betaV * recip_dt;
-  const T mU = a.massU[w], mV = a.massV[w];
-  T denomU = mU * (betaFacU + T(q.starFacRecipDt)) + dwU * coswat * a.areaW[w];
-  T denomV = mV * (betaFacV + T(q.starFacRecipDt)) + dwV * coswat * a.areaS[w];
-  if (denomU == T(0)) denomU = T(1);
-  if (denomV == T(0)) denomV = T(1);
-  a.uo[p] = a.maskU[w] *
-            (mU * betaFacU * a.u[w] + mU * recip_dt * T(q.starFac) * a.uNm1[w] +
-             frcU + divX(jw, iw)) / denomU;
-  a.vo[p] = a.maskV[w] *
-            (mV * betaFacV * a.v[w] + mV * recip_dt * T(q.starFac) * a.vNm1[w] +
-             frcV + divY(jw, iw)) / denomV;
-}
-
 template <typename T, bool ADAPTIVE, bool REV_DEN>
 int launch_evp_stress_t(const EvpStressArgs<T>& a, const EvpStressParams& q,
                         int nyp, int nxp, cudaStream_t stream) {
@@ -300,39 +133,6 @@ int launch_evp_stress(const void* const* table, int n, const double* params,
                                                         stream);
 }
 
-template <typename T, bool ADAPTIVE, bool REV_DEN>
-int launch_evp_uv_t(const EvpUvArgs<T>& a, const EvpUvParams& q, int nyp,
-                    int nxp, int ny, int nx, int ol, int last,
-                    cudaStream_t stream) {
-  seaice_evp_uv_kernel<T, ADAPTIVE, REV_DEN>
-      <<<grid2d(nyp, nxp), dim3(BX, BY), 0, stream>>>(a, q, nyp, nxp, ny, nx,
-                                                      ol, last);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_evp_uv(const void* const* table, int n, const double* params,
-                  int nparams, int ny, int nx, int ol, int adaptive,
-                  int rev_den, int last, cudaStream_t stream) {
-  EvpUvArgs<T> a;
-  if (!table_of<T, EvpUvArgs<T>, kEvpUvPointers>(table, n, &a) ||
-      nparams != static_cast<int>(sizeof(EvpUvParams) / sizeof(double)) ||
-      ny < 1 || nx < 1 || ol < 1)
-    return (int)cudaErrorInvalidValue;
-  EvpUvParams q;
-  std::memcpy(&q, params, sizeof(q));
-  const int nyp = ny + 2 * ol, nxp = nx + 2 * ol;
-  if (adaptive)
-    return rev_den ? launch_evp_uv_t<T, true, true>(a, q, nyp, nxp, ny, nx,
-                                                    ol, last, stream)
-                   : launch_evp_uv_t<T, true, false>(a, q, nyp, nxp, ny, nx,
-                                                     ol, last, stream);
-  return rev_den ? launch_evp_uv_t<T, false, true>(a, q, nyp, nxp, ny, nx, ol,
-                                                   last, stream)
-                 : launch_evp_uv_t<T, false, false>(a, q, nyp, nxp, ny, nx,
-                                                    ol, last, stream);
-}
-
 }  // namespace mitgcm
 
 #define MITGCM_SEAICE_EVP_ENTRY_POINTS(T, SUF)                                \
@@ -349,7 +149,7 @@ int launch_evp_uv(const void* const* table, int n, const double* params,
       void* stream) {                                                         \
     return mitgcm::launch_evp_uv<T>(table, n, params, nparams, ny, nx, ol,    \
                                     adaptive, rev_den, last,                  \
-                                    (cudaStream_t)stream);                    \
+                                    mitgcm::OnStream{(cudaStream_t)stream});  \
   }
 
 MITGCM_SEAICE_EVP_ENTRY_POINTS(float, f32)

@@ -156,17 +156,6 @@ def _grid_sum(v, oly: int, olx: int):
     return _tree(acc)
 
 
-class Workspace:
-    """Scratch of cg3d's dot-producing kernels: one partial sum per 32 x 8
-    tile and the last-block counter (0 between launches)."""
-
-    def __init__(self, shape, oly: int, olx: int, dtype, device):
-        ny, nx = shape[-2] - 2 * oly, shape[-1] - 2 * olx
-        n = kernels.library().mitgcm_cg2d_num_partials(ny, nx)
-        self.partials = torch.empty(n, dtype=dtype, device=device)
-        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
-
-
 def _set_interior(a, v, oly, olx):
     a[..., oly:a.shape[-2] - oly, olx:a.shape[-1] - olx] = \
         v[..., oly:v.shape[-2] - oly, olx:v.shape[-1] - olx]

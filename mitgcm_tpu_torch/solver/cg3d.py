@@ -7,18 +7,20 @@ free-surface term on the surface level's diagonal, scaled by myNorm and
 cyclic-filled, and the LU-factored column tridiagonal preconditioner.
 `cg3d` is differentiable in its right-hand side (CG3DSolve: the backward
 pass is a second solve from a zero first guess). One PCG iteration is
-three calls, each a hand-written CUDA kernel (kernels/csrc/cg3d.cu,
+two calls, each a hand-written CUDA kernel (kernels/csrc/cg3d.cu,
 kernel H-cg3d) for CUDA tensors and its plain PyTorch twin for CPU
 tensors or when impl="plain" is asked for:
-  precond_dot    q = P^-1 r with dot(q, r)
   s_stencil_dot  s' = (q + beta s) imask, qA = (A s') imask, dot(s', qA)
-  xr_update      x += alpha s', r -= alpha qA, with dot(r, r)
-The scalars live in 0-d device tensors. On the kernel path the loop stays
-on the device: xr_update counts the iterations and sets a `done` word in
-`ctrl` (its last block, when dot(r, r) < tol^2 or the count reaches
-cg3dMaxIters), every launch returns at once while it is set, and the host
-enqueues BATCH iterations at a time and reads `ctrl` once per batch. On
-the plain path the loop runs on the host, as JAX's does.
+  xr_precond     x += alpha s', r -= alpha qA, with dot(r, r); then the
+                 next iteration's q = P^-1 r with dot(q, r)
+The first residual r0 = b - A x0 is one call of each (s = 0, beta = 1,
+alpha = 1), which also gives q0. The scalars live in 0-d device tensors.
+On the kernel path the loop stays on the device: xr_precond counts the
+iterations and sets a `done` word in `ctrl` (its last block, when dot(r,
+r) < tol^2 or the count reaches cg3dMaxIters), every launch returns at
+once while it is set, and the host enqueues BATCH iterations at a time
+and reads `ctrl` once per batch. On the plain path the loop runs on the
+host, as JAX's does.
 """
 
 from __future__ import annotations
@@ -32,15 +34,28 @@ from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.ops.stencil import (cyclic_fill_halo, interior_mask,
                                           shift as sh)
-from mitgcm_tpu_torch.solver.cg2d import (Workspace, _grid_sum,
-                                          _set_interior)
+from mitgcm_tpu_torch.solver.cg2d import _grid_sum, _set_interior
 
 # iterations the kernel path enqueues between two reads of `done`
 BATCH = 8
 
-# calls of the three twins (a run on the card reads it to show that its
+# calls of the two twins (a run on the card reads it to show that its
 # kernel path never made one)
 plain_calls = 0
+
+
+class Workspace:
+    """Scratch of kernel H-cg3d's launches: two partial sums per 32 x 8
+    tile (xr_precond reduces dot(r, r) and dot(q, r) together), the
+    last-block counter (0 between launches) and the pair of sums that
+    xr_precond's last block copies out."""
+
+    def __init__(self, shape, oly: int, olx: int, dtype, device):
+        ny, nx = shape[-2] - 2 * oly, shape[-1] - 2 * olx
+        n = kernels.library().mitgcm_cg2d_num_partials(ny, nx)
+        self.partials = torch.empty(2 * n, dtype=dtype, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.pair = torch.empty(2, dtype=dtype, device=device)
 
 
 @dataclass
@@ -193,40 +208,6 @@ def _check_ctrl(ctrl):
                          "shape (2,)")
 
 
-def precond_dot(op: CG3DOperator, maskC, r, q, dot_out, ctrl, oly: int,
-                olx: int, ws: Workspace = None, impl: str = None) -> None:
-    """q[interior] = P^-1 r (cg3d.py:_apply_P: forward substitution down
-    each column, back substitution up) and dot_out (0-d) = dot(q, r) over
-    the interior's wet cells, summed up each column from the bottom.
-    Leaves q's halo cells as they are; does nothing while ctrl[0] is set."""
-    if not kernels.use_kernel(r, impl):
-        if _frozen(ctrl):
-            return
-        qf, qkm1 = [], torch.zeros_like(r[0])
-        for k in range(r.shape[0]):
-            qkm1 = op.zMC[k] * (r[k] - op.zML[k] * qkm1)
-            qf.append(qkm1)
-        qb, qkp1 = [None] * len(qf), torch.zeros_like(r[0])
-        for k in reversed(range(len(qf))):
-            qkp1 = qf[k] - op.zMU[k] * qkp1
-            qb[k] = qkp1
-        qb = torch.stack(qb)
-        _set_interior(q, qb, oly, olx)
-        dot_out.copy_(_grid_sum(_col_sum(qb, r, maskC,
-                                         reversed(range(len(qb)))),
-                                oly, olx))
-        return
-    _check(r.dtype, r.shape, {"dot_out": dot_out}, zMC=op.zMC, zML=op.zML,
-           zMU=op.zMU, maskC=maskC, r=r, q=q)
-    _check_ctrl(ctrl)
-    ws = ws or Workspace(r.shape, oly, olx, r.dtype, r.device)
-    kernels.launch("cg3d_precond_dot", r.dtype, op.zMC.data_ptr(),
-                   op.zML.data_ptr(), op.zMU.data_ptr(), maskC.data_ptr(),
-                   r.data_ptr(), q.data_ptr(), dot_out.data_ptr(),
-                   ws.partials.data_ptr(), ws.counter.data_ptr(),
-                   ctrl.data_ptr(), *_dims(r, oly, olx))
-
-
 def s_stencil_dot(op: CG3DOperator, maskC, q, s_in, s_out, qa, eta_n,
                   eta_nm1, dot_out, ctrl, oly: int, olx: int,
                   ws: Workspace = None, impl: str = None) -> None:
@@ -261,41 +242,62 @@ def s_stencil_dot(op: CG3DOperator, maskC, q, s_in, s_out, qa, eta_n,
                    ctrl.data_ptr(), *_dims(q, oly, olx))
 
 
-def xr_update(x, r, s, q, num, den, maskC, dot_out, ctrl, tol_sq,
-              max_iters: int, count_iter: bool, oly: int, olx: int,
-              ws: Workspace = None, impl: str = None) -> None:
+def xr_precond(op: CG3DOperator, maskC, x, r, s, qa, q, num, den, err_out,
+               eta_out, ctrl, tol_sq, max_iters: int, count_iter: bool,
+               oly: int, olx: int, ws: Workspace = None,
+               impl: str = None) -> None:
     """In place on the interior: x = (x + alpha s) maskC and r = (r -
-    alpha q) maskC with alpha = num / den (0-d); dot_out (0-d) = dot(r,
-    r). With ctrl (int32 [done, iterations]): adds count_iter to the
-    iterations and sets done when dot(r, r) < tol_sq or the iterations
-    reach max_iters; does nothing while done is set."""
+    alpha qa) maskC with alpha = num / den (0-d), err_out (0-d) = dot(r,
+    r), summed down each column; then q[interior] = P^-1 r (cg3d.py:
+    _apply_P: forward substitution down each column, back substitution up)
+    and eta_out (0-d) = dot(q, r) over the interior's wet cells, summed up
+    each column from the bottom. Leaves the halo cells as they are. With
+    ctrl (int32 [done, iterations]): adds count_iter to the iterations and
+    sets done when dot(r, r) < tol_sq or the iterations reach max_iters;
+    does nothing while done is set."""
     if not kernels.use_kernel(x, impl):
         if _frozen(ctrl):
             return
         imask = interior_mask(x.shape, oly, olx, x.dtype, x.device) * maskC
         alpha = num / den
         _set_interior(x, (x + alpha * s) * imask, oly, olx)
-        rn = (r - alpha * q) * imask
+        rn = (r - alpha * qa) * imask
         _set_interior(r, rn, oly, olx)
-        dot_out.copy_(_grid_sum(_col_sum(rn, rn, maskC, range(rn.shape[0])),
+        err_out.copy_(_grid_sum(_col_sum(rn, rn, maskC, range(rn.shape[0])),
+                                oly, olx))
+        qf, qkm1 = [], torch.zeros_like(rn[0])
+        for k in range(rn.shape[0]):
+            qkm1 = op.zMC[k] * (rn[k] - op.zML[k] * qkm1)
+            qf.append(qkm1)
+        qb, qkp1 = [None] * len(qf), torch.zeros_like(rn[0])
+        for k in reversed(range(len(qf))):
+            qkp1 = qf[k] - op.zMU[k] * qkp1
+            qb[k] = qkp1
+        qb = torch.stack(qb)
+        _set_interior(q, qb, oly, olx)
+        eta_out.copy_(_grid_sum(_col_sum(qb, rn, maskC,
+                                         reversed(range(len(qb)))),
                                 oly, olx))
         if ctrl is not None:
             it = int(ctrl[1]) + int(count_iter)
             ctrl[1] = it
-            ctrl[0] = int(not float(dot_out) >= float(tol_sq)
+            ctrl[0] = int(not float(err_out) >= float(tol_sq)
                           or it >= max_iters)
         return
-    _check(x.dtype, x.shape, {"num": num, "den": den, "dot_out": dot_out,
-                              "tol_sq": tol_sq},
-           x=x, r=r, s=s, q=q, maskC=maskC)
+    _check(x.dtype, x.shape, {"num": num, "den": den, "err_out": err_out,
+                              "eta_out": eta_out, "tol_sq": tol_sq},
+           x=x, r=r, s=s, qa=qa, maskC=maskC, zMC=op.zMC, zML=op.zML,
+           zMU=op.zMU, q=q)
     _check_ctrl(ctrl)
     ws = ws or Workspace(x.shape, oly, olx, x.dtype, x.device)
-    kernels.launch("cg3d_xr_update", x.dtype, x.data_ptr(), r.data_ptr(),
-                   s.data_ptr(), q.data_ptr(), num.data_ptr(),
-                   den.data_ptr(), maskC.data_ptr(), dot_out.data_ptr(),
+    kernels.launch("cg3d_xr_precond", x.dtype, x.data_ptr(), r.data_ptr(),
+                   s.data_ptr(), qa.data_ptr(), maskC.data_ptr(),
+                   op.zMC.data_ptr(), op.zML.data_ptr(), op.zMU.data_ptr(),
+                   q.data_ptr(), num.data_ptr(), den.data_ptr(),
+                   err_out.data_ptr(), eta_out.data_ptr(),
                    ws.partials.data_ptr(), ws.counter.data_ptr(),
-                   ctrl.data_ptr(), tol_sq.data_ptr(), *_dims(x, oly, olx),
-                   int(max_iters), int(count_iter))
+                   ws.pair.data_ptr(), ctrl.data_ptr(), tol_sq.data_ptr(),
+                   *_dims(x, oly, olx), int(max_iters), int(count_iter))
 
 
 class CG3DSolve(torch.autograd.Function):
@@ -365,18 +367,19 @@ def _solve(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
     s = [torch.zeros_like(b), torch.zeros_like(b)]
     q, qa = torch.zeros_like(b), torch.zeros_like(b)
     # r0 = b - A x0: A x0 through s_stencil_dot (s = 0, beta = 1), then one
-    # xr step with alpha = 1 along the zero direction s[0]
+    # xr step with alpha = 1 along the zero direction s[0], which also
+    # gives q0 = P^-1 r0 and eta_0 = dot(q0, r0)
     s_stencil_dot(op, maskC, x, s[0], s[1], qa, one, one, sq, ctrl, **kw)
-    xr_update(x, r, s[0], qa, one, one, maskC, err_sq, ctrl,
-              count_iter=False, **stop, **kw)
+    xr_precond(op, maskC, x, r, s[0], qa, q, one, one, err_sq, eta_n, ctrl,
+               count_iter=False, **stop, **kw)
     first_res = torch.sqrt(err_sq)
 
     def iterate(cur):
-        precond_dot(op, maskC, r, q, eta_n, ctrl, **kw)
+        # eta_nm1's slot takes the next iteration's eta
         s_stencil_dot(op, maskC, q, s[cur], s[1 - cur], qa, eta_n, eta_nm1,
                       sq, ctrl, **kw)
-        xr_update(x, r, s[1 - cur], qa, eta_n, sq, maskC, err_sq, ctrl,
-                  count_iter=True, **stop, **kw)
+        xr_precond(op, maskC, x, r, s[1 - cur], qa, q, eta_n, sq, err_sq,
+                   eta_nm1, ctrl, count_iter=True, **stop, **kw)
 
     cur, syncs = 0, 0
     if on_card:
@@ -388,6 +391,9 @@ def _solve(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
             syncs += 1
             if done:
                 break
+            if it >= cfg.cg3dMaxIters:
+                raise RuntimeError(f"cg3d: {it} iterations counted and "
+                                   f"`done` not set")
     else:
         err, tol_sq, it = err_sq.item(), op.tolerance_sq.item(), 0
         syncs = 1

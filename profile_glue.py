@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where a full-size step's time goes, on one NVIDIA GPU.
 
-    python3 profile_glue.py [--root DIR] [--config gyre|ggl90] [--n N]
-                            [--kernels]
+    python3 profile_glue.py [--root DIR] [--config CONFIG] [--n N]
+                            [--kernels [GROUP ...]]
 
-Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre or ggl90-gyre
-(deltaT = 600 s) of the PyTorch port found under DIR (default: this
-script's directory; give an unpacked earlier tree to compare two versions
-on one card, in turns):
+Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, ggl90-gyre or
+evp-ice-gyre (deltaT = 600 s), or the N x N x 50 nh-convection box
+(--config box, deltaT = 60 s), of the PyTorch port found under DIR
+(default: this script's directory; give an unpacked earlier tree to
+compare two versions on one card, in turns):
 one warm-up step, 5 timed steps (host clock around synchronised steps),
 then chip_smoke.py's profile of 2 steps (torch.profiler): the device's
 busy time and idle share, and the time and launches a step of PyTorch's
@@ -21,10 +22,21 @@ KERNEL_SHAPES, and of the nh-convection box's mom_correction at
 1024x1024x50, 20 launches captured in a CUDA graph and replayed
 (chip_smoke.py:graph_ms), so that a small grid's time is the card's and
 not the host's enqueue; each with its bound (chip_smoke.py:bound) and the
-share of the bound it reaches. Exits nonzero without CUDA.
+share of the bound it reaches (group "glue"). Group "cg3d": on
+chip_smoke.py's seeded 1024x1024x50 float32 box (NhCase), whole
+`cg3d.cg3d` solves with a tolerance of 0, so that each runs to its cap:
+ms an iteration as (a solve of 100 iterations - a solve of 20) / 80,
+CUDA events around the whole solves, with the bound of an iteration (the
+sum of its launches' bounds); then each launch of an iteration as a
+CUDA graph of 20, with its bound. Group "evp": seaice_evp_stress and
+seaice_evp_uv (adaptive EVP, the first launch of a 2-subcycle loop) at
+1024x1024 float32 on chip_smoke.py's EvpCase, as a CUDA graph of 20
+launches, each with its bound. No group named: all three. Exits nonzero
+without CUDA.
 """
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -39,6 +51,15 @@ KERNEL_SHAPES = ((64, 4, "float64"), (64, 32, "float32"),
                  (128, 32, "float32"), (256, 32, "float32"),
                  (1024, 32, "float32"))
 BOX_SHAPE = (1024, 50)   # the nh-convection box's, float32
+EVP_SHAPE = (1024, 32)   # the evp-ice-gyre's, float32 (EVP is 2-D)
+# the cg3d solves of group "cg3d": their caps of iterations
+CG3D_CAPS = (20, 100)
+KERNEL_GROUPS = ("glue", "cg3d", "evp")
+# the launches of a tree from before the cg3d iteration became two passes
+# (three an iteration), for their bounds through chip_smoke.bound: the
+# operations a cell and the fields updated in place
+PARENT_OPS = {"cg3d_precond_dot": 10, "cg3d_xr_update": 8}
+PARENT_IN_PLACE = {"cg3d_xr_update": ("x", "r")}
 
 
 def glue_calls(case):
@@ -86,14 +107,147 @@ def time_launches(smoke, calls, label, rows):
               f"{bound_ms:.5f} ({bound_ms / ms:.2f})", flush=True)
 
 
-def kernel_times(smoke):
-    """--kernels: [{kernel, shape, ms, bound_ms, share}] of B, C and D-G at
-    KERNEL_SHAPES, then the box's mom_correction."""
+def cg3d_calls(case):
+    """{kernel: one wrapper call} of the launches of one cg3d iteration on
+    a chip_smoke.NhCase, with a `ctrl` that is never done (a tolerance of
+    0, no cap within reach), so that every replay of a launch runs: two
+    passes (s_stencil_dot, xr_precond), or on an older tree three
+    launches."""
+    import torch
+    from mitgcm_tpu_torch.solver import cg3d
+
+    g, op3, ws, ol = case.grid, case.op3, case.ws, case.cfg.olx
+    eta_n, eta_nm1, den = (case.r.new_tensor(v) for v in (0.7, 1.3, 1.1))
+    never = case.r.new_tensor(0.0)
+    ctrl = torch.zeros(2, dtype=torch.int32, device="cuda")
+    x, r = case.x.clone(), case.r.clone()
+    s_out, qa, q = (torch.zeros_like(r) for _ in range(3))
+    dots = r.new_zeros(2)
+    calls = {"cg3d_s_stencil_dot": lambda: cg3d.s_stencil_dot(
+        op3, g.maskC, case.q, case.s, s_out, qa, eta_n, eta_nm1, dots[0],
+        ctrl, ol, ol, ws=ws)}
+    if hasattr(cg3d, "xr_precond"):
+        calls["cg3d_xr_precond"] = lambda: cg3d.xr_precond(
+            op3, g.maskC, x, r, case.s, case.q, q, eta_n, den, dots[0],
+            dots[1], ctrl, never, 1 << 30, True, ol, ol, ws=ws)
+    else:
+        calls["cg3d_precond_dot"] = lambda: cg3d.precond_dot(
+            op3, g.maskC, case.r, q, dots[0], ctrl, ol, ol, ws=ws)
+        calls["cg3d_xr_update"] = lambda: cg3d.xr_update(
+            x, r, case.s, case.q, eta_n, den, g.maskC, dots[1], ctrl, never,
+            1 << 30, True, ol, ol, ws=ws)
+    return calls
+
+
+def cg3d_times(smoke, rows):
+    """Group "cg3d": the iteration's ms from whole solves, then each of
+    its launches (cg3d_calls) with its bound."""
+    import torch
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.solver import cg3d
+
+    case = smoke.NhCase(*BOX_SHAPE, torch.float32)
+    op = dataclasses.replace(case.op3, tolerance_sq=case.r.new_tensor(0.0))
+    x0 = 0.01 * case.x
+    ms, iters, launches = {}, {}, {}
+    for cap in CG3D_CAPS:
+        cfg = dataclasses.replace(case.cfg, cg3dMaxIters=cap)
+        res = []
+
+        def solve():
+            res.append(cg3d.cg3d(cfg, case.grid, op, case.b, x0))
+        kernels.launches.clear()
+        solve()
+        launches[cap] = dict(kernels.launches)
+        ms[cap] = smoke.cuda_time_ms(solve, 3)
+        iters[cap] = {r.n_iters for r in res}
+        if iters[cap] != {cap}:
+            raise AssertionError(f"cg3d ran {iters[cap]} iterations, not "
+                                 f"its cap {cap}")
+    lo, hi = CG3D_CAPS
+    per_it = (ms[hi] - ms[lo]) / (hi - lo)
+    calls = cg3d_calls(case)
+    bounds = {name: smoke.bound(name, call)[0] for name, call in calls.items()}
+    bound_it = sum(bounds.values())
+    label = "box " + case.label
+    rows.append({"kernel": "cg3d iteration", "shape": label, "ms": per_it,
+                 "bound_ms": bound_it, "share": bound_it / per_it,
+                 "solve_ms": ms, "launches": launches})
+    print(f"{'cg3d iteration':16s} {label:20s} {per_it:.5f} ms an iteration "
+          f"((solve of {hi} {ms[hi]:.3f} - solve of {lo} {ms[lo]:.3f}) / "
+          f"{hi - lo}), bound {bound_it:.5f} ({bound_it / per_it:.2f}); "
+          f"launches of a {hi}-iteration solve {launches[hi]}", flush=True)
+    time_launches(smoke, calls, label, rows)
+    del case
+
+
+def evp_times(smoke, rows):
+    """Group "evp": seaice_evp_stress and seaice_evp_uv (adaptive EVP) at
+    EVP_SHAPE, the first launch of each in a 2-subcycle loop (the loop's
+    launches but its last, whose `last` flag also writes dwatn and the
+    divergence), as CUDA graphs of 20, with the bounds of chip_smoke.py's
+    phase 15 (what one launch reads, each input once, and writes)."""
+    import torch
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model import seaice_kernels as sk
+
+    case = smoke.EvpCase(*EVP_SHAPE, torch.float32)
+    si, ice, d = case.si["aEVP"], case.ice, case.dyn
+    fixed = dict(uNm1=case.uvNm1[0], vNm1=case.uvNm1[1],
+                 **{k: d[k] for k in ("uVel0", "vVel0", "forcex0", "forcey0",
+                                      "massC", "massU", "massV")})
+    u, v, (s1, s2, s12) = ice.uIce, ice.vIce, ice.sigma
+    setup = si.evp_setup(ice, d["massU"], d["massV"])
+    args = (u, v, s1, s2, s12, d["press0"], fixed, setup)
+    sa = (u, v, s1, s2, d["press0"], d["massC"])
+    st = si._evp_stress_plain(*sa)
+    touched = {
+        "seaice_evp_stress": list(sk._stress_ins(si, *sa).values())
+        + [torch.empty_like(u) for _ in range(4)],
+        "seaice_evp_uv": list(sk._uv_ins(si, u, v, s12, *st, fixed,
+                                         setup).values())
+        + [torch.empty_like(u) for _ in range(3)]}
+    label = f"{EVP_SHAPE[0]}x{EVP_SHAPE[0]} float32"
+    for name, tensors in touched.items():
+        launch, outs = smoke.captured_launch(lambda: sk.evp_loop(si, *args, 2),
+                                             name)
+        ms = smoke.graph_ms(lambda: kernels.launch(*launch), reps=10)
+        del outs
+        bound_ms = smoke.bound(name, None, tensors)[0]
+        rows.append({"kernel": name, "shape": label, "ms": ms,
+                     "bound_ms": bound_ms, "share": bound_ms / ms})
+        print(f"{name:16s} {label:20s} {ms:.5f} ms a launch, bound "
+              f"{bound_ms:.5f} ({bound_ms / ms:.2f})", flush=True)
+    del case
+
+
+def kernel_times(smoke, groups):
+    """--kernels: [{kernel, shape, ms, bound_ms, share}] of the groups
+    named: "glue", B, C and D-G at KERNEL_SHAPES, then the box's
+    mom_correction; "cg3d"; "evp"."""
+    import torch
+
+    rows = []
+    if "cg3d" in groups:
+        cg3d_times(smoke, rows)
+        smoke.GRIDS.clear()
+        torch.cuda.empty_cache()
+    if "evp" in groups:
+        evp_times(smoke, rows)
+        smoke.GRIDS.clear()
+        torch.cuda.empty_cache()
+    if "glue" in groups:
+        glue_times(smoke, rows)
+    return rows
+
+
+def glue_times(smoke, rows):
+    """Group "glue": B, C and D-G at KERNEL_SHAPES, then the box's
+    mom_correction."""
     import torch
     from mitgcm_tpu_torch.model.gad import calc_rhs
     from mitgcm_tpu_torch.model.mom_fluxform import mom_fluxform
 
-    rows = []
     for n, nr, dtype in KERNEL_SHAPES:
         case = smoke.Case(n, nr, getattr(torch, dtype))
         cfg, g = case.cfg, case.grid
@@ -111,15 +265,15 @@ def kernel_times(smoke):
         torch.cuda.empty_cache()
     box = smoke.GlueCase(*BOX_SHAPE, torch.float32, nh=True)
     time_launches(smoke, glue_calls(box), "box " + box.label, rows)
-    return rows
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--config", choices=("gyre", "ggl90"), default="gyre")
+    ap.add_argument("--config", choices=("gyre", "ggl90", "box", "evp-ice"),
+                    default="gyre")
     ap.add_argument("--n", type=int, default=1024)
-    ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--kernels", nargs="*", choices=KERNEL_GROUPS)
     args = ap.parse_args()
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -133,12 +287,23 @@ def main():
     from mitgcm_tpu_torch.utils import synthetic
 
     kernels.library()
-    if args.kernels:
+    for name, ops in PARENT_OPS.items():
+        smoke.OPS_PER_CELL.setdefault(name, ops)
+    for name, fields in PARENT_IN_PLACE.items():
+        smoke.IN_PLACE.setdefault(name, fields)
+    if args.kernels is not None:
+        groups = args.kernels or KERNEL_GROUPS
         print(json.dumps({"root": args.root, "card": smi,
-                          "kernels": kernel_times(smoke)}), flush=True)
+                          "kernels": kernel_times(smoke, groups)}),
+              flush=True)
         return
     kw = dict(nx=args.n, ny=args.n, nr=32, deltaT=600.0)
-    if args.config == "gyre":
+    if args.config == "box":
+        exp = smoke.nh_experiment(args.n, BOX_SHAPE[1], torch.float32,
+                                  deltaT=60.0)
+    elif args.config == "evp-ice":
+        exp = smoke.evp_experiment(args.n, 32, torch.float32, deltaT=600.0)
+    elif args.config == "gyre":
         cfg = synthetic.gyre_config(**kw)
         exp = Experiment(cfg, *synthetic.gyre_setup(
             cfg, dtype=torch.float32, device="cuda"))

@@ -2,11 +2,13 @@
 // sources compile with g++ against it, and host_launch runs a launch's
 // blocks one after another on one std::thread per CUDA thread of a block,
 // with a std::barrier for __syncthreads. A __shared__ variable becomes a
-// static one, shared by the threads of the block that runs. Only what the
+// static one, shared by the threads of the block that runs, and the
+// dynamic shared memory one buffer, sized at the launch. Only what the
 // port's kernels use is here.
 #pragma once
 
 #include <barrier>
+#include <cmath>
 #include <cstddef>
 #include <cstring>
 #include <thread>
@@ -18,6 +20,8 @@
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+
+using std::sqrt;   // CUDA's overloads for float and double
 
 struct dim3 {
   unsigned x, y, z;
@@ -35,6 +39,13 @@ inline unsigned int atomicAdd(unsigned int* p, unsigned int v) {
   const unsigned int old = *p;
   *p += v;
   return old;
+}
+
+// the dynamic shared memory of the block that runs
+inline std::vector<unsigned char> host_dynamic_shared_bytes;
+template <typename T>
+T* dynamic_shared() {
+  return reinterpret_cast<T*>(host_dynamic_shared_bytes.data());
 }
 
 typedef int cudaError_t;

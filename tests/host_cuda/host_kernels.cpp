@@ -1,23 +1,36 @@
-// Kernels B and C's forward kernels, D and G's mom_correction, built by g++
-// against the mock CUDA runtime beside this file and run on the host
-// through the launches that their entry points use (launch_mom,
-// launch_calc_rhs, launch_phihyd of kernels/csrc/*_tile.cuh,
-// launch_mom_correction of mom_correction.cuh), for
-// tests/test_torch_host_kernels.py.
+// Kernels B and C's forward kernels, D, G's mom_correction, H-cg3d's two
+// passes and H-seaice EVP's seaice_evp_uv, built by g++ against the mock
+// CUDA runtime beside this file and run on the host through the launches
+// that their entry points use (launch_mom, launch_calc_rhs, launch_phihyd,
+// launch_s_stencil_dot and launch_xr_precond of kernels/csrc/*_tile.cuh,
+// launch_mom_correction of mom_correction.cuh, launch_evp_uv of
+// seaice_evp_uv.cuh), for tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
+#include "cg3d_tile.cuh"
 #include "gad_calc_rhs_tile.cuh"
 #include "mom_correction.cuh"
 #include "mom_fluxform_tile.cuh"
 #include "phihyd_tile.cuh"
+#include "seaice_evp_uv.cuh"
 
 using namespace mitgcm;
 
 // Starts a tile kernel on the mock: every thread of every block in turn.
+// max_shared is the card's limit of a block's shared memory that the
+// launch is told (the test picks either side of a staging's size).
 struct OnHost {
+  size_t max_shared_bytes = 0;
   template <typename Kernel, typename... Args>
   void operator()(Kernel kernel, dim3 grid, dim3 block, Args... args) const {
     host_launch(grid, block, [&] { kernel(args...); });
   }
+  template <typename Kernel, typename... Args>
+  void shared(Kernel kernel, size_t bytes, dim3 grid, dim3 block,
+              Args... args) const {
+    host_dynamic_shared_bytes.assign(bytes, 0);
+    host_launch(grid, block, [&] { kernel(args...); });
+  }
+  size_t max_shared() const { return max_shared_bytes; }
 };
 
 #define HOST_ENTRY_POINTS(T, SUF)                                            \
@@ -57,5 +70,31 @@ struct OnHost {
                                     OnHost{});                               \
   }
 
+#define HOST_CG3D_ENTRY_POINTS(T, SUF)                                       \
+  extern "C" int host_cg3d_s_stencil_dot_##SUF(                              \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,      \
+      int olx) {                                                             \
+    SStencilArgs<T> a;                                                       \
+    if (!unpack(&a, table, n, 15)) return cudaErrorInvalidValue;            \
+    return launch_s_stencil_dot<T>(a, nr, ny, nx, oly, olx, OnHost{});       \
+  }                                                                          \
+  extern "C" int host_cg3d_xr_precond_##SUF(                                 \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,      \
+      int olx, int max_iters, int count_iter, long long max_shared) {        \
+    XrPrecondArgs<T> a;                                                      \
+    if (!unpack(&a, table, n, 18)) return cudaErrorInvalidValue;            \
+    return launch_xr_precond<T>(a, nr, ny, nx, oly, olx, max_iters,          \
+                                count_iter,                                  \
+                                OnHost{static_cast<size_t>(max_shared)});    \
+  }                                                                          \
+  extern "C" int host_seaice_evp_uv_##SUF(                                   \
+      const void* const* table, int n, const double* params, int nparams,    \
+      int ny, int nx, int ol, int adaptive, int rev_den, int last) {         \
+    return launch_evp_uv<T>(table, n, params, nparams, ny, nx, ol, adaptive, \
+                            rev_den, last, OnHost{});                        \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
+HOST_CG3D_ENTRY_POINTS(float, f32)
+HOST_CG3D_ENTRY_POINTS(double, f64)

@@ -1,6 +1,8 @@
 """Host check of the forward kernels of B and C (kernels/csrc/
-mom_fluxform_tile.cuh, gad_calc_rhs_tile.cuh), of D (phihyd_tile.cuh) and
-of G's mom_correction (mom_correction.cuh): their sources built by g++
+mom_fluxform_tile.cuh, gad_calc_rhs_tile.cuh), of D (phihyd_tile.cuh), of
+G's mom_correction (mom_correction.cuh), of H-cg3d's two passes
+(cg3d_tile.cuh) and of H-seaice EVP's seaice_evp_uv (seaice_evp_uv.cuh):
+their sources built by g++
 against the mock CUDA runtime of tests/host_cuda, each launch run with one
 thread per CUDA thread and a barrier for __syncthreads, and held bit for
 bit against the plain twins on the CPU. The grid is random, 20 x 12 x 4 in
@@ -12,9 +14,17 @@ tiles is ragged in y. Every interior output of B and C must equal the
 twin's, every halo output must be 0; D and mom_correction write every
 padded cell, each equal to the twin's, also on grids whose padded rows are
 not a multiple of 16 bytes (mom_correction's scalar path) and whose levels
-are not a multiple of mom_correction's chunk."""
+are not a multiple of mom_correction's chunk. H-cg3d's passes write the
+interior and leave every halo cell as it was; their dot products, reduced
+through common.cuh:grid_reduce on the mock's sequential atomicAdd, and
+`ctrl` equal the twins' too, with the iteration going on, stopping at the
+cap and at the tolerance, and frozen. seaice_evp_uv writes every padded
+cell of u, v and sigma12 (and of dwatn and the divergence on the last
+subcycle), each equal to the twin's, in every variant of its template
+flags, on the ice-gyre's walled grid at the same two sizes."""
 
 import ctypes
+import dataclasses
 import importlib.util
 import os
 import shutil
@@ -27,6 +37,9 @@ import torch
 
 from mitgcm_tpu_torch.model import gad, gmredi, phihyd, step
 from mitgcm_tpu_torch.model import mom_fluxform as mom
+from mitgcm_tpu_torch.model import seaice, seaice_kernels
+from mitgcm_tpu_torch.solver import cg3d
+from mitgcm_tpu_torch.utils import synthetic
 
 NR, OL = 4, 2
 SIZES = ((12, 20), (10, 40))    # (ny, nx)
@@ -44,6 +57,10 @@ SIGNATURES = {
     + [_I, _I, _P, _PP, _I, _D, _D],
     "host_phihyd": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_I],
     "host_mom_correction": [_PP, _I] + [_I] * 4 + [_D] * 4 + [_I],
+    "host_cg3d_s_stencil_dot": [_PP, _I] + [_I] * 5,
+    "host_cg3d_xr_precond": [_PP, _I] + [_I] * 7 + [ctypes.c_longlong],
+    "host_seaice_evp_uv": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 6,
 }
 
 
@@ -588,3 +605,237 @@ def test_glue_footprint(lib, kernel):
         case = mom_correction_case(f, kernel.endswith(")"))
         footprint = smoke.mom_correction_footprint
     check_footprint(lib, case, footprint, {}, same_as=check_whole)
+
+
+# Kernel H-cg3d's two passes on the ragged grids, with land (maskC 0), the
+# operator's and the preconditioner's arrays random (their halos too: the
+# passes read aW's eastern and aS's northern halo cells as stored) and the
+# interior wrapped; outputs start random, so that a halo cell written shows
+CG3D_NR = 5
+# the ctrl word [done, iterations], the cap and the tolerance of a pass B
+# launch: going on, stopping at the cap, at the tolerance, and frozen
+CG3D_STOPS = {"go": ((0, 5), 1 << 30, 0.0), "cap": ((0, 6), 7, 0.0),
+              "tolerance": ((0, 2), 1 << 30, 1e30),
+              "frozen": ((1, 3), 1 << 30, 0.0)}
+# the card's shared memory that pass B's launch is told: enough for its
+# staging, or none (forward values through q and r)
+CG3D_STAGING = {"staged": 1 << 30, "through q": 0}
+
+
+def cg3d_inputs(f):
+    """(op, fields by name) of H-cg3d on f's grid."""
+    g = f.grid
+    op = SimpleNamespace(aW=f.normal(f.s3), aS=f.normal(f.s3),
+                         aV=f.normal(f.s3), aC=f.uniform(f.s3, -6.0, -2.0),
+                         zMC=f.uniform(f.s3, 0.2, 1.0),
+                         zML=f.normal(f.s3, 0.3), zMU=f.normal(f.s3, 0.3))
+    fields = dict(x=f.normal(f.s3), r=f.normal(f.s3), q=f.normal(f.s3),
+                  s=f.normal(f.s3), maskC=g.maskC)
+    return op, fields
+
+
+def cg3d_scalars(f, *vals):
+    return [f.tensor(v) for v in vals]
+
+
+def cg3d_partials(f, ny, nx):
+    tiles = -(-ny // 8) * -(-nx // 32)
+    return (torch.zeros(2 * tiles, dtype=f.dtype),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros(2, dtype=f.dtype))
+
+
+def s_stencil_case(f, ctrl=(0, 5)):
+    """As mom_case, for H-cg3d's pass A (its 0-d outputs last)."""
+    ny, nx = f.s3[1] - 2 * OL, f.s3[2] - 2 * OL
+    op, fl = cg3d_inputs(f)
+    eta_n, eta_nm1 = cg3d_scalars(f, 0.7, 1.3)
+    init = [f.normal(f.s3), f.normal(f.s3), f.tensor(0.25)]
+    named = dict(aW=op.aW, aS=op.aS, aV=op.aV, aC=op.aC, maskC=fl["maskC"],
+                 q=fl["q"], s_in=fl["s"])
+    args = (CG3D_NR, ny, nx, OL, OL)
+    want = [t.clone() for t in init]
+    cg3d.s_stencil_dot(op, fl["maskC"], fl["q"], fl["s"], want[0], want[1],
+                       eta_n, eta_nm1, want[2],
+                       torch.tensor(ctrl, dtype=torch.int32), OL, OL)
+
+    def run(lib, ins):
+        outs = [t.clone() for t in init]
+        partials, counter, _ = cg3d_partials(f, ny, nx)
+        word = torch.tensor(ctrl, dtype=torch.int32)
+        tab = table([ins[n] for n in ("aW", "aS", "aV", "aC", "maskC", "q",
+                                      "s_in")] + outs[:2]
+                    + [eta_n, eta_nm1, outs[2], partials, counter, word])
+        assert getattr(lib, f"host_cg3d_s_stencil_dot_{SUFFIX[f.dtype]}")(
+            tab, len(tab), *args) == 0
+        return outs
+
+    return want, named, args, run
+
+
+def xr_precond_case(f, stop="go", max_shared=1 << 30):
+    """As mom_case, for H-cg3d's pass B (x, r, q, then dot(r, r), dot(q,
+    r) and ctrl as floats)."""
+    ny, nx = f.s3[1] - 2 * OL, f.s3[2] - 2 * OL
+    op, fl = cg3d_inputs(f)
+    (done, it), max_iters, tol = CG3D_STOPS[stop]
+    num, den, tol_sq = cg3d_scalars(f, 0.7, 1.1, tol)
+    qa = f.normal(f.s3)
+    init = [fl["x"], fl["r"], f.normal(f.s3), f.tensor(0.25),
+            f.tensor(0.5)]
+    named = dict(x=fl["x"], r=fl["r"], s=fl["s"], qa=qa, maskC=fl["maskC"],
+                 zMC=op.zMC, zML=op.zML, zMU=op.zMU)
+    args = (CG3D_NR, ny, nx, OL, OL, max_iters, 1)
+    want = [t.clone() for t in init]
+    ctrl = torch.tensor([done, it], dtype=torch.int32)
+    cg3d.xr_precond(op, fl["maskC"], want[0], want[1], fl["s"], qa, want[2],
+                    num, den, want[3], want[4], ctrl, tol_sq, max_iters, True,
+                    OL, OL)
+    want.append(ctrl.to(f.dtype))
+
+    def run(lib, ins):
+        outs = [ins["x"].clone(), ins["r"].clone()] + [
+            t.clone() for t in init[2:]]
+        partials, counter, pair = cg3d_partials(f, ny, nx)
+        ctrl = torch.tensor([done, it], dtype=torch.int32)
+        tab = table(outs[:2] + [ins[n] for n in ("s", "qa", "maskC", "zMC",
+                                                 "zML", "zMU")]
+                    + [outs[2], num, den, outs[3], outs[4], partials, counter,
+                       pair, ctrl, tol_sq])
+        assert getattr(lib, f"host_cg3d_xr_precond_{SUFFIX[f.dtype]}")(
+            tab, len(tab), *args, max_shared) == 0
+        return outs + [ctrl.to(f.dtype)]
+
+    return want, named, args, run
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("frozen", (False, True))
+def test_cg3d_s_stencil_dot(lib, ny, nx, dtype, frozen):
+    f = Fields(DTYPES[dtype], 160 + nx + frozen, ny, nx, CG3D_NR)
+    want, named, _, run = s_stencil_case(f, (1, 3) if frozen else (0, 5))
+    for name, got, wanted in zip(("s_out", "qa", "dot"), run(lib, named),
+                                 want):
+        check_whole(got, wanted, name)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stop", CG3D_STOPS)
+@pytest.mark.parametrize("staging", CG3D_STAGING)
+def test_cg3d_xr_precond(lib, ny, nx, dtype, stop, staging):
+    f = Fields(DTYPES[dtype], 170 + nx + len(stop), ny, nx, CG3D_NR)
+    want, named, _, run = xr_precond_case(f, stop, CG3D_STAGING[staging])
+    if stop == "frozen":
+        assert want[-1].tolist() == [1.0, 3.0]
+    else:
+        assert want[-1][0] == (stop != "go")
+    for name, got, wanted in zip(("x", "r", "q", "dot(r, r)", "dot(q, r)",
+                                  "ctrl"), run(lib, named), want):
+        check_whole(got, wanted, name)
+
+
+def check_interior(got, want, label):
+    """Equal on the interior (a 0-d or 1-d output whole): the footprint
+    checks leave NaN in halo cells that the passes keep as they found
+    them."""
+    if got.dim() == 3:
+        inner = (..., slice(OL, -OL), slice(OL, -OL))
+        got, want = got[inner], want[inner]
+    check_whole(got, want, label)
+
+
+# chip_smoke.py's footprints of H-cg3d's passes (the interior of every
+# field, aW's eastern and aS's northern ring sides) hold every cell read
+# and no cell unread
+@pytest.mark.parametrize("kernel", ("cg3d_s_stencil_dot", "cg3d_xr_precond"))
+def test_cg3d_footprint(lib, kernel):
+    f = Fields(torch.float64, 180, *FOOTPRINT_SIZE, CG3D_NR)
+    smoke = chip_smoke()
+    case = (s_stencil_case(f) if kernel == "cg3d_s_stencil_dot"
+            else xr_precond_case(f))
+    check_footprint(lib, case, smoke.FOOTPRINTS[kernel][0], smoke.CG3D_RINGS,
+                    same_as=check_interior)
+
+
+# seaice_evp_uv's variants: SEAICE_PARM01 settings on the ice-gyre's, and
+# the template flags (adaptive, revised-or-adaptive denominators) that the
+# test forces, None where the settings give them; adaptive EVP with plain
+# denominators exists only as a template instance
+EVP_UV_VARIANTS = {
+    "aEVP": ({"SEAICEaEVPcoeff": 0.5, "SEAICEnEVPstarSteps": 500}, None),
+    "aEVP, plain denominators": (
+        {"SEAICEaEVPcoeff": 0.5, "SEAICEnEVPstarSteps": 500}, (True, False)),
+    "revised": ({"SEAICE_evpAlpha": 500.0, "SEAICEnEVPstarSteps": 500},
+                None),
+    "classic": ({"SEAICEuseEVPrev": False, "SEAICEuseEVPstar": False,
+                 "SEAICE_deltaTevp": 60.0}, None),
+    "EVP*": ({"SEAICEuseEVPrev": False, "SEAICE_deltaTevp": 60.0}, None),
+}
+
+
+def evp_uv_case(dtype, seed, ny, nx, variant):
+    """(twin's u, v, sigma12, dwatn, divX, divY, the SeaIce, the launch's
+    inputs) of seaice_evp_uv on the ice-gyre's walled grid with seeded ice,
+    stresses, viscosities and ocean."""
+    nml, flags = EVP_UV_VARIANTS[variant]
+    cfg = synthetic.evp_ice_gyre_config(nx=nx, ny=ny, nr=4, deltaT=600.0)
+    # 2 x 2 tiles (the LSR's, which EVP does not run) on a grid not square
+    cfg = dataclasses.replace(cfg, sNy=ny // 2, nSy=2)
+    grid = synthetic.gyre_grid(cfg, dtype=dtype, device="cpu")
+    si = seaice.SeaIce(cfg, grid, seaice.params_from_namelists(
+        cfg, {**synthetic.ICE_GYRE_SEAICE, **nml}))
+    if flags is not None:
+        factors = si._evp_factors()
+        factors.adaptive, factors.rev_den = flags
+        si._evp_factors = lambda: factors
+    rng = np.random.default_rng(seed)
+    shape = tuple(grid.rA.shape)
+
+    def fld(lo, hi, mask=None):
+        a = torch.as_tensor(rng.uniform(lo, hi, shape), dtype=dtype)
+        return a * mask if mask is not None else a
+
+    mU, mV, hm = si.seaiceMaskU, si.seaiceMaskV, si.HEFFM
+    ice = si.init_state()._replace(AREA=fld(0.0, 1.0, hm))
+    massU = fld(0.0, 3e3, mU)
+    massU[::3, ::2] = 0.0        # cells without ice mass
+    fixed = dict(uNm1=fld(-0.2, 0.2, mU), vNm1=fld(-0.2, 0.2, mV),
+                 uVel0=fld(-0.3, 0.3), vVel0=fld(-0.3, 0.3),
+                 forcex0=fld(-1.0, 1.0), forcey0=fld(-1.0, 1.0),
+                 massC=fld(1e3, 3e3, hm), massU=massU,
+                 massV=fld(0.0, 3e3, mV))
+    setup = si.evp_setup(ice, massU, fixed["massV"])
+    u, v = fld(-0.2, 0.2, mU), fld(-0.2, 0.2, mV)
+    s12, s1, s2 = fld(-1e3, 1e3), fld(-1e3, 1e3, hm), fld(-1e3, 1e3, hm)
+    zeta, alpha = fld(1e6, 1e8, hm), fld(50.0, 500.0)
+    ins = seaice_kernels._uv_ins(si, u, v, s12, s1, s2, zeta, alpha, fixed,
+                                 setup)
+    want = si._evp_uv_plain(u, v, s12, s1, s2, zeta, alpha,
+                            *fixed.values(), setup)
+    return want, si, ins
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", EVP_UV_VARIANTS)
+@pytest.mark.parametrize("last", (False, True))
+def test_seaice_evp_uv(lib, monkeypatch, ny, nx, dtype, variant, last):
+    # the twin's drag through a correctly rounded sqrt, as the kernel's
+    monkeypatch.setattr(torch, "sqrt", lambda t: torch.from_numpy(
+        np.sqrt(t.numpy())))
+    f = Fields(DTYPES[dtype], 190, ny, nx)
+    want, si, ins = evp_uv_case(f.dtype, 190 + nx + last, ny, nx, variant)
+    adaptive, rev_den, _, params = seaice_kernels._evp_variant(si)
+    init = [f.normal(tuple(ins["u"].shape)) for _ in range(6)]
+    outs = [t.clone() for t in init]
+    tab = table(list(ins.values()) + outs)
+    assert getattr(lib, f"host_seaice_evp_uv_{dtype}")(
+        tab, len(tab), params, len(params), ny, nx, OL, adaptive, rev_den,
+        int(last)) == 0
+    names = ("u", "v", "sigma12", "dwatn", "divX", "divY")
+    for n, name in enumerate(names):
+        # dwatn and the divergence are written on the last subcycle only
+        wanted = want[n] if last or n < 3 else init[n]
+        check_whole(outs[n], wanted, f"{variant} {name}")
