@@ -485,10 +485,13 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 "kpp_smooth": 40, "kpp_col": 250, "ggl90_col": 120,
                 "ggl90_visc": 10, "gad_multidim_x": 80,
                 "gad_multidim_y": 80, "gad_multidim_r": 80,
-                "gad_os7mp_x": 200, "gad_os7mp_y": 200, "gad_os7mp_r": 200,
+                # O: one flux a face (~90 flops and 9 divisions) and the
+                # update; H-SOM: the limiter, the two fluxes leaving a cell
+                # and the two-sweep update (4 divisions)
+                "gad_os7mp_x": 130, "gad_os7mp_y": 130, "gad_os7mp_r": 130,
                 "gad_ppm_x": 350, "gad_ppm_y": 350, "gad_ppm_r": 350,
                 "idemix_prep": 150, "idemix_hdiff": 60, "idemix_col": 40,
-                "som_x": 400, "som_y": 400, "som_r": 400,
+                "som_x": 200, "som_y": 200, "som_r": 200,
                 # H-cg3d's passes: s' and the 7-point product; the x and r
                 # updates with P's two column sweeps and two dot products
                 "cg3d_s_stencil_dot": 40, "cg3d_xr_precond": 18,
@@ -898,6 +901,47 @@ def cg3d_footprint(named, ints):
             for n, t in named.items()}
 
 
+# The fields that each sweep of kernel O and each pass of H-SOM reads, by
+# the names their wrappers check (model/gad.py:multidim_sweeps,
+# model/som.py:som_sweeps): each writes every padded cell, so each reads
+# every padded cell of these, but O's R sweep, which forms no flux at the
+# surface, reads wVel and recip_drC below it only
+O_VOLUME = ("recip_hFacC", "recip_rA", "maskInC", "recip_drF")
+O_READS = {
+    "gad_os7mp_x": ("tracer", "uTrans", "uVel", "maskW", "maskInW",
+                    "recip_dxC") + O_VOLUME,
+    "gad_os7mp_y": ("localX", "tracer", "vTrans", "vVel", "maskS",
+                    "maskInS", "recip_dyC") + O_VOLUME,
+    "gad_os7mp_r": ("localY", "tracer", "rTrans", "wVel", "maskC",
+                    "recip_drC") + O_VOLUME}
+SOM_READS = {
+    "som_x": (("smTr", "uVel", "tracer", "hFacW", "dyG", "drF", "rA",
+               "hFacC", "maskC"), ("volX", "oX", "smX")),
+    "som_y": (("volX", "oX", "smX", "vVel", "hFacS", "dxG", "drF"),
+              ("volY", "oY", "smY")),
+    "som_r": (("volY", "oY", "smY", "wVel", "tracer", "rA", "maskC",
+               "maskInC", "recip_rA", "recip_drF", "recip_hFacC"),
+              ("gTr", "smNew"))}
+
+
+def os7mp_footprint(name, named, args):
+    """The inputs of O's sweep `name` as the views that its launch reads
+    (args: the launch's source and destination, nr, ...): every padded
+    cell of O_READS[name]'s fields, in R wVel and recip_drC at the
+    interfaces 1 .. nr - 1."""
+    nr = args[2]
+    levels = ({"wVel": slice(1, None), "recip_drC": slice(1, nr)}
+              if name.endswith("_r") else {})
+    return {n: footprint_view(named[n], 0, 0, None, levels.get(n))
+            for n in O_READS[name]}
+
+
+def som_footprint(name, named, args):
+    """The inputs of H-SOM's pass `name` as the views that its launch
+    reads: every padded cell of SOM_READS[name]'s fields."""
+    return {n: named[n] for n in SOM_READS[name][0]}
+
+
 def footprint_view(t, oly, olx, ring, levels):
     """The cells of t that a kernel reads: for a field of the padded grid
     its interior and the ring sides named (ring None: the interior only),
@@ -928,7 +972,13 @@ FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
                   ("s_out", "qa", "dot_out")),
               "cg3d_xr_precond": (
                   lambda named, args: cg3d_footprint(named, args[-7:-2]),
-                  ("x", "r", "q", "err_out", "eta_out"))}
+                  ("x", "r", "q", "err_out", "eta_out")),
+              **{name: (lambda named, args, name=name: os7mp_footprint(
+                  name, named, args), (out,))
+                 for name, out in zip(O_READS, ("localX", "localY", "gTr"))},
+              **{name: (lambda named, args, name=name: som_footprint(
+                  name, named, args), outs)
+                 for name, (_, outs) in SOM_READS.items()}}
 
 
 def moved_bytes(name, call):
@@ -1844,8 +1894,9 @@ def profile_steps(exp, state, it0, steps, wall_ms):
     kernels and of every kernel of the port (namespace mitgcm), the
     device's busy time per step, and its idle share against
     wall_ms, the unprofiled ms/step. Returns those figures a step: busy
-    ms, idle share, and the ms and launches of the plain glue (PyTorch's
-    own kernels and copies) and of the port's kernels."""
+    ms, idle share, each of the port's kernels' ms and calls, and the ms
+    and launches of the plain glue (PyTorch's own kernels and copies) and
+    of the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1875,6 +1926,9 @@ def profile_steps(exp, state, it0, steps, wall_ms):
         if i < 16 or "mitgcm::" in key:
             print(f"  {ms:8.3f} ms/step {count:6.1f} calls/step  {key[:70]}")
     return {"device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "port_kernels": {key: {"ms": ms, "calls": count}
+                             for ms, count, key in rows
+                             if "mitgcm::" in key},
             "glue_ms": sum(r[0] for r in glue),
             "glue_launches_per_step": sum(r[1] for r in glue),
             "kernel_ms": busy - sum(r[0] for r in glue),
@@ -2216,10 +2270,20 @@ def ho_kernel_phase(case, results, reps, plain_reps):
                             case.tracer, src, scheme, vert, cfg.deltaTTracer)
             run()
             label = name if sch in (7, 51) else f"{name}({sch})"
+            # O's bound counts what its launch reads (FOOTPRINTS), from a
+            # call of the whole advection; M's and P's the padded planes
+            call = None
+            if name in FOOTPRINTS:
+                touched = None
+
+                def call(scheme=scheme, vert=vert):
+                    return gad.multidim_advection(
+                        cfg, g, case.flow, case.u, case.v, case.w,
+                        case.tracer, scheme, vert, cfg.deltaTTracer)
             exact_compare(label, case, [dst], [plain()],
                           cuda_time_ms(run, reps),
                           cuda_time_ms(plain, plain_reps), results,
-                          touched=touched)
+                          call=call, touched=touched)
 
 
 def ho_phase(kernels, results, smi):
@@ -2360,13 +2424,17 @@ def ism_kernel_phase(case, results, reps, plain_reps):
             lambda: som._som_y_plain(cfg, g, case.v, *xk, scheme, dt),
             lambda: som._som_r_plain(cfg, g, case.w, case.tracer, *yk,
                                      scheme, dt))
-        for (name, run, outs, touched), twin in zip(sweeps, twins):
+        for (name, run, outs, _), twin in zip(sweeps, twins):
             run()
             label = name if scheme == 81 else f"{name}({scheme})"
+            # the bound counts what the pass reads (FOOTPRINTS), from a
+            # call of the whole advection
             exact_compare(label, case, list(outs), list(twin()),
                           cuda_time_ms(run, reps),
                           cuda_time_ms(twin, plain_reps), results,
-                          touched=touched)
+                          call=lambda scheme=scheme: som.som_advect(
+                              cfg, g, case.u, case.v, case.w, case.tracer,
+                              case.sm, scheme, dt))
             torch.cuda.empty_cache()
 
 

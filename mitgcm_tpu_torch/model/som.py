@@ -10,13 +10,13 @@ is an exact finite-volume remap of the piecewise-parabolic distribution,
 after Prather's positive-definite limiter on that direction's moments with
 scheme 81.
 
-`som_advect` runs kernel H-SOM (kernels/csrc/som.cu) for CUDA tensors: the
-X, Y and R passes, one launch each, one thread per cell of the padded
-array, each computing the fluxes through its two faces from the pass's
-input state (its own cell's and its two neighbours', limited on the fly)
-and writing the volume, the content and the nine moments out of place; the
-R pass folds in the vertical limiter and ends with gTracer. For CPU
-tensors, or with impl="plain", it runs the plain twins `_som_x_plain`,
+`som_advect` runs kernel H-SOM (kernels/csrc/som.cu, som_tile.cuh) for
+CUDA tensors: the X, Y and R passes, one launch each, each loading and
+limiting every cell of the padded array once and forming the fluxes of
+each face once (X a warp's cells side by side, Y and R walks down rows and
+columns), and writing the volume, the content and the nine moments out of
+place; the R pass folds in the vertical limiter and ends with gTracer. For
+CPU tensors, or with impl="plain", it runs the plain twins `_som_x_plain`,
 `_som_y_plain` and `_som_r_plain`, which replay the JAX code's operation
 order on whole arrays (`_limit_1d`, `_face_fluxes`, `_apply_updates`,
 `_som_adv_horiz`). Both compute every cell of the padded arrays with the

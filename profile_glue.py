@@ -2,19 +2,20 @@
 """Where a full-size step's time goes, on one NVIDIA GPU.
 
     python3 profile_glue.py [--root DIR] [--config CONFIG] [--n N]
-                            [--kernels [GROUP ...]]
+                            [--kernels [GROUP ...]] [--ptxas]
 
-Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, ggl90-gyre or
-evp-ice-gyre (deltaT = 600 s), or the N x N x 50 nh-convection box
-(--config box, deltaT = 60 s), of the PyTorch port found under DIR
-(default: this script's directory; give an unpacked earlier tree to
-compare two versions on one card, in turns):
+Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, ggl90-gyre,
+os7mp-gyre, pqm-gyre, som-gyre or evp-ice-gyre (deltaT = 600 s), or the
+N x N x 50 nh-convection box (--config box, deltaT = 60 s), of the
+PyTorch port found under DIR (default: this script's directory; give an
+unpacked earlier tree to compare two versions on one card, in turns):
 one warm-up step, 5 timed steps (host clock around synchronised steps),
 then chip_smoke.py's profile of 2 steps (torch.profiler): the device's
-busy time and idle share, and the time and launches a step of PyTorch's
-own kernels and copies (the plain glue: everything that is not a kernel
-of kernels/csrc, whose symbols live in namespace mitgcm). Prints, last,
-one JSON line of those numbers with the card's name and power limit.
+busy time and idle share, the device ms and calls a step of each of the
+port's kernels, and the time and launches a step of PyTorch's own kernels
+and copies (the plain glue: everything that is not a kernel of
+kernels/csrc, whose symbols live in namespace mitgcm). Prints, last, one
+JSON line of those numbers with the card's name and power limit.
 With --kernels, instead: the device ms of one launch of kernels B and C
 and of the step glue's D-G launches (the gyre's variants, on
 chip_smoke.py's seeded inputs: Case, GlueCase) at each shape of
@@ -31,8 +32,15 @@ sum of its launches' bounds); then each launch of an iteration as a
 CUDA graph of 20, with its bound. Group "evp": seaice_evp_stress and
 seaice_evp_uv (adaptive EVP, the first launch of a 2-subcycle loop) at
 1024x1024 float32 on chip_smoke.py's EvpCase, as a CUDA graph of 20
-launches, each with its bound. No group named: all three. Exits nonzero
-without CUDA.
+launches, each with its bound. Group "os7mp": each sweep of kernel O
+(scheme 7) and, on the same inputs, of M (scheme 33) and P (41 and 51),
+each on the previous sweep's output, on chip_smoke.py's seeded
+1024x1024x32 float32 os7mp-gyre (G9Case), as CUDA graphs of 20, with
+their bounds. Group "som": H-SOM's three passes of schemes 81 and 80 on
+chip_smoke.py's 1024x1024x32 float32 IsmCase, the same way. No group
+named: all five. --ptxas instead compiles the tree's O and H-SOM sources
+with the port's nvcc flags and prints ptxas's registers and spills of each
+of their kernels. Exits nonzero without CUDA.
 """
 
 import argparse
@@ -54,7 +62,13 @@ BOX_SHAPE = (1024, 50)   # the nh-convection box's, float32
 EVP_SHAPE = (1024, 32)   # the evp-ice-gyre's, float32 (EVP is 2-D)
 # the cg3d solves of group "cg3d": their caps of iterations
 CG3D_CAPS = (20, 100)
-KERNEL_GROUPS = ("glue", "cg3d", "evp")
+KERNEL_GROUPS = ("glue", "cg3d", "evp", "os7mp", "som")
+# group "os7mp": the (scheme, vertical scheme) pairs whose sweeps it times,
+# O's first; group "som": H-SOM's schemes
+HO_SCHEMES = ((7, 7), (33, 33), (41, 41), (51, 51))
+SOM_SCHEMES = (81, 80)
+# the sources whose kernels --ptxas reports, under kernels/csrc
+PTXAS_SOURCES = ("gad_os7mp.cu", "som.cu")
 # the launches of a tree from before the cg3d iteration became two passes
 # (three an iteration), for their bounds through chip_smoke.bound: the
 # operations a cell and the fields updated in place
@@ -221,13 +235,110 @@ def evp_times(smoke, rows):
     del case
 
 
+def graph_row(smoke, name, run, label, rows, call=None, tensors=None):
+    """Append {kernel, shape, ms, bound_ms, share} of one launch: `run`
+    (one launch) as a CUDA graph of 20, its bound from `call` (a wrapper
+    call that makes it) or from `tensors` (those it reads and writes)."""
+    ms = smoke.graph_ms(run, reps=10)
+    bound_ms = smoke.bound(name, call, tensors)[0]
+    rows.append({"kernel": name, "shape": label, "ms": ms,
+                 "bound_ms": bound_ms, "share": bound_ms / ms})
+    print(f"{name:16s} {label:20s} {ms:.5f} ms a launch, bound "
+          f"{bound_ms:.5f} ({bound_ms / ms:.2f})", flush=True)
+
+
+def os7mp_times(smoke, rows):
+    """Group "os7mp": the sweeps of HO_SCHEMES on the seeded os7mp-gyre
+    (O's bounds from their footprints, M's and P's from the padded
+    planes)."""
+    import torch
+    from mitgcm_tpu_torch.model import gad
+
+    case = smoke.G9Case(1024, 32, torch.float32, "os7mp")
+    cfg, g, dt = case.cfg, case.grid, case.cfg.deltaTTracer
+    for scheme, vert in HO_SCHEMES:
+        args = (cfg, g, case.flow, case.u, case.v, case.w, case.tracer,
+                scheme, vert, dt)
+        sweeps = gad.multidim_sweeps(*args)
+        for _, run, _, _, _ in sweeps:
+            run()
+        for name, run, _, _, touched in sweeps:
+            label = f"os7mp-gyre {case.label} scheme {scheme}"
+            if name in smoke.FOOTPRINTS:
+                graph_row(smoke, name, run, label, rows,
+                          call=lambda: gad.multidim_advection(*args))
+            else:
+                graph_row(smoke, name, run, label, rows, tensors=touched)
+        del sweeps
+        torch.cuda.empty_cache()
+    del case
+
+
+def som_times(smoke, rows):
+    """Group "som": H-SOM's passes of SOM_SCHEMES on the seeded IsmCase."""
+    import torch
+    from mitgcm_tpu_torch.model import som
+
+    case = smoke.IsmCase(1024, 32, torch.float32)
+    cfg, g, dt = case.cfg, case.grid, case.cfg.deltaTTracer
+    for scheme in SOM_SCHEMES:
+        args = (cfg, g, case.u, case.v, case.w, case.tracer, case.sm, scheme,
+                dt)
+        sweeps = som.som_sweeps(*args)
+        for _, run, _, _ in sweeps:
+            run()
+        for name, run, _, _ in sweeps:
+            graph_row(smoke, name, run,
+                      f"som-gyre {case.label} scheme {scheme}", rows,
+                      call=lambda: som.som_advect(*args))
+        del sweeps
+        torch.cuda.empty_cache()
+    del case
+
+
+def ptxas(root):
+    """--ptxas: compile the tree's PTXAS_SOURCES with the port's nvcc
+    flags and print ptxas's line of registers and spills for each kernel,
+    its name demangled."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from mitgcm_tpu_torch import kernels
+
+    csrc = os.path.join(root, "mitgcm_tpu_torch", "kernels", "csrc")
+    filt = shutil.which("c++filt")
+    with tempfile.TemporaryDirectory() as tmp:
+        for source in PTXAS_SOURCES:
+            out = subprocess.run(
+                [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-c", "-o",
+                 os.path.join(tmp, "k.o"), os.path.join(csrc, source)],
+                capture_output=True, text=True, check=True)
+            log = out.stdout + out.stderr
+            if filt:
+                log = subprocess.run([filt], input=log, capture_output=True,
+                                     text=True).stdout
+            name = None
+            for line in log.splitlines():
+                if "Compiling entry function" in line:
+                    name = line.split("'")[1] if "'" in line else line
+                elif name and ("registers" in line or "spill" in line):
+                    print(f"{source}: {name}: {line.split(':', 1)[-1]}",
+                          flush=True)
+
+
 def kernel_times(smoke, groups):
     """--kernels: [{kernel, shape, ms, bound_ms, share}] of the groups
     named: "glue", B, C and D-G at KERNEL_SHAPES, then the box's
-    mom_correction; "cg3d"; "evp"."""
+    mom_correction; "cg3d"; "evp"; "os7mp"; "som"."""
     import torch
 
     rows = []
+    for group, times in (("os7mp", os7mp_times), ("som", som_times)):
+        if group in groups:
+            times(smoke, rows)
+            smoke.GRIDS.clear()
+            torch.cuda.empty_cache()
     if "cg3d" in groups:
         cg3d_times(smoke, rows)
         smoke.GRIDS.clear()
@@ -270,10 +381,12 @@ def glue_times(smoke, rows):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--config", choices=("gyre", "ggl90", "box", "evp-ice"),
+    ap.add_argument("--config", choices=("gyre", "ggl90", "os7mp", "pqm",
+                                         "som", "box", "evp-ice"),
                     default="gyre")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--kernels", nargs="*", choices=KERNEL_GROUPS)
+    ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args()
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -286,6 +399,9 @@ def main():
     from mitgcm_tpu_torch.model.experiment import Experiment
     from mitgcm_tpu_torch.utils import synthetic
 
+    if args.ptxas:
+        ptxas(os.path.abspath(args.root))
+        return
     kernels.library()
     for name, ops in PARENT_OPS.items():
         smoke.OPS_PER_CELL.setdefault(name, ops)
@@ -303,6 +419,9 @@ def main():
                                   deltaT=60.0)
     elif args.config == "evp-ice":
         exp = smoke.evp_experiment(args.n, 32, torch.float32, deltaT=600.0)
+    elif args.config in ("os7mp", "pqm", "som"):
+        exp = smoke.g9_experiment(args.n, 32, torch.float32,
+                                  config=args.config, deltaT=600.0)
     elif args.config == "gyre":
         cfg = synthetic.gyre_config(**kw)
         exp = Experiment(cfg, *synthetic.gyre_setup(

@@ -1,17 +1,21 @@
 // Kernels B and C's forward kernels, D, G's mom_correction, H-cg3d's two
-// passes and H-seaice EVP's seaice_evp_uv, built by g++ against the mock
-// CUDA runtime beside this file and run on the host through the launches
-// that their entry points use (launch_mom, launch_calc_rhs, launch_phihyd,
-// launch_s_stencil_dot and launch_xr_precond of kernels/csrc/*_tile.cuh,
-// launch_mom_correction of mom_correction.cuh, launch_evp_uv of
-// seaice_evp_uv.cuh), for tests/test_torch_host_kernels.py.
+// passes, H-seaice EVP's seaice_evp_uv, O's three sweeps and H-SOM's three
+// passes, built by g++ against the mock CUDA runtime beside this file and
+// run on the host through the launches that their entry points use
+// (launch_mom, launch_calc_rhs, launch_phihyd, launch_s_stencil_dot and
+// launch_xr_precond of kernels/csrc/*_tile.cuh, launch_mom_correction of
+// mom_correction.cuh, launch_evp_uv of seaice_evp_uv.cuh, launch_os7mp of
+// gad_os7mp_tile.cuh, launch_som_horiz and launch_som_r of som_tile.cuh),
+// for tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "cg3d_tile.cuh"
 #include "gad_calc_rhs_tile.cuh"
+#include "gad_os7mp_tile.cuh"
 #include "mom_correction.cuh"
 #include "mom_fluxform_tile.cuh"
 #include "phihyd_tile.cuh"
 #include "seaice_evp_uv.cuh"
+#include "som_tile.cuh"
 
 using namespace mitgcm;
 
@@ -94,7 +98,41 @@ struct OnHost {
                             rev_den, last, OnHost{});                        \
   }
 
+// O's sweeps and H-SOM's passes, with their entry points' arguments but
+// the stream
+#define HOST_ADVECTION_ENTRY_POINTS(T, SUF)                                  \
+  extern "C" int host_gad_os7mp_##SUF(                                       \
+      int dir, const void* const* table, int n, const void* src, void* dst,  \
+      int nr, int nyp, int nxp, int scheme, double deltaT, double rkSign) {  \
+    if (dir == 0)                                                            \
+      return launch_os7mp<T, 0>(table, n, src, dst, nr, nyp, nxp, scheme,    \
+                                deltaT, rkSign, OnHost{});                   \
+    if (dir == 1)                                                            \
+      return launch_os7mp<T, 1>(table, n, src, dst, nr, nyp, nxp, scheme,    \
+                                deltaT, rkSign, OnHost{});                   \
+    return launch_os7mp<T, 2>(table, n, src, dst, nr, nyp, nxp, scheme,      \
+                              deltaT, rkSign, OnHost{});                     \
+  }                                                                          \
+  extern "C" int host_som_##SUF(                                             \
+      int dir, const void* const* table, int n, const void* volIn,           \
+      const void* oIn, const void* smIn, void* volOut, void* oOut,           \
+      void* smOut, void* gTr, int nr, int nyp, int nxp, int limiter,         \
+      double deltaT) {                                                       \
+    if (dir == 0)                                                            \
+      return som::launch_som_horiz<T, 0>(table, n, volIn, oIn, smIn, volOut, \
+                                         oOut, smOut, nr, nyp, nxp, limiter, \
+                                         deltaT, OnHost{});                  \
+    if (dir == 1)                                                            \
+      return som::launch_som_horiz<T, 1>(table, n, volIn, oIn, smIn, volOut, \
+                                         oOut, smOut, nr, nyp, nxp, limiter, \
+                                         deltaT, OnHost{});                  \
+    return som::launch_som_r<T>(table, n, volIn, oIn, smIn, smOut, gTr, nr,  \
+                                nyp, nxp, limiter, deltaT, OnHost{});        \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
 HOST_CG3D_ENTRY_POINTS(float, f32)
 HOST_CG3D_ENTRY_POINTS(double, f64)
+HOST_ADVECTION_ENTRY_POINTS(float, f32)
+HOST_ADVECTION_ENTRY_POINTS(double, f64)

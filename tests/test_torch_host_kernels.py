@@ -37,7 +37,7 @@ import torch
 
 from mitgcm_tpu_torch.model import gad, gmredi, phihyd, step
 from mitgcm_tpu_torch.model import mom_fluxform as mom
-from mitgcm_tpu_torch.model import seaice, seaice_kernels
+from mitgcm_tpu_torch.model import seaice, seaice_kernels, som
 from mitgcm_tpu_torch.solver import cg3d
 from mitgcm_tpu_torch.utils import synthetic
 
@@ -61,6 +61,10 @@ SIGNATURES = {
     "host_cg3d_xr_precond": [_PP, _I] + [_I] * 7 + [ctypes.c_longlong],
     "host_seaice_evp_uv": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
     + [_I] * 6,
+    # the direction (0 X, 1 Y, 2 R), then the entry points' arguments but
+    # the stream
+    "host_gad_os7mp": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
+    "host_som": [_I, _PP, _I] + [_P] * 7 + [_I] * 4 + [_D],
 }
 
 
@@ -92,10 +96,10 @@ def table(tensors):
 class Fields:
     """A random padded grid and random inputs, numpy-seeded."""
 
-    def __init__(self, dtype, seed, ny, nx, nr=NR):
+    def __init__(self, dtype, seed, ny, nx, nr=NR, ol=OL):
         self.rng = np.random.default_rng(seed)
         self.dtype = dtype
-        s3 = (nr, ny + 2 * OL, nx + 2 * OL)
+        s3 = (nr, ny + 2 * ol, nx + 2 * ol)
         s2 = s3[1:]
         self.s3 = s3
         g = {}
@@ -118,6 +122,9 @@ class Fields:
         g["recip_drF"] = 1.0 / g["drF"]
         g["drC"] = self.uniform((nr + 1,), 5.0, 50.0)
         g["recip_drC"] = 1.0 / g["drC"]
+        # last, so that the fields above stay what they were
+        g["maskInW"] = self.mask(s2, 0.9)
+        g["maskInS"] = self.mask(s2, 0.9)
         self.grid = SimpleNamespace(**g)
 
     def tensor(self, a):
@@ -415,6 +422,14 @@ def parts(view, ring):
     return out
 
 
+def identical(a, b):
+    """Equal values and non-finite values in the same cells (NaN is NaN)."""
+    return (all(torch.equal(test(a), test(b)) for test in (
+        torch.isnan, torch.isposinf, torch.isneginf))
+        and torch.equal(a.nan_to_num(0.0, 0.0, 0.0),
+                        b.nan_to_num(0.0, 0.0, 0.0)))
+
+
 def check_footprint(lib, case, footprint, rings, same_as=check):
     want, named, args, run = case
     for got, wanted in zip(run(lib, poisoned(named, footprint, args)), want):
@@ -427,12 +442,12 @@ def check_footprint(lib, case, footprint, rings, same_as=check):
         for label, part in parts(view, rings.get(name)).items():
             saved = part.clone()
             part.mul_(1.5).add_(0.25)
-            same = all(torch.equal(a, b) for a, b in zip(run(lib, copies),
-                                                         base))
+            same = all(identical(a, b) for a, b in zip(run(lib, copies),
+                                                       base))
             if same:    # x * 0 hides a change but keeps a NaN
                 part.fill_(float("nan"))
-                same = not any(bool(a.isnan().any())
-                               for a in run(lib, copies))
+                same = all(torch.equal(a.isnan(), b.isnan())
+                           for a, b in zip(run(lib, copies), base))
             if same:
                 unread.append(f"{name} {label}")
             part.copy_(saved)
@@ -839,3 +854,233 @@ def test_seaice_evp_uv(lib, monkeypatch, ny, nx, dtype, variant, last):
         # dwatn and the divergence are written on the last subcycle only
         wanted = want[n] if last or n < 3 else init[n]
         check_whole(outs[n], wanted, f"{variant} {name}")
+
+
+# Kernel O's three sweeps on halos of 4, each against its twin sweep
+# (model/gad.py:MD_PLAIN) on every padded cell: (nr, ny, nx). X's tiles
+# of 31 cells and 8 rows, Y's of 31 rows and 32 columns and R's of 32 x 8
+# columns are ragged on each grid (the second has two tiles in x and in y,
+# the first of them a full one); 11 levels hold the ring of 8 away from the
+# column ends, 3 clamp both ends at once.
+O_OL = 4
+O_SHAPES = ((4, 12, 20), (11, 30, 24), (3, 10, 40))
+O_SWEEPS = {"gad_os7mp_x": 0, "gad_os7mp_y": 1, "gad_os7mp_r": 2}
+# the source each sweep reads, by the wrapper's name: the tracer, the X
+# sweep's output, the Y sweep's
+O_SOURCE = {"gad_os7mp_x": "tracer", "gad_os7mp_y": "localX",
+            "gad_os7mp_r": "localY"}
+O_OUT = {"gad_os7mp_x": "localX", "gad_os7mp_y": "localY",
+         "gad_os7mp_r": "gTr"}
+
+
+def os7mp_case(f, name, deltaT=600.0):
+    """(twin's output, inputs by the wrapper's names, launch arguments
+    after the table, run(inputs) -> outputs) of O's sweep `name` on f's
+    grid (halos of 4): transports of both signs, a tenth of them exactly 0,
+    Courant numbers up to about 1, a source with fronts."""
+    g = f.grid
+    nr, nyp, nxp = f.s3
+    cfg = SimpleNamespace(rkSign=-1.0)
+
+    def trans(mask):
+        t = f.normal(f.s3, 10.0) * mask
+        return t * (f.uniform(f.s3, 0.0, 1.0) > 0.1)
+
+    uT, vT, rT = trans(g.maskW), trans(g.maskS), trans(g.maskC)
+    flow = gad.AdvFlow(
+        uTrans=uT, vTrans=vT, rTrans=rT,
+        rTransKp=torch.cat([rT[1:], torch.zeros_like(rT[:1])]),
+        maskUp=g.maskC, xA=g.maskW, yA=g.maskS)
+    u = f.normal(f.s3).clamp(-3.0, 3.0) * 2.5e-4 * g.maskW
+    v = f.normal(f.s3).clamp(-3.0, 3.0) * 2.5e-4 * g.maskS
+    w = f.normal(f.s3).clamp(-3.0, 3.0) * 2.5e-3 * g.maskC
+    tracer = (15.0 + f.normal(f.s3, 2.0)) * g.maskC
+    tracer[:, :, nxp // 2:] += 3.0
+    tracer[nr // 2:, nyp // 2:, :] -= 2.0
+    src = tracer if name == "gad_os7mp_x" else (
+        tracer + f.normal(f.s3, 0.5)) * g.maskC
+    want = [gad.MD_PLAIN[name](cfg, g, flow, u, v, w, tracer, src, 7, 7,
+                               deltaT)]
+    named = dict(uTrans=uT, vTrans=vT, rTrans=rT, uVel=u, vVel=v, wVel=w,
+                 tracer=tracer,
+                 **{n: getattr(g, n) for n in gad._MD_GRID3
+                    + gad._MD_GRID2 + gad._MD_GRID1})
+    named[O_SOURCE[name]] = src
+    order = [n for n in named if n not in ("localX", "localY")]
+    lib_fn = f"host_gad_os7mp_{SUFFIX[f.dtype]}"
+
+    def run(lib, ins):
+        out = torch.full(f.s3, float("nan"), dtype=f.dtype)
+        tab = table([ins[n] for n in order])
+        assert getattr(lib, lib_fn)(
+            O_SWEEPS[name], tab, len(tab), ins[O_SOURCE[name]].data_ptr(),
+            out.data_ptr(), nr, nyp, nxp, 7, deltaT, cfg.rkSign) == 0
+        return [out]
+
+    args = (named[O_SOURCE[name]].data_ptr(), None, nr, nyp, nxp, 7, deltaT,
+            cfg.rkSign)
+    return want, named, args, run
+
+
+@pytest.mark.parametrize("nr,ny,nx", O_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", O_SWEEPS)
+def test_os7mp_tile(lib, nr, ny, nx, dtype, name):
+    f = Fields(DTYPES[dtype], 200 + nr + nx, ny, nx, nr, O_OL)
+    want, named, _, run = os7mp_case(f, name)
+    (got,) = run(lib, named)
+    check_whole(got, want[0], name)
+
+
+def test_os7mp_transports(lib):
+    """The case's transports change sign within a warp's 32 faces and are
+    exactly 0 on some of them; the velocities reach Courant numbers near
+    1 and the fronts make the limiter clip."""
+    f = Fields(torch.float64, 215, 30, 24, 11, O_OL)
+    _, named, _, _ = os7mp_case(f, "gad_os7mp_x")
+    rows = named["uTrans"].reshape(-1, 32)
+    assert bool(((rows > 0).any(1) & (rows < 0).any(1)
+                 & (rows == 0).any(1)).any())
+    cfl = (named["uVel"] * 600.0 * named["recip_dxC"]).abs()
+    assert 0.6 < float(cfl.max()) < 1.0
+
+
+def test_os7mp_launch_refuses(lib):
+    """A table of the wrong length and a scheme that is not 7
+    (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 216, 12, 20, 4, O_OL)
+    _, named, args, _ = os7mp_case(f, "gad_os7mp_x")
+    tab = table([named[n] for n in named])
+    out = torch.empty(f.s3, dtype=f.dtype)
+    for n, scheme in ((len(tab) - 1, 7), (len(tab), 33)):
+        assert lib.host_gad_os7mp_f64(0, tab, n, args[0], out.data_ptr(),
+                                      *args[2:5], scheme, 600.0, -1.0) == 1
+
+
+# chip_smoke.py's footprints of O's sweeps (every padded cell of each field
+# a sweep reads, R's wVel and recip_drC below the surface) hold every cell
+# read and no cell unread
+@pytest.mark.parametrize("name", O_SWEEPS)
+def test_os7mp_footprint(lib, name):
+    f = Fields(torch.float64, 220, 12, 20, 5, O_OL)
+    smoke = chip_smoke()
+    check_footprint(lib, os7mp_case(f, name), smoke.FOOTPRINTS[name][0], {},
+                    same_as=check_whole)
+
+
+# Kernel H-SOM's three passes against their twins (model/som.py) on every
+# padded cell, each pass on its twin's previous output, schemes 80 and 81:
+# (nr, ny, nx). X's rows of 30 updated cells, Y's walks of 32 rows and
+# R's 32 x 8 columns are ragged on each grid (the third has two walks a
+# column); a level alone walks no interface; 11 levels are two of X's
+# chunks of 8.
+SOM_SHAPES = ((4, 12, 20), (3, 10, 40), (4, 30, 24), (1, 12, 20),
+              (11, 12, 20))
+SOM_PASSES = {"som_x": 0, "som_y": 1, "som_r": 2}
+
+
+def check_same(got, want, label):
+    """Equal on every padded cell, non-finite values in the same cells."""
+    assert identical(got, want), (
+        f"{label}: non-finite cells {int((~got.isfinite()).sum())} / "
+        f"{int((~want.isfinite()).sum())}, max abs diff of the rest "
+        f"{float((got - want).nan_to_num(0.0, 0.0, 0.0).abs().max()):.3e}")
+
+
+def som_case(f, name, scheme, deltaT=600.0):
+    """As os7mp_case, for H-SOM's pass `name` (its outputs: volume,
+    content and moments, or R's gTr and moments): velocities of both signs
+    with Courant fractions up to about a half, a still block, moments up to
+    about twice a cell's content so that the limiter clips."""
+    g = f.grid
+    nr, nyp, nxp = f.s3
+    cfg = SimpleNamespace(nx=nxp - 2 * OL, ny=nyp - 2 * OL, olx=OL, oly=OL,
+                          nFaces=1)
+    u = f.normal(f.s3, 5e-4) * g.maskW
+    v = f.normal(f.s3, 5e-4) * g.maskS
+    w = f.normal(f.s3, 1e-2) * g.maskC
+    for a in (u, v, w):
+        a[:, 3:6, 3:6] = 0.0
+    tracer = (15.0 + f.normal(f.s3, 2.0)) * g.maskC
+    vol = g.rA * g.drF[:, None, None] * g.hFacC
+    smTr = f.normal((9,) + f.s3, 2.0) * (tracer * vol)[None]
+    named = dict(uVel=u, vVel=v, wVel=w, tracer=tracer,
+                 **{n: getattr(g, n) for n in som._GRID3 + som._GRID2
+                    + som._GRID1}, smTr=smTr)
+    x = som._som_x_plain(cfg, g, u, tracer, smTr, scheme, deltaT)
+    y = som._som_y_plain(cfg, g, v, *x, scheme, deltaT)
+    state = {"som_y": dict(zip(("volX", "oX", "smX"), x)),
+             "som_r": dict(zip(("volY", "oY", "smY"), y))}.get(name, {})
+    named.update(state)
+    want = {"som_x": x, "som_y": y,
+            "som_r": som._som_r_plain(cfg, g, w, tracer, *y, scheme,
+                                      deltaT)}[name]
+    order = [n for n in named if n in ("uVel", "vVel", "wVel", "tracer")
+             + som._GRID3 + som._GRID2 + som._GRID1]
+    ins = {"som_x": (None, None, "smTr"), "som_y": ("volX", "oX", "smX"),
+           "som_r": ("volY", "oY", "smY")}[name]
+    lib_fn = f"host_som_{SUFFIX[f.dtype]}"
+
+    def run(lib, named_in):
+        outs = [torch.full(t.shape, float("nan"), dtype=f.dtype)
+                for t in want]
+        vol_out, o_out, sm_out, gtr = (
+            (None, None, outs[1], outs[0]) if name == "som_r"
+            else (*outs, None))
+        tab = table([named_in[n] for n in order])
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        assert getattr(lib, lib_fn)(
+            SOM_PASSES[name], tab, len(tab),
+            *[None if n is None else named_in[n].data_ptr() for n in ins],
+            ptr(vol_out), ptr(o_out), ptr(sm_out), ptr(gtr), nr, nyp, nxp,
+            scheme % 10, deltaT) == 0
+        return outs
+
+    return list(want), named, (nr, nyp, nxp, scheme % 10), run
+
+
+@pytest.mark.parametrize("nr,ny,nx", SOM_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scheme", (80, 81))
+@pytest.mark.parametrize("name", SOM_PASSES)
+def test_som_tile(lib, nr, ny, nx, dtype, scheme, name):
+    f = Fields(DTYPES[dtype], 230 + nr + nx + scheme, ny, nx, nr)
+    want, named, _, run = som_case(f, name, scheme)
+    outs = run(lib, named)
+    for n, (got, wanted) in enumerate(zip(outs, want)):
+        check_same(got, wanted, f"{name} output {n}")
+    # the first padded column (X) and row (Y) divide by the zero volume of
+    # the zero-filled upwind cell: non-finite in the twin and the kernel
+    bad = ~outs[-1].isfinite()
+    assert bool(bad[..., :, 0].any()) and not bool(bad[..., 1:, 1:].any())
+
+
+def test_som_launch_refuses(lib):
+    """A table of the wrong length, a limiter that is not 0 or 1, Y
+    without its input volume, R without gTr (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 240, 12, 20)
+    _, named, (nr, nyp, nxp, _), _ = som_case(f, "som_y", 81)
+    order = [n for n in named if n in ("uVel", "vVel", "wVel", "tracer")
+             + som._GRID3 + som._GRID2 + som._GRID1]
+    tab = table([named[n] for n in order])
+    out = torch.empty((9,) + f.s3, dtype=f.dtype)
+    p = out.data_ptr()
+    for d, n, vol_in, gtr, lim in ((1, len(tab) - 1, p, None, 1),
+                                   (1, len(tab), p, None, 2),
+                                   (1, len(tab), None, None, 1),
+                                   (2, len(tab), p, None, 1)):
+        assert lib.host_som_f64(d, tab, n, vol_in, p, p, p, p, p, gtr, nr,
+                                nyp, nxp, lim, 600.0) == 1
+
+
+# chip_smoke.py's footprints of H-SOM's passes (every padded cell of each
+# field a pass reads) hold every cell read and no cell unread
+@pytest.mark.parametrize("scheme", (80, 81))
+@pytest.mark.parametrize("name", SOM_PASSES)
+def test_som_footprint(lib, scheme, name):
+    f = Fields(torch.float64, 250 + scheme, 12, 20)
+    smoke = chip_smoke()
+    check_footprint(lib, som_case(f, name, scheme),
+                    smoke.FOOTPRINTS[name][0], {}, same_as=check_same)
