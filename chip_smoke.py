@@ -479,7 +479,12 @@ PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
 # cg2d_solve (whose count is a cell's an iteration) is bounded by bytes by a
 # wide margin
 OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
-                "gad_calc_rhs_c2": 60, "mom_fluxform_adj": 600,
+                # B': each level's staging (transports, the four masked
+                # cotangents, the Coriolis products, w rA) ~40 a staged
+                # cell, 1.6 staged cells a column; hFacZ, the faces and
+                # viscous products ~55; interface k+1's terms ~40; the sums
+                # of u_bar, v_bar, the drag and w_bar ~210
+                "gad_calc_rhs_c2": 60, "mom_fluxform_adj": 370,
                 "gad_calc_rhs_c2_adj": 120, "mom_vecinv": 300,
                 "impldiff": 15, "eos_find_rho": 60, "kpp_pre": 400,
                 "kpp_smooth": 40, "kpp_col": 250, "ggl90_col": 120,
@@ -489,7 +494,13 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # update; H-SOM: the limiter, the two fluxes leaving a cell
                 # and the two-sweep update (4 divisions)
                 "gad_os7mp_x": 130, "gad_os7mp_y": 130, "gad_os7mp_r": 130,
-                "gad_ppm_x": 350, "gad_ppm_y": 350, "gad_ppm_r": 350,
+                # P, scheme 51 (the pqm-gyre's salt), each value once: the
+                # edge and its slope ~47, the polynomial ~181 (the slope
+                # limiter's division, QUADROOT's square root and two
+                # divisions, ~8 instructions each), the flux ~52 (a
+                # division), the update ~10; PPM-mono (41) ~163, WENO adds
+                # ~140
+                "gad_ppm_x": 290, "gad_ppm_y": 290, "gad_ppm_r": 290,
                 "idemix_prep": 150, "idemix_hdiff": 60, "idemix_col": 40,
                 "som_x": 200, "som_y": 200, "som_r": 200,
                 # H-cg3d's passes: s' and the 7-point product; the x and r
@@ -839,6 +850,14 @@ def mom_footprint(named, args):
             for n, t in named.items() if n not in skip}
 
 
+def mom_adj_footprint(named, args):
+    """Kernel B''s inputs as the views that its launch reads (args: nr, ny,
+    nx, oly, olx, ...): B's reach under the gyre's flags (mom_footprint),
+    the cotangents of the four tendencies on the interior."""
+    nr, _, _, oly, olx = args[:5]
+    return mom_footprint(named, (nr, 0, 0, oly, olx, 1, 0))
+
+
 def gad_footprint(named, args):
     """Kernel C's inputs (and its GM branch's: Kwx, Kwy, maskW, maskS and
     the 3-D Kux ... Kvz) as the views that its launch reads: the
@@ -924,6 +943,32 @@ SOM_READS = {
               ("gTr", "smNew"))}
 
 
+# the fields that each sweep of kernel P reads, the same way; PQM also
+# reads the spacings of its edge slopes, and R reads wVel where it forms a
+# flux, below the surface
+P_READS = {
+    "gad_ppm_x": ("tracer", "uTrans", "uVel", "maskC", "recip_dxF")
+    + O_VOLUME,
+    "gad_ppm_y": ("localX", "tracer", "vTrans", "vVel", "maskC",
+                  "recip_dyF") + O_VOLUME,
+    "gad_ppm_r": ("localY", "tracer", "rTrans", "wVel", "maskC") + O_VOLUME}
+PQM_READS = {"gad_ppm_x": ("recip_dxC", "dxF"),
+             "gad_ppm_y": ("recip_dyC", "dyF"),
+             "gad_ppm_r": ("recip_drC", "drF")}
+
+
+def ppm_footprint(name, named, args):
+    """The inputs of P's sweep `name` as the views that its launch reads
+    (args: the launch's source and destination, nr, nyp, nxp, scheme, ...):
+    every padded cell of P_READS[name]'s fields (and PQM_READS[name]'s for
+    schemes 50-52), in R wVel at the interfaces 1 .. nr - 1."""
+    nr, scheme = args[2], args[5]
+    reads = P_READS[name] + (PQM_READS[name] if scheme >= 50 else ())
+    levels = {"wVel": slice(1, None)} if name.endswith("_r") else {}
+    return {n: footprint_view(named[n], 0, 0, None, levels.get(n))
+            for n in reads}
+
+
 def os7mp_footprint(name, named, args):
     """The inputs of O's sweep `name` as the views that its launch reads
     (args: the launch's source and destination, nr, ...): every padded
@@ -961,6 +1006,8 @@ def footprint_view(t, oly, olx, ring, levels):
 
 FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
                                                "gvDiss")),
+              "mom_fluxform_adj": (mom_adj_footprint, ("u_bar", "v_bar",
+                                                       "w_bar")),
               "gad_calc_rhs_c2": (gad_footprint, ("last",)),
               "gad_calc_rhs_c2_gm": (gad_footprint, ("last",)),
               "phihyd": (phihyd_footprint, ("phiHydC", "dPhiHydX",
@@ -976,6 +1023,9 @@ FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
               **{name: (lambda named, args, name=name: os7mp_footprint(
                   name, named, args), (out,))
                  for name, out in zip(O_READS, ("localX", "localY", "gTr"))},
+              **{name: (lambda named, args, name=name: ppm_footprint(
+                  name, named, args), (out,))
+                 for name, out in zip(P_READS, ("localX", "localY", "gTr"))},
               **{name: (lambda named, args, name=name: som_footprint(
                   name, named, args), outs)
                  for name, (_, outs) in SOM_READS.items()}}
@@ -1897,14 +1947,20 @@ def profile_steps(exp, state, it0, steps, wall_ms):
     ms, idle share, each of the port's kernels' ms and calls, and the ms
     and launches of the plain glue (PyTorch's own kernels and copies) and
     of the port's kernels."""
+    exp.state, exp.cur_iter, exp.impl = state, it0, None
+    return profile_run(lambda: exp.run(n_steps=steps, collect_monitor=False),
+                       steps, wall_ms)
+
+
+def profile_run(run, steps, wall_ms):
+    """profile_steps' figures a step of run(), which takes `steps` steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    exp.state, exp.cur_iter, exp.impl = state, it0, None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        exp.run(n_steps=steps, collect_monitor=False)
+        run()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():   # the kernels, not the ops launching them
@@ -2270,8 +2326,9 @@ def ho_kernel_phase(case, results, reps, plain_reps):
                             case.tracer, src, scheme, vert, cfg.deltaTTracer)
             run()
             label = name if sch in (7, 51) else f"{name}({sch})"
-            # O's bound counts what its launch reads (FOOTPRINTS), from a
-            # call of the whole advection; M's and P's the padded planes
+            # O's and P's bounds count what their launches read
+            # (FOOTPRINTS), from a call of the whole advection; M's the
+            # padded planes
             call = None
             if name in FOOTPRINTS:
                 touched = None

@@ -121,14 +121,11 @@ SIGNATURES = {
     # visctmp, maskW, maskS, viscU, viscV; nr, nyp, nxp; viscMax, viscAr;
     # stream
     "ggl90_visc": [_P] * 5 + [_I] * 3 + [_D] * 2 + [_P],
-    # the sweeps of kernels M and O: pointer table, its length; the sweep's
-    # input and output fields; nr, nyp, nxp, scheme; deltaT, rkSign; stream
+    # the sweeps of kernels M, O and P: pointer table, its length; the
+    # sweep's input and output fields; nr, nyp, nxp, scheme; deltaT, rkSign;
+    # stream
     **{f"{k}_{d}": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P]
-       for k in ("gad_multidim", "gad_os7mp") for d in "xyr"},
-    # the sweeps of kernel P: the same with its coefficient scratch buffer
-    # after the output field
-    **{f"gad_ppm_{d}": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 2 + [_P]
-       for d in "xyr"},
+       for k in ("gad_multidim", "gad_os7mp", "gad_ppm") for d in "xyr"},
     # the sea ice's seaice_lsr_prep (two launches) and seaice_thermo:
     # pointer table, its length; parameter array, its length; nyp, nxp
     # (seaice_thermo: and ol, multDim, IMAX_TICE); stream

@@ -1,9 +1,10 @@
 // Shared by the kernels of the multi-dimensional advection: M
 // (gad_multidim.cu), O (gad_os7mp.cu) and P (gad_ppm.cu), and the sea ice's
 // advection (seaice_advect.cu), which takes M's face flux flux_h. The table of
-// their inputs, the zero-filled reads of the JAX code's shifts, and the
+// their inputs, the zero-filled reads of the JAX code's shifts, and M's
 // sweep that updates each cell by the fluxes through its two faces in one
-// direction (mitgcm_tpu/model/gad.py:multidim_advection, :1138-1154):
+// direction (mitgcm_tpu/model/gad.py:multidim_advection, :1138-1154; O's
+// and P's tiles and walks update the same way):
 //   X  dst = src - dt/V ((F(i+1) - F(i)) - T (U(i+1) - U(i))) mIn
 //   Y  the same with the meridional fluxes and transports
 //   R  localT = src - dt/V ((F(k+1) - F(k)) - T (W(k+1) - W(k))) rkSign mIn,

@@ -589,9 +589,6 @@ _READS = {
 }
 _READS["O", "x"], _READS["O", "y"], _READS["O", "r"] = (
     _READS["M", d] for d in DIRECTIONS)
-# the polynomial coefficients per cell that P keeps between its two stages
-_NCOEF = {**{s: 3 for s in gad_ho.PPM_SCHEMES},
-          **{s: 5 for s in gad_ho.PQM_SCHEMES}}
 
 
 def _sweep_reads(scheme: int, direction: str):
@@ -625,9 +622,7 @@ def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
     """The three sweeps on the card, each a launch of the kernel that owns
     its scheme: a list of (sweep name, launch, input, output, the tensors
     the sweep reads and writes), in the order they must run; each launch
-    reads the previous one's output and the last output is gTr. Kernel P
-    keeps its cell polynomials in a scratch buffer between its two
-    stages."""
+    reads the previous one's output and the last output is gTr."""
     nr, nyp, nxp = tracer.shape
     schemes = (scheme, scheme, vert_scheme)
     names = [sweep_name(s, d) for s, d in zip(schemes, DIRECTIONS)]
@@ -637,12 +632,8 @@ def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
     ins2 = {n: getattr(grid, n) for n in _MD_GRID2}
     ins1 = {n: getattr(grid, n) for n in _MD_GRID1}
     fields = [tracer] + [torch.empty_like(tracer) for _ in DIRECTIONS]
-    ncoef = max(_NCOEF.get(s, 0) for s in schemes)
-    scratch = ({"scratch": tracer.new_empty((ncoef,) + tuple(tracer.shape))}
-               if ncoef else {})
     kernels.check_tensors(tracer.dtype, **ins3, **ins2, **ins1,
-                          localX=fields[1], localY=fields[2], gTr=fields[3],
-                          **scratch)
+                          localX=fields[1], localY=fields[2], gTr=fields[3])
     for name, t in ins3.items():
         kernels.check_shape(name, t, (nr, nyp, nxp))
     for name, t in ins2.items():
@@ -654,13 +645,9 @@ def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
     table = kernels.pointer_table(list(named.values()))
 
     def sweep(name, direction, src, dst, sch):
-        # the launch holds the scratch buffer, which must outlive it
-        extra = list(scratch.values()) if name.startswith("gad_ppm") else []
-
         def run():
             kernels.launch(name, tracer.dtype, table, len(table),
-                           src.data_ptr(), dst.data_ptr(),
-                           *[t.data_ptr() for t in extra], nr, nyp, nxp, sch,
+                           src.data_ptr(), dst.data_ptr(), nr, nyp, nxp, sch,
                            float(deltaT), float(cfg.rkSign))
         touched = [src, tracer, dst] + [named[n] for n in
                                         _sweep_reads(sch, direction)]

@@ -37,10 +37,21 @@ launches, each with its bound. Group "os7mp": each sweep of kernel O
 each on the previous sweep's output, on chip_smoke.py's seeded
 1024x1024x32 float32 os7mp-gyre (G9Case), as CUDA graphs of 20, with
 their bounds. Group "som": H-SOM's three passes of schemes 81 and 80 on
-chip_smoke.py's 1024x1024x32 float32 IsmCase, the same way. No group
-named: all five. --ptxas instead compiles the tree's O and H-SOM sources
-with the port's nvcc flags and prints ptxas's registers and spills of each
-of their kernels. Exits nonzero without CUDA.
+chip_smoke.py's 1024x1024x32 float32 IsmCase, the same way. Group "ppm":
+each sweep of kernel P for each of its six schemes (40-42, 50-52) on
+chip_smoke.py's seeded 1024x1024x32 float32 pqm-gyre (G9Case), as CUDA
+graphs of 20, with the bounds of its footprints. Group "adjoint": one
+launch of B' (mom_fluxform_adj) and of C' (gad_calc_rhs_c2_adj) on
+chip_smoke.py's seeded 1024x1024x32 float32 gyre (Case) with phase 6's
+seeded cotangents, as CUDA graphs of 20, with their bounds, and a sha256
+digest of each launch's output bytes, so that two trees' bits can be
+compared. No group named: all seven. --config adjoint instead times the
+gradient of phase 6's box cost through 6 checkpointed steps of the
+N x N x 32 float32 gyre (3 runs, ms/step) and profiles one (device busy
+ms/step and idle share, as a step's). --ptxas instead compiles the tree's
+PTXAS_SOURCES with the port's nvcc flags and prints ptxas's registers and
+spills of each of their kernels (float and double). Exits nonzero without
+CUDA.
 """
 
 import argparse
@@ -62,13 +73,18 @@ BOX_SHAPE = (1024, 50)   # the nh-convection box's, float32
 EVP_SHAPE = (1024, 32)   # the evp-ice-gyre's, float32 (EVP is 2-D)
 # the cg3d solves of group "cg3d": their caps of iterations
 CG3D_CAPS = (20, 100)
-KERNEL_GROUPS = ("glue", "cg3d", "evp", "os7mp", "som")
+KERNEL_GROUPS = ("glue", "cg3d", "evp", "os7mp", "som", "ppm", "adjoint")
 # group "os7mp": the (scheme, vertical scheme) pairs whose sweeps it times,
 # O's first; group "som": H-SOM's schemes
 HO_SCHEMES = ((7, 7), (33, 33), (41, 41), (51, 51))
 SOM_SCHEMES = (81, 80)
+# group "ppm": kernel P's schemes
+PPM_SCHEMES = (40, 41, 42, 50, 51, 52)
 # the sources whose kernels --ptxas reports, under kernels/csrc
-PTXAS_SOURCES = ("gad_os7mp.cu", "som.cu")
+PTXAS_SOURCES = ("gad_os7mp.cu", "som.cu", "gad_ppm.cu",
+                 "mom_fluxform_adj.cu")
+# --config adjoint: the steps of the gradient (phase 6's)
+ADJ_STEPS = 6
 # the launches of a tree from before the cg3d iteration became two passes
 # (three an iteration), for their bounds through chip_smoke.bound: the
 # operations a cell and the fields updated in place
@@ -247,31 +263,37 @@ def graph_row(smoke, name, run, label, rows, call=None, tensors=None):
           f"{bound_ms:.5f} ({bound_ms / ms:.2f})", flush=True)
 
 
-def os7mp_times(smoke, rows):
-    """Group "os7mp": the sweeps of HO_SCHEMES on the seeded os7mp-gyre
-    (O's bounds from their footprints, M's and P's from the padded
-    planes)."""
+def sweep_times(smoke, case, pairs, label, rows):
+    """The sweeps of each (scheme, vertical scheme) of `pairs` on a
+    G9Case, each on the previous sweep's output (the bounds of O's and P's
+    from their footprints, M's from the padded planes)."""
     import torch
     from mitgcm_tpu_torch.model import gad
 
-    case = smoke.G9Case(1024, 32, torch.float32, "os7mp")
     cfg, g, dt = case.cfg, case.grid, case.cfg.deltaTTracer
-    for scheme, vert in HO_SCHEMES:
+    for scheme, vert in pairs:
         args = (cfg, g, case.flow, case.u, case.v, case.w, case.tracer,
                 scheme, vert, dt)
         sweeps = gad.multidim_sweeps(*args)
         for _, run, _, _, _ in sweeps:
             run()
         for name, run, _, _, touched in sweeps:
-            label = f"os7mp-gyre {case.label} scheme {scheme}"
+            shape = f"{label} {case.label} scheme {scheme}"
             if name in smoke.FOOTPRINTS:
-                graph_row(smoke, name, run, label, rows,
+                graph_row(smoke, name, run, shape, rows,
                           call=lambda: gad.multidim_advection(*args))
             else:
-                graph_row(smoke, name, run, label, rows, tensors=touched)
+                graph_row(smoke, name, run, shape, rows, tensors=touched)
         del sweeps
         torch.cuda.empty_cache()
-    del case
+
+
+def os7mp_times(smoke, rows):
+    """Group "os7mp": the sweeps of HO_SCHEMES on the seeded os7mp-gyre."""
+    import torch
+
+    sweep_times(smoke, smoke.G9Case(1024, 32, torch.float32, "os7mp"),
+                HO_SCHEMES, "os7mp-gyre", rows)
 
 
 def som_times(smoke, rows):
@@ -294,6 +316,98 @@ def som_times(smoke, rows):
         del sweeps
         torch.cuda.empty_cache()
     del case
+
+
+def ppm_times(smoke, rows):
+    """Group "ppm": the sweeps of PPM_SCHEMES on the seeded pqm-gyre."""
+    import torch
+
+    sweep_times(smoke, smoke.G9Case(1024, 32, torch.float32, "pqm"),
+                [(s, s) for s in PPM_SCHEMES], "pqm-gyre", rows)
+
+
+def adjoint_times(smoke, rows):
+    """Group "adjoint": one launch of B' and of C' on the seeded gyre, as
+    phase 6 drives them (chip_smoke.py:vjp_phase), with the sha256 of the
+    launch's outputs."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model import gad
+    from mitgcm_tpu_torch.model import mom_fluxform as mom
+
+    case = smoke.Case(1024, 32, torch.float32)
+    cfg, g = case.cfg, case.grid
+    rng = np.random.default_rng(smoke.SEED + 1)
+    shape = tuple(g.hFacC.shape)
+    inner = torch.zeros(shape, dtype=case.dtype, device="cuda")
+    inner[:, cfg.oly:-cfg.oly, cfg.olx:-cfg.olx] = 1.0
+
+    def backward(fwd, ins, bars):
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        outs = fwd(*xs)
+        return lambda: torch.autograd.grad(outs, xs, bars,
+                                           retain_graph=True)
+
+    bars = [case.field(rng, shape, 1.0) * inner for _ in range(4)]
+    calls = {"mom_fluxform_adj": backward(
+        lambda u, v, w: mom.mom_fluxform(cfg, g, u, v, w, case.kappaRU,
+                                         case.kappaRV),
+        (case.u, case.v, case.w), bars)}
+
+    def rhs_fwd(t, uT, vT, rT):
+        flow = case.flow._replace(uTrans=uT, vTrans=vT, rTrans=rT,
+                                  rTransKp=torch.cat(
+                                      [rT[1:], torch.zeros_like(rT[:1])]))
+        return gad.calc_rhs(cfg, g, flow, t, case.kappaR, cfg.diffKhT)
+    bar = case.field(rng, shape, 1.0) * inner
+    calls["gad_calc_rhs_c2_adj"] = backward(
+        rhs_fwd, (case.theta, case.flow.uTrans, case.flow.vTrans,
+                  case.flow.rTrans), bar)
+    label = f"gyre {case.label}"
+    for name, call in calls.items():
+        args, outs = smoke.captured_launch(call, name)
+        graph_row(smoke, name, lambda: kernels.launch(*args), label, rows,
+                  call=call)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for t in outs:
+            digest.update(t.detach().cpu().numpy().tobytes())
+        rows[-1]["sha256"] = digest.hexdigest()
+        print(f"{name:16s} outputs' sha256 {rows[-1]['sha256']}", flush=True)
+        del outs
+    del case
+
+
+def adjoint_config(smoke, n):
+    """--config adjoint: the gradient of phase 6's box cost through
+    ADJ_STEPS checkpointed steps of the n x n x 32 float32 gyre: ms/step
+    of 3 runs (after one to warm up) and a profile of one."""
+    import numpy as np
+    import torch
+    from mitgcm_tpu_torch.ad.adjoint import adjoint_gradient
+
+    box = (n // 2, 3 * n // 4, n // 2, 3 * n // 4)
+    _, control, J = smoke.adjoint_objective(n, 32, torch.float32, ADJ_STEPS,
+                                            box, (0, 2), deltaT=600.0)
+    xx = control.zero()
+
+    def run():
+        return adjoint_gradient(J[None], xx)
+
+    run()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3 / ADJ_STEPS)
+    wall = float(np.median(walls))
+    stats = smoke.profile_run(run, ADJ_STEPS, wall)
+    return {"ms_per_step": wall, "runs_ms_per_step": walls, **stats}
 
 
 def ptxas(root):
@@ -330,11 +444,12 @@ def ptxas(root):
 def kernel_times(smoke, groups):
     """--kernels: [{kernel, shape, ms, bound_ms, share}] of the groups
     named: "glue", B, C and D-G at KERNEL_SHAPES, then the box's
-    mom_correction; "cg3d"; "evp"; "os7mp"; "som"."""
+    mom_correction; "cg3d"; "evp"; "os7mp"; "som"; "ppm"; "adjoint"."""
     import torch
 
     rows = []
-    for group, times in (("os7mp", os7mp_times), ("som", som_times)):
+    for group, times in (("os7mp", os7mp_times), ("som", som_times),
+                         ("ppm", ppm_times), ("adjoint", adjoint_times)):
         if group in groups:
             times(smoke, rows)
             smoke.GRIDS.clear()
@@ -382,7 +497,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--config", choices=("gyre", "ggl90", "os7mp", "pqm",
-                                         "som", "box", "evp-ice"),
+                                         "som", "box", "evp-ice", "adjoint"),
                     default="gyre")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--kernels", nargs="*", choices=KERNEL_GROUPS)
@@ -412,6 +527,11 @@ def main():
         print(json.dumps({"root": args.root, "card": smi,
                           "kernels": kernel_times(smoke, groups)}),
               flush=True)
+        return
+    if args.config == "adjoint":
+        print(json.dumps({"root": args.root, "config": args.config,
+                          "n": args.n, "card": smi,
+                          **adjoint_config(smoke, args.n)}), flush=True)
         return
     kw = dict(nx=args.n, ny=args.n, nr=32, deltaT=600.0)
     if args.config == "box":

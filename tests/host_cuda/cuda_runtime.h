@@ -2,9 +2,10 @@
 // sources compile with g++ against it, and host_launch runs a launch's
 // blocks one after another on one std::thread per CUDA thread of a block,
 // with a std::barrier for __syncthreads and one per warp for the warp
-// shuffles. A __shared__ variable becomes a static one, shared by the
-// threads of the block that runs, and the dynamic shared memory one
-// buffer, sized at the launch. Only what the port's kernels use is here.
+// shuffles and __syncwarp. A __shared__ variable becomes a static one,
+// shared by the threads of the block that runs, and the dynamic shared
+// memory one buffer, sized at the launch. Only what the port's kernels use
+// is here.
 #pragma once
 
 #include <barrier>
@@ -60,6 +61,12 @@ T host_shuffle(T v, int delta) {
     std::memcpy(&out, host_shuffle_slots + (first + src) * 8, sizeof(T));
   host_warp_barriers[warp]->arrive_and_wait();
   return out;
+}
+// __syncwarp: the warp meets at its barrier (every lane must take part)
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  const unsigned t =
+      (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+  host_warp_barriers[t / 32]->arrive_and_wait();
 }
 template <typename T>
 T __shfl_up_sync(unsigned, T v, unsigned delta) {

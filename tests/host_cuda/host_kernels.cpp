@@ -1,17 +1,21 @@
-// Kernels B and C's forward kernels, D, G's mom_correction, H-cg3d's two
-// passes, H-seaice EVP's seaice_evp_uv, O's three sweeps and H-SOM's three
-// passes, built by g++ against the mock CUDA runtime beside this file and
-// run on the host through the launches that their entry points use
-// (launch_mom, launch_calc_rhs, launch_phihyd, launch_s_stencil_dot and
+// Kernels B and C's forward kernels, B', D, G's mom_correction, H-cg3d's
+// two passes, H-seaice EVP's seaice_evp_uv, O's and P's three sweeps and
+// H-SOM's three passes, built by g++ against the mock CUDA runtime beside
+// this file and run on the host through the launches that their entry
+// points use (launch_mom, launch_mom_adj of mom_fluxform_adj_tile.cuh,
+// launch_calc_rhs, launch_phihyd, launch_s_stencil_dot and
 // launch_xr_precond of kernels/csrc/*_tile.cuh, launch_mom_correction of
 // mom_correction.cuh, launch_evp_uv of seaice_evp_uv.cuh, launch_os7mp of
-// gad_os7mp_tile.cuh, launch_som_horiz and launch_som_r of som_tile.cuh),
+// gad_os7mp_tile.cuh, launch_ppm of gad_ppm_tile.cuh, launch_som_horiz and
+// launch_som_r of som_tile.cuh),
 // for tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "cg3d_tile.cuh"
 #include "gad_calc_rhs_tile.cuh"
 #include "gad_os7mp_tile.cuh"
+#include "gad_ppm_tile.cuh"
 #include "mom_correction.cuh"
+#include "mom_fluxform_adj_tile.cuh"
 #include "mom_fluxform_tile.cuh"
 #include "phihyd_tile.cuh"
 #include "seaice_evp_uv.cuh"
@@ -46,6 +50,13 @@ struct OnHost {
     return launch_mom<T>(table, n, nr, ny, nx, oly, olx, no_slip_sides,      \
                          coriolis_3d, viscAhD, viscAhZ, sideDragFactor,      \
                          rkSign, gravitySign, OnHost{});                     \
+  }                                                                          \
+  extern "C" int host_mom_fluxform_adj_##SUF(                                \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,      \
+      int olx, double viscAhD, double viscAhZ, double sideDragFactor,        \
+      double rkSign) {                                                       \
+    return launch_mom_adj<T>(table, n, nr, ny, nx, oly, olx, viscAhD,        \
+                             viscAhZ, sideDragFactor, rkSign, OnHost{});     \
   }                                                                          \
   extern "C" int host_gad_calc_rhs_c2_##SUF(                                 \
       const void* const* table, int n, int nr, int ny, int nx, int oly,      \
@@ -112,6 +123,18 @@ struct OnHost {
                                 deltaT, rkSign, OnHost{});                   \
     return launch_os7mp<T, 2>(table, n, src, dst, nr, nyp, nxp, scheme,      \
                               deltaT, rkSign, OnHost{});                     \
+  }                                                                          \
+  extern "C" int host_gad_ppm_##SUF(                                         \
+      int dir, const void* const* table, int n, const void* src, void* dst,  \
+      int nr, int nyp, int nxp, int scheme, double deltaT, double rkSign) {  \
+    if (dir == 0)                                                            \
+      return launch_ppm<T, 0>(table, n, src, dst, nr, nyp, nxp, scheme,      \
+                              deltaT, rkSign, OnHost{});                     \
+    if (dir == 1)                                                            \
+      return launch_ppm<T, 1>(table, n, src, dst, nr, nyp, nxp, scheme,      \
+                              deltaT, rkSign, OnHost{});                     \
+    return launch_ppm<T, 2>(table, n, src, dst, nr, nyp, nxp, scheme,        \
+                            deltaT, rkSign, OnHost{});                       \
   }                                                                          \
   extern "C" int host_som_##SUF(                                             \
       int dir, const void* const* table, int n, const void* volIn,           \

@@ -53,6 +53,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     "host_mom_fluxform": [_PP, _I] + [_I] * 7 + [_D] * 5,
+    "host_mom_fluxform_adj": [_PP, _I] + [_I] * 5 + [_D] * 4,
     "host_gad_calc_rhs_c2": [_PP, _I] + [_I] * 5 + [_D] * 2
     + [_I, _I, _P, _PP, _I, _D, _D],
     "host_phihyd": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_I],
@@ -64,6 +65,7 @@ SIGNATURES = {
     # the direction (0 X, 1 Y, 2 R), then the entry points' arguments but
     # the stream
     "host_gad_os7mp": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
+    "host_gad_ppm": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
     "host_som": [_I, _PP, _I] + [_P] * 7 + [_I] * 4 + [_D],
 }
 
@@ -181,6 +183,102 @@ def test_mom_fluxform_tile(lib, ny, nx, dtype, no_slip, cori3d):
     assert err == 0
     for name, got in zip(mom.MomTend._fields, outs):
         check(got, getattr(want, name), name)
+
+
+# Kernel B' (mom_fluxform_adj_tile.cuh) against autograd through B's plain
+# twin (mom_fluxform_vjp_plain) on every padded cell, to chip_smoke.py's
+# tolerance for it (TOL: a relative error of 1e-12 in float64, 1e-5 in
+# float32), with the cotangents of the four tendencies seeded on interior
+# cells only, as B's halo outputs are constant zeros: every padded cell
+# written (NaN before), nonzero only up to one cell outside the interior.
+# The gyre's variant (no-slip sides, no 3-D Coriolis), the only one the
+# adjoint allows.
+ADJ_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def close(got, want, label):
+    """Within ADJ_TOL of the twin relative to its largest magnitude, the
+    same cells non-finite."""
+    assert torch.equal(got.isfinite(), want.isfinite()), (
+        f"{label}: non-finite cells differ")
+    diff = float((got - want).nan_to_num(0.0, 0.0, 0.0).abs().max())
+    scale = float(want.nan_to_num(0.0, 0.0, 0.0).abs().max())
+    assert diff <= ADJ_TOL[want.dtype] * scale, (
+        f"{label}: max abs diff {diff:.3e} against a scale of {scale:.3e}")
+
+
+def mom_adj_case(f):
+    """As mom_case, for kernel B' (its outputs u_bar, v_bar, w_bar)."""
+    ny, nx = f.s3[1] - 2 * OL, f.s3[2] - 2 * OL
+    cfg = SimpleNamespace(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
+                          gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
+                          sideDragFactor=2.0, no_slip_sides=True,
+                          select3dCoriScheme=0)
+    g = f.grid
+    u = f.normal(f.s3, 0.1) * g.maskW
+    v = f.normal(f.s3, 0.1) * g.maskS
+    w = f.normal(f.s3, 1e-2) * g.maskC
+    kshape = (NR + 1,) + f.s3[1:]
+    kRU, kRV = f.normal(kshape, 1e-2).abs(), f.normal(kshape, 1e-2).abs()
+    inner = torch.zeros(f.s3, dtype=f.dtype)
+    inner[:, OL:-OL, OL:-OL] = 1.0
+    bars = [f.normal(f.s3) * inner for _ in range(4)]
+    want = list(mom.mom_fluxform_vjp_plain(cfg, g, u, v, w, kRU, kRV, bars))
+    named = dict(mom._kernel_inputs(g, u, v, w, kRU, kRV),
+                 **{n + "_bar": t for n, t in zip(mom.MomTend._fields, bars)})
+    args = (NR, ny, nx, OL, OL)
+    lib_fn = f"host_mom_fluxform_adj_{SUFFIX[f.dtype]}"
+
+    def run(lib, ins):
+        outs = [torch.full(f.s3, float("nan"), dtype=f.dtype)
+                for _ in range(3)]
+        tab = table(list(ins.values()) + outs)
+        assert getattr(lib, lib_fn)(
+            tab, len(tab), *args, cfg.viscAhD, cfg.viscAhZ,
+            cfg.sideDragFactor, cfg.rkSign) == 0
+        return outs
+
+    return want, named, args, run
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mom_fluxform_adj_tile(lib, ny, nx, dtype):
+    f = Fields(DTYPES[dtype], 60 + nx, ny, nx)
+    want, named, _, run = mom_adj_case(f)
+    outs = run(lib, named)
+    ring = (..., slice(OL - 1, -OL + 1), slice(OL - 1, -OL + 1))
+    for name, got, wanted in zip(("u_bar", "v_bar", "w_bar"), outs, want):
+        close(got, wanted, name)
+        beyond = got.clone()
+        beyond[ring] = 0.0
+        assert float(beyond.abs().max()) == 0.0, (
+            f"{name}: nonzero more than one cell outside the interior")
+        assert float(got[ring].abs().max()) > 0.0
+
+
+def test_mom_fluxform_adj_refuses(lib):
+    """A table of the wrong length, no halo, no level
+    (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 75, *SIZES[0])
+    _, named, (nr, ny, nx, oly, olx), _ = mom_adj_case(f)
+    outs = [torch.empty(f.s3, dtype=f.dtype) for _ in range(3)]
+    tab = table(list(named.values()) + outs)
+    for n, shape in ((len(tab) - 1, (nr, ny, nx, oly, olx)),
+                     (len(tab), (nr, ny, nx, 0, olx)),
+                     (len(tab), (nr, ny, nx, oly, 0)),
+                     (len(tab), (0, ny, nx, oly, olx))):
+        assert lib.host_mom_fluxform_adj_f64(tab, n, *shape, 430.0, 270.0,
+                                             2.0, -1.0) == 1
+
+
+# chip_smoke.py's footprint of B' (mom_adj_footprint: B's reach, the
+# cotangents on the interior) holds every cell read and no cell unread
+def test_mom_fluxform_adj_footprint(lib):
+    f = Fields(torch.float64, 85, *FOOTPRINT_SIZE)
+    smoke = chip_smoke()
+    check_footprint(lib, mom_adj_case(f), smoke.mom_adj_footprint,
+                    smoke.MOM_RINGS, same_as=close)
 
 
 # GM's tensor: none, a constant Kux/Kvy ("const"), a 3-D one ("3d"), each
@@ -865,12 +963,6 @@ def test_seaice_evp_uv(lib, monkeypatch, ny, nx, dtype, variant, last):
 O_OL = 4
 O_SHAPES = ((4, 12, 20), (11, 30, 24), (3, 10, 40))
 O_SWEEPS = {"gad_os7mp_x": 0, "gad_os7mp_y": 1, "gad_os7mp_r": 2}
-# the source each sweep reads, by the wrapper's name: the tracer, the X
-# sweep's output, the Y sweep's
-O_SOURCE = {"gad_os7mp_x": "tracer", "gad_os7mp_y": "localX",
-            "gad_os7mp_r": "localY"}
-O_OUT = {"gad_os7mp_x": "localX", "gad_os7mp_y": "localY",
-         "gad_os7mp_r": "gTr"}
 
 
 def os7mp_case(f, name, deltaT=600.0):
@@ -878,6 +970,14 @@ def os7mp_case(f, name, deltaT=600.0):
     after the table, run(inputs) -> outputs) of O's sweep `name` on f's
     grid (halos of 4): transports of both signs, a tenth of them exactly 0,
     Courant numbers up to about 1, a source with fronts."""
+    return sweep_case(f, "gad_os7mp", O_SWEEPS[name], 7, deltaT)
+
+
+def sweep_case(f, kernel, direction, scheme, deltaT=600.0):
+    """os7mp_case for the sweep (0 X, 1 Y, 2 R) of `kernel` (gad_os7mp or
+    gad_ppm) and a scheme it owns."""
+    name = f"{kernel}_{'xyr'[direction]}"
+    source = ("tracer", "localX", "localY")[direction]
     g = f.grid
     nr, nyp, nxp = f.s3
     cfg = SimpleNamespace(rkSign=-1.0)
@@ -897,27 +997,27 @@ def os7mp_case(f, name, deltaT=600.0):
     tracer = (15.0 + f.normal(f.s3, 2.0)) * g.maskC
     tracer[:, :, nxp // 2:] += 3.0
     tracer[nr // 2:, nyp // 2:, :] -= 2.0
-    src = tracer if name == "gad_os7mp_x" else (
+    src = tracer if direction == 0 else (
         tracer + f.normal(f.s3, 0.5)) * g.maskC
-    want = [gad.MD_PLAIN[name](cfg, g, flow, u, v, w, tracer, src, 7, 7,
-                               deltaT)]
+    want = [gad.MD_PLAIN[name](cfg, g, flow, u, v, w, tracer, src, scheme,
+                               scheme, deltaT)]
     named = dict(uTrans=uT, vTrans=vT, rTrans=rT, uVel=u, vVel=v, wVel=w,
                  tracer=tracer,
                  **{n: getattr(g, n) for n in gad._MD_GRID3
                     + gad._MD_GRID2 + gad._MD_GRID1})
-    named[O_SOURCE[name]] = src
+    named[source] = src
     order = [n for n in named if n not in ("localX", "localY")]
-    lib_fn = f"host_gad_os7mp_{SUFFIX[f.dtype]}"
+    lib_fn = f"host_{kernel}_{SUFFIX[f.dtype]}"
 
     def run(lib, ins):
         out = torch.full(f.s3, float("nan"), dtype=f.dtype)
         tab = table([ins[n] for n in order])
         assert getattr(lib, lib_fn)(
-            O_SWEEPS[name], tab, len(tab), ins[O_SOURCE[name]].data_ptr(),
-            out.data_ptr(), nr, nyp, nxp, 7, deltaT, cfg.rkSign) == 0
+            direction, tab, len(tab), ins[source].data_ptr(),
+            out.data_ptr(), nr, nyp, nxp, scheme, deltaT, cfg.rkSign) == 0
         return [out]
 
-    args = (named[O_SOURCE[name]].data_ptr(), None, nr, nyp, nxp, 7, deltaT,
+    args = (named[source].data_ptr(), None, nr, nyp, nxp, scheme, deltaT,
             cfg.rkSign)
     return want, named, args, run
 
@@ -966,6 +1066,67 @@ def test_os7mp_footprint(lib, name):
     smoke = chip_smoke()
     check_footprint(lib, os7mp_case(f, name), smoke.FOOTPRINTS[name][0], {},
                     same_as=check_whole)
+
+
+# Kernel P's three sweeps on halos of 4, each against its twin sweep
+# (model/gad.py:MD_PLAIN) on every padded cell, non-finite values in the
+# same cells, for every scheme of PPM and PQM: (nr, ny, nx). X's rows of 30
+# cells, Y's walks of 32 rows and R's 32 x 8 columns are ragged on each
+# grid (the second has two walks a column, the last two X tiles a row, the
+# second ragged); 3, 4 and 5 levels put R's ghost copies in every WENO
+# window and edge stencil, 11 levels hold some of them away from both ends.
+P_SHAPES = ((4, 12, 20), (11, 30, 24), (3, 10, 40), (5, 9, 31))
+P_SWEEPS = {"gad_ppm_x": 0, "gad_ppm_y": 1, "gad_ppm_r": 2}
+P_SCHEMES = (40, 41, 42, 50, 51, 52)
+
+
+@pytest.fixture
+def numpy_sqrt(monkeypatch):
+    """The twins' sqrt correctly rounded, as the kernels' (PyTorch's CPU
+    sqrt is not always)."""
+    monkeypatch.setattr(torch, "sqrt", lambda t: torch.from_numpy(
+        np.sqrt(t.numpy())))
+
+
+@pytest.mark.parametrize("nr,ny,nx", P_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scheme", P_SCHEMES)
+@pytest.mark.parametrize("name", P_SWEEPS)
+def test_ppm_tile(lib, numpy_sqrt, nr, ny, nx, dtype, scheme, name):
+    f = Fields(DTYPES[dtype], 300 + nr + nx + scheme, ny, nx, nr, O_OL)
+    want, named, _, run = sweep_case(f, "gad_ppm", P_SWEEPS[name], scheme)
+    (got,) = run(lib, named)
+    check_same(got, want[0], f"{name} scheme {scheme}")
+
+
+def test_ppm_launch_refuses(lib):
+    """A table of the wrong length, a scheme that is not P's, an empty
+    grid (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 316, 12, 20, 4, O_OL)
+    _, named, args, _ = sweep_case(f, "gad_ppm", 0, 51)
+    tab = table([named[n] for n in named if n not in ("localX", "localY")])
+    out = torch.empty(f.s3, dtype=f.dtype)
+    nr, nyp, nxp = args[2:5]
+    for d in P_SWEEPS.values():
+        for n, scheme, shape in ((len(tab) - 1, 51, (nr, nyp, nxp)),
+                                 (len(tab), 7, (nr, nyp, nxp)),
+                                 (len(tab), 43, (nr, nyp, nxp)),
+                                 (len(tab), 51, (0, nyp, nxp))):
+            assert lib.host_gad_ppm_f64(d, tab, n, args[0], out.data_ptr(),
+                                        *shape, scheme, 600.0, -1.0) == 1
+
+
+# chip_smoke.py's footprints of P's sweeps (every padded cell of each field
+# a sweep reads, R's wVel and recip_drC where it forms a flux or an edge)
+# hold every cell read and no cell unread, for PPM and for PQM (which also
+# reads the edge slopes' spacings)
+@pytest.mark.parametrize("scheme", (41, 52))
+@pytest.mark.parametrize("name", P_SWEEPS)
+def test_ppm_footprint(lib, numpy_sqrt, scheme, name):
+    f = Fields(torch.float64, 320 + scheme, 12, 20, 5, O_OL)
+    smoke = chip_smoke()
+    check_footprint(lib, sweep_case(f, "gad_ppm", P_SWEEPS[name], scheme),
+                    smoke.FOOTPRINTS[name][0], {}, same_as=check_same)
 
 
 # Kernel H-SOM's three passes against their twins (model/som.py) on every
