@@ -485,11 +485,23 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # viscous products ~55; interface k+1's terms ~40; the sums
                 # of u_bar, v_bar, the drag and w_bar ~210
                 "gad_calc_rhs_c2": 60, "mom_fluxform_adj": 370,
-                "gad_calc_rhs_c2_adj": 120, "mom_vecinv": 300,
+                "gad_calc_rhs_c2_adj": 120,
+                # V's tile: the staging's nine products ~15 a staged cell,
+                # 1.6 staged cells a column; hFacZ, the vorticity, zeta and
+                # 1 / hFacZ ~25 (a division under schemes 0 and 2); the
+                # divergence and KE ~12; the Coriolis, vorticity advection
+                # (a division), shear, dissipation, side and bottom drag
+                # terms ~140
+                "mom_vecinv": 200,
                 "impldiff": 15, "eos_find_rho": 60, "kpp_pre": 400,
                 "kpp_smooth": 40, "kpp_col": 250, "ggl90_col": 120,
-                "ggl90_visc": 10, "gad_multidim_x": 80,
-                "gad_multidim_y": 80, "gad_multidim_r": 80,
+                "ggl90_visc": 10,
+                # M: one flux a face (scheme 33: its Courant weights ~10,
+                # two psi of ~12 flops and two divisions each, ~8
+                # instructions a division, and the blend ~8) and the update
+                # ~10
+                "gad_multidim_x": 90, "gad_multidim_y": 90,
+                "gad_multidim_r": 90,
                 # O: one flux a face (~90 flops and 9 divisions) and the
                 # update; H-SOM: the limiter, the two fluxes leaving a cell
                 # and the two-sweep update (4 divisions)
@@ -836,6 +848,18 @@ GAD_RINGS = {
     "Kvy": N, "Kvz": N, "maskS": N}
 
 
+# Kernel V, the same way: its vorticity points reach north and east, its
+# divergence and KE and the shear's w rA south and west, the planetary and
+# vorticity averages the corners (j+1, i-1) and (j-1, i+1)
+VECINV_RINGS = {
+    "u": RING4, "v": RING4, "hFacW": RING4, "hFacS": RING4,
+    "maskW": (1, 1, 0, 1), "maskS": (0, 1, 1, 1), "w": SW, "maskC": SW,
+    "recip_hFacC": SW, "rA": SW, "recip_rA": SW, "dxC": (1, 1, 0, 1),
+    "dyC": (0, 1, 1, 1), "dyG": (1, 0, 1, 1), "dxG": (1, 1, 1, 0),
+    "dxV": N, "recip_dyU": N, "dyU": E, "recip_dxV": E,
+    "recip_rAz": (0, 1, 0, 1), "fCoriG": (0, 1, 0, 1)}
+
+
 def mom_footprint(named, args):
     """Kernel B's inputs as the views that its launch reads (args: the
     launch's arguments after the pointer table and its length): the
@@ -846,6 +870,29 @@ def mom_footprint(named, args):
               "recip_drC": slice(1, nr)}
     skip = () if cori3d else ("fCoriCos", "angleCosC")
     return {n: footprint_view(t, oly, olx, MOM_RINGS.get(n),
+                              levels.get(n))
+            for n, t in named.items() if n not in skip}
+
+
+def vecinv_footprint(named, args):
+    """Kernel V's inputs as the views that its launch reads (args: nr, ny,
+    nx, oly, olx, vortScheme, coriScheme, implicitViscosity, noSlipBottom,
+    ...): maskC above the bottom level (w rA's mask of the level below);
+    the kappas at the interfaces below the surface that the explicit
+    viscous flux (1 .. nr-1) or the no-slip bottom drag (1 .. nr) reads,
+    with recip_drC between the levels, none of them under implicit
+    viscosity without the no-slip drag; rAw and rAs only under explicit
+    viscosity."""
+    nr, _, _, oly, olx, _, _, implicit, no_slip = args[:9]
+    kappa = slice(1, None) if no_slip else slice(1, nr)
+    levels = {"maskC": slice(0, nr - 1), "kappaRU": kappa,
+              "kappaRV": kappa, "recip_drC": slice(1, nr)}
+    skip = ()
+    if implicit:
+        skip = ("rAw", "rAs")
+        if not no_slip:
+            skip += ("kappaRU", "kappaRV", "recip_drC")
+    return {n: footprint_view(t, oly, olx, VECINV_RINGS.get(n),
                               levels.get(n))
             for n, t in named.items() if n not in skip}
 
@@ -957,6 +1004,37 @@ PQM_READS = {"gad_ppm_x": ("recip_dxC", "dxF"),
              "gad_ppm_r": ("recip_drC", "drF")}
 
 
+# the fields that each sweep of kernel M reads, the same way: O's, but the
+# face masks only for schemes 30, 33 and 77 and the velocity not for
+# scheme 1 in X and Y; in R wVel (at the interfaces below the surface) not
+# for schemes 1, 2, 3 and 4, maskC above the bottom level only for 1, 2
+# and 20
+MD_READS = {f"gad_multidim_{d}": O_READS[f"gad_os7mp_{d}"] for d in "xyr"}
+
+
+def md_footprint(name, named, args):
+    """The inputs of M's sweep `name` as the views that its launch reads
+    (args: the launch's source and destination, nr, nyp, nxp, scheme,
+    ...): every padded cell of MD_READS[name]'s fields that its scheme
+    reads."""
+    nr, scheme = args[2], args[5]
+    drop, levels = set(), {}
+    if name.endswith("_r"):
+        levels = {"wVel": slice(1, None), "recip_drC": slice(1, nr)}
+        if scheme in (1, 2, 3, 4):
+            drop |= {"wVel", "recip_drC"}
+        if scheme in (1, 2, 20):
+            levels["maskC"] = slice(0, nr - 1)
+    else:
+        if scheme in (1, 20):
+            drop |= {n for n in MD_READS[name] if n.startswith("mask")
+                     and n != "maskInC"}
+        if scheme == 1:
+            drop |= {"uVel", "vVel", "recip_dxC", "recip_dyC"}
+    return {n: footprint_view(named[n], 0, 0, None, levels.get(n))
+            for n in MD_READS[name] if n not in drop}
+
+
 def ppm_footprint(name, named, args):
     """The inputs of P's sweep `name` as the views that its launch reads
     (args: the launch's source and destination, nr, nyp, nxp, scheme, ...):
@@ -1006,6 +1084,8 @@ def footprint_view(t, oly, olx, ring, levels):
 
 FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
                                                "gvDiss")),
+              "mom_vecinv": (vecinv_footprint, ("gU", "gV", "guDiss",
+                                                "gvDiss")),
               "mom_fluxform_adj": (mom_adj_footprint, ("u_bar", "v_bar",
                                                        "w_bar")),
               "gad_calc_rhs_c2": (gad_footprint, ("last",)),
@@ -1026,6 +1106,9 @@ FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
               **{name: (lambda named, args, name=name: ppm_footprint(
                   name, named, args), (out,))
                  for name, out in zip(P_READS, ("localX", "localY", "gTr"))},
+              **{name: (lambda named, args, name=name: md_footprint(
+                  name, named, args), (out,))
+                 for name, out in zip(MD_READS, ("localX", "localY", "gTr"))},
               **{name: (lambda named, args, name=name: som_footprint(
                   name, named, args), outs)
                  for name, (_, outs) in SOM_READS.items()}}
@@ -1563,12 +1646,28 @@ def adjoint_full_phase(kernels):
     return launches
 
 
+# V's template variants beside the vi-gyre's (vorticity scheme 1, Coriolis
+# scheme 0, implicit viscosity, no-slip bottom drag): the settings each
+# changes in the configuration; phase 7 holds the others at its small size
+VI_VARIANTS = {
+    "": {}, "vort 0": {"selectVortScheme": 0},
+    "vort 2": {"selectVortScheme": 2}, "Coriolis 1": {"selectCoriScheme": 1},
+    "explicit": {"implicitViscosity": False},
+    "explicit, vort 0, Coriolis 1": {"implicitViscosity": False,
+                                     "selectVortScheme": 0,
+                                     "selectCoriScheme": 1},
+    "no-slip and linear drag": {"bottomDragLinear": 2e-4},
+    "linear drag": {"no_slip_bottom": False, "bottomDragLinear": 2e-4},
+    "no drag": {"no_slip_bottom": False}}
+
+
 def vi_kernel_phase(case, results, reps):
     """Kernels V, T and R against their twins on the same seeded inputs: V
-    on the interior (its halo outputs are zeros), T and R on whole arrays
-    (a column solve and a pointwise pass compute their halos as the twins
-    do). R on the vi-gyre's JMD95Z (the main path's, in the summary) and
-    on MDJWF with the pressure from totPhiHyd."""
+    bit for bit on the interior, its halo outputs zeros (the vi-gyre's
+    variant, and at the small size each of VI_VARIANTS), T and R on whole
+    arrays (a column solve and a pointwise pass compute their halos as the
+    twins do). R on the vi-gyre's JMD95Z (the main path's, in the summary)
+    and on MDJWF with the pressure from totPhiHyd."""
     import dataclasses
 
     from mitgcm_tpu_torch.model.mom_vecinv import mom_vecinv
@@ -1576,15 +1675,29 @@ def vi_kernel_phase(case, results, reps):
     from mitgcm_tpu_torch.ops.eos import find_rho
 
     cfg, g = case.cfg, case.grid
+    ol = cfg.olx
+    variants = VI_VARIANTS if case.dtype == torch.float64 else {"": {}}
+    for label, settings in variants.items():
+        vcfg = dataclasses.replace(cfg, **settings)
 
-    def mom(impl):
-        return mom_vecinv(cfg, g, case.u, case.v, case.w, case.kappaRU,
-                          case.kappaRV, impl=impl)
+        def mom(impl, vcfg=vcfg):
+            return mom_vecinv(vcfg, g, case.u, case.v, case.w, case.kappaRU,
+                              case.kappaRV, impl=impl)
 
-    compare("mom_vecinv", case, mom(None), mom("plain"),
-            cuda_time_ms(lambda: mom(None), reps),
-            cuda_time_ms(lambda: mom("plain"), reps), results,
-            call=lambda: mom(None))
+        outs = mom(None)
+        halo = [t.clone() for t in outs]
+        for t in halo:
+            t[:, ol:-ol, ol:-ol] = 0.0
+        if not all(float(t.abs().max()) == 0.0 for t in halo):
+            raise AssertionError(f"mom_vecinv({label}): a halo output is "
+                                 "not 0")
+        main = not label
+        name = "mom_vecinv" + ("" if main else f"({label})")
+        exact_compare(name, case, [f[:, ol:-ol, ol:-ol] for f in outs],
+                      [f[:, ol:-ol, ol:-ol] for f in mom("plain")],
+                      cuda_time_ms(lambda: mom(None), reps) if main else None,
+                      cuda_time_ms(lambda: mom("plain"), reps)
+                      if main else None, results, call=lambda: mom(None))
 
     # T as the step runs it: a tracer at C points with its [nr] kappa, and
     # uStar at W points with kappaRU [nr+1]; the times are the tracer's
@@ -2063,8 +2176,9 @@ class G9Case:
 def g9_kernel_phase(case, results, reps):
     """G9 (ggl90_col, then ggl90_visc on its visctmp) and M (each sweep on
     the previous sweep's output, schemes 30, 33 and 77; 33, the main
-    path's, last) against their twins on whole arrays, halos included;
-    and C without its advective part, as the ggl90-gyre runs it."""
+    path's, last; bit for bit, with the bounds of M's footprints) against
+    their twins on whole arrays, halos included; and C without its
+    advective part, as the ggl90-gyre runs it."""
     from mitgcm_tpu_torch.model import gad
     from mitgcm_tpu_torch.model import ggl90 as g9
 
@@ -2099,21 +2213,19 @@ def g9_kernel_phase(case, results, reps):
           f"{float(ck['diffKr'].max()):.3e}", flush=True)
 
     for scheme in (30, 77, 33):
-        sweeps = gad.multidim_sweeps(cfg, g, case.flow, case.u, case.v,
-                                     case.w, case.tracer, scheme, scheme,
-                                     cfg.deltaTTracer)
-        for name, run, src, dst, touched in sweeps:
+        args = (cfg, g, case.flow, case.u, case.v, case.w, case.tracer,
+                scheme, scheme, cfg.deltaTTracer)
+        for name, run, src, dst, _ in gad.multidim_sweeps(*args):
             twin = gad.MD_PLAIN[name]
 
             def plain(twin=twin, src=src):
-                return twin(cfg, g, case.flow, case.u, case.v, case.w,
-                            case.tracer, src, scheme, scheme,
-                            cfg.deltaTTracer)
+                return twin(*args[:7], src, *args[7:])
             run()
             label = name if scheme == 33 else f"{name}({scheme})"
-            compare(label, case, [dst], [plain()],
-                    cuda_time_ms(run, reps), cuda_time_ms(plain, reps),
-                    results, whole=True, tensors=touched)
+            exact_compare(label, case, [dst], [plain()],
+                          cuda_time_ms(run, reps), cuda_time_ms(plain, reps),
+                          results,
+                          call=lambda: gad.multidim_advection(*args))
 
     ol = cfg.olx
 
@@ -2314,7 +2426,7 @@ def ho_kernel_phase(case, results, reps, plain_reps):
         sweeps = gad.multidim_sweeps(cfg, g, case.flow, case.u, case.v,
                                      case.w, case.tracer, scheme, vert,
                                      cfg.deltaTTracer)
-        for name, run, src, dst, touched in sweeps:
+        for name, run, src, dst, _ in sweeps:
             sch = vert if name.endswith("_r") else scheme
             if (name, sch) in done:
                 continue
@@ -2326,21 +2438,17 @@ def ho_kernel_phase(case, results, reps, plain_reps):
                             case.tracer, src, scheme, vert, cfg.deltaTTracer)
             run()
             label = name if sch in (7, 51) else f"{name}({sch})"
-            # O's and P's bounds count what their launches read
-            # (FOOTPRINTS), from a call of the whole advection; M's the
-            # padded planes
-            call = None
-            if name in FOOTPRINTS:
-                touched = None
 
-                def call(scheme=scheme, vert=vert):
-                    return gad.multidim_advection(
-                        cfg, g, case.flow, case.u, case.v, case.w,
-                        case.tracer, scheme, vert, cfg.deltaTTracer)
+            # each sweep's bound counts what its launch reads (FOOTPRINTS),
+            # from a call of the whole advection
+            def call(scheme=scheme, vert=vert):
+                return gad.multidim_advection(
+                    cfg, g, case.flow, case.u, case.v, case.w,
+                    case.tracer, scheme, vert, cfg.deltaTTracer)
             exact_compare(label, case, [dst], [plain()],
                           cuda_time_ms(run, reps),
                           cuda_time_ms(plain, plain_reps), results,
-                          call=call, touched=touched)
+                          call=call)
 
 
 def ho_phase(kernels, results, smi):

@@ -4,8 +4,9 @@
     python3 profile_glue.py [--root DIR] [--config CONFIG] [--n N]
                             [--kernels [GROUP ...]] [--ptxas]
 
-Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, ggl90-gyre,
-os7mp-gyre, pqm-gyre, som-gyre or evp-ice-gyre (deltaT = 600 s), or the
+Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, vi-gyre,
+ggl90-gyre, os7mp-gyre, pqm-gyre, som-gyre or evp-ice-gyre (deltaT =
+600 s), or the
 N x N x 50 nh-convection box (--config box, deltaT = 60 s), of the
 PyTorch port found under DIR (default: this script's directory; give an
 unpacked earlier tree to compare two versions on one card, in turns):
@@ -40,12 +41,21 @@ their bounds. Group "som": H-SOM's three passes of schemes 81 and 80 on
 chip_smoke.py's 1024x1024x32 float32 IsmCase, the same way. Group "ppm":
 each sweep of kernel P for each of its six schemes (40-42, 50-52) on
 chip_smoke.py's seeded 1024x1024x32 float32 pqm-gyre (G9Case), as CUDA
-graphs of 20, with the bounds of its footprints. Group "adjoint": one
+graphs of 20, with the bounds of its footprints. Group "vecinv": one
+launch of kernel V on chip_smoke.py's seeded vi-gyre (Case) at
+1024x1024x32 and 64x64x32 float32, for each of chip_smoke.py's
+VI_VARIANTS (the vi-gyre's first), as CUDA graphs of 20, with their
+bounds (chip_smoke.py:vecinv_footprint). Group "multidim": M's three
+sweeps for each pair of MD_SCHEMES on chip_smoke.py's seeded
+1024x1024x32 float32 ggl90-gyre (G9Case), each on the previous sweep's
+output, the same way. The sweep groups print a sha256 digest of each
+sweep's output, "vecinv" of each launch's four outputs, so that two
+trees' bits can be compared. Group "adjoint": one
 launch of B' (mom_fluxform_adj) and of C' (gad_calc_rhs_c2_adj) on
 chip_smoke.py's seeded 1024x1024x32 float32 gyre (Case) with phase 6's
 seeded cotangents, as CUDA graphs of 20, with their bounds, and a sha256
 digest of each launch's output bytes, so that two trees' bits can be
-compared. No group named: all seven. --config adjoint instead times the
+compared. No group named: all nine. --config adjoint instead times the
 gradient of phase 6's box cost through 6 checkpointed steps of the
 N x N x 32 float32 gyre (3 runs, ms/step) and profiles one (device busy
 ms/step and idle share, as a step's). --ptxas instead compiles the tree's
@@ -73,16 +83,23 @@ BOX_SHAPE = (1024, 50)   # the nh-convection box's, float32
 EVP_SHAPE = (1024, 32)   # the evp-ice-gyre's, float32 (EVP is 2-D)
 # the cg3d solves of group "cg3d": their caps of iterations
 CG3D_CAPS = (20, 100)
-KERNEL_GROUPS = ("glue", "cg3d", "evp", "os7mp", "som", "ppm", "adjoint")
+KERNEL_GROUPS = ("glue", "cg3d", "evp", "os7mp", "som", "ppm", "vecinv",
+                 "multidim", "adjoint")
 # group "os7mp": the (scheme, vertical scheme) pairs whose sweeps it times,
 # O's first; group "som": H-SOM's schemes
 HO_SCHEMES = ((7, 7), (33, 33), (41, 41), (51, 51))
 SOM_SCHEMES = (81, 80)
 # group "ppm": kernel P's schemes
 PPM_SCHEMES = (40, 41, 42, 50, 51, 52)
+# group "multidim": kernel M's (scheme, vertical scheme) pairs, the
+# ggl90-gyre's first; each sweep is timed once
+MD_SCHEMES = ((33, 33), (30, 30), (77, 77), (1, 1), (20, 20), (30, 2),
+              (30, 3), (30, 4))
+# group "vecinv": V's sizes (n, levels)
+VECINV_SHAPES = ((1024, 32), (64, 32))
 # the sources whose kernels --ptxas reports, under kernels/csrc
 PTXAS_SOURCES = ("gad_os7mp.cu", "som.cu", "gad_ppm.cu",
-                 "mom_fluxform_adj.cu")
+                 "mom_fluxform_adj.cu", "mom_vecinv.cu", "gad_multidim.cu")
 # --config adjoint: the steps of the gradient (phase 6's)
 ADJ_STEPS = 6
 # the launches of a tree from before the cg3d iteration became two passes
@@ -263,27 +280,46 @@ def graph_row(smoke, name, run, label, rows, call=None, tensors=None):
           f"{bound_ms:.5f} ({bound_ms / ms:.2f})", flush=True)
 
 
+def digest_row(rows, outs):
+    """Add the sha256 of the tensors' bytes to the last row, and print
+    it."""
+    import hashlib
+
+    import torch
+
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in outs:
+        digest.update(t.detach().cpu().numpy().tobytes())
+    rows[-1]["sha256"] = digest.hexdigest()
+    print(f"{rows[-1]['kernel']:16s} outputs' sha256 {rows[-1]['sha256']}",
+          flush=True)
+
+
 def sweep_times(smoke, case, pairs, label, rows):
     """The sweeps of each (scheme, vertical scheme) of `pairs` on a
-    G9Case, each on the previous sweep's output (the bounds of O's and P's
-    from their footprints, M's from the padded planes)."""
+    G9Case, each on the previous sweep's output, with the bounds of their
+    footprints and the digest of each sweep's output (a sweep that an
+    earlier pair timed with the same scheme is not timed again)."""
     import torch
     from mitgcm_tpu_torch.model import gad
 
     cfg, g, dt = case.cfg, case.grid, case.cfg.deltaTTracer
+    done = set()
     for scheme, vert in pairs:
         args = (cfg, g, case.flow, case.u, case.v, case.w, case.tracer,
                 scheme, vert, dt)
         sweeps = gad.multidim_sweeps(*args)
         for _, run, _, _, _ in sweeps:
             run()
-        for name, run, _, _, touched in sweeps:
-            shape = f"{label} {case.label} scheme {scheme}"
-            if name in smoke.FOOTPRINTS:
-                graph_row(smoke, name, run, shape, rows,
-                          call=lambda: gad.multidim_advection(*args))
-            else:
-                graph_row(smoke, name, run, shape, rows, tensors=touched)
+        for name, run, _, dst, _ in sweeps:
+            sch = vert if name.endswith("_r") else scheme
+            if (name, sch) in done:
+                continue
+            done.add((name, sch))
+            graph_row(smoke, name, run, f"{label} {case.label} scheme {sch}",
+                      rows, call=lambda: gad.multidim_advection(*args))
+            digest_row(rows, [dst])
         del sweeps
         torch.cuda.empty_cache()
 
@@ -326,12 +362,48 @@ def ppm_times(smoke, rows):
                 [(s, s) for s in PPM_SCHEMES], "pqm-gyre", rows)
 
 
+def multidim_times(smoke, rows):
+    """Group "multidim": M's sweeps of MD_SCHEMES on the seeded
+    ggl90-gyre."""
+    import torch
+
+    sweep_times(smoke, smoke.G9Case(1024, 32, torch.float32), MD_SCHEMES,
+                "ggl90-gyre", rows)
+
+
+def vecinv_times(smoke, rows):
+    """Group "vecinv": one launch of V for each of chip_smoke.py's
+    VI_VARIANTS on the seeded vi-gyre at VECINV_SHAPES, with the digest of
+    its outputs."""
+    import dataclasses
+
+    import torch
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model.mom_vecinv import mom_vecinv
+
+    for n, nr in VECINV_SHAPES:
+        case = smoke.Case(n, nr, torch.float32, vi=True)
+        for label, settings in smoke.VI_VARIANTS.items():
+            cfg = dataclasses.replace(case.cfg, **settings)
+
+            def call(cfg=cfg):
+                return mom_vecinv(cfg, case.grid, case.u, case.v, case.w,
+                                  case.kappaRU, case.kappaRV)
+            args, outs = smoke.captured_launch(call, "mom_vecinv")
+            graph_row(smoke, "mom_vecinv", lambda: kernels.launch(*args),
+                      f"vi-gyre {case.label} {label or 'vi-gyre variant'}",
+                      rows, call=call)
+            digest_row(rows, outs)
+            del outs
+        del case
+        smoke.GRIDS.clear()
+        torch.cuda.empty_cache()
+
+
 def adjoint_times(smoke, rows):
     """Group "adjoint": one launch of B' and of C' on the seeded gyre, as
     phase 6 drives them (chip_smoke.py:vjp_phase), with the sha256 of the
     launch's outputs."""
-    import hashlib
-
     import numpy as np
     import torch
     from mitgcm_tpu_torch import kernels
@@ -371,12 +443,7 @@ def adjoint_times(smoke, rows):
         args, outs = smoke.captured_launch(call, name)
         graph_row(smoke, name, lambda: kernels.launch(*args), label, rows,
                   call=call)
-        torch.cuda.synchronize()
-        digest = hashlib.sha256()
-        for t in outs:
-            digest.update(t.detach().cpu().numpy().tobytes())
-        rows[-1]["sha256"] = digest.hexdigest()
-        print(f"{name:16s} outputs' sha256 {rows[-1]['sha256']}", flush=True)
+        digest_row(rows, outs)
         del outs
     del case
 
@@ -444,12 +511,15 @@ def ptxas(root):
 def kernel_times(smoke, groups):
     """--kernels: [{kernel, shape, ms, bound_ms, share}] of the groups
     named: "glue", B, C and D-G at KERNEL_SHAPES, then the box's
-    mom_correction; "cg3d"; "evp"; "os7mp"; "som"; "ppm"; "adjoint"."""
+    mom_correction; "cg3d"; "evp"; "os7mp"; "som"; "ppm"; "vecinv";
+    "multidim"; "adjoint"."""
     import torch
 
     rows = []
     for group, times in (("os7mp", os7mp_times), ("som", som_times),
-                         ("ppm", ppm_times), ("adjoint", adjoint_times)):
+                         ("ppm", ppm_times), ("vecinv", vecinv_times),
+                         ("multidim", multidim_times),
+                         ("adjoint", adjoint_times)):
         if group in groups:
             times(smoke, rows)
             smoke.GRIDS.clear()
@@ -496,8 +566,9 @@ def glue_times(smoke, rows):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--config", choices=("gyre", "ggl90", "os7mp", "pqm",
-                                         "som", "box", "evp-ice", "adjoint"),
+    ap.add_argument("--config", choices=("gyre", "vi", "ggl90", "os7mp",
+                                         "pqm", "som", "box", "evp-ice",
+                                         "adjoint"),
                     default="gyre")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--kernels", nargs="*", choices=KERNEL_GROUPS)
@@ -539,6 +610,8 @@ def main():
                                   deltaT=60.0)
     elif args.config == "evp-ice":
         exp = smoke.evp_experiment(args.n, 32, torch.float32, deltaT=600.0)
+    elif args.config == "vi":
+        exp = smoke.vi_experiment(args.n, 32, torch.float32, deltaT=600.0)
     elif args.config in ("os7mp", "pqm", "som"):
         exp = smoke.g9_experiment(args.n, 32, torch.float32,
                                   config=args.config, deltaT=600.0)

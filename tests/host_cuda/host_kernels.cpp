@@ -1,22 +1,25 @@
 // Kernels B and C's forward kernels, B', D, G's mom_correction, H-cg3d's
-// two passes, H-seaice EVP's seaice_evp_uv, O's and P's three sweeps and
-// H-SOM's three passes, built by g++ against the mock CUDA runtime beside
-// this file and run on the host through the launches that their entry
-// points use (launch_mom, launch_mom_adj of mom_fluxform_adj_tile.cuh,
-// launch_calc_rhs, launch_phihyd, launch_s_stencil_dot and
-// launch_xr_precond of kernels/csrc/*_tile.cuh, launch_mom_correction of
-// mom_correction.cuh, launch_evp_uv of seaice_evp_uv.cuh, launch_os7mp of
+// two passes, H-seaice EVP's seaice_evp_uv, V, M's, O's and P's three
+// sweeps and H-SOM's three passes, built by g++ against the mock CUDA
+// runtime beside this file and run on the host through the launches that
+// their entry points use (launch_mom, launch_mom_adj of
+// mom_fluxform_adj_tile.cuh, launch_calc_rhs, launch_phihyd,
+// launch_s_stencil_dot and launch_xr_precond of kernels/csrc/*_tile.cuh,
+// launch_mom_correction of mom_correction.cuh, launch_evp_uv of
+// seaice_evp_uv.cuh, launch_vecinv of mom_vecinv_tile.cuh,
+// launch_multidim of gad_multidim_tile.cuh, launch_os7mp of
 // gad_os7mp_tile.cuh, launch_ppm of gad_ppm_tile.cuh, launch_som_horiz and
-// launch_som_r of som_tile.cuh),
-// for tests/test_torch_host_kernels.py.
+// launch_som_r of som_tile.cuh), for tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "cg3d_tile.cuh"
 #include "gad_calc_rhs_tile.cuh"
+#include "gad_multidim_tile.cuh"
 #include "gad_os7mp_tile.cuh"
 #include "gad_ppm_tile.cuh"
 #include "mom_correction.cuh"
 #include "mom_fluxform_adj_tile.cuh"
 #include "mom_fluxform_tile.cuh"
+#include "mom_vecinv_tile.cuh"
 #include "phihyd_tile.cuh"
 #include "seaice_evp_uv.cuh"
 #include "som_tile.cuh"
@@ -109,9 +112,31 @@ struct OnHost {
                             rev_den, last, OnHost{});                        \
   }
 
-// O's sweeps and H-SOM's passes, with their entry points' arguments but
-// the stream
+// V, M's and O's sweeps and H-SOM's passes, with their entry points'
+// arguments but the stream
 #define HOST_ADVECTION_ENTRY_POINTS(T, SUF)                                  \
+  extern "C" int host_mom_vecinv_##SUF(                                      \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,      \
+      int olx, int vortScheme, int coriScheme, int implicitViscosity,        \
+      int noSlipBottom, double viscAh, double sideDragFactor,                \
+      double bottomDragLinear, double rkSign) {                              \
+    return launch_vecinv<T>(table, n, nr, ny, nx, oly, olx, vortScheme,      \
+                            coriScheme, implicitViscosity, noSlipBottom,     \
+                            viscAh, sideDragFactor, bottomDragLinear,        \
+                            rkSign, OnHost{});                               \
+  }                                                                          \
+  extern "C" int host_gad_multidim_##SUF(                                    \
+      int dir, const void* const* table, int n, const void* src, void* dst,  \
+      int nr, int nyp, int nxp, int scheme, double deltaT, double rkSign) {  \
+    if (dir == 0)                                                            \
+      return launch_multidim<T, 0>(table, n, src, dst, nr, nyp, nxp, scheme, \
+                                   deltaT, rkSign, OnHost{});                \
+    if (dir == 1)                                                            \
+      return launch_multidim<T, 1>(table, n, src, dst, nr, nyp, nxp, scheme, \
+                                   deltaT, rkSign, OnHost{});                \
+    return launch_multidim<T, 2>(table, n, src, dst, nr, nyp, nxp, scheme,   \
+                                 deltaT, rkSign, OnHost{});                  \
+  }                                                                          \
   extern "C" int host_gad_os7mp_##SUF(                                       \
       int dir, const void* const* table, int n, const void* src, void* dst,  \
       int nr, int nyp, int nxp, int scheme, double deltaT, double rkSign) {  \

@@ -37,6 +37,7 @@ import torch
 
 from mitgcm_tpu_torch.model import gad, gmredi, phihyd, step
 from mitgcm_tpu_torch.model import mom_fluxform as mom
+from mitgcm_tpu_torch.model import mom_vecinv as vecinv
 from mitgcm_tpu_torch.model import seaice, seaice_kernels, som
 from mitgcm_tpu_torch.solver import cg3d
 from mitgcm_tpu_torch.utils import synthetic
@@ -64,6 +65,8 @@ SIGNATURES = {
     + [_I] * 6,
     # the direction (0 X, 1 Y, 2 R), then the entry points' arguments but
     # the stream
+    "host_mom_vecinv": [_PP, _I] + [_I] * 9 + [_D] * 4,
+    "host_gad_multidim": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
     "host_gad_os7mp": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
     "host_gad_ppm": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
     "host_som": [_I, _PP, _I] + [_P] * 7 + [_I] * 4 + [_D],
@@ -1244,4 +1247,172 @@ def test_som_footprint(lib, scheme, name):
     f = Fields(torch.float64, 250 + scheme, 12, 20)
     smoke = chip_smoke()
     check_footprint(lib, som_case(f, name, scheme),
+                    smoke.FOOTPRINTS[name][0], {}, same_as=check_same)
+
+
+# Kernel V (mom_vecinv_tile.cuh) against its twin (model/mom_vecinv.py:
+# _mom_vecinv_plain): every interior output equal, every halo output 0, in
+# each template variant (vorticity scheme 0, 1 or 2, Coriolis scheme 0 or
+# 1, implicit or explicit viscosity) under each bottom drag: no-slip (the
+# vi-gyre's), no-slip with a linear drag, a linear drag alone, none. The
+# random grid's land and partial cells close corners (hFacZ 0), where the
+# vorticity takes the side-drag factor and 1 / hFacZ is 0.
+VI_SCHEMES = [(vort, cori, implicit) for vort in (1, 0, 2) for cori in (0, 1)
+              for implicit in (True, False)]
+VI_DRAGS = {"no-slip": (True, 0.0), "no-slip and linear": (True, 2e-3),
+            "linear": (False, 2e-3), "none": (False, 0.0)}
+
+
+def vecinv_case(f, vort, cori, implicit, drag):
+    """As mom_case, for kernel V on f's grid with its own recip_rAz and
+    fCoriG (drag: a VI_DRAGS key)."""
+    ny, nx = f.s3[1] - 2 * OL, f.s3[2] - 2 * OL
+    no_slip, linear = VI_DRAGS[drag]
+    g = f.grid
+    g.recip_rAz = 1.0 / f.uniform(f.s3[1:], 0.5, 2.0)
+    g.fCoriG = f.uniform(f.s3[1:], -1.5, 1.5)
+    cfg = SimpleNamespace(nr=f.s3[0], rkSign=-1.0, viscAh=430.0,
+                          sideDragFactor=2.0, implicitViscosity=implicit,
+                          no_slip_bottom=no_slip, bottomDragLinear=linear,
+                          selectVortScheme=vort, selectCoriScheme=cori)
+    u = f.normal(f.s3, 0.1) * g.maskW
+    v = f.normal(f.s3, 0.1) * g.maskS
+    w = f.normal(f.s3, 1e-2) * g.maskC
+    kshape = (f.s3[0] + 1,) + f.s3[1:]
+    kRU, kRV = f.normal(kshape, 1e-2).abs(), f.normal(kshape, 1e-2).abs()
+    want = list(vecinv._mom_vecinv_plain(cfg, g, u, v, w, kRU, kRV))
+    args = (f.s3[0], ny, nx, OL, OL, vort, cori, int(implicit), int(no_slip))
+    fn = f"host_mom_vecinv_{SUFFIX[f.dtype]}"
+
+    def run(lib, ins):
+        outs = [torch.full(f.s3, float("nan"), dtype=f.dtype)
+                for _ in range(4)]
+        tab = table(list(ins.values()) + outs)
+        assert getattr(lib, fn)(tab, len(tab), *args, cfg.viscAh,
+                                cfg.sideDragFactor, linear, cfg.rkSign) == 0
+        return outs
+
+    return want, vecinv._kernel_inputs(g, u, v, w, kRU, kRV), args, run
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("vort,cori,implicit", VI_SCHEMES)
+@pytest.mark.parametrize("drag", VI_DRAGS)
+def test_mom_vecinv_tile(lib, ny, nx, dtype, vort, cori, implicit, drag):
+    f = Fields(DTYPES[dtype], 400 + VI_SCHEMES.index((vort, cori, implicit)),
+               ny, nx)
+    want, named, _, run = vecinv_case(f, vort, cori, implicit, drag)
+    closed = int((mom.calc_hfacz(f.grid)[inner_of(f)] == 0).sum())
+    assert closed > 0, "no closed corner in the interior"
+    for name, got, wanted in zip(mom.MomTend._fields, run(lib, named), want):
+        check(got, wanted, name)
+
+
+def inner_of(f):
+    return (..., slice(OL, f.s3[1] - OL), slice(OL, f.s3[2] - OL))
+
+
+def test_mom_vecinv_refuses(lib):
+    """A table of the wrong length, a vorticity scheme of 3, a Coriolis
+    scheme of 2, flags that are not 0 or 1 (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 450, *SIZES[0])
+    _, named, args, _ = vecinv_case(f, 1, 0, True, "no-slip")
+    outs = [torch.empty(f.s3, dtype=f.dtype) for _ in range(4)]
+    tab = table(list(named.values()) + outs)
+    for extra, change in ((-1, {}), (0, {5: 3}), (0, {6: 2}), (0, {7: 2}),
+                          (0, {8: -1})):
+        bad = [change.get(n, a) for n, a in enumerate(args)]
+        assert lib.host_mom_vecinv_f64(tab, len(tab) + extra, *bad, 430.0,
+                                       2.0, 0.0, -1.0) == 1
+
+
+# chip_smoke.py's footprint of V's inputs holds every cell read and no cell
+# unread, in the vi-gyre's variant and in variants that read the kappas
+# for the explicit flux only, for the drag only, or not at all
+VI_FOOTPRINT_VARIANTS = ((1, 0, True, "no-slip"),
+                         (0, 1, False, "no-slip and linear"),
+                         (2, 0, False, "none"), (1, 1, True, "linear"))
+
+
+@pytest.mark.parametrize("vort,cori,implicit,drag", VI_FOOTPRINT_VARIANTS)
+def test_mom_vecinv_footprint(lib, vort, cori, implicit, drag):
+    f = Fields(torch.float64, 460 + vort + 3 * cori, *SIZES[0])
+    smoke = chip_smoke()
+    check_footprint(lib, vecinv_case(f, vort, cori, implicit, drag),
+                    smoke.vecinv_footprint, smoke.VECINV_RINGS)
+
+
+# Kernel M's three sweeps, each against its twin sweep (model/gad.py:
+# MD_PLAIN) on every padded cell, non-finite values in the same cells, for
+# every scheme it owns in each direction, on halos of 2 and 3: (nr, ny,
+# nx). X's rows of 31 cells, Y's walks of 32 rows and R's 32 x 8 columns
+# are ragged on each grid (the second and last have two walks a column, the
+# third two X tiles a row); 1, 2, 3 and 4 levels reach R's clamped
+# neighbours and C4's maskBound at both ends at once, 11 hold them apart.
+MD_SHAPES = ((4, 12, 20), (11, 30, 24), (3, 10, 40), (1, 9, 21),
+             (2, 40, 33))
+MD_SWEEPS = [(name, scheme)
+             for name, schemes in (("gad_multidim_x", (1, 20, 30, 33, 77)),
+                                   ("gad_multidim_y", (1, 20, 30, 33, 77)),
+                                   ("gad_multidim_r", (1, 2, 3, 4, 20, 30,
+                                                       33, 77)))
+             for scheme in schemes]
+
+
+def multidim_case(f, name, scheme):
+    """os7mp_case for M's sweep `name` and a scheme it owns."""
+    return sweep_case(f, "gad_multidim", "xyr".index(name[-1]), scheme)
+
+
+@pytest.mark.parametrize("nr,ny,nx", MD_SHAPES)
+@pytest.mark.parametrize("ol", (2, 3))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name,scheme", MD_SWEEPS)
+def test_multidim_tile(lib, nr, ny, nx, ol, dtype, name, scheme):
+    f = Fields(DTYPES[dtype], 500 + nr + nx + ol, ny, nx, nr, ol)
+    want, named, _, run = multidim_case(f, name, scheme)
+    (got,) = run(lib, named)
+    check_same(got, want[0], f"{name}({scheme})")
+
+
+def test_multidim_transports(lib):
+    """The case's transports change sign within a warp's 32 faces and are
+    exactly 0 on some of them, in each direction (a warp runs 32 faces of
+    a row in each sweep: the padded rows here are 32 cells); the
+    velocities reach Courant numbers near 1."""
+    f = Fields(torch.float64, 530, 30, 28, 11, 2)
+    _, named, _, _ = multidim_case(f, "gad_multidim_x", 33)
+    for trans in ("uTrans", "vTrans", "rTrans"):
+        rows = named[trans].reshape(-1, 32)
+        assert bool(((rows > 0).any(1) & (rows < 0).any(1)
+                     & (rows == 0).any(1)).any()), trans
+    cfl = (named["uVel"] * 600.0 * named["recip_dxC"]).abs()
+    assert 0.6 < float(cfl.max()) < 1.0
+
+
+def test_multidim_launch_refuses(lib):
+    """A table of the wrong length, schemes M does not own in a direction
+    (2 and 7 in X and Y, 7 and 41 in R) (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 531, 12, 20)
+    _, named, args, _ = multidim_case(f, "gad_multidim_x", 33)
+    tab = table([named[n] for n in named])
+    out = torch.empty(f.s3, dtype=f.dtype)
+    for d, n, scheme in ((0, len(tab) - 1, 33), (2, len(tab) - 1, 33),
+                         (0, len(tab), 2), (1, len(tab), 7),
+                         (2, len(tab), 7), (2, len(tab), 41)):
+        assert lib.host_gad_multidim_f64(d, tab, n, args[0], out.data_ptr(),
+                                         *args[2:5], scheme, 600.0,
+                                         -1.0) == 1
+
+
+# chip_smoke.py's footprints of M's sweeps (every padded cell of each field
+# a sweep's scheme reads; R's wVel and recip_drC below the surface, maskC
+# above the bottom under schemes 1, 2 and 20) hold every cell read and no
+# cell unread
+@pytest.mark.parametrize("name,scheme", MD_SWEEPS)
+def test_multidim_footprint(lib, name, scheme):
+    f = Fields(torch.float64, 540, 12, 20, 5)
+    smoke = chip_smoke()
+    check_footprint(lib, multidim_case(f, name, scheme),
                     smoke.FOOTPRINTS[name][0], {}, same_as=check_same)
