@@ -214,6 +214,7 @@ of its path (1024x1024x32, the box's 1024x1024x50), the card's name and
 power limit, and the device line.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -494,8 +495,16 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # terms ~140
                 "mom_vecinv": 200,
                 "impldiff": 15, "eos_find_rho": 60, "kpp_pre": 400,
-                "kpp_smooth": 40, "kpp_col": 250, "ggl90_col": 120,
-                "ggl90_visc": 10,
+                "kpp_smooth": 40, "kpp_col": 250,
+                # G9's column passes: the sweep from the bottom (the raw
+                # length's two square roots and division, ~30 with
+                # flags 2 and 3), the down pass's raw length again, the
+                # limiter and 1 / MLtmp, the shear (~15), the Richardson
+                # and Prandtl numbers and diffKr (three divisions), the
+                # sources, the row's coefficients and its elimination (a
+                # division, ~35), the back substitution (~5); divisions and
+                # square roots ~8 instructions each; Langmuir's exp ~20
+                "ggl90_col": 180, "ggl90_visc": 10,
                 # M: one flux a face (scheme 33: its Courant weights ~10,
                 # two psi of ~12 flops and two divisions each, ~8
                 # instructions a division, and the blend ~8) and the update
@@ -518,7 +527,12 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # H-cg3d's passes: s' and the 7-point product; the x and r
                 # updates with P's two column sweeps and two dot products
                 "cg3d_s_stencil_dot": 40, "cg3d_xr_precond": 18,
-                "calc_gw": 200,
+                # W's tile: each face's harmonic (~11) and advective (~8)
+                # flux once, for the tile's W and S faces and 28 % more on
+                # the ring's; 1 / the open thickness (~14), the viscosity's
+                # eight-term sum, the two interfaces' fluxes and the two
+                # outputs (~30), the 3-D Coriolis term (~12)
+                "calc_gw": 110,
                 # the sea ice's, per 2-D cell (seaice_thermo's per cell of
                 # its largest field, TICES, one category of one column: 11
                 # flux evaluations of ~30 flops and 2 exp, counted as 20
@@ -1065,6 +1079,37 @@ def som_footprint(name, named, args):
     return {n: named[n] for n in SOM_READS[name][0]}
 
 
+def gw_footprint(named, args):
+    """Kernel W's inputs as the views that its launch reads (args: nr, nyp,
+    nxp, coriolis_3d, ...): every padded cell (W writes every padded cell),
+    the kappas at the interfaces below the surface, the 3-D Coriolis term's
+    three fields only under its flag."""
+    skip = () if args[3] else ("fCoriCos", "angleCosC", "angleSinC")
+    levels = {"kappaRU": slice(1, None), "kappaRV": slice(1, None)}
+    return {n: footprint_view(t, 0, 0, None, levels.get(n))
+            for n, t in named.items() if n not in skip}
+
+
+def ggl90_col_footprint(named, args):
+    """G9's ggl90_col's inputs as the views that its launch reads (args:
+    params, their count, nr, nyp, nxp, mxlMaxFlag, calcMeanVertShear,
+    dirichlet, IDEMIX, Langmuir): every padded cell (it writes every padded
+    cell); sigmaR and IDEMIX's gTKE below the surface, recip_drC between
+    the levels; Ro_surf and R_low for the limiters of flags 0 and 1, drF
+    for the sweeps of flags 2 and 3, rF between the levels for flag 1's
+    limiter and Langmuir's Stokes drift; hFacC and gTKE only with IDEMIX."""
+    nr, flag, idemix, langmuir = args[2], args[5], args[8], args[9]
+    skip = {"drF"} if flag < 2 else {"Ro_surf", "R_low"}
+    if not (flag == 1 or langmuir):
+        skip.add("rF")
+    if not idemix:
+        skip |= {"hFacC", "gTKE"}
+    levels = {"sigmaR": slice(1, None), "gTKE": slice(1, None),
+              "recip_drC": slice(1, nr), "rF": slice(1, nr)}
+    return {n: footprint_view(t, 0, 0, None, levels.get(n))
+            for n, t in named.items() if n not in skip}
+
+
 def footprint_view(t, oly, olx, ring, levels):
     """The cells of t that a kernel reads: for a field of the padded grid
     its interior and the ring sides named (ring None: the interior only),
@@ -1093,6 +1138,9 @@ FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
               "phihyd": (phihyd_footprint, ("phiHydC", "dPhiHydX",
                                             "dPhiHydY")),
               "mom_correction": (mom_correction_footprint, ("u", "v")),
+              "calc_gw": (gw_footprint, ("gW", "gwDiss")),
+              "ggl90_col": (ggl90_col_footprint, ("tkeNew", "diffKr",
+                                                  "visctmp")),
               # the launches' integers follow their pointers
               "cg3d_s_stencil_dot": (
                   lambda named, args: cg3d_footprint(named, args[-5:]),
@@ -2124,7 +2172,7 @@ class G9Case:
     in places) and sigmaR from them, a wind stress, a vertical velocity and
     a tracer with fronts."""
 
-    def __init__(self, n, nr, dtype, config="ggl90"):
+    def __init__(self, n, nr, dtype, config="ggl90", **kw):
         from mitgcm_tpu_torch.model import gad
         from mitgcm_tpu_torch.model import thermodynamics as th
         from mitgcm_tpu_torch.ops.eos import find_rho
@@ -2132,7 +2180,7 @@ class G9Case:
 
         self.dtype = dtype
         self.cfg = getattr(synthetic, f"{config}_gyre_config")(
-            nx=n, ny=n, nr=nr, deltaT=600.0)
+            nx=n, ny=n, nr=nr, deltaT=600.0, **kw)
         self.grid, self.ggl90 = self.setup()
         cfg, g = self.cfg, self.grid
         rng = np.random.default_rng(SEED + 3)
@@ -2241,6 +2289,56 @@ def g9_kernel_phase(case, results, reps):
                   call=lambda: rhs(None))
 
 
+# G9's variants of phase 9's table: (mxlMaxFlag, calcMeanVertShear,
+# GGL90_dirichlet), the ggl90-gyre's (2, False, True) among them
+G9_VARIANTS = tuple((flag, shear, dirichlet) for flag in range(4)
+                    for shear in (False, True) for dirichlet in (True, False))
+# the levels of phase 9's deep ggl90-gyre, above the 64 that G9 took before
+# its columns left per-thread arrays, and their stretch (a 16 m top and a
+# 161 m bottom layer over 5000 m)
+G9_DEEP_NR, G9_DEEP_STRETCH = 80, 1.03
+
+
+def g9_variant_phase(case, results):
+    """ggl90_col in each of G9_VARIANTS against its twin on whole arrays,
+    bit for bit, on the case's inputs (not timed)."""
+    import copy
+
+    from mitgcm_tpu_torch.model import ggl90 as g9
+
+    args = (case.u, case.v, case.tke, case.sigmaR, case.sfU, case.sfV)
+    names = ("tke", "diffKr", "visctmp")
+    for flag, shear, dirichlet in G9_VARIANTS:
+        gg = copy.copy(case.ggl90)
+        gg.p = dict(gg.p, mxlMaxFlag=flag, calcMeanVertShear=shear,
+                    GGL90_dirichlet=dirichlet)
+        k, p = g9.ggl90_col(gg, *args), g9._ggl90_col_plain(gg, *args)
+        label = (f"ggl90_col(f{flag}{' mean' if shear else ''}"
+                 f"{' neumann' if not dirichlet else ''})")
+        exact_compare(label, case, [k[n] for n in names],
+                      [p[n] for n in names], None, None, results,
+                      call=lambda gg=gg: g9.ggl90_col(gg, *args))
+
+
+def g9_deep_phase(results):
+    """Above 64 levels, the most ggl90_col took while it kept per-thread
+    level arrays: ggl90_col at 64x64xG9_DEEP_NR
+    float64 against its twin on whole arrays, then 3 float64 steps of the
+    64x64xG9_DEEP_NR ggl90-gyre, kernel path against plain path."""
+    from mitgcm_tpu_torch.model import ggl90 as g9
+
+    case = G9Case(64, G9_DEEP_NR, torch.float64, stretch=G9_DEEP_STRETCH)
+    args = (case.u, case.v, case.tke, case.sigmaR, case.sfU, case.sfV)
+    k = g9.ggl90_col(case.ggl90, *args)
+    p = g9._ggl90_col_plain(case.ggl90, *args)
+    names = ("tke", "diffKr", "visctmp")
+    exact_compare("ggl90_col(deep)", case, [k[n] for n in names],
+                  [p[n] for n in names], None, None, results,
+                  call=lambda: g9.ggl90_col(case.ggl90, *args))
+    del case
+    g9_parity_phase(nr=G9_DEEP_NR, steps=3, stretch=G9_DEEP_STRETCH)
+
+
 def g9_experiment(n, nr, dtype, impl=None, config="ggl90", **kw):
     from mitgcm_tpu_torch.model.experiment import Experiment
     from mitgcm_tpu_torch.utils import synthetic
@@ -2251,12 +2349,15 @@ def g9_experiment(n, nr, dtype, impl=None, config="ggl90", **kw):
     return Experiment(cfg, grid, state, forcing, op, ggl90=ggl90, impl=impl)
 
 
-def g9_parity_phase(config="ggl90"):
+def g9_parity_phase(config="ggl90", nr=12, steps=10, **kw):
+    """steps float64 steps of the 64x64xnr gyre `config` (kw: its
+    config's keywords), kernel path against plain path: equal cg2d
+    iterations, PARITY_DIGITS or more on every statistic and field."""
     from mitgcm_tpu_torch.utils.compare import digits, interior, record_digits
 
-    exps = {impl: g9_experiment(64, 12, torch.float64, impl, config)
+    exps = {impl: g9_experiment(64, nr, torch.float64, impl, config, **kw)
             for impl in (None, "plain")}
-    runs = {impl: e.run(n_steps=10) for impl, e in exps.items()}
+    runs = {impl: e.run(n_steps=steps) for impl, e in exps.items()}
     worst = math.inf
     for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
         dig = record_digits(rk, rp)
@@ -2279,8 +2380,10 @@ def g9_parity_phase(config="ggl90"):
     if not worst >= PARITY_DIGITS:
         raise AssertionError(f"{config}-gyre parity {worst:.2f} < "
                              f"{PARITY_DIGITS} digits")
-    print(f"{config}-gyre parity: fewest matching digits {worst:.2f} ("
-          + ", ".join(f"{k} {v:.2f}" for k, v in fields.items()) + ")")
+    print(f"{config}-gyre parity, 64x64x{nr}, {steps} steps: fewest "
+          f"matching digits {worst:.2f} ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in fields.items()) + ")",
+          flush=True)
 
 
 def g9_restart_phase(config="ggl90"):
@@ -2373,9 +2476,13 @@ def g9_full_phase(kernels, smi, config="ggl90", want=G9_LAUNCHES):
 
 def g9_phase(kernels, results, smi):
     phase("9 ggl90-gyre")
-    g9_kernel_phase(G9Case(64, 12, torch.float64), results, reps=20)
+    small = G9Case(64, 12, torch.float64)
+    g9_kernel_phase(small, results, reps=20)
+    g9_variant_phase(small, results)
+    del small
     g9_kernel_phase(G9Case(1024, 32, torch.float32), results, reps=10)
     torch.cuda.empty_cache()
+    g9_deep_phase(results)
     g9_parity_phase()
     g9_restart_phase()
     launches = g9_full_phase(kernels, smi)
@@ -2708,6 +2815,17 @@ def nh_kernel_phase(case, results, reps, plain_reps):
                   cuda_time_ms(lambda: gw(None), reps),
                   cuda_time_ms(lambda: gw("plain"), plain_reps), results,
                   call=lambda: gw(None))
+    if case.dtype == torch.float64:
+        # W's other variant, without the 3-D Coriolis term (not timed)
+        flat = dataclasses.replace(cfg, select3dCoriScheme=0)
+
+        def gw0(impl):
+            return calc_gw(flat, g, case.u, case.v, case.w, case.kappaRU,
+                           case.kappaRV, impl=impl)
+
+        exact_compare("calc_gw(no 3-D Cor)", case, list(gw0(None)),
+                      list(gw0("plain")), None, None, results,
+                      call=lambda: gw0(None))
 
     def mom(impl):
         t = mom_fluxform(cfg, g, case.u, case.v, case.w, case.kappaRU,

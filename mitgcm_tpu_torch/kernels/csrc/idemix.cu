@@ -47,7 +47,7 @@ namespace mitgcm {
 
 namespace {
 
-constexpr int kIdemixMaxNr = 64;   // model/ggl90.py:MAX_NR
+constexpr int kIdemixMaxNr = 64;   // model/ggl90.py:IDEMIX_MAX_NR
 
 // torch.minimum / maximum (a NaN in either gives NaN)
 template <typename T>

@@ -11,7 +11,8 @@ variant), ggl90_add_stokesdrift.F, ggl90_readparms.F (the GGL90_PARM01/02
 defaults) and model/src/solve_tridiagonal.F.
 
 `GGL90.calc` runs kernel G9 (kernels/csrc/ggl90.cu) for CUDA tensors:
-`ggl90_col`, one thread per (j, i) column (the buoyancy frequency, the
+`ggl90_col`, one thread per (j, i) column in three passes over its levels,
+for any nr up to `g9_max_nr` (the buoyancy frequency, the
 mixing length and its two sweeps, Langmuir's length, the viscosity and
 diffusivity, the shear, the Prandtl number, the explicit sources with
 IDEMIX's and the Stokes drift's, the tridiagonal coefficients with their
@@ -51,9 +52,13 @@ from mitgcm_tpu_torch.ops.stencil import shift as sh
 GGL90EPS = 2.23e-16           # GGL90.h:69
 SQRTTWO = float(np.sqrt(2.0))
 TWO_OVER_PI = 2.0 / np.pi
-# the largest nr kernels G9 and H-IDEMIX take: their Thomas sweeps keep
+# the largest nr kernel H-IDEMIX takes: idemix_col's Thomas sweep keeps
 # per-level arrays of this length per thread
-MAX_NR = 64
+IDEMIX_MAX_NR = 64
+# the shared memory a block of G9's ggl90_col may take on an H100 (its
+# opt-in limit): ggl90_col keeps two values a level of each of a warp's
+# columns there (kernels/csrc/ggl90_col.cuh:ggl90_max_nr)
+G9_MAX_SHARED = 232448
 # calls of GGL90.calc that ran the plain twins (a run on the card reads it
 # to show that its kernel path never did)
 plain_calls = 0
@@ -620,26 +625,65 @@ def _idemix_col_plain(g9: GGL90, E, c0, tau_d):
 # kernels G9 and H-IDEMIX
 # ----------------------------------------------------------------------
 
-def _check_nr(nr: int, kernel: str) -> None:
-    if not 2 <= nr <= MAX_NR:
-        raise ValueError(f"kernel {kernel} takes 2 <= nr <= {MAX_NR}, not "
+def g9_max_nr(dtype: torch.dtype) -> int:
+    """The most levels G9's ggl90_col takes in this dtype: two values a
+    level of 32 columns within G9_MAX_SHARED bytes (454 in float64, 908 in
+    float32)."""
+    return G9_MAX_SHARED // (2 * 32 * (torch.finfo(dtype).bits // 8))
+
+
+def _check_nr(nr: int, kernel: str, most: int) -> None:
+    if not 2 <= nr <= most:
+        raise ValueError(f"kernel {kernel} takes 2 <= nr <= {most}, not "
                          f"{nr}")
+
+
+def _col_inputs(g9: GGL90, u, v, tke, sigmaR, sfU, sfV, gTKE=None) -> dict:
+    """ggl90_col's inputs by name, in the order of its pointer table
+    (kernels/csrc/ggl90_col.cuh:Ggl90Args); without IDEMIX the slots of
+    hFacC and gTKE, which the kernel then does not read, hold maskC and
+    tke."""
+    grid, idemix = g9.grid, g9.p["useIDEMIX"]
+    return dict(u=u, v=v, tke=tke, sigmaR=sigmaR, maskC=grid.maskC,
+                recip_hFacC=grid.recip_hFacC,
+                hFacC=grid.hFacC if idemix else grid.maskC,
+                gTKE=gTKE if idemix else tke, sfU=sfU, sfV=sfV,
+                Ro_surf=grid.Ro_surf, R_low=grid.R_low, drF=grid.drF,
+                recip_drF=grid.recip_drF, recip_drC=grid.recip_drC,
+                rF=grid.rF, klowC=g9.klowC)
+
+
+def _col_params(g9: GGL90) -> tuple:
+    """ggl90_col's scalars, in the order of kernels/csrc/ggl90_col.cuh:
+    Ggl90Params, then its flags (mxlMaxFlag, calcMeanVertShear,
+    GGL90_dirichlet, useIDEMIX, useLANGMUIR)."""
+    cfg, p = g9.cfg, g9.p
+    dt = cfg.deltaTTracer
+    params = [
+        dt, cfg.gravity * cfg.gravitySign * (1.0 / cfg.rhoConst),
+        SQRTTWO, GGL90EPS, p["GGL90mixingLengthMin"], p["GGL90ck"],
+        cfg.diffKrS, cfg.viscAr, p["GGL90alpha"], dt * p["GGL90ceps"],
+        p["GGL90m2"], p["GGL90TKEsurfMin"], p["GGL90TKEbottom"],
+        p["GGL90TKEmin"], p["GGL90diffMax"], p["LC_Gamma"],
+        4.0 * np.pi / p["LC_lambda"], (1.0 / p["LC_num"]) ** 2]
+    flags = [p["mxlMaxFlag"], int(p["calcMeanVertShear"]),
+             int(p["GGL90_dirichlet"]), int(p["useIDEMIX"]),
+             int(p["useLANGMUIR"])]
+    return params, flags
 
 
 def ggl90_col(g9: GGL90, u, v, tke, sigmaR, sfU, sfV, gTKE=None) -> dict:
     """Kernel `ggl90_col` on the card: tke', diffKr and visctmp of
     `_ggl90_col_plain`."""
-    cfg, grid, p = g9.cfg, g9.grid, g9.p
     nr, nyp, nxp = tke.shape
-    _check_nr(nr, "G9")
-    idemix, langmuir = p["useIDEMIX"], p["useLANGMUIR"]
-    ins3 = dict(u=u, v=v, tke=tke, sigmaR=sigmaR, maskC=grid.maskC,
-                recip_hFacC=grid.recip_hFacC)
-    if idemix:
-        ins3.update(hFacC=grid.hFacC, gTKE=gTKE)
-    ins2 = dict(sfU=sfU, sfV=sfV, Ro_surf=grid.Ro_surf, R_low=grid.R_low)
-    ins1 = dict(drF=grid.drF, recip_drF=grid.recip_drF,
-                recip_drC=grid.recip_drC, rF=grid.rF)
+    _check_nr(nr, "G9", g9_max_nr(tke.dtype))
+    ins = _col_inputs(g9, u, v, tke, sigmaR, sfU, sfV, gTKE)
+    ins3 = {n: ins[n] for n in ("u", "v", "tke", "sigmaR", "maskC",
+                                "recip_hFacC")}
+    if g9.p["useIDEMIX"]:
+        ins3.update(hFacC=ins["hFacC"], gTKE=ins["gTKE"])
+    ins2 = {n: ins[n] for n in ("sfU", "sfV", "Ro_surf", "R_low")}
+    ins1 = {n: ins[n] for n in ("drF", "recip_drF", "recip_drC", "rF")}
     out = {n: torch.empty_like(tke) for n in ("tkeNew", "diffKr", "visctmp")}
     kernels.check_tensors(tke.dtype, **ins3, **ins2, **ins1, **out)
     for name, t in {**ins3, **out}.items():
@@ -650,24 +694,11 @@ def ggl90_col(g9: GGL90, u, v, tke, sigmaR, sfU, sfV, gTKE=None) -> dict:
                     ("rF", nr + 1)):
         kernels.check_shape(name, ins1[name], (n,))
     kernels.check_int32("klowC", g9.klowC, (nyp, nxp))
-    dt = cfg.deltaTTracer
-    params = kernels.doubles([
-        dt, cfg.gravity * cfg.gravitySign * (1.0 / cfg.rhoConst),
-        SQRTTWO, GGL90EPS, p["GGL90mixingLengthMin"], p["GGL90ck"],
-        cfg.diffKrS, cfg.viscAr, p["GGL90alpha"], dt * p["GGL90ceps"],
-        p["GGL90m2"], p["GGL90TKEsurfMin"], p["GGL90TKEbottom"],
-        p["GGL90TKEmin"], p["GGL90diffMax"], p["LC_Gamma"],
-        4.0 * np.pi / p["LC_lambda"], (1.0 / p["LC_num"]) ** 2])
-    # without IDEMIX the kernel reads neither hFacC nor gTKE: their slots
-    # hold fields already in the table
-    table = [*[ins3[n] for n in ("u", "v", "tke", "sigmaR", "maskC",
-                                 "recip_hFacC")],
-             ins3.get("hFacC", grid.maskC), ins3.get("gTKE", tke),
-             *ins2.values(), *ins1.values(), g9.klowC, *out.values()]
+    params, flags = _col_params(g9)
+    params = kernels.doubles(params)
+    table = [*ins.values(), *out.values()]
     kernels.launch("ggl90_col", tke.dtype, kernels.pointer_table(table),
-                   len(table), params, len(params), nr, nyp, nxp,
-                   p["mxlMaxFlag"], int(p["calcMeanVertShear"]),
-                   int(p["GGL90_dirichlet"]), int(idemix), int(langmuir))
+                   len(table), params, len(params), nr, nyp, nxp, *flags)
     return dict(tke=out["tkeNew"], diffKr=out["diffKr"],
                 visctmp=out["visctmp"])
 
@@ -696,7 +727,7 @@ def _idemix_launch(kernel: str, g9: GGL90, ins3: dict, ins2: dict,
     order ins3, ins2, ins1, klowC when the kernel reads it, outs)."""
     first = next(iter(ins3.values()))
     nr, nyp, nxp = first.shape
-    _check_nr(nr, "H-IDEMIX")
+    _check_nr(nr, "H-IDEMIX", IDEMIX_MAX_NR)
     kernels.check_tensors(first.dtype, **ins3, **ins2, **ins1, **outs)
     for name, t in {**ins3, **outs}.items():
         kernels.check_shape(name, t, (nr, nyp, nxp))

@@ -122,9 +122,9 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
     diffusion, KPP given as a model/kpp.py:KPP object without the options
     that check_kpp refuses, or GGL90 as a model/ggl90.py:GGL90 object without
     the options that check_ggl90 refuses, with Langmuir only under
-    vector-invariant momentum, and with at most ggl90.MAX_NR levels, IDEMIX
-    included, when its tensors are on the card and impl does not ask for
-    the plain path; nonHydrostatic under flux-form momentum with op3, a
+    vector-invariant momentum, and with IDEMIX at most ggl90.IDEMIX_MAX_NR
+    levels when its tensors are on the card and impl does not ask for the
+    plain path; nonHydrostatic under flux-form momentum with op3, a
     solver/cg3d.py:CG3DOperator, and without the options that
     calc_gw.check_nh refuses; useSEAICE with seaice, a model/seaice.py:
     SeaIce object, without the options that seaice.check_seaice refuses;
@@ -137,8 +137,9 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
         "a SeaIce object without useSEAICE": (seaice is not None
                                               and not cfg.useSEAICE),
         "useKPP with useGGL90": cfg.useKPP and cfg.useGGL90,
-        f"GGL90 with nr > {ggl90_mod.MAX_NR} on the kernel path":
-            g9_kernel and cfg.nr > ggl90_mod.MAX_NR,
+        f"IDEMIX with nr > {ggl90_mod.IDEMIX_MAX_NR} on the kernel path":
+            (g9_kernel and ggl90.p["useIDEMIX"]
+             and cfg.nr > ggl90_mod.IDEMIX_MAX_NR),
         # the Coriolis-Stokes force is a term of flux-form momentum (JAX
         # mom_fluxform.py:422-426), which kernel B does not have
         "useLANGMUIR under flux-form momentum": (

@@ -5,8 +5,8 @@
                             [--kernels [GROUP ...]] [--ptxas]
 
 Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, vi-gyre,
-ggl90-gyre, os7mp-gyre, pqm-gyre, som-gyre or evp-ice-gyre (deltaT =
-600 s), or the
+ggl90-gyre, os7mp-gyre, pqm-gyre, som-gyre, idemix-gyre or evp-ice-gyre
+(deltaT = 600 s), or the
 N x N x 50 nh-convection box (--config box, deltaT = 60 s), of the
 PyTorch port found under DIR (default: this script's directory; give an
 unpacked earlier tree to compare two versions on one card, in turns):
@@ -55,13 +55,21 @@ launch of B' (mom_fluxform_adj) and of C' (gad_calc_rhs_c2_adj) on
 chip_smoke.py's seeded 1024x1024x32 float32 gyre (Case) with phase 6's
 seeded cotangents, as CUDA graphs of 20, with their bounds, and a sha256
 digest of each launch's output bytes, so that two trees' bits can be
-compared. No group named: all nine. --config adjoint instead times the
-gradient of phase 6's box cost through 6 checkpointed steps of the
-N x N x 32 float32 gyre (3 runs, ms/step) and profiles one (device busy
-ms/step and idle share, as a step's). --ptxas instead compiles the tree's
-PTXAS_SOURCES with the port's nvcc flags and prints ptxas's registers and
-spills of each of their kernels (float and double). Exits nonzero without
-CUDA.
+compared. Group "calc_gw": one launch of kernel W in each variant (with
+and without the 3-D Coriolis term) on chip_smoke.py's seeded
+1024x1024x50 float32 box (NhCase), as CUDA graphs of 20, with their
+bounds (chip_smoke.py:gw_footprint) and a digest of the two outputs.
+Group "ggl90": one launch of G9's ggl90_col at 1024x1024x32 and
+64x64x32 float32, the ggl90-gyre's variant on chip_smoke.py's G9Case and
+the idemix-gyre's (IDEMIX's source and Langmuir) on its IsmCase, the
+same way (chip_smoke.py:ggl90_col_footprint), with a digest of tke',
+diffKr and visctmp. No group named: all eleven. --config adjoint instead
+times the gradient of phase 6's box cost through 6 checkpointed steps of
+the N x N x 32 float32 gyre (3 runs, ms/step) and profiles one (device
+busy ms/step and idle share, as a step's). --ptxas instead compiles the
+tree's PTXAS_SOURCES with the port's nvcc flags and prints ptxas's
+registers and spills of each of their kernels (float and double). Exits
+nonzero without CUDA.
 """
 
 import argparse
@@ -84,7 +92,7 @@ EVP_SHAPE = (1024, 32)   # the evp-ice-gyre's, float32 (EVP is 2-D)
 # the cg3d solves of group "cg3d": their caps of iterations
 CG3D_CAPS = (20, 100)
 KERNEL_GROUPS = ("glue", "cg3d", "evp", "os7mp", "som", "ppm", "vecinv",
-                 "multidim", "adjoint")
+                 "multidim", "adjoint", "calc_gw", "ggl90")
 # group "os7mp": the (scheme, vertical scheme) pairs whose sweeps it times,
 # O's first; group "som": H-SOM's schemes
 HO_SCHEMES = ((7, 7), (33, 33), (41, 41), (51, 51))
@@ -97,9 +105,12 @@ MD_SCHEMES = ((33, 33), (30, 30), (77, 77), (1, 1), (20, 20), (30, 2),
               (30, 3), (30, 4))
 # group "vecinv": V's sizes (n, levels)
 VECINV_SHAPES = ((1024, 32), (64, 32))
+# group "ggl90": G9's sizes (n, levels)
+GGL90_SHAPES = ((1024, 32), (64, 32))
 # the sources whose kernels --ptxas reports, under kernels/csrc
 PTXAS_SOURCES = ("gad_os7mp.cu", "som.cu", "gad_ppm.cu",
-                 "mom_fluxform_adj.cu", "mom_vecinv.cu", "gad_multidim.cu")
+                 "mom_fluxform_adj.cu", "mom_vecinv.cu", "gad_multidim.cu",
+                 "calc_gw.cu", "ggl90.cu")
 # --config adjoint: the steps of the gradient (phase 6's)
 ADJ_STEPS = 6
 # the launches of a tree from before the cg3d iteration became two passes
@@ -400,6 +411,62 @@ def vecinv_times(smoke, rows):
         torch.cuda.empty_cache()
 
 
+def calc_gw_times(smoke, rows):
+    """Group "calc_gw": one launch of W in each variant, the box's (with
+    the 3-D Coriolis term) first, on chip_smoke.py's seeded 1024x1024x50
+    float32 box (NhCase), with the digest of its two outputs."""
+    import dataclasses
+
+    import torch
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model.calc_gw import calc_gw
+
+    case = smoke.NhCase(*BOX_SHAPE, torch.float32)
+    for cori in (1, 0):
+        cfg = dataclasses.replace(case.cfg, select3dCoriScheme=cori)
+
+        def call(cfg=cfg):
+            return calc_gw(cfg, case.grid, case.u, case.v, case.w,
+                           case.kappaRU, case.kappaRV)
+        args, outs = smoke.captured_launch(call, "calc_gw")
+        variant = "3-D Coriolis" if cori else "no 3-D Coriolis"
+        graph_row(smoke, "calc_gw", lambda: kernels.launch(*args),
+                  f"box {case.label} {variant}", rows, call=call)
+        digest_row(rows, outs)
+        del outs
+    del case
+
+
+def ggl90_times(smoke, rows):
+    """Group "ggl90": one launch of G9's ggl90_col at GGL90_SHAPES float32
+    on chip_smoke.py's seeded inputs, the ggl90-gyre's variant (G9Case)
+    and the idemix-gyre's with IDEMIX's source and Langmuir (IsmCase, its
+    gTKE from one GGL90.idemix), with the digest of its three outputs."""
+    import torch
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model import ggl90 as g9
+
+    for n, nr in GGL90_SHAPES:
+        for config, make in (("ggl90-gyre", smoke.G9Case),
+                             ("idemix-gyre", smoke.IsmCase)):
+            case = make(n, nr, torch.float32)
+            gTKE = None
+            if case.ggl90.p["useIDEMIX"]:
+                _, gTKE = case.ggl90.idemix(case.E, case.Nsq)
+
+            def call(case=case, gTKE=gTKE):
+                return g9.ggl90_col(case.ggl90, case.u, case.v, case.tke,
+                                    case.sigmaR, case.sfU, case.sfV, gTKE)
+            args, outs = smoke.captured_launch(call, "ggl90_col")
+            graph_row(smoke, "ggl90_col", lambda: kernels.launch(*args),
+                      f"{config} {case.label}", rows, call=call)
+            digest_row(rows, [outs[k] for k in ("tke", "diffKr",
+                                                "visctmp")])
+            del outs, case, gTKE
+            smoke.GRIDS.clear()
+            torch.cuda.empty_cache()
+
+
 def adjoint_times(smoke, rows):
     """Group "adjoint": one launch of B' and of C' on the seeded gyre, as
     phase 6 drives them (chip_smoke.py:vjp_phase), with the sha256 of the
@@ -512,14 +579,16 @@ def kernel_times(smoke, groups):
     """--kernels: [{kernel, shape, ms, bound_ms, share}] of the groups
     named: "glue", B, C and D-G at KERNEL_SHAPES, then the box's
     mom_correction; "cg3d"; "evp"; "os7mp"; "som"; "ppm"; "vecinv";
-    "multidim"; "adjoint"."""
+    "multidim"; "adjoint"; "calc_gw"; "ggl90"."""
     import torch
 
     rows = []
     for group, times in (("os7mp", os7mp_times), ("som", som_times),
                          ("ppm", ppm_times), ("vecinv", vecinv_times),
                          ("multidim", multidim_times),
-                         ("adjoint", adjoint_times)):
+                         ("adjoint", adjoint_times),
+                         ("calc_gw", calc_gw_times),
+                         ("ggl90", ggl90_times)):
         if group in groups:
             times(smoke, rows)
             smoke.GRIDS.clear()
@@ -567,8 +636,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--config", choices=("gyre", "vi", "ggl90", "os7mp",
-                                         "pqm", "som", "box", "evp-ice",
-                                         "adjoint"),
+                                         "pqm", "som", "idemix", "box",
+                                         "evp-ice", "adjoint"),
                     default="gyre")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--kernels", nargs="*", choices=KERNEL_GROUPS)
@@ -612,7 +681,7 @@ def main():
         exp = smoke.evp_experiment(args.n, 32, torch.float32, deltaT=600.0)
     elif args.config == "vi":
         exp = smoke.vi_experiment(args.n, 32, torch.float32, deltaT=600.0)
-    elif args.config in ("os7mp", "pqm", "som"):
+    elif args.config in ("os7mp", "pqm", "som", "idemix"):
         exp = smoke.g9_experiment(args.n, 32, torch.float32,
                                   config=args.config, deltaT=600.0)
     elif args.config == "gyre":

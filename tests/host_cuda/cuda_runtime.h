@@ -23,7 +23,8 @@
 #define __shared__ static
 #define __launch_bounds__(...)
 
-using std::fabs;   // CUDA's overloads for float and double
+using std::exp;    // CUDA's overloads for float and double
+using std::fabs;
 using std::sqrt;
 
 struct dim3 {

@@ -1,21 +1,24 @@
-// Kernels B and C's forward kernels, B', D, G's mom_correction, H-cg3d's
-// two passes, H-seaice EVP's seaice_evp_uv, V, M's, O's and P's three
-// sweeps and H-SOM's three passes, built by g++ against the mock CUDA
-// runtime beside this file and run on the host through the launches that
-// their entry points use (launch_mom, launch_mom_adj of
+// Kernels B and C's forward kernels, B', D, G's mom_correction, H-cg3d's two
+// passes, H-seaice EVP's seaice_evp_uv, V, M's, O's and P's three sweeps,
+// H-SOM's three passes, W and G9's ggl90_col, built by g++ against the mock
+// CUDA runtime beside this file and run on the host through the launches
+// that their entry points use (launch_mom, launch_mom_adj of
 // mom_fluxform_adj_tile.cuh, launch_calc_rhs, launch_phihyd,
 // launch_s_stencil_dot and launch_xr_precond of kernels/csrc/*_tile.cuh,
 // launch_mom_correction of mom_correction.cuh, launch_evp_uv of
-// seaice_evp_uv.cuh, launch_vecinv of mom_vecinv_tile.cuh,
-// launch_multidim of gad_multidim_tile.cuh, launch_os7mp of
-// gad_os7mp_tile.cuh, launch_ppm of gad_ppm_tile.cuh, launch_som_horiz and
-// launch_som_r of som_tile.cuh), for tests/test_torch_host_kernels.py.
+// seaice_evp_uv.cuh, launch_vecinv of mom_vecinv_tile.cuh, launch_multidim
+// of gad_multidim_tile.cuh, launch_os7mp of gad_os7mp_tile.cuh, launch_ppm
+// of gad_ppm_tile.cuh, launch_som_horiz and launch_som_r of som_tile.cuh,
+// launch_calc_gw of calc_gw_tile.cuh, launch_ggl90_col of ggl90_col.cuh),
+// for tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
+#include "calc_gw_tile.cuh"
 #include "cg3d_tile.cuh"
 #include "gad_calc_rhs_tile.cuh"
 #include "gad_multidim_tile.cuh"
 #include "gad_os7mp_tile.cuh"
 #include "gad_ppm_tile.cuh"
+#include "ggl90_col.cuh"
 #include "mom_correction.cuh"
 #include "mom_fluxform_adj_tile.cuh"
 #include "mom_fluxform_tile.cuh"
@@ -178,9 +181,28 @@ struct OnHost {
                                 nyp, nxp, limiter, deltaT, OnHost{});        \
   }
 
+// W and G9's ggl90_col, with their entry points' arguments but the stream
+#define HOST_COLUMN_ENTRY_POINTS(T, SUF)                                     \
+  extern "C" int host_calc_gw_##SUF(                                         \
+      const void* const* table, int n, int nr, int nyp, int nxp,             \
+      int coriolis_3d, double viscAhW, double rkSign, double gravitySign) {  \
+    return launch_calc_gw<T>(table, n, nr, nyp, nxp, coriolis_3d, viscAhW,   \
+                             rkSign, gravitySign, OnHost{});                 \
+  }                                                                          \
+  extern "C" int host_ggl90_col_##SUF(                                       \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int flag, int meanShear, int dirichlet, int idemix,  \
+      int langmuir, long long max_shared) {                                  \
+    return launch_ggl90_col<T>(table, n, params, np, nr, nyp, nxp, flag,     \
+                               meanShear, dirichlet, idemix, langmuir,       \
+                               OnHost{static_cast<size_t>(max_shared)});     \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
 HOST_CG3D_ENTRY_POINTS(float, f32)
 HOST_CG3D_ENTRY_POINTS(double, f64)
 HOST_ADVECTION_ENTRY_POINTS(float, f32)
 HOST_ADVECTION_ENTRY_POINTS(double, f64)
+HOST_COLUMN_ENTRY_POINTS(float, f32)
+HOST_COLUMN_ENTRY_POINTS(double, f64)

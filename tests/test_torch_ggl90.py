@@ -130,6 +130,53 @@ def test_ggl90_calc(case, monkeypatch, flag, mean_shear, dirichlet):
     assert (tke > 1e-6).any() and (tke == tobj.p["GGL90TKEmin"]).any()
 
 
+# GGL90.calc at 70 levels, above the 64 that kernel G9 once took: the
+# twin that the host check and the card hold ggl90_col to, against JAX, on
+# a 4 x 4 basin of one shelf column, one partial bottom cell and two full
+# columns, its levels stretched by 1.03 (a 2.3 m top layer over 300 m)
+DEEP = dict(nx=4, ny=4, nr=70, depth=300.0, stretch=1.03)
+
+
+@pytest.fixture(scope="module")
+def deep_case():
+    cfg = tsyn.ggl90_gyre_config(**DEEP)
+    bathy = np.full((4, 4), -sum(cfg.delR))
+    bathy[1, 1] = -120.0
+    bathy[2, 2] = -sum(cfg.delR) + 0.4 * cfg.delR[-1]
+    bathy[0, :] = bathy[-1, :] = bathy[:, 0] = bathy[:, -1] = 0.0
+    jgrid = jbuild_grid(jax_config(cfg), bathy=bathy, dtype=jnp.float64)
+    tgrid = convert.from_arrays(Grid, convert.arrays_of(jgrid), device="cpu")
+    rng = np.random.default_rng(91)
+    shape = tgrid.hFacC.shape
+    m = tgrid.maskC.numpy()
+    u = 0.1 * rng.standard_normal(shape) * tgrid.maskW.numpy()
+    v = 0.1 * rng.standard_normal(shape) * tgrid.maskS.numpy()
+    tke = np.abs(3e-4 * rng.standard_normal(shape)) * m
+    sigmaR = -1e-4 * (1.0 + 0.5 * rng.standard_normal(shape))
+    sigmaR[rng.random(shape) < 0.2] *= -0.3     # statically unstable
+    sigmaR[0] = 0.0
+    sigmaR *= m
+    sfU = 1e-4 * rng.standard_normal(shape[1:])
+    sfV = 1e-4 * rng.standard_normal(shape[1:])
+    return cfg, jgrid, tgrid, (u, v, tke, sigmaR, sfU, sfV)
+
+
+@pytest.mark.parametrize("dirichlet", (True, False))
+def test_ggl90_calc_deep(deep_case, dirichlet):
+    cfg, jgrid, tgrid, arrays = deep_case
+    group = {"mxlMaxFlag": 2, "GGL90_dirichlet": dirichlet}
+    want = jg9.GGL90(jax_config(cfg), jgrid, group).calc(
+        *map(jnp.asarray, arrays))[:4]
+    got = tg9.GGL90(cfg, tgrid, group).calc(*map(torch.from_numpy, arrays))
+    for name, g, w in zip(OUTPUTS, got, want):
+        d = digits(g.numpy(), np.asarray(w))
+        assert d >= 12, (name, d)
+    klow = tg9.GGL90(cfg, tgrid).klowC.numpy()
+    assert klow.max() == DEEP["nr"] > tg9.IDEMIX_MAX_NR
+    tke = got[0].numpy()[1:][tgrid.maskC.numpy()[1:] > 0]
+    assert (tke > 1e-6).any()
+
+
 def test_klowC_differs_between_columns(case):
     """The shelf and the bank give the bottom fold several rows."""
     tgrid = case[2]

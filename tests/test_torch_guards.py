@@ -422,22 +422,48 @@ class _OnTheCard:
 
 
 def test_check_supported_refuses_ggl90_above_kernel_cap():
-    """Kernel G9 keeps at most ggl90.MAX_NR levels per column: with its
-    tensors on the card check_supported names the refusal up front, on the
-    plain path (CPU tensors, or impl="plain") any nr runs, as in JAX."""
-    nr = ggl90_mod.MAX_NR + 1
-    cfg = synthetic.ggl90_gyre_config(nx=4, ny=4, nr=nr, depth=300.0)
+    """Kernel H-IDEMIX keeps at most ggl90.IDEMIX_MAX_NR levels per column:
+    for GGL90 with IDEMIX and its tensors on the card check_supported names
+    the refusal up front, on the plain path (CPU tensors, or impl="plain")
+    any nr runs, as in JAX."""
+    nr = ggl90_mod.IDEMIX_MAX_NR + 1
+    cfg = synthetic.idemix_gyre_config(nx=4, ny=4, nr=nr, depth=300.0)
     ggl90 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
                                        device="cpu")[4]
+    assert ggl90.p["useIDEMIX"]
     check_supported(cfg, ggl90=ggl90)
     ggl90.klowC = _OnTheCard()
     with pytest.raises(NotImplementedError,
-                       match=f"GGL90 with nr > {ggl90_mod.MAX_NR} on the "
-                             "kernel path"):
+                       match=f"IDEMIX with nr > {ggl90_mod.IDEMIX_MAX_NR} "
+                             "on the kernel path"):
         check_supported(cfg, ggl90=ggl90)
     check_supported(cfg, ggl90=ggl90, impl="plain")
-    check_supported(dataclasses.replace(cfg, nr=ggl90_mod.MAX_NR),
+    check_supported(dataclasses.replace(cfg, nr=ggl90_mod.IDEMIX_MAX_NR),
                     ggl90=ggl90)
+
+
+def test_check_supported_takes_ggl90_above_64_without_idemix():
+    """G9's ggl90_col keeps no per-thread level array: GGL90 without IDEMIX
+    at nr = 65 passes check_supported with its tensors on the card, and
+    G9's wrapper refuses, by name, only an nr past g9_max_nr (two values a
+    level of a warp's columns in a block's shared memory: 454 levels in
+    float64, 908 in float32)."""
+    nr = ggl90_mod.IDEMIX_MAX_NR + 1
+    cfg = synthetic.ggl90_gyre_config(nx=4, ny=4, nr=nr, depth=300.0)
+    ggl90 = synthetic.ggl90_gyre_setup(cfg, dtype=torch.float64,
+                                       device="cpu")[4]
+    assert not ggl90.p["useIDEMIX"]
+    ggl90.klowC = _OnTheCard()
+    check_supported(cfg, ggl90=ggl90)
+    assert ggl90_mod.g9_max_nr(torch.float64) == 454
+    assert ggl90_mod.g9_max_nr(torch.float32) == 908
+    for dtype in (torch.float64, torch.float32):
+        most = ggl90_mod.g9_max_nr(dtype)
+        x, x2 = torch.zeros((most + 1, 3, 3), dtype=dtype), \
+            torch.zeros((3, 3), dtype=dtype)
+        with pytest.raises(ValueError, match=f"kernel G9 takes 2 <= nr <= "
+                                             f"{most}, not {most + 1}"):
+            ggl90_mod.ggl90_col(ggl90, x, x, x, x, x2, x2)
 
 
 @pytest.mark.parametrize("name", list(kpp_mod.REFUSED_OPTIONS) + [

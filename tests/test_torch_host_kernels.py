@@ -21,9 +21,13 @@ through common.cuh:grid_reduce on the mock's sequential atomicAdd, and
 cap and at the tolerance, and frozen. seaice_evp_uv writes every padded
 cell of u, v and sigma12 (and of dwatn and the divergence on the last
 subcycle), each equal to the twin's, in every variant of its template
-flags, on the ice-gyre's walled grid at the same two sizes."""
+flags, on the ice-gyre's walled grid at the same two sizes. W
+(calc_gw_tile.cuh) and G9's ggl90_col (ggl90_col.cuh) write every padded
+cell, each equal to the twin's, in every variant of their flags and at
+2-12 levels (ggl90_col also at 70, above the 64 levels it once took)."""
 
 import ctypes
+import ctypes.util
 import dataclasses
 import importlib.util
 import os
@@ -35,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from mitgcm_tpu_torch.model import gad, gmredi, phihyd, step
+from mitgcm_tpu_torch.model import calc_gw, gad, ggl90, gmredi, phihyd, step
 from mitgcm_tpu_torch.model import mom_fluxform as mom
 from mitgcm_tpu_torch.model import mom_vecinv as vecinv
 from mitgcm_tpu_torch.model import seaice, seaice_kernels, som
@@ -70,6 +74,9 @@ SIGNATURES = {
     "host_gad_os7mp": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
     "host_gad_ppm": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
     "host_som": [_I, _PP, _I] + [_P] * 7 + [_I] * 4 + [_D],
+    "host_calc_gw": [_PP, _I] + [_I] * 4 + [_D] * 3,
+    "host_ggl90_col": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 8 + [ctypes.c_longlong],
 }
 
 
@@ -495,8 +502,10 @@ def gad_case(f, gm, implicit, advection, with_df):
 
 def poisoned(named, footprint, args):
     """Copies of the inputs, NaN but on the cells that `footprint` says
-    the launch reads."""
-    nan = {n: torch.full_like(t, float("nan")) for n, t in named.items()}
+    the launch reads (an integer input, whose every cell a footprint
+    holds, as it is)."""
+    nan = {n: torch.full_like(t, float("nan")) if t.is_floating_point()
+           else t.clone() for n, t in named.items()}
     want = footprint(named, args)
     for n, view in footprint(nan, args).items():
         view.copy_(want[n])
@@ -542,10 +551,14 @@ def check_footprint(lib, case, footprint, rings, same_as=check):
         view = footprint(copies, args)[name]
         for label, part in parts(view, rings.get(name)).items():
             saved = part.clone()
-            part.mul_(1.5).add_(0.25)
+            if not part.is_floating_point():    # a level count, one less
+                part.sub_(1).clamp_(min=0)
+            else:
+                part.mul_(1.5).add_(0.25)
             same = all(identical(a, b) for a, b in zip(run(lib, copies),
                                                        base))
-            if same:    # x * 0 hides a change but keeps a NaN
+            if same and part.is_floating_point():
+                # x * 0 hides a change but keeps a NaN
                 part.fill_(float("nan"))
                 same = all(torch.equal(a.isnan(), b.isnan())
                            for a, b in zip(run(lib, copies), base))
@@ -1416,3 +1429,259 @@ def test_multidim_footprint(lib, name, scheme):
     smoke = chip_smoke()
     check_footprint(lib, multidim_case(f, name, scheme),
                     smoke.FOOTPRINTS[name][0], {}, same_as=check_same)
+
+
+# Kernel W (calc_gw_tile.cuh), which writes every padded cell, against its
+# twin (model/calc_gw.py:_calc_gw_plain) on every padded cell, in both
+# variants of the 3-D Coriolis term, on SIZES (the padded planes of 16 x 24
+# and 14 x 44 are ragged in the tiles of 32 x 4 columns, the second has two
+# tiles in x) with 2, 5 and 12 levels. The grid has land and partial cells:
+# the columns' and faces' bottoms and tops fall on the cell centres in
+# places, so that recipThickC's guards (a closed cell above, a thickness of
+# 0) and zero open thicknesses rThickW/S occur.
+GW_LEVELS = (2, 5, 12)
+
+
+def gw_case(f, cori3d):
+    """As mom_case, for kernel W on f's grid with its vertical grid and
+    the open depths of the cells and faces."""
+    nr, nyp, nxp = f.s3
+    g = f.grid
+    drF = g.drF.double().numpy()
+    rF = np.concatenate([[0.0], -np.cumsum(drF)])
+    rC = 0.5 * (rF[:-1] + rF[1:])
+    g.rC = f.tensor(rC)
+
+    def surface_and_bottom():
+        # tops mostly at 0, bottoms anywhere, some of both on a centre
+        top = np.where(f.rng.uniform(size=(nyp, nxp)) < 0.8, 0.0,
+                       f.rng.choice(rC, (nyp, nxp)))
+        low = f.rng.uniform(rF[-1], 0.0, (nyp, nxp))
+        on = f.rng.uniform(size=(nyp, nxp)) < 0.3
+        low[on] = f.rng.choice(rC, int(on.sum()))
+        return f.tensor(top), f.tensor(low)
+
+    g.Ro_surf, g.R_low = surface_and_bottom()
+    g.rSurfW, g.rLowW = surface_and_bottom()
+    g.rSurfS, g.rLowS = surface_and_bottom()
+    g.angleSinC = f.uniform((nyp, nxp), -0.5, 0.5)
+    cfg = SimpleNamespace(nr=nr, viscAhW=430.0, gravitySign=-1.0,
+                          select3dCoriScheme=int(cori3d))
+    u = f.normal(f.s3, 0.1) * g.maskW
+    v = f.normal(f.s3, 0.1) * g.maskS
+    w = f.normal(f.s3, 1e-2) * g.maskC
+    kshape = (nr + 1, nyp, nxp)
+    kRU, kRV = f.normal(kshape, 1e-2).abs(), f.normal(kshape, 1e-2).abs()
+    want = list(calc_gw._calc_gw_plain(cfg, g, u, v, w, kRU, kRV))
+    named = dict(u=u, v=v, w=w,
+                 **{n: getattr(g, n) for n in calc_gw._GRID3},
+                 kappaRU=kRU, kappaRV=kRV,
+                 **{n: getattr(g, n) for n in calc_gw._GRID2
+                    + calc_gw._GRID1})
+    args = (nr, nyp, nxp, int(cori3d))
+    fn = f"host_calc_gw_{SUFFIX[f.dtype]}"
+
+    def run(lib, ins):
+        outs = [torch.full(f.s3, float("nan"), dtype=f.dtype)
+                for _ in range(2)]
+        tab = table(list(ins.values()) + outs)
+        assert getattr(lib, fn)(tab, len(tab), *args, cfg.viscAhW, -1.0,
+                                cfg.gravitySign) == 0
+        return outs
+
+    return want, named, args, run
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nr", GW_LEVELS)
+@pytest.mark.parametrize("cori3d", (False, True))
+def test_calc_gw_tile(lib, ny, nx, dtype, nr, cori3d):
+    f = Fields(DTYPES[dtype], 600 + nr + nx, ny, nx, nr)
+    want, named, _, run = gw_case(f, cori3d)
+    for name, got, wanted in zip(("gW", "gwDiss"), run(lib, named), want):
+        check_whole(got, wanted, name)
+    # the guards and clamps the grid is built to reach
+    g, rC = f.grid, f.grid.rC
+    kk = slice(1, None)
+    thick = (torch.minimum(g.Ro_surf[None], rC[:-1, None, None])
+             - torch.maximum(g.R_low[None], rC[1:, None, None]))
+    open_c = (g.maskC[:-1] > 0) & (g.maskC[1:] > 0)
+    assert bool((open_c & (thick == 0)).any()), "no open cell of thickness 0"
+    assert bool((g.maskC[:-1] == 0).any() & (g.maskC[kk] > 0).any())
+    thick_w = (torch.minimum(g.rSurfW[None], rC[:-1, None, None])
+               - torch.maximum(g.rLowW[None], rC[1:, None, None]))
+    assert bool((thick_w <= 0).any() & (thick_w > 0).any())
+
+
+def test_calc_gw_refuses(lib):
+    """A table of the wrong length, a Coriolis flag that is not 0 or 1, no
+    levels (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 650, *SIZES[0], 5)
+    _, named, args, _ = gw_case(f, False)
+    outs = [torch.empty(f.s3, dtype=f.dtype) for _ in range(2)]
+    tab = table(list(named.values()) + outs)
+    for extra, change in ((-1, {}), (1, {}), (0, {3: 2}), (0, {3: -1}),
+                          (0, {0: 0})):
+        bad = [change.get(n, a) for n, a in enumerate(args)]
+        assert lib.host_calc_gw_f64(tab, len(tab) + extra, *bad, 430.0,
+                                    -1.0, -1.0) == 1
+
+
+# chip_smoke.py's footprint of W's inputs holds every cell read and no cell
+# unread, in both variants
+@pytest.mark.parametrize("cori3d", (False, True))
+def test_calc_gw_footprint(lib, cori3d):
+    f = Fields(torch.float64, 660 + cori3d, *SIZES[0], 5)
+    smoke = chip_smoke()
+    check_footprint(lib, gw_case(f, cori3d), smoke.gw_footprint, {},
+                    same_as=check_whole)
+
+
+# G9's ggl90_col (ggl90_col.cuh) against its twin (model/ggl90.py:
+# _ggl90_col_plain) on every padded cell of tke', diffKr and visctmp, with
+# outputs NaN before the launch, for every mxlMaxFlag, both
+# calcMeanVertShear branches and both bottoms, IDEMIX and Langmuir each on
+# and off (Langmuir not at flag 0, which check_ggl90 refuses), with 2, 5,
+# 12 and 70 levels (the last above the 64 it once took), float64 and
+# float32. The grid has land, columns of 1, 2 and nr wet levels and
+# partial bottom cells; a fifth of the interfaces are statically unstable,
+# some columns have no vertical shear, the TKE sits at its floor in places.
+# The twin takes libm's exp and a correctly rounded sqrt, as the kernel on
+# the host does.
+G9_LEVELS = (2, 5, 12, 70)
+G9_VARIANTS = {"plain": (False, False), "idemix": (True, False),
+               "langmuir": (False, True), "idemix+langmuir": (True, True)}
+G9_CASES = [(flag, shear, dirichlet, variant)
+            for flag in range(4) for shear in (False, True)
+            for dirichlet in (True, False) for variant in G9_VARIANTS
+            if not (flag == 0 and G9_VARIANTS[variant][1])]
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_LIBM.exp.argtypes, _LIBM.exp.restype = [ctypes.c_double], ctypes.c_double
+_LIBM.expf.argtypes, _LIBM.expf.restype = [ctypes.c_float], ctypes.c_float
+
+
+@pytest.fixture
+def libm_math(monkeypatch):
+    """The twins' sqrt correctly rounded and exp libm's, as the kernels'
+    on the host."""
+    def exp(t):
+        fn = _LIBM.expf if t.dtype == torch.float32 else _LIBM.exp
+        return torch.tensor([fn(x) for x in t.flatten().tolist()],
+                            dtype=t.dtype).reshape(t.shape)
+    monkeypatch.setattr(torch, "sqrt", lambda t: torch.from_numpy(
+        np.sqrt(t.numpy())))
+    monkeypatch.setattr(torch, "exp", exp)
+
+
+def g9_case(dtype, seed, ny, nx, nr, flag, shear, dirichlet, variant):
+    """As mom_case, for G9's ggl90_col on a random column grid."""
+    f = Fields(dtype, seed, ny, nx, nr)
+    rng = f.rng
+    s3 = f.s3
+    nyp, nxp = s3[1:]
+    drF = rng.uniform(5.0, 50.0, nr)
+    rF = np.concatenate([[0.0], -np.cumsum(drF)])
+    rC = 0.5 * (rF[:-1] + rF[1:])
+    drC = np.concatenate([[rF[0] - rC[0]], rC[:-1] - rC[1:],
+                          [rC[-1] - rF[-1]]])
+    klow = rng.integers(0, nr + 1, (nyp, nxp))
+    klow.flat[:4] = (0, 1, 2, nr)
+    kk = np.arange(nr)[:, None, None]
+    mask = (kk < klow[None]).astype(float)
+    hfac = mask * np.where(kk == klow[None] - 1,
+                           rng.uniform(0.2, 1.0, s3), 1.0)
+    bottom = np.take_along_axis(hfac, np.maximum(klow - 1, 0)[None], 0)[0]
+    low = np.where(klow > 0, rF[np.maximum(klow - 1, 0)]
+                   - bottom * drF[np.maximum(klow - 1, 0)], 0.0)
+    top = np.where(rng.uniform(size=(nyp, nxp)) < 0.9, 0.0, -0.3 * drF[0])
+    grid = SimpleNamespace(
+        maskC=f.tensor(mask), hFacC=f.tensor(hfac),
+        recip_hFacC=f.tensor(np.where(hfac > 0, 1.0 / np.where(
+            hfac > 0, hfac, 1.0), 0.0)),
+        drF=f.tensor(drF), recip_drF=f.tensor(1.0 / drF), rF=f.tensor(rF),
+        recip_drC=f.tensor(1.0 / drC), Ro_surf=f.tensor(top),
+        R_low=f.tensor(low), rA=f.uniform((nyp, nxp), 0.5, 2.0))
+    cfg = SimpleNamespace(nr=nr, deltaTTracer=600.0, diffKrS=1e-5,
+                          viscAr=1e-4, gravity=9.81, gravitySign=-1.0,
+                          rhoConst=1027.5, usingPCoords=False,
+                          usingZCoords=True)
+    idemix, langmuir = G9_VARIANTS[variant]
+    g9 = ggl90.GGL90(cfg, grid, {
+        "mxlMaxFlag": flag, "calcMeanVertShear": shear,
+        "GGL90_dirichlet": dirichlet, "useIDEMIX": idemix,
+        "useLANGMUIR": langmuir})
+    u = f.normal(s3, 0.1)
+    v = f.normal(s3, 0.1)
+    for a in (u, v):                  # no vertical shear in columns 3, 4
+        a[:, :, 3:5] = a[:1, :, 3:5]
+    tke = f.normal(s3, 3e-4).abs() * grid.maskC
+    tke[:, nyp // 2:] = 1e-11 * grid.maskC[:, nyp // 2:]
+    sigmaR = -1e-4 * (1.0 + 0.5 * f.normal(s3))
+    sigmaR[f.uniform(s3, 0.0, 1.0) < 0.2] *= -0.3   # statically unstable
+    sfU, sfV = f.normal((nyp, nxp), 1e-4), f.normal((nyp, nxp), 1e-4)
+    gTKE = f.normal(s3, 1e-8).abs() if idemix else None
+    want = ggl90._ggl90_col_plain(g9, u, v, tke, sigmaR, sfU, sfV, gTKE)
+    want = [want[n] for n in ("tke", "diffKr", "visctmp")]
+    named = ggl90._col_inputs(g9, u, v, tke, sigmaR, sfU, sfV, gTKE)
+    params, flags = ggl90._col_params(g9)
+    params = (ctypes.c_double * len(params))(*params)
+    args = (params, len(params), nr, nyp, nxp, *flags)
+    fn = f"host_ggl90_col_{SUFFIX[dtype]}"
+
+    def run(lib, ins, max_shared=ggl90.G9_MAX_SHARED):
+        outs = [torch.full(s3, float("nan"), dtype=dtype) for _ in range(3)]
+        tab = table(list(ins.values()) + outs)
+        err = getattr(lib, fn)(tab, len(tab), *args, max_shared)
+        assert err == 0
+        return outs
+
+    return want, named, args, run
+
+
+@pytest.mark.parametrize("nr", G9_LEVELS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("flag,shear,dirichlet,variant", G9_CASES)
+def test_ggl90_col(lib, libm_math, nr, dtype, flag, shear, dirichlet,
+                   variant):
+    want, named, _, run = g9_case(DTYPES[dtype], 700 + nr, 12, 20, nr, flag,
+                                  shear, dirichlet, variant)
+    for name, got, wanted in zip(("tke", "diffKr", "visctmp"),
+                                 run(lib, named), want):
+        check_whole(got, wanted, name)
+    klow = named["klowC"]
+    assert {1, 2, nr} <= set(klow.flatten().tolist())
+    assert bool((named["sigmaR"][1:] > 0).any())
+
+
+def test_ggl90_col_refuses(lib):
+    """A table or parameter list of the wrong length, a mxlMaxFlag of 4,
+    and an nr whose two slots a level of a warp's columns exceed the
+    launch's shared memory (cudaErrorInvalidValue, 1)."""
+    _, named, args, _ = g9_case(torch.float64, 750, 12, 20, 12, 2, False,
+                                True, "plain")
+    outs = [torch.empty((12, 16, 24), dtype=torch.float64)
+            for _ in range(3)]
+    tab = table(list(named.values()) + outs)
+    cases = ((-1, {}, 1 << 20), (0, {1: 17}, 1 << 20), (0, {5: 4}, 1 << 20),
+             (0, {2: 1}, 1 << 20), (0, {}, 2 * 32 * 8 * 12 - 1))
+    for extra, change, max_shared in cases:
+        bad = [change.get(n, a) for n, a in enumerate(args)]
+        assert lib.host_ggl90_col_f64(tab, len(tab) + extra, *bad,
+                                      max_shared) == 1
+    assert lib.host_ggl90_col_f64(tab, len(tab), *args,
+                                  2 * 32 * 8 * 12) == 0
+
+
+# chip_smoke.py's footprint of ggl90_col's inputs holds every cell read
+# and no cell unread, for each limiter, with and without IDEMIX and
+# Langmuir
+@pytest.mark.parametrize("flag,variant", [(0, "plain"), (1, "langmuir"),
+                                          (2, "idemix"),
+                                          (3, "idemix+langmuir"),
+                                          (1, "plain")])
+def test_ggl90_col_footprint(lib, libm_math, flag, variant):
+    smoke = chip_smoke()
+    check_footprint(lib, g9_case(torch.float64, 760 + flag, 4, 20, 5, flag,
+                                 flag % 2 == 1, flag < 2, variant),
+                    smoke.ggl90_col_footprint, {}, same_as=check_whole)
