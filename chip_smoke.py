@@ -190,20 +190,39 @@ exits nonzero without the final line:
                  every launch count and no twin, the cg2d host syncs, a
                  profile, then 1 plain step held against 1 kernel step
                  from the same state (bit-equal)
+ 17. mixing glue and flow set-up: kernels J-uv (kappa_uv: with KPP's
+                 viscosity, with GGL90's), J-ts (kappa_ts: KPP's nonlocal
+                 fluxes, KPP with GM, the background diffusivities with
+                 GM's Kwz, GGL90's diffKr or both), L (adv_flow)
+                 and R's eos_sigma_r (LINEAR, JMD95Z and MDJWF, on the
+                 static profile and on totPhiHyd) and eos_find_rho (LINEAR
+                 with and without maskC, JMD95Z and MDJWF with maskC)
+                 against their twins on whole padded arrays, bit for bit,
+                 at 64x64x12 float64 and 1024x1024x32 float32 on the
+                 kpp-gyre's grid, each with its launch's device time (20
+                 launches in a CUDA graph), its wrapper call's, its twin's
+                 and its bound; every full-size phase (5-13, 15, 16)
+                 asserts L's launch once a step, J-uv's and J-ts's once a
+                 step on the KPP, GGL90 and GM paths and never on the
+                 others (viscAr alone and the background diffusivity are
+                 torch.full fills), R's (find_rho and sigmaR) on its
+                 path, and that no twin of theirs ran
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
 It prints, last, one line of JSON per kernel (the launches are those of
 the main path that runs it: phase 5 for the gyre's forward kernels, phase
 6's full-size gradient for B' and C', phase 7's full-size run for V, T
-and R, phase 8's for K, phase 9's for G9 and M, phase 10's os7mp-gyre for
-O and pqm-gyre for P, phase 11's idemix-gyre for H-IDEMIX and som-gyre for
-H-SOM, phase 12's box for W and H-cg3d, phase 13's ice-gyre for the sea
-ice's, phase 15's evp-ice-gyre for EVP's and its free-drift run for
-seaice_freedrift, phase 16's gm-gyre for gm_tensor and C's GM branch and
-its gm-bolus-gyre for gm_psi_b and gm_residual_flow, phase 5's gyre for
-A and D-G), with the kernel's time (D-G's
-from phase 14: a launch's device time, 20 launches in a CUDA graph, with
+and R, phase 8's for K, J-uv and J-ts, phase 9's for G9 and M, phase
+10's os7mp-gyre for O and pqm-gyre for P, phase 11's idemix-gyre for
+H-IDEMIX and som-gyre for H-SOM, phase 12's box for W and H-cg3d, phase
+13's ice-gyre for the sea ice's, phase 15's evp-ice-gyre for EVP's and
+its free-drift run for seaice_freedrift, phase 16's gm-gyre for
+gm_tensor and C's GM branch and its gm-bolus-gyre for gm_psi_b and
+gm_residual_flow, phase 5's gyre for A, D-G and L, phase 9's ggl90-gyre
+for R's sigmaR), with the
+kernel's time (D-G's from phase 14 and J-uv's, J-ts's, L's and sigmaR's
+from phase 17: a launch's device time, 20 launches in a CUDA graph, with
 the wrapper call's time beside it, and F.pad's beside F's;
 A's the launch of a whole solve, with its iterations and its time and
 bound an iteration), its plain twin's, and its
@@ -354,6 +373,16 @@ KERNELS = {
                          "mitgcm_tpu/model/gmredi.py:424"),
     "gad_calc_rhs_c2_gm": ("mitgcm_tpu_torch/kernels/csrc/gad_calc_rhs.cu",
                            "mitgcm_tpu/model/gmredi.py:288"),
+    # the mixing glue and the flow set-up: J-uv and J-ts on the KPP, GGL90
+    # and GM paths, L on every path, R's sigmaR on the GGL90 and GM paths
+    "kappa_uv": ("mitgcm_tpu_torch/kernels/csrc/mix_glue.cu",
+                 "mitgcm_tpu/model/step.py:198"),
+    "kappa_ts": ("mitgcm_tpu_torch/kernels/csrc/mix_glue.cu",
+                 "mitgcm_tpu/model/thermodynamics.py:470"),
+    "adv_flow": ("mitgcm_tpu_torch/kernels/csrc/adv_flow.cu",
+                 "mitgcm_tpu/model/gad.py:64"),
+    "eos_sigma_r": ("mitgcm_tpu_torch/kernels/csrc/eos.cu",
+                    "mitgcm_tpu/model/thermodynamics.py:154"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
@@ -364,28 +393,35 @@ GLUE_KERNELS = ("halo_fill", "phihyd", "cg2d_rhs", "continuity",
                 "mom_ab_step", "mom_correction", "tracer_step")
 
 
-def glue_launches(tracers, fills, steps=5):
-    """The launches of A and D-G in `steps` steps of a path that steps
-    `tracers` tracers and makes `fills` halo fills a step (u*, v*, the cg2d
-    and cg3d results, u, v and the new state's fields, the sea ice's): one
-    cg2d solve a step, one launch and one host read each."""
+def glue_launches(tracers, fills, steps=5, mixing=False):
+    """The launches of A, D-G, J-uv, J-ts and L in `steps` steps of a path
+    that steps `tracers` tracers and makes `fills` halo fills a step (u*,
+    v*, the cg2d and cg3d results, u, v and the new state's fields, the sea
+    ice's): one cg2d solve a step, one launch and one host read each; the
+    flow once a step; the kappas once a step on a mixing path (KPP, GGL90,
+    GM) and never on another; R's sigmaR none (the GGL90 and GM paths add
+    theirs)."""
     return {"cg2d_solve": steps, CG2D_READS: steps, "phihyd": steps,
             "cg2d_rhs": steps, "continuity": steps,
             "mom_ab_step": steps, "mom_correction": steps,
-            "tracer_step": tracers * steps, "halo_fill": fills * steps}
+            "tracer_step": tracers * steps, "halo_fill": fills * steps,
+            "kappa_uv": steps * mixing, "kappa_ts": steps * mixing,
+            "adv_flow": steps, "eos_sigma_r": 0}
 
 
 # launches in phase 5's 5 timed full-size gyre steps (A's follow its
 # iterations)
-GYRE_LAUNCHES = {"mom_fluxform": 5, "gad_calc_rhs_c2": 5,
+GYRE_LAUNCHES = {"mom_fluxform": 5, "gad_calc_rhs_c2": 5, "eos_find_rho": 5,
                  **glue_launches(1, 12)}
 # launches in phase 6's first full-size gradient (6 steps in 2
 # checkpointed chunks of 3): the forward kernels of 6 steps and of their
 # recomputation (16 step bodies a gradient, of which the recomputation's
 # last fills are cut short: 150 fills in all), and the fill of each of the
 # 5 adjoint cg2d solves (the last step's eta does not reach the cost),
-# each one cg2d_solve launch and one host read
+# each one cg2d_solve launch and one host read; R's LINEAR kind once a
+# step body
 ADJ_LAUNCHES = {**glue_launches(1, 0, 16), "halo_fill": 155,
+                "eos_find_rho": 16,
                 "halo_fill:adjoint": 5, "cg2d_solve": 21, CG2D_READS: 21,
                 "cg2d_solve:adjoint": 5}
 VI_KERNELS = ("mom_vecinv", "impldiff", "eos_find_rho")
@@ -397,16 +433,16 @@ KPP_KERNELS = ("kpp_pre", "kpp_smooth", "kpp_col")
 KPP_LAUNCHES = {"kpp_pre": 5, "kpp_smooth": 5, "kpp_col": 5,
                 "mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
                 "gad_calc_rhs_c2": 10, "mom_fluxform": 0,
-                **glue_launches(2, 12)}
+                **glue_launches(2, 12, mixing=True)}
 G9_KERNELS = ("ggl90_col", "ggl90_visc")
 MD_KERNELS = ("gad_multidim_x", "gad_multidim_y", "gad_multidim_r")
 # launches in phase 9's 5 timed full-size ggl90-gyre steps: M three per
-# tracer, R for find_rho and calc_sigmaR
+# tracer, R for find_rho and for calc_sigmaR
 G9_LAUNCHES = {"ggl90_col": 5, "ggl90_visc": 5, "gad_multidim_x": 10,
                "gad_multidim_y": 10, "gad_multidim_r": 10,
-               "gad_calc_rhs_c2": 10, "impldiff": 20, "eos_find_rho": 10,
+               "gad_calc_rhs_c2": 10, "impldiff": 20, "eos_find_rho": 5,
                "mom_vecinv": 5, "kpp_pre": 0, "mom_fluxform": 0,
-               **glue_launches(2, 13)}
+               **glue_launches(2, 13, mixing=True), "eos_sigma_r": 5}
 O_KERNELS = ("gad_os7mp_x", "gad_os7mp_y", "gad_os7mp_r")
 P_KERNELS = ("gad_ppm_x", "gad_ppm_y", "gad_ppm_r")
 # launches in phase 10's 5 timed full-size steps: the ggl90-gyre's with the
@@ -436,7 +472,7 @@ GM_KERNELS = ("gm_tensor", "gm_psi_b", "gm_residual_flow",
 # on the gm-bolus-gyre gm_psi_b and gm_residual_flow once a step and the
 # fills of psiX and psiY
 GM_LAUNCHES = {**KPP_LAUNCHES, "gad_calc_rhs_c2": 0, "gad_calc_rhs_c2_gm": 10,
-               "eos_find_rho": 10, "gm_tensor": 5, "gm_psi_b": 0,
+               "eos_sigma_r": 5, "gm_tensor": 5, "gm_psi_b": 0,
                "gm_residual_flow": 0}
 GM_BOLUS_LAUNCHES = {**GM_LAUNCHES, "gm_psi_b": 5, "gm_residual_flow": 5,
                      "halo_fill": 70}
@@ -458,10 +494,10 @@ EVP_VARIANTS = {
 }
 # launches in phase 12's 5 timed full-size steps besides H-cg3d's (whose
 # count follows from each solve's batches, nh_full_phase): W and B once a
-# step, C for theta alone, no other kernel of the gyres, and D-G with the
-# fills of phi_nh and of the cg3d result
+# step, C for theta alone, R's LINEAR kind, no other kernel of the gyres,
+# and D-G with the fills of phi_nh and of the cg3d result
 NH_LAUNCHES = {"calc_gw": 5, "mom_fluxform": 5, "gad_calc_rhs_c2": 5,
-               "mom_vecinv": 0, "impldiff": 0, "eos_find_rho": 0,
+               "mom_vecinv": 0, "impldiff": 0, "eos_find_rho": 5,
                "kpp_pre": 0, "ggl90_col": 0, "gad_multidim_x": 0,
                **glue_launches(1, 14)}
 # the (scheme, vertical scheme) pairs whose sweeps phase 10 holds against
@@ -560,7 +596,18 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # the recomputed density gradients; C's GM branch adds the
                 # xy and r fluxes to C's 60
                 "gm_tensor": 250, "gm_psi_b": 60, "gm_residual_flow": 20,
-                "gad_calc_rhs_c2_gm": 130}
+                "gad_calc_rhs_c2_gm": 130,
+                # the mixing glue and the flow set-up, per cell of their
+                # largest field: J-uv's KPP blend (two sums, two products
+                # and a max a component), J-ts's nonlocal fluxes (~8 each)
+                # and GM's terms, L's seven fields, R's sigmaR (the JMD95
+                # polynomials, a division, the masks)
+                "kappa_uv": 10, "kappa_ts": 20, "adv_flow": 10,
+                "eos_sigma_r": 70}
+# the outputs of kernels J-ts (those its variant writes) and L
+KAPPA_TS_OUTS = ("kapT", "kapS", "dfT", "dfS")
+ADV_FLOW_OUTS = ("uTrans", "vTrans", "rTrans", "rTransKp", "maskUp", "xA",
+                 "yA")
 # tensors that a wrapper checks but that are its kernel's scratch, and
 # those it updates in place (read and written)
 SCRATCH = ("gam", "cuu")
@@ -572,8 +619,6 @@ IN_PLACE = {"cg3d_xr_precond": ("x", "r"), "seaice_lsr_tridiag_u": ("u",),
 # 1024x1024x32 (3-D, 2-D), each input read once and each output written
 # once, for their bound
 GLUE_FIELDS = {
-    "KPP glue visc_uv and ghat_flux of theta and salt": (15, 4),
-    "GGL90 glue: kappaRU/RV and kapT/kapS sums, sigmaR": (20, 0),
     "seaice glue get_dynforcing (fu, fv, yC, SIMaskU/V in; taux, tauy out)":
         (0, 7),
     "seaice glue ocean_stress (uIce, vIce, uVel0, vVel0, dwatn, fCori, AREA,"
@@ -752,13 +797,16 @@ def count_cg2d_reads():
 
 
 def glue_plain_calls():
-    """Calls so far of the twins of D-G (ops/stencil.py, model/phihyd.py,
-    model/step.py, model/thermodynamics.py); a kernel-path run adds none."""
-    from mitgcm_tpu_torch.model import phihyd, step, thermodynamics
-    from mitgcm_tpu_torch.ops import stencil
+    """Calls so far of the twins of D-G, J-uv, J-ts, L and R
+    (ops/stencil.py, model/phihyd.py, model/step.py,
+    model/thermodynamics.py, model/gad.py's calc_adv_flow, ops/eos.py's
+    find_rho); a kernel-path run adds none."""
+    from mitgcm_tpu_torch.model import gad, phihyd, step, thermodynamics
+    from mitgcm_tpu_torch.ops import eos, stencil
 
     return (stencil.plain_calls + phihyd.plain_calls + step.plain_calls
-            + thermodynamics.plain_calls)
+            + thermodynamics.plain_calls + gad.flow_plain_calls
+            + eos.plain_calls)
 
 
 def check_launches(label, launches, want, plain=0):
@@ -1110,6 +1158,56 @@ def ggl90_col_footprint(named, args):
             for n, t in named.items() if n not in skip}
 
 
+def kappa_uv_footprint(named, args):
+    """Kernel J-uv's inputs as the views that its launch reads (args: nr,
+    nyp, nxp, mode, viscAr): KPP's viscAz and the masks in mode 1, GGL90's
+    viscArU and viscArV in mode 2, every padded cell (it writes every
+    padded cell)."""
+    reads = {1: ("maskW", "maskS", "viscAz"),
+             2: ("viscArU", "viscArV")}[args[3]]
+    return {n: named[n] for n in reads}
+
+
+def kappa_ts_footprint(named, args):
+    """Kernel J-ts's inputs as the views that its launch reads (args:
+    params, their count, nr, nyp, nxp, KPP, GM, GGL90): every padded cell
+    of GM's Kwz and maskInC and of GGL90's diffKr; with KPP its nonlocal
+    flux's fields below the surface (ghat above the bottom), its 2-D
+    forcing whole, and diffKzT and diffKzS at every level under GM."""
+    gm, below = args[6], slice(1, None)
+    levels = {"diffKzT": None if gm else below,
+              "diffKzS": None if gm else below, "maskUp": below,
+              "ghat": slice(0, args[2] - 1)}
+    return {n: footprint_view(t, 0, 0, None, levels.get(n))
+            for n, t in named.items() if n not in KAPPA_TS_OUTS}
+
+
+def adv_flow_footprint(named, args):
+    """Kernel L's inputs: every padded cell (it writes every padded cell;
+    the surface's maskUp of 0 still multiplies w rA, which keeps a NaN)."""
+    return {n: t for n, t in named.items() if n not in ADV_FLOW_OUTS}
+
+
+def find_rho_footprint(named, args):
+    """Kernel R's eos_find_rho's inputs: every cell of what its wrapper
+    checks for the kind (the tracers, totPhiHyd under use_phi, maskC when
+    given; the pressure profile, or tRef and sRef, at every level)."""
+    return {n: t for n, t in named.items() if n != "rho"}
+
+
+def sigma_r_footprint(named, args):
+    """Kernel R's eos_sigma_r's inputs (args: params, their count, nr, nyp,
+    nxp, kind, use_phi): the tracers above the bottom level (the k-1
+    water), totPhiHyd, rhoInSitu and the profiles below the surface,
+    recip_drC between the levels, maskC whole; the surface reads none."""
+    nr = args[2]
+    below, above = slice(1, None), slice(0, nr - 1)
+    levels = {"theta": above, "salt": above, "recip_drC": slice(1, nr)}
+    return {n: footprint_view(t, 0, 0, None, levels.get(
+        n, None if n == "maskC" else below))
+        for n, t in named.items() if n != "sigmaR"}
+
+
 def footprint_view(t, oly, olx, ring, levels):
     """The cells of t that a kernel reads: for a field of the padded grid
     its interior and the ring sides named (ring None: the interior only),
@@ -1141,6 +1239,11 @@ FOOTPRINTS = {"mom_fluxform": (mom_footprint, ("gU", "gV", "guDiss",
               "calc_gw": (gw_footprint, ("gW", "gwDiss")),
               "ggl90_col": (ggl90_col_footprint, ("tkeNew", "diffKr",
                                                   "visctmp")),
+              "kappa_uv": (kappa_uv_footprint, ("kappaRU", "kappaRV")),
+              "kappa_ts": (kappa_ts_footprint, KAPPA_TS_OUTS),
+              "adv_flow": (adv_flow_footprint, ADV_FLOW_OUTS),
+              "eos_find_rho": (find_rho_footprint, ("rho",)),
+              "eos_sigma_r": (sigma_r_footprint, ("sigmaR",)),
               # the launches' integers follow their pointers
               "cg3d_s_stencil_dot": (
                   lambda named, args: cg3d_footprint(named, args[-5:]),
@@ -1205,7 +1308,8 @@ def moved_bytes(name, call):
         ins = {n: t for n, t in named.items() if n not in outs or n in both}
         seen = {}
         for side, views in (("read", footprint(ins, args[0])),
-                            ("written", {n: named[n] for n in outs})):
+                            ("written", {n: named[n] for n in outs
+                                         if n in named})):
             for n, v in views.items():   # a tensor passed twice counts once
                 key = (named[n].data_ptr(), side)
                 nbytes = max(v.numel() * v.element_size(),
@@ -1530,7 +1634,9 @@ def full_phase(kernels):
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
-               + EVP_KERNELS + GM_KERNELS and launches.get(k, 0) == 0]
+               + EVP_KERNELS + GM_KERNELS
+               + ("eos_sigma_r", "kappa_uv", "kappa_ts")
+               and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -4134,7 +4240,6 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
     kernels to hold (the box runs E and G alone)."""
     import torch.nn.functional as F
 
-    from mitgcm_tpu_torch import kernels
     from mitgcm_tpu_torch.model import step, thermodynamics as th
     from mitgcm_tpu_torch.model.mom_fluxform import MomTend
     from mitgcm_tpu_torch.model.phihyd import calc_phi_hyd
@@ -4144,25 +4249,8 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
     want = set(kernels_only or GLUE_KERNELS)
     nh = cfg.nonHydrostatic
 
-    def hold(name, fn, call=True):
-        outs, wants = fn(None), fn("plain")
-        exact_compare(name, case, outs, wants,
-                      cuda_time_ms(lambda: fn(None), reps),
-                      cuda_time_ms(lambda: fn("plain"), reps), results,
-                      call=(lambda: fn(None)) if call else None,
-                      touched=None if call else outs)
-        # the line's time is the launch's device time: 20 launches in a
-        # CUDA graph, replayed (graph_ms); the wrapper call's events,
-        # which hold the host's work before the launch, stay beside it
-        r = results[name]
-        args, keep = captured_launch(lambda: fn(None), name.split("(")[0])
-        r["extra"] = {"wrapper_ms": r["ms"]}
-        r["ms"] = graph_ms(lambda: kernels.launch(*args), reps)
-        del keep
-        print(f"{'':18s} device time (20 launches in a CUDA graph) "
-              f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the "
-              f"bound; a wrapper call {r['extra']['wrapper_ms']:.4f} ms",
-              flush=True)
+    def hold(name, fn):
+        hold_launch(name, case, fn, results, reps)
 
     if "halo_fill" in want:
         ol = cfg.olx
@@ -4286,6 +4374,150 @@ def glue_phase(results):
     torch.cuda.empty_cache()
 
 
+class MixCase:
+    """Seeded inputs of kernels J-uv, J-ts, L and R (eos_find_rho's kinds
+    with and without maskC, eos_sigma_r) on the kpp-gyre's grid (its
+    stretched levels), the gyres' fields and KPP's, GGL90's and GM's
+    outputs as random fields of their scale."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.kpp_gyre_config(nx=n, ny=n, nr=nr, deltaT=600.0)
+        self.grid = (shared_grid(self.cfg, dtype)
+                     or synthetic.gyre_grid(self.cfg, dtype=dtype,
+                                            device="cuda"))
+        g = self.grid
+        rng = np.random.default_rng(SEED + 17)
+        shape = tuple(g.hFacC.shape)
+        s2 = shape[1:]
+        self.u = self.field(rng, shape, 0.1) * g.maskW
+        self.v = self.field(rng, shape, 0.1) * g.maskS
+        self.w = self.field(rng, shape, 1e-4) * g.maskC
+        self.theta = (15.0 + self.field(rng, shape, 2.0)) * g.maskC
+        self.salt = (35.0 + self.field(rng, shape, 0.5)) * g.maskC
+        self.phi = self.field(rng, shape, 10.0)     # a totPhiHyd
+        self.rho = self.field(rng, shape, 0.5) * g.maskC
+        self.viscAz = self.field(rng, shape, 2e-3).abs()
+        self.viscArU = self.field(rng, shape, 1e-2).abs()
+        self.viscArV = self.field(rng, shape, 1e-2).abs()
+        self.Kwz = self.field(rng, shape, 1e-3).abs() * g.maskC
+        self.diffKr = self.field(rng, shape, 1e-3).abs()
+        self.diffKzT = self.field(rng, shape, 1e-2).abs()
+        self.diffKzS = self.field(rng, shape, 1e-2).abs()
+        self.ghat = self.field(rng, shape, 10.0)
+        self.frac = self.field(rng, s2, 0.5).abs().clamp(max=1.0)
+        self.sfT = self.field(rng, s2, 1e-4)
+        self.sfS = self.field(rng, s2, 1e-4)
+        self.Qsw = -100.0 - self.field(rng, s2, 50.0).abs()
+        mC = g.maskC
+        self.maskUp = torch.cat([torch.zeros_like(mC[:1]), mC[1:] * mC[:-1]])
+
+    field = Case.field
+    label = Case.label
+
+
+# J-ts's variants: (KPP, GM, GGL90), the kpp-gyre's (KPP) first
+KAPPA_TS_VARIANTS = {"": (True, False, False), "KPP+GM": (True, True, False),
+                     "GM": (False, True, False),
+                     "GGL90": (False, False, True),
+                     "GGL90+GM": (False, True, True)}
+# R's eos_sigma_r variants (eosType, selectP_inEOS_Zc), and eos_find_rho's
+# beside the vi-gyre's (eosType, selectP_inEOS_Zc, maskC)
+SIGMA_VARIANTS = (("JMD95Z", 0), ("JMD95Z", 2), ("MDJWF", 0), ("MDJWF", 2),
+                  ("LINEAR", 0))
+EOS_VARIANTS = (("LINEAR", 0, True), ("LINEAR", 0, False),
+                ("JMD95Z", 0, True), ("JMD95Z", 2, True), ("MDJWF", 0, True),
+                ("MDJWF", 2, True))
+
+
+def hold_launch(name, case, fn, results, reps):
+    """A kernel's wrapper call fn(None) against its twin's fn("plain") on
+    whole arrays, bit for bit (exact_compare), with the bound; the line's
+    time is the launch's device time, 20 launches in a CUDA graph replayed
+    (graph_ms), the wrapper call's CUDA-event time, which holds the
+    host's work before the launch, beside it."""
+    from mitgcm_tpu_torch import kernels
+
+    outs, wants = fn(None), fn("plain")
+    exact_compare(name, case, outs, wants,
+                  cuda_time_ms(lambda: fn(None), reps),
+                  cuda_time_ms(lambda: fn("plain"), reps), results,
+                  call=lambda: fn(None))
+    r = results[name]
+    args, keep = captured_launch(lambda: fn(None), name.split("(")[0])
+    r["extra"] = {"wrapper_ms": r["ms"]}
+    r["ms"] = graph_ms(lambda: kernels.launch(*args), reps)
+    del keep
+    print(f"{'':18s} device time (20 launches in a CUDA graph) "
+          f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the bound; "
+          f"a wrapper call {r['extra']['wrapper_ms']:.4f} ms", flush=True)
+
+
+def mix_kernel_phase(case, results, reps):
+    """J-uv (KPP, GGL90), J-ts (each of KAPPA_TS_VARIANTS), L, R's
+    eos_sigma_r (LINEAR, JMD95Z and MDJWF, on the static profile and on
+    totPhiHyd) and eos_find_rho (EOS_VARIANTS) against their twins, bit
+    for bit on every padded cell. The variants of the paths whose launches
+    the JSON line reports carry the kernels' names (J-uv and J-ts the
+    kpp-gyre's KPP, sigmaR the ggl90-gyre's JMD95Z on the static profile);
+    R's find_rho keeps phase 7's row."""
+    from mitgcm_tpu_torch.model import gad, step, thermodynamics as th
+    from mitgcm_tpu_torch.ops import eos
+
+    cfg, g = case.cfg, case.grid
+    kpp_fields = {"viscAz": case.viscAz}
+    g9_fields = {"viscArU": case.viscArU, "viscArV": case.viscArV}
+    for label, kw in (("", {"kpp_fields": kpp_fields}),
+                      ("(GGL90)", {"ggl90_fields": g9_fields})):
+        hold_launch("kappa_uv" + label, case, lambda impl, kw=kw: list(
+            step.kappa_uv(cfg, g, impl=impl, **kw)), results, reps)
+    forcing = types.SimpleNamespace(Qsw=case.Qsw)
+    for label, (kpp, gm, g9) in KAPPA_TS_VARIANTS.items():
+        kw = dict(
+            kpp_fields=dict(diffKzT=case.diffKzT, diffKzS=case.diffKzS,
+                            ghat=case.ghat, frac=case.frac) if kpp else None,
+            ggl90_fields={"diffKr": case.diffKr} if g9 else None,
+            gm=types.SimpleNamespace(Kwz=case.Kwz) if gm else None)
+
+        def kappa(impl, kw=kw):
+            outs = th.kappa_ts(cfg, g, forcing, case.sfT, case.sfS,
+                               case.maskUp, impl=impl, **kw)
+            return [t for t in outs if t is not None]
+
+        hold_launch("kappa_ts" + (f"({label})" if label else ""), case,
+                    kappa, results, reps)
+    hold_launch("adv_flow", case, lambda impl: list(gad.calc_adv_flow(
+        g, case.u, case.v, case.w, impl=impl)), results, reps)
+    for kind, select_p in SIGMA_VARIANTS:
+        c = dataclasses.replace(cfg, eosType=kind, selectP_inEOS_Zc=select_p)
+        label = ("" if (kind, select_p) == ("JMD95Z", 0) else
+                 f"({kind}{', totPhiHyd' if select_p else ''})")
+        hold_launch("eos_sigma_r" + label, case, lambda impl, c=c: [
+            th.calc_sigmaR(c, g, case.rho, case.theta, case.salt,
+                           totPhiHyd=case.phi, impl=impl)], results, reps)
+    for kind, select_p, masked in EOS_VARIANTS:
+        c = dataclasses.replace(cfg, eosType=kind, selectP_inEOS_Zc=select_p)
+        label = (f"(LINEAR{', maskC' if masked else ''})"
+                 if kind == "LINEAR" else
+                 f"({kind}{', totPhiHyd' if select_p else ''}, maskC)")
+        hold_launch("eos_find_rho" + label, case, lambda impl, c=c,
+                    masked=masked: [eos.find_rho(
+                        c, g, case.theta, case.salt, totPhiHyd=case.phi,
+                        impl=impl, mask=g.maskC if masked else None)],
+                    results, reps)
+
+
+def mix_phase(results):
+    phase("17 mixing glue and flow set-up: J-uv, J-ts, L and R's sigmaR and "
+          "LINEAR kind")
+    mix_kernel_phase(MixCase(64, 12, torch.float64), results, 20)
+    mix_kernel_phase(MixCase(1024, 32, torch.float32), results, 10)
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+
+
 def glue_bounds(smi):
     """The bytes-over-bandwidth bound of each row of GLUE_FIELDS at
     1024x1024x32 float32 (padded by 2 halo cells)."""
@@ -4328,10 +4560,10 @@ def main():
     # each phase's peak memory holds no other configuration's grid
     GRIDS.clear()
     kpp_launches = kpp_phase(kernels, results, smi)
-    for name in KPP_KERNELS:
+    for name in KPP_KERNELS + ("kappa_uv", "kappa_ts"):
         launches[name] = kpp_launches[name]
     g9_launches = g9_phase(kernels, results, smi)
-    for name in G9_KERNELS + MD_KERNELS:
+    for name in G9_KERNELS + MD_KERNELS + ("eos_sigma_r",):
         launches[name] = g9_launches[name]
     launches.update(ho_phase(kernels, results, smi))
     launches.update(ism_phase(kernels, results, smi))
@@ -4341,6 +4573,7 @@ def main():
     glue_phase(results)
     launches.update(evp_phase(kernels, results, smi))
     launches.update(gm_phase(kernels, results, smi))
+    mix_phase(results)
     glue_bounds(smi)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]

@@ -95,6 +95,11 @@ class Grid:
     Bo_surf: torch.Tensor
     recip_Bo: torch.Tensor
     globalArea: torch.Tensor  # 0-d
+    # the LINEAR equation of state's reference profiles [nr] (cfg.tRef and
+    # cfg.sRef), made on the device once; None on a grid carried from the
+    # JAX package, which holds none
+    tRef: Optional[torch.Tensor] = None
+    sRef: Optional[torch.Tensor] = None
 
 
 def _extend_spacing(vals: np.ndarray, ol: int) -> np.ndarray:
@@ -309,5 +314,5 @@ def build_grid(cfg: Config, bathy: Optional[np.ndarray] = None,
         angleCosC=T(np.ones(pshape)), angleSinC=T(np.zeros(pshape)),
         Bo_surf=T(np.full(pshape, cfg.gBaro)),
         recip_Bo=T(np.full(pshape, 1.0 / cfg.gBaro)),
-        globalArea=T(globalArea),
+        globalArea=T(globalArea), tRef=T(cfg.tRef), sRef=T(cfg.sRef),
     )

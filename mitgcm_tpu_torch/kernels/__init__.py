@@ -94,9 +94,28 @@ SIGNATURES = {
     # field, kappaR, recip_hFac, recip_drF, recip_drC, gam, out; nr,
     # nyp * nxp; deltaT; stream
     "impldiff": [_P] * 7 + [_I] * 2 + [_D, _P],
-    # theta, salt, totPhiHyd, profile, rho; nr, nyp * nxp, eos kind,
-    # use totPhiHyd; rhoConst, dp0, pressure scale; stream
-    "eos_find_rho": [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P],
+    # kernel R: pointer table (theta, salt, totPhiHyd, profile, tRef, sRef,
+    # maskC, rho), its length; parameter array (rhoConst, dp0, pressure
+    # scale, rhoNil, tAlpha, sBeta, rhoNil - rhoConst), its length; nr,
+    # nyp * nxp, eos kind, use totPhiHyd, use maskC; stream
+    "eos_find_rho": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
+    # eos_sigma_r: pointer table (theta, salt, totPhiHyd, profile, tRef,
+    # sRef, maskC, recip_drC, rhoInSitu, sigmaR), its length; the parameter
+    # array above and rkSign, its length; nr, nyp, nxp, eos kind, use
+    # totPhiHyd; stream
+    "eos_sigma_r": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
+    # kernel J-uv: pointer table (maskW, maskS, viscAz or viscArU, viscArV,
+    # kappaRU, kappaRV), its length; nr, nyp, nxp, mode (1 KPP, 2 GGL90);
+    # viscAr; stream
+    "kappa_uv": [_PP, _I] + [_I] * 4 + [_D, _P],
+    # kernel J-ts: pointer table (mix_glue.cuh:KappaTsArgs), its length;
+    # parameter array (diffKrT, diffKrS, recip_Cp, 1/rhoConst), its length;
+    # nr, nyp, nxp, KPP, GM, GGL90; stream
+    "kappa_ts": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
+    # kernel L: pointer table (u, v, w, hFacW, hFacS, maskC, dyG, dxG, rA,
+    # drF, then the seven fields of gad.AdvFlow), its length; nr, nyp, nxp;
+    # stream
+    "adv_flow": [_PP, _I] + [_I] * 3 + [_P],
     # pointer table, its length; parameter array, its length; nr, nyp, nxp,
     # eos kind, use totPhiHyd, KPP_SMOOTH_SHSQ; stream
     "kpp_pre": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
@@ -329,9 +348,10 @@ def counting_as(label: str):
 class TwinVJP(torch.autograd.Function):
     """A kernel without a backward kernel, made differentiable: forward
     runs `launch(*tensors)` (the kernel's wrapper, a tuple of fresh
-    outputs); backward re-runs `twin(*tensors)`, the kernel's plain PyTorch
-    twin, under autograd and returns its VJP for the tensors that need one,
-    so the gradient is the plain path's bit for bit. Only the inputs are
+    outputs, inputs passed through or None); backward re-runs
+    `twin(*tensors)`, the kernel's plain PyTorch twin, under autograd and
+    returns its VJP for the tensors that need one, so the gradient is the
+    plain path's bit for bit. Only the inputs are
     saved (None entries allowed)."""
 
     @staticmethod
@@ -349,7 +369,8 @@ class TwinVJP(torch.autograd.Function):
             xs = [None if t is None else t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, need)]
             outs = ctx.twin(*xs)
-            pairs = [(o, b) for o, b in zip(outs, bars) if o.requires_grad]
+            pairs = [(o, b) for o, b in zip(outs, bars)
+                     if o is not None and o.requires_grad]
             wrt = [x for x, n in zip(xs, need) if n]
             grads = iter(torch.autograd.grad(
                 [o for o, _ in pairs], wrt, [b for _, b in pairs],

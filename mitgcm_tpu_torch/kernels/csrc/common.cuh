@@ -19,6 +19,45 @@ inline dim3 grid2d(int ny, int nx) {
   return dim3((nx + BX - 1) / BX, (ny + BY - 1) / BY, 1);
 }
 
+// Launches over every padded cell of `levels` planes of nyp x nxp cells:
+// blocks of kCellX x kCellY threads, i fastest, the level the fastest
+// block index, so that the blocks of one tile at neighbouring levels run
+// together (a level's neighbour comes from the cache).
+constexpr int kCellX = 32;
+constexpr int kCellY = 8;
+
+inline dim3 cell_grid(int levels, int nyp, int nxp) {
+  return dim3(static_cast<unsigned>(levels),
+              static_cast<unsigned>((nxp + kCellX - 1) / kCellX),
+              static_cast<unsigned>((nyp + kCellY - 1) / kCellY));
+}
+
+// The cell of this thread in a cell_grid launch: level k, row j, column i,
+// its 2-D index q and 3-D index p; false past the plane's edge.
+struct GridCell {
+  int k, j, i;
+  size_t q, p;
+};
+
+__device__ __forceinline__ bool grid_cell_of(int nyp, int nxp, GridCell& c) {
+  c.k = blockIdx.x;
+  c.i = blockIdx.y * kCellX + threadIdx.x;
+  c.j = blockIdx.z * kCellY + threadIdx.y;
+  if (c.i >= nxp || c.j >= nyp) return false;
+  c.q = static_cast<size_t>(c.j) * nxp + c.i;
+  c.p = static_cast<size_t>(c.k) * nyp * nxp + c.q;
+  return true;
+}
+
+// torch.maximum: NaN where either is NaN, else the larger (CUDA's fmax
+// drops a NaN)
+template <typename T>
+__device__ __forceinline__ T max_nan(T a, T b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a < b ? b : a;
+}
+
 // Copy a launch's table of n pointers into Args, a struct of `want`
 // pointers; false if n is not want.
 template <typename Args>

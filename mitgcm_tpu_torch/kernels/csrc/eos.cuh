@@ -6,7 +6,10 @@
 // the JAX code and of the port's plain twins (ops/eos.py); a Python
 // constant product such as 2.0 * c is formed in double, as Python forms it,
 // and then rounded to T, so with --fmad=false the kernels agree with the
-// twins bit for bit.
+// twins bit for bit. Kernel R's two kernels and their launches are here
+// too, for the tests' host check: eos_find_rho (rho - rhoConst of every
+// cell, times maskC when given) and eos_sigma_r (calc_sigmaR's vertical
+// density gradient).
 #pragma once
 
 #include "common.cuh"
@@ -209,6 +212,118 @@ __device__ T Eos<T>::beta(T t1, T salt, int k, T phi) const {
   const T Kp = K - p1;
   return (K * K * drhoP0dS - K * p1 * drhoP0dS - rp0 * p1 * dKdS) /
          (Kp * Kp);
+}
+
+// Kernel R's pointers: eos_find_rho's theta, salt, totPhiHyd (read with
+// use_phi), the pressure profile [nr] (nonlinear kinds), tRef and sRef [nr]
+// (LINEAR), maskC (optional) and the output rho
+template <typename T>
+struct EosArgs {
+  const T *theta, *salt, *phi, *profile, *tref, *sref, *mask;
+  T* rho;
+};
+constexpr int kEosNumPointers = 8;
+
+// eos_sigma_r's: those of eos_find_rho (maskC not optional), recip_drC
+// [nr + 1], rhoInSitu and the output sigmaR
+template <typename T>
+struct SigmaRArgs {
+  const T *theta, *salt, *phi, *profile, *tref, *sref, *maskC, *recip_drC,
+      *rhoInSitu;
+  T* sigmaR;
+};
+constexpr int kSigmaRNumPointers = 10;
+
+// The Eos of a launch from its host parameters: rhoConst, dp0, the
+// pressure scale, rhoNil, tAlpha, sBeta, rhoNil - rhoConst (each rounded to
+// T as PyTorch rounds a Python number against a tensor)
+template <typename T>
+Eos<T> eos_of(const double* prm, int kind, int use_phi, const T* profile,
+              const T* tref, const T* sref) {
+  return Eos<T>{kind,        use_phi,     T(prm[0]), T(prm[1]), T(prm[2]),
+                T(prm[3]),   T(prm[4]),   T(prm[5]), T(prm[6]), T(0),
+                T(0),        profile,     profile,   tref,      sref};
+}
+
+// rho - rhoConst of every cell (find_rho with kRef = k), times maskC with
+// use_mask (forward_step's rhoInSitu)
+template <typename T>
+__global__ void eos_find_rho_kernel(EosArgs<T> a, Eos<T> e, int nr,
+                                    int plane, int use_mask) {
+  const size_t n = static_cast<size_t>(nr) * plane;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (idx >= n) return;
+  const int k = static_cast<int>(idx / plane);
+  const T rho = e.rho(a.theta[idx], a.salt[idx], k,
+                      e.use_phi ? a.phi[idx] : T(0));
+  a.rho[idx] = use_mask ? rho * a.mask[idx] : rho;
+}
+
+// calc_sigmaR in z-coordinates (grad_sigma.F:95-107, do_oceanic_phys.F:
+// 807-830; mitgcm_tpu/model/thermodynamics.py:154-184): below the surface
+// the k-1 water's density at level k's pressure (theta[k-1] and salt[k-1]
+// through Eos::rho at k, totPhiHyd[k] under use_phi) against rhoInSitu[k],
+// (((maskC[k] * maskC[k-1]) * recip_drC[k]) * rkSign) * (rhoInSitu[k] -
+// rho); 0 at the surface
+template <typename T>
+__global__ void eos_sigma_r_kernel(SigmaRArgs<T> a, Eos<T> e, int nyp,
+                                   int nxp, T rkSign) {
+  GridCell c;
+  if (!grid_cell_of(nyp, nxp, c)) return;
+  if (c.k == 0) {
+    a.sigmaR[c.p] = T(0);
+    return;
+  }
+  const size_t up = c.p - static_cast<size_t>(nyp) * nxp;
+  const T rho = e.rho(a.theta[up], a.salt[up], c.k,
+                      e.use_phi ? a.phi[c.p] : T(0));
+  a.sigmaR[c.p] = (((a.maskC[c.p] * a.maskC[up]) * a.recip_drC[c.k]) *
+                   rkSign) * (a.rhoInSitu[c.p] - rho);
+}
+
+// A kind's inputs: the pressure profile for the nonlinear kinds, tRef and
+// sRef for LINEAR, totPhiHyd with use_phi
+template <typename T>
+bool eos_inputs_ok(int kind, int use_phi, const T* phi, const T* profile,
+                   const T* tref, const T* sref) {
+  if (kind < 0 || kind > 2 || (use_phi && !phi)) return false;
+  return kind == 2 ? tref && sref && !use_phi : profile != nullptr;
+}
+
+template <typename T, typename Start>
+int launch_find_rho(const void* const* table, int n, const double* params,
+                    int np, int nr, int plane, int kind, int use_phi,
+                    int use_mask, Start start) {
+  EosArgs<T> a;
+  if (!unpack(&a, table, n, kEosNumPointers) || np != 7 || nr < 1 ||
+      plane < 1 ||
+      !eos_inputs_ok(kind, use_phi, a.phi, a.profile, a.tref, a.sref) ||
+      (use_mask && !a.mask))
+    return (int)cudaErrorInvalidValue;
+  const Eos<T> e = eos_of<T>(params, kind, use_phi, a.profile, a.tref,
+                             a.sref);
+  const size_t cells = static_cast<size_t>(nr) * plane;
+  const unsigned blocks = static_cast<unsigned>((cells + NT - 1) / NT);
+  start(eos_find_rho_kernel<T>, dim3(blocks), dim3(NT), a, e, nr, plane,
+        use_mask);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename Start>
+int launch_sigma_r(const void* const* table, int n, const double* params,
+                   int np, int nr, int nyp, int nxp, int kind, int use_phi,
+                   Start start) {
+  SigmaRArgs<T> a;
+  if (!unpack(&a, table, n, kSigmaRNumPointers) || np != 8 || nr < 1 ||
+      nyp < 1 || nxp < 1 ||
+      !eos_inputs_ok(kind, use_phi, a.phi, a.profile, a.tref, a.sref))
+    return (int)cudaErrorInvalidValue;
+  const Eos<T> e = eos_of<T>(params, kind, use_phi, a.profile, a.tref,
+                             a.sref);
+  start(eos_sigma_r_kernel<T>, cell_grid(nr, nyp, nxp), dim3(kCellX, kCellY),
+        a, e, nyp, nxp, T(params[7]));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace mitgcm

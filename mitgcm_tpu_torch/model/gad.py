@@ -6,6 +6,10 @@ every scheme the JAX package runs under it: upwind (1), DST-2 (20), DST-3
 (40-42, 50-52, in model/gad_ho.py), with the vertical schemes 1, 2, 3, 4,
 7, 20, 30, 33, 77, 40-42 and 50-52.
 
+`calc_adv_flow` runs kernel L (kernels/csrc/adv_flow.cu) for CUDA
+tensors, under kernels.TwinVJP, and its twin `_calc_adv_flow_plain` for
+CPU tensors or with impl="plain".
+
 `calc_rhs` runs kernel C (kernels/csrc/gad_calc_rhs.cu) for CUDA tensors,
 with kernel C' (gad_calc_rhs_adj.cu) as its backward, and the plain
 PyTorch twin `_calc_rhs_plain`, differentiated by autograd, for CPU
@@ -64,9 +68,11 @@ VERT_SCHEMES = (ENUM_UPWIND_1RST, ENUM_CENTERED_2ND, ENUM_UPWIND_3RD,
                 ENUM_CENTERED_4TH, ENUM_OS7MP, ENUM_DST2, ENUM_DST3,
                 ENUM_DST3_FLUX_LIMIT, ENUM_FLUX_LIMIT) + PPM_PQM_SCHEMES
 
-# calls of multidim_advection that ran the plain twin (a run on the card
-# reads it to show that its kernel path never did)
+# calls of multidim_advection that ran the plain twin, and of
+# calc_adv_flow's (a run on the card reads them to show that its kernel
+# path never did)
 plain_calls = 0
+flow_plain_calls = 0
 
 _CR_MAX = 1.0e6       # gad_fluxlimit_adv_x.F:63
 _THETA_MAX = 1.0e20   # gad_dst3fl_adv_x.F:36
@@ -82,8 +88,9 @@ class AdvFlow(NamedTuple):
     yA: torch.Tensor
 
 
-def calc_adv_flow(grid: Grid, u, v, w) -> AdvFlow:
-    """model/src/calc_adv_flow.F, all levels at once."""
+def _calc_adv_flow_plain(grid: Grid, u, v, w):
+    """Kernel L's twin: calc_adv_flow (gad.py:64-78 of the JAX package), the
+    seven fields of AdvFlow in its order and operation order."""
     drF = grid.drF[:, None, None]
     xA = grid.dyG * drF * grid.hFacW
     yA = grid.dxG * drF * grid.hFacS
@@ -91,8 +98,38 @@ def calc_adv_flow(grid: Grid, u, v, w) -> AdvFlow:
     maskUp = torch.cat([torch.zeros_like(mC[:1]), mC[1:] * mC[:-1]])
     rTrans = w * grid.rA * maskUp
     rTransKp = torch.cat([rTrans[1:], torch.zeros_like(rTrans[:1])])
-    return AdvFlow(uTrans=u * xA, vTrans=v * yA, rTrans=rTrans,
-                   rTransKp=rTransKp, maskUp=maskUp, xA=xA, yA=yA)
+    return u * xA, v * yA, rTrans, rTransKp, maskUp, xA, yA
+
+
+def _calc_adv_flow_kernel(grid: Grid, u, v, w):
+    """Kernel L on the card (adv_flow.cu): the seven fields, fresh."""
+    outs = [torch.empty_like(u) for _ in AdvFlow._fields]
+    kernels.check_fields(u.dtype, u.shape, u=u, v=v, w=w, hFacW=grid.hFacW,
+                         hFacS=grid.hFacS, maskC=grid.maskC,
+                         **dict(zip(AdvFlow._fields, outs)))
+    kernels.check_fields(u.dtype, u.shape[1:], dyG=grid.dyG, dxG=grid.dxG,
+                         rA=grid.rA)
+    kernels.check_fields(u.dtype, u.shape[:1], drF=grid.drF)
+    table = [u, v, w, grid.hFacW, grid.hFacS, grid.maskC, grid.dyG,
+             grid.dxG, grid.rA, grid.drF, *outs]
+    kernels.launch("adv_flow", u.dtype, kernels.pointer_table(table),
+                   len(table), *u.shape)
+    return tuple(outs)
+
+
+def calc_adv_flow(grid: Grid, u, v, w, impl: str = None) -> AdvFlow:
+    """model/src/calc_adv_flow.F, all levels at once. Kernel L on CUDA
+    tensors (under kernels.TwinVJP; maskUp, xA and yA, which depend on the
+    grid alone, leave autograd's graph), its twin on CPU tensors or with
+    impl="plain"."""
+    if not kernels.use_kernel(u, impl):
+        global flow_plain_calls
+        flow_plain_calls += 1
+        return AdvFlow(*_calc_adv_flow_plain(grid, u, v, w))
+    outs = kernels.TwinVJP.apply(
+        lambda *ts: _calc_adv_flow_kernel(grid, *ts),
+        lambda *ts: _calc_adv_flow_plain(grid, *ts), u, v, w)
+    return AdvFlow(*outs[:4], *(t.detach() for t in outs[4:]))
 
 
 def _div(a: torch.Tensor, c: float) -> torch.Tensor:

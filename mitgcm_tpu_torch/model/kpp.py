@@ -16,8 +16,10 @@ impl="plain", it runs the plain twins `_kpp_pre_plain`,
 operation order on whole
 [nr(+2), nyp, nxp] arrays. Arrays suffixed `_f` keep the Fortran level
 index on axis 0 (0..nr+1), as in the JAX code, so that each line can be
-checked against its JAX line. `visc_uv` and `ghat_flux` are plain PyTorch
-glue.
+checked against its JAX line. `visc_uv` and `ghat_flux` are the plain
+PyTorch pieces of the twins of kernels J-uv and J-ts (model/step.py:
+kappa_uv, model/thermodynamics.py:kappa_ts), which run them on the card's
+kernel path in one launch each.
 
 Left out, and refused by `check_kpp`: KPP_ESTIMATE_UREF, KPPuseDoubleDiff,
 KPP_ghatUseTotalDiffus and the smoothing options the JAX experiment

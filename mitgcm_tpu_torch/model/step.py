@@ -26,7 +26,9 @@ tensor and bolus streamfunction from the start-of-step density, before
 THERMODYNAMICS), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
-skipped. `impl` is passed to the kernel wrappers: None runs the CUDA
+skipped. `kappa_uv` forms the vertical viscosity at u and v points
+(kernel J-uv, kernels/csrc/mix_glue.cu, on CUDA tensors, with KPP or
+GGL90). `impl` is passed to the kernel wrappers: None runs the CUDA
 kernels on CUDA tensors and the plain PyTorch twins on CPU tensors;
 "plain" runs the twins on any device.
 """
@@ -373,6 +375,68 @@ def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
     return uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, nh
 
 
+def _kappa_uv_plain(cfg: Config, grid: Grid, viscAz, viscArU, viscArV):
+    """Kernel J-uv's twin: (KappaRU, KappaRV) on nr + 1 levels,
+    calc_viscosity.F's viscAr with KPP's viscosity blended in (viscAz
+    given, kpp.py:745-752 of the JAX package) or GGL90's added (viscArU
+    and viscArV given, step.py:207-210), on the first nr levels."""
+    nr = cfg.nr
+    kshape = (nr + 1,) + tuple(grid.maskW.shape[1:])
+    like = dict(dtype=grid.maskW.dtype, device=grid.maskW.device)
+    kappaRU = torch.full(kshape, cfg.viscAr, **like)
+    kappaRV = torch.full(kshape, cfg.viscAr, **like)
+    if viscAz is not None:
+        kappaRU[:nr], kappaRV[:nr] = kpp_mod.visc_uv(
+            cfg, grid, {"viscAz": viscAz}, kappaRU[:nr], kappaRV[:nr])
+    if viscArU is not None:
+        # ggl90_calc_visc.F: KappaRU += GGL90viscArU - viscArNr
+        kappaRU[:nr] += viscArU - cfg.viscAr
+        kappaRV[:nr] += viscArV - cfg.viscAr
+    return kappaRU, kappaRV
+
+
+def _kappa_uv_kernel(cfg: Config, grid: Grid, viscAz, viscArU, viscArV):
+    """Kernel J-uv on the card (mix_glue.cu)."""
+    nr, nyp, nxp = grid.maskW.shape
+    dtype = grid.maskW.dtype
+    kappaRU = grid.maskW.new_empty((nr + 1, nyp, nxp))
+    kappaRV = grid.maskW.new_empty((nr + 1, nyp, nxp))
+    mode = 1 if viscAz is not None else 2
+    ins = {"viscAz": viscAz, "viscArU": viscArU, "viscArV": viscArV}
+    kernels.check_fields(dtype, (nr, nyp, nxp), maskW=grid.maskW,
+                         maskS=grid.maskS, **{n: t for n, t in ins.items()
+                                              if t is not None})
+    kernels.check_fields(dtype, (nr + 1, nyp, nxp), kappaRU=kappaRU,
+                         kappaRV=kappaRV)
+    table = [grid.maskW, grid.maskS, viscAz if mode == 1 else viscArU,
+             viscArV, kappaRU, kappaRV]
+    kernels.launch("kappa_uv", dtype, kernels.pointer_table(table),
+                   len(table), nr, nyp, nxp, mode, cfg.viscAr)
+    return kappaRU, kappaRV
+
+
+def kappa_uv(cfg: Config, grid: Grid, kpp_fields=None, ggl90_fields=None,
+             impl: str = None):
+    """(KappaRU, KappaRV) [nr + 1, ...]: the vertical viscosity at u and v
+    points, viscAr with KPP.calc's viscosity blended in (kpp_fields) or
+    GGL90.calc's viscArU/viscArV added (ggl90_fields). Kernel J-uv on CUDA
+    tensors (under kernels.TwinVJP), its twin on CPU tensors or with
+    impl="plain". viscAr alone is two constant fills (the twin's
+    torch.full) on any device: J-uv runs only where there is arithmetic."""
+    ins = (None if kpp_fields is None else kpp_fields["viscAz"],
+           *((None, None) if ggl90_fields is None else
+             (ggl90_fields["viscArU"], ggl90_fields["viscArV"])))
+    if kpp_fields is None and ggl90_fields is None:
+        return _kappa_uv_plain(cfg, grid, *ins)
+    if not kernels.use_kernel(grid.maskW, impl):
+        global plain_calls
+        plain_calls += 1
+        return _kappa_uv_plain(cfg, grid, *ins)
+    return kernels.TwinVJP.apply(
+        lambda *ts: _kappa_uv_kernel(cfg, grid, *ts),
+        lambda *ts: _kappa_uv_plain(cfg, grid, *ts), *ins)
+
+
 def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
              rhoInSitu, myIter: int, impl: str = None, kpp_fields=None,
              ggl90_fields=None):
@@ -384,17 +448,8 @@ def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
     CALC_GW + TIMESTEP_WVEL; step.py:341-357 of the JAX package), else
     None."""
     u, v, w = state.uVel, state.vVel, state.wVel
-    nr = cfg.nr
-    kshape = (nr + 1,) + tuple(u.shape[1:])
-    kappaRU = torch.full(kshape, cfg.viscAr, dtype=u.dtype, device=u.device)
-    kappaRV = torch.full(kshape, cfg.viscAr, dtype=u.dtype, device=u.device)
-    if kpp_fields is not None:
-        kappaRU[:nr], kappaRV[:nr] = kpp_mod.visc_uv(
-            cfg, grid, kpp_fields, kappaRU[:nr], kappaRV[:nr])
-    if ggl90_fields is not None:
-        # ggl90_calc_visc.F: KappaRU += GGL90viscArU - viscArNr
-        kappaRU[:nr] += ggl90_fields["viscArU"] - cfg.viscAr
-        kappaRV[:nr] += ggl90_fields["viscArV"] - cfg.viscAr
+    kappaRU, kappaRV = kappa_uv(cfg, grid, kpp_fields, ggl90_fields,
+                                impl=impl)
     _, dPhiHydX, dPhiHydY, totPhiHyd = calc_phi_hyd(cfg, grid, rhoInSitu,
                                                     impl=impl)
     momentum = mom_vecinv if cfg.vectorInvariantMomentum else mom_fluxform
@@ -697,8 +752,8 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
             siTICES=ice.TICES, siSigma=ice.sigma)
     # in-situ density from the start-of-step tracers (do_oceanic_phys.F)
     rhoInSitu = eos.find_rho(cfg, grid, state.theta, state.salt,
-                             totPhiHyd=state.totPhiHyd,
-                             impl=impl) * grid.maskC
+                             totPhiHyd=state.totPhiHyd, impl=impl,
+                             mask=grid.maskC)
     # KPP on the start-of-step state with this step's surface forcing
     # (do_oceanic_phys.F KPP_CALC; step.py:940-955 of the JAX package)
     kpp_fields = None

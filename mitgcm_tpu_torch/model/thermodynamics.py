@@ -12,7 +12,13 @@ H-SOM, which comes first, with or without multiDimAdvection, as in JAX),
 and neither tendency is AB-extrapolated. With GM-Redi (model/gmredi.py)
 its Kwz joins the interface diffusivities and its fluxes each tracer's,
 and in the advective form the residual flow advects the tracers.
-`calc_sigmaR` gives GGL90 and GM-Redi the vertical density gradient.
+`calc_sigmaR` gives GGL90 and GM-Redi the vertical density gradient:
+kernel R's eos_sigma_r (kernels/csrc/eos.cu) for CUDA tensors, its twin
+`_calc_sigmaR_plain` otherwise. `kappa_ts` forms the tracers' vertical
+diffusivities (the background, GM's Kwz, GGL90's diffKr) or, with KPP,
+its nonlocal fluxes: kernel J-ts (kernels/csrc/mix_glue.cu) for CUDA
+tensors, its twin `_kappa_ts_plain` otherwise. Both run under
+kernels.TwinVJP, their gradients the twins'.
 
 `impldiff` (the tridiagonal column solve, also used for implicit vertical
 viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for
@@ -214,29 +220,159 @@ def surface_forcing_ts(cfg: Config, grid: Grid, state: State,
     return sfT, sfS
 
 
+def _calc_sigmaR_plain(cfg: Config, grid: Grid, rhoInSitu, theta, salt,
+                       totPhiHyd=None):
+    """Kernel R's eos_sigma_r twin: calc_sigmaR (thermodynamics.py:154-184
+    of the JAX package) in z-coordinates, in its operation order."""
+    nr = cfg.nr
+    mC = grid.maskC
+    m_km1 = torch.cat([torch.zeros_like(mC[:1]), mC[:-1]])
+    sigKm1 = eos._find_rho_plain(cfg, grid, torch.cat([theta[:1], theta[:-1]]),
+                                 torch.cat([salt[:1], salt[:-1]]), totPhiHyd,
+                                 None)
+    sigmaR = (mC * m_km1 * grid.recip_drC[:nr, None, None] * cfg.rkSign
+              * (rhoInSitu - sigKm1))
+    sigmaR[0] = 0.0
+    return (sigmaR,)
+
+
 def calc_sigmaR(cfg: Config, grid: Grid, rhoInSitu, theta, salt,
                 totPhiHyd=None, impl: str = None) -> torch.Tensor:
     """The vertical potential-density gradient at the interfaces
     (grad_sigma.F:95-107 with do_oceanic_phys.F:807-830), z-coordinates:
-    the density of the k-1 water at level k (find_rho with kRef = k, kernel
-    R on the card) against the in-situ density rhoInSitu; 0 at the
-    surface."""
-    nr = cfg.nr
-    mC = grid.maskC
-    m_km1 = torch.cat([torch.zeros_like(mC[:1]), mC[:-1]])
-    sigKm1 = eos.find_rho(cfg, grid, torch.cat([theta[:1], theta[:-1]]),
-                          torch.cat([salt[:1], salt[:-1]]),
-                          totPhiHyd=totPhiHyd, impl=impl)
-    sigmaR = (mC * m_km1 * grid.recip_drC[:nr, None, None] * cfg.rkSign
-              * (rhoInSitu - sigKm1))
-    sigmaR[0] = 0.0
-    return sigmaR
+    the density of the k-1 water at level k (find_rho with kRef = k)
+    against the in-situ density rhoInSitu; 0 at the surface. Kernel R's
+    eos_sigma_r on CUDA tensors (the LINEAR kind under kernels.TwinVJP),
+    its twin on CPU tensors or with impl="plain". The nonlinear kinds
+    refuse inputs that require grad, as find_rho does."""
+    eos.refuse_grad(cfg, "calc_sigmaR", rhoInSitu=rhoInSitu, theta=theta,
+                    salt=salt, totPhiHyd=totPhiHyd
+                    if cfg.selectP_inEOS_Zc == 2 else None)
+    if not kernels.use_kernel(theta, impl):
+        global plain_calls
+        plain_calls += 1
+        return _calc_sigmaR_plain(cfg, grid, rhoInSitu, theta, salt,
+                                  totPhiHyd)[0]
+    if cfg.eosType.upper() != "LINEAR":
+        return eos.sigma_r_kernel(cfg, grid, rhoInSitu, theta, salt,
+                                  totPhiHyd)[0]
+    return kernels.TwinVJP.apply(
+        lambda *ts: eos.sigma_r_kernel(cfg, grid, *ts),
+        lambda *ts: _calc_sigmaR_plain(cfg, grid, *ts),
+        rhoInSitu, theta, salt, totPhiHyd)[0]
 
 
 def tracer_kappa(cfg: Config, grid: Grid, diffKr: float) -> torch.Tensor:
     """calc_3d_diffusivity.F: the constant background profile [nr, ...]."""
     return torch.full((cfg.nr,) + tuple(grid.rA.shape), diffKr,
                       dtype=grid.rA.dtype, device=grid.rA.device)
+
+
+# the inputs of kappa_ts, in its twin's and its kernel's argument order
+KAPPA_TS_INPUTS = ("Kwz", "diffKr", "diffKzT", "diffKzS", "ghat", "frac",
+                   "sfT", "sfS", "Qsw", "maskUp")
+
+
+def _kappa_ts_plain(cfg: Config, grid: Grid, Kwz, diffKr, diffKzT, diffKzS,
+                    ghat, frac, sfT, sfS, Qsw, maskUp):
+    """Kernel J-ts's twin: (kapT, kapS, dfT, dfS), the tracers' interface
+    diffusivities and KPP's nonlocal fluxes (thermodynamics.py:283,
+    :470-505, :524-540 of the JAX package). Without KPP (diffKzT None) the
+    background profile, + Kwz * maskInC under GM (Kwz given), + (diffKr -
+    diffKrS) under GGL90 (diffKr given), and no fluxes; with KPP its
+    diffusivities and nonlocal fluxes, the latter on KPP's own
+    diffusivities, then GM's Kwz joins."""
+    dfT = dfS = None
+    if diffKzT is None:
+        kapT = tracer_kappa(cfg, grid, cfg.diffKrT)
+        kapS = tracer_kappa(cfg, grid, cfg.diffKrS)
+        if Kwz is not None:
+            # gmredi_calc_diff.F: Kwz into the implicit solve
+            kapT = kapT + Kwz * grid.maskInC
+            kapS = kapS + Kwz * grid.maskInC
+        if diffKr is not None:
+            # ggl90_calc_diff.F: KappaRx += GGL90diffKr - diffKrNrS
+            kapT = kapT + (diffKr - cfg.diffKrS)
+            kapS = kapS + (diffKr - cfg.diffKrS)
+    else:
+        # KPP's diffusivities (kpp_calc_diff_t/s.F) and nonlocal flux, the
+        # latter on KPP's own diffusivities; GM's Kwz joins after
+        kapT, kapS = diffKzT, diffKzS
+        recip_Cp = 1.0 / cfg.HeatCapacity_Cp
+        qswT = (-Qsw * recip_Cp * (1.0 / cfg.rhoConst) * (1.0 - frac))
+        dfT = ghat_flux(cfg, grid, kapT, ghat, sfT, qswT, maskUp)
+        dfS = ghat_flux(cfg, grid, kapS, ghat, sfS, 0.0 * sfS, maskUp)
+        if Kwz is not None:
+            kapT = kapT + Kwz * grid.maskInC
+            kapS = kapS + Kwz * grid.maskInC
+    return kapT, kapS, dfT, dfS
+
+
+def _kappa_ts_kernel(cfg: Config, grid: Grid, *ins):
+    """Kernel J-ts on the card (mix_glue.cu): (kapT, kapS, dfT, dfS) as the
+    twin gives them. It writes the diffusivities unless KPP's own pass
+    through (KPP without GM), and KPP's fluxes."""
+    named = dict(zip(KAPPA_TS_INPUTS, ins))
+    kpp, gm = named["diffKzT"] is not None, named["Kwz"] is not None
+    ggl90 = named["diffKr"] is not None
+    dtype = grid.rA.dtype
+    shape3 = (cfg.nr,) + tuple(grid.rA.shape)
+    outs = {}
+    if not kpp or gm:
+        outs.update(kapT=grid.maskC.new_empty(shape3),
+                    kapS=grid.maskC.new_empty(shape3))
+    if kpp:
+        outs.update(dfT=grid.maskC.new_empty(shape3),
+                    dfS=grid.maskC.new_empty(shape3))
+    fields3 = {n: t for n, t in named.items() if t is not None
+               and n in ("Kwz", "diffKr", "diffKzT", "diffKzS", "ghat",
+                         "maskUp")}
+    fields2 = {n: t for n, t in named.items() if t is not None
+               and n in ("frac", "sfT", "sfS", "Qsw")}
+    if gm:
+        fields2["maskInC"] = grid.maskInC
+    if kpp:
+        fields2["rA"] = grid.rA
+    kernels.check_fields(dtype, shape3, **fields3, **outs)
+    kernels.check_fields(dtype, shape3[1:], **fields2)
+    table = [named["Kwz"], fields2.get("maskInC"), named["diffKr"],
+             named["diffKzT"], named["diffKzS"], named["ghat"],
+             named["maskUp"], fields2.get("rA"), named["sfT"], named["sfS"],
+             named["Qsw"], named["frac"], outs.get("kapT"), outs.get("kapS"),
+             outs.get("dfT"), outs.get("dfS")]
+    params = kernels.doubles([cfg.diffKrT, cfg.diffKrS,
+                              1.0 / cfg.HeatCapacity_Cp, 1.0 / cfg.rhoConst])
+    kernels.launch("kappa_ts", dtype, kernels.pointer_table(table),
+                   len(table), params, len(params), *shape3, int(kpp),
+                   int(gm), int(ggl90))
+    return (outs.get("kapT", named["diffKzT"]),
+            outs.get("kapS", named["diffKzS"]), outs.get("dfT"),
+            outs.get("dfS"))
+
+
+def kappa_ts(cfg: Config, grid: Grid, forcing: Forcing, sfT, sfS, maskUp,
+             kpp_fields=None, ggl90_fields=None, gm=None, impl: str = None):
+    """(kapT, kapS, dfT, dfS): the tracers' vertical diffusivities and, with
+    KPP, its nonlocal fluxes for gad.calc_rhs's df (None without KPP; with
+    KPP and no GM, kapT and kapS are KPP's diffKzT and diffKzS themselves).
+    Kernel J-ts on CUDA tensors (under kernels.TwinVJP), its twin on CPU
+    tensors or with impl="plain". The background alone (no KPP, GM or
+    GGL90) is two constant fills (the twin's torch.full) on any device:
+    J-ts runs only where there is arithmetic."""
+    ins = (None if gm is None else gm.Kwz,
+           None if ggl90_fields is None else ggl90_fields["diffKr"],
+           *((kpp_fields["diffKzT"], kpp_fields["diffKzS"],
+              kpp_fields["ghat"], kpp_fields["frac"], sfT, sfS, forcing.Qsw,
+              maskUp) if kpp_fields is not None else (None,) * 8))
+    if kpp_fields is None and gm is None and ggl90_fields is None:
+        return _kappa_ts_plain(cfg, grid, *ins)
+    if not kernels.use_kernel(grid.maskC, impl):
+        global plain_calls
+        plain_calls += 1
+        return _kappa_ts_plain(cfg, grid, *ins)
+    return kernels.TwinVJP.apply(
+        lambda *ts: _kappa_ts_kernel(cfg, grid, *ts),
+        lambda *ts: _kappa_ts_plain(cfg, grid, *ts), *ins)
 
 
 def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
@@ -298,34 +434,11 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
     uvw = (state.uVel, state.vVel, state.wVel)
     if gm_psi is not None:
         uvw = gmredi.gm_residual_flow(cfg, grid, *gm_psi, *uvw, impl=impl)
-    flow = gad.calc_adv_flow(grid, *uvw)
+    flow = gad.calc_adv_flow(grid, *uvw, impl=impl)
     sfT, sfS = surface_forcing_ts(cfg, grid, state, forcing)
-    dfT = dfS = None
-    if kpp_fields is None:
-        kapT = tracer_kappa(cfg, grid, cfg.diffKrT)
-        kapS = tracer_kappa(cfg, grid, cfg.diffKrS)
-        if gm is not None:
-            # gmredi_calc_diff.F: Kwz into the implicit solve
-            kapT = kapT + gm.Kwz * grid.maskInC
-            kapS = kapS + gm.Kwz * grid.maskInC
-        if ggl90_fields is not None:
-            # ggl90_calc_diff.F: KappaRx += GGL90diffKr - diffKrNrS
-            kapT = kapT + (ggl90_fields["diffKr"] - cfg.diffKrS)
-            kapS = kapS + (ggl90_fields["diffKr"] - cfg.diffKrS)
-    else:
-        # KPP's diffusivities (kpp_calc_diff_t/s.F) and nonlocal flux, the
-        # latter on KPP's own diffusivities; GM's Kwz joins after
-        kapT, kapS = kpp_fields["diffKzT"], kpp_fields["diffKzS"]
-        recip_Cp = 1.0 / cfg.HeatCapacity_Cp
-        qswT = (-forcing.Qsw * recip_Cp * (1.0 / cfg.rhoConst)
-                * (1.0 - kpp_fields["frac"]))
-        dfT = ghat_flux(cfg, grid, kapT, kpp_fields["ghat"], sfT, qswT,
-                        flow.maskUp)
-        dfS = ghat_flux(cfg, grid, kapS, kpp_fields["ghat"], sfS, 0.0 * sfS,
-                        flow.maskUp)
-        if gm is not None:
-            kapT = kapT + gm.Kwz * grid.maskInC
-            kapS = kapS + gm.Kwz * grid.maskInC
+    kapT, kapS, dfT, dfS = kappa_ts(
+        cfg, grid, forcing, sfT, sfS, flow.maskUp, kpp_fields=kpp_fields,
+        ggl90_fields=ggl90_fields, gm=gm, impl=impl)
     if cfg.tempStepping:
         theta, gtNm1, gtNm2, somT = tracer_integrate(
             cfg, grid, flow, theta, gtNm1, gtNm2, kapT, sfT, cfg.diffKhT,

@@ -3,11 +3,17 @@ LINEAR, JMD95Z/JMD95P/UNESCO (Jackett & McDougall 1995, rho_p0 over one
 minus p over the secant bulk modulus) and MDJWF (McDougall, Jackett,
 Wright & Feistel 2003, a rational function).
 
-The nonlinear branches run kernel R (kernels/csrc/eos.cu) for CUDA tensors
-and the plain PyTorch twin `_find_rho_nonlinear_plain` for CPU tensors or
-when impl="plain" is asked for. Kernel R has no backward kernel: its
-wrapper raises if an input requires grad. POLY3, TEOS10, IDEALG and
-p-coordinates are refused.
+`find_rho` runs kernel R's eos_find_rho (kernels/csrc/eos.cu) for CUDA
+tensors and the plain PyTorch twin `_find_rho_plain` for CPU tensors or
+when impl="plain" is asked for; given maskC it returns rho * maskC from
+the same launch (the step's rhoInSitu). The LINEAR kind reads tRef and
+sRef from the grid (`ref_profiles`). Kernel R has no backward kernel: the
+LINEAR kind, which the gyre's adjoint differentiates, runs under
+kernels.TwinVJP (its gradient is the twin's); the nonlinear kinds refuse
+an input that requires grad (`refuse_grad`, for find_rho and
+model/thermodynamics.py:calc_sigmaR alike). `sigma_r_kernel`
+launches kernel R's eos_sigma_r, which model/thermodynamics.py:calc_sigmaR
+dispatches. POLY3, TEOS10, IDEALG and p-coordinates are refused.
 """
 
 from __future__ import annotations
@@ -51,7 +57,11 @@ _SI2DBAR = 1.0e-4   # Pa -> dbar
 JMD95 = ("JMD95Z", "JMD95P", "UNESCO")
 NONLINEAR = JMD95 + ("MDJWF",)
 # kernel R's eos switch
-_KIND = {"JMD95Z": 0, "JMD95P": 0, "UNESCO": 0, "MDJWF": 1}
+_KIND = {"JMD95Z": 0, "JMD95P": 0, "UNESCO": 0, "MDJWF": 1, "LINEAR": 2}
+
+# calls of find_rho's twin, for the card's runs to show that the main path
+# never ran it
+plain_calls = 0
 
 
 def rho_p0(t, s):
@@ -124,6 +134,31 @@ def _pressure_terms(cfg: Config, grid: Grid, totPhiHyd):
 
 def _pressure_scale(cfg: Config) -> float:
     return _SI2BAR if cfg.eosType.upper() in JMD95 else _SI2DBAR
+
+
+def ref_profiles(cfg: Config, grid: Grid, like: torch.Tensor):
+    """(tRef, sRef) [nr] for the LINEAR kind: the grid's, which build_grid
+    made on the device once; on a grid that holds none (one carried from
+    the JAX package) made from cfg in like's dtype and on its device, each
+    rounded as torch.tensor rounds it."""
+    if grid.tRef is not None:
+        return grid.tRef, grid.sRef
+    return tuple(torch.tensor(ref, dtype=like.dtype, device=like.device)
+                 for ref in (cfg.tRef, cfg.sRef))
+
+
+def refuse_grad(cfg: Config, fn: str, **tensors) -> None:
+    """Raise for the nonlinear kinds if one of `tensors` (None allowed)
+    requires grad: kernel R has no backward kernel, and only the LINEAR
+    kind, which the gyre's adjoint differentiates, runs under
+    kernels.TwinVJP."""
+    if cfg.eosType.upper() == "LINEAR":
+        return
+    grads = [n for n, t in tensors.items()
+             if t is not None and t.requires_grad]
+    if grads:
+        raise ValueError(f"{fn}: {grads} require grad; kernel R has no "
+                         f"backward kernel for eosType={cfg.eosType}")
 
 
 def _find_rho_nonlinear_plain(cfg: Config, theta, salt, profile,
@@ -256,44 +291,114 @@ def check_eos(cfg: Config) -> None:
         raise NotImplementedError("find_rho: p-coordinates are not ported")
 
 
-def find_rho(cfg: Config, grid: Grid, theta: torch.Tensor,
-             salt: torch.Tensor, totPhiHyd: Optional[torch.Tensor] = None,
-             impl: str = None) -> torch.Tensor:
-    """Density anomaly rho' = rho - rhoConst at every level (find_rho.F
-    with kRef = k). totPhiHyd feeds the pressure when
-    selectP_inEOS_Zc = 2 (the last step's hydrostatic potential)."""
-    check_eos(cfg)
-    eos = cfg.eosType.upper()
-    if eos == "LINEAR":
-        tref = torch.tensor(cfg.tRef, dtype=theta.dtype,
-                            device=theta.device)[:, None, None]
-        sref = torch.tensor(cfg.sRef, dtype=theta.dtype,
-                            device=theta.device)[:, None, None]
+def _find_rho_plain(cfg: Config, grid: Grid, theta, salt, totPhiHyd,
+                    mask):
+    """Kernel R's eos_find_rho twin: find_rho (ops/eos.py:218-275) in the
+    JAX code's operation order, times mask when given."""
+    if cfg.eosType.upper() == "LINEAR":
+        tref, sref = ref_profiles(cfg, grid, theta)
         drho = cfg.rhoNil - cfg.rhoConst
-        return cfg.rhoNil * (cfg.sBeta * (salt - sref)
-                             - cfg.tAlpha * (theta - tref)) + drho
+        rho = cfg.rhoNil * (cfg.sBeta * (salt - sref[:, None, None])
+                            - cfg.tAlpha * (theta - tref[:, None, None])
+                            ) + drho
+    else:
+        profile, use_phi = _pressure_terms(cfg, grid, totPhiHyd)
+        rho = _find_rho_nonlinear_plain(cfg, theta, salt, profile, use_phi,
+                                        totPhiHyd)
+    return rho if mask is None else rho * mask
+
+
+def kernel_inputs(cfg: Config, grid: Grid, theta, totPhiHyd):
+    """What a launch of kernel R reads besides the tracers: {name: tensor}
+    of totPhiHyd (under use_phi), the pressure profile (nonlinear kinds) or
+    tRef and sRef (LINEAR), and the launch's (kind, use_phi, parameter
+    array)."""
+    eos = cfg.eosType.upper()
+    params = [cfg.rhoConst, cfg.surf_pRef - cfg.eosRefP0,
+              _pressure_scale(cfg), cfg.rhoNil, cfg.tAlpha, cfg.sBeta,
+              cfg.rhoNil - cfg.rhoConst]
+    if eos == "LINEAR":
+        tref, sref = ref_profiles(cfg, grid, theta)
+        return {"tRef": tref, "sRef": sref}, (_KIND[eos], False, params)
     profile, use_phi = _pressure_terms(cfg, grid, totPhiHyd)
-    ins = dict(theta=theta, salt=salt, profile=profile)
+    ins = {"profile": profile}
     if use_phi:
         ins["totPhiHyd"] = totPhiHyd
-    grads = [n for n, t in ins.items() if t.requires_grad]
-    if grads:
-        raise ValueError(f"find_rho: {grads} require grad; kernel R has no "
-                         "backward kernel yet")
-    if not kernels.use_kernel(theta, impl):
-        return _find_rho_nonlinear_plain(cfg, theta, salt, profile, use_phi,
-                                         totPhiHyd)
+    return ins, (_KIND[eos], use_phi, params)
+
+
+def _table(ins, *head):
+    """Kernel R's pointer table: the tracers (head), totPhiHyd, the
+    profile, tRef and sRef (None where not read)."""
+    return list(head) + [ins.get(n) for n in ("totPhiHyd", "profile",
+                                              "tRef", "sRef")]
+
+
+def _find_rho_kernel(cfg: Config, grid: Grid, theta, salt, totPhiHyd,
+                     mask):
+    """Kernel R's eos_find_rho on the card (eos.cu)."""
+    ins, (kind, use_phi, params) = kernel_inputs(cfg, grid, theta,
+                                                 totPhiHyd)
     nr, nyp, nxp = theta.shape
-    phi = totPhiHyd if use_phi else theta   # not read without use_phi
-    kernels.check_tensors(theta.dtype, theta=theta, salt=salt, phi=phi,
-                          profile=profile)
-    for name, t in (("salt", salt), ("totPhiHyd", phi)):
-        kernels.check_shape(name, t, theta.shape)
-    kernels.check_shape("profile", profile, (nr,))
     rho = torch.empty_like(theta)
-    kernels.launch("eos_find_rho", theta.dtype, theta.data_ptr(),
-                   salt.data_ptr(), phi.data_ptr(), profile.data_ptr(),
-                   rho.data_ptr(), nr, nyp * nxp, _KIND[eos], int(use_phi),
-                   cfg.rhoConst, cfg.surf_pRef - cfg.eosRefP0,
-                   _pressure_scale(cfg))
-    return rho
+    fields = dict(theta=theta, salt=salt, rho=rho)
+    if use_phi:
+        fields["totPhiHyd"] = totPhiHyd
+    if mask is not None:
+        fields["maskC"] = mask
+    kernels.check_fields(theta.dtype, theta.shape, **fields)
+    kernels.check_fields(theta.dtype, (nr,), **{
+        n: t for n, t in ins.items() if n != "totPhiHyd"})
+    table = _table(ins, theta, salt) + [mask, rho]
+    params = kernels.doubles(params)
+    kernels.launch("eos_find_rho", theta.dtype, kernels.pointer_table(table),
+                   len(table), params, len(params), nr, nyp * nxp, kind,
+                   int(use_phi), int(mask is not None))
+    return (rho,)
+
+
+def sigma_r_kernel(cfg: Config, grid: Grid, rhoInSitu, theta, salt,
+                   totPhiHyd=None):
+    """Kernel R's eos_sigma_r on the card (eos.cu): model/thermodynamics.py:
+    calc_sigmaR, the k-1 water's density at level k read in place."""
+    ins, (kind, use_phi, params) = kernel_inputs(cfg, grid, theta,
+                                                 totPhiHyd)
+    nr, nyp, nxp = theta.shape
+    sigmaR = torch.empty_like(theta)
+    fields = dict(theta=theta, salt=salt, maskC=grid.maskC,
+                  rhoInSitu=rhoInSitu, sigmaR=sigmaR)
+    if use_phi:
+        fields["totPhiHyd"] = totPhiHyd
+    kernels.check_fields(theta.dtype, theta.shape, **fields)
+    kernels.check_fields(theta.dtype, (nr,), **{
+        n: t for n, t in ins.items() if n != "totPhiHyd"})
+    kernels.check_fields(theta.dtype, (nr + 1,), recip_drC=grid.recip_drC)
+    table = _table(ins, theta, salt) + [grid.maskC, grid.recip_drC,
+                                        rhoInSitu, sigmaR]
+    params = kernels.doubles(params + [cfg.rkSign])
+    kernels.launch("eos_sigma_r", theta.dtype, kernels.pointer_table(table),
+                   len(table), params, len(params), nr, nyp, nxp, kind,
+                   int(use_phi))
+    return (sigmaR,)
+
+
+def find_rho(cfg: Config, grid: Grid, theta: torch.Tensor,
+             salt: torch.Tensor, totPhiHyd: Optional[torch.Tensor] = None,
+             impl: str = None, mask: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """Density anomaly rho' = rho - rhoConst at every level (find_rho.F
+    with kRef = k), times mask when given. totPhiHyd feeds the pressure
+    when selectP_inEOS_Zc = 2 (the last step's hydrostatic potential)."""
+    check_eos(cfg)
+    phi = totPhiHyd if cfg.selectP_inEOS_Zc == 2 else None
+    refuse_grad(cfg, "find_rho", theta=theta, salt=salt, totPhiHyd=phi)
+    if not kernels.use_kernel(theta, impl):
+        global plain_calls
+        plain_calls += 1
+        return _find_rho_plain(cfg, grid, theta, salt, totPhiHyd, mask)
+    if cfg.eosType.upper() != "LINEAR":
+        return _find_rho_kernel(cfg, grid, theta, salt, totPhiHyd, mask)[0]
+    return kernels.TwinVJP.apply(
+        lambda t, s, p, m: _find_rho_kernel(cfg, grid, t, s, p, m),
+        lambda t, s, p, m: (_find_rho_plain(cfg, grid, t, s, p, m),),
+        theta, salt, totPhiHyd, mask)[0]

@@ -2,11 +2,12 @@
 """Where a full-size step's time goes, on one NVIDIA GPU.
 
     python3 profile_glue.py [--root DIR] [--config CONFIG] [--n N]
-                            [--kernels [GROUP ...]] [--ptxas]
+                            [--glue-sources] [--kernels [GROUP ...]]
+                            [--ptxas]
 
 Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, vi-gyre,
-ggl90-gyre, os7mp-gyre, pqm-gyre, som-gyre, idemix-gyre or evp-ice-gyre
-(deltaT = 600 s), or the
+kpp-gyre, ggl90-gyre, os7mp-gyre, pqm-gyre, som-gyre, idemix-gyre,
+gm-gyre, gm-bolus-gyre, ice-gyre or evp-ice-gyre (deltaT = 600 s), or the
 N x N x 50 nh-convection box (--config box, deltaT = 60 s), of the
 PyTorch port found under DIR (default: this script's directory; give an
 unpacked earlier tree to compare two versions on one card, in turns):
@@ -15,8 +16,15 @@ then chip_smoke.py's profile of 2 steps (torch.profiler): the device's
 busy time and idle share, the device ms and calls a step of each of the
 port's kernels, and the time and launches a step of PyTorch's own kernels
 and copies (the plain glue: everything that is not a kernel of
-kernels/csrc, whose symbols live in namespace mitgcm). Prints, last, one
-JSON line of those numbers with the card's name and power limit.
+kernels/csrc, whose symbols live in namespace mitgcm). With
+--glue-sources, a second profile of 2 steps splits the plain glue by
+where it comes from: every function of the port is wrapped in a
+torch.profiler.record_function of its name (annotate_port), and each of
+PyTorch's own kernels and copies goes to the two innermost functions of
+the port above the op that launched it (autograd's backward, which runs
+outside them, to a group of its own), with its device ms and launches a
+step (the wrappers' host cost falls outside the device times). Prints, last, one JSON line of
+those numbers with the card's name and power limit.
 With --kernels, instead: the device ms of one launch of kernels B and C
 and of the step glue's D-G launches (the gyre's variants, on
 chip_smoke.py's seeded inputs: Case, GlueCase) at each shape of
@@ -65,8 +73,10 @@ the idemix-gyre's (IDEMIX's source and Langmuir) on its IsmCase, the
 same way (chip_smoke.py:ggl90_col_footprint), with a digest of tke',
 diffKr and visctmp. No group named: all eleven. --config adjoint instead
 times the gradient of phase 6's box cost through 6 checkpointed steps of
-the N x N x 32 float32 gyre (3 runs, ms/step) and profiles one (device
-busy ms/step and idle share, as a step's). --ptxas instead compiles the
+the N x N x 32 float32 gyre (3 runs, ms/step), prints its cost and a
+sha256 digest of the gradient's bytes (so that two trees' values can be
+compared) and profiles one (device busy ms/step and idle share, as a
+step's). --ptxas instead compiles the
 tree's PTXAS_SOURCES with the port's nvcc flags and prints ptxas's
 registers and spills of each of their kernels (float and double). Exits
 nonzero without CUDA.
@@ -74,6 +84,7 @@ nonzero without CUDA.
 
 import argparse
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
@@ -517,8 +528,10 @@ def adjoint_times(smoke, rows):
 
 def adjoint_config(smoke, n):
     """--config adjoint: the gradient of phase 6's box cost through
-    ADJ_STEPS checkpointed steps of the n x n x 32 float32 gyre: ms/step
-    of 3 runs (after one to warm up) and a profile of one."""
+    ADJ_STEPS checkpointed steps of the n x n x 32 float32 gyre: the cost
+    and a sha256 digest of the gradient's bytes (two trees' values
+    compared), ms/step of 3 runs (after one to warm up) and a profile of
+    one."""
     import numpy as np
     import torch
     from mitgcm_tpu_torch.ad.adjoint import adjoint_gradient
@@ -531,7 +544,10 @@ def adjoint_config(smoke, n):
     def run():
         return adjoint_gradient(J[None], xx)
 
-    run()
+    cost, grad = run()
+    digest = hashlib.sha256(grad.cpu().numpy().tobytes()).hexdigest()
+    print(f"gradient: cost {float(cost)!r}, max |grad| "
+          f"{float(grad.abs().max())!r}, sha256 {digest}", flush=True)
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -541,7 +557,8 @@ def adjoint_config(smoke, n):
         walls.append((time.perf_counter() - t) * 1e3 / ADJ_STEPS)
     wall = float(np.median(walls))
     stats = smoke.profile_run(run, ADJ_STEPS, wall)
-    return {"ms_per_step": wall, "runs_ms_per_step": walls, **stats}
+    return {"ms_per_step": wall, "runs_ms_per_step": walls,
+            "cost": float(cost), "grad_sha256": digest, **stats}
 
 
 def ptxas(root):
@@ -632,13 +649,108 @@ def glue_times(smoke, rows):
     time_launches(smoke, glue_calls(box), "box " + box.label, rows)
 
 
+def annotate_port():
+    """Wrap every function of the port's modules (and every method of
+    their classes but torch.autograd.Function's and the kernels package's)
+    in a torch.profiler.record_function named after it, "model.step.
+    dynamics", so that a profile can give each PyTorch op the port's
+    functions that ran it; returns the names. The profiler on the card
+    records no Python stacks (torch 2.11 with CUDA activity)."""
+    import functools
+    import inspect
+
+    import torch
+
+    def wrap(fn, label):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    def port(obj):
+        mod = getattr(obj, "__module__", None) or ""
+        return (mod.startswith("mitgcm_tpu_torch.")
+                and not mod.startswith("mitgcm_tpu_torch.kernels"))
+
+    labels = set()
+    for name, mod in list(sys.modules.items()):
+        if (mod is None or not name.startswith("mitgcm_tpu_torch.")
+                or name.startswith("mitgcm_tpu_torch.kernels")):
+            continue
+        for attr, obj in list(vars(mod).items()):
+            if inspect.isfunction(obj) and port(obj):
+                # imported names too, so that a call from another module
+                # is annotated
+                label = f"{obj.__module__.split('.', 1)[1]}.{obj.__name__}"
+                labels.add(label)
+                setattr(mod, attr, wrap(obj, label))
+            elif (inspect.isclass(obj) and obj.__module__ == name
+                  and not issubclass(obj, torch.autograd.Function)):
+                for meth, fn in list(vars(obj).items()):
+                    if inspect.isfunction(fn) and not meth.startswith("__"):
+                        label = (f"{name.split('.', 1)[1]}.{obj.__name__}."
+                                 f"{meth}")
+                        labels.add(label)
+                        setattr(obj, meth, wrap(fn, label))
+    return labels
+
+
+def port_frames(evt, labels, n=2):
+    """The n innermost functions of the port (annotate_port's labels)
+    among a profiled op's ancestors, innermost first."""
+    frames = []
+    while evt is not None and len(frames) < n:
+        if evt.name in labels:
+            frames.append(evt.name)
+        evt = evt.cpu_parent
+    return frames
+
+
+def glue_sources(run, steps):
+    """--glue-sources: {source: {"ms", "launches"}} a step of the plain glue
+    of run() (which takes `steps` steps), by the two innermost functions of
+    the port (annotate_port) above the PyTorch op that launched each
+    kernel or copy, largest first; printed too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = annotate_port()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    groups = {}
+    for evt in prof.events():
+        glue = [k for k in evt.kernels if "mitgcm::" not in k.name]
+        if not glue:
+            continue
+        key = (" < ".join(port_frames(evt, labels))
+               or "(no function of the port: autograd's backward)")
+        group = groups.setdefault(key, {"ms": 0.0, "launches": 0.0})
+        group["ms"] += sum(k.duration for k in glue) / 1e3 / steps
+        group["launches"] += len(glue) / steps
+    groups = dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))
+    print(f"plain glue by source, {steps} steps: "
+          f"{sum(g['ms'] for g in groups.values()):.3f} ms/step in "
+          f"{sum(g['launches'] for g in groups.values()):.1f} "
+          f"launches/step", flush=True)
+    for key, g in groups.items():
+        print(f"  {g['ms']:8.3f} ms/step {g['launches']:6.1f} launches/step"
+              f"  {key}", flush=True)
+    return groups
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--config", choices=("gyre", "vi", "ggl90", "os7mp",
-                                         "pqm", "som", "idemix", "box",
+    ap.add_argument("--config", choices=("gyre", "vi", "kpp", "ggl90",
+                                         "os7mp", "pqm", "som", "idemix",
+                                         "gm", "gm-bolus", "ice", "box",
                                          "evp-ice", "adjoint"),
                     default="gyre")
+    ap.add_argument("--glue-sources", action="store_true")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--kernels", nargs="*", choices=KERNEL_GROUPS)
     ap.add_argument("--ptxas", action="store_true")
@@ -681,6 +793,13 @@ def main():
         exp = smoke.evp_experiment(args.n, 32, torch.float32, deltaT=600.0)
     elif args.config == "vi":
         exp = smoke.vi_experiment(args.n, 32, torch.float32, deltaT=600.0)
+    elif args.config == "kpp":
+        exp = smoke.kpp_experiment(args.n, 32, torch.float32, deltaT=600.0)
+    elif args.config in ("gm", "gm-bolus"):
+        exp = smoke.gm_experiment(args.config, args.n, 32, torch.float32,
+                                  deltaT=600.0)
+    elif args.config == "ice":
+        exp = smoke.ice_experiment(args.n, 32, torch.float32, deltaT=600.0)
     elif args.config in ("os7mp", "pqm", "som", "idemix"):
         exp = smoke.g9_experiment(args.n, 32, torch.float32,
                                   config=args.config, deltaT=600.0)
@@ -700,6 +819,9 @@ def main():
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) * 1e3 / STEPS
     stats = smoke.profile_steps(exp, exp.state, exp.cur_iter, 2, wall)
+    if args.glue_sources:
+        stats["glue_sources"] = glue_sources(
+            lambda: exp.run(n_steps=2, collect_monitor=False), 2)
     print(json.dumps({"root": args.root, "config": args.config,
                       "n": args.n, "card": smi, "ms_per_step": wall, **stats}),
           flush=True)

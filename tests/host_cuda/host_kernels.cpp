@@ -1,24 +1,30 @@
 // Kernels B and C's forward kernels, B', D, G's mom_correction, H-cg3d's two
 // passes, H-seaice EVP's seaice_evp_uv, V, M's, O's and P's three sweeps,
-// H-SOM's three passes, W and G9's ggl90_col, built by g++ against the mock
-// CUDA runtime beside this file and run on the host through the launches
-// that their entry points use (launch_mom, launch_mom_adj of
+// H-SOM's three passes, W, G9's ggl90_col, J-uv, J-ts, L and R's two
+// kernels, built by g++ against the mock CUDA runtime beside this file and
+// run on the host through the launches that their entry points use
+// (launch_mom, launch_mom_adj of
 // mom_fluxform_adj_tile.cuh, launch_calc_rhs, launch_phihyd,
 // launch_s_stencil_dot and launch_xr_precond of kernels/csrc/*_tile.cuh,
 // launch_mom_correction of mom_correction.cuh, launch_evp_uv of
 // seaice_evp_uv.cuh, launch_vecinv of mom_vecinv_tile.cuh, launch_multidim
 // of gad_multidim_tile.cuh, launch_os7mp of gad_os7mp_tile.cuh, launch_ppm
 // of gad_ppm_tile.cuh, launch_som_horiz and launch_som_r of som_tile.cuh,
-// launch_calc_gw of calc_gw_tile.cuh, launch_ggl90_col of ggl90_col.cuh),
-// for tests/test_torch_host_kernels.py.
+// launch_calc_gw of calc_gw_tile.cuh, launch_ggl90_col of ggl90_col.cuh,
+// launch_kappa_uv and launch_kappa_ts of mix_glue.cuh, launch_adv_flow of
+// adv_flow.cuh, launch_find_rho and launch_sigma_r of eos.cuh), for
+// tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
+#include "adv_flow.cuh"
 #include "calc_gw_tile.cuh"
 #include "cg3d_tile.cuh"
+#include "eos.cuh"
 #include "gad_calc_rhs_tile.cuh"
 #include "gad_multidim_tile.cuh"
 #include "gad_os7mp_tile.cuh"
 #include "gad_ppm_tile.cuh"
 #include "ggl90_col.cuh"
+#include "mix_glue.cuh"
 #include "mom_correction.cuh"
 #include "mom_fluxform_adj_tile.cuh"
 #include "mom_fluxform_tile.cuh"
@@ -198,6 +204,38 @@ struct OnHost {
                                OnHost{static_cast<size_t>(max_shared)});     \
   }
 
+// J-uv, J-ts, L and R's two kernels, with their entry points' arguments but
+// the stream
+#define HOST_MIX_ENTRY_POINTS(T, SUF)                                        \
+  extern "C" int host_kappa_uv_##SUF(const void* const* table, int n,        \
+                                     int nr, int nyp, int nxp, int mode,     \
+                                     double viscAr) {                        \
+    return launch_kappa_uv<T>(table, n, nr, nyp, nxp, mode, viscAr,          \
+                              OnHost{});                                     \
+  }                                                                          \
+  extern "C" int host_kappa_ts_##SUF(                                        \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int kpp, int gm, int ggl90) {                        \
+    return launch_kappa_ts<T>(table, n, params, np, nr, nyp, nxp, kpp, gm,   \
+                              ggl90, OnHost{});                              \
+  }                                                                          \
+  extern "C" int host_adv_flow_##SUF(const void* const* table, int n,        \
+                                     int nr, int nyp, int nxp) {             \
+    return launch_adv_flow<T>(table, n, nr, nyp, nxp, OnHost{});             \
+  }                                                                          \
+  extern "C" int host_eos_find_rho_##SUF(                                    \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int plane, int kind, int use_phi, int use_mask) {                      \
+    return launch_find_rho<T>(table, n, params, np, nr, plane, kind,         \
+                              use_phi, use_mask, OnHost{});                  \
+  }                                                                          \
+  extern "C" int host_eos_sigma_r_##SUF(                                     \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int kind, int use_phi) {                             \
+    return launch_sigma_r<T>(table, n, params, np, nr, nyp, nxp, kind,       \
+                             use_phi, OnHost{});                             \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
 HOST_CG3D_ENTRY_POINTS(float, f32)
@@ -206,3 +244,5 @@ HOST_ADVECTION_ENTRY_POINTS(float, f32)
 HOST_ADVECTION_ENTRY_POINTS(double, f64)
 HOST_COLUMN_ENTRY_POINTS(float, f32)
 HOST_COLUMN_ENTRY_POINTS(double, f64)
+HOST_MIX_ENTRY_POINTS(float, f32)
+HOST_MIX_ENTRY_POINTS(double, f64)

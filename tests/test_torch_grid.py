@@ -3,8 +3,10 @@
 The grid geometry is float64 numpy in both packages, so every field must be
 bit-equal, on the gyres' walled basins and on the non-hydrostatic tests'
 walled grid with a bank and partial bottom cells (nh_walled_grid, which
-the other nh tests share); the cg2d operator is built from it by the same
-tensor operations in the same order, and must agree to >= 15 digits.
+the other nh tests share), and the port's own tRef and sRef (which the
+JAX grid does not hold) equal to the configuration's profiles; the cg2d
+operator is built from it by the same tensor operations in the same
+order, and must agree to >= 15 digits.
 """
 
 import dataclasses
@@ -50,6 +52,18 @@ def nh_walled_grid(cfg):
             build_grid(cfg, bathy=bathy, dtype=torch.float64, device="cpu"))
 
 SIZES = [(16, 16, 4), (24, 12, 3)]
+# the port's grid fields that the JAX grid does not hold: the
+# configuration's reference profiles
+CFG_PROFILES = ("tRef", "sRef")
+
+
+def _reference(jgrid, cfg):
+    """The JAX grid's arrays, and cfg's profiles for CFG_PROFILES."""
+    ref = arrays_of(jgrid)
+    ref.update({n: np.asarray(getattr(cfg, n), dtype=np.float64)
+                for n in CFG_PROFILES})
+    return ref
+
 
 
 def _setups(nx, ny, nr):
@@ -62,7 +76,7 @@ def _setups(nx, ny, nr):
 @pytest.mark.parametrize("nx,ny,nr", SIZES)
 def test_grid_bit_equal(nx, ny, nr):
     (jgrid, _, _, _), (tgrid, _, _, _) = _setups(nx, ny, nr)
-    ref = arrays_of(jgrid)
+    ref = _reference(jgrid, tsyn.gyre_config(nx=nx, ny=ny, nr=nr))
     for f in dataclasses.fields(tgrid):
         assert getattr(tgrid, f.name).is_contiguous(), f.name
         got = getattr(tgrid, f.name).numpy()
@@ -75,7 +89,7 @@ def test_nh_walled_grid_bit_equal():
     bank and the partial cells make them differ from the raw bathymetry."""
     cfg = nh_walled_config()
     jgrid, tgrid = nh_walled_grid(cfg)
-    ref = arrays_of(jgrid)
+    ref = _reference(jgrid, cfg)
     for f in dataclasses.fields(tgrid):
         got = getattr(tgrid, f.name).numpy()
         assert np.array_equal(got, ref[f.name]), f"grid.{f.name} differs"

@@ -77,6 +77,14 @@ SIGNATURES = {
     "host_calc_gw": [_PP, _I] + [_I] * 4 + [_D] * 3,
     "host_ggl90_col": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
     + [_I] * 8 + [ctypes.c_longlong],
+    "host_kappa_uv": [_PP, _I] + [_I] * 4 + [_D],
+    "host_kappa_ts": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 6,
+    "host_adv_flow": [_PP, _I] + [_I] * 3,
+    "host_eos_find_rho": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 5,
+    "host_eos_sigma_r": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 5,
 }
 
 
@@ -1685,3 +1693,335 @@ def test_ggl90_col_footprint(lib, libm_math, flag, variant):
     check_footprint(lib, g9_case(torch.float64, 760 + flag, 4, 20, 5, flag,
                                  flag % 2 == 1, flag < 2, variant),
                     smoke.ggl90_col_footprint, {}, same_as=check_whole)
+
+
+# Kernels J-uv, J-ts, L and R's two kernels (mix_glue.cuh, adv_flow.cuh,
+# eos.cuh): every padded cell equal to the twin's in every variant of their
+# flags, on both SIZES grids, float64 and float32, outputs NaN before the
+# launch; a NaN input lands in the same cells (torch.maximum's NaN in
+# kappa_uv, w's at the surface in adv_flow). viscAr alone and the
+# background diffusivity alone are fills that J-uv and J-ts refuse.
+MIX_NR = 5
+KAPPA_UV_MODES = {"KPP": 1, "GGL90": 2}
+KAPPA_TS_OUTS = ("kapT", "kapS", "dfT", "dfS")
+KAPPA_TS_VARIANTS = {"GM": (False, True, False),
+                     "GGL90": (False, False, True),
+                     "GGL90+GM": (False, True, True),
+                     "KPP": (True, False, False),
+                     "KPP+GM": (True, True, False)}
+# (eosType, selectP_inEOS_Zc): the LINEAR kind, JMD95Z and MDJWF on the
+# static profile and on totPhiHyd
+EOS_KINDS = (("LINEAR", 0), ("JMD95Z", 0), ("JMD95Z", 2), ("MDJWF", 0),
+             ("MDJWF", 2))
+
+
+def check_same_cells(got, want, label):
+    """Equal on every padded cell, NaN in the same cells."""
+    assert identical(got, want), (
+        f"{label}: max abs diff "
+        f"{float((got - want).nan_to_num(0.0).abs().max()):.3e}")
+
+
+def kappa_uv_case(f, mode):
+    """As mom_case, for kernel J-uv (mode 1 KPP, 2 GGL90)."""
+    nr, nyp, nxp = f.s3
+    cfg = SimpleNamespace(nr=nr, viscAr=1e-3)
+    g = f.grid
+    if mode == 1:
+        named = dict(maskW=g.maskW, maskS=g.maskS,
+                     viscAz=f.uniform(f.s3, 0.0, 4e-3))
+        named["viscAz"][1, 3, 4] = float("nan")
+    else:
+        named = dict(viscArU=f.uniform(f.s3, 0.0, 1e-2),
+                     viscArV=f.uniform(f.s3, 0.0, 1e-2))
+
+    def twin(ins):
+        return list(step._kappa_uv_plain(
+            cfg, SimpleNamespace(maskW=ins.get("maskW", g.maskW),
+                                 maskS=ins.get("maskS", g.maskS)),
+            ins.get("viscAz"), ins.get("viscArU"), ins.get("viscArV")))
+
+    want = twin(named)
+    args = (nr, nyp, nxp, mode, cfg.viscAr)
+    fn = f"host_kappa_uv_{SUFFIX[f.dtype]}"
+
+    def run(lib, ins):
+        outs = [torch.full((nr + 1, nyp, nxp), float("nan"), dtype=f.dtype)
+                for _ in range(2)]
+        tab = table([ins.get("maskW", g.maskW), ins.get("maskS", g.maskS),
+                     ins.get("viscAz", ins.get("viscArU")),
+                     ins.get("viscArV")] + outs)
+        assert getattr(lib, fn)(tab, len(tab), *args) == 0
+        return outs
+
+    return want, named, args, run
+
+
+def kappa_ts_case(f, variant):
+    """As mom_case, for kernel J-ts in a KAPPA_TS_VARIANTS variant."""
+    from mitgcm_tpu_torch.model import thermodynamics as th
+
+    kpp, gm, g9 = KAPPA_TS_VARIANTS[variant]
+    nr, nyp, nxp = f.s3
+    s2 = f.s3[1:]
+    cfg = SimpleNamespace(nr=nr, diffKrT=1e-5, diffKrS=2e-5,
+                          HeatCapacity_Cp=3994.0, rhoConst=1035.0)
+    g = f.grid
+    mC = g.maskC
+    maskUp = torch.cat([torch.zeros_like(mC[:1]), mC[1:] * mC[:-1]])
+    ins = dict(Kwz=f.uniform(f.s3, 0.0, 1e-3) if gm else None,
+               diffKr=f.uniform(f.s3, 0.0, 1e-3) if g9 else None)
+    if kpp:
+        ins.update(diffKzT=f.uniform(f.s3, 0.0, 1e-2),
+                   diffKzS=f.uniform(f.s3, 0.0, 1e-2),
+                   ghat=f.normal(f.s3, 10.0), frac=f.uniform(s2, 0.0, 1.0),
+                   sfT=f.normal(s2, 1e-4), sfS=f.normal(s2, 1e-4),
+                   Qsw=f.normal(s2, 100.0), maskUp=maskUp)
+        ins["sfS"][2, 3] = -0.0
+    named = {n: t for n, t in ins.items() if t is not None}
+    if gm:
+        named["maskInC"] = g.maskInC
+    if kpp:
+        named["rA"] = g.rA
+
+    def twin(given):
+        grid = SimpleNamespace(maskInC=given.get("maskInC", g.maskInC),
+                               rA=given.get("rA", g.rA))
+        outs = dict(zip(KAPPA_TS_OUTS, th._kappa_ts_plain(
+            cfg, grid, *[given.get(n) for n in th.KAPPA_TS_INPUTS])))
+        return [outs[n] for n in written]
+
+    # what the launch writes (model/thermodynamics.py:_kappa_ts_kernel
+    # passes KPP's own diffusivities through without GM)
+    written = (("kapT", "kapS") if gm or not kpp else ()) + (
+        ("dfT", "dfS") if kpp else ())
+    want = twin(named)
+    params = (ctypes.c_double * 4)(cfg.diffKrT, cfg.diffKrS,
+                                   1.0 / cfg.HeatCapacity_Cp,
+                                   1.0 / cfg.rhoConst)
+    args = (params, 4, nr, nyp, nxp, int(kpp), int(gm), int(g9))
+    fn = f"host_kappa_ts_{SUFFIX[f.dtype]}"
+
+    def run(lib, given):
+        slots = {n: torch.full(f.s3, float("nan"), dtype=f.dtype)
+                 for n in written}
+        tab = table([given.get(n) for n in (
+            "Kwz", "maskInC", "diffKr", "diffKzT", "diffKzS", "ghat",
+            "maskUp", "rA", "sfT", "sfS", "Qsw", "frac")]
+            + [slots.get(n) for n in ("kapT", "kapS", "dfT", "dfS")])
+        assert getattr(lib, fn)(tab, len(tab), *args) == 0
+        return list(slots.values())
+
+    return want, named, args, run
+
+
+def adv_flow_case(f):
+    """As mom_case, for kernel L."""
+    g = f.grid
+    named = dict(u=f.normal(f.s3, 0.1), v=f.normal(f.s3, 0.1),
+                 w=f.normal(f.s3, 1e-3), hFacW=g.hFacW, hFacS=g.hFacS,
+                 maskC=g.maskC, dyG=g.dyG, dxG=g.dxG, rA=g.rA, drF=g.drF)
+    named["w"][0, 2, 5] = float("nan")
+
+    def twin(given):
+        return list(gad._calc_adv_flow_plain(SimpleNamespace(**given),
+                                             given["u"], given["v"],
+                                             given["w"]))
+
+    want = twin(named)
+    args = f.s3
+    fn = f"host_adv_flow_{SUFFIX[f.dtype]}"
+
+    def run(lib, given):
+        outs = [torch.full(f.s3, float("nan"), dtype=f.dtype)
+                for _ in range(7)]
+        tab = table(list(given.values()) + outs)
+        assert getattr(lib, fn)(tab, len(tab), *args) == 0
+        return outs
+
+    return want, named, args, run
+
+
+def eos_case(f, kind, select_p, masked=True, sigma=False):
+    """As mom_case, for kernel R's eos_find_rho (times maskC when masked)
+    or, with sigma, its eos_sigma_r, on the vi-gyre's configuration with
+    the EOS and pressure of (kind, select_p)."""
+    from mitgcm_tpu_torch.model import thermodynamics as th
+    from mitgcm_tpu_torch.ops import eos
+
+    nr, nyp, nxp = f.s3
+    cfg = dataclasses.replace(
+        synthetic.vi_gyre_config(nx=nxp - 2 * OL, ny=nyp - 2 * OL, nr=nr),
+        eosType=kind, selectP_inEOS_Zc=select_p)
+    g = f.grid
+    theta = f.uniform(f.s3, -2.0, 28.0)
+    salt = f.uniform(f.s3, 32.0, 37.0)
+    salt[1, 2, 3] = -0.25           # the s * sqrt(max(s, 0)) guards
+    phi = f.normal(f.s3, 20.0)
+    extra, (code, use_phi, params) = eos.kernel_inputs(cfg, g, theta, phi)
+    named = dict(theta=theta, salt=salt, **extra)
+    if sigma:
+        named.update(maskC=g.maskC, recip_drC=g.recip_drC,
+                     rhoInSitu=f.normal(f.s3, 1.0))
+        params = params + [cfg.rkSign]
+    elif masked:
+        named["maskC"] = g.maskC
+
+    def twin(given):
+        # the twin's tRef and sRef as given (LINEAR)
+        grid = SimpleNamespace(maskC=given.get("maskC", g.maskC),
+                               recip_drC=given.get("recip_drC", g.recip_drC),
+                               rC=g.rC, rF=g.rF, tRef=given.get("tRef"),
+                               sRef=given.get("sRef"))
+        ph = given.get("totPhiHyd", phi)
+        if "profile" in given:     # the profile as given, not recomputed
+            saved = eos._pressure_terms
+            eos._pressure_terms = lambda *a: (given["profile"], use_phi)
+        try:
+            if sigma:
+                return list(th._calc_sigmaR_plain(
+                    cfg, grid, given["rhoInSitu"], given["theta"],
+                    given["salt"], ph))
+            return [eos._find_rho_plain(cfg, grid, given["theta"],
+                                        given["salt"], ph,
+                                        given.get("maskC"))]
+        finally:
+            if "profile" in given:
+                eos._pressure_terms = saved
+
+    want = twin(named)
+    params = (ctypes.c_double * len(params))(*params)
+    if sigma:
+        args = (params, len(params), nr, nyp, nxp, code, int(use_phi))
+    else:
+        args = (params, len(params), nr, nyp * nxp, code, int(use_phi),
+                int(masked))
+    fn = f"host_eos_{'sigma_r' if sigma else 'find_rho'}_{SUFFIX[f.dtype]}"
+
+    def run(lib, given):
+        out = torch.full(f.s3, float("nan"), dtype=f.dtype)
+        head = [given["theta"], given["salt"]] + [given.get(n) for n in (
+            "totPhiHyd", "profile", "tRef", "sRef", "maskC")]
+        tail = ([given["recip_drC"], given["rhoInSitu"]] if sigma else [])
+        tab = table(head + tail + [out])
+        assert getattr(lib, fn)(tab, len(tab), *args) == 0
+        return [out]
+
+    return want, named, args, run
+
+
+def mix_fields(dtype, seed, ny, nx, nr=MIX_NR):
+    """Fields with rC and rF for the EOS's pressure, and no tRef or sRef
+    (ops/eos.py:ref_profiles makes them from the configuration)."""
+    f = Fields(dtype, seed, ny, nx, nr)
+    f.grid.tRef = f.grid.sRef = None
+    f.grid.rF = -torch.cumsum(torch.cat([f.grid.drF.new_zeros(1),
+                                         f.grid.drF]), 0)
+    f.grid.rC = 0.5 * (f.grid.rF[:-1] + f.grid.rF[1:])
+    return f
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", KAPPA_UV_MODES)
+def test_kappa_uv(lib, ny, nx, dtype, mode):
+    f = mix_fields(DTYPES[dtype], 800 + nx, ny, nx)
+    want, named, _, run = kappa_uv_case(f, KAPPA_UV_MODES[mode])
+    for name, got, wanted in zip(("kappaRU", "kappaRV"), run(lib, named),
+                                 want):
+        check_same_cells(got, wanted, name)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", KAPPA_TS_VARIANTS)
+def test_kappa_ts(lib, ny, nx, dtype, variant):
+    f = mix_fields(DTYPES[dtype], 820 + nx, ny, nx)
+    want, named, _, run = kappa_ts_case(f, variant)
+    for got, wanted in zip(run(lib, named), want):
+        check_same_cells(got, wanted, variant)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_adv_flow(lib, ny, nx, dtype):
+    f = mix_fields(DTYPES[dtype], 840 + nx, ny, nx)
+    want, named, _, run = adv_flow_case(f)
+    for name, got, wanted in zip(gad.AdvFlow._fields, run(lib, named), want):
+        check_same_cells(got, wanted, name)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,select_p", EOS_KINDS)
+@pytest.mark.parametrize("kernel", ("find_rho", "find_rho(no mask)",
+                                    "sigma_r"))
+def test_eos(lib, numpy_sqrt, ny, nx, dtype, kind, select_p, kernel):
+    f = mix_fields(DTYPES[dtype], 860 + nx, ny, nx)
+    want, named, _, run = eos_case(f, kind, select_p,
+                                   masked=kernel == "find_rho",
+                                   sigma=kernel == "sigma_r")
+    check_same_cells(run(lib, named)[0], want[0], kernel)
+
+
+def test_mix_launch_refuses(lib):
+    """Tables of the wrong length, a kappa_uv mode of 0 (viscAr alone) or
+    3, KPP without viscAz, kappa_ts without KPP, GM or GGL90 (the
+    background alone) or with KPP and GGL90, LINEAR without tRef, a kind of
+    3 (cudaErrorInvalidValue, 1)."""
+    f = mix_fields(torch.float64, 880, *SIZES[0])
+    nr, nyp, nxp = f.s3
+    out = torch.empty((nr + 1, nyp, nxp), dtype=torch.float64)
+    visc = torch.zeros(f.s3, dtype=torch.float64)
+    tab = table([f.grid.maskW, f.grid.maskS, visc, visc, out, out])
+    assert lib.host_kappa_uv_f64(tab, 5, nr, nyp, nxp, 2, 1e-3) == 1
+    assert lib.host_kappa_uv_f64(tab, 6, nr, nyp, nxp, 0, 1e-3) == 1
+    assert lib.host_kappa_uv_f64(tab, 6, nr, nyp, nxp, 3, 1e-3) == 1
+    assert lib.host_kappa_uv_f64(tab, 6, nr, nyp, nxp, 2, 1e-3) == 0
+    tab = table([f.grid.maskW, f.grid.maskS, None, None, out, out])
+    assert lib.host_kappa_uv_f64(tab, 6, nr, nyp, nxp, 1, 1e-3) == 1
+    _, named, args, _ = kappa_ts_case(f, "KPP")
+    kap = torch.empty(f.s3, dtype=torch.float64)
+    tab = table([None] * 12 + [kap, kap, None, None])
+    assert lib.host_kappa_ts_f64(tab, 16, *args[:5], 0, 0, 0) == 1
+    assert lib.host_kappa_ts_f64(tab, 16, *args[:5], 1, 0, 1) == 1
+    assert lib.host_kappa_ts_f64(tab, 15, *args[:5], 0, 0, 1) == 1
+    assert lib.host_adv_flow_f64(tab, 16, nr, nyp, nxp) == 1
+    _, named, args, _ = eos_case(f, "LINEAR", 0)
+    rho = torch.empty(f.s3, dtype=torch.float64)
+    tab = table([named["theta"], named["salt"], None, None, None,
+                 named["sRef"], None, rho])
+    assert lib.host_eos_find_rho_f64(tab, 8, *args[:5], 0, 0) == 1
+    tab = table([named["theta"], named["salt"], None, None, named["tRef"],
+                 named["sRef"], None, rho])
+    assert lib.host_eos_find_rho_f64(tab, 8, *args[:4], 3, 0, 0) == 1
+    assert lib.host_eos_find_rho_f64(tab, 8, *args[:5], 0, 0) == 0
+
+
+# chip_smoke.py's footprints of J-uv, J-ts, L and R's two kernels hold
+# every cell read and no cell unread, in each variant
+@pytest.mark.parametrize("case", ["kappa_uv:KPP", "kappa_uv:GGL90",
+                                  *[f"kappa_ts:{v}" for v in
+                                    KAPPA_TS_VARIANTS],
+                                  "adv_flow", "find_rho:LINEAR",
+                                  "find_rho:JMD95Z", "find_rho:MDJWF",
+                                  "sigma_r:LINEAR", "sigma_r:JMD95Z",
+                                  "sigma_r:MDJWF"])
+def test_mix_footprint(lib, numpy_sqrt, case):
+    f = mix_fields(torch.float64, 900, *FOOTPRINT_SIZE)
+    smoke = chip_smoke()
+    kernel, _, variant = case.partition(":")
+    if kernel == "kappa_uv":
+        built, footprint = (kappa_uv_case(f, KAPPA_UV_MODES[variant]),
+                            smoke.kappa_uv_footprint)
+    elif kernel == "kappa_ts":
+        built, footprint = (kappa_ts_case(f, variant),
+                            smoke.kappa_ts_footprint)
+    elif kernel == "adv_flow":
+        built, footprint = adv_flow_case(f), smoke.adv_flow_footprint
+    else:
+        built = eos_case(f, variant, 2 if variant != "LINEAR" else 0,
+                         sigma=kernel == "sigma_r")
+        footprint = (smoke.sigma_r_footprint if kernel == "sigma_r"
+                     else smoke.find_rho_footprint)
+    check_footprint(lib, built, footprint, {}, same_as=check_same_cells)
