@@ -28,13 +28,21 @@ exits nonzero without the final line:
                  read a solve), then 2 steps of the plain path
   6. adjoint   : the backward kernels B' and C' against autograd through
                  their plain twins (64x64x4 float64, 1024x1024x32 float32);
+                 the glue's backward kernels F', D', E', G', L' and R'
+                 against their plain VJPs, bit for bit on every padded cell
+                 (64x64x4 float64 with AB-2's and AB-3's cold-start, second
+                 and later steps, tracer_step without AB and R' without
+                 maskC; 1024x1024x32 float32), each with its device time
+                 (20 launches in a CUDA graph), bound and share;
                  grdchk of the 16x16x4 float64 gyre on the kernel path
                  (the set-up of tests/test_adjoint.py), its gradient against
                  the plain path's and against a second kernel-path run; then
                  the gradient of a box cost through 6 checkpointed steps of
                  the 1024x1024x32 float32 gyre, timed against the forward
                  steps alone (medians of 3 runs each), with peak memory and
-                 every kernel's launches (those of the first gradient)
+                 every kernel's launches (those of the first gradient: each
+                 backward kernel's exact count, no kernels.TwinVJP backward
+                 and no plain fold of a halo fill)
   7. vi-gyre   : the vi-gyre (vector-invariant momentum, implicit vertical
                  viscosity and diffusion, JMD95Z EOS with salt, AB-3):
                  kernels V, T and R against their twins at 64x64x4 float64
@@ -383,12 +391,39 @@ KERNELS = {
                  "mitgcm_tpu/model/gad.py:64"),
     "eos_sigma_r": ("mitgcm_tpu_torch/kernels/csrc/eos.cu",
                     "mitgcm_tpu/model/thermodynamics.py:154"),
+    # the VJPs that jax.grad took of F, D, E, G, L and R's LINEAR kind, the
+    # gyre's gradient's backward glue
+    "halo_fold": ("mitgcm_tpu_torch/kernels/csrc/halo_adj.cu",
+                  "mitgcm_tpu/ops/stencil.py:54"),
+    "phihyd_adj": ("mitgcm_tpu_torch/kernels/csrc/phihyd_adj.cu",
+                   "mitgcm_tpu/model/phihyd.py:171"),
+    "cg2d_rhs_adj": ("mitgcm_tpu_torch/kernels/csrc/step_scans_adj.cu",
+                     "mitgcm_tpu/model/step.py:400"),
+    "continuity_adj": ("mitgcm_tpu_torch/kernels/csrc/step_scans_adj.cu",
+                       "mitgcm_tpu/model/step.py:557"),
+    "mom_ab_step_adj": ("mitgcm_tpu_torch/kernels/csrc/step_glue_adj.cu",
+                        "mitgcm_tpu/model/step.py:54"),
+    "mom_correction_adj": ("mitgcm_tpu_torch/kernels/csrc/step_glue_adj.cu",
+                           "mitgcm_tpu/model/step.py:509"),
+    "tracer_step_adj": ("mitgcm_tpu_torch/kernels/csrc/step_glue_adj.cu",
+                        "mitgcm_tpu/model/thermodynamics.py:329"),
+    "adv_flow_adj": ("mitgcm_tpu_torch/kernels/csrc/adv_flow.cu",
+                     "mitgcm_tpu/model/gad.py:64"),
+    "eos_linear_adj": ("mitgcm_tpu_torch/kernels/csrc/eos.cu",
+                       "mitgcm_tpu/ops/eos.py:226"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
 # beside the launches (count_cg2d_reads)
 CG2D_READS = "cg2d host reads"
-BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj")
+# the backward kernels of the step glue (F', D', E', G'), of L and of R's
+# LINEAR kind, which the gyre's gradient runs in place of autograd through
+# the twins
+GLUE_ADJ_KERNELS = ("halo_fold", "phihyd_adj", "cg2d_rhs_adj",
+                    "continuity_adj", "mom_ab_step_adj", "mom_correction_adj",
+                    "tracer_step_adj", "adv_flow_adj", "eos_linear_adj")
+BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj",
+                    *GLUE_ADJ_KERNELS)
 GLUE_KERNELS = ("halo_fill", "phihyd", "cg2d_rhs", "continuity",
                 "mom_ab_step", "mom_correction", "tracer_step")
 
@@ -415,15 +450,26 @@ GYRE_LAUNCHES = {"mom_fluxform": 5, "gad_calc_rhs_c2": 5, "eos_find_rho": 5,
                  **glue_launches(1, 12)}
 # launches in phase 6's first full-size gradient (6 steps in 2
 # checkpointed chunks of 3): the forward kernels of 6 steps and of their
-# recomputation (16 step bodies a gradient, of which the recomputation's
-# last fills are cut short: 150 fills in all), and the fill of each of the
+# recomputation (16 step bodies a gradient), and the fill of each of the
 # 5 adjoint cg2d solves (the last step's eta does not reach the cost),
 # each one cg2d_solve launch and one host read; R's LINEAR kind once a
-# step body
-ADJ_LAUNCHES = {**glue_launches(1, 0, 16), "halo_fill": 155,
-                "eos_find_rho": 16,
+# step body. A recomputation stops once the tensors that the backward
+# reads are back (torch.utils.checkpoint's early stop): the momentum
+# correction and continuity, which save none, run in 4 of the 10
+# recomputed step bodies, and 143 fills in all (155 while their twins'
+# inputs were saved). The backward kernels of the glue run once a step
+# (the tracer's)
+# or once a step but the last (whose flow, pressure and free surface reach
+# no later theta), F' once a fill whose result reaches the cost, as
+# tests/test_torch_host_kernels.py:ADJ_GLUE_LAUNCHES counts them on the
+# host; no kernels.TwinVJP backward
+ADJ_LAUNCHES = {**glue_launches(1, 0, 16), "halo_fill": 143,
+                "continuity": 10, "mom_correction": 10, "eos_find_rho": 16,
                 "halo_fill:adjoint": 5, "cg2d_solve": 21, CG2D_READS: 21,
-                "cg2d_solve:adjoint": 5}
+                "cg2d_solve:adjoint": 5, "halo_fold": 35,
+                "tracer_step_adj": 6,
+                **{k: 5 for k in GLUE_ADJ_KERNELS[1:] if k not in (
+                    "tracer_step_adj",)}, "twin_vjp": 0}
 VI_KERNELS = ("mom_vecinv", "impldiff", "eos_find_rho")
 # launches of each kernel in phase 7's 5 timed full-size vi-gyre steps
 VI_LAUNCHES = {"mom_vecinv": 5, "impldiff": 20, "eos_find_rho": 5,
@@ -603,7 +649,15 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # and GM's terms, L's seven fields, R's sigmaR (the JMD95
                 # polynomials, a division, the masks)
                 "kappa_uv": 10, "kappa_ts": 20, "adv_flow": 10,
-                "eos_sigma_r": 70}
+                "eos_sigma_r": 70,
+                # the glue's backward kernels, per cell of their largest
+                # field: F''s block sums (up to 9 terms), D''s five-term
+                # cotangent and the suffix sum, continuity_adj's three
+                # recomputed scans, mom_correction_adj's four level sums
+                "halo_fold": 4, "phihyd_adj": 14, "cg2d_rhs_adj": 12,
+                "continuity_adj": 20, "mom_ab_step_adj": 10,
+                "mom_correction_adj": 16, "tracer_step_adj": 6,
+                "adv_flow_adj": 8, "eos_linear_adj": 4}
 # the outputs of kernels J-ts (those its variant writes) and L
 KAPPA_TS_OUTS = ("kapT", "kapS", "dfT", "dfS")
 ADV_FLOW_OUTS = ("uTrans", "vTrans", "rTrans", "rTransKp", "maskUp", "xA",
@@ -797,16 +851,16 @@ def count_cg2d_reads():
 
 
 def glue_plain_calls():
-    """Calls so far of the twins of D-G, J-uv, J-ts, L and R
-    (ops/stencil.py, model/phihyd.py, model/step.py,
+    """Calls so far of the twins of D-G, J-uv, J-ts, L and R and of the
+    fill's plain fold (ops/stencil.py, model/phihyd.py, model/step.py,
     model/thermodynamics.py, model/gad.py's calc_adv_flow, ops/eos.py's
     find_rho); a kernel-path run adds none."""
     from mitgcm_tpu_torch.model import gad, phihyd, step, thermodynamics
     from mitgcm_tpu_torch.ops import eos, stencil
 
-    return (stencil.plain_calls + phihyd.plain_calls + step.plain_calls
-            + thermodynamics.plain_calls + gad.flow_plain_calls
-            + eos.plain_calls)
+    return (stencil.plain_calls + stencil.plain_folds + phihyd.plain_calls
+            + step.plain_calls + thermodynamics.plain_calls
+            + gad.flow_plain_calls + eos.plain_calls)
 
 
 def check_launches(label, launches, want, plain=0):
@@ -1691,6 +1745,97 @@ def vjp_phase(case, results, reps):
                                     case.flow.vTrans, case.flow.rTrans), bar)
     compare("gad_calc_rhs_c2_adj", case, k(), p(), cuda_time_ms(k, reps),
             cuda_time_ms(p, reps), results, whole=True, call=k)
+
+
+def pick(outs, need):
+    """The outputs that `need` asks for, those that are not None."""
+    return [t for t, n in zip(outs, need) if n and t is not None]
+
+
+def glue_vjp_phase(case, results, reps, variants):
+    """F', D', E', G', L' and R' against their plain VJPs (ops/stencil.py,
+    model/phihyd.py, model/step.py, model/thermodynamics.py, model/gad.py,
+    ops/eos.py: *_vjp_plain) on the same seeded cotangents, bit for bit on
+    every padded cell, each with its device time (20 launches in a CUDA
+    graph), bound and share (hold_launch). Each asks for the cotangents
+    that the gyre's gradient asks for (none of guExt, EmPmR or salt, whose
+    forcing and field are constants there). variants: the gyre's
+    (AB-2 on its second step), "every" (its cold start too, tracer_step
+    without AB, R' without maskC) or "AB-3" (a vi-gyre case: mom_ab_step's
+    and tracer_step's AB-3 on the cold-start, second and a later step)."""
+    from mitgcm_tpu_torch.model import gad, phihyd, step, thermodynamics as th
+    from mitgcm_tpu_torch.ops import eos, stencil
+
+    cfg, g = case.cfg, case.grid
+    rng = np.random.default_rng(SEED + 23)
+    s3 = tuple(g.hFacC.shape)
+    ol = cfg.olx
+
+    def bar(shape=s3):
+        return case.field(rng, shape, 1.0)
+
+    def hold(name, kernel, plain):
+        hold_launch(name, case, lambda impl: list(
+            plain() if impl == "plain" else kernel()), results, reps)
+
+    order = "AB-3" if cfg.useAB3 else "AB-2"
+    its = (0, 1, 2) if variants == "AB-3" else (
+        (1, 0) if variants == "every" else (1,))
+    for it in its:
+        label = "" if it == 1 and order == "AB-2" else f"({order}, step {it})"
+        need = (True, True, True, False, True, order == "AB-3", True) * 2
+        b4 = [bar() for _ in range(4)]     # gu, uStar, gv, vStar
+        hold("mom_ab_step_adj" + label, lambda b4=b4, it=it, need=need: pick(
+            step._mom_ab_step_adj_kernel(cfg, g, it, need, *b4),
+            (1, 1, 0, 0, 1, 1, 0) * 2), lambda b4=b4, it=it: [
+                t for t in step.mom_ab_step_vjp_plain(cfg, g, it, *b4)
+                if t is not None])
+        tb = [bar(), bar()]
+        hold("tracer_step_adj" + label, lambda tb=tb, it=it: pick(
+            th._tracer_step_adj_kernel(cfg, g, it, True, (True,) * 5, *tb),
+            (1, 0, 1, 1, 1)), lambda tb=tb, it=it: pick(
+                th.tracer_step_vjp_plain(cfg, g, it, True, *tb),
+                (1, 0, 1, 1, 1)))
+    if variants == "AB-3":
+        return
+    if variants == "every":
+        tb = bar()
+        hold("tracer_step_adj(no AB)", lambda: pick(
+            th._tracer_step_adj_kernel(cfg, g, 1, False, (True,) * 5, tb),
+            (1, 0, 1, 1, 1)), lambda: pick(
+                th.tracer_step_vjp_plain(cfg, g, 1, False, tb),
+                (1, 0, 1, 1, 1)))
+    for label, shape in (("", s3), ("(2-D)", s3[1:])):
+        gb = bar(shape)
+        hold("halo_fold" + label, lambda gb=gb: [stencil._halo_fold(gb, ol,
+                                                                    ol)],
+             lambda gb=gb: [stencil.halo_fold_vjp_plain(gb, ol, ol)])
+    b3 = [bar() for _ in range(3)]
+    hold("phihyd_adj", lambda: [phihyd._phi_hyd_adj_kernel(cfg, g, *b3)],
+         lambda: [phihyd.phihyd_vjp_plain(cfg, g, *b3)])
+    b2 = bar(s3[1:])
+    hold("cg2d_rhs_adj", lambda: step._cg2d_rhs_adj_kernel(
+        cfg, g, (True,) * 3, b2), lambda: step.cg2d_rhs_vjp_plain(cfg, g, b2))
+    wb, pb = bar(), bar(s3[1:])
+    need = (True, True, False)
+    hold("continuity_adj", lambda: pick(step._continuity_adj_kernel(
+        cfg, g, need, wb, pb), need), lambda: pick(
+            step.continuity_vjp_plain(cfg, g, wb, pb), need))
+    ub, vb = bar(), bar()
+    hold("mom_correction_adj", lambda: step._mom_correction_adj_kernel(
+        cfg, g, (True,) * 3, ub, vb), lambda: step.mom_correction_vjp_plain(
+            cfg, g, ub, vb))
+    b4 = [bar() for _ in range(4)]
+    hold("adv_flow_adj", lambda: gad._adv_flow_adj_kernel(
+        g, (True,) * 3, *b4), lambda: gad.adv_flow_vjp_plain(g, *b4))
+    rb = bar()
+    need = (True, False)
+    for label, mask in (("", g.maskC), ("(no mask)", None))[
+            :2 if variants == "every" else 1]:
+        hold("eos_linear_adj" + label, lambda mask=mask: pick(
+            eos._eos_linear_adj_kernel(cfg, need, rb, mask), need),
+            lambda mask=mask: pick(eos.eos_linear_vjp_plain(cfg, rb, mask),
+                                   need))
 
 
 def adjoint_objective(n, nr, dtype, n_steps, box, k_range, deltaT=1200.0,
@@ -4548,6 +4693,10 @@ def main():
     phase("6 adjoint")
     vjp_phase(Case(64, 4, torch.float64), results, reps=20)
     vjp_phase(Case(1024, 32, torch.float32), results, reps=10)
+    glue_vjp_phase(GlueCase(64, 4, torch.float64), results, 20, "every")
+    glue_vjp_phase(GlueCase(64, 4, torch.float64, vi=True), results, 20,
+                   "AB-3")
+    glue_vjp_phase(GlueCase(1024, 32, torch.float32), results, 10, "gyre")
     torch.cuda.empty_cache()
     grdchk_phase()
     adj_launches = adjoint_full_phase(kernels)

@@ -13,8 +13,11 @@ stream it is given, allocates nothing and returns cudaGetLastError().
 count in `launches`, which a run reads to prove that the main path went
 through the kernels; inside `counting_as(label)` the launch is also
 counted under "<kernel>:<label>" (the adjoint cg2d solves are counted
-apart from the forward ones so). `TwinVJP` differentiates a kernel that
-has no backward kernel through its plain twin.
+apart from the forward ones so). `KernelVJP` differentiates a kernel whose
+map is linear through its backward kernel, saving no tensor; `TwinVJP`
+differentiates a kernel that has no backward kernel through its plain twin,
+and counts each of its backward runs under "twin_vjp" and
+"twin_vjp:<twin>".
 """
 
 from __future__ import annotations
@@ -202,6 +205,27 @@ SIGNATURES = {
     # length; nr, nyp, nxp, ksurf0, AB order (0: none, 2, 3); abFac, ab0,
     # ab1, ab2, deltaTTracer; stream
     "tracer_step": [_PP, _I] + [_I] * 5 + [_D] * 5 + [_P],
+    # the backward kernels of the step glue, the mixing glue and R's LINEAR
+    # kind (an output that is not wanted has a null pointer): F' (g, out;
+    # planes, ny, nx, oly, olx); D' (pointer table: phiC_bar, dPhiHydX_bar,
+    # dPhiHydY_bar, drC, rF, rC, recip_dxC, recip_dyC, rho_bar; nr, nyp,
+    # nxp; gravity, 1/rhoConst); E' (step_scans_adj.cuh's tables: nr, nyp,
+    # nxp[, oly, olx; implicDiv2Dflow, deltaTMom, freeSurfFac,
+    # deltaTFreeSurf]); G' (step_glue_adj.cuh's tables: nr, nyp, nxp, then
+    # mom_ab_step_adj's AB order; abFac, ab0, ab1, ab2, deltaTMom,
+    # mom_correction_adj's deltaTMom*psFac, tracer_step_adj's ksurf0, AB
+    # order (0: none); abFac, ab0, ab1, ab2, deltaTTracer); L' (adv_flow.cuh
+    # 's table; nr, nyp, nxp); R' (rho_bar, maskC, theta_bar, salt_bar; nr,
+    # nyp * nxp; rhoNil, tAlpha, sBeta); stream last
+    "halo_fold": [_P] * 2 + [_I] * 5 + [_P],
+    "phihyd_adj": [_PP, _I] + [_I] * 3 + [_D] * 2 + [_P],
+    "cg2d_rhs_adj": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
+    "continuity_adj": [_PP, _I] + [_I] * 3 + [_P],
+    "mom_ab_step_adj": [_PP, _I] + [_I] * 4 + [_D] * 5 + [_P],
+    "mom_correction_adj": [_PP, _I] + [_I] * 3 + [_D, _P],
+    "tracer_step_adj": [_PP, _I] + [_I] * 5 + [_D] * 5 + [_P],
+    "adv_flow_adj": [_PP, _I] + [_I] * 3 + [_P],
+    "eos_linear_adj": [_PP, _I] + [_I] * 2 + [_D] * 3 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -365,6 +389,8 @@ class TwinVJP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *bars):
         need = ctx.needs_input_grad[2:]
+        launches["twin_vjp"] += 1
+        launches[f"twin_vjp:{twin_name(ctx.twin)}"] += 1
         with torch.enable_grad():
             xs = [None if t is None else t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, need)]
@@ -376,6 +402,48 @@ class TwinVJP(torch.autograd.Function):
                 [o for o, _ in pairs], wrt, [b for _, b in pairs],
                 allow_unused=True) if pairs else [None] * len(wrt))
         return (None, None, *[next(grads) if n else None for n in need])
+
+
+def twin_name(twin) -> str:
+    """The name of the plain twin that a TwinVJP closure calls (the first
+    name ending in _plain in its code), else the closure's own."""
+    code = getattr(twin, "__code__", None)
+    names = [n for n in (code.co_names if code else ())
+             if n.endswith("_plain")]
+    return names[0] if names else getattr(twin, "__qualname__", "?")
+
+
+class KernelVJP(torch.autograd.Function):
+    """A kernel whose map is linear in the tensors it differentiates, with
+    a backward kernel: forward runs `launch(*tensors)` (the kernel's
+    wrapper, a tuple of fresh outputs); backward runs `adjoint(need,
+    *bars)`, which launches the backward kernel on the outputs'
+    cotangents and returns one cotangent for each tensor, None where
+    `need` (needs_input_grad) is False. Nothing is saved: the transpose
+    of a linear map reads only constants (the grid, the configuration, the
+    AB coefficients), which `adjoint` holds."""
+
+    @staticmethod
+    def forward(ctx, launch, adjoint, *tensors):
+        ctx.adjoint = adjoint
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, *bars):
+        need = ctx.needs_input_grad[2:]
+        bars = [b.contiguous() for b in bars]
+        grads = ctx.adjoint(need, *bars)
+        return (None, None, *[g if n else None for g, n in zip(grads, need)])
+
+
+def refuse_grad(fn: str, **tensors) -> None:
+    """Raise if one of `tensors` (the constants that a kernel reads; None
+    allowed) requires grad: its backward kernel gives them none."""
+    grads = [n for n, t in tensors.items()
+             if t is not None and t.requires_grad]
+    if grads:
+        raise ValueError(f"{fn}: constants {grads} require grad; the "
+                         f"backward kernel gives them none")
 
 
 def launch(kernel: str, dtype: torch.dtype, *args) -> None:

@@ -15,6 +15,8 @@
 // float32, for about 60 flops (JMD95), 40 and one division (MDJWF) or 6
 // (LINEAR); eos_sigma_r reads theta, salt, maskC and rhoInSitu (and
 // totPhiHyd) and writes sigmaR, 20-24 B/cell.
+// Kernel R' (eos_linear_adj) is the LINEAR kind's VJP in theta and salt,
+// the gyre's adjoint's (eos.cuh).
 // Design: the kernels and their launches are in eos.cuh. eos_find_rho is
 // one thread a cell over the flat [nr, nyp, nxp] array; eos_sigma_r one
 // thread a padded cell of a cell_grid (common.cuh), reading theta[k-1] and
@@ -42,6 +44,13 @@
       int nyp, int nxp, int kind, int use_phi, void* stream) {                \
     return mitgcm::launch_sigma_r<T>(                                         \
         table, n, params, np, nr, nyp, nxp, kind, use_phi,                    \
+        mitgcm::OnStream{(cudaStream_t)stream});                              \
+  }                                                                           \
+  extern "C" int mitgcm_eos_linear_adj_##SUF(                                 \
+      const void* const* table, int n, int nr, int plane, double rhoNil,      \
+      double tAlpha, double sBeta, void* stream) {                            \
+    return mitgcm::launch_eos_linear_adj<T>(                                  \
+        table, n, nr, plane, rhoNil, tAlpha, sBeta,                           \
         mitgcm::OnStream{(cudaStream_t)stream});                              \
   }
 

@@ -326,4 +326,50 @@ int launch_sigma_r(const void* const* table, int n, const double* params,
   return (int)cudaGetLastError();
 }
 
+// Kernel R' (eos_linear_adj): the VJP of eos_find_rho's LINEAR kind in
+// theta and salt. Replaces the VJP that jax.grad took of find_rho's
+// LINEAR branch (mitgcm_tpu/ops/eos.py:226-232) times the step's maskC:
+// the map is linear, so with r = (rho_bar * maskC) * rhoNil (rho_bar * rhoNil
+// without the mask), theta_bar = (-r) * tAlpha and salt_bar = r * sBeta.
+// Bound: bytes, it reads rho_bar and maskC and writes up to two fields (16
+// B/cell in float32). Design: gather form, one thread a cell of the flat
+// array; an output that the caller does not want has a null pointer and is
+// not written; the order of ops/eos.py:eos_linear_vjp_plain, bit-equal to
+// it with --fmad=false.
+template <typename T>
+struct EosLinearAdjArgs {
+  // rho_bar, maskC (null: no mask); outputs theta_bar, salt_bar (null: not
+  // wanted)
+  const T *rho_bar, *mask;
+  T *theta_bar, *salt_bar;
+};
+constexpr int kEosLinearAdjNumPointers = 4;
+
+template <typename T>
+__global__ void eos_linear_adj_kernel(EosLinearAdjArgs<T> a, size_t n,
+                                      T rhoNil, T tAlpha, T sBeta) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (idx >= n) return;
+  const T g = a.mask ? a.rho_bar[idx] * a.mask[idx] : a.rho_bar[idx];
+  const T r = g * rhoNil;
+  if (a.theta_bar) a.theta_bar[idx] = (-r) * tAlpha;
+  if (a.salt_bar) a.salt_bar[idx] = r * sBeta;
+}
+
+template <typename T, typename Start>
+int launch_eos_linear_adj(const void* const* table, int n, int nr, int plane,
+                          double rhoNil, double tAlpha, double sBeta,
+                          Start start) {
+  EosLinearAdjArgs<T> a;
+  if (!unpack(&a, table, n, kEosLinearAdjNumPointers) || nr < 1 ||
+      plane < 1 || !a.rho_bar)
+    return (int)cudaErrorInvalidValue;
+  const size_t cells = static_cast<size_t>(nr) * plane;
+  const unsigned blocks = static_cast<unsigned>((cells + NT - 1) / NT);
+  start(eos_linear_adj_kernel<T>, dim3(blocks), dim3(NT), a, cells,
+        T(rhoNil), T(tAlpha), T(sBeta));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace mitgcm

@@ -117,18 +117,58 @@ def _calc_adv_flow_kernel(grid: Grid, u, v, w):
     return tuple(outs)
 
 
+def adv_flow_vjp_plain(grid: Grid, uTrans_bar, vTrans_bar, rTrans_bar,
+                       rTransKp_bar):
+    """Kernel L''s plain version, in its operation order: (u_bar, v_bar,
+    w_bar) from the cotangents of the four transports, rTransKp's level
+    shift transposed."""
+    drF = grid.drF[:, None, None]
+    xA = grid.dyG * drF * grid.hFacW
+    yA = grid.dxG * drF * grid.hFacS
+    mC = grid.maskC
+    maskUp = torch.cat([torch.zeros_like(mC[:1]), mC[1:] * mC[:-1]])
+    r = torch.cat([rTrans_bar[:1], rTrans_bar[1:] + rTransKp_bar[:-1]])
+    return uTrans_bar * xA, vTrans_bar * yA, (r * maskUp) * grid.rA
+
+
+def _adv_flow_adj_kernel(grid: Grid, need, *bars):
+    """Kernel L' on the card (adv_flow.cu): the cotangents of (u, v, w)
+    that `need` asks for, fresh, from those of the seven fields (the last
+    three, constants, unread)."""
+    bars = bars[:4]
+    outs = [torch.empty_like(bars[0]) if n else None for n in need]
+    u = bars[0]
+    kernels.check_fields(u.dtype, u.shape, hFacW=grid.hFacW,
+                         hFacS=grid.hFacS, maskC=grid.maskC, **{
+                             f"{n}_bar": t for n, t in zip(
+                                 AdvFlow._fields[:4] + ("u", "v", "w"),
+                                 (*bars, *outs)) if t is not None})
+    kernels.check_fields(u.dtype, u.shape[1:], dyG=grid.dyG, dxG=grid.dxG,
+                         rA=grid.rA)
+    kernels.check_fields(u.dtype, u.shape[:1], drF=grid.drF)
+    table = [*bars, grid.hFacW, grid.hFacS, grid.maskC, grid.dyG, grid.dxG,
+             grid.rA, grid.drF, *outs]
+    kernels.launch("adv_flow_adj", u.dtype, kernels.pointer_table(table),
+                   len(table), *u.shape)
+    return outs
+
+
 def calc_adv_flow(grid: Grid, u, v, w, impl: str = None) -> AdvFlow:
     """model/src/calc_adv_flow.F, all levels at once. Kernel L on CUDA
-    tensors (under kernels.TwinVJP; maskUp, xA and yA, which depend on the
-    grid alone, leave autograd's graph), its twin on CPU tensors or with
-    impl="plain"."""
+    tensors, differentiable in u, v and w through kernel L' (maskUp, xA
+    and yA, which depend on the grid alone, leave autograd's graph), its
+    twin on CPU tensors or with impl="plain"."""
     if not kernels.use_kernel(u, impl):
         global flow_plain_calls
         flow_plain_calls += 1
         return AdvFlow(*_calc_adv_flow_plain(grid, u, v, w))
-    outs = kernels.TwinVJP.apply(
+    kernels.refuse_grad("calc_adv_flow", hFacW=grid.hFacW, hFacS=grid.hFacS,
+                        maskC=grid.maskC, dyG=grid.dyG, dxG=grid.dxG,
+                        rA=grid.rA, drF=grid.drF)
+    outs = kernels.KernelVJP.apply(
         lambda *ts: _calc_adv_flow_kernel(grid, *ts),
-        lambda *ts: _calc_adv_flow_plain(grid, *ts), u, v, w)
+        lambda need, *bars: _adv_flow_adj_kernel(grid, need, *bars),
+        u, v, w)
     return AdvFlow(*outs[:4], *(t.detach() for t in outs[4:]))
 
 

@@ -3,8 +3,9 @@ oceanic z-coordinate branch without r* or quasi-hydrostatic terms.
 
 `calc_phi_hyd` runs kernel D (kernels/csrc/phihyd.cu) on CUDA tensors and
 its plain PyTorch twin `_phi_hyd_plain` on CPU tensors or with
-impl="plain"; kernel D has no backward kernel yet, so its gradient is
-autograd through the twin (kernels.TwinVJP)."""
+impl="plain"; on the card its gradient is kernel D' (phihyd_adj.cu), whose
+plain version is `phihyd_vjp_plain`, elsewhere autograd through the
+twin."""
 
 from __future__ import annotations
 
@@ -20,17 +21,24 @@ from mitgcm_tpu_torch.ops.stencil import shift as sh
 plain_calls = 0
 
 
+def _weights(cfg: Config, grid: Grid):
+    """(dRlocM, dRlocP) [nr]: the half-cell weights of the running sum."""
+    nr = cfg.nr
+    drC, rF, rC = grid.drC, grid.rF, grid.rC
+    dRlocM = 0.5 * drC[0:nr]
+    dRlocM[0] = rF[0] - rC[0]
+    dRlocP = 0.5 * drC[1:nr + 1]
+    dRlocP[nr - 1] = rC[nr - 1] - rF[nr]
+    return dRlocM, dRlocP
+
+
 def _phi_hyd_plain(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor):
     """Kernel D's twin: (phiHydC, dPhiHydX, dPhiHydY). The running sum
     adds level by level in k order, as kernel D does (JAX's cumsum - incr
     form, phihyd.py:225-227)."""
     nr = cfg.nr
     buoy = cfg.gravity * rhoInSitu * (1.0 / cfg.rhoConst)
-    drC, rF, rC = grid.drC, grid.rF, grid.rC
-    dRlocM = 0.5 * drC[0:nr]
-    dRlocM[0] = rF[0] - rC[0]
-    dRlocP = 0.5 * drC[1:nr + 1]
-    dRlocP[nr - 1] = rC[nr - 1] - rF[nr]
+    dRlocM, dRlocP = _weights(cfg, grid)
     incr = (dRlocM + dRlocP)[:, None, None] * buoy
     acc = torch.zeros_like(incr[0])
     phiF = []
@@ -63,6 +71,44 @@ def _phi_hyd_kernel(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor):
     return outs
 
 
+def phihyd_vjp_plain(cfg: Config, grid: Grid, phiC_bar, dX_bar, dY_bar):
+    """Kernel D''s plain version, in its operation order: rho's cotangent
+    from those of (phiHydC, dPhiHydX, dPhiHydY). The gradients' transposes
+    gather the east and north neighbours; the running sum's transpose is
+    the exclusive suffix sum S, walked from the bottom up."""
+    ex = dX_bar * grid.recip_dxC
+    ey = dY_bar * grid.recip_dyC
+    P = (phiC_bar + (ex - sh(ex, di=1))) + (ey - sh(ey, dj=1))
+    dRlocM, dRlocP = _weights(cfg, grid)
+    wsum = dRlocM + dRlocP
+    S = torch.zeros_like(P[0])
+    rho_bar = [None] * cfg.nr
+    for k in range(cfg.nr - 1, -1, -1):
+        b = S * wsum[k] + P[k] * dRlocM[k]
+        rho_bar[k] = (b * (1.0 / cfg.rhoConst)) * cfg.gravity
+        S = S + P[k]
+    return torch.stack(rho_bar)
+
+
+def _phi_hyd_adj_kernel(cfg: Config, grid: Grid, phiC_bar, dX_bar, dY_bar):
+    """Kernel D' on the card (phihyd_adj.cu): rho's cotangent, fresh."""
+    rho_bar = torch.empty_like(phiC_bar)
+    nr, nyp, nxp = rho_bar.shape
+    dtype = rho_bar.dtype
+    kernels.check_fields(dtype, (nr, nyp, nxp), phiC_bar=phiC_bar,
+                         dPhiHydX_bar=dX_bar, dPhiHydY_bar=dY_bar,
+                         rho_bar=rho_bar)
+    kernels.check_fields(dtype, (nr + 1,), drC=grid.drC, rF=grid.rF)
+    kernels.check_fields(dtype, (nr,), rC=grid.rC)
+    kernels.check_fields(dtype, (nyp, nxp), recip_dxC=grid.recip_dxC,
+                         recip_dyC=grid.recip_dyC)
+    table = [phiC_bar, dX_bar, dY_bar, grid.drC, grid.rF, grid.rC,
+             grid.recip_dxC, grid.recip_dyC, rho_bar]
+    kernels.launch("phihyd_adj", dtype, kernels.pointer_table(table),
+                   len(table), nr, nyp, nxp, cfg.gravity, 1.0 / cfg.rhoConst)
+    return rho_bar
+
+
 def calc_phi_hyd(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor,
                  impl: str = None):
     """Return (phiHydC, dPhiHydX, dPhiHydY, totPhiHyd).
@@ -75,7 +121,11 @@ def calc_phi_hyd(cfg: Config, grid: Grid, rhoInSitu: torch.Tensor,
         plain_calls += 1
         phiC, dX, dY = _phi_hyd_plain(cfg, grid, rhoInSitu)
     else:
-        phiC, dX, dY = kernels.TwinVJP.apply(
+        kernels.refuse_grad("calc_phi_hyd", drC=grid.drC, rF=grid.rF,
+                            rC=grid.rC, recip_dxC=grid.recip_dxC,
+                            recip_dyC=grid.recip_dyC)
+        phiC, dX, dY = kernels.KernelVJP.apply(
             lambda rho: _phi_hyd_kernel(cfg, grid, rho),
-            lambda rho: _phi_hyd_plain(cfg, grid, rho), rhoInSitu)
+            lambda need, *bars: (_phi_hyd_adj_kernel(cfg, grid, *bars),),
+            rhoInSitu)
     return phiC, dX, dY, phiC

@@ -338,6 +338,53 @@ def _mom_ab_step_kernel(cfg: Config, grid: Grid, myIter: int, *tensors):
     return outs
 
 
+def mom_ab_step_vjp_plain(cfg: Config, grid: Grid, myIter: int, gu_bar,
+                          uStar_bar, gv_bar, vStar_bar):
+    """Kernel G''s mom_ab_step_adj's plain version (hydrostatic), in its
+    operation order: from the cotangents of (guNm1', uStar, gvNm1',
+    vStar), per component (g_bar, -g_bar, gNm1_bar, gNm2_bar): g_bar is
+    the cotangent of gU, guDiss and guExt, -g_bar of dPhiHydX; gNm2_bar is
+    None under AB-2 (gNm2 is not read). u's cotangent is uStar's."""
+    order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter)
+    out = []
+    for n, s, mask in ((gu_bar, uStar_bar, grid.maskW),
+                       (gv_bar, vStar_bar, grid.maskS)):
+        c = (s * mask) * cfg.deltaTMom
+        if order == 2:
+            t = c * abFac
+            g, nm1, nm2 = (n + c) + t, -t, None
+        else:
+            g, nm1, nm2 = (n + c) + c * ab0, c * ab1, c * ab2
+        out += [g, -g, nm1, nm2]
+    return tuple(out)
+
+
+def _mom_ab_step_adj_kernel(cfg: Config, grid: Grid, myIter: int, need,
+                            gu_bar, uStar_bar, gv_bar, vStar_bar):
+    """Kernel G''s mom_ab_step_adj on the card (step_glue_adj.cu): the
+    cotangents of mom_ab_step's 14 hydrostatic inputs (_MOM_AB_IN's
+    first), fresh where `need` asks for them, None elsewhere; u's and v's
+    are uStar's and vStar's cotangents themselves."""
+    order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter)
+    like = uStar_bar
+    outs, table = [], [uStar_bar, gu_bar, vStar_bar, gv_bar, grid.maskW,
+                       grid.maskS]
+    for c in range(2):
+        n = need[7 * c:7 * c + 7]
+        g = torch.empty_like(like) if n[0] or n[2] or n[3] else None
+        dphi = torch.empty_like(like) if n[1] else None
+        nm1 = torch.empty_like(like) if n[4] else None
+        nm2 = torch.empty_like(like) if n[5] and order == 3 else None
+        table += [g, dphi, nm1, nm2]
+        outs += [g, dphi, g, g, nm1, nm2, (uStar_bar, vStar_bar)[c]]
+    kernels.check_fields(like.dtype, like.shape, **{
+        f"t{k}": t for k, t in enumerate(table) if t is not None})
+    kernels.launch("mom_ab_step_adj", like.dtype,
+                   kernels.pointer_table(table), len(table), *like.shape,
+                   order, abFac, ab0, ab1, ab2, cfg.deltaTMom)
+    return outs
+
+
 def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
                 dPhiHydY, guExt, gvExt, myIter: int, impl: str = None,
                 gw=None):
@@ -356,7 +403,17 @@ def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
     def twin(*ts):
         return _mom_ab_step_plain(cfg, grid, myIter, *ts)
 
-    if kernels.use_kernel(state.uVel, impl):
+    if kernels.use_kernel(state.uVel, impl) and gw is None:
+        # hydrostatic: the transposed pass, kernel G''s mom_ab_step_adj
+        kernels.refuse_grad("mom_ab_step", maskW=grid.maskW,
+                            maskS=grid.maskS)
+        outs = kernels.KernelVJP.apply(
+            lambda *ts: _mom_ab_step_kernel(cfg, grid, myIter, *ts),
+            lambda need, *bars: _mom_ab_step_adj_kernel(
+                cfg, grid, myIter, need, *bars), *tensors)
+    elif kernels.use_kernel(state.uVel, impl):
+        # the non-hydrostatic inputs have no backward kernel: autograd
+        # through the twin (the adjoint refuses the non-hydrostatic path)
         outs = kernels.TwinVJP.apply(
             lambda *ts: _mom_ab_step_kernel(cfg, grid, myIter, *ts), twin,
             *tensors)
@@ -536,6 +593,45 @@ def _cg2d_rhs_kernel(cfg: Config, grid: Grid, uStar, vStar, etaN,
     return outs
 
 
+def cg2d_rhs_vjp_plain(cfg: Config, grid: Grid, b_bar):
+    """Kernel E''s cg2d_rhs_adj's plain version (hydrostatic), in its
+    operation order: (uStar_bar, vStar_bar, etaN_bar) from cg2d_b's
+    cotangent, which every level's divergence takes."""
+    a = b_bar * interior_mask(b_bar.shape, cfg.oly, cfg.olx, b_bar.dtype,
+                              b_bar.device)
+    dtm = b_bar.new_tensor(cfg.deltaTMom)
+    drF = grid.drF[:, None, None]
+    xA = grid.dyG * drF * grid.hFacW
+    yA = grid.dxG * drF * grid.hFacS
+    uStar_bar = ((sh(a, di=-1) - a) / dtm) * (cfg.implicDiv2Dflow * xA)
+    vStar_bar = ((sh(a, dj=-1) - a) / dtm) * (cfg.implicDiv2Dflow * yA)
+    return uStar_bar, vStar_bar, (-a) * _surf_c(cfg, grid)
+
+
+def _cg2d_rhs_adj_kernel(cfg: Config, grid: Grid, need, b_bar):
+    """Kernel E''s cg2d_rhs_adj on the card (step_scans_adj.cu): the
+    cotangents of (uStar, vStar, etaN) that `need` asks for, fresh."""
+    shape3 = grid.hFacW.shape
+    outs = [b_bar.new_empty(shape) if n else None
+            for n, shape in zip(need, (shape3, shape3, b_bar.shape))]
+    dtype = b_bar.dtype
+    kernels.check_fields(dtype, shape3, hFacW=grid.hFacW, hFacS=grid.hFacS,
+                         **{n: t for n, t in zip(("uStar_bar", "vStar_bar"),
+                                                 outs) if t is not None})
+    kernels.check_fields(dtype, b_bar.shape, b_bar=b_bar, dyG=grid.dyG,
+                         dxG=grid.dxG, rA=grid.rA, **(
+                             {} if outs[2] is None else
+                             {"etaN_bar": outs[2]}))
+    kernels.check_fields(dtype, (cfg.nr,), drF=grid.drF)
+    table = [b_bar, grid.hFacW, grid.hFacS, grid.dyG, grid.dxG, grid.rA,
+             grid.drF, *outs]
+    kernels.launch("cg2d_rhs_adj", dtype, kernels.pointer_table(table),
+                   len(table), *shape3, cfg.oly, cfg.olx,
+                   cfg.implicDiv2Dflow, cfg.deltaTMom, cfg.freeSurfFac,
+                   cfg.deltaTFreeSurf)
+    return outs
+
+
 def cg2d_rhs(cfg: Config, grid: Grid, uStar, vStar, etaN,
              hydrostatic: bool = True, impl: str = None):
     """The cg2d right-hand side (solve_for_pressure.F:146-152): with
@@ -548,6 +644,16 @@ def cg2d_rhs(cfg: Config, grid: Grid, uStar, vStar, etaN,
         global plain_calls
         plain_calls += 1
         return _cg2d_rhs_plain(cfg, grid, uStar, vStar, etaN, hydrostatic)
+    if hydrostatic:
+        kernels.refuse_grad("cg2d_rhs", hFacW=grid.hFacW, hFacS=grid.hFacS,
+                            dyG=grid.dyG, dxG=grid.dxG, rA=grid.rA,
+                            drF=grid.drF)
+        return kernels.KernelVJP.apply(
+            lambda *ts: _cg2d_rhs_kernel(cfg, grid, *ts, True),
+            lambda need, b_bar: _cg2d_rhs_adj_kernel(cfg, grid, need, b_bar),
+            uStar, vStar, etaN)
+    # each level's divergence (the non-hydrostatic variant) has no backward
+    # kernel: autograd through the twin (the adjoint refuses that path)
     return kernels.TwinVJP.apply(
         lambda *ts: _cg2d_rhs_kernel(cfg, grid, *ts, hydrostatic),
         lambda *ts: _cg2d_rhs_plain(cfg, grid, *ts, hydrostatic),
@@ -656,6 +762,47 @@ def _mom_correction_kernel(cfg: Config, grid: Grid, etaN, uStar, vStar,
     return u, v
 
 
+def mom_correction_vjp_plain(cfg: Config, grid: Grid, u_bar, v_bar):
+    """Kernel G''s mom_correction_adj's plain version (hydrostatic), in its
+    operation order: (etaN_bar, uStar_bar, vStar_bar) from the cotangents
+    of (u, v); the surface-pressure gradient's cotangent is summed over
+    the levels in k order."""
+    ub, vb = u_bar * grid.maskW, v_bar * grid.maskS
+    sx = torch.zeros_like(ub[0])
+    sy = torch.zeros_like(vb[0])
+    for k in range(cfg.nr):
+        sx = sx + (-ub[k]) * grid.maskW[k]
+        sy = sy + (-vb[k]) * grid.maskS[k]
+    dtps = cfg.deltaTMom * cfg.implicSurfPress
+    ex = (sx * dtps) * grid.recip_dxC
+    ey = (sy * dtps) * grid.recip_dyC
+    return ((ex - sh(ex, di=1)) + (ey - sh(ey, dj=1))) * grid.Bo_surf, ub, vb
+
+
+def _mom_correction_adj_kernel(cfg: Config, grid: Grid, need, u_bar,
+                               v_bar):
+    """Kernel G''s mom_correction_adj on the card (step_glue_adj.cu): the
+    cotangents of (etaN, uStar, vStar) that `need` asks for, fresh."""
+    shapes = (grid.Bo_surf.shape, u_bar.shape, u_bar.shape)
+    outs = [u_bar.new_empty(sh_) if n else None
+            for n, sh_ in zip(need, shapes)]
+    dtype = u_bar.dtype
+    kernels.check_fields(dtype, u_bar.shape, u_bar=u_bar, v_bar=v_bar,
+                         maskW=grid.maskW, maskS=grid.maskS, **{
+                             n: t for n, t in zip(("uStar_bar", "vStar_bar"),
+                                                  outs[1:]) if t is not None})
+    kernels.check_fields(dtype, shapes[0], Bo_surf=grid.Bo_surf,
+                         recip_dxC=grid.recip_dxC, recip_dyC=grid.recip_dyC,
+                         **({} if outs[0] is None else
+                            {"etaN_bar": outs[0]}))
+    table = [u_bar, v_bar, grid.maskW, grid.maskS, grid.Bo_surf,
+             grid.recip_dxC, grid.recip_dyC, outs[1], outs[2], outs[0]]
+    kernels.launch("mom_correction_adj", dtype, kernels.pointer_table(table),
+                   len(table), *u_bar.shape,
+                   cfg.deltaTMom * cfg.implicSurfPress)
+    return outs
+
+
 def momentum_correction_step(cfg: Config, grid: Grid, etaN, uStar, vStar,
                              phi_nh=None, impl: str = None):
     """momentum_correction_step.F: subtract the new surface-pressure
@@ -666,6 +813,18 @@ def momentum_correction_step(cfg: Config, grid: Grid, etaN, uStar, vStar,
         global plain_calls
         plain_calls += 1
         return _mom_correction_plain(cfg, grid, etaN, uStar, vStar, phi_nh)
+    if phi_nh is None:
+        kernels.refuse_grad("momentum_correction_step", maskW=grid.maskW,
+                            maskS=grid.maskS, Bo_surf=grid.Bo_surf,
+                            recip_dxC=grid.recip_dxC,
+                            recip_dyC=grid.recip_dyC)
+        return kernels.KernelVJP.apply(
+            lambda *ts: _mom_correction_kernel(cfg, grid, *ts),
+            lambda need, *bars: _mom_correction_adj_kernel(cfg, grid, need,
+                                                           *bars),
+            etaN, uStar, vStar)
+    # phi_nh's gradient has no backward kernel: autograd through the twin
+    # (the adjoint refuses the non-hydrostatic path)
     return kernels.TwinVJP.apply(
         lambda *ts: _mom_correction_kernel(cfg, grid, *ts),
         lambda *ts: _mom_correction_plain(cfg, grid, *ts),
@@ -703,6 +862,45 @@ def _continuity_kernel(cfg: Config, grid: Grid, u, v, EmPmR):
     return w, PmEpR
 
 
+def continuity_vjp_plain(cfg: Config, grid: Grid, w_bar, PmEpR_bar):
+    """Kernel E''s continuity_adj's plain version, in its operation order:
+    (u_bar, v_bar, EmPmR_bar) from the cotangents of (wVel, PmEpR'): the
+    bottom-up masked scan transposed into a top-down one, then the
+    transposed divergence."""
+    d, s = [], None
+    for k in range(cfg.nr):
+        s = (w_bar[k] if k == 0 else w_bar[k] + s) * grid.maskC[k]
+        d.append(-(s * grid.recip_rA))
+    d = torch.stack(d)
+    drF = grid.drF[:, None, None]
+    u_bar = (((sh(d, di=-1) - d) * grid.hFacW) * drF) * grid.dyG
+    v_bar = (((sh(d, dj=-1) - d) * grid.hFacS) * drF) * grid.dxG
+    return u_bar, v_bar, -PmEpR_bar
+
+
+def _continuity_adj_kernel(cfg: Config, grid: Grid, need, w_bar,
+                           PmEpR_bar):
+    """Kernel E''s continuity_adj on the card (step_scans_adj.cu): the
+    cotangents of (u, v, EmPmR) that `need` asks for, fresh."""
+    outs = [t.new_empty(t.shape) if n else None
+            for n, t in zip(need, (w_bar, w_bar, PmEpR_bar))]
+    dtype = w_bar.dtype
+    kernels.check_fields(dtype, w_bar.shape, w_bar=w_bar, maskC=grid.maskC,
+                         hFacW=grid.hFacW, hFacS=grid.hFacS, **{
+                             n: t for n, t in zip(("u_bar", "v_bar"), outs)
+                             if t is not None})
+    kernels.check_fields(dtype, PmEpR_bar.shape, dyG=grid.dyG, dxG=grid.dxG,
+                         recip_rA=grid.recip_rA, PmEpR_bar=PmEpR_bar, **(
+                             {} if outs[2] is None else
+                             {"EmPmR_bar": outs[2]}))
+    kernels.check_fields(dtype, (cfg.nr,), drF=grid.drF)
+    table = [w_bar, grid.maskC, grid.hFacW, grid.hFacS, grid.dyG, grid.dxG,
+             grid.recip_rA, grid.drF, PmEpR_bar, *outs]
+    kernels.launch("continuity_adj", dtype, kernels.pointer_table(table),
+                   len(table), *w_bar.shape)
+    return outs
+
+
 def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR,
                       impl: str = None):
     """integr_continuity.F + integrate_for_w.F for the linear free surface:
@@ -712,9 +910,13 @@ def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR,
         global plain_calls
         plain_calls += 1
         return _continuity_plain(cfg, grid, u, v, EmPmR)
-    return kernels.TwinVJP.apply(
+    kernels.refuse_grad("integr_continuity", hFacW=grid.hFacW,
+                        hFacS=grid.hFacS, maskC=grid.maskC, dyG=grid.dyG,
+                        dxG=grid.dxG, recip_rA=grid.recip_rA, drF=grid.drF)
+    return kernels.KernelVJP.apply(
         lambda *ts: _continuity_kernel(cfg, grid, *ts),
-        lambda *ts: _continuity_plain(cfg, grid, *ts), u, v, EmPmR)
+        lambda need, *bars: _continuity_adj_kernel(cfg, grid, need, *bars),
+        u, v, EmPmR)
 
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,

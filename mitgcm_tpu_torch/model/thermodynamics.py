@@ -161,6 +161,58 @@ def _tracer_step_kernel(cfg: Config, grid: Grid, myIter: int, use_ab: bool,
     return outs
 
 
+def tracer_step_vjp_plain(cfg: Config, grid: Grid, myIter: int,
+                          use_ab: bool, tr_bar, g_bar=None):
+    """Kernel G''s tracer_step_adj's plain version, in its operation order:
+    the cotangents of (gTr, tracer, gNm1, gNm2, sfc_forc) from those of
+    tracer' and, with AB, of the raw tendency g (the next gNm1); gNm1's is
+    None without AB, gNm2's without AB-3 (they are not read)."""
+    from mitgcm_tpu_torch.model.step import ab_params
+
+    order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter, use_ab)
+    c = tr_bar * cfg.deltaTTracer
+    nm1 = nm2 = None
+    if order == 0:
+        g = c
+    elif order == 2:
+        t = c * abFac
+        g, nm1 = (g_bar + c) + t, -t
+    else:
+        g, nm1, nm2 = (g_bar + c) + c * ab0, c * ab1, c * ab2
+    ks = cfg.ksurf0
+    sfc_bar = (g[ks] * grid.recip_hFacC[ks]) * grid.recip_drF[ks]
+    return g, tr_bar, nm1, nm2, sfc_bar
+
+
+def _tracer_step_adj_kernel(cfg: Config, grid: Grid, myIter: int,
+                            use_ab: bool, need, tr_bar, g_bar=None):
+    """Kernel G''s tracer_step_adj on the card (step_glue_adj.cu): the
+    cotangents of (gTr, tracer, gNm1, gNm2, sfc_forc) that `need` asks for
+    (tracer's is tracer''s own cotangent), fresh."""
+    from mitgcm_tpu_torch.model.step import ab_params
+
+    order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter, use_ab)
+    reads = (True, True, order != 0, order == 3)
+    outs = [tr_bar.new_empty(tr_bar.shape) if n and r else None
+            for n, r in zip((need[0], need[2], need[3]), reads[:1] + reads[2:])]
+    sfc = tr_bar.new_empty(tr_bar.shape[1:]) if need[4] else None
+    ksurf = grid.recip_hFacC[cfg.ksurf0]
+    dtype = tr_bar.dtype
+    kernels.check_fields(dtype, tr_bar.shape, tr_bar=tr_bar, **(
+        {"g_bar": g_bar} if order else {}), **{
+            n: t for n, t in zip(("gTr_bar", "gNm1_bar", "gNm2_bar"), outs)
+            if t is not None})
+    kernels.check_fields(dtype, tr_bar.shape[1:], recip_hFacC_ks=ksurf,
+                         **({} if sfc is None else {"sfc_bar": sfc}))
+    kernels.check_fields(dtype, (cfg.nr,), recip_drF=grid.recip_drF)
+    table = [tr_bar, g_bar if order else None, ksurf, grid.recip_drF, *outs,
+             sfc]
+    kernels.launch("tracer_step_adj", dtype, kernels.pointer_table(table),
+                   len(table), *tr_bar.shape, cfg.ksurf0, order, abFac, ab0,
+                   ab1, ab2, cfg.deltaTTracer)
+    return outs[0], tr_bar, outs[1], outs[2], sfc
+
+
 def tracer_step(cfg: Config, grid: Grid, gTr, tracer, gNm1, gNm2, sfc_forc,
                 myIter: int, use_ab: bool, impl: str = None):
     """The tracer's explicit step (temp_integrate.F, timestep_tracer.F):
@@ -170,9 +222,13 @@ def tracer_step(cfg: Config, grid: Grid, gTr, tracer, gNm1, gNm2, sfc_forc,
     tracer + deltaTTracer * gTr_ab. Kernel G's tracer_step on CUDA
     tensors, its twin on CPU tensors or with impl="plain"."""
     if kernels.use_kernel(tracer, impl):
-        outs = kernels.TwinVJP.apply(
+        kernels.refuse_grad("tracer_step",
+                            recip_hFacC=grid.recip_hFacC,
+                            recip_drF=grid.recip_drF)
+        outs = kernels.KernelVJP.apply(
             lambda *ts: _tracer_step_kernel(cfg, grid, myIter, use_ab, *ts),
-            lambda *ts: _tracer_step_plain(cfg, grid, myIter, use_ab, *ts),
+            lambda need, *bars: _tracer_step_adj_kernel(
+                cfg, grid, myIter, use_ab, need, *bars),
             gTr, tracer, gNm1, gNm2, sfc_forc)
     else:
         global plain_calls

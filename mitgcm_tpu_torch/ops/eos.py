@@ -7,11 +7,13 @@ Wright & Feistel 2003, a rational function).
 tensors and the plain PyTorch twin `_find_rho_plain` for CPU tensors or
 when impl="plain" is asked for; given maskC it returns rho * maskC from
 the same launch (the step's rhoInSitu). The LINEAR kind reads tRef and
-sRef from the grid (`ref_profiles`). Kernel R has no backward kernel: the
-LINEAR kind, which the gyre's adjoint differentiates, runs under
-kernels.TwinVJP (its gradient is the twin's); the nonlinear kinds refuse
-an input that requires grad (`refuse_grad`, for find_rho and
-model/thermodynamics.py:calc_sigmaR alike). `sigma_r_kernel`
+sRef from the grid (`ref_profiles`). find_rho's LINEAR kind, which the
+gyre's adjoint differentiates, has a backward kernel on the card, kernel
+R' (eos_linear_adj; its plain version `eos_linear_vjp_plain`);
+calc_sigmaR's LINEAR kind runs under kernels.TwinVJP (its gradient is the
+twin's); the nonlinear kinds refuse an input that requires grad
+(`refuse_grad`, for find_rho and model/thermodynamics.py:calc_sigmaR
+alike). `sigma_r_kernel`
 launches kernel R's eos_sigma_r, which model/thermodynamics.py:calc_sigmaR
 dispatches. POLY3, TEOS10, IDEALG and p-coordinates are refused.
 """
@@ -149,9 +151,9 @@ def ref_profiles(cfg: Config, grid: Grid, like: torch.Tensor):
 
 def refuse_grad(cfg: Config, fn: str, **tensors) -> None:
     """Raise for the nonlinear kinds if one of `tensors` (None allowed)
-    requires grad: kernel R has no backward kernel, and only the LINEAR
-    kind, which the gyre's adjoint differentiates, runs under
-    kernels.TwinVJP."""
+    requires grad: only the LINEAR kind, which the gyre's adjoint
+    differentiates, has a backward (kernel R' in find_rho, kernels.TwinVJP
+    in calc_sigmaR)."""
     if cfg.eosType.upper() == "LINEAR":
         return
     grads = [n for n, t in tensors.items()
@@ -398,7 +400,33 @@ def find_rho(cfg: Config, grid: Grid, theta: torch.Tensor,
         return _find_rho_plain(cfg, grid, theta, salt, totPhiHyd, mask)
     if cfg.eosType.upper() != "LINEAR":
         return _find_rho_kernel(cfg, grid, theta, salt, totPhiHyd, mask)[0]
-    return kernels.TwinVJP.apply(
-        lambda t, s, p, m: _find_rho_kernel(cfg, grid, t, s, p, m),
-        lambda t, s, p, m: (_find_rho_plain(cfg, grid, t, s, p, m),),
-        theta, salt, totPhiHyd, mask)[0]
+    # the LINEAR kind reads no totPhiHyd; its gradient is kernel R'
+    tref, sref = ref_profiles(cfg, grid, theta)
+    kernels.refuse_grad("find_rho", mask=mask, tRef=tref, sRef=sref)
+    return kernels.KernelVJP.apply(
+        lambda t, s: _find_rho_kernel(cfg, grid, t, s, None, mask),
+        lambda need, rho_bar: _eos_linear_adj_kernel(cfg, need, rho_bar,
+                                                     mask),
+        theta, salt)[0]
+
+
+def eos_linear_vjp_plain(cfg: Config, rho_bar, mask=None):
+    """Kernel R''s plain version, in its operation order: (theta_bar,
+    salt_bar) of the LINEAR kind, times mask when given."""
+    r = (rho_bar if mask is None else rho_bar * mask) * cfg.rhoNil
+    return (-r) * cfg.tAlpha, r * cfg.sBeta
+
+
+def _eos_linear_adj_kernel(cfg: Config, need, rho_bar, mask=None):
+    """Kernel R''s eos_linear_adj on the card (eos.cu): the cotangents of
+    (theta, salt) that `need` asks for, fresh."""
+    outs = [torch.empty_like(rho_bar) if n else None for n in need]
+    kernels.check_fields(rho_bar.dtype, rho_bar.shape, rho_bar=rho_bar, **{
+        n: t for n, t in (("maskC", mask), ("theta_bar", outs[0]),
+                          ("salt_bar", outs[1])) if t is not None})
+    nr = rho_bar.shape[0]
+    table = [rho_bar, mask, *outs]
+    kernels.launch("eos_linear_adj", rho_bar.dtype,
+                   kernels.pointer_table(table), len(table), nr,
+                   rho_bar.numel() // nr, cfg.rhoNil, cfg.tAlpha, cfg.sBeta)
+    return outs

@@ -8,7 +8,8 @@ trust interior +/- (OL-1) cells between halo fills.
 
 `cyclic_fill_halo`, the single-device halo exchange, runs kernel F
 (kernels/csrc/halo.cu) on CUDA tensors and its twin, the gather, on CPU
-tensors or with impl="plain".
+tensors or with impl="plain"; its backward is kernel F' (halo_fold,
+kernels/csrc/halo_adj.cu) after kernel F, the plain fold after the gather.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import torch.nn.functional as F
 
 from mitgcm_tpu_torch import kernels
 
-# calls of kernel F's twin (the gather), for the card's runs to show that
-# the main path never ran it
+# calls of kernel F's twin (the gather) and of its backward's (the fold),
+# for the card's runs to show that the main path never ran them
 plain_calls = 0
+plain_folds = 0
 
 
 def shift(a: torch.Tensor, dj: int = 0, di: int = 0) -> torch.Tensor:
@@ -88,23 +90,50 @@ def _halo_fill(a: torch.Tensor, oly: int, olx: int) -> torch.Tensor:
     return out
 
 
+def halo_fold_vjp_plain(g: torch.Tensor, oly: int, olx: int) -> torch.Tensor:
+    """Kernel F''s plain version: the fill's VJP, the padded cotangent g
+    folded onto the interior along x, then along y (_fold), the halo cells
+    0."""
+    inner = _fold(_fold(g, -1, olx), -2, oly)
+    return F.pad(inner, (olx, olx, oly, oly))
+
+
+def _halo_fold(g: torch.Tensor, oly: int, olx: int) -> torch.Tensor:
+    """Kernel F' (kernels/csrc/halo_adj.cu): halo_fold_vjp_plain's result
+    into a fresh tensor."""
+    g = g.contiguous()
+    out = torch.empty_like(g)
+    kernels.check_tensors(g.dtype, g=g, out=out)
+    ny = g.shape[-2] - 2 * oly
+    nx = g.shape[-1] - 2 * olx
+    planes = g.numel() // (g.shape[-2] * g.shape[-1])
+    kernels.launch("halo_fold", g.dtype, g.data_ptr(), out.data_ptr(),
+                   planes, ny, nx, oly, olx)
+    return out
+
+
 class _CyclicFill(torch.autograd.Function):
     """The fill as kernel F on the card (its twin, the gather, on the
     CPU); its backward folds the halo cotangents into the interior in a
-    fixed order (index_select's own backward is an index_add, whose
-    atomics on CUDA change the last bit from run to run). The input's halo
-    cells get a zero gradient: they are not read."""
+    fixed order, kernel F' after kernel F, the plain fold after the gather
+    (index_select's own backward is an index_add, whose atomics on CUDA
+    change the last bit from run to run). The input's halo cells get a
+    zero gradient: they are not read."""
 
     @staticmethod
     def forward(ctx, a, oly: int, olx: int, kernel: bool):
         ctx.ol = (oly, olx)
+        ctx.kernel = kernel
         return _halo_fill(a, oly, olx) if kernel else _gather(a, oly, olx)
 
     @staticmethod
     def backward(ctx, g):
         oly, olx = ctx.ol
-        inner = _fold(_fold(g, -1, olx), -2, oly)
-        return F.pad(inner, (olx, olx, oly, oly)), None, None, None
+        if ctx.kernel:
+            return _halo_fold(g, oly, olx), None, None, None
+        global plain_folds
+        plain_folds += 1
+        return halo_fold_vjp_plain(g, oly, olx), None, None, None
 
 
 def cyclic_fill_halo(a: torch.Tensor, oly: int, olx: int,

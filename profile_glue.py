@@ -75,8 +75,14 @@ diffKr and visctmp. No group named: all eleven. --config adjoint instead
 times the gradient of phase 6's box cost through 6 checkpointed steps of
 the N x N x 32 float32 gyre (3 runs, ms/step), prints its cost and a
 sha256 digest of the gradient's bytes (so that two trees' values can be
-compared) and profiles one (device busy ms/step and idle share, as a
-step's). --ptxas instead compiles the
+compared), its peak device memory, 3 forward-only runs beside it and
+the ratio of the medians, and profiles one (device busy ms/step and idle
+share, as a step's); with --glue-sources also a second profiled gradient
+whose plain glue is split by source, the backward of each
+torch.autograd.Function of the port (kernels.TwinVJP by the twin it
+re-runs, the halo fill's fold) named apart from the checkpoints'
+recomputation of the forward step, the forward's own glue and autograd's
+backward of PyTorch's ops. --ptxas instead compiles the
 tree's PTXAS_SOURCES with the port's nvcc flags and prints ptxas's
 registers and spills of each of their kernels (float and double). Exits
 nonzero without CUDA.
@@ -526,12 +532,13 @@ def adjoint_times(smoke, rows):
     del case
 
 
-def adjoint_config(smoke, n):
+def adjoint_config(smoke, n, glue=False):
     """--config adjoint: the gradient of phase 6's box cost through
     ADJ_STEPS checkpointed steps of the n x n x 32 float32 gyre: the cost
     and a sha256 digest of the gradient's bytes (two trees' values
-    compared), ms/step of 3 runs (after one to warm up) and a profile of
-    one."""
+    compared), its peak device memory, ms/step of 3 runs (after one to
+    warm up) beside 3 forward-only runs and their ratio, and a profile of
+    one; with glue, glue_sources' split of a second profiled gradient."""
     import numpy as np
     import torch
     from mitgcm_tpu_torch.ad.adjoint import adjoint_gradient
@@ -544,20 +551,39 @@ def adjoint_config(smoke, n):
     def run():
         return adjoint_gradient(J[None], xx)
 
+    def timed(fn):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3 / ADJ_STEPS)
+        return walls
+
+    with torch.no_grad():
+        J[None](xx)
+        fwd = timed(lambda: J[None](xx))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     cost, grad = run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     digest = hashlib.sha256(grad.cpu().numpy().tobytes()).hexdigest()
     print(f"gradient: cost {float(cost)!r}, max |grad| "
-          f"{float(grad.abs().max())!r}, sha256 {digest}", flush=True)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3 / ADJ_STEPS)
-    wall = float(np.median(walls))
+          f"{float(grad.abs().max())!r}, sha256 {digest}; peak device "
+          f"memory {peak:.3f} GiB", flush=True)
+    walls = timed(run)
+    wall, fwd_ms = float(np.median(walls)), float(np.median(fwd))
+    print(f"value_and_grad {wall:.2f} ms/step (runs "
+          f"{', '.join(f'{x:.2f}' for x in walls)}); forward only "
+          f"{fwd_ms:.2f} (runs {', '.join(f'{x:.2f}' for x in fwd)}); "
+          f"ratio {wall / fwd_ms:.2f}", flush=True)
     stats = smoke.profile_run(run, ADJ_STEPS, wall)
+    if glue:
+        stats["glue_sources"] = glue_sources(run, ADJ_STEPS)
     return {"ms_per_step": wall, "runs_ms_per_step": walls,
+            "forward_ms_per_step": fwd_ms, "forward_runs_ms_per_step": fwd,
+            "ratio": wall / fwd_ms, "peak_gib": peak,
             "cost": float(cost), "grad_sha256": digest, **stats}
 
 
@@ -696,6 +722,51 @@ def annotate_port():
     return labels
 
 
+def annotate_backward():
+    """Wrap the backward of every torch.autograd.Function of the port (the
+    kernels package's too) in a torch.profiler.record_function named
+    "backward:<class>", kernels.TwinVJP's "backward:TwinVJP(<twin>)" after
+    the plain twin it re-runs (the name ending in _plain that its closure
+    calls), so that autograd's launches can be split by the row or the
+    fold that issued them; returns the names' prefix."""
+    import functools
+    import inspect
+
+    import torch
+
+    # kernels.twin_name's rule, kept here for the trees that predate it
+    # (--root)
+    def twin_name(ctx):
+        twin = getattr(ctx, "twin", None)
+        code = getattr(twin, "__code__", None)
+        names = [n for n in (code.co_names if code else ())
+                 if n.endswith("_plain")]
+        return names[0] if names else getattr(twin, "__qualname__", "?")
+
+    def wrap(cls, fn):
+        @functools.wraps(fn)
+        def wrapped(ctx, *grads):
+            label = f"backward:{cls.__name__}"
+            if cls.__name__ == "TwinVJP":
+                label += f"({twin_name(ctx)})"
+            with torch.profiler.record_function(label):
+                return fn(ctx, *grads)
+        return wrapped
+
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith("mitgcm_tpu_torch"):
+            continue
+        for obj in list(vars(mod).values()):
+            if (inspect.isclass(obj) and obj.__module__ == name
+                    and issubclass(obj, torch.autograd.Function)
+                    and "backward" in vars(obj)
+                    and not getattr(obj.backward, "_annotated", False)):
+                fn = wrap(obj, vars(obj)["backward"].__func__)
+                fn._annotated = True
+                obj.backward = staticmethod(fn)
+    return "backward:"
+
+
 def port_frames(evt, labels, n=2):
     """The n innermost functions of the port (annotate_port's labels)
     among a profiled op's ancestors, innermost first."""
@@ -707,28 +778,61 @@ def port_frames(evt, labels, n=2):
     return frames
 
 
+def glue_source(evt, labels, backward, main=None):
+    """The source of a profiled op for glue_sources: the backward of a
+    Function of the port that ran it ("backward:..."), unless a
+    checkpoint's recomputation of the forward step ran it inside that
+    backward ("recomputation: <frames>", also where autograd's engine, on
+    a thread other than `main`'s, runs the port's functions); else the two
+    innermost functions of the port above it; else autograd's own backward
+    of PyTorch's ops."""
+    frames, e = [], evt
+    while e is not None:
+        if e.name in labels or e.name.startswith(backward):
+            frames.append(e.name)
+        e = e.cpu_parent
+    inner = [f for f in frames if not f.startswith(backward)][:2]
+    bw = next((i for i, f in enumerate(frames) if f.startswith(backward)),
+              None)
+    if bw is None:
+        if inner and main is not None and evt.thread != main:
+            return "recomputation: " + " < ".join(inner)
+        return (" < ".join(inner)
+                or "(no function of the port: autograd's backward)")
+    if "model.step.forward_step" in frames[:bw]:
+        return "recomputation: " + " < ".join(inner)
+    return frames[bw]
+
+
 def glue_sources(run, steps):
     """--glue-sources: {source: {"ms", "launches"}} a step of the plain glue
     of run() (which takes `steps` steps), by the two innermost functions of
     the port (annotate_port) above the PyTorch op that launched each
-    kernel or copy, largest first; printed too."""
+    kernel or copy, or the backward of the Function of the port that
+    launched it (annotate_backward; glue_source), largest first; printed
+    too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     labels = annotate_port()
+    backward = annotate_backward()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    # the thread that runs the steps: the forward's (autograd's engine
+    # runs a CUDA backward on a thread of its own)
+    main = next((e.thread for e in prof.events()
+                 if e.name in ("model.experiment.Experiment.run",
+                               "ad.adjoint.run_steps")), None)
     groups = {}
     for evt in prof.events():
         glue = [k for k in evt.kernels if "mitgcm::" not in k.name]
         if not glue:
             continue
-        key = (" < ".join(port_frames(evt, labels))
-               or "(no function of the port: autograd's backward)")
-        group = groups.setdefault(key, {"ms": 0.0, "launches": 0.0})
+        group = groups.setdefault(glue_source(evt, labels, backward, main),
+                                  {"ms": 0.0, "launches": 0.0})
         group["ms"] += sum(k.duration for k in glue) / 1e3 / steps
         group["launches"] += len(glue) / steps
     groups = dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))
@@ -783,7 +887,8 @@ def main():
     if args.config == "adjoint":
         print(json.dumps({"root": args.root, "config": args.config,
                           "n": args.n, "card": smi,
-                          **adjoint_config(smoke, args.n)}), flush=True)
+                          **adjoint_config(smoke, args.n,
+                                           args.glue_sources)}), flush=True)
         return
     kw = dict(nx=args.n, ny=args.n, nr=32, deltaT=600.0)
     if args.config == "box":

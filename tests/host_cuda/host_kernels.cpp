@@ -12,7 +12,13 @@
 // of gad_ppm_tile.cuh, launch_som_horiz and launch_som_r of som_tile.cuh,
 // launch_calc_gw of calc_gw_tile.cuh, launch_ggl90_col of ggl90_col.cuh,
 // launch_kappa_uv and launch_kappa_ts of mix_glue.cuh, launch_adv_flow of
-// adv_flow.cuh, launch_find_rho and launch_sigma_r of eos.cuh), for
+// adv_flow.cuh, launch_find_rho and launch_sigma_r of eos.cuh), and the
+// step glue's backward kernels F', D', E', G', L' and R' (launch_halo_fold
+// of halo_adj.cuh, launch_phihyd_adj of phihyd_adj.cuh,
+// launch_cg2d_rhs_adj and launch_continuity_adj of step_scans_adj.cuh,
+// launch_mom_ab_step_adj, launch_mom_correction_adj and
+// launch_tracer_step_adj of step_glue_adj.cuh, launch_adv_flow_adj of
+// adv_flow.cuh, launch_eos_linear_adj of eos.cuh), for
 // tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "adv_flow.cuh"
@@ -24,14 +30,18 @@
 #include "gad_os7mp_tile.cuh"
 #include "gad_ppm_tile.cuh"
 #include "ggl90_col.cuh"
+#include "halo_adj.cuh"
 #include "mix_glue.cuh"
 #include "mom_correction.cuh"
 #include "mom_fluxform_adj_tile.cuh"
 #include "mom_fluxform_tile.cuh"
 #include "mom_vecinv_tile.cuh"
+#include "phihyd_adj.cuh"
 #include "phihyd_tile.cuh"
 #include "seaice_evp_uv.cuh"
 #include "som_tile.cuh"
+#include "step_glue_adj.cuh"
+#include "step_scans_adj.cuh"
 
 using namespace mitgcm;
 
@@ -236,6 +246,60 @@ struct OnHost {
                              use_phi, OnHost{});                             \
   }
 
+// the backward kernels F', D', E', G', L' and R', with their entry points'
+// arguments but the stream
+#define HOST_ADJ_ENTRY_POINTS(T, SUF)                                        \
+  extern "C" int host_halo_fold_##SUF(const void* g, void* out, int planes, \
+                                      int ny, int nx, int oly, int olx) {    \
+    return launch_halo_fold<T>(g, out, planes, ny, nx, oly, olx, OnHost{});  \
+  }                                                                          \
+  extern "C" int host_phihyd_adj_##SUF(const void* const* t, int n, int nr, \
+                                       int nyp, int nxp, double gravity,     \
+                                       double recip_rhoConst) {              \
+    return launch_phihyd_adj<T>(t, n, nr, nyp, nxp, gravity, recip_rhoConst, \
+                                OnHost{});                                   \
+  }                                                                          \
+  extern "C" int host_cg2d_rhs_adj_##SUF(                                    \
+      const void* const* t, int n, int nr, int nyp, int nxp, int oly,        \
+      int olx, double implicDiv2Dflow, double deltaTMom, double freeSurfFac, \
+      double deltaTFreeSurf) {                                               \
+    return launch_cg2d_rhs_adj<T>(t, n, nr, nyp, nxp, oly, olx,              \
+                                  implicDiv2Dflow, deltaTMom, freeSurfFac,   \
+                                  deltaTFreeSurf, OnHost{});                 \
+  }                                                                          \
+  extern "C" int host_continuity_adj_##SUF(const void* const* t, int n,      \
+                                           int nr, int nyp, int nxp) {       \
+    return launch_continuity_adj<T>(t, n, nr, nyp, nxp, OnHost{});           \
+  }                                                                          \
+  extern "C" int host_mom_ab_step_adj_##SUF(                                 \
+      const void* const* t, int n, int nr, int nyp, int nxp, int ab,         \
+      double abFac, double ab0, double ab1, double ab2, double deltaTMom) {  \
+    return launch_mom_ab_step_adj<T>(t, n, nr, nyp, nxp, ab, abFac, ab0,     \
+                                     ab1, ab2, deltaTMom, OnHost{});         \
+  }                                                                          \
+  extern "C" int host_mom_correction_adj_##SUF(                              \
+      const void* const* t, int n, int nr, int nyp, int nxp,                 \
+      double dtPsFac) {                                                      \
+    return launch_mom_correction_adj<T>(t, n, nr, nyp, nxp, dtPsFac,         \
+                                        OnHost{});                           \
+  }                                                                          \
+  extern "C" int host_tracer_step_adj_##SUF(                                 \
+      const void* const* t, int n, int nr, int nyp, int nxp, int ks, int ab, \
+      double abFac, double ab0, double ab1, double ab2, double deltaT) {     \
+    return launch_tracer_step_adj<T>(t, n, nr, nyp, nxp, ks, ab, abFac, ab0, \
+                                     ab1, ab2, deltaT, OnHost{});            \
+  }                                                                          \
+  extern "C" int host_adv_flow_adj_##SUF(const void* const* t, int n,        \
+                                         int nr, int nyp, int nxp) {         \
+    return launch_adv_flow_adj<T>(t, n, nr, nyp, nxp, OnHost{});             \
+  }                                                                          \
+  extern "C" int host_eos_linear_adj_##SUF(const void* const* t, int n,      \
+                                           int nr, int plane, double rhoNil, \
+                                           double tAlpha, double sBeta) {    \
+    return launch_eos_linear_adj<T>(t, n, nr, plane, rhoNil, tAlpha, sBeta,  \
+                                    OnHost{});                               \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
 HOST_CG3D_ENTRY_POINTS(float, f32)
@@ -246,3 +310,5 @@ HOST_COLUMN_ENTRY_POINTS(float, f32)
 HOST_COLUMN_ENTRY_POINTS(double, f64)
 HOST_MIX_ENTRY_POINTS(float, f32)
 HOST_MIX_ENTRY_POINTS(double, f64)
+HOST_ADJ_ENTRY_POINTS(float, f32)
+HOST_ADJ_ENTRY_POINTS(double, f64)

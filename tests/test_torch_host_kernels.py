@@ -24,7 +24,11 @@ subcycle), each equal to the twin's, in every variant of its template
 flags, on the ice-gyre's walled grid at the same two sizes. W
 (calc_gw_tile.cuh) and G9's ggl90_col (ggl90_col.cuh) write every padded
 cell, each equal to the twin's, in every variant of their flags and at
-2-12 levels (ggl90_col also at 70, above the 64 levels it once took)."""
+2-12 levels (ggl90_col also at 70, above the 64 levels it once took).
+The step glue's backward kernels F', D', E', G', L' and R' write every
+padded cell, each equal to its plain VJP's, and the 16x16x4 gyre's
+gradient runs through all nine on the mock (their forward kernels
+replaced by their twins) against the plain path."""
 
 import ctypes
 import ctypes.util
@@ -33,6 +37,7 @@ import importlib.util
 import os
 import shutil
 import subprocess
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -2025,3 +2030,363 @@ def test_mix_footprint(lib, numpy_sqrt, case):
         footprint = (smoke.sigma_r_footprint if kernel == "sigma_r"
                      else smoke.find_rho_footprint)
     check_footprint(lib, built, footprint, {}, same_as=check_same_cells)
+
+
+# The step glue's backward kernels F', D', E', G', L' and R' (halo_adj.cuh,
+# phihyd_adj.cuh, step_scans_adj.cuh, step_glue_adj.cuh, adv_flow.cuh,
+# eos.cuh): every padded cell equal to the plain VJP's (ops/stencil.py:
+# halo_fold_vjp_plain, model/phihyd.py:phihyd_vjp_plain, model/step.py:
+# cg2d_rhs_vjp_plain, continuity_vjp_plain, mom_ab_step_vjp_plain,
+# mom_correction_vjp_plain, model/thermodynamics.py:tracer_step_vjp_plain,
+# model/gad.py:adv_flow_vjp_plain, ops/eos.py:eos_linear_vjp_plain) on
+# both SIZES grids with 5 levels, float64 and float32, outputs NaN before
+# the launch; AB-2 and AB-3 on the cold-start, second and a later step;
+# tracer_step with and without AB; F' also on a 2-D field and on halos
+# wider than the interior.
+ADJ_CASES = ("halo_fold", "halo_fold(2-D)", "phihyd_adj", "cg2d_rhs_adj",
+             "continuity_adj", "mom_correction_adj", "adv_flow_adj",
+             "eos_linear_adj", "eos_linear_adj(no mask)",
+             *[f"mom_ab_step_adj(AB-{o}, step {it})" for o in (2, 3)
+               for it in (0, 1, 2)],
+             *[f"tracer_step_adj(AB-{o}, step {it})" for o in (2, 3)
+               for it in (0, 1, 2)], "tracer_step_adj(no AB)")
+for _name, _args in {
+        "host_halo_fold": [_P, _P] + [_I] * 5,
+        "host_phihyd_adj": [_PP, _I] + [_I] * 3 + [_D] * 2,
+        "host_cg2d_rhs_adj": [_PP, _I] + [_I] * 5 + [_D] * 4,
+        "host_continuity_adj": [_PP, _I] + [_I] * 3,
+        "host_mom_ab_step_adj": [_PP, _I] + [_I] * 4 + [_D] * 5,
+        "host_mom_correction_adj": [_PP, _I] + [_I] * 3 + [_D],
+        "host_tracer_step_adj": [_PP, _I] + [_I] * 5 + [_D] * 5,
+        "host_adv_flow_adj": [_PP, _I] + [_I] * 3,
+        "host_eos_linear_adj": [_PP, _I] + [_I] * 2 + [_D] * 3}.items():
+    SIGNATURES[_name] = _args
+
+
+def adj_fields(dtype, seed, ny, nx, nr=MIX_NR):
+    """mix_fields with Bo_surf."""
+    f = mix_fields(dtype, seed, ny, nx, nr)
+    f.grid.Bo_surf = f.uniform(f.s3[1:], 5.0, 15.0)
+    return f
+
+
+def adj_cfg(f, ab3=False):
+    """The gyre's configuration of f's size, AB-3 with ab3."""
+    nr, nyp, nxp = f.s3
+    kw = {"alph_AB": 0.5, "beta_AB": 5.0 / 12.0} if ab3 else {}
+    cfg = synthetic.gyre_config(nx=nxp - 2 * OL, ny=nyp - 2 * OL, nr=nr,
+                                **kw)
+    assert cfg.useAB3 == ab3
+    return cfg
+
+
+def adj_case(f, name):
+    """(want, run) of a backward kernel on f's grid: the plain VJP's
+    outputs (None where the launch writes nothing) and run(lib), the
+    launch's, each output NaN before it."""
+    from mitgcm_tpu_torch.model import thermodynamics as th
+    from mitgcm_tpu_torch.ops import eos, stencil
+
+    g = f.grid
+    nr, nyp, nxp = f.s3
+    s2 = f.s3[1:]
+    suf = SUFFIX[f.dtype]
+    order = 3 if "AB-3" in name else 2
+    it = int(name[-2]) if "step " in name else 1
+    cfg = adj_cfg(f, ab3=order == 3)
+
+    def nan(shape):
+        return torch.full(shape, float("nan"), dtype=f.dtype)
+
+    if name.startswith("halo_fold"):
+        g3 = f.normal(s2 if "2-D" in name else f.s3)
+        want = [stencil.halo_fold_vjp_plain(g3, OL, OL)]
+
+        def run(lib):
+            out = nan(g3.shape)
+            assert getattr(lib, f"host_halo_fold_{suf}")(
+                g3.data_ptr(), out.data_ptr(), g3.numel() // (nyp * nxp),
+                nyp - 2 * OL, nxp - 2 * OL, OL, OL) == 0
+            return [out]
+        return want, run
+    if name == "phihyd_adj":
+        bars = [f.normal(f.s3) for _ in range(3)]
+        want = [phihyd.phihyd_vjp_plain(cfg, g, *bars)]
+
+        def run(lib):
+            out = nan(f.s3)
+            tab = table(bars + [g.drC, g.rF, g.rC, g.recip_dxC, g.recip_dyC,
+                                out])
+            assert getattr(lib, f"host_phihyd_adj_{suf}")(
+                tab, len(tab), nr, nyp, nxp, cfg.gravity,
+                1.0 / cfg.rhoConst) == 0
+            return [out]
+        return want, run
+    if name == "cg2d_rhs_adj":
+        b_bar = f.normal(s2)
+        want = list(step.cg2d_rhs_vjp_plain(cfg, g, b_bar))
+
+        def run(lib):
+            outs = [nan(f.s3), nan(f.s3), nan(s2)]
+            tab = table([b_bar, g.hFacW, g.hFacS, g.dyG, g.dxG, g.rA, g.drF]
+                        + outs)
+            assert getattr(lib, f"host_cg2d_rhs_adj_{suf}")(
+                tab, len(tab), nr, nyp, nxp, OL, OL, cfg.implicDiv2Dflow,
+                cfg.deltaTMom, cfg.freeSurfFac, cfg.deltaTFreeSurf) == 0
+            return outs
+        return want, run
+    if name == "continuity_adj":
+        w_bar, pm_bar = f.normal(f.s3), f.normal(s2)
+        want = list(step.continuity_vjp_plain(cfg, g, w_bar, pm_bar))
+
+        def run(lib):
+            outs = [nan(f.s3), nan(f.s3), nan(s2)]
+            tab = table([w_bar, g.maskC, g.hFacW, g.hFacS, g.dyG, g.dxG,
+                         g.recip_rA, g.drF, pm_bar] + outs)
+            assert getattr(lib, f"host_continuity_adj_{suf}")(
+                tab, len(tab), nr, nyp, nxp) == 0
+            return outs
+        return want, run
+    if name.startswith("mom_ab_step_adj"):
+        bars = [f.normal(f.s3) for _ in range(4)]   # gu, uStar, gv, vStar
+        want = list(step.mom_ab_step_vjp_plain(cfg, g, it, *bars))
+        ab = step.ab_params(cfg, it)
+
+        def run(lib):
+            outs = [None if w is None else nan(f.s3) for w in want]
+            tab = table([bars[1], bars[0], bars[3], bars[2], g.maskW,
+                         g.maskS] + outs)
+            assert getattr(lib, f"host_mom_ab_step_adj_{suf}")(
+                tab, len(tab), nr, nyp, nxp, *ab, cfg.deltaTMom) == 0
+            return outs
+        return want, run
+    if name == "mom_correction_adj":
+        u_bar, v_bar = f.normal(f.s3), f.normal(f.s3)
+        want = list(step.mom_correction_vjp_plain(cfg, g, u_bar, v_bar))
+
+        def run(lib):
+            outs = [nan(s2), nan(f.s3), nan(f.s3)]
+            tab = table([u_bar, v_bar, g.maskW, g.maskS, g.Bo_surf,
+                         g.recip_dxC, g.recip_dyC, outs[1], outs[2],
+                         outs[0]])
+            assert getattr(lib, f"host_mom_correction_adj_{suf}")(
+                tab, len(tab), nr, nyp, nxp,
+                cfg.deltaTMom * cfg.implicSurfPress) == 0
+            return outs
+        return want, run
+    if name.startswith("tracer_step_adj"):
+        use_ab = "no AB" not in name
+        tr_bar = f.normal(f.s3)
+        g_bar = f.normal(f.s3) if use_ab else None
+        gTr, _, nm1, nm2, sfc = th.tracer_step_vjp_plain(
+            cfg, g, it, use_ab, tr_bar, g_bar)
+        want = [gTr, nm1, nm2, sfc]
+        ab = step.ab_params(cfg, it, use_ab)
+
+        def run(lib):
+            outs = [None if w is None else nan(w.shape) for w in want]
+            tab = table([tr_bar, g_bar, g.recip_hFacC[cfg.ksurf0],
+                         g.recip_drF] + outs)
+            assert getattr(lib, f"host_tracer_step_adj_{suf}")(
+                tab, len(tab), nr, nyp, nxp, cfg.ksurf0, *ab,
+                cfg.deltaTTracer) == 0
+            return outs
+        return want, run
+    if name == "adv_flow_adj":
+        bars = [f.normal(f.s3) for _ in range(4)]
+        bars[2][0, 2, 5] = float("nan")    # reaches only maskUp's 0
+        want = list(gad.adv_flow_vjp_plain(g, *bars))
+
+        def run(lib):
+            outs = [nan(f.s3) for _ in range(3)]
+            tab = table(bars + [g.hFacW, g.hFacS, g.maskC, g.dyG, g.dxG,
+                                g.rA, g.drF] + outs)
+            assert getattr(lib, f"host_adv_flow_adj_{suf}")(
+                tab, len(tab), nr, nyp, nxp) == 0
+            return outs
+        return want, run
+    assert name.startswith("eos_linear_adj")
+    mask = None if "no mask" in name else g.maskC
+    rho_bar = f.normal(f.s3)
+    want = list(eos.eos_linear_vjp_plain(cfg, rho_bar, mask))
+
+    def run(lib):
+        outs = [nan(f.s3), nan(f.s3)]
+        tab = table([rho_bar, mask] + outs)
+        assert getattr(lib, f"host_eos_linear_adj_{suf}")(
+            tab, len(tab), nr, nyp * nxp, cfg.rhoNil, cfg.tAlpha,
+            cfg.sBeta) == 0
+        return outs
+    return want, run
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ADJ_CASES)
+def test_glue_adj(lib, ny, nx, dtype, name):
+    f = adj_fields(DTYPES[dtype], 940 + nx + ADJ_CASES.index(name), ny, nx)
+    want, run = adj_case(f, name)
+    for k, (got, wanted) in enumerate(zip(run(lib), want)):
+        if wanted is None:
+            assert got is None
+        else:
+            check_same_cells(got, wanted, f"{name} output {k}")
+
+
+@pytest.mark.parametrize("ny,nx,ol", [(3, 5, 4), (2, 6, 3), (4, 4, 4)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_halo_fold_wide_halo(lib, ny, nx, ol, dtype):
+    """F' on halos as wide as or wider than the interior, 3 planes: the
+    fold's blocks span the halo more than once."""
+    from mitgcm_tpu_torch.ops import stencil
+
+    f = Fields(DTYPES[dtype], 990 + ny, ny, nx, 3, ol)
+    g3 = f.normal(f.s3)
+    out = torch.full(f.s3, float("nan"), dtype=f.dtype)
+    assert getattr(lib, f"host_halo_fold_{dtype}")(
+        g3.data_ptr(), out.data_ptr(), 3, ny, nx, ol, ol) == 0
+    check_same_cells(out, stencil.halo_fold_vjp_plain(g3, ol, ol),
+                     "halo_fold")
+
+
+def test_glue_adj_launch_refuses(lib):
+    """Tables of the wrong length, missing inputs, an AB order of 1 or an
+    AB-2 gNm2 output, a ksurf0 outside the levels, gNm1 without AB, no
+    planes (cudaErrorInvalidValue, 1)."""
+    f = adj_fields(torch.float64, 995, *SIZES[0])
+    g = f.grid
+    nr, nyp, nxp = f.s3
+    x3 = torch.zeros(f.s3, dtype=torch.float64)
+    x2 = torch.zeros(f.s3[1:], dtype=torch.float64)
+    assert lib.host_halo_fold_f64(x3.data_ptr(), x3.data_ptr(), 0,
+                                  nyp - 4, nxp - 4, OL, OL) == 1
+    assert lib.host_halo_fold_f64(None, x3.data_ptr(), nr, nyp - 4,
+                                  nxp - 4, OL, OL) == 1
+    tab = table([x3] * 3 + [g.drC, g.rF, g.rC, g.recip_dxC, g.recip_dyC,
+                            x3])
+    assert lib.host_phihyd_adj_f64(tab, 8, nr, nyp, nxp, 9.81, 1e-3) == 1
+    tab = table([x3] * 3 + [g.drC, None, g.rC, g.recip_dxC, g.recip_dyC,
+                            x3])
+    assert lib.host_phihyd_adj_f64(tab, 9, nr, nyp, nxp, 9.81, 1e-3) == 1
+    tab = table([x2, g.hFacW, g.hFacS, g.dyG, g.dxG, g.rA, g.drF, x3, x3,
+                 x2])
+    assert lib.host_cg2d_rhs_adj_f64(tab, 9, nr, nyp, nxp, OL, OL, 1.0, 1.0,
+                                     1.0, 1.0) == 1
+    assert lib.host_cg2d_rhs_adj_f64(tab, 10, nr, nyp, nxp, OL, OL, 1.0,
+                                     1.0, 1.0, 1.0) == 0
+    tab = table([x3, g.maskC, g.hFacW, g.hFacS, g.dyG, g.dxG, g.recip_rA,
+                 g.drF, None, x3, x3, x2])
+    assert lib.host_continuity_adj_f64(tab, 12, nr, nyp, nxp) == 1
+    tab = table([x3] * 4 + [g.maskW, g.maskS] + [x3] * 8)
+    assert lib.host_mom_ab_step_adj_f64(tab, 14, nr, nyp, nxp, 1, 0.6, 0.0,
+                                        0.0, 0.0, 1.0) == 1
+    # AB-2 reads no gNm2: its cotangents are refused
+    assert lib.host_mom_ab_step_adj_f64(tab, 14, nr, nyp, nxp, 2, 0.6, 0.0,
+                                        0.0, 0.0, 1.0) == 1
+    assert lib.host_mom_ab_step_adj_f64(tab, 14, nr, nyp, nxp, 3, 0.0, 1.0,
+                                        1.0, 1.0, 1.0) == 0
+    tab = table([x3, x3, g.maskW, g.maskS, None, g.recip_dxC, g.recip_dyC,
+                 x3, x3, x2])
+    assert lib.host_mom_correction_adj_f64(tab, 10, nr, nyp, nxp, 1.0) == 1
+    tab = table([x3, x3, x2, g.recip_drF, x3, x3, None, x2])
+    assert lib.host_tracer_step_adj_f64(tab, 8, nr, nyp, nxp, nr, 2, 0.6,
+                                        0.0, 0.0, 0.0, 1.0) == 1
+    assert lib.host_tracer_step_adj_f64(tab, 8, nr, nyp, nxp, 0, 0, 0.0,
+                                        0.0, 0.0, 0.0, 1.0) == 1
+    assert lib.host_tracer_step_adj_f64(tab, 8, nr, nyp, nxp, 0, 2, 0.6,
+                                        0.0, 0.0, 0.0, 1.0) == 0
+    tab = table([x3, x3, None, x3, g.hFacW, g.hFacS, g.maskC, g.dyG, g.dxG,
+                 g.rA, g.drF, x3, x3, x3])
+    assert lib.host_adv_flow_adj_f64(tab, 14, nr, nyp, nxp) == 1
+    assert lib.host_eos_linear_adj_f64(table([None, None, x3, x3]), 4, nr,
+                                       nyp * nxp, 1.0, 1.0, 1.0) == 1
+
+
+# the wrappers whose kernel path the gradient test below takes on the CPU
+GLUE_WRAPPERS = ("calc_phi_hyd", "mom_ab_step", "cg2d_rhs",
+                 "momentum_correction_step", "integr_continuity",
+                 "tracer_step", "calc_adv_flow", "find_rho",
+                 "cyclic_fill_halo")
+# the backward launches of the 6-step gradient (2 checkpointed chunks of 3):
+# the tracer's step once a step; the rest once a step but the last, whose
+# flow, pressure and free surface reach no later theta; F' once a fill
+# whose result reaches the cost; chip_smoke.py:ADJ_LAUNCHES holds the
+# card's run of the same gradient to them
+ADJ_GLUE_LAUNCHES = {"halo_fold": 35, "tracer_step_adj": 6,
+                     **{k: 5 for k in ("phihyd_adj", "cg2d_rhs_adj",
+                                       "continuity_adj", "mom_ab_step_adj",
+                                       "mom_correction_adj", "adv_flow_adj",
+                                       "eos_linear_adj")}}
+
+
+def test_gyre_gradient_through_glue_adj(lib, monkeypatch):
+    """The 16x16x4 gyre's 6-step gradient on the CPU with the step glue's
+    wrappers on their kernel path (kernels.KernelVJP; the fill's backward
+    kernel F'): their forward kernels replaced by their twins, their
+    backward kernels run on the mock. The gradient agrees with the plain
+    path's to 13 digits or more in float64 (the backward kernels add in
+    other orders than autograd through the twins), no kernels.TwinVJP
+    backward and no plain fold runs, and each backward kernel is
+    launched."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.ad import adjoint
+    from mitgcm_tpu_torch.model import thermodynamics as th
+    from mitgcm_tpu_torch.ops import eos, stencil
+    from mitgcm_tpu_torch.utils.compare import digits
+
+    use_kernel = kernels.use_kernel
+
+    def host_use_kernel(t, impl):
+        if sys._getframe(1).f_code.co_name in GLUE_WRAPPERS:
+            return impl != "plain"
+        return use_kernel(t, impl)
+
+    def host_launch(kernel, dtype, *args):
+        err = getattr(lib, f"host_{kernel}_{SUFFIX[dtype]}")(*args)
+        assert err == 0, f"{kernel}: error {err}"
+        kernels.launches[kernel] += 1
+
+    def check_tensors(dtype, **tensors):
+        for name, t in tensors.items():
+            assert t.dtype == dtype and t.is_contiguous(), name
+
+    monkeypatch.setattr(kernels, "use_kernel", host_use_kernel)
+    monkeypatch.setattr(kernels, "launch", host_launch)
+    monkeypatch.setattr(kernels, "check_tensors", check_tensors)
+    monkeypatch.setattr(phihyd, "_phi_hyd_kernel", phihyd._phi_hyd_plain)
+    monkeypatch.setattr(step, "_cg2d_rhs_kernel", step._cg2d_rhs_plain)
+    monkeypatch.setattr(step, "_continuity_kernel", step._continuity_plain)
+    monkeypatch.setattr(step, "_mom_ab_step_kernel", step._mom_ab_step_plain)
+    monkeypatch.setattr(step, "_mom_correction_kernel",
+                        step._mom_correction_plain)
+    monkeypatch.setattr(th, "_tracer_step_kernel", th._tracer_step_plain)
+    monkeypatch.setattr(gad, "_calc_adv_flow_kernel",
+                        gad._calc_adv_flow_plain)
+    monkeypatch.setattr(eos, "_find_rho_kernel", lambda *a: (
+        eos._find_rho_plain(*a),))
+    monkeypatch.setattr(stencil, "_halo_fill", stencil._gather)
+
+    cfg = synthetic.gyre_config(nx=16, ny=16, nr=4, n_steps=6)
+    grid, state, forcing, op = synthetic.gyre_setup(
+        cfg, dtype=torch.float64, device="cpu")
+    control = adjoint.Control(cfg, grid, field="theta")
+    cost = adjoint.cost_boxmean_tracer(cfg, grid, "theta", box=(8, 12, 8, 12),
+                                       k_range=(0, 2))
+    grads = {}
+    for impl in ("plain", None):
+        J = adjoint.make_objective(cfg, grid, op, forcing, state, control,
+                                   cost, 6, impl=impl)
+        kernels.launches.clear()
+        folds = stencil.plain_folds
+        grads[impl] = adjoint.adjoint_gradient(J, control.zero())
+        launches = dict(kernels.launches)
+    assert stencil.plain_folds == folds
+    assert not any(k.startswith("twin_vjp") for k in launches)
+    for name in ("halo_fold", "phihyd_adj", "cg2d_rhs_adj",
+                 "continuity_adj", "mom_ab_step_adj", "mom_correction_adj",
+                 "tracer_step_adj", "adv_flow_adj", "eos_linear_adj"):
+        assert launches.get(name, 0) == ADJ_GLUE_LAUNCHES.get(name, -1), name
+    (c0, g0), (c1, g1) = grads["plain"], grads[None]
+    assert float(c0) == float(c1)
+    dig = digits(g1.numpy(), g0.numpy())
+    assert dig >= 13.0, f"{dig:.2f} digits"
