@@ -215,6 +215,25 @@ exits nonzero without the final line:
                  others (viscAr alone and the background diffusivity are
                  torch.full fills), R's (find_rho and sigmaR) on its
                  path, and that no twin of theirs ran
+ 18. the last glue: kernels N1 (pre_cg3d, the box's cg3d right-hand
+                 side), N2 (cg3d_setup_scale and cg3d_setup_fill, the
+                 cg3d solve's set-up, normalised, not normalised and with
+                 a right-hand side of zeros), Q
+                 (surface_forcing: the gyres' fluxes, and every term with
+                 the relaxation under sea ice), S1 (seaice_dynforcing:
+                 the ice-gyre's and the evp-ice-gyre's flags) and S2
+                 (seaice_ocean_stress: the LSR's, the no-dynamics drag,
+                 HB87 with the clip) and the `+ gTr` addend of the last
+                 sweep of M, O, P and H-SOM against their twins on whole
+                 padded arrays, bit for bit, at 64x64x12 float64 and at
+                 full size float32 (the box's 1024x1024x50, the gyres'
+                 1024x1024x32), each with its launch's device time (20
+                 launches in a CUDA graph), its wrapper call's, its
+                 twin's and its bound; phases 5-16 assert Q's launch once
+                 a step on every path, N1's and N2's once a step (a
+                 solve) on the box, S1's and S2's once a step on the ice
+                 paths, and that no twin of theirs ran (E's surface term
+                 and G's 2-D forcing are held in phase 14)
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -227,10 +246,12 @@ H-IDEMIX and som-gyre for H-SOM, phase 12's box for W and H-cg3d, phase
 13's ice-gyre for the sea ice's, phase 15's evp-ice-gyre for EVP's and
 its free-drift run for seaice_freedrift, phase 16's gm-gyre for
 gm_tensor and C's GM branch and its gm-bolus-gyre for gm_psi_b and
-gm_residual_flow, phase 5's gyre for A, D-G and L, phase 9's ggl90-gyre
-for R's sigmaR), with the
-kernel's time (D-G's from phase 14 and J-uv's, J-ts's, L's and sigmaR's
-from phase 17: a launch's device time, 20 launches in a CUDA graph, with
+gm_residual_flow, phase 5's gyre for A, D-G, L and Q, phase 9's
+ggl90-gyre for R's sigmaR, phase 12's box for N1 and N2, phase 13's
+ice-gyre for S1 and S2), with the
+kernel's time (D-G's from phase 14, J-uv's, J-ts's, L's and sigmaR's
+from phase 17 and N1's, N2's, Q's, S1's and S2's from phase 18: a
+launch's device time, 20 launches in a CUDA graph, with
 the wrapper call's time beside it, and F.pad's beside F's;
 A's the launch of a whole solve, with its iterations and its time and
 bound an iteration), its plain twin's, and its
@@ -411,6 +432,21 @@ KERNELS = {
                      "mitgcm_tpu/model/gad.py:64"),
     "eos_linear_adj": ("mitgcm_tpu_torch/kernels/csrc/eos.cu",
                        "mitgcm_tpu/ops/eos.py:226"),
+    # the last glue: the box's cg3d right-hand side (N1) and solve set-up
+    # (N2), the surface forcing on every path (Q), the sea ice's
+    # set-up (S1) and ocean stress (S2)
+    "pre_cg3d": ("mitgcm_tpu_torch/kernels/csrc/pre_cg3d.cu",
+                 "mitgcm_tpu/model/step.py:448"),
+    "cg3d_setup_scale": ("mitgcm_tpu_torch/kernels/csrc/cg3d_setup.cu",
+                         "mitgcm_tpu/solver/cg3d.py:205"),
+    "cg3d_setup_fill": ("mitgcm_tpu_torch/kernels/csrc/cg3d_setup.cu",
+                        "mitgcm_tpu/solver/cg3d.py:208"),
+    "surface_forcing": ("mitgcm_tpu_torch/kernels/csrc/forcing.cu",
+                        "mitgcm_tpu/model/thermodynamics.py:76"),
+    "seaice_dynforcing": ("mitgcm_tpu_torch/kernels/csrc/seaice_glue.cu",
+                          "mitgcm_tpu/model/seaice.py:1991"),
+    "seaice_ocean_stress": ("mitgcm_tpu_torch/kernels/csrc/seaice_glue.cu",
+                            "mitgcm_tpu/model/seaice.py:1301"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
@@ -426,22 +462,27 @@ BACKWARD_KERNELS = ("mom_fluxform_adj", "gad_calc_rhs_c2_adj",
                     *GLUE_ADJ_KERNELS)
 GLUE_KERNELS = ("halo_fill", "phihyd", "cg2d_rhs", "continuity",
                 "mom_ab_step", "mom_correction", "tracer_step")
+# the box's and the sea ice's last glue: N1 and N2, S1 and S2
+NH_GLUE_KERNELS = ("pre_cg3d", "cg3d_setup_scale", "cg3d_setup_fill")
+SEAICE_GLUE_KERNELS = ("seaice_dynforcing", "seaice_ocean_stress")
 
 
 def glue_launches(tracers, fills, steps=5, mixing=False):
-    """The launches of A, D-G, J-uv, J-ts and L in `steps` steps of a path
-    that steps `tracers` tracers and makes `fills` halo fills a step (u*,
-    v*, the cg2d and cg3d results, u, v and the new state's fields, the sea
-    ice's): one cg2d solve a step, one launch and one host read each; the
-    flow once a step; the kappas once a step on a mixing path (KPP, GGL90,
-    GM) and never on another; R's sigmaR none (the GGL90 and GM paths add
-    theirs)."""
+    """The launches of A, D-G, J-uv, J-ts, L and Q in `steps` steps of a
+    path that steps `tracers` tracers and makes `fills` halo fills a step
+    (u*, v*, the cg2d and cg3d results, u, v and the new state's fields,
+    the sea ice's): one cg2d solve a step, one launch and one host read
+    each; the flow and the surface forcing once a step; the kappas once a
+    step on a mixing path (KPP, GGL90, GM) and never on another; R's
+    sigmaR none (the GGL90 and GM paths add theirs); N1, N2, S1 and S2
+    none (the box and the ice paths add theirs)."""
     return {"cg2d_solve": steps, CG2D_READS: steps, "phihyd": steps,
             "cg2d_rhs": steps, "continuity": steps,
             "mom_ab_step": steps, "mom_correction": steps,
             "tracer_step": tracers * steps, "halo_fill": fills * steps,
             "kappa_uv": steps * mixing, "kappa_ts": steps * mixing,
-            "adv_flow": steps, "eos_sigma_r": 0}
+            "adv_flow": steps, "eos_sigma_r": 0, "surface_forcing": steps,
+            **{k: 0 for k in NH_GLUE_KERNELS + SEAICE_GLUE_KERNELS}}
 
 
 # launches in phase 5's 5 timed full-size gyre steps (A's follow its
@@ -523,7 +564,7 @@ GM_LAUNCHES = {**KPP_LAUNCHES, "gad_calc_rhs_c2": 0, "gad_calc_rhs_c2_gm": 10,
 GM_BOLUS_LAUNCHES = {**GM_LAUNCHES, "gm_psi_b": 5, "gm_residual_flow": 5,
                      "halo_fill": 70}
 CG3D_KERNELS = ("cg3d_s_stencil_dot", "cg3d_xr_precond")
-NH_KERNELS = CG3D_KERNELS + ("calc_gw",)
+NH_KERNELS = CG3D_KERNELS + ("calc_gw",) + NH_GLUE_KERNELS
 ICE_KERNELS = ("seaice_lsr_visc", "seaice_lsr_coeffs", "seaice_lsr_tridiag_u",
                "seaice_lsr_tridiag_v", "seaice_lsr_check", "seaice_advect_x",
                "seaice_advect_y", "seaice_thermo")
@@ -541,11 +582,12 @@ EVP_VARIANTS = {
 # launches in phase 12's 5 timed full-size steps besides H-cg3d's (whose
 # count follows from each solve's batches, nh_full_phase): W and B once a
 # step, C for theta alone, R's LINEAR kind, no other kernel of the gyres,
-# and D-G with the fills of phi_nh and of the cg3d result
+# D-G with the fills of phi_nh and of the cg3d result, and N1 and N2's
+# three launches (a normalised solve) once a step
 NH_LAUNCHES = {"calc_gw": 5, "mom_fluxform": 5, "gad_calc_rhs_c2": 5,
                "mom_vecinv": 0, "impldiff": 0, "eos_find_rho": 5,
                "kpp_pre": 0, "ggl90_col": 0, "gad_multidim_x": 0,
-               **glue_launches(1, 14)}
+               **glue_launches(1, 14), **{k: 5 for k in NH_GLUE_KERNELS}}
 # the (scheme, vertical scheme) pairs whose sweeps phase 10 holds against
 # their twins: every scheme of O and P, and M's schemes 1 and 20 and
 # vertical 2, 3 and 4; the main paths' 7 and 51 (salt) last, so that the
@@ -657,7 +699,16 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 "halo_fold": 4, "phihyd_adj": 14, "cg2d_rhs_adj": 12,
                 "continuity_adj": 20, "mom_ab_step_adj": 10,
                 "mom_correction_adj": 16, "tracer_step_adj": 6,
-                "adv_flow_adj": 8, "eos_linear_adj": 4}
+                "adv_flow_adj": 8, "eos_linear_adj": 4,
+                # the last glue, per cell of their largest field: N1's two
+                # fluxes recomputed and w*'s term (~35 with two
+                # divisions), N2's products and the maximum, Q's terms
+                # (~20 a 2-D cell), S1's exp (~20) and ~40 products, S2's
+                # turned drag at the u and v points (~60; the no-dynamics
+                # drag adds three square roots)
+                "pre_cg3d": 35, "cg3d_setup_scale": 4, "cg3d_setup_fill": 3,
+                "surface_forcing": 20,
+                "seaice_dynforcing": 60, "seaice_ocean_stress": 60}
 # the outputs of kernels J-ts (those its variant writes) and L
 KAPPA_TS_OUTS = ("kapT", "kapS", "dfT", "dfS")
 ADV_FLOW_OUTS = ("uTrans", "vTrans", "rTrans", "rTransKp", "maskUp", "xA",
@@ -668,23 +719,6 @@ SCRATCH = ("gam", "cuu")
 IN_PLACE = {"cg3d_xr_precond": ("x", "r"), "seaice_lsr_tridiag_u": ("u",),
             "seaice_lsr_tridiag_v": ("u",),
             "seaice_lsr_check": ("uTmp", "vTmp")}
-# the plain glue that is not a row of the kernel table, and row H, still
-# to port: the distinct float32 fields each must move once per call at
-# 1024x1024x32 (3-D, 2-D), each input read once and each output written
-# once, for their bound
-GLUE_FIELDS = {
-    "seaice glue get_dynforcing (fu, fv, yC, SIMaskU/V in; taux, tauy out)":
-        (0, 7),
-    "seaice glue ocean_stress (uIce, vIce, uVel0, vVel0, dwatn, fCori, AREA,"
-    " fu, fv in; fu, fv out)": (0, 11),
-    "seaice glue ocean_stress_hb87 (AREA, windTauX/Y, stressDivX/Y, fu, fv "
-    "in; fu, fv out)": (0, 9),
-    "seaice glue clipVelocities (uIce, vIce in and out)": (0, 4),
-    "seaice glue no-dynamics oceandrag (uIce, vIce, uVel0, vVel0, maskInW/S,"
-    " yC, HEFFM in; dwatn out)": (0, 9),
-    "seaice glue EVP set-up (HEFFM, AREA, massU, massV in; sumNorm, areaW, "
-    "areaS, locMaskU/V out)": (0, 9),
-}
 # the prognostic fields of GGL90, IDEMIX and SOM that a gyre may carry
 PROGNOSTIC_EXTRA = ("GGL90TKE", "IDEMIX_E", "somT", "somS")
 PARITY_DIGITS = 10.0
@@ -851,16 +885,21 @@ def count_cg2d_reads():
 
 
 def glue_plain_calls():
-    """Calls so far of the twins of D-G, J-uv, J-ts, L and R and of the
-    fill's plain fold (ops/stencil.py, model/phihyd.py, model/step.py,
-    model/thermodynamics.py, model/gad.py's calc_adv_flow, ops/eos.py's
-    find_rho); a kernel-path run adds none."""
-    from mitgcm_tpu_torch.model import gad, phihyd, step, thermodynamics
+    """Calls so far of the twins of D-G, J-uv, J-ts, L, R, N1, N2, Q, S1
+    and S2 and of the fill's plain fold (ops/stencil.py, model/phihyd.py,
+    model/step.py, model/thermodynamics.py, model/gad.py's calc_adv_flow,
+    ops/eos.py's find_rho, solver/cg3d.py, model/seaice.py, the last two
+    with H-cg3d's and the sea ice's other twins); a kernel-path run adds
+    none."""
+    from mitgcm_tpu_torch.model import gad, phihyd, seaice, step
+    from mitgcm_tpu_torch.model import thermodynamics
     from mitgcm_tpu_torch.ops import eos, stencil
+    from mitgcm_tpu_torch.solver import cg3d
 
     return (stencil.plain_calls + stencil.plain_folds + phihyd.plain_calls
             + step.plain_calls + thermodynamics.plain_calls
-            + gad.flow_plain_calls + eos.plain_calls)
+            + gad.flow_plain_calls + eos.plain_calls + cg3d.plain_calls
+            + seaice.plain_calls)
 
 
 def check_launches(label, launches, want, plain=0):
@@ -1130,10 +1169,10 @@ MD_READS = {f"gad_multidim_{d}": O_READS[f"gad_os7mp_{d}"] for d in "xyr"}
 
 def md_footprint(name, named, args):
     """The inputs of M's sweep `name` as the views that its launch reads
-    (args: the launch's source and destination, nr, nyp, nxp, scheme,
-    ...): every padded cell of MD_READS[name]'s fields that its scheme
-    reads."""
-    nr, scheme = args[2], args[5]
+    (args: the launch's source, destination and addend, nr, nyp, nxp,
+    scheme, ...): every padded cell of MD_READS[name]'s fields that its
+    scheme reads."""
+    nr, scheme = args[3], args[6]
     drop, levels = set(), {}
     if name.endswith("_r"):
         levels = {"wVel": slice(1, None), "recip_drC": slice(1, nr)}
@@ -1148,16 +1187,24 @@ def md_footprint(name, named, args):
         if scheme == 1:
             drop |= {"uVel", "vVel", "recip_dxC", "recip_dyC"}
     return {n: footprint_view(named[n], 0, 0, None, levels.get(n))
-            for n in MD_READS[name] if n not in drop}
+            for n in MD_READS[name] + addend(named) if n not in drop}
+
+
+def addend(named):
+    """("add",) when the wrapper checks a field that the last sweep adds
+    to its output (the R sweep's `+ gTr`), else ()."""
+    return ("add",) if "add" in named else ()
 
 
 def ppm_footprint(name, named, args):
     """The inputs of P's sweep `name` as the views that its launch reads
-    (args: the launch's source and destination, nr, nyp, nxp, scheme, ...):
-    every padded cell of P_READS[name]'s fields (and PQM_READS[name]'s for
-    schemes 50-52), in R wVel at the interfaces 1 .. nr - 1."""
-    nr, scheme = args[2], args[5]
-    reads = P_READS[name] + (PQM_READS[name] if scheme >= 50 else ())
+    (args: the launch's source, destination and addend, nr, nyp, nxp,
+    scheme, ...): every padded cell of P_READS[name]'s fields (and
+    PQM_READS[name]'s for schemes 50-52), in R wVel at the interfaces
+    1 .. nr - 1."""
+    nr, scheme = args[3], args[6]
+    reads = (P_READS[name] + (PQM_READS[name] if scheme >= 50 else ())
+             + addend(named))
     levels = {"wVel": slice(1, None)} if name.endswith("_r") else {}
     return {n: footprint_view(named[n], 0, 0, None, levels.get(n))
             for n in reads}
@@ -1165,20 +1212,21 @@ def ppm_footprint(name, named, args):
 
 def os7mp_footprint(name, named, args):
     """The inputs of O's sweep `name` as the views that its launch reads
-    (args: the launch's source and destination, nr, ...): every padded
-    cell of O_READS[name]'s fields, in R wVel and recip_drC at the
+    (args: the launch's source, destination and addend, nr, ...): every
+    padded cell of O_READS[name]'s fields, in R wVel and recip_drC at the
     interfaces 1 .. nr - 1."""
-    nr = args[2]
+    nr = args[3]
     levels = ({"wVel": slice(1, None), "recip_drC": slice(1, nr)}
               if name.endswith("_r") else {})
     return {n: footprint_view(named[n], 0, 0, None, levels.get(n))
-            for n in O_READS[name]}
+            for n in O_READS[name] + addend(named)}
 
 
 def som_footprint(name, named, args):
     """The inputs of H-SOM's pass `name` as the views that its launch
-    reads: every padded cell of SOM_READS[name]'s fields."""
-    return {n: named[n] for n in SOM_READS[name][0]}
+    reads: every padded cell of SOM_READS[name]'s fields, and of the
+    field som_r adds to gTr when it adds one."""
+    return {n: named[n] for n in SOM_READS[name][0] + addend(named)}
 
 
 def gw_footprint(named, args):
@@ -1688,7 +1736,7 @@ def full_phase(kernels):
                if k not in BACKWARD_KERNELS + VI_KERNELS + KPP_KERNELS
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
-               + EVP_KERNELS + GM_KERNELS
+               + SEAICE_GLUE_KERNELS + EVP_KERNELS + GM_KERNELS
                + ("eos_sigma_r", "kappa_uv", "kappa_ts")
                and launches.get(k, 0) == 0]
     if missing:
@@ -2160,7 +2208,7 @@ class KppCase:
         tref = torch.tensor(cfg.tRef, **prof)[:, None, None]
         sref = torch.tensor(cfg.sRef, **prof)[:, None, None]
         forc = load_fields(forcing)
-        sfT, sfS = th.surface_forcing_ts(cfg, g, state, forc)
+        sf = th.surface_forcing(cfg, g, state, forc)
         self.args = (
             self.field(rng, shape, 0.1) * g.maskW,
             self.field(rng, shape, 0.1) * g.maskS,
@@ -2168,7 +2216,7 @@ class KppCase:
             (sref + self.field(rng, shape, 0.02)) * g.maskC,
             self.field(rng, shape, 2.0),
             forc.fu * cfg.mass2rUnit + self.field(rng, shape[1:], 1e-5),
-            self.field(rng, shape[1:], 1e-5), sfT, sfS, forc.Qsw)
+            self.field(rng, shape[1:], 1e-5), sf.sfT, sf.sfS, forc.Qsw)
         self.kappa = th.tracer_kappa(cfg, g, cfg.diffKrT)
         self.w = self.field(rng, shape, 1e-4) * g.maskC
         self.df = self.field(rng, shape, 1e-3) * g.maskC
@@ -2514,7 +2562,7 @@ def g9_kernel_phase(case, results, reps):
     for scheme in (30, 77, 33):
         args = (cfg, g, case.flow, case.u, case.v, case.w, case.tracer,
                 scheme, scheme, cfg.deltaTTracer)
-        for name, run, src, dst, _ in gad.multidim_sweeps(*args):
+        for name, run, src, dst in gad.multidim_sweeps(*args):
             twin = gad.MD_PLAIN[name]
 
             def plain(twin=twin, src=src):
@@ -2784,7 +2832,7 @@ def ho_kernel_phase(case, results, reps, plain_reps):
         sweeps = gad.multidim_sweeps(cfg, g, case.flow, case.u, case.v,
                                      case.w, case.tracer, scheme, vert,
                                      cfg.deltaTTracer)
-        for name, run, src, dst, _ in sweeps:
+        for name, run, src, dst in sweeps:
             sch = vert if name.endswith("_r") else scheme
             if (name, sch) in done:
                 continue
@@ -2947,7 +2995,7 @@ def ism_kernel_phase(case, results, reps, plain_reps):
             lambda: som._som_y_plain(cfg, g, case.v, *xk, scheme, dt),
             lambda: som._som_r_plain(cfg, g, case.w, case.tracer, *yk,
                                      scheme, dt))
-        for (name, run, outs, _), twin in zip(sweeps, twins):
+        for (name, run, outs), twin in zip(sweeps, twins):
             run()
             label = name if scheme == 81 else f"{name}({scheme})"
             # the bound counts what the pass reads (FOOTPRINTS), from a
@@ -3251,12 +3299,11 @@ def nh_full_phase(kernels, smi):
     torch.cuda.reset_peak_memory_stats()
     state1, recs_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = (calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls
-              + glue_plain_calls())
+    plain0 = calc_gw.plain_calls + gad.plain_calls + glue_plain_calls()
     state, recs, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = (calc_gw.plain_calls + cg3d.plain_calls + gad.plain_calls
-             + glue_plain_calls() - plain0)
+    plain = (calc_gw.plain_calls + gad.plain_calls + glue_plain_calls()
+             - plain0)
     it2 = [r["cg2d_iters"] for r in recs]
     it3 = [r["cg3d_iters"] for r in recs]
     syncs = [r["cg3d_host_syncs"] for r in recs]
@@ -3269,7 +3316,7 @@ def nh_full_phase(kernels, smi):
           f"cg3d residual {recs[-1]['cg3d_init_res']:.4e} -> "
           f"{recs[-1]['cg3d_last_res']:.4e}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain W, H-cg3d, C and D-G calls {plain}; launches "
+          f" GiB; plain W, H-cg3d, C, D-G, N1 and N2 calls {plain}; launches "
           f"{launches}",
           flush=True)
     for name in ("uVel", "vVel", "wVel", "theta", "etaN", "phi_nh"):
@@ -3632,12 +3679,10 @@ def ice_full_phase(kernels, smi):
     torch.cuda.reset_peak_memory_stats()
     state1, recs_w, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = (kpp_mod.plain_calls + seaice_mod.plain_calls
-              + glue_plain_calls())
+    plain0 = kpp_mod.plain_calls + glue_plain_calls()
     state, recs, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = (kpp_mod.plain_calls + seaice_mod.plain_calls
-             + glue_plain_calls() - plain0)
+    plain = kpp_mod.plain_calls + glue_plain_calls() - plain0
     icounts = [r["lsr_iters"] for r in recs]
     syncs = [r["lsr_host_syncs"] for r in recs]
     print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations "
@@ -3648,7 +3693,7 @@ def ice_full_phase(kernels, smi):
           f"{[r['cg2d_iters'] for r in recs]}, LSR ICOUNT1/2 per Picard "
           f"pass {icounts}, LSR host syncs per pass {syncs}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain KPP, sea-ice and D-G calls {plain}; launches "
+          f" GiB; plain KPP, sea-ice, D-G and Q calls {plain}; launches "
           f"{launches}",
           flush=True)
     for name in ("uVel", "vVel", "theta", "salt", "etaN") + ICE_STATE:
@@ -3669,6 +3714,7 @@ def ice_full_phase(kernels, smi):
             "seaice_lsr_tridiag_u": 2 * batches,
             "seaice_lsr_tridiag_v": 2 * batches, "seaice_lsr_check": batches,
             "seaice_advect_x": 5, "seaice_advect_y": 5, "seaice_thermo": 5,
+            **{k: 5 for k in SEAICE_GLUE_KERNELS},
             **{k: 0 for k in EVP_KERNELS},
             # the sea ice's fills: the ocean stress, the ice velocity after
             # the LSR, the four ice fields and the updated forcing
@@ -3702,7 +3748,7 @@ def ice_phase(kernels, results, smi):
     ice_restart_phase()
     run = ice_full_phase(kernels, smi)
     torch.cuda.empty_cache()
-    return {k: run[k] for k in ICE_KERNELS}
+    return {k: run[k] for k in ICE_KERNELS + SEAICE_GLUE_KERNELS}
 
 
 class EvpCase:
@@ -3750,6 +3796,7 @@ class EvpCase:
         self.uvNm1 = (si.fill(fld(-0.2, 0.2, mU)),
                       si.fill(fld(-0.2, 0.2, mV)))
 
+    field = Case.field
     label = Case.label
 
 
@@ -3765,6 +3812,7 @@ def evp_kernel_phase(case, results, reps, plain_reps):
     loop enqueues its 1000 launches a step so) and each twin a call; then
     seaice_freedrift against its twin."""
     from mitgcm_tpu_torch.model import seaice_kernels as sk
+    from mitgcm_tpu_torch.utils import synthetic
 
     ice, d = case.ice, case.dyn
     dyn = [d[k] for k in ("uVel0", "vVel0", "press0", "massC", "massU",
@@ -3775,7 +3823,7 @@ def evp_kernel_phase(case, results, reps, plain_reps):
     u, v, (s1, s2, s12) = ice.uIce, ice.vIce, ice.sigma
     for name, si in case.si.items():
         label = "" if name == "aEVP" else f"({name})"
-        setup = si.evp_setup(ice, d["massU"], d["massV"])
+        setup = synthetic.evp_setup(si, ice.AREA, d["massU"], d["massV"])
         args = (u, v, s1, s2, s12, d["press0"], fixed, setup)
         uk, vk, dwk, sigk, dxk, dyk = sk.evp_loop(si, *args, 1)
         up, vp, dwp, sigp, dxp, dyp = si._evp_loop_plain(*args, 1)
@@ -3804,8 +3852,8 @@ def evp_kernel_phase(case, results, reps, plain_reps):
             launch_ms(loop2, "seaice_evp_uv", reps),
             cuda_time_ms(lambda: si._evp_uv_plain(*ub, setup), plain_reps),
             results, touched=touched_b)
-        rk = si.evp(ice, *dyn)
-        rp = si.evp(ice, *dyn, impl="plain")
+        rk = si.evp(ice, *dyn, setup)
+        rp = si.evp(ice, *dyn, setup, impl="plain")
         same = all(torch.equal(a, b) for a, b in zip(rk, rp))
         print(f"EVP loop {name:10s} {case.label:18s} "
               f"{si.p.nEVPstarSteps} subcycles: u, v, dwatn, sigma, "
@@ -3940,18 +3988,16 @@ def evp_full_phase(kernels, smi):
     torch.cuda.reset_peak_memory_stats()
     state1, sec_w = run(state0, 0, 1, None)
     kernels.launches.clear()
-    plain0 = (kpp_mod.plain_calls + seaice_mod.plain_calls
-              + glue_plain_calls())
+    plain0 = kpp_mod.plain_calls + glue_plain_calls()
     state, sec = run(state1, 1, 5, None)
     launches = dict(kernels.launches)
-    plain = (kpp_mod.plain_calls + seaice_mod.plain_calls
-             + glue_plain_calls() - plain0)
+    plain = kpp_mod.plain_calls + glue_plain_calls() - plain0
     print(f"warm-up step: {sec_w * 1e3:.1f} ms")
     print(f"kernel path ({smi}): 5 steps, {sec * 1e3 / 5:.2f} ms/step, "
           f"{points * 5 / sec:.4e} points*steps/s, {nsub} EVP subcycles "
           f"a step, no host read inside the loop")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; plain KPP, sea-ice and D-G calls {plain}; launches "
+          f" GiB; plain KPP, sea-ice, D-G and Q calls {plain}; launches "
           f"{launches}", flush=True)
     for name in ("uVel", "vVel", "theta", "salt", "etaN") + EVP_STATE:
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -3969,6 +4015,7 @@ def evp_full_phase(kernels, smi):
             "seaice_evp_uv": 5 * nsub, "seaice_freedrift": 0,
             **{k: 0 for k in ICE_KERNELS[:5]},
             "seaice_advect_x": 5, "seaice_advect_y": 5, "seaice_thermo": 5,
+            **{k: 5 for k in SEAICE_GLUE_KERNELS},
             # the sea ice's fills: the ocean stress, the four ice fields and
             # the updated forcing (EVP fills u and v inside seaice_evp_uv)
             "halo_fill": 110}
@@ -4458,10 +4505,18 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
         hold("phihyd", lambda impl: calc_phi_hyd(cfg, g, case.rho,
                                                  impl=impl)[:3])
     if "cg2d_rhs" in want:
-        hold("cg2d_rhs" + ("(non-hydrostatic)" if nh else ""),
-             lambda impl: list(step.cg2d_rhs(cfg, g, case.u, case.v,
-                                             case.eta, hydrostatic=not nh,
-                                             impl=impl)))
+        phi = case.phi_nh if nh else None
+        # the non-hydrostatic launch reads one level of phi_nh a column
+        # (kSurfC - 1), and writes the right-hand side and div
+        touched = [case.u, case.v, g.hFacW, g.hFacS, g.dyG, g.dxG, g.rA,
+                   case.eta, g.drF, torch.empty_like(case.eta),
+                   torch.empty_like(case.u), case.phi_nh[0], g.kSurfC,
+                   g.recip_Bo] if nh else None
+        hold_launch("cg2d_rhs" + ("(non-hydrostatic)" if nh else ""), case,
+                    lambda impl: list(step.cg2d_rhs(
+                        cfg, g, case.u, case.v, case.eta,
+                        hydrostatic=not nh, impl=impl, phi_nh=phi)),
+                    results, reps, touched=touched)
     if "continuity" in want:
         hold("continuity", lambda impl: step.integr_continuity(
             cfg, g, case.u, case.v, case.emp, impl=impl))
@@ -4473,7 +4528,8 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
             def ab(impl, it=it):
                 out = step.mom_ab_step(cfg, g, case.state(), tend,
                                        t["dPhiHydX"], t["dPhiHydY"],
-                                       t["guExt"], t["gvExt"], it, impl=impl,
+                                       t["guExt"][0], t["gvExt"][0], it,
+                                       impl=impl,
                                        gw=gw)
                 return list(out[:4]) + (
                     [out[6]["wStar"], out[6]["gwNm1"]] if nh else [])
@@ -4577,9 +4633,11 @@ EOS_VARIANTS = (("LINEAR", 0, True), ("LINEAR", 0, False),
                 ("MDJWF", 2, True))
 
 
-def hold_launch(name, case, fn, results, reps):
+def hold_launch(name, case, fn, results, reps, touched=None):
     """A kernel's wrapper call fn(None) against its twin's fn("plain") on
-    whole arrays, bit for bit (exact_compare), with the bound; the line's
+    whole arrays, bit for bit (exact_compare), with the bound (from the
+    tensors the wrapper checks, or from `touched`: those one launch reads
+    and writes, when a wrapper's checks are not its launch's); the line's
     time is the launch's device time, 20 launches in a CUDA graph replayed
     (graph_ms), the wrapper call's CUDA-event time, which holds the
     host's work before the launch, beside it."""
@@ -4589,7 +4647,8 @@ def hold_launch(name, case, fn, results, reps):
     exact_compare(name, case, outs, wants,
                   cuda_time_ms(lambda: fn(None), reps),
                   cuda_time_ms(lambda: fn("plain"), reps), results,
-                  call=lambda: fn(None))
+                  call=None if touched else lambda: fn(None),
+                  touched=touched)
     r = results[name]
     args, keep = captured_launch(lambda: fn(None), name.split("(")[0])
     r["extra"] = {"wrapper_ms": r["ms"]}
@@ -4663,15 +4722,185 @@ def mix_phase(results):
     torch.cuda.empty_cache()
 
 
-def glue_bounds(smi):
-    """The bytes-over-bandwidth bound of each row of GLUE_FIELDS at
-    1024x1024x32 float32 (padded by 2 halo cells)."""
-    phase("plain glue and row H: bounds at 1024x1024x32 float32")
-    n2 = (1024 + 4) ** 2 * 4
-    for row, (f3, f2) in GLUE_FIELDS.items():
-        nbytes = (f3 * 32 + f2) * n2
-        print(f"{row}: {f3} 3-D + {f2} 2-D fields, {nbytes / 1e9:.3f} GB, "
-              f"bound {nbytes / PEAK_BYTES_S * 1e3:.4f} ms ({smi})")
+def nh_last_glue(case, results, reps):
+    """N1 and N2 on the box's grid (GlueCase with nh): pre_cg3d, then the
+    cg3d set-up's two launches normalised (the box's), not normalised and
+    on a right-hand side of zeros."""
+    from mitgcm_tpu_torch.model import step
+    from mitgcm_tpu_torch.ops.stencil import interior_mask
+    from mitgcm_tpu_torch.solver import cg3d
+
+    cfg, g = case.cfg, case.grid
+    rng = np.random.default_rng(SEED + 31)
+    s3, s2 = tuple(g.hFacC.shape), tuple(g.rA.shape)
+    x2 = case.field(rng, s2, 10.0)
+    eta, div = g.recip_Bo * x2, case.field(rng, s3, 1e-2)
+    hold_launch("pre_cg3d", case, lambda impl: [step.pre_cg3d(
+        cfg, g, x2, eta, case.w, div, impl=impl)], results, reps)
+    op = types.SimpleNamespace(
+        cg3dNorm=torch.tensor(3.7e-3, dtype=case.dtype, device="cuda"),
+        imask3=interior_mask(s3, cfg.oly, cfg.olx, case.dtype, "cuda")
+        * g.maskC)
+    ws = cg3d.Workspace(s3, cfg.oly, cfg.olx, case.dtype, "cuda")
+    x0 = case.field(rng, s3, 1.0)
+
+    def like():      # a stand-in for a field the launch writes (or reads)
+        return torch.empty_like(x0)
+
+    for label, b, norm in (("", case.field(rng, s3, 50.0), True),
+                           ("(not normalised)", div, False),
+                           ("(rhsMax 0)", torch.zeros_like(div), True)):
+        def setup(impl, b=b, norm=norm):
+            outs = (cg3d._setup_plain(op, b, x0, norm) if impl else
+                    cg3d._setup_kernel(op, b, x0, norm, ws))
+            return list(outs[:6]) + ([outs[6].reshape(())] if norm else [])
+        # scale reads b and the mask and writes r; fill reads x0 and the
+        # mask and writes x and the four work fields, and normalised reads
+        # and writes r too
+        hold_launch("cg3d_setup_scale" + label, case, setup, results, reps,
+                    touched=[b, op.imask3, like()])
+        hold_launch("cg3d_setup_fill" + label, case, setup, results, reps,
+                    touched=[x0, op.imask3] + [like() for _ in range(
+                        7 if norm else 5)])
+
+
+def forcing_last_glue(case, results, reps):
+    """Q on the gyre's grid (GlueCase): the gyres' fluxes (the main path's
+    variant, no surface stress written), and every term with the
+    relaxation under sea ice and KPP's surface stress."""
+    from mitgcm_tpu_torch.model import thermodynamics as th
+
+    g = case.grid
+    rng = np.random.default_rng(SEED + 32)
+    s3, s2 = tuple(g.hFacC.shape), tuple(g.rA.shape)
+    forcing = [10.0 + case.field(rng, s2, 1.0),
+               34.0 + case.field(rng, s2, 1.0),
+               case.field(rng, s2, 100.0), case.field(rng, s2, 1e-4),
+               case.field(rng, s2, 1e-5), case.field(rng, s2, 0.1),
+               case.field(rng, s2, 0.1)]
+    salt = 35.0 + case.field(rng, s3, 0.5)
+    area = case.field(rng, s2, 0.5).abs().clamp(max=1.0)
+    every = dataclasses.replace(
+        case.cfg, tauThetaClimRelax=86400.0 * 30,
+        tauSaltClimRelax=86400.0 * 60, temp_EvPrRn=0.5, salt_EvPrRn=0.0,
+        useKPP=True)
+    for label, cfg, AREA in (("", case.cfg, None),
+                             ("(every term, under ice)", every, area)):
+        args = (case.theta, salt, AREA, *forcing)
+        hold_launch("surface_forcing" + label, case, lambda impl, cfg=cfg,
+                    args=args: [t for t in (
+                        th._surface_forcing_plain if impl else
+                        th._surface_forcing_kernel)(cfg, g, *args)
+                        if t is not None], results, reps)
+
+
+def seaice_last_glue(case, results, reps):
+    """S1 and S2 on the evp-ice-gyre's grid (EvpCase): the set-up with the
+    ice-gyre's flags and with EVP's masks; the LSR's ocean stress, the
+    no-dynamics drag, and HB87 with EVP's clip."""
+    from mitgcm_tpu_torch.model.seaice import DYNFORCING_OUT
+
+    si, ice = case.si["aEVP"], case.ice
+    rng = np.random.default_rng(SEED + 33)
+    s2 = tuple(case.grid.rA.shape)
+    fu, fv = case.field(rng, s2, 0.1), case.field(rng, s2, 0.1)
+    eta = case.field(rng, s2, 0.3)
+    for label, evp in (("", False), ("(EVP)", True)):
+        hold_launch("seaice_dynforcing" + label, case, lambda impl, evp=evp: [
+            d[k] for d in [si.dynforcing(ice, fu, fv, eta, evp, impl=impl)]
+            for k in DYNFORCING_OUT[:11 + 2 * evp]], results, reps)
+    dwatn = case.field(rng, s2, 2.0).abs() * si.HEFFM
+    uv0 = case.dyn["uVel0"], case.dyn["vVel0"]
+    extra = dict(windTau=(case.field(rng, s2, 0.1), case.field(rng, s2, 0.1)),
+                 stressDiv=(case.field(rng, s2, 0.05),
+                            case.field(rng, s2, 0.05)))
+    for label, mode, drag, clip in (("", 1, False, False),
+                                    ("(no dynamics)", 1, True, False),
+                                    ("(HB87, clip)", 2, False, True)):
+        hold_launch("seaice_ocean_stress" + label, case, lambda impl, m=mode,
+                    d=drag, c=clip: [t for t in si.ocean_stress(
+                        ice, None if d else dwatn, *uv0, fu, fv, mode=m,
+                        drag=d, clip=c, impl=impl, **extra)
+                        if t is not None], results, reps)
+
+
+def addend_last_glue(case, results, reps):
+    """The `+ gTr` addend of the last sweep (kernels M, O and P, scheme 33,
+    7 and 51) and of H-SOM's som_r (scheme 81) on the os7mp-gyre's grid
+    (G9Case, halos of 4): the advection's gTracer + gTr against the twin's
+    sum, bit for bit; the R launch's device time (20 in a CUDA graph, the
+    sweeps' fields kept alive) with the addend and, beside it, without
+    (the same inputs, the same call), the whole advection's wrapper time,
+    the bound from what the R launch reads and writes."""
+    from mitgcm_tpu_torch.model import gad, som
+
+    cfg, g = case.cfg, case.grid
+    rng = np.random.default_rng(SEED + 34)
+    s3 = tuple(g.hFacC.shape)
+    dt = cfg.deltaTTracer
+    gTr = case.field(rng, s3, 1e-5)
+    vol = g.rA * g.drF[:, None, None] * g.hFacC
+    sm = case.field(rng, (9,) + s3, 2.0) * (case.tracer * vol)[None]
+    uvw = (case.u, case.v, case.w)
+    for scheme in (33, 7, 51, 81):
+        if scheme == 81:
+            name = "som_r"
+            sweeps, bare = (som.som_sweeps(cfg, g, *uvw, case.tracer, sm,
+                                           scheme, dt, add=add)
+                            for add in (gTr, None))
+            outs = list(sweeps[-1][2])
+
+            def call(impl=None):
+                return list(som.som_advect(cfg, g, *uvw, case.tracer, sm,
+                                           scheme, dt, impl=impl, add=gTr))
+        else:
+            name = gad.sweep_name(scheme, "r")
+            sweeps, bare = (gad.multidim_sweeps(cfg, g, case.flow, *uvw,
+                                                case.tracer, scheme, scheme,
+                                                dt, add=add)
+                            for add in (gTr, None))
+            outs = [sweeps[-1][3]]
+
+            def call(impl=None, s=scheme):
+                return [gad.multidim_advection(cfg, g, case.flow, *uvw,
+                                               case.tracer, s, s, dt,
+                                               impl=impl, add=gTr)]
+        for sweep in sweeps + bare:
+            sweep[1]()
+        label = f"{name}(+gTr)"
+        exact_compare(label, case, outs, call("plain"),
+                      cuda_time_ms(call, reps),
+                      cuda_time_ms(lambda: call("plain"), 2), results,
+                      call=call)
+        r = results[label]
+        r["extra"] = {"wrapper_ms": r["ms"],
+                      "without_addend_ms": graph_ms(bare[-1][1], reps)}
+        r["ms"] = graph_ms(sweeps[-1][1], reps)
+        print(f"{'':18s} device time (20 launches in a CUDA graph) "
+              f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the "
+              f"bound, without the addend "
+              f"{r['extra']['without_addend_ms']:.4f} ms; the whole "
+              f"advection's wrapper call {r['extra']['wrapper_ms']:.4f} ms",
+              flush=True)
+        del sweeps, bare, outs
+
+
+def last_glue_phase(results):
+    phase("18 the last glue: N1, N2, Q, S1, S2 and the + gTr addend")
+    for n, dtype, reps in ((64, torch.float64, 20),
+                           (1024, torch.float32, 10)):
+        nr = 12 if n == 64 else 50
+        nh_last_glue(GlueCase(n, nr, dtype, nh=True), results, reps)
+        GRIDS.clear()
+        torch.cuda.empty_cache()
+        nr = 12 if n == 64 else 32
+        forcing_last_glue(GlueCase(n, nr, dtype), results, reps)
+        seaice_last_glue(EvpCase(n, nr, dtype), results, reps)
+        GRIDS.clear()
+        torch.cuda.empty_cache()
+        addend_last_glue(G9Case(n, nr, dtype, "os7mp"), results, reps)
+        GRIDS.clear()
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -4723,7 +4952,7 @@ def main():
     launches.update(evp_phase(kernels, results, smi))
     launches.update(gm_phase(kernels, results, smi))
     mix_phase(results)
-    glue_bounds(smi)
+    last_glue_phase(results)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
     if jax_pkg:

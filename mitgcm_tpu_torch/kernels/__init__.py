@@ -136,17 +136,18 @@ SIGNATURES = {
     **{f"idemix_{stage}": [_PP, _I, _PD, _I] + [_I] * 3 + [_P]
        for stage in ("prep", "hdiff", "col")},
     # kernel H-SOM: pointer table, its length; the pass's input volume,
-    # content and moments, its output volume, content and moments, gTracer;
-    # nr, nyp, nxp, limiter; deltaT; stream
-    **{f"som_{d}": [_PP, _I] + [_P] * 7 + [_I] * 4 + [_D, _P]
+    # content and moments, its output volume, content and moments, gTracer,
+    # the field R adds to gTracer (or null); nr, nyp, nxp, limiter; deltaT;
+    # stream
+    **{f"som_{d}": [_PP, _I] + [_P] * 8 + [_I] * 4 + [_D, _P]
        for d in "xyr"},
     # visctmp, maskW, maskS, viscU, viscV; nr, nyp, nxp; viscMax, viscAr;
     # stream
     "ggl90_visc": [_P] * 5 + [_I] * 3 + [_D] * 2 + [_P],
     # the sweeps of kernels M, O and P: pointer table, its length; the
-    # sweep's input and output fields; nr, nyp, nxp, scheme; deltaT, rkSign;
-    # stream
-    **{f"{k}_{d}": [_PP, _I, _P, _P] + [_I] * 4 + [_D] * 2 + [_P]
+    # sweep's input and output fields, the field R adds to its output (or
+    # null); nr, nyp, nxp, scheme; deltaT, rkSign; stream
+    **{f"{k}_{d}": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 2 + [_P]
        for k in ("gad_multidim", "gad_os7mp", "gad_ppm") for d in "xyr"},
     # the sea ice's seaice_lsr_prep (two launches) and seaice_thermo:
     # pointer table, its length; parameter array, its length; nyp, nxp
@@ -182,16 +183,17 @@ SIGNATURES = {
     # dPhiHydY; nr, nyp, nxp; gravity, 1/rhoConst; stream
     "phihyd": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_P],
     # kernel E's cg2d right-hand side: pointer table (uStar, vStar, hFacW,
-    # hFacS, dyG, dxG, rA, etaN, drF, out, the non-hydrostatic 3-D div),
-    # its length; nr, nyp, nxp, oly, olx, hydrostatic; implicDiv2Dflow,
-    # deltaTMom, freeSurfFac, deltaTFreeSurf; stream
+    # hFacS, dyG, dxG, rA, etaN, drF, out, then the non-hydrostatic 3-D div,
+    # phi_nh, kSurfC, recip_Bo), its length; nr, nyp, nxp, oly, olx,
+    # hydrostatic; implicDiv2Dflow, deltaTMom, freeSurfFac,
+    # deltaTFreeSurf; stream
     "cg2d_rhs": [_PP, _I] + [_I] * 6 + [_D] * 4 + [_P],
     # kernel E's continuity: pointer table (u, v, hFacW, hFacS, maskC, dyG,
     # dxG, recip_rA, EmPmR, drF, w, PmEpR), its length; nr, nyp, nxp;
     # stream
     "continuity": [_PP, _I] + [_I] * 3 + [_P],
     # kernel G's mom_ab_step: pointer table (u's, v's and w's terms, see
-    # step_glue.cu:MomAbArgs), its length; nr, nyp, nxp, AB order (2, 3),
+    # step_glue.cuh:MomAbArgs), its length; nr, nyp, nxp, AB order (2, 3),
     # non-hydrostatic; abFac, ab0, ab1, ab2, deltaTMom, deltaTMom/nh_Am2;
     # stream
     "mom_ab_step": [_PP, _I] + [_I] * 5 + [_D] * 6 + [_P],
@@ -226,6 +228,19 @@ SIGNATURES = {
     "tracer_step_adj": [_PP, _I] + [_I] * 5 + [_D] * 5 + [_P],
     "adv_flow_adj": [_PP, _I] + [_I] * 3 + [_P],
     "eos_linear_adj": [_PP, _I] + [_I] * 2 + [_D] * 3 + [_P],
+    # the last glue: N1 (pre_cg3d.cuh:PreCg3dArgs; nr, nyp, nxp; psFac,
+    # freeSurfFac, deltaTFreeSurf, deltaTMom), N2's two set-up launches
+    # (cg3d_setup.cuh:Cg3dSetupArgs; nr, nyp, nxp, normalise)
+    # and its division (x, rhsNorm; nr, nyp, nxp), Q
+    # (forcing.cuh:ForcingArgs, its parameters; nyp, nxp, flags), S1 and S2
+    # (seaice_glue.cuh's tables and parameters; nyp, nxp, S1's flags, S2's
+    # mode and flags); stream last
+    "pre_cg3d": [_PP, _I] + [_I] * 3 + [_D] * 4 + [_P],
+    "cg3d_setup_scale": [_PP, _I] + [_I] * 4 + [_P],
+    "cg3d_setup_fill": [_PP, _I] + [_I] * 4 + [_P],
+    "surface_forcing": [_PP, _I, _PD, _I] + [_I] * 3 + [_P],
+    "seaice_dynforcing": [_PP, _I, _PD, _I] + [_I] * 3 + [_P],
+    "seaice_ocean_stress": [_PP, _I, _PD, _I] + [_I] * 4 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -310,7 +310,8 @@ __global__ void __launch_bounds__(BX * kMdYWarps) md_y_kernel(
 // tracer and recip_hFacC of cell k
 template <typename T>
 struct MdLevel {
-  T q = T(0), m = T(0), rT = T(0), w = T(0), tr = T(0), rh = T(0);
+  // ad: the R sweep's addend at the level (0 without one)
+  T q = T(0), m = T(0), rT = T(0), w = T(0), tr = T(0), rh = T(0), ad = T(0);
 };
 
 // whether a vertical scheme reads the velocity
@@ -322,7 +323,8 @@ constexpr bool kMdWVel = S != kUpwind1 && S != kCentered2 &&
 template <typename T, int S>
 __global__ void __launch_bounds__(NT) md_r_kernel(
     const AdvArgs<T> a, const T* __restrict__ src, T* __restrict__ dst,
-    int nr, int nyp, int nxp, T deltaT, T rkSign) {
+    const T* __restrict__ add, int nr, int nyp, int nxp, T deltaT,
+    T rkSign) {
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   if (i >= nxp || j >= nyp) return;
@@ -341,6 +343,7 @@ __global__ void __launch_bounds__(NT) md_r_kernel(
       }
       v.tr = a.tracer[k * P + q2];
       v.rh = a.recip_hFacC[k * P + q2];
+      if (add) v.ad = add[k * P + q2];
     }
     return v;
   };
@@ -371,7 +374,8 @@ __global__ void __launch_bounds__(NT) md_r_kernel(
     const T vol = deltaT * cur.rh * a.recip_drF[k] * rA;
     const T localT =
         Q[1] - vol * ((fK1 - fK) - cur.tr * (cur.rT - rTk)) * rkSign * mIn;
-    dst[p] = (localT - cur.tr) / deltaT;
+    const T g = (localT - cur.tr) / deltaT;
+    dst[p] = add ? g + cur.ad : g;
     fK = fK1;
     rTk = cur.rT;
     cur = nxt;
@@ -381,11 +385,11 @@ __global__ void __launch_bounds__(NT) md_r_kernel(
 // Start sweep DIR (0 X, 1 Y, 2 R) of scheme S with start(kernel, grid,
 // block, args...) (OnStream on the card).
 template <typename T, int DIR, int S, typename Start>
-void launch_md(const AdvArgs<T>& a, const T* s, T* d, int nr, int nyp,
-               int nxp, double deltaT, double rkSign, Start start) {
+void launch_md(const AdvArgs<T>& a, const T* s, T* d, const T* add, int nr,
+               int nyp, int nxp, double deltaT, double rkSign, Start start) {
   if constexpr (DIR == 2) {
-    start(md_r_kernel<T, S>, grid2d(nyp, nxp), dim3(BX, BY), a, s, d, nr,
-          nyp, nxp, T(deltaT), T(rkSign));
+    start(md_r_kernel<T, S>, grid2d(nyp, nxp), dim3(BX, BY), a, s, d, add,
+          nr, nyp, nxp, T(deltaT), T(rkSign));
   } else if constexpr (DIR == 1) {
     const int walks = (nyp + kMdWalkRows - 1) / kMdWalkRows;
     start(md_y_kernel<T, S>,
@@ -399,22 +403,25 @@ void launch_md(const AdvArgs<T>& a, const T* s, T* d, int nr, int nyp,
   }
 }
 
-// the schemes M owns: 1, 20, 30, 33, 77 in X and Y, and 2, 3, 4 besides in R
+// the schemes M owns: 1, 20, 30, 33, 77 in X and Y, and 2, 3, 4 besides in
+// R; add (R only, else null): a field the R sweep adds to gTr, gTr + add
+// (the tracer's other tendency, thermodynamics.py's `+ gTr`)
 template <typename T, int DIR, typename Start>
 int launch_multidim(const void* const* table, int n, const void* src,
-                    void* dst, int nr, int nyp, int nxp, int scheme,
-                    double deltaT, double rkSign, Start start) {
+                    void* dst, const void* add, int nr, int nyp, int nxp,
+                    int scheme, double deltaT, double rkSign, Start start) {
   AdvArgs<T> a;
   // the tiles index a level's plane with an int
   if (!adv_args(table, n, &a) || nr < 1 || nyp < 1 || nxp < 1 ||
       static_cast<long long>(nyp) * nxp > 0x7fffffffLL || src == nullptr ||
-      dst == nullptr)
+      dst == nullptr || (DIR != 2 && add != nullptr))
     return (int)cudaErrorInvalidValue;
   const T* s = static_cast<const T*>(src);
   T* d = static_cast<T*>(dst);
-#define MITGCM_MD_CASE(S)                                                \
-  case S:                                                                \
-    launch_md<T, DIR, S>(a, s, d, nr, nyp, nxp, deltaT, rkSign, start);  \
+  const T* ad = static_cast<const T*>(add);
+#define MITGCM_MD_CASE(S)                                                   \
+  case S:                                                                   \
+    launch_md<T, DIR, S>(a, s, d, ad, nr, nyp, nxp, deltaT, rkSign, start); \
     break;
   switch (scheme) {
     MITGCM_MD_CASE(kUpwind1)

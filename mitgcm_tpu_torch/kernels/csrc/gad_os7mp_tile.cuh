@@ -354,14 +354,16 @@ __global__ void __launch_bounds__(BX * kOsYWarps, kOsYBlocks<T>)
 // tracer and recip_hFacC of cell k
 template <typename T>
 struct Os7mpLevel {
-  T q = T(0), m = T(0), rT = T(0), w = T(0), tr = T(0), rh = T(0);
+  // ad: the addend at the level (0 without one)
+  T q = T(0), m = T(0), rT = T(0), w = T(0), tr = T(0), rh = T(0), ad = T(0);
 };
 
 // The R sweep, gTr = (localT - tracer) / deltaT, one thread a column.
 template <typename T>
 __global__ void __launch_bounds__(NT, kOsWalkBlocks<T>) os7mp_r_kernel(
     const AdvArgs<T> a, const T* __restrict__ src, T* __restrict__ dst,
-    int nr, int nyp, int nxp, T deltaT, T rkSign) {
+    const T* __restrict__ add, int nr, int nyp, int nxp, T deltaT,
+    T rkSign) {
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   if (i >= nxp || j >= nyp) return;
@@ -380,6 +382,7 @@ __global__ void __launch_bounds__(NT, kOsWalkBlocks<T>) os7mp_r_kernel(
       }
       v.tr = a.tracer[k * P + q2];
       v.rh = a.recip_hFacC[k * P + q2];
+      if (add) v.ad = add[k * P + q2];
     }
     return v;
   };
@@ -420,7 +423,8 @@ __global__ void __launch_bounds__(NT, kOsWalkBlocks<T>) os7mp_r_kernel(
     const T vol = deltaT * cur.rh * a.recip_drF[k] * rA;
     const T localT =
         Q[3] - vol * ((fK1 - fK) - cur.tr * (cur.rT - rTk)) * rkSign * mIn;
-    dst[p] = (localT - cur.tr) / deltaT;
+    const T g = (localT - cur.tr) / deltaT;
+    dst[p] = add ? g + cur.ad : g;
     fK = fK1;
     rTk = cur.rT;
     cur = nxt;
@@ -428,22 +432,22 @@ __global__ void __launch_bounds__(NT, kOsWalkBlocks<T>) os7mp_r_kernel(
 }
 
 // Start sweep DIR (0 X, 1 Y, 2 R) with start(kernel, grid, block, args...)
-// (OnStream on the card).
+// (OnStream on the card); add as launch_multidim's.
 template <typename T, int DIR, typename Start>
 int launch_os7mp(const void* const* table, int n, const void* src, void* dst,
-                 int nr, int nyp, int nxp, int scheme, double deltaT,
-                 double rkSign, Start start) {
+                 const void* add, int nr, int nyp, int nxp, int scheme,
+                 double deltaT, double rkSign, Start start) {
   AdvArgs<T> a;
   // the tiles index a level's plane with an int
   if (!adv_args(table, n, &a) || scheme != 7 || nr < 1 || nyp < 1 ||
       nxp < 1 || static_cast<long long>(nyp) * nxp > 0x7fffffffLL ||
-      src == nullptr || dst == nullptr)
+      src == nullptr || dst == nullptr || (DIR != 2 && add != nullptr))
     return (int)cudaErrorInvalidValue;
   const T* s = static_cast<const T*>(src);
   T* d = static_cast<T*>(dst);
   if constexpr (DIR == 2) {
-    start(os7mp_r_kernel<T>, grid2d(nyp, nxp), dim3(BX, BY), a, s, d, nr,
-          nyp, nxp, T(deltaT), T(rkSign));
+    start(os7mp_r_kernel<T>, grid2d(nyp, nxp), dim3(BX, BY), a, s, d,
+          static_cast<const T*>(add), nr, nyp, nxp, T(deltaT), T(rkSign));
   } else if constexpr (DIR == 1) {
     const int walks = (nyp + kOsWalkRows - 1) / kOsWalkRows;
     start(os7mp_y_kernel<T>,

@@ -38,11 +38,12 @@
 
 #define MITGCM_P_ENTRY(NAME, DIR, SUF, T)                                      \
   extern "C" int mitgcm_gad_ppm_##NAME##_##SUF(                                \
-      const void* const* table, int n, const void* src, void* dst, int nr,   \
+      const void* const* table, int n, const void* src, void* dst,           \
+      const void* add, int nr,                                                 \
       int nyp, int nxp, int scheme, double deltaT, double rkSign,             \
       void* stream) {                                                          \
     return mitgcm::launch_ppm<T, DIR>(                                        \
-        table, n, src, dst, nr, nyp, nxp, scheme, deltaT, rkSign,             \
+        table, n, src, dst, add, nr, nyp, nxp, scheme, deltaT, rkSign,        \
         mitgcm::OnStream{(cudaStream_t)stream});                              \
   }
 

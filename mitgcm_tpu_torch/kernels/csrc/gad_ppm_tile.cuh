@@ -647,8 +647,9 @@ constexpr int kPpmYWarps = 4;
 // recip_rA and maskInC of cell f - 1
 template <typename T>
 struct PpmStep {
+  // ad: the R sweep's addend at cell f - 1 (0 without one)
   T q = T(0), m = T(0), vel = T(0), trans = T(0), rdF = T(0), rdC = T(0),
-    dF = T(0), trc = T(0), rh = T(0), rA = T(0), mIn = T(0);
+    dF = T(0), trc = T(0), rh = T(0), rA = T(0), mIn = T(0), ad = T(0);
 };
 
 // What a walk carries from step to step, and its step at face f. Positions
@@ -803,7 +804,8 @@ __global__ void __launch_bounds__(BX * kPpmYWarps) ppm_y_kernel(
 template <typename T, int S>
 __global__ void __launch_bounds__(NT) ppm_r_kernel(
     const AdvArgs<T> a, const T* __restrict__ src, T* __restrict__ dst,
-    int nr, int nyp, int nxp, T deltaT, T rkSign) {
+    const T* __restrict__ add, int nr, int nyp, int nxp, T deltaT,
+    T rkSign) {
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   if (i >= nxp || j >= nyp) return;
@@ -830,6 +832,7 @@ __global__ void __launch_bounds__(NT) ppm_r_kernel(
       if (f >= 1) {
         v.trc = a.tracer[(f - 1) * P + q2];
         v.rh = a.recip_hFacC[(f - 1) * P + q2];
+        if (add) v.ad = add[(f - 1) * P + q2];
       }
     }
     return v;
@@ -855,7 +858,8 @@ __global__ void __launch_bounds__(NT) ppm_r_kernel(
       const T localT =
           src_c - vol * ((fl - flm) - cur.trc * (cur.trans - trm)) * rkSign *
                       mIn;
-      dst[kc * P + q2] = (localT - cur.trc) / deltaT;
+      const T g = (localT - cur.trc) / deltaT;
+      dst[kc * P + q2] = add ? g + cur.ad : g;
     }
     flm = fl;
     trm = cur.trans;
@@ -866,11 +870,12 @@ __global__ void __launch_bounds__(NT) ppm_r_kernel(
 // Start sweep DIR (0 X, 1 Y, 2 R) of scheme S with start(kernel, grid,
 // block, args...) (OnStream on the card).
 template <typename T, int DIR, int S, typename Start>
-void launch_ppm_s(const AdvArgs<T>& a, const T* s, T* d, int nr, int nyp,
-                  int nxp, double deltaT, double rkSign, Start start) {
+void launch_ppm_s(const AdvArgs<T>& a, const T* s, T* d, const T* add,
+                  int nr, int nyp, int nxp, double deltaT, double rkSign,
+                  Start start) {
   if constexpr (DIR == 2) {
-    start(ppm_r_kernel<T, S>, grid2d(nyp, nxp), dim3(BX, BY), a, s, d, nr,
-          nyp, nxp, T(deltaT), T(rkSign));
+    start(ppm_r_kernel<T, S>, grid2d(nyp, nxp), dim3(BX, BY), a, s, d, add,
+          nr, nyp, nxp, T(deltaT), T(rkSign));
   } else if constexpr (DIR == 1) {
     const int walks = (nyp + kPpmWalk - 1) / kPpmWalk;
     start(ppm_y_kernel<T, S>,
@@ -886,21 +891,24 @@ void launch_ppm_s(const AdvArgs<T>& a, const T* s, T* d, int nr, int nyp,
   }
 }
 
+// add as launch_multidim's
 template <typename T, int DIR, typename Start>
 int launch_ppm(const void* const* table, int n, const void* src, void* dst,
-               int nr, int nyp, int nxp, int scheme, double deltaT,
-               double rkSign, Start start) {
+               const void* add, int nr, int nyp, int nxp, int scheme,
+               double deltaT, double rkSign, Start start) {
   AdvArgs<T> a;
   // the walks index a level's plane with an int
   if (!adv_args(table, n, &a) || nr < 1 || nyp < 1 || nxp < 1 ||
       static_cast<long long>(nyp) * nxp > 0x7fffffffLL || src == nullptr ||
-      dst == nullptr)
+      dst == nullptr || (DIR != 2 && add != nullptr))
     return (int)cudaErrorInvalidValue;
   const T* s = static_cast<const T*>(src);
   T* d = static_cast<T*>(dst);
+  const T* ad = static_cast<const T*>(add);
 #define MITGCM_PPM_CASE(S)                                                    \
   case S:                                                                     \
-    launch_ppm_s<T, DIR, S>(a, s, d, nr, nyp, nxp, deltaT, rkSign, start);   \
+    launch_ppm_s<T, DIR, S>(a, s, d, ad, nr, nyp, nxp, deltaT, rkSign,       \
+                            start);                                           \
     break;
   switch (scheme) {
     MITGCM_PPM_CASE(kPpmNull)

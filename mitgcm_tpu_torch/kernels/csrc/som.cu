@@ -51,32 +51,37 @@
   extern "C" int mitgcm_som_x_##SUF(                                          \
       const void* const* table, int n, const void* volIn, const void* oIn,   \
       const void* smIn, void* volOut, void* oOut, void* smOut, void* gTr,    \
-      int nr, int nyp, int nxp, int limiter, double deltaT, void* stream) {  \
-    return gTr != nullptr ? (int)cudaErrorInvalidValue                       \
-                          : mitgcm::som::launch_som_horiz<T, 0>(             \
-                                table, n, volIn, oIn, smIn, volOut, oOut,    \
-                                smOut, nr, nyp, nxp, limiter, deltaT,        \
-                                mitgcm::OnStream{(cudaStream_t)stream});     \
+      const void* add, int nr, int nyp, int nxp, int limiter, double deltaT, \
+      void* stream) {                                                        \
+    return gTr != nullptr || add != nullptr                                  \
+               ? (int)cudaErrorInvalidValue                                  \
+               : mitgcm::som::launch_som_horiz<T, 0>(                        \
+                     table, n, volIn, oIn, smIn, volOut, oOut, smOut, nr,    \
+                     nyp, nxp, limiter, deltaT,                              \
+                     mitgcm::OnStream{(cudaStream_t)stream});                \
   }                                                                          \
   extern "C" int mitgcm_som_y_##SUF(                                          \
       const void* const* table, int n, const void* volIn, const void* oIn,   \
       const void* smIn, void* volOut, void* oOut, void* smOut, void* gTr,    \
-      int nr, int nyp, int nxp, int limiter, double deltaT, void* stream) {  \
-    return gTr != nullptr ? (int)cudaErrorInvalidValue                       \
-                          : mitgcm::som::launch_som_horiz<T, 1>(             \
-                                table, n, volIn, oIn, smIn, volOut, oOut,    \
-                                smOut, nr, nyp, nxp, limiter, deltaT,        \
-                                mitgcm::OnStream{(cudaStream_t)stream});     \
+      const void* add, int nr, int nyp, int nxp, int limiter, double deltaT, \
+      void* stream) {                                                        \
+    return gTr != nullptr || add != nullptr                                  \
+               ? (int)cudaErrorInvalidValue                                  \
+               : mitgcm::som::launch_som_horiz<T, 1>(                        \
+                     table, n, volIn, oIn, smIn, volOut, oOut, smOut, nr,    \
+                     nyp, nxp, limiter, deltaT,                              \
+                     mitgcm::OnStream{(cudaStream_t)stream});                \
   }                                                                          \
   extern "C" int mitgcm_som_r_##SUF(                                          \
       const void* const* table, int n, const void* volIn, const void* oIn,   \
       const void* smIn, void* volOut, void* oOut, void* smOut, void* gTr,    \
-      int nr, int nyp, int nxp, int limiter, double deltaT, void* stream) {  \
+      const void* add, int nr, int nyp, int nxp, int limiter, double deltaT, \
+      void* stream) {                                                        \
     return (volOut != nullptr || oOut != nullptr)                            \
                ? (int)cudaErrorInvalidValue                                  \
                : mitgcm::som::launch_som_r<T>(                               \
-                     table, n, volIn, oIn, smIn, smOut, gTr, nr, nyp, nxp,   \
-                     limiter, deltaT,                                        \
+                     table, n, volIn, oIn, smIn, smOut, gTr, add, nr, nyp,   \
+                     nxp, limiter, deltaT,                                   \
                      mitgcm::OnStream{(cudaStream_t)stream});                \
   }
 

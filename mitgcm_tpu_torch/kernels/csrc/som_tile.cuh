@@ -436,7 +436,8 @@ __global__ void __launch_bounds__(NT) som_y_kernel(
 template <typename T>
 __global__ void __launch_bounds__(NT) som_r_kernel(
     const SomArgs<T> a, const T* volIn, const T* oIn, const T* smIn,
-    T* smOut, T* gTr, int nr, int nyp, int nxp, bool lim, T dt) {
+    T* smOut, T* gTr, const T* add, int nr, int nyp, int nxp, bool lim,
+    T dt) {
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   if (i >= nxp || j >= nyp) return;
@@ -444,11 +445,11 @@ __global__ void __launch_bounds__(NT) som_r_kernel(
   const size_t N = P * nr;
   const size_t q2 = static_cast<size_t>(j) * nxp + i;
   const T rA = a.rA[q2], rrA = a.recip_rA[q2], upd = a.maskInC[q2];
-  // a level's input state, vertical velocity, maskC, tracer and
-  // recip_hFacC
+  // a level's input state, vertical velocity, maskC, tracer,
+  // recip_hFacC and addend (0 without one)
   struct Level {
     Cell<T> c;
-    T w, m, tr, rh;
+    T w, m, tr, rh, ad;
   };
   auto level = [&](int k, Level& v) {
     const size_t p = k * P + q2;
@@ -457,13 +458,14 @@ __global__ void __launch_bounds__(NT) som_r_kernel(
     v.m = a.maskC[p];
     v.tr = a.tracer[p];
     v.rh = a.recip_hFacC[p];
+    v.ad = add ? add[p] : T(0);
   };
   Level cur, nxt;
   level(0, cur);
   if (nr > 1) level(1, nxt);
   Cell<T> c = cur.c;
   if (lim) limit<T, 2>(c, false);
-  T mC = cur.m, trC = cur.tr, rhC = cur.rh;
+  T mC = cur.m, trC = cur.tr, rhC = cur.rh, adC = cur.ad;
   // interface 0: fp leaves cell 0 upward; fn enters it from above, the
   // surface branch (cell 0 itself, no z-structure)
   Flux<T> fpK, fnK;
@@ -500,10 +502,12 @@ __global__ void __launch_bounds__(NT) som_r_kernel(
     Cell<T> out;
     update<T, 2>(c, fpD, fnD, fpK, fnK, upd, out);
     for (int s = 0; s < kNsom; ++s) smOut[s * N + p] = out.m[s];
-    gTr[p] = (out.o - trC * out.v) * rrA * a.recip_drF[k] * rhC / dt;
+    const T g = (out.o - trC * out.v) * rrA * a.recip_drF[k] * rhC / dt;
+    gTr[p] = add ? g + adC : g;
     c = dn;
     mC = cur.m;
     trC = cur.tr;
+    adC = cur.ad;
     rhC = cur.rh;
     fpK = fpD;
     fnK = fnD;
@@ -542,19 +546,21 @@ int launch_som_horiz(const void* const* table, int n, const void* volIn,
   return (int)cudaGetLastError();
 }
 
+// add (null: none): a field added to gTr, gTr + add (the tracer's other
+// tendency, thermodynamics.py's `gSom + gTr`)
 template <typename T, typename Start>
 int launch_som_r(const void* const* table, int n, const void* volIn,
                  const void* oIn, const void* smIn, void* smOut, void* gTr,
-                 int nr, int nyp, int nxp, int limiter, double deltaT,
-                 Start start) {
+                 const void* add, int nr, int nyp, int nxp, int limiter,
+                 double deltaT, Start start) {
   if (!som_args_ok(n, nr, nyp, nxp, limiter) || volIn == nullptr ||
       oIn == nullptr || smIn == nullptr || smOut == nullptr || gTr == nullptr)
     return (int)cudaErrorInvalidValue;
   SomArgs<T> a;
   std::memcpy(&a, table, sizeof(a));
   start(som_r_kernel<T>, grid2d(nyp, nxp), dim3(BX, BY), a, (const T*)volIn,
-        (const T*)oIn, (const T*)smIn, (T*)smOut, (T*)gTr, nr, nyp, nxp,
-        limiter == 1, T(deltaT));
+        (const T*)oIn, (const T*)smIn, (T*)smOut, (T*)gTr, (const T*)add, nr,
+        nyp, nxp, limiter == 1, T(deltaT));
   return (int)cudaGetLastError();
 }
 

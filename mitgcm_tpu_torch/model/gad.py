@@ -650,37 +650,6 @@ _MD_GRID3 = ("maskW", "maskS", "maskC", "recip_hFacC")
 _MD_GRID2 = ("recip_dxC", "recip_dyC", "recip_rA", "maskInC", "maskInW",
              "maskInS", "dxF", "dyF", "recip_dxF", "recip_dyF")
 _MD_GRID1 = ("recip_drF", "recip_drC", "drF")
-# the fields each sweep reads besides its input field and the tracer
-_VOLUME = ("recip_hFacC", "recip_rA", "maskInC", "recip_drF")
-_READS = {
-    ("M", "x"): ("uTrans", "uVel", "maskW", "maskInW", "recip_dxC"),
-    ("M", "y"): ("vTrans", "vVel", "maskS", "maskInS", "recip_dyC"),
-    ("M", "r"): ("rTrans", "wVel", "maskC", "recip_drC"),
-    ("P", "x"): ("uTrans", "uVel", "maskC", "recip_dxF"),
-    ("P", "y"): ("vTrans", "vVel", "maskC", "recip_dyF"),
-    ("P", "r"): ("rTrans", "wVel", "maskC"),
-    # PQM's edge slopes
-    ("PQM", "x"): ("recip_dxC", "dxF"),
-    ("PQM", "y"): ("recip_dyC", "dyF"),
-    ("PQM", "r"): ("recip_drC", "drF"),
-}
-_READS["O", "x"], _READS["O", "y"], _READS["O", "r"] = (
-    _READS["M", d] for d in DIRECTIONS)
-
-
-def _sweep_reads(scheme: int, direction: str):
-    reads = _READS[sweep_owner(scheme, direction), direction] + _VOLUME
-    if scheme in gad_ho.PQM_SCHEMES:
-        reads += _READS["PQM", direction]
-    if direction != "r" and scheme in (ENUM_UPWIND_1RST, ENUM_DST2):
-        reads = tuple(n for n in reads if not n.startswith("mask")
-                      or n == "maskInC")
-    if direction == "r" and scheme in (ENUM_CENTERED_2ND, ENUM_UPWIND_3RD,
-                                       ENUM_CENTERED_4TH):
-        reads = tuple(n for n in reads if n not in ("wVel", "recip_drC"))
-    return reads
-
-
 def _multidim_plain(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
                     scheme: int, vert_scheme: int, deltaT: float):
     """The kernels' twin: gad.py:multidim_advection (:1120-1154), Cartesian
@@ -695,11 +664,11 @@ def _multidim_plain(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
 
 
 def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
-                    scheme: int, vert_scheme: int, deltaT: float):
+                    scheme: int, vert_scheme: int, deltaT: float, add=None):
     """The three sweeps on the card, each a launch of the kernel that owns
-    its scheme: a list of (sweep name, launch, input, output, the tensors
-    the sweep reads and writes), in the order they must run; each launch
-    reads the previous one's output and the last output is gTr."""
+    its scheme: a list of (sweep name, launch, input, output), in the order
+    they must run; each launch reads the previous one's output and the
+    last output is gTr, or gTr + add with add (the R sweep adds it)."""
     nr, nyp, nxp = tracer.shape
     schemes = (scheme, scheme, vert_scheme)
     names = [sweep_name(s, d) for s, d in zip(schemes, DIRECTIONS)]
@@ -710,9 +679,12 @@ def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
     ins1 = {n: getattr(grid, n) for n in _MD_GRID1}
     fields = [tracer] + [torch.empty_like(tracer) for _ in DIRECTIONS]
     kernels.check_tensors(tracer.dtype, **ins3, **ins2, **ins1,
-                          localX=fields[1], localY=fields[2], gTr=fields[3])
+                          localX=fields[1], localY=fields[2], gTr=fields[3],
+                          **({} if add is None else {"add": add}))
     for name, t in ins3.items():
         kernels.check_shape(name, t, (nr, nyp, nxp))
+    if add is not None:
+        kernels.check_shape("add", add, (nr, nyp, nxp))
     for name, t in ins2.items():
         kernels.check_shape(name, t, (nyp, nxp))
     kernels.check_shape("recip_drF", ins1["recip_drF"], (nr,))
@@ -722,13 +694,14 @@ def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
     table = kernels.pointer_table(list(named.values()))
 
     def sweep(name, direction, src, dst, sch):
+        addend = add if direction == "r" and add is not None else None
+
         def run():
             kernels.launch(name, tracer.dtype, table, len(table),
-                           src.data_ptr(), dst.data_ptr(), nr, nyp, nxp, sch,
-                           float(deltaT), float(cfg.rkSign))
-        touched = [src, tracer, dst] + [named[n] for n in
-                                        _sweep_reads(sch, direction)]
-        return name, run, src, dst, touched
+                           src.data_ptr(), dst.data_ptr(),
+                           None if addend is None else addend.data_ptr(), nr,
+                           nyp, nxp, sch, float(deltaT), float(cfg.rkSign))
+        return name, run, src, dst
 
     return [sweep(name, d, fields[n], fields[n + 1], sch)
             for n, (name, d, sch) in enumerate(zip(names, DIRECTIONS,
@@ -737,25 +710,27 @@ def multidim_sweeps(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w, tracer,
 
 def multidim_advection(cfg: Config, grid: Grid, flow: AdvFlow, u, v, w,
                        tracer, scheme: int, vert_scheme: int, deltaT: float,
-                       impl: str = None) -> torch.Tensor:
+                       impl: str = None, add=None) -> torch.Tensor:
     """Direction-split multi-dimensional advection (gad_advection.F, the
     default non-compressible form, Cartesian pass order X, Y, R) of a
     scheme of MULTIDIM_SCHEMES with a vertical scheme of VERT_SCHEMES:
     returns gTracer = (T_advected - T) / deltaT at every cell of the padded
-    array."""
+    array, or gTracer + add with add (the tracer's other tendency: the
+    last sweep's kernel adds it as it writes, the twin after)."""
     owners = sorted({sweep_owner(s, d) for s, d in zip(
         (scheme, scheme, vert_scheme), DIRECTIONS)})
-    ins = (u, v, w, tracer, flow.uTrans, flow.vTrans, flow.rTrans)
-    if any(t.requires_grad for t in ins):
+    ins = (u, v, w, tracer, flow.uTrans, flow.vTrans, flow.rTrans, add)
+    if any(t is not None and t.requires_grad for t in ins):
         raise ValueError(
             "multidim_advection: an input requires grad; "
             f"{' and '.join(f'kernel {k}' for k in owners)} "
             f"{'has' if len(owners) == 1 else 'have'} no backward kernel")
     if not kernels.use_kernel(tracer, impl):
-        return _multidim_plain(cfg, grid, flow, u, v, w, tracer, scheme,
-                               vert_scheme, deltaT)
+        gTr = _multidim_plain(cfg, grid, flow, u, v, w, tracer, scheme,
+                              vert_scheme, deltaT)
+        return gTr if add is None else gTr + add
     sweeps = multidim_sweeps(cfg, grid, flow, u, v, w, tracer, scheme,
-                             vert_scheme, deltaT)
-    for _, run, _, _, _ in sweeps:
+                             vert_scheme, deltaT, add)
+    for _, run, _, _ in sweeps:
         run()
     return sweeps[-1][3]

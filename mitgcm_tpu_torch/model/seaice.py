@@ -27,12 +27,16 @@ here, which runs for CPU tensors or with impl="plain":
   advdiff        seaice_advect_x/_y: HEFF, AREA and HSNOW together
   thermo         seaice_thermo: reg_ridge, growth and solve4temp fused, one
                  thread per column
-get_dynforcing, ocean_stress(_hb87), the clip, the no-dynamics drag, EVP's
-per-step set-up, the strength and masses and the end-of-step fills stay
-plain glue. `check_seaice` refuses by name every option this port does not
-carry (SItracers, HB87 coupling without EVP, the legacy and OS7MP ice
-advection, ...). Parameters come as dicts (the namelists' keys); the deck
-reader is not ported.
+  dynforcing     seaice_dynforcing: the step's set-up (the strength, the
+                 masses, get_dynforcing's stress and the tilt, the
+                 stress areas and EVP's masks) in one launch
+  ocean_stress   seaice_ocean_stress: the ocean's surface stress (HB87's
+                 under EVP, oceandrag's without the dynamics) and EVP's
+                 clip of the ice velocity in one launch
+The end-of-step fills are kernel F's. `check_seaice` refuses by name every
+option this port does not carry (SItracers, HB87 coupling without EVP,
+the legacy and OS7MP ice advection, ...). Parameters come as dicts (the
+namelists' keys); the deck reader is not ported.
 """
 from __future__ import annotations
 
@@ -458,6 +462,11 @@ def check_seaice(cfg: Config, seaice: "SeaIce") -> None:
 
 
 _div = gad._div
+# kernel S1's outputs, in its table's order (seaice_glue.cuh:DynforcingArgs;
+# the last two on EVP paths only)
+DYNFORCING_OUT = ("press0", "zMax", "taux", "tauy", "massC", "massU",
+                  "massV", "forcex0", "forcey0", "areaW", "areaS",
+                  "locMaskU", "locMaskV")
 # the atmospheric and surface forcing that seaice_thermo reads
 _THERMO_FORCING = ("atemp", "aqh", "precip", "swdown", "lwdown", "runoff",
                    "wspeed", "evap", "Qnet", "Qsw", "EmPmR", "saltFlux")
@@ -522,6 +531,14 @@ class SeaIce:
         it = torch.zeros_like(hm)
         it[ol:ol + ny, ol:ol + nx] = 1.0
         self.interior = it
+        # 1 / the wet C points around each Z point (0 where none), which
+        # the LSR's and EVP's viscosities at Z points average with
+        # (seaice.py:1095-1099); HEFFM alone sets it
+        sumNorm = hm + sh(hm, di=-1) + sh(hm, dj=-1) + sh(sh(hm, di=-1),
+                                                          dj=-1)
+        self.sumNorm = _where(
+            sumNorm > 0.0, _rdiv(1.0, _where(sumNorm > 0.0, sumNorm, 1.0)),
+            0.0)
         # SEAICE_SWFrac (seaice_init_fixed.F:71-87, swfrac.F jwtype=2)
         z2 = float(grid.rF[1])
         rfac, a1, a2 = 0.62, 0.6, 20.0
@@ -559,56 +576,133 @@ class SeaIce:
                         TICES=tice, SItracer=empty, sigma=sigma)
 
     # ------------------------------------------------------------------
-    # plain glue
+    # kernel S1's twin (seaice_dynforcing): the step's set-up
+    # (seaice.py:1989-2025 with get_dynforcing :484 and evp's set-up
+    # :1094-1112), and kernel S2's (seaice_ocean_stress): the ocean stress
+    # (ocean_stress :1301, ocean_stress_hb87 :1288-1300), the no-dynamics
+    # drag (:2047) and EVP's clip (:2063-2066)
     # ------------------------------------------------------------------
-    def get_dynforcing(self, forc):
-        """seaice_get_dynforcing.F without exf: the ocean's wind stress
-        rescaled by SEAICE_drag / OCEAN_drag."""
+    def _dynforcing_plain(self, HEFF, AREA, HSNOW, fu, fv, etaN,
+                          evp: bool) -> dict:
+        """Kernel S1's twin: press0, zMax, get_dynforcing's taux and tauy
+        (seaice_get_dynforcing.F without exf: the ocean's wind stress
+        rescaled by SEAICE_drag / OCEAN_drag), massC, massU and massV (with
+        the snow's under SEAICEaddSnowMass), forcex0 and forcey0 (under
+        scaleSurfStress and useTilt), the stress areas areaW and areaS
+        and, with evp, the masks of the cells that carry ice mass, as a
+        dict of DYNFORCING_OUT."""
         p, g = self.p, self.grid
+        press0 = (p.strength * HEFF
+                  * torch.exp(-p.cStar * (1.0 - AREA))) * self.HEFFM
         cdair = _where(g.yC < 0.0, p.drag_south / p.OCEAN_drag,
                        p.drag / p.OCEAN_drag, like=g.yC)
-        return cdair * forc.fu * self.SIMaskU, cdair * forc.fv * self.SIMaskV
+        taux = cdair * fu * self.SIMaskU
+        tauy = cdair * fv * self.SIMaskV
+        massC = p.rhoIce * HEFF
+        massU = p.rhoIce * 0.5 * (HEFF + sh(HEFF, di=-1))
+        massV = p.rhoIce * 0.5 * (HEFF + sh(HEFF, dj=-1))
+        if p.addSnowMass:
+            massC = massC + p.rhoSnow * HSNOW
+            massU = massU + p.rhoSnow * 0.5 * (HSNOW + sh(HSNOW, di=-1))
+            massV = massV + p.rhoSnow * 0.5 * (HSNOW + sh(HSNOW, dj=-1))
+        if p.scaleSurfStress:
+            forcex0 = taux * 0.5 * (AREA + sh(AREA, di=-1))
+            forcey0 = tauy * 0.5 * (AREA + sh(AREA, dj=-1))
+            areaW = 0.5 * (AREA + sh(AREA, di=-1))
+            areaS = 0.5 * (AREA + sh(AREA, dj=-1))
+        else:
+            forcex0, forcey0 = taux, tauy
+            areaW = torch.ones_like(HEFF)
+            areaS = torch.ones_like(HEFF)
+        if p.useTilt:
+            phiSurf = g.Bo_surf * etaN
+            forcex0 = forcex0 - massU * g.recip_dxC * (
+                phiSurf - sh(phiSurf, di=-1))
+            forcey0 = forcey0 - massV * g.recip_dyC * (
+                phiSurf - sh(phiSurf, dj=-1))
+        out = dict(press0=press0, zMax=p.zetaMaxFac * press0, taux=taux,
+                   tauy=tauy, massC=massC, massU=massU, massV=massV,
+                   forcex0=forcex0, forcey0=forcey0, areaW=areaW,
+                   areaS=areaS)
+        if evp:
+            out.update(locMaskU=_where(massU != 0.0, 1.0, 0.0, like=massU),
+                       locMaskV=_where(massV != 0.0, 1.0, 0.0, like=massV))
+        return out
+
+    def dynforcing(self, ice: IceState, fu, fv, etaN, evp: bool,
+                   impl: str = None) -> dict:
+        """The step's set-up as a dict of DYNFORCING_OUT (locMaskU/V with
+        evp): kernel S1 on CUDA tensors, whose inputs may not require
+        grad, its twin on CPU tensors or with impl="plain"."""
+        args = (ice.HEFF, ice.AREA, ice.HSNOW, fu, fv, etaN, evp)
+        if not kernels.use_kernel(ice.HEFF, impl):
+            global plain_calls
+            plain_calls += 1
+            return self._dynforcing_plain(*args)
+        return seaice_kernels.dynforcing(self, *args)
+
+    def _ocean_stress_plain(self, uIce, vIce, uVel0, vVel0, dwatn, AREA, fu,
+                            fv, windTauX, windTauY, stressDivX, stressDivY,
+                            mode: int, drag: bool, clip: bool):
+        """Kernel S2's twin: (fu', fv', uIce', vIce'), None where not
+        formed. mode 1: seaice_ocean_stress.F without HB87, the ice-ocean
+        drag dwatn (with drag: oceandrag of the ice and surface velocity,
+        the dynamics off) blended into the ocean's surface stress by the
+        ice fraction; mode 2: under useHB87stressCoupling
+        (seaice_ocean_stress.F:66-100), the wind's stress over the ice
+        fraction plus the divergence of the EVP stresses (Hibler and Bryan
+        1987); mode 0: none. clip: SEAICE_clipVelocities
+        (seaice_dynsolver.F:387-405), the ice velocity capped at 0.40 m/s
+        against the CFL violations of thin drifting ice."""
+        p, g = self.p, self.grid
+        fu_new = fv_new = uClip = vClip = None
+        areaW = 0.5 * (AREA + sh(AREA, di=-1)) * p.stressFactor
+        areaS = 0.5 * (AREA + sh(AREA, dj=-1)) * p.stressFactor
+        if mode == 2:
+            fu_new = ((1.0 - areaW) * fu + areaW * windTauX
+                      + stressDivX * p.stressFactor)
+            fv_new = ((1.0 - areaS) * fv + areaS * windTauY
+                      + stressDivY * p.stressFactor)
+        elif mode == 1:
+            if drag:
+                dwatn = self.oceandrag(uIce, vIce, uVel0, vVel0)
+            sinwat = math.sin(math.radians(p.waterTurnAngle))
+            coswat = math.cos(math.radians(p.waterTurnAngle))
+            sgn = _sgn(g.fCori)
+            du = uIce - uVel0
+            dv = vIce - vVel0
+            fuIce = (0.5 * (dwatn + sh(dwatn, di=-1)) * coswat * du
+                     - sgn * sinwat * 0.5
+                     * (dwatn * 0.5 * (dv + sh(dv, dj=1))
+                        + sh(dwatn, di=-1) * 0.5
+                        * (sh(dv, di=-1) + sh(sh(dv, dj=1), di=-1))))
+            fvIce = (0.5 * (dwatn + sh(dwatn, dj=-1)) * coswat * dv
+                     + sgn * sinwat * 0.5
+                     * (dwatn * 0.5 * (du + sh(du, di=1))
+                        + sh(dwatn, dj=-1) * 0.5
+                        * (sh(du, dj=-1) + sh(sh(du, di=1), dj=-1))))
+            fu_new = (1.0 - areaW) * fu + areaW * fuIce
+            fv_new = (1.0 - areaS) * fv + areaS * fvIce
+        if clip:
+            uClip, vClip = uIce.clamp(-0.40, 0.40), vIce.clamp(-0.40, 0.40)
+        return fu_new, fv_new, uClip, vClip
 
     def ocean_stress(self, ice: IceState, dwatn, uVel0, vVel0, fu, fv,
+                     windTau=None, stressDiv=None, mode: int = 1,
+                     drag: bool = False, clip: bool = False,
                      impl: str = None):
-        """seaice_ocean_stress.F (without HB87): the ice-ocean drag blended
-        into the ocean's surface stress by the ice fraction."""
-        p, g = self.p, self.grid
-        sinwat = math.sin(math.radians(p.waterTurnAngle))
-        coswat = math.cos(math.radians(p.waterTurnAngle))
-        sgn = _sgn(g.fCori)
-        du = ice.uIce - uVel0
-        dv = ice.vIce - vVel0
-        fuIce = (0.5 * (dwatn + sh(dwatn, di=-1)) * coswat * du
-                 - sgn * sinwat * 0.5
-                 * (dwatn * 0.5 * (dv + sh(dv, dj=1))
-                    + sh(dwatn, di=-1) * 0.5
-                    * (sh(dv, di=-1) + sh(sh(dv, dj=1), di=-1))))
-        fvIce = (0.5 * (dwatn + sh(dwatn, dj=-1)) * coswat * dv
-                 + sgn * sinwat * 0.5
-                 * (dwatn * 0.5 * (du + sh(du, di=1))
-                    + sh(dwatn, dj=-1) * 0.5
-                    * (sh(du, dj=-1) + sh(sh(du, di=1), dj=-1))))
-        areaW = 0.5 * (ice.AREA + sh(ice.AREA, di=-1)) * p.stressFactor
-        areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1)) * p.stressFactor
-        fu_new = (1.0 - areaW) * fu + areaW * fuIce
-        fv_new = (1.0 - areaS) * fv + areaS * fvIce
-        return self.fill_uv(fu_new, fv_new, impl)
-
-    def ocean_stress_hb87(self, ice: IceState, windTauX, windTauY,
-                          stressDivX, stressDivY, fu, fv, impl: str = None):
-        """seaice_ocean_stress.F:66-100 under useHB87stressCoupling
-        (seaice.py:ocean_stress_hb87): the ocean's surface stress is the
-        wind's over the ice fraction plus the divergence of the EVP
-        stresses (Hibler and Bryan 1987)."""
-        p = self.p
-        areaW = 0.5 * (ice.AREA + sh(ice.AREA, di=-1)) * p.stressFactor
-        areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1)) * p.stressFactor
-        fu_new = ((1.0 - areaW) * fu + areaW * windTauX
-                  + stressDivX * p.stressFactor)
-        fv_new = ((1.0 - areaS) * fv + areaS * windTauY
-                  + stressDivY * p.stressFactor)
-        return self.fill_uv(fu_new, fv_new, impl)
+        """The ocean's new surface stress and the clipped ice velocity,
+        (fu', fv', uIce', vIce') as _ocean_stress_plain's: kernel S2 on
+        CUDA tensors, whose inputs may not require grad, its twin on CPU
+        tensors or with impl="plain". The caller fills fu' and fv'."""
+        args = (ice.uIce, ice.vIce, uVel0, vVel0, dwatn, ice.AREA, fu, fv,
+                *(windTau or (None, None)), *(stressDiv or (None, None)),
+                mode, drag, clip)
+        if not kernels.use_kernel(ice.uIce, impl):
+            global plain_calls
+            plain_calls += 1
+            return self._ocean_stress_plain(*args)
+        return seaice_kernels.ocean_stress(self, *args)
 
     # ------------------------------------------------------------------
     # kernel seaice_lsr_prep's twin: one Picard pass's assembly
@@ -650,12 +744,8 @@ class SeaIce:
 
     def _etaZ(self, eta):
         hm = self.HEFFM
-        sumNorm = hm + sh(hm, di=-1) + sh(hm, dj=-1) + sh(sh(hm, di=-1),
-                                                          dj=-1)
-        sumNorm = _where(sumNorm > 0.0,
-                         _rdiv(1.0, _where(sumNorm > 0.0, sumNorm, 1.0)), 0.0)
-        etaZ = sumNorm * (eta + sh(eta, di=-1) + sh(eta, dj=-1)
-                          + sh(sh(eta, di=-1), dj=-1))
+        etaZ = self.sumNorm * (eta + sh(eta, di=-1) + sh(eta, dj=-1)
+                               + sh(sh(eta, di=-1), dj=-1))
         maskZ = hm * sh(hm, di=-1) * sh(hm, dj=-1) * sh(sh(hm, di=-1), dj=-1)
         return etaZ * maskZ
 
@@ -975,22 +1065,17 @@ class SeaIce:
         return u, v, (state[4], state[5]), syncs
 
     def lsr(self, ice: IceState, uVel0, vVel0, press0, zMax, massC, massU,
-            massV, forcex0, forcey0, impl: str = None):
+            massV, forcex0, forcey0, areaW, areaS, impl: str = None):
         """SEAICE_LSR (seaice.py:876): the Picard passes around the linear
-        loop. Returns (uIce, vIce, dwatn, [(ICOUNT1, ICOUNT2) per pass],
-        [host syncs per pass])."""
+        loop, with the stress areas areaW and areaS (dynforcing's).
+        Returns (uIce, vIce, dwatn, [(ICOUNT1, ICOUNT2) per pass], [host
+        syncs per pass])."""
         p = self.p
         recip_dt = 1.0 / p.deltaTdyn
         uIce, vIce = ice.uIce, ice.vIce
         uNm1, vNm1 = uIce, vIce
         fxTmp = forcex0 + massU * recip_dt * uNm1
         fyTmp = forcey0 + massV * recip_dt * vNm1
-        if p.scaleSurfStress:
-            areaW = 0.5 * (ice.AREA + sh(ice.AREA, di=-1))
-            areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1))
-        else:
-            areaW = torch.ones_like(uIce)
-            areaS = torch.ones_like(uIce)
         uIceC, vIceC = uIce, vIce
         counts, syncs = [], []
         for ipass in range(1, p.nonLinIterMax + 1):
@@ -1051,25 +1136,6 @@ class SeaIce:
             # the denominators alpha (revised or adaptive) or alpha + 1,
             # alpha + e^2 (seaice.py:1151-1164)
             rev_den=p.useEVPrev or adaptive)
-
-    def evp_setup(self, ice: IceState, massU, massV) -> dict:
-        """The per-step set-up of SeaIce.evp (seaice.py:1094-1112), plain
-        glue: sumNorm at Z points, areaW/areaS and the masks of the cells
-        that carry ice mass."""
-        p, hm = self.p, self.HEFFM
-        sumNorm = hm + sh(hm, di=-1) + sh(hm, dj=-1) + sh(sh(hm, di=-1),
-                                                          dj=-1)
-        sumNorm = _where(sumNorm > 0.0,
-                         _rdiv(1.0, _where(sumNorm > 0.0, sumNorm, 1.0)), 0.0)
-        if p.scaleSurfStress:
-            areaW = 0.5 * (ice.AREA + sh(ice.AREA, di=-1))
-            areaS = 0.5 * (ice.AREA + sh(ice.AREA, dj=-1))
-        else:
-            areaW = torch.ones_like(ice.uIce)
-            areaS = torch.ones_like(ice.uIce)
-        return {"sumNorm": sumNorm, "areaW": areaW, "areaS": areaS,
-                "locMaskU": _where(massU != 0.0, 1.0, 0.0, like=massU),
-                "locMaskV": _where(massV != 0.0, 1.0, 0.0, like=massV)}
 
     def _e12(self, u, v):
         """The shear strain rate at Z points (seaice.py:strainrates)."""
@@ -1184,15 +1250,17 @@ class SeaIce:
         return u_new, v_new, s12, dwatn, divX, divY
 
     def evp(self, ice: IceState, uVel0, vVel0, press0, massC, massU, massV,
-            forcex0, forcey0, impl: str = None):
+            forcex0, forcey0, setup: dict, impl: str = None):
         """SEAICE_EVP (seaice.py:evp, :1059): nEVPstarSteps subcycles of
         the (adaptive) elastic-viscous-plastic stresses and the explicit
         velocity update, from ice.sigma. Returns (uIce, vIce, dwatn, sigma
         [3, nyp, nxp], stressDivX, stressDivY). On the card the whole loop
         is enqueued at once, kernel seaice_evp's two launches a subcycle,
         with no host read (seaice_kernels.evp_loop); for CPU tensors or
-        with impl="plain" the twins of the two launches run the loop."""
-        setup = self.evp_setup(ice, massU, massV)
+        with impl="plain" the twins of the two launches run the loop.
+        setup: the per-step set-up (seaice.py:1094-1112): sumNorm at Z
+        points, and areaW, areaS, locMaskU and locMaskV of kernel S1
+        (dynforcing)."""
         sig = ice.sigma
         if sig.shape[0] != 3:
             sig = ice.uIce.new_zeros((3,) + tuple(ice.uIce.shape))
@@ -1637,34 +1705,15 @@ class SeaIce:
         {"lsr_iters": [(ICOUNT1, ICOUNT2) per Picard pass],
         "lsr_host_syncs": [per pass]}); the lists are empty unless the
         dynamics run the LSR."""
-        p, g = self.p, self.grid
-        press0 = (p.strength * ice.HEFF
-                  * torch.exp(-p.cStar * (1.0 - ice.AREA))) * self.HEFFM
-        zMax = p.zetaMaxFac * press0
-        taux, tauy = self.get_dynforcing(forc)
-        massC = p.rhoIce * ice.HEFF
-        massU = p.rhoIce * 0.5 * (ice.HEFF + sh(ice.HEFF, di=-1))
-        massV = p.rhoIce * 0.5 * (ice.HEFF + sh(ice.HEFF, dj=-1))
-        if p.addSnowMass:
-            massC = massC + p.rhoSnow * ice.HSNOW
-            massU = massU + p.rhoSnow * 0.5 * (ice.HSNOW
-                                               + sh(ice.HSNOW, di=-1))
-            massV = massV + p.rhoSnow * 0.5 * (ice.HSNOW
-                                               + sh(ice.HSNOW, dj=-1))
-        phiSurf = g.Bo_surf * etaN
-        if p.scaleSurfStress:
-            forcex0 = taux * 0.5 * (ice.AREA + sh(ice.AREA, di=-1))
-            forcey0 = tauy * 0.5 * (ice.AREA + sh(ice.AREA, dj=-1))
-        else:
-            forcex0, forcey0 = taux, tauy
-        if p.useTilt:
-            forcex0 = forcex0 - massU * g.recip_dxC * (
-                phiSurf - sh(phiSurf, di=-1))
-            forcey0 = forcey0 - massV * g.recip_dyC * (
-                phiSurf - sh(phiSurf, dj=-1))
+        p = self.p
         # the dynamics (seaice.py:2027-2047): free drift, EVP, LSR or none
-        counts, syncs = [], []
         evp = p.useDYNAMICS and p.useEVP and not p.useFreeDrift
+        d = self.dynforcing(ice, forc.fu, forc.fv, etaN, evp, impl=impl)
+        press0, massC, massU, massV = (d[k] for k in (
+            "press0", "massC", "massU", "massV"))
+        forcex0, forcey0 = d["forcex0"], d["forcey0"]
+        counts, syncs = [], []
+        stressDiv = None
         if p.useDYNAMICS and p.useFreeDrift:
             uIce, vIce = self.freedrift(ice, uVel0, vVel0, forcex0, forcey0,
                                         impl)
@@ -1674,31 +1723,37 @@ class SeaIce:
             # copied: seaice.py:2029-2035)
             dwatn = torch.zeros_like(press0)
         elif evp:
-            (uIce, vIce, dwatn, sigma, stressDivX,
-             stressDivY) = self.evp(ice, uVel0, vVel0, press0, massC, massU,
-                                    massV, forcex0, forcey0, impl=impl)
+            setup = {"sumNorm": self.sumNorm,
+                     **{k: d[k] for k in ("areaW", "areaS", "locMaskU",
+                                          "locMaskV")}}
+            (uIce, vIce, dwatn, sigma, *stressDiv) = self.evp(
+                ice, uVel0, vVel0, press0, massC, massU, massV, forcex0,
+                forcey0, setup, impl=impl)
             ice = ice._replace(uIce=uIce, vIce=vIce, sigma=sigma)
         elif p.useDYNAMICS:
             uIce, vIce, dwatn, counts, syncs = self.lsr(
-                ice, uVel0, vVel0, press0, zMax, massC, massU, massV,
-                forcex0, forcey0, impl=impl)
+                ice, uVel0, vVel0, press0, d["zMax"], massC, massU, massV,
+                forcex0, forcey0, d["areaW"], d["areaS"], impl=impl)
             ice = ice._replace(uIce=uIce, vIce=vIce)
         else:
-            dwatn = self.oceandrag(ice.uIce, ice.vIce, uVel0, vVel0)
+            # the no-dynamics drag, formed by kernel S2 where it reads it
+            dwatn = None
+        # the ocean stress and, whenever EVP is set, under free drift too,
+        # the clip after it (seaice.py:2048-2066; the LSR clips before its
+        # fill, SeaIce.lsr): kernel S2
         upd = {}
-        if p.updateOceanStress:
-            if p.useHB87stressCoupling:     # EVP only (check_seaice)
-                upd["fu"], upd["fv"] = self.ocean_stress_hb87(
-                    ice, taux, tauy, stressDivX, stressDivY, fu, fv, impl)
-            else:
-                upd["fu"], upd["fv"] = self.ocean_stress(ice, dwatn, uVel0,
-                                                         vVel0, fu, fv, impl)
-        if p.useDYNAMICS and p.useEVP and p.clipVelocities:
-            # after the ocean stress whenever EVP is set, under free drift
-            # too (seaice.py:2063-2066); the LSR clips before its fill
-            # (SeaIce.lsr)
-            uIce, vIce = self.clip(ice.uIce, ice.vIce)
-            ice = ice._replace(uIce=uIce, vIce=vIce)
+        clip = p.useDYNAMICS and p.useEVP and p.clipVelocities
+        mode = (0 if not p.updateOceanStress else
+                2 if p.useHB87stressCoupling else 1)   # HB87: EVP only
+        if mode or clip:
+            fu_new, fv_new, uClip, vClip = self.ocean_stress(
+                ice, dwatn, uVel0, vVel0, fu, fv,
+                windTau=(d["taux"], d["tauy"]), stressDiv=stressDiv,
+                mode=mode, drag=dwatn is None, clip=clip, impl=impl)
+            if mode:
+                upd["fu"], upd["fv"] = self.fill_uv(fu_new, fv_new, impl)
+            if clip:
+                ice = ice._replace(uIce=uClip, vIce=vClip)
         ice = self.advdiff(ice, impl=impl)
         ice, forc_upd = self.thermo(ice, forc, theta0, salt0, impl=impl)
         # the end-of-step exchanges (seaice_model.F:1411-1420)

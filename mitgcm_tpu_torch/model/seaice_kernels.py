@@ -1,6 +1,7 @@
 """The card side of model/seaice.py: the wrappers that check their inputs
 and launch the sea ice's CUDA kernels (kernels/csrc/seaice_lsr.cu,
-seaice_advect.cu, seaice_thermo.cu, seaice_evp.cu, seaice_freedrift.cu).
+seaice_advect.cu, seaice_thermo.cu, seaice_evp.cu, seaice_freedrift.cu,
+seaice_glue.cu).
 model/seaice.py calls them for CUDA tensors; each mirrors a plain twin
 there, bit for bit. None of these kernels has a backward kernel: every
 wrapper, and every dispatcher in model/seaice.py that would run a twin,
@@ -402,4 +403,76 @@ def freedrift(si, heff, uVel0, vVel0, forcex0, forcey0):
     table = kernels.pointer_table(list(ins.values()) + outs)
     kernels.launch("seaice_freedrift", heff.dtype, table, len(table), params,
                    len(params), cfg.ny, cfg.nx, cfg.olx)
+    return tuple(outs)
+
+
+def dynforcing(si, HEFF, AREA, HSNOW, fu, fv, etaN, evp: bool) -> dict:
+    """seaice_dynforcing (model/seaice.py:_dynforcing_plain): the step's
+    set-up as a dict of seaice.DYNFORCING_OUT (locMaskU/V with evp)."""
+    from mitgcm_tpu_torch.model.seaice import DYNFORCING_OUT
+
+    p, g = si.p, si.grid
+    dtype, shape = HEFF.dtype, tuple(HEFF.shape)
+    flags = (int(p.addSnowMass) | 2 * int(p.scaleSurfStress)
+             | 4 * int(p.useTilt) | 8 * int(evp))
+    ins = dict(HEFF=HEFF, AREA=AREA, HSNOW=HSNOW if flags & 1 else None,
+               fu=fu, fv=fv, yC=g.yC, SIMaskU=si.SIMaskU, SIMaskV=si.SIMaskV,
+               HEFFM=si.HEFFM, **{n: t if flags & 4 else None for n, t in (
+                   ("etaN", etaN), ("Bo_surf", g.Bo_surf),
+                   ("recip_dxC", g.recip_dxC), ("recip_dyC", g.recip_dyC))})
+    refuse_grad("seaice_dynforcing", **ins)
+    outs = {n: torch.empty_like(HEFF) for n in
+            DYNFORCING_OUT[:11 + 2 * int(evp)]}
+    kernels.check_fields(dtype, shape, **outs, **{
+        n: t for n, t in ins.items() if t is not None})
+    table = kernels.pointer_table(
+        list(ins.values()) + [outs.get(n) for n in DYNFORCING_OUT])
+    params = kernels.doubles([
+        p.strength, -p.cStar, p.zetaMaxFac, p.drag_south / p.OCEAN_drag,
+        p.drag / p.OCEAN_drag, p.rhoIce, p.rhoIce * 0.5, p.rhoSnow,
+        p.rhoSnow * 0.5])
+    kernels.launch("seaice_dynforcing", dtype, table, len(table), params,
+                   len(params), *shape, flags)
+    return outs
+
+
+def ocean_stress(si, uIce, vIce, uVel0, vVel0, dwatn, AREA, fu, fv,
+                 windTauX, windTauY, stressDivX, stressDivY, mode: int,
+                 drag: bool, clip: bool):
+    """seaice_ocean_stress (model/seaice.py:_ocean_stress_plain): (fu',
+    fv', uIce', vIce'), None where not formed."""
+    p, g, cfg = si.p, si.grid, si.cfg
+    dtype, shape = uIce.dtype, tuple(uIce.shape)
+    stress, hb87 = mode != 0, mode == 2
+    drag_in = mode == 1 and drag
+    ins = dict(uIce=uIce, vIce=vIce,
+               uVel0=uVel0 if mode == 1 else None,
+               vVel0=vVel0 if mode == 1 else None,
+               dwatn=dwatn if mode == 1 and not drag else None,
+               fCori=g.fCori if mode == 1 else None,
+               AREA=AREA if stress else None, fu=fu if stress else None,
+               fv=fv if stress else None,
+               windTauX=windTauX if hb87 else None,
+               windTauY=windTauY if hb87 else None,
+               stressDivX=stressDivX if hb87 else None,
+               stressDivY=stressDivY if hb87 else None,
+               **{n: t if drag_in else None for n, t in (
+                   ("maskInW", g.maskInW), ("maskInS", g.maskInS),
+                   ("yC", g.yC), ("HEFFM", si.HEFFM))})
+    refuse_grad("seaice_ocean_stress", **ins)
+    outs = [torch.empty_like(uIce) if on else None
+            for on in (stress, stress, clip, clip)]
+    kernels.check_fields(dtype, shape, **{
+        n: t for n, t in ins.items() if t is not None}, **{
+            f"out{k}": t for k, t in enumerate(outs) if t is not None})
+    table = kernels.pointer_table(list(ins.values()) + outs)
+    rho = cfg.rhoConst
+    params = kernels.doubles([
+        math.sin(math.radians(p.waterTurnAngle)),
+        math.cos(math.radians(p.waterTurnAngle)), p.stressFactor,
+        p.waterDrag_south * rho, p.waterDrag * rho, p.dWatMin * p.dWatMin,
+        p.dWatMin])
+    kernels.launch("seaice_ocean_stress", dtype, table, len(table), params,
+                   len(params), *shape, mode,
+                   int(clip) | 2 * int(drag_in))
     return tuple(outs)

@@ -357,20 +357,14 @@ def _som_plain(cfg: Config, grid: Grid, u, v, w, tracer, smTr, scheme: int,
 _GRID3 = ("hFacW", "hFacS", "hFacC", "maskC", "recip_hFacC")
 _GRID2 = ("dyG", "dxG", "rA", "recip_rA", "maskInC")
 _GRID1 = ("drF", "recip_drF")
-# the fields each pass reads besides its input state
-_READS = {"x": ("uVel", "tracer", "hFacW", "dyG", "drF", "rA", "hFacC",
-                "maskC"),
-          "y": ("vVel", "hFacS", "dxG", "drF"),
-          "r": ("wVel", "tracer", "rA", "maskC", "maskInC", "recip_rA",
-                "recip_drF", "recip_hFacC")}
 
 
 def som_sweeps(cfg: Config, grid: Grid, u, v, w, tracer, smTr, scheme: int,
-               deltaT: float):
+               deltaT: float, add=None):
     """The three passes on the card: a list of (name, launch, the pass's
-    outputs, the tensors the pass reads and writes), in the order they must
-    run. som_x writes (vol, o, sm) from the tracer and smTr, som_y the same
-    from som_x's, som_r (gTr, sm') from som_y's."""
+    outputs), in the order they must run. som_x writes (vol, o, sm) from
+    the tracer and smTr, som_y the same from som_x's, som_r (gTr, sm')
+    from som_y's, gTr + add with add."""
     nr, nyp, nxp = tracer.shape
     ins3 = dict(uVel=u, vVel=v, wVel=w, tracer=tracer,
                 **{n: getattr(grid, n) for n in _GRID3})
@@ -382,9 +376,12 @@ def som_sweeps(cfg: Config, grid: Grid, u, v, w, tracer, smTr, scheme: int,
     r = [torch.empty_like(tracer), torch.empty_like(smTr)]
     kernels.check_tensors(tracer.dtype, **ins3, **ins2, **ins1, smTr=smTr,
                           volX=x[0], oX=x[1], smX=x[2], volY=y[0], oY=y[1],
-                          smY=y[2], gTr=r[0], smNew=r[1])
+                          smY=y[2], gTr=r[0], smNew=r[1],
+                          **({} if add is None else {"add": add}))
     for name, t in ins3.items():
         kernels.check_shape(name, t, (nr, nyp, nxp))
+    if add is not None:
+        kernels.check_shape("add", add, (nr, nyp, nxp))
     for name, t in ins2.items():
         kernels.check_shape(name, t, (nyp, nxp))
     for name, t in ins1.items():
@@ -400,18 +397,16 @@ def som_sweeps(cfg: Config, grid: Grid, u, v, w, tracer, smTr, scheme: int,
         vol_in, o_in = state_in
         if name == "som_r":
             vol_out = o_out = None
-            gTr, sm_out = outs
+            (gTr, sm_out), addend = outs, add
         else:
-            (vol_out, o_out, sm_out), gTr = outs, None
+            (vol_out, o_out, sm_out), gTr, addend = outs, None, None
 
         def run():
             kernels.launch(name, tracer.dtype, table, len(table),
                            ptr(vol_in), ptr(o_in), ptr(sm_in), ptr(vol_out),
-                           ptr(o_out), ptr(sm_out), ptr(gTr), nr, nyp, nxp,
-                           scheme % 10, float(deltaT))
-        touched = [t for t in (vol_in, o_in, sm_in, *outs) if t is not None]
-        touched += [named[n] for n in _READS[name[-1]]]
-        return name, run, outs, touched
+                           ptr(o_out), ptr(sm_out), ptr(gTr), ptr(addend),
+                           nr, nyp, nxp, scheme % 10, float(deltaT))
+        return name, run, outs
 
     return [sweep("som_x", (None, None), smTr, x),
             sweep("som_y", x[:2], x[2], y),
@@ -419,19 +414,24 @@ def som_sweeps(cfg: Config, grid: Grid, u, v, w, tracer, smTr, scheme: int,
 
 
 def som_advect(cfg: Config, grid: Grid, u, v, w, tracer, smTr, scheme: int,
-               deltaT: float, impl: str = None):
+               deltaT: float, impl: str = None, add=None):
     """gad_som_advect.F (som.py:188-352): (gTracer, smTr') for a tracer
     [nr, nyp, nxp] and its moments smTr [9, nr, nyp, nxp], every cell of
-    the padded arrays; the caller stores smTr' and fills its halos at the
-    end of the step."""
+    the padded arrays, gTracer + add with add (the tracer's other
+    tendency: som_r adds it as it writes, the twin after); the caller
+    stores smTr' and fills its halos at the end of the step."""
     if scheme not in SOM_SCHEMES:
         raise ValueError(f"som_advect: scheme {scheme} is not SOM (80, 81)")
-    if any(t.requires_grad for t in (u, v, w, tracer, smTr)):
+    if any(t is not None and t.requires_grad
+           for t in (u, v, w, tracer, smTr, add)):
         raise ValueError("som_advect: an input requires grad; kernel H-SOM "
                          "has no backward kernel")
     if not kernels.use_kernel(tracer, impl):
-        return _som_plain(cfg, grid, u, v, w, tracer, smTr, scheme, deltaT)
-    sweeps = som_sweeps(cfg, grid, u, v, w, tracer, smTr, scheme, deltaT)
-    for _, run, _, _ in sweeps:
+        gSom, sm = _som_plain(cfg, grid, u, v, w, tracer, smTr, scheme,
+                              deltaT)
+        return (gSom if add is None else gSom + add), sm
+    sweeps = som_sweeps(cfg, grid, u, v, w, tracer, smTr, scheme, deltaT,
+                        add)
+    for _, run, _ in sweeps:
         run()
     return tuple(sweeps[-1][2])

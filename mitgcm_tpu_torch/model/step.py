@@ -64,9 +64,9 @@ from mitgcm_tpu_torch.solver import cg2d as cg2d_mod
 from mitgcm_tpu_torch.solver import cg3d as cg3d_mod
 
 
-# calls of the twins of kernels E and G in this module (cg2d_rhs,
-# continuity, mom_ab_step, mom_correction), for the card's runs to show
-# that the main path never ran them
+# calls of the twins of kernels E, G, J-uv and N1 in this module
+# (cg2d_rhs, continuity, mom_ab_step, mom_correction, kappa_uv, pre_cg3d),
+# for the card's runs to show that the main path never ran them
 plain_calls = 0
 
 
@@ -271,16 +271,12 @@ def load_fields(forcing: Forcing) -> Forcing:
                       for k, v in forcing.__dict__.items()})
 
 
-def apply_forcing_uv(cfg: Config, grid: Grid, forcing: Forcing):
-    """Wind stress into the surface cell (apply_forcing.F)."""
-    sfu = forcing.fu * cfg.mass2rUnit
-    sfv = forcing.fv * cfg.mass2rUnit
-    shape = (cfg.nr,) + tuple(sfu.shape)
-    guExt = torch.zeros(shape, dtype=sfu.dtype, device=sfu.device)
-    gvExt = torch.zeros_like(guExt)
-    guExt[0] = sfu * grid.recip_drF[0] * grid.recip_hFacW[0]
-    gvExt[0] = sfv * grid.recip_drF[0] * grid.recip_hFacS[0]
-    return guExt, gvExt
+def _surface_level(ext, nr: int):
+    """apply_forcing.F's 3-D forcing: ext [nyp, nxp] in the surface level,
+    0 below it."""
+    ext3 = ext.new_zeros((nr,) + tuple(ext.shape))
+    ext3[0] = ext
+    return ext3
 
 
 def _mom_ab_step_plain(cfg: Config, grid: Grid, myIter: int, gU, dPhiX,
@@ -289,13 +285,15 @@ def _mom_ab_step_plain(cfg: Config, grid: Grid, myIter: int, gU, dPhiX,
                        gwNm1=None, gwNm2=None, w=None):
     """Kernel G's mom_ab_step twin (step.py:dynamics of the JAX package,
     :300-357): (gU, uStar, gV, vStar[, gW, wStar]), the raw tendencies
-    (the next step's gNm1) and the predictors; w's with gW."""
+    (the next step's gNm1) and the predictors; w's with gW. guExt and
+    gvExt are the wind stress's surface level [nyp, nxp] (kernel Q's),
+    added as apply_forcing.F's 3-D forcing, 0 below the surface."""
     out = []
     for terms, gNm1, gNm2, x, mask in (
             ((gU, dPhiX, guDiss, guExt), guNm1, guNm2, u, grid.maskW),
             ((gV, dPhiY, gvDiss, gvExt), gvNm1, gvNm2, v, grid.maskS)):
         tend, dPhi, diss, ext = terms
-        g = tend - dPhi + diss + ext
+        g = tend - dPhi + diss + _surface_level(ext, tend.shape[0])
         g_ab = adams_bashforth(cfg, g, gNm1, gNm2, myIter)[0]
         out += [g, x + cfg.deltaTMom * g_ab * mask]
     if gW is not None:
@@ -326,8 +324,11 @@ def _mom_ab_step_kernel(cfg: Config, grid: Grid, myIter: int, *tensors):
         ins.update(guNm2=u, gvNm2=u, gwNm2=u)
     masks = dict(maskW=grid.maskW, maskS=grid.maskS,
                  **({"maskC": grid.maskC} if nh else {}))
-    kernels.check_fields(u.dtype, u.shape, **ins, **masks,
-                         **{f"out{k}": t for k, t in enumerate(outs)})
+    ext = ("guExt", "gvExt")     # the forcing's surface level, 2-D
+    kernels.check_fields(u.dtype, u.shape, **{
+        n: t for n, t in ins.items() if n not in ext}, **masks,
+        **{f"out{k}": t for k, t in enumerate(outs)})
+    kernels.check_fields(u.dtype, u.shape[1:], **{n: ins[n] for n in ext})
     vals = list(ins.values())
     table = (vals[:7] + [grid.maskW] + vals[7:14] + [grid.maskS]
              + vals[14:] + [grid.maskC] + list(outs) + [u] * (6 - len(outs)))
@@ -364,7 +365,8 @@ def _mom_ab_step_adj_kernel(cfg: Config, grid: Grid, myIter: int, need,
     """Kernel G''s mom_ab_step_adj on the card (step_glue_adj.cu): the
     cotangents of mom_ab_step's 14 hydrostatic inputs (_MOM_AB_IN's
     first), fresh where `need` asks for them, None elsewhere; u's and v's
-    are uStar's and vStar's cotangents themselves."""
+    are uStar's and vStar's cotangents themselves, guExt's and gvExt's
+    the surface level of gU's and gV's."""
     order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter)
     like = uStar_bar
     outs, table = [], [uStar_bar, gu_bar, vStar_bar, gv_bar, grid.maskW,
@@ -376,7 +378,8 @@ def _mom_ab_step_adj_kernel(cfg: Config, grid: Grid, myIter: int, need,
         nm1 = torch.empty_like(like) if n[4] else None
         nm2 = torch.empty_like(like) if n[5] and order == 3 else None
         table += [g, dphi, nm1, nm2]
-        outs += [g, dphi, g, g, nm1, nm2, (uStar_bar, vStar_bar)[c]]
+        outs += [g, dphi, g, None if g is None else g[0], nm1, nm2,
+                 (uStar_bar, vStar_bar)[c]]
     kernels.check_fields(like.dtype, like.shape, **{
         f"t{k}": t for k, t in enumerate(table) if t is not None})
     kernels.launch("mom_ab_step_adj", like.dtype,
@@ -390,7 +393,9 @@ def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
                 gw=None):
     """The total momentum tendencies, their AB extrapolation and the
     predictors (dynamics.F + timestep.F): (uStar, vStar, guNm1', gvNm1',
-    guNm2', gvNm2', nh). gw: with nonHydrostatic, calc_gw's (gW, gwDiss),
+    guNm2', gvNm2', nh). guExt, gvExt: the wind stress's surface level
+    [nyp, nxp] (kernel Q's; 0 below the surface). gw: with nonHydrostatic,
+    calc_gw's (gW, gwDiss),
     and nh holds w* and the w-tendency history (dynamics.F:642-652,
     TIMESTEP_WVEL), else None. Kernel G's mom_ab_step on CUDA tensors, its
     twin on CPU tensors or with impl="plain"."""
@@ -440,6 +445,10 @@ def _kappa_uv_plain(cfg: Config, grid: Grid, viscAz, viscArU, viscArV):
     nr = cfg.nr
     kshape = (nr + 1,) + tuple(grid.maskW.shape[1:])
     like = dict(dtype=grid.maskW.dtype, device=grid.maskW.device)
+    if viscAz is None and viscArU is None:
+        # viscAr alone: one constant field, read only, for both
+        kappa = thermo_mod.constant_field(grid, cfg.viscAr, kshape)
+        return kappa, kappa
     kappaRU = torch.full(kshape, cfg.viscAr, **like)
     kappaRV = torch.full(kshape, cfg.viscAr, **like)
     if viscAz is not None:
@@ -478,8 +487,9 @@ def kappa_uv(cfg: Config, grid: Grid, kpp_fields=None, ggl90_fields=None,
     points, viscAr with KPP.calc's viscosity blended in (kpp_fields) or
     GGL90.calc's viscArU/viscArV added (ggl90_fields). Kernel J-uv on CUDA
     tensors (under kernels.TwinVJP), its twin on CPU tensors or with
-    impl="plain". viscAr alone is two constant fills (the twin's
-    torch.full) on any device: J-uv runs only where there is arithmetic."""
+    impl="plain". viscAr alone is one constant field, built once
+    (thermodynamics.constant_field, read only), on any device: J-uv runs
+    only where there is arithmetic."""
     ins = (None if kpp_fields is None else kpp_fields["viscAz"],
            *((None, None) if ggl90_fields is None else
              (ggl90_fields["viscArU"], ggl90_fields["viscArV"])))
@@ -494,11 +504,13 @@ def kappa_uv(cfg: Config, grid: Grid, kpp_fields=None, ggl90_fields=None,
         lambda *ts: _kappa_uv_plain(cfg, grid, *ts), *ins)
 
 
-def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
-             rhoInSitu, myIter: int, impl: str = None, kpp_fields=None,
-             ggl90_fields=None):
+def dynamics(cfg: Config, grid: Grid, state: State,
+             sf: thermo_mod.SurfaceForcing, rhoInSitu, myIter: int,
+             impl: str = None, kpp_fields=None, ggl90_fields=None):
     """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', guNm2',
-    gvNm2', totPhiHyd, nh). kpp_fields: KPP.calc's output, whose viscosity
+    gvNm2', totPhiHyd, nh). sf: the step's surface forcing, whose momentum
+    forcing's surface level kernel G adds (apply_forcing.F);
+    kpp_fields: KPP.calc's output, whose viscosity
     is blended into kappaRU/RV (calc_viscosity.F), or None; ggl90_fields:
     GGL90.calc's viscArU/viscArV, added to kappaRU/RV, or None. nh: with
     nonHydrostatic, w* and the w-tendency history (dynamics.F:642-652,
@@ -511,14 +523,13 @@ def dynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                                                     impl=impl)
     momentum = mom_vecinv if cfg.vectorInvariantMomentum else mom_fluxform
     tend = momentum(cfg, grid, u, v, w, kappaRU, kappaRV, impl=impl)
-    guExt, gvExt = apply_forcing_uv(cfg, grid, forcing)
     gw = None
     if cfg.nonHydrostatic:
         gw = calc_gw_mod.calc_gw(cfg, grid, u, v, w, kappaRU, kappaRV,
                                  impl=impl)
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, nh = mom_ab_step(
-        cfg, grid, state, tend, dPhiHydX, dPhiHydY, guExt, gvExt, myIter,
-        impl=impl, gw=gw)
+        cfg, grid, state, tend, dPhiHydX, dPhiHydY, sf.guExt, sf.gvExt,
+        myIter, impl=impl, gw=gw)
     if cfg.implicitViscosity:
         uStar = thermo_mod.impldiff(cfg, grid, uStar, kappaRU,
                                     grid.recip_hFacW, cfg.deltaTMom,
@@ -548,14 +559,17 @@ def _surf_c(cfg: Config, grid: Grid):
 
 
 def _cg2d_rhs_plain(cfg: Config, grid: Grid, uStar, vStar, etaN,
-                    hydrostatic: bool):
+                    hydrostatic: bool, phi_nh=None):
     """Kernel E's cg2d_rhs twin: the divergence of the predicted transport
     summed level by level in the order k = Nr..1 (solve_for_pressure.F:
     146-152; a torch.sum over k would change the digits of this
     cancellation-prone sum). hydrostatic: (cg2d_b,), minus the surface
-    term, masked to the interior; else (cg2d_b, div), div the divergence
-    of each level, the first term of the cg3d right-hand side
-    (step.py:421 of the JAX package)."""
+    term, masked to the interior; else, with phi_nh, (cg2d_b, div): the
+    surface term of oldFreeSurfTerm (solve_for_pressure.F:195-210,
+    pre_cg3d.F; step.py:418-431 of the JAX package), which carries etaN +
+    phi_nh(ks)/Bo, added to both right sides: to cg2d_b before the mask,
+    and to the divergence of each level (the first term of the cg3d
+    right-hand side) at the surface level kSurfC - 1."""
     pfx, pfy = _predicted_transport(cfg, grid, uStar, vStar)
     dbx = sh(pfx, di=1) - pfx
     dby = sh(pfy, dj=1) - pfy
@@ -563,29 +577,41 @@ def _cg2d_rhs_plain(cfg: Config, grid: Grid, uStar, vStar, etaN,
     for k in range(cfg.nr - 1, -1, -1):
         cg2d_b = cg2d_b + dbx[k]
         cg2d_b = cg2d_b + dby[k]
-    if not hydrostatic:
-        return cg2d_b, dbx + dby
     imask = interior_mask(etaN.shape, cfg.oly, cfg.olx, etaN.dtype,
                           etaN.device)
-    return ((cg2d_b - _surf_c(cfg, grid) * etaN) * imask,)
+    if hydrostatic:
+        return ((cg2d_b - _surf_c(cfg, grid) * etaN) * imask,)
+    k3 = torch.arange(cfg.nr, device=etaN.device)[:, None, None]
+    selS = (k3 == grid.kSurfC[None] - 1) & (grid.kSurfC[None] <= cfg.nr)
+    zero = torch.zeros((), dtype=etaN.dtype, device=etaN.device)
+    surfT = -_surf_c(cfg, grid) * (etaN + torch.sum(
+        torch.where(selS, phi_nh, zero), dim=0) * grid.recip_Bo)
+    return ((cg2d_b + surfT) * imask,
+            (dbx + dby) + torch.where(selS, surfT[None], zero))
 
 
 def _cg2d_rhs_kernel(cfg: Config, grid: Grid, uStar, vStar, etaN,
-                     hydrostatic: bool):
+                     hydrostatic: bool, phi_nh=None):
     """Kernel E's cg2d_rhs on the card (step_scans.cu), the twin's
     outputs."""
     out = torch.empty_like(etaN)
-    # the hydrostatic launch writes no div: its slot holds out
     outs = (out,) if hydrostatic else (out, torch.empty_like(uStar))
     dtype = uStar.dtype
     kernels.check_fields(dtype, uStar.shape, uStar=uStar, vStar=vStar,
                          hFacW=grid.hFacW, hFacS=grid.hFacS, **(
-                             {} if hydrostatic else {"div": outs[1]}))
+                             {} if hydrostatic else {"div": outs[1],
+                                                     "phi_nh": phi_nh}))
     kernels.check_fields(dtype, etaN.shape, dyG=grid.dyG, dxG=grid.dxG,
-                         rA=grid.rA, etaN=etaN, out=out)
+                         rA=grid.rA, etaN=etaN, out=out, **(
+                             {} if hydrostatic else {
+                                 "kSurfC": grid.kSurfC,
+                                 "recip_Bo": grid.recip_Bo}))
     kernels.check_fields(dtype, (cfg.nr,), drF=grid.drF)
+    # the hydrostatic launch reads none of the last four
     table = [uStar, vStar, grid.hFacW, grid.hFacS, grid.dyG, grid.dxG,
-             grid.rA, etaN, grid.drF, out, outs[-1]]
+             grid.rA, etaN, grid.drF, out] + (
+                 [None] * 4 if hydrostatic else
+                 [outs[1], phi_nh, grid.kSurfC, grid.recip_Bo])
     kernels.launch("cg2d_rhs", dtype, kernels.pointer_table(table),
                    len(table), *uStar.shape, cfg.oly, cfg.olx,
                    int(hydrostatic), cfg.implicDiv2Dflow, cfg.deltaTMom,
@@ -633,17 +659,18 @@ def _cg2d_rhs_adj_kernel(cfg: Config, grid: Grid, need, b_bar):
 
 
 def cg2d_rhs(cfg: Config, grid: Grid, uStar, vStar, etaN,
-             hydrostatic: bool = True, impl: str = None):
+             hydrostatic: bool = True, impl: str = None, phi_nh=None):
     """The cg2d right-hand side (solve_for_pressure.F:146-152): with
-    hydrostatic (cg2d_b,), the whole of it; else (the transport divergence
-    summed, each level's divergence): the non-hydrostatic caller adds
-    pre_cg3d's surface term and the mask to the first and builds the cg3d
-    right-hand side on the second. Kernel E's cg2d_rhs on CUDA tensors,
-    its twin on CPU tensors or with impl="plain"."""
+    hydrostatic (cg2d_b,), the whole of it; else, with the last phi_nh,
+    (cg2d_b, each level's divergence), both with pre_cg3d's surface term:
+    the non-hydrostatic caller builds the cg3d right-hand side on the
+    second (pre_cg3d). Kernel E's cg2d_rhs on CUDA tensors, its twin on
+    CPU tensors or with impl="plain"."""
     if not kernels.use_kernel(uStar, impl):
         global plain_calls
         plain_calls += 1
-        return _cg2d_rhs_plain(cfg, grid, uStar, vStar, etaN, hydrostatic)
+        return _cg2d_rhs_plain(cfg, grid, uStar, vStar, etaN, hydrostatic,
+                               phi_nh)
     if hydrostatic:
         kernels.refuse_grad("cg2d_rhs", hFacW=grid.hFacW, hFacS=grid.hFacS,
                             dyG=grid.dyG, dxG=grid.dxG, rA=grid.rA,
@@ -655,9 +682,72 @@ def cg2d_rhs(cfg: Config, grid: Grid, uStar, vStar, etaN,
     # each level's divergence (the non-hydrostatic variant) has no backward
     # kernel: autograd through the twin (the adjoint refuses that path)
     return kernels.TwinVJP.apply(
-        lambda *ts: _cg2d_rhs_kernel(cfg, grid, *ts, hydrostatic),
-        lambda *ts: _cg2d_rhs_plain(cfg, grid, *ts, hydrostatic),
-        uStar, vStar, etaN)
+        lambda u, v, e, phi: _cg2d_rhs_kernel(cfg, grid, u, v, e, False,
+                                              phi),
+        lambda u, v, e, phi: _cg2d_rhs_plain(cfg, grid, u, v, e, False, phi),
+        uStar, vStar, etaN, phi_nh)
+
+
+def _pre_cg3d_plain(cfg: Config, grid: Grid, x2, etaN, wStar, div):
+    """Kernel N1's twin: pre_cg3d.F with oldFreeSurfTerm (step.py:432-500
+    of the JAX package): the cg3d right-hand side from each level's
+    divergence with the surface term (cg2d_rhs's div), the
+    surface-pressure correction flow of the new cg2d solution x2 and the
+    vertical transport of w*, in its operation order, dividing by
+    deltaTFreeSurf and deltaTMom as tensors."""
+    psFac = cfg.implicSurfPress * cfg.implicDiv2Dflow
+    drF = grid.drF[:, None, None]
+    uf = -grid.recip_dxC * psFac * (x2 - sh(x2, di=-1))
+    vf = -grid.recip_dyC * psFac * (x2 - sh(x2, dj=-1))
+    fx = drF * grid.dyG[None] * grid.hFacW * uf[None]
+    fy = drF * grid.dxG[None] * grid.hFacS * vf[None]
+    wkp1 = torch.cat([wStar[1:], torch.zeros_like(wStar[:1])])
+    maskC_km1 = torch.cat([torch.ones_like(grid.maskC[:1]),
+                           grid.maskC[:-1]])
+    k3 = torch.arange(cfg.nr, device=x2.device)[:, None, None]
+    wterm = _div(torch.where(
+        k3 == 0, _div(cfg.freeSurfFac * etaN[None], cfg.deltaTFreeSurf)
+        - wkp1, wStar * maskC_km1 - wkp1) * grid.rA[None], cfg.deltaTMom)
+    cg3d_b = div + (sh(fx, di=1) - fx)
+    cg3d_b = cg3d_b + (sh(fy, dj=1) - fy)
+    return (cg3d_b + wterm,)
+
+
+def _pre_cg3d_kernel(cfg: Config, grid: Grid, x2, etaN, wStar, div):
+    """Kernel N1 on the card (pre_cg3d.cu), the twin's output."""
+    b = torch.empty_like(div)
+    dtype = div.dtype
+    kernels.check_fields(dtype, div.shape, div=div, wStar=wStar,
+                         hFacW=grid.hFacW, hFacS=grid.hFacS,
+                         maskC=grid.maskC, b=b)
+    kernels.check_fields(dtype, x2.shape, x2=x2, etaN=etaN,
+                         recip_dxC=grid.recip_dxC, recip_dyC=grid.recip_dyC,
+                         dyG=grid.dyG, dxG=grid.dxG, rA=grid.rA)
+    kernels.check_fields(dtype, (cfg.nr,), drF=grid.drF)
+    table = [x2, etaN, div, wStar, grid.hFacW, grid.hFacS, grid.maskC,
+             grid.recip_dxC, grid.recip_dyC, grid.dyG, grid.dxG, grid.rA,
+             grid.drF, b]
+    kernels.launch("pre_cg3d", dtype, kernels.pointer_table(table),
+                   len(table), *div.shape,
+                   cfg.implicSurfPress * cfg.implicDiv2Dflow,
+                   cfg.freeSurfFac, cfg.deltaTFreeSurf, cfg.deltaTMom)
+    return (b,)
+
+
+def pre_cg3d(cfg: Config, grid: Grid, x2, etaN, wStar, div,
+             impl: str = None):
+    """The cg3d right-hand side of the non-hydrostatic step (pre_cg3d.F):
+    kernel N1 on CUDA tensors (under kernels.TwinVJP: the adjoint refuses
+    the non-hydrostatic path), its twin on CPU tensors or with
+    impl="plain"."""
+    if not kernels.use_kernel(div, impl):
+        global plain_calls
+        plain_calls += 1
+        return _pre_cg3d_plain(cfg, grid, x2, etaN, wStar, div)[0]
+    return kernels.TwinVJP.apply(
+        lambda *ts: _pre_cg3d_kernel(cfg, grid, *ts),
+        lambda *ts: _pre_cg3d_plain(cfg, grid, *ts), x2, etaN, wStar,
+        div)[0]
 
 
 def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
@@ -667,21 +757,9 @@ def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
     (pre_cg3d.F, step.py:418-506 of the JAX package). Returns (etaN,
     phi_nh or None, StepDiag)."""
     cg2d_x = grid.Bo_surf * state.etaN
-    cg2d_b, *div = cg2d_rhs(cfg, grid, uStar, vStar, state.etaN,
-                            hydrostatic=nh is None, impl=impl)
-    if nh is not None:
-        # oldFreeSurfTerm (solve_for_pressure.F:195-210): the surface term
-        # carries etaN + phi_nh(ks)/Bo, added to both right sides
-        drF = grid.drF[:, None, None]
-        k3 = torch.arange(cfg.nr, device=uStar.device)[:, None, None]
-        selS = (k3 == grid.kSurfC[None] - 1) & (grid.kSurfC[None] <= cfg.nr)
-        zero = torch.zeros((), dtype=uStar.dtype, device=uStar.device)
-        surfT = -_surf_c(cfg, grid) * (state.etaN + torch.sum(
-            torch.where(selS, state.phi_nh, zero), dim=0) * grid.recip_Bo)
-        imask = interior_mask(state.etaN.shape, cfg.oly, cfg.olx,
-                              uStar.dtype, uStar.device)
-        cg2d_b = (cg2d_b + surfT) * imask
-        cg3d_b = div[0] + torch.where(selS, surfT[None], zero)
+    cg2d_b, *div = cg2d_rhs(
+        cfg, grid, uStar, vStar, state.etaN, hydrostatic=nh is None,
+        impl=impl, phi_nh=None if nh is None else state.phi_nh)
     res = cg2d_mod.cg2d(cfg, op, cg2d_b, cg2d_x, impl=impl)
     etaN = grid.recip_Bo * res.x
     diag = StepDiag(
@@ -692,22 +770,8 @@ def solve_for_pressure(cfg: Config, grid: Grid, op, state: State, uStar,
 
     # pre_cg3d.F, oldFreeSurfTerm: the surface-pressure correction flow of
     # the new cg2d solution and the vertical transport of w*
-    cg2dx = res.x
-    psFac = cfg.implicSurfPress * cfg.implicDiv2Dflow
-    uf = -grid.recip_dxC * psFac * (cg2dx - sh(cg2dx, di=-1))
-    vf = -grid.recip_dyC * psFac * (cg2dx - sh(cg2dx, dj=-1))
-    fx = drF * grid.dyG[None] * grid.hFacW * uf[None]
-    fy = drF * grid.dxG[None] * grid.hFacS * vf[None]
-    wk = nh["wStar"]
-    wkp1 = torch.cat([wk[1:], torch.zeros_like(wk[:1])])
-    maskC_km1 = torch.cat([torch.ones_like(grid.maskC[:1]),
-                           grid.maskC[:-1]])
-    wterm = torch.where(
-        k3 == 0, cfg.freeSurfFac * etaN[None] / cfg.deltaTFreeSurf - wkp1,
-        wk * maskC_km1 - wkp1) * grid.rA[None] / cfg.deltaTMom
-    cg3d_b = cg3d_b + (sh(fx, di=1) - fx)
-    cg3d_b = cg3d_b + (sh(fy, dj=1) - fy)
-    cg3d_b = cg3d_b + wterm
+    cg3d_b = pre_cg3d(cfg, grid, res.x, etaN, nh["wStar"], div[0],
+                      impl=impl)
     res3 = cg3d_mod.cg3d(cfg, grid, op3, cg3d_b, state.phi_nh, impl=impl)
     diag.cg3d_init_res = res3.first_residual
     diag.cg3d_last_res = res3.last_residual
@@ -952,6 +1016,9 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
             state, uIce=ice.uIce, vIce=ice.vIce, siAREA=ice.AREA,
             siHEFF=ice.HEFF, siHSNOW=ice.HSNOW, siHSALT=ice.HSALT,
             siTICES=ice.TICES, siSigma=ice.sigma)
+    # the surface forcing, once a step from the post-seaice state (kernel
+    # Q): the tracers', KPP's and GGL90's and the momentum forcing's
+    sf = thermo_mod.surface_forcing(cfg, grid, state, forc, impl=impl)
     # in-situ density from the start-of-step tracers (do_oceanic_phys.F)
     rhoInSitu = eos.find_rho(cfg, grid, state.theta, state.salt,
                              totPhiHyd=state.totPhiHyd, impl=impl,
@@ -960,11 +1027,9 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     # (do_oceanic_phys.F KPP_CALC; step.py:940-955 of the JAX package)
     kpp_fields = None
     if kpp is not None:
-        sfT, sfS = thermo_mod.surface_forcing_ts(cfg, grid, state, forc)
         kpp_fields = kpp.calc(
             state.uVel, state.vVel, state.theta, state.salt,
-            state.totPhiHyd, forc.fu * cfg.mass2rUnit,
-            forc.fv * cfg.mass2rUnit, sfT, sfS, forc.Qsw,
+            state.totPhiHyd, sf.tauU, sf.tauV, sf.sfT, sf.sfS, forc.Qsw,
             thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrT),
             thermo_mod.tracer_kappa(cfg, grid, cfg.diffKrS), impl=impl)
     # the vertical density gradient that GM-Redi and GGL90 share
@@ -993,16 +1058,16 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     tkeNew, idemixE = state.GGL90TKE, state.IDEMIX_E
     if ggl90 is not None:
         tkeNew, viscU, viscV, diffKr, idemixE = ggl90.calc(
-            state.uVel, state.vVel, state.GGL90TKE, sigmaR,
-            forc.fu * cfg.mass2rUnit, forc.fv * cfg.mass2rUnit,
-            idemix_E=state.IDEMIX_E, impl=impl)
+            state.uVel, state.vVel, state.GGL90TKE, sigmaR, sf.tauU,
+            sf.tauV, idemix_E=state.IDEMIX_E, impl=impl)
         ggl90_fields = {"viscArU": viscU, "viscArV": viscV, "diffKr": diffKr}
     (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT,
      somS) = thermo_mod.thermodynamics(
-        cfg, grid, state, forc, myIter, impl=impl, kpp_fields=kpp_fields,
-        ggl90_fields=ggl90_fields, gm=gm, gm_psi=gm_psi)
+        cfg, grid, state, forc, sf, myIter, impl=impl,
+        kpp_fields=kpp_fields, ggl90_fields=ggl90_fields, gm=gm,
+        gm_psi=gm_psi)
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh = dynamics(
-        cfg, grid, state, forc, rhoInSitu, myIter, impl=impl,
+        cfg, grid, state, sf, rhoInSitu, myIter, impl=impl,
         kpp_fields=kpp_fields, ggl90_fields=ggl90_fields)
     uStar, vStar = fill(uStar), fill(vStar)
     etaN, phi_nh, diag = solve_for_pressure(cfg, grid, op, state, uStar,

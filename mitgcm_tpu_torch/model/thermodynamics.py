@@ -18,7 +18,13 @@ kernel R's eos_sigma_r (kernels/csrc/eos.cu) for CUDA tensors, its twin
 diffusivities (the background, GM's Kwz, GGL90's diffKr) or, with KPP,
 its nonlocal fluxes: kernel J-ts (kernels/csrc/mix_glue.cu) for CUDA
 tensors, its twin `_kappa_ts_plain` otherwise. Both run under
-kernels.TwinVJP, their gradients the twins'.
+kernels.TwinVJP, their gradients the twins'. `surface_forcing` forms the
+step's surface forcing once a step (the tracers', KPP's and GGL90's
+surface stress and the momentum forcing's surface level): kernel Q
+(kernels/csrc/forcing.cu, under kernels.TwinVJP) for CUDA tensors, its
+twin `_surface_forcing_plain` otherwise. `constant_field` keeps the
+constant background diffusivities and viscosity on their grid, built
+once for each value.
 
 `impldiff` (the tridiagonal column solve, also used for implicit vertical
 viscosity by model/step.py) runs kernel T (kernels/csrc/impldiff.cu) for
@@ -28,6 +34,8 @@ wrapper raises if an input requires grad.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -39,8 +47,8 @@ from mitgcm_tpu_torch.model import gad, gmredi, som
 from mitgcm_tpu_torch.model.kpp import ghat_flux
 from mitgcm_tpu_torch.ops import eos
 
-# calls of kernel G's tracer_step twin, for the card's runs to show that
-# the main path never ran it
+# calls of the twins of kernel G's tracer_step, J-ts, R's sigmaR and Q,
+# for the card's runs to show that the main path never ran them
 plain_calls = 0
 
 
@@ -240,40 +248,159 @@ def tracer_step(cfg: Config, grid: Grid, gTr, tracer, gNm1, gNm2, sfc_forc,
     return outs[0], outs[1], (gNm1 if cfg.useAB3 else gNm2)
 
 
-def surface_forcing_ts(cfg: Config, grid: Grid, state: State,
-                       forcing: Forcing):
-    """external_forcing_surf.F + forcing_surf_relax.F: surfaceForcingT/S
-    (linear free surface, no shortwave penetration). Under sea ice without
-    SEAICErestoreUnderIce the relaxation is scaled by the open-water
-    fraction 1 - AREA of the post-seaice state (forcing_surf_relax.F:75-90;
-    thermodynamics.py:84-95 of the JAX package)."""
-    sfT = torch.zeros_like(state.etaN)
-    sfS = torch.zeros_like(state.etaN)
-    ks = cfg.ksurf0
-    openFrac = 1.0
+class SurfaceForcing(NamedTuple):
+    """The step's surface forcing (kernel Q's outputs, [nyp, nxp] each):
+    surfaceForcingT/S, the surface stress over rhoConst that KPP and GGL90
+    read (fu, fv times mass2rUnit; None on the paths without them) and the
+    momentum forcing's surface level (apply_forcing.F; kernel G adds 0
+    below it)."""
+    sfT: torch.Tensor
+    sfS: torch.Tensor
+    tauU: torch.Tensor
+    tauV: torch.Tensor
+    guExt: torch.Tensor
+    gvExt: torch.Tensor
+
+
+# the forcing fields kernel Q reads, in its twin's argument order after
+# theta, salt and AREA
+FORCING_INPUTS = ("SST", "SSS", "Qnet", "saltFlux", "EmPmR", "fu", "fv")
+
+
+def _open_area(cfg: Config, state: State):
+    """The post-seaice AREA whose open-water fraction 1 - AREA scales the
+    relaxation (forcing_surf_relax.F:75-90; thermodynamics.py:84-95 of the
+    JAX package), or None (no sea ice, or SEAICErestoreUnderIce)."""
     if (cfg.useSEAICE and cfg.seaice is not None
             and not cfg.seaice.restoreUnderIce
             and state.siAREA is not None and state.siAREA.dim() == 2):
-        openFrac = 1.0 - state.siAREA
+        return state.siAREA
+    return None
+
+
+def _writes_tau(cfg: Config) -> bool:
+    """Whether the step reads the surface stress tauU/tauV (KPP, GGL90)."""
+    return bool(cfg.useKPP or cfg.useGGL90)
+
+
+def _surface_forcing_plain(cfg: Config, grid: Grid, theta, salt, AREA, SST,
+                           SSS, Qnet, saltFlux, EmPmR, fu, fv):
+    """Kernel Q's twin: external_forcing_surf.F + forcing_surf_relax.F's
+    surfaceForcingT/S (linear free surface, no shortwave penetration; the
+    relaxation scaled by 1 - AREA when AREA is given) and apply_forcing.F's
+    wind stress, its surface level only, as a SurfaceForcing (tauU, tauV
+    None without KPP and GGL90)."""
+    sfT = torch.zeros_like(fu)
+    sfS = torch.zeros_like(fu)
+    ks = cfg.ksurf0
+    openFrac = 1.0 if AREA is None else 1.0 - AREA
     if cfg.tauThetaClimRelax > 0.0:
         lam = 1.0 / cfg.tauThetaClimRelax
-        sfT = sfT - lam * openFrac * (state.theta[ks] - forcing.SST) \
+        sfT = sfT - lam * openFrac * (theta[ks] - SST) \
             * grid.drF[ks] * grid.hFacC[ks]
     if cfg.tauSaltClimRelax > 0.0:
         lam = 1.0 / cfg.tauSaltClimRelax
-        sfS = sfS - lam * openFrac * (state.salt[ks] - forcing.SSS) \
+        sfS = sfS - lam * openFrac * (salt[ks] - SSS) \
             * grid.drF[ks] * grid.hFacC[ks]
     recip_Cp = 1.0 / cfg.HeatCapacity_Cp
-    sfT = sfT - forcing.Qnet * recip_Cp * cfg.mass2rUnit
-    sfS = sfS - forcing.saltFlux * cfg.mass2rUnit
+    sfT = sfT - Qnet * recip_Cp * cfg.mass2rUnit
+    sfS = sfS - saltFlux * cfg.mass2rUnit
     # virtual E-P-R tracer flux (external_forcing_surf.F:130-208)
     if cfg.temp_EvPrRn is not None:
-        sfT = sfT + forcing.EmPmR * (cfg.tRef[0]
-                                     - cfg.temp_EvPrRn) * cfg.mass2rUnit
+        sfT = sfT + EmPmR * (cfg.tRef[0] - cfg.temp_EvPrRn) * cfg.mass2rUnit
     if cfg.salt_EvPrRn is not None:
-        sfS = sfS + forcing.EmPmR * (cfg.convertFW2Salt
-                                     - cfg.salt_EvPrRn) * cfg.mass2rUnit
-    return sfT, sfS
+        sfS = sfS + EmPmR * (cfg.convertFW2Salt
+                             - cfg.salt_EvPrRn) * cfg.mass2rUnit
+    tauU = fu * cfg.mass2rUnit
+    tauV = fv * cfg.mass2rUnit
+    tau = _writes_tau(cfg)
+    return SurfaceForcing(
+        sfT, sfS, tauU if tau else None, tauV if tau else None,
+        tauU * grid.recip_drF[0] * grid.recip_hFacW[0],
+        tauV * grid.recip_drF[0] * grid.recip_hFacS[0])
+
+
+def _forcing_flags(cfg: Config) -> int:
+    """Kernel Q's flags (forcing.cuh): the relaxations of theta (1) and
+    salt (2), the E-P-R fluxes of theta (4) and salt (8), the surface
+    stress written (16)."""
+    return (int(cfg.tauThetaClimRelax > 0.0)
+            | 2 * int(cfg.tauSaltClimRelax > 0.0)
+            | 4 * int(cfg.temp_EvPrRn is not None)
+            | 8 * int(cfg.salt_EvPrRn is not None)
+            | 16 * int(_writes_tau(cfg)))
+
+
+def _variant_args(cfg: Config, args) -> tuple:
+    """The twin's arguments after grid (theta, salt, AREA, then
+    FORCING_INPUTS) with None where kernel Q's variant reads nothing (the
+    relaxations' tracers, targets and AREA, the E-P-R flux)."""
+    flags = _forcing_flags(cfg)
+    reads = (flags & 1, flags & 2, flags & 3, flags & 1, flags & 2, 1, 1,
+             flags & 12, 1, 1)
+    return tuple(a if r else None for a, r in zip(args, reads))
+
+
+def _surface_forcing_kernel(cfg: Config, grid: Grid, theta, salt, AREA, SST,
+                            SSS, Qnet, saltFlux, EmPmR, fu, fv):
+    """Kernel Q on the card (forcing.cu): the twin's SurfaceForcing."""
+    flags = _forcing_flags(cfg)
+    relax = flags & 3
+    ks = cfg.ksurf0
+    s2 = tuple(fu.shape)
+    outs = [torch.empty_like(fu) for _ in SurfaceForcing._fields]
+    if not flags & 16:
+        outs[2] = outs[3] = None
+    ins = dict(theta=theta[ks] if flags & 1 else None,
+               salt=salt[ks] if flags & 2 else None,
+               hFacC=grid.hFacC[ks] if relax else None,
+               SST=SST if flags & 1 else None, SSS=SSS if flags & 2 else None,
+               AREA=AREA if relax else None,
+               drF=grid.drF[ks:ks + 1] if relax else None, Qnet=Qnet,
+               saltFlux=saltFlux, EmPmR=EmPmR if flags & 12 else None, fu=fu,
+               fv=fv, recip_drF=grid.recip_drF[:1],
+               recip_hFacW=grid.recip_hFacW[0],
+               recip_hFacS=grid.recip_hFacS[0])
+    kernels.check_fields(fu.dtype, s2, **{
+        n: t for n, t in ins.items() if t is not None and t.dim() == 2},
+        **{n: t for n, t in zip(SurfaceForcing._fields, outs)
+           if t is not None})
+    kernels.check_fields(fu.dtype, (1,), **{
+        n: t for n, t in ins.items() if t is not None and t.dim() == 1})
+    table = kernels.pointer_table(list(ins.values()) + outs)
+    params = kernels.doubles([
+        1.0 / cfg.tauThetaClimRelax if flags & 1 else 0.0,
+        1.0 / cfg.tauSaltClimRelax if flags & 2 else 0.0,
+        1.0 / cfg.HeatCapacity_Cp, cfg.mass2rUnit,
+        cfg.tRef[0] - cfg.temp_EvPrRn if flags & 4 else 0.0,
+        cfg.convertFW2Salt - cfg.salt_EvPrRn if flags & 8 else 0.0])
+    kernels.launch("surface_forcing", fu.dtype, table, len(table), params,
+                   len(params), *s2, flags)
+    return SurfaceForcing(*outs)
+
+
+def surface_forcing(cfg: Config, grid: Grid, state: State, forcing: Forcing,
+                    impl: str = None) -> SurfaceForcing:
+    """The step's surface forcing from the post-seaice state and forcing,
+    once a step (external_forcing_surf.F, forcing_surf_relax.F,
+    apply_forcing.F's surface level): kernel Q on CUDA tensors, under
+    kernels.TwinVJP for the inputs its variant reads (a relaxed tracer
+    under an initial-condition control), its twin on CPU tensors or with
+    impl="plain"."""
+    args = (state.theta, state.salt, _open_area(cfg, state),
+            *[getattr(forcing, n) for n in FORCING_INPUTS])
+    if not kernels.use_kernel(forcing.fu, impl):
+        global plain_calls
+        plain_calls += 1
+        return _surface_forcing_plain(cfg, grid, *args)
+    kernels.refuse_grad("surface_forcing", hFacC=grid.hFacC, drF=grid.drF,
+                        recip_drF=grid.recip_drF,
+                        recip_hFacW=grid.recip_hFacW,
+                        recip_hFacS=grid.recip_hFacS)
+    return SurfaceForcing(*kernels.TwinVJP.apply(
+        lambda *ts: tuple(_surface_forcing_kernel(cfg, grid, *ts)),
+        lambda *ts: _surface_forcing_plain(cfg, grid, *ts),
+        *_variant_args(cfg, args)))
 
 
 def _calc_sigmaR_plain(cfg: Config, grid: Grid, rhoInSitu, theta, salt,
@@ -318,10 +445,26 @@ def calc_sigmaR(cfg: Config, grid: Grid, rhoInSitu, theta, salt,
         rhoInSitu, theta, salt, totPhiHyd)[0]
 
 
+def constant_field(grid: Grid, value: float, shape: tuple) -> torch.Tensor:
+    """A field of one value in grid's dtype on its device, built once for
+    each value, shape, dtype and device and kept on the grid (freed with
+    it), shared by every caller (two configurations on one grid with
+    different values get different fields): read only, no consumer writes
+    into it."""
+    like = grid.rA
+    key = (float(value), tuple(shape), like.dtype, like.device)
+    # Grid is frozen: the cache is an attribute beside its fields
+    cache = grid.__dict__.setdefault("_constant_fields", {})
+    if key not in cache:
+        cache[key] = torch.full(key[1], key[0], dtype=key[2],
+                                device=key[3])
+    return cache[key]
+
+
 def tracer_kappa(cfg: Config, grid: Grid, diffKr: float) -> torch.Tensor:
-    """calc_3d_diffusivity.F: the constant background profile [nr, ...]."""
-    return torch.full((cfg.nr,) + tuple(grid.rA.shape), diffKr,
-                      dtype=grid.rA.dtype, device=grid.rA.device)
+    """calc_3d_diffusivity.F: the constant background profile [nr, ...]
+    (constant_field's, read only)."""
+    return constant_field(grid, diffKr, (cfg.nr,) + tuple(grid.rA.shape))
 
 
 # the inputs of kappa_ts, in its twin's and its kernel's argument order
@@ -450,14 +593,15 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
                        implicit_diffusion=cfg.implicitDiffusion, impl=impl,
                        df=df, calc_advection=not (multidim or is_som), gm=gm)
     som_new = som_state
+    # the advection's gTracer + gTr (the kernels' last sweep adds gTr)
     if is_som:
-        gSom, som_new = som.som_advect(cfg, grid, *uvw, tracer, som_state,
-                                       scheme, cfg.deltaTTracer, impl=impl)
-        gTr = gSom + gTr
+        gTr, som_new = som.som_advect(cfg, grid, *uvw, tracer, som_state,
+                                      scheme, cfg.deltaTTracer, impl=impl,
+                                      add=gTr)
     elif multidim:
         gTr = gad.multidim_advection(cfg, grid, flow, *uvw, tracer, scheme,
                                      vert_scheme, cfg.deltaTTracer,
-                                     impl=impl) + gTr
+                                     impl=impl, add=gTr)
     # AB on the tendency only for the linear scheme (gad_init_fixed.F:
     # AdamsBashforthGt); the history of a non-linear one passes through
     tr_new, gNm1_new, gNm2_new = tracer_step(
@@ -470,10 +614,11 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
 
 
 def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
-                   myIter: int, impl: str = None, kpp_fields=None,
-                   ggl90_fields=None, gm=None, gm_psi=None):
+                   sf: SurfaceForcing, myIter: int, impl: str = None,
+                   kpp_fields=None, ggl90_fields=None, gm=None, gm_psi=None):
     """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2,
-    somT, somS). kpp_fields: KPP.calc's output, or None without KPP
+    somT, somS). sf: the step's surface forcing (surface_forcing);
+    kpp_fields: KPP.calc's output, or None without KPP
     (thermodynamics.py:470-496, 524-533 of the JAX package); ggl90_fields:
     GGL90.calc's diffKr under "diffKr", or None (:501-503, :537-538); gm:
     the GM-Redi tensor (model/gmredi.py), whose Kwz joins the interface
@@ -491,7 +636,7 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
     if gm_psi is not None:
         uvw = gmredi.gm_residual_flow(cfg, grid, *gm_psi, *uvw, impl=impl)
     flow = gad.calc_adv_flow(grid, *uvw, impl=impl)
-    sfT, sfS = surface_forcing_ts(cfg, grid, state, forcing)
+    sfT, sfS = sf.sfT, sf.sfS
     kapT, kapS, dfT, dfS = kappa_ts(
         cfg, grid, forcing, sfT, sfS, flow.maskUp, kpp_fields=kpp_fields,
         ggl90_fields=ggl90_fields, gm=gm, impl=impl)

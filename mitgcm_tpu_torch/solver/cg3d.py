@@ -6,10 +6,15 @@ model/src/cg3d.F and ini_cg3d.F).
 free-surface term on the surface level's diagonal, scaled by myNorm and
 cyclic-filled, and the LU-factored column tridiagonal preconditioner.
 `cg3d` is differentiable in its right-hand side (CG3DSolve: the backward
-pass is a second solve from a zero first guess). One PCG iteration is
-two calls, each a hand-written CUDA kernel (kernels/csrc/cg3d.cu,
-kernel H-cg3d) for CUDA tensors and its plain PyTorch twin for CPU
-tensors or when impl="plain" is asked for:
+pass is a second solve from a zero first guess). A solve's set-up (the
+scaled and normalised right-hand side, the masked first guess, the zero
+work fields) is kernel N2's two launches (kernels/csrc/cg3d_setup.cu,
+cg3d_setup_scale and cg3d_setup_fill, rhsNorm kept on the device) with
+the twin `_setup_plain`; its end divides x by that device scalar. One
+PCG iteration is two calls, each a
+hand-written CUDA kernel (kernels/csrc/cg3d.cu, kernel H-cg3d) for CUDA
+tensors and its plain PyTorch twin for CPU tensors or when impl="plain"
+is asked for:
   s_stencil_dot  s' = (q + beta s) imask, qA = (A s') imask, dot(s', qA)
   xr_precond     x += alpha s', r -= alpha qA, with dot(r, r); then the
                  next iteration's q = P^-1 r with dot(q, r)
@@ -39,23 +44,29 @@ from mitgcm_tpu_torch.solver.cg2d import _grid_sum, _set_interior
 # iterations the kernel path enqueues between two reads of `done`
 BATCH = 8
 
-# calls of the two twins (a run on the card reads it to show that its
-# kernel path never made one)
+# calls of the twins (a run on the card reads it to show that its kernel
+# path never made one)
 plain_calls = 0
 
 
 class Workspace:
-    """Scratch of kernel H-cg3d's launches: two partial sums per 32 x 8
-    tile (xr_precond reduces dot(r, r) and dot(q, r) together), the
-    last-block counter (0 between launches) and the pair of sums that
-    xr_precond's last block copies out."""
+    """Scratch of kernels H-cg3d's and N2's launches: two partial sums per
+    32 x 8 tile (xr_precond reduces dot(r, r) and dot(q, r) together), the
+    last-block counter (0 between launches), the pair of sums that
+    xr_precond's last block copies out, N2's block maxima over the padded
+    plane and its (rhsMax, rhsNorm)."""
 
     def __init__(self, shape, oly: int, olx: int, dtype, device):
         ny, nx = shape[-2] - 2 * oly, shape[-1] - 2 * olx
-        n = kernels.library().mitgcm_cg2d_num_partials(ny, nx)
+        lib = kernels.library()
+        n = lib.mitgcm_cg2d_num_partials(ny, nx)
         self.partials = torch.empty(2 * n, dtype=dtype, device=device)
         self.counter = torch.zeros(1, dtype=torch.int32, device=device)
         self.pair = torch.empty(2, dtype=dtype, device=device)
+        self.maxima = torch.empty(
+            lib.mitgcm_cg2d_num_partials(shape[-2], shape[-1]), dtype=dtype,
+            device=device)
+        self.scal = torch.empty(2, dtype=dtype, device=device)
 
 
 @dataclass
@@ -64,7 +75,8 @@ class CG3DOperator:
     (aV[0] = 0); aC: its diagonal; zMC/zML/zMU: the LU-factored column
     tridiagonal preconditioner (zMC holds the reciprocal pivots);
     cg3dNorm: the normalisation factor (ini_cg3d.F myNorm); both scalars
-    are 0-d."""
+    are 0-d; imask3: the interior mask times maskC [nr, nyp, nxp], the
+    solve's mask."""
     aW: torch.Tensor
     aS: torch.Tensor
     aV: torch.Tensor
@@ -74,6 +86,7 @@ class CG3DOperator:
     zMU: torch.Tensor
     cg3dNorm: torch.Tensor
     tolerance_sq: torch.Tensor
+    imask3: torch.Tensor
 
 
 @dataclass
@@ -159,7 +172,8 @@ def build_cg3d(cfg: Config, grid: Grid) -> CG3DOperator:
         tol = (myNorm * cfg.cg3dTargetResWunit * grid.globalArea
                / cfg.deltaTMom)
     return CG3DOperator(aW=aW, aS=aS, aV=aV, aC=aC, zMC=zMC, zML=zML,
-                        zMU=zMU, cg3dNorm=myNorm, tolerance_sq=tol * tol)
+                        zMU=zMU, cg3dNorm=myNorm, tolerance_sq=tol * tol,
+                        imask3=imask * grid.maskC)
 
 
 def apply_A(op: CG3DOperator, x):
@@ -333,6 +347,42 @@ def cg3d(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
     return CG3DResult(*CG3DSolve.apply(b, x0, cfg, grid, op, impl))
 
 
+def _setup_plain(op: CG3DOperator, b, x0, normalise: bool):
+    """Kernel N2's twin: the start of cg3d.py:_cg3d_raw (cg3d.F:117-147)
+    in its operation order: (r, x, s, s', q, qA, rhsNorm), r the
+    right-hand side scaled by cg3dNorm, masked and, with normalise, scaled
+    by rhsNorm = 1 / max |b| (1 where the max is 0; None without
+    normalise), x the first guess likewise, the work fields zero."""
+    imask = op.imask3
+    b = b * op.cg3dNorm * imask
+    rhsNorm = None
+    if normalise:
+        rhsMax = torch.max(torch.abs(b))
+        rhsNorm = torch.where(rhsMax != 0.0, 1.0 / rhsMax,
+                              torch.ones_like(rhsMax))
+        b = b * rhsNorm
+        x0 = x0 * rhsNorm
+    return (b, x0 * imask, *(torch.zeros_like(b) for _ in range(4)),
+            rhsNorm)
+
+
+def _setup_kernel(op: CG3DOperator, b, x0, normalise: bool, ws: Workspace):
+    """Kernel N2 on the card (cg3d_setup.cu): the twin's outputs, r in a
+    fresh field and rhsNorm ws.scal[1] (on the device; None without
+    normalise)."""
+    outs = [torch.empty_like(b) for _ in range(6)]
+    _check(b.dtype, b.shape, {"cg3dNorm": op.cg3dNorm}, b=b, x0=x0,
+           imask3=op.imask3, **dict(zip(("r", "x", "s0", "s1", "q", "qa"),
+                                        outs)))
+    table = kernels.pointer_table(
+        [b, x0, op.imask3, op.cg3dNorm, *outs, ws.maxima, ws.counter,
+         ws.scal])
+    for name in ("cg3d_setup_scale", "cg3d_setup_fill"):
+        kernels.launch(name, b.dtype, table, len(table), *b.shape,
+                       int(normalise))
+    return (*outs, ws.scal[1:] if normalise else None)
+
+
 def _solve(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
            impl: str = None) -> CG3DResult:
     """The PCG loop (cg3d.py:_cg3d_raw); it writes its work fields in
@@ -341,16 +391,7 @@ def _solve(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
     coefficients)."""
     oly, olx = cfg.oly, cfg.olx
     maskC = grid.maskC
-    imask = interior_mask(b.shape, oly, olx, b.dtype, b.device) * maskC
-    # normalise the RHS (cg3d.F:117-147)
-    b = b * op.cg3dNorm * imask
     normalise = cfg.cg3dTargetResWunit <= 0.0
-    if normalise:
-        rhsMax = torch.max(torch.abs(b))
-        rhsNorm = torch.where(rhsMax != 0.0, 1.0 / rhsMax,
-                              torch.ones_like(rhsMax))
-        b = b * rhsNorm
-        x0 = x0 * rhsNorm
     on_card = kernels.use_kernel(b, impl)
     ws = (Workspace(b.shape, oly, olx, b.dtype, b.device) if on_card
           else None)
@@ -358,14 +399,19 @@ def _solve(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
             else None)
     kw = dict(oly=oly, olx=olx, ws=ws, impl=impl)
     stop = dict(tol_sq=op.tolerance_sq, max_iters=cfg.cg3dMaxIters)
+    # normalise the RHS (cg3d.F:117-147) and start from zero work fields
+    if on_card:
+        r, x, s0, s1, q, qa, rhsNorm = _setup_kernel(op, b, x0, normalise,
+                                                     ws)
+    else:
+        global plain_calls
+        plain_calls += 1
+        r, x, s0, s1, q, qa, rhsNorm = _setup_plain(op, b, x0, normalise)
+    s = [s0, s1]
 
     # device scalars: 1, eta (two slots that swap roles), dot(s, qA), r.r
     one, eta_n, eta_nm1, sq, err_sq = torch.ones(
         5, dtype=b.dtype, device=b.device).unbind()
-    x = x0 * imask
-    r = b.clone()
-    s = [torch.zeros_like(b), torch.zeros_like(b)]
-    q, qa = torch.zeros_like(b), torch.zeros_like(b)
     # r0 = b - A x0: A x0 through s_stencil_dot (s = 0, beta = 1), then one
     # xr step with alpha = 1 along the zero direction s[0], which also
     # gives q0 = P^-1 r0 and eta_0 = dot(q0, r0)

@@ -26,7 +26,7 @@ from mitgcm_tpu_torch.model.gmredi import GMParams
 from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
 from mitgcm_tpu_torch.model.seaice import SeaIce, params_from_namelists
 from mitgcm_tpu_torch.model.step import integr_continuity
-from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
+from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo, shift as sh
 from mitgcm_tpu_torch.solver.cg2d import build_cg2d
 from mitgcm_tpu_torch.solver.cg3d import build_cg3d
 
@@ -446,3 +446,18 @@ def ice_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
     state.SItracer, state.siSigma = ice.SItracer, ice.sigma
     return grid, state, forcing, op, kpp, seaice
 
+
+
+def evp_setup(seaice: SeaIce, AREA, massU, massV) -> dict:
+    """SeaIce.evp's set-up for masses of the caller's own (a run of EVP
+    apart from a step; the step takes it from kernel S1): sumNorm at Z
+    points, areaW/areaS (seaice.py:1094-1112 of the JAX package) and the
+    masks of the cells that carry ice mass, as S1's twin forms them."""
+    if seaice.p.scaleSurfStress:
+        areaW = 0.5 * (AREA + sh(AREA, di=-1))
+        areaS = 0.5 * (AREA + sh(AREA, dj=-1))
+    else:
+        areaW, areaS = torch.ones_like(AREA), torch.ones_like(AREA)
+    return {"sumNorm": seaice.sumNorm, "areaW": areaW, "areaS": areaS,
+            "locMaskU": (massU != 0.0).to(massU.dtype),
+            "locMaskV": (massV != 0.0).to(massV.dtype)}

@@ -71,7 +71,10 @@ Group "ggl90": one launch of G9's ggl90_col at 1024x1024x32 and
 64x64x32 float32, the ggl90-gyre's variant on chip_smoke.py's G9Case and
 the idemix-gyre's (IDEMIX's source and Langmuir) on its IsmCase, the
 same way (chip_smoke.py:ggl90_col_footprint), with a digest of tke',
-diffKr and visctmp. No group named: all eleven. --config adjoint instead
+diffKr and visctmp. Group "last": chip_smoke.py phase 18's holds of N1,
+N2, Q, S1, S2 and the `+ gTr` addend at full size float32, each with its
+device ms, bound, wrapper call's and twin's ms. No group named: all
+twelve. --config adjoint instead
 times the gradient of phase 6's box cost through 6 checkpointed steps of
 the N x N x 32 float32 gyre (3 runs, ms/step), prints its cost and a
 sha256 digest of the gradient's bytes (so that two trees' values can be
@@ -109,7 +112,7 @@ EVP_SHAPE = (1024, 32)   # the evp-ice-gyre's, float32 (EVP is 2-D)
 # the cg3d solves of group "cg3d": their caps of iterations
 CG3D_CAPS = (20, 100)
 KERNEL_GROUPS = ("glue", "cg3d", "evp", "os7mp", "som", "ppm", "vecinv",
-                 "multidim", "adjoint", "calc_gw", "ggl90")
+                 "multidim", "adjoint", "calc_gw", "ggl90", "last")
 # group "os7mp": the (scheme, vertical scheme) pairs whose sweeps it times,
 # O's first; group "som": H-SOM's schemes
 HO_SCHEMES = ((7, 7), (33, 33), (41, 41), (51, 51))
@@ -158,7 +161,7 @@ def glue_calls(case):
                                                      case.emp),
         "mom_ab_step": lambda: step.mom_ab_step(
             cfg, g, case.state(), tend, t["dPhiHydX"], t["dPhiHydY"],
-            t["guExt"], t["gvExt"], 1),
+            t["guExt"][0], t["gvExt"][0], 1),
         "mom_correction": lambda: step.momentum_correction_step(
             cfg, g, case.eta, case.u, case.v),
         "tracer_step": lambda: th.tracer_step(
@@ -265,6 +268,7 @@ def evp_times(smoke, rows):
     import torch
     from mitgcm_tpu_torch import kernels
     from mitgcm_tpu_torch.model import seaice_kernels as sk
+    from mitgcm_tpu_torch.utils import synthetic
 
     case = smoke.EvpCase(*EVP_SHAPE, torch.float32)
     si, ice, d = case.si["aEVP"], case.ice, case.dyn
@@ -272,7 +276,7 @@ def evp_times(smoke, rows):
                  **{k: d[k] for k in ("uVel0", "vVel0", "forcex0", "forcey0",
                                       "massC", "massU", "massV")})
     u, v, (s1, s2, s12) = ice.uIce, ice.vIce, ice.sigma
-    setup = si.evp_setup(ice, d["massU"], d["massV"])
+    setup = synthetic.evp_setup(si, ice.AREA, d["massU"], d["massV"])
     args = (u, v, s1, s2, s12, d["press0"], fixed, setup)
     sa = (u, v, s1, s2, d["press0"], d["massC"])
     st = si._evp_stress_plain(*sa)
@@ -338,9 +342,9 @@ def sweep_times(smoke, case, pairs, label, rows):
         args = (cfg, g, case.flow, case.u, case.v, case.w, case.tracer,
                 scheme, vert, dt)
         sweeps = gad.multidim_sweeps(*args)
-        for _, run, _, _, _ in sweeps:
+        for _, run, _, _ in sweeps:
             run()
-        for name, run, _, dst, _ in sweeps:
+        for name, run, _, dst in sweeps:
             sch = vert if name.endswith("_r") else scheme
             if (name, sch) in done:
                 continue
@@ -371,9 +375,9 @@ def som_times(smoke, rows):
         args = (cfg, g, case.u, case.v, case.w, case.tracer, case.sm, scheme,
                 dt)
         sweeps = som.som_sweeps(*args)
-        for _, run, _, _ in sweeps:
+        for _, run, _ in sweeps:
             run()
-        for name, run, _, _ in sweeps:
+        for name, run, _ in sweeps:
             graph_row(smoke, name, run,
                       f"som-gyre {case.label} scheme {scheme}", rows,
                       call=lambda: som.som_advect(*args))
@@ -618,11 +622,39 @@ def ptxas(root):
                           flush=True)
 
 
+def last_glue_times(smoke, rows):
+    """Group "last": chip_smoke.py phase 18's holds at full size float32
+    (N1 and N2 on the box's 1024x1024x50, Q, S1, S2 and the `+ gTr`
+    addend on the gyres' 1024x1024x32), each launch's device ms (a CUDA
+    graph of 20), its bound, its wrapper call's and its twin's ms."""
+    import torch
+
+    results = {}
+    smoke.nh_last_glue(smoke.GlueCase(*BOX_SHAPE, torch.float32, nh=True),
+                       results, 10)
+    smoke.GRIDS.clear()
+    torch.cuda.empty_cache()
+    n, nr = EVP_SHAPE
+    smoke.forcing_last_glue(smoke.GlueCase(n, nr, torch.float32), results,
+                            10)
+    smoke.seaice_last_glue(smoke.EvpCase(n, nr, torch.float32), results, 10)
+    smoke.GRIDS.clear()
+    torch.cuda.empty_cache()
+    smoke.addend_last_glue(smoke.G9Case(n, nr, torch.float32, "os7mp"),
+                           results, 10)
+    for name, r in results.items():
+        rows.append({"kernel": name, "ms": r["ms"],
+                     "bound_ms": r["bound_ms"],
+                     "share": r["bound_ms"] / r["ms"],
+                     "wrapper_ms": r["extra"]["wrapper_ms"],
+                     "plain_ms": r["plain_ms"]})
+
+
 def kernel_times(smoke, groups):
     """--kernels: [{kernel, shape, ms, bound_ms, share}] of the groups
     named: "glue", B, C and D-G at KERNEL_SHAPES, then the box's
     mom_correction; "cg3d"; "evp"; "os7mp"; "som"; "ppm"; "vecinv";
-    "multidim"; "adjoint"; "calc_gw"; "ggl90"."""
+    "multidim"; "adjoint"; "calc_gw"; "ggl90"; "last"."""
     import torch
 
     rows = []
@@ -631,7 +663,8 @@ def kernel_times(smoke, groups):
                          ("multidim", multidim_times),
                          ("adjoint", adjoint_times),
                          ("calc_gw", calc_gw_times),
-                         ("ggl90", ggl90_times)):
+                         ("ggl90", ggl90_times),
+                         ("last", last_glue_times)):
         if group in groups:
             times(smoke, rows)
             smoke.GRIDS.clear()

@@ -23,8 +23,10 @@
 #include "cuda_runtime.h"
 #include "adv_flow.cuh"
 #include "calc_gw_tile.cuh"
+#include "cg3d_setup.cuh"
 #include "cg3d_tile.cuh"
 #include "eos.cuh"
+#include "forcing.cuh"
 #include "gad_calc_rhs_tile.cuh"
 #include "gad_multidim_tile.cuh"
 #include "gad_os7mp_tile.cuh"
@@ -38,9 +40,13 @@
 #include "mom_vecinv_tile.cuh"
 #include "phihyd_adj.cuh"
 #include "phihyd_tile.cuh"
+#include "pre_cg3d.cuh"
 #include "seaice_evp_uv.cuh"
+#include "seaice_glue.cuh"
 #include "som_tile.cuh"
+#include "step_glue.cuh"
 #include "step_glue_adj.cuh"
+#include "step_scans.cuh"
 #include "step_scans_adj.cuh"
 
 using namespace mitgcm;
@@ -146,45 +152,48 @@ struct OnHost {
   }                                                                          \
   extern "C" int host_gad_multidim_##SUF(                                    \
       int dir, const void* const* table, int n, const void* src, void* dst,  \
-      int nr, int nyp, int nxp, int scheme, double deltaT, double rkSign) {  \
+      const void* add, int nr, int nyp, int nxp, int scheme, double deltaT,  \
+      double rkSign) {                                                       \
     if (dir == 0)                                                            \
-      return launch_multidim<T, 0>(table, n, src, dst, nr, nyp, nxp, scheme, \
-                                   deltaT, rkSign, OnHost{});                \
+      return launch_multidim<T, 0>(table, n, src, dst, add, nr, nyp, nxp,    \
+                                   scheme, deltaT, rkSign, OnHost{});        \
     if (dir == 1)                                                            \
-      return launch_multidim<T, 1>(table, n, src, dst, nr, nyp, nxp, scheme, \
-                                   deltaT, rkSign, OnHost{});                \
-    return launch_multidim<T, 2>(table, n, src, dst, nr, nyp, nxp, scheme,   \
-                                 deltaT, rkSign, OnHost{});                  \
+      return launch_multidim<T, 1>(table, n, src, dst, add, nr, nyp, nxp,    \
+                                   scheme, deltaT, rkSign, OnHost{});        \
+    return launch_multidim<T, 2>(table, n, src, dst, add, nr, nyp, nxp,      \
+                                 scheme, deltaT, rkSign, OnHost{});          \
   }                                                                          \
   extern "C" int host_gad_os7mp_##SUF(                                       \
       int dir, const void* const* table, int n, const void* src, void* dst,  \
-      int nr, int nyp, int nxp, int scheme, double deltaT, double rkSign) {  \
+      const void* add, int nr, int nyp, int nxp, int scheme, double deltaT,  \
+      double rkSign) {                                                       \
     if (dir == 0)                                                            \
-      return launch_os7mp<T, 0>(table, n, src, dst, nr, nyp, nxp, scheme,    \
-                                deltaT, rkSign, OnHost{});                   \
+      return launch_os7mp<T, 0>(table, n, src, dst, add, nr, nyp, nxp,       \
+                                scheme, deltaT, rkSign, OnHost{});           \
     if (dir == 1)                                                            \
-      return launch_os7mp<T, 1>(table, n, src, dst, nr, nyp, nxp, scheme,    \
-                                deltaT, rkSign, OnHost{});                   \
-    return launch_os7mp<T, 2>(table, n, src, dst, nr, nyp, nxp, scheme,      \
-                              deltaT, rkSign, OnHost{});                     \
+      return launch_os7mp<T, 1>(table, n, src, dst, add, nr, nyp, nxp,       \
+                                scheme, deltaT, rkSign, OnHost{});           \
+    return launch_os7mp<T, 2>(table, n, src, dst, add, nr, nyp, nxp,         \
+                              scheme, deltaT, rkSign, OnHost{});             \
   }                                                                          \
   extern "C" int host_gad_ppm_##SUF(                                         \
       int dir, const void* const* table, int n, const void* src, void* dst,  \
-      int nr, int nyp, int nxp, int scheme, double deltaT, double rkSign) {  \
+      const void* add, int nr, int nyp, int nxp, int scheme, double deltaT,  \
+      double rkSign) {                                                       \
     if (dir == 0)                                                            \
-      return launch_ppm<T, 0>(table, n, src, dst, nr, nyp, nxp, scheme,      \
-                              deltaT, rkSign, OnHost{});                     \
+      return launch_ppm<T, 0>(table, n, src, dst, add, nr, nyp, nxp,         \
+                              scheme, deltaT, rkSign, OnHost{});             \
     if (dir == 1)                                                            \
-      return launch_ppm<T, 1>(table, n, src, dst, nr, nyp, nxp, scheme,      \
-                              deltaT, rkSign, OnHost{});                     \
-    return launch_ppm<T, 2>(table, n, src, dst, nr, nyp, nxp, scheme,        \
-                            deltaT, rkSign, OnHost{});                       \
+      return launch_ppm<T, 1>(table, n, src, dst, add, nr, nyp, nxp,         \
+                              scheme, deltaT, rkSign, OnHost{});             \
+    return launch_ppm<T, 2>(table, n, src, dst, add, nr, nyp, nxp,           \
+                            scheme, deltaT, rkSign, OnHost{});               \
   }                                                                          \
   extern "C" int host_som_##SUF(                                             \
       int dir, const void* const* table, int n, const void* volIn,           \
       const void* oIn, const void* smIn, void* volOut, void* oOut,           \
-      void* smOut, void* gTr, int nr, int nyp, int nxp, int limiter,         \
-      double deltaT) {                                                       \
+      void* smOut, void* gTr, const void* add, int nr, int nyp, int nxp,     \
+      int limiter, double deltaT) {                                          \
     if (dir == 0)                                                            \
       return som::launch_som_horiz<T, 0>(table, n, volIn, oIn, smIn, volOut, \
                                          oOut, smOut, nr, nyp, nxp, limiter, \
@@ -193,8 +202,8 @@ struct OnHost {
       return som::launch_som_horiz<T, 1>(table, n, volIn, oIn, smIn, volOut, \
                                          oOut, smOut, nr, nyp, nxp, limiter, \
                                          deltaT, OnHost{});                  \
-    return som::launch_som_r<T>(table, n, volIn, oIn, smIn, smOut, gTr, nr,  \
-                                nyp, nxp, limiter, deltaT, OnHost{});        \
+    return som::launch_som_r<T>(table, n, volIn, oIn, smIn, smOut, gTr, add, \
+                                nr, nyp, nxp, limiter, deltaT, OnHost{});    \
   }
 
 // W and G9's ggl90_col, with their entry points' arguments but the stream
@@ -300,6 +309,59 @@ struct OnHost {
                                     OnHost{});                               \
   }
 
+// the last glue: E's and G's first passes (step_scans.cuh, step_glue.cuh),
+// N1, N2, Q, S1 and S2, with their entry points' arguments but the stream
+#define HOST_LAST_GLUE_ENTRY_POINTS(T, SUF)                                  \
+  extern "C" int host_cg2d_rhs_##SUF(                                        \
+      const void* const* t, int n, int nr, int nyp, int nxp, int oly,        \
+      int olx, int hydrostatic, double implicDiv2Dflow, double deltaTMom,    \
+      double freeSurfFac, double deltaTFreeSurf) {                           \
+    return launch_cg2d_rhs<T>(t, n, nr, nyp, nxp, oly, olx, hydrostatic,     \
+                              implicDiv2Dflow, deltaTMom, freeSurfFac,       \
+                              deltaTFreeSurf, OnHost{});                     \
+  }                                                                          \
+  extern "C" int host_mom_ab_step_##SUF(                                     \
+      const void* const* t, int n, int nr, int nyp, int nxp, int ab, int nh, \
+      double abFac, double ab0, double ab1, double ab2, double deltaTMom,    \
+      double wFac) {                                                         \
+    return launch_mom_ab_step<T>(t, n, nr, nyp, nxp, ab, nh, abFac, ab0,     \
+                                 ab1, ab2, deltaTMom, wFac, OnHost{});       \
+  }                                                                          \
+  extern "C" int host_pre_cg3d_##SUF(                                        \
+      const void* const* t, int n, int nr, int nyp, int nxp, double psFac,   \
+      double freeSurfFac, double deltaTFreeSurf, double deltaTMom) {         \
+    return launch_pre_cg3d<T>(t, n, nr, nyp, nxp, psFac, freeSurfFac,        \
+                              deltaTFreeSurf, deltaTMom, OnHost{});          \
+  }                                                                          \
+  extern "C" int host_cg3d_setup_scale_##SUF(                                \
+      const void* const* t, int n, int nr, int nyp, int nxp, int normalise) { \
+    return launch_cg3d_setup_scale<T>(t, n, nr, nyp, nxp, normalise,         \
+                                      OnHost{});                             \
+  }                                                                          \
+  extern "C" int host_cg3d_setup_fill_##SUF(                                 \
+      const void* const* t, int n, int nr, int nyp, int nxp, int normalise) { \
+    return launch_cg3d_setup_fill<T>(t, n, nr, nyp, nxp, normalise,          \
+                                     OnHost{});                              \
+  }                                                                          \
+  extern "C" int host_surface_forcing_##SUF(                                 \
+      const void* const* t, int n, const double* params, int np, int nyp,    \
+      int nxp, int flags) {                                                  \
+    return launch_surface_forcing<T>(t, n, params, np, nyp, nxp, flags,      \
+                                     OnHost{});                              \
+  }                                                                          \
+  extern "C" int host_seaice_dynforcing_##SUF(                               \
+      const void* const* t, int n, const double* params, int np, int nyp,    \
+      int nxp, int flags) {                                                  \
+    return launch_seaice_dynforcing<T>(t, n, params, np, nyp, nxp, flags,    \
+                                       OnHost{});                            \
+  }                                                                          \
+  extern "C" int host_seaice_ocean_stress_##SUF(                             \
+      const void* const* t, int n, const double* params, int np, int nyp,    \
+      int nxp, int mode, int flags) {                                        \
+    return launch_seaice_ocean_stress<T>(t, n, params, np, nyp, nxp, mode,   \
+                                         flags, OnHost{});                   \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
 HOST_CG3D_ENTRY_POINTS(float, f32)
@@ -312,3 +374,5 @@ HOST_MIX_ENTRY_POINTS(float, f32)
 HOST_MIX_ENTRY_POINTS(double, f64)
 HOST_ADJ_ENTRY_POINTS(float, f32)
 HOST_ADJ_ENTRY_POINTS(double, f64)
+HOST_LAST_GLUE_ENTRY_POINTS(float, f32)
+HOST_LAST_GLUE_ENTRY_POINTS(double, f64)

@@ -89,7 +89,8 @@ def test_evp_against_jax(name):
     jice = js.init_state()._replace(
         **{k: jnp.asarray(v) for k, v in ice.items()},
         sigma=jnp.asarray(sigma))
-    got = ts.evp(tice, *[torch.as_tensor(args[k]) for k in DYN_ARGS])
+    dyn = [torch.as_tensor(args[k]) for k in DYN_ARGS]
+    got = ts.evp(tice, *dyn, tsyn.evp_setup(ts, tice.AREA, dyn[4], dyn[5]))
     with jax.disable_jit():
         want = js.evp(jice, None, *[jnp.asarray(args[k]) for k in DYN_ARGS])
     assert got[3].shape == (3,) + tuple(tice.uIce.shape)

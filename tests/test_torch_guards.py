@@ -718,7 +718,7 @@ def _seaice_grad_calls():
                         "vRt1", "vRt2", "rhsU", "rhsV", "dwatn")}
     ctrl = torch.zeros(6, dtype=torch.int32)
     wf = torch.zeros(4, dtype=z.dtype)
-    setup = si.evp_setup(ice, z, z)
+    setup = synthetic.evp_setup(si, ice.AREA, z, z)
     forc = types.SimpleNamespace(**{k: z for k in (
         "atemp", "aqh", "precip", "swdown", "lwdown", "runoff", "wspeed",
         "evap", "Qnet", "Qsw", "EmPmR", "saltFlux")})
@@ -733,7 +733,7 @@ def _seaice_grad_calls():
         "advdiff": lambda: si.advdiff(ice),
         "thermo": lambda: si.thermo(ice._replace(uIce=z, HEFF=x), forc, z,
                                     z),
-        "evp": lambda: si.evp(ice, *[z] * 8),
+        "evp": lambda: si.evp(ice, *[z] * 8, setup),
         "freedrift": lambda: si.freedrift(ice._replace(HEFF=x), z, z, z, z),
         "sk.lsr_visc": lambda: sk.lsr_visc(si, x, z, z, z),
         "sk.lsr_coeffs": lambda: sk.lsr_coeffs(si, *[x] + [z] * 15),

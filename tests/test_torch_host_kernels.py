@@ -34,7 +34,9 @@ import ctypes
 import ctypes.util
 import dataclasses
 import importlib.util
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -75,10 +77,10 @@ SIGNATURES = {
     # the direction (0 X, 1 Y, 2 R), then the entry points' arguments but
     # the stream
     "host_mom_vecinv": [_PP, _I] + [_I] * 9 + [_D] * 4,
-    "host_gad_multidim": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
-    "host_gad_os7mp": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
-    "host_gad_ppm": [_I, _PP, _I, _P, _P] + [_I] * 4 + [_D] * 2,
-    "host_som": [_I, _PP, _I] + [_P] * 7 + [_I] * 4 + [_D],
+    "host_gad_multidim": [_I, _PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 2,
+    "host_gad_os7mp": [_I, _PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 2,
+    "host_gad_ppm": [_I, _PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 2,
+    "host_som": [_I, _PP, _I] + [_P] * 8 + [_I] * 4 + [_D],
     "host_calc_gw": [_PP, _I] + [_I] * 4 + [_D] * 3,
     "host_ggl90_col": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
     + [_I] * 8 + [ctypes.c_longlong],
@@ -90,6 +92,20 @@ SIGNATURES = {
     + [_I] * 5,
     "host_eos_sigma_r": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
     + [_I] * 5,
+    # the last glue: E's cg2d_rhs, G's mom_ab_step, N1, N2's three
+    # launches, Q, S1 and S2, with their entry points' arguments but the
+    # stream
+    "host_cg2d_rhs": [_PP, _I] + [_I] * 6 + [_D] * 4,
+    "host_mom_ab_step": [_PP, _I] + [_I] * 5 + [_D] * 6,
+    "host_pre_cg3d": [_PP, _I] + [_I] * 3 + [_D] * 4,
+    "host_cg3d_setup_scale": [_PP, _I] + [_I] * 4,
+    "host_cg3d_setup_fill": [_PP, _I] + [_I] * 4,
+    "host_surface_forcing": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 3,
+    "host_seaice_dynforcing": [_PP, _I, ctypes.POINTER(ctypes.c_double),
+                               _I] + [_I] * 3,
+    "host_seaice_ocean_stress": [_PP, _I, ctypes.POINTER(ctypes.c_double),
+                                 _I] + [_I] * 4,
 }
 
 
@@ -948,7 +964,7 @@ def evp_uv_case(dtype, seed, ny, nx, variant):
                  forcex0=fld(-1.0, 1.0), forcey0=fld(-1.0, 1.0),
                  massC=fld(1e3, 3e3, hm), massU=massU,
                  massV=fld(0.0, 3e3, mV))
-    setup = si.evp_setup(ice, massU, fixed["massV"])
+    setup = synthetic.evp_setup(si, ice.AREA, massU, fixed["massV"])
     u, v = fld(-0.2, 0.2, mU), fld(-0.2, 0.2, mV)
     s12, s1, s2 = fld(-1e3, 1e3), fld(-1e3, 1e3, hm), fld(-1e3, 1e3, hm)
     zeta, alpha = fld(1e6, 1e8, hm), fld(50.0, 500.0)
@@ -1043,11 +1059,12 @@ def sweep_case(f, kernel, direction, scheme, deltaT=600.0):
         tab = table([ins[n] for n in order])
         assert getattr(lib, lib_fn)(
             direction, tab, len(tab), ins[source].data_ptr(),
-            out.data_ptr(), nr, nyp, nxp, scheme, deltaT, cfg.rkSign) == 0
+            out.data_ptr(), None, nr, nyp, nxp, scheme, deltaT,
+            cfg.rkSign) == 0
         return [out]
 
-    args = (named[source].data_ptr(), None, nr, nyp, nxp, scheme, deltaT,
-            cfg.rkSign)
+    args = (named[source].data_ptr(), None, None, nr, nyp, nxp, scheme,
+            deltaT, cfg.rkSign)
     return want, named, args, run
 
 
@@ -1083,7 +1100,8 @@ def test_os7mp_launch_refuses(lib):
     out = torch.empty(f.s3, dtype=f.dtype)
     for n, scheme in ((len(tab) - 1, 7), (len(tab), 33)):
         assert lib.host_gad_os7mp_f64(0, tab, n, args[0], out.data_ptr(),
-                                      *args[2:5], scheme, 600.0, -1.0) == 1
+                                      None, *args[3:6], scheme, 600.0,
+                                      -1.0) == 1
 
 
 # chip_smoke.py's footprints of O's sweeps (every padded cell of each field
@@ -1135,14 +1153,15 @@ def test_ppm_launch_refuses(lib):
     _, named, args, _ = sweep_case(f, "gad_ppm", 0, 51)
     tab = table([named[n] for n in named if n not in ("localX", "localY")])
     out = torch.empty(f.s3, dtype=f.dtype)
-    nr, nyp, nxp = args[2:5]
+    nr, nyp, nxp = args[3:6]
     for d in P_SWEEPS.values():
         for n, scheme, shape in ((len(tab) - 1, 51, (nr, nyp, nxp)),
                                  (len(tab), 7, (nr, nyp, nxp)),
                                  (len(tab), 43, (nr, nyp, nxp)),
                                  (len(tab), 51, (0, nyp, nxp))):
             assert lib.host_gad_ppm_f64(d, tab, n, args[0], out.data_ptr(),
-                                        *shape, scheme, 600.0, -1.0) == 1
+                                        None, *shape, scheme, 600.0,
+                                        -1.0) == 1
 
 
 # chip_smoke.py's footprints of P's sweeps (every padded cell of each field
@@ -1224,8 +1243,8 @@ def som_case(f, name, scheme, deltaT=600.0):
         assert getattr(lib, lib_fn)(
             SOM_PASSES[name], tab, len(tab),
             *[None if n is None else named_in[n].data_ptr() for n in ins],
-            ptr(vol_out), ptr(o_out), ptr(sm_out), ptr(gtr), nr, nyp, nxp,
-            scheme % 10, deltaT) == 0
+            ptr(vol_out), ptr(o_out), ptr(sm_out), ptr(gtr), None, nr, nyp,
+            nxp, scheme % 10, deltaT) == 0
         return outs
 
     return list(want), named, (nr, nyp, nxp, scheme % 10), run
@@ -1261,8 +1280,8 @@ def test_som_launch_refuses(lib):
                                    (1, len(tab), p, None, 2),
                                    (1, len(tab), None, None, 1),
                                    (2, len(tab), p, None, 1)):
-        assert lib.host_som_f64(d, tab, n, vol_in, p, p, p, p, p, gtr, nr,
-                                nyp, nxp, lim, 600.0) == 1
+        assert lib.host_som_f64(d, tab, n, vol_in, p, p, p, p, p, gtr, None,
+                                nr, nyp, nxp, lim, 600.0) == 1
 
 
 # chip_smoke.py's footprints of H-SOM's passes (every padded cell of each
@@ -1428,7 +1447,7 @@ def test_multidim_launch_refuses(lib):
                          (0, len(tab), 2), (1, len(tab), 7),
                          (2, len(tab), 7), (2, len(tab), 41)):
         assert lib.host_gad_multidim_f64(d, tab, n, args[0], out.data_ptr(),
-                                         *args[2:5], scheme, 600.0,
+                                         None, *args[3:6], scheme, 600.0,
                                          -1.0) == 1
 
 
@@ -2390,3 +2409,563 @@ def test_gyre_gradient_through_glue_adj(lib, monkeypatch):
     assert float(c0) == float(c1)
     dig = digits(g1.numpy(), g0.numpy())
     assert dig >= 13.0, f"{dig:.2f} digits"
+
+
+# ---------------------------------------------------------------------------
+# The last glue: E's cg2d_rhs (the non-hydrostatic variant with pre_cg3d's
+# surface term), G's mom_ab_step with the 2-D forcing, N1 (pre_cg3d), N2
+# (cg3d_setup_scale, _fill), Q (surface_forcing), S1
+# (seaice_dynforcing), S2 (seaice_ocean_stress) and the `+ gTr` addend of
+# the last sweep of M, O, P and H-SOM. Each runs through its wrapper's
+# kernel path on CPU tensors, the launch on the mock (`on_mock`), against
+# the same wrapper with impl="plain" (the twin), every padded cell equal,
+# NaN in the same cells, in float64 and float32.
+# ---------------------------------------------------------------------------
+_SWEEP_KERNEL = re.compile(r"(gad_multidim|gad_os7mp|gad_ppm|som)_([xyr])")
+
+
+@pytest.fixture
+def on_mock(lib, monkeypatch):
+    """The wrappers' kernel path for CPU tensors (impl=None; "plain" runs
+    the twins), each launch on the mock through the host entry point of
+    its kernel (the sweeps' with their direction first, H-cg3d's passes
+    with their pointers as a table); the halo fill as the gather."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.ops import stencil
+
+    def use_kernel(t, impl=None):
+        if impl not in (None, "plain"):
+            raise ValueError(impl)
+        return impl is None
+
+    def launch(kernel, dtype, *args):
+        suf = SUFFIX[dtype]
+        sweep = _SWEEP_KERNEL.fullmatch(kernel)
+        if sweep:
+            err = getattr(lib, f"host_{sweep[1]}_{suf}")(
+                "xyr".index(sweep[2]), *args)
+        elif kernel in ("cg3d_s_stencil_dot", "cg3d_xr_precond"):
+            n = 15 if kernel == "cg3d_s_stencil_dot" else 18
+            tab = (ctypes.c_void_p * n)(*args[:n])
+            extra = () if n == 15 else (1 << 30,)
+            err = getattr(lib, f"host_{kernel}_{suf}")(tab, n, *args[n:],
+                                                        *extra)
+        else:
+            err = getattr(lib, f"host_{kernel}_{suf}")(*args)
+        assert err == 0, f"{kernel}: error {err}"
+        kernels.launches[kernel] += 1
+
+    def check_tensors(dtype, **tensors):
+        for name, t in tensors.items():
+            assert t.dtype == dtype and t.is_contiguous(), name
+
+    host = SimpleNamespace(mitgcm_cg2d_num_partials=lambda ny, nx: (
+        (nx + 31) // 32) * ((ny + 7) // 8))
+    monkeypatch.setattr(kernels, "use_kernel", use_kernel)
+    monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(kernels, "check_tensors", check_tensors)
+    monkeypatch.setattr(kernels, "library", lambda: host)
+    monkeypatch.setattr(stencil, "_halo_fill", stencil._gather)
+    kernels.launches.clear()
+    return kernels.launches
+
+
+def check_outputs(got, want, label):
+    """Each output (None where the twin forms none) equal on every padded
+    cell, NaN in the same cells."""
+    assert len(got) == len(want), label
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None), f"{label} output {n}"
+        if g is not None:
+            check_same_cells(g, w, f"{label} output {n}")
+
+
+def last_fields(dtype, seed, ny, nx, nr=MIX_NR):
+    """Fields with kSurfC from hFacC (a dry column's nr + 1; one column
+    dry and one whose surface is the bottom level forced), recip_Bo and
+    Bo_surf."""
+    f = Fields(dtype, seed, ny, nx, nr)
+    g = f.grid
+    wet = g.hFacC != 0.0
+    first = torch.argmax(wet.to(torch.int64), dim=0) + 1
+    ks = torch.where(wet.any(dim=0), first, torch.full_like(first, nr + 1))
+    ks[3, 4] = nr + 1
+    ks[2, 5] = nr
+    g.kSurfC = ks.to(dtype)
+    g.Bo_surf = f.uniform(f.s3[1:], 5.0, 15.0)
+    g.recip_Bo = 1.0 / g.Bo_surf
+    return f
+
+
+def glue_cfg(nr, **kw):
+    return SimpleNamespace(
+        nr=nr, oly=OL, olx=OL, implicDiv2Dflow=0.8, implicSurfPress=0.9,
+        deltaTMom=600.0, freeSurfFac=1.0, deltaTFreeSurf=900.0, **kw)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hydrostatic", (True, False))
+def test_cg2d_rhs_surf_term(lib, on_mock, ny, nx, dtype, hydrostatic):
+    """E's cg2d_rhs: the non-hydrostatic variant adds pre_cg3d's surface
+    term (etaN + phi_nh at kSurfC - 1 over Bo) to the right-hand side and
+    to the divergence of the surface level, a dry column's sum +0, a -0.0
+    phi_nh at a surface level."""
+    f = last_fields(DTYPES[dtype], 900 + nx, ny, nx)
+    cfg = glue_cfg(MIX_NR)
+    s2 = f.s3[1:]
+    u, v, phi = f.normal(f.s3, 0.1), f.normal(f.s3, 0.1), f.normal(f.s3)
+    phi[MIX_NR - 1, 2, 5] = -0.0         # the surface level of (2, 5)
+    eta = f.normal(s2, 0.1)
+    eta[2, 5] = 0.0
+
+    def run(impl):
+        return list(step.cg2d_rhs(cfg, f.grid, u, v, eta,
+                                  hydrostatic=hydrostatic, impl=impl,
+                                  phi_nh=None if hydrostatic else phi))
+    check_outputs(run(None), run("plain"), f"cg2d_rhs {hydrostatic}")
+    assert on_mock["cg2d_rhs"] == 1
+
+
+# (configuration, iteration): AB-2 on the cold start and later, AB-3 on
+# the cold start, the second and a later step, the box's non-hydrostatic
+# AB-2
+MOM_AB_CASES = {"AB-2 cold start": ("gyre", 0), "AB-2": ("gyre", 1),
+                "AB-3 cold start": ("vi", 0), "AB-3 second": ("vi", 1),
+                "AB-3": ("vi", 2), "non-hydrostatic": ("nh", 1)}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MOM_AB_CASES)
+def test_mom_ab_step_2d_forcing(lib, on_mock, ny, nx, dtype, case):
+    """G's mom_ab_step reads the wind stress's surface level [nyp, nxp]
+    and adds +0 below it, as the twin's 3-D forcing: a -0.0 tendency below
+    the surface comes out +0.0."""
+    from mitgcm_tpu_torch.model.mom_fluxform import MomTend
+
+    kind, it = MOM_AB_CASES[case]
+    f = last_fields(DTYPES[dtype], 920 + nx, ny, nx)
+    make = {"gyre": synthetic.gyre_config, "vi": synthetic.vi_gyre_config,
+            "nh": synthetic.nh_convection_config}[kind]
+    cfg = make(nx=nx, ny=ny, nr=MIX_NR)
+    s2 = f.s3[1:]
+    t = {k: f.normal(f.s3, 1e-4) for k in (
+        "gU", "gV", "guDiss", "gvDiss", "dPhiX", "dPhiY", "guNm1", "gvNm1",
+        "guNm2", "gvNm2", "gW", "gwDiss", "gwNm1", "gwNm2")}
+    t["gU"][2, 3, 4], t["dPhiX"][2, 3, 4], t["guDiss"][2, 3, 4] = (
+        -0.0, 0.0, -0.0)
+    state = SimpleNamespace(
+        uVel=f.normal(f.s3, 0.1), vVel=f.normal(f.s3, 0.1),
+        wVel=f.normal(f.s3, 1e-3), **{k: t[k] for k in (
+            "guNm1", "gvNm1", "guNm2", "gvNm2", "gwNm1", "gwNm2")})
+    tend = MomTend(t["gU"], t["gV"], t["guDiss"], t["gvDiss"])
+    ext = f.normal(s2, 1e-5), f.normal(s2, 1e-5)
+    gw = (t["gW"], t["gwDiss"]) if kind == "nh" else None
+
+    def run(impl):
+        out = step.mom_ab_step(cfg, f.grid, state, tend, t["dPhiX"],
+                               t["dPhiY"], *ext, it, impl=impl, gw=gw)
+        return list(out[:4]) + ([out[6]["wStar"], out[6]["gwNm1"]]
+                                if gw else [])
+    got = run(None)
+    check_outputs(got, run("plain"), case)
+    assert math.copysign(1.0, float(got[2][2, 3, 4])) == 1.0   # guNm1
+    assert on_mock["mom_ab_step"] == 1
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pre_cg3d(lib, on_mock, ny, nx, dtype):
+    """N1: the cg3d right-hand side from each level's divergence, the
+    correction flow of the cg2d solution and w*'s vertical transport."""
+    f = last_fields(DTYPES[dtype], 940 + nx, ny, nx)
+    cfg = glue_cfg(MIX_NR)
+    s2 = f.s3[1:]
+    x2, eta = f.normal(s2, 10.0), f.normal(s2, 0.1)
+    w, div = f.normal(f.s3, 1e-3), f.normal(f.s3, 1e-2)
+
+    def run(impl):
+        return [step.pre_cg3d(cfg, f.grid, x2, eta, w, div, impl=impl)]
+    check_outputs(run(None), run("plain"), "pre_cg3d")
+    assert on_mock["pre_cg3d"] == 1
+
+
+# the right-hand sides of N2's cases: a random one with and without the
+# normalisation, one of zeros (rhsMax 0, rhsNorm 1) and one with a NaN
+CG3D_SETUP_CASES = ("normalise", "no normalise", "rhsMax 0", "NaN")
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CG3D_SETUP_CASES)
+def test_cg3d_setup(lib, on_mock, ny, nx, dtype, case):
+    """N2: cg3d_setup_scale and _fill against the twin (r, x, the four
+    zero work fields, rhsNorm on the device; x divided by it at the
+    solve's end as by the twin's)."""
+    from mitgcm_tpu_torch.ops.stencil import interior_mask
+
+    f = last_fields(DTYPES[dtype], 960 + nx, ny, nx)
+    g = f.grid
+    imask3 = interior_mask(f.s3, OL, OL, f.dtype, "cpu") * g.maskC
+    op = SimpleNamespace(cg3dNorm=f.tensor(3.7e-3), imask3=imask3)
+    b = f.normal(f.s3, 50.0)
+    if case == "rhsMax 0":
+        b.zero_()
+    if case == "NaN":
+        b[1, 0, 3] = float("nan")        # a halo cell: masked, still NaN
+    x0 = f.normal(f.s3, 1.0)
+    normalise = case != "no normalise"
+    want = cg3d._setup_plain(op, b, x0, normalise)
+    ws = cg3d.Workspace(f.s3, OL, OL, f.dtype, "cpu")
+    got = cg3d._setup_kernel(op, b, x0, normalise, ws)
+    check_outputs(got[:6], want[:6], case)
+    if not normalise:
+        assert got[6] is None and want[6] is None
+        return
+    check_same_cells(got[6].reshape(()), want[6], "rhsNorm")
+    check_same_cells(got[1] / got[6], want[1] / want[6], "x / rhsNorm")
+    assert int(ws.counter) == 0
+
+
+@pytest.fixture(scope="module")
+def nh_box():
+    """{dtype: (cfg, grid, cg3d operator)} of the 16x16x12 box, a solve
+    capped at 6 iterations."""
+    cfg = synthetic.nh_convection_config(nx=16, ny=16, nr=12)
+    cfg = dataclasses.replace(cfg, cg3dMaxIters=6)
+    boxes = {}
+    for name, dtype in DTYPES.items():
+        grid, _, _, _, op3 = synthetic.nh_convection_setup(
+            cfg, dtype=dtype, device="cpu")
+        boxes[name] = cfg, grid, op3
+    return boxes
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cg3d_solve_setup_on_mock(lib, nh_box, on_mock, monkeypatch,
+                                  dtype):
+    """A cg3d solve of the 16x16x12 box on the kernel path (N2 and H-cg3d
+    on the mock, its control words on the CPU) against the plain path: the
+    solution, the residuals and the iterations equal, the solve's set-up
+    and end three launches."""
+    monkeypatch.setattr(cg3d, "_check_ctrl", lambda ctrl: None)
+    cfg, grid, op3 = nh_box[dtype]
+    rng = np.random.default_rng(980)
+    b = torch.as_tensor(rng.standard_normal(grid.hFacC.shape),
+                        dtype=DTYPES[dtype])
+    x0 = torch.as_tensor(rng.standard_normal(grid.hFacC.shape),
+                         dtype=DTYPES[dtype])
+    res = {impl: cg3d.cg3d(cfg, grid, op3, b, x0, impl=impl)
+           for impl in (None, "plain")}
+    check_same_cells(res[None].x, res["plain"].x, "x")
+    for name in ("first_residual", "last_residual"):
+        check_same_cells(getattr(res[None], name),
+                         getattr(res["plain"], name), name)
+    assert res[None].n_iters == res["plain"].n_iters == 6
+    assert (on_mock["cg3d_setup_scale"], on_mock["cg3d_setup_fill"]) \
+        == (1, 1)
+
+
+# Q's flag variants: (relaxation of theta, of salt, the sea ice's open
+# fraction, E-P-R of theta, of salt, the surface stress written for KPP)
+FORCING_CASES = {"fluxes": (False, False, False, False, False, False),
+                 "fluxes, KPP": (False, False, False, False, False, True),
+                 "relaxation": (True, True, False, False, False, False),
+                 "relaxation under ice": (True, True, True, False, False,
+                                          True),
+                 "theta's relaxation under ice": (True, False, True, False,
+                                                  False, False),
+                 "E-P-R": (False, False, False, True, True, False),
+                 "every term": (True, True, True, True, True, True)}
+
+
+def forcing_cfg(relaxT, relaxS, evT, evS, tau):
+    return SimpleNamespace(
+        ksurf0=0, tauThetaClimRelax=86400.0 * 30 if relaxT else 0.0,
+        tauSaltClimRelax=86400.0 * 60 if relaxS else 0.0,
+        HeatCapacity_Cp=3994.0, mass2rUnit=1.0 / 1035.0,
+        temp_EvPrRn=0.5 if evT else None, salt_EvPrRn=0.0 if evS else None,
+        tRef=[14.0], convertFW2Salt=35.0, useKPP=tau, useGGL90=False)
+
+
+def forcing_args(f, ice):
+    """Q's twin's arguments after the grid: theta, salt, AREA (with ice)
+    and FORCING_INPUTS, two fluxes with a -0.0 cell."""
+    s2 = f.s3[1:]
+    forcing = [f.normal(s2, 1.0) + 10.0, f.normal(s2, 1.0) + 34.0,
+               f.normal(s2, 100.0), f.normal(s2, 1e-4),
+               f.normal(s2, 1e-5), f.normal(s2, 0.1), f.normal(s2, 0.1)]
+    forcing[2][3, 3] = forcing[3][4, 4] = -0.0
+    return [f.uniform(f.s3, -2.0, 20.0), f.uniform(f.s3, 33.0, 36.0),
+            f.uniform(s2, 0.0, 1.0) if ice else None, *forcing]
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FORCING_CASES)
+def test_surface_forcing(lib, on_mock, ny, nx, dtype, case):
+    """Q: sfT, sfS, the surface stress (KPP's paths only) and the momentum
+    forcing's surface level in each flag variant, -0.0 fluxes included."""
+    from mitgcm_tpu_torch.model import thermodynamics as th
+
+    relaxT, relaxS, ice, evT, evS, tau = FORCING_CASES[case]
+    f = last_fields(DTYPES[dtype], 1000 + nx, ny, nx)
+    cfg = forcing_cfg(relaxT, relaxS, evT, evS, tau)
+    args = forcing_args(f, ice)
+    got = th._surface_forcing_kernel(cfg, f.grid, *args)
+    want = th._surface_forcing_plain(cfg, f.grid, *args)
+    assert (got.tauU is None) == (not tau)
+    check_outputs(list(got), list(want), case)
+    assert on_mock["surface_forcing"] == 1
+
+
+@pytest.mark.parametrize("relaxed", (True, False))
+def test_surface_forcing_grad_through_twin(lib, on_mock, relaxed):
+    """Q under kernels.TwinVJP: with the relaxation, theta and salt under
+    a control get the plain path's gradient bit for bit, the twin's VJP
+    run once; without it the tracers are not Q's inputs, and a theta that
+    requires grad runs no twin."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model import thermodynamics as th
+
+    f = last_fields(torch.float64, 1040, *SIZES[0])
+    cfg = SimpleNamespace(**forcing_cfg(relaxed, relaxed, True, True,
+                                        True).__dict__, useSEAICE=False)
+    theta, salt, _, *forc = forcing_args(f, False)
+    state = SimpleNamespace(theta=theta, salt=salt, siAREA=None)
+    forcing = SimpleNamespace(**dict(zip(th.FORCING_INPUTS, forc)))
+    w = [f.normal(f.s3[1:]) for _ in th.SurfaceForcing._fields]
+    before = kernels.launches["twin_vjp"]
+    grads = {}
+    for impl in (None, "plain"):
+        xs = [theta.clone().requires_grad_(True),
+              salt.clone().requires_grad_(True)]
+        st = SimpleNamespace(**{**state.__dict__, "theta": xs[0],
+                                "salt": xs[1]})
+        sf = th.surface_forcing(cfg, f.grid, st, forcing, impl=impl)
+        loss = sum((o * wo).sum() for o, wo in zip(sf, w))
+        assert loss.requires_grad == relaxed
+        if relaxed:
+            grads[impl] = torch.autograd.grad(loss, xs)
+    assert on_mock["surface_forcing"] == 1
+    assert kernels.launches["twin_vjp"] - before == int(relaxed)
+    if relaxed:
+        for g, w_ in zip(grads[None], grads["plain"]):
+            check_same_cells(g, w_, "grad")
+            assert bool(g.abs().sum() > 0)
+
+
+def ice_case(dtype, seed, ny, nx, nml=None):
+    """The ice-gyre's SeaIce on its walled grid with seeded ice and ocean
+    (as evp_uv_case), the EVP settings of nml on top."""
+    cfg = synthetic.evp_ice_gyre_config(nx=nx, ny=ny, nr=4, deltaT=600.0)
+    cfg = dataclasses.replace(cfg, sNy=ny // 2, nSy=2)
+    grid = synthetic.gyre_grid(cfg, dtype=dtype, device="cpu")
+    si = seaice.SeaIce(cfg, grid, seaice.params_from_namelists(
+        cfg, {**synthetic.ICE_GYRE_SEAICE, **(nml or {})}))
+    rng = np.random.default_rng(seed)
+    shape = tuple(grid.rA.shape)
+
+    def fld(lo, hi, mask=None):
+        a = torch.as_tensor(rng.uniform(lo, hi, shape), dtype=dtype)
+        return a * mask if mask is not None else a
+
+    hm = si.HEFFM
+    ice = si.init_state()._replace(
+        AREA=fld(0.0, 1.0, hm), HEFF=fld(0.0, 3.0, hm),
+        HSNOW=fld(0.0, 0.4, hm), uIce=fld(-0.6, 0.6, si.seaiceMaskU),
+        vIce=fld(-0.6, 0.6, si.seaiceMaskV))
+    ice.HEFF[4, ::2] = 0.0           # cells without ice mass
+    ocean = dict(uVel0=fld(-0.3, 0.3), vVel0=fld(-0.3, 0.3),
+                 fu=fld(-0.2, 0.2), fv=fld(-0.2, 0.2),
+                 etaN=fld(-0.5, 0.5))
+    return si, ice, ocean, fld
+
+
+# S1's flags: (SEAICEaddSnowMass, SEAICEscaleSurfStress, SEAICEuseTilt,
+# EVP's masks)
+DYNFORCING_CASES = {"ice-gyre": None, "no snow": (False, True, True, False),
+                    "no stress scaling": (True, False, True, False),
+                    "no tilt": (True, True, False, False),
+                    "EVP": (True, True, True, True),
+                    "bare EVP": (False, False, False, True)}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", DYNFORCING_CASES)
+def test_seaice_dynforcing(lib, on_mock, libm_math, ny, nx, dtype, case):
+    """S1: the step's set-up in each flag variant (the twin's exp libm's,
+    as the kernel's on the host)."""
+    si, ice, ocean, _ = ice_case(DTYPES[dtype], 1020 + nx, ny, nx)
+    flags = DYNFORCING_CASES[case]
+    evp = False
+    if flags is not None:
+        snow, scale, tilt, evp = flags
+        si.p = dataclasses.replace(si.p, addSnowMass=snow,
+                                   scaleSurfStress=scale, useTilt=tilt)
+
+    def run(impl):
+        d = si.dynforcing(ice, ocean["fu"], ocean["fv"], ocean["etaN"], evp,
+                          impl=impl)
+        return [d[k] for k in seaice.DYNFORCING_OUT[:11 + 2 * evp]]
+    check_outputs(run(None), run("plain"), case)
+    assert on_mock["seaice_dynforcing"] == 1
+
+
+# S2's variants: (ocean stress mode, the no-dynamics drag, EVP's clip)
+OCEAN_STRESS_CASES = {"LSR": (1, False, False),
+                      "no dynamics": (1, True, False),
+                      "EVP with clip": (1, False, True),
+                      "HB87": (2, False, False),
+                      "HB87 with clip": (2, False, True),
+                      "clip alone": (0, False, True)}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", OCEAN_STRESS_CASES)
+def test_seaice_ocean_stress(lib, on_mock, libm_math, ny, nx, dtype, case):
+    """S2: the ocean stress (with the drag formed where it is read without
+    the dynamics; HB87's) and EVP's clip, velocities beyond the clip's
+    0.4 m/s and a NaN ice velocity in the clip."""
+    mode, drag, clip = OCEAN_STRESS_CASES[case]
+    si, ice, ocean, fld = ice_case(DTYPES[dtype], 1040 + nx, ny, nx)
+    if mode == 0:
+        ice.uIce[5, 6] = float("nan")
+    dwatn = None if drag else fld(0.0, 5.0, si.HEFFM)
+    extra = dict(windTau=(fld(-0.2, 0.2), fld(-0.2, 0.2)),
+                 stressDiv=(fld(-0.1, 0.1), fld(-0.1, 0.1)))
+
+    def run(impl):
+        return list(si.ocean_stress(ice, dwatn, ocean["uVel0"],
+                                    ocean["vVel0"], ocean["fu"], ocean["fv"],
+                                    mode=mode, drag=drag, clip=clip,
+                                    impl=impl, **extra))
+    check_outputs(run(None), run("plain"), case)
+    assert on_mock["seaice_ocean_stress"] == 1
+
+
+# the last sweep's addend: (owner, scheme, vertical scheme, halo)
+ADDEND_CASES = {"M": (33, 33, OL), "M, vertical 2": (33, 2, OL),
+                "O": (7, 7, O_OL), "P": (51, 51, O_OL), "P 41": (41, 41, O_OL)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ADDEND_CASES)
+def test_multidim_addend(lib, on_mock, dtype, case):
+    """The R sweep of M, O and P adds gTr as it writes gTracer: the
+    advection's gTracer + gTr equal to the twin's sum, the X and Y sweeps
+    refusing an addend."""
+    scheme, vert, ol = ADDEND_CASES[case]
+    f = Fields(DTYPES[dtype], 1060 + scheme + vert, 12, 20, 4, ol)
+    want, named, _, _ = sweep_case(f, "gad_multidim", 0, 33)
+    g = f.grid
+    cfg = SimpleNamespace(rkSign=-1.0)
+    flow = gad.AdvFlow(
+        uTrans=named["uTrans"], vTrans=named["vTrans"],
+        rTrans=named["rTrans"],
+        rTransKp=torch.cat([named["rTrans"][1:],
+                            torch.zeros_like(named["rTrans"][:1])]),
+        maskUp=g.maskC, xA=g.maskW, yA=g.maskS)
+    gTr = f.normal(f.s3, 1e-4)
+    gTr[1, 2, 3] = -0.0
+
+    def run(impl):
+        return [gad.multidim_advection(
+            cfg, g, flow, named["uVel"], named["vVel"], named["wVel"],
+            named["tracer"], scheme, vert, 600.0, impl=impl, add=gTr)]
+    check_outputs(run(None), run("plain"), case)
+    r_sweep = gad.sweep_name(vert, "r")
+    assert on_mock[r_sweep] == 1
+    tab = table([named[n] for n in named if n not in ("localX", "localY")])
+    out = torch.empty(f.s3, dtype=f.dtype)
+    owner = r_sweep.rsplit("_", 1)[0]
+    for d in (0, 1):
+        assert getattr(lib, f"host_{owner}_{dtype}")(
+            d, tab, len(tab), named["tracer"].data_ptr(), out.data_ptr(),
+            gTr.data_ptr(), *f.s3, scheme, 600.0, -1.0) == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scheme", (80, 81))
+def test_som_addend(lib, on_mock, dtype, scheme):
+    """som_r adds gTr as it writes gTracer (gSom + gTr), som_x and som_y
+    refusing an addend."""
+    f = Fields(DTYPES[dtype], 1080 + scheme, 12, 20)
+    _, named, _, _ = som_case(f, "som_x", scheme)
+    cfg = SimpleNamespace(nx=20, ny=12, olx=OL, oly=OL, nFaces=1)
+    gTr = f.normal(f.s3, 1e-4)
+
+    def run(impl):
+        return list(som.som_advect(cfg, f.grid, named["uVel"], named["vVel"],
+                                   named["wVel"], named["tracer"],
+                                   named["smTr"], scheme, 600.0, impl=impl,
+                                   add=gTr))
+    check_outputs(run(None), run("plain"), f"som {scheme}")
+    assert on_mock["som_r"] == 1
+
+
+def test_last_glue_launches_refuse(lib):
+    """Each new launch refuses a table of the wrong length, a missing
+    input its variant reads and an unknown flag or variant
+    (cudaErrorInvalidValue, 1)."""
+    f = last_fields(torch.float64, 1100, 12, 20)
+    nr, nyp, nxp = f.s3
+    a = f.normal(f.s3)
+
+    def tab(n, null=()):
+        return table([None if k in null else a for k in range(n)])
+    d = (ctypes.c_double * 9)(*([1.0] * 9))
+    # E: 14 pointers; the non-hydrostatic variant needs div, phi_nh,
+    # kSurfC and recip_Bo
+    assert lib.host_cg2d_rhs_f64(tab(13), 13, nr, nyp, nxp, OL, OL, 1,
+                                 1.0, 1.0, 1.0, 1.0) == 1
+    assert lib.host_cg2d_rhs_f64(tab(14, (12,)), 14, nr, nyp, nxp, OL, OL,
+                                 0, 1.0, 1.0, 1.0, 1.0) == 1
+    assert lib.host_cg2d_rhs_f64(tab(14, (12,)), 14, nr, nyp, nxp, OL, OL,
+                                 1, 1.0, 1.0, 1.0, 1.0) == 0
+    # G: 28 pointers, AB order 2 or 3
+    assert lib.host_mom_ab_step_f64(tab(27), 27, nr, nyp, nxp, 2, 0, 0.5,
+                                    0.0, 0.0, 0.0, 600.0, 0.0) == 1
+    assert lib.host_mom_ab_step_f64(tab(28), 28, nr, nyp, nxp, 4, 0, 0.5,
+                                    0.0, 0.0, 0.0, 600.0, 0.0) == 1
+    # N1: 14 pointers, none null
+    assert lib.host_pre_cg3d_f64(tab(13), 13, nr, nyp, nxp, 1.0, 1.0, 1.0,
+                                 1.0) == 1
+    assert lib.host_pre_cg3d_f64(tab(14, (3,)), 14, nr, nyp, nxp, 1.0, 1.0,
+                                 1.0, 1.0) == 1
+    # N2: 13 pointers; the normalisation needs its scratch and scal
+    for name in ("scale", "fill"):
+        fn = getattr(lib, f"host_cg3d_setup_{name}_f64")
+        assert fn(tab(12), 12, nr, nyp, nxp, 0) == 1
+        assert fn(tab(13, (12,)), 13, nr, nyp, nxp, 1) == 1
+    # Q: 21 pointers, 6 parameters, flags 0-31, relaxation needs theta,
+    # the surface stress tauU
+    assert lib.host_surface_forcing_f64(tab(20), 20, d, 6, nyp, nxp, 0) == 1
+    assert lib.host_surface_forcing_f64(tab(21), 21, d, 5, nyp, nxp, 0) == 1
+    assert lib.host_surface_forcing_f64(tab(21), 21, d, 6, nyp, nxp, 32) == 1
+    assert lib.host_surface_forcing_f64(tab(21, (17,)), 21, d, 6, nyp, nxp,
+                                        16) == 1
+    assert lib.host_surface_forcing_f64(tab(21, (0,)), 21, d, 6, nyp, nxp,
+                                        1) == 1
+    # S1: 26 pointers, 9 parameters, flags 0-15, EVP needs its masks
+    assert lib.host_seaice_dynforcing_f64(tab(25), 25, d, 9, nyp, nxp,
+                                          0) == 1
+    assert lib.host_seaice_dynforcing_f64(tab(26), 26, d, 8, nyp, nxp,
+                                          0) == 1
+    assert lib.host_seaice_dynforcing_f64(tab(26, (24,)), 26, d, 9, nyp, nxp,
+                                          8) == 1
+    # S2: 21 pointers, 7 parameters; no stress without the clip, the drag
+    # only with mode 1, mode 1 without dwatn only with the drag
+    assert lib.host_seaice_ocean_stress_f64(tab(20), 20, d, 7, nyp, nxp, 1,
+                                            0) == 1
+    assert lib.host_seaice_ocean_stress_f64(tab(21), 21, d, 7, nyp, nxp, 0,
+                                            0) == 1
+    assert lib.host_seaice_ocean_stress_f64(tab(21), 21, d, 7, nyp, nxp, 2,
+                                            2) == 1
+    assert lib.host_seaice_ocean_stress_f64(tab(21, (4,)), 21, d, 7, nyp,
+                                            nxp, 1, 0) == 1
+    assert lib.host_seaice_ocean_stress_f64(tab(21), 21, d, 7, nyp, nxp, 3,
+                                            0) == 1

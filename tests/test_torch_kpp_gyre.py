@@ -114,11 +114,10 @@ def test_kpp_gyre_covers_both_regimes(kpp_gyre):
     exp = kpp_gyre[0]
     cfg, grid, st = exp.cfg, exp.grid, exp.state
     forc = load_fields(exp.forcing)
-    sfT, sfS = tth.surface_forcing_ts(cfg, grid, st, forc)
+    sf = tth.surface_forcing(cfg, grid, st, forc)
     kappa = tth.tracer_kappa(cfg, grid, cfg.diffKrT)
     f = exp.kpp.calc(st.uVel, st.vVel, st.theta, st.salt, st.totPhiHyd,
-                     forc.fu * cfg.mass2rUnit, forc.fv * cfg.mass2rUnit,
-                     sfT, sfS, forc.Qsw, kappa, kappa)
+                     sf.tauU, sf.tauV, sf.sfT, sf.sfS, forc.Qsw, kappa, kappa)
     wet = grid.maskC[0] > 0
     hbl = f["hbl"][wet]
     assert float(hbl.min()) < 10.0 and float(hbl.max()) > 40.0

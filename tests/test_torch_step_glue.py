@@ -177,6 +177,10 @@ def _mom_inputs(grid, seed):
     rng = np.random.default_rng(seed)
     shape = grid.hFacC.shape
     f = {k: _rand(rng, shape, 1e-4) for k in _MOM}
+    # apply_forcing.F's wind stress: the surface level alone (the port's
+    # mom_ab_step takes that level, kernel Q's)
+    f["guExt"][1:] = 0.0
+    f["gvExt"][1:] = 0.0
     f["u"] = _rand(rng, shape, 0.1, grid.maskW)
     f["v"] = _rand(rng, shape, 0.1, grid.maskS)
     f["w"] = _rand(rng, shape, 1e-3, grid.maskC)
@@ -211,8 +215,8 @@ def _mom_ab_got(cfg, grid, f, it, nh, impl=None):
         setattr(state, k, T[k])
     tend = MomTend(T["gU"], T["gV"], T["guDiss"], T["gvDiss"])
     uS, vS, gu1, gv1, gu2, gv2, nhd = tstep.mom_ab_step(
-        cfg, grid, state, tend, T["dPhiX"], T["dPhiY"], T["guExt"],
-        T["gvExt"], it, impl=impl,
+        cfg, grid, state, tend, T["dPhiX"], T["dPhiY"], T["guExt"][0],
+        T["gvExt"][0], it, impl=impl,
         gw=(T["gW"], T["gwDiss"]) if nh else None)
     out = [gu1, uS, gu2, gv1, vS, gv2]
     if nh:
@@ -306,9 +310,11 @@ def _vjp_cases():
         return torch.from_numpy(_rand(rng, s, scale))
 
     f = _mom_inputs(grid, 31)
-    mom = [torch.from_numpy(f[k]) for k in (
-        "gU", "dPhiX", "guDiss", "guExt", "guNm1", "guNm2", "u", "gV",
-        "dPhiY", "gvDiss", "gvExt", "gvNm1", "gvNm2", "v")]
+    # the forcing's surface level, as the twin takes it
+    mom = [torch.from_numpy(f[k][0] if k.endswith("Ext") else f[k])
+           for k in ("gU", "dPhiX", "guDiss", "guExt", "guNm1", "guNm2", "u",
+                     "gV", "dPhiY", "gvDiss", "gvExt", "gvNm1", "gvNm2",
+                     "v")]
     return {
         "phihyd": (lambda rho: tphi._phi_hyd_plain(cfg, grid, rho),
                    [t(0.5)]),
@@ -316,8 +322,9 @@ def _vjp_cases():
                                                            e, True),
                      [t(0.1), t(0.1), t(0.1, shape[1:])]),
         # the non-hydrostatic sum and each level's divergence
-        "cg2d_rhs(nh)": (lambda u, v, e: tstep._cg2d_rhs_plain(
-            cfg, grid, u, v, e, False), [t(0.1), t(0.1), t(0.1, shape[1:])]),
+        "cg2d_rhs(nh)": (lambda u, v, e, phi: tstep._cg2d_rhs_plain(
+            cfg, grid, u, v, e, False, phi),
+                         [t(0.1), t(0.1), t(0.1, shape[1:]), t(1.0)]),
         "continuity": (lambda u, v, e: tstep._continuity_plain(cfg, grid, u,
                                                                v, e),
                        [t(0.1), t(0.1), t(1e-6, shape[1:])]),
