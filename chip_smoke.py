@@ -234,6 +234,28 @@ exits nonzero without the final line:
                  solve) on the box, S1's and S2's once a step on the ice
                  paths, and that no twin of theirs ran (E's surface term
                  and G's 2-D forcing are held in phase 14)
+ 19. variable viscosity: the visc-gyre (flux form, Smagorinsky, Leith and
+                 biharmonic Leith viscosities under the grid and Reynolds
+                 limits, quadratic bottom drag), the visc-vi-gyre (the
+                 vi-gyre with them under full Leith) and the st-vi-gyre
+                 (the strain-tension form, Smagorinsky): kernels X
+                 (mom_calc_visc) and Y (mom_del2uv, both forms) against
+                 their twins on whole padded arrays, and B's and V's
+                 dissipation variants (mom_fluxform_visc,
+                 mom_vecinv_visc, fed X's and Y's twins' fields; every
+                 halo output 0) on the interior, bit for bit, at 64x64x4
+                 float64 (with further variants: free slip and the 3-D
+                 Coriolis term, no biharmonic, constant biharmonic with
+                 linear drag, no drag; Leith with quadratic drag, explicit
+                 viscosity, the other schemes) and 1024x1024x32 float32,
+                 each with its launch's device time (20 launches in a
+                 CUDA graph), its wrapper call's, its twin's and its
+                 bound; 5 float64 steps of each at 64x64x4, kernel path
+                 against plain path; then each at 1024x1024x32 float32
+                 (deltaT=600): one warm-up step and 5 timed steps with
+                 every launch count (X each step, Y with biharmonic
+                 viscosity, B's or V's variant in place of their first
+                 ones) and no twin of X, Y or the glue
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -447,6 +469,16 @@ KERNELS = {
                           "mitgcm_tpu/model/seaice.py:1991"),
     "seaice_ocean_stress": ("mitgcm_tpu_torch/kernels/csrc/seaice_glue.cu",
                             "mitgcm_tpu/model/seaice.py:1301"),
+    # the variable and biharmonic viscosity: X, Y, and B's and V's
+    # dissipation variants
+    "mom_calc_visc": ("mitgcm_tpu_torch/kernels/csrc/mom_visc.cu",
+                      "mitgcm_tpu/model/mom_visc.py:90"),
+    "mom_del2uv": ("mitgcm_tpu_torch/kernels/csrc/mom_visc.cu",
+                   "mitgcm_tpu/model/mom_fluxform.py:67"),
+    "mom_fluxform_visc": ("mitgcm_tpu_torch/kernels/csrc/mom_fluxform.cu",
+                          "mitgcm_tpu/model/mom_fluxform.py:232"),
+    "mom_vecinv_visc": ("mitgcm_tpu_torch/kernels/csrc/mom_vecinv.cu",
+                        "mitgcm_tpu/model/mom_vecinv.py:227"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
@@ -465,6 +497,8 @@ GLUE_KERNELS = ("halo_fill", "phihyd", "cg2d_rhs", "continuity",
 # the box's and the sea ice's last glue: N1 and N2, S1 and S2
 NH_GLUE_KERNELS = ("pre_cg3d", "cg3d_setup_scale", "cg3d_setup_fill")
 SEAICE_GLUE_KERNELS = ("seaice_dynforcing", "seaice_ocean_stress")
+VISC_KERNELS = ("mom_calc_visc", "mom_del2uv", "mom_fluxform_visc",
+                "mom_vecinv_visc")
 
 
 def glue_launches(tracers, fills, steps=5, mixing=False):
@@ -708,7 +742,16 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # drag adds three square roots)
                 "pre_cg3d": 35, "cg3d_setup_scale": 4, "cg3d_setup_fill": 3,
                 "surface_forcing": 20,
-                "seaice_dynforcing": 60, "seaice_ocean_stress": 60}
+                "seaice_dynforcing": 60, "seaice_ocean_stress": 60,
+                # X, one thread a cell: the vorticity and divergence at six
+                # points and the strain and tension at four (~15 flops
+                # each), Leith's gradients, the Smagorinsky and full Leith
+                # square roots and the limits at two points (~8 a square
+                # root), ~300; Y's two stencils with hFacZ at three points
+                # ~60; B's and V's variants add the viscosity products and
+                # the biharmonic fluxes (~60) to B's and V's
+                "mom_calc_visc": 300, "mom_del2uv": 60,
+                "mom_fluxform_visc": 360, "mom_vecinv_visc": 260}
 # the outputs of kernels J-ts (those its variant writes) and L
 KAPPA_TS_OUTS = ("kapT", "kapS", "dfT", "dfS")
 ADV_FLOW_OUTS = ("uTrans", "vTrans", "rTrans", "rTransKp", "maskUp", "xA",
@@ -885,13 +928,13 @@ def count_cg2d_reads():
 
 
 def glue_plain_calls():
-    """Calls so far of the twins of D-G, J-uv, J-ts, L, R, N1, N2, Q, S1
-    and S2 and of the fill's plain fold (ops/stencil.py, model/phihyd.py,
-    model/step.py, model/thermodynamics.py, model/gad.py's calc_adv_flow,
-    ops/eos.py's find_rho, solver/cg3d.py, model/seaice.py, the last two
-    with H-cg3d's and the sea ice's other twins); a kernel-path run adds
-    none."""
-    from mitgcm_tpu_torch.model import gad, phihyd, seaice, step
+    """Calls so far of the twins of D-G, J-uv, J-ts, L, R, N1, N2, Q, S1,
+    S2, X and Y and of the fill's plain fold (ops/stencil.py,
+    model/phihyd.py, model/step.py, model/thermodynamics.py, model/gad.py's
+    calc_adv_flow, ops/eos.py's find_rho, solver/cg3d.py, model/seaice.py,
+    the last two with H-cg3d's and the sea ice's other twins,
+    model/mom_visc.py); a kernel-path run adds none."""
+    from mitgcm_tpu_torch.model import gad, mom_visc, phihyd, seaice, step
     from mitgcm_tpu_torch.model import thermodynamics
     from mitgcm_tpu_torch.ops import eos, stencil
     from mitgcm_tpu_torch.solver import cg3d
@@ -899,7 +942,7 @@ def glue_plain_calls():
     return (stencil.plain_calls + stencil.plain_folds + phihyd.plain_calls
             + step.plain_calls + thermodynamics.plain_calls
             + gad.flow_plain_calls + eos.plain_calls + cg3d.plain_calls
-            + seaice.plain_calls)
+            + seaice.plain_calls + mom_visc.plain_calls)
 
 
 def check_launches(label, launches, want, plain=0):
@@ -1737,7 +1780,7 @@ def full_phase(kernels):
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
                + SEAICE_GLUE_KERNELS + EVP_KERNELS + GM_KERNELS
-               + ("eos_sigma_r", "kappa_uv", "kappa_ts")
+               + VISC_KERNELS + ("eos_sigma_r", "kappa_uv", "kappa_ts")
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -4903,6 +4946,252 @@ def last_glue_phase(results):
         torch.cuda.empty_cache()
 
 
+# Phase 19: the variable and biharmonic viscosity. The three
+# configurations (synthetic.visc_gyre_config, visc_vi_gyre_config,
+# st_vi_gyre_config) by their short names
+VISC_CONFIGS = {"visc": "visc_gyre_config", "visc-vi": "visc_vi_gyre_config",
+                "st-vi": "st_vi_gyre_config"}
+# launches in each configuration's 5 timed full-size steps: X each step,
+# Y with biharmonic viscosity, B's or V's dissipation variant in place of
+# B's or V's first variants
+VISC_LAUNCHES = {
+    "visc": {**GYRE_LAUNCHES, "mom_fluxform": 0, "mom_fluxform_visc": 5,
+             "mom_calc_visc": 5, "mom_del2uv": 5, "mom_vecinv_visc": 0},
+    "visc-vi": {**VI_LAUNCHES, "mom_vecinv": 0, "mom_vecinv_visc": 5,
+                "mom_calc_visc": 5, "mom_del2uv": 5,
+                "mom_fluxform_visc": 0},
+    "st-vi": {**VI_LAUNCHES, "mom_vecinv": 0, "mom_vecinv_visc": 5,
+              "mom_calc_visc": 5, "mom_del2uv": 0, "mom_fluxform_visc": 0}}
+# further variants of B's and V's dissipation variants held at 64x64x4
+# float64 (settings over the visc-gyre's or the visc-vi-gyre's)
+_VISC_OFF = dict(viscC2smag=0.0, viscC2leith=0.0, viscC2leithD=0.0,
+                 viscC4leith=0.0, viscC4leithD=0.0, viscAhGridMax=1.0e21,
+                 viscA4GridMax=1.0e21, viscAhReMax=0.0, viscA4ReMax=0.0)
+VISC_VARIANTS = {
+    "visc": {"free slip, 3-D Coriolis": dict(no_slip_sides=False,
+                                             select3dCoriScheme=1),
+             "variable, no biharmonic": dict(viscC4leith=0.0,
+                                             viscC4leithD=0.0),
+             "constant biharmonic, linear drag": {
+                 **_VISC_OFF, "viscA4": 1e9, "viscA4D": 2e9,
+                 "viscA4Z": 5e8, "bottomDragLinear": 2e-4},
+             "no drag": {**_VISC_OFF, "no_slip_bottom": False,
+                         "selectBotDragQuadr": -1}},
+    "visc-vi": {"leith, quadratic drag, vort 0": dict(
+        useFullLeith=False, bottomDragQuadratic=2.5e-3, selectVortScheme=0),
+        "variable, no biharmonic, explicit, Coriolis 1": dict(
+            viscC4leith=0.0, viscC4leithD=0.0, implicitViscosity=False,
+            selectCoriScheme=1),
+        "constant biharmonic": {**_VISC_OFF, "viscA4": 1e9, "viscA4D": 1e9,
+                                "viscA4Z": 1e9}},
+    "st-vi": {"constant, linear and quadratic drag": {
+        **_VISC_OFF, "viscAhD": 300.0, "viscAhZ": 500.0,
+        "bottomDragLinear": 2e-4, "bottomDragQuadratic": 2.5e-3}}}
+
+
+class ViscCase:
+    """Seeded velocities on one of VISC_CONFIGS' grids, their amplitude
+    spread over three decades so that each viscosity limit binds
+    somewhere."""
+
+    def __init__(self, n, nr, dtype, kind):
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype, self.kind = dtype, kind
+        self.cfg = getattr(synthetic, VISC_CONFIGS[kind])(
+            nx=n, ny=n, nr=nr, deltaT=600.0)
+        self.grid = (shared_grid(self.cfg, dtype)
+                     or synthetic.gyre_grid(self.cfg, dtype=dtype,
+                                            device="cuda"))
+        g = self.grid
+        rng = np.random.default_rng(SEED + 41)
+        shape = tuple(g.hFacC.shape)
+        amp = torch.as_tensor(10.0 ** rng.uniform(-3.0, 0.0, shape),
+                              dtype=dtype, device="cuda")
+        self.u = self.field(rng, shape, 1.0) * amp * g.maskW
+        self.v = self.field(rng, shape, 1.0) * amp * g.maskS
+        self.w = self.field(rng, shape, 1e-4) * g.maskC
+        kshape = (nr + 1,) + shape[1:]
+        self.kappaRU = self.field(rng, kshape, 1e-3).abs()
+        self.kappaRV = self.field(rng, kshape, 1e-3).abs()
+
+    field = Case.field
+    label = Case.label
+
+
+def hold_interior(name, case, fn, results, reps, timed=True):
+    """As hold_launch, for a tile kernel that writes zero halo cells
+    (B's and V's variants): every halo output 0, the interior bit for bit
+    against the twin's; the launch's device time (20 in a CUDA graph)
+    beside a wrapper call's when timed."""
+    from mitgcm_tpu_torch import kernels
+
+    ol = case.cfg.olx
+    outs, wants = fn(None), fn("plain")
+    for t in outs:
+        halo = t.clone()
+        halo[:, ol:-ol, ol:-ol] = 0.0
+        if float(halo.abs().max()) != 0.0:
+            raise AssertionError(f"{name}: a halo output is not 0")
+    exact_compare(name, case, [t[:, ol:-ol, ol:-ol] for t in outs],
+                  [t[:, ol:-ol, ol:-ol] for t in wants],
+                  cuda_time_ms(lambda: fn(None), reps) if timed else None,
+                  cuda_time_ms(lambda: fn("plain"), reps) if timed
+                  else None, results, call=lambda: fn(None))
+    if not timed:
+        return
+    r = results[name]
+    args, keep = captured_launch(lambda: fn(None), name.split("(")[0])
+    r["extra"] = {"wrapper_ms": r["ms"]}
+    r["ms"] = graph_ms(lambda: kernels.launch(*args), reps)
+    del keep
+    print(f"{'':18s} device time (20 launches in a CUDA graph) "
+          f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the bound; "
+          f"a wrapper call {r['extra']['wrapper_ms']:.4f} ms", flush=True)
+
+
+def visc_kernel_phase(case, results, reps, variants):
+    """X and Y (whole arrays) and the configuration's dissipation variant
+    of B or V (the interior, halo outputs 0) against their twins, bit for
+    bit, the variant fed X's and Y's twins' fields; with `variants`, each
+    of VISC_VARIANTS' too (not timed). The rows of the JSON line are the
+    visc-gyre's X, Y and B, the visc-vi-gyre's V."""
+    import dataclasses
+
+    from mitgcm_tpu_torch.model import mom_fluxform, mom_vecinv, mom_visc
+
+    g, kind = case.grid, case.kind
+    vi = kind != "visc"
+    tag = {"visc": "", "visc-vi": "(full Leith)",
+           "st-vi": "(Smagorinsky)"}[kind]
+    fn = mom_vecinv.mom_vecinv_visc if vi else mom_fluxform.mom_fluxform_visc
+    name = "mom_vecinv_visc" if vi else "mom_fluxform_visc"
+    name += "(strain-tension)" if kind == "st-vi" else ""
+    todo = {"": {}, **(VISC_VARIANTS[kind] if variants else {})}
+    for label, settings in todo.items():
+        cfg = dataclasses.replace(case.cfg, **settings)
+        main = not label
+        ins = (case.u, case.v, case.w, case.kappaRU, case.kappaRV)
+        def x_outs(impl, c=cfg):
+            return [t for t in mom_visc.calc_visc(c, g, case.u, case.v,
+                                                  impl=impl)
+                    if t is not None]
+
+        if mom_visc.use_variable_visc(cfg) and main:
+            hold_launch("mom_calc_visc" + tag, case, x_outs, results, reps)
+        elif mom_visc.use_variable_visc(cfg):
+            exact_compare(f"mom_calc_visc({label})", case, x_outs(None),
+                          x_outs("plain"), None, None, results,
+                          call=lambda: x_outs(None))
+        if mom_visc.use_biharmonic_visc(cfg) and main:
+            y_name = "mom_del2uv" + ("(vector invariant)" if vi else "")
+            hold_launch(y_name, case, lambda impl, c=cfg: list(
+                mom_visc.del2uv(c, g, case.u, case.v, impl=impl)),
+                results, reps)
+        visc, del2 = mom_visc.fields(cfg, g, case.u, case.v, impl="plain")
+        hold_interior(name if main else f"{name.split('(')[0]}({label})",
+                      case, lambda impl, c=cfg, vs=visc, d2=del2: list(fn(
+                          c, g, *ins, vs, d2, impl=impl)), results, reps,
+                      timed=main)
+
+
+def visc_experiment(kind, n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = getattr(synthetic, VISC_CONFIGS[kind])(nx=n, ny=n, nr=nr, **kw)
+    return Experiment(cfg, *synthetic.gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype)),
+        impl=impl)
+
+
+def visc_parity_phase(kind, steps=5):
+    """`steps` float64 steps of the 64x64x4 configuration, kernel path
+    against plain path: equal cg2d iterations, PARITY_DIGITS or more on
+    every statistic."""
+    from mitgcm_tpu_torch.utils.compare import record_digits
+
+    runs = {impl: visc_experiment(kind, 64, 4, torch.float64, impl).run(
+        n_steps=steps) for impl in (None, "plain")}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        worst = min(worst, min(dig.values()))
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError(f"{kind}-gyre cg2d iteration counts differ")
+    print(f"{kind}-gyre parity, 64x64x4 float64, {steps} steps kernel "
+          f"against plain: fewest matching digits {worst:.2f}, equal cg2d "
+          f"iterations", flush=True)
+    if not worst >= PARITY_DIGITS:
+        raise AssertionError(f"{kind}-gyre parity {worst:.2f} < "
+                             f"{PARITY_DIGITS} digits")
+
+
+def visc_full_phase(kind, kernels, smi):
+    """The 1024x1024x32 float32 configuration (deltaT = 600): a warm-up
+    step, then 5 timed steps with every launch count (VISC_LAUNCHES) and
+    no twin of X, Y or the glue."""
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = visc_experiment(kind, n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    points = n * n * nr
+
+    def run(state, it0, steps):
+        exp.state, exp.cur_iter = state, it0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, [r["cg2d_iters"] for r in recs], \
+            time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, iters_w, sec_w = run(exp.state, 0, 1)
+    kernels.launches.clear()
+    plain0 = glue_plain_calls()
+    state, iters, sec = run(state1, 1, 5)
+    launches = dict(kernels.launches)
+    plain = glue_plain_calls() - plain0
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"{kind}-gyre kernel path ({smi}): 5 steps, "
+          f"{sec * 1e3 / 5:.2f} ms/step, {points * 5 / sec:.4e} "
+          f"points*steps/s, cg2d iterations {iters}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches {launches}", flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{kind}-gyre {name} is not finite")
+    check_launches(f"{kind}-gyre", launches, VISC_LAUNCHES[kind], plain)
+    return launches
+
+
+def visc_phase(kernels, results, smi):
+    phase("19 variable viscosity: the visc-gyre, visc-vi-gyre and "
+          "st-vi-gyre")
+    for n, nr, dtype, reps in ((64, 4, torch.float64, 20),
+                               (1024, 32, torch.float32, 10)):
+        for kind in VISC_CONFIGS:
+            visc_kernel_phase(ViscCase(n, nr, dtype, kind), results, reps,
+                              variants=n == 64)
+        torch.cuda.empty_cache()
+    print(smi)
+    for kind in VISC_CONFIGS:
+        visc_parity_phase(kind)
+    launches = {}
+    for kind in VISC_CONFIGS:
+        got = visc_full_phase(kind, kernels, smi)
+        if kind == "visc":
+            launches.update({k: got[k] for k in (
+                "mom_calc_visc", "mom_del2uv", "mom_fluxform_visc")})
+        elif kind == "visc-vi":
+            launches["mom_vecinv_visc"] = got["mom_vecinv_visc"]
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, ROOT)
@@ -4953,6 +5242,7 @@ def main():
     launches.update(gm_phase(kernels, results, smi))
     mix_phase(results)
     last_glue_phase(results)
+    launches.update(visc_phase(kernels, results, smi))
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
     if jax_pkg:

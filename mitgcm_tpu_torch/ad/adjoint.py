@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
+from mitgcm_tpu_torch.model import mom_visc
 from mitgcm_tpu_torch.model import step as step_mod
 
 
@@ -30,7 +31,9 @@ def check_adjoint_supported(cfg: Config) -> None:
     vertical mixing, R: the nonlinear EOS, K: KPP, G9: GGL90, M, O and P:
     the multi-dimensional advection, W and H-cg3d: the non-hydrostatic
     path, B's free-slip and 3-D Coriolis flags, H-seaice: the sea ice,
-    gm_tensor, gm_psi_b, gm_residual_flow and C's GM branch: GM-Redi),
+    gm_tensor, gm_psi_b, gm_residual_flow and C's GM branch: GM-Redi;
+    X, Y and B's dissipation variant: variable and biharmonic viscosity,
+    linear and quadratic bottom drag, a bottom without no-slip drag),
     and for AB-3,
     whose gradient is not yet held against the JAX adjoint: the adjoint runs
     the gyre of the forward path's first slice only."""
@@ -48,6 +51,13 @@ def check_adjoint_supported(cfg: Config) -> None:
         "no_slip_sides=F": not cfg.no_slip_sides,
         f"select3dCoriScheme={cfg.select3dCoriScheme}":
             cfg.select3dCoriScheme >= 1,
+        "variable viscosity": mom_visc.use_variable_visc(cfg),
+        "biharmonic viscosity": mom_visc.use_biharmonic_visc(cfg),
+        "useStrainTensionVisc": cfg.useStrainTensionVisc,
+        "bottomDragLinear": cfg.bottomDragLinear != 0.0,
+        f"selectBotDragQuadr={cfg.selectBotDragQuadr}":
+            cfg.selectBotDragQuadr >= 0,
+        "no_slip_bottom=F": not cfg.no_slip_bottom,
     }
     for tr in ("temp", "salt"):
         for d in ("", "Vert"):

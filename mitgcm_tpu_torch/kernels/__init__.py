@@ -58,6 +58,20 @@ SIGNATURES = {
     # coriolis_3d; viscAhD, viscAhZ, sideDragFactor, rkSign, gravitySign;
     # stream
     "mom_fluxform": [_PP, _I] + [_I] * 7 + [_D] * 5 + [_P],
+    # its dissipation variant: the same, then the table of X's viscosities
+    # and Y's Laplacian (null where not given), its length, the parameter
+    # array (viscA4D, viscA4Z, bottomDragLinear, bottomDragQuadratic), its
+    # length; no_slip_bottom, drag; stream
+    "mom_fluxform_visc": [_PP, _I] + [_I] * 7 + [_D] * 5
+    + [_PP, _I, _PD, _I, _I, _I, _P],
+    # kernel X: pointer table, its length; parameter array
+    # (mom_visc.py:x_params), its length; nr, nyp, nxp, Smagorinsky, Leith
+    # (0, 1, 2 full), the Reynolds limits, biharmonic output; stream
+    "mom_calc_visc": [_PP, _I, _PD, _I] + [_I] * 7 + [_P],
+    # kernel Y: pointer table (mom_visc.cuh:Del2Args, the other variant's
+    # slots null), its length; nr, nyp, nxp, vector-invariant; the
+    # closed-wall factor or sideMaskFac; stream
+    "mom_del2uv": [_PP, _I] + [_I] * 4 + [_D, _P],
     # pointer table, its length; nr, ny, nx, oly, olx; diffKh, rkSign;
     # implicit_diffusion, calc_advection; df (the extra vertical flux, or
     # null); stream
@@ -94,6 +108,12 @@ SIGNATURES = {
     # selectCoriScheme, implicitViscosity, no_slip_bottom; viscAh,
     # sideDragFactor, bottomDragLinear, rkSign; stream
     "mom_vecinv": [_PP, _I] + [_I] * 5 + [_I] * 4 + [_D] * 4 + [_P],
+    # its dissipation variant: the same, then the table of X's viscosities,
+    # Y's Laplacian, dyF and dxF (null where not given), its length, the
+    # parameter array (viscAhD, viscAhZ, viscA4, viscA4Z,
+    # bottomDragQuadratic), its length; strain-tension, drag; stream
+    "mom_vecinv_visc": [_PP, _I] + [_I] * 5 + [_I] * 4 + [_D] * 4
+    + [_PP, _I, _PD, _I, _I, _I, _P],
     # field, kappaR, recip_hFac, recip_drF, recip_drC, gam, out; nr,
     # nyp * nxp; deltaT; stream
     "impldiff": [_P] * 7 + [_I] * 2 + [_D, _P],

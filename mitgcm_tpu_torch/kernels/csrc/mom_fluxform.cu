@@ -25,6 +25,14 @@
 // past the tiles; callers fill or mask them (step.py fills uStar/vStar and
 // every prognostic field).
 //
+// The dissipation variant (entry point mitgcm_mom_fluxform_visc, template
+// flag Ext) replaces the constant viscosities by kernel X's fields, adds the
+// biharmonic fluxes of kernel Y's Laplacian (:258-278) and their side drag
+// with the per-wall viscosities (:312-341), and linear and quadratic
+// bottom drag (:343-380, selectBotDragQuadr 0); it stages the six fields
+// over the tile and its ring beside u and v. The gyre's variants are the
+// same code without it.
+//
 // Each expression keeps the JAX code's operation order, so with
 // --fmad=false the outputs are bit-equal to the plain PyTorch twin.
 
@@ -43,5 +51,21 @@
                                  mitgcm::OnStream{(cudaStream_t)stream});     \
   }
 
+#define MITGCM_MOM_VISC_ENTRY_POINT(T, SUF)                                   \
+  extern "C" int mitgcm_mom_fluxform_visc_##SUF(                              \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,       \
+      int olx, int no_slip_sides, int coriolis_3d, double viscAhD,            \
+      double viscAhZ, double sideDragFactor, double rkSign,                   \
+      double gravitySign, const void* const* vtable, int nv,                  \
+      const double* params, int np, int no_slip_bottom, int drag,             \
+      void* stream) {                                                         \
+    return mitgcm::launch_mom_visc<T>(                                        \
+        table, n, nr, ny, nx, oly, olx, no_slip_sides, coriolis_3d, viscAhD,  \
+        viscAhZ, sideDragFactor, rkSign, gravitySign, vtable, nv, params, np, \
+        no_slip_bottom, drag, mitgcm::OnStream{(cudaStream_t)stream});        \
+  }
+
 MITGCM_MOM_ENTRY_POINT(float, f32)
 MITGCM_MOM_ENTRY_POINT(double, f64)
+MITGCM_MOM_VISC_ENTRY_POINT(float, f32)
+MITGCM_MOM_VISC_ENTRY_POINT(double, f64)

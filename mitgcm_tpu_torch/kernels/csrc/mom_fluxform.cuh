@@ -25,6 +25,26 @@ struct MomArgs {
 };
 constexpr int kMomNumPointers = 40;
 
+// The second table of B's dissipation variant (mom_fluxform_visc), each
+// [nr, nyp, nxp] or null: kernel X's viscosities (null: the constants of
+// MomViscParams and the launch), kernel Y's Laplacian (null: no biharmonic
+// viscosity)
+template <typename T>
+struct MomViscArgs {
+  const T *viscAh_D, *viscAh_Z, *viscA4_D, *viscA4_Z, *del2u, *del2v;
+};
+constexpr int kMomViscNumPointers = 6;
+
+// its numbers: the constant biharmonic viscosities, the linear and
+// quadratic drag coefficients (the quadratic 0 unless selectBotDragQuadr
+// is 0), the no-slip bottom, and whether the drag block runs at all
+template <typename T>
+struct MomViscParams {
+  T viscA4D, viscA4Z, bottomDragLinear, bottomDragQuadratic;
+  bool noSlipBottom, drag;
+};
+constexpr int kMomViscNumParams = 4;
+
 template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
 

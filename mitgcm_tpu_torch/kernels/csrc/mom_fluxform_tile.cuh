@@ -34,7 +34,7 @@ namespace mitgcm {
 constexpr int kSWX = kTX + 1;
 constexpr int kSW = kSWX * (kTY + 1);
 
-template <typename T, bool Coriolis3d>
+template <typename T, bool Coriolis3d, bool Ext>
 struct MomTileShared {
   // level k over the region
   T u[kRegion], v[kRegion], uT[kRegion], vT[kRegion], hW[kRegion],
@@ -49,6 +49,10 @@ struct MomTileShared {
   T fMerU[kTY + 1][kTX], vMerU[kTY + 1][kTX], fMerV[kTY + 1][kTX],
       vMerV[kTY + 1][kTX];
   T hFacZ[kTY + 1][kTX + 1];
+  // the dissipation variant's fields of level k over the region: X's
+  // viscosities (or the constants), Y's Laplacian
+  T AhD[Ext ? kRegion : 1], AhZ[Ext ? kRegion : 1], A4D[Ext ? kRegion : 1],
+      A4Z[Ext ? kRegion : 1], d2u[Ext ? kRegion : 1], d2v[Ext ? kRegion : 1];
 };
 
 // a cell the block stages each level: the thread's own column, or its ring
@@ -76,11 +80,14 @@ struct MomLevel {
   T eHC = T(0);
 };
 
-template <typename T, bool NoSlipSides, bool Coriolis3d>
+// Ext: the dissipation variant, which reads X's viscosities and Y's
+// Laplacian (`va`, each null when not given) and applies the drags of `dp`
+template <typename T, bool NoSlipSides, bool Coriolis3d, bool Ext>
 __global__ void __launch_bounds__(kTileThreads)
     mom_fluxform_kernel(const MomArgs<T> a, int nr, int ny, int nx, int oly,
                         int olx, int ntx, int tiles, T viscAhD, T viscAhZ,
-                        T sideDragFactor, T rkSign, T gravitySign) {
+                        T sideDragFactor, T rkSign, T gravitySign,
+                        const MomViscArgs<T> va, const MomViscParams<T> dp) {
   const int nyp = ny + 2 * oly, nxp = nx + 2 * olx;
   const size_t plane = static_cast<size_t>(nyp) * nxp;
   int j0, i0;
@@ -90,7 +97,10 @@ __global__ void __launch_bounds__(kTileThreads)
               gridDim.x - tiles);
     return;
   }
-  __shared__ MomTileShared<T, Coriolis3d> s;
+  __shared__ MomTileShared<T, Coriolis3d, Ext> s;
+  const bool var = Ext && va.viscAh_D != nullptr;
+  const bool var4 = Ext && va.viscA4_D != nullptr;
+  const bool bih = Ext && va.del2u != nullptr;
   const int tx = threadIdx.x, ty = threadIdx.y, t = ty * kTX + tx;
   const int j = j0 + ty, i = i0 + tx;
   const bool own = j < nyp && i < nxp;
@@ -255,6 +265,19 @@ __global__ void __launch_bounds__(kTileThreads)
       s.hS[c.r] = hs;
       s.mW[c.r] = n == 0 ? mW0 : cur.rmW;
       s.mS[c.r] = n == 0 ? mS0 : cur.rmS;
+      if (Ext) {
+        const size_t gp = lev + c.q;
+        s.AhD[c.r] = var ? (c.valid ? va.viscAh_D[gp] : T(0)) : viscAhD;
+        s.AhZ[c.r] = var ? (c.valid ? va.viscAh_Z[gp] : T(0)) : viscAhZ;
+        if (bih) {
+          s.A4D[c.r] = var4 ? (c.valid ? va.viscA4_D[gp] : T(0))
+                            : dp.viscA4D;
+          s.A4Z[c.r] = var4 ? (c.valid ? va.viscA4_Z[gp] : T(0))
+                            : dp.viscA4Z;
+          s.d2u[c.r] = c.valid ? va.del2u[gp] : T(0);
+          s.d2v[c.r] = c.valid ? va.del2v[gp] : T(0);
+        }
+      }
       if (c.sw >= 0) {
         const T w1 = cur.w1[n], mC1 = cur.mC1[n];
         const T wrA1 = w1 * c.rA;
@@ -293,17 +316,35 @@ __global__ void __launch_bounds__(kTileThreads)
     auto fMerV = [&](int c) -> T {
       return T(0.25) * (s.vT[c] + s.vT[c + kRX]) * (s.v[c] + s.v[c + kRX]);
     };
+    // the viscous fluxes: harmonic, and under Ext biharmonic, with the
+    // viscosities of the face's point
     auto vZonU = [&](int c, T h, T dy, T rdx, T cf) -> T {
-      return dy * drF * h * rdx * (nAhD * (s.u[c + 1] - s.u[c]) * cf);
+      if (!Ext)
+        return dy * drF * h * rdx * (nAhD * (s.u[c + 1] - s.u[c]) * cf);
+      T f = -s.AhD[c] * (s.u[c + 1] - s.u[c]) * cf;
+      if (bih) f = f + s.A4D[c] * (s.d2u[c + 1] - s.d2u[c]) * cf;
+      return dy * drF * h * rdx * f;
     };
     auto vMerU = [&](int c, T h, T dx, T rdy) -> T {
-      return dx * drF * h * rdy * (nAhZ * (s.u[c] - s.u[c - kRX]));
+      if (!Ext)
+        return dx * drF * h * rdy * (nAhZ * (s.u[c] - s.u[c - kRX]));
+      T f = -s.AhZ[c] * (s.u[c] - s.u[c - kRX]);
+      if (bih) f = f + s.A4Z[c] * (s.d2u[c] - s.d2u[c - kRX]);
+      return dx * drF * h * rdy * f;
     };
     auto vZonV = [&](int c, T h, T dy, T rdx, T cf) -> T {
-      return dy * drF * h * rdx * (nAhZ * (s.v[c] - s.v[c - 1]) * cf);
+      if (!Ext)
+        return dy * drF * h * rdx * (nAhZ * (s.v[c] - s.v[c - 1]) * cf);
+      T f = -s.AhZ[c] * (s.v[c] - s.v[c - 1]) * cf;
+      if (bih) f = f + s.A4Z[c] * (s.d2v[c] - s.d2v[c - 1]) * cf;
+      return dy * drF * h * rdx * f;
     };
     auto vMerV = [&](int c, T h, T dx, T rdy) -> T {
-      return dx * drF * h * rdy * (nAhD * (s.v[c + kRX] - s.v[c]));
+      if (!Ext)
+        return dx * drF * h * rdy * (nAhD * (s.v[c + kRX] - s.v[c]));
+      T f = -s.AhD[c] * (s.v[c + kRX] - s.v[c]);
+      if (bih) f = f + s.A4D[c] * (s.d2v[c + kRX] - s.d2v[c]);
+      return dx * drF * h * rdy * f;
     };
     const T hZ = hfacz(o);
     s.hFacZ[ty][tx] = hZ;
@@ -354,6 +395,34 @@ __global__ void __launch_bounds__(kTileThreads)
     T cori3 = 0;
     if (Coriolis3d)
       cori3 = T(0.5) * (s.fcw[ow] + s.fcw[ow - 1]) * gravitySign;
+    // the dissipation variant's side-drag terms (viscAh_Z, and viscA4_Z
+    // times the Laplacian, at each wall's vorticity point) and the
+    // quadratic drag's KE sums, read from the staging before the next
+    // level's overwrites it
+    T eAhu = 0, eAhuN = 0, eAhv = 0, eAhvE = 0, keS = 0, keSv = 0;
+    if (Ext) {
+      if (NoSlipSides) {
+        eAhu = s.AhZ[o] * u0, eAhuN = s.AhZ[o + kRX] * u0;
+        eAhv = s.AhZ[o] * v0 * cosV, eAhvE = s.AhZ[o + 1] * v0 * cosV;
+        if (bih) {
+          const T du = s.d2u[o], dv = s.d2v[o];
+          eAhu = eAhu - s.A4Z[o] * du;
+          eAhuN = eAhuN - s.A4Z[o + kRX] * du;
+          eAhv = eAhv - s.A4Z[o] * dv * cosV;
+          eAhvE = eAhvE - s.A4Z[o + 1] * dv * cosV;
+        }
+      }
+      if (dp.drag && dp.bottomDragQuadratic != T(0)) {
+        // KE (mom_calc_ke.F, selectKEscheme 0) at the cell and its west
+        // and south neighbours
+        auto ke = [&](int c) -> T {
+          return T(0.25) * ((s.u[c] * s.u[c] + s.u[c + 1] * s.u[c + 1]) +
+                            (s.v[c] * s.v[c] + s.v[c + kRX] * s.v[c + kRX]));
+        };
+        const T ke0 = ke(o);
+        keS = ke0 + ke(o - 1), keSv = ke0 + ke(o - kRX);
+      }
+    }
     __syncthreads();
 
     // ---- the cell's tendencies ----
@@ -379,30 +448,49 @@ __global__ void __launch_bounds__(kTileThreads)
                     (s.vMerV[ty + 1][tx] - s.vMerV[ty][tx]) + dVrV));
       // no-slip side drag (mom_u_sidedrag.F); none under free slip
       if (NoSlipSides) {
-        const T Ahu = viscAhZ * u0;
+        // under Ext, the per-wall terms formed above
+        T Ahu = viscAhZ * u0, AhuN = Ahu;
+        T Ahv = viscAhZ * v0 * cosV, AhvE = Ahv;
+        if (Ext) Ahu = eAhu, AhuN = eAhuN, Ahv = eAhv, AhvE = eAhvE;
         const T uDrag =
             -(rhW * rdrF * rrAw *
               ((hW0 - hZ) * dxV * rdyU * Ahu +
-               (hW0 - s.hFacZ[ty + 1][tx]) * dxVn * rdyUn * Ahu) *
+               (hW0 - s.hFacZ[ty + 1][tx]) * dxVn * rdyUn * AhuN) *
               drF * sideDragFactor);
-        const T Ahv = viscAhZ * v0 * cosV;
         const T vDrag =
             -(rhS * rdrF * rrAs *
               ((hS0 - hZ) * dyU * rdxV * Ahv +
-               (hS0 - s.hFacZ[ty][tx + 1]) * dyUe * rdxVe * Ahv) *
+               (hS0 - s.hFacZ[ty][tx + 1]) * dyUe * rdxVe * AhvE) *
               drF * sideDragFactor);
         guDiss = guDiss + uDrag;
         gvDiss = gvDiss + vDrag;
       }
-      // no-slip bottom drag (mom_u_botdrag_coeff.F): only where the cell
-      // below is dry, or at k = Nr
+      // bottom drag (mom_u_botdrag_coeff.F): only where the cell below is
+      // dry, or at k = Nr; no-slip, and under Ext linear and quadratic
       const T recDr = deep ? a.recip_drF[nr - 1] : a.recip_drC[k + 1];
-      const T cDragU = kRU1 * recDr * T(2);
-      const T cDragV = kRV1 * recDr * T(2);
       const T bottomW = mW0 * (deep ? T(1) : T(1) - mW1);
       const T bottomS = mS0 * (deep ? T(1) : T(1) - mS1);
-      guDiss = guDiss - cDragU * bottomW * u0 * rhW * rdrF;
-      gvDiss = gvDiss - cDragV * bottomS * v0 * rhS * rdrF;
+      if (!Ext) {
+        const T cDragU = kRU1 * recDr * T(2);
+        const T cDragV = kRV1 * recDr * T(2);
+        guDiss = guDiss - cDragU * bottomW * u0 * rhW * rdrF;
+        gvDiss = gvDiss - cDragV * bottomS * v0 * rhS * rdrF;
+      } else if (dp.drag) {
+        T cDragU = dp.bottomDragLinear, cDragV = dp.bottomDragLinear;
+        if (dp.noSlipBottom) {
+          cDragU = cDragU + kRU1 * recDr * T(2);
+          cDragV = cDragV + kRV1 * recDr * T(2);
+        }
+        if (dp.bottomDragQuadratic != T(0)) {
+          cDragU = cDragU + (keS > T(0) ? dp.bottomDragQuadratic * sqrt(keS)
+                                        : T(0));
+          cDragV = cDragV + (keSv > T(0)
+                                 ? dp.bottomDragQuadratic * sqrt(keSv)
+                                 : T(0));
+        }
+        guDiss = guDiss - cDragU * bottomW * u0 * rhW * rdrF;
+        gvDiss = gvDiss - cDragV * bottomS * v0 * rhS * rdrF;
+      }
       gU = gU + uCf;
       gV = gV + vCf;
       if (Coriolis3d) gU = gU + cori3;
@@ -419,13 +507,15 @@ __global__ void __launch_bounds__(kTileThreads)
 }
 
 // Kernel B's launch from its entry point's arguments: the table's check,
-// the grid, and the variant that the flags pick; start(kernel, grid, block,
-// args...) starts it (OnStream on the card).
-template <typename T, typename Start>
-int launch_mom(const void* const* table, int n, int nr, int ny, int nx,
-               int oly, int olx, int no_slip_sides, int coriolis_3d,
-               double viscAhD, double viscAhZ, double sideDragFactor,
-               double rkSign, double gravitySign, Start start) {
+// the grid, and the variant that the flags pick (ext: the dissipation
+// variant, with its second table `va` and numbers `dp`); start(kernel,
+// grid, block, args...) starts it (OnStream on the card).
+template <typename T, bool Ext, typename Start>
+int start_mom(const void* const* table, int n, int nr, int ny, int nx,
+              int oly, int olx, int no_slip_sides, int coriolis_3d,
+              double viscAhD, double viscAhZ, double sideDragFactor,
+              double rkSign, double gravitySign, const MomViscArgs<T>& va,
+              const MomViscParams<T>& dp, Start start) {
   static_assert(sizeof(MomArgs<T>) == kMomNumPointers * sizeof(void*),
                 "MomArgs must be a plain table of pointers");
   if (n != kMomNumPointers) return (int)cudaErrorInvalidValue;
@@ -435,17 +525,58 @@ int launch_mom(const void* const* table, int n, int nr, int ny, int nx,
   auto run = [&](auto kernel) {
     start(kernel, dim3(tg.tiles + tg.halo_blocks), dim3(kTX, kTY), a, nr,
           ny, nx, oly, olx, tg.ntx, tg.tiles, T(viscAhD), T(viscAhZ),
-          T(sideDragFactor), T(rkSign), T(gravitySign));
+          T(sideDragFactor), T(rkSign), T(gravitySign), va, dp);
   };
   if (no_slip_sides && !coriolis_3d)
-    run(mom_fluxform_kernel<T, true, false>);
+    run(mom_fluxform_kernel<T, true, false, Ext>);
   else if (no_slip_sides)
-    run(mom_fluxform_kernel<T, true, true>);
+    run(mom_fluxform_kernel<T, true, true, Ext>);
   else if (!coriolis_3d)
-    run(mom_fluxform_kernel<T, false, false>);
+    run(mom_fluxform_kernel<T, false, false, Ext>);
   else
-    run(mom_fluxform_kernel<T, false, true>);
+    run(mom_fluxform_kernel<T, false, true, Ext>);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename Start>
+int launch_mom(const void* const* table, int n, int nr, int ny, int nx,
+               int oly, int olx, int no_slip_sides, int coriolis_3d,
+               double viscAhD, double viscAhZ, double sideDragFactor,
+               double rkSign, double gravitySign, Start start) {
+  return start_mom<T, false>(table, n, nr, ny, nx, oly, olx, no_slip_sides,
+                             coriolis_3d, viscAhD, viscAhZ, sideDragFactor,
+                             rkSign, gravitySign, MomViscArgs<T>{},
+                             MomViscParams<T>{}, start);
+}
+
+// B's dissipation variant: B's arguments, then the table of MomViscArgs
+// (the viscosities given in pairs, the Laplacian both or neither, the
+// biharmonic viscosities only with it), the numbers of MomViscParams,
+// no_slip_bottom and drag
+template <typename T, typename Start>
+int launch_mom_visc(const void* const* table, int n, int nr, int ny, int nx,
+                    int oly, int olx, int no_slip_sides, int coriolis_3d,
+                    double viscAhD, double viscAhZ, double sideDragFactor,
+                    double rkSign, double gravitySign,
+                    const void* const* vtable, int nv, const double* params,
+                    int np, int no_slip_bottom, int drag, Start start) {
+  static_assert(sizeof(MomViscArgs<T>) == kMomViscNumPointers * sizeof(void*),
+                "MomViscArgs must be a plain table of pointers");
+  if (nv != kMomViscNumPointers || np != kMomViscNumParams ||
+      no_slip_bottom < 0 || no_slip_bottom > 1 || drag < 0 || drag > 1)
+    return (int)cudaErrorInvalidValue;
+  MomViscArgs<T> va;
+  std::memcpy(&va, vtable, sizeof(va));
+  const bool bih = va.del2u != nullptr;
+  if ((va.viscAh_D == nullptr) != (va.viscAh_Z == nullptr) ||
+      (va.viscA4_D == nullptr) != (va.viscA4_Z == nullptr) ||
+      (va.del2v == nullptr) == bih || (va.viscA4_D && !bih))
+    return (int)cudaErrorInvalidValue;
+  const MomViscParams<T> dp{T(params[0]), T(params[1]), T(params[2]),
+                            T(params[3]), no_slip_bottom != 0, drag != 0};
+  return start_mom<T, true>(table, n, nr, ny, nx, oly, olx, no_slip_sides,
+                            coriolis_3d, viscAhD, viscAhZ, sideDragFactor,
+                            rkSign, gravitySign, va, dp, start);
 }
 
 }  // namespace mitgcm

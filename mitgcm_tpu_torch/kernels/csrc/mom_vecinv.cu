@@ -26,6 +26,16 @@
 // PR 19 section has the times.) Halo cells of the outputs are written as 0
 // by the blocks past the tiles; step.py fills uStar and vStar.
 //
+// The dissipation variant (entry point mitgcm_mom_vecinv_visc, template
+// flag Ext) takes kernel X's viscosities, multiplying D and Z before the
+// differencing (:267-280), the biharmonic term from the divergence and
+// vorticity of kernel Y's Laplacian, staged over the tile and its ring
+// (:281-293, :309-321 with constant viscA4), or the strain-tension form
+// (:255-266, mom_hdissip.F), the side drag with the per-wall viscosities
+// (:342-371) and the quadratic bottom drag, which the JAX code leaves out
+// and the port forms as the flux form does. The vi-gyre's variants are the
+// same code without it.
+//
 // Each expression keeps the JAX code's operation order, so with
 // --fmad=false the outputs are bit-equal to the plain PyTorch twin
 // (mom_vecinv.py:_mom_vecinv_plain).
@@ -45,5 +55,23 @@
         bottomDragLinear, rkSign, mitgcm::OnStream{(cudaStream_t)stream});  \
   }
 
+#define MITGCM_VECINV_VISC_ENTRY(NAME, T)                                   \
+  extern "C" int NAME(const void* const* table, int n, int nr, int ny,      \
+                      int nx, int oly, int olx, int vortScheme,             \
+                      int coriScheme, int implicitViscosity,                \
+                      int noSlipBottom, double viscAh,                      \
+                      double sideDragFactor, double bottomDragLinear,       \
+                      double rkSign, const void* const* vtable, int nv,     \
+                      const double* params, int np, int strainTension,      \
+                      int drag, void* stream) {                             \
+    return mitgcm::launch_vecinv_visc<T>(                                   \
+        table, n, nr, ny, nx, oly, olx, vortScheme, coriScheme,             \
+        implicitViscosity, noSlipBottom, viscAh, sideDragFactor,            \
+        bottomDragLinear, rkSign, vtable, nv, params, np, strainTension,    \
+        drag, mitgcm::OnStream{(cudaStream_t)stream});                      \
+  }
+
 MITGCM_VECINV_ENTRY(mitgcm_mom_vecinv_f32, float)
 MITGCM_VECINV_ENTRY(mitgcm_mom_vecinv_f64, double)
+MITGCM_VECINV_VISC_ENTRY(mitgcm_mom_vecinv_visc_f32, float)
+MITGCM_VECINV_VISC_ENTRY(mitgcm_mom_vecinv_visc_f64, double)

@@ -60,6 +60,28 @@ struct VecinvArgs {
 };
 constexpr int kVecinvNumPointers = 42;
 
+// The second table of V's dissipation variant (mom_vecinv_visc), each
+// [nr, nyp, nxp] or null: kernel X's viscosities (null: the constants of
+// VecViscParams), kernel Y's Laplacian (null: no biharmonic viscosity);
+// and dyF, dxF [nyp, nxp] (the strain-tension form's, null else)
+template <typename T>
+struct VecViscArgs {
+  const T *viscAh_D, *viscAh_Z, *viscA4_D, *viscA4_Z, *d2u, *d2v, *dyF,
+      *dxF;
+};
+constexpr int kVecViscNumPointers = 8;
+
+// its numbers: viscAhD and viscAhZ (the strain-tension form's constants;
+// the side drag's viscAhZ), viscA4 (the constant biharmonic dissipation's),
+// viscA4Z (its side drag's), the quadratic drag coefficient (0 unless
+// selectBotDragQuadr is 0); the strain-tension form
+template <typename T>
+struct VecViscParams {
+  T viscAhD, viscAhZ, viscA4, viscA4Z, bottomDragQuadratic;
+  bool strainTension;
+};
+constexpr int kVecViscNumParams = 5;
+
 template <typename T>
 __device__ __forceinline__ T vmin(T a, T b) { return a < b ? a : b; }
 template <typename T>
@@ -73,7 +95,7 @@ constexpr double kEps = 1.0e-9;
 constexpr int kVSWX = kTX + 1;
 constexpr int kVSW = kVSWX * (kTY + 1);
 
-template <typename T, bool WithRHz>
+template <typename T, bool WithRHz, bool Ext>
 struct VecinvShared {
   // level k over the region
   T uu[kRegion], vv[kRegion], hW[kRegion], hS[kRegion], mW[kRegion],
@@ -85,6 +107,13 @@ struct VecinvShared {
   T hDiv[kRegion], KE[kRegion];
   // w rA at level k times maskC at k-1, and w rA at k+1
   T wrAup[kVSW], wrAkp1[kVSW];
+  // the dissipation variant's: under biharmonic viscosity the staged
+  // Laplacian's products d2u dyG hFacW, d2v dxG hFacS, d2v dyC, d2u dxC
+  // (0-3), its divergence dStar at the cell centres (4) and hFacZ times its
+  // vorticity zStar at the vorticity points (5); under the strain-tension
+  // form the fluxes ft and ft2 at the cell centres (0, 1), fs and fs2 at
+  // the vorticity points (2, 3)
+  T ex[6][Ext ? kRegion : 1];
 };
 
 // a cell the block stages each level: the thread's own column, or its ring
@@ -112,12 +141,17 @@ struct VecLevel {
   T eRhC = T(0);
 };
 
-template <typename T, int Vort, int Cori, bool Implicit, bool Drag>
+// Ext: the dissipation variant, which reads X's viscosities and Y's
+// Laplacian (`va`, each null when not given), and forms the strain-tension
+// dissipation or the quadratic drag when `vp` asks for them
+template <typename T, int Vort, int Cori, bool Implicit, bool Drag,
+          bool Ext>
 __global__ void __launch_bounds__(kTileThreads)
     mom_vecinv_kernel(const VecinvArgs<T> a, int nr, int ny, int nx, int oly,
                       int olx, int ntx, int tiles, bool noSlipBottom,
                       T viscAh, T sideDragFactor, T bottomDragLinear,
-                      T rkSign) {
+                      T rkSign, const VecViscArgs<T> va,
+                      const VecViscParams<T> vp) {
   constexpr bool WithRHz = Vort != 1;
   const int nyp = ny + 2 * oly, nxp = nx + 2 * olx;
   const size_t plane = static_cast<size_t>(nyp) * nxp;
@@ -128,7 +162,11 @@ __global__ void __launch_bounds__(kTileThreads)
               gridDim.x - tiles);
     return;
   }
-  __shared__ VecinvShared<T, WithRHz> s;
+  __shared__ VecinvShared<T, WithRHz, Ext> s;
+  const bool var = Ext && va.viscAh_D != nullptr;
+  const bool var4 = Ext && va.viscA4_D != nullptr;
+  const bool bih = Ext && va.d2u != nullptr;
+  const bool st = Ext && vp.strainTension;
   const int tx = threadIdx.x, ty = threadIdx.y, t = ty * kTX + tx;
   const int j = j0 + ty, i = i0 + tx;
   const bool own = j < nyp && i < nxp;
@@ -262,8 +300,10 @@ __global__ void __launch_bounds__(kTileThreads)
     const T openI = vmin(s.hS[c], s.hS[c - 1]) * mS * mSw;
     return vmin(openI, openJ) * mW * mWs;
   };
-  // the vorticity point's hFacZ, vorticity, zeta and 1 / hFacZ
-  auto vort_point = [&](int c, T recip_rAz) {
+  // the vorticity point's hFacZ, vorticity, zeta and 1 / hFacZ; under Ext
+  // hFacZ zStar, or the strain-tension fluxes fs and fs2 (p2: the point's
+  // 2-D index, p3 its 3-D one)
+  auto vort_point = [&](int c, T recip_rAz, size_t p2, size_t p3) {
     const T hz = hfacz(c);
     const T vort = recip_rAz * ((s.vdyC[c] - s.vdyC[c - 1]) -
                                 (s.udxC[c] - s.udxC[c - kRX]));
@@ -272,12 +312,40 @@ __global__ void __launch_bounds__(kTileThreads)
     s.omega[c] = om;
     s.zeta[c] = hz * om;
     if (WithRHz) s.rHz[c] = hz == T(0) ? T(0) : T(1) / hz;
+    if (Ext && bih) {
+      const T zs = recip_rAz * ((s.ex[2][c] - s.ex[2][c - 1]) -
+                                (s.ex[3][c] - s.ex[3][c - kRX]));
+      s.ex[5][c] = hz * zs;
+    }
+    if (Ext && st) {
+      const T sr = ((s.vdyC[c] - s.vdyC[c - 1]) +
+                    (s.udxC[c] - s.udxC[c - kRX])) * recip_rAz;
+      const T s0 = hz == T(0) ? T(0) : sr;
+      const T vs = var ? va.viscAh_Z[p3] : vp.viscAhZ;
+      const T dxV = a.dxV[p2], dyU = a.dyU[p2];
+      s.ex[2][c] = dxV * dxV * vs * s0;
+      s.ex[3][c] = dyU * dyU * vs * s0;
+    }
   };
-  // the cell centre's divergence (hDivScheme 2) and KE (selectKEscheme 0)
-  auto centre_point = [&](int c, T recip_rA, T recip_hFacC) {
+  // the cell centre's divergence (hDivScheme 2) and KE (selectKEscheme 0);
+  // under Ext dStar, or the strain-tension fluxes ft and ft2
+  auto centre_point = [&](int c, T recip_rA, T recip_hFacC, size_t p2,
+                          size_t p3) {
     s.hDiv[c] = ((s.uTr[c + 1] - s.uTr[c]) + (s.vTr[c + kRX] - s.vTr[c])) *
                 recip_rA * recip_hFacC;
     s.KE[c] = T(0.25) * ((s.uu[c] + s.uu[c + 1]) + (s.vv[c] + s.vv[c + kRX]));
+    if (Ext && bih)
+      s.ex[4][c] = ((s.ex[0][c + 1] - s.ex[0][c]) +
+                    (s.ex[1][c + kRX] - s.ex[1][c])) *
+                   recip_rA * recip_hFacC;
+    if (Ext && st) {
+      const T ten = ((s.udy[c + 1] - s.udy[c]) - (s.vdx[c + kRX] - s.vdx[c])) *
+                    recip_rA;
+      const T vt = var ? va.viscAh_D[p3] : vp.viscAhD;
+      const T dyF = va.dyF[p2], dxF = va.dxF[p2];
+      s.ex[0][c] = dyF * dyF * vt * ten;
+      s.ex[1][c] = dxF * dxF * vt * ten;
+    }
   };
 
   VecLevel<T> cur = load(0);
@@ -306,6 +374,14 @@ __global__ void __launch_bounds__(kTileThreads)
       s.vTr[c.r] = vdx * hs;
       s.vdyC[c.r] = vc * c.dyC;
       s.udxC[c.r] = uc * c.dxC;
+      if (Ext && bih) {
+        const T du = c.valid ? va.d2u[lev + c.q] : T(0);
+        const T dv = c.valid ? va.d2v[lev + c.q] : T(0);
+        s.ex[0][c.r] = du * c.dyG * hw;
+        s.ex[1][c.r] = dv * c.dxG * hs;
+        s.ex[2][c.r] = dv * c.dyC;
+        s.ex[3][c.r] = du * c.dxC;
+      }
       if (c.sw >= 0) {
         // w rA masked by the cell above (0 at the surface); w rA of the
         // level below, 0 below the bottom
@@ -326,14 +402,14 @@ __global__ void __launch_bounds__(kTileThreads)
 
     // ---- the points, and the terms that read only the staging ----
     const int o = rg(ty + 1, tx + 1), ow = (ty + 1) * kVSWX + tx + 1;
-    vort_point(o, rrAz);
-    centre_point(o, rrA, cur.rhC);
+    vort_point(o, rrAz, q, lev + q);
+    centre_point(o, rrA, cur.rhC, q, lev + q);
     const int ec = rg(ey, ex);
     if (ev) {
       if (centre)
-        centre_point(ec, e0, cur.eRhC);
+        centre_point(ec, e0, cur.eRhC, eq, lev + eq);
       else
-        vort_point(ec, e0);
+        vort_point(ec, e0, eq, lev + eq);
     }
     // planetary Coriolis (mom_vi_coriolis.F)
     T gU, gV;
@@ -416,34 +492,99 @@ __global__ void __launch_bounds__(kTileThreads)
     if (active) {
       const T hz = s.hFacZ[o], hzN = s.hFacZ[o + kRX], hzE = s.hFacZ[o + 1];
       const T om = s.omega[o], omN = s.omega[o + kRX], omE = s.omega[o + 1];
-      // harmonic dissipation in divergence/vorticity form
-      // (mom_vi_hdissip.F)
-      const T hDiv = s.hDiv[o], Z = s.zeta[o];
-      const T uD2 = AhD * cosU * (hDiv - s.hDiv[o - 1]) * rdxC -
-                    AhZ * rhW * (s.zeta[o + kRX] - Z) * rdyG * cosU;
-      const T vD2 = AhZ * rhS * cosV * (s.zeta[o + 1] - Z) * rdxG +
-                    AhD * (hDiv - s.hDiv[o - kRX]) * rdyC * cosV;
-      T guDiss = uD2 * mW0;
-      T gvDiss = vD2 * mS0;
+      const size_t p = lev + q;
+      T guDiss, gvDiss;
+      if (st) {
+        // the strain-tension form (mom_hdissip.F)
+        const T uD2 = rdyG * rdyG * rdxC * (s.ex[0][o] - s.ex[0][o - 1]) +
+                      rdxC * rdxC * rdyG * (s.ex[2][o + kRX] - s.ex[2][o]);
+        const T vD2 = rdyC * rdyC * rdxG * (s.ex[3][o + 1] - s.ex[3][o]) -
+                      rdxG * rdxG * rdyC * (s.ex[1][o] - s.ex[1][o - kRX]);
+        guDiss = uD2 * mW0;
+        gvDiss = vD2 * mS0;
+      } else if (var) {
+        // variable viscosity in divergence/vorticity form: the viscosity
+        // multiplies D and Z before the differencing (mom_vi_hdissip.F)
+        const T Dv = s.hDiv[o] * va.viscAh_D[p];
+        const T DvW = s.hDiv[o - 1] * va.viscAh_D[p - 1];
+        const T DvS = s.hDiv[o - kRX] * va.viscAh_D[p - nxp];
+        const T Zv = s.zeta[o] * va.viscAh_Z[p];
+        const T ZvN = s.zeta[o + kRX] * va.viscAh_Z[p + nxp];
+        const T ZvE = s.zeta[o + 1] * va.viscAh_Z[p + 1];
+        const T uD2 = cosU * (Dv - DvW) * rdxC - rhW * (ZvN - Zv) * rdyG * cosU;
+        const T vD2 = rhS * cosV * (ZvE - Zv) * rdxG + (Dv - DvS) * rdyC * cosV;
+        guDiss = uD2 * mW0;
+        gvDiss = vD2 * mS0;
+        if (bih) {
+          const T D4 = s.ex[4][o] * va.viscA4_D[p];
+          const T D4W = s.ex[4][o - 1] * va.viscA4_D[p - 1];
+          const T D4S = s.ex[4][o - kRX] * va.viscA4_D[p - nxp];
+          const T z4 = s.ex[5][o] * va.viscA4_Z[p];
+          const T z4N = s.ex[5][o + kRX] * va.viscA4_Z[p + nxp];
+          const T z4E = s.ex[5][o + 1] * va.viscA4_Z[p + 1];
+          const T uD4 = cosU * (D4 - D4W) * rdxC - rhW * (z4N - z4) * rdyG;
+          const T vD4 = rhS * cosV * (z4E - z4) * rdxG + (D4 - D4S) * rdyC;
+          guDiss = guDiss - uD4 * mW0;
+          gvDiss = gvDiss - vD4 * mS0;
+        }
+      } else {
+        // harmonic dissipation in divergence/vorticity form
+        // (mom_vi_hdissip.F)
+        const T hDiv = s.hDiv[o], Z = s.zeta[o];
+        const T uD2 = AhD * cosU * (hDiv - s.hDiv[o - 1]) * rdxC -
+                      AhZ * rhW * (s.zeta[o + kRX] - Z) * rdyG * cosU;
+        const T vD2 = AhZ * rhS * cosV * (s.zeta[o + 1] - Z) * rdxG +
+                      AhD * (hDiv - s.hDiv[o - kRX]) * rdyC * cosV;
+        guDiss = uD2 * mW0;
+        gvDiss = vD2 * mS0;
+        if (bih) {
+          // constant biharmonic viscosity, from dStar and hFacZ zStar
+          const T A4 = vp.viscA4, dS = s.ex[4][o], z4 = s.ex[5][o];
+          const T uD4 = A4 * cosU * (dS - s.ex[4][o - 1]) * rdxC -
+                        A4 * rhW * (s.ex[5][o + kRX] - z4) * rdyG;
+          const T vD4 = A4 * rhS * cosV * (s.ex[5][o + 1] - z4) * rdxG +
+                        A4 * (dS - s.ex[4][o - kRX]) * rdyC;
+          guDiss = guDiss - uD4 * mW0;
+          gvDiss = gvDiss - vD4 * mS0;
+        }
+      }
       if (!Implicit) {
         guDiss = guDiss -
                  (rhW * rdrF * rrAw * (rViscU1 - rViscU0) * rkSign);
         gvDiss = gvDiss -
                  (rhS * rdrF * rrAs * (rViscV1 - rViscV0) * rkSign);
       }
-      // no-slip side drag (mom_u_sidedrag.F)
-      const T Ahu = AhZ * u0;
+      // no-slip side drag (mom_u_sidedrag.F); under Ext viscAh_Z (and
+      // viscA4_Z times the Laplacian) at each wall's vorticity point
+      T Ahu = AhZ * u0, AhuN = Ahu;
+      T Ahv = AhZ * v0 * cosV, AhvE = Ahv;
+      if (Ext) {
+        const T z0 = var ? va.viscAh_Z[p] : vp.viscAhZ;
+        const T zN = var ? va.viscAh_Z[p + nxp] : vp.viscAhZ;
+        const T zE = var ? va.viscAh_Z[p + 1] : vp.viscAhZ;
+        Ahu = z0 * u0, AhuN = zN * u0;
+        Ahv = z0 * v0 * cosV, AhvE = zE * v0 * cosV;
+        if (bih) {
+          const T f0 = var4 ? va.viscA4_Z[p] : vp.viscA4Z;
+          const T fN = var4 ? va.viscA4_Z[p + nxp] : vp.viscA4Z;
+          const T fE = var4 ? va.viscA4_Z[p + 1] : vp.viscA4Z;
+          const T du = va.d2u[p], dv = va.d2v[p];
+          Ahu = Ahu - f0 * du;
+          AhuN = AhuN - fN * du;
+          Ahv = Ahv - f0 * dv;
+          AhvE = AhvE - fE * dv;
+        }
+      }
       guDiss = guDiss -
                (rhW * rdrF * rrAw *
                 ((hW0 - hz) * dxV * rdyU * Ahu +
-                 (hW0 - hzN) * dxVn * rdyUn * Ahu) *
+                 (hW0 - hzN) * dxVn * rdyUn * AhuN) *
                 drF * sideDragFactor) *
                    mW0;
-      const T Ahv = AhZ * v0 * cosV;
       gvDiss = gvDiss -
                (rhS * rdrF * rrAs *
                 ((hS0 - hz) * dyU * rdxV * Ahv +
-                 (hS0 - hzE) * dyUe * rdxVe * Ahv) *
+                 (hS0 - hzE) * dyUe * rdxVe * AhvE) *
                 drF * sideDragFactor) *
                    mS0;
       // no-slip and linear bottom drag (mom_u_botdrag_coeff.F): only
@@ -453,6 +594,16 @@ __global__ void __launch_bounds__(kTileThreads)
         if (noSlipBottom) {
           cDragU = cDragU + kRU1 * recDr * T(2);
           cDragV = cDragV + kRV1 * recDr * T(2);
+        }
+        if (Ext && vp.bottomDragQuadratic != T(0)) {
+          // the quadratic drag, as the flux form forms it
+          const T keS = s.KE[o] + s.KE[o - 1];
+          const T keSv = s.KE[o] + s.KE[o - kRX];
+          cDragU = cDragU + (keS > T(0) ? vp.bottomDragQuadratic * sqrt(keS)
+                                        : T(0));
+          cDragV = cDragV + (keSv > T(0)
+                                 ? vp.bottomDragQuadratic * sqrt(keSv)
+                                 : T(0));
         }
         const T bottomW = mW0 * (deep ? T(1) : T(1) - mW1);
         const T bottomS = mS0 * (deep ? T(1) : T(1) - mS1);
@@ -493,7 +644,6 @@ __global__ void __launch_bounds__(kTileThreads)
       const T ke = s.KE[o];
       gU = gU - rdxC * (ke - s.KE[o - 1]) * mW0;
       gV = gV - rdyC * (ke - s.KE[o - kRX]) * mS0;
-      const size_t p = lev + q;
       a.gU[p] = gU * mW0;
       a.gV[p] = gV * mS0;
       a.guDiss[p] = guDiss * mW0;
@@ -507,14 +657,17 @@ __global__ void __launch_bounds__(kTileThreads)
 }
 
 // Kernel V's launch from its entry point's arguments: the table's and the
-// flags' checks, the grid, and the variant that the flags pick;
-// start(kernel, grid, block, args...) starts it (OnStream on the card).
-template <typename T, typename Start>
-int launch_vecinv(const void* const* table, int n, int nr, int ny, int nx,
-                  int oly, int olx, int vortScheme, int coriScheme,
-                  int implicitViscosity, int noSlipBottom, double viscAh,
-                  double sideDragFactor, double bottomDragLinear,
-                  double rkSign, Start start) {
+// flags' checks, the grid, and the variant that the flags pick (Ext: the
+// dissipation variant, with its second table `va`, numbers `vp` and the
+// drag switch given); start(kernel, grid, block, args...) starts it
+// (OnStream on the card).
+template <typename T, bool Ext, typename Start>
+int start_vecinv(const void* const* table, int n, int nr, int ny, int nx,
+                 int oly, int olx, int vortScheme, int coriScheme,
+                 int implicitViscosity, int noSlipBottom, double viscAh,
+                 double sideDragFactor, double bottomDragLinear,
+                 double rkSign, bool drag, const VecViscArgs<T>& va,
+                 const VecViscParams<T>& vp, Start start) {
   static_assert(sizeof(VecinvArgs<T>) == kVecinvNumPointers * sizeof(void*),
                 "VecinvArgs must be a plain table of pointers");
   if (n != kVecinvNumPointers || vortScheme < 0 || vortScheme > 2 ||
@@ -525,19 +678,18 @@ int launch_vecinv(const void* const* table, int n, int nr, int ny, int nx,
   VecinvArgs<T> a;
   std::memcpy(&a, table, sizeof(a));
   const TileGrid tg = tile_grid(nr, ny, nx, oly, olx);
-  const bool drag = noSlipBottom || bottomDragLinear != 0.0;
   auto run = [&](auto kernel) {
     start(kernel, dim3(tg.tiles + tg.halo_blocks), dim3(kTX, kTY), a, nr,
           ny, nx, oly, olx, tg.ntx, tg.tiles, noSlipBottom != 0, T(viscAh),
-          T(sideDragFactor), T(bottomDragLinear), T(rkSign));
+          T(sideDragFactor), T(bottomDragLinear), T(rkSign), va, vp);
   };
   auto by_drag = [&](auto vort, auto cori, auto implicit) {
     constexpr int V = decltype(vort)::value, C = decltype(cori)::value;
     constexpr bool I = decltype(implicit)::value;
     if (drag)
-      run(mom_vecinv_kernel<T, V, C, I, true>);
+      run(mom_vecinv_kernel<T, V, C, I, true, Ext>);
     else
-      run(mom_vecinv_kernel<T, V, C, I, false>);
+      run(mom_vecinv_kernel<T, V, C, I, false, Ext>);
   };
   auto by_implicit = [&](auto vort, auto cori) {
     if (implicitViscosity)
@@ -558,6 +710,55 @@ int launch_vecinv(const void* const* table, int n, int nr, int ny, int nx,
   else
     by_cori(std::integral_constant<int, 2>{});
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename Start>
+int launch_vecinv(const void* const* table, int n, int nr, int ny, int nx,
+                  int oly, int olx, int vortScheme, int coriScheme,
+                  int implicitViscosity, int noSlipBottom, double viscAh,
+                  double sideDragFactor, double bottomDragLinear,
+                  double rkSign, Start start) {
+  const bool drag = noSlipBottom || bottomDragLinear != 0.0;
+  return start_vecinv<T, false>(table, n, nr, ny, nx, oly, olx, vortScheme,
+                                coriScheme, implicitViscosity, noSlipBottom,
+                                viscAh, sideDragFactor, bottomDragLinear,
+                                rkSign, drag, VecViscArgs<T>{},
+                                VecViscParams<T>{}, start);
+}
+
+// V's dissipation variant: V's arguments, then the table of VecViscArgs
+// (the viscosities given in pairs, the Laplacian both or neither, the
+// biharmonic viscosities only with it, dyF and dxF under the
+// strain-tension form, which takes no Laplacian), the numbers of
+// VecViscParams, the strain-tension form and the drag switch
+template <typename T, typename Start>
+int launch_vecinv_visc(const void* const* table, int n, int nr, int ny,
+                       int nx, int oly, int olx, int vortScheme,
+                       int coriScheme, int implicitViscosity,
+                       int noSlipBottom, double viscAh, double sideDragFactor,
+                       double bottomDragLinear, double rkSign,
+                       const void* const* vtable, int nv,
+                       const double* params, int np, int strainTension,
+                       int drag, Start start) {
+  static_assert(sizeof(VecViscArgs<T>) == kVecViscNumPointers * sizeof(void*),
+                "VecViscArgs must be a plain table of pointers");
+  if (nv != kVecViscNumPointers || np != kVecViscNumParams ||
+      strainTension < 0 || strainTension > 1 || drag < 0 || drag > 1)
+    return (int)cudaErrorInvalidValue;
+  VecViscArgs<T> va;
+  std::memcpy(&va, vtable, sizeof(va));
+  const bool bih = va.d2u != nullptr;
+  if ((va.viscAh_D == nullptr) != (va.viscAh_Z == nullptr) ||
+      (va.viscA4_D == nullptr) != (va.viscA4_Z == nullptr) ||
+      (va.d2v == nullptr) == bih || (va.viscA4_D && !bih) ||
+      (strainTension && (bih || !va.dyF || !va.dxF)))
+    return (int)cudaErrorInvalidValue;
+  const VecViscParams<T> vp{T(params[0]), T(params[1]), T(params[2]),
+                            T(params[3]), T(params[4]), strainTension != 0};
+  return start_vecinv<T, true>(table, n, nr, ny, nx, oly, olx, vortScheme,
+                               coriScheme, implicitViscosity, noSlipBottom,
+                               viscAh, sideDragFactor, bottomDragLinear,
+                               rkSign, drag != 0, va, vp, start);
 }
 
 }  // namespace mitgcm

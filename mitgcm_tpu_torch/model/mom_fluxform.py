@@ -1,11 +1,15 @@
 """Flux-form momentum tendencies (mitgcm_tpu/model/mom_fluxform.py;
-reference pkg/mom_fluxform/mom_fluxform.F) on the branches of the gyre:
-centred advection, constant harmonic viscosity with the explicit vertical
-viscous flux, no-slip bottom drag, and Coriolis scheme 0; with no-slip or
-free-slip sides (the side drag only under no-slip), and with or without
-the 3-D Coriolis term -fPrime w of the non-hydrostatic path
-(select3dCoriScheme >= 1). Kernel B takes the last two as template flags;
-its backward B' refuses them, so the adjoint stays on the gyre's branches.
+reference pkg/mom_fluxform/mom_fluxform.F): centred advection, harmonic
+viscosity with the explicit vertical viscous flux, and Coriolis scheme 0;
+with no-slip or free-slip sides (the side drag only under no-slip), and
+with or without the 3-D Coriolis term -fPrime w of the non-hydrostatic
+path (select3dCoriScheme >= 1). The gyre's constant harmonic viscosity
+with no-slip bottom drag runs kernel B's first variants; grid-,
+Smagorinsky- or Leith-scaled viscosity (model/mom_visc.py, kernel X),
+biharmonic viscosity (`_del2uv`, kernel Y) and linear and quadratic bottom
+drag, or none, run its dissipation variant (`uses_visc_variant`), which
+reads X's and Y's fields. Its backward B' takes the gyre's variant only,
+so the adjoint stays on the gyre's branches.
 
 `mom_fluxform` runs kernel B (kernels/csrc/mom_fluxform.cu) for CUDA
 tensors, with kernel B' (mom_fluxform_adj.cu) as its backward, and the
@@ -24,6 +28,7 @@ import torch
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
+from mitgcm_tpu_torch.model import mom_visc
 from mitgcm_tpu_torch.ops.stencil import shift as sh
 from mitgcm_tpu_torch.ops.stencil import shift_k
 
@@ -50,29 +55,31 @@ def calc_ke(u, v) -> torch.Tensor:
     return 0.25 * ((u2 + sh(u2, di=1)) + (v2 + sh(v2, dj=1)))
 
 
-def variable_viscosity(cfg: Config) -> bool:
-    """Whether cfg asks for mom_visc.py's grid-, Smagorinsky- or
-    Leith-scaled viscosity (no form of momentum ports it yet)."""
-    return (cfg.viscAhGrid != 0.0 or cfg.viscA4Grid != 0.0
-            or cfg.viscC2smag != 0.0 or cfg.viscC4smag != 0.0
-            or cfg.viscC2leith != 0.0 or cfg.viscC2leithD != 0.0
-            or cfg.viscC2LeithQG != 0.0 or cfg.viscC4leith != 0.0
-            or cfg.viscC4leithD != 0.0)
+def uses_visc_variant(cfg: Config) -> bool:
+    """Whether cfg runs kernel B's dissipation variant: variable or
+    biharmonic viscosity, or a bottom drag other than the gyre's no-slip
+    one (linear, quadratic, selectBotDragQuadr set, or none)."""
+    return (mom_visc.use_variable_visc(cfg)
+            or mom_visc.use_biharmonic_visc(cfg)
+            or not cfg.no_slip_bottom or cfg.bottomDragLinear != 0.0
+            or cfg.selectBotDragQuadr >= 0)
 
 
 def check_branches(cfg: Config) -> None:
-    """Raise unless cfg selects exactly the branches ported here."""
+    """Raise unless cfg selects exactly the branches ported here; refuse
+    by name what the JAX code drops silently (quadratic drag other than
+    selectBotDragQuadr 0, mom_fluxform.py:360; useStrainTensionVisc, for
+    which its flux form has no branch) or computes as a no-op
+    (viscC2LeithQG)."""
     off = {
         "momAdvection": not cfg.momAdvection,
         "momViscosity": not cfg.momViscosity,
-        "no_slip_bottom": not cfg.no_slip_bottom,
         "selectCoriScheme": cfg.selectCoriScheme != 0,
-        "biharmonic viscosity": (cfg.viscA4 != 0.0 or cfg.viscA4D != 0.0
-                                 or cfg.viscA4Z != 0.0),
-        "variable viscosity": variable_viscosity(cfg),
         "implicitViscosity": cfg.implicitViscosity,
-        "bottom drag beyond no-slip": (cfg.bottomDragLinear != 0.0
-                                       or cfg.selectBotDragQuadr >= 0),
+        f"selectBotDragQuadr={cfg.selectBotDragQuadr}":
+            cfg.selectBotDragQuadr not in (-1, 0),
+        "useStrainTensionVisc under flux form": cfg.useStrainTensionVisc,
+        **mom_visc.refusals(cfg),
         "rigidLid": cfg.rigidLid,
         "select_rStar": cfg.select_rStar != 0,
         "useCDscheme": cfg.useCDscheme,
@@ -109,10 +116,12 @@ def flags(cfg: Config) -> tuple:
     return bool(cfg.no_slip_sides), cfg.select3dCoriScheme >= 1
 
 
-def _launch(kernel: str, cfg: Config, ins: dict, outs: dict) -> None:
-    """Check and launch kernel B (outs = the four tendencies) or B'
-    (outs = the four cotangents, in the tendencies' slots, then u_bar,
-    v_bar and w_bar; the gyre's flags only)."""
+def _launch(kernel: str, cfg: Config, ins: dict, outs: dict,
+            extra: tuple = ()) -> None:
+    """Check and launch kernel B (outs = the four tendencies; its
+    dissipation variant mom_fluxform_visc with `extra`, the arguments that
+    follow B's) or B' (outs = the four cotangents, in the tendencies'
+    slots, then u_bar, v_bar and w_bar; the gyre's flags only)."""
     u = ins["u"]
     nr, nyp, nxp = u.shape
     kernels.check_tensors(u.dtype, **ins, **outs)
@@ -128,7 +137,7 @@ def _launch(kernel: str, cfg: Config, ins: dict, outs: dict) -> None:
     table = [*ins.values(), *outs.values()]
     args = (nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly, cfg.olx)
     params = (cfg.viscAhD, cfg.viscAhZ, cfg.sideDragFactor, cfg.rkSign)
-    if kernel == "mom_fluxform":
+    if kernel in ("mom_fluxform", "mom_fluxform_visc"):
         no_slip, cori3d = flags(cfg)
         args += (int(no_slip), int(cori3d))
         params += (cfg.gravitySign,)
@@ -137,7 +146,7 @@ def _launch(kernel: str, cfg: Config, ins: dict, outs: dict) -> None:
             "mom_fluxform_adj (kernel B'): free-slip sides and the 3-D "
             "Coriolis term have no backward kernel")
     kernels.launch(kernel, u.dtype, kernels.pointer_table(table), len(table),
-                   *args, *params)
+                   *args, *params, *extra)
 
 
 class MomFluxformFn(torch.autograd.Function):
@@ -182,8 +191,51 @@ def mom_fluxform(cfg: Config, grid: Grid, u, v, w, kappaRU, kappaRV,
         raise ValueError(f"mom_fluxform: constants {const} require grad")
     if not kernels.use_kernel(u, impl):
         return _mom_fluxform_plain(cfg, grid, u, v, w, kappaRU, kappaRV)
+    if uses_visc_variant(cfg):
+        return mom_fluxform_visc(cfg, grid, u, v, w, kappaRU, kappaRV,
+                                 *mom_visc.fields(cfg, grid, u, v))
     return MomTend(*MomFluxformFn.apply(u, v, w, kappaRU, kappaRV, cfg,
                                         grid))
+
+
+def drag_params(cfg: Config) -> tuple:
+    """(drag, Cd): whether the bottom drag block of mom_fluxform.py:343
+    (and mom_vecinv.py:373) runs, and the quadratic coefficient it applies
+    (0 unless selectBotDragQuadr is 0)."""
+    drag = (cfg.no_slip_bottom or cfg.selectBotDragQuadr >= 0
+            or cfg.bottomDragLinear != 0.0)
+    cd = cfg.bottomDragQuadratic if cfg.selectBotDragQuadr == 0 else 0.0
+    return bool(drag), cd
+
+
+def mom_fluxform_visc(cfg: Config, grid: Grid, u, v, w, kappaRU, kappaRV,
+                      visc, del2, impl: str = None) -> MomTend:
+    """Kernel B's dissipation variant (kernel entry mom_fluxform_visc) on
+    X's viscosities `visc` (viscAh_Z, viscAh_D, viscA4_Z, viscA4_D; None:
+    cfg's constants) and Y's Laplacian `del2` (del2u, del2v; None: no
+    biharmonic viscosity), or its twin on CPU tensors or with
+    impl="plain". No backward kernel: raises if an input requires grad."""
+    ins = _kernel_inputs(grid, u, v, w, kappaRU, kappaRV)
+    vt = mom_visc.field_table(visc, del2)
+    grads = [n for n, t in {**ins, **vt}.items()
+             if t is not None and t.requires_grad]
+    if grads:
+        raise ValueError(f"mom_fluxform: {grads} require grad; kernel B's "
+                         "dissipation variant has no backward kernel")
+    if not kernels.use_kernel(u, impl):
+        return _mom_fluxform_plain(cfg, grid, u, v, w, kappaRU, kappaRV,
+                                   visc=visc, del2=del2)
+    out = MomTend(*(torch.empty_like(u) for _ in range(4)))
+    given = {n: t for n, t in vt.items() if t is not None}
+    kernels.check_fields(u.dtype, u.shape, **given)
+    drag, cd = drag_params(cfg)
+    vtab = list(vt.values())
+    params = [cfg.viscA4D, cfg.viscA4Z, cfg.bottomDragLinear, cd]
+    _launch("mom_fluxform_visc", cfg, ins, dict(zip(MomTend._fields, out)),
+            extra=(kernels.pointer_table(vtab), len(vtab),
+                   kernels.doubles(params), len(params),
+                   int(cfg.no_slip_bottom), int(drag)))
+    return out
 
 
 def mom_fluxform_vjp_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
@@ -198,11 +250,14 @@ def mom_fluxform_vjp_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
 
 
 def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
-                        kappaRV) -> MomTend:
+                        kappaRV, visc=None, del2=None) -> MomTend:
     """mom_fluxform.py:122-469 on the ported branches, in its operation
-    order. The biharmonic terms of the JAX code add exact zeros here and
-    are left out, as are its products with rVel2wUnit, exactly 1 in
-    z-coordinates."""
+    order. On the gyre's branches its biharmonic terms, exact zeros, are
+    left out, as are its products with rVel2wUnit, exactly 1 in
+    z-coordinates. Under kernel B's dissipation variant the viscosities
+    are X's twin's (or `visc`, as mom_fluxform_visc takes them; cfg's
+    constants without variable viscosity) and the Laplacian Y's twin's,
+    `_del2uv` (or `del2`)."""
     nr = cfg.nr
     drF = grid.drF[:, None, None]
     recip_drF = grid.recip_drF[:, None, None]
@@ -212,6 +267,9 @@ def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
     uTrans = u * xA
     vTrans = v * yA
     hFacZ = calc_hfacz(grid)
+    ext = uses_visc_variant(cfg)
+    if ext and visc is None and del2 is None:
+        visc, del2 = mom_visc.fields(cfg, grid, u, v, impl="plain")
 
     # ---------------- advection (:155-230) ----------------
     wrA = w * grid.rA
@@ -242,16 +300,26 @@ def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
               + (fMerV - sh(fMerV, dj=-1))
               + (fVerV[1:] - fVerV[:-1]) * rkSign))
 
-    # ------- harmonic + explicit vertical viscosity (:233-307) -------
-    AhD, AhZ = cfg.viscAhD, cfg.viscAhZ
-    fZonU = (grid.dyF * drF * grid.hFacC * grid.recip_dxF
-             * (-AhD * (sh(u, di=1) - u) * grid.cosFacU))
-    fMerU = (grid.dxV * drF * hFacZ * grid.recip_dyU
-             * (-AhZ * (u - sh(u, dj=-1))))
-    fZonV = (grid.dyU * drF * hFacZ * grid.recip_dxV
-             * (-AhZ * (v - sh(v, di=-1)) * grid.cosFacV))
-    fMerV = (grid.dxF * drF * grid.hFacC * grid.recip_dyF
-             * (-AhD * (sh(v, dj=1) - v)))
+    # ---- harmonic + biharmonic + explicit vertical viscosity (:233-307)
+    if visc is not None:
+        AhZ, AhD, A4Z, A4D = visc
+    else:
+        AhZ, AhD, A4Z, A4D = (cfg.viscAhZ, cfg.viscAhD, cfg.viscA4Z,
+                              cfg.viscA4D)
+    hZonU = -AhD * (sh(u, di=1) - u) * grid.cosFacU
+    hMerU = -AhZ * (u - sh(u, dj=-1))
+    hZonV = -AhZ * (v - sh(v, di=-1)) * grid.cosFacV
+    hMerV = -AhD * (sh(v, dj=1) - v)
+    if del2 is not None:
+        d2u, d2v = del2
+        hZonU = hZonU + A4D * (sh(d2u, di=1) - d2u) * grid.cosFacU
+        hMerU = hMerU + A4Z * (d2u - sh(d2u, dj=-1))
+        hZonV = hZonV + A4Z * (d2v - sh(d2v, di=-1)) * grid.cosFacV
+        hMerV = hMerV + A4D * (sh(d2v, dj=1) - d2v)
+    fZonU = grid.dyF * drF * grid.hFacC * grid.recip_dxF * hZonU
+    fMerU = grid.dxV * drF * hFacZ * grid.recip_dyU * hMerU
+    fZonV = grid.dyU * drF * hFacZ * grid.recip_dxV * hZonV
+    fMerV = grid.dxF * drF * grid.hFacC * grid.recip_dyF * hMerV
     recip_drC = grid.recip_drC[1:nr, None, None]
     rvU_mid = (-kappaRU[1:nr] * grid.rAw * (u[1:] - u[:-1]) * rkSign
                * recip_drC * grid.maskW[1:] * grid.maskW[:-1])
@@ -270,17 +338,30 @@ def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
 
     # ---------------- no-slip side drag (:312-340) ----------------
     if cfg.no_slip_sides:
-        guDiss, gvDiss = _side_drag(cfg, grid, u, v, hFacZ, guDiss, gvDiss)
+        guDiss, gvDiss = _side_drag(cfg, grid, u, v, hFacZ, guDiss, gvDiss,
+                                    AhZ, A4Z, del2)
 
-    # ---- no-slip bottom drag (:343-381): where the cell below is dry ----
+    # ---- bottom drag (:343-381): where the cell below is dry ----
     recDr = torch.cat([grid.recip_drC[1:nr],
                        grid.recip_drF[nr - 1:nr]])[:, None, None]
-    cDragU = kappaRU[1:nr + 1] * recDr * 2.0
-    cDragV = kappaRV[1:nr + 1] * recDr * 2.0
     bottomW = grid.maskW * (1.0 - torch.cat([grid.maskW[1:], z1]))
     bottomS = grid.maskS * (1.0 - torch.cat([grid.maskS[1:], z1]))
-    guDiss = guDiss - cDragU * bottomW * u * grid.recip_hFacW * recip_drF
-    gvDiss = gvDiss - cDragV * bottomS * v * grid.recip_hFacS * recip_drF
+    drag, cd = drag_params(cfg)
+    if not ext:
+        cDragU = kappaRU[1:nr + 1] * recDr * 2.0
+        cDragV = kappaRV[1:nr + 1] * recDr * 2.0
+    elif drag:
+        cDragU = torch.full_like(u, cfg.bottomDragLinear)
+        cDragV = torch.full_like(v, cfg.bottomDragLinear)
+        if cfg.no_slip_bottom:
+            cDragU = cDragU + kappaRU[1:nr + 1] * recDr * 2.0
+            cDragV = cDragV + kappaRV[1:nr + 1] * recDr * 2.0
+        if cd != 0.0:
+            cDragU, cDragV = quadratic_drag(cd, calc_ke(u, v), cDragU,
+                                            cDragV)
+    if drag:
+        guDiss = guDiss - cDragU * bottomW * u * grid.recip_hFacW * recip_drF
+        gvDiss = gvDiss - cDragV * bottomS * v * grid.recip_hFacS * recip_drF
 
     # ---------------- Coriolis, scheme 0 (:420-445) ----------------
     fC = grid.fCori
@@ -305,22 +386,87 @@ def coriolis_3d_u(cfg: Config, grid: Grid, w):
     return 0.5 * (fcw + sh(fcw, di=-1)) * cfg.gravitySign
 
 
-def _side_drag(cfg: Config, grid: Grid, u, v, hFacZ, guDiss, gvDiss):
-    """No-slip side drag (mom_fluxform.py:312-340, mom_u_sidedrag.F)
-    added to guDiss and gvDiss."""
+def quadratic_drag(cd: float, KE, cDragU, cDragV):
+    """The quadratic bottom drag, selectBotDragQuadr 0
+    (mom_u_botdrag_coeff.F; mom_fluxform.py:360-370), added to the drag
+    coefficients at u and v points from KE at the two cell centres."""
+    keS = KE + sh(KE, di=-1)
+    cDragU = cDragU + torch.where(
+        keS > 0.0, cd * torch.sqrt(torch.clamp_min(keS, 0.0)), 0.0)
+    keSv = KE + sh(KE, dj=-1)
+    cDragV = cDragV + torch.where(
+        keSv > 0.0, cd * torch.sqrt(torch.clamp_min(keSv, 0.0)), 0.0)
+    return cDragU, cDragV
+
+
+def _north(f):
+    return sh(f, dj=1) if torch.is_tensor(f) else f
+
+
+def _east(f):
+    return sh(f, di=1) if torch.is_tensor(f) else f
+
+
+def _side_drag(cfg: Config, grid: Grid, u, v, hFacZ, guDiss, gvDiss,
+               AhZ=None, A4Z=None, del2=None):
+    """No-slip side drag (mom_fluxform.py:312-340, mom_u_sidedrag.F) added
+    to guDiss and gvDiss: viscAh_Z (cfg.viscAhZ, or a field) at each
+    closed wall's vorticity point, with the biharmonic term of viscA4_Z
+    and the Laplacian `del2` when given."""
     recip_drF = grid.recip_drF[:, None, None]
     drF = grid.drF[:, None, None]
-    AhZ = cfg.viscAhZ
-    Ahu = AhZ * u
+    AhZ = cfg.viscAhZ if AhZ is None else AhZ
+    Ahu, AhuN = AhZ * u, _north(AhZ) * u
+    Ahv, AhvE = AhZ * v * grid.cosFacV, _east(AhZ) * v * grid.cosFacV
+    if del2 is not None:
+        d2u, d2v = del2
+        Ahu = Ahu - A4Z * d2u
+        AhuN = AhuN - _north(A4Z) * d2u
+        Ahv = Ahv - A4Z * d2v * grid.cosFacV
+        AhvE = AhvE - _east(A4Z) * d2v * grid.cosFacV
     uDrag = -(grid.recip_hFacW * recip_drF * grid.recip_rAw
               * ((grid.hFacW - hFacZ) * grid.dxV * grid.recip_dyU * Ahu
                  + (grid.hFacW - sh(hFacZ, dj=1)) * sh(grid.dxV, dj=1)
-                 * sh(grid.recip_dyU, dj=1) * Ahu)
+                 * sh(grid.recip_dyU, dj=1) * AhuN)
               * drF * cfg.sideDragFactor)
-    Ahv = AhZ * v * grid.cosFacV
     vDrag = -(grid.recip_hFacS * recip_drF * grid.recip_rAs
               * ((grid.hFacS - hFacZ) * grid.dyU * grid.recip_dxV * Ahv
                  + (grid.hFacS - sh(hFacZ, di=1)) * sh(grid.dyU, di=1)
-                 * sh(grid.recip_dxV, di=1) * Ahv)
+                 * sh(grid.recip_dxV, di=1) * AhvE)
               * drF * cfg.sideDragFactor)
     return guDiss + uDrag, gvDiss + vDrag
+
+
+def _del2uv(cfg: Config, grid: Grid, u, v, hFacZ):
+    """Kernel Y's flux-form twin: the Laplacian of u and v for biharmonic
+    viscosity (mom_fluxform.py:67-119, mom_u_del2u.F/mom_v_del2v.F), with
+    the closed-wall term under no-slip sides; the static open fractions
+    (no nonlinear free surface) and no OBCS, whose masks are exact ones."""
+    drF = grid.drF[:, None, None]
+    recip_drF = grid.recip_drF[:, None, None]
+    closed = 1.0 if cfg.no_slip_sides else 0.0
+    fZon = (drF * grid.hFacC * grid.dyF * grid.recip_dxF
+            * (sh(u, di=1) - u))
+    fMer = drF * hFacZ * grid.dxV * grid.recip_dyU * (u - sh(u, dj=-1))
+    del2u = (grid.recip_hFacW * recip_drF * grid.recip_rAw
+             * ((fZon - sh(fZon, di=-1)) + (sh(fMer, dj=1) - fMer))
+             * grid.maskW)
+    del2u = del2u - (
+        grid.recip_hFacW * recip_drF * grid.recip_rAw
+        * ((grid.hFacW - hFacZ) * grid.dxV * grid.recip_dyU
+           + (grid.hFacW - sh(hFacZ, dj=1)) * sh(grid.dxV, dj=1)
+           * sh(grid.recip_dyU, dj=1))
+        * drF * 2.0 * u * closed) * grid.maskW
+    fZonV = drF * hFacZ * grid.dyU * grid.recip_dxV * (v - sh(v, di=-1))
+    fMerV = (drF * grid.hFacC * grid.dxF * grid.recip_dyF
+             * (sh(v, dj=1) - v))
+    del2v = (grid.recip_hFacS * recip_drF * grid.recip_rAs
+             * ((sh(fZonV, di=1) - fZonV) + (fMerV - sh(fMerV, dj=-1)))
+             * grid.maskS)
+    del2v = del2v - (
+        grid.recip_hFacS * recip_drF * grid.recip_rAs
+        * ((grid.hFacS - hFacZ) * grid.dyU * grid.recip_dxV
+           + (grid.hFacS - sh(hFacZ, di=1)) * sh(grid.dyU, di=1)
+           * sh(grid.recip_dxV, di=1))
+        * drF * 2.0 * v * closed) * grid.maskS
+    return del2u, del2v

@@ -1,19 +1,29 @@
 """Vector-invariant momentum tendencies (mitgcm_tpu/model/mom_vecinv.py:
 mom_vecinv, :210-451; reference pkg/mom_vecinv/mom_vecinv.F) on Cartesian
-grids with constant harmonic viscosity:
+grids:
 
   gU = planetary Coriolis (selectCoriScheme 0-1) + vorticity advection
        (selectVortScheme 0-2, None meaning 1) - w du/dz - grad KE
-  guDiss = divergence/vorticity-form harmonic dissipation + the explicit
-       vertical viscous flux (left out under implicitViscosity) + no-slip
-       side drag + no-slip and linear bottom drag
+  guDiss = the harmonic dissipation in divergence/vorticity form, with
+       constant viscosity or model/mom_visc.py's variable viscosity
+       (kernel X) multiplying D and Z before the differencing, plus the
+       biharmonic term from the divergence and vorticity of the Laplacian
+       (kernel Y, `del2uv_plain`), or the strain-tension form
+       (useStrainTensionVisc, harmonic only); + the explicit vertical
+       viscous flux (left out under implicitViscosity) + no-slip side drag
+       + no-slip, linear and quadratic bottom drag
 
 `mom_vecinv` runs kernel V (kernels/csrc/mom_vecinv.cu) for CUDA tensors
-and the plain PyTorch twin `_mom_vecinv_plain` for CPU tensors or when
-impl="plain" is asked for. Kernel V has no backward kernel yet: the
-wrapper raises if an input requires grad. The kernel writes zero halo
-cells; the twin's halo cells are the JAX code's garbage-by-design values.
-Both agree on the interior.
+(the vi-gyre's constant harmonic viscosity in its first variants, the rest
+in its dissipation variant, `uses_visc_variant`) and the plain PyTorch twin
+`_mom_vecinv_plain` for CPU tensors or when impl="plain" is asked for.
+Kernel V has no backward kernel yet: the wrapper raises if an input
+requires grad. The kernel writes zero halo cells; the twin's halo cells
+are the JAX code's garbage-by-design values. Both agree on the interior.
+
+The JAX code's bottom drag has no quadratic term (mom_vecinv.py:373-400):
+MITgcm's mom_vecinv applies it as its flux form does, and so does the port,
+with the flux form's formula (mom_fluxform.py:quadratic_drag).
 """
 
 from __future__ import annotations
@@ -23,16 +33,35 @@ import torch
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.core.grid import Grid
-from mitgcm_tpu_torch.model.mom_fluxform import (MomTend, calc_hfacz, calc_ke,
-                                                 variable_viscosity)
+from mitgcm_tpu_torch.model import mom_visc
+from mitgcm_tpu_torch.model.mom_fluxform import (MomTend, _east, _north,
+                                                 calc_hfacz, calc_ke,
+                                                 drag_params, quadratic_drag)
 from mitgcm_tpu_torch.ops.stencil import shift as sh
 from mitgcm_tpu_torch.ops.stencil import shift_k
 
 _EPS = 1.0e-9   # wet-point average guard of schemes 1 (mom_vi_*coriolis.F)
 
 
+def uses_visc_variant(cfg: Config) -> bool:
+    """Whether cfg runs kernel V's dissipation variant: variable or
+    biharmonic viscosity, the strain-tension form, or selectBotDragQuadr
+    set (the quadratic drag, or the drag block that it turns on)."""
+    return (mom_visc.use_variable_visc(cfg)
+            or mom_visc.use_biharmonic_visc(cfg)
+            or cfg.useStrainTensionVisc or cfg.selectBotDragQuadr >= 0)
+
+
 def check_branches_vecinv(cfg: Config) -> None:
-    """Raise unless cfg selects exactly the branches ported here."""
+    """Raise unless cfg selects exactly the branches ported here; refuse
+    by name what the JAX code computes wrongly or not at all: under
+    constant viscosity its divergence/vorticity form takes viscAh and
+    viscA4 for both points and ignores viscAhD/Z and viscA4D/Z
+    (mom_vecinv.py:296-321), it raises on biharmonic viscosity with the
+    strain-tension form (:257-260), drops quadratic drag other than
+    selectBotDragQuadr 0, and LeithQG is a no-op there."""
+    const = not mom_visc.use_variable_visc(cfg)
+    vort_div = const and not cfg.useStrainTensionVisc
     off = {
         "momAdvection=F": not cfg.momAdvection,
         "momViscosity=F": not cfg.momViscosity,
@@ -44,17 +73,18 @@ def check_branches_vecinv(cfg: Config) -> None:
         "useAbsVorticity": cfg.useAbsVorticity,
         "upwindVorticity": cfg.upwindVorticity,
         "highOrderVorticity": cfg.highOrderVorticity,
-        "useStrainTensionVisc": cfg.useStrainTensionVisc,
-        "biharmonic viscosity (del2uv)": (cfg.viscA4 != 0.0
-                                          or cfg.viscA4D != 0.0
-                                          or cfg.viscA4Z != 0.0),
-        "variable viscosity (mom_visc)": variable_viscosity(cfg),
-        # the JAX constant-viscosity branch uses viscAh for both and
-        # ignores these (a known fault of the reference): refuse them
-        # rather than copy it silently
-        "viscAhD!=viscAh": cfg.viscAhD != cfg.viscAh,
-        "viscAhZ!=viscAh": cfg.viscAhZ != cfg.viscAh,
-        "quadratic bottom drag": cfg.selectBotDragQuadr >= 0,
+        "biharmonic viscosity with useStrainTensionVisc": (
+            cfg.useStrainTensionVisc and mom_visc.use_biharmonic_visc(cfg)),
+        **mom_visc.refusals(cfg),
+        # the JAX constant-viscosity branch uses viscAh and viscA4 for
+        # both points and ignores these (a known fault of the reference):
+        # refuse them rather than copy it silently
+        "viscAhD!=viscAh": vort_div and cfg.viscAhD != cfg.viscAh,
+        "viscAhZ!=viscAh": vort_div and cfg.viscAhZ != cfg.viscAh,
+        "viscA4D!=viscA4": const and cfg.viscA4D != cfg.viscA4,
+        "viscA4Z!=viscA4": const and cfg.viscA4Z != cfg.viscA4,
+        f"selectBotDragQuadr={cfg.selectBotDragQuadr}":
+            cfg.selectBotDragQuadr not in (-1, 0),
         "useCDscheme": cfg.useCDscheme,
         "rigidLid": cfg.rigidLid,
         "select_rStar": cfg.select_rStar != 0,
@@ -88,6 +118,26 @@ def calc_hdiv(grid: Grid, u, v):
     vT = v * grid.dxG * grid.hFacS
     return ((sh(uT, di=1) - uT) + (sh(vT, dj=1) - vT)) \
         * grid.recip_rA * grid.recip_hFacC
+
+
+def del2uv_plain(cfg: Config, grid: Grid, u, v):
+    """Kernel Y's vector-invariant twin: the Laplacian of (u, v) from the
+    divergence and hFacZ times the vorticity (with sideMaskFac at closed
+    corners), mom_vecinv.py:454-480 on a Cartesian grid
+    (mom_vi_del2uv.F)."""
+    hFacZ = calc_hfacz(grid)
+    vort3 = calc_relvort3(grid, u, v)
+    vort3 = torch.where(hFacZ == 0.0, mom_visc.side_mask_fac(cfg) * vort3,
+                        vort3)
+    hDiv = calc_hdiv(grid, u, v)
+    hv = hFacZ * vort3
+    d2u = ((hDiv - sh(hDiv, di=-1)) * grid.recip_dxC
+           - grid.recip_hFacW * (sh(hv, dj=1) - hv) * grid.recip_dyG
+           ) * grid.maskW
+    d2v = ((hDiv - sh(hDiv, dj=-1)) * grid.recip_dyC
+           + grid.recip_hFacS * (sh(hv, di=1) - hv) * grid.recip_dxG
+           ) * grid.maskS
+    return d2u, d2v
 
 
 def _vort_coriolis_u(grid: Grid, scheme: int, v, omega3, hFacZ, r_hFacZ):
@@ -171,10 +221,13 @@ def _planetary_coriolis(cfg: Config, grid: Grid, u, v):
 
 
 def _mom_vecinv_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
-                      kappaRV) -> MomTend:
+                      kappaRV, visc=None, del2=None) -> MomTend:
     """mom_vecinv.py:210-451 on the ported branches, in its operation
-    order. The side drag's biharmonic term, an exact `- 0 * 0` while
-    biharmonic viscosity is refused, is left out."""
+    order, with the flux form's quadratic bottom drag. The side drag's
+    biharmonic term, an exact `- 0 * 0` without biharmonic viscosity, is
+    left out. Under kernel V's dissipation variant the viscosities are X's
+    twin's (or `visc`, as mom_vecinv_visc takes them) and the Laplacian
+    Y's twin's, `del2uv_plain` (or `del2`)."""
     nr = cfg.nr
     drF = grid.drF[:, None, None]
     recip_drF = grid.recip_drF[:, None, None]
@@ -185,19 +238,78 @@ def _mom_vecinv_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
     KE = calc_ke(u, v)
     vort3 = calc_relvort3(grid, u, v)
     vort3 = torch.where(hFacZ == 0.0, cfg.sideDragFactor * vort3, vort3)
-
-    # harmonic dissipation in divergence/vorticity form (:293-308)
+    use_var = mom_visc.use_variable_visc(cfg)
+    use_bih = mom_visc.use_biharmonic_visc(cfg)
+    if uses_visc_variant(cfg) and visc is None and del2 is None:
+        visc, del2 = mom_visc.fields(cfg, grid, u, v, impl="plain")
     hDiv = calc_hdiv(grid, u, v)
-    AhD = AhZ = cfg.viscAh
-    Z = hFacZ * vort3
-    uD2 = (AhD * grid.cosFacU * (hDiv - sh(hDiv, di=-1)) * grid.recip_dxC
-           - AhZ * grid.recip_hFacW * (sh(Z, dj=1) - Z) * grid.recip_dyG
-           * grid.cosFacU)
-    vD2 = (AhZ * grid.recip_hFacS * grid.cosFacV * (sh(Z, di=1) - Z)
-           * grid.recip_dxG
-           + AhD * (hDiv - sh(hDiv, dj=-1)) * grid.recip_dyC * grid.cosFacV)
-    guDiss = uD2 * grid.maskW
-    gvDiss = vD2 * grid.maskS
+    d2u, d2v = del2 if del2 is not None else (None, None)
+
+    if cfg.useStrainTensionVisc:
+        # the strain-tension form (:255-266): the strain 0 at closed
+        # corners
+        tension = mom_visc.calc_tension(grid, u, v)
+        strain = mom_visc.calc_strain(grid, u, v)
+        strain0 = torch.where(hFacZ == 0.0, 0.0, strain)
+        vs, vt = (visc[0], visc[1]) if use_var else (cfg.viscAhZ,
+                                                     cfg.viscAhD)
+        uD2, vD2 = mom_visc.hdissip_strain_tension_plain(
+            grid, tension, strain0, vs, vt)
+        guDiss = uD2 * grid.maskW
+        gvDiss = vD2 * grid.maskS
+    elif use_var:
+        # the viscosity multiplies D and Z before the differencing
+        # (:267-280), the biharmonic term after (:281-293)
+        vAhZ, vAhD, vA4Z, vA4D = visc
+        Dv = hDiv * vAhD
+        Z = hFacZ * vort3 * vAhZ
+        uD2 = (grid.cosFacU * (Dv - sh(Dv, di=-1)) * grid.recip_dxC
+               - grid.recip_hFacW * (sh(Z, dj=1) - Z) * grid.recip_dyG
+               * grid.cosFacU)
+        vD2 = (grid.recip_hFacS * grid.cosFacV * (sh(Z, di=1) - Z)
+               * grid.recip_dxG
+               + (Dv - sh(Dv, dj=-1)) * grid.recip_dyC * grid.cosFacV)
+        guDiss = uD2 * grid.maskW
+        gvDiss = vD2 * grid.maskS
+        if use_bih:
+            D4 = calc_hdiv(grid, d2u, d2v) * vA4D
+            hz4 = hFacZ * calc_relvort3(grid, d2u, d2v) * vA4Z
+            uD4 = (grid.cosFacU * (D4 - sh(D4, di=-1)) * grid.recip_dxC
+                   - grid.recip_hFacW * (sh(hz4, dj=1) - hz4)
+                   * grid.recip_dyG)
+            vD4 = (grid.recip_hFacS * grid.cosFacV * (sh(hz4, di=1) - hz4)
+                   * grid.recip_dxG
+                   + (D4 - sh(D4, dj=-1)) * grid.recip_dyC)
+            guDiss = guDiss - uD4 * grid.maskW
+            gvDiss = gvDiss - vD4 * grid.maskS
+    else:
+        # harmonic dissipation in divergence/vorticity form (:293-308)
+        AhD = AhZ = cfg.viscAh
+        Z = hFacZ * vort3
+        uD2 = (AhD * grid.cosFacU * (hDiv - sh(hDiv, di=-1))
+               * grid.recip_dxC
+               - AhZ * grid.recip_hFacW * (sh(Z, dj=1) - Z)
+               * grid.recip_dyG * grid.cosFacU)
+        vD2 = (AhZ * grid.recip_hFacS * grid.cosFacV * (sh(Z, di=1) - Z)
+               * grid.recip_dxG
+               + AhD * (hDiv - sh(hDiv, dj=-1)) * grid.recip_dyC
+               * grid.cosFacV)
+        guDiss = uD2 * grid.maskW
+        gvDiss = vD2 * grid.maskS
+        if use_bih:
+            # constant-viscosity biharmonic (:309-321)
+            A4 = cfg.viscA4
+            dStar = calc_hdiv(grid, d2u, d2v)
+            hz4 = hFacZ * calc_relvort3(grid, d2u, d2v)
+            uD4 = (A4 * grid.cosFacU * (dStar - sh(dStar, di=-1))
+                   * grid.recip_dxC
+                   - A4 * grid.recip_hFacW * (sh(hz4, dj=1) - hz4)
+                   * grid.recip_dyG)
+            vD4 = (A4 * grid.recip_hFacS * grid.cosFacV
+                   * (sh(hz4, di=1) - hz4) * grid.recip_dxG
+                   + A4 * (dStar - sh(dStar, dj=-1)) * grid.recip_dyC)
+            guDiss = guDiss - uD4 * grid.maskW
+            gvDiss = gvDiss - vD4 * grid.maskS
 
     # explicit vertical viscous flux (:323-340)
     if not cfg.implicitViscosity:
@@ -214,24 +326,34 @@ def _mom_vecinv_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
         gvDiss = gvDiss - (grid.recip_hFacS * recip_drF * grid.recip_rAs
                            * (rViscV[1:] - rViscV[:-1]) * rkSign)
 
-    # no-slip side drag (:342-371)
-    Ahu = AhZ * u
+    # no-slip side drag (:342-371): viscAh_Z and viscA4_Z at each closed
+    # wall's vorticity point (the constants without variable viscosity)
+    sAhZ = visc[0] if use_var else cfg.viscAhZ
+    Ahu, AhuN = sAhZ * u, _north(sAhZ) * u
+    Ahv = sAhZ * v * grid.cosFacV
+    AhvE = _east(sAhZ) * v * grid.cosFacV
+    if del2 is not None:
+        sA4Z = visc[2] if use_var else cfg.viscA4Z
+        Ahu = Ahu - sA4Z * d2u
+        AhuN = AhuN - _north(sA4Z) * d2u
+        Ahv = Ahv - sA4Z * d2v
+        AhvE = AhvE - _east(sA4Z) * d2v
     guDiss = guDiss - (
         grid.recip_hFacW * recip_drF * grid.recip_rAw
         * ((grid.hFacW - hFacZ) * grid.dxV * grid.recip_dyU * Ahu
            + (grid.hFacW - sh(hFacZ, dj=1)) * sh(grid.dxV, dj=1)
-           * sh(grid.recip_dyU, dj=1) * Ahu)
+           * sh(grid.recip_dyU, dj=1) * AhuN)
         * drF * cfg.sideDragFactor) * grid.maskW
-    Ahv = AhZ * v * grid.cosFacV
     gvDiss = gvDiss - (
         grid.recip_hFacS * recip_drF * grid.recip_rAs
         * ((grid.hFacS - hFacZ) * grid.dyU * grid.recip_dxV * Ahv
            + (grid.hFacS - sh(hFacZ, di=1)) * sh(grid.dyU, di=1)
-           * sh(grid.recip_dxV, di=1) * Ahv)
+           * sh(grid.recip_dxV, di=1) * AhvE)
         * drF * cfg.sideDragFactor) * grid.maskS
 
-    # no-slip and linear bottom drag (:373-400)
-    if cfg.no_slip_bottom or cfg.bottomDragLinear != 0.0:
+    # no-slip, linear and quadratic bottom drag (:373-400)
+    drag, cd = drag_params(cfg)
+    if drag:
         karr = torch.arange(nr, device=u.device)[:, None, None]
         cDragU = torch.full_like(u, cfg.bottomDragLinear)
         cDragV = torch.full_like(v, cfg.bottomDragLinear)
@@ -240,6 +362,8 @@ def _mom_vecinv_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
                                grid.recip_drF[nr - 1:nr]])[:, None, None]
             cDragU = cDragU + kappaRU[1:nr + 1] * recDr * 2.0
             cDragV = cDragV + kappaRV[1:nr + 1] * recDr * 2.0
+        if cd != 0.0:
+            cDragU, cDragV = quadratic_drag(cd, KE, cDragU, cDragV)
         one = torch.ones_like(u[:1])
         bottomW = grid.maskW * torch.where(
             karr == nr - 1, 1.0, 1.0 - torch.cat([grid.maskW[1:], one]))
@@ -304,6 +428,29 @@ def _kernel_inputs(grid: Grid, u, v, w, kappaRU, kappaRV) -> dict:
                 **{n: getattr(grid, n) for n in _GRID2 + _GRID1})
 
 
+def _check(ins: dict, out: MomTend) -> None:
+    u = ins["u"]
+    nr, nyp, nxp = u.shape
+    kernels.check_tensors(u.dtype, **ins, **out._asdict())
+    for name in ("u", "v", "w") + _GRID3:
+        kernels.check_shape(name, ins[name], u.shape)
+    for name in ("kappaRU", "kappaRV"):
+        kernels.check_shape(name, ins[name], (nr + 1, nyp, nxp))
+    for name in _GRID2:
+        kernels.check_shape(name, ins[name], (nyp, nxp))
+    for name, n in (("drF", nr), ("recip_drF", nr), ("recip_drC", nr + 1)):
+        kernels.check_shape(name, ins[name], (n,))
+
+
+def _args(cfg: Config, u) -> tuple:
+    """Kernel V's arguments after its pointer table."""
+    nr, nyp, nxp = u.shape
+    return (nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly, cfg.olx,
+            vort_scheme(cfg), cfg.selectCoriScheme,
+            int(cfg.implicitViscosity), int(cfg.no_slip_bottom), cfg.viscAh,
+            cfg.sideDragFactor, cfg.bottomDragLinear, cfg.rkSign)
+
+
 def mom_vecinv(cfg: Config, grid: Grid, u, v, w, kappaRU, kappaRV,
                impl: str = None) -> MomTend:
     """gU/gV (Coriolis, vorticity, shear and KE terms) and guDiss/gvDiss
@@ -317,22 +464,49 @@ def mom_vecinv(cfg: Config, grid: Grid, u, v, w, kappaRU, kappaRV,
                          "no backward kernel yet")
     if not kernels.use_kernel(u, impl):
         return _mom_vecinv_plain(cfg, grid, u, v, w, kappaRU, kappaRV)
-    nr, nyp, nxp = u.shape
+    if uses_visc_variant(cfg):
+        return mom_vecinv_visc(cfg, grid, u, v, w, kappaRU, kappaRV,
+                               *mom_visc.fields(cfg, grid, u, v))
     out = MomTend(*(torch.empty_like(u) for _ in range(4)))
-    kernels.check_tensors(u.dtype, **ins, **out._asdict())
-    for name in ("u", "v", "w") + _GRID3:
-        kernels.check_shape(name, ins[name], u.shape)
-    for name in ("kappaRU", "kappaRV"):
-        kernels.check_shape(name, ins[name], (nr + 1, nyp, nxp))
-    for name in _GRID2:
-        kernels.check_shape(name, ins[name], (nyp, nxp))
-    for name, n in (("drF", nr), ("recip_drF", nr), ("recip_drC", nr + 1)):
-        kernels.check_shape(name, ins[name], (n,))
+    _check(ins, out)
     table = [*ins.values(), *out]
     kernels.launch("mom_vecinv", u.dtype, kernels.pointer_table(table),
-                   len(table), nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx,
-                   cfg.oly, cfg.olx, vort_scheme(cfg), cfg.selectCoriScheme,
-                   int(cfg.implicitViscosity), int(cfg.no_slip_bottom),
-                   cfg.viscAh, cfg.sideDragFactor, cfg.bottomDragLinear,
-                   cfg.rkSign)
+                   len(table), *_args(cfg, u))
+    return out
+
+
+def mom_vecinv_visc(cfg: Config, grid: Grid, u, v, w, kappaRU, kappaRV,
+                    visc, del2, impl: str = None) -> MomTend:
+    """Kernel V's dissipation variant (kernel entry mom_vecinv_visc) on X's
+    viscosities `visc` (viscAh_Z, viscAh_D, viscA4_Z, viscA4_D; None:
+    cfg's constants) and Y's Laplacian `del2` (d2u, d2v; None: no
+    biharmonic viscosity), or its twin on CPU tensors or with
+    impl="plain"."""
+    ins = _kernel_inputs(grid, u, v, w, kappaRU, kappaRV)
+    vt = mom_visc.field_table(visc, del2)
+    grads = [n for n, t in {**ins, **vt}.items()
+             if t is not None and t.requires_grad]
+    if grads:
+        raise ValueError(f"mom_vecinv: {grads} require grad; kernel V has "
+                         "no backward kernel yet")
+    if not kernels.use_kernel(u, impl):
+        return _mom_vecinv_plain(cfg, grid, u, v, w, kappaRU, kappaRV,
+                                 visc=visc, del2=del2)
+    out = MomTend(*(torch.empty_like(u) for _ in range(4)))
+    _check(ins, out)
+    given = {n: t for n, t in vt.items() if t is not None}
+    kernels.check_fields(u.dtype, u.shape, **given)
+    st = bool(cfg.useStrainTensionVisc)
+    if st:
+        kernels.check_fields(u.dtype, tuple(u.shape[1:]), dyF=grid.dyF,
+                             dxF=grid.dxF)
+    drag, cd = drag_params(cfg)
+    table = [*ins.values(), *out]
+    vtab = list(vt.values()) + ([grid.dyF, grid.dxF] if st
+                                else [None, None])
+    params = [cfg.viscAhD, cfg.viscAhZ, cfg.viscA4, cfg.viscA4Z, cd]
+    kernels.launch("mom_vecinv_visc", u.dtype, kernels.pointer_table(table),
+                   len(table), *_args(cfg, u), kernels.pointer_table(vtab),
+                   len(vtab), kernels.doubles(params), len(params), int(st),
+                   int(drag))
     return out

@@ -3,8 +3,10 @@ configurations for the entry point, the card smoke run and the tests: the
 gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its variants, the
 os7mp-gyre and the pqm-gyre (high-order advection), the idemix-gyre (IDEMIX
 and Langmuir in GGL90), the som-gyre (second-order-moment tracers), the
-ice-gyre (the kpp-gyre under a sea-ice cover) and the gm- and
-gm-bolus-gyre (the kpp-gyre with GM-Redi and a temperature front); and
+ice-gyre (the kpp-gyre under a sea-ice cover), the gm- and
+gm-bolus-gyre (the kpp-gyre with GM-Redi and a temperature front), and
+the visc-gyre, visc-vi-gyre and st-vi-gyre (variable and biharmonic
+viscosity, the strain-tension form, quadratic bottom drag); and
 the nh-convection box, a
 rotating, surface-cooled non-hydrostatic convection box. The set-ups put
 their tensors on the CUDA device unless device="cpu" is asked for, and take
@@ -69,6 +71,47 @@ def vi_gyre_config(nx=64, ny=64, nr=4, deltaT=1200.0, n_steps=10,
               beta_AB=5.0 / 12.0)
     return gyre_config(nx=nx, ny=ny, nr=nr, deltaT=deltaT, n_steps=n_steps,
                        **{**vi, **kw})
+
+
+# the variable and biharmonic viscosity of visc_gyre_config and
+# visc_vi_gyre_config: Smagorinsky's harmonic viscosity, Leith's harmonic
+# and biharmonic ones on vorticity and divergence, capped by the grid
+# limits (a share of the CFL limits L^2/(4 dt) and L^4/(32 dt)) and floored
+# by the grid-Reynolds limits, in the ranges MITgcm's documentation gives
+_VISC = dict(viscC2smag=2.2, viscC2leith=1.85, viscC2leithD=1.85,
+             viscC4leith=2.0, viscC4leithD=2.0, viscAhGridMax=1.0,
+             viscA4GridMax=0.8, viscAhReMax=10.0, viscA4ReMax=10.0)
+
+
+def visc_gyre_config(nx=64, ny=64, nr=4, **kw) -> Config:
+    """The gyre (flux-form momentum) with variable and biharmonic viscosity
+    (_VISC) and quadratic bottom drag (bottomDragQuadratic 2.5e-3,
+    selectBotDragQuadr 0), on halos of 4: the Leith viscosity's gradient of
+    the vorticity reaches three cells from u (the "visc-gyre"). Set up by
+    gyre_setup."""
+    vs = dict(olx=4, oly=4, bottomDragQuadratic=2.5e-3,
+              selectBotDragQuadr=0, **_VISC)
+    return gyre_config(nx=nx, ny=ny, nr=nr, **{**vs, **kw})
+
+
+def visc_vi_gyre_config(nx=64, ny=64, nr=4, **kw) -> Config:
+    """The vi-gyre with the visc-gyre's viscosities under the full Leith
+    form (useFullLeith), on halos of 4, selectBotDragQuadr 0 with no
+    quadratic coefficient (the "visc-vi-gyre"). Set up by gyre_setup."""
+    vs = dict(olx=4, oly=4, selectBotDragQuadr=0, useFullLeith=True,
+              **_VISC)
+    return vi_gyre_config(nx=nx, ny=ny, nr=nr, **{**vs, **kw})
+
+
+def st_vi_gyre_config(nx=64, ny=64, nr=4, **kw) -> Config:
+    """The vi-gyre with the strain-tension form of the harmonic
+    dissipation (useStrainTensionVisc) and a Smagorinsky viscosity capped
+    by the grid limit, no biharmonic viscosity, on halos of 4,
+    selectBotDragQuadr 0 with no quadratic coefficient (the
+    "st-vi-gyre"). Set up by gyre_setup."""
+    st = dict(olx=4, oly=4, selectBotDragQuadr=0, useStrainTensionVisc=True,
+              viscC2smag=2.2, viscAhGridMax=1.0)
+    return vi_gyre_config(nx=nx, ny=ny, nr=nr, **{**st, **kw})
 
 
 def kpp_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, stretch=1.15,

@@ -18,7 +18,9 @@
 // launch_cg2d_rhs_adj and launch_continuity_adj of step_scans_adj.cuh,
 // launch_mom_ab_step_adj, launch_mom_correction_adj and
 // launch_tracer_step_adj of step_glue_adj.cuh, launch_adv_flow_adj of
-// adv_flow.cuh, launch_eos_linear_adj of eos.cuh), for
+// adv_flow.cuh, launch_eos_linear_adj of eos.cuh), and X and Y
+// (launch_calc_visc and launch_del2uv of mom_visc.cuh) with B's and V's
+// dissipation variants (launch_mom_visc, launch_vecinv_visc), for
 // tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "adv_flow.cuh"
@@ -38,6 +40,7 @@
 #include "mom_fluxform_adj_tile.cuh"
 #include "mom_fluxform_tile.cuh"
 #include "mom_vecinv_tile.cuh"
+#include "mom_visc.cuh"
 #include "phihyd_adj.cuh"
 #include "phihyd_tile.cuh"
 #include "pre_cg3d.cuh"
@@ -362,8 +365,48 @@ struct OnHost {
                                          flags, OnHost{});                   \
   }
 
+// X, Y and B's and V's dissipation variants, with their entry points'
+// arguments but the stream
+#define HOST_VISC_ENTRY_POINTS(T, SUF)                                       \
+  extern "C" int host_mom_calc_visc_##SUF(                                   \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int smag, int leith, int re, int bih) {              \
+    return launch_calc_visc<T>(table, n, params, np, nr, nyp, nxp, smag,     \
+                               leith, re, bih, OnHost{});                    \
+  }                                                                          \
+  extern "C" int host_mom_del2uv_##SUF(const void* const* table, int n,      \
+                                       int nr, int nyp, int nxp, int vi,     \
+                                       double param) {                       \
+    return launch_del2uv<T>(table, n, nr, nyp, nxp, vi, param, OnHost{});    \
+  }                                                                          \
+  extern "C" int host_mom_fluxform_visc_##SUF(                               \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,      \
+      int olx, int no_slip_sides, int coriolis_3d, double viscAhD,           \
+      double viscAhZ, double sideDragFactor, double rkSign,                  \
+      double gravitySign, const void* const* vtable, int nv,                 \
+      const double* params, int np, int no_slip_bottom, int drag) {          \
+    return launch_mom_visc<T>(table, n, nr, ny, nx, oly, olx, no_slip_sides, \
+                              coriolis_3d, viscAhD, viscAhZ, sideDragFactor, \
+                              rkSign, gravitySign, vtable, nv, params, np,   \
+                              no_slip_bottom, drag, OnHost{});               \
+  }                                                                          \
+  extern "C" int host_mom_vecinv_visc_##SUF(                                 \
+      const void* const* table, int n, int nr, int ny, int nx, int oly,      \
+      int olx, int vortScheme, int coriScheme, int implicitViscosity,        \
+      int noSlipBottom, double viscAh, double sideDragFactor,                \
+      double bottomDragLinear, double rkSign, const void* const* vtable,     \
+      int nv, const double* params, int np, int strainTension, int drag) {   \
+    return launch_vecinv_visc<T>(                                            \
+        table, n, nr, ny, nx, oly, olx, vortScheme, coriScheme,              \
+        implicitViscosity, noSlipBottom, viscAh, sideDragFactor,             \
+        bottomDragLinear, rkSign, vtable, nv, params, np, strainTension,     \
+        drag, OnHost{});                                                     \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
+HOST_VISC_ENTRY_POINTS(float, f32)
+HOST_VISC_ENTRY_POINTS(double, f64)
 HOST_CG3D_ENTRY_POINTS(float, f32)
 HOST_CG3D_ENTRY_POINTS(double, f64)
 HOST_ADVECTION_ENTRY_POINTS(float, f32)

@@ -236,12 +236,15 @@ def test_chip_smoke_refuses_without_gpu(where, tmp_path):
 @pytest.mark.parametrize("settings", [
     dict(eosType="TEOS10"), dict(vectorInvariantMomentum=True, viscAhZ=1e2),
     dict(nonlinFreeSurf=4), dict(implicitViscosity=True), dict(useKPP=True),
-    dict(vectorInvariantMomentum=True, viscC2smag=2.0), dict(viscA4=1.0e9),
+    dict(vectorInvariantMomentum=True, viscC2LeithQG=1.0),
+    dict(useStrainTensionVisc=True),
     dict(tempAdvScheme=33, multiDimAdvection=False),
     dict(usingSphericalPolarGrid=True)])
 def test_check_supported_raises(settings):
     """implicitViscosity is ported under vector-invariant momentum only,
-    scheme 33 under the multi-dimensional advection only."""
+    scheme 33 under the multi-dimensional advection only, the
+    strain-tension form under vector-invariant momentum only; LeithQG,
+    which the JAX package leaves without effect, nowhere."""
     cfg = synthetic.gyre_config(nx=8, ny=8, nr=2)
     check_supported(cfg)
     for flag, value in settings.items():

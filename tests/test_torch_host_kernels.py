@@ -106,6 +106,15 @@ SIGNATURES = {
                                _I] + [_I] * 3,
     "host_seaice_ocean_stress": [_PP, _I, ctypes.POINTER(ctypes.c_double),
                                  _I] + [_I] * 4,
+    # X, Y and B's and V's dissipation variants, with their entry points'
+    # arguments but the stream
+    "host_mom_calc_visc": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 7,
+    "host_mom_del2uv": [_PP, _I] + [_I] * 4 + [_D],
+    "host_mom_fluxform_visc": [_PP, _I] + [_I] * 7 + [_D] * 5
+    + [_PP, _I, ctypes.POINTER(ctypes.c_double), _I, _I, _I],
+    "host_mom_vecinv_visc": [_PP, _I] + [_I] * 9 + [_D] * 4
+    + [_PP, _I, ctypes.POINTER(ctypes.c_double), _I, _I, _I],
 }
 
 
@@ -127,6 +136,19 @@ def lib(tmp_path_factory):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def config_ns(**settings):
+    """A stand-in configuration: Config's defaults (the switches that the
+    momentum twins read, variable and biharmonic viscosity and the drags
+    off, no-slip bottom; viscA4D and viscA4Z as finalize derives them from
+    viscA4 0) with `settings`."""
+    from mitgcm_tpu_torch.core.config import Config
+
+    base = {f.name: f.default for f in dataclasses.fields(Config)
+            if f.default is not dataclasses.MISSING}
+    return SimpleNamespace(**{**base, "viscA4D": 0.0, "viscA4Z": 0.0,
+                              **settings})
 
 
 def table(tensors):
@@ -201,10 +223,10 @@ def check(got, want, label):
                                             (False, False), (False, True)])
 def test_mom_fluxform_tile(lib, ny, nx, dtype, no_slip, cori3d):
     f = Fields(DTYPES[dtype], 10 + 2 * no_slip + cori3d, ny, nx)
-    cfg = SimpleNamespace(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
-                          gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
-                          sideDragFactor=2.0, no_slip_sides=no_slip,
-                          select3dCoriScheme=int(cori3d))
+    cfg = config_ns(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
+                    gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
+                    sideDragFactor=2.0, no_slip_sides=no_slip,
+                    select3dCoriScheme=int(cori3d))
     g = f.grid
     u = f.normal(f.s3, 0.1) * g.maskW
     v = f.normal(f.s3, 0.1) * g.maskS
@@ -249,10 +271,10 @@ def close(got, want, label):
 def mom_adj_case(f):
     """As mom_case, for kernel B' (its outputs u_bar, v_bar, w_bar)."""
     ny, nx = f.s3[1] - 2 * OL, f.s3[2] - 2 * OL
-    cfg = SimpleNamespace(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
-                          gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
-                          sideDragFactor=2.0, no_slip_sides=True,
-                          select3dCoriScheme=0)
+    cfg = config_ns(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
+                    gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
+                    sideDragFactor=2.0, no_slip_sides=True,
+                    select3dCoriScheme=0)
     g = f.grid
     u = f.normal(f.s3, 0.1) * g.maskW
     v = f.normal(f.s3, 0.1) * g.maskS
@@ -447,10 +469,10 @@ def mom_case(f, no_slip, cori3d):
     """(twin's outputs, inputs by name, launch arguments, run(inputs) ->
     outputs) of kernel B on f's grid."""
     ny, nx = f.s3[1] - 2 * OL, f.s3[2] - 2 * OL
-    cfg = SimpleNamespace(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
-                          gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
-                          sideDragFactor=2.0, no_slip_sides=no_slip,
-                          select3dCoriScheme=int(cori3d))
+    cfg = config_ns(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
+                    gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
+                    sideDragFactor=2.0, no_slip_sides=no_slip,
+                    select3dCoriScheme=int(cori3d))
     g = f.grid
     u = f.normal(f.s3, 0.1) * g.maskW
     v = f.normal(f.s3, 0.1) * g.maskS
@@ -1316,10 +1338,11 @@ def vecinv_case(f, vort, cori, implicit, drag):
     g = f.grid
     g.recip_rAz = 1.0 / f.uniform(f.s3[1:], 0.5, 2.0)
     g.fCoriG = f.uniform(f.s3[1:], -1.5, 1.5)
-    cfg = SimpleNamespace(nr=f.s3[0], rkSign=-1.0, viscAh=430.0,
-                          sideDragFactor=2.0, implicitViscosity=implicit,
-                          no_slip_bottom=no_slip, bottomDragLinear=linear,
-                          selectVortScheme=vort, selectCoriScheme=cori)
+    cfg = config_ns(nr=f.s3[0], rkSign=-1.0, viscAh=430.0, viscAhD=430.0,
+                    viscAhZ=430.0, sideDragFactor=2.0,
+                    implicitViscosity=implicit, no_slip_bottom=no_slip,
+                    bottomDragLinear=linear, selectVortScheme=vort,
+                    selectCoriScheme=cori)
     u = f.normal(f.s3, 0.1) * g.maskW
     v = f.normal(f.s3, 0.1) * g.maskS
     w = f.normal(f.s3, 1e-2) * g.maskC
@@ -2969,3 +2992,246 @@ def test_last_glue_launches_refuse(lib):
                                             nxp, 1, 0) == 1
     assert lib.host_seaice_ocean_stress_f64(tab(21), 21, d, 7, nyp, nxp, 3,
                                             0) == 1
+
+
+# ---------------------------------------------------------------------------
+# Kernels X (mom_calc_visc) and Y (mom_del2uv) and B's and V's dissipation
+# variants (mom_fluxform_visc, mom_vecinv_visc, mom_visc.cuh and the tile
+# headers): each wrapper's kernel path on the mock (`on_mock`) against the
+# same wrapper with impl="plain", X and Y on every padded cell (NaN in the
+# same cells), B and V on the interior with zero halo outputs, float64 and
+# float32 on both SIZES grids with halos of 4, the twins' sqrt numpy's
+# (correctly rounded, as the kernels'). The random grid's land and partial
+# cells close corners, where the vorticity and strain take sideMaskFac; the
+# configuration's viscAh is 0 and its time step 5 s, so that on the random
+# grid's unit metrics the nonlinear viscosities, the grid caps and the
+# Reynolds floors are all of one size and each limit binds somewhere.
+# ---------------------------------------------------------------------------
+VOL = 4
+VISC_OFF = dict(viscC2smag=0.0, viscC2leith=0.0, viscC2leithD=0.0,
+                viscC4leith=0.0, viscC4leithD=0.0, viscAhGridMax=1.0e21,
+                viscA4GridMax=1.0e21, viscAhReMax=0.0, viscA4ReMax=0.0)
+# X's variants: (Smagorinsky, Leith, full Leith, Reynolds limits,
+# biharmonic output) over the visc-gyre's settings
+VISC_VARIANTS = {
+    "visc-gyre": {},
+    "full leith": dict(useFullLeith=True),
+    "smagorinsky, no biharmonic": {**VISC_OFF, "viscC2smag": 2.2},
+    "smagorinsky 4, reynolds": {**VISC_OFF, "viscC2smag": 2.2,
+                                "viscC4smag": 2.0, "viscAhReMax": 10.0,
+                                "viscA4ReMax": 10.0},
+    "grid, free slip": {**VISC_OFF, "viscAhGrid": 0.02, "viscA4Grid": 0.005,
+                        "viscAhGridMin": 0.001, "viscA4GridMin": 0.0005,
+                        "viscAhMax": 0.03, "no_slip_sides": False},
+}
+
+
+def visc_case(dtype, seed, ny, nx, vi=False, **settings):
+    """(cfg, grid, u, v, w, kappaRU, kappaRV) of the visc-gyre's (or
+    visc-vi-gyre's) configuration on a random grid with halos of 4."""
+    f = Fields(dtype, seed, ny, nx, NR, VOL)
+    g = f.grid
+    g.rAz = f.uniform(f.s3[1:], 0.5, 2.0)
+    g.recip_rAz = 1.0 / g.rAz
+    g.fCoriG = f.uniform(f.s3[1:], -1.5, 1.5)
+    config = synthetic.visc_vi_gyre_config if vi else \
+        synthetic.visc_gyre_config
+    cfg = dataclasses.replace(config(nx=nx, ny=ny, nr=NR, deltaT=5.0),
+                              **{"viscAh": 0.0, "viscAhD": 0.0,
+                                 "viscAhZ": 0.0, **settings})
+    amp = f.tensor(10.0 ** f.rng.uniform(-3.0, -0.5, f.s3))
+    u = f.normal(f.s3) * amp * g.maskW
+    v = f.normal(f.s3) * amp * g.maskS
+    w = f.normal(f.s3, 1e-2) * g.maskC
+    kshape = (NR + 1,) + f.s3[1:]
+    kRU, kRV = f.normal(kshape, 1e-2).abs(), f.normal(kshape, 1e-2).abs()
+    return cfg, g, (u, v, w, kRU, kRV)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", VISC_VARIANTS)
+def test_mom_calc_visc(lib, on_mock, numpy_sqrt, ny, nx, dtype, variant):
+    """X's four outputs (two without biharmonic viscosity) on every padded
+    cell; the launch count."""
+    from mitgcm_tpu_torch.model import mom_visc
+
+    cfg, g, (u, v, *_) = visc_case(DTYPES[dtype], 700 + nx, ny, nx,
+                                   **VISC_VARIANTS[variant])
+    got = mom_visc.calc_visc(cfg, g, u, v)
+    want = mom_visc.calc_visc(cfg, g, u, v, impl="plain")
+    assert on_mock["mom_calc_visc"] == 1
+    check_outputs(list(got), list(want), f"calc_visc({variant})")
+    if variant == "visc-gyre":
+        scales = mom_visc.length_scales(cfg, g)
+        cap = (0.25 / cfg.deltaTMom * scales["L2_D"])[VOL:-VOL, VOL:-VOL]
+        AhD = got[1][:, VOL:-VOL, VOL:-VOL]
+        assert bool((AhD == cap).any()) and bool((AhD < cap).any())
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form", ["flux", "flux, free slip", "vi"])
+def test_mom_del2uv(lib, on_mock, ny, nx, dtype, form):
+    """Y's two outputs in each variant on every padded cell."""
+    from mitgcm_tpu_torch.model import mom_visc
+
+    cfg, g, (u, v, *_) = visc_case(DTYPES[dtype], 720 + nx, ny, nx,
+                                   vi=form == "vi",
+                                   no_slip_sides=form != "flux, free slip")
+    got = mom_visc.del2uv(cfg, g, u, v)
+    want = mom_visc.del2uv(cfg, g, u, v, impl="plain")
+    assert on_mock["mom_del2uv"] == 1
+    check_outputs(list(got), list(want), f"del2uv({form})")
+
+
+# B's dissipation variant: its fields (X's viscosities, Y's Laplacian or
+# neither) and its drags, no-slip and free-slip sides, the 3-D Coriolis term
+MOM_VISC_VARIANTS = {
+    "visc-gyre": {},
+    "free slip, 3-D Coriolis": dict(no_slip_sides=False,
+                                    select3dCoriScheme=1, fPrime=1e-4),
+    "variable, no biharmonic": dict(viscC4leith=0.0, viscC4leithD=0.0),
+    "constant biharmonic, linear drag": {**VISC_OFF, "viscA4": 0.3,
+                                         "viscA4D": 0.2, "viscA4Z": 0.4,
+                                         "viscAhD": 0.5, "viscAhZ": 0.7,
+                                         "bottomDragLinear": 2e-3},
+    "no drag": {**VISC_OFF, "viscAhD": 0.5, "no_slip_bottom": False,
+                "selectBotDragQuadr": -1},
+}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", MOM_VISC_VARIANTS)
+def test_mom_fluxform_visc(lib, on_mock, numpy_sqrt, ny, nx, dtype,
+                           variant):
+    """B's dissipation variant fed X's and Y's twins' fields: every interior
+    output equal to the twin's, every halo output 0; and the whole
+    mom_fluxform's kernel path (X, Y and B on the mock) equal to its
+    plain path on the interior."""
+    from mitgcm_tpu_torch.model import mom_visc
+
+    cfg, g, ins = visc_case(DTYPES[dtype], 740 + nx, ny, nx,
+                            **MOM_VISC_VARIANTS[variant])
+    u, v = ins[:2]
+    visc, del2 = mom_visc.fields(cfg, g, u, v, impl="plain")
+    got = mom.mom_fluxform_visc(cfg, g, *ins, visc, del2)
+    want = mom.mom_fluxform_visc(cfg, g, *ins, visc, del2, impl="plain")
+    assert on_mock["mom_fluxform_visc"] == 1
+    old = OL
+    try:
+        globals()["OL"] = VOL
+        for name, a, b in zip(mom.MomTend._fields, got, want):
+            check(a, b, f"{variant}: {name}")
+        whole = mom.mom_fluxform(cfg, g, *ins)
+        plain = mom.mom_fluxform(cfg, g, *ins, impl="plain")
+        for name, a, b in zip(mom.MomTend._fields, whole, plain):
+            check(a, b, f"{variant}, whole: {name}")
+    finally:
+        globals()["OL"] = old
+    assert on_mock["mom_fluxform"] == 0
+
+
+# V's dissipation variant: variable viscosity with and without the
+# biharmonic term, full Leith or Leith, the strain-tension form with
+# variable and constant viscosity, a constant biharmonic viscosity, the
+# quadratic drag, across the vorticity and Coriolis schemes and explicit
+# viscosity
+VI_VISC_VARIANTS = {
+    "visc-vi-gyre": {},
+    "leith, quadratic drag, vort 0": dict(useFullLeith=False,
+                                          bottomDragQuadratic=2.5e-3,
+                                          selectVortScheme=0),
+    "variable, no biharmonic, explicit, Coriolis 1": dict(
+        viscC4leith=0.0, viscC4leithD=0.0, implicitViscosity=False,
+        selectCoriScheme=1),
+    "strain-tension": {**VISC_OFF, "useStrainTensionVisc": True,
+                       "viscC2smag": 2.2, "viscAhGridMax": 1.0,
+                       "selectVortScheme": 2},
+    "strain-tension, constant, linear drag": {
+        **VISC_OFF, "useStrainTensionVisc": True, "viscAhD": 0.3,
+        "viscAhZ": 0.5, "bottomDragLinear": 2e-3,
+        "bottomDragQuadratic": 2.5e-3},
+    "constant biharmonic": {**VISC_OFF, "viscAh": 0.4, "viscAhD": 0.4,
+                            "viscAhZ": 0.4, "viscA4": 0.3, "viscA4D": 0.3,
+                            "viscA4Z": 0.3, "no_slip_bottom": False},
+}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", VI_VISC_VARIANTS)
+def test_mom_vecinv_visc(lib, on_mock, numpy_sqrt, ny, nx, dtype, variant):
+    """As test_mom_fluxform_visc, for V's dissipation variant."""
+    from mitgcm_tpu_torch.model import mom_visc
+
+    cfg, g, ins = visc_case(DTYPES[dtype], 760 + nx, ny, nx, vi=True,
+                            **VI_VISC_VARIANTS[variant])
+    u, v = ins[:2]
+    vecinv.check_branches_vecinv(cfg)
+    visc, del2 = mom_visc.fields(cfg, g, u, v, impl="plain")
+    got = vecinv.mom_vecinv_visc(cfg, g, *ins, visc, del2)
+    want = vecinv.mom_vecinv_visc(cfg, g, *ins, visc, del2, impl="plain")
+    assert on_mock["mom_vecinv_visc"] == 1
+    old = OL
+    try:
+        globals()["OL"] = VOL
+        for name, a, b in zip(mom.MomTend._fields, got, want):
+            check(a, b, f"{variant}: {name}")
+        whole = vecinv.mom_vecinv(cfg, g, *ins)
+        plain = vecinv.mom_vecinv(cfg, g, *ins, impl="plain")
+        for name, a, b in zip(mom.MomTend._fields, whole, plain):
+            check(a, b, f"{variant}, whole: {name}")
+    finally:
+        globals()["OL"] = old
+    assert on_mock["mom_vecinv"] == 0
+
+
+def test_visc_launches_refuse(lib):
+    """X: a table of the wrong length, a parameter array of the wrong
+    length, a Leith flag of 3, biharmonic output without its fields; Y: a
+    variant of 2, the flux form without its fields; B's and V's variants:
+    a second table or a parameter array of the wrong length, a pair of
+    viscosities or the Laplacian's broken, biharmonic viscosities without
+    the Laplacian, the strain-tension form with a Laplacian
+    (cudaErrorInvalidValue, 1)."""
+    from mitgcm_tpu_torch import kernels
+
+    x = torch.zeros((NR, 6, 8), dtype=torch.float64)
+    tab = table([x] * 27)
+    params = kernels.doubles([0.0] * 22)
+    f = lib.host_mom_calc_visc_f64
+    assert f(tab, 26, params, 22, NR, 6, 8, 1, 0, 0, 0) == 1
+    assert f(tab, 27, params, 21, NR, 6, 8, 1, 0, 0, 0) == 1
+    assert f(tab, 27, params, 22, NR, 6, 8, 1, 3, 0, 0) == 1
+    no_a4 = table([x] * 25 + [None, None])
+    assert f(no_a4, 27, params, 22, NR, 6, 8, 1, 0, 0, 1) == 1
+    tab34 = table([x] * 34)
+    assert lib.host_mom_del2uv_f64(tab34, 34, NR, 6, 8, 2, 1.0) == 1
+    assert lib.host_mom_del2uv_f64(table([x] * 2 + [None] * 30 + [x] * 2),
+                                   34, NR, 6, 8, 0, 1.0) == 1
+    f = Fields(torch.float64, 780, *SIZES[0])
+    _, named, args, _ = vecinv_case(f, 1, 0, True, "no-slip")
+    outs = [torch.empty(f.s3, dtype=f.dtype) for _ in range(4)]
+    vtab = table(list(named.values()) + outs)
+    p5 = kernels.doubles([0.0] * 5)
+    for extra, pairs, st in ((-1, [None] * 8, 0),
+                             (0, [None] * 4 + [outs[0], None]
+                              + [None] * 2, 0),
+                             (0, [None] * 4 + [outs[0], outs[1]]
+                              + [outs[2], outs[3]], 1)):
+        second = table(pairs)
+        assert lib.host_mom_vecinv_visc_f64(
+            vtab, len(vtab), *args, 430.0, 2.0, 0.0, -1.0, second,
+            8 + extra, p5, 5, st, 1) == 1
+    _, named, args, _ = mom_case(f, True, False)
+    btab = table(list(named.values()) + outs)
+    p4 = kernels.doubles([0.0] * 4)
+    for nv, pairs, n_params in ((5, [None] * 6, 4), (6, [None] * 6, 3),
+                                (6, [outs[0]] + [None] * 5, 4),
+                                (6, [None] * 2 + [outs[0], outs[1]]
+                                 + [None] * 2, 4)):
+        assert lib.host_mom_fluxform_visc_f64(
+            btab, len(btab), *args, 430.0, 270.0, 2.0, -1.0, -1.0,
+            table(pairs), nv, p4, n_params, 1, 1) == 1

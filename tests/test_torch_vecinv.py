@@ -91,11 +91,11 @@ def test_relvort_and_hdiv(grids):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("viscAhD", 100.0), ("viscAhZ", 100.0), ("viscC2smag", 2.0),
+    ("viscAhD", 100.0), ("viscAhZ", 100.0), ("viscC2LeithQG", 1.0),
     ("viscA4", 1.0e9), ("selectVortScheme", 3), ("selectCoriScheme", 2),
     ("useAbsVorticity", True), ("upwindVorticity", True),
-    ("highOrderVorticity", True), ("useStrainTensionVisc", True),
-    ("selectKEscheme", 1), ("selectBotDragQuadr", 0),
+    ("highOrderVorticity", True), ("viscA4Z", 1.0e9),
+    ("selectKEscheme", 1), ("selectBotDragQuadr", 1),
     ("useCDscheme", True), ("usingSphericalPolarGrid", True)])
 def test_check_branches_vecinv_refuses(flag, value):
     cfg = tsyn.vi_gyre_config(nx=8, ny=8, nr=2)
