@@ -256,6 +256,23 @@ exits nonzero without the final line:
                  every launch count (X each step, Y with biharmonic
                  viscosity, B's or V's variant in place of their first
                  ones) and no twin of X, Y or the glue
+ 20. Richardson-number mixing and OPPS: the pp81-, my82- and opps-gyre
+                 (the kpp-gyre with PP81, MY82 or OPPS in place of KPP):
+                 kernels U (vertmix_calc, PP81 and MY82) and Z (opps_col)
+                 and J-uv's and J-ts's vertmix variants against their
+                 twins on whole padded arrays, bit for bit, at 64x64x4
+                 float64 (each scheme and Z variant under LINEAR, JMD95Z
+                 on the static profile and on totPhiHyd, and MDJWF) and
+                 1024x1024x32 float32, each with its launch's device time
+                 (20 launches in a CUDA graph), its wrapper call's, its
+                 twin's and its bound (Z's the larger of its bytes and
+                 the operations of its inputs' live iterations); 5
+                 float64 steps of each path at 64x64x12, kernel path
+                 against plain path; then each at 1024x1024x32 float32
+                 (deltaT=600): one warm-up step and 5 timed steps with
+                 every launch count (U, J-uv and J-ts, or Z, once a step)
+                 and no twin of U, Z or the glue, and on the opps-gyre Z's
+                 plume launches in the cooled north
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -270,7 +287,8 @@ its free-drift run for seaice_freedrift, phase 16's gm-gyre for
 gm_tensor and C's GM branch and its gm-bolus-gyre for gm_psi_b and
 gm_residual_flow, phase 5's gyre for A, D-G, L and Q, phase 9's
 ggl90-gyre for R's sigmaR, phase 12's box for N1 and N2, phase 13's
-ice-gyre for S1 and S2), with the
+ice-gyre for S1 and S2, phase 19's paths for X, Y and the dissipation
+variants, phase 20's pp81-gyre for U and opps-gyre for Z), with the
 kernel's time (D-G's from phase 14, J-uv's, J-ts's, L's and sigmaR's
 from phase 17 and N1's, N2's, Q's, S1's and S2's from phase 18: a
 launch's device time, 20 launches in a CUDA graph, with
@@ -479,6 +497,11 @@ KERNELS = {
                           "mitgcm_tpu/model/mom_fluxform.py:232"),
     "mom_vecinv_visc": ("mitgcm_tpu_torch/kernels/csrc/mom_vecinv.cu",
                         "mitgcm_tpu/model/mom_vecinv.py:227"),
+    # the Richardson-number mixing (U) and the plume convection (Z)
+    "vertmix_calc": ("mitgcm_tpu_torch/kernels/csrc/vertmix.cu",
+                     "mitgcm_tpu/model/vertmix.py:80"),
+    "opps_col": ("mitgcm_tpu_torch/kernels/csrc/opps.cu",
+                 "mitgcm_tpu/model/opps.py:86"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
@@ -751,7 +774,16 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # ~60; B's and V's variants add the viscosity products and
                 # the biharmonic fluxes (~60) to B's and V's
                 "mom_calc_visc": 300, "mom_del2uv": 60,
-                "mom_fluxform_visc": 360, "mom_vecinv_visc": 260}
+                "mom_fluxform_visc": 360, "mom_vecinv_visc": 260,
+                # U, one thread a column, per cell: two equations of state
+                # at the level's pressure (~70 each for JMD95Z), the
+                # centred velocities and shear (~12), PP81's closure
+                # (~8, two divisions) or MY82's (~30, a square root and
+                # four divisions, and its second pass's ~8)
+                "vertmix_calc": 200,
+                # Z's operations depend on the data: opps_ops counts the
+                # live iterations of its inputs (rimix_ops)
+                "opps_col": 0}
 # the outputs of kernels J-ts (those its variant writes) and L
 KAPPA_TS_OUTS = ("kapT", "kapS", "dfT", "dfS")
 ADV_FLOW_OUTS = ("uTrans", "vTrans", "rTrans", "rTransKp", "maskUp", "xA",
@@ -1780,7 +1812,8 @@ def full_phase(kernels):
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
                + SEAICE_GLUE_KERNELS + EVP_KERNELS + GM_KERNELS
-               + VISC_KERNELS + ("eos_sigma_r", "kappa_uv", "kappa_ts")
+               + VISC_KERNELS + RIMIX_KERNELS
+               + ("eos_sigma_r", "kappa_uv", "kappa_ts")
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -5192,6 +5225,308 @@ def visc_phase(kernels, results, smi):
     return launches
 
 
+# The Richardson-number mixing and the plume convection (phase 20): the
+# pp81-, my82- and opps-gyre, the kpp-gyre's set-up with PP81, MY82 or
+# OPPS in place of KPP
+RIMIX_CONFIGS = {"pp81": "pp81_gyre_config", "my82": "my82_gyre_config",
+                 "opps": "opps_gyre_config"}
+RIMIX_KERNELS = ("vertmix_calc", "opps_col")
+# launches in each configuration's 5 timed full-size steps: the kpp-gyre's
+# without K; U, J-uv and J-ts once a step on the pp81- and my82-gyre; Z
+# once a step on the opps-gyre, whose background diffusivity and viscosity
+# are constant fills (no J)
+_RIMIX_BASE = {**{k: n for k, n in KPP_LAUNCHES.items()
+                  if k not in KPP_KERNELS}, **{k: 0 for k in KPP_KERNELS}}
+RIMIX_LAUNCHES = {
+    "pp81": {**_RIMIX_BASE, "vertmix_calc": 5, "opps_col": 0},
+    "my82": {**_RIMIX_BASE, "vertmix_calc": 5, "opps_col": 0},
+    "opps": {**_RIMIX_BASE, **glue_launches(2, 12), "vertmix_calc": 0,
+             "opps_col": 5}}
+# (eosType, selectP_inEOS_Zc) of the variants held at 64x64x4 float64: the
+# paths' JMD95Z on the static profile first
+RIMIX_EOS = (("JMD95Z", 0), ("JMD95Z", 2), ("MDJWF", 2), ("LINEAR", 0))
+Z_VARIANTS = {"": {}, "useGCMwVel": {"useGCMwVel": True},
+              "two adjustments": {"MAX_ABE_ITERATIONS": 2}}
+# Z's operations a live iteration (model/opps.py:_opps_plain's stats): an
+# equation of state by kind (JMD95Z's rho_p0 and bulkmod polynomials ~60,
+# its square root, a division and the pressure ~12; MDJWF's numerator and
+# denominator ~45, a square root, a division; LINEAR ~7) and STATE1's
+# pressure (3); a launch (one STATE1, the flux and square ~8), a descent
+# step (three STATE1, the flux, entrainment, two mixed tracers, the plume's
+# velocity and radius with two square roots and eight divisions, the time
+# step and the mass flux ~60), a level of an adjustment sub-step (the two
+# tracers' fluxes and updates, ~10)
+Z_EOS_OPS = {"JMD95Z": 72, "MDJWF": 55, "LINEAR": 7}
+
+
+def opps_ops(kind, stats):
+    """Z's operations on inputs whose live iterations are `stats`."""
+    eos = Z_EOS_OPS[kind] + 3
+    return (stats["launch"] * (eos + 8) + stats["descent"] * (3 * eos + 60)
+            + stats["adjust"] * 10)
+
+
+class RimixCase:
+    """The kpp-gyre's grid (the pp81-gyre's configuration) and seeded
+    fields on the card: velocities over three decades, theta the tRef
+    profile with noise that makes some of the interfaces statically
+    unstable (at 32 levels), turned upside down (cold over warm: every
+    level unstable) in the northern eighth of the rows, salt, w and a
+    totPhiHyd. depth: the basin's (OPPS's plumes entrain too much to
+    descend through the 1000 m layers of 4 levels over 5000 m)."""
+
+    def __init__(self, n, nr, dtype, depth=5000.0):
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.pp81_gyre_config(nx=n, ny=n, nr=nr,
+                                              depth=depth, deltaT=600.0)
+        self.grid = (shared_grid(self.cfg, dtype)
+                     or synthetic.gyre_grid(self.cfg, dtype=dtype,
+                                            device="cuda"))
+        g = self.grid
+        rng = np.random.default_rng(SEED + 43)
+        shape = tuple(g.hFacC.shape)
+        amp = torch.as_tensor(10.0 ** rng.uniform(-3.0, 0.0, shape),
+                              dtype=dtype, device="cuda")
+        self.u = self.field(rng, shape, 0.1) * amp * g.maskW
+        self.v = self.field(rng, shape, 0.1) * amp * g.maskS
+        tref = torch.as_tensor(self.cfg.tRef, dtype=dtype, device="cuda")
+        profile = tref[:, None, None].expand(shape).clone()
+        profile[:, -shape[1] // 8:] = tref.flip(0)[:, None, None]
+        self.theta = (profile + self.field(rng, shape, 0.3)) * g.maskC
+        self.salt = (35.0 + self.field(rng, shape, 0.05)) * g.maskC
+        self.w = self.field(rng, shape, 1e-2) * g.maskC
+        self.phi = self.field(rng, shape, 10.0)
+
+    field = Case.field
+    label = Case.label
+
+    def config(self, name, kind, select_p, **settings):
+        return dataclasses.replace(
+            self.cfg, eosType=kind, selectP_inEOS_Zc=select_p,
+            usePP81=name == "pp81", useMY82=name == "my82",
+            useOPPS=name == "opps", **settings)
+
+
+def hold_opps(name, case, op, results, reps, plain_reps, kind):
+    """Z against its twin on whole arrays, bit for bit (exact_compare),
+    timed as hold_launch times a kernel (plain_reps of the twin); its bound
+    the larger of its bytes and its operations on these inputs (the
+    twin's live iterations, opps_ops)."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model import opps
+
+    ins = (case.theta, case.salt, case.w, case.phi)
+    stats = {}
+    outs = op.apply(*ins)
+    wants = opps._opps_plain(op, case.theta, case.salt,
+                             *op.inputs(case.w, case.phi), stats)
+    timed = plain_reps > 0
+    exact_compare(name, case, outs, wants,
+                  cuda_time_ms(lambda: op.apply(*ins), reps)
+                  if timed else None,
+                  cuda_time_ms(lambda: op.apply(*ins, impl="plain"),
+                               plain_reps) if timed else None, results,
+                  call=lambda: op.apply(*ins))
+    r = results[name]
+    t_ops = opps_ops(kind, stats) / PEAK_F32_OPS_S * 1e3
+    print(f"{'':18s} live iterations {stats}: {opps_ops(kind, stats):.4e} "
+          f"operations, {t_ops:.4f} ms at the peak; launches in "
+          f"{int(outs[2].sum())} of {int((case.grid.maskC[1:] > 0).sum())} "
+          f"wet levels below the top", flush=True)
+    if t_ops > r["bound_ms"]:
+        r["bound_ms"], r["bound_by"] = t_ops, "operations"
+    if not timed:
+        return
+    args, keep = captured_launch(lambda: op.apply(*ins), "opps_col")
+    r["extra"] = {"wrapper_ms": r["ms"]}
+    r["ms"] = graph_ms(lambda: kernels.launch(*args), reps)
+    del keep
+    print(f"{'':18s} device time (20 launches in a CUDA graph) "
+          f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the bound "
+          f"({r['bound_by']}); a wrapper call "
+          f"{r['extra']['wrapper_ms']:.4f} ms", flush=True)
+
+
+def rimix_kernel_phase(case, results, reps, plain_reps, variants):
+    """U (both schemes), Z and J-uv's and J-ts's vertmix variants against
+    their twins, bit for bit on every padded cell; with `variants`, every
+    EOS kind of RIMIX_EOS and each of Z_VARIANTS (the first of each
+    timed), else the paths' own (JMD95Z on the static profile). The rows
+    of the JSON line are the pp81-gyre's U and the opps-gyre's Z."""
+    from mitgcm_tpu_torch.model import opps, step, thermodynamics as th
+    from mitgcm_tpu_torch.model import vertmix
+
+    g = case.grid
+    ins = (case.u, case.v, case.theta, case.salt, case.phi)
+    for kind, select_p in (RIMIX_EOS if variants else RIMIX_EOS[:1]):
+        main = (kind, select_p) == RIMIX_EOS[0]
+        tag = "" if main else f", {kind}{', totPhiHyd' if select_p else ''}"
+        for name in ("pp81", "my82"):
+            cfg = case.config(name, kind, select_p)
+            vm = getattr(vertmix, name.upper())(cfg, g, {})
+            label = "" if name == "pp81" and main else f"({name}{tag})"
+            if main:
+                hold_launch("vertmix_calc" + label, case,
+                            lambda impl, vm=vm: list(vm.calc(*ins,
+                                                             impl=impl)),
+                            results, reps)
+            else:
+                exact_compare("vertmix_calc" + label, case,
+                              list(vm.calc(*ins)),
+                              list(vm.calc(*ins, impl="plain")), None, None,
+                              results, call=lambda vm=vm: vm.calc(*ins))
+            if not main:
+                continue
+            visc, diff = vm.calc(*ins, impl="plain")
+            fields = {"viscAr": visc, "diffKr": diff}
+            hold_launch(f"kappa_uv({name})", case, lambda impl, c=cfg, f=(
+                fields): list(step.kappa_uv(c, g, impl=impl,
+                                            vmix_fields=f)), results, reps)
+            hold_launch(f"kappa_ts({name})", case, lambda impl, c=cfg, f=(
+                fields): [t for t in th.kappa_ts(
+                    c, g, None, None, None, None, impl=impl,
+                    vmix_fields=f) if t is not None], results, reps)
+        for label, settings in Z_VARIANTS.items():
+            if label and not variants:
+                continue
+            cfg = case.config("opps", kind, select_p)
+            op = opps.OPPS(cfg, g, settings)
+            zlabel = ", ".join(x for x in (label, tag[2:]) if x)
+            hold_opps("opps_col" + (f"({zlabel})" if zlabel else ""), case,
+                      op, results, reps,
+                      plain_reps if main and not label else 0, kind)
+
+
+def rimix_experiment(kind, n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = getattr(synthetic, RIMIX_CONFIGS[kind])(nx=n, ny=n, nr=nr, **kw)
+    setup = (synthetic.opps_gyre_setup if kind == "opps"
+             else synthetic.vertmix_gyre_setup)
+    grid, state, forcing, op, obj = setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype))
+    return Experiment(cfg, grid, state, forcing, op, impl=impl,
+                      **({"opps": obj} if kind == "opps" else
+                         {"vmix": obj}))
+
+
+def rimix_parity_phase(kind, steps=5):
+    """`steps` float64 steps of the 64x64x12 configuration 300 m deep (the
+    CPU tests' levels), kernel path against plain path: equal cg2d
+    iterations, PARITY_DIGITS or more on every statistic; on the
+    opps-gyre, Z's launches on the end state."""
+    from mitgcm_tpu_torch.utils.compare import record_digits
+
+    exps = {impl: rimix_experiment(kind, 64, 12, torch.float64, impl,
+                                   depth=300.0) for impl in (None, "plain")}
+    runs = {impl: e.run(n_steps=steps) for impl, e in exps.items()}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        worst = min(worst, min(dig.values()))
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError(f"{kind}-gyre cg2d iteration counts differ")
+    print(f"{kind}-gyre parity, 64x64x12 float64, {steps} steps kernel "
+          f"against plain: fewest matching digits {worst:.2f}, equal cg2d "
+          f"iterations {[r['cg2d_iters'] for r in runs[None][1:]]}",
+          flush=True)
+    if not worst >= PARITY_DIGITS:
+        raise AssertionError(f"{kind}-gyre parity {worst:.2f} < "
+                             f"{PARITY_DIGITS} digits")
+    if kind == "opps":
+        st = exps[None].state
+        count = exps[None].opps.apply(st.theta, st.salt, st.wVel,
+                                      st.totPhiHyd)[2]
+        print(f"opps-gyre at 64x64x12 after {steps} steps: {int(count.sum())}"
+              f" plume launches", flush=True)
+
+
+def rimix_plain_calls():
+    """Calls so far of U's and Z's twins and of the glue's."""
+    from mitgcm_tpu_torch.model import opps, vertmix
+
+    return vertmix.plain_calls + opps.plain_calls + glue_plain_calls()
+
+
+def rimix_full_phase(kind, kernels, smi):
+    """The 1024x1024x32 float32 configuration (deltaT = 600): a warm-up
+    step, then 5 timed steps with every launch count (RIMIX_LAUNCHES), no
+    twin of U, Z or the glue, finite fields; on the opps-gyre, Z on the
+    end state counts its launches in the cooled north and the heated
+    south."""
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = rimix_experiment(kind, n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    points = n * n * nr
+
+    def run(state, it0, steps):
+        exp.state, exp.cur_iter = state, it0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, [r["cg2d_iters"] for r in recs], \
+            time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, iters_w, sec_w = run(exp.state, 0, 1)
+    kernels.launches.clear()
+    plain0 = rimix_plain_calls()
+    state, iters, sec = run(state1, 1, 5)
+    launches = dict(kernels.launches)
+    plain = rimix_plain_calls() - plain0
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"{kind}-gyre kernel path ({smi}): 5 steps, "
+          f"{sec * 1e3 / 5:.2f} ms/step, {points * 5 / sec:.4e} "
+          f"points*steps/s, cg2d iterations {iters}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches {launches}", flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{kind}-gyre {name} is not finite")
+    check_launches(f"{kind}-gyre", launches, RIMIX_LAUNCHES[kind], plain)
+    if kind == "opps":
+        _, _, cnt = exp.opps.apply(state.theta, state.salt, state.wVel,
+                                   state.totPhiHyd)
+        ol, ny = exp.cfg.oly, exp.cfg.ny
+        north = int(cnt[:, ol + ny // 2:ol + ny].sum())
+        south = int(cnt[:, ol:ol + ny // 2].sum())
+        print(f"opps-gyre after 6 steps: plume launches {north} in the "
+              f"cooled north, {south} in the heated south", flush=True)
+        if not north > 0:
+            raise AssertionError("OPPS launched no plume in the north")
+    return launches
+
+
+def rimix_phase(kernels, results, smi):
+    phase("20 Richardson-number mixing and OPPS: the pp81-, my82- and "
+          "opps-gyre")
+    for n, nr, depth, dtype, reps, plain_reps in (
+            (64, 4, 300.0, torch.float64, 20, 3),
+            (1024, 32, 5000.0, torch.float32, 10, 2)):
+        rimix_kernel_phase(RimixCase(n, nr, dtype, depth), results, reps,
+                           plain_reps, variants=n == 64)
+        torch.cuda.empty_cache()
+    print(smi)
+    for kind in RIMIX_CONFIGS:
+        rimix_parity_phase(kind)
+    launches = {}
+    for kind in RIMIX_CONFIGS:
+        got = rimix_full_phase(kind, kernels, smi)
+        if kind == "pp81":
+            launches["vertmix_calc"] = got["vertmix_calc"]
+        elif kind == "opps":
+            launches["opps_col"] = got["opps_col"]
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, ROOT)
@@ -5243,6 +5578,7 @@ def main():
     mix_phase(results)
     last_glue_phase(results)
     launches.update(visc_phase(kernels, results, smi))
+    launches.update(rimix_phase(kernels, results, smi))
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
     if jax_pkg:

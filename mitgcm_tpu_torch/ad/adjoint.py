@@ -32,7 +32,8 @@ def check_adjoint_supported(cfg: Config) -> None:
     the multi-dimensional advection, W and H-cg3d: the non-hydrostatic
     path, B's free-slip and 3-D Coriolis flags, H-seaice: the sea ice,
     gm_tensor, gm_psi_b, gm_residual_flow and C's GM branch: GM-Redi;
-    X, Y and B's dissipation variant: variable and biharmonic viscosity,
+    U: PP81 and MY82, Z: OPPS; X, Y and B's dissipation variant: variable
+    and biharmonic viscosity,
     linear and quadratic bottom drag, a bottom without no-slip drag),
     and for AB-3,
     whose gradient is not yet held against the JAX adjoint: the adjoint runs
@@ -47,6 +48,9 @@ def check_adjoint_supported(cfg: Config) -> None:
         "useGGL90": cfg.useGGL90,
         "useSEAICE": cfg.useSEAICE,
         "useGMRedi": cfg.useGMRedi,
+        "usePP81": cfg.usePP81,
+        "useMY82": cfg.useMY82,
+        "useOPPS": cfg.useOPPS,
         "nonHydrostatic": cfg.nonHydrostatic,
         "no_slip_sides=F": not cfg.no_slip_sides,
         f"select3dCoriScheme={cfg.select3dCoriScheme}":

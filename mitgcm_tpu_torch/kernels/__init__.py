@@ -128,13 +128,23 @@ SIGNATURES = {
     # totPhiHyd; stream
     "eos_sigma_r": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
     # kernel J-uv: pointer table (maskW, maskS, viscAz or viscArU, viscArV,
-    # kappaRU, kappaRV), its length; nr, nyp, nxp, mode (1 KPP, 2 GGL90);
-    # viscAr; stream
+    # kappaRU, kappaRV), its length; nr, nyp, nxp, mode (1 the max-blend of
+    # KPP's viscAz or PP81's and MY82's viscAr, 2 GGL90's addend); viscAr;
+    # stream
     "kappa_uv": [_PP, _I] + [_I] * 4 + [_D, _P],
     # kernel J-ts: pointer table (mix_glue.cuh:KappaTsArgs), its length;
     # parameter array (diffKrT, diffKrS, recip_Cp, 1/rhoConst), its length;
-    # nr, nyp, nxp, KPP, GM, GGL90; stream
+    # nr, nyp, nxp, KPP, GM, the diffKr addend (GGL90's, PP81's or
+    # MY82's); stream
     "kappa_ts": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
+    # kernel U: pointer table (vertmix.cuh:VertmixArgs), its length;
+    # parameter array (model/vertmix.py:u_params), its length; nr, nyp,
+    # nxp, MY82, eos kind, use totPhiHyd, PPnRi; stream
+    "vertmix_calc": [_PP, _I, _PD, _I] + [_I] * 7 + [_P],
+    # kernel Z: pointer table (opps.cuh:OppsArgs), its length; parameter
+    # array (model/opps.py:z_params), its length; nr, nyp, nxp, eos kind,
+    # use totPhiHyd, MAX_ABE_ITERATIONS; stream
+    "opps_col": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
     # kernel L: pointer table (u, v, w, hFacW, hFacS, maskC, dyG, dxG, rA,
     # drF, then the seven fields of gad.AdvFlow), its length; nr, nyp, nxp;
     # stream
@@ -369,6 +379,27 @@ def check_fields(dtype: torch.dtype, shape, **tensors: torch.Tensor) -> None:
     check_tensors(dtype, **tensors)
     for name, t in tensors.items():
         check_shape(name, t, shape)
+
+
+# the dynamic shared memory a block may take on an H100 (its opt-in limit,
+# csrc/common.cuh's max_shared()), where the column kernels G9, U and Z
+# keep a few values a level of each of a warp's 32 columns
+MAX_SHARED = 232448
+
+
+def max_nr(values_per_level: int, dtype: torch.dtype) -> int:
+    """The most levels a column kernel takes in this dtype when it keeps
+    values_per_level values a level of 32 columns within MAX_SHARED
+    bytes."""
+    return MAX_SHARED // (values_per_level * 32
+                          * (torch.finfo(dtype).bits // 8))
+
+
+def check_nr(kernel: str, nr: int, least: int, most: int) -> None:
+    """Refuse, by the kernel's name, an nr outside least..most."""
+    if not least <= nr <= most:
+        raise ValueError(f"kernel {kernel} takes {least} <= nr <= {most}, "
+                         f"not {nr}")
 
 
 def check_int32(name: str, t: torch.Tensor, shape) -> None:

@@ -58,6 +58,14 @@ __device__ __forceinline__ T max_nan(T a, T b) {
   return a < b ? b : a;
 }
 
+// torch.minimum: NaN where either is NaN, else the smaller
+template <typename T>
+__device__ __forceinline__ T min_nan(T a, T b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return b < a ? b : a;
+}
+
 // Copy a launch's table of n pointers into Args, a struct of `want`
 // pointers; false if n is not want.
 template <typename Args>

@@ -10,7 +10,9 @@
 //
 // kappa_uv writes KappaRU and KappaRV on nr + 1 levels, every padded cell:
 // viscAr (calc_viscosity.F), on the first nr levels in one of
-//   mode 1, KPP (kpp_calc_visc.F; mitgcm_tpu/model/kpp.py:745-752):
+//   mode 1, KPP (kpp_calc_visc.F; mitgcm_tpu/model/kpp.py:745-752), and
+//     PP81 and MY82 alike with their viscAr as az (pp81/my82_calc_visc.F;
+//     mitgcm_tpu/model/vertmix.py:165-171):
 //     max(K, (K - viscAr) + (maskW * 0.5) * (az + az[i-1])), K = viscAr,
 //     and likewise at v points with az[j-1] and maskS, az[i-1] and az[j-1]
 //     zero at the first padded column and row (the shift's zero fill),
@@ -20,7 +22,9 @@
 // kappa_ts writes the tracers' interface diffusivities kapT and kapS on nr
 // levels (mitgcm_tpu/model/thermodynamics.py:283, :470-505, :524-540):
 // without KPP the background diffusivity + Kwz * maskInC under GM, then
-// + (diffKr - diffKrS) under GGL90 (one of the two at least); with KPP the
+// + (diffKr - diffKrS) under GGL90, PP81 or MY82 (the flag `ggl90`, the
+// diffKr addend; one of the two at least; mitgcm_tpu/model/
+// thermodynamics.py:501-505, :537-540); with KPP the
 // nonlocal fluxes dfT and dfS (KPP_TRANSPORT_T/S;
 // mitgcm_tpu/model/kpp.py:755-766), 0 at the surface,
 // ((-rA * diffKz[k]) * ghat[k-1]) * (sf + qsw) * maskUp[k] below, on KPP's

@@ -23,13 +23,6 @@
 namespace mitgcm {
 
 template <typename T>
-__device__ __forceinline__ T min_nan(T a, T b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b < a ? b : a;
-}
-
-template <typename T>
 __device__ __forceinline__ T vis_min(T a, T b) { return a < b ? a : b; }
 
 // The padded grid around one cell: 3-D reads at the cell's level and 2-D

@@ -23,6 +23,7 @@ from mitgcm_tpu_torch.model import som
 from mitgcm_tpu_torch.model import step as step_mod
 from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import KPP
+from mitgcm_tpu_torch.model.opps import OPPS
 from mitgcm_tpu_torch.model.seaice import SeaIce
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
@@ -42,6 +43,8 @@ class Experiment:
     cur_iter: Optional[int] = None
     op3: Optional[CG3DOperator] = None   # when nonHydrostatic
     seaice: Optional[SeaIce] = None      # model/seaice.py when useSEAICE
+    vmix: object = None    # model/vertmix.py:PP81 or MY82 when used
+    opps: Optional[OPPS] = None          # model/opps.py when useOPPS
 
     def monitor_stats(self) -> Dict[str, float]:
         stats = monitor.dynstat(self.cfg, self.grid, self.state)
@@ -68,7 +71,8 @@ class Experiment:
             self.state, diag = step_mod.forward_step(
                 cfg, self.grid, self.op, self.state, self.forcing,
                 self.cur_iter, impl=self.impl, kpp=self.kpp,
-                ggl90=self.ggl90, op3=self.op3, seaice=self.seaice)
+                ggl90=self.ggl90, op3=self.op3, seaice=self.seaice,
+                vmix=self.vmix, opps=self.opps)
             self.cur_iter += 1
             rec = {"iter": self.cur_iter,
                    "cg2d_init_res": float(diag.cg2d_init_res),
@@ -131,7 +135,7 @@ def _check_pickup(exp: Experiment) -> None:
     non-hydrostatic phi_nh, gwNm1 and gwNm2."""
     cfg = exp.cfg
     step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl, exp.op3,
-                             exp.seaice)
+                             exp.seaice, exp.vmix, exp.opps)
     bad = [f"{tr}AdvScheme={s} (the SOM moments)"
            for tr, s in (("temp", cfg.tempAdvScheme),
                          ("salt", cfg.saltAdvScheme))

@@ -12,7 +12,8 @@ defaults) and model/src/solve_tridiagonal.F.
 
 `GGL90.calc` runs kernel G9 (kernels/csrc/ggl90.cu) for CUDA tensors:
 `ggl90_col`, one thread per (j, i) column in three passes over its levels,
-for any nr up to `g9_max_nr` (the buoyancy frequency, the
+for any nr up to `kernels.max_nr(G9_SHARED_VALUES, dtype)` (the
+buoyancy frequency, the
 mixing length and its two sweeps, Langmuir's length, the viscosity and
 diffusivity, the shear, the Prandtl number, the explicit sources with
 IDEMIX's and the Stokes drift's, the tridiagonal coefficients with their
@@ -55,10 +56,10 @@ TWO_OVER_PI = 2.0 / np.pi
 # the largest nr kernel H-IDEMIX takes: idemix_col's Thomas sweep keeps
 # per-level arrays of this length per thread
 IDEMIX_MAX_NR = 64
-# the shared memory a block of G9's ggl90_col may take on an H100 (its
-# opt-in limit): ggl90_col keeps two values a level of each of a warp's
-# columns there (kernels/csrc/ggl90_col.cuh:ggl90_max_nr)
-G9_MAX_SHARED = 232448
+# the values a level of each of a warp's columns that G9's ggl90_col keeps
+# in dynamic shared memory (kernels/csrc/ggl90_col.cuh:ggl90_max_nr): 454
+# levels at most in float64, 908 in float32
+G9_SHARED_VALUES = 2
 # calls of GGL90.calc that ran the plain twins (a run on the card reads it
 # to show that its kernel path never did)
 plain_calls = 0
@@ -625,19 +626,6 @@ def _idemix_col_plain(g9: GGL90, E, c0, tau_d):
 # kernels G9 and H-IDEMIX
 # ----------------------------------------------------------------------
 
-def g9_max_nr(dtype: torch.dtype) -> int:
-    """The most levels G9's ggl90_col takes in this dtype: two values a
-    level of 32 columns within G9_MAX_SHARED bytes (454 in float64, 908 in
-    float32)."""
-    return G9_MAX_SHARED // (2 * 32 * (torch.finfo(dtype).bits // 8))
-
-
-def _check_nr(nr: int, kernel: str, most: int) -> None:
-    if not 2 <= nr <= most:
-        raise ValueError(f"kernel {kernel} takes 2 <= nr <= {most}, not "
-                         f"{nr}")
-
-
 def _col_inputs(g9: GGL90, u, v, tke, sigmaR, sfU, sfV, gTKE=None) -> dict:
     """ggl90_col's inputs by name, in the order of its pointer table
     (kernels/csrc/ggl90_col.cuh:Ggl90Args); without IDEMIX the slots of
@@ -676,7 +664,8 @@ def ggl90_col(g9: GGL90, u, v, tke, sigmaR, sfU, sfV, gTKE=None) -> dict:
     """Kernel `ggl90_col` on the card: tke', diffKr and visctmp of
     `_ggl90_col_plain`."""
     nr, nyp, nxp = tke.shape
-    _check_nr(nr, "G9", g9_max_nr(tke.dtype))
+    kernels.check_nr("G9", nr, 2, kernels.max_nr(G9_SHARED_VALUES,
+                                                   tke.dtype))
     ins = _col_inputs(g9, u, v, tke, sigmaR, sfU, sfV, gTKE)
     ins3 = {n: ins[n] for n in ("u", "v", "tke", "sigmaR", "maskC",
                                 "recip_hFacC")}
@@ -727,7 +716,7 @@ def _idemix_launch(kernel: str, g9: GGL90, ins3: dict, ins2: dict,
     order ins3, ins2, ins1, klowC when the kernel reads it, outs)."""
     first = next(iter(ins3.values()))
     nr, nyp, nxp = first.shape
-    _check_nr(nr, "H-IDEMIX", IDEMIX_MAX_NR)
+    kernels.check_nr("H-IDEMIX", nr, 2, IDEMIX_MAX_NR)
     kernels.check_tensors(first.dtype, **ins3, **ins2, **ins1, **outs)
     for name, t in {**ins3, **outs}.items():
         kernels.check_shape(name, t, (nr, nyp, nxp))

@@ -23,13 +23,18 @@ after the forcing is loaded and before DO_OCEANIC_PHYS, and overwrites
 fu, fv, Qnet, Qsw, EmPmR and saltFlux), the gm- and gm-bolus-gyre (the
 kpp-gyre with GM-Redi in its skew-flux or advective form: model/gmredi.py's
 tensor and bolus streamfunction from the start-of-step density, before
-THERMODYNAMICS), and any mix of those options.
+THERMODYNAMICS), the pp81- and my82-gyre (the kpp-gyre with PP81's or
+MY82's Richardson-number mixing in place of KPP, model/vertmix.py, on the
+start-of-step state before THERMODYNAMICS), the opps-gyre (the kpp-gyre
+with OPPS plume convection in place of KPP, model/opps.py, on the freshly
+stepped tracers after INTEGR_CONTINUITY), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `kappa_uv` forms the vertical viscosity at u and v points
-(kernel J-uv, kernels/csrc/mix_glue.cu, on CUDA tensors, with KPP or
-GGL90). `impl` is passed to the kernel wrappers: None runs the CUDA
-kernels on CUDA tensors and the plain PyTorch twins on CPU tensors;
+(kernel J-uv, kernels/csrc/mix_glue.cu, on CUDA tensors, with KPP,
+GGL90, PP81 or MY82). `impl` is passed to the kernel wrappers: None runs
+the CUDA kernels on CUDA tensors and the plain PyTorch twins on CPU
+tensors;
 "plain" runs the twins on any device.
 """
 
@@ -88,7 +93,7 @@ class StepDiag:
     lsr_host_syncs: list = None
 
 
-_PACKAGES = ("usePP81", "useMY82", "useOPPS", "useEXF", "useOBCS",
+_PACKAGES = ("useEXF", "useOBCS",
              "usePTRACERS", "useRBCS",
              "useAIM", "useLand", "useThSIce", "useZONAL_FILT", "useOffLine",
              "useGCHEM", "useSHAP_FILT")
@@ -115,7 +120,7 @@ def _tracer_schemes_off(cfg: Config) -> dict:
 
 
 def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
-                    op3=None, seaice=None) -> None:
+                    op3=None, seaice=None, vmix=None, opps=None) -> None:
     """Raise NotImplementedError unless cfg stays on the ported paths
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
@@ -130,7 +135,12 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
     solver/cg3d.py:CG3DOperator, and without the options that
     calc_gw.check_nh refuses; useSEAICE with seaice, a model/seaice.py:
     SeaIce object, without the options that seaice.check_seaice refuses;
-    useGMRedi without the settings that gmredi.check_gmredi refuses)."""
+    useGMRedi without the settings that gmredi.check_gmredi refuses;
+    usePP81 or useMY82 with vmix, a model/vertmix.py:PP81 or MY82 object
+    of that scheme, without KPP, GGL90 or the other scheme: under KPP the
+    JAX step blends their viscosity but drops their diffusivity, so the
+    port refuses the pair by name instead of copying it; useOPPS with opps,
+    a model/opps.py:OPPS object)."""
     g9_kernel = ggl90 is not None and kernels.use_kernel(ggl90.klowC, impl)
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
@@ -139,6 +149,23 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
         "a SeaIce object without useSEAICE": (seaice is not None
                                               and not cfg.useSEAICE),
         "useKPP with useGGL90": cfg.useKPP and cfg.useGGL90,
+        "usePP81 with useMY82": cfg.usePP81 and cfg.useMY82,
+        "usePP81 or useMY82 without a PP81 or MY82 object": (
+            (cfg.usePP81 or cfg.useMY82) and vmix is None),
+        "a PP81 or MY82 object of another scheme than usePP81/useMY82": (
+            vmix is not None and not (
+                (vmix.scheme == "PP81" and cfg.usePP81)
+                or (vmix.scheme == "MY82" and cfg.useMY82))),
+        # the JAX step blends PP81's or MY82's viscosity under KPP but
+        # drops their diffusivity (thermodynamics.py:504-505, :539-540 sit
+        # in the branch without KPP there)
+        "usePP81 or useMY82 with useKPP": (
+            (cfg.usePP81 or cfg.useMY82) and cfg.useKPP),
+        "usePP81 or useMY82 with useGGL90": (
+            (cfg.usePP81 or cfg.useMY82) and cfg.useGGL90),
+        "useOPPS without an OPPS object": cfg.useOPPS and opps is None,
+        "an OPPS object without useOPPS": (opps is not None
+                                           and not cfg.useOPPS),
         f"IDEMIX with nr > {ggl90_mod.IDEMIX_MAX_NR} on the kernel path":
             (g9_kernel and ggl90.p["useIDEMIX"]
              and cfg.nr > ggl90_mod.IDEMIX_MAX_NR),
@@ -440,8 +467,10 @@ def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
 def _kappa_uv_plain(cfg: Config, grid: Grid, viscAz, viscArU, viscArV):
     """Kernel J-uv's twin: (KappaRU, KappaRV) on nr + 1 levels,
     calc_viscosity.F's viscAr with KPP's viscosity blended in (viscAz
-    given, kpp.py:745-752 of the JAX package) or GGL90's added (viscArU
-    and viscArV given, step.py:207-210), on the first nr levels."""
+    given, kpp.py:745-752 of the JAX package; PP81's and MY82's viscAr are
+    blended alike, vertmix.py:165-171, step.py:211-217) or GGL90's added
+    (viscArU and viscArV given, step.py:207-210), on the first nr
+    levels."""
     nr = cfg.nr
     kshape = (nr + 1,) + tuple(grid.maskW.shape[1:])
     like = dict(dtype=grid.maskW.dtype, device=grid.maskW.device)
@@ -482,18 +511,21 @@ def _kappa_uv_kernel(cfg: Config, grid: Grid, viscAz, viscArU, viscArV):
 
 
 def kappa_uv(cfg: Config, grid: Grid, kpp_fields=None, ggl90_fields=None,
-             impl: str = None):
+             impl: str = None, vmix_fields=None):
     """(KappaRU, KappaRV) [nr + 1, ...]: the vertical viscosity at u and v
-    points, viscAr with KPP.calc's viscosity blended in (kpp_fields) or
-    GGL90.calc's viscArU/viscArV added (ggl90_fields). Kernel J-uv on CUDA
+    points, viscAr with KPP.calc's viscosity (kpp_fields) or PP81's or
+    MY82's viscAr (vmix_fields) blended in, or GGL90.calc's
+    viscArU/viscArV added (ggl90_fields). Kernel J-uv on CUDA
     tensors (under kernels.TwinVJP), its twin on CPU tensors or with
     impl="plain". viscAr alone is one constant field, built once
     (thermodynamics.constant_field, read only), on any device: J-uv runs
     only where there is arithmetic."""
-    ins = (None if kpp_fields is None else kpp_fields["viscAz"],
-           *((None, None) if ggl90_fields is None else
-             (ggl90_fields["viscArU"], ggl90_fields["viscArV"])))
-    if kpp_fields is None and ggl90_fields is None:
+    # check_supported refuses KPP with PP81 or MY82
+    blended = (kpp_fields["viscAz"] if kpp_fields is not None else
+               None if vmix_fields is None else vmix_fields["viscAr"])
+    ins = (blended, *((None, None) if ggl90_fields is None else
+                      (ggl90_fields["viscArU"], ggl90_fields["viscArV"])))
+    if blended is None and ggl90_fields is None:
         return _kappa_uv_plain(cfg, grid, *ins)
     if not kernels.use_kernel(grid.maskW, impl):
         global plain_calls
@@ -506,19 +538,22 @@ def kappa_uv(cfg: Config, grid: Grid, kpp_fields=None, ggl90_fields=None,
 
 def dynamics(cfg: Config, grid: Grid, state: State,
              sf: thermo_mod.SurfaceForcing, rhoInSitu, myIter: int,
-             impl: str = None, kpp_fields=None, ggl90_fields=None):
+             impl: str = None, kpp_fields=None, ggl90_fields=None,
+             vmix_fields=None):
     """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', guNm2',
     gvNm2', totPhiHyd, nh). sf: the step's surface forcing, whose momentum
     forcing's surface level kernel G adds (apply_forcing.F);
     kpp_fields: KPP.calc's output, whose viscosity
     is blended into kappaRU/RV (calc_viscosity.F), or None; ggl90_fields:
-    GGL90.calc's viscArU/viscArV, added to kappaRU/RV, or None. nh: with
+    GGL90.calc's viscArU/viscArV, added to kappaRU/RV, or None;
+    vmix_fields: PP81.calc's or MY82.calc's viscAr, blended into kappaRU/RV
+    as KPP's is, or None. nh: with
     nonHydrostatic, w* and the w-tendency history (dynamics.F:642-652,
     CALC_GW + TIMESTEP_WVEL; step.py:341-357 of the JAX package), else
     None."""
     u, v, w = state.uVel, state.vVel, state.wVel
     kappaRU, kappaRV = kappa_uv(cfg, grid, kpp_fields, ggl90_fields,
-                                impl=impl)
+                                impl=impl, vmix_fields=vmix_fields)
     _, dPhiHydX, dPhiHydY, totPhiHyd = calc_phi_hyd(cfg, grid, rhoInSitu,
                                                     impl=impl)
     momentum = mom_vecinv if cfg.vectorInvariantMomentum else mom_fluxform
@@ -985,13 +1020,15 @@ def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR,
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,
                  forcing: Forcing, myIter: int, impl: str = None, kpp=None,
-                 ggl90=None, op3=None, seaice=None
+                 ggl90=None, op3=None, seaice=None, vmix=None, opps=None
                  ) -> Tuple[State, StepDiag]:
     """One timestep; myIter is the start-of-step iteration number; kpp: a
     model/kpp.py:KPP object when useKPP; ggl90: a model/ggl90.py:GGL90
     object when useGGL90; op3: a solver/cg3d.py:CG3DOperator when
-    nonHydrostatic; seaice: a model/seaice.py:SeaIce when useSEAICE."""
-    check_supported(cfg, kpp, ggl90, impl, op3, seaice)
+    nonHydrostatic; seaice: a model/seaice.py:SeaIce when useSEAICE; vmix:
+    a model/vertmix.py:PP81 or MY82 object when usePP81 or useMY82; opps: a
+    model/opps.py:OPPS object when useOPPS."""
+    check_supported(cfg, kpp, ggl90, impl, op3, seaice, vmix, opps)
 
     def fill(a):
         return cyclic_fill_halo(a, cfg.oly, cfg.olx, impl=impl)
@@ -1061,14 +1098,22 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
             state.uVel, state.vVel, state.GGL90TKE, sigmaR, sf.tauU,
             sf.tauV, idemix_E=state.IDEMIX_E, impl=impl)
         ggl90_fields = {"viscArU": viscU, "viscArV": viscV, "diffKr": diffKr}
+    # PP81 or MY82 on the start-of-step state (do_oceanic_phys.F:105-109;
+    # step.py:972-977 of the JAX package)
+    vmix_fields = None
+    if vmix is not None:
+        viscAr, diffKr = vmix.calc(state.uVel, state.vVel, state.theta,
+                                   state.salt, state.totPhiHyd, impl=impl)
+        vmix_fields = {"viscAr": viscAr, "diffKr": diffKr}
     (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2, somT,
      somS) = thermo_mod.thermodynamics(
         cfg, grid, state, forc, sf, myIter, impl=impl,
         kpp_fields=kpp_fields, ggl90_fields=ggl90_fields, gm=gm,
-        gm_psi=gm_psi)
+        gm_psi=gm_psi, vmix_fields=vmix_fields)
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh = dynamics(
         cfg, grid, state, sf, rhoInSitu, myIter, impl=impl,
-        kpp_fields=kpp_fields, ggl90_fields=ggl90_fields)
+        kpp_fields=kpp_fields, ggl90_fields=ggl90_fields,
+        vmix_fields=vmix_fields)
     uStar, vStar = fill(uStar), fill(vStar)
     etaN, phi_nh, diag = solve_for_pressure(cfg, grid, op, state, uStar,
                                             vStar, impl=impl, nh=nh, op3=op3)
@@ -1076,12 +1121,18 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
                                     impl=impl)
     u, v = fill(u), fill(v)
     w, PmEpR = integr_continuity(cfg, grid, u, v, forc.EmPmR, impl=impl)
+    w = fill(w)
+    # OPPS on the freshly stepped tracers with this step's totPhiHyd and w
+    # (tracers_correction_step.F:109 OPPS_INTERFACE; step.py:1092-1096 of
+    # the JAX package), before the state's fills
+    if opps is not None:
+        theta, salt, _ = opps.apply(theta, salt, w, totPhiHyd, impl=impl)
 
     def fill_if(a, used):
         return fill(a) if used else a
 
     new_state = State(
-        uVel=u, vVel=v, wVel=fill(w), theta=fill(theta), salt=fill(salt),
+        uVel=u, vVel=v, wVel=w, theta=fill(theta), salt=fill(salt),
         etaN=fill(etaN), etaH=fill(state.etaH),
         dEtaHdt=fill(state.dEtaHdt), PmEpR=fill(PmEpR),
         guNm1=guNm1, gvNm1=gvNm1, gtNm1=gtNm1, gsNm1=gsNm1,

@@ -15,9 +15,10 @@ and in the advective form the residual flow advects the tracers.
 `calc_sigmaR` gives GGL90 and GM-Redi the vertical density gradient:
 kernel R's eos_sigma_r (kernels/csrc/eos.cu) for CUDA tensors, its twin
 `_calc_sigmaR_plain` otherwise. `kappa_ts` forms the tracers' vertical
-diffusivities (the background, GM's Kwz, GGL90's diffKr) or, with KPP,
-its nonlocal fluxes: kernel J-ts (kernels/csrc/mix_glue.cu) for CUDA
-tensors, its twin `_kappa_ts_plain` otherwise. Both run under
+diffusivities (the background, GM's Kwz, GGL90's, PP81's or MY82's
+diffKr) or, with KPP, its nonlocal fluxes: kernel J-ts
+(kernels/csrc/mix_glue.cu) for CUDA tensors, its twin `_kappa_ts_plain`
+otherwise. Both run under
 kernels.TwinVJP, their gradients the twins'. `surface_forcing` forms the
 step's surface forcing once a step (the tracers', KPP's and GGL90's
 surface stress and the momentum forcing's surface level): kernel Q
@@ -478,7 +479,8 @@ def _kappa_ts_plain(cfg: Config, grid: Grid, Kwz, diffKr, diffKzT, diffKzS,
     diffusivities and KPP's nonlocal fluxes (thermodynamics.py:283,
     :470-505, :524-540 of the JAX package). Without KPP (diffKzT None) the
     background profile, + Kwz * maskInC under GM (Kwz given), + (diffKr -
-    diffKrS) under GGL90 (diffKr given), and no fluxes; with KPP its
+    diffKrS) under GGL90, PP81 or MY82 (diffKr given; their
+    *_calc_diff.F add it alike), and no fluxes; with KPP its
     diffusivities and nonlocal fluxes, the latter on KPP's own
     diffusivities, then GM's Kwz joins."""
     dfT = dfS = None
@@ -490,7 +492,8 @@ def _kappa_ts_plain(cfg: Config, grid: Grid, Kwz, diffKr, diffKzT, diffKzS,
             kapT = kapT + Kwz * grid.maskInC
             kapS = kapS + Kwz * grid.maskInC
         if diffKr is not None:
-            # ggl90_calc_diff.F: KappaRx += GGL90diffKr - diffKrNrS
+            # ggl90_calc_diff.F: KappaRx += GGL90diffKr - diffKrNrS (and
+            # pp81/my82_calc_diff.F with their diffKr)
             kapT = kapT + (diffKr - cfg.diffKrS)
             kapS = kapS + (diffKr - cfg.diffKrS)
     else:
@@ -550,20 +553,24 @@ def _kappa_ts_kernel(cfg: Config, grid: Grid, *ins):
 
 
 def kappa_ts(cfg: Config, grid: Grid, forcing: Forcing, sfT, sfS, maskUp,
-             kpp_fields=None, ggl90_fields=None, gm=None, impl: str = None):
+             kpp_fields=None, ggl90_fields=None, gm=None, impl: str = None,
+             vmix_fields=None):
     """(kapT, kapS, dfT, dfS): the tracers' vertical diffusivities and, with
     KPP, its nonlocal fluxes for gad.calc_rhs's df (None without KPP; with
     KPP and no GM, kapT and kapS are KPP's diffKzT and diffKzS themselves).
+    ggl90_fields or vmix_fields (PP81's or MY82's) give the diffKr that
+    is added.
     Kernel J-ts on CUDA tensors (under kernels.TwinVJP), its twin on CPU
     tensors or with impl="plain". The background alone (no KPP, GM or
     GGL90) is two constant fills (the twin's torch.full) on any device:
     J-ts runs only where there is arithmetic."""
-    ins = (None if gm is None else gm.Kwz,
-           None if ggl90_fields is None else ggl90_fields["diffKr"],
+    # check_supported refuses GGL90 with PP81 or MY82
+    added = (ggl90_fields or vmix_fields or {}).get("diffKr")
+    ins = (None if gm is None else gm.Kwz, added,
            *((kpp_fields["diffKzT"], kpp_fields["diffKzS"],
               kpp_fields["ghat"], kpp_fields["frac"], sfT, sfS, forcing.Qsw,
               maskUp) if kpp_fields is not None else (None,) * 8))
-    if kpp_fields is None and gm is None and ggl90_fields is None:
+    if kpp_fields is None and gm is None and added is None:
         return _kappa_ts_plain(cfg, grid, *ins)
     if not kernels.use_kernel(grid.maskC, impl):
         global plain_calls
@@ -615,12 +622,15 @@ def tracer_integrate(cfg: Config, grid: Grid, flow: gad.AdvFlow, tracer,
 
 def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
                    sf: SurfaceForcing, myIter: int, impl: str = None,
-                   kpp_fields=None, ggl90_fields=None, gm=None, gm_psi=None):
+                   kpp_fields=None, ggl90_fields=None, gm=None, gm_psi=None,
+                   vmix_fields=None):
     """thermodynamics.F: returns (theta, salt, gtNm1, gsNm1, gtNm2, gsNm2,
     somT, somS). sf: the step's surface forcing (surface_forcing);
     kpp_fields: KPP.calc's output, or None without KPP
     (thermodynamics.py:470-496, 524-533 of the JAX package); ggl90_fields:
-    GGL90.calc's diffKr under "diffKr", or None (:501-503, :537-538); gm:
+    GGL90.calc's diffKr under "diffKr", or None (:501-503, :537-538);
+    vmix_fields: PP81.calc's or MY82.calc's diffKr under "diffKr", added
+    alike (:504-505, :539-540), or None; gm:
     the GM-Redi tensor (model/gmredi.py), whose Kwz joins the interface
     diffusivities and whose fluxes join each tracer's (:282-283, :490-495,
     :530-533), or None; gm_psi: the filled bolus streamfunction (psiX,
@@ -639,7 +649,8 @@ def thermodynamics(cfg: Config, grid: Grid, state: State, forcing: Forcing,
     sfT, sfS = sf.sfT, sf.sfS
     kapT, kapS, dfT, dfS = kappa_ts(
         cfg, grid, forcing, sfT, sfS, flow.maskUp, kpp_fields=kpp_fields,
-        ggl90_fields=ggl90_fields, gm=gm, impl=impl)
+        ggl90_fields=ggl90_fields, gm=gm, impl=impl,
+        vmix_fields=vmix_fields)
     if cfg.tempStepping:
         theta, gtNm1, gtNm2, somT = tracer_integrate(
             cfg, grid, flow, theta, gtNm1, gtNm2, kapT, sfT, cfg.diffKhT,

@@ -6,7 +6,9 @@ and Langmuir in GGL90), the som-gyre (second-order-moment tracers), the
 ice-gyre (the kpp-gyre under a sea-ice cover), the gm- and
 gm-bolus-gyre (the kpp-gyre with GM-Redi and a temperature front), and
 the visc-gyre, visc-vi-gyre and st-vi-gyre (variable and biharmonic
-viscosity, the strain-tension form, quadratic bottom drag); and
+viscosity, the strain-tension form, quadratic bottom drag), the pp81-,
+my82- and opps-gyre (the kpp-gyre with PP81's or MY82's
+Richardson-number mixing or OPPS plume convection in place of KPP); and
 the nh-convection box, a
 rotating, surface-cooled non-hydrostatic convection box. The set-ups put
 their tensors on the CUDA device unless device="cpu" is asked for, and take
@@ -26,8 +28,10 @@ from mitgcm_tpu_torch.core.state import init_state, zero_forcing
 from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.gmredi import GMParams
 from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
+from mitgcm_tpu_torch.model.opps import OPPS
 from mitgcm_tpu_torch.model.seaice import SeaIce, params_from_namelists
 from mitgcm_tpu_torch.model.step import integr_continuity
+from mitgcm_tpu_torch.model.vertmix import MY82, PP81
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo, shift as sh
 from mitgcm_tpu_torch.solver.cg2d import build_cg2d
 from mitgcm_tpu_torch.solver.cg3d import build_cg3d
@@ -281,6 +285,65 @@ def ggl90_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
         ggl90.init_idemix_forc(maps.__getitem__)
         state.IDEMIX_E = torch.zeros_like(state.GGL90TKE)
     return grid, state, forcing, op, ggl90
+
+
+# The Richardson-number and plume paths: the kpp-gyre (vector-invariant
+# momentum, JMD95Z, AB-3, 32 levels stretched by 1.15 at full size, the
+# heat flux of _heat_forced_setup) with KPP off and one of PP81, MY82 or
+# OPPS on. Their namelists (verification/vermix's input.pp81, input.my82
+# and input.opps) are not part of this repository, so the packages run
+# their documented defaults. Vertical viscosity and diffusion stay
+# implicit, as the kpp-gyre has them: PP81's and MY82's viscosity reaches
+# 1 m2/s, which on the 8.7 m top layer at deltaT = 600 s is
+# 1 * 600 / 8.7^2 ~ 8, sixteen times the explicit limit of 1/2.
+def pp81_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The kpp-gyre with PP81 (Pacanowski & Philander 1981) in place of
+    KPP (the "pp81-gyre"): PP81_PARM01's defaults as pp81_readparms.F sets
+    them (PPnRi 2, PPnu0 1e-2, PPalpha 5, PPviscMax 1 m2/s, RiLimit derived
+    from them and viscAr, pp81_readparms.F:84-90). Implicit vertical
+    viscosity and diffusion (see above). Set up by vertmix_gyre_setup."""
+    return kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                           **{"useKPP": False, "usePP81": True, **kw})
+
+
+def my82_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The kpp-gyre with MY82 (Mellor & Yamada level 2.0) in place of KPP
+    (the "my82-gyre"): MY_PARM01's defaults (MYviscMax and MYdiffMax 1
+    m2/s, MYhblScale 0.1, RiMax 0.195) and my82_init_varia.F's constants.
+    Implicit vertical viscosity and diffusion (see above). Set up by
+    vertmix_gyre_setup."""
+    return kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                           **{"useKPP": False, "useMY82": True, **kw})
+
+
+def opps_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The kpp-gyre with OPPS plume convection in place of KPP (the
+    "opps-gyre"): OPPS_PARM01's defaults (opps_readparms.F: a 100 m plume
+    launched at 0.03 m/s, STABILITY_THRESHOLD -1e-4, entrainment -0.05,
+    FRACTIONAL_AREA 0.1, one adjustment iteration) with useGCMwVel off.
+    The cooled north densifies its surface cells past the threshold from
+    the second step, so plumes launch there and not in the heated south.
+    Set up by opps_gyre_setup."""
+    return kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth,
+                           **{"useKPP": False, "useOPPS": True, **kw})
+
+
+def vertmix_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                       device="cuda", grid: Grid = None):
+    """(grid, state, forcing, op, vmix) of the pp81- or my82-gyre: the
+    kpp-gyre's wind, Qnet and Qsw, and PP81 or MY82 (as cfg asks) with its
+    defaults."""
+    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device, grid)
+    scheme = PP81 if cfg.usePP81 else MY82
+    return grid, state, forcing, op, scheme(cfg, grid)
+
+
+def opps_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                    device="cuda", grid: Grid = None):
+    """(grid, state, forcing, op, opps) of the opps-gyre: the kpp-gyre's
+    wind, Qnet and Qsw, and OPPS with its defaults."""
+    grid, state, forcing, op = _heat_forced_setup(cfg, dtype, device, grid)
+    return grid, state, forcing, op, OPPS(cfg, grid)
 
 
 # the gm-gyre's GM-Redi settings: tutorial_global_oce_latlon's and

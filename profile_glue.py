@@ -7,8 +7,9 @@
 
 Runs the 1024x1024x32 (N x N x 32 with --n) float32 gyre, vi-gyre,
 kpp-gyre, ggl90-gyre, os7mp-gyre, pqm-gyre, som-gyre, idemix-gyre,
-gm-gyre, gm-bolus-gyre, ice-gyre, evp-ice-gyre, visc-gyre, visc-vi-gyre
-or st-vi-gyre (--config visc, visc-vi, st-vi; deltaT = 600 s), or the
+gm-gyre, gm-bolus-gyre, ice-gyre, evp-ice-gyre, visc-gyre, visc-vi-gyre,
+st-vi-gyre (--config visc, visc-vi, st-vi), pp81-, my82- or opps-gyre
+(--config pp81, my82, opps; deltaT = 600 s), or the
 N x N x 50 nh-convection box (--config box, deltaT = 60 s), of the
 PyTorch port found under DIR (default: this script's directory; give an
 unpacked earlier tree to compare two versions on one card, in turns):
@@ -887,7 +888,8 @@ def main():
                                          "os7mp", "pqm", "som", "idemix",
                                          "gm", "gm-bolus", "ice", "box",
                                          "evp-ice", "visc", "visc-vi",
-                                         "st-vi", "adjoint"),
+                                         "st-vi", "pp81", "my82", "opps",
+                                         "adjoint"),
                     default="gyre")
     ap.add_argument("--glue-sources", action="store_true")
     ap.add_argument("--n", type=int, default=1024)
@@ -943,6 +945,9 @@ def main():
     elif args.config in smoke.VISC_CONFIGS:
         exp = smoke.visc_experiment(args.config, args.n, 32, torch.float32,
                                     deltaT=600.0)
+    elif args.config in ("pp81", "my82", "opps"):
+        exp = smoke.rimix_experiment(args.config, args.n, 32, torch.float32,
+                                     deltaT=600.0)
     elif args.config in ("os7mp", "pqm", "som", "idemix"):
         exp = smoke.g9_experiment(args.n, 32, torch.float32,
                                   config=args.config, deltaT=600.0)

@@ -20,7 +20,8 @@
 // launch_tracer_step_adj of step_glue_adj.cuh, launch_adv_flow_adj of
 // adv_flow.cuh, launch_eos_linear_adj of eos.cuh), and X and Y
 // (launch_calc_visc and launch_del2uv of mom_visc.cuh) with B's and V's
-// dissipation variants (launch_mom_visc, launch_vecinv_visc), for
+// dissipation variants (launch_mom_visc, launch_vecinv_visc), and U and Z
+// (launch_vertmix_calc of vertmix.cuh, launch_opps_col of opps.cuh), for
 // tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "adv_flow.cuh"
@@ -41,6 +42,7 @@
 #include "mom_fluxform_tile.cuh"
 #include "mom_vecinv_tile.cuh"
 #include "mom_visc.cuh"
+#include "opps.cuh"
 #include "phihyd_adj.cuh"
 #include "phihyd_tile.cuh"
 #include "pre_cg3d.cuh"
@@ -51,6 +53,7 @@
 #include "step_glue_adj.cuh"
 #include "step_scans.cuh"
 #include "step_scans_adj.cuh"
+#include "vertmix.cuh"
 
 using namespace mitgcm;
 
@@ -403,8 +406,28 @@ struct OnHost {
         drag, OnHost{});                                                     \
   }
 
+// U and Z, with their entry points' arguments but the stream; a block's
+// shared memory as an H100's opt-in limit
+constexpr size_t kHostMaxShared = 232448;
+#define HOST_RIMIX_ENTRY_POINTS(T, SUF)                                      \
+  extern "C" int host_vertmix_calc_##SUF(                                    \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int my82, int kind, int use_phi, int nRi) {          \
+    return launch_vertmix_calc<T>(table, n, params, np, nr, nyp, nxp, my82,  \
+                                  kind, use_phi, nRi,                        \
+                                  OnHost{kHostMaxShared});                   \
+  }                                                                          \
+  extern "C" int host_opps_col_##SUF(                                        \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int kind, int use_phi, int max_abe) {                \
+    return launch_opps_col<T>(table, n, params, np, nr, nyp, nxp, kind,      \
+                              use_phi, max_abe, OnHost{kHostMaxShared});     \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
+HOST_RIMIX_ENTRY_POINTS(float, f32)
+HOST_RIMIX_ENTRY_POINTS(double, f64)
 HOST_VISC_ENTRY_POINTS(float, f32)
 HOST_VISC_ENTRY_POINTS(double, f64)
 HOST_CG3D_ENTRY_POINTS(float, f32)

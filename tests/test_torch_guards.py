@@ -448,7 +448,7 @@ def test_check_supported_refuses_ggl90_above_kernel_cap():
 def test_check_supported_takes_ggl90_above_64_without_idemix():
     """G9's ggl90_col keeps no per-thread level array: GGL90 without IDEMIX
     at nr = 65 passes check_supported with its tensors on the card, and
-    G9's wrapper refuses, by name, only an nr past g9_max_nr (two values a
+    G9's wrapper refuses, by name, only an nr past kernels.max_nr (two values a
     level of a warp's columns in a block's shared memory: 454 levels in
     float64, 908 in float32)."""
     nr = ggl90_mod.IDEMIX_MAX_NR + 1
@@ -458,14 +458,15 @@ def test_check_supported_takes_ggl90_above_64_without_idemix():
     assert not ggl90.p["useIDEMIX"]
     ggl90.klowC = _OnTheCard()
     check_supported(cfg, ggl90=ggl90)
-    assert ggl90_mod.g9_max_nr(torch.float64) == 454
-    assert ggl90_mod.g9_max_nr(torch.float32) == 908
+    most = {dtype: kernels.max_nr(ggl90_mod.G9_SHARED_VALUES, dtype)
+            for dtype in (torch.float64, torch.float32)}
+    assert most == {torch.float64: 454, torch.float32: 908}
     for dtype in (torch.float64, torch.float32):
-        most = ggl90_mod.g9_max_nr(dtype)
-        x, x2 = torch.zeros((most + 1, 3, 3), dtype=dtype), \
+        x, x2 = torch.zeros((most[dtype] + 1, 3, 3), dtype=dtype), \
             torch.zeros((3, 3), dtype=dtype)
         with pytest.raises(ValueError, match=f"kernel G9 takes 2 <= nr <= "
-                                             f"{most}, not {most + 1}"):
+                                             f"{most[dtype]}, not "
+                                             f"{most[dtype] + 1}"):
             ggl90_mod.ggl90_col(ggl90, x, x, x, x, x2, x2)
 
 

@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from mitgcm_tpu_torch import kernels
 from mitgcm_tpu_torch.model import calc_gw, gad, ggl90, gmredi, phihyd, step
 from mitgcm_tpu_torch.model import mom_fluxform as mom
 from mitgcm_tpu_torch.model import mom_vecinv as vecinv
@@ -115,6 +116,11 @@ SIGNATURES = {
     + [_PP, _I, ctypes.POINTER(ctypes.c_double), _I, _I, _I],
     "host_mom_vecinv_visc": [_PP, _I] + [_I] * 9 + [_D] * 4
     + [_PP, _I, ctypes.POINTER(ctypes.c_double), _I, _I, _I],
+    # U and Z, with their entry points' arguments but the stream
+    "host_vertmix_calc": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 7,
+    "host_opps_col": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 6,
 }
 
 
@@ -1684,7 +1690,7 @@ def g9_case(dtype, seed, ny, nx, nr, flag, shear, dirichlet, variant):
     args = (params, len(params), nr, nyp, nxp, *flags)
     fn = f"host_ggl90_col_{SUFFIX[dtype]}"
 
-    def run(lib, ins, max_shared=ggl90.G9_MAX_SHARED):
+    def run(lib, ins, max_shared=kernels.MAX_SHARED):
         outs = [torch.full(s3, float("nan"), dtype=dtype) for _ in range(3)]
         tab = table(list(ins.values()) + outs)
         err = getattr(lib, fn)(tab, len(tab), *args, max_shared)
@@ -2370,7 +2376,6 @@ def test_gyre_gradient_through_glue_adj(lib, monkeypatch):
     other orders than autograd through the twins), no kernels.TwinVJP
     backward and no plain fold runs, and each backward kernel is
     launched."""
-    from mitgcm_tpu_torch import kernels
     from mitgcm_tpu_torch.ad import adjoint
     from mitgcm_tpu_torch.model import thermodynamics as th
     from mitgcm_tpu_torch.ops import eos, stencil
@@ -2453,7 +2458,6 @@ def on_mock(lib, monkeypatch):
     the twins), each launch on the mock through the host entry point of
     its kernel (the sweeps' with their direction first, H-cg3d's passes
     with their pointers as a table); the halo fill as the gather."""
-    from mitgcm_tpu_torch import kernels
     from mitgcm_tpu_torch.ops import stencil
 
     def use_kernel(t, impl=None):
@@ -2482,11 +2486,16 @@ def on_mock(lib, monkeypatch):
         for name, t in tensors.items():
             assert t.dtype == dtype and t.is_contiguous(), name
 
+    def check_int32(name, t, shape):
+        assert t.dtype == torch.int32 and t.is_contiguous(), name
+        assert tuple(t.shape) == tuple(shape), name
+
     host = SimpleNamespace(mitgcm_cg2d_num_partials=lambda ny, nx: (
         (nx + 31) // 32) * ((ny + 7) // 8))
     monkeypatch.setattr(kernels, "use_kernel", use_kernel)
     monkeypatch.setattr(kernels, "launch", launch)
     monkeypatch.setattr(kernels, "check_tensors", check_tensors)
+    monkeypatch.setattr(kernels, "check_int32", check_int32)
     monkeypatch.setattr(kernels, "library", lambda: host)
     monkeypatch.setattr(stencil, "_halo_fill", stencil._gather)
     kernels.launches.clear()
@@ -2749,7 +2758,6 @@ def test_surface_forcing_grad_through_twin(lib, on_mock, relaxed):
     a control get the plain path's gradient bit for bit, the twin's VJP
     run once; without it the tracers are not Q's inputs, and a theta that
     requires grad runs no twin."""
-    from mitgcm_tpu_torch import kernels
     from mitgcm_tpu_torch.model import thermodynamics as th
 
     f = last_fields(torch.float64, 1040, *SIZES[0])
@@ -3196,8 +3204,6 @@ def test_visc_launches_refuse(lib):
     viscosities or the Laplacian's broken, biharmonic viscosities without
     the Laplacian, the strain-tension form with a Laplacian
     (cudaErrorInvalidValue, 1)."""
-    from mitgcm_tpu_torch import kernels
-
     x = torch.zeros((NR, 6, 8), dtype=torch.float64)
     tab = table([x] * 27)
     params = kernels.doubles([0.0] * 22)
@@ -3235,3 +3241,165 @@ def test_visc_launches_refuse(lib):
         assert lib.host_mom_fluxform_visc_f64(
             btab, len(btab), *args, 430.0, 270.0, 2.0, -1.0, -1.0,
             table(pairs), nv, p4, n_params, 1, 1) == 1
+
+
+# Kernels U (vertmix_calc, vertmix.cuh) and Z (opps_col, opps.cuh), and
+# J-uv's and J-ts's vertmix variants, through their wrappers' kernel path
+# on CPU tensors (on_mock) against the same wrappers with impl="plain":
+# every padded cell equal in float64 and float32 on both SIZES grids with
+# 12 levels, whose columns hold 0 to 12 wet levels from the top; U in PP81
+# (PPnRi 2 and 3) and MY82, Z with its defaults, useGCMwVel and two
+# adjustment iterations, each under the LINEAR, JMD95Z (the static profile
+# and totPhiHyd) and MDJWF equations of state; the twins with numpy's sqrt.
+RIMIX_NR = 12
+RIMIX_EOS = (("LINEAR", 0), ("JMD95Z", 0), ("JMD95Z", 2), ("MDJWF", 2))
+U_SCHEMES = {"PP81": ("PP81", {}), "PP81, PPnRi 3": ("PP81", {"PPnRi": 3}),
+             "MY82": ("MY82", {})}
+Z_VARIANTS = {"defaults": {}, "useGCMwVel": {"useGCMwVel": True},
+              "two adjustments": {"MAX_ABE_ITERATIONS": 2}}
+
+
+def rimix_case(dtype, seed, ny, nx, config, kind, select_p):
+    """(cfg, grid, u, v, theta, salt, w, totPhiHyd): mix_fields' grid with
+    columns of 0 to RIMIX_NR wet levels from the top (one of one level and
+    one full), cfg the configuration's with the EOS and pressure of (kind,
+    select_p); velocities over three decades, theta unstable at about a
+    third of the interfaces."""
+    from mitgcm_tpu_torch.model import vertmix
+
+    f = mix_fields(dtype, seed, ny, nx, RIMIX_NR)
+    nr, nyp, nxp = f.s3
+    kwet = f.rng.integers(0, nr + 1, size=(nyp, nxp))
+    kwet[3, 3], kwet[4, 4] = 1, nr
+    f.grid.maskC = f.tensor(np.arange(nr)[:, None, None] < kwet[None])
+    cfg = dataclasses.replace(
+        getattr(synthetic, config)(nx=nxp - 2 * OL, ny=nyp - 2 * OL, nr=nr),
+        eosType=kind, selectP_inEOS_Zc=select_p)
+    amp = f.tensor(10.0 ** f.rng.uniform(-3.0, 0.0, f.s3))
+    u = f.normal(f.s3, 0.1) * amp * f.grid.maskW
+    v = f.normal(f.s3, 0.1) * amp * f.grid.maskS
+    theta = (f.tensor(np.linspace(20.0, 8.0, nr))[:, None, None]
+             + f.normal(f.s3, 1.0))
+    salt = 35.0 + f.normal(f.s3, 0.2)
+    w = f.normal(f.s3, 1e-2)
+    phi = f.normal(f.s3, 20.0)
+    assert kernels.max_nr(vertmix.U_SHARED_VALUES, dtype) >= nr
+    return cfg, f.grid, u, v, theta, salt, w, phi
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,select_p", RIMIX_EOS)
+@pytest.mark.parametrize("scheme", U_SCHEMES)
+def test_vertmix_calc(lib, on_mock, numpy_sqrt, ny, nx, dtype, kind,
+                      select_p, scheme):
+    from mitgcm_tpu_torch.model import vertmix
+
+    cfg, g, u, v, theta, salt, _, phi = rimix_case(
+        DTYPES[dtype], 1000 + nx, ny, nx, "pp81_gyre_config", kind,
+        select_p)
+    name, group = U_SCHEMES[scheme]
+    vm = getattr(vertmix, name)(cfg, g, group)
+    got = vm.calc(u, v, theta, salt, phi)
+    assert on_mock["vertmix_calc"] == 1
+    want = vm.calc(u, v, theta, salt, phi, impl="plain")
+    check_outputs(got, want, f"{scheme} {kind}")
+    # both branches of the closures: the background floor and above it
+    wet = g.maskC[1:] > 0
+    assert (got[0][1:][wet] == cfg.viscAr).any()
+    assert (got[0][1:][wet] > 10 * cfg.viscAr).any()
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,select_p", RIMIX_EOS)
+@pytest.mark.parametrize("variant", Z_VARIANTS)
+def test_opps_col(lib, on_mock, numpy_sqrt, ny, nx, dtype, kind, select_p,
+                  variant):
+    from mitgcm_tpu_torch.model import opps
+
+    cfg, g, _, _, theta, salt, w, phi = rimix_case(
+        DTYPES[dtype], 1100 + nx, ny, nx, "opps_gyre_config", kind,
+        select_p)
+    op = opps.OPPS(cfg, g, Z_VARIANTS[variant])
+    got = op.apply(theta, salt, w, phi)
+    assert on_mock["opps_col"] == 1
+    want = op.apply(theta, salt, w, phi, impl="plain")
+    check_outputs(got, want, f"{variant} {kind}")
+    # plumes launched and not launched, and the tracers moved
+    assert 0 < int(got[2].sum()) < int((g.maskC[1:] > 0).sum())
+    assert not torch.equal(got[0], theta)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scheme", ("PP81", "MY82"))
+def test_kappa_vertmix(lib, on_mock, numpy_sqrt, ny, nx, dtype, scheme):
+    """J-uv's max-blend of PP81's or MY82's viscAr and J-ts's addend of
+    their diffKr (model/step.py:kappa_uv, model/thermodynamics.py:
+    kappa_ts with vmix_fields), fed U's twin's fields."""
+    from mitgcm_tpu_torch.model import thermodynamics as th
+    from mitgcm_tpu_torch.model import vertmix
+
+    cfg, g, u, v, theta, salt, _, phi = rimix_case(
+        DTYPES[dtype], 1200 + nx, ny, nx, f"{scheme.lower()}_gyre_config",
+        "JMD95Z", 0)
+    visc, diff = getattr(vertmix, scheme)(cfg, g, {}).calc(
+        u, v, theta, salt, phi, impl="plain")
+    fields = {"viscAr": visc, "diffKr": diff}
+    for kernel, fn in (
+            ("kappa_uv", lambda impl: list(step.kappa_uv(
+                cfg, g, impl=impl, vmix_fields=fields))),
+            ("kappa_ts", lambda impl: [t for t in th.kappa_ts(
+                cfg, g, None, None, None, None, impl=impl,
+                vmix_fields=fields) if t is not None])):
+        got = fn(None)
+        assert on_mock[kernel] == 1
+        check_outputs(got, fn("plain"), f"{kernel} {scheme}")
+
+
+def test_rimix_launches_refuse(lib):
+    """U and Z refuse tables and parameter arrays of the wrong length, PP81
+    with PPnRi 0, an EOS kind of 3, totPhiHyd asked for and not given, and
+    more levels than a block's shared memory holds (cudaErrorInvalidValue,
+    1); their wrappers refuse such nr by name."""
+    from mitgcm_tpu_torch.model import opps, vertmix
+
+    f = mix_fields(torch.float64, 1300, *SIZES[0], RIMIX_NR)
+    nr, nyp, nxp = f.s3
+    x = torch.zeros(f.s3, dtype=torch.float64)
+    prof = torch.zeros(nr, dtype=torch.float64)
+    rn = torch.zeros(nr + 1, dtype=torch.float64)
+    params = (ctypes.c_double * 23)()
+    tab = table([x, x, x, x, None, prof, None, None, x, rn, rn, x, x])
+    for suf in ("f64", "f32"):
+        fn = getattr(lib, f"host_vertmix_calc_{suf}")
+        assert fn(tab, 13, params, 23, nr, nyp, nxp, 0, 0, 0, 2) == 0
+        assert fn(tab, 12, params, 23, nr, nyp, nxp, 0, 0, 0, 2) == 1
+        assert fn(tab, 13, params, 22, nr, nyp, nxp, 0, 0, 0, 2) == 1
+        assert fn(tab, 13, params, 23, nr, nyp, nxp, 0, 0, 0, 0) == 1
+        assert fn(tab, 13, params, 23, nr, nyp, nxp, 0, 3, 0, 2) == 1
+        assert fn(tab, 13, params, 23, nr, nyp, nxp, 0, 0, 1, 2) == 1
+        most = kernels.max_nr(vertmix.U_SHARED_VALUES, DTYPES[suf])
+        assert fn(tab, 13, params, 23, most + 1, nyp, nxp, 1, 0, 0, 2) == 1
+    kl = torch.zeros((nyp, nxp), dtype=torch.int32)
+    zparams = (ctypes.c_double * 14)()
+    tab = table([x, x, None, None, prof, x, prof, prof, kl, x, x, x])
+    for suf in ("f64", "f32"):
+        fn = getattr(lib, f"host_opps_col_{suf}")
+        assert fn(tab, 12, zparams, 14, nr, nyp, nxp, 0, 0, 1) == 0
+        assert fn(tab, 11, zparams, 14, nr, nyp, nxp, 0, 0, 1) == 1
+        assert fn(tab, 12, zparams, 13, nr, nyp, nxp, 0, 0, 1) == 1
+        assert fn(tab, 12, zparams, 14, nr, nyp, nxp, 3, 0, 1) == 1
+        assert fn(tab, 12, zparams, 14, nr, nyp, nxp, 0, 1, 1) == 1
+        most = kernels.max_nr(opps.Z_SHARED_VALUES, DTYPES[suf])
+        assert fn(tab, 12, zparams, 14, most + 1, nyp, nxp, 0, 0, 1) == 1
+    assert (kernels.max_nr(vertmix.U_SHARED_VALUES, torch.float64),
+            kernels.max_nr(opps.Z_SHARED_VALUES, torch.float64)) == (302, 181)
+    big = torch.zeros((303, 1, 1), dtype=torch.float64)
+    none = SimpleNamespace(cfg=None, grid=None)
+    with pytest.raises(ValueError, match="kernel U takes"):
+        vertmix._vertmix_kernel(none, big, big, big, big, None)
+    with pytest.raises(ValueError, match="kernel Z takes"):
+        opps.opps_col(none, big[:182], big[:182], None, None)
+
