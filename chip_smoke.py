@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (mitgcm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [PHASE ...]
 
-Phases, each printing its own lines; any failure raises and the script
-exits nonzero without the final line:
+With no argument every phase runs; names of PHASES (`gyre` for 3-5,
+`adjoint`, `vi`, ..., `cd-shap` for 21) run those alone after the device
+and build phases, and the JSON line then lists only their kernels. Each
+phase prints its seconds when it ends. Phases, each printing its own
+lines; any failure raises and the script exits nonzero without the final
+line:
   1. device    : refuse to run without CUDA; print the card's name and
                  power limit (nvidia-smi) and the torch / CUDA versions
   2. build     : compile the kernels of kernels/csrc with nvcc
@@ -273,6 +277,27 @@ exits nonzero without the final line:
                  every launch count (U, J-uv and J-ts, or Z, once a step)
                  and no twin of U, Z or the glue, and on the opps-gyre Z's
                  plume launches in the cooled north
+ 21. CD scheme and Shapiro filter: the cd-gyre and cd-vi-gyre (the gyre
+                 and the vi-gyre under the CD scheme's Coriolis, tauCD =
+                 321428 s) and the shap-gyre (the gyre with the Shapiro
+                 filter, 4 index-space passes on u, v, theta and salt):
+                 kernels CD (cd_scheme, iteration 0 and later), SH-uv
+                 (shap_uv: index space, physical with Shap_uvLength < 0,
+                 0, > 0) and SH-ts (shap_ts: index, physical with and
+                 without Shap_TrLength, mixed) against their twins on
+                 whole padded arrays, and G's, B's and V's CD variants
+                 (no 2-D or planetary Coriolis term; B and V on the
+                 interior, halo outputs 0), bit for bit, at 64x64x4
+                 float64 and float32 and 1024x1024x32 float32, each with
+                 its device time (CD and the variants: a launch, 20 in a
+                 CUDA graph; SH-uv and SH-ts: a whole filter, all its
+                 passes, 5 in a CUDA graph), its wrapper call's, its
+                 twin's and its bound; 5 float64 steps of each path at
+                 64x64x4, kernel path against plain path; then each at
+                 1024x1024x32 float32 (deltaT=600): one warm-up step and 5
+                 timed steps with every launch count (CD once a step,
+                 SH-uv 4 and SH-ts 8 launches a step) and no twin, and a
+                 profile of 2 steps (device busy and idle share)
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -288,7 +313,9 @@ gm_tensor and C's GM branch and its gm-bolus-gyre for gm_psi_b and
 gm_residual_flow, phase 5's gyre for A, D-G, L and Q, phase 9's
 ggl90-gyre for R's sigmaR, phase 12's box for N1 and N2, phase 13's
 ice-gyre for S1 and S2, phase 19's paths for X, Y and the dissipation
-variants, phase 20's pp81-gyre for U and opps-gyre for Z), with the
+variants, phase 20's pp81-gyre for U and opps-gyre for Z, phase 21's
+cd-gyre for CD and G's and B's CD variants, cd-vi-gyre for V's and
+shap-gyre for SH-uv and SH-ts), with the
 kernel's time (D-G's from phase 14, J-uv's, J-ts's, L's and sigmaR's
 from phase 17 and N1's, N2's, Q's, S1's and S2's from phase 18: a
 launch's device time, 20 launches in a CUDA graph, with
@@ -502,6 +529,20 @@ KERNELS = {
                      "mitgcm_tpu/model/vertmix.py:80"),
     "opps_col": ("mitgcm_tpu_torch/kernels/csrc/opps.cu",
                  "mitgcm_tpu/model/opps.py:86"),
+    # the CD scheme (CD, and the CD variants of G, B and V) and the Shapiro
+    # filter (SH-uv, SH-ts)
+    "cd_scheme": ("mitgcm_tpu_torch/kernels/csrc/cd_code.cu",
+                  "mitgcm_tpu/model/cd_code.py:30"),
+    "mom_ab_step(CD)": ("mitgcm_tpu_torch/kernels/csrc/step_glue.cu",
+                        "mitgcm_tpu/model/step.py:256"),
+    "mom_fluxform(CD)": ("mitgcm_tpu_torch/kernels/csrc/mom_fluxform.cu",
+                         "mitgcm_tpu/model/mom_fluxform.py:410"),
+    "mom_vecinv(CD)": ("mitgcm_tpu_torch/kernels/csrc/mom_vecinv.cu",
+                       "mitgcm_tpu/model/mom_vecinv.py:405"),
+    "shap_uv": ("mitgcm_tpu_torch/kernels/csrc/shap_filt.cu",
+                "mitgcm_tpu/model/shap_filt.py:150"),
+    "shap_ts": ("mitgcm_tpu_torch/kernels/csrc/shap_filt.cu",
+                "mitgcm_tpu/model/shap_filt.py:224"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
@@ -783,7 +824,15 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 "vertmix_calc": 200,
                 # Z's operations depend on the data: opps_ops counts the
                 # live iterations of its inputs (rimix_ops)
-                "opps_col": 0}
+                "opps_col": 0,
+                # CD, one thread a cell: pf at eight points, afV and afU at
+                # four points each (~6 flops), the averages and the
+                # relaxation (~40), the predictors (~6); a call of SH-uv
+                # and SH-ts is the whole filter of the shap-gyre: SH-uv's 4
+                # index passes of two divergences and three vorticities
+                # (~40 a pass), SH-ts's 4 passes of four fluxes (~20) on
+                # each of two tracers
+                "cd_scheme": 120, "shap_uv": 160, "shap_ts": 160}
 # the outputs of kernels J-ts (those its variant writes) and L
 KAPPA_TS_OUTS = ("kapT", "kapS", "dfT", "dfS")
 ADV_FLOW_OUTS = ("uTrans", "vTrans", "rTrans", "rTransKp", "maskUp", "xA",
@@ -1094,11 +1143,13 @@ def mom_footprint(named, args):
     """Kernel B's inputs as the views that its launch reads (args: the
     launch's arguments after the pointer table and its length): the
     kappas below the surface interface, recip_drC between the levels, the
-    3-D Coriolis term's two fields only under its flag."""
-    nr, _, _, oly, olx, _, cori3d = args[:7]
+    3-D Coriolis term's two fields only under its flag (bit 0 of the
+    Coriolis flags), fCori not under the CD variant's (bit 1)."""
+    nr, _, _, oly, olx, _, coriolis = args[:7]
     levels = {"kappaRU": slice(1, None), "kappaRV": slice(1, None),
               "recip_drC": slice(1, nr)}
-    skip = () if cori3d else ("fCoriCos", "angleCosC")
+    skip = (() if coriolis & 1 else ("fCoriCos", "angleCosC")) + (
+        ("fCori",) if coriolis & 2 else ())
     return {n: footprint_view(t, oly, olx, MOM_RINGS.get(n),
                               levels.get(n))
             for n, t in named.items() if n not in skip}
@@ -1112,14 +1163,14 @@ def vecinv_footprint(named, args):
     viscous flux (1 .. nr-1) or the no-slip bottom drag (1 .. nr) reads,
     with recip_drC between the levels, none of them under implicit
     viscosity without the no-slip drag; rAw and rAs only under explicit
-    viscosity."""
-    nr, _, _, oly, olx, _, _, implicit, no_slip = args[:9]
+    viscosity; fCoriG not under the CD variant (Coriolis 2)."""
+    nr, _, _, oly, olx, _, cori, implicit, no_slip = args[:9]
     kappa = slice(1, None) if no_slip else slice(1, nr)
     levels = {"maskC": slice(0, nr - 1), "kappaRU": kappa,
               "kappaRV": kappa, "recip_drC": slice(1, nr)}
-    skip = ()
+    skip = ("fCoriG",) if cori == 2 else ()
     if implicit:
-        skip = ("rAw", "rAs")
+        skip += ("rAw", "rAs")
         if not no_slip:
             skip += ("kappaRU", "kappaRV", "recip_drC")
     return {n: footprint_view(t, oly, olx, VECINV_RINGS.get(n),
@@ -1812,7 +1863,7 @@ def full_phase(kernels):
                + G9_KERNELS + MD_KERNELS + O_KERNELS + P_KERNELS
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
                + SEAICE_GLUE_KERNELS + EVP_KERNELS + GM_KERNELS
-               + VISC_KERNELS + RIMIX_KERNELS
+               + VISC_KERNELS + RIMIX_KERNELS + CD_SHAP_ROWS
                + ("eos_sigma_r", "kappa_uv", "kappa_ts")
                and launches.get(k, 0) == 0]
     if missing:
@@ -5527,22 +5578,322 @@ def rimix_phase(kernels, results, smi):
     return launches
 
 
-def main():
-    smi = device_phase()
-    sys.path.insert(0, ROOT)
-    from mitgcm_tpu_torch import kernels
+# The CD scheme and the Shapiro filter (phase 21): the cd-gyre and the
+# cd-vi-gyre (the gyre and the vi-gyre under the CD scheme's Coriolis) and
+# the shap-gyre (the gyre with the Shapiro filter)
+CD_SHAP_CONFIGS = {"cd": "cd_gyre_config", "cd-vi": "cd_vi_gyre_config",
+                   "shap": "shap_gyre_config"}
+CD_SHAP_KERNELS = ("cd_scheme", "shap_uv", "shap_ts")
+# the rows of the JSON line that phase 21's paths launch (the gyre's, phase
+# 5, launches none of them)
+CD_SHAP_ROWS = CD_SHAP_KERNELS + ("mom_ab_step(CD)", "mom_fluxform(CD)",
+                                  "mom_vecinv(CD)")
+_NO_CD_SHAP = {k: 0 for k in CD_SHAP_KERNELS}
+# launches in each configuration's 5 timed full-size steps: CD once a
+# step and the D-grid pair's two fills (under implicit viscosity T on the
+# pair too), or SH-uv's 4 passes, SH-ts's 4 on each tracer and the
+# tracers' two fills before them
+CD_SHAP_LAUNCHES = {
+    "cd": {**GYRE_LAUNCHES, **glue_launches(1, 14), **_NO_CD_SHAP,
+           "cd_scheme": 5},
+    "cd-vi": {**VI_LAUNCHES, **glue_launches(2, 14), **_NO_CD_SHAP,
+              "cd_scheme": 5, "impldiff": 30},
+    "shap": {**GYRE_LAUNCHES, **glue_launches(1, 14), **_NO_CD_SHAP,
+             "shap_uv": 20, "shap_ts": 40}}
+# SH-uv's and SH-ts's further branches held at 64x64x4 (ShapParams
+# settings over the shap-gyre's index-space filter)
+SH_UV_VARIANTS = {"physical, length < 0": {"nShapUVPhys": 4,
+                                           "Shap_uvLength": -1.0},
+                  "physical, length 0": {"nShapUVPhys": 4},
+                  "physical, length > 0": {"nShapUVPhys": 4,
+                                           "Shap_uvLength": 3.0e4}}
+SH_TS_VARIANTS = {"physical": {"nShapTrPhys": 4},
+                  "physical, length": {"nShapTrPhys": 4,
+                                       "Shap_TrLength": 3.0e4},
+                  "mixed": {"nShapTrPhys": 2}}
 
-    build_phase(kernels)
-    count_cg2d_reads()
+
+class CdShapCase:
+    """The gyre's grid (the cd-gyre's configuration) and seeded fields on
+    the card: velocities, the last step's, the D-grid pair, the
+    AB-extrapolated tendencies, w and the kappas, the free surface now and
+    before the last solve, filled theta and salt, and kernel G's
+    inputs."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.model.mom_fluxform import MomTend
+        from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.cd_gyre_config(nx=n, ny=n, nr=nr, deltaT=600.0)
+        self.grid = (shared_grid(self.cfg, dtype)
+                     or synthetic.gyre_grid(self.cfg, dtype=dtype,
+                                            device="cuda"))
+        g = self.grid
+        rng = np.random.default_rng(SEED + 47)
+        s3, s2 = tuple(g.hFacC.shape), tuple(g.hFacC.shape[1:])
+        self.u = self.field(rng, s3, 0.1) * g.maskW
+        self.v = self.field(rng, s3, 0.1) * g.maskS
+        self.uNM1 = self.field(rng, s3, 0.1) * g.maskW
+        self.vNM1 = self.field(rng, s3, 0.1) * g.maskS
+        self.uVelD = self.field(rng, s3, 0.1) * g.maskS
+        self.vVelD = self.field(rng, s3, 0.1) * g.maskW
+        self.gU = self.field(rng, s3, 1e-5) * g.maskW
+        self.gV = self.field(rng, s3, 1e-5) * g.maskS
+        self.w = self.field(rng, s3, 1e-4) * g.maskC
+        kshape = (nr + 1,) + s2
+        self.kappaRU = self.field(rng, kshape, 1e-3).abs()
+        self.kappaRV = self.field(rng, kshape, 1e-3).abs()
+        self.eta = self.field(rng, s2, 0.2)
+        self.etaNm1 = self.field(rng, s2, 0.2)
+        tref = torch.as_tensor(self.cfg.tRef, dtype=dtype, device="cuda")
+        ol = self.cfg.olx
+        self.theta = cyclic_fill_halo(
+            (tref[:, None, None] + self.field(rng, s3, 1.0)) * g.maskC, ol,
+            ol)
+        self.salt = cyclic_fill_halo(
+            (35.0 + self.field(rng, s3, 0.1)) * g.maskC, ol, ol)
+        t = {k: self.field(rng, s3, 1e-5) for k in (
+            "gU", "gV", "guDiss", "gvDiss", "dPhiX", "dPhiY", "guNm1",
+            "gvNm1", "guNm2", "gvNm2")}
+        self.tend = MomTend(t["gU"], t["gV"], t["guDiss"], t["gvDiss"])
+        self.dPhi = (t["dPhiX"], t["dPhiY"])
+        self.ext = (self.field(rng, s2, 1e-5), self.field(rng, s2, 1e-5))
+        self.state = types.SimpleNamespace(
+            uVel=self.u, vVel=self.v, gwNm1=None, gwNm2=None,
+            **{k: t[k] for k in ("guNm1", "gvNm1", "guNm2", "gvNm2")})
+
+    field = Case.field
+    label = Case.label
+
+    def config(self, kind, **shap):
+        from mitgcm_tpu_torch.utils import synthetic
+
+        c = self.cfg
+        extra = {"shap": shap} if kind == "shap" else {}
+        return getattr(synthetic, CD_SHAP_CONFIGS[kind])(
+            nx=c.nx, ny=c.ny, nr=c.nr, deltaT=600.0, **extra)
+
+
+def hold_filter(name, case, fn, ins, results, reps):
+    """A Shapiro filter's wrapper call fn(None), all its passes, against
+    its twin's fn("plain") on whole arrays, bit for bit (exact_compare);
+    the time (reps > 0) the call's device time, 5 calls captured in a CUDA
+    graph (graph_ms), its CUDA-event time beside it; the bound the
+    function's: `ins` read once and the outputs written once."""
+    outs, wants = fn(None), fn("plain")
+    timed = reps > 0
+    exact_compare(name, case, outs, wants,
+                  graph_ms(lambda: fn(None), reps, calls=5)
+                  if timed else None,
+                  cuda_time_ms(lambda: fn("plain"), reps) if timed else None,
+                  results, touched=[*ins, *outs])
+    if not timed:
+        return
+    r = results[name]
+    r["extra"] = {"wrapper_ms": cuda_time_ms(lambda: fn(None), reps)}
+    print(f"{'':18s} device time of the whole filter (5 calls in a CUDA "
+          f"graph) {r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the "
+          f"bound; a wrapper call {r['extra']['wrapper_ms']:.4f} ms",
+          flush=True)
+
+
+def cd_shap_kernel_phase(case, results, reps, variants):
+    """CD (iterations 5 and 0), G's CD variant (AB-2, and AB-3 with
+    variants), B's and V's CD variants (the interior, halo outputs 0), and
+    SH-uv and SH-ts on the shap-gyre's filter (with variants, each other
+    branch) against their twins, bit for bit; timed unless reps is 0."""
+    from mitgcm_tpu_torch.model import cd_code, mom_fluxform, mom_vecinv
+    from mitgcm_tpu_torch.model import shap_filt, step
+
+    g, timed = case.grid, reps > 0
+    cd_cfg, vi_cfg = case.cfg, case.config("cd-vi")
+    cd = cd_code.CDState(case.uVelD, case.vVelD, case.uNM1, case.vNM1,
+                         case.etaNm1)
+
+    def cd_fn(it):
+        return lambda impl: list(cd_code.cd_scheme(
+            cd_cfg, g, it, case.gU, case.gV, case.u, case.v, case.eta, cd,
+            impl=impl))
+
+    def hold(name, fn, main=True):
+        if main and timed:
+            hold_launch(name, case, fn, results, reps)
+        else:
+            exact_compare(name, case, fn(None), fn("plain"), None, None,
+                          results, call=lambda: fn(None))
+
+    hold("cd_scheme", cd_fn(5))
+    hold("cd_scheme(iteration 0)", cd_fn(0), main=False)
+    for name, cfg, it, main in (("mom_ab_step(CD)", cd_cfg, 1, True),
+                                ("mom_ab_step(CD, AB-3)", vi_cfg, 2, False)):
+        if main or variants:
+            hold(name, lambda impl, c=cfg, it=it: list(step.mom_ab_step(
+                c, g, case.state, case.tend, *case.dPhi, *case.ext, it,
+                impl=impl)[:4]), main)
+    mom_ins = (case.u, case.v, case.w, case.kappaRU, case.kappaRV)
+    hold_interior("mom_fluxform(CD)", case, lambda impl: list(
+        mom_fluxform.mom_fluxform(cd_cfg, g, *mom_ins, impl=impl)), results,
+        reps, timed=timed)
+    hold_interior("mom_vecinv(CD)", case, lambda impl: list(
+        mom_vecinv.mom_vecinv(vi_cfg, g, *mom_ins, impl=impl)), results,
+        reps, timed=timed)
+    for label, settings in {"": {}, **(SH_UV_VARIANTS if variants
+                                       else {})}.items():
+        c = case.config("shap", **settings)
+        hold_filter("shap_uv" + (f"({label})" if label else ""), case,
+                    lambda impl, c=c: list(shap_filt.apply_uv(
+                        c, g, c.shap, case.u, case.v, impl=impl)),
+                    (case.u, case.v, g.maskW, g.maskS), results,
+                    0 if label else reps)
+    for label, settings in {"": {}, **(SH_TS_VARIANTS if variants
+                                       else {})}.items():
+        c = case.config("shap", **settings)
+        hold_filter("shap_ts" + (f"({label})" if label else ""), case,
+                    lambda impl, c=c: list(shap_filt.apply_ts(
+                        c, g, c.shap, case.theta, case.salt, impl=impl)),
+                    (case.theta, case.salt, g.maskW, g.maskS), results,
+                    0 if label else reps)
+
+
+def cd_shap_experiment(kind, n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = getattr(synthetic, CD_SHAP_CONFIGS[kind])(nx=n, ny=n, nr=nr, **kw)
+    return Experiment(cfg, *synthetic.gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype)),
+        impl=impl)
+
+
+def cd_shap_parity_phase(kind, steps=5):
+    """`steps` float64 steps of the 64x64x4 configuration, kernel path
+    against plain path: equal cg2d iterations, PARITY_DIGITS or more on
+    every statistic (and, on the CD paths, the D-grid pair's)."""
+    from mitgcm_tpu_torch.utils.compare import digits, record_digits
+
+    exps = {impl: cd_shap_experiment(kind, 64, 4, torch.float64, impl)
+            for impl in (None, "plain")}
+    runs = {impl: e.run(n_steps=steps) for impl, e in exps.items()}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        dig = record_digits(rk, rp)
+        worst = min(worst, min(dig.values()))
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError(f"{kind}-gyre cg2d iteration counts differ")
+    if exps[None].cfg.useCDscheme:
+        for name in ("uVelD", "vVelD"):
+            worst = min(worst, digits(
+                getattr(exps[None].state, name).cpu().numpy(),
+                getattr(exps["plain"].state, name).cpu().numpy()))
+    print(f"{kind}-gyre parity, 64x64x4 float64, {steps} steps kernel "
+          f"against plain: fewest matching digits {worst:.2f}, equal cg2d "
+          f"iterations {[r['cg2d_iters'] for r in runs[None][1:]]}",
+          flush=True)
+    if not worst >= PARITY_DIGITS:
+        raise AssertionError(f"{kind}-gyre parity {worst:.2f} < "
+                             f"{PARITY_DIGITS} digits")
+
+
+def cd_shap_plain_calls():
+    """Calls so far of CD's, SH-uv's and SH-ts's twins and of the glue's."""
+    from mitgcm_tpu_torch.model import cd_code, shap_filt
+
+    return cd_code.plain_calls + shap_filt.plain_calls + glue_plain_calls()
+
+
+def cd_shap_full_phase(kind, kernels, smi):
+    """The 1024x1024x32 float32 configuration (deltaT = 600): a warm-up
+    step, then 5 timed steps with every launch count (CD_SHAP_LAUNCHES),
+    no twin of CD, SH-uv, SH-ts or the glue, finite fields (and a nonzero
+    D-grid pair), then a profile of 2 steps."""
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = cd_shap_experiment(kind, n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    points = n * n * nr
+
+    def run(state, it0, steps):
+        exp.state, exp.cur_iter = state, it0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, [r["cg2d_iters"] for r in recs], \
+            time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    state1, iters_w, sec_w = run(exp.state, 0, 1)
+    kernels.launches.clear()
+    plain0 = cd_shap_plain_calls()
+    state, iters, sec = run(state1, 1, 5)
+    launches = dict(kernels.launches)
+    plain = cd_shap_plain_calls() - plain0
+    wall_ms = sec * 1e3 / 5
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"{kind}-gyre kernel path ({smi}): 5 steps, {wall_ms:.2f} "
+          f"ms/step, {points * 5 / sec:.4e} points*steps/s, cg2d "
+          f"iterations {iters}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches {launches}", flush=True)
+    names = ("uVel", "vVel", "wVel", "theta", "salt", "etaN") + (
+        ("uVelD", "vVelD") if exp.cfg.useCDscheme else ())
+    for name in names:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{kind}-gyre {name} is not finite")
+    if exp.cfg.useCDscheme and not float(state.uVelD.abs().max()) > 0.0:
+        raise AssertionError(f"{kind}-gyre: the D-grid pair stayed 0")
+    check_launches(f"{kind}-gyre", launches, CD_SHAP_LAUNCHES[kind], plain)
+    profile_steps(exp, state, 6, 2, wall_ms)
+    return launches
+
+
+def cd_shap_phase(kernels, results, smi):
+    phase("21 CD scheme and Shapiro filter: the cd-gyre, cd-vi-gyre and "
+          "shap-gyre")
+    for n, nr, dtype, reps, variants in ((64, 4, torch.float64, 20, True),
+                                         (64, 4, torch.float32, 0, True),
+                                         (1024, 32, torch.float32, 10,
+                                          False)):
+        cd_shap_kernel_phase(CdShapCase(n, nr, dtype), results, reps,
+                             variants)
+        torch.cuda.empty_cache()
+    print(smi)
+    for kind in CD_SHAP_CONFIGS:
+        cd_shap_parity_phase(kind)
+    launches = {}
+    for kind in CD_SHAP_CONFIGS:
+        got = cd_shap_full_phase(kind, kernels, smi)
+        if kind == "cd":
+            launches.update({"cd_scheme": got["cd_scheme"],
+                             "mom_ab_step(CD)": got["mom_ab_step"],
+                             "mom_fluxform(CD)": got["mom_fluxform"]})
+        elif kind == "cd-vi":
+            launches["mom_vecinv(CD)"] = got["mom_vecinv"]
+        else:
+            launches.update({k: got[k] for k in ("shap_uv", "shap_ts")})
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gyre_phases(kernels, results, smi):
+    """Phases 3-5: the gyre's kernels against their twins, its parity and
+    its full-size run, whose launches are the JSON line's base."""
     phase("3 kernels vs plain twins")
     # the JSON summary reports the main path's shapes (the second case)
-    results = {}
     kernel_phase(Case(64, 4, torch.float64), results, reps=20)
     kernel_phase(Case(1024, 32, torch.float32), results, reps=10)
     torch.cuda.empty_cache()
     parity_phase()
     launches = full_phase(kernels)
     torch.cuda.empty_cache()
+    return launches
+
+
+def adjoint_phases(kernels, results, smi):
     phase("6 adjoint")
     vjp_phase(Case(64, 4, torch.float64), results, reps=20)
     vjp_phase(Case(1024, 32, torch.float32), results, reps=10)
@@ -5552,45 +5903,92 @@ def main():
     glue_vjp_phase(GlueCase(1024, 32, torch.float32), results, 10, "gyre")
     torch.cuda.empty_cache()
     grdchk_phase()
-    adj_launches = adjoint_full_phase(kernels)
-    for name in BACKWARD_KERNELS:
-        launches[name] = adj_launches[name]
-    vi_launches = vi_phase(kernels, results)
-    for name in VI_KERNELS:
-        launches[name] = vi_launches[name]
-    # no later phase runs the uniform levels: free their grid, so that
-    # each phase's peak memory holds no other configuration's grid
+    got = adjoint_full_phase(kernels)
+    return {name: got[name] for name in BACKWARD_KERNELS}
+
+
+def vi_phases(kernels, results, smi):
+    got = vi_phase(kernels, results)
+    # no later phase but 21 runs the uniform levels: free their grid, so
+    # that each phase's peak memory holds no other configuration's grid
     GRIDS.clear()
-    kpp_launches = kpp_phase(kernels, results, smi)
-    for name in KPP_KERNELS + ("kappa_uv", "kappa_ts"):
-        launches[name] = kpp_launches[name]
-    g9_launches = g9_phase(kernels, results, smi)
-    for name in G9_KERNELS + MD_KERNELS + ("eos_sigma_r",):
-        launches[name] = g9_launches[name]
-    launches.update(ho_phase(kernels, results, smi))
-    launches.update(ism_phase(kernels, results, smi))
+    return {name: got[name] for name in VI_KERNELS}
+
+
+def kpp_phases(kernels, results, smi):
+    got = kpp_phase(kernels, results, smi)
+    return {name: got[name] for name in KPP_KERNELS + ("kappa_uv",
+                                                       "kappa_ts")}
+
+
+def g9_phases(kernels, results, smi):
+    got = g9_phase(kernels, results, smi)
+    return {name: got[name]
+            for name in G9_KERNELS + MD_KERNELS + ("eos_sigma_r",)}
+
+
+def ism_phases(kernels, results, smi):
+    got = ism_phase(kernels, results, smi)
     GRIDS.clear()
-    launches.update(nh_phase(kernels, results, smi))
-    launches.update(ice_phase(kernels, results, smi))
-    glue_phase(results)
-    launches.update(evp_phase(kernels, results, smi))
-    launches.update(gm_phase(kernels, results, smi))
-    mix_phase(results)
-    last_glue_phase(results)
-    launches.update(visc_phase(kernels, results, smi))
-    launches.update(rimix_phase(kernels, results, smi))
+    return got
+
+
+def no_launches(fn):
+    """A phase that holds kernels against their twins and runs no path of
+    its own: the JSON line takes its kernels' launches from the paths."""
+    def run(kernels, results, smi):
+        fn(results)
+        return {}
+    return run
+
+
+# the phases after the device and the build, by name, in their order
+PHASES = {"gyre": gyre_phases, "adjoint": adjoint_phases, "vi": vi_phases,
+          "kpp": kpp_phases, "ggl90": g9_phases, "ho": ho_phase,
+          "ism": ism_phases, "nh": nh_phase, "ice": ice_phase,
+          "glue": no_launches(glue_phase), "evp": evp_phase, "gm": gm_phase,
+          "mix": no_launches(mix_phase),
+          "last-glue": no_launches(last_glue_phase), "visc": visc_phase,
+          "rimix": rimix_phase, "cd-shap": cd_shap_phase}
+
+
+def main(argv=()):
+    names = list(argv) or list(PHASES)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; the "
+                         f"phases are {list(PHASES)}")
+    smi = device_phase()
+    sys.path.insert(0, ROOT)
+    from mitgcm_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    build_phase(kernels)
+    print(f"phase build took {time.perf_counter() - t0:.1f} s", flush=True)
+    count_cg2d_reads()
+    results, launches = {}, {}
+    for name in PHASES:
+        if name not in names:
+            continue
+        t0 = time.perf_counter()
+        launches.update(PHASES[name](kernels, results, smi))
+        print(f"phase {name} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "mitgcm_tpu" or m.startswith("mitgcm_tpu.")]
     if jax_pkg:
         raise AssertionError(f"the port imported {jax_pkg}")
 
+    # every kernel with no argument; those of the phases run otherwise
+    rows = [(name, src, rep) for name, (src, rep) in KERNELS.items()
+            if not argv or (name in launches and name in results)]
     summary = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")},
                 **results[name].get("extra", {})}
-               for name, (src, rep) in KERNELS.items()]
+               for name, src, rep in rows]
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5599,4 +5997,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -32,7 +32,9 @@ def check_adjoint_supported(cfg: Config) -> None:
     the multi-dimensional advection, W and H-cg3d: the non-hydrostatic
     path, B's free-slip and 3-D Coriolis flags, H-seaice: the sea ice,
     gm_tensor, gm_psi_b, gm_residual_flow and C's GM branch: GM-Redi;
-    U: PP81 and MY82, Z: OPPS; X, Y and B's dissipation variant: variable
+    U: PP81 and MY82, Z: OPPS; CD and G's and B's CD variants: the CD
+    scheme, SH-uv and SH-ts: the Shapiro filter; X, Y and B's dissipation
+    variant: variable
     and biharmonic viscosity,
     linear and quadratic bottom drag, a bottom without no-slip drag),
     and for AB-3,
@@ -51,6 +53,8 @@ def check_adjoint_supported(cfg: Config) -> None:
         "usePP81": cfg.usePP81,
         "useMY82": cfg.useMY82,
         "useOPPS": cfg.useOPPS,
+        "useCDscheme": cfg.useCDscheme,
+        "useSHAP_FILT": cfg.useSHAP_FILT,
         "nonHydrostatic": cfg.nonHydrostatic,
         "no_slip_sides=F": not cfg.no_slip_sides,
         f"select3dCoriScheme={cfg.select3dCoriScheme}":

@@ -2,7 +2,8 @@
 the fields of the ported paths: the DYNVARS.h velocities, tracers and free
 surface, the AB-2/AB-3 tendency history, GGL90's TKE and IDEMIX's
 internal-wave energy, the second-order moments of SOM tracers, the
-non-hydrostatic pressure and w-tendency history, the sea-ice state, and
+non-hydrostatic pressure and w-tendency history, the CD scheme's D-grid
+velocities, the sea-ice state, and
 FFIELDS.h's simple forcing with the atmospheric state the sea ice's
 growth reads."""
 
@@ -54,6 +55,15 @@ class State:
     phi_nh: Optional[torch.Tensor] = None
     gwNm1: Optional[torch.Tensor] = None
     gwNm2: Optional[torch.Tensor] = None
+    # the CD scheme's D-grid velocities (CD_CODE_VARS.h): uVelD at V
+    # points, vVelD at U points, the last step's u and v [nr, nyp, nxp]
+    # and the surface elevation before the last solve [nyp, nxp]; None
+    # unless useCDscheme
+    uVelD: Optional[torch.Tensor] = None
+    vVelD: Optional[torch.Tensor] = None
+    uNM1: Optional[torch.Tensor] = None
+    vNM1: Optional[torch.Tensor] = None
+    etaNm1: Optional[torch.Tensor] = None
     # the sea ice (SEAICE.h): velocities at U/V points, concentration,
     # effective ice and snow thickness, ice salt [nyp, nxp], the surface
     # temperature of each thickness category [multDim, nyp, nxp], the ice
@@ -95,8 +105,9 @@ class Forcing:
 
 def init_state(cfg: Config, grid: Grid) -> State:
     """Cold start (ini_dynvars.F + ini_fields.F): rest, theta/salt at the
-    reference profiles (masked), eta = 0, SOM moments 0, and with
-    nonHydrostatic phi_nh and the w-tendency history 0."""
+    reference profiles (masked), eta = 0, SOM moments 0, with
+    nonHydrostatic phi_nh and the w-tendency history 0, and with
+    useCDscheme the D-grid velocities, uNM1, vNM1 and etaNm1 0."""
     dtype, device = grid.rA.dtype, grid.rA.device
     nyp, nxp = grid.rA.shape
 
@@ -123,7 +134,10 @@ def init_state(cfg: Config, grid: Grid) -> State:
         somS=som(cfg.saltAdvScheme),
         phi_nh=z3() if cfg.nonHydrostatic else None,
         gwNm1=z3() if cfg.nonHydrostatic else None,
-        gwNm2=z3() if cfg.nonHydrostatic and cfg.useAB3 else None)
+        gwNm2=z3() if cfg.nonHydrostatic and cfg.useAB3 else None,
+        **({n: z3() for n in ("uVelD", "vVelD", "uNM1", "vNM1")}
+           if cfg.useCDscheme else {}),
+        etaNm1=z2() if cfg.useCDscheme else None)
 
 
 def zero_forcing(cfg: Config, dtype: torch.dtype, device) -> Forcing:

@@ -22,6 +22,7 @@ and counts each of its backward runs under "twin_vjp" and
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import glob
@@ -29,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from collections import Counter
 
 import torch
@@ -55,8 +57,9 @@ SIGNATURES = {
     # max_iters, use_min; stream
     "cg2d_solve": [_P] * 13 + [_I] * 6 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx, no_slip_sides,
-    # coriolis_3d; viscAhD, viscAhZ, sideDragFactor, rkSign, gravitySign;
-    # stream
+    # Coriolis flags (bit 0 the 3-D term, bit 1 the CD scheme's variant
+    # without the 2-D term); viscAhD, viscAhZ, sideDragFactor, rkSign,
+    # gravitySign; stream
     "mom_fluxform": [_PP, _I] + [_I] * 7 + [_D] * 5 + [_P],
     # its dissipation variant: the same, then the table of X's viscosities
     # and Y's Laplacian (null where not given), its length, the parameter
@@ -105,7 +108,8 @@ SIGNATURES = {
     "mom_fluxform_adj": [_PP, _I] + [_I] * 5 + [_D] * 4 + [_P],
     "gad_calc_rhs_c2_adj": [_PP, _I] + [_I] * 5 + [_D] * 2 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx; selectVortScheme,
-    # selectCoriScheme, implicitViscosity, no_slip_bottom; viscAh,
+    # selectCoriScheme (2: the CD scheme's variant without the planetary
+    # term), implicitViscosity, no_slip_bottom; viscAh,
     # sideDragFactor, bottomDragLinear, rkSign; stream
     "mom_vecinv": [_PP, _I] + [_I] * 5 + [_I] * 4 + [_D] * 4 + [_P],
     # its dissipation variant: the same, then the table of X's viscosities,
@@ -145,6 +149,17 @@ SIGNATURES = {
     # array (model/opps.py:z_params), its length; nr, nyp, nxp, eos kind,
     # use totPhiHyd, MAX_ABE_ITERATIONS; stream
     "opps_col": [_PP, _I, _PD, _I] + [_I] * 6 + [_P],
+    # kernel CD: pointer table (cd_code.cuh:CdArgs), its length; parameter
+    # array (ab15, ab05, rCD, 1 - rCD, deltaTMom), its length; nr, nyp,
+    # nxp; stream
+    "cd_scheme": [_PP, _I, _PD, _I] + [_I] * 3 + [_P],
+    # kernels SH-uv and SH-ts, one pass: pointer table
+    # (shap_filt.cuh:ShapArgs), its length; parameter array (SH-uv:
+    # deltaTMom / Shap_uvtau, Shap_uvLength^2; SH-ts: deltaTTracer,
+    # Shap_Trtau, Shap_TrLength^2), its length; nr, nyp, nxp, oly, olx;
+    # fill, first, last, physical, length; stream
+    "shap_uv": [_PP, _I, _PD, _I] + [_I] * 10 + [_P],
+    "shap_ts": [_PP, _I, _PD, _I] + [_I] * 10 + [_P],
     # kernel L: pointer table (u, v, w, hFacW, hFacS, maskC, dyG, dxG, rA,
     # drF, then the seven fields of gad.AdvFlow), its length; nr, nyp, nxp;
     # stream
@@ -224,8 +239,8 @@ SIGNATURES = {
     "continuity": [_PP, _I] + [_I] * 3 + [_P],
     # kernel G's mom_ab_step: pointer table (u's, v's and w's terms, see
     # step_glue.cuh:MomAbArgs), its length; nr, nyp, nxp, AB order (2, 3),
-    # non-hydrostatic; abFac, ab0, ab1, ab2, deltaTMom, deltaTMom/nh_Am2;
-    # stream
+    # mode (bit 0 non-hydrostatic, bit 1 the CD scheme's variant); abFac,
+    # ab0, ab1, ab2, deltaTMom, deltaTMom/nh_Am2; stream
     "mom_ab_step": [_PP, _I] + [_I] * 5 + [_D] * 6 + [_P],
     # kernel G's mom_correction: pointer table (uStar, vStar, maskW, maskS,
     # phi_nh, etaN, Bo_surf, recip_dxC, recip_dyC, u, v), its length; nr,
@@ -289,7 +304,8 @@ def nvcc_path() -> str:
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into one .so (once per content hash); return its
     path. One nvcc per source, all started together, then one link.
-    verbose prints nvcc's output (ptxas register/spill report)."""
+    verbose prints nvcc's output (ptxas register/spill report) and the
+    seconds of the five slowest sources."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -303,15 +319,27 @@ def build(verbose: bool = False) -> str:
     tmp = f"{so}.{os.getpid()}.tmp"
     nvcc = nvcc_path()
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
-    logs = [proc.communicate()[0] for proc in procs]
+
+    def finish(proc):   # each source's log and seconds, read as it ends
+        log = proc.communicate()[0]
+        return log, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        logs, secs = zip(*pool.map(finish, procs))
     failed = [os.path.basename(src) for src, proc in zip(sources, procs)
               if proc.returncode != 0]
     if verbose or failed:
         print("".join(logs), flush=True)
+    if verbose:
+        slowest = sorted(zip(secs, sources), reverse=True)[:5]
+        print("nvcc seconds, slowest sources: " + ", ".join(
+            f"{os.path.basename(src)} {sec:.1f}" for sec, src in slowest),
+            flush=True)
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
     proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],

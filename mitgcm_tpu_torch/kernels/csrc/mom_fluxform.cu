@@ -6,8 +6,11 @@
 // vertical viscous flux (:233-307), no-slip bottom drag (:343-381) and
 // Coriolis scheme 0 (:420-445); two template flags pick the side condition
 // (the no-slip side drag of :312-340, or free slip without it) and the 3-D
-// Coriolis term of the non-hydrostatic path (_coriolis_3d_u, :454-469), so
-// the gyres compile to the code they had before. XLA fused this chain of
+// Coriolis term of the non-hydrostatic path (_coriolis_3d_u, :454-469),
+// and a third drops the 2-D Coriolis term under the CD scheme (:410-419;
+// the entry points' `coriolis_3d` carries both, mom_fluxform_tile.cuh's
+// kCoriolis3d and kCoriolisCd bits), so the gyres compile to the code they
+// had before. XLA fused this chain of
 // shifted products into a few sweeps on the TPU.
 //
 // Bound: bytes. Per cell it reads 11 3-D fields (u, v, w, the hFac and

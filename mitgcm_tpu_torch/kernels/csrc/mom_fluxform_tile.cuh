@@ -24,6 +24,7 @@
 #pragma once
 
 #include <cstring>
+#include <type_traits>
 
 #include "mom_fluxform.cuh"
 #include "tile.cuh"
@@ -82,7 +83,9 @@ struct MomLevel {
 
 // Ext: the dissipation variant, which reads X's viscosities and Y's
 // Laplacian (`va`, each null when not given) and applies the drags of `dp`
-template <typename T, bool NoSlipSides, bool Coriolis3d, bool Ext>
+// Cd: the CD scheme's variant, without the 2-D Coriolis term (the D-grid
+// velocities give it, model/cd_code.py; mom_fluxform.py:410-419)
+template <typename T, bool NoSlipSides, bool Coriolis3d, bool Ext, bool Cd>
 __global__ void __launch_bounds__(kTileThreads)
     mom_fluxform_kernel(const MomArgs<T> a, int nr, int ny, int nx, int oly,
                         int olx, int ntx, int tiles, T viscAhD, T viscAhZ,
@@ -491,8 +494,10 @@ __global__ void __launch_bounds__(kTileThreads)
         guDiss = guDiss - cDragU * bottomW * u0 * rhW * rdrF;
         gvDiss = gvDiss - cDragV * bottomS * v0 * rhS * rdrF;
       }
-      gU = gU + uCf;
-      gV = gV + vCf;
+      if (!Cd) {
+        gU = gU + uCf;
+        gV = gV + vCf;
+      }
       if (Coriolis3d) gU = gU + cori3;
       const size_t p = lev + q;
       a.gU[p] = gU * mW0;
@@ -506,13 +511,18 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
+// Kernel B's Coriolis flags (the entry points' `coriolis`): the 3-D term,
+// and the CD scheme's variant without the 2-D term
+constexpr int kCoriolis3d = 1;
+constexpr int kCoriolisCd = 2;
+
 // Kernel B's launch from its entry point's arguments: the table's check,
 // the grid, and the variant that the flags pick (ext: the dissipation
 // variant, with its second table `va` and numbers `dp`); start(kernel,
 // grid, block, args...) starts it (OnStream on the card).
 template <typename T, bool Ext, typename Start>
 int start_mom(const void* const* table, int n, int nr, int ny, int nx,
-              int oly, int olx, int no_slip_sides, int coriolis_3d,
+              int oly, int olx, int no_slip_sides, int coriolis,
               double viscAhD, double viscAhZ, double sideDragFactor,
               double rkSign, double gravitySign, const MomViscArgs<T>& va,
               const MomViscParams<T>& dp, Start start) {
@@ -522,29 +532,40 @@ int start_mom(const void* const* table, int n, int nr, int ny, int nx,
   MomArgs<T> a;
   std::memcpy(&a, table, sizeof(a));
   const TileGrid tg = tile_grid(nr, ny, nx, oly, olx);
+  if (coriolis < 0 || coriolis > (kCoriolis3d | kCoriolisCd))
+    return (int)cudaErrorInvalidValue;
   auto run = [&](auto kernel) {
     start(kernel, dim3(tg.tiles + tg.halo_blocks), dim3(kTX, kTY), a, nr,
           ny, nx, oly, olx, tg.ntx, tg.tiles, T(viscAhD), T(viscAhZ),
           T(sideDragFactor), T(rkSign), T(gravitySign), va, dp);
   };
-  if (no_slip_sides && !coriolis_3d)
-    run(mom_fluxform_kernel<T, true, false, Ext>);
-  else if (no_slip_sides)
-    run(mom_fluxform_kernel<T, true, true, Ext>);
-  else if (!coriolis_3d)
-    run(mom_fluxform_kernel<T, false, false, Ext>);
+  auto by_sides = [&](auto cori3d, auto cd) {
+    constexpr bool C3 = decltype(cori3d)::value, CD = decltype(cd)::value;
+    if (no_slip_sides)
+      run(mom_fluxform_kernel<T, true, C3, Ext, CD>);
+    else
+      run(mom_fluxform_kernel<T, false, C3, Ext, CD>);
+  };
+  auto by_cori3d = [&](auto cd) {
+    if (coriolis & kCoriolis3d)
+      by_sides(std::true_type{}, cd);
+    else
+      by_sides(std::false_type{}, cd);
+  };
+  if (coriolis & kCoriolisCd)
+    by_cori3d(std::true_type{});
   else
-    run(mom_fluxform_kernel<T, false, true, Ext>);
+    by_cori3d(std::false_type{});
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename Start>
 int launch_mom(const void* const* table, int n, int nr, int ny, int nx,
-               int oly, int olx, int no_slip_sides, int coriolis_3d,
+               int oly, int olx, int no_slip_sides, int coriolis,
                double viscAhD, double viscAhZ, double sideDragFactor,
                double rkSign, double gravitySign, Start start) {
   return start_mom<T, false>(table, n, nr, ny, nx, oly, olx, no_slip_sides,
-                             coriolis_3d, viscAhD, viscAhZ, sideDragFactor,
+                             coriolis, viscAhD, viscAhZ, sideDragFactor,
                              rkSign, gravitySign, MomViscArgs<T>{},
                              MomViscParams<T>{}, start);
 }
@@ -555,7 +576,7 @@ int launch_mom(const void* const* table, int n, int nr, int ny, int nx,
 // no_slip_bottom and drag
 template <typename T, typename Start>
 int launch_mom_visc(const void* const* table, int n, int nr, int ny, int nx,
-                    int oly, int olx, int no_slip_sides, int coriolis_3d,
+                    int oly, int olx, int no_slip_sides, int coriolis,
                     double viscAhD, double viscAhZ, double sideDragFactor,
                     double rkSign, double gravitySign,
                     const void* const* vtable, int nv, const double* params,
@@ -575,7 +596,7 @@ int launch_mom_visc(const void* const* table, int n, int nr, int ny, int nx,
   const MomViscParams<T> dp{T(params[0]), T(params[1]), T(params[2]),
                             T(params[3]), no_slip_bottom != 0, drag != 0};
   return start_mom<T, true>(table, n, nr, ny, nx, oly, olx, no_slip_sides,
-                            coriolis_3d, viscAhD, viscAhZ, sideDragFactor,
+                            coriolis, viscAhD, viscAhZ, sideDragFactor,
                             rkSign, gravitySign, va, dp, start);
 }
 

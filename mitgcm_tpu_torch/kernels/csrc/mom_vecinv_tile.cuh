@@ -411,9 +411,13 @@ __global__ void __launch_bounds__(kTileThreads)
       else
         vort_point(ec, e0, eq, lev + eq);
     }
-    // planetary Coriolis (mom_vi_coriolis.F)
+    // planetary Coriolis (mom_vi_coriolis.F); none under the CD scheme
+    // (Cori 2: the D-grid velocities give it, model/cd_code.py)
     T gU, gV;
-    if (Cori == 0) {
+    if (Cori == 2) {
+      gU = T(0);
+      gV = T(0);
+    } else if (Cori == 0) {
       const T vBarXY = T(0.25) * ((s.vdx[o] + s.vdx[o - 1]) +
                                   (s.vdx[o + kRX] + s.vdx[o + kRX - 1]));
       gU = fU * vBarXY * rdxC * mW0;
@@ -671,7 +675,7 @@ int start_vecinv(const void* const* table, int n, int nr, int ny, int nx,
   static_assert(sizeof(VecinvArgs<T>) == kVecinvNumPointers * sizeof(void*),
                 "VecinvArgs must be a plain table of pointers");
   if (n != kVecinvNumPointers || vortScheme < 0 || vortScheme > 2 ||
-      coriScheme < 0 || coriScheme > 1 || implicitViscosity < 0 ||
+      coriScheme < 0 || coriScheme > 2 || implicitViscosity < 0 ||
       implicitViscosity > 1 || noSlipBottom < 0 || noSlipBottom > 1 ||
       nr < 1 || ny < 1 || nx < 1 || oly < 1 || olx < 1)
     return (int)cudaErrorInvalidValue;
@@ -700,8 +704,10 @@ int start_vecinv(const void* const* table, int n, int nr, int ny, int nx,
   auto by_cori = [&](auto vort) {
     if (coriScheme == 0)
       by_implicit(vort, std::integral_constant<int, 0>{});
-    else
+    else if (coriScheme == 1)
       by_implicit(vort, std::integral_constant<int, 1>{});
+    else
+      by_implicit(vort, std::integral_constant<int, 2>{});
   };
   if (vortScheme == 0)
     by_cori(std::integral_constant<int, 0>{});

@@ -9,10 +9,10 @@
 #define MITGCM_STEP_GLUE_ENTRY_POINTS(T, SUF)                                 \
   extern "C" int mitgcm_mom_ab_step_##SUF(                                    \
       const void* const* table, int n, int nr, int nyp, int nxp, int ab,      \
-      int nh, double abFac, double ab0, double ab1, double ab2,               \
+      int mode, double abFac, double ab0, double ab1, double ab2,             \
       double deltaTMom, double wFac, void* stream) {                          \
     return mitgcm::launch_mom_ab_step<T>(                                     \
-        table, n, nr, nyp, nxp, ab, nh, abFac, ab0, ab1, ab2, deltaTMom,      \
+        table, n, nr, nyp, nxp, ab, mode, abFac, ab0, ab1, ab2, deltaTMom,    \
         wFac, mitgcm::OnStream{(cudaStream_t)stream});                        \
   }                                                                           \
   extern "C" int mitgcm_mom_correction_##SUF(                                 \

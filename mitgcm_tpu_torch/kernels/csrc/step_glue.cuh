@@ -12,7 +12,9 @@
 //     uStar = u + deltaTMom * gU_ab * maskW (:318-319), for u and v in one
 //     launch; with the non-hydrostatic flag also w: gW + gwDiss, its AB and
 //     timestep_wvel's w* = w + (deltaTMom / nh_Am2) * gW_ab * maskC *
-//     maskC[k-1] (calc_gw.py:169-176);
+//     maskC[k-1] (calc_gw.py:169-176); with the CD flag the extrapolated
+//     tendencies gU_ab and gV_ab themselves (:256-267), which kernel CD
+//     (cd_code.cuh) turns into the predictors;
 //   - mom_correction: momentum_correction_step (:509-539), the new
 //     surface-pressure gradient and u = uStar - its step (mom_correction.cuh,
 //     a header of its own for the tests' host check);
@@ -60,14 +62,20 @@ struct MomAbArgs {
   const T *gU, *dPhiX, *guDiss, *guExt, *guNm1, *guNm2, *u, *maskW;
   const T *gV, *dPhiY, *gvDiss, *gvExt, *gvNm1, *gvNm2, *v, *maskS;
   const T *gW, *gwDiss, *gwNm1, *gwNm2, *w, *maskC;
-  // outputs: the raw tendency (the next step's gNm1) and the predictor
+  // outputs: the raw tendency (the next step's gNm1) and the predictor, or
+  // under the CD scheme the AB-extrapolated tendency in its place (kernel
+  // CD forms the predictor with the D-grid Coriolis term)
   T *guNew, *uStar, *gvNew, *vStar, *gwNew, *wStar;
 };
+// mom_ab_step's mode: bit 0 the non-hydrostatic w, bit 1 the CD scheme's
+// variant (gU_ab and gV_ab written in place of u* and v*)
+constexpr int kMomAbNh = 1;
+constexpr int kMomAbCd = 2;
 constexpr int kMomAbNumPointers = 28;
 
 template <typename T>
 __global__ void mom_ab_step_kernel(MomAbArgs<T> a, int nr, int nyp, int nxp,
-                                   int nh, AbCoeffs<T> ab, T deltaTMom,
+                                   int mode, AbCoeffs<T> ab, T deltaTMom,
                                    T wFac) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
@@ -79,13 +87,16 @@ __global__ void mom_ab_step_kernel(MomAbArgs<T> a, int nr, int nyp, int nxp,
   const size_t q = static_cast<size_t>(j) * nxp + i;
   const T guExt = k == 0 ? a.guExt[q] : T(0);
   const T gvExt = k == 0 ? a.gvExt[q] : T(0);
+  const bool cd = mode & kMomAbCd;
   const T gU = ((a.gU[p] - a.dPhiX[p]) + a.guDiss[p]) + guExt;
   a.guNew[p] = gU;
-  a.uStar[p] = a.u[p] + (deltaTMom * ab(gU, a.guNm1, a.guNm2, p)) * a.maskW[p];
+  const T guAb = ab(gU, a.guNm1, a.guNm2, p);
+  a.uStar[p] = cd ? guAb : a.u[p] + (deltaTMom * guAb) * a.maskW[p];
   const T gV = ((a.gV[p] - a.dPhiY[p]) + a.gvDiss[p]) + gvExt;
   a.gvNew[p] = gV;
-  a.vStar[p] = a.v[p] + (deltaTMom * ab(gV, a.gvNm1, a.gvNm2, p)) * a.maskS[p];
-  if (nh) {
+  const T gvAb = ab(gV, a.gvNm1, a.gvNm2, p);
+  a.vStar[p] = cd ? gvAb : a.v[p] + (deltaTMom * gvAb) * a.maskS[p];
+  if (mode & kMomAbNh) {
     const T gW = a.gW[p] + a.gwDiss[p];
     a.gwNew[p] = gW;
     const T msk = a.maskC[p] * a.maskC[k > 0 ? p - P : p];
@@ -130,18 +141,18 @@ inline dim3 step_grid3d(int nr, int nyp, int nxp) {
 
 template <typename T, typename Start>
 int launch_mom_ab_step(const void* const* table, int n, int nr, int nyp,
-                       int nxp, int ab, int nh, double abFac, double ab0,
+                       int nxp, int ab, int mode, double abFac, double ab0,
                        double ab1, double ab2, double deltaTMom, double wFac,
                        Start start) {
   static_assert(sizeof(MomAbArgs<T>) == kMomAbNumPointers * sizeof(void*),
                 "MomAbArgs must be a plain table of pointers");
   MomAbArgs<T> a;
   if (!unpack(&a, table, n, kMomAbNumPointers) || (ab != 2 && ab != 3) ||
-      nr < 1 || nr > 65535)
+      mode < 0 || mode > (kMomAbNh | kMomAbCd) || nr < 1 || nr > 65535)
     return (int)cudaErrorInvalidValue;
   const AbCoeffs<T> c{ab, T(abFac), T(ab0), T(ab1), T(ab2)};
   start(mom_ab_step_kernel<T>, step_grid3d(nr, nyp, nxp), dim3(BX, BY), a, nr,
-        nyp, nxp, nh, c, T(deltaTMom), T(wFac));
+        nyp, nxp, mode, c, T(deltaTMom), T(wFac));
   return (int)cudaGetLastError();
 }
 

@@ -199,7 +199,8 @@ int launch_vertmix_calc(const void* const* table, int n,
                 "VertmixParams must be a plain array of doubles");
   VertmixArgs<T> a;
   if (!unpack(&a, table, n, kVertmixPointers) || np != kVertmixParams ||
-      nr < 1 || nr > vertmix_max_nr(start.max_shared(), sizeof(T)) ||
+      nr < 1 ||
+      (my82 && nr > vertmix_max_nr(start.max_shared(), sizeof(T))) ||
       nyp < 1 || nxp < 1 || (!my82 && nRi < 1) ||
       !eos_inputs_ok(kind, use_phi, a.phi, a.profile, a.tref, a.sref) ||
       !(a.u && a.v && a.theta && a.salt && a.maskC && a.recip_drC &&

@@ -102,7 +102,10 @@ class Experiment:
 # (seaice_write_pickup.F's per-field format, as the JAX package writes it:
 # experiment.py:1096-1123, read back as :1314-1360); every other package that has a companion pickup
 # is refused by step.check_supported (KPP keeps no state from step to step,
-# so it has none). The JAX package's pickups hold neither IDEMIX's energy,
+# so it has none), the CD scheme's D-grid state into pickup_cd
+# (cd_code_write_pickup.F: uVelD, vVelD, uNM1, vNM1, nr records each, then
+# etaNm1; experiment.py:1127-1137 and :1258-1272 of the JAX package). The
+# JAX package's pickups hold neither IDEMIX's energy,
 # nor the SOM moments, nor the non-hydrostatic phi_nh and w-tendency
 # history, so a restart there resets them to zero; the port refuses
 # pickups of those runs instead (`_check_pickup`).
@@ -127,6 +130,8 @@ _FIELD = {"Uvel": "uVel", "Vvel": "vVel", "Theta": "theta", "Salt": "salt",
 
 # the EVP stresses' records of pickup_seaice (State.siSigma[0..2])
 _SIGMA = ("siSigm1", "siSigm2", "siSigm12")
+# the records of pickup_cd, as State fields
+_CD = ("uVelD", "vVelD", "uNM1", "vNM1", "etaNm1")
 
 
 def _check_pickup(exp: Experiment) -> None:
@@ -158,8 +163,9 @@ def _interior(cfg: Config, t: torch.Tensor) -> np.ndarray:
 def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
     """Write pickup.<iter10>.data/.meta with the JAX package's field set
     and order (float64 at any working precision, so a float32 round trip
-    is exact), pickup_ggl90.<iter10> with GGL90TKE when useGGL90 and
-    pickup_seaice.<iter10> when useSEAICE; returns the file root."""
+    is exact), pickup_ggl90.<iter10> with GGL90TKE when useGGL90,
+    pickup_seaice.<iter10> when useSEAICE and pickup_cd.<iter10> when
+    useCDscheme; returns the file root."""
     cfg, st = exp.cfg, exp.state
     _check_pickup(exp)
     flds3d = _PICKUP_3D + (_PICKUP_AB3 if cfg.useAB3 else []) + ["Wvel"]
@@ -179,6 +185,13 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
                   fldlist=["GGL90TKE"], timestep_number=myIter)
     if cfg.useSEAICE:
         _write_pickup_seaice(cfg, st, out_dir, myIter)
+    if cfg.useCDscheme:
+        cd = np.concatenate([_interior(cfg, getattr(st, n))
+                             for n in _CD[:4]]
+                            + [_interior(cfg, st.etaNm1)[None]], axis=0)
+        mds.wrmds(os.path.join(out_dir, "pickup_cd"), cd, itr=myIter,
+                  dataprec="float64", nrecords=cd.shape[0],
+                  fldlist=list(_CD), timestep_number=myIter)
     return froot
 
 
@@ -216,7 +229,9 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     with useSEAICE the ice from pickup_seaice.<iter10> when it exists
     (seaice_read_pickup.F: siTICE is broadcast to every category; the EVP
     stresses when siSigm1, siSigm2 and siSigm12 are all there), as the JAX
-    package reads it."""
+    package reads it; with useCDscheme the D-grid state from
+    pickup_cd.<iter10>, which must exist (the reference's own, without a
+    .meta, too: its records are read in their fixed order)."""
     cfg = exp.cfg
     _check_pickup(exp)
     fields, meta = mds.read_mflds(os.path.join(in_dir, "pickup"),
@@ -288,6 +303,18 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
                 updates[sk] = svals[pk]
         if all(k in svals for k in _SIGMA):
             updates["siSigma"] = torch.stack([svals[k] for k in _SIGMA])
+    if cfg.useCDscheme:
+        cd_path = os.path.join(in_dir, f"pickup_cd.{myIter:010d}.data")
+        if not os.path.exists(cd_path):
+            raise FileNotFoundError(
+                f"useCDscheme restart needs {cd_path} (refusing to silently "
+                "reset the D-grid velocities)")
+        nr = cfg.nr
+        raw = np.fromfile(cd_path, dtype=">f8").reshape(
+            4 * nr + 1, cfg.ny, cfg.nx)
+        for k, name in enumerate(_CD[:4]):
+            updates[name] = pad(raw[k * nr:(k + 1) * nr])
+        updates["etaNm1"] = pad(raw[4 * nr])
     exp.state = dataclasses.replace(exp.state, **updates)
     cfg.startFromPickup = True
     cfg.startTime = cfg.baseTime + myIter * cfg.deltaTClock

@@ -1,6 +1,7 @@
 """Flux-form momentum tendencies (mitgcm_tpu/model/mom_fluxform.py;
 reference pkg/mom_fluxform/mom_fluxform.F): centred advection, harmonic
-viscosity with the explicit vertical viscous flux, and Coriolis scheme 0;
+viscosity with the explicit vertical viscous flux, and Coriolis scheme 0
+(none under the CD scheme, model/cd_code.py);
 with no-slip or free-slip sides (the side drag only under no-slip), and
 with or without the 3-D Coriolis term -fPrime w of the non-hydrostatic
 path (select3dCoriScheme >= 1). The gyre's constant harmonic viscosity
@@ -82,7 +83,6 @@ def check_branches(cfg: Config) -> None:
         **mom_visc.refusals(cfg),
         "rigidLid": cfg.rigidLid,
         "select_rStar": cfg.select_rStar != 0,
-        "useCDscheme": cfg.useCDscheme,
         "useNHMTerms": cfg.useNHMTerms,
         "spherical metric terms": cfg.usingSphericalPolarGrid,
     }
@@ -116,6 +116,12 @@ def flags(cfg: Config) -> tuple:
     return bool(cfg.no_slip_sides), cfg.select3dCoriScheme >= 1
 
 
+def coriolis_flags(cfg: Config) -> int:
+    """Kernel B's Coriolis argument (mom_fluxform_tile.cuh): bit 0 the 3-D
+    term, bit 1 the CD scheme's variant without the 2-D term."""
+    return int(flags(cfg)[1]) | 2 * int(cfg.useCDscheme)
+
+
 def _launch(kernel: str, cfg: Config, ins: dict, outs: dict,
             extra: tuple = ()) -> None:
     """Check and launch kernel B (outs = the four tendencies; its
@@ -138,13 +144,12 @@ def _launch(kernel: str, cfg: Config, ins: dict, outs: dict,
     args = (nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly, cfg.olx)
     params = (cfg.viscAhD, cfg.viscAhZ, cfg.sideDragFactor, cfg.rkSign)
     if kernel in ("mom_fluxform", "mom_fluxform_visc"):
-        no_slip, cori3d = flags(cfg)
-        args += (int(no_slip), int(cori3d))
+        args += (int(cfg.no_slip_sides), coriolis_flags(cfg))
         params += (cfg.gravitySign,)
-    elif flags(cfg) != (True, False):
+    elif flags(cfg) != (True, False) or cfg.useCDscheme:
         raise NotImplementedError(
-            "mom_fluxform_adj (kernel B'): free-slip sides and the 3-D "
-            "Coriolis term have no backward kernel")
+            "mom_fluxform_adj (kernel B'): free-slip sides, the 3-D "
+            "Coriolis term and the CD scheme have no backward kernel")
     kernels.launch(kernel, u.dtype, kernels.pointer_table(table), len(table),
                    *args, *params, *extra)
 
@@ -364,13 +369,16 @@ def _mom_fluxform_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
         gvDiss = gvDiss - cDragV * bottomS * v * grid.recip_hFacS * recip_drF
 
     # ---------------- Coriolis, scheme 0 (:420-445) ----------------
-    fC = grid.fCori
-    uCf = (0.5 * (fC + sh(fC, di=-1))
-           * 0.25 * (v + sh(v, dj=1) + sh(v, di=-1) + sh(v, di=-1, dj=1)))
-    vCf = (-0.5 * (fC + sh(fC, dj=-1))
-           * 0.25 * (u + sh(u, di=1) + sh(u, dj=-1) + sh(u, di=1, dj=-1)))
-    gU = gU + uCf
-    gV = gV + vCf
+    # none under the CD scheme, whose D-grid velocities give it (:410-419);
+    # the 3-D term stays
+    if not cfg.useCDscheme:
+        fC = grid.fCori
+        uCf = (0.5 * (fC + sh(fC, di=-1)) * 0.25
+               * (v + sh(v, dj=1) + sh(v, di=-1) + sh(v, di=-1, dj=1)))
+        vCf = (-0.5 * (fC + sh(fC, dj=-1)) * 0.25
+               * (u + sh(u, di=1) + sh(u, dj=-1) + sh(u, di=1, dj=-1)))
+        gU = gU + uCf
+        gV = gV + vCf
     if cfg.select3dCoriScheme >= 1:
         gU = gU + coriolis_3d_u(cfg, grid, w)
     return MomTend(gU=gU * grid.maskW, gV=gV * grid.maskS,

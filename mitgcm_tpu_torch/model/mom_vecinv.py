@@ -2,7 +2,8 @@
 mom_vecinv, :210-451; reference pkg/mom_vecinv/mom_vecinv.F) on Cartesian
 grids:
 
-  gU = planetary Coriolis (selectCoriScheme 0-1) + vorticity advection
+  gU = planetary Coriolis (selectCoriScheme 0-1; none under the CD
+       scheme, model/cd_code.py) + vorticity advection
        (selectVortScheme 0-2, None meaning 1) - w du/dz - grad KE
   guDiss = the harmonic dissipation in divergence/vorticity form, with
        constant viscosity or model/mom_visc.py's variable viscosity
@@ -85,7 +86,6 @@ def check_branches_vecinv(cfg: Config) -> None:
         "viscA4Z!=viscA4": const and cfg.viscA4Z != cfg.viscA4,
         f"selectBotDragQuadr={cfg.selectBotDragQuadr}":
             cfg.selectBotDragQuadr not in (-1, 0),
-        "useCDscheme": cfg.useCDscheme,
         "rigidLid": cfg.rigidLid,
         "select_rStar": cfg.select_rStar != 0,
         "useNHMTerms": cfg.useNHMTerms,
@@ -372,8 +372,12 @@ def _mom_vecinv_plain(cfg: Config, grid: Grid, u, v, w, kappaRU,
         guDiss = guDiss - cDragU * bottomW * u * grid.recip_hFacW * recip_drF
         gvDiss = gvDiss - cDragV * bottomS * v * grid.recip_hFacS * recip_drF
 
-    # Coriolis + vorticity advection (:402-413)
-    gU, gV = _planetary_coriolis(cfg, grid, u, v)
+    # Coriolis + vorticity advection (:402-413); no planetary term under
+    # the CD scheme, whose D-grid velocities give it (:405-408)
+    if cfg.useCDscheme:
+        gU, gV = torch.zeros_like(u), torch.zeros_like(v)
+    else:
+        gU, gV = _planetary_coriolis(cfg, grid, u, v)
     vs = vort_scheme(cfg)
     gU = gU + _vort_coriolis_u(grid, vs, v, vort3, hFacZ, r_hFacZ)
     gV = gV + _vort_coriolis_v(grid, vs, u, vort3, hFacZ, r_hFacZ)
@@ -445,8 +449,9 @@ def _check(ins: dict, out: MomTend) -> None:
 def _args(cfg: Config, u) -> tuple:
     """Kernel V's arguments after its pointer table."""
     nr, nyp, nxp = u.shape
+    # Coriolis 2: the CD scheme's variant, without the planetary term
     return (nr, nyp - 2 * cfg.oly, nxp - 2 * cfg.olx, cfg.oly, cfg.olx,
-            vort_scheme(cfg), cfg.selectCoriScheme,
+            vort_scheme(cfg), 2 if cfg.useCDscheme else cfg.selectCoriScheme,
             int(cfg.implicitViscosity), int(cfg.no_slip_bottom), cfg.viscAh,
             cfg.sideDragFactor, cfg.bottomDragLinear, cfg.rkSign)
 

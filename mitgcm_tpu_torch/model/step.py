@@ -27,7 +27,12 @@ THERMODYNAMICS), the pp81- and my82-gyre (the kpp-gyre with PP81's or
 MY82's Richardson-number mixing in place of KPP, model/vertmix.py, on the
 start-of-step state before THERMODYNAMICS), the opps-gyre (the kpp-gyre
 with OPPS plume convection in place of KPP, model/opps.py, on the freshly
-stepped tracers after INTEGR_CONTINUITY), and any mix of those options.
+stepped tracers after INTEGR_CONTINUITY), the cd-gyre and cd-vi-gyre
+(the gyre and the vi-gyre under the CD scheme's Coriolis, model/cd_code.py:
+kernel CD after kernel G's CD variant in DYNAMICS), the shap-gyre (the
+gyre with the Shapiro filter, model/shap_filt.py: the velocities after
+the momentum correction, the tracers after OPPS's place), and any mix of
+those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `kappa_uv` forms the vertical viscosity at u and v points
@@ -51,12 +56,14 @@ from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import Forcing, State
 from mitgcm_tpu_torch.model import calc_gw as calc_gw_mod
+from mitgcm_tpu_torch.model import cd_code
 from mitgcm_tpu_torch.model import gad
 from mitgcm_tpu_torch.model.gad import _div
 from mitgcm_tpu_torch.model import ggl90 as ggl90_mod
 from mitgcm_tpu_torch.model import gmredi
 from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model import seaice as seaice_mod
+from mitgcm_tpu_torch.model import shap_filt
 from mitgcm_tpu_torch.model import som as som_mod
 from mitgcm_tpu_torch.model import thermodynamics as thermo_mod
 from mitgcm_tpu_torch.model.mom_fluxform import check_branches, mom_fluxform
@@ -96,7 +103,7 @@ class StepDiag:
 _PACKAGES = ("useEXF", "useOBCS",
              "usePTRACERS", "useRBCS",
              "useAIM", "useLand", "useThSIce", "useZONAL_FILT", "useOffLine",
-             "useGCHEM", "useSHAP_FILT")
+             "useGCHEM")
 
 
 def _tracer_schemes_off(cfg: Config) -> dict:
@@ -212,6 +219,7 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
         "biharmonic tracer diffusion": (cfg.diffK4T != 0.0
                                         or cfg.diffK4S != 0.0),
         **_tracer_schemes_off(cfg),
+        **shap_filt.refusals(cfg),
         "cg2dExactSums": cfg.cg2dExactSums,
         "custom forcing hooks": (cfg.custom_forcing_uv is not None
                                  or cfg.custom_forcing_t is not None),
@@ -314,7 +322,9 @@ def _mom_ab_step_plain(cfg: Config, grid: Grid, myIter: int, gU, dPhiX,
     :300-357): (gU, uStar, gV, vStar[, gW, wStar]), the raw tendencies
     (the next step's gNm1) and the predictors; w's with gW. guExt and
     gvExt are the wind stress's surface level [nyp, nxp] (kernel Q's),
-    added as apply_forcing.F's 3-D forcing, 0 below the surface."""
+    added as apply_forcing.F's 3-D forcing, 0 below the surface. Under the
+    CD scheme the AB-extrapolated gU_ab and gV_ab take the predictors'
+    places (step.py:256-267; kernel CD forms the predictors)."""
     out = []
     for terms, gNm1, gNm2, x, mask in (
             ((gU, dPhiX, guDiss, guExt), guNm1, guNm2, u, grid.maskW),
@@ -322,7 +332,8 @@ def _mom_ab_step_plain(cfg: Config, grid: Grid, myIter: int, gU, dPhiX,
         tend, dPhi, diss, ext = terms
         g = tend - dPhi + diss + _surface_level(ext, tend.shape[0])
         g_ab = adams_bashforth(cfg, g, gNm1, gNm2, myIter)[0]
-        out += [g, x + cfg.deltaTMom * g_ab * mask]
+        out += [g, g_ab if cfg.useCDscheme
+                else x + cfg.deltaTMom * g_ab * mask]
     if gW is not None:
         g = gW + gwDiss
         g_ab = adams_bashforth(cfg, g, gwNm1, gwNm2, myIter)[0]
@@ -341,28 +352,36 @@ def _mom_ab_step_kernel(cfg: Config, grid: Grid, myIter: int, *tensors):
     """Kernel G's mom_ab_step on the card (step_glue.cu)."""
     u = tensors[6]
     nh = len(tensors) > 14
+    cd = cfg.useCDscheme
     order, abFac, ab0, ab1, ab2 = ab_params(cfg, myIter)
     outs = tuple(torch.empty_like(u) for _ in range(6 if nh else 4))
     # the slots that the launch does not read (gNm2 under AB-2, w's on a
-    # hydrostatic step) hold u
+    # hydrostatic step; u, v and their masks in the CD variant, which
+    # forms no predictor) hold u, or gU in the CD variant
     ins = dict.fromkeys(_MOM_AB_IN, u)
     ins.update((n, t) for n, t in zip(_MOM_AB_IN, tensors) if t is not None)
     if order == 2:
         ins.update(guNm2=u, gvNm2=u, gwNm2=u)
     masks = dict(maskW=grid.maskW, maskS=grid.maskS,
                  **({"maskC": grid.maskC} if nh else {}))
+    if cd:
+        ins = {n: ins["gU"] if t is u else t for n, t in ins.items()}
+        masks = dict(maskW=ins["gU"], maskS=ins["gU"],
+                     **({"maskC": grid.maskC} if nh else {}))
     ext = ("guExt", "gvExt")     # the forcing's surface level, 2-D
     kernels.check_fields(u.dtype, u.shape, **{
         n: t for n, t in ins.items() if n not in ext}, **masks,
         **{f"out{k}": t for k, t in enumerate(outs)})
     kernels.check_fields(u.dtype, u.shape[1:], **{n: ins[n] for n in ext})
     vals = list(ins.values())
-    table = (vals[:7] + [grid.maskW] + vals[7:14] + [grid.maskS]
+    table = (vals[:7] + [masks["maskW"]] + vals[7:14] + [masks["maskS"]]
              + vals[14:] + [grid.maskC] + list(outs) + [u] * (6 - len(outs)))
     nh_fac = 1.0 / cfg.nh_Am2 if cfg.nh_Am2 != 0.0 else 0.0
+    # the mode: bit 0 w's step, bit 1 the CD scheme's variant
+    mode = int(nh) | 2 * int(cd)
     kernels.launch("mom_ab_step", u.dtype, kernels.pointer_table(table),
-                   len(table), *u.shape, order, int(nh), abFac, ab0, ab1,
-                   ab2, cfg.deltaTMom, cfg.deltaTMom * nh_fac)
+                   len(table), *u.shape, order, mode, abFac, ab0, ab1, ab2,
+                   cfg.deltaTMom, cfg.deltaTMom * nh_fac)
     return outs
 
 
@@ -420,7 +439,8 @@ def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
                 gw=None):
     """The total momentum tendencies, their AB extrapolation and the
     predictors (dynamics.F + timestep.F): (uStar, vStar, guNm1', gvNm1',
-    guNm2', gvNm2', nh). guExt, gvExt: the wind stress's surface level
+    guNm2', gvNm2', nh); under the CD scheme gU_ab and gV_ab in the
+    predictors' places. guExt, gvExt: the wind stress's surface level
     [nyp, nxp] (kernel Q's; 0 below the surface). gw: with nonHydrostatic,
     calc_gw's (gW, gwDiss),
     and nh holds w* and the w-tendency history (dynamics.F:642-652,
@@ -435,7 +455,8 @@ def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
     def twin(*ts):
         return _mom_ab_step_plain(cfg, grid, myIter, *ts)
 
-    if kernels.use_kernel(state.uVel, impl) and gw is None:
+    if (kernels.use_kernel(state.uVel, impl) and gw is None
+            and not cfg.useCDscheme):
         # hydrostatic: the transposed pass, kernel G''s mom_ab_step_adj
         kernels.refuse_grad("mom_ab_step", maskW=grid.maskW,
                             maskS=grid.maskS)
@@ -444,8 +465,8 @@ def mom_ab_step(cfg: Config, grid: Grid, state: State, tend, dPhiHydX,
             lambda need, *bars: _mom_ab_step_adj_kernel(
                 cfg, grid, myIter, need, *bars), *tensors)
     elif kernels.use_kernel(state.uVel, impl):
-        # the non-hydrostatic inputs have no backward kernel: autograd
-        # through the twin (the adjoint refuses the non-hydrostatic path)
+        # the non-hydrostatic inputs and the CD variant have no backward
+        # kernel: autograd through the twin (the adjoint refuses both)
         outs = kernels.TwinVJP.apply(
             lambda *ts: _mom_ab_step_kernel(cfg, grid, myIter, *ts), twin,
             *tensors)
@@ -541,8 +562,8 @@ def dynamics(cfg: Config, grid: Grid, state: State,
              impl: str = None, kpp_fields=None, ggl90_fields=None,
              vmix_fields=None):
     """dynamics.F + timestep.F: (uStar, vStar, guNm1', gvNm1', guNm2',
-    gvNm2', totPhiHyd, nh). sf: the step's surface forcing, whose momentum
-    forcing's surface level kernel G adds (apply_forcing.F);
+    gvNm2', totPhiHyd, nh, dgrid). sf: the step's surface forcing, whose
+    momentum forcing's surface level kernel G adds (apply_forcing.F);
     kpp_fields: KPP.calc's output, whose viscosity
     is blended into kappaRU/RV (calc_viscosity.F), or None; ggl90_fields:
     GGL90.calc's viscArU/viscArV, added to kappaRU/RV, or None;
@@ -550,7 +571,10 @@ def dynamics(cfg: Config, grid: Grid, state: State,
     as KPP's is, or None. nh: with
     nonHydrostatic, w* and the w-tendency history (dynamics.F:642-652,
     CALC_GW + TIMESTEP_WVEL; step.py:341-357 of the JAX package), else
-    None."""
+    None. dgrid: with useCDscheme the new D-grid velocities (uVelD,
+    vVelD) of kernel CD (model/cd_code.py; step.py:269-277 of the JAX
+    package), under implicitViscosity with the implicit viscosity applied
+    after CD stored them (:326-339), else None."""
     u, v, w = state.uVel, state.vVel, state.wVel
     kappaRU, kappaRV = kappa_uv(cfg, grid, kpp_fields, ggl90_fields,
                                 impl=impl, vmix_fields=vmix_fields)
@@ -565,6 +589,16 @@ def dynamics(cfg: Config, grid: Grid, state: State,
     uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, nh = mom_ab_step(
         cfg, grid, state, tend, dPhiHydX, dPhiHydY, sf.guExt, sf.gvExt,
         myIter, impl=impl, gw=gw)
+    dgrid = None
+    if cfg.useCDscheme:
+        # G's CD variant gave gU_ab and gV_ab: kernel CD adds guCor and
+        # gvCor and forms the predictors
+        cd = cd_code.CDState(state.uVelD, state.vVelD, state.uNM1,
+                             state.vNM1, state.etaNm1)
+        uStar, vStar, uVelD, vVelD = cd_code.cd_scheme(
+            cfg, grid, myIter, uStar, vStar, u, v, state.etaN, cd,
+            impl=impl)
+        dgrid = (uVelD, vVelD)
     if cfg.implicitViscosity:
         uStar = thermo_mod.impldiff(cfg, grid, uStar, kappaRU,
                                     grid.recip_hFacW, cfg.deltaTMom,
@@ -572,7 +606,17 @@ def dynamics(cfg: Config, grid: Grid, state: State,
         vStar = thermo_mod.impldiff(cfg, grid, vStar, kappaRV,
                                     grid.recip_hFacS, cfg.deltaTMom,
                                     impl=impl)
-    return uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh
+        if dgrid is not None:
+            # vVelD lives at U points, uVelD at V points (dynamics.F:
+            # 615-633)
+            dgrid = (thermo_mod.impldiff(cfg, grid, dgrid[0], kappaRV,
+                                         grid.recip_hFacS, cfg.deltaTMom,
+                                         impl=impl),
+                     thermo_mod.impldiff(cfg, grid, dgrid[1], kappaRU,
+                                         grid.recip_hFacW, cfg.deltaTMom,
+                                         impl=impl))
+    return (uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh,
+            dgrid)
 
 
 def _predicted_transport(cfg: Config, grid: Grid, uStar, vStar):
@@ -1110,7 +1154,8 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         cfg, grid, state, forc, sf, myIter, impl=impl,
         kpp_fields=kpp_fields, ggl90_fields=ggl90_fields, gm=gm,
         gm_psi=gm_psi, vmix_fields=vmix_fields)
-    uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh = dynamics(
+    (uStar, vStar, guNm1, gvNm1, guNm2, gvNm2, totPhiHyd, nh,
+     dgrid) = dynamics(
         cfg, grid, state, sf, rhoInSitu, myIter, impl=impl,
         kpp_fields=kpp_fields, ggl90_fields=ggl90_fields,
         vmix_fields=vmix_fields)
@@ -1119,6 +1164,11 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
                                             vStar, impl=impl, nh=nh, op3=op3)
     u, v = momentum_correction_step(cfg, grid, etaN, uStar, vStar, phi_nh,
                                     impl=impl)
+    # the Shapiro filter of the corrected velocities, before continuity
+    # sees them (momentum_correction_step.F:69-74; step.py:1038-1043 of
+    # the JAX package)
+    if cfg.useSHAP_FILT:
+        u, v = shap_filt.apply_uv(cfg, grid, cfg.shap, u, v, impl=impl)
     u, v = fill(u), fill(v)
     w, PmEpR = integr_continuity(cfg, grid, u, v, forc.EmPmR, impl=impl)
     w = fill(w)
@@ -1127,9 +1177,24 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
     # the JAX package), before the state's fills
     if opps is not None:
         theta, salt, _ = opps.apply(theta, salt, w, totPhiHyd, impl=impl)
+    # the Shapiro filter of the stepped tracers, on filled fields
+    # (tracers_correction_step.F:70-88; step.py:1133-1137 of the JAX
+    # package)
+    if cfg.useSHAP_FILT and cfg.shap.nShapT > 0:
+        theta, salt = shap_filt.apply_ts(cfg, grid, cfg.shap, fill(theta),
+                                         fill(salt), impl=impl)
 
     def fill_if(a, used):
         return fill(a) if used else a
+
+    # the CD scheme's state: the D-grid pair filled (vVelD at U points,
+    # uVelD at V points), the step's starting u and v, and etaN before the
+    # solve (solve_for_pressure.F:88; step.py:1030 and :1194-1198 of the
+    # JAX package)
+    cd = {}
+    if cfg.useCDscheme:
+        cd = dict(uVelD=fill(dgrid[0]), vVelD=fill(dgrid[1]),
+                  uNM1=state.uVel, vNM1=state.vVel, etaNm1=state.etaN)
 
     new_state = State(
         uVel=u, vVel=v, wVel=w, theta=fill(theta), salt=fill(salt),
@@ -1152,7 +1217,7 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         uIce=state.uIce, vIce=state.vIce, siAREA=state.siAREA,
         siHEFF=state.siHEFF, siHSNOW=state.siHSNOW, siHSALT=state.siHSALT,
         siTICES=state.siTICES, SItracer=state.SItracer,
-        siSigma=state.siSigma)
+        siSigma=state.siSigma, **cd)
     if ice_diag is not None:
         diag.lsr_iters = ice_diag["lsr_iters"]
         diag.lsr_host_syncs = ice_diag["lsr_host_syncs"]

@@ -241,8 +241,10 @@ def _vertmix_kernel(vm, u, v, theta, salt, totPhiHyd):
     """Kernel U's vertmix_calc on the card (vertmix.cu)."""
     cfg, grid = vm.cfg, vm.grid
     nr, nyp, nxp = theta.shape
-    kernels.check_nr("U", nr, 1, kernels.max_nr(U_SHARED_VALUES,
-                                                  theta.dtype))
+    # MY82 keeps U_SHARED_VALUES a level in shared memory; PP81 keeps none
+    most = (kernels.max_nr(U_SHARED_VALUES, theta.dtype)
+            if vm.scheme == "MY82" else nr)
+    kernels.check_nr("U", nr, 1, most)
     ins, (kind, use_phi, eos_params) = eos.kernel_inputs(cfg, grid, theta,
                                                          totPhiHyd)
     visc, diff = torch.empty_like(theta), torch.empty_like(theta)

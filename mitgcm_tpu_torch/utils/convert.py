@@ -3,7 +3,8 @@ CG2DOperator of mitgcm_tpu, given as dicts of numpy arrays (one entry per
 field, `np.asarray(leaf)`), become the port's objects on a given device and
 dtype. Fields the port does not hold are ignored, so both packages can step
 from identical inputs; an optional field of the port (State.GGL90TKE,
-IDEMIX_E, somT, somS, the non-hydrostatic phi_nh, gwNm1 and gwNm2, the
+IDEMIX_E, somT, somS, the non-hydrostatic phi_nh, gwNm1 and gwNm2, the CD
+scheme's uVelD, vVelD, uNM1, vNM1 and etaNm1, the
 sea ice's uIce, vIce, siAREA, siHEFF, siHSNOW, siHSALT, siTICES, SItracer
 and siSigma, and Forcing's atmospheric state atemp, aqh, precip, swdown,
 lwdown, runoff, wspeed and evap) is carried when the arrays hold it and
@@ -11,7 +12,8 @@ left None otherwise. `arrays_of` takes
 the port's objects too, so the same fields cross back to the JAX package
 (a State's None fields are left out, a zero-size one crosses as it is). A
 control vector
-or a gradient crosses as one array (`to_tensor`, `to_numpy`)."""
+or a gradient crosses as one array (`to_tensor`, `to_numpy`); the Shapiro
+filter's parameters (Config.shap) as `shap_params`."""
 
 from __future__ import annotations
 
@@ -45,6 +47,15 @@ def to_tensor(a, dtype=torch.float64, device="cuda") -> torch.Tensor:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor (a control, a gradient) as a numpy array on the host."""
     return t.detach().cpu().numpy()
+
+
+def shap_params(p):
+    """The port's model/shap_filt.py:ShapParams holding the values of `p`,
+    the JAX package's ShapParams (or any object with its fields)."""
+    from mitgcm_tpu_torch.model.shap_filt import ShapParams
+
+    return ShapParams(**{f.name: getattr(p, f.name)
+                         for f in dataclasses.fields(ShapParams)})
 
 
 def from_arrays(cls, arrays: Mapping[str, np.ndarray],

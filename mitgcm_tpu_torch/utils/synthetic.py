@@ -8,7 +8,9 @@ gm-bolus-gyre (the kpp-gyre with GM-Redi and a temperature front), and
 the visc-gyre, visc-vi-gyre and st-vi-gyre (variable and biharmonic
 viscosity, the strain-tension form, quadratic bottom drag), the pp81-,
 my82- and opps-gyre (the kpp-gyre with PP81's or MY82's
-Richardson-number mixing or OPPS plume convection in place of KPP); and
+Richardson-number mixing or OPPS plume convection in place of KPP), the
+cd-gyre and cd-vi-gyre (the gyre and the vi-gyre under the CD scheme's
+Coriolis) and the shap-gyre (the gyre with the Shapiro filter); and
 the nh-convection box, a
 rotating, surface-cooled non-hydrostatic convection box. The set-ups put
 their tensors on the CUDA device unless device="cpu" is asked for, and take
@@ -30,6 +32,7 @@ from mitgcm_tpu_torch.model.gmredi import GMParams
 from mitgcm_tpu_torch.model.kpp import DEFAULT_OPTIONS, KPP
 from mitgcm_tpu_torch.model.opps import OPPS
 from mitgcm_tpu_torch.model.seaice import SeaIce, params_from_namelists
+from mitgcm_tpu_torch.model.shap_filt import ShapParams
 from mitgcm_tpu_torch.model.step import integr_continuity
 from mitgcm_tpu_torch.model.vertmix import MY82, PP81
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo, shift as sh
@@ -202,6 +205,42 @@ def idemix_maps(cfg: Config, wet: np.ndarray, dtype, device) -> dict:
     wind = 2e-3 * (1.0 + 0.5 * np.cos(np.pi * y)) * np.ones_like(x)
     return {"idemix_tidal": _fill2(cfg, tidal * wet, dtype, device)[0],
             "idemix_wind": _fill2(cfg, wind * wet, dtype, device)[0]}
+
+
+# The CD scheme's relaxation time of MITgcm's global_ocean.90x40x15 deck
+# (tauCD = 321428 s, its data file, not part of this repository): at
+# deltaT = 600 s the D-grid velocities keep rCD = 1 - 600 / 321428 of
+# their own step each step. The default, tauCD = deltaTMom, would make
+# rCD 0 and multiply the D-grid step away.
+CD_SETTINGS = dict(useCDscheme=True, tauCD=321428.0)
+
+
+def cd_gyre_config(nx=64, ny=64, nr=4, **kw) -> Config:
+    """The gyre (flux-form momentum, LINEAR, AB-2) with the CD scheme's
+    Coriolis (CD_SETTINGS; the "cd-gyre"). Set up by gyre_setup."""
+    return gyre_config(nx=nx, ny=ny, nr=nr, **{**CD_SETTINGS, **kw})
+
+
+def cd_vi_gyre_config(nx=64, ny=64, nr=4, **kw) -> Config:
+    """The vi-gyre (vector-invariant momentum, implicit viscosity, AB-3,
+    JMD95Z) with the CD scheme's Coriolis (CD_SETTINGS; the
+    "cd-vi-gyre"). Set up by gyre_setup."""
+    return vi_gyre_config(nx=nx, ny=ny, nr=nr, **{**CD_SETTINGS, **kw})
+
+
+def shap_gyre_config(nx=64, ny=64, nr=4, shap=None, **kw) -> Config:
+    """The gyre with the Shapiro filter (the "shap-gyre"): hs94's
+    Shap_funct 2 and nShapUV 4 (tests/test_hs94.py), the velocities
+    filtered after the momentum correction (shap_filt_uvStar=F), theta and
+    salt 4 passes each (the third fills), index space for both, the taus
+    the time steps; `shap` sets further ShapParams fields. Set up by
+    gyre_setup."""
+    cfg = gyre_config(nx=nx, ny=ny, nr=nr, useSHAP_FILT=True, **kw)
+    cfg.shap = ShapParams(**{
+        "Shap_funct": 2, "nShapUV": 4, "shap_filt_uvStar": False,
+        "nShapT": 4, "nShapS": 4, "Shap_uvtau": cfg.deltaTMom,
+        "Shap_Trtau": cfg.deltaTTracer, **(shap or {})})
+    return cfg
 
 
 def gyre_grid(cfg: Config, dtype: torch.dtype = torch.float32,

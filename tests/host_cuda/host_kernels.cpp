@@ -21,11 +21,13 @@
 // adv_flow.cuh, launch_eos_linear_adj of eos.cuh), and X and Y
 // (launch_calc_visc and launch_del2uv of mom_visc.cuh) with B's and V's
 // dissipation variants (launch_mom_visc, launch_vecinv_visc), and U and Z
-// (launch_vertmix_calc of vertmix.cuh, launch_opps_col of opps.cuh), for
-// tests/test_torch_host_kernels.py.
+// (launch_vertmix_calc of vertmix.cuh, launch_opps_col of opps.cuh), and
+// CD, SH-uv and SH-ts (launch_cd_scheme of cd_code.cuh, launch_shap of
+// shap_filt.cuh), for tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "adv_flow.cuh"
 #include "calc_gw_tile.cuh"
+#include "cd_code.cuh"
 #include "cg3d_setup.cuh"
 #include "cg3d_tile.cuh"
 #include "eos.cuh"
@@ -48,6 +50,7 @@
 #include "pre_cg3d.cuh"
 #include "seaice_evp_uv.cuh"
 #include "seaice_glue.cuh"
+#include "shap_filt.cuh"
 #include "som_tile.cuh"
 #include "step_glue.cuh"
 #include "step_glue_adj.cuh"
@@ -424,8 +427,35 @@ constexpr size_t kHostMaxShared = 232448;
                               use_phi, max_abe, OnHost{kHostMaxShared});     \
   }
 
+// CD, SH-uv and SH-ts, with their entry points' arguments but the stream
+#define HOST_CD_SHAP_ENTRY_POINTS(T, SUF)                                    \
+  extern "C" int host_cd_scheme_##SUF(const void* const* table, int n,       \
+                                      const double* params, int np, int nr,  \
+                                      int nyp, int nxp) {                    \
+    return launch_cd_scheme<T>(table, n, params, np, nr, nyp, nxp,           \
+                               OnHost{});                                    \
+  }                                                                          \
+  extern "C" int host_shap_uv_##SUF(                                         \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int oly, int olx, int fill, int first, int last,     \
+      int physical, int length) {                                            \
+    return launch_shap<T>(0, table, n, params, np, nr, nyp, nxp, oly, olx,   \
+                          ShapFlags{fill, first, last, physical, length},    \
+                          OnHost{});                                         \
+  }                                                                          \
+  extern "C" int host_shap_ts_##SUF(                                         \
+      const void* const* table, int n, const double* params, int np, int nr, \
+      int nyp, int nxp, int oly, int olx, int fill, int first, int last,     \
+      int physical, int length) {                                            \
+    return launch_shap<T>(1, table, n, params, np, nr, nyp, nxp, oly, olx,   \
+                          ShapFlags{fill, first, last, physical, length},    \
+                          OnHost{});                                         \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
+HOST_CD_SHAP_ENTRY_POINTS(float, f32)
+HOST_CD_SHAP_ENTRY_POINTS(double, f64)
 HOST_RIMIX_ENTRY_POINTS(float, f32)
 HOST_RIMIX_ENTRY_POINTS(double, f64)
 HOST_VISC_ENTRY_POINTS(float, f32)

@@ -1,7 +1,7 @@
 """PyTorch port: its own copies of the JAX package's JAX-free host modules
 (core/config.py, core/nml.py, io/mds.py) against the originals, and
 `jax_config`, which the other test files use to hand a configuration built
-by the port to the JAX package."""
+by the port to the JAX package (with its GMParams and ShapParams)."""
 
 import dataclasses
 
@@ -12,11 +12,13 @@ from mitgcm_tpu.core import config as jconfig
 from mitgcm_tpu.core import nml as jnml
 from mitgcm_tpu.io import mds as jmds
 from mitgcm_tpu.model import gmredi as jgmredi
+from mitgcm_tpu.model import shap_filt as jshap
 from mitgcm_tpu.utils import synthetic as jsyn
 from mitgcm_tpu_torch.core import config as tconfig
 from mitgcm_tpu_torch.core import nml as tnml
 from mitgcm_tpu_torch.io import mds as tmds
 from mitgcm_tpu_torch.model import gmredi as tgmredi
+from mitgcm_tpu_torch.model import shap_filt as tshap
 from mitgcm_tpu_torch.utils import synthetic as tsyn
 
 
@@ -28,6 +30,8 @@ def jax_config(cfg: tconfig.Config) -> jconfig.Config:
     values["extra"] = dict(cfg.extra)
     if isinstance(cfg.gmredi, tgmredi.GMParams):
         values["gmredi"] = jgmredi.GMParams(**_values(cfg.gmredi))
+    if isinstance(cfg.shap, tshap.ShapParams):
+        values["shap"] = jshap.ShapParams(**_values(cfg.shap))
     return jconfig.Config(**values)
 
 

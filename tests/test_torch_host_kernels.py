@@ -121,6 +121,14 @@ SIGNATURES = {
     + [_I] * 7,
     "host_opps_col": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
     + [_I] * 6,
+    # CD, SH-uv and SH-ts, with their entry points' arguments but the
+    # stream
+    "host_cd_scheme": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 3,
+    "host_shap_uv": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 10,
+    "host_shap_ts": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 10,
 }
 
 
@@ -1336,9 +1344,10 @@ VI_DRAGS = {"no-slip": (True, 0.0), "no-slip and linear": (True, 2e-3),
             "linear": (False, 2e-3), "none": (False, 0.0)}
 
 
-def vecinv_case(f, vort, cori, implicit, drag):
+def vecinv_case(f, vort, cori, implicit, drag, cd=False):
     """As mom_case, for kernel V on f's grid with its own recip_rAz and
-    fCoriG (drag: a VI_DRAGS key)."""
+    fCoriG (drag: a VI_DRAGS key; cd: the CD scheme's variant, Coriolis
+    2)."""
     ny, nx = f.s3[1] - 2 * OL, f.s3[2] - 2 * OL
     no_slip, linear = VI_DRAGS[drag]
     g = f.grid
@@ -1348,14 +1357,15 @@ def vecinv_case(f, vort, cori, implicit, drag):
                     viscAhZ=430.0, sideDragFactor=2.0,
                     implicitViscosity=implicit, no_slip_bottom=no_slip,
                     bottomDragLinear=linear, selectVortScheme=vort,
-                    selectCoriScheme=cori)
+                    selectCoriScheme=cori, useCDscheme=cd)
     u = f.normal(f.s3, 0.1) * g.maskW
     v = f.normal(f.s3, 0.1) * g.maskS
     w = f.normal(f.s3, 1e-2) * g.maskC
     kshape = (f.s3[0] + 1,) + f.s3[1:]
     kRU, kRV = f.normal(kshape, 1e-2).abs(), f.normal(kshape, 1e-2).abs()
     want = list(vecinv._mom_vecinv_plain(cfg, g, u, v, w, kRU, kRV))
-    args = (f.s3[0], ny, nx, OL, OL, vort, cori, int(implicit), int(no_slip))
+    args = (f.s3[0], ny, nx, OL, OL, vort, 2 if cd else cori, int(implicit),
+            int(no_slip))
     fn = f"host_mom_vecinv_{SUFFIX[f.dtype]}"
 
     def run(lib, ins):
@@ -1389,12 +1399,13 @@ def inner_of(f):
 
 def test_mom_vecinv_refuses(lib):
     """A table of the wrong length, a vorticity scheme of 3, a Coriolis
-    scheme of 2, flags that are not 0 or 1 (cudaErrorInvalidValue, 1)."""
+    scheme of 3 (2 is the CD scheme's variant), flags that are not 0 or 1
+    (cudaErrorInvalidValue, 1)."""
     f = Fields(torch.float64, 450, *SIZES[0])
     _, named, args, _ = vecinv_case(f, 1, 0, True, "no-slip")
     outs = [torch.empty(f.s3, dtype=f.dtype) for _ in range(4)]
     tab = table(list(named.values()) + outs)
-    for extra, change in ((-1, {}), (0, {5: 3}), (0, {6: 2}), (0, {7: 2}),
+    for extra, change in ((-1, {}), (0, {5: 3}), (0, {6: 3}), (0, {7: 2}),
                           (0, {8: -1})):
         bad = [change.get(n, a) for n, a in enumerate(args)]
         assert lib.host_mom_vecinv_f64(tab, len(tab) + extra, *bad, 430.0,
@@ -3106,6 +3117,10 @@ MOM_VISC_VARIANTS = {
                                          "bottomDragLinear": 2e-3},
     "no drag": {**VISC_OFF, "viscAhD": 0.5, "no_slip_bottom": False,
                 "selectBotDragQuadr": -1},
+    # the CD scheme's variant (no 2-D Coriolis term), with the 3-D term
+    "CD, free slip, 3-D Coriolis": dict(no_slip_sides=False,
+                                        select3dCoriScheme=1, fPrime=1e-4,
+                                        useCDscheme=True),
 }
 
 
@@ -3164,6 +3179,9 @@ VI_VISC_VARIANTS = {
     "constant biharmonic": {**VISC_OFF, "viscAh": 0.4, "viscAhD": 0.4,
                             "viscAhZ": 0.4, "viscA4": 0.3, "viscA4D": 0.3,
                             "viscA4Z": 0.3, "no_slip_bottom": False},
+    # the CD scheme's variant (no planetary Coriolis term)
+    "CD, leith, vort 2": dict(useFullLeith=False, selectVortScheme=2,
+                              useCDscheme=True),
 }
 
 
@@ -3259,15 +3277,15 @@ Z_VARIANTS = {"defaults": {}, "useGCMwVel": {"useGCMwVel": True},
               "two adjustments": {"MAX_ABE_ITERATIONS": 2}}
 
 
-def rimix_case(dtype, seed, ny, nx, config, kind, select_p):
+def rimix_case(dtype, seed, ny, nx, config, kind, select_p, nr=RIMIX_NR):
     """(cfg, grid, u, v, theta, salt, w, totPhiHyd): mix_fields' grid with
-    columns of 0 to RIMIX_NR wet levels from the top (one of one level and
-    one full), cfg the configuration's with the EOS and pressure of (kind,
+    columns of 0 to nr wet levels from the top (one of one level and one
+    full), cfg the configuration's with the EOS and pressure of (kind,
     select_p); velocities over three decades, theta unstable at about a
     third of the interfaces."""
     from mitgcm_tpu_torch.model import vertmix
 
-    f = mix_fields(dtype, seed, ny, nx, RIMIX_NR)
+    f = mix_fields(dtype, seed, ny, nx, nr)
     nr, nyp, nxp = f.s3
     kwet = f.rng.integers(0, nr + 1, size=(nyp, nxp))
     kwet[3, 3], kwet[4, 4] = 1, nr
@@ -3283,7 +3301,8 @@ def rimix_case(dtype, seed, ny, nx, config, kind, select_p):
     salt = 35.0 + f.normal(f.s3, 0.2)
     w = f.normal(f.s3, 1e-2)
     phi = f.normal(f.s3, 20.0)
-    assert kernels.max_nr(vertmix.U_SHARED_VALUES, dtype) >= nr
+    assert nr > RIMIX_NR or kernels.max_nr(vertmix.U_SHARED_VALUES,
+                                           dtype) >= nr
     return cfg, f.grid, u, v, theta, salt, w, phi
 
 
@@ -3397,9 +3416,277 @@ def test_rimix_launches_refuse(lib):
     assert (kernels.max_nr(vertmix.U_SHARED_VALUES, torch.float64),
             kernels.max_nr(opps.Z_SHARED_VALUES, torch.float64)) == (302, 181)
     big = torch.zeros((303, 1, 1), dtype=torch.float64)
-    none = SimpleNamespace(cfg=None, grid=None)
+    none = SimpleNamespace(cfg=None, grid=None, scheme="MY82")
     with pytest.raises(ValueError, match="kernel U takes"):
         vertmix._vertmix_kernel(none, big, big, big, big, None)
     with pytest.raises(ValueError, match="kernel Z takes"):
         opps.opps_col(none, big[:182], big[:182], None, None)
 
+
+
+# The CD scheme (kernel CD, cd_code.cuh; G's, B's and V's CD variants) and
+# the Shapiro filter (kernels SH-uv and SH-ts, shap_filt.cuh): each
+# through its wrapper's kernel path on the mock against the wrapper with
+# impl="plain", every padded cell equal, in float64 and float32 on both
+# SIZES grids.
+
+
+def cd_shap_grid(f):
+    """f's grid with Bo_surf, rAz and recip_rAz, which CD and SH-uv read."""
+    g = f.grid
+    s2 = f.s3[1:]
+    g.Bo_surf = f.uniform(s2, 9.0, 10.0)
+    g.rAz = f.uniform(s2, 0.5, 2.0)
+    g.recip_rAz = 1.0 / g.rAz
+    return g
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("it", (0, 5))
+def test_cd_scheme(lib, on_mock, ny, nx, dtype, it):
+    """Kernel CD on iteration 0 (forward D-grid step) and a later one."""
+    from mitgcm_tpu_torch.model import cd_code
+
+    f = Fields(DTYPES[dtype], 1400 + nx + it, ny, nx)
+    g = cd_shap_grid(f)
+    cfg = config_ns(nr=NR, deltaTMom=600.0, tauCD=321428.0, abEps=0.01,
+                    epsAB_CD=0.01)
+    gU, gV = f.normal(f.s3, 1e-4), f.normal(f.s3, 1e-4)
+    u, v, uNM1, vNM1, uVelD, vVelD = (f.normal(f.s3, 0.1) for _ in range(6))
+    eta, etaNm1 = f.normal(f.s3[1:], 0.1), f.normal(f.s3[1:], 0.1)
+    cd = cd_code.CDState(uVelD, vVelD, uNM1, vNM1, etaNm1)
+
+    def run(impl):
+        return list(cd_code.cd_scheme(cfg, g, it, gU, gV, u, v, eta, cd,
+                                      impl=impl))
+    check_outputs(run(None), run("plain"), f"cd_scheme({it})")
+    assert on_mock["cd_scheme"] == 1
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("no_slip,cori3d", [(True, False), (False, True)])
+def test_mom_fluxform_tile_cd(lib, ny, nx, dtype, no_slip, cori3d):
+    """B's CD variant (Coriolis flags bit 1): no 2-D Coriolis term, the
+    3-D term kept."""
+    f = Fields(DTYPES[dtype], 1420 + 2 * no_slip + cori3d, ny, nx)
+    cfg = config_ns(nr=NR, oly=OL, olx=OL, rkSign=-1.0,
+                    gravitySign=-1.0, viscAhD=430.0, viscAhZ=270.0,
+                    sideDragFactor=2.0, no_slip_sides=no_slip,
+                    select3dCoriScheme=int(cori3d), useCDscheme=True)
+    g = f.grid
+    u = f.normal(f.s3, 0.1) * g.maskW
+    v = f.normal(f.s3, 0.1) * g.maskS
+    w = f.normal(f.s3, 1e-2) * g.maskC
+    kshape = (NR + 1,) + f.s3[1:]
+    kRU, kRV = f.normal(kshape, 1e-2).abs(), f.normal(kshape, 1e-2).abs()
+    want = mom._mom_fluxform_plain(cfg, g, u, v, w, kRU, kRV)
+    outs = [torch.full(f.s3, float("nan"), dtype=f.dtype) for _ in range(4)]
+    ins = list(mom._kernel_inputs(g, u, v, w, kRU, kRV).values())
+    tab = table(ins + outs)
+    err = getattr(lib, f"host_mom_fluxform_{dtype}")(
+        tab, len(tab), NR, ny, nx, OL, OL, int(no_slip),
+        mom.coriolis_flags(cfg), cfg.viscAhD, cfg.viscAhZ,
+        cfg.sideDragFactor, cfg.rkSign, cfg.gravitySign)
+    assert err == 0 and mom.coriolis_flags(cfg) == 2 + int(cori3d)
+    for name, got in zip(mom.MomTend._fields, outs):
+        check(got, getattr(want, name), name)
+    assert lib.host_mom_fluxform_f64(
+        tab, len(tab), NR, ny, nx, OL, OL, 1, 4, 1.0, 1.0, 1.0, -1.0,
+        -1.0) == 1
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("vort,implicit", [(1, True), (0, False), (2, True)])
+def test_mom_vecinv_tile_cd(lib, ny, nx, dtype, vort, implicit):
+    """V's CD variant (Coriolis 2): no planetary Coriolis term, the
+    vorticity advection kept."""
+    f = Fields(DTYPES[dtype], 1440 + vort, ny, nx)
+    want, named, _, run = vecinv_case(f, vort, 0, implicit, "no-slip",
+                                      cd=True)
+    for name, got, wanted in zip(mom.MomTend._fields, run(lib, named), want):
+        check(got, wanted, name)
+
+
+# (configuration, iteration) of G's CD variant: AB-2 on the cold start and
+# later, AB-3 on a later step
+MOM_AB_CD_CASES = {"cd-gyre cold start": ("cd_gyre_config", 0),
+                   "cd-gyre": ("cd_gyre_config", 1),
+                   "cd-vi-gyre": ("cd_vi_gyre_config", 2)}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MOM_AB_CD_CASES)
+def test_mom_ab_step_cd(lib, on_mock, ny, nx, dtype, case):
+    """G's CD variant (mode bit 1): the raw tendencies and gU_ab, gV_ab in
+    the predictors' places."""
+    from mitgcm_tpu_torch.model.mom_fluxform import MomTend
+
+    config, it = MOM_AB_CD_CASES[case]
+    f = last_fields(DTYPES[dtype], 1460 + nx + it, ny, nx)
+    cfg = getattr(synthetic, config)(nx=nx, ny=ny, nr=MIX_NR)
+    s2 = f.s3[1:]
+    t = {k: f.normal(f.s3, 1e-4) for k in (
+        "gU", "gV", "guDiss", "gvDiss", "dPhiX", "dPhiY", "guNm1", "gvNm1",
+        "guNm2", "gvNm2")}
+    state = SimpleNamespace(
+        uVel=f.normal(f.s3, 0.1), vVel=f.normal(f.s3, 0.1), gwNm1=None,
+        gwNm2=None, **{k: t[k] for k in ("guNm1", "gvNm1", "guNm2",
+                                         "gvNm2")})
+    tend = MomTend(t["gU"], t["gV"], t["guDiss"], t["gvDiss"])
+    ext = f.normal(s2, 1e-5), f.normal(s2, 1e-5)
+
+    def run(impl):
+        return list(step.mom_ab_step(cfg, f.grid, state, tend, t["dPhiX"],
+                                     t["dPhiY"], *ext, it, impl=impl)[:4])
+    got = run(None)
+    check_outputs(got, run("plain"), case)
+    assert on_mock["mom_ab_step"] == 1
+    # the predictor's slot holds the extrapolation, not u + dt g_ab maskW
+    assert not torch.equal(got[1], step._mom_ab_step_plain(
+        dataclasses.replace(cfg, useCDscheme=False), f.grid, it,
+        t["gU"], t["dPhiX"], t["guDiss"], ext[0], t["guNm1"], t["guNm2"],
+        state.uVel, t["gV"], t["dPhiY"], t["gvDiss"], ext[1], t["gvNm1"],
+        t["gvNm2"], state.vVel)[1])
+
+
+def shap_case(f, **shap):
+    """(cfg, ShapParams): the shap-gyre's filter on f's grid, 4 passes on
+    the velocities and on each tracer unless `shap` says otherwise."""
+    from mitgcm_tpu_torch.model import shap_filt
+
+    cfg = config_ns(nr=f.s3[0], oly=OL, olx=OL, deltaTMom=600.0,
+                    deltaTTracer=900.0)
+    shp = shap_filt.ShapParams(**{
+        "nShapUV": 4, "nShapT": 4, "nShapS": 4, "Shap_uvtau": 1200.0,
+        "Shap_Trtau": 2400.0, "shap_filt_uvStar": False, **shap})
+    return cfg, shp
+
+
+# SH-uv: index space (4 passes; 3, whose last pass fills; an exchange every
+# pass), physical space with Shap_uvLength < 0, 0 and > 0
+SHAP_UV_CASES = {
+    "index": {}, "index, 3 passes": {"nShapUV": 3},
+    "index, exchange every pass": {"Shap_alwaysExchUV": True},
+    "physical, length < 0": {"nShapUVPhys": 4, "Shap_uvLength": -1.0},
+    "physical, length 0": {"nShapUVPhys": 4},
+    "physical, length > 0": {"nShapUVPhys": 4, "Shap_uvLength": 3.0}}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SHAP_UV_CASES)
+def test_shap_uv(lib, on_mock, ny, nx, dtype, case):
+    """SH-uv's passes through shap_filt.apply_uv: one launch a pass."""
+    from mitgcm_tpu_torch.model import shap_filt
+
+    f = Fields(DTYPES[dtype], 1480 + nx + len(case), ny, nx)
+    g = cd_shap_grid(f)
+    cfg, shp = shap_case(f, **SHAP_UV_CASES[case])
+    u, v = f.normal(f.s3, 0.1), f.normal(f.s3, 0.1)
+
+    def run(impl):
+        return list(shap_filt.apply_uv(cfg, g, shp, u, v, impl=impl))
+    got = run(None)
+    check_outputs(got, run("plain"), f"apply_uv({case})")
+    assert on_mock["shap_uv"] == shp.nShapUV
+    assert not torch.equal(got[0], u)
+
+
+# SH-ts: index space, physical space with and without Shap_TrLength, and
+# index passes followed by physical ones (4 and 5 passes)
+SHAP_TS_CASES = {
+    "index": {}, "physical": {"nShapTrPhys": 4},
+    "physical, length": {"nShapTrPhys": 4, "Shap_TrLength": 2.0},
+    "mixed": {"nShapTrPhys": 2},
+    "mixed, 5 passes": {"nShapT": 5, "nShapS": 5, "nShapTrPhys": 3}}
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SHAP_TS_CASES)
+def test_shap_ts(lib, on_mock, ny, nx, dtype, case):
+    """SH-ts's passes on theta and salt through shap_filt.apply_ts: one
+    launch a pass of each."""
+    from mitgcm_tpu_torch.model import shap_filt
+
+    f = Fields(DTYPES[dtype], 1500 + nx + len(case), ny, nx)
+    g = cd_shap_grid(f)
+    cfg, shp = shap_case(f, **SHAP_TS_CASES[case])
+    theta, salt = f.normal(f.s3, 1.0), 35.0 + f.normal(f.s3, 0.1)
+
+    def run(impl):
+        return list(shap_filt.apply_ts(cfg, g, shp, theta, salt, impl=impl))
+    got = run(None)
+    check_outputs(got, run("plain"), f"apply_ts({case})")
+    assert on_mock["shap_ts"] == 2 * shp.nShapT
+    assert not torch.equal(got[0], theta)
+
+
+def test_cd_shap_launches_refuse(lib):
+    """CD refuses a table or parameter array of the wrong length and a null
+    pointer; SH-uv and SH-ts a table or parameter array of the wrong
+    length, flags out of range, SH-ts's first flag, and a physical pass
+    without its metrics (cudaErrorInvalidValue, 1)."""
+    f = Fields(torch.float64, 1520, *SIZES[0])
+    nr, nyp, nxp = f.s3
+    x, x2 = torch.zeros(f.s3, dtype=torch.float64), f.grid.rA
+    cd = [x] * 10 + [x2] * 7 + [x] * 4
+    p5 = (ctypes.c_double * 5)()
+    assert lib.host_cd_scheme_f64(table(cd), 21, p5, 5, nr, nyp, nxp) == 0
+    assert lib.host_cd_scheme_f64(table(cd), 20, p5, 5, nr, nyp, nxp) == 1
+    assert lib.host_cd_scheme_f64(table(cd), 21, p5, 4, nr, nyp, nxp) == 1
+    assert lib.host_cd_scheme_f64(table(cd[:20] + [None]), 21, p5, 5, nr,
+                                  nyp, nxp) == 1
+    shap = [x] * 11 + [x2] * 14 + [x] * 2
+    index = [x] * 6 + [None] * 19 + [x] * 2
+    p2, p3 = (ctypes.c_double * 2)(), (ctypes.c_double * 3)()
+    uv = lib.host_shap_uv_f64
+    assert uv(table(shap), 27, p2, 2, nr, nyp, nxp, OL, OL, 1, 1, 1, 1,
+              -1) == 0
+    assert uv(table(index), 27, p2, 2, nr, nyp, nxp, OL, OL, 1, 1, 1, 0,
+              0) == 0
+    assert uv(table(index), 27, p2, 2, nr, nyp, nxp, OL, OL, 1, 1, 1, 1,
+              0) == 1
+    assert uv(table(shap), 26, p2, 2, nr, nyp, nxp, OL, OL, 1, 1, 1, 1,
+              0) == 1
+    assert uv(table(shap), 27, p3, 3, nr, nyp, nxp, OL, OL, 1, 1, 1, 1,
+              0) == 1
+    assert uv(table(shap), 27, p2, 2, nr, nyp, nxp, OL, OL, 2, 1, 1, 1,
+              0) == 1
+    assert uv(table(shap), 27, p2, 2, nr, nyp, nxp, OL, OL, 1, 1, 1, 1,
+              2) == 1
+    ts = lib.host_shap_ts_f64
+    tsi = [x, None, x, None] + [x] * 2 + [None] * 19 + [x, None]
+    assert ts(table(tsi), 27, p3, 3, nr, nyp, nxp, OL, OL, 1, 0, 1, 0,
+              0) == 0
+    assert ts(table(tsi), 27, p3, 3, nr, nyp, nxp, OL, OL, 1, 1, 1, 0,
+              0) == 1
+    assert ts(table(tsi), 27, p2, 2, nr, nyp, nxp, OL, OL, 1, 0, 1, 0,
+              0) == 1
+
+
+@pytest.mark.parametrize("scheme", ("PP81", "MY82"))
+def test_vertmix_calc_deep(lib, on_mock, numpy_sqrt, scheme):
+    """U at 310 levels in float64, above the 302 that MY82's shared memory
+    holds: PP81 keeps no level in shared memory and runs, every padded cell
+    equal to its twin's; MY82 is refused by name."""
+    from mitgcm_tpu_torch.model import vertmix
+
+    nr = 310
+    cfg, g, u, v, theta, salt, _, phi = rimix_case(
+        torch.float64, 1540, 4, 6, "pp81_gyre_config", "JMD95Z", 0, nr=nr)
+    assert kernels.max_nr(vertmix.U_SHARED_VALUES, torch.float64) < nr
+    vm = getattr(vertmix, scheme)(cfg, g, {})
+    if scheme == "MY82":
+        with pytest.raises(ValueError, match="kernel U takes"):
+            vm.calc(u, v, theta, salt, phi)
+        assert on_mock["vertmix_calc"] == 0
+        return
+    got = vm.calc(u, v, theta, salt, phi)
+    assert on_mock["vertmix_calc"] == 1
+    check_outputs(got, vm.calc(u, v, theta, salt, phi, impl="plain"),
+                  "PP81 at 310 levels")

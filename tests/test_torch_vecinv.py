@@ -96,7 +96,7 @@ def test_relvort_and_hdiv(grids):
     ("useAbsVorticity", True), ("upwindVorticity", True),
     ("highOrderVorticity", True), ("viscA4Z", 1.0e9),
     ("selectKEscheme", 1), ("selectBotDragQuadr", 1),
-    ("useCDscheme", True), ("usingSphericalPolarGrid", True)])
+    ("useNHMTerms", True), ("usingSphericalPolarGrid", True)])
 def test_check_branches_vecinv_refuses(flag, value):
     cfg = tsyn.vi_gyre_config(nx=8, ny=8, nr=2)
     tvi.check_branches_vecinv(cfg)
