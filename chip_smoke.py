@@ -4,11 +4,11 @@
     python3 chip_smoke.py [PHASE ...]
 
 With no argument every phase runs; names of PHASES (`gyre` for 3-5,
-`adjoint`, `vi`, ..., `cd-shap` for 21) run those alone after the device
-and build phases, and the JSON line then lists only their kernels. Each
-phase prints its seconds when it ends. Phases, each printing its own
-lines; any failure raises and the script exits nonzero without the final
-line:
+`adjoint`, `vi`, ..., `cd-shap` for 21, `thsice` for 22) run those alone
+after the device and build phases, and the JSON line then lists only
+their kernels. Each phase prints its seconds when it ends. Phases, each
+printing its own lines; any failure raises and the script exits nonzero
+without the final line:
   1. device    : refuse to run without CUDA; print the card's name and
                  power limit (nvidia-smi) and the torch / CUDA versions
   2. build     : compile the kernels of kernels/csrc with nvcc
@@ -161,7 +161,7 @@ line:
                  slower than F.pad's in 3-D at full size by either
                  timing. F also on an input view whose offset is not a
                  multiple of 16 bytes (every row in scalar cells), bit for
-                 bit and timed beside F.pad.
+                 bit.
                  Every full-size phase (5, 6, 7-13, 15, 16) asserts the
                  launches of A and D-G on its path (one cg2d_solve launch
                  and one host read a cg2d solve, forward and adjoint) and
@@ -298,6 +298,27 @@ line:
                  timed steps with every launch count (CD once a step,
                  SH-uv 4 and SH-ts 8 launches a step) and no twin, and a
                  profile of 2 steps (device busy and idle share)
+ 22. thsice: the thsice-gyre (the ice-gyre's ocean and atmosphere under
+                 Winton's thermodynamic sea ice in place of pkg/seaice):
+                 kernel TH (thsice_step) against its twin on every padded
+                 cell of its 13 outputs, bit for bit, at 64x64 float64 and
+                 1024x1024 float32 on seeded inputs that take every branch
+                 of the step (asserted, over the defaults, a daily step and
+                 two surface iterations), with its device time (20
+                 launches in a CUDA graph, and a launch replayed between
+                 CUDA events), its wrapper call's, its twin's and its
+                 bound (the larger of its bytes and the operations of its
+                 inputs' live surface iterations); 5 float64 steps of the
+                 64x64x12 thsice-gyre, kernel path against plain path (15
+                 digits, equal cg2d iterations); then the 1024x1024x32
+                 float32 thsice-gyre (deltaT=600): one warm-up step and 5
+                 timed steps with every launch count (TH once a step, no
+                 halo fill of its own) and no twin, the host's load
+                 average, new ice in the open south, and a profile of 2
+                 steps (TH's device ms, busy and idle share)
+Phases 14 and 18 time only their kernels' JSON rows, at full size; every
+other variant there is held bit for bit untimed (PERF.md keeps their
+times).
 The full-size grids are built once per distinct geometry and shared by
 the phases that run it (`shared_grid`); each build and each set-up
 prints its seconds.
@@ -315,7 +336,7 @@ ggl90-gyre for R's sigmaR, phase 12's box for N1 and N2, phase 13's
 ice-gyre for S1 and S2, phase 19's paths for X, Y and the dissipation
 variants, phase 20's pp81-gyre for U and opps-gyre for Z, phase 21's
 cd-gyre for CD and G's and B's CD variants, cd-vi-gyre for V's and
-shap-gyre for SH-uv and SH-ts), with the
+shap-gyre for SH-uv and SH-ts, phase 22's thsice-gyre for TH), with the
 kernel's time (D-G's from phase 14, J-uv's, J-ts's, L's and sigmaR's
 from phase 17 and N1's, N2's, Q's, S1's and S2's from phase 18: a
 launch's device time, 20 launches in a CUDA graph, with
@@ -543,6 +564,9 @@ KERNELS = {
                 "mitgcm_tpu/model/shap_filt.py:150"),
     "shap_ts": ("mitgcm_tpu_torch/kernels/csrc/shap_filt.cu",
                 "mitgcm_tpu/model/shap_filt.py:224"),
+    # Winton's thermodynamic sea ice (TH)
+    "thsice_step": ("mitgcm_tpu_torch/kernels/csrc/thsice.cu",
+                    "mitgcm_tpu/model/thsice.py:779"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
@@ -825,6 +849,9 @@ OPS_PER_CELL = {"cg2d_solve": 30, "mom_fluxform": 300,
                 # Z's operations depend on the data: opps_ops counts the
                 # live iterations of its inputs (rimix_ops)
                 "opps_col": 0,
+                # TH's too (hold_thsice: its cells and their live surface
+                # iterations)
+                "thsice_step": 0,
                 # CD, one thread a cell: pf at eight points, afV and afU at
                 # four points each (~6 flops), the averages and the
                 # relaxation (~40), the predictors (~6); a call of SH-uv
@@ -1864,7 +1891,7 @@ def full_phase(kernels):
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
                + SEAICE_GLUE_KERNELS + EVP_KERNELS + GM_KERNELS
                + VISC_KERNELS + RIMIX_KERNELS + CD_SHAP_ROWS
-               + ("eos_sigma_r", "kappa_uv", "kappa_ts")
+               + THSICE_KERNELS + ("eos_sigma_r", "kappa_uv", "kappa_ts")
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -4553,10 +4580,11 @@ def halo_bound(a, oly, olx):
 
 def glue_kernel_phase(case, results, reps, kernels_only=None):
     """Each launch of D, E, F and G against its twin on whole padded
-    arrays, bit for bit (tol 0), with times and bounds; every variant of
-    the main paths (AB-2 cold start and later, AB-3, with and without the
-    tracer's AB, the non-hydrostatic flags on the box). kernels_only: the
-    kernels to hold (the box runs E and G alone)."""
+    arrays, bit for bit (tol 0), with bounds; every variant of the main
+    paths (AB-2 cold start and later, AB-3, with and without the tracer's
+    AB, the non-hydrostatic flags on the box), the JSON line's rows timed
+    unless reps is 0 (the variants' times stand in PERF.md). kernels_only:
+    the kernels to hold (the box runs E and G alone)."""
     import torch.nn.functional as F
 
     from mitgcm_tpu_torch.model import step, thermodynamics as th
@@ -4569,7 +4597,8 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
     nh = cfg.nonHydrostatic
 
     def hold(name, fn):
-        hold_launch(name, case, fn, results, reps)
+        hold_launch(name, case, fn, results,
+                    reps if name in KERNELS else 0)
 
     if "halo_fill" in want:
         ol = cfg.olx
@@ -4595,6 +4624,8 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
             if not torch.equal(pad().reshape(a.shape),
                                cyclic_fill_halo(a, ol, ol)):
                 raise AssertionError("F.pad(mode='circular') differs")
+            if reps == 0 or label not in KERNELS:
+                continue
             # F.pad on the device as F (20 calls in a CUDA graph, the JSON
             # line's), and CUDA events around F's launch replayed back to
             # back and around a batch of F.pad calls, which hold the host's
@@ -4643,7 +4674,7 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
                     lambda impl: list(step.cg2d_rhs(
                         cfg, g, case.u, case.v, case.eta,
                         hydrostatic=not nh, impl=impl, phi_nh=phi)),
-                    results, reps, touched=touched)
+                    results, 0 if nh else reps, touched=touched)
     if "continuity" in want:
         hold("continuity", lambda impl: step.integr_continuity(
             cfg, g, case.u, case.v, case.emp, impl=impl))
@@ -4683,20 +4714,22 @@ def glue_kernel_phase(case, results, reps, kernels_only=None):
 
 def glue_phase(results):
     phase("14 step glue kernels D-G")
-    glue_kernel_phase(GlueCase(64, 4, torch.float64), results, 20)
-    glue_kernel_phase(GlueCase(64, 4, torch.float64, vi=True), results, 20,
+    # every variant held bit for bit; only the JSON line's rows timed, at
+    # the main path's shapes, last
+    glue_kernel_phase(GlueCase(64, 4, torch.float64), results, 0)
+    glue_kernel_phase(GlueCase(64, 4, torch.float64, vi=True), results, 0,
                       ("mom_ab_step", "tracer_step"))
-    glue_kernel_phase(GlueCase(64, 12, torch.float64, nh=True), results, 20,
+    glue_kernel_phase(GlueCase(64, 12, torch.float64, nh=True), results, 0,
                       ("cg2d_rhs", "mom_ab_step", "mom_correction"))
     # the box's E and G at 1024x1024x50 (its grid is phase 12's), then the
-    # gyre's at the main path's shapes, last, for the JSON line
+    # gyre's at the main path's shapes
     glue_kernel_phase(GlueCase(1024, 50, torch.float32, nh=True), results,
-                      10, ("cg2d_rhs", "continuity", "mom_ab_step",
-                           "mom_correction"))
+                      0, ("cg2d_rhs", "continuity", "mom_ab_step",
+                          "mom_correction"))
     GRIDS.clear()
     torch.cuda.empty_cache()
     glue_kernel_phase(GlueCase(1024, 32, torch.float32, vi=True), results,
-                      10, ("mom_ab_step", "tracer_step"))
+                      0, ("mom_ab_step", "tracer_step"))
     glue_kernel_phase(GlueCase(1024, 32, torch.float32), results, 10)
     GRIDS.clear()
     torch.cuda.empty_cache()
@@ -4767,15 +4800,20 @@ def hold_launch(name, case, fn, results, reps, touched=None):
     and writes, when a wrapper's checks are not its launch's); the line's
     time is the launch's device time, 20 launches in a CUDA graph replayed
     (graph_ms), the wrapper call's CUDA-event time, which holds the
-    host's work before the launch, beside it."""
+    host's work before the launch, beside it. reps 0: held and bound,
+    not timed."""
     from mitgcm_tpu_torch import kernels
 
     outs, wants = fn(None), fn("plain")
+    timed = reps > 0
     exact_compare(name, case, outs, wants,
-                  cuda_time_ms(lambda: fn(None), reps),
-                  cuda_time_ms(lambda: fn("plain"), reps), results,
+                  cuda_time_ms(lambda: fn(None), reps) if timed else None,
+                  cuda_time_ms(lambda: fn("plain"), reps) if timed
+                  else None, results,
                   call=None if touched else lambda: fn(None),
                   touched=touched)
+    if not timed:
+        return
     r = results[name]
     args, keep = captured_launch(lambda: fn(None), name.split("(")[0])
     r["extra"] = {"wrapper_ms": r["ms"]}
@@ -4884,9 +4922,10 @@ def nh_last_glue(case, results, reps):
         # scale reads b and the mask and writes r; fill reads x0 and the
         # mask and writes x and the four work fields, and normalised reads
         # and writes r too
-        hold_launch("cg3d_setup_scale" + label, case, setup, results, reps,
+        timed = 0 if label else reps
+        hold_launch("cg3d_setup_scale" + label, case, setup, results, timed,
                     touched=[b, op.imask3, like()])
-        hold_launch("cg3d_setup_fill" + label, case, setup, results, reps,
+        hold_launch("cg3d_setup_fill" + label, case, setup, results, timed,
                     touched=[x0, op.imask3] + [like() for _ in range(
                         7 if norm else 5)])
 
@@ -4918,7 +4957,7 @@ def forcing_last_glue(case, results, reps):
                     args=args: [t for t in (
                         th._surface_forcing_plain if impl else
                         th._surface_forcing_kernel)(cfg, g, *args)
-                        if t is not None], results, reps)
+                        if t is not None], results, 0 if label else reps)
 
 
 def seaice_last_glue(case, results, reps):
@@ -4935,7 +4974,8 @@ def seaice_last_glue(case, results, reps):
     for label, evp in (("", False), ("(EVP)", True)):
         hold_launch("seaice_dynforcing" + label, case, lambda impl, evp=evp: [
             d[k] for d in [si.dynforcing(ice, fu, fv, eta, evp, impl=impl)]
-            for k in DYNFORCING_OUT[:11 + 2 * evp]], results, reps)
+            for k in DYNFORCING_OUT[:11 + 2 * evp]], results,
+            0 if label else reps)
     dwatn = case.field(rng, s2, 2.0).abs() * si.HEFFM
     uv0 = case.dyn["uVel0"], case.dyn["vVel0"]
     extra = dict(windTau=(case.field(rng, s2, 0.1), case.field(rng, s2, 0.1)),
@@ -4948,17 +4988,18 @@ def seaice_last_glue(case, results, reps):
                     d=drag, c=clip: [t for t in si.ocean_stress(
                         ice, None if d else dwatn, *uv0, fu, fv, mode=m,
                         drag=d, clip=c, impl=impl, **extra)
-                        if t is not None], results, reps)
+                        if t is not None], results, 0 if label else reps)
 
 
 def addend_last_glue(case, results, reps):
     """The `+ gTr` addend of the last sweep (kernels M, O and P, scheme 33,
     7 and 51) and of H-SOM's som_r (scheme 81) on the os7mp-gyre's grid
     (G9Case, halos of 4): the advection's gTracer + gTr against the twin's
-    sum, bit for bit; the R launch's device time (20 in a CUDA graph, the
-    sweeps' fields kept alive) with the addend and, beside it, without
-    (the same inputs, the same call), the whole advection's wrapper time,
-    the bound from what the R launch reads and writes."""
+    sum, bit for bit; unless reps is 0, the R launch's device time (20 in
+    a CUDA graph, the sweeps' fields kept alive) with the addend and,
+    beside it, without (the same inputs, the same call), the whole
+    advection's wrapper time, the bound from what the R launch reads and
+    writes."""
     from mitgcm_tpu_torch.model import gad, som
 
     cfg, g = case.cfg, case.grid
@@ -4995,10 +5036,14 @@ def addend_last_glue(case, results, reps):
         for sweep in sweeps + bare:
             sweep[1]()
         label = f"{name}(+gTr)"
+        timed = reps > 0
         exact_compare(label, case, outs, call("plain"),
-                      cuda_time_ms(call, reps),
-                      cuda_time_ms(lambda: call("plain"), 2), results,
-                      call=call)
+                      cuda_time_ms(call, reps) if timed else None,
+                      cuda_time_ms(lambda: call("plain"), 2) if timed
+                      else None, results, call=call)
+        if not timed:
+            del sweeps, bare, outs
+            continue
         r = results[label]
         r["extra"] = {"wrapper_ms": r["ms"],
                       "without_addend_ms": graph_ms(bare[-1][1], reps)}
@@ -5014,7 +5059,9 @@ def addend_last_glue(case, results, reps):
 
 def last_glue_phase(results):
     phase("18 the last glue: N1, N2, Q, S1, S2 and the + gTr addend")
-    for n, dtype, reps in ((64, torch.float64, 20),
+    # every variant held bit for bit; the JSON line's rows and the addend
+    # timed at full size only (the variants' times stand in PERF.md)
+    for n, dtype, reps in ((64, torch.float64, 0),
                            (1024, torch.float32, 10)):
         nr = 12 if n == 64 else 50
         nh_last_glue(GlueCase(n, nr, dtype, nh=True), results, reps)
@@ -5878,6 +5925,228 @@ def cd_shap_phase(kernels, results, smi):
     torch.cuda.empty_cache()
     return launches
 
+# Phase 22: Winton's thermodynamic sea ice on the thsice-gyre (the
+# ice-gyre's ocean and atmosphere with thsice in place of pkg/seaice)
+THSICE_KERNELS = ("thsice_step",)
+# launches in the 5 timed full-size thsice-gyre steps: the kpp-gyre's and
+# one TH a step (its 13 outputs' halo fills folded into its writes)
+THSICE_LAUNCHES = {**KPP_LAUNCHES, "thsice_step": 5}
+# TH's operations (model/thsice.py:ThSIce.step, exp and a square root or
+# division counted as 20 and 8): a cell outside the surface loop ~450 (the
+# albedo's 3 exp, the shortwave's, the snow age's and the fluxes at 0 degC
+# ~130, the solve's set-up ~80 with its square root and divisions,
+# calc_thickn ~200, extend and the bookkeeping ~40); a live iteration of
+# the loop ~90 (get_exf's exp and ~30 flops, the quadratic's two square
+# roots and four divisions)
+TH_OPS_CELL, TH_OPS_ITERATION = 450, 90
+
+
+class ThsiceCase:
+    """The thsice-gyre's grid and utils/synthetic.py:thsice_inputs's
+    seeded fields on the card (every branch of the step somewhere)."""
+
+    def __init__(self, n, nr, dtype):
+        from mitgcm_tpu_torch.utils import synthetic
+
+        self.dtype = dtype
+        self.cfg = synthetic.thsice_gyre_config(nx=n, ny=n, nr=nr,
+                                                deltaT=600.0)
+        self.grid = (shared_grid(self.cfg, dtype)
+                     or synthetic.gyre_grid(self.cfg, dtype=dtype,
+                                            device="cuda"))
+        self.args = synthetic.thsice_inputs(self.cfg, self.grid,
+                                            seed=SEED + 53)
+
+    label = Case.label
+
+
+def hold_thsice(case, results, reps):
+    """TH against its twin under each of synthetic.THSICE_VARIANTS, every
+    padded cell of its 13 outputs bit for bit (exact_compare); the
+    defaults timed as hold_opps times Z, the bound the larger of the bytes
+    the launch moves and its operations on these inputs (the twin's live
+    surface iterations); every branch of thsice.BRANCHES taken somewhere,
+    under the defaults every ice cell out of the Terrmax loop before its
+    last iteration, with nitMaxTsf = 2 some cell through both."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.model import thsice
+    from mitgcm_tpu_torch.utils import synthetic
+
+    ol, taken = case.cfg.olx, dict.fromkeys(thsice.BRANCHES, 0)
+    base = thsice.params_from_namelists(case.cfg, {}, {})
+    for variant, settings in synthetic.THSICE_VARIANTS.items():
+        ts = thsice.ThSIce(case.cfg, case.grid,
+                           dataclasses.replace(base, **settings))
+
+        def fn(impl, ts=ts):
+            th, upd = ts.advance(*case.args, impl=impl)
+            return ([th[k] for k in thsice.TH_FIELDS]
+                    + [upd[k] for k in thsice.TH_FLUXES])
+
+        br = {}
+        ts.step(*case.args, branches=br)
+        for name in thsice.BRANCHES:
+            taken[name] += int(br[name][ol:-ol, ol:-ol].sum())
+        on = case.args[0]["thIceMask"][ol:-ol, ol:-ol] > 0.0
+        its = br["iterations"][ol:-ol, ol:-ol][on]
+        first, last = int(its.min()), int(its.max())
+        if variant == "" and not (first == 1 and 1 < last
+                                  < base.nitMaxTsf):
+            raise AssertionError(f"TH's surface iterations {first}-{last}")
+        if variant == "nitMaxTsf=2" and last != 2:
+            raise AssertionError("no cell ran both surface iterations")
+        name = "thsice_step" + (f"({variant})" if variant else "")
+        timed = reps > 0 and not variant
+        exact_compare(name, case, fn(None), fn("plain"),
+                      cuda_time_ms(lambda: fn(None), reps) if timed
+                      else None,
+                      cuda_time_ms(lambda: fn("plain"), reps) if timed
+                      else None, results, call=lambda: fn(None))
+        r = results[name]
+        live = int(br["iterations"].sum())
+        ops = (TH_OPS_CELL * case.args[0]["thIceMask"].numel()
+               + TH_OPS_ITERATION * live)
+        t_ops = ops / PEAK_F32_OPS_S * 1e3
+        print(f"{'':18s} live surface iterations {live} ({first}-{last} a "
+              f"cell of ice): {ops:.4e} operations, {t_ops:.4f} ms at the "
+              f"peak", flush=True)
+        if t_ops > r["bound_ms"]:
+            r["bound_ms"], r["bound_by"] = t_ops, "operations"
+        if not timed:
+            continue
+        args, keep = captured_launch(lambda: fn(None), "thsice_step")
+        r["extra"] = {"wrapper_ms": r["ms"],
+                      "events_ms": launch_ms(lambda: fn(None),
+                                             "thsice_step", reps)}
+        r["ms"] = graph_ms(lambda: kernels.launch(*args), reps)
+        del keep
+        print(f"{'':18s} device time (20 launches in a CUDA graph) "
+              f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.2f} of the bound "
+              f"({r['bound_by']}); CUDA events around a launch replayed "
+              f"{r['extra']['events_ms']:.4f} ms; a wrapper call "
+              f"{r['extra']['wrapper_ms']:.4f} ms", flush=True)
+    print(f"TH's branches taken at {case.label} (cells, over the variants): "
+          f"{taken}", flush=True)
+    missed = [k for k, n in taken.items() if n == 0]
+    if missed:
+        raise AssertionError(f"TH's branches never taken: {missed}")
+
+
+def thsice_experiment(n, nr, dtype, impl=None, **kw):
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.thsice_gyre_config(nx=n, ny=n, nr=nr, **kw)
+    grid, state, forcing, op, kpp, th = synthetic.thsice_gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype))
+    return Experiment(cfg, grid, state, forcing, op, kpp=kpp, thsice=th,
+                      impl=impl)
+
+
+def thsice_parity_phase(steps=5):
+    """`steps` float64 steps of the 64x64x12 thsice-gyre, kernel path
+    against plain path: equal cg2d iterations, 15 digits or more on every
+    statistic (the thSI_* ones too) and on the nine th* fields."""
+    from mitgcm_tpu_torch.model import thsice
+    from mitgcm_tpu_torch.utils.compare import digits, record_digits
+
+    exps = {impl: thsice_experiment(64, 12, torch.float64, impl)
+            for impl in (None, "plain")}
+    runs = {impl: e.run(n_steps=steps) for impl, e in exps.items()}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        worst = min(worst, min(record_digits(rk, rp).values()))
+        if rk["cg2d_iters"] != rp["cg2d_iters"]:
+            raise AssertionError("thsice-gyre cg2d iteration counts differ")
+    for name in thsice.TH_FIELDS:
+        worst = min(worst, digits(
+            getattr(exps[None].state, name).cpu().numpy(),
+            getattr(exps["plain"].state, name).cpu().numpy()))
+    print(f"thsice-gyre parity, 64x64x12 float64, {steps} steps kernel "
+          f"against plain: fewest matching digits {worst:.2f} (statistics "
+          f"and the th* fields), equal cg2d iterations "
+          f"{[r['cg2d_iters'] for r in runs[None][1:]]}", flush=True)
+    if not worst >= 15.0:
+        raise AssertionError(f"thsice-gyre parity {worst:.2f} < 15 digits")
+
+
+def thsice_full_phase(kernels, smi):
+    """The 1024x1024x32 float32 thsice-gyre (deltaT = 600): a warm-up
+    step, then 5 timed steps with every launch count (THSICE_LAUNCHES), no
+    twin of TH, KPP or the glue, finite fields and ice, with the host's
+    load average, then a profile of 2 steps (TH's device ms a step, the
+    busy and idle share)."""
+    from mitgcm_tpu_torch.model import kpp as kpp_mod, thsice
+
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = thsice_experiment(n, nr, torch.float32, deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.1f} s")
+    points = n * n * nr
+
+    def plain_calls():
+        return thsice.plain_calls + kpp_mod.plain_calls + glue_plain_calls()
+
+    def run(state, it0, steps):
+        exp.state, exp.cur_iter = state, it0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, [r["cg2d_iters"] for r in recs], \
+            time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    area0 = float(exp.state.thIceMask.sum())
+    state1, iters_w, sec_w = run(exp.state, 0, 1)
+    kernels.launches.clear()
+    plain0 = plain_calls()
+    load = os.getloadavg()
+    state, iters, sec = run(state1, 1, 5)
+    launches = dict(kernels.launches)
+    plain = plain_calls() - plain0
+    wall_ms = sec * 1e3 / 5
+    print(f"warm-up step: {sec_w * 1e3:.1f} ms, cg2d iterations {iters_w}")
+    print(f"thsice-gyre kernel path ({smi}): 5 steps, {wall_ms:.2f} "
+          f"ms/step, {points * 5 / sec:.4e} points*steps/s, cg2d "
+          f"iterations {iters}; the host's load average "
+          f"{load[0]:.2f} {load[1]:.2f} {load[2]:.2f} before the steps, "
+          f"{os.cpu_count()} cores")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches {launches}", flush=True)
+    for name in ("uVel", "vVel", "wVel", "theta", "salt", "etaN",
+                 *thsice.TH_FIELDS):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"thsice-gyre {name} is not finite")
+    area = float(state.thIceMask.sum())
+    print(f"sum of the ice fraction {area0:.6e} at the start, {area:.6e} "
+          f"after 6 steps", flush=True)
+    if not area > area0:
+        raise AssertionError("thsice-gyre: no new ice in the open south")
+    check_launches("thsice-gyre", launches, THSICE_LAUNCHES, plain)
+    prof = profile_steps(exp, state, 6, 2, wall_ms)
+    th_ms = sum(v["ms"] for k, v in prof["port_kernels"].items()
+                if "thsice" in k)
+    print(f"TH in the profile: {th_ms:.4f} device ms a step; the step "
+          f"{wall_ms:.2f} ms, busy {prof['device_busy_ms']:.2f} ms, idle "
+          f"share {prof['idle_share']:.3f} ({smi})", flush=True)
+    return launches
+
+
+def thsice_phase(kernels, results, smi):
+    phase("22 thsice: Winton's thermodynamic sea ice on the thsice-gyre")
+    for n, nr, dtype, reps in ((64, 12, torch.float64, 0),
+                               (1024, 32, torch.float32, 10)):
+        hold_thsice(ThsiceCase(n, nr, dtype), results, reps)
+        torch.cuda.empty_cache()
+    print(smi)
+    thsice_parity_phase()
+    got = thsice_full_phase(kernels, smi)
+    GRIDS.clear()
+    torch.cuda.empty_cache()
+    return {"thsice_step": got["thsice_step"]}
+
 
 def gyre_phases(kernels, results, smi):
     """Phases 3-5: the gyre's kernels against their twins, its parity and
@@ -5949,7 +6218,8 @@ PHASES = {"gyre": gyre_phases, "adjoint": adjoint_phases, "vi": vi_phases,
           "glue": no_launches(glue_phase), "evp": evp_phase, "gm": gm_phase,
           "mix": no_launches(mix_phase),
           "last-glue": no_launches(last_glue_phase), "visc": visc_phase,
-          "rimix": rimix_phase, "cd-shap": cd_shap_phase}
+          "rimix": rimix_phase, "cd-shap": cd_shap_phase,
+          "thsice": thsice_phase}
 
 
 def main(argv=()):

@@ -30,7 +30,8 @@ def check_adjoint_supported(cfg: Config) -> None:
     backward kernel yet (V: vector-invariant momentum, T: implicit
     vertical mixing, R: the nonlinear EOS, K: KPP, G9: GGL90, M, O and P:
     the multi-dimensional advection, W and H-cg3d: the non-hydrostatic
-    path, B's free-slip and 3-D Coriolis flags, H-seaice: the sea ice,
+    path, B's free-slip and 3-D Coriolis flags, H-seaice: the sea ice, TH:
+    thsice,
     gm_tensor, gm_psi_b, gm_residual_flow and C's GM branch: GM-Redi;
     U: PP81 and MY82, Z: OPPS; CD and G's and B's CD variants: the CD
     scheme, SH-uv and SH-ts: the Shapiro filter; X, Y and B's dissipation
@@ -49,6 +50,7 @@ def check_adjoint_supported(cfg: Config) -> None:
         "useKPP": cfg.useKPP,
         "useGGL90": cfg.useGGL90,
         "useSEAICE": cfg.useSEAICE,
+        "useThSIce": cfg.useThSIce,
         "useGMRedi": cfg.useGMRedi,
         "usePP81": cfg.usePP81,
         "useMY82": cfg.useMY82,

@@ -3,8 +3,8 @@ the fields of the ported paths: the DYNVARS.h velocities, tracers and free
 surface, the AB-2/AB-3 tendency history, GGL90's TKE and IDEMIX's
 internal-wave energy, the second-order moments of SOM tracers, the
 non-hydrostatic pressure and w-tendency history, the CD scheme's D-grid
-velocities, the sea-ice state, and
-FFIELDS.h's simple forcing with the atmospheric state the sea ice's
+velocities, the sea-ice state, the thermodynamic sea-ice (thsice) state,
+and FFIELDS.h's simple forcing with the atmospheric state the sea ice's
 growth reads."""
 
 from __future__ import annotations
@@ -77,6 +77,18 @@ class State:
     siTICES: Optional[torch.Tensor] = None
     SItracer: Optional[torch.Tensor] = None
     siSigma: Optional[torch.Tensor] = None
+    # Winton's thermodynamic sea ice (THSICE_VARS.h): ice fraction, ice
+    # and snow thickness, snow age, surface temperature, the two layers'
+    # temperatures and enthalpies [nyp, nxp]; None unless useThSIce
+    thIceMask: Optional[torch.Tensor] = None
+    thIceH: Optional[torch.Tensor] = None
+    thSnowH: Optional[torch.Tensor] = None
+    thSnowAge: Optional[torch.Tensor] = None
+    thTsrf: Optional[torch.Tensor] = None
+    thTice1: Optional[torch.Tensor] = None
+    thTice2: Optional[torch.Tensor] = None
+    thQice1: Optional[torch.Tensor] = None
+    thQice2: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -91,8 +103,9 @@ class Forcing:
     saltFlux: torch.Tensor
     SST: torch.Tensor        # climatological relaxation targets
     SSS: torch.Tensor
-    # the atmospheric state the sea ice's growth reads (pkg/exf's fields,
-    # given directly: exf is not ported); None unless useSEAICE
+    # the atmospheric state the sea ice's growth and thsice read (pkg/exf's
+    # fields, given directly: exf is not ported); None unless useSEAICE or
+    # useThSIce
     atemp: Optional[torch.Tensor] = None    # air temperature [K]
     aqh: Optional[torch.Tensor] = None      # specific humidity [kg/kg]
     precip: Optional[torch.Tensor] = None   # precipitation [m/s]

@@ -10,6 +10,7 @@ import torch
 from mitgcm_tpu_torch.core.config import Config
 from mitgcm_tpu_torch.core.grid import Grid
 from mitgcm_tpu_torch.core.state import State
+from mitgcm_tpu_torch.model.thsice import TH_FIELDS
 from mitgcm_tpu_torch.ops.stencil import interior_mask, shift as sh
 
 
@@ -140,3 +141,10 @@ def seaice_stats(cfg: Config, grid: Grid, state: State
         for k, v in calc_stats(cfg, fld[None], mk[None], mk, ar, drn).items():
             out[f"seaice_{name}_{k}"] = v
     return out
+
+
+def thsice_stats(thsice, state: State) -> Dict[str, torch.Tensor]:
+    """The thSI_* statistics (thsice_monitor.F; experiment.py:889-894 of
+    the JAX package) of the state's th* fields, by the ThSIce object's
+    `monitor`: plain reductions, as seaice_stats's are."""
+    return thsice.monitor({k: getattr(state, k) for k in TH_FIELDS})

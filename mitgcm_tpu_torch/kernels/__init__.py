@@ -200,6 +200,10 @@ SIGNATURES = {
     **{f"seaice_lsr_{s}": [_PP, _I, _PD, _I] + [_I] * 2 + [_P]
        for s in ("visc", "coeffs")},
     "seaice_thermo": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
+    # kernel TH, one thsice step: pointer table (thsice.cu:ThArgs), its
+    # length; parameter array (model/thsice_kernels.py:th_params), its
+    # length; nyp, nxp, oly, olx, nitMaxTsf; stream
+    "thsice_step": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
     # seaice_lsr_tridiag's half-sweeps: the table A, B, C, Rt1, Rt2, rhs,
     # mask, its length; u, uTmp, cuu, ctrl, wf; nxp, ol, sNy, sNx, nSy,
     # nSx, k; stream

@@ -68,7 +68,12 @@
         no_slip_bottom, drag, mitgcm::OnStream{(cudaStream_t)stream});        \
   }
 
+// the float32 entry points here, the float64 ones in mom_fluxform_f64.cu
+// (this file with MITGCM_F64 set), so that nvcc builds the two at once
+#ifndef MITGCM_F64
 MITGCM_MOM_ENTRY_POINT(float, f32)
-MITGCM_MOM_ENTRY_POINT(double, f64)
 MITGCM_MOM_VISC_ENTRY_POINT(float, f32)
+#else
+MITGCM_MOM_ENTRY_POINT(double, f64)
 MITGCM_MOM_VISC_ENTRY_POINT(double, f64)
+#endif

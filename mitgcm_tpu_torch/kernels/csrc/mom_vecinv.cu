@@ -71,7 +71,16 @@
         drag, mitgcm::OnStream{(cudaStream_t)stream});                      \
   }
 
+// the float32 entry points of the plain variants here, the others in
+// mom_vecinv_f64.cu, mom_vecinv_visc.cu and mom_vecinv_visc_f64.cu (this
+// file with MITGCM_F64 and MITGCM_VISC set), so that nvcc builds the four
+// at once
+#if !defined(MITGCM_F64) && !defined(MITGCM_VISC)
 MITGCM_VECINV_ENTRY(mitgcm_mom_vecinv_f32, float)
+#elif !defined(MITGCM_VISC)
 MITGCM_VECINV_ENTRY(mitgcm_mom_vecinv_f64, double)
+#elif !defined(MITGCM_F64)
 MITGCM_VECINV_VISC_ENTRY(mitgcm_mom_vecinv_visc_f32, float)
+#else
 MITGCM_VECINV_VISC_ENTRY(mitgcm_mom_vecinv_visc_f64, double)
+#endif

@@ -39,5 +39,10 @@
                                     mitgcm::OnStream{(cudaStream_t)stream});  \
   }
 
+// the float32 entry points here, the float64 ones in mom_visc_f64.cu (this
+// file with MITGCM_F64 set), so that nvcc builds the two at once
+#ifndef MITGCM_F64
 MITGCM_VISC_ENTRY_POINTS(float, f32)
+#else
 MITGCM_VISC_ENTRY_POINTS(double, f64)
+#endif

@@ -25,6 +25,7 @@ from mitgcm_tpu_torch.model.ggl90 import GGL90
 from mitgcm_tpu_torch.model.kpp import KPP
 from mitgcm_tpu_torch.model.opps import OPPS
 from mitgcm_tpu_torch.model.seaice import SeaIce
+from mitgcm_tpu_torch.model.thsice import ThSIce
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu_torch.solver.cg2d import CG2DOperator
 from mitgcm_tpu_torch.solver.cg3d import CG3DOperator
@@ -45,12 +46,15 @@ class Experiment:
     seaice: Optional[SeaIce] = None      # model/seaice.py when useSEAICE
     vmix: object = None    # model/vertmix.py:PP81 or MY82 when used
     opps: Optional[OPPS] = None          # model/opps.py when useOPPS
+    thsice: Optional[ThSIce] = None      # model/thsice.py when useThSIce
 
     def monitor_stats(self) -> Dict[str, float]:
         stats = monitor.dynstat(self.cfg, self.grid, self.state)
         if self.seaice is not None:
             stats.update(monitor.seaice_stats(self.cfg, self.grid,
                                               self.state))
+        if self.thsice is not None:
+            stats.update(monitor.thsice_stats(self.thsice, self.state))
         return {k: float(v) for k, v in stats.items()}
 
     def run(self, n_steps: Optional[int] = None,
@@ -72,7 +76,7 @@ class Experiment:
                 cfg, self.grid, self.op, self.state, self.forcing,
                 self.cur_iter, impl=self.impl, kpp=self.kpp,
                 ggl90=self.ggl90, op3=self.op3, seaice=self.seaice,
-                vmix=self.vmix, opps=self.opps)
+                vmix=self.vmix, opps=self.opps, thsice=self.thsice)
             self.cur_iter += 1
             rec = {"iter": self.cur_iter,
                    "cg2d_init_res": float(diag.cg2d_init_res),
@@ -107,8 +111,9 @@ class Experiment:
 # etaNm1; experiment.py:1127-1137 and :1258-1272 of the JAX package). The
 # JAX package's pickups hold neither IDEMIX's energy,
 # nor the SOM moments, nor the non-hydrostatic phi_nh and w-tendency
-# history, so a restart there resets them to zero; the port refuses
-# pickups of those runs instead (`_check_pickup`).
+# history, nor thsice's state, so a restart there resets them to zero (or
+# drops the ice); the port refuses pickups of those runs instead
+# (`_check_pickup`).
 # ----------------------------------------------------------------------
 
 _PICKUP_3D = ["Uvel", "Vvel", "Theta", "Salt",
@@ -136,11 +141,12 @@ _CD = ("uVelD", "vVelD", "uNM1", "vNM1", "etaNm1")
 
 def _check_pickup(exp: Experiment) -> None:
     """Raise NotImplementedError, naming each, for the state a pickup in
-    the JAX package's format would drop: IDEMIX_E, the SOM moments and the
-    non-hydrostatic phi_nh, gwNm1 and gwNm2."""
+    the JAX package's format would drop: IDEMIX_E, the SOM moments, the
+    non-hydrostatic phi_nh, gwNm1 and gwNm2, and thsice's nine th*
+    fields."""
     cfg = exp.cfg
     step_mod.check_supported(cfg, exp.kpp, exp.ggl90, exp.impl, exp.op3,
-                             exp.seaice, exp.vmix, exp.opps)
+                             exp.seaice, exp.vmix, exp.opps, exp.thsice)
     bad = [f"{tr}AdvScheme={s} (the SOM moments)"
            for tr, s in (("temp", cfg.tempAdvScheme),
                          ("salt", cfg.saltAdvScheme))
@@ -149,6 +155,8 @@ def _check_pickup(exp: Experiment) -> None:
         bad.insert(0, "useIDEMIX (IDEMIX_E)")
     if cfg.nonHydrostatic:
         bad.append("nonHydrostatic (phi_nh, gwNm1, gwNm2)")
+    if cfg.useThSIce:
+        bad.append("useThSIce (the thsice state)")
     if bad:
         raise NotImplementedError(
             f"pickups: not written or read for {', '.join(bad)}: the JAX "

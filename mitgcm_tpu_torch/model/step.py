@@ -31,8 +31,10 @@ stepped tracers after INTEGR_CONTINUITY), the cd-gyre and cd-vi-gyre
 (the gyre and the vi-gyre under the CD scheme's Coriolis, model/cd_code.py:
 kernel CD after kernel G's CD variant in DYNAMICS), the shap-gyre (the
 gyre with the Shapiro filter, model/shap_filt.py: the velocities after
-the momentum correction, the tracers after OPPS's place), and any mix of
-those options.
+the momentum correction, the tracers after OPPS's place), the thsice-gyre
+(the kpp-gyre under Winton's thermodynamic sea ice, model/thsice.py:
+kernel TH before the surface forcing, overwriting Qnet, Qsw, EmPmR and
+saltFlux), and any mix of those options.
 `check_supported` raises for every
 configuration flag off them, so nothing the JAX step would do is silently
 skipped. `kappa_uv` forms the vertical viscosity at u and v points
@@ -65,6 +67,7 @@ from mitgcm_tpu_torch.model import kpp as kpp_mod
 from mitgcm_tpu_torch.model import seaice as seaice_mod
 from mitgcm_tpu_torch.model import shap_filt
 from mitgcm_tpu_torch.model import som as som_mod
+from mitgcm_tpu_torch.model import thsice as thsice_mod
 from mitgcm_tpu_torch.model import thermodynamics as thermo_mod
 from mitgcm_tpu_torch.model.mom_fluxform import check_branches, mom_fluxform
 from mitgcm_tpu_torch.model.mom_vecinv import check_branches_vecinv, mom_vecinv
@@ -102,7 +105,7 @@ class StepDiag:
 
 _PACKAGES = ("useEXF", "useOBCS",
              "usePTRACERS", "useRBCS",
-             "useAIM", "useLand", "useThSIce", "useZONAL_FILT", "useOffLine",
+             "useAIM", "useLand", "useZONAL_FILT", "useOffLine",
              "useGCHEM")
 
 
@@ -127,7 +130,8 @@ def _tracer_schemes_off(cfg: Config) -> dict:
 
 
 def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
-                    op3=None, seaice=None, vmix=None, opps=None) -> None:
+                    op3=None, seaice=None, vmix=None, opps=None,
+                    thsice=None) -> None:
     """Raise NotImplementedError unless cfg stays on the ported paths
     (Cartesian z-coordinates, a LINEAR, JMD95Z/P, UNESCO or MDJWF EOS,
     flux-form or vector-invariant momentum, AB-2 or AB-3, linear implicit
@@ -147,7 +151,9 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
     of that scheme, without KPP, GGL90 or the other scheme: under KPP the
     JAX step blends their viscosity but drops their diffusivity, so the
     port refuses the pair by name instead of copying it; useOPPS with opps,
-    a model/opps.py:OPPS object)."""
+    a model/opps.py:OPPS object; useThSIce with thsice, a model/thsice.py:
+    ThSIce object, without useSEAICE: the JAX package's sea ice has no
+    thsice branch, so it would run both growth models on one cover)."""
     g9_kernel = ggl90 is not None and kernels.use_kernel(ggl90.klowC, impl)
     off = {
         "useKPP without a KPP object": cfg.useKPP and kpp is None,
@@ -155,6 +161,10 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
         "useSEAICE without a SeaIce object": cfg.useSEAICE and seaice is None,
         "a SeaIce object without useSEAICE": (seaice is not None
                                               and not cfg.useSEAICE),
+        "useThSIce without a ThSIce object": cfg.useThSIce and thsice is None,
+        "a ThSIce object without useThSIce": (thsice is not None
+                                              and not cfg.useThSIce),
+        "useThSIce with useSEAICE": cfg.useThSIce and cfg.useSEAICE,
         "useKPP with useGGL90": cfg.useKPP and cfg.useGGL90,
         "usePP81 with useMY82": cfg.usePP81 and cfg.useMY82,
         "usePP81 or useMY82 without a PP81 or MY82 object": (
@@ -1064,20 +1074,34 @@ def integr_continuity(cfg: Config, grid: Grid, u, v, EmPmR,
 
 def forward_step(cfg: Config, grid: Grid, op, state: State,
                  forcing: Forcing, myIter: int, impl: str = None, kpp=None,
-                 ggl90=None, op3=None, seaice=None, vmix=None, opps=None
-                 ) -> Tuple[State, StepDiag]:
+                 ggl90=None, op3=None, seaice=None, vmix=None, opps=None,
+                 thsice=None) -> Tuple[State, StepDiag]:
     """One timestep; myIter is the start-of-step iteration number; kpp: a
     model/kpp.py:KPP object when useKPP; ggl90: a model/ggl90.py:GGL90
     object when useGGL90; op3: a solver/cg3d.py:CG3DOperator when
     nonHydrostatic; seaice: a model/seaice.py:SeaIce when useSEAICE; vmix:
     a model/vertmix.py:PP81 or MY82 object when usePP81 or useMY82; opps: a
-    model/opps.py:OPPS object when useOPPS."""
-    check_supported(cfg, kpp, ggl90, impl, op3, seaice, vmix, opps)
+    model/opps.py:OPPS object when useOPPS; thsice: a model/thsice.py:
+    ThSIce object when useThSIce."""
+    check_supported(cfg, kpp, ggl90, impl, op3, seaice, vmix, opps, thsice)
 
     def fill(a):
         return cyclic_fill_halo(a, cfg.oly, cfg.olx, impl=impl)
 
     forc = load_fields(forcing)
+    # Winton's thermodynamic sea ice (do_oceanic_phys.F:397 THSICE_MAIN,
+    # before the sea ice's slot; step.py:765-785 of the JAX package): one
+    # launch of kernel TH on the surface level's start-of-step ocean, which
+    # then sees its Qnet, Qsw, EmPmR and saltFlux
+    if thsice is not None:
+        ks = cfg.ksurf0
+        th, upd = thsice.advance(
+            {k: getattr(state, k) for k in thsice_mod.TH_FIELDS}, forc,
+            state.theta[ks], state.salt[ks], state.uVel[ks], state.vVel[ks],
+            grid.hFacC[ks], forc.Qnet, forc.Qsw, forc.EmPmR, forc.saltFlux,
+            impl=impl)
+        forc = dataclasses.replace(forc, **upd)
+        state = dataclasses.replace(state, **th)
     # the sea ice (do_oceanic_phys.F:448 SEAICE_MODEL; step.py:783-822 of
     # the JAX package): the ice state steps on the surface level's
     # start-of-step ocean, and the ocean then sees its fluxes
@@ -1217,7 +1241,8 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         uIce=state.uIce, vIce=state.vIce, siAREA=state.siAREA,
         siHEFF=state.siHEFF, siHSNOW=state.siHSNOW, siHSALT=state.siHSALT,
         siTICES=state.siTICES, SItracer=state.SItracer,
-        siSigma=state.siSigma, **cd)
+        siSigma=state.siSigma,
+        **{k: getattr(state, k) for k in thsice_mod.TH_FIELDS}, **cd)
     if ice_diag is not None:
         diag.lsr_iters = ice_diag["lsr_iters"]
         diag.lsr_host_syncs = ice_diag["lsr_host_syncs"]

@@ -6,14 +6,16 @@ from identical inputs; an optional field of the port (State.GGL90TKE,
 IDEMIX_E, somT, somS, the non-hydrostatic phi_nh, gwNm1 and gwNm2, the CD
 scheme's uVelD, vVelD, uNM1, vNM1 and etaNm1, the
 sea ice's uIce, vIce, siAREA, siHEFF, siHSNOW, siHSALT, siTICES, SItracer
-and siSigma, and Forcing's atmospheric state atemp, aqh, precip, swdown,
+and siSigma, thsice's thIceMask, thIceH, thSnowH, thSnowAge, thTsrf,
+thTice1, thTice2, thQice1 and thQice2, and Forcing's atmospheric state atemp, aqh, precip, swdown,
 lwdown, runoff, wspeed and evap) is carried when the arrays hold it and
 left None otherwise. `arrays_of` takes
 the port's objects too, so the same fields cross back to the JAX package
 (a State's None fields are left out, a zero-size one crosses as it is). A
 control vector
 or a gradient crosses as one array (`to_tensor`, `to_numpy`); the Shapiro
-filter's parameters (Config.shap) as `shap_params`."""
+filter's parameters (Config.shap) as `shap_params`, thsice's
+(ThsiceParams) as `thsice_params`."""
 
 from __future__ import annotations
 
@@ -56,6 +58,15 @@ def shap_params(p):
 
     return ShapParams(**{f.name: getattr(p, f.name)
                          for f in dataclasses.fields(ShapParams)})
+
+
+def thsice_params(p):
+    """The port's model/thsice.py:ThsiceParams holding the values of `p`,
+    the JAX package's ThsiceParams (or any object with its fields)."""
+    from mitgcm_tpu_torch.model.thsice import ThsiceParams
+
+    return ThsiceParams(**{f.name: getattr(p, f.name)
+                           for f in dataclasses.fields(ThsiceParams)})
 
 
 def from_arrays(cls, arrays: Mapping[str, np.ndarray],

@@ -3,7 +3,9 @@ configurations for the entry point, the card smoke run and the tests: the
 gyre, the vi-gyre, the kpp-gyre, the ggl90-gyre and its variants, the
 os7mp-gyre and the pqm-gyre (high-order advection), the idemix-gyre (IDEMIX
 and Langmuir in GGL90), the som-gyre (second-order-moment tracers), the
-ice-gyre (the kpp-gyre under a sea-ice cover), the gm- and
+ice-gyre (the kpp-gyre under a sea-ice cover), the thsice-gyre (the
+ice-gyre's ocean and atmosphere under Winton's thermodynamic sea ice),
+the gm- and
 gm-bolus-gyre (the kpp-gyre with GM-Redi and a temperature front), and
 the visc-gyre, visc-vi-gyre and st-vi-gyre (variable and biharmonic
 viscosity, the strain-tension form, quadratic bottom drag), the pp81-,
@@ -34,6 +36,7 @@ from mitgcm_tpu_torch.model.opps import OPPS
 from mitgcm_tpu_torch.model.seaice import SeaIce, params_from_namelists
 from mitgcm_tpu_torch.model.shap_filt import ShapParams
 from mitgcm_tpu_torch.model.step import integr_continuity
+from mitgcm_tpu_torch.model import thsice as thsice_mod
 from mitgcm_tpu_torch.model.vertmix import MY82, PP81
 from mitgcm_tpu_torch.ops.stencil import cyclic_fill_halo, shift as sh
 from mitgcm_tpu_torch.solver.cg2d import build_cg2d
@@ -520,16 +523,32 @@ def ice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
     else half the width: 2 x 2 tiles), which is part of the answer: the
     zebra solve is tile-local."""
     tile = 64 if (nx % 64 == 0 and nx >= 128) else nx // 2
+    ice = dict(useSEAICE=True, sNx=tile, sNy=tile, nSx=nx // tile,
+               nSy=ny // tile, **_polar_profiles(nr, depth))
+    cfg = kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth, **{**ice, **kw})
+    cfg.seaice = params_from_namelists(cfg, ICE_GYRE_SEAICE)
+    return cfg
+
+
+def _polar_profiles(nr: int, depth: float) -> dict:
+    """The polar kpp-gyre's tRef and sRef: -1.8 degC and 32.5 in the 60 m
+    mixed layer of the kpp-gyre's stretched levels, rising linearly to
+    +1.0 degC and 34.9 at the bottom layer's centre."""
     w = 1.15 ** np.arange(nr)
     delR = depth * w / w.sum()
     zc = np.cumsum(delR) - 0.5 * delR
     frac = np.clip((zc - 60.0) / (zc[-1] - 60.0), 0.0, 1.0)
-    ice = dict(useSEAICE=True, sNx=tile, sNy=tile, nSx=nx // tile,
-               nSy=ny // tile, tRef=tuple(-1.8 + 2.8 * frac),
-               sRef=tuple(32.5 + 2.4 * frac))
-    cfg = kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth, **{**ice, **kw})
-    cfg.seaice = params_from_namelists(cfg, ICE_GYRE_SEAICE)
-    return cfg
+    return dict(tRef=tuple(-1.8 + 2.8 * frac), sRef=tuple(32.5 + 2.4 * frac))
+
+
+def thsice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The thsice-gyre: the ice-gyre's polar kpp-gyre (tRef -1.8 degC in
+    the 60 m mixed layer rising to +1.0 degC at the bottom, sRef 32.5
+    rising to 34.9) with useThSIce in place of useSEAICE. The thsice
+    parameters are thsice_readparms.F's defaults, set up by
+    thsice_gyre_setup (the Config holds no field for them)."""
+    th = dict(useThSIce=True, **_polar_profiles(nr, depth))
+    return kpp_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth, **{**th, **kw})
 
 
 # the evp-ice-gyre's sea-ice settings: lab_sea/input.hb87's dynamics
@@ -562,6 +581,25 @@ def ice_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
     northern two thirds, open water to the south, at rest, TICES 273 K."""
     grid, state, forcing, op, kpp = kpp_gyre_setup(cfg, dtype=dtype,
                                                    device=device, grid=grid)
+    north, rec = _polar_atmosphere(cfg, grid, forcing, dtype, device)
+    seaice = SeaIce(cfg, grid, cfg.seaice)
+    ice = seaice.init_state()
+    state.uIce, state.vIce = ice.uIce, ice.vIce
+    state.siAREA = rec(0.95 * north)[0]
+    state.siHEFF = rec(2.0 * north)[0]
+    state.siHSNOW = rec(0.2 * north)[0]
+    state.siHSALT, state.siTICES = ice.HSALT, ice.TICES
+    state.SItracer, state.siSigma = ice.SItracer, ice.sigma
+    return grid, state, forcing, op, kpp, seaice
+
+
+def _polar_atmosphere(cfg: Config, grid: Grid, forcing, dtype, device):
+    """The ice-gyre's surface forcing, set on `forcing`: over open water
+    Qnet = +150 W/m2 (cooling) and Qsw = -50 W/m2 on wet points; atemp
+    253 K in the north rising linearly to 271 K in the south, aqh 5e-4
+    kg/kg, lwdown 220 and swdown 50 W/m2, precip 3e-9 m/s, runoff and
+    evap 0, wspeed 6 m/s. Returns (the wet cells of the northern two
+    thirds [ny, nx], rec: an interior field as a filled record)."""
     ol_y, ol_x = cfg.oly, cfg.olx
     wet = grid.maskC[0, ol_y:ol_y + cfg.ny, ol_x:ol_x + cfg.nx].cpu().numpy()
     j = np.arange(cfg.ny)[:, None]
@@ -580,18 +618,129 @@ def ice_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
     forcing.runoff = rec(0.0)
     forcing.evap = rec(0.0)
     forcing.wspeed = rec(6.0)
-    seaice = SeaIce(cfg, grid, cfg.seaice)
-    ice = seaice.init_state()
-    north = (j >= cfg.ny // 3) * wet
-    state.uIce, state.vIce = ice.uIce, ice.vIce
-    state.siAREA = rec(0.95 * north)[0]
-    state.siHEFF = rec(2.0 * north)[0]
-    state.siHSNOW = rec(0.2 * north)[0]
-    state.siHSALT, state.siTICES = ice.HSALT, ice.TICES
-    state.SItracer, state.siSigma = ice.SItracer, ice.sigma
-    return grid, state, forcing, op, kpp, seaice
+    return (j >= cfg.ny // 3) * wet, rec
 
 
+def thsice_gyre_setup(cfg: Config, dtype: torch.dtype = torch.float32,
+                      device="cuda", grid: Grid = None):
+    """(grid, state, forcing, op, kpp, thsice) of the thsice-gyre: the
+    ice-gyre's wind, KPP and atmosphere (_polar_atmosphere), a ThSIce at
+    thsice_readparms.F's defaults (thSIce_deltaT the model's deltaT), and
+    thsice ice on the wet cells of the northern two thirds: iceMask 0.95,
+    hIce 2 m, hSnow 0.2 m, snow age 0, tSrf -10 degC, the layer
+    temperatures 0 and the enthalpies of new ice at -1.70 degC
+    (init_state); the southern third is open water below its freezing
+    point, where new ice forms."""
+    grid, state, forcing, op, kpp = kpp_gyre_setup(cfg, dtype=dtype,
+                                                   device=device, grid=grid)
+    north, rec = _polar_atmosphere(cfg, grid, forcing, dtype, device)
+    thsice = thsice_mod.ThSIce(
+        cfg, grid, thsice_mod.params_from_namelists(cfg, {}, {}))
+    th = thsice.init_state(iceMask=rec(0.95 * north)[0],
+                           iceH=rec(2.0 * north)[0],
+                           snowH=rec(0.2 * north)[0],
+                           tsrf=rec(-10.0 * north)[0])
+    state = dataclasses.replace(state, **th)
+    return grid, state, forcing, op, kpp, thsice
+
+
+
+# ThsiceParams settings beside thsice_readparms.F's defaults under which
+# thsice_inputs takes the rest of the step's branches: a daily step
+# (sublimation that thins ice below hIceMin), and two surface iterations
+# (cells that run every iteration of the Terrmax loop)
+THSICE_VARIANTS = {"": {},
+                   "daily": {"thSIce_deltaT": 86400.0,
+                             "thSIce_dtTemp": 86400.0,
+                             "ocean_deltaT": 86400.0},
+                   "nitMaxTsf=2": {"nitMaxTsf": 2}}
+
+
+def thsice_inputs(cfg: Config, grid: Grid, seed: int = 0):
+    """Seeded inputs of one thsice step (model/thsice.py:ThSIce.step's
+    arguments: th, forc, theta, salt, u and v at the surface level, hFacC
+    there, Qnet, Qsw, EmPmR, saltFlux) on the grid's dtype and device,
+    halo-filled, drawn from numpy.random.default_rng(seed) wide enough
+    that the step takes every branch of solve4temp, calc_thickn and
+    extend somewhere: a tenth of the cells open water (about half of it
+    below its freezing point), ice of fraction 0.05 to 1 (a quarter of it
+    0.1 to 0.12) from 1 mm to 11 m under 0 to 3 m of snow, air from 240 to
+    290 K, dry to moist, calm to windy, and an ocean from 2 degC below to
+    3 degC above its freezing point, moving at up to 1 m/s. Rows of the
+    interior sweep the thickness of snow-free ice of fraction 0.105
+    through the two rarest branches, by factors of 1.08 over 64 columns
+    (again every 64), each row a fraction of a factor further on: under
+    warm, moist, sunny air from 1 mm (rows 1 mod 4: top melt through both
+    layers), under warm, dry, windy, sunny air over an ocean at its
+    freezing point from 1 cm (rows 2 mod 4: thinned below hIceMin by
+    sublimation alone). Some branches need a longer step or fewer surface
+    iterations than the defaults give (THSICE_VARIANTS)."""
+    dtype, device = grid.rA.dtype, grid.rA.device
+    rng = np.random.default_rng(seed)
+    shape = (cfg.ny, cfg.nx)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, shape)
+
+    ice = u(0.0, 1.0) > 0.1
+    # a quarter of the ice near iceMaskMin, where lateral melt takes a
+    # part of the energy only
+    f = {"thIceMask": np.where(ice, np.where(u(0.0, 1.0) < 0.25,
+                                             u(0.1, 0.12), u(0.05, 1.0)),
+                               0.0),
+         "thIceH": np.where(ice, np.exp(u(np.log(1.0e-3), np.log(11.0))),
+                            0.0)}
+    f["thSnowH"] = np.where(ice & (u(0.0, 1.0) > 0.25), u(0.0, 3.0), 0.0)
+    f["thSnowAge"] = np.where(ice, u(0.0, 3.0e6), 0.0)
+    f["thTsrf"] = np.where(ice, u(-30.0, 0.0), u(-2.0, 3.0))
+    t1, t2 = u(-20.0, -0.1), u(-20.0, -0.1)
+    forc = {"atemp": u(240.0, 290.0), "aqh": u(0.0, 4.0e-3),
+            "lwdown": u(150.0, 350.0), "swdown": u(0.0, 400.0),
+            "precip": u(0.0, 1.0e-7), "runoff": u(0.0, 1.0e-8),
+            "wspeed": u(0.0, 15.0)}
+    p = thsice_mod.params_from_namelists(cfg, {}, {})
+    salt = u(30.0, 35.0)
+    ocean = {"theta": -p.mu_Tf * salt + u(-2.0, 3.0), "salt": salt,
+             "uVel": u(-1.0, 1.0), "vVel": u(-1.0, 1.0),
+             "hFacC": u(0.2, 1.0), "Qnet": u(-200.0, 400.0),
+             "Qsw": u(-300.0, 0.0), "EmPmR": u(-1.0e-7, 1.0e-7),
+             "saltFlux": u(-1.0e-6, 1.0e-6)}
+    i = np.arange(cfg.nx)
+    for row, (h0, ratio), air in (
+            (1, (1.0e-3, 1.08), {"atemp": 285.0, "aqh": 4.0e-3,
+                                 "lwdown": 350.0, "swdown": 400.0,
+                                 "wspeed": 15.0}),
+            (2, (1.0e-2, 1.08), {"atemp": 285.0, "aqh": 0.0,
+                                 "lwdown": 350.0, "swdown": 400.0,
+                                 "wspeed": 15.0})):
+        rows = np.arange(row, cfg.ny, 4)[:, None]
+        f["thIceMask"][rows, i] = 0.105
+        # each row of a sweep a fraction of a factor further on, the sweep
+        # again every 64 columns
+        f["thIceH"][rows, i] = h0 * ratio ** (i % 64 + rows / cfg.ny)
+        f["thSnowH"][rows, i] = 0.0
+        f["thTsrf"][rows, i] = -1.0
+        t1[rows, i], t2[rows, i] = -1.0, -1.5
+        for k, v in air.items():
+            forc[k][rows, i] = v
+        ocean["theta"][rows, i] = -p.mu_Tf * salt[rows, i]
+    on = f["thIceMask"] > 0.0
+    # layer enthalpies of ice at -20 to -0.1 degC (thsice_ini_vars.F)
+    f["thTice1"], f["thTice2"] = np.where(on, t1, 0.0), np.where(on, t2, 0.0)
+    f["thQice1"] = np.where(on, -p.cpWater * p.Tmlt1
+                            + p.cpIce * (p.Tmlt1 - t1)
+                            + p.Lfresh * (1.0 - p.Tmlt1 / t1), 0.0)
+    f["thQice2"] = np.where(on, -p.cpIce * t2 + p.Lfresh, 0.0)
+
+    def rec(a):
+        return _fill2(cfg, a, dtype, device)[0]
+
+    th = {k: rec(f[k]) for k in thsice_mod.TH_FIELDS}
+    forcing = dataclasses.replace(zero_forcing(cfg, dtype, device),
+                                  **{k: rec(v) for k, v in forc.items()})
+    return (th, forcing, *(rec(ocean[k]) for k in (
+        "theta", "salt", "uVel", "vVel", "hFacC", "Qnet", "Qsw", "EmPmR",
+        "saltFlux")))
 
 def evp_setup(seaice: SeaIce, AREA, massU, massV) -> dict:
     """SeaIce.evp's set-up for masses of the caller's own (a run of EVP

@@ -129,10 +129,12 @@ MD_SCHEMES = ((33, 33), (30, 30), (77, 77), (1, 1), (20, 20), (30, 2),
 VECINV_SHAPES = ((1024, 32), (64, 32))
 # group "ggl90": G9's sizes (n, levels)
 GGL90_SHAPES = ((1024, 32), (64, 32))
-# the sources whose kernels --ptxas reports, under kernels/csrc
+# the sources whose kernels --ptxas reports, under kernels/csrc (a tree
+# from before V's float64 entry points had a source of their own has no
+# mom_vecinv_f64.cu: its mom_vecinv.cu holds both)
 PTXAS_SOURCES = ("gad_os7mp.cu", "som.cu", "gad_ppm.cu",
-                 "mom_fluxform_adj.cu", "mom_vecinv.cu", "gad_multidim.cu",
-                 "calc_gw.cu", "ggl90.cu")
+                 "mom_fluxform_adj.cu", "mom_vecinv.cu", "mom_vecinv_f64.cu",
+                 "gad_multidim.cu", "calc_gw.cu", "ggl90.cu")
 # --config adjoint: the steps of the gradient (phase 6's)
 ADJ_STEPS = 6
 # the launches of a tree from before the cg3d iteration became two passes
@@ -607,6 +609,8 @@ def ptxas(root):
     filt = shutil.which("c++filt")
     with tempfile.TemporaryDirectory() as tmp:
         for source in PTXAS_SOURCES:
+            if not os.path.exists(os.path.join(csrc, source)):
+                continue
             out = subprocess.run(
                 [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-c", "-o",
                  os.path.join(tmp, "k.o"), os.path.join(csrc, source)],

@@ -23,7 +23,8 @@
 // dissipation variants (launch_mom_visc, launch_vecinv_visc), and U and Z
 // (launch_vertmix_calc of vertmix.cuh, launch_opps_col of opps.cuh), and
 // CD, SH-uv and SH-ts (launch_cd_scheme of cd_code.cuh, launch_shap of
-// shap_filt.cuh), for tests/test_torch_host_kernels.py.
+// shap_filt.cuh), and TH (launch_thsice_step of thsice.cuh), for
+// tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "adv_flow.cuh"
 #include "calc_gw_tile.cuh"
@@ -56,6 +57,7 @@
 #include "step_glue_adj.cuh"
 #include "step_scans.cuh"
 #include "step_scans_adj.cuh"
+#include "thsice.cuh"
 #include "vertmix.cuh"
 
 using namespace mitgcm;
@@ -452,8 +454,19 @@ constexpr size_t kHostMaxShared = 232448;
                           OnHost{});                                         \
   }
 
+// TH, with its entry point's arguments but the stream
+#define HOST_THSICE_ENTRY_POINTS(T, SUF)                                     \
+  extern "C" int host_thsice_step_##SUF(                                     \
+      const void* const* table, int n, const double* params, int np,         \
+      int nyp, int nxp, int oly, int olx, int nitMaxTsf) {                   \
+    return launch_thsice_step<T>(table, n, params, np, nyp, nxp, oly, olx,   \
+                                 nitMaxTsf, OnHost{});                       \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
+HOST_THSICE_ENTRY_POINTS(float, f32)
+HOST_THSICE_ENTRY_POINTS(double, f64)
 HOST_CD_SHAP_ENTRY_POINTS(float, f32)
 HOST_CD_SHAP_ENTRY_POINTS(double, f64)
 HOST_RIMIX_ENTRY_POINTS(float, f32)

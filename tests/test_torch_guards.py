@@ -492,7 +492,8 @@ def test_check_supported_refuses_kpp_options(name):
 @pytest.mark.parametrize("entry", ["gyre_setup", "kpp_gyre_setup",
                                    "build_grid", "to_tensor", "from_arrays",
                                    "ggl90_gyre_setup", "nh_convection_setup",
-                                   "ice_gyre_setup", "gm_gyre_setup"])
+                                   "ice_gyre_setup", "gm_gyre_setup",
+                                   "thsice_gyre_setup"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, an entry point puts its tensors on the
     card: here, without CUDA, it raises as torch does, and never falls back
@@ -509,6 +510,8 @@ def test_entry_points_default_to_the_card(entry):
             synthetic.ice_gyre_config(nx=8, ny=8, nr=2))[0].rA,
         "gm_gyre_setup": lambda: synthetic.gm_gyre_setup(
             synthetic.gm_bolus_gyre_config(nx=8, ny=8, nr=2))[0].rA,
+        "thsice_gyre_setup": lambda: synthetic.thsice_gyre_setup(
+            synthetic.thsice_gyre_config(nx=8, ny=8, nr=2))[0].rA,
         "build_grid": lambda: build_grid(cfg).rA,
         "to_tensor": lambda: convert.to_tensor(np.zeros(3)),
         "from_arrays": lambda: convert.from_arrays(

@@ -28,7 +28,9 @@ cell, each equal to the twin's, in every variant of their flags and at
 The step glue's backward kernels F', D', E', G', L' and R' write every
 padded cell, each equal to its plain VJP's, and the 16x16x4 gyre's
 gradient runs through all nine on the mock (their forward kernels
-replaced by their twins) against the plain path."""
+replaced by their twins) against the plain path. TH (thsice.cuh) writes
+every padded cell of its 13 outputs, each equal to the twin's
+(model/thsice.py:ThSIce.step) under each of THSICE_VARIANTS."""
 
 import ctypes
 import ctypes.util
@@ -129,6 +131,9 @@ SIGNATURES = {
     + [_I] * 10,
     "host_shap_ts": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
     + [_I] * 10,
+    # TH, with its entry point's arguments but the stream
+    "host_thsice_step": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 5,
 }
 
 
@@ -3690,3 +3695,52 @@ def test_vertmix_calc_deep(lib, on_mock, numpy_sqrt, scheme):
     assert on_mock["vertmix_calc"] == 1
     check_outputs(got, vm.calc(u, v, theta, salt, phi, impl="plain"),
                   "PP81 at 310 levels")
+
+
+# Kernel TH (thsice.cuh): one thsice step through model/thsice.py:
+# ThSIce.advance's kernel path on the mock (`on_mock`) against the twin
+# (impl="plain"), every padded cell of the nine th* fields and the four
+# ocean fluxes equal, the twin with libm's exp and a correctly rounded sqrt
+# (`libm_math`), in float64 and float32 on both SIZES grids, on
+# utils/synthetic.py:thsice_inputs's seeded fields under each of
+# THSICE_VARIANTS (the defaults, a daily step, two surface iterations).
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", synthetic.THSICE_VARIANTS)
+def test_thsice_step(lib, on_mock, libm_math, ny, nx, dtype, variant):
+    from mitgcm_tpu_torch.model import thsice
+
+    cfg = synthetic.thsice_gyre_config(nx=nx, ny=ny, nr=NR, depth=300.0)
+    grid = synthetic.gyre_grid(cfg, dtype=DTYPES[dtype], device="cpu")
+    p = dataclasses.replace(thsice.params_from_namelists(cfg, {}, {}),
+                            **synthetic.THSICE_VARIANTS[variant])
+    ts = thsice.ThSIce(cfg, grid, p)
+    args = synthetic.thsice_inputs(cfg, grid, seed=ny + nx)
+    got = ts.advance(*args)
+    assert on_mock["thsice_step"] == 1
+    want = ts.advance(*args, impl="plain")
+    for g, w in zip(got, want):
+        for name in w:
+            check_whole(g[name], w[name], f"{name} ({variant})")
+
+
+def test_thsice_launch_refuses(lib):
+    """TH's launch refuses a table or a parameter array of another length,
+    a null pointer, a halo of 0 and an interior of no cell."""
+    from mitgcm_tpu_torch.model import thsice, thsice_kernels
+
+    cfg = synthetic.thsice_gyre_config(nx=8, ny=8, nr=NR, depth=300.0)
+    grid = synthetic.gyre_grid(cfg, dtype=torch.float64, device="cpu")
+    ts = thsice.ThSIce(cfg, grid, thsice.params_from_namelists(cfg, {}, {}))
+    vals = thsice_kernels.th_params(ts)
+    params = (ctypes.c_double * len(vals))(*vals)
+    bufs = [torch.zeros(12, 12, dtype=torch.float64) for _ in range(35)]
+    fn = lib.host_thsice_step_f64
+    ok = (table(bufs), 35, params, len(vals), 12, 12, 2, 2, 20)
+    assert fn(*ok) == 0
+    for k, bad in ((1, 34), (3, len(vals) - 1), (6, 0), (7, 0), (4, 4),
+                   (8, -1)):
+        args = list(ok)
+        args[k] = bad
+        assert fn(*args) != 0, (k, bad)
+    assert fn(table(bufs[:34] + [None]), *ok[1:]) != 0
