@@ -4,7 +4,7 @@
     python3 chip_smoke.py [PHASE ...]
 
 With no argument every phase runs; names of PHASES (`gyre` for 3-5,
-`adjoint`, `vi`, ..., `cd-shap` for 21, `thsice` for 22) run those alone
+`adjoint`, `vi`, ..., `thsice` for 22, `exact-ice` for 23) run those alone
 after the device and build phases, and the JSON line then lists only
 their kernels. Each phase prints its seconds when it ends. Phases, each
 printing its own lines; any failure raises and the script exits nonzero
@@ -85,7 +85,9 @@ without the final line:
                  schemes 1 and 20 and vertical schemes 2, 3 and 4 against
                  its twin sweep on whole arrays at 64x64x12 float64 and
                  1024x1024x32 float32 (bit-equal, NaNs of float32 WENO in
-                 the same cells); 10 float64 steps at 64x64x12 of the
+                 the same cells), and at 1024x1024x32 float32 the `+ gTr`
+                 addend of the last sweep of M, O, P and H-SOM on the same
+                 case, untimed; 10 float64 steps at 64x64x12 of the
                  os7mp-gyre (scheme 7) and of the pqm-gyre (PPM-mono theta,
                  PQM-mono salt), kernel path against plain path, and a 2+2
                  restart of each on the kernel path; then each at
@@ -231,7 +233,8 @@ without the final line:
                  sweep of M, O, P and H-SOM against their twins on whole
                  padded arrays, bit for bit, at 64x64x12 float64 and at
                  full size float32 (the box's 1024x1024x50, the gyres'
-                 1024x1024x32), each with its launch's device time (20
+                 1024x1024x32; the addend's in phase 10), each row of the
+                 JSON line with its launch's device time (20
                  launches in a CUDA graph), its wrapper call's, its
                  twin's and its bound; phases 5-16 assert Q's launch once
                  a step on every path, N1's and N2's once a step (a
@@ -316,6 +319,26 @@ without the final line:
                  halo fill of its own) and no twin, the host's load
                  average, new ice in the open south, and a profile of 2
                  steps (TH's device ms, busy and idle share)
+ 23. exact-ice: the exact-gyre (the gyre with cg2dExactSums on MITgcm
+                 tiles of 64 x 64), the sitr-ice-gyre (the ice-gyre with an
+                 'age' tracer on HEFF and a 'one' on AREA) and the
+                 legacy-ice-gyre (SEAICEadvScheme 2, DIFF1): kernel A-exact
+                 (cg2d_solve_exact) as whole solves against its twin at
+                 64x64 float64 on 16 x 16 tiles and as two solves capped at
+                 3 iterations at 1024x1024 float32 (the twin's ordered dot
+                 is sNx*sNy tensor ops a dot), its bound the serial chains'
+                 latency and torch.sum's time of one dot beside it;
+                 seaice_advect_x/_y with the two tracers, TP
+                 (seaice_thermo_tr) and LA (seaice_advect_legacy, with and
+                 without diffKh) against their twins on whole arrays, bit
+                 for bit, at 64x64 float64 and 1024x1024 float32; 2 or 3
+                 float64 steps of each path at 64x64, kernel path against
+                 plain path (15 digits, equal iterations, fields bit for
+                 bit); then each path at 1024x1024x32 float32
+                 (deltaT=600): one warm-up step and 5 timed steps with
+                 every launch count and no twin, the host's load average,
+                 and a profile of 2 steps (the new kernels' device ms,
+                 busy and idle share)
 Phases 14 and 18 time only their kernels' JSON rows, at full size; every
 other variant there is held bit for bit untimed (PERF.md keeps their
 times).
@@ -336,7 +359,9 @@ ggl90-gyre for R's sigmaR, phase 12's box for N1 and N2, phase 13's
 ice-gyre for S1 and S2, phase 19's paths for X, Y and the dissipation
 variants, phase 20's pp81-gyre for U and opps-gyre for Z, phase 21's
 cd-gyre for CD and G's and B's CD variants, cd-vi-gyre for V's and
-shap-gyre for SH-uv and SH-ts, phase 22's thsice-gyre for TH), with the
+shap-gyre for SH-uv and SH-ts, phase 22's thsice-gyre for TH, phase 23's
+exact-gyre for A-exact, sitr-ice-gyre for TP and legacy-ice-gyre for LA),
+with the
 kernel's time (D-G's from phase 14, J-uv's, J-ts's, L's and sigmaR's
 from phase 17 and N1's, N2's, Q's, S1's and S2's from phase 18: a
 launch's device time, 20 launches in a CUDA graph, with
@@ -350,6 +375,7 @@ of its path (1024x1024x32, the box's 1024x1024x50), the card's name and
 power limit, and the device line.
 """
 
+import copy
 import dataclasses
 import json
 import math
@@ -567,6 +593,16 @@ KERNELS = {
     # Winton's thermodynamic sea ice (TH)
     "thsice_step": ("mitgcm_tpu_torch/kernels/csrc/thsice.cu",
                     "mitgcm_tpu/model/thsice.py:779"),
+    # cg2dExactSums' ordered dot (A-exact), the ice tracers' physics (TP;
+    # seaice_advect_x/_y carry their advection) and the legacy ice
+    # advection (LA)
+    "cg2d_solve_exact": ("mitgcm_tpu_torch/kernels/csrc/cg2d.cu",
+                         "mitgcm_tpu/solver/cg2d.py:137"),
+    "seaice_thermo_tr": ("mitgcm_tpu_torch/kernels/csrc/seaice_thermo.cu",
+                         "mitgcm_tpu/model/seaice.py:1948"),
+    "seaice_advect_legacy": (
+        "mitgcm_tpu_torch/kernels/csrc/seaice_advect_legacy.cu",
+        "mitgcm_tpu/model/seaice.py:1449"),
 }
 CG2D_KERNELS = ("cg2d_solve",)
 # the key under which each kernel-path cg2d solve's host reads are counted
@@ -1891,7 +1927,8 @@ def full_phase(kernels):
                + IDEMIX_KERNELS + SOM_KERNELS + NH_KERNELS + ICE_KERNELS
                + SEAICE_GLUE_KERNELS + EVP_KERNELS + GM_KERNELS
                + VISC_KERNELS + RIMIX_KERNELS + CD_SHAP_ROWS
-               + THSICE_KERNELS + ("eos_sigma_r", "kappa_uv", "kappa_ts")
+               + THSICE_KERNELS + EXACT_ICE_KERNELS
+               + ("eos_sigma_r", "kappa_uv", "kappa_ts")
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -3014,7 +3051,12 @@ def ho_kernel_phase(case, results, reps, plain_reps):
 def ho_phase(kernels, results, smi):
     phase("10 high-order advection: os7mp-gyre and pqm-gyre, halos of 4")
     ho_kernel_phase(G9Case(64, 12, torch.float64, "os7mp"), results, 20, 20)
-    ho_kernel_phase(G9Case(1024, 32, torch.float32, "os7mp"), results, 10, 3)
+    case = G9Case(1024, 32, torch.float32, "os7mp")
+    ho_kernel_phase(case, results, 10, 3)
+    # the `+ gTr` addend of the last sweep at the main paths' size, held
+    # untimed on the same case (phase 18 holds it at 64x64 float64)
+    addend_last_glue(case, results, 0)
+    del case
     torch.cuda.empty_cache()
     launches = {}
     for config, names in (("os7mp", O_KERNELS), ("pqm", P_KERNELS)):
@@ -3430,7 +3472,7 @@ def nh_pickup_refusal():
 
 def nh_full_phase(kernels, smi):
     """The 1024x1024x50 float32 box (deltaT = 60): a warm-up step, 5 timed
-    steps with every launch count, a profile and 2 plain steps."""
+    steps with every launch count, a profile and 1 plain step."""
     from mitgcm_tpu_torch.model import calc_gw, gad
     from mitgcm_tpu_torch.solver import cg3d
 
@@ -3493,9 +3535,9 @@ def nh_full_phase(kernels, smi):
                              f"{want}), plain calls {plain}, host syncs "
                              f"over ceil(iters/8)+2 {late}")
     profile_steps(exp, state1, 1, 2, sec * 1e3 / 5)
-    _, recs_p, sec_p = run(state1, 1, 2, "plain")
-    print(f"plain path: 2 steps, {sec_p * 1e3 / 2:.2f} ms/step, "
-          f"{points * 2 / sec_p:.4e} points*steps/s, cg3d iterations "
+    _, recs_p, sec_p = run(state1, 1, 1, "plain")
+    print(f"plain path: 1 step, {sec_p * 1e3:.2f} ms/step, "
+          f"{points / sec_p:.4e} points*steps/s, cg3d iterations "
           f"{[r['cg3d_iters'] for r in recs_p]}", flush=True)
     return launches
 
@@ -3516,12 +3558,12 @@ class IceCase:
     """The ice-gyre's grid and SeaIce (2 x 2 tiles at 64x64, 64 x 64 tiles
     at full size) with seeded ice, ocean and atmosphere on the card."""
 
-    def __init__(self, n, nr, dtype):
+    def __init__(self, n, nr, dtype, config=None):
         from mitgcm_tpu_torch.utils import synthetic
 
         self.dtype = dtype
-        self.cfg = synthetic.ice_gyre_config(nx=n, ny=n, nr=nr,
-                                             deltaT=600.0)
+        config = config or synthetic.ice_gyre_config
+        self.cfg = config(nx=n, ny=n, nr=nr, deltaT=600.0)
         (self.grid, _, _, _, _, self.si) = synthetic.ice_gyre_setup(
             self.cfg, dtype=dtype, device="cuda",
             grid=shared_grid(self.cfg, dtype))
@@ -5059,22 +5101,29 @@ def addend_last_glue(case, results, reps):
 
 def last_glue_phase(results):
     phase("18 the last glue: N1, N2, Q, S1, S2 and the + gTr addend")
-    # every variant held bit for bit; the JSON line's rows and the addend
-    # timed at full size only (the variants' times stand in PERF.md)
+    # every variant held bit for bit; the JSON line's rows timed at full
+    # size only (the variants' times stand in PERF.md); the addend of the
+    # last sweep held here at 64x64 float64 and, at full size, by phase 10
+    # on its own case (a set-up of its own took the most of this phase)
     for n, dtype, reps in ((64, torch.float64, 0),
                            (1024, torch.float32, 10)):
+        t0 = time.perf_counter()
         nr = 12 if n == 64 else 50
         nh_last_glue(GlueCase(n, nr, dtype, nh=True), results, reps)
         GRIDS.clear()
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
         nr = 12 if n == 64 else 32
         forcing_last_glue(GlueCase(n, nr, dtype), results, reps)
         seaice_last_glue(EvpCase(n, nr, dtype), results, reps)
         GRIDS.clear()
         torch.cuda.empty_cache()
-        addend_last_glue(G9Case(n, nr, dtype, "os7mp"), results, reps)
-        GRIDS.clear()
-        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        if n == 64:
+            addend_last_glue(G9Case(n, nr, dtype, "os7mp"), results, reps)
+        print(f"last glue at {n}x{n}: N1 and N2 {t1 - t0:.1f} s, Q, S1 and "
+              f"S2 {t2 - t1:.1f} s, the addend {time.perf_counter() - t2:.1f}"
+              f" s", flush=True)
 
 
 # Phase 19: the variable and biharmonic viscosity. The three
@@ -6148,6 +6197,353 @@ def thsice_phase(kernels, results, smi):
     return {"thsice_step": got["thsice_step"]}
 
 
+# phase 23: cg2dExactSums' ordered dot (A-exact) on the exact-gyre, the ice
+# tracers (seaice_advect's X and Y with them, TP) on the sitr-ice-gyre
+# and the legacy ice advection (LA) on the legacy-ice-gyre
+EXACT_ICE_KERNELS = ("cg2d_solve_exact", "seaice_thermo_tr",
+                     "seaice_advect_legacy")
+# the latency of a dependent add (FADD 4 cycles, DADD 8) at the H100 SXM's
+# 1980 MHz boost clock: A-exact's bound is its serial chains'
+ADD_LATENCY_S = {torch.float32: 4 / 1.98e9, torch.float64: 8 / 1.98e9}
+# the operations a cell of TP's and LA's launches, as OPS_PER_CELL counts
+# seaice_thermo's: TP's tracer_phys ~25 a tracer with its four divisions on
+# top of seaice_thermo's 800, LA's three passes ~20 a field each.
+# seaice_advect's X and Y with two tracers keep their count without them:
+# their bound is their bytes either way
+OPS_PER_CELL.update({"seaice_thermo_tr": 850, "seaice_advect_legacy": 180})
+
+
+def hold_exact_cg2d(n, nr, tile, dtype, results, reps, cap=None):
+    """A-exact against its twin (the host loop with the ordered dot,
+    solver/cg2d.py:_pcg_plain with tiles) on the exact-gyre's operator with
+    a seeded right-hand side, from a zero first guess and from a warm one
+    with the min-residual selection, bit for bit: x on the whole array, the
+    residuals and the iterations (whole solves, or capped at `cap`
+    iterations: the twin takes tile * tile dependent tensor adds a dot).
+    With reps, the launch's device ms over whole solves, its bound (the
+    serial chains' latency: 2 tile^2 + 2 (n / tile)^2 dependent adds an
+    iteration), and torch.sum's ms for one of its dots (tree order: not
+    the same function)."""
+    from mitgcm_tpu_torch import kernels
+    from mitgcm_tpu_torch.solver import cg2d as cg
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = synthetic.exact_gyre_config(nx=n, ny=n, nr=nr, tile=tile,
+                                      deltaT=600.0)
+    g, _, _, op = synthetic.gyre_setup(cfg, dtype=dtype, device="cuda",
+                                       grid=shared_grid(cfg, dtype))
+    rng = np.random.default_rng(SEED + 61)
+    shape = tuple(g.rA.shape)
+    b = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                        device="cuda") * g.maskInC
+    warm = 0.1 * torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                                 device="cuda") * g.maskInC
+    label = f"{n}x{n} tiles {tile}x{tile} {str(dtype).split('.')[-1]}"
+    cases = [("zero first guess", cfg, torch.zeros_like(b)),
+             ("warm start, min-res 1",
+              dataclasses.replace(cfg, cg2dUseMinResSol=1), warm)]
+    for name, c, x0 in cases:
+        if cap:
+            c = dataclasses.replace(c, cg2dMaxIters=cap)
+        n0 = kernels.launches["cg2d_solve_exact"]
+        rk = cg.cg2d(c, op, b, x0)
+        launched = kernels.launches["cg2d_solve_exact"] - n0
+        rp = cg.cg2d(c, op, b, x0, impl="plain")
+        same = (torch.equal(rk.x, rp.x)
+                and torch.equal(rk.first_residual, rp.first_residual)
+                and torch.equal(rk.last_residual, rp.last_residual)
+                and rk.n_iters == rp.n_iters)
+        err = float((rk.x - rp.x).abs().max())
+        print(f"cg2d_solve_exact {label:26s} {name}"
+              f"{f', cap {cap}' if cap else ''}: iterations {rk.n_iters} / "
+              f"{rp.n_iters} (kernel / plain), residual "
+              f"{float(rk.first_residual):.6e} -> "
+              f"{float(rk.last_residual):.6e}, bit-equal {same}, launches "
+              f"{launched}", flush=True)
+        if not (same and launched == 1):
+            raise AssertionError(f"cg2d_solve_exact disagrees with its twin "
+                                 f"at {label}, {name}")
+    if not reps:
+        return
+    c0, x0 = cases[0][1], cases[0][2]
+    ms = launch_event_ms(lambda: cg.cg2d(c0, op, b, x0), "cg2d_solve_exact",
+                         reps)
+    full = cg.cg2d(c0, op, b, x0)
+    # the twin over 3 iterations only (its dots are tile^2 launches each)
+    plain_ms = cuda_time_ms(lambda: cg.cg2d(
+        dataclasses.replace(c0, cg2dMaxIters=3), op, b, x0, impl="plain"),
+        1)
+    ol = cfg.olx
+    inner = (b * b)[ol:-ol, ol:-ol]
+    sum_ms = cuda_time_ms(lambda: torch.sum(inner), 20)
+    it = max(full.n_iters, 1)
+    adds = 2 * tile * tile + 2 * (n // tile) ** 2
+    bound_ms = it * adds * ADD_LATENCY_S[dtype] * 1e3
+    results["cg2d_solve_exact"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "operations", "library_ms": None,
+        "extra": {"iterations": full.n_iters, "ms_per_iteration": ms / it,
+                  "plain_iterations": 3,
+                  "torch_sum_ms_per_dot": sum_ms,
+                  "tile": [tile, tile]}}
+    print(f"{'':18s} {full.n_iters} iterations: the launch {ms:.4f} ms "
+          f"({ms / it:.5f} an iteration); the twin {plain_ms:.1f} ms "
+          f"over 3 iterations; bound {bound_ms:.4f} ms "
+          f"({adds} dependent adds an iteration at "
+          f"{ADD_LATENCY_S[dtype] * 1e9:.2f} ns); torch.sum of one dot's "
+          f"products (tree order) {sum_ms:.4f} ms", flush=True)
+
+
+def hold_ice_tracers(case, results, reps, plain_reps):
+    """seaice_advect's X and Y launches with two tracers, and TP, against
+    their twins on the
+    sitr-ice-gyre's SeaIce ('age' with HEFF, 'one' with AREA) with seeded
+    tracers of a wide spread, on whole arrays, bit for bit (exact_compare):
+    X's localT and the extensive forms it writes; Y on the twin's X output
+    (the fields, then each tracer over its new mate, ADVCAP, the
+    negativity fix); TP's ice, forcing and tracers from reg_ridge, growth
+    and tracer_phys."""
+    from mitgcm_tpu_torch.model import seaice_kernels as sk
+
+    si = case.si
+    rng = np.random.default_rng(SEED + 67)
+    shape = tuple(case.grid.rA.shape)
+    tr = torch.as_tensor(rng.uniform(-1.0, 5.0, (2,) + shape),
+                         dtype=case.dtype, device="cuda")
+    ice = case.ice._replace(SItracer=tr)
+    exts, khs = si._tracer_ext(ice)
+    flds = [ice.HEFF, ice.AREA, ice.HSNOW] + exts
+    khs = [si.p.diffKhHeff, si.p.diffKhArea, si.p.diffKhSnow] + khs
+    fld = torch.empty((5,) + shape, dtype=case.dtype, device="cuda")
+    fld[:3] = torch.stack(flds[:3])
+    lt_k = torch.empty_like(fld)
+
+    def x_kernel():
+        sk.advect_x(si, ice, fld, lt_k)
+        return [lt_k, fld[3:]]
+
+    lt_p = torch.stack(si._advect_x_plain(ice, flds))
+    exact_compare("seaice_advect_x(tracers)", case, x_kernel(),
+                  [lt_p, torch.stack(exts)],
+                  cuda_time_ms(x_kernel, reps),
+                  cuda_time_ms(lambda: si._advect_x_plain(ice, flds),
+                               plain_reps), results, call=x_kernel)
+    out_k = torch.empty_like(fld)
+
+    def y_kernel():
+        sk.advect_y(si, ice, fld, lt_p, out_k)
+        return [out_k]
+
+    def y_plain():
+        h, a, sn, *e = si._advect_y_plain(ice, flds, lt_p.unbind(0), khs)
+        return [torch.cat([torch.stack([h, a, sn]),
+                           si._tracer_cap(ice, h, a, e)])]
+
+    exact_compare("seaice_advect_y(tracers)", case, y_kernel(), y_plain(),
+                  cuda_time_ms(y_kernel, reps),
+                  cuda_time_ms(y_plain, plain_reps), results, call=y_kernel)
+    ice2 = case.ice2._replace(SItracer=torch.as_tensor(
+        rng.uniform(0.0, 1e5, (2,) + shape), dtype=case.dtype,
+        device="cuda"))
+
+    def thermo(impl):
+        i2, f = si.thermo(ice2, case.forc, case.theta0, case.salt0,
+                          impl=impl)
+        return [i2.HEFF, i2.HSNOW, i2.AREA, i2.TICES, i2.SItracer] + list(
+            f.values())
+
+    exact_compare("seaice_thermo_tr", case, thermo(None), thermo("plain"),
+                  cuda_time_ms(lambda: thermo(None), reps),
+                  cuda_time_ms(lambda: thermo("plain"), plain_reps), results,
+                  call=lambda: thermo(None))
+
+
+def hold_legacy(case, results, reps, plain_reps):
+    """LA (three launches) against its twin on the legacy-ice-gyre's SeaIce
+    (scheme 2, DIFF1 4e-3) and with diffKh besides, on seeded moving ice,
+    every padded cell bit for bit (exact_compare)."""
+    from mitgcm_tpu_torch.model import seaice_kernels as sk
+
+    for variant, extra in (("", {}), ("diffKh", {"diffKhHeff": 300.0,
+                                                 "diffKhArea": 200.0,
+                                                 "diffKhSnow": 100.0})):
+        si = case.si
+        if extra:
+            si = copy.copy(si)
+            si.p = dataclasses.replace(si.p, **extra)
+        name = "seaice_advect_legacy" + (f"({variant})" if variant else "")
+        timed = not variant
+        exact_compare(name, case, list(sk.advect_legacy(si, case.ice)),
+                      si._advdiff_legacy_plain(case.ice),
+                      cuda_time_ms(lambda: sk.advect_legacy(si, case.ice),
+                                   reps) if timed else None,
+                      cuda_time_ms(lambda: si._advdiff_legacy_plain(
+                          case.ice), plain_reps) if timed else None,
+                      results, call=lambda: sk.advect_legacy(si, case.ice))
+
+
+def exact_ice_experiment(kind, config, n, nr, dtype, impl=None, **kw):
+    """An Experiment of `config`: the exact-gyre (kind "exact", a gyre
+    Experiment; tile=16 gives 16 x 16 tiles), the sitr- or the
+    legacy-ice-gyre."""
+    from mitgcm_tpu_torch.model.experiment import Experiment
+    from mitgcm_tpu_torch.utils import synthetic
+
+    cfg = config(nx=n, ny=n, nr=nr, **kw)
+    if kind == "exact":
+        objs = synthetic.gyre_setup(cfg, dtype=dtype, device="cuda",
+                                    grid=shared_grid(cfg, dtype))
+        return Experiment(cfg, *objs, impl=impl)
+    grid, state, forcing, op, kpp, si = synthetic.ice_gyre_setup(
+        cfg, dtype=dtype, device="cuda", grid=shared_grid(cfg, dtype))
+    return Experiment(cfg, grid, state, forcing, op, kpp=kpp, impl=impl,
+                      seaice=si)
+
+
+def exact_ice_parity(kind, config, n, nr, steps):
+    """`steps` float64 steps kernel path against plain path (the exact-gyre
+    on 16 x 16 tiles): equal cg2d (and LSR) iterations, every statistic
+    (the seaice_* and sitracer rows too) to 15 digits or more, the state's
+    fields bit for bit."""
+    from mitgcm_tpu_torch.utils.compare import record_digits
+
+    tile = {"tile": 16} if kind == "exact" else {}
+    exps = {impl: exact_ice_experiment(kind, config, n, nr, torch.float64,
+                                       impl, **tile)
+            for impl in (None, "plain")}
+    runs = {impl: e.run(n_steps=steps) for impl, e in exps.items()}
+    worst = math.inf
+    for rk, rp in zip(runs[None][1:], runs["plain"][1:]):
+        worst = min(worst, min(record_digits(rk, rp).values()))
+        if (rk["cg2d_iters"], rk.get("lsr_iters")) != (rp["cg2d_iters"],
+                                                      rp.get("lsr_iters")):
+            raise AssertionError(f"{kind}: iteration counts differ")
+    names = ("uVel", "vVel", "theta", "etaN") + (
+        () if kind == "exact" else ICE_STATE + ("SItracer",))
+    differ = [m for m in names if not torch.equal(
+        getattr(exps[None].state, m), getattr(exps["plain"].state, m))]
+    print(f"{kind} parity, {n}x{n}x{nr} float64, {steps} steps kernel "
+          f"against plain: fewest matching digits {worst:.2f}, cg2d "
+          f"iterations {[r['cg2d_iters'] for r in runs[None][1:]]}, fields "
+          f"that differ {differ}", flush=True)
+    if not (worst >= 15.0 and not differ):
+        raise AssertionError(f"{kind} parity {worst:.2f} < 15 or {differ}")
+
+
+def exact_ice_full(kind, config, kernels, smi):
+    """The 1024x1024x32 float32 path (deltaT = 600): a warm-up step, then 5
+    timed steps with every launch count (its path's, no twin of the glue,
+    KPP or the sea ice), finite fields, the host's load average, then a
+    profile of 2 steps (each kernel's device ms a step, the busy and idle
+    share). Returns the launches."""
+    from mitgcm_tpu_torch.model import kpp as kpp_mod
+
+    n, nr = 1024, 32
+    t0 = time.perf_counter()
+    exp = exact_ice_experiment(kind, config, n, nr, torch.float32,
+                               deltaT=600.0)
+    torch.cuda.synchronize()
+    print(f"{kind}: set-up {time.perf_counter() - t0:.1f} s")
+    points = n * n * nr
+
+    def run(state, it0, steps):
+        exp.state, exp.cur_iter = state, it0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = exp.run(n_steps=steps, collect_monitor=False)
+        torch.cuda.synchronize()
+        return exp.state, recs, time.perf_counter() - t
+
+    state1, recs_w, sec_w = run(exp.state, 0, 1)
+    kernels.launches.clear()
+    plain0 = kpp_mod.plain_calls + glue_plain_calls()
+    load = os.getloadavg()
+    state, recs, sec = run(state1, 1, 5)
+    launches = dict(kernels.launches)
+    plain = kpp_mod.plain_calls + glue_plain_calls() - plain0
+    wall_ms = sec * 1e3 / 5
+    print(f"{kind}: warm-up step {sec_w * 1e3:.1f} ms; kernel path ({smi}): "
+          f"5 steps, {wall_ms:.2f} ms/step, {points * 5 / sec:.4e} "
+          f"points*steps/s, cg2d iterations "
+          f"{[r['cg2d_iters'] for r in recs]}"
+          + (f", LSR ICOUNT1/2 per pass {[r['lsr_iters'] for r in recs]}"
+             if kind != "exact" else "")
+          + f"; the host's load average {load[0]:.2f} {load[1]:.2f} "
+          f"{load[2]:.2f} before the steps", flush=True)
+    print(f"launches {launches}", flush=True)
+    names = ("uVel", "vVel", "theta", "etaN") + (
+        () if kind == "exact" else ICE_STATE + ("SItracer",))
+    for name in names:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{kind}-gyre {name} is not finite")
+    if kind == "exact":
+        want = {**GYRE_LAUNCHES, "cg2d_solve": 0, "cg2d_solve_exact": 5}
+    else:
+        from mitgcm_tpu_torch.model import seaice as seaice_mod
+
+        syncs = [r["lsr_host_syncs"] for r in recs]
+        batches = seaice_mod.BATCH * sum(s for ss in syncs for s in ss)
+        tr = kind == "sitr"
+        want = {**KPP_LAUNCHES, "seaice_lsr_visc": 10,
+                "seaice_lsr_coeffs": 10,
+                "seaice_lsr_tridiag_u": 2 * batches,
+                "seaice_lsr_tridiag_v": 2 * batches,
+                "seaice_lsr_check": batches,
+                "seaice_advect_x": 5 * tr, "seaice_advect_y": 5 * tr,
+                "seaice_thermo": 5 * (not tr), "seaice_thermo_tr": 5 * tr,
+                "seaice_advect_legacy": 15 * (kind == "legacy"),
+                **{k: 5 for k in SEAICE_GLUE_KERNELS},
+                **{k: 0 for k in EVP_KERNELS},
+                # the ice-gyre's 120 fills, and the tracers' end-of-step one
+                "halo_fill": 120 + 5 * tr}
+    check_launches(f"{kind}-gyre", launches, want, plain)
+    prof = profile_steps(exp, state, 6, 2, wall_ms)
+    mine = {k: v["ms"] for k, v in prof["port_kernels"].items()
+            if any(m in k for m in ("cg2d_solve", "seaice_advect",
+                                    "seaice_thermo"))}
+    print(f"{kind}: device ms a step in the profile "
+          + ", ".join(f"{k.split('(')[0][8:]} {v:.4f}"
+                      for k, v in mine.items())
+          + f"; the step {wall_ms:.2f} ms, busy "
+          f"{prof['device_busy_ms']:.2f} ms, idle share "
+          f"{prof['idle_share']:.3f} ({smi})", flush=True)
+    return launches
+
+
+def exact_ice_phase(kernels, results, smi):
+    from mitgcm_tpu_torch.utils import synthetic
+
+    phase("23 exact-ice: cg2dExactSums (A-exact), the ice tracers "
+          "(seaice_advect with tracers, TP) and the legacy ice advection "
+          "(LA)")
+    hold_exact_cg2d(64, 4, 16, torch.float64, results, 0)
+    hold_exact_cg2d(1024, 32, 64, torch.float32, results, 5, cap=3)
+    for n, nr, dtype, reps, plain_reps in ((64, 12, torch.float64, 0, 0),
+                                           (1024, 32, torch.float32, 10, 3)):
+        hold_ice_tracers(IceCase(n, nr, dtype,
+                                 synthetic.sitr_ice_gyre_config),
+                         results, reps or 1, plain_reps or 1)
+        hold_legacy(IceCase(n, nr, dtype, synthetic.legacy_ice_gyre_config),
+                    results, reps or 1, plain_reps or 1)
+        torch.cuda.empty_cache()
+    print(smi)
+    paths = {"exact": synthetic.exact_gyre_config,
+             "sitr": synthetic.sitr_ice_gyre_config,
+             "legacy": synthetic.legacy_ice_gyre_config}
+    for kind, nr, steps in (("exact", 4, 2), ("sitr", 12, 3),
+                            ("legacy", 12, 3)):
+        exact_ice_parity(kind, paths[kind], 64, nr, steps)
+    launches = {}
+    for kind in ("exact", "sitr", "legacy"):
+        got = exact_ice_full(kind, paths[kind], kernels, smi)
+        for k in EXACT_ICE_KERNELS:
+            if got.get(k):
+                launches[k] = got[k]
+        torch.cuda.empty_cache()
+    GRIDS.clear()
+    return launches
+
+
 def gyre_phases(kernels, results, smi):
     """Phases 3-5: the gyre's kernels against their twins, its parity and
     its full-size run, whose launches are the JSON line's base."""
@@ -6164,15 +6560,22 @@ def gyre_phases(kernels, results, smi):
 
 def adjoint_phases(kernels, results, smi):
     phase("6 adjoint")
+    t0 = time.perf_counter()
     vjp_phase(Case(64, 4, torch.float64), results, reps=20)
     vjp_phase(Case(1024, 32, torch.float32), results, reps=10)
+    t1 = time.perf_counter()
     glue_vjp_phase(GlueCase(64, 4, torch.float64), results, 20, "every")
     glue_vjp_phase(GlueCase(64, 4, torch.float64, vi=True), results, 20,
                    "AB-3")
     glue_vjp_phase(GlueCase(1024, 32, torch.float32), results, 10, "gyre")
     torch.cuda.empty_cache()
+    t2 = time.perf_counter()
     grdchk_phase()
+    t3 = time.perf_counter()
     got = adjoint_full_phase(kernels)
+    print(f"adjoint: B' and C' {t1 - t0:.1f} s, the glue's backward kernels "
+          f"{t2 - t1:.1f} s, grdchk {t3 - t2:.1f} s, the full-size gradient "
+          f"{time.perf_counter() - t3:.1f} s", flush=True)
     return {name: got[name] for name in BACKWARD_KERNELS}
 
 
@@ -6219,7 +6622,7 @@ PHASES = {"gyre": gyre_phases, "adjoint": adjoint_phases, "vi": vi_phases,
           "mix": no_launches(mix_phase),
           "last-glue": no_launches(last_glue_phase), "visc": visc_phase,
           "rimix": rimix_phase, "cd-shap": cd_shap_phase,
-          "thsice": thsice_phase}
+          "thsice": thsice_phase, "exact-ice": exact_ice_phase}
 
 
 def main(argv=()):

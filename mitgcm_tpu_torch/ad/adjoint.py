@@ -68,6 +68,8 @@ def check_adjoint_supported(cfg: Config) -> None:
         f"selectBotDragQuadr={cfg.selectBotDragQuadr}":
             cfg.selectBotDragQuadr >= 0,
         "no_slip_bottom=F": not cfg.no_slip_bottom,
+        # A-exact has no adjoint solve held against JAX yet
+        "cg2dExactSums": cfg.cg2dExactSums,
     }
     for tr in ("temp", "salt"):
         for d in ("", "Vert"):

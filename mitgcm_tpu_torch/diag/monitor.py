@@ -129,14 +129,18 @@ def seaice_stats(cfg: Config, grid: Grid, state: State
                  ) -> Dict[str, torch.Tensor]:
     """The seaice_* statistics (seaice_monitor.F; experiment.py:865-881 of
     the JAX package): uIce and vIce at U and V points, AREA, HEFF and
-    HSNOW at C points, each over the surface layer's wet interior."""
+    HSNOW at C points, then each ice tracer as sitracer01, sitracer02, ...
+    at C points, each over the surface layer's wet interior."""
     out: Dict[str, torch.Tensor] = {}
     drn = grid.drF[:1]
-    rows = (("uice", state.uIce, grid.maskInW, grid.rAw),
+    rows = [("uice", state.uIce, grid.maskInW, grid.rAw),
             ("vice", state.vIce, grid.maskInS, grid.rAs),
             ("area", state.siAREA, grid.maskInC, grid.rA),
             ("heff", state.siHEFF, grid.maskInC, grid.rA),
-            ("hsnow", state.siHSNOW, grid.maskInC, grid.rA))
+            ("hsnow", state.siHSNOW, grid.maskInC, grid.rA)]
+    if state.SItracer is not None:
+        rows += [(f"sitracer{i + 1:02d}", tr, grid.maskInC, grid.rA)
+                 for i, tr in enumerate(state.SItracer)]
     for name, fld, mk, ar in rows:
         for k, v in calc_stats(cfg, fld[None], mk[None], mk, ar, drn).items():
             out[f"seaice_{name}_{k}"] = v

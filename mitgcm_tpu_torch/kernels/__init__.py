@@ -56,6 +56,8 @@ SIGNATURES = {
     # tol_sq, x, work, partials, scalars, ctrl; ny, nx, oly, olx,
     # max_iters, use_min; stream
     "cg2d_solve": [_P] * 13 + [_I] * 6 + [_P],
+    # kernel A-exact (cg2dExactSums): the same, then MITgcm's tile sNy, sNx
+    "cg2d_solve_exact": [_P] * 13 + [_I] * 8 + [_P],
     # pointer table, its length; nr, ny, nx, oly, olx, no_slip_sides,
     # Coriolis flags (bit 0 the 3-D term, bit 1 the CD scheme's variant
     # without the 2-D term); viscAhD, viscAhZ, sideDragFactor, rkSign,
@@ -200,6 +202,11 @@ SIGNATURES = {
     **{f"seaice_lsr_{s}": [_PP, _I, _PD, _I] + [_I] * 2 + [_P]
        for s in ("visc", "coeffs")},
     "seaice_thermo": [_PP, _I, _PD, _I] + [_I] * 5 + [_P],
+    # TP, its tracer variant: the same, then the tracers' parameter array
+    # (seaice_thermo.cu:TracerParams), its length, the tracers in and out,
+    # and the same ints; stream
+    "seaice_thermo_tr": [_PP, _I, _PD, _I, _PD, _I, _P, _P] + [_I] * 5
+    + [_P],
     # kernel TH, one thsice step: pointer table (thsice.cu:ThArgs), its
     # length; parameter array (model/thsice_kernels.py:th_params), its
     # length; nyp, nxp, oly, olx, nitMaxTsf; stream
@@ -212,11 +219,18 @@ SIGNATURES = {
     # u, v, uTmp, vTmp, maskU, maskV, ctrl, wf, partials, counter; ny, nx,
     # ol, SOLV_NCHECK, linearIterMax; LSR_ERROR; stream
     "seaice_lsr_check": [_P] * 10 + [_I] * 5 + [_D, _P],
-    # seaice_advect: pointer table, its length; the stacked fields (x: src,
-    # dst; y: fld, localT, dst); nyp, nxp, ol, scheme; deltaT (y: and the
-    # three diffKh); stream
-    "seaice_advect_x": [_PP, _I, _P, _P] + [_I] * 4 + [_D, _P],
-    "seaice_advect_y": [_PP, _I, _P, _P, _P] + [_I] * 4 + [_D] * 4 + [_P],
+    # seaice_advect: pointer table, its length; x: fld (the tracers'
+    # extensive forms written into slots 3..), the old tracers, dst; y:
+    # fld, localT, the old tracers, dst; nyp, nxp, ol, scheme, the tracers'
+    # count (0 or more) and mates (bit t: AREA); dt (y: the three diffKh
+    # and area_floor); stream
+    "seaice_advect_x": [_PP, _I, _P, _P, _P] + [_I] * 6 + [_D, _P],
+    "seaice_advect_y": [_PP, _I, _P, _P, _P, _P] + [_I] * 6 + [_D] * 5
+    + [_P],
+    # kernel LA (seaice_advect_legacy.cu): pointer table, its length;
+    # parameter array (dt, DIFF1, the three diffKh, any diffKh > 0), its
+    # length; nyp, nxp, ol, the pass (1, 2, 3); stream
+    "seaice_advect_legacy": [_PP, _I, _PD, _I] + [_I] * 4 + [_P],
     # kernel H-seaice EVP: pointer table, its length; parameter array, its
     # length; seaice_evp_stress: nyp, nxp, adaptive, revised-or-adaptive
     # denominators; seaice_evp_uv: ny, nx, ol, the same two flags, last;

@@ -43,6 +43,19 @@
 // --fmad=false) the solve is bit-equal to the plain host loop of
 // solver/cg2d.py, iterations included. The halo wrap of r and s is folded
 // into the neighbour indexing; only interior cells are written.
+//
+// Kernel A-exact (cg2d_solve_exact, template flag Exact; cg2dExactSums on
+// one face; replaces mitgcm_tpu/solver/cg2d.py:_dot_seq_fortran, :137-166)
+// keeps MITgcm's order instead: each dot's products go to a scratch plane
+// of their own (r and s are double-buffered, so no plane of theirs is
+// free); after a grid barrier one block a sNy x sNx tile adds its tile's
+// products serially, i fastest and j outer, from a zero (ordered_sum:
+// thread 0 adds while the block stages the next chunk in shared memory);
+// after a second barrier the last block adds the tiles' partials serially,
+// bj outer and bi inner, from a zero. Phase 1's two dots share the
+// barriers. Everything else is A's.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -61,14 +74,78 @@ struct Cg2dArgs {
   const T* b;         // the normalised right-hand side
   const T* tol_sq;    // 0-d
   T* x;               // first guess in, solution out (interior cells)
-  T* work;            // r[2], s[2], z, q, x_min: padded fields in a row
-  T* partials;        // two per tile
+  T* work;            // r[2], s[2], z, q, x_min (A-exact: and the two
+                      // product planes): padded fields in a row
+  T* partials;        // two per tile (A-exact: per sny x snx tile)
   T* scalars;         // [0, 2) a barrier's sums; [2] first and [3] last
                       // squared residual
   unsigned int* ctrl; // [0] arrivals (0 between launches), [1] barriers
                       // completed, [2] iterations
   int ny, nx, oly, olx, max_iters, use_min;
 };
+
+// A-exact's arguments: A's, and MITgcm's tiles (sny x snx). A keeps its
+// own struct: with the two ints in it A's code came out 15 % slower an
+// iteration at 1024 x 1024 on an H100.
+template <typename T>
+struct Cg2dExactArgs : Cg2dArgs<T> {
+  int sny, snx;
+};
+
+template <typename T, bool Exact>
+using Cg2dKernelArgs =
+    std::conditional_t<Exact, Cg2dExactArgs<T>, Cg2dArgs<T>>;
+
+// A-exact's serial sums: a chunk of kSeqU values a thread staged in shared
+// memory at a time, two chunks in flight
+constexpr int kSeqU = 2;
+constexpr int kSeqChunk = kSeqU * NT;
+
+// The K ordered sums out[c] = (((0 + v(0, c)) + v(1, c)) + ...) + v(n - 1,
+// c), valid in thread 0: the block's threads stage the values in shared
+// memory (buf: 2 K kSeqChunk values), one chunk while thread 0 adds the
+// last one. Every thread of the block must call it.
+template <typename T, int K, typename At>
+__device__ __forceinline__ void ordered_sum(int n, At at, T* buf,
+                                            T (&out)[K]) {
+  const int t = threadIdx.y * BX + threadIdx.x;
+  T reg[K][kSeqU];
+  auto load = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < kSeqU; ++u) {
+      const int m = base + u * NT + t;
+#pragma unroll
+      for (int c = 0; c < K; ++c) reg[c][u] = m < n ? at(m, c) : T(0);
+    }
+  };
+  auto store = [&](int half) {
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+#pragma unroll
+      for (int u = 0; u < kSeqU; ++u)
+        buf[(half * K + c) * kSeqChunk + u * NT + t] = reg[c][u];
+  };
+#pragma unroll
+  for (int c = 0; c < K; ++c) out[c] = T(0);
+  load(0);
+  store(0);
+  __syncthreads();
+  int half = 0;
+  for (int base = 0; base < n; base += kSeqChunk, half ^= 1) {
+    const bool more = base + kSeqChunk < n;
+    if (more) load(base + kSeqChunk);
+    if (t == 0) {
+      const int cnt = n - base < kSeqChunk ? n - base : kSeqChunk;
+      const T* v = buf + half * K * kSeqChunk;
+#pragma unroll 16
+      for (int m = 0; m < cnt; ++m)
+#pragma unroll
+        for (int c = 0; c < K; ++c) out[c] = out[c] + v[c * kSeqChunk + m];
+    }
+    if (more) store(half ^ 1);
+    __syncthreads();
+  }
+}
 
 // One thread's cell of an interior tile and its four neighbours' padded
 // indices, wrapped back into the interior.
@@ -142,10 +219,11 @@ __device__ __forceinline__ void tile_sum(const T (&v)[K], T* sh, T* out) {
 // tiles' K partials (K = 0: the barrier alone). Each block's thread 0
 // publishes the block's writes and counts its arrival; the last block to
 // arrive sums the partials (lane l: tiles l, l + 256, ... in order, then
-// tile_sum's tree) into scalars[0, K), resets the count and releases the
+// tile_sum's tree; Seq: serially in tile order, ordered_sum into the
+// shared buffer sh) into scalars[0, K), resets the count and releases the
 // others, which wait for the barrier count to pass `gen`. Every thread
 // returns the K sums in v.
-template <typename T, int K>
+template <typename T, int K, bool Seq = false>
 __device__ __forceinline__ void barrier_sum(const Cg2dArgs<T>& a, int ntiles,
                                             T* sh, unsigned int& gen,
                                             T (&v)[K > 0 ? K : 1]) {
@@ -159,7 +237,15 @@ __device__ __forceinline__ void barrier_sum(const Cg2dArgs<T>& a, int ntiles,
   }
   __syncthreads();
   if (last) {
-    if constexpr (K > 0) {
+    if constexpr (K > 0 && Seq) {
+      T acc[K];
+      ordered_sum<T, K>(
+          ntiles, [&](int m, int c) { return __ldcg(a.partials + K * m + c); },
+          sh, acc);
+      if (t == 0)
+#pragma unroll
+        for (int c = 0; c < K; ++c) a.scalars[c] = acc[c];
+    } else if constexpr (K > 0) {
       T acc[K];
 #pragma unroll
       for (int c = 0; c < K; ++c) acc[c] = T(0);
@@ -198,8 +284,50 @@ __device__ __forceinline__ void barrier_sum(const Cg2dArgs<T>& a, int ntiles,
   for (int c = 0; c < K; ++c) v[c] = __ldcg(a.scalars + c);
 }
 
+// A-exact's staging buffer for ordered_sum (two chunks of two dots), one
+// for the kernel's dots
 template <typename T>
-__global__ void __launch_bounds__(NT) cg2d_solve_kernel(Cg2dArgs<T> a) {
+__device__ __forceinline__ T* exact_stage() {
+  __shared__ T buf[4 * kSeqChunk];
+  return buf;
+}
+
+// A-exact: after a barrier, each MITgcm tile's K ordered sums of the
+// product planes prod[c] (padded fields) into partials[K m + c], a block a
+// tile (m = blockIdx.x, blockIdx.x + gridDim.x, ...), then the second
+// barrier's ordered sum of the partials. Every thread returns the K sums.
+template <typename T, int K>
+__device__ __forceinline__ void exact_dots(const Cg2dExactArgs<T>& a,
+                                           T* const* prod, unsigned int& gen,
+                                           T (&v)[K]) {
+  T* const buf = exact_stage<T>();
+  T none[1];
+  barrier_sum<T, 0>(a, 0, buf, gen, none);
+  const int nxp = a.nx + 2 * a.olx;
+  const int nsx = a.nx / a.snx;
+  const int ntiles = nsx * (a.ny / a.sny);
+  for (int m = blockIdx.x; m < ntiles; m += gridDim.x) {
+    const size_t p0 = static_cast<size_t>(a.oly + (m / nsx) * a.sny) * nxp
+                      + a.olx + (m % nsx) * a.snx;
+    const int snx = a.snx;
+    T s[K];
+    ordered_sum<T, K>(
+        a.sny * snx,
+        [&](int n, int c) {
+          return __ldcg(prod[c] + p0 + static_cast<size_t>(n / snx) * nxp
+                        + n % snx);
+        },
+        buf, s);
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+#pragma unroll
+      for (int c = 0; c < K; ++c) a.partials[K * m + c] = s[c];
+  }
+  barrier_sum<T, K, true>(a, ntiles, buf, gen, v);
+}
+
+template <typename T, bool Exact>
+__global__ void __launch_bounds__(NT)
+    cg2d_solve_kernel(Cg2dKernelArgs<T, Exact> a) {
   __shared__ T sh[2][2 * NT];
   const int ny = a.ny, nx = a.nx, oly = a.oly, olx = a.olx;
   const int nxp = nx + 2 * olx;
@@ -211,6 +339,8 @@ __global__ void __launch_bounds__(NT) cg2d_solve_kernel(Cg2dArgs<T> a) {
   T* const z = a.work + 4 * field;
   T* const q = a.work + 5 * field;
   T* const x_min = a.work + 6 * field;
+  // A-exact's product planes
+  T* const prod[2] = {a.work + 7 * field, a.work + 8 * field};
   T* const x = a.x;
   const T tol_sq = *a.tol_sq;
   unsigned int gen = 0;
@@ -267,12 +397,21 @@ __global__ void __launch_bounds__(NT) cg2d_solve_kernel(Cg2dArgs<T> a) {
           z[c.p] = zc;
           v[0] = rc * rc;
           v[1] = zc * rc;
+          if constexpr (Exact) {
+            prod[0][c.p] = v[0];
+            prod[1][c.p] = v[1];
+          }
         }
-        tile_sum<T, 2>(v, sh[par], a.partials + 2 * tile);
-        par ^= 1;
+        if constexpr (!Exact) {
+          tile_sum<T, 2>(v, sh[par], a.partials + 2 * tile);
+          par ^= 1;
+        }
       }
       T sums[2];
-      barrier_sum<T, 2>(a, ntiles, sh[0], gen, sums);
+      if constexpr (Exact)
+        exact_dots<T, 2>(a, prod, gen, sums);
+      else
+        barrier_sum<T, 2>(a, ntiles, sh[0], gen, sums);
       err = sums[0];
       const T eta_n = sums[1];
       // the host loop's x_min = x after this test: the first x, then each
@@ -313,12 +452,18 @@ __global__ void __launch_bounds__(NT) cg2d_solve_kernel(Cg2dArgs<T> a) {
           s_out[c.p] = sc;
           q[c.p] = qc;
           v[0] = qc * sc;
+          if constexpr (Exact) prod[0][c.p] = v[0];
         }
-        tile_sum<T, 1>(v, sh[par], a.partials + tile);
-        par ^= 1;
+        if constexpr (!Exact) {
+          tile_sum<T, 1>(v, sh[par], a.partials + tile);
+          par ^= 1;
+        }
       }
       T sq[1];
-      barrier_sum<T, 1>(a, ntiles, sh[0], gen, sq);
+      if constexpr (Exact)
+        exact_dots<T, 1>(a, prod, gen, sq);
+      else
+        barrier_sum<T, 1>(a, ntiles, sh[0], gen, sq);
       den = sq[0];
       eta_nm1 = num;
     }
@@ -341,24 +486,29 @@ __global__ void __launch_bounds__(NT) cg2d_solve_kernel(Cg2dArgs<T> a) {
 
 // The grid: as many blocks as the card holds at once (so that the
 // cooperative launch is accepted), at most one a tile.
-template <typename T>
-int launch_cg2d_solve(const Cg2dArgs<T>& args, void* stream) {
+template <typename T, bool Exact>
+int launch_cg2d_solve(const Cg2dKernelArgs<T, Exact>& args, void* stream) {
   if (args.ny < 1 || args.nx < 1 || args.oly < 1 || args.olx < 1)
     return (int)cudaErrorInvalidValue;
+  if constexpr (Exact) {
+    if (args.sny < 1 || args.snx < 1 || args.ny % args.sny != 0 ||
+        args.nx % args.snx != 0)
+      return (int)cudaErrorInvalidValue;
+  }
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cg2d_solve_kernel<T>, NT, 0);
+        &per_sm, cg2d_solve_kernel<T, Exact>, NT, 0);
   if (err != cudaSuccess) return (int)err;
   const dim3 tiles = grid2d(args.ny, args.nx);
   const int ntiles = (int)(tiles.x * tiles.y);
   const int blocks = per_sm * sms < ntiles ? per_sm * sms : ntiles;
-  Cg2dArgs<T> a = args;
+  Cg2dKernelArgs<T, Exact> a = args;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)cg2d_solve_kernel<T>,
+  err = cudaLaunchCooperativeKernel((const void*)cg2d_solve_kernel<T, Exact>,
                                     dim3(blocks), dim3(BX, BY), params, 0,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) {
@@ -386,7 +536,22 @@ using mitgcm::grid2d;
                           (T*)partials,     (T*)scalars,                      \
                           (unsigned int*)ctrl, ny, nx, oly, olx, max_iters,   \
                           use_min};                                           \
-    return mitgcm::launch_cg2d_solve<T>(a, stream);                           \
+    return mitgcm::launch_cg2d_solve<T, false>(a, stream);                    \
+  }                                                                           \
+  extern "C" int mitgcm_cg2d_solve_exact_##SUF(                               \
+      const void* aW, const void* aS, const void* aC, const void* pW,         \
+      const void* pS, const void* pC, const void* b, const void* tol_sq,      \
+      void* x, void* work, void* partials, void* scalars, void* ctrl, int ny, \
+      int nx, int oly, int olx, int max_iters, int use_min, int sny, int snx, \
+      void* stream) {                                                         \
+    mitgcm::Cg2dExactArgs<T> a{{(const T*)aW, (const T*)aS, (const T*)aC,     \
+                                (const T*)pW, (const T*)pS, (const T*)pC,     \
+                                (const T*)b, (const T*)tol_sq, (T*)x,         \
+                                (T*)work, (T*)partials, (T*)scalars,          \
+                                (unsigned int*)ctrl, ny, nx, oly, olx,        \
+                                max_iters, use_min},                          \
+                               sny, snx};                                     \
+    return mitgcm::launch_cg2d_solve<T, true>(a, stream);                     \
   }
 
 MITGCM_CG2D_ENTRY_POINT(float, f32)

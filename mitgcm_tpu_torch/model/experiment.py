@@ -206,15 +206,18 @@ def write_pickup(exp: Experiment, out_dir: str, myIter: int) -> str:
 def _write_pickup_seaice(cfg: Config, st: State, out_dir: str,
                          myIter: int) -> None:
     """pickup_seaice.<iter10>: siTICES (one record per category; siTICE
-    with one), siAREA, siHEFF, siHSNOW, siUICE and siVICE, then under EVP
-    siSigm1, siSigm2 and siSigm12, in the JAX package's order
-    (experiment.py:1096-1123; the port holds no ice tracers)."""
+    with one), siAREA, siHEFF, siHSNOW, the ice tracers siTrac01,
+    siTrac02, ..., siUICE and siVICE, then under EVP siSigm1, siSigm2 and
+    siSigm12, in the JAX package's order (experiment.py:1096-1123)."""
     md = st.siTICES.shape[0]
     names = ["siTICES"] if md > 1 else ["siTICE"]
     recs = [_interior(cfg, st.siTICES[i]) for i in range(md)]
     flds = [("siAREA", st.siAREA), ("siHEFF", st.siHEFF),
-            ("siHSNOW", st.siHSNOW), ("siUICE", st.uIce),
-            ("siVICE", st.vIce)]
+            ("siHSNOW", st.siHSNOW)]
+    if st.SItracer is not None:
+        flds += [(f"siTrac{i + 1:02d}", tr)
+                 for i, tr in enumerate(st.SItracer)]
+    flds += [("siUICE", st.uIce), ("siVICE", st.vIce)]
     if st.siSigma is not None and st.siSigma.shape[0] == 3:
         flds += list(zip(_SIGMA, st.siSigma))
     for name, fld in flds:
@@ -236,8 +239,9 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
     from pickup_ggl90.<iter10>, which must exist (ggl90_read_pickup.F);
     with useSEAICE the ice from pickup_seaice.<iter10> when it exists
     (seaice_read_pickup.F: siTICE is broadcast to every category; the EVP
-    stresses when siSigm1, siSigm2 and siSigm12 are all there), as the JAX
-    package reads it; with useCDscheme the D-grid state from
+    stresses when siSigm1, siSigm2 and siSigm12 are all there, the ice
+    tracers when siTrac01.. are all there), as the JAX package reads it;
+    with useCDscheme the D-grid state from
     pickup_cd.<iter10>, which must exist (the reference's own, without a
     .meta, too: its records are read in their fixed order)."""
     cfg = exp.cfg
@@ -311,6 +315,12 @@ def read_pickup(exp: Experiment, in_dir: str, myIter: int) -> None:
                 updates[sk] = svals[pk]
         if all(k in svals for k in _SIGMA):
             updates["siSigma"] = torch.stack([svals[k] for k in _SIGMA])
+        # the ice tracers when every one is there (experiment.py:1336-1345)
+        ntr = (exp.state.SItracer.shape[0]
+               if exp.state.SItracer is not None else 0)
+        trac = [f"siTrac{i + 1:02d}" for i in range(ntr)]
+        if ntr and all(k in svals for k in trac):
+            updates["SItracer"] = torch.stack([svals[k] for k in trac])
     if cfg.useCDscheme:
         cd_path = os.path.join(in_dir, f"pickup_cd.{myIter:010d}.data")
         if not os.path.exists(cd_path):

@@ -7,9 +7,10 @@ stress (or Hibler and Bryan's under EVP), the multi-dimensional advection
 of HEFF, AREA and HSNOW, and the 0-layer multi-category thermodynamics
 (reg_ridge, growth with solve4temp per category).
 
-Six hand-written CUDA kernels carry the step on the card
+Hand-written CUDA kernels carry the step on the card
 (kernels/csrc/seaice_lsr.cu, seaice_evp.cu, seaice_freedrift.cu,
-seaice_advect.cu, seaice_thermo.cu), each beside its plain PyTorch twin
+seaice_advect.cu, seaice_advect_legacy.cu, seaice_thermo.cu,
+seaice_glue.cu), each beside its plain PyTorch twin
 here, which runs for CPU tensors or with impl="plain":
   lsr_prep       seaice_lsr_visc + seaice_lsr_coeffs: one Picard pass's
                  strain rates, viscosities, ocean drag, right-hand sides
@@ -24,9 +25,13 @@ here, which runs for CPU tensors or with impl="plain":
                  launches (sigma12 at a Z point reads zeta and alpha at four
                  C points), the whole loop enqueued with no host read
   freedrift      seaice_freedrift: one launch, both halo fills included
-  advdiff        seaice_advect_x/_y: HEFF, AREA and HSNOW together
+  advdiff        seaice_advect_x/_y: HEFF, AREA and HSNOW together, and
+                 the ice tracers times their mates besides where there are
+                 any; under the legacy schemes 2/3/4
+                 seaice_advect_legacy (LA), three launches
   thermo         seaice_thermo: reg_ridge, growth and solve4temp fused, one
-                 thread per column
+                 thread per column; with ice tracers seaice_thermo_tr (TP),
+                 tracer_phys on growth's stages in the same launch
   dynforcing     seaice_dynforcing: the step's set-up (the strength, the
                  masses, get_dynforcing's stress and the tilt, the
                  stress areas and EVP's masks) in one launch
@@ -34,9 +39,9 @@ here, which runs for CPU tensors or with impl="plain":
                  under EVP, oceandrag's without the dynamics) and EVP's
                  clip of the ice velocity in one launch
 The end-of-step fills are kernel F's. `check_seaice` refuses by name every
-option this port does not carry (SItracers, HB87 coupling without EVP,
-the legacy and OS7MP ice advection, ...). Parameters come as dicts (the
-namelists' keys); the deck reader is not ported.
+option this port does not carry (HB87 coupling without EVP, the OS7MP ice
+advection, SItracers under the legacy advection, ...). Parameters come as
+dicts (the namelists' keys); the deck reader is not ported.
 """
 from __future__ import annotations
 
@@ -380,7 +385,8 @@ def params_from_namelists(cfg: Config, nml01: dict, nml03: dict = None
 
 class IceState(NamedTuple):
     """The prognostic sea-ice state (SEAICE.h), [nyp, nxp] fields and
-    TICES [multDim, nyp, nxp]; SItracer is zero-size here, and sigma
+    TICES [multDim, nyp, nxp]; SItracer is [SItrNumInUse, nyp, nxp]
+    (zero-size without ice tracers), and sigma
     (the EVP stresses sigma1, sigma2, sigma12) is [3, nyp, nxp] under EVP
     and zero-size otherwise."""
     uIce: torch.Tensor
@@ -398,9 +404,14 @@ class IceState(NamedTuple):
 # (gad_advect.cuh:flux_h, shared with kernel M)
 ADV_SCHEMES = (gad.ENUM_UPWIND_1RST, gad.ENUM_DST2, gad.ENUM_DST3,
                gad.ENUM_DST3_FLUX_LIMIT, gad.ENUM_FLUX_LIMIT)
+# the legacy centred (Heun) ice advection of advect.F, which the JAX
+# package runs for schemes 2, 3 and 4 alike (seaice.py:1485): kernel LA
+LEGACY_SCHEMES = (2, 3, 4)
 # the thickness categories kernel seaice_thermo takes (its parameter
 # struct holds the pdf)
 MAX_CATEGORIES = 16
+# the 'siEps' below which HEFF carries no tracer (seaice.py:1518)
+SI_EPS = 1.0e-5
 # LSR iterations the kernel path enqueues between two reads of its control
 # words
 BATCH = 8
@@ -412,25 +423,36 @@ plain_calls = 0
 
 def check_seaice(cfg: Config, seaice: "SeaIce") -> None:
     """Raise NotImplementedError, naming each, for the sea-ice options
-    this port does not carry: SItracers, ice advection schemes outside
-    ADV_SCHEMES (OS7MP 7 and the legacy 2/3/4 included) or different per
-    field, HB87 stress coupling without EVP (the JAX package raises there
-    too: only EVP gives the stress divergence), EVP with no subcycle, the
-    implicit stress coupling, LSR_mixIniGuess, no-slip ice, etaZmethod
-    other than 3 (under LSR and EVP), tensile strength, basal drag, the
-    growth branches the kernel does not take, p-coordinates, a
-    non-Cartesian grid or the cubed sphere, and tiles that do not cover the
-    grid. The dynamics run as LSR, EVP (EVP*, revised, adaptive or
-    classic), free drift or not at all (useDYNAMICS=F), with or without
-    clipVelocities."""
+    this port does not carry: ice advection schemes outside ADV_SCHEMES and
+    LEGACY_SCHEMES (OS7MP 7) or different per field, the legacy advection
+    with SItracers (the JAX package raises there too), SEAICEuseFluxForm=F
+    (which the JAX package parses and never reads: its legacy advection is
+    always the flux form), more than seaice_kernels.MAX_TRACERS ice
+    tracers, HB87 stress coupling without EVP (the JAX package raises
+    there too: only EVP gives the stress divergence), EVP with no
+    subcycle, the implicit stress
+    coupling, LSR_mixIniGuess, no-slip ice, etaZmethod other than 3 (under
+    LSR and EVP), tensile strength, basal drag, the growth branches the
+    kernel does not take, p-coordinates, a non-Cartesian grid or the cubed
+    sphere, and tiles that do not cover the grid. The dynamics run as LSR,
+    EVP (EVP*, revised, adaptive or classic), free drift or not at all
+    (useDYNAMICS=F), with or without clipVelocities; the ice tracers
+    (SItrNumInUse > 0) under the multi-dimensional schemes."""
     p = seaice.p
     schemes = (p.advSchHeff, p.advSchArea, p.advSchSnow)
+    legacy = p.advScheme in LEGACY_SCHEMES
     evp = p.useDYNAMICS and p.useEVP and not p.useFreeDrift
     off = {
-        "SItrNumInUse>0": p.SItrNumInUse > 0,
-        f"SEAICEadvScheme={schemes}": (
-            any(s not in ADV_SCHEMES for s in schemes)
-            or len(set(schemes)) > 1),
+        f"SEAICEadvScheme={schemes}": any(
+            s not in ADV_SCHEMES + LEGACY_SCHEMES for s in schemes),
+        f"SEAICEadvScheme={schemes} differs per field": len(set(schemes)) > 1,
+        "SItrNumInUse>0 with the legacy advection": (legacy
+                                                     and p.SItrNumInUse > 0),
+        "SEAICEuseFluxForm=F": not p.useFluxForm,
+        f"SItrNumInUse>{seaice_kernels.MAX_TRACERS}": (
+            p.SItrNumInUse > seaice_kernels.MAX_TRACERS),
+        f"SItrMate={p.SItrMate}": any(m not in ("HEFF", "AREA")
+                                      for m in p.SItrMate),
         "useHB87stressCoupling without EVP": (p.useHB87stressCoupling
                                               and not evp),
         "SEAICEnEVPstarSteps<1": evp and p.nEVPstarSteps < 1,
@@ -545,6 +567,8 @@ class SeaIce:
         self.SWFrac = (rfac * math.exp(z2 / a1)
                        + (1.0 - rfac) * math.exp(z2 / a2))
         self.maskInCx = self.fill(grid.maskInC)
+        # the legacy DIFF1 diffusion's length (seaice.py:1466), once a grid
+        self.DIFFA = torch.minimum(grid.dxF, grid.dyF)
         # the LSR's tiles (SIZE.h): tile t = ty * nSx + tx covers the padded
         # rows [ty sNy, ty sNy + sNy + 2 ol) and columns [tx sNx, ...)
         dev = hm.device
@@ -562,18 +586,24 @@ class SeaIce:
         return self.fill(u, impl), self.fill(v, impl)
 
     def init_state(self, dtype=None) -> IceState:
-        """Ice-free start (seaice_init_varia.F): TICES at 273 K; sigma
-        [3, nyp, nxp] zeros under EVP, zero-size otherwise."""
+        """Ice-free start (seaice_init_varia.F): TICES at 273 K; the ice
+        tracers at 0, a 'one' tracer at 1; sigma [3, nyp, nxp] zeros under
+        EVP, zero-size otherwise."""
         like = self.HEFFM if dtype is None else self.HEFFM.to(dtype)
         z2 = torch.zeros_like(like)
         tice = torch.full((self.p.multDim,) + tuple(z2.shape), 273.0,
                           dtype=z2.dtype, device=z2.device)
-        empty = z2.new_zeros((0,) + tuple(z2.shape))
+        # the ice tracers, 'one' at 1 (seaice.py:471-476)
+        sitr = z2.new_zeros((max(self.p.SItrNumInUse, 0),)
+                            + tuple(z2.shape))
+        for i, name in enumerate(self.p.SItrName):
+            if name == "one":
+                sitr[i] = 1.0
         # the EVP stresses sigma1, sigma2, sigma12 (seaice.py:init_state)
         sigma = z2.new_zeros((3 if self.p.useEVP else 0,) + tuple(z2.shape))
         return IceState(uIce=z2, vIce=z2.clone(), AREA=z2.clone(),
                         HEFF=z2.clone(), HSNOW=z2.clone(), HSALT=z2.clone(),
-                        TICES=tice, SItracer=empty, sigma=sigma)
+                        TICES=tice, SItracer=sitr, sigma=sigma)
 
     # ------------------------------------------------------------------
     # kernel S1's twin (seaice_dynforcing): the step's set-up
@@ -1346,7 +1376,7 @@ class SeaIce:
     # ------------------------------------------------------------------
     # kernel seaice_advect's twin, its X and its Y launch: seaice_advdiff.F,
     # multidim, Cartesian (seaice.py:1474-1556 with _advect_field :1330 and
-    # _diffuse_field :1350)
+    # _diffuse_field :1350), with the ice tracers' branch (:1510-1554)
     # ------------------------------------------------------------------
     def _advect_x_plain(self, ice: IceState, flds):
         """Launch X: the X-updated fields (seaice.py:1340-1343)."""
@@ -1360,47 +1390,162 @@ class SeaIce:
                        * (sh(af, di=1) - af))
         return out
 
-    def _advect_y_plain(self, ice: IceState, flds, localTs):
-        """Launch Y: the Y update, the diffusion and the interior-only
-        write (seaice.py:1344-1348, :1350-1357, :1510-1554)."""
+    def _advect_y_plain(self, ice: IceState, flds, localTs, khs=None):
+        """Launch Y: the Y update, the diffusion (diffKh of each field:
+        HEFF's, AREA's, HSNOW's by default) and the interior-only write
+        (seaice.py:1344-1348, :1350-1357, :1510-1554)."""
         p, g = self.p, self.grid
         dt = p.deltaTtherm
-        xA = g.dyG * self.SIMaskU
-        yA = g.dxG * self.SIMaskV
-        vTrans = ice.vIce * yA
+        vTrans = ice.vIce * (g.dxG * self.SIMaskV)
         hm, mIn = self.HEFFM, self.maskInCx
+        if khs is None:
+            khs = (p.diffKhHeff, p.diffKhArea, p.diffKhSnow)
         out = []
-        for fld, localT, kh in zip(flds, localTs, (p.diffKhHeff, p.diffKhArea,
-                                                   p.diffKhSnow)):
+        for fld, localT, kh in zip(flds, localTs, khs):
             af = gad.adv_flux_y(g, p.advSchHeff, vTrans, ice.vIce, localT,
                                 dt, self.SIMaskV)
             localT = localT - dt * mIn * g.recip_rA * (sh(af, dj=1) - af)
             gFld = _div(localT - fld, dt)
             if kh > 0.0:
-                fZon = -kh * xA * g.recip_dxC * (fld - sh(fld, di=-1))
-                fMer = -kh * yA * g.recip_dyC * (fld - sh(fld, dj=-1))
-                gFld = gFld + (-hm) * g.recip_rA * (
-                    (sh(fZon, di=1) - fZon) + (sh(fMer, dj=1) - fMer))
+                gFld = gFld + self._diffuse_field(fld, kh)
             new = hm * (fld + dt * gFld)
             out.append(torch.where(self.interior > 0, new, fld))
         return out
 
+    def _tracer_ext(self, ice: IceState):
+        """Each ice tracer times its mate before the advection,
+        HEFFM * tracer * carrier (seaice.py:1523), with the mate's
+        diffusivity."""
+        p, hm = self.p, self.HEFFM
+        exts, khs = [], []
+        for itr, mate in enumerate(p.SItrMate):
+            heff = mate == "HEFF"
+            exts.append(hm * ice.SItracer[itr]
+                        * (ice.HEFF if heff else ice.AREA))
+            khs.append(p.diffKhHeff if heff else p.diffKhArea)
+        return exts, khs
+
+    def _tracer_cap(self, ice: IceState, heff, area, exts):
+        """Y's epilogue for the ice tracers (seaice.py:1525-1553): the
+        advected extensive tracer over its new mate (where the mate reaches
+        siEps for HEFF, area_floor for AREA, else 0), capped by the 5-point
+        maximum of the old tracer (ALLOW_SITRACER_ADVCAP), its negative
+        part cleared where the mate is there, interior cells only."""
+        p, inside = self.p, self.interior > 0
+        out = []
+        for itr, ext in enumerate(exts):
+            on = p.SItrMate[itr] == "HEFF"
+            carrier = heff if on else area
+            floor = SI_EPS if on else p.area_floor
+            live = carrier >= floor
+            tr = _where(live, ext / _where(live, carrier, 1.0), 0.0)
+            prev = ice.SItracer[itr]
+            nbmax = _max(_max(_max(prev, sh(prev, di=1)),
+                              _max(sh(prev, di=-1), sh(prev, dj=1))),
+                         sh(prev, dj=-1))
+            tr = tr - _max(0.0, tr - nbmax)
+            tr = torch.where(live, tr - _min(0.0, tr), tr)
+            out.append(torch.where(inside, tr, prev))
+        return torch.stack(out) if out else ice.SItracer
+
+    # ------------------------------------------------------------------
+    # kernel LA's twin (seaice_advect_legacy): the legacy centred ice
+    # advection, advect.F (seaice.py:1449-1472) with diffus.F (:1436) and
+    # advdiff's legacy branch (:1485-1500)
+    # ------------------------------------------------------------------
+    def _diffus(self, fld, DIFFA, iceMsk):
+        """diffus.F (SEAICEuseFluxForm): the Laplacian of fld with the
+        coefficient field DIFFA, interior cells only (seaice.py:1436)."""
+        g = self.grid
+        dfx = (g.dyG * g.recip_dxC * (fld - sh(fld, di=-1)) * g.cosFacU
+               * iceMsk * sh(iceMsk, di=-1)
+               * 0.5 * (DIFFA + sh(DIFFA, di=-1)))
+        dfy = (g.dxG * g.recip_dyC * (fld - sh(fld, dj=-1))
+               * iceMsk * sh(iceMsk, dj=-1)
+               * 0.5 * (DIFFA + sh(DIFFA, dj=-1)))
+        out = ((sh(dfx, di=1) - dfx) + (sh(dfy, dj=1) - dfy)) * g.recip_rA
+        return _where(self.interior > 0, out, 0.0)
+
+    def _advect_legacy(self, uc, vc, fld, iceMsk):
+        """advect.F: two centred Heun passes with a halo fill after each,
+        then DIFF1's harmonic and biharmonic steps, each masked by iceMsk
+        on the whole padded plane (seaice.py:1449-1472). Returns the new
+        field."""
+        p, g = self.p, self.grid
+        dt = p.deltaTtherm
+        fldNm1 = fld
+        for _ in range(2):
+            tmpFld = 0.5 * (fld + fldNm1)
+            afx = g.dyG * uc * 0.5 * (tmpFld + sh(tmpFld, di=-1))
+            afy = g.dxG * vc * 0.5 * (tmpFld + sh(tmpFld, dj=-1))
+            upd = fldNm1 - dt * ((sh(afx, di=1) - afx)
+                                 + (sh(afy, dj=1) - afy)) \
+                * g.recip_rA * self.maskInCx
+            fld = self.fill(torch.where(self.interior > 0, upd, fld),
+                            impl="plain")
+        if p.DIFF1 > 0.0:
+            lap = self._diffus(fldNm1, self.DIFFA, iceMsk)
+            fld = (fld + lap * p.DIFF1 * dt) * iceMsk
+            lap = self.fill(lap, impl="plain")
+            bilap = self._diffus(lap, -self.DIFFA * self.DIFFA, iceMsk)
+            fld = (fld + bilap * p.DIFF1 * dt) * iceMsk
+        return fld
+
+    def _diffuse_field(self, fld, diffKh):
+        """seaice_diffusion.F: the harmonic Laplacian tendency of one
+        extensive field (seaice.py:1350)."""
+        g = self.grid
+        xA = g.dyG * self.SIMaskU
+        yA = g.dxG * self.SIMaskV
+        fZon = -diffKh * xA * g.recip_dxC * (fld - sh(fld, di=-1))
+        fMer = -diffKh * yA * g.recip_dyC * (fld - sh(fld, dj=-1))
+        return -self.HEFFM * g.recip_rA * (
+            (sh(fZon, di=1) - fZon) + (sh(fMer, dj=1) - fMer))
+
+    def _advdiff_legacy_plain(self, ice: IceState):
+        """Kernel LA's twin: advdiff's legacy branch (seaice.py:1485-1500)
+        for HEFF, AREA and HSNOW, with the diffKh diffusion of the old
+        fields on the whole padded plane where any diffKh > 0."""
+        p, hm, dt = self.p, self.HEFFM, self.p.deltaTtherm
+        olds = (ice.HEFF, ice.AREA, ice.HSNOW)
+        out = [self._advect_legacy(ice.uIce, ice.vIce, f, hm) for f in olds]
+        khs = (p.diffKhHeff, p.diffKhArea, p.diffKhSnow)
+        if any(kh > 0.0 for kh in khs):
+            out = [f + dt * self._diffuse_field(old, kh)
+                   for f, old, kh in zip(out, olds, khs)]
+        return out
+
     def advdiff(self, ice: IceState, impl: str = None) -> IceState:
         """HEFF, AREA and HSNOW advected (and diffused where diffKh > 0) by
-        the ice velocity, interior cells only; kernel seaice_advect (an X
-        and a Y launch, the three fields together) on CUDA tensors."""
+        the ice velocity, interior cells only, and the ice tracers with
+        their mates: kernel seaice_advect (an X and a Y launch, the fields
+        and the tracers together) on CUDA tensors; under the legacy schemes
+        2, 3 and 4 kernel LA (three launches, every padded cell written)."""
         seaice_kernels.refuse_grad("seaice_advect", uIce=ice.uIce,
                                    vIce=ice.vIce, HEFF=ice.HEFF,
-                                   AREA=ice.AREA, HSNOW=ice.HSNOW)
-        if not kernels.use_kernel(ice.HEFF, impl):
-            global plain_calls
+                                   AREA=ice.AREA, HSNOW=ice.HSNOW,
+                                   SItracer=ice.SItracer)
+        global plain_calls
+        kernel = kernels.use_kernel(ice.HEFF, impl)
+        if not kernel:
             plain_calls += 1
-            flds = (ice.HEFF, ice.AREA, ice.HSNOW)
-            heff, area, hsnow = self._advect_y_plain(
-                ice, flds, self._advect_x_plain(ice, flds))
-        else:
-            heff, area, hsnow = seaice_kernels.advect(self, ice)
-        return ice._replace(HEFF=heff, AREA=area, HSNOW=hsnow)
+        if self.p.advScheme in LEGACY_SCHEMES:
+            heff, area, hsnow = (seaice_kernels.advect_legacy(self, ice)
+                                 if kernel else
+                                 self._advdiff_legacy_plain(ice))
+            return ice._replace(HEFF=heff, AREA=area, HSNOW=hsnow)
+        if kernel:
+            heff, area, hsnow, sitr = seaice_kernels.advect(self, ice)
+            return ice._replace(HEFF=heff, AREA=area, HSNOW=hsnow,
+                                SItracer=sitr)
+        exts, khs = self._tracer_ext(ice)
+        flds = [ice.HEFF, ice.AREA, ice.HSNOW] + exts
+        khs = [self.p.diffKhHeff, self.p.diffKhArea,
+               self.p.diffKhSnow] + khs
+        heff, area, hsnow, *exts = self._advect_y_plain(
+            ice, flds, self._advect_x_plain(ice, flds), khs)
+        return ice._replace(HEFF=heff, AREA=area, HSNOW=hsnow,
+                            SItracer=self._tracer_cap(ice, heff, area, exts))
 
     # ------------------------------------------------------------------
     # kernel seaice_thermo's twin: reg_ridge (seaice.py:1559), growth
@@ -1510,9 +1655,14 @@ class SeaIce:
         IcePenetSW = _where(iceOrNot, IcePenetSW, 0.0)
         return tsurf_out, F_ia, IcePenetSW, FWsublim
 
-    def growth(self, ice: IceState, forc, theta0, salt0, dHn, dSn):
+    def growth(self, ice: IceState, forc, theta0, salt0, dHn, dSn,
+               stages: dict = None):
         """seaice_growth.F (0-layer, multDim categories, external fluxes):
-        (ice', {Qnet, Qsw, EmPmR, saltFlux}), interior cells only."""
+        (ice', {Qnet, Qsw, EmPmR, saltFlux}), interior cells only. A dict
+        given as `stages` receives the thickness after each stage that the
+        ice tracers read, "h": (stageH1, ..., stageH5), and the
+        concentration before and after, "a": (stageA2, stageA3)
+        (seaice.py:1715-1941)."""
         p, cfg, g = self.p, self.cfg, self.grid
         c2k = cfg.celsius2K
         inside = self.interior > 0
@@ -1595,6 +1745,7 @@ class SeaIce:
         d_HEFFbyOCNonICE = _max(r_QbyOCN, -heff)
         r_QbyOCN = r_QbyOCN - d_HEFFbyOCNonICE
         heff = heff + d_HEFFbyOCNonICE
+        stageH2 = heff
         # snow melt by the atmosphere
         t2_ = _min(_max(r_QbyATM_cover, -hsnow * SNOW2ICE), 0.0)
         d_HSNWbyATMonSNW = t2_ * ICE2SNOW
@@ -1606,6 +1757,7 @@ class SeaIce:
         d_HEFFbyATMonOCN = t2_
         r_QbyATM_cover = r_QbyATM_cover - t2_
         heff = heff + t2_
+        stageH3 = heff
         # precipitation: snow, or fresh water
         snows = a_QbyATM_cover >= 0.0
         d_HSNWbyRAIN = _where(
@@ -1627,6 +1779,7 @@ class SeaIce:
         d_HEFFbyATMonOCN = d_HEFFbyATMonOCN + t3_
         r_QbyATM_open = r_QbyATM_open - t3_
         heff = heff + t3_
+        stageH4 = heff
         # flooding
         if p.useFlooding:
             t0_ = _div(hsnow * p.rhoSnow + heff * p.rhoIce, cfg.rhoConst)
@@ -1652,6 +1805,9 @@ class SeaIce:
         area = _where(some, _max(0.0, _min(
             p.area_max, area + recip_HO * gain
             + 0.5 * recip_heffActual * loss * areaPDFfac)), 0.0)
+        if stages is not None:
+            stages["h"] = (HEFFpre, stageH2, stageH3, stageH4, heff)
+            stages["a"] = (AREApre, area)
         # salt flux
         t1_ = (dHn + d_HEFFbyOCNonICE + d_HEFFbyATMonOCN + d_HEFFbyFLOODING
                + d_HEFFbySublim)
@@ -1681,20 +1837,59 @@ class SeaIce:
                       "EmPmR": m(empmr, forc.EmPmR),
                       "saltFlux": m(saltFlux, forc.saltFlux)}
 
+    def tracer_phys(self, ice: IceState, stages: dict) -> IceState:
+        """seaice_tracer_phys.F (seaice.py:1948-1980): each ice tracer
+        through growth's stages, toward its sources (SItrFromOcean0 where
+        HEFF grew, SItrFromFlood0 where flooding thickened it,
+        SItrExpand0 where AREA expanded), the age tracer aged by
+        deltaTtherm where its mate lives and reset elsewhere; interior
+        cells only."""
+        p, inside = self.p, self.interior > 0
+        h1, h2, h3, h4, h5 = stages["h"]
+        a2, a3 = stages["a"]
+        out = []
+        for itr in range(p.SItrNumInUse):
+            tr = ice.SItracer[itr]
+            if p.SItrMate[itr] == "HEFF":
+                for hp, hn, src in ((h1, h2, p.SItrFromOcean0[itr]),
+                                    (h2, h3, p.SItrFromOcean0[itr]),
+                                    (h3, h4, p.SItrFromOcean0[itr]),
+                                    (h4, h5, p.SItrFromFlood0[itr])):
+                    grow = hn > hp
+                    f = _where(grow, hp / _where(grow, hn, 1.0), 1.0)
+                    tr = tr * f + src * (1.0 - f)
+                live = h5 > 0.0
+            else:
+                grow = a3 > a2
+                f = _where(grow, a2 / _where(grow, a3, 1.0), 1.0)
+                tr = tr * f + p.SItrExpand0[itr] * (1.0 - f)
+                live = a3 > 0.0
+            if p.SItrName[itr] == "age":
+                tr = _where(live, tr + p.deltaTtherm, 0.0)
+            out.append(torch.where(inside, tr, ice.SItracer[itr]))
+        return ice._replace(SItracer=torch.stack(out)) if out else ice
+
     def thermo(self, ice: IceState, forc, theta0, salt0, impl: str = None):
-        """reg_ridge then growth: (ice', {Qnet, Qsw, EmPmR, saltFlux});
-        kernel seaice_thermo (one launch, one thread per column) on CUDA
-        tensors, the twin on CPU tensors or with impl="plain"."""
+        """reg_ridge, growth and, with ice tracers, tracer_phys: (ice',
+        {Qnet, Qsw, EmPmR, saltFlux}); kernel seaice_thermo (one launch, one
+        thread per column; its tracer variant seaice_thermo_tr keeps
+        growth's stages in registers) on CUDA tensors, the twin on CPU
+        tensors or with impl="plain"."""
         seaice_kernels.refuse_grad(
             "seaice_thermo", theta0=theta0, salt0=salt0,
             **{k: getattr(ice, k) for k in ("HEFF", "HSNOW", "AREA",
-                                            "TICES")},
+                                            "TICES", "SItracer")},
             **{k: getattr(forc, k) for k in _THERMO_FORCING})
         if not kernels.use_kernel(ice.HEFF, impl):
             global plain_calls
             plain_calls += 1
             ice, dHn, dSn = self.reg_ridge(ice)
-            return self.growth(ice, forc, theta0, salt0, dHn, dSn)
+            stages = {}
+            ice, upd = self.growth(ice, forc, theta0, salt0, dHn, dSn,
+                                   stages)
+            if self.p.SItrNumInUse:
+                ice = self.tracer_phys(ice, stages)
+            return ice, upd
         return seaice_kernels.thermo(self, ice, forc, theta0, salt0)
 
     # ------------------------------------------------------------------
@@ -1761,6 +1956,8 @@ class SeaIce:
                            AREA=self.fill(ice.AREA, impl),
                            HSNOW=self.fill(ice.HSNOW, impl),
                            TICES=self.fill(ice.TICES, impl))
+        if ice.SItracer.shape[0]:
+            ice = ice._replace(SItracer=self.fill(ice.SItracer, impl))
         for k, v in forc_upd.items():
             upd[k] = self.fill(v, impl)
         return ice, upd, {"lsr_iters": counts, "lsr_host_syncs": syncs}

@@ -1,7 +1,8 @@
 """The card side of model/seaice.py: the wrappers that check their inputs
 and launch the sea ice's CUDA kernels (kernels/csrc/seaice_lsr.cu,
-seaice_advect.cu, seaice_thermo.cu, seaice_evp.cu, seaice_freedrift.cu,
-seaice_glue.cu).
+seaice_advect.cu (with the ice tracers), seaice_advect_legacy.cu
+(LA), seaice_thermo.cu with its tracer variant TP, seaice_evp.cu,
+seaice_freedrift.cu, seaice_glue.cu).
 model/seaice.py calls them for CUDA tensors; each mirrors a plain twin
 there, bit for bit. None of these kernels has a backward kernel: every
 wrapper, and every dispatcher in model/seaice.py that would run a twin,
@@ -15,6 +16,10 @@ import math
 import torch
 
 from mitgcm_tpu_torch import kernels
+
+# the ice tracers seaice_advect's and seaice_thermo's tracer variants take
+# (seaice_thermo.cu:kMaxTracers; the mates are bits of an int)
+MAX_TRACERS = 8
 
 # the coefficient fields of a pass, in the order of the U and V sweeps'
 # tables (A, B, C, Rt1, Rt2, rhs; the mask is added by the sweep)
@@ -167,47 +172,68 @@ def _adv_table(si, ice):
                 dyG=g.dyG, heffm=si.HEFFM)
 
 
-def advect_x(si, ice, src, dst) -> None:
-    """seaice_advect_x: dst = the X-updated HEFF, AREA, HSNOW ([3, nyp,
-    nxp] each)."""
+def _mates(si) -> int:
+    """The ice tracers' mates as the kernels take them: bit t set where
+    tracer t rides on AREA (else HEFF)."""
+    return sum(1 << t for t, m in enumerate(si.p.SItrMate) if m == "AREA")
+
+
+def advect_x(si, ice, fld, dst) -> None:
+    """seaice_advect_x: dst = the X-updated HEFF, AREA, HSNOW and ice
+    tracers' extensive forms ([3 + nTr, nyp, nxp]); fld holds HEFF, AREA
+    and HSNOW in its first 3 slots, and the launch writes the extensive
+    forms HEFFM * tracer * mate into the others."""
     p = si.p
     ins = _adv_table(si, ice)
-    dtype, shape = src.dtype, tuple(ice.HEFF.shape)
-    refuse_grad("seaice_advect_x", **ins, src=src)
+    dtype, shape = fld.dtype, tuple(ice.HEFF.shape)
+    ntr = p.SItrNumInUse
+    refuse_grad("seaice_advect_x", **ins, fld=fld, tr=ice.SItracer)
     kernels.check_fields(dtype, shape, **ins)
-    kernels.check_fields(dtype, (3,) + shape, src=src, dst=dst)
+    kernels.check_fields(dtype, (3 + ntr,) + shape, fld=fld, dst=dst)
+    kernels.check_fields(dtype, (ntr,) + shape, tr=ice.SItracer)
     table = kernels.pointer_table(list(ins.values()))
     kernels.launch("seaice_advect_x", dtype, table, len(table),
-                   src.data_ptr(), dst.data_ptr(), shape[0], shape[1],
-                   si.cfg.olx, int(p.advSchHeff), float(p.deltaTtherm))
+                   fld.data_ptr(), ice.SItracer.data_ptr(), dst.data_ptr(),
+                   shape[0], shape[1], si.cfg.olx, int(p.advSchHeff), ntr,
+                   _mates(si), float(p.deltaTtherm))
 
 
 def advect_y(si, ice, fld, localT, dst) -> None:
     """seaice_advect_y: dst = HEFFM (fld + dt g) on the interior, fld on
-    the halo."""
+    the halo, for HEFF, AREA and HSNOW, and each ice tracer from its
+    advected extensive form (divided by its new mate, ADVCAP, the
+    negativity fix) on the interior, the old tracer on the halo."""
     p = si.p
     ins = _adv_table(si, ice)
     dtype, shape = fld.dtype, tuple(ice.HEFF.shape)
-    refuse_grad("seaice_advect_y", **ins, fld=fld, localT=localT)
+    ntr = p.SItrNumInUse
+    refuse_grad("seaice_advect_y", **ins, fld=fld, localT=localT,
+                tr=ice.SItracer)
     kernels.check_fields(dtype, shape, **ins)
-    kernels.check_fields(dtype, (3,) + shape, fld=fld, localT=localT, dst=dst)
+    kernels.check_fields(dtype, (3 + ntr,) + shape, fld=fld, localT=localT,
+                         dst=dst)
+    kernels.check_fields(dtype, (ntr,) + shape, tr=ice.SItracer)
     table = kernels.pointer_table(list(ins.values()))
     kernels.launch("seaice_advect_y", dtype, table, len(table),
-                   fld.data_ptr(), localT.data_ptr(), dst.data_ptr(),
-                   shape[0], shape[1], si.cfg.olx, int(p.advSchHeff),
-                   float(p.deltaTtherm), float(p.diffKhHeff),
-                   float(p.diffKhArea), float(p.diffKhSnow))
+                   fld.data_ptr(), localT.data_ptr(), ice.SItracer.data_ptr(),
+                   dst.data_ptr(), shape[0], shape[1], si.cfg.olx,
+                   int(p.advSchHeff), ntr, _mates(si), float(p.deltaTtherm),
+                   float(p.diffKhHeff), float(p.diffKhArea),
+                   float(p.diffKhSnow), float(p.area_floor))
 
 
 def advect(si, ice):
-    """seaice_advect's two launches (model/seaice.py:advdiff): (HEFF, AREA,
-    HSNOW)."""
-    fld = torch.stack([ice.HEFF, ice.AREA, ice.HSNOW])
+    """seaice_advect's two launches (model/seaice.py:advdiff): (HEFF,
+    AREA, HSNOW, SItracer)."""
+    ntr = si.p.SItrNumInUse
+    fld = torch.empty((3 + ntr,) + tuple(ice.HEFF.shape),
+                      dtype=ice.HEFF.dtype, device=ice.HEFF.device)
+    torch.stack([ice.HEFF, ice.AREA, ice.HSNOW], out=fld[:3])
     localT = torch.empty_like(fld)
     out = torch.empty_like(fld)
     advect_x(si, ice, fld, localT)
     advect_y(si, ice, fld, localT, out)
-    return out.unbind(0)
+    return (*out[:3].unbind(0), out[3:] if ntr else ice.SItracer)
 
 
 def thermo_params(si) -> list:
@@ -251,9 +277,51 @@ def thermo_params(si) -> list:
     return vals
 
 
+def advect_legacy(si, ice):
+    """Kernel LA, seaice_advect_legacy's three launches
+    (model/seaice.py:_advdiff_legacy_plain): (HEFF, AREA, HSNOW), every
+    padded cell written."""
+    p, g = si.p, si.grid
+    dtype, shape = ice.HEFF.dtype, tuple(ice.HEFF.shape)
+    ins = dict(uIce=ice.uIce, vIce=ice.vIce, dxG=g.dxG, dyG=g.dyG,
+               recip_rA=g.recip_rA, maskInC=si.maskInCx, heffm=si.HEFFM,
+               recip_dxC=g.recip_dxC, recip_dyC=g.recip_dyC,
+               cosFacU=g.cosFacU, diffa=si.DIFFA, maskW=si.SIMaskU,
+               maskS=si.SIMaskV)
+    fld = torch.stack([ice.HEFF, ice.AREA, ice.HSNOW])
+    work = dict(pass1=torch.empty_like(fld), pass2=torch.empty_like(fld),
+                lap=torch.empty_like(fld), out=torch.empty_like(fld))
+    refuse_grad("seaice_advect_legacy", **ins, fld=fld)
+    kernels.check_fields(dtype, shape, **ins)
+    kernels.check_fields(dtype, (3,) + shape, fld=fld, **work)
+    table = kernels.pointer_table(list(ins.values()) + [fld]
+                                  + list(work.values()))
+    khs = (p.diffKhHeff, p.diffKhArea, p.diffKhSnow)
+    params = kernels.doubles([p.deltaTtherm, p.DIFF1, *khs,
+                              float(any(kh > 0.0 for kh in khs))])
+    for k in (1, 2, 3):
+        kernels.launch("seaice_advect_legacy", dtype, table, len(table),
+                       params, len(params), shape[0], shape[1], si.cfg.olx,
+                       k)
+    return work["out"].unbind(0)
+
+
+def tracer_params(si) -> list:
+    """seaice_thermo.cu:TracerParams: the tracers' count, then per tracer
+    (padded to MAX_TRACERS) its mate (1: AREA), whether it is 'age', and
+    its sources from the ocean, from flooding and from expansion."""
+    p = si.p
+    pad = [0.0] * (MAX_TRACERS - p.SItrNumInUse)
+    return ([p.SItrNumInUse]
+            + [float(x == "AREA") for x in p.SItrMate] + pad
+            + [float(x == "age") for x in p.SItrName] + pad
+            + list(p.SItrFromOcean0) + pad + list(p.SItrFromFlood0) + pad
+            + list(p.SItrExpand0) + pad)
+
+
 def thermo(si, ice, forc, theta0, salt0):
-    """seaice_thermo (model/seaice.py:thermo): (ice', {Qnet, Qsw, EmPmR,
-    saltFlux})."""
+    """seaice_thermo, or with ice tracers its variant seaice_thermo_tr (TP)
+    (model/seaice.py:thermo): (ice', {Qnet, Qsw, EmPmR, saltFlux})."""
     p, g = si.p, si.grid
     dtype, shape = ice.HEFF.dtype, tuple(ice.HEFF.shape)
     ins = dict(heff=ice.HEFF, hsnow=ice.HSNOW, area=ice.AREA,
@@ -278,9 +346,22 @@ def thermo(si, ice, forc, theta0, salt0):
         kernels.check_shape(name, t, want)
     table = kernels.pointer_table(list(ins.values()) + list(outs.values()))
     params = kernels.doubles(thermo_params(si))
-    kernels.launch("seaice_thermo", dtype, table, len(table), params,
-                   len(params), shape[0], shape[1], si.cfg.olx,
-                   int(p.multDim), int(p.IMAX_TICE))
+    dims = (shape[0], shape[1], si.cfg.olx, int(p.multDim),
+            int(p.IMAX_TICE))
+    ntr = p.SItrNumInUse
+    if ntr:
+        # TP: tracer_phys in the same launch
+        tr_out = torch.empty_like(ice.SItracer)
+        kernels.check_fields(dtype, (ntr,) + shape, tr=ice.SItracer,
+                             tr_out=tr_out)
+        trp = kernels.doubles(tracer_params(si))
+        kernels.launch("seaice_thermo_tr", dtype, table, len(table), params,
+                       len(params), trp, len(trp), ice.SItracer.data_ptr(),
+                       tr_out.data_ptr(), *dims)
+        ice = ice._replace(SItracer=tr_out)
+    else:
+        kernels.launch("seaice_thermo", dtype, table, len(table), params,
+                       len(params), *dims)
     ice = ice._replace(HEFF=outs["heff_o"], HSNOW=outs["hsnow_o"],
                        AREA=outs["area_o"], TICES=outs["tices_o"])
     return ice, {"Qnet": outs["qnet_o"], "Qsw": outs["qsw_o"],

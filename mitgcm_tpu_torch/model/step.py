@@ -230,7 +230,9 @@ def check_supported(cfg: Config, kpp=None, ggl90=None, impl: str = None,
                                         or cfg.diffK4S != 0.0),
         **_tracer_schemes_off(cfg),
         **shap_filt.refusals(cfg),
-        "cg2dExactSums": cfg.cg2dExactSums,
+        # the ordered dot is MITgcm's on one face only (cg2d.py:221)
+        "cg2dExactSums with nFaces>1": (cfg.cg2dExactSums
+                                        and cfg.nFaces != 1),
         "custom forcing hooks": (cfg.custom_forcing_uv is not None
                                  or cfg.custom_forcing_t is not None),
         "packages": any(getattr(cfg, p) for p in _PACKAGES),
@@ -1120,7 +1122,7 @@ def forward_step(cfg: Config, grid: Grid, op, state: State,
         state = dataclasses.replace(
             state, uIce=ice.uIce, vIce=ice.vIce, siAREA=ice.AREA,
             siHEFF=ice.HEFF, siHSNOW=ice.HSNOW, siHSALT=ice.HSALT,
-            siTICES=ice.TICES, siSigma=ice.sigma)
+            siTICES=ice.TICES, SItracer=ice.SItracer, siSigma=ice.sigma)
     # the surface forcing, once a step from the post-seaice state (kernel
     # Q): the tracers', KPP's and GGL90's and the momentum forcing's
     sf = thermo_mod.surface_forcing(cfg, grid, state, forc, impl=impl)

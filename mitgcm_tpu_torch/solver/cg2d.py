@@ -15,7 +15,11 @@ iteration:
   xr_update    x += alpha s, r -= alpha q, with dot(r, r)
 Both paths make the same operations in the same order, dot products
 included (common.cuh:grid_reduce's fixed order, `_grid_sum`), so on the
-card they agree bit for bit, iterations included.
+card they agree bit for bit, iterations included. With cg2dExactSums on
+one face every dot product is MITgcm's ordered sum instead (`_dot_seq`,
+the JAX package's `_dot_seq_fortran`): the twins sum each sNy x sNx tile
+serially and then the tiles' partials, and the card runs kernel A-exact
+(`cg2d_solve_exact`), which keeps that order bit for bit.
 """
 
 from __future__ import annotations
@@ -156,6 +160,51 @@ def _grid_sum(v, oly: int, olx: int):
     return _tree(acc)
 
 
+def exact_tiles(cfg: Config):
+    """(sNy, sNx) of cg2dExactSums' ordered dot (cg2d.py:_dot_seq_fortran):
+    the config's tile in each direction that it divides, else the whole
+    interior in that direction."""
+    sNy = cfg.sNy if (cfg.sNy and cfg.ny % cfg.sNy == 0) else cfg.ny
+    sNx = cfg.sNx if (cfg.sNx and cfg.nx % cfg.sNx == 0) else cfg.nx
+    return sNy, sNx
+
+
+def _seq_sum(inter, tiles):
+    """MITgcm's ordered sum of a 2-D interior (cg2d.F's errTile loops,
+    global_sum_tile.F): each sNy x sNx tile summed serially, i fastest and
+    j outer, from a zero of the field's dtype; then the tiles' partials
+    serially, bj outer and bi inner, again from a zero. Every add is one
+    elementwise add of two tensors of the dtype (no torch.sum or cumsum,
+    which may accumulate float32 in double); the tiles go together."""
+    sNy, sNx = tiles
+    ny, nx = inter.shape
+    cells = (inter.reshape(ny // sNy, sNy, nx // sNx, sNx)
+             .permute(1, 3, 0, 2).reshape(sNy * sNx, -1))
+    parts = torch.zeros_like(cells[0])
+    for row in cells:
+        parts = parts + row
+    total = torch.zeros_like(parts[0])
+    for part in parts:
+        total = total + part
+    return total
+
+
+def _dot_seq(v, cfg: Config):
+    """The JAX package's _dot_seq_fortran (cg2d.py:137-166): the ordered
+    sum of v's interior (v the product a * c * imask, halo-padded)."""
+    oly, olx = cfg.oly, cfg.olx
+    return _seq_sum(v[oly:oly + cfg.ny, olx:olx + cfg.nx], exact_tiles(cfg))
+
+
+def _dot(v, oly: int, olx: int, tiles=None):
+    """A twin's dot product of v's interior: kernel A's fixed tree order
+    (`_grid_sum`), or with tiles (sNy, sNx) kernel A-exact's ordered sum
+    (`_seq_sum`)."""
+    if tiles is None:
+        return _grid_sum(v, oly, olx)
+    return _seq_sum(v[oly:v.shape[0] - oly, olx:v.shape[1] - olx], tiles)
+
+
 def _set_interior(a, v, oly, olx):
     a[..., oly:a.shape[-2] - oly, olx:a.shape[-1] - olx] = \
         v[..., oly:v.shape[-2] - oly, olx:v.shape[-1] - olx]
@@ -170,15 +219,15 @@ def _check(dtype, shape, scalars, **fields):
 
 
 def stencil_dot(cW, cS, cC, y, out, dot_out, center_first: bool, oly: int,
-                olx: int) -> None:
+                olx: int, tiles=None) -> None:
     """Twin: out[interior] = 5-point stencil of y (P's term order when
     center_first, else A's) and dot_out (0-d) = dot(out, y) over the
-    interior. Reads y's interior and its cyclic wrap, never y's halo
-    cells; leaves out's halo cells as they are."""
+    interior (`_dot`). Reads y's interior and its cyclic wrap, never y's
+    halo cells; leaves out's halo cells as they are."""
     y = cyclic_fill_halo(y, oly, olx, impl="plain")
     v = _stencil5(cW, cS, cC, y, center_first)
     _set_interior(out, v, oly, olx)
-    dot_out.copy_(_grid_sum(v * y, oly, olx))
+    dot_out.copy_(_dot(v * y, oly, olx, tiles))
 
 
 def s_update(q, s, eta_n, eta_nm1, oly: int, olx: int) -> None:
@@ -187,43 +236,52 @@ def s_update(q, s, eta_n, eta_nm1, oly: int, olx: int) -> None:
     _set_interior(s, q + eta_n / eta_nm1 * s, oly, olx)
 
 
-def xr_update(x, r, s, q, num, den, dot_out, oly: int, olx: int) -> None:
+def xr_update(x, r, s, q, num, den, dot_out, oly: int, olx: int,
+              tiles=None) -> None:
     """Twin, in place on the interior: x += alpha s and r -= alpha q with
-    alpha = num / den (0-d); dot_out (0-d) = dot(r, r) over the
-    interior."""
+    alpha = num / den (0-d); dot_out (0-d) = dot(r, r) over the interior
+    (`_dot`)."""
     alpha = num / den
     _set_interior(x, x + alpha * s, oly, olx)
     rn = r - alpha * q
     _set_interior(r, rn, oly, olx)
-    dot_out.copy_(_grid_sum(rn * rn, oly, olx))
+    dot_out.copy_(_dot(rn * rn, oly, olx, tiles))
 
 
 def cg2d_solve(op: CG2DOperator, b, x, max_iters: int, use_min: bool,
-               oly: int, olx: int):
+               oly: int, olx: int, tiles=None):
     """Kernel A: the PCG loop of `_pcg_plain` in one cooperative launch,
     from the normalised right-hand side b and the first guess x (its
-    interior; the solution is written there). Returns (scalars, ctrl),
-    device tensors: scalars[2] and [3] the first and last squared
-    residual, ctrl[2] the iteration count. Raises if the card refuses the
-    launch (a grid too large to be co-resident); nothing falls back."""
+    interior; the solution is written there); with tiles (sNy, sNx) kernel
+    A-exact (`cg2d_solve_exact`), every dot product in MITgcm's order.
+    Returns (scalars, ctrl), device tensors: scalars[2] and [3] the first
+    and last squared residual, ctrl[2] the iteration count. Raises if the
+    card refuses the launch (a grid too large to be co-resident); nothing
+    falls back."""
     _check(b.dtype, b.shape, {"tol_sq": op.tolerance_sq}, aW=op.aW,
            aS=op.aS, aC=op.aC, pW=op.pW, pS=op.pS, pC=op.pC, b=b, x=x)
     ny, nx = b.shape[-2] - 2 * oly, b.shape[-1] - 2 * olx
-    tiles = kernels.library().mitgcm_cg2d_num_partials(ny, nx)
-    # r, r', s, s', z = P r, q = A s and x_min; two partials per tile; the
-    # barriers' sums and the residuals; the barrier's counters and the
-    # iteration count (the arrival count must start at 0)
-    work = b.new_empty((7,) + tuple(b.shape))
-    partials = b.new_empty(2 * tiles)
+    if tiles is None:
+        parts = kernels.library().mitgcm_cg2d_num_partials(ny, nx)
+        planes, name, extra = 7, "cg2d_solve", ()
+    else:
+        parts = (ny // tiles[0]) * (nx // tiles[1])
+        planes, name, extra = 9, "cg2d_solve_exact", tuple(tiles)
+    # r, r', s, s', z = P r, q = A s and x_min (A-exact: and the two
+    # product planes); two partials per tile; the barriers' sums and the
+    # residuals; the barrier's counters and the iteration count (the
+    # arrival count must start at 0)
+    work = b.new_empty((planes,) + tuple(b.shape))
+    partials = b.new_empty(2 * parts)
     scalars = b.new_empty(4)
     ctrl = torch.zeros(3, dtype=torch.int32, device=b.device)
-    kernels.launch("cg2d_solve", b.dtype, op.aW.data_ptr(),
+    kernels.launch(name, b.dtype, op.aW.data_ptr(),
                    op.aS.data_ptr(), op.aC.data_ptr(), op.pW.data_ptr(),
                    op.pS.data_ptr(), op.pC.data_ptr(), b.data_ptr(),
                    op.tolerance_sq.data_ptr(), x.data_ptr(),
                    work.data_ptr(), partials.data_ptr(), scalars.data_ptr(),
                    ctrl.data_ptr(), ny, nx, oly, olx, max_iters,
-                   int(use_min))
+                   int(use_min), *extra)
     return scalars, ctrl
 
 
@@ -278,15 +336,18 @@ def _solve(cfg: Config, op: CG2DOperator, b, x0, impl: str = None
         b = b * rhsNorm
         x0 = x0 * rhsNorm
     use_min = cfg.cg2dUseMinResSol == 1
+    # cg2dExactSums on one face: MITgcm's ordered dot (cg2d.py:221-225)
+    tiles = (exact_tiles(cfg) if cfg.cg2dExactSums and cfg.nFaces == 1
+             else None)
     x = x0 * imask
     if kernels.use_kernel(b, impl):
         scalars, ctrl = cg2d_solve(op, b, x, cfg.cg2dMaxIters, use_min,
-                                   oly, olx)
+                                   oly, olx, tiles)
         first_res, err_sq = torch.sqrt(scalars[2]), scalars[3]
         it, syncs = _iterations(ctrl), 1
     else:
         x, first_res, err_sq, it, syncs = _pcg_plain(
-            op, b, x, cfg.cg2dMaxIters, use_min, oly, olx)
+            op, b, x, cfg.cg2dMaxIters, use_min, oly, olx, tiles)
     if normalise:
         x = x / rhsNorm
     return CG2DResult(x=cyclic_fill_halo(x, oly, olx, impl=impl),
@@ -302,18 +363,19 @@ def _iterations(ctrl) -> int:
 
 
 def _pcg_plain(op: CG2DOperator, b, x, max_iters: int, use_min: bool,
-               oly: int, olx: int):
-    """Kernel A's twin: the PCG loop on the host through the twins, one
-    host read of the residual an iteration. Halos of the work fields r, s
-    and q are never filled: every twin reads the wrap. Returns (x, first
-    residual, last squared residual, iterations, host reads)."""
+               oly: int, olx: int, tiles=None):
+    """Kernel A's twin (with tiles, A-exact's): the PCG loop on the host
+    through the twins, one host read of the residual an iteration. Halos
+    of the work fields r, s and q are never filled: every twin reads the
+    wrap. Returns (x, first residual, last squared residual, iterations,
+    host reads)."""
     # device scalars: 1, eta (two slots that swap roles), dot(s, q), r.r
     one, eta_n, eta_nm1, sq, err_sq = torch.ones(
         5, dtype=b.dtype, device=b.device).unbind()
     r = b.clone()
     s = torch.zeros_like(b)
     q = torch.zeros_like(b)
-    kw = dict(oly=oly, olx=olx)
+    kw = dict(oly=oly, olx=olx, tiles=tiles)
     # r0 = b - A x0 is one xr step with alpha = 1 along a zero direction
     stencil_dot(op.aW, op.aS, op.aC, x, q, sq, False, **kw)
     xr_update(x, r, s, q, one, one, err_sq, **kw)
@@ -323,7 +385,7 @@ def _pcg_plain(op: CG2DOperator, b, x, max_iters: int, use_min: bool,
     it = 0
     while err >= tol_sq and it < max_iters:
         stencil_dot(op.pW, op.pS, op.pC, r, q, eta_n, True, **kw)
-        s_update(q, s, eta_n, eta_nm1, **kw)
+        s_update(q, s, eta_n, eta_nm1, oly, olx)
         stencil_dot(op.aW, op.aS, op.aC, s, q, sq, False, **kw)
         xr_update(x, r, s, q, eta_n, sq, err_sq, **kw)
         err = err_sq.item()

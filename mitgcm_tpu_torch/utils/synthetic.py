@@ -530,6 +530,57 @@ def ice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
     return cfg
 
 
+def exact_gyre_config(nx=64, ny=64, nr=4, tile=None, **kw) -> Config:
+    """The gyre (gyre_config) with cg2dExactSums: every dot product of the
+    cg2d solve in MITgcm's order, each tile x tile tile of the interior
+    summed serially and then the tiles' partials (SIZE.h sNx = sNy = tile:
+    by default 64 when nx is a multiple of 64 and at least 128, else half
+    the width), which makes the tile shape part of the answer (the
+    "exact-gyre"). Synthetic: no deck of the repository sets the flag."""
+    if tile is None:
+        tile = 64 if (nx % 64 == 0 and nx >= 128) else nx // 2
+    ex = dict(cg2dExactSums=True, sNx=tile, sNy=tile, nSx=nx // tile,
+              nSy=ny // tile)
+    return gyre_config(nx=nx, ny=ny, nr=nr, **{**ex, **kw})
+
+
+# the sitr-ice-gyre's SEAICE_PARM03: lab_sea's two ice tracers, an age
+# carried by HEFF and a 'one' carried by AREA (so that both of advdiff's
+# and tracer_phys's branches run)
+SITR_ICE_GYRE_SEAICE03 = {"sitrnuminuse": 2,
+                          "sitrname(1)": "age", "sitrmate(1)": "HEFF",
+                          "sitrname(2)": "one", "sitrmate(2)": "AREA"}
+# the legacy-ice-gyre's sea-ice settings: lab_sea/input.hb87's legacy
+# centred advection and its DIFF1 (tests/test_lab_sea_hb87.py:84) on the
+# ice-gyre's LSR dynamics
+LEGACY_ICE_GYRE_SEAICE = {**ICE_GYRE_SEAICE, "SEAICEadvScheme": 2,
+                          "DIFF1": 4.0e-3}
+
+
+def sitr_ice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw) -> Config:
+    """The ice-gyre (ice_gyre_config, LSR) carrying SITR_ICE_GYRE_SEAICE03's
+    two ice tracers: 'age' with HEFF, 'one' with AREA (the
+    "sitr-ice-gyre"). ice_gyre_setup starts 'one' at 1 and the age at 0
+    (seaice_init_varia.F). Synthetic: lab_sea's deck is not in the
+    repository."""
+    cfg = ice_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth, **kw)
+    cfg.seaice = params_from_namelists(cfg, ICE_GYRE_SEAICE,
+                                       SITR_ICE_GYRE_SEAICE03)
+    return cfg
+
+
+def legacy_ice_gyre_config(nx=64, ny=64, nr=12, depth=5000.0, **kw
+                           ) -> Config:
+    """The ice-gyre (ice_gyre_config, LSR) under LEGACY_ICE_GYRE_SEAICE:
+    SEAICEadvScheme 2 (the legacy two-pass centred Heun advection of HEFF,
+    AREA and HSNOW) with DIFF1 = 4e-3 harmonic and biharmonic diffusion,
+    as lab_sea's input.hb87 sets them (the "legacy-ice-gyre").
+    Synthetic: the deck is not in the repository."""
+    cfg = ice_gyre_config(nx=nx, ny=ny, nr=nr, depth=depth, **kw)
+    cfg.seaice = params_from_namelists(cfg, LEGACY_ICE_GYRE_SEAICE)
+    return cfg
+
+
 def _polar_profiles(nr: int, depth: float) -> dict:
     """The polar kpp-gyre's tRef and sRef: -1.8 degC and 32.5 in the 60 m
     mixed layer of the kpp-gyre's stretched levels, rising linearly to

@@ -23,7 +23,11 @@
 // dissipation variants (launch_mom_visc, launch_vecinv_visc), and U and Z
 // (launch_vertmix_calc of vertmix.cuh, launch_opps_col of opps.cuh), and
 // CD, SH-uv and SH-ts (launch_cd_scheme of cd_code.cuh, launch_shap of
-// shap_filt.cuh), and TH (launch_thsice_step of thsice.cuh), for
+// shap_filt.cuh), and TH (launch_thsice_step of thsice.cuh), and
+// seaice_advect with the ice tracers (launch_seaice_advect of
+// seaice_advect.cuh), seaice_thermo with its tracer variant TP
+// (launch_seaice_thermo of seaice_thermo.cuh) and LA
+// (launch_seaice_advect_legacy of seaice_advect_legacy.cuh), for
 // tests/test_torch_host_kernels.py.
 #include "cuda_runtime.h"
 #include "adv_flow.cuh"
@@ -58,6 +62,9 @@
 #include "step_scans.cuh"
 #include "step_scans_adj.cuh"
 #include "thsice.cuh"
+#include "seaice_advect.cuh"
+#include "seaice_advect_legacy.cuh"
+#include "seaice_thermo.cuh"
 #include "vertmix.cuh"
 
 using namespace mitgcm;
@@ -463,8 +470,52 @@ constexpr size_t kHostMaxShared = 232448;
                                  nitMaxTsf, OnHost{});                       \
   }
 
+// the sea ice's advection (with its tracers), LA and seaice_thermo
+// (TP's variant too), with their entry points' arguments but the stream
+#define HOST_SEAICE_ENTRY_POINTS(T, SUF)                                     \
+  extern "C" int host_seaice_advect_x_##SUF(                                 \
+      const void* const* table, int n, void* fld, const void* tr, void* dst, \
+      int nyp, int nxp, int ol, int scheme, int ntr, int mates, double dt) { \
+    return launch_seaice_advect<T>(true, table, n, fld, nullptr, tr, dst,    \
+                                   nyp, nxp, ol, scheme, ntr, mates, dt,     \
+                                   0.0, 0.0, 0.0, 0.0, OnHost{});            \
+  }                                                                          \
+  extern "C" int host_seaice_advect_y_##SUF(                                 \
+      const void* const* table, int n, const void* fld, const void* localT,  \
+      const void* tr, void* dst, int nyp, int nxp, int ol, int scheme,       \
+      int ntr, int mates, double dt, double kh0, double kh1, double kh2,     \
+      double area_floor) {                                                   \
+    return launch_seaice_advect<T>(false, table, n, fld, localT, tr, dst,    \
+                                   nyp, nxp, ol, scheme, ntr, mates, dt,     \
+                                   kh0, kh1, kh2, area_floor, OnHost{});     \
+  }                                                                          \
+  extern "C" int host_seaice_advect_legacy_##SUF(                            \
+      const void* const* table, int n, const double* params, int nparams,    \
+      int nyp, int nxp, int ol, int pass) {                                  \
+    return launch_seaice_advect_legacy<T>(table, n, params, nparams, nyp,    \
+                                          nxp, ol, pass, OnHost{});          \
+  }                                                                          \
+  extern "C" int host_seaice_thermo_##SUF(                                   \
+      const void* const* table, int n, const double* params, int nparams,    \
+      int nyp, int nxp, int ol, int multDim, int imax) {                     \
+    return launch_seaice_thermo<T, false>(table, n, params, nparams,         \
+                                          nullptr, 0, nullptr, nullptr, nyp, \
+                                          nxp, ol, multDim, imax, OnHost{}); \
+  }                                                                          \
+  extern "C" int host_seaice_thermo_tr_##SUF(                                \
+      const void* const* table, int n, const double* params, int nparams,    \
+      const double* trparams, int ntrparams, const void* tr_in,              \
+      void* tr_out, int nyp, int nxp, int ol, int multDim, int imax) {       \
+    return launch_seaice_thermo<T, true>(table, n, params, nparams,          \
+                                         trparams, ntrparams, tr_in, tr_out, \
+                                         nyp, nxp, ol, multDim, imax,        \
+                                         OnHost{});                          \
+  }
+
 HOST_ENTRY_POINTS(float, f32)
 HOST_ENTRY_POINTS(double, f64)
+HOST_SEAICE_ENTRY_POINTS(float, f32)
+HOST_SEAICE_ENTRY_POINTS(double, f64)
 HOST_THSICE_ENTRY_POINTS(float, f32)
 HOST_THSICE_ENTRY_POINTS(double, f64)
 HOST_CD_SHAP_ENTRY_POINTS(float, f32)

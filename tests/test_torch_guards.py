@@ -602,11 +602,21 @@ SEAICE_REFUSALS = [
      "useHB87stressCoupling without EVP"),
     ({**AEVP, "SEAICEetaZmethod": 0}, "etaZmethod=0"),
     ({**AEVP, "SEAICEnEVPstarSteps": 0}, "SEAICEnEVPstarSteps<1"),
-    ({"p.SItrNumInUse": 1}, "SItrNumInUse>0"),
+    ({"SEAICEadvScheme": 2, "p.SItrNumInUse": 1},
+     "SItrNumInUse>0 with the legacy advection"),
+    ({"SEAICEadvScheme": 4, "p.SItrNumInUse": 2},
+     "SItrNumInUse>0 with the legacy advection (scheme 4)"),
     ({"SEAICEadvScheme": 7}, "SEAICEadvScheme=(7, 7, 7)"),
-    ({"SEAICEadvScheme": 2}, "SEAICEadvScheme=(2, 2, 2)"),
-    ({"SEAICEadvScheme": 3}, "SEAICEadvScheme=(3, 3, 3)"),
-    ({"SEAICEadvScheme": 4}, "SEAICEadvScheme=(4, 4, 4)"),
+    ({"SEAICEadvScheme": 2, "SEAICEadvSchSnow": 77},
+     "SEAICEadvScheme=(2, 2, 77) differs per field"),
+    ({"SEAICEadvScheme": 3, "SEAICEadvSchSnow": 30},
+     "SEAICEadvScheme=(3, 3, 30) differs per field"),
+    ({"SEAICEuseFluxForm": False}, "SEAICEuseFluxForm=F"),
+    ({"SEAICEadvScheme": 2, "SEAICEuseFluxForm": False},
+     "SEAICEuseFluxForm=F (legacy)"),
+    ({"p.SItrNumInUse": 9}, "SItrNumInUse>8"),
+    ({"p.SItrNumInUse": 1, "p.SItrMate": ("hsnow",)},
+     "SItrMate=('hsnow',)"),
     ({"SEAICEadvSchSnow": 30}, "SEAICEadvScheme=(77, 77, 30)"),
     ({"SEAICEuseStrImpCpl": True}, "useStrImpCpl"),
     ({"LSR_mixIniGuess": 1}, "LSR_mixIniGuess"),
@@ -648,7 +658,7 @@ def test_check_seaice_refuses(settings, name):
             setattr(p, key[2:], value)
         elif key.startswith("cfg."):
             setattr(cfg, key[4:], value)
-    with pytest.raises(NotImplementedError, match=name.replace(
+    with pytest.raises(NotImplementedError, match=name.split(" (")[0].replace(
             "(", r"\(").replace(")", r"\)")):
         seaice_mod.check_seaice(cfg, types.SimpleNamespace(p=p))
 
@@ -939,3 +949,49 @@ def test_free_drift_evp_clip_step_against_jax():
          "SEAICE_clipVelocities": True}, wind=10.0,
         after={"useFreeDrift": True})
     assert float(new.uIce.abs().max()) == 0.40
+
+
+# the ice tracers under each multi-dimensional scheme, and the legacy
+# schemes 2, 3 and 4 without tracers: check_seaice passes them
+SEAICE_SLICE_ACCEPTS = {
+    **{f"tracers-scheme{s}": ({"SEAICEadvScheme": s},
+                              synthetic.SITR_ICE_GYRE_SEAICE03)
+       for s in (1, 20, 30, 33, 77)},
+    **{f"legacy-scheme{s}": ({"SEAICEadvScheme": s, "DIFF1": 4.0e-3}, {})
+       for s in (2, 3, 4)},
+}
+
+
+@pytest.mark.parametrize("name", list(SEAICE_SLICE_ACCEPTS))
+def test_check_seaice_accepts_tracers_and_legacy(name):
+    """SItrNumInUse > 0 under schemes 1/20/30/33/77 and the legacy schemes
+    2/3/4 without tracers run on the port: SeaIce starts the tracers ('one'
+    at 1, the age at 0)."""
+    from mitgcm_tpu_torch.model import seaice as seaice_mod
+
+    cfg = synthetic.ice_gyre_config(nx=8, ny=8, nr=2, depth=300.0)
+    nml01, nml03 = SEAICE_SLICE_ACCEPTS[name]
+    p = seaice_mod.params_from_namelists(
+        cfg, {**synthetic.ICE_GYRE_SEAICE, **nml01}, nml03)
+    cfg.seaice = p
+    grid = synthetic.gyre_grid(cfg, dtype=torch.float64, device="cpu")
+    tr = seaice_mod.SeaIce(cfg, grid, p).init_state().SItracer
+    assert tr.shape[0] == p.SItrNumInUse
+    if p.SItrNumInUse:
+        assert float(tr[0].abs().max()) == 0.0
+        assert float(tr[1].min()) == float(tr[1].max()) == 1.0
+
+
+def test_exact_sums_one_face_only_and_no_adjoint():
+    """check_supported accepts cg2dExactSums with one face and refuses it
+    by name on more (the JAX package's ordered dot is single-face); the
+    adjoint refuses the exact-gyre by name."""
+    cfg = synthetic.exact_gyre_config(nx=16, ny=16, nr=2)
+    check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="cg2dExactSums"):
+        adjoint.check_adjoint_supported(cfg)
+    adjoint.check_adjoint_supported(dataclasses.replace(
+        cfg, cg2dExactSums=False))
+    with pytest.raises(NotImplementedError,
+                       match="cg2dExactSums with nFaces>1"):
+        check_supported(dataclasses.replace(cfg, nFaces=6))

@@ -30,7 +30,12 @@ padded cell, each equal to its plain VJP's, and the 16x16x4 gyre's
 gradient runs through all nine on the mock (their forward kernels
 replaced by their twins) against the plain path. TH (thsice.cuh) writes
 every padded cell of its 13 outputs, each equal to the twin's
-(model/thsice.py:ThSIce.step) under each of THSICE_VARIANTS."""
+(model/thsice.py:ThSIce.step) under each of THSICE_VARIANTS. The sea ice's
+advection with the ice tracers (seaice_advect.cuh), the legacy
+advection LA (seaice_advect_legacy.cuh) and seaice_thermo with its tracer
+variant TP (seaice_thermo.cuh) write every padded cell, each equal to the
+twin's (model/seaice.py:advdiff and thermo), with and without ice tracers
+and diffusion, under the legacy schemes with and without DIFF1."""
 
 import ctypes
 import ctypes.util
@@ -133,6 +138,18 @@ SIGNATURES = {
     + [_I] * 10,
     # TH, with its entry point's arguments but the stream
     "host_thsice_step": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 5,
+    # the sea ice's advection (with its tracers), LA, seaice_thermo and
+    # TP: their entry points' arguments but the stream
+    "host_seaice_advect_x": [_PP, _I, _P, _P, _P] + [_I] * 6 + [_D],
+    "host_seaice_advect_y": [_PP, _I, _P, _P, _P, _P] + [_I] * 6
+    + [_D] * 5,
+    "host_seaice_advect_legacy": [_PP, _I, ctypes.POINTER(ctypes.c_double),
+                                  _I] + [_I] * 4,
+    "host_seaice_thermo": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I]
+    + [_I] * 5,
+    "host_seaice_thermo_tr": [_PP, _I, ctypes.POINTER(ctypes.c_double), _I,
+                              ctypes.POINTER(ctypes.c_double), _I, _P, _P]
     + [_I] * 5,
 }
 
@@ -3744,3 +3761,157 @@ def test_thsice_launch_refuses(lib):
         args[k] = bad
         assert fn(*args) != 0, (k, bad)
     assert fn(table(bufs[:34] + [None]), *ok[1:]) != 0
+
+
+# the sea ice's settings under which SeaIce.advdiff and thermo run on the
+# mock: SEAICE_PARM01 on the ice-gyre's, SEAICE_PARM03 (the ice tracers)
+SEAICE_HOST_VARIANTS = {
+    "fields": ({}, {}),
+    "tracers": ({}, {"sitrnuminuse": 3, "sitrname(1)": "age",
+                     "sitrmate(1)": "HEFF", "sitrname(2)": "one",
+                     "sitrmate(2)": "AREA", "sitrname(3)": "salt",
+                     "sitrmate(3)": "HEFF", "sitrfromocean0(3)": 4.0,
+                     "sitrfromflood0(3)": 30.0, "sitrexpand0(3)": 2.0}),
+    "tracers, scheme 33, diffKh": (
+        {"SEAICEadvScheme": 33, "SEAICEdiffKhHeff": 300.0,
+         "SEAICEdiffKhArea": 200.0, "SEAICEdiffKhSnow": 100.0},
+        {"sitrnuminuse": 2, "sitrname(1)": "age", "sitrmate(1)": "AREA",
+         "sitrname(2)": "one", "sitrmate(2)": "HEFF"}),
+    "legacy, DIFF1": ({"SEAICEadvScheme": 2, "DIFF1": 4.0e-3}, {}),
+    "legacy 4, DIFF1, diffKh": ({"SEAICEadvScheme": 4, "DIFF1": 2.0e-3,
+                                 "SEAICEdiffKhArea": 200.0}, {}),
+    "legacy 3": ({"SEAICEadvScheme": 3}, {}),
+}
+
+
+def seaice_host_case(dtype, seed, ny, nx, variant):
+    """(SeaIce, ice, forcing, theta0, salt0) on the ice-gyre's walled grid
+    (2 x 2 tiles) with seeded moving ice of thick, thin, negative and
+    absent cover, tracers of a wide spread, ocean and atmosphere."""
+    nml01, nml03 = SEAICE_HOST_VARIANTS[variant]
+    cfg = synthetic.ice_gyre_config(nx=nx, ny=ny, nr=4, deltaT=600.0)
+    cfg = dataclasses.replace(cfg, sNy=ny // 2, nSy=2)
+    grid = synthetic.gyre_grid(cfg, dtype=dtype, device="cpu")
+    si = seaice.SeaIce(cfg, grid, seaice.params_from_namelists(
+        cfg, {**synthetic.ICE_GYRE_SEAICE, **nml01}, nml03))
+    rng = np.random.default_rng(seed)
+    shape = tuple(grid.rA.shape)
+
+    def fld(lo, hi, mask=None):
+        a = torch.as_tensor(rng.uniform(lo, hi, shape), dtype=dtype)
+        return a * mask if mask is not None else a
+
+    hm = si.HEFFM
+    heff = fld(-0.2, 3.0, hm)
+    heff[::3, ::2] = 0.0
+    heff[1::4, ::3] = 5e-6
+    hsnow = fld(-0.05, 0.4, hm)
+    hsnow[::2, 1::3] = 0.0
+    ntr = si.p.SItrNumInUse
+    ice = si.init_state()._replace(
+        uIce=si.fill(fld(-0.3, 0.3, si.seaiceMaskU), impl="plain"),
+        vIce=si.fill(fld(-0.3, 0.3, si.seaiceMaskV), impl="plain"),
+        HEFF=heff, HSNOW=hsnow, AREA=fld(-0.1, 1.1, hm),
+        TICES=torch.stack([fld(240.0, 274.0) for _ in range(si.p.multDim)]),
+        SItracer=torch.stack([fld(-1.0, 5.0) for _ in range(ntr)])
+        if ntr else si.init_state().SItracer)
+    forc = SimpleNamespace(
+        atemp=fld(240.0, 275.0), aqh=fld(1e-4, 3e-3), precip=fld(0.0, 1e-7),
+        swdown=fld(0.0, 300.0), lwdown=fld(150.0, 320.0),
+        runoff=fld(0.0, 1e-8), wspeed=fld(0.0, 12.0),
+        evap=fld(-1e-8, 1e-8), Qnet=fld(-200.0, 300.0) * hm,
+        Qsw=fld(-200.0, 0.0) * hm, EmPmR=fld(-1e-5, 1e-5),
+        saltFlux=fld(-1e-3, 1e-3))
+    return si, ice, forc, fld(-2.2, 1.0), fld(30.0, 35.0)
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", SEAICE_HOST_VARIANTS)
+def test_seaice_advdiff(lib, on_mock, ny, nx, dtype, variant):
+    """SeaIce.advdiff's kernel path (seaice_advect's X and Y, with the
+    tracers where there are any, or LA's three launches) against its twin,
+    every padded cell of HEFF,
+    AREA, HSNOW and the tracers."""
+    si, ice, _, _, _ = seaice_host_case(DTYPES[dtype], 300 + nx, ny, nx,
+                                        variant)
+    got = si.advdiff(ice)
+    launched = dict(on_mock)
+    want = si.advdiff(ice, impl="plain")
+    legacy = si.p.advScheme in seaice.LEGACY_SCHEMES
+    assert launched == ({"seaice_advect_legacy": 3} if legacy else
+                        {"seaice_advect_x": 1, "seaice_advect_y": 1})
+    for name in ("HEFF", "AREA", "HSNOW", "SItracer"):
+        check_whole(getattr(got, name), getattr(want, name),
+                    f"{name} ({variant})")
+
+
+@pytest.mark.parametrize("ny,nx", SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ("fields", "tracers",
+                                     "tracers, scheme 33, diffKh"))
+def test_seaice_thermo(lib, on_mock, libm_math, ny, nx, dtype, variant):
+    """SeaIce.thermo's kernel path (seaice_thermo, or TP with the tracers)
+    against its twin (reg_ridge, growth and tracer_phys, with libm's exp
+    and a correctly rounded sqrt, as the kernel's on the host), every
+    padded cell of the ice, the tracers and the ocean's forcing."""
+    si, ice, forc, theta0, salt0 = seaice_host_case(
+        DTYPES[dtype], 310 + nx, ny, nx, variant)
+    got, got_f = si.thermo(ice, forc, theta0, salt0)
+    launched = dict(on_mock)
+    want, want_f = si.thermo(ice, forc, theta0, salt0, impl="plain")
+    tr = "_tr" if si.p.SItrNumInUse else ""
+    assert launched == {f"seaice_thermo{tr}": 1}
+    for name in ("HEFF", "HSNOW", "AREA", "TICES", "SItracer"):
+        check_whole(getattr(got, name), getattr(want, name),
+                    f"{name} ({variant})")
+    for name in want_f:
+        check_whole(got_f[name], want_f[name], f"{name} ({variant})")
+
+
+def test_seaice_slice_launches_refuse(lib):
+    """seaice_advect's launches take no tracer with a null tracer pointer
+    and refuse a negative count of tracers, a null tracer pointer with
+    tracers, a table of another length or an unknown scheme, LA's a
+    parameter array of another length, a pass outside 1-3 and a halo of
+    0, TP's a tracer parameter array of another length or a count of
+    tracers outside 1-8."""
+    bufs = [torch.zeros(12, 12, dtype=torch.float64) for _ in range(18)]
+    f = torch.zeros(5, 12, 12, dtype=torch.float64)
+    tab = table(bufs[:11])
+    x = lib.host_seaice_advect_x_f64
+    ok = (tab, 11, f.data_ptr(), f.data_ptr(), f.data_ptr(), 12, 12, 2, 77,
+          2, 2, 600.0)
+    assert x(*ok) == 0
+    assert x(*ok[:3], None, *ok[4:9], 0, *ok[10:]) == 0
+    for k, bad in ((9, -1), (3, None), (1, 10), (8, 7)):
+        args = list(ok)
+        args[k] = bad
+        assert x(*args) != 0, (k, bad)
+    la = lib.host_seaice_advect_legacy_f64
+    vals = [600.0, 4e-3, 0.0, 0.0, 0.0, 0.0]
+    params = (ctypes.c_double * 6)(*vals)
+    stacks = [torch.zeros(3, 12, 12, dtype=torch.float64) for _ in range(5)]
+    ok = (table(bufs[:13] + stacks), 18, params, 6, 12, 12, 2, 1)
+    assert la(*ok) == 0
+    for k, bad in ((3, 5), (7, 0), (7, 4), (6, 0), (1, 17)):
+        args = list(ok)
+        args[k] = bad
+        assert la(*args) != 0, (k, bad)
+    th = lib.host_seaice_thermo_tr_f64
+    si, _, _, _, _ = seaice_host_case(torch.float64, 1, 12, 12, "tracers")
+    tp = seaice_kernels.thermo_params(si)
+    trp = seaice_kernels.tracer_params(si)
+    p1 = (ctypes.c_double * len(tp))(*tp)
+    p2 = (ctypes.c_double * len(trp))(*trp)
+    tb = [torch.zeros(7, 12, 12, dtype=torch.float64) for _ in range(28)]
+    ok = (table(tb), 28, p1, len(tp), p2, len(trp), f.data_ptr(),
+          f.data_ptr(), 12, 12, 2, 7, 10)
+    assert th(*ok) == 0
+    for k, bad in ((5, len(trp) - 1), (6, None), (1, 27)):
+        args = list(ok)
+        args[k] = bad
+        assert th(*args) != 0, (k, bad)
+    trp[0] = 9
+    p9 = (ctypes.c_double * len(trp))(*trp)
+    assert th(*ok[:4], p9, *ok[5:]) != 0
